@@ -1,0 +1,139 @@
+"""K3: actor-critic forward with the action head (wrapper, plain version,
+launch count).
+
+Replaces the JAX package's ``models/abr_nets.py:_branch``,
+``MansyFeatureNet`` and ``MansyActorCritic.__call__`` (``:105-186``, with
+``use_action_values=False`` and ``av_logit_prior=0``) plus the action head of
+``rl/rollout.py:52-54`` and ``rl/runner.py:123-126``: log_softmax and the
+first-index argmax of ``logits + noise`` (Gumbel noise for sampling, none
+for the deterministic argmax).
+
+It reads the packed observation buffer of ``kernels/observe.py``.  On the
+H100 it is bound by f32 operations (~0.85 MFLOP a lane); ``csrc/
+actor_critic.cu`` keeps the [N, 1280] features on chip and runs in full f32
+(no TF32, no cuBLAS).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mansy_immersivevideostreaming_torch.kernels import build
+
+NUM_BRANCHES = 10
+HIDDEN = 128  # the kernel's hidden width
+MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
+
+
+class ActorCriticWeights(NamedTuple):
+    """MansyActorCritic's parameters in the layout the kernel reads (Flax's
+    [in, out] kernels).  Branch b maps columns ``branch_off[b]:
+    branch_off[b+1]`` of the packed observation to features ``128b:128b+128``
+    (block-diagonal, stored compactly by input rows); the last branch is
+    ``cond``."""
+    w_branch: torch.Tensor      # [748, H]
+    b_branch: torch.Tensor      # [10, H]
+    w_fc: torch.Tensor          # [10 H, 2 H]: actor_fc | critic_fc
+    b_fc: torch.Tensor          # [2 H]
+    w_actor_out: torch.Tensor   # [H, A]
+    b_actor_out: torch.Tensor   # [A]
+    w_critic_out: torch.Tensor  # [H, 1]
+    b_critic_out: torch.Tensor  # [1]
+    branch_off: Tuple[int, ...]  # 11 column offsets into the packed observation
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """Standard Gumbel noise, as ``jax.random.gumbel`` draws it: uniforms in
+    [tiny, 1) through ``-log(-log(u))``.  ``argmax(logits + noise)`` is then
+    a sample of ``softmax(logits)`` (the Gumbel-max rule of
+    ``jax.random.categorical``)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def action_head(logits: torch.Tensor, noise: Optional[torch.Tensor]):
+    """(action, log_prob): first-index argmax of ``logits + noise`` (of the
+    logits alone when ``noise`` is None) and its log-softmax probability."""
+    scores = logits if noise is None else logits + noise
+    action = scores.argmax(-1)
+    log_prob = F.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
+    return action.to(torch.int32), log_prob
+
+
+def actor_critic_forward_plain(w: ActorCriticWeights, x: torch.Tensor,
+                               noise: Optional[torch.Tensor] = None):
+    """Plain PyTorch version.  x: [N, >= 748] packed observations.  Returns
+    (logits [N, A], value [N], action i32 [N], log_prob [N])."""
+    feats = []
+    for b in range(NUM_BRANCHES):
+        lo, hi = w.branch_off[b], w.branch_off[b + 1]
+        feats.append(F.leaky_relu(x[:, lo:hi] @ w.w_branch[lo:hi] + w.b_branch[b], 0.01))
+    cond = feats[-1]
+    h = F.leaky_relu(torch.cat(feats, dim=-1) @ w.w_fc + w.b_fc, 0.01)
+    H = w.b_branch.shape[1]
+    logits = (h[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
+    value = ((h[:, H:] + cond) @ w.w_critic_out + w.b_critic_out)[:, 0]
+    action, log_prob = action_head(logits, noise)
+    return logits, value, action, log_prob
+
+
+class _ActorCriticArgs(ctypes.Structure):
+    """Mirror of ``ActorCriticArgs`` in ``csrc/actor_critic.cu``."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "x", "w_branch", "b_branch", "w_fc", "b_fc", "w_aout", "b_aout", "w_cout",
+        "b_cout", "noise", "logits", "value", "action", "log_prob")]
+        + [(f, ctypes.c_int32) for f in ("n_lanes", "ldx", "A")]
+        + [("branch_off", ctypes.c_int32 * (NUM_BRANCHES + 1))])
+
+
+def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,
+                         noise: Optional[torch.Tensor] = None):
+    """Policy forward and action head over the packed observations ``x``.
+    CPU tensors take :func:`actor_critic_forward_plain`; CUDA tensors launch
+    the kernel.  Returns (logits, value, action i32, log_prob)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return actor_critic_forward_plain(w, x, noise)
+    N = x.shape[0]
+    A = w.w_actor_out.shape[1]
+    if w.b_branch.shape != (NUM_BRANCHES, HIDDEN) or A > MAX_ACTIONS \
+            or x.shape[1] < w.branch_off[-1]:
+        raise ValueError(f"actor_critic kernel needs hidden {HIDDEN}, <= {MAX_ACTIONS} "
+                         f"actions and {w.branch_off[-1]} observation columns")
+    tensors = {"x": x, "w_branch": w.w_branch, "b_branch": w.b_branch, "w_fc": w.w_fc,
+               "b_fc": w.b_fc, "w_aout": w.w_actor_out, "b_aout": w.b_actor_out,
+               "w_cout": w.w_critic_out, "b_cout": w.b_critic_out}
+    if noise is not None:
+        tensors["noise"] = noise
+        if noise.shape != (N, A):
+            raise ValueError(f"actor_critic: noise must be [{N}, {A}], got {tuple(noise.shape)}")
+    for name, t in tensors.items():
+        contiguous = t.stride(-1) == 1 if name == "x" else t.is_contiguous()
+        if t.device != dev or t.dtype != torch.float32 or not contiguous:
+            raise ValueError(f"actor_critic: {name} must be a contiguous f32 tensor on {dev}")
+    logits = torch.empty((N, A), dtype=torch.float32, device=dev)
+    value = torch.empty(N, dtype=torch.float32, device=dev)
+    action = torch.empty(N, dtype=torch.int32, device=dev)
+    log_prob = torch.empty(N, dtype=torch.float32, device=dev)
+    args = _ActorCriticArgs(
+        **{k: t.data_ptr() for k, t in tensors.items()},
+        logits=logits.data_ptr(), value=value.data_ptr(), action=action.data_ptr(),
+        log_prob=log_prob.data_ptr(), n_lanes=N, ldx=x.stride(0), A=A,
+        branch_off=(ctypes.c_int32 * (NUM_BRANCHES + 1))(*w.branch_off))
+    lib = build.load("actor_critic")
+    lib.actor_critic_launch.argtypes = [ctypes.POINTER(_ActorCriticArgs), ctypes.c_void_p]
+    lib.actor_critic_launch.restype = ctypes.c_int
+    err = lib.actor_critic_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"actor_critic kernel launch failed with CUDA error {err}")
+    actor_critic_forward.launches += 1
+    return logits, value, action, log_prob
+
+
+actor_critic_forward.launches = 0

@@ -1,0 +1,125 @@
+"""MANSY actor-critic network (torch ``nn.Module``).
+
+Port of ``mansy_immersivevideostreaming_tpu/models/abr_nets.py``
+``MansyFeatureNet`` and ``MansyActorCritic`` (reference
+``bitrate_selection/models/mansy.py:5-80``), in the configuration the
+committed policies use: ``use_action_values=False`` and
+``av_logit_prior=0.0``.  The other settings need ``causal_action_values``,
+which a later port brings; the constructor refuses them until then.
+
+The network's math lives once, in ``kernels/actor_critic.py``: ``forward``
+packs the 13-field observation dict and runs the kernel's plain version;
+the rollout runs the hand-written kernel on
+:meth:`MansyActorCritic.packed_weights`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
+    ActorCriticWeights, actor_critic_forward_plain,
+)
+from mansy_immersivevideostreaming_torch.kernels.observe import obs_layout, NET_FIELDS
+from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+
+# (observation field, Flax branch name), in the feature net's concat order;
+# the cond branch comes last (abr_nets.py:124-136).
+BRANCHES = (("throughput", "throughput"), ("next_chunk_size", "next_size"),
+            ("next_chunk_quality", "next_quality"), ("pred_viewport", "pred_viewport"),
+            ("viewport_acc", "viewport_acc"), ("past_viewport_qualities", "past_vq"),
+            ("past_quality_variances", "past_var"), ("past_rebuffering", "past_rebuf"),
+            ("buffer", "buffer"))
+COND_BRANCH = "cond"
+
+
+def _linear(n_in: int, n_out: int, device) -> nn.Linear:
+    """Dense layer with the JAX package's init: orthogonal(sqrt 2), zero bias
+    (reference ``run_mansy.py:211-215``)."""
+    layer = nn.Linear(n_in, n_out, device=device)
+    nn.init.orthogonal_(layer.weight, gain=math.sqrt(2.0))
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class MansyFeatureNet(nn.Module):
+    """The 10 branch layers of the feature extractor (reference
+    ``mansy.py:5-51``), the cond branch last.  Their forward is the first
+    stage of :func:`actor_critic_forward_plain`."""
+
+    def __init__(self, in_dims: Dict[str, int], hidden_dim: int = 128,
+                 cond_key: str = "qoe_weight", device=None):
+        super().__init__()
+        self.branches = nn.ModuleDict(
+            {name: _linear(in_dims[key], hidden_dim, device) for key, name in BRANCHES})
+        self.branches[COND_BRANCH] = _linear(in_dims[cond_key], hidden_dim, device)
+
+
+class MansyActorCritic(nn.Module):
+    """Shared feature net + actor/critic heads with the conditional-feature
+    residual (reference ``mansy.py:54-80``, residual at ``:65``/``:79``)."""
+
+    def __init__(self, hidden_dim: int = 128, action_space: int = 15,
+                 use_action_values: bool = False, av_logit_prior: float = 0.0,
+                 past_k: int = 8, num_rates: int = 5, num_tiles: int = 64,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        if use_action_values or av_logit_prior:
+            raise NotImplementedError(
+                "MansyActorCritic: use_action_values / av_logit_prior need "
+                "causal_action_values, which is not ported yet")
+        dev = resolve_device(device)
+        self.dims = (past_k, num_rates, num_tiles, action_space)
+        layout = obs_layout(*self.dims)
+        in_dims = {name: int(torch.Size(shape).numel()) for name, _, shape in layout}
+        self.feature_net = MansyFeatureNet(in_dims, hidden_dim, "qoe_weight", dev)
+        width = hidden_dim * (len(BRANCHES) + 1)
+        self.actor_fc = _linear(width, hidden_dim, dev)
+        self.actor_out = _linear(hidden_dim, action_space, dev)
+        self.critic_fc = _linear(width, hidden_dim, dev)
+        self.critic_out = _linear(hidden_dim, 1, dev)
+        self._packed = None  # (parameter key, ActorCriticWeights) of packed_weights
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits [N, A], value [N]) from the observation dict: the dict
+        packed into the kernel's layout, through the kernel's plain version
+        (differentiable in the parameters)."""
+        layout = obs_layout(*self.dims)[:NET_FIELDS]
+        n = obs[layout[0][0]].shape[0]
+        x = torch.cat([obs[name].reshape(n, -1) for name, _, _ in layout], dim=1)
+        logits, value, _, _ = actor_critic_forward_plain(self._pack(), x)
+        return logits, value
+
+    def _pack(self) -> ActorCriticWeights:
+        """The parameters in the actor-critic kernel's layout (Flax's
+        [in, out] kernels)."""
+        layout = obs_layout(*self.dims)[:NET_FIELDS]
+        names = [name for _, name in BRANCHES] + [COND_BRANCH]
+        branches = [self.feature_net.branches[n] for n in names]
+        offsets = [off for _, off, _ in layout]
+        offsets.append(offsets[-1] + branches[-1].in_features)
+        kernel = lambda layer: layer.weight.t().contiguous()
+        return ActorCriticWeights(
+            w_branch=torch.cat([kernel(b) for b in branches], dim=0),
+            b_branch=torch.stack([b.bias for b in branches]),
+            w_fc=torch.cat([kernel(self.actor_fc), kernel(self.critic_fc)], dim=1),
+            b_fc=torch.cat([self.actor_fc.bias, self.critic_fc.bias]),
+            w_actor_out=kernel(self.actor_out), b_actor_out=self.actor_out.bias,
+            w_critic_out=kernel(self.critic_out), b_critic_out=self.critic_out.bias,
+            branch_off=tuple(offsets))
+
+    def packed_weights(self) -> ActorCriticWeights:
+        """A detached copy of :meth:`_pack`, for the kernels.  Cached, and
+        packed anew only after a parameter was replaced or changed in place
+        (its storage or its version counter moved)."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                w = self._pack()
+            self._packed = (key, w._replace(**{f: getattr(w, f).detach().clone()
+                                               for f in w._fields[:-1]}))
+        return self._packed[1]

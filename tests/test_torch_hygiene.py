@@ -1,0 +1,100 @@
+"""The PyTorch port's import and device rules.
+
+* No module of ``mansy_immersivevideostreaming_torch`` imports JAX, Flax,
+  Optax, Orbax or the JAX package (an AST scan, and a fresh interpreter that
+  imports the port's runner without pulling in ``jax``).
+* Entry points default to the card and raise where there is none, instead
+  of running on the CPU unasked.
+* A kernel wrapper given CPU tensors runs its plain PyTorch version and
+  counts no launch.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mansy_immersivevideostreaming_torch as port
+from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+from mansy_immersivevideostreaming_torch.kernels import observe as K2
+from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
+from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
+
+PACKAGE = Path(port.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mansy_immersivevideostreaming_tpu")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _imported_roots(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    files = sorted(PACKAGE.rglob("*.py"))
+    assert len(files) >= 20
+    for path in files:
+        roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+        assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
+
+
+def test_runner_import_pulls_in_no_jax():
+    code = ("import sys; import mansy_immersivevideostreaming_torch.rl.runner; "
+            "import mansy_immersivevideostreaming_torch.cli.run_mansy; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
+            "assert not bad, bad" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the entry points would run on it")
+    for entry in (lambda: synthetic_sim_tables(), lambda: load_npz_policy(),
+                  lambda: MansyActorCritic()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+
+
+def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
+    for fn in (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward):
+        fn.launches = 0
+    tables = synthetic_sim_tables(device="cpu")
+    samples = torch.as_tensor(generate_environment_samples(2, 2, 2, 2))
+    torch.manual_seed(0)
+    policy = MansyActorCritic(device="cpu")
+    state = init_lanes(tables, samples, 8)
+    x = K2.observe_mansy_pack(tables, state)
+    torch.testing.assert_close(x, K2.observe_mansy_pack_plain(tables, state), rtol=0, atol=0)
+    w = policy.packed_weights()
+    noise = K3.gumbel_noise((8, 15), torch.Generator().manual_seed(1), torch.device("cpu"))
+    got = K3.actor_critic_forward(w, x, noise)
+    for a, b in zip(got, K3.actor_critic_forward_plain(w, x, noise)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    actions = torch.as_tensor(np.arange(8, dtype=np.int32))
+    new, reward, done, log = K1.env_step(tables, samples, state, actions, 8, True)
+    ref = K1.env_step_plain(tables, samples, state, actions, 8, True)
+    torch.testing.assert_close(reward, ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(new.buf, ref[0].buf, rtol=0, atol=0)
+    assert new is not state  # the plain path returns a new state
+    assert (K1.env_step.launches, K2.observe_mansy_pack.launches,
+            K3.actor_critic_forward.launches) == (0, 0, 0)
