@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain PyTorch version, serves the v9 policy
-over a test grid and collects a rollout, all through the port's own entry
+over a test grid, collects a rollout, runs the MPC expert over a test grid
+and serves the action-value policy v16, all through the port's own entry
 points.  It imports no JAX.
 
     python3 chip_smoke.py
@@ -9,19 +10,30 @@ points.  It imports no JAX.
 Phases:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. kernels: build K1-K3 with nvcc (in parallel) and compare each kernel with
-   its plain version on the same card tensors at the main path's shapes
-   (8192 lanes on tables of the Jin2022/4G train split's shape); time both
-   with CUDA events and print the ``kernels`` JSON line.
+2. kernels: build K1-K5 with nvcc (in parallel) and compare each kernel with
+   its plain version on the same card tensors at the main paths' shapes
+   (8192 lanes on tables of the Jin2022/4G train split's shape; K4 on 512
+   lanes at horizon 4 in every mode; K5 on the train split's tables; K2 and
+   K3 again with the action values and the v16 weights); time both with
+   CUDA events and print the ``kernels`` JSON line.
 3. serve: deterministic evaluation of the committed v9 weights over the
    1440-episode test grid's shape, in lane chunks of 512; every lane must
    finish an episode, and the first-done masks and every episode record
    must match the plain path on the card.
 4. collect: the sampling rollout collector, 8192 lanes x 128 steps.
+5. expert: ``run_expert_episodes`` over the 1440-episode grid at the CLI's
+   defaults (horizon 4, lane chunks of 64), privileged mode, on K5's
+   tables; every lane finishes an episode, and the run is held against the
+   plain path on the card (every lane: equal masks; equal episode records
+   unless the lane's first differing decision was a near-tie).
+6. serve-v16: K5 attaches the accuracy-corrected action-value tables, then
+   the committed v16 weights are served deterministically over the
+   1440-episode grid, held against the plain path as in phase 3.
 
-Serve and collect are each timed over several passes (median and spread
-of the host-clock rate); every pass must launch each kernel exactly once a
-step (K2 and K3 once more per collect, for the bootstrap value).
+Each path is timed over several passes (median and spread of the host-clock
+rate); every pass must launch each kernel exactly as often as the path has
+steps (K2 and K3 once more per collect, for the bootstrap value; K4 and K1
+once a decision in the expert phase; K5 once a split, at setup).
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -30,6 +42,7 @@ Every phase raises on failure; the last line of a successful run is the
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,8 +61,14 @@ COLLECT_STEPS = 128
 TRAIN_SHAPE = (18, 45, 24, 60, 4)   # videos, users, traces, chunks, prefs (train split)
 TEST_SHAPE = (3, 15, 8, 60, 4)      # the 1440-episode test grid
 SERVE_CHUNK = 512
-PASSES = 5              # timed passes of serve and collect (median and spread)
+PASSES = 5              # timed passes of serve, collect and serve-v16 (median and spread)
 RTOL = 1e-5
+HORIZON = 4             # the expert's default lookahead (run_expert --horizon)
+EXPERT_CHUNK = 64       # run_expert --lane-chunk default
+SEARCH_LANES = 512      # lanes of K4's kernel check
+EXPERT_PASSES = 3       # timed passes of the expert path
+NEAR_TIE = 1e-5         # first-action margin (over the weight sum) of a near-tie
+MISPREDICT = 0.15       # share of tiles the synthetic predicted viewport gets wrong
 
 PKG = "mansy_immersivevideostreaming_torch"
 KERNELS = {
@@ -60,6 +79,10 @@ KERNELS = {
     "actor_critic_forward": dict(route="cuda", source=f"{PKG}/kernels/csrc/actor_critic.cu",
                                  replaces="mansy_immersivevideostreaming_tpu/models/"
                                           "abr_nets.py:166"),
+    "choose_action": dict(route="cuda", source=f"{PKG}/kernels/csrc/choose_action.cu",
+                          replaces="mansy_immersivevideostreaming_tpu/sim/expert.py:184"),
+    "build_expert_tables": dict(route="cuda", source=f"{PKG}/kernels/csrc/expert_tables.cu",
+                                replaces="mansy_immersivevideostreaming_tpu/sim/expert.py:67"),
 }
 
 
@@ -196,43 +219,57 @@ def env_step_bytes(tables, samples, state, actions) -> int:
 def observe_bytes(tables, state, width: int) -> int:
     """Bytes K2 must move: the lane state it reads, the distinct chunk slabs
     (size and quality, every version) and predicted viewport rows, the
-    distinct preference rows, and the [N, F] output."""
+    distinct rows of the attached action-value tables, the distinct
+    preference rows, and the [N, F] output."""
     V, C, R, T = tables.sizes.shape
     K, A, U = tables.past_k, tables.action_space, tables.pred.shape[1]
     N = state.buf.shape[0]
     v, u, c = state.video, state.user, state.next_chunk
     per_lane = 5 * 4 + 7 * K * 4 + A * 4 + width * 4
+    av_tables = sum(getattr(tables, f) is not None for f in (
+        "av_quality", "av_intra", "av_size", "av_out_quality", "av_out_intra"))
+    if av_tables:
+        per_lane += 4 + 1  # prev_quality, has_prev
     return (N * per_lane + n_unique(v, c, sizes=(V, C)) * 2 * R * T * 4
-            + n_unique(v, u, c, sizes=(V, U, C)) * T * 4
+            + n_unique(v, u, c, sizes=(V, U, C)) * (T + av_tables * A) * 4
             + n_unique(state.qoe_id, sizes=(tables.qoe_weights.shape[0],)) * 3 * 4)
 
 
 def actor_critic_cost(w, N: int, A: int):
     """(flops, bytes) of K3: the branch, fc and head products (2 flops per
-    multiply-add) and the log-softmax; inputs read and outputs written once."""
+    multiply-add), the logit prior's standardization (about 6 flops an
+    action) and the log-softmax; inputs read and outputs written once."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import TENSOR_FIELDS
     H = w.b_branch.shape[1]
-    fin = w.branch_off[-1]
-    flops = N * (2 * (fin * H + 10 * H * 2 * H + H * (A + 1)) + 4 * A)
-    weight_bytes = sum(t.numel() * 4 for t in w[:-1])
+    nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
+    flops = N * (2 * (fin * H + nb * H * 2 * H + H * (A + 1)) + 4 * A
+                 + (6 * A if w.av_prior else 0))
+    weight_bytes = sum(getattr(w, f).numel() * 4 for f in TENSOR_FIELDS)
     return flops, N * (fin + A) * 4 + weight_bytes + N * (A + 3) * 4
 
 
 def library_actor_critic(w):
     """The same function as one composition of torch matmuls over a dense
     block-diagonal branch weight: the yardstick (library_ms) only."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import COND_BRANCH_INDEX
     H = w.b_branch.shape[1]
-    fin = w.branch_off[-1]
-    wbd = torch.zeros((fin, 10 * H), device=w.w_branch.device)
-    for b in range(10):
+    nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
+    wbd = torch.zeros((fin, nb * H), device=w.w_branch.device)
+    for b in range(nb):
         lo, hi = w.branch_off[b], w.branch_off[b + 1]
         wbd[lo:hi, b * H:(b + 1) * H] = w.w_branch[lo:hi]
     bias = w.b_branch.reshape(-1)
+    cond_cols = slice(COND_BRANCH_INDEX * H, (COND_BRANCH_INDEX + 1) * H)
 
     def fn(x, noise):
         feats = torch.nn.functional.leaky_relu(x[:, :fin] @ wbd + bias, 0.01)
-        cond = feats[:, -H:]
+        cond = feats[:, cond_cols]
         h = torch.nn.functional.leaky_relu(feats @ w.w_fc + w.b_fc, 0.01)
         logits = (h[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
+        if w.av_prior:
+            av = x[:, w.av_off:w.av_off + logits.shape[1]]
+            logits = logits + w.av_prior * (av - av.mean(-1, keepdim=True)) / (
+                av.std(-1, correction=0, keepdim=True) + 1e-6)
         value = (h[:, H:] + cond) @ w.w_critic_out + w.b_critic_out
         logp = torch.log_softmax(logits, -1)
         action = (logits + noise).argmax(-1)
@@ -322,6 +359,228 @@ def kernel_phase(dev):
     return rows
 
 
+# ---------------------------------------------------------------- phase 2b
+
+def perturb_pred(tables, seed: int):
+    """The tables with a predicted viewport that gets MISPREDICT of the tiles
+    wrong: synthetic tables predict perfectly, so the expert's gt, pred, dep
+    and out variants would coincide."""
+    gt = tables.gt.cpu().numpy()
+    flip = np.random.default_rng(seed).random(gt.shape) < MISPREDICT
+    return tables._replace(pred=torch.as_tensor(np.where(flip, 1.0 - gt, gt),
+                                                device=tables.device))
+
+
+def cat_states(states):
+    """Concatenate (nested) NamedTuples of [N, ...] tensors along the lanes."""
+    if isinstance(states[0], tuple):
+        return type(states[0])(*(cat_states([s[i] for s in states])
+                                 for i in range(len(states[0]))))
+    return torch.cat(states)
+
+
+def search_lanes(tables, samples, dev):
+    """SEARCH_LANES lanes for K4: half 7 steps into their episodes, half 52
+    (their horizon crosses end_chunk), stepped by the plain env step, with
+    varied accuracy histories (synthetic vp_acc is all ones)."""
+    from mansy_immersivevideostreaming_torch.kernels.env_step import env_step_plain
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+    rng = np.random.default_rng(2)
+    n = SEARCH_LANES // 2
+    parts = []
+    for steps, seed in ((7, 0), (52, 1000)):
+        state = init_lanes(tables, samples, n, seed=seed)
+        for _ in range(steps):
+            acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=dev)
+            state, *_ = env_step_plain(tables, samples, state, acts, n, True)
+        parts.append(state)
+    state = cat_states(parts)
+    acc = state.past_acc
+    varied = torch.as_tensor(rng.uniform(0.2, 1.0, acc.shape).astype(np.float32), device=dev)
+    return state._replace(past_acc=torch.where(acc > 0, varied, acc))
+
+
+def valid_steps(tables, state, horizon: int) -> torch.Tensor:
+    """[N] steps of each lane's horizon before its end_chunk."""
+    end = tables.end_chunk[state.video.long(), state.user.long()]
+    return torch.clamp(end - state.next_chunk + 1, 0, horizon)
+
+
+def search_flops(tables, state, horizon: int) -> int:
+    """f32 operations of K4's privileged search, counted as a tree: a lane
+    with hv steps before its end_chunk needs sum_{k=1..hv} 15^k virtual
+    steps.  A step is 14 operations (push_chunk, the QoE and the running
+    total) plus the download's 20 operations and ceil(log2(L+1)) compares
+    of the prefix search; the argmax adds one compare for each of the 15^h
+    totals."""
+    A, L = tables.action_space, tables.bw.shape[1]
+    per_step = 14 + 20 + math.ceil(math.log2(L + 1))
+    steps = sum(sum(A ** k for k in range(1, hv + 1))
+                for hv in valid_steps(tables, state, horizon).tolist())
+    return steps * per_step + state.buf.shape[0] * A ** horizon
+
+
+def expert_tables_cost(tables, A: int):
+    """(flops, bytes) of K5.  Per (v, u, c): the two viewport rows read and
+    the complement (2 x 64 operations); per action two size sums (63 adds
+    each) and four evaluations (vp sum, vp q and its sum, |q - quality|,
+    its product and sum: 3 x 63 + 3 x 64 operations and 2 divisions).
+    Bytes: viewports and slabs read once, the ten tables written once."""
+    V, U, C, T = tables.gt.shape
+    R = tables.sizes.shape[2]
+    rows = V * U * C
+    flops = rows * (2 * T + A * (2 * (T - 1) + 4 * (3 * (T - 1) + 3 * T + 2)))
+    nbytes = rows * 2 * T * 4 + V * C * R * T * 2 * 4 + rows * A * 10 * 4
+    return flops, nbytes
+
+
+def check_search(name, got, ref_action, ref_margin, first, wsum):
+    """K4 against its plain version by the near-tie rule: the action equal
+    on every lane whose plain first-action margin exceeds NEAR_TIE, and
+    elsewhere one whose first-action value is within NEAR_TIE of the best
+    (both over the weight sum); the margins equal to 1e-5.  Returns (lanes
+    under the margin, lanes whose action differs, max margin error)."""
+    action, margin = got
+    decisive = ref_margin > NEAR_TIE
+    if not bool((action[decisive] == ref_action[decisive]).all()):
+        raise AssertionError(f"choose_action ({name}): another action than the plain version "
+                             f"on {int((action != ref_action)[decisive].sum())} decisive lanes")
+    gap = (first.amax(-1) - first.gather(1, action.long()[:, None])[:, 0]) / wsum
+    if not bool((gap <= NEAR_TIE).all()):
+        raise AssertionError(f"choose_action ({name}): an action {float(gap.max())} below "
+                             f"the best first-action value")
+    err = float((margin - ref_margin).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"choose_action ({name}): margins differ by {err}")
+    return int((~decisive).sum()), int((action != ref_action).sum()), err
+
+
+def expert_kernel_phase(dev):
+    """K5 on the train split's tables, K4 on SEARCH_LANES lanes in every mode
+    at horizon 4, then K2 and K3 at LANES with the action values attached and
+    the v16 weights.  Returns (rows of K4 and K5, K2 and K3's extra fields)."""
+    from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+    from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
+    from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+    from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+    from mansy_immersivevideostreaming_torch.kernels import observe as K2
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+    from mansy_immersivevideostreaming_torch.sim import expert as X
+    from mansy_immersivevideostreaming_torch.sim.env import (
+        generate_environment_samples, viewport_acc_estimate,
+    )
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V16_NPZ, load_npz_policy,
+    )
+
+    V, U, NT, C, Q = TRAIN_SHAPE
+    tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev), seed=0)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
+    A = tables.action_space
+    rows, extra = {}, {}
+
+    # K5
+    etables = K5.build_expert_tables(tables)
+    ref = X.build_expert_tables_plain(tables)
+    for name, g, r in zip(X.ExpertTables._fields, etables, ref):
+        if not bool(close(g, r).all()):
+            raise AssertionError(f"build_expert_tables: {name} disagrees with its plain version")
+    flops, nbytes = expert_tables_cost(tables, A)
+    rows["build_expert_tables"] = dict(
+        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(etables, ref)),
+        ms=gpu_ms(lambda: K5.build_expert_tables(tables)),
+        plain_ms=gpu_ms(lambda: X.build_expert_tables_plain(tables), 3),
+        bound_ms=1e3 * max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S),
+        bound_by="operations" if flops / F32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        library_ms=None)
+    del ref
+
+    # K4, every mode at horizon 4, with the margin
+    state = search_lanes(tables, samples, dev)
+    N = state.buf.shape[0]
+    wsum = tables.qoe_weights[state.qoe_id.long()].sum(-1)
+    bw_hat = X.causal_bw_estimate(tables, state)
+    acc_hat = viewport_acc_estimate(state.past_acc)
+    use_corr = torch.arange(N, device=dev) % 2 == 0
+    modes = {"trace": (None, None, None), "bw_hat": (bw_hat, None, None),
+             "acc_hat": (None, acc_hat, None), "use_corr": (bw_hat, acc_hat, use_corr)}
+    checks, err = {}, 0.0
+    for mode, (bw, acc, corr) in modes.items():
+        got = K4.choose_action(tables, etables, state, HORIZON, bw, acc, corr,
+                               return_margin=True)
+        totals = X.sequence_totals(tables, etables, state, HORIZON, bw, acc, corr)
+        first = X.first_action_values(totals, A)
+        ref_action, ref_margin = X.choose_action_plain(tables, etables, state, HORIZON, bw,
+                                                       acc, corr, return_margin=True)
+        near, differ, m_err = check_search(mode, got, ref_action, ref_margin, first, wsum)
+        if not torch.equal(K4.choose_action(tables, etables, state, HORIZON, bw, acc, corr),
+                           got[0]):
+            raise AssertionError(f"choose_action ({mode}): the margin changes the action")
+        checks[mode] = dict(lanes_under_margin=near, lanes_differing=differ)
+        err = max(err, m_err)
+        del totals, first
+    log(f"choose_action checks on {N} lanes: {json.dumps(checks)}")
+    flops = search_flops(tables, state, HORIZON)
+    # the expert path's width: one lane chunk of lanes 7 steps into their episodes
+    chunk = type(state)(*(x[:EXPERT_CHUNK] if isinstance(x, torch.Tensor) else
+                          type(x)(*(y[:EXPERT_CHUNK] for y in x)) for x in state))
+    rows["choose_action"] = dict(
+        max_abs_err=err, lanes=N, horizon=HORIZON, checks=checks,
+        ms=gpu_ms(lambda: K4.choose_action(tables, etables, state, HORIZON)),
+        plain_ms=gpu_ms(lambda: X.choose_action_plain(tables, etables, state, HORIZON), 3),
+        bound_ms=1e3 * flops / F32_FLOP_PER_S, bound_by="operations", library_ms=None,
+        expert_chunk=dict(lanes=EXPERT_CHUNK,
+                          ms=gpu_ms(lambda: K4.choose_action(tables, etables, chunk, HORIZON)),
+                          bound_ms=1e3 * search_flops(tables, chunk, HORIZON) / F32_FLOP_PER_S))
+    del state, chunk
+
+    # K2 with the accuracy-corrected action values, K3 with v16, at LANES
+    tav = X.attach_action_values(tables, etables, acc_correct=True)
+    lanes = init_lanes(tav, samples, LANES)
+    rng = np.random.default_rng(3)
+    for _ in range(7):
+        acts = torch.as_tensor(rng.integers(0, 15, LANES).astype(np.int32), device=dev)
+        lanes, *_ = K1.env_step_plain(tav, samples, lanes, acts, LANES, True)
+    x = K2.observe_mansy_pack(tav, lanes)
+    x_ref = K2.observe_mansy_pack_plain(tav, lanes)
+    if not bool(close(x, x_ref).all()):
+        raise AssertionError("observe_mansy_pack with action values disagrees with its plain "
+                             "version")
+    out = torch.empty_like(x)
+    extra["observe_mansy_pack"] = dict(
+        max_abs_err=float((x - x_ref).abs().max()), width=x.shape[1],
+        ms=gpu_ms(lambda: K2.observe_mansy_pack(tav, lanes, out=out)),
+        plain_ms=gpu_ms(lambda: K2.observe_mansy_pack_plain(tav, lanes), 5),
+        bound_ms=1e3 * observe_bytes(tav, lanes, x.shape[1]) / HBM_BYTES_PER_S,
+        bound_by="bytes")
+    w = load_npz_policy(DAGGER_V16_NPZ, device=dev).packed_weights()
+    got = K3.actor_critic_forward(w, x)
+    ref = K3.actor_critic_forward_plain(w, x)
+    for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        if not bool(close(g, r).all()):
+            raise AssertionError("actor_critic_forward (v16) disagrees with its plain version")
+    top2 = ref[0].topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
+    if not bool((got[2] == ref[2])[decisive].all()):
+        raise AssertionError("actor_critic_forward (v16) picks other actions than its plain "
+                             "version")
+    flops, nbytes = actor_critic_cost(w, LANES, A)
+    lib = library_actor_critic(w)
+    zeros = torch.zeros((LANES, A), device=dev)
+    extra["actor_critic_forward"] = dict(
+        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
+        branches=len(w.branch_off) - 1, av_prior=w.av_prior,
+        ms=gpu_ms(lambda: K3.actor_critic_forward(w, x)),
+        plain_ms=gpu_ms(lambda: K3.actor_critic_forward_plain(w, x)),
+        bound_ms=1e3 * max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S),
+        bound_by="operations" if flops / F32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        library_ms=gpu_ms(lambda: lib(x, zeros)))
+    return rows, extra
+
+
 # ----------------------------------------------------------------- phase 3
 
 def plain_serve(policy, tables, samples):
@@ -355,13 +614,18 @@ def plain_serve(policy, tables, samples):
     return all_logs, all_masks
 
 
-def timed_passes(run, counters, want):
-    """Run ``run()`` PASSES times on the host clock, each ended by a
+def expect(counters, **launches):
+    """Launches of one pass: ``launches`` by name, 0 for every other kernel."""
+    return {fn.__name__: launches.get(fn.__name__, 0) for fn in counters}
+
+
+def timed_passes(run, counters, want, passes: int = PASSES):
+    """Run ``run()`` ``passes`` times on the host clock, each ended by a
     synchronize.  Every count is set to 0 just before each pass and read
     just after it; each pass must launch each kernel ``want[name]`` times.
     Returns (last pass's result, seconds of each pass, launches of a pass)."""
     seconds = []
-    for _ in range(PASSES):
+    for _ in range(passes):
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
@@ -382,49 +646,75 @@ def rate_stats(work: int, seconds) -> dict:
                 spread=(rates[-1] - rates[0]) / statistics.median(rates))
 
 
-def serve_phase(dev, counters):
-    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
-    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
-    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
-    from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
-
-    V, U, NT, C, Q = TEST_SHAPE
-    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
-    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
-    policy = load_npz_policy(device=dev)
-    evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
-    steps = -(-samples.shape[0] // SERVE_CHUNK) * episode_step_bound(tables)
-    (logs, masks), seconds, launches = timed_passes(
-        lambda: evaluate(policy, tables, samples, lane_chunk=SERVE_CHUNK, deterministic=True),
-        counters, {fn.__name__: steps for fn in counters})
-    n_eps = int(sum(m.sum() for m in masks))
-    if n_eps != samples.shape[0]:
-        raise AssertionError(f"serve: {n_eps} of {samples.shape[0]} lanes finished an episode")
-    ref_logs, ref_masks = plain_serve(policy, tables, samples)
+def compare_serve(logs, masks, ref_logs, ref_masks, label: str) -> dict:
+    """Hold a served grid to the plain path's: equal first-done masks, and
+    every episode record equal (ints exact, floats rtol = atol = 1e-5, as
+    test_torch_slice).  Returns the mean QoE of both."""
     for m, rm in zip(masks, ref_masks):
         if not np.array_equal(m, rm):
-            raise AssertionError("serve: first-done masks differ from the plain path's")
-    differing = 0  # per episode: ints exact, floats rtol = atol = 1e-5 (test_torch_slice)
+            raise AssertionError(f"{label}: first-done masks differ from the plain path's")
+    differing = 0
     for name in logs[0]._fields:
         got = np.concatenate([getattr(l, name).cpu().numpy()[m] for l, m in zip(logs, masks)])
         ref = np.concatenate([getattr(l, name).cpu().numpy()[m]
                               for l, m in zip(ref_logs, ref_masks)])
         if np.issubdtype(ref.dtype, np.floating):
             if not np.isfinite(got).all():
-                raise AssertionError(f"serve: non-finite {name}")
+                raise AssertionError(f"{label}: non-finite {name}")
             differing += int((np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).sum())
         else:
             differing += int((got != ref).sum())
         if name == "qoe":
             qoe, ref_qoe = got, ref
     if differing:
-        raise AssertionError(f"serve: {differing} episode records differ from the plain path")
+        raise AssertionError(f"{label}: {differing} episode records differ from the plain path")
+    return dict(mean_qoe=float(qoe.mean()), plain_mean_qoe=float(ref_qoe.mean()),
+                episodes_differing=differing)
+
+
+def serve_phase(dev, counters, v16: bool = False):
+    """Serve the v9 weights, or with ``v16`` the v16 weights on tables whose
+    accuracy-corrected action values K5 attaches, over the test grid."""
+    from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
+    from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, DAGGER_V16_NPZ, load_npz_policy,
+    )
+
+    label = "serve-v16" if v16 else "serve"
+    V, U, NT, C, Q = TEST_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
+    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
+    policy = load_npz_policy(DAGGER_V16_NPZ if v16 else DAGGER_V9_NPZ, device=dev)
+    setup = 0
+    if v16:
+        tables = perturb_pred(tables, seed=1)
+        K5.build_expert_tables.launches = 0
+        tables = attach_action_values(tables, K5.build_expert_tables(tables),
+                                      acc_correct=policy.acc_correct_obs)
+        setup = K5.build_expert_tables.launches
+        if setup != 1:
+            raise AssertionError(f"{label}: K5 launched {setup} times at setup, expected 1")
+    evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
+    steps = -(-samples.shape[0] // SERVE_CHUNK) * episode_step_bound(tables)
+    (logs, masks), seconds, launches = timed_passes(
+        lambda: evaluate(policy, tables, samples, lane_chunk=SERVE_CHUNK, deterministic=True),
+        counters, expect(counters, env_step=steps, observe_mansy_pack=steps,
+                         actor_critic_forward=steps))
+    n_eps = int(sum(m.sum() for m in masks))
+    if n_eps != samples.shape[0]:
+        raise AssertionError(f"{label}: {n_eps} of {samples.shape[0]} lanes finished an episode")
+    ref_logs, ref_masks = plain_serve(policy, tables, samples)
+    qoe = compare_serve(logs, masks, ref_logs, ref_masks, label)
     rate = rate_stats(n_eps, seconds)
+    launches["build_expert_tables"] += setup
     return dict(episodes=n_eps, steps=steps, passes=PASSES, seconds=seconds,
                 episodes_per_s_median=rate["median"], episodes_per_s_min=rate["min"],
-                episodes_per_s_max=rate["max"], spread=rate["spread"],
-                mean_qoe=float(qoe.mean()), plain_mean_qoe=float(ref_qoe.mean()),
-                episodes_differing=differing, launches=launches)
+                episodes_per_s_max=rate["max"], spread=rate["spread"], **qoe,
+                launches=launches)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -449,8 +739,8 @@ def collect_phase(dev, counters):
         lanes[0], *rest = collect(policy, lanes[0], gen)
         return rest
 
-    want = {"env_step": COLLECT_STEPS, "observe_mansy_pack": COLLECT_STEPS + 1,
-            "actor_critic_forward": COLLECT_STEPS + 1}
+    want = expect(counters, env_step=COLLECT_STEPS, observe_mansy_pack=COLLECT_STEPS + 1,
+                  actor_critic_forward=COLLECT_STEPS + 1)
     (traj, logs, last_values), seconds, launches = timed_passes(run, counters, want)
     T, N = COLLECT_STEPS, LANES
     if traj.reward.shape != (T, N) or traj.obs["next_chunk_size"].shape != (T, N, 5, 64):
@@ -469,12 +759,134 @@ def collect_phase(dev, counters):
                 mean_step_reward=float(traj.reward.mean()), launches=launches)
 
 
+# ----------------------------------------------------------------- phase 5
+
+def plain_expert(tables, etables, samples):
+    """The expert path through the plain versions only, lane chunk by lane
+    chunk: (LogRecord [T, n], first-done mask, actions [T, n], the plain
+    first-action margin [T, n] and first-action values [T, n, A], both over
+    the weight sum)."""
+    from mansy_immersivevideostreaming_torch.kernels.env_step import env_step_plain
+    from mansy_immersivevideostreaming_torch.rl.rollout import stack_logs
+    from mansy_immersivevideostreaming_torch.rl.runner import (
+        episode_step_bound, first_done_mask,
+    )
+    from mansy_immersivevideostreaming_torch.sim import expert as X
+    from mansy_immersivevideostreaming_torch.sim.env import reset_env
+
+    A = tables.action_space
+    out = []
+    for s0 in range(0, samples.shape[0], EXPERT_CHUNK):
+        sub = samples[s0:s0 + EXPERT_CHUNK]
+        n = sub.shape[0]
+        state = reset_env(tables, sub, torch.arange(n, dtype=torch.int32, device=sub.device), n)
+        logs, actions, margins, firsts = [], [], [], []
+        for _ in range(episode_step_bound(tables)):
+            totals = X.sequence_totals(tables, etables, state, HORIZON)
+            wsum = tables.qoe_weights[state.qoe_id.long()].sum(-1)
+            first = X.first_action_values(totals, A) / wsum[:, None]
+            top2 = first.topk(2, dim=-1).values
+            action = (totals.argmax(-1) % A).to(torch.int32)
+            state, _, _, log_ = env_step_plain(tables, sub, state, action, n, False)
+            logs.append(log_)
+            actions.append(action)
+            margins.append(top2[:, 0] - top2[:, 1])
+            firsts.append(first)
+        logs = stack_logs(logs)
+        out.append((logs, first_done_mask(logs.done.cpu().numpy()),
+                    torch.stack(actions).cpu().numpy(), torch.stack(margins).cpu().numpy(),
+                    torch.stack(firsts).cpu().numpy()))
+    return out
+
+
+def compare_expert(chunks, ref_chunks) -> dict:
+    """Hold the expert path to the plain path's, lane by lane: equal
+    first-done masks; up to its first episode end, a lane takes the plain
+    path's actions and then has equal episode records (ints exact, floats
+    rtol = atol = 1e-5), or its first differing decision is a near-tie (the
+    plain margin at most NEAR_TIE and the kernel's action within NEAR_TIE of
+    the best first-action value).  Returns the counts."""
+    near_tie, same = 0, 0
+    for (logs, mask, actions, _), (rlogs, rmask, ractions, rmargin, rfirst) in zip(
+            chunks, ref_chunks):
+        if not np.array_equal(mask, rmask):
+            raise AssertionError("expert: first-done masks differ from the plain path's")
+        logs = {name: x.cpu().numpy() for name, x in logs._asdict().items()}
+        rlogs = {name: x.cpu().numpy() for name, x in rlogs._asdict().items()}
+        for lane in range(mask.shape[1]):
+            t_end = int(np.argwhere(mask[:, lane])[0][0])
+            diff = np.flatnonzero(actions[:t_end + 1, lane] != ractions[:t_end + 1, lane])
+            if diff.size:
+                t = int(diff[0])
+                gap = rfirst[t, lane].max() - rfirst[t, lane, actions[t, lane]]
+                if rmargin[t, lane] > NEAR_TIE or gap > NEAR_TIE:
+                    raise AssertionError(
+                        f"expert: lane {lane} decides otherwise at step {t} off a near-tie "
+                        f"(plain margin {rmargin[t, lane]}, gap {gap})")
+                near_tie += 1
+                continue
+            for name, x in logs.items():
+                got, ref = x[t_end, lane], rlogs[name][t_end, lane]
+                if (abs(got - ref) > 1e-5 + 1e-5 * abs(ref)) if np.issubdtype(x.dtype, np.floating) \
+                        else got != ref:
+                    raise AssertionError(f"expert: lane {lane} record {name} {got} != {ref}")
+            same += 1
+    return dict(lanes_equal=same, lanes_near_tie=near_tie)
+
+
+def expert_phase(dev, counters):
+    """The MPC expert over the 1440-episode grid, privileged, at the CLI's
+    defaults, against the plain path on the card (every lane compared)."""
+    from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+    from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    V, U, NT, C, Q = TEST_SHAPE
+    tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev), seed=1)
+    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
+    K5.build_expert_tables.launches = 0
+    etables = K5.build_expert_tables(tables)
+    setup = K5.build_expert_tables.launches
+    if setup != 1:
+        raise AssertionError(f"expert: K5 launched {setup} times at setup, expected 1")
+    run_expert_episodes(tables, etables, samples[:EXPERT_CHUNK], HORIZON,
+                        lane_chunk=EXPERT_CHUNK)  # warm-up
+    steps = -(-samples.shape[0] // EXPERT_CHUNK) * episode_step_bound(tables)
+    chunks, seconds, launches = timed_passes(
+        lambda: run_expert_episodes(tables, etables, samples, HORIZON, lane_chunk=EXPERT_CHUNK),
+        counters, expect(counters, env_step=steps, choose_action=steps), EXPERT_PASSES)
+    n_eps = int(sum(c[1].sum() for c in chunks))
+    if n_eps != samples.shape[0]:
+        raise AssertionError(f"expert: {n_eps} of {samples.shape[0]} lanes finished an episode")
+    t0 = time.time()
+    ref_chunks = plain_expert(tables, etables, samples)
+    plain_s = time.time() - t0
+    counts = compare_expert(chunks, ref_chunks)
+    log(f"expert: {json.dumps(counts)} of {n_eps} lanes (all compared)")
+    qoe = np.concatenate([c[0].qoe.cpu().numpy()[c[1]] for c in chunks])
+    ref_qoe = np.concatenate([c[0].qoe.cpu().numpy()[c[1]] for c in ref_chunks])
+    rate = rate_stats(n_eps, seconds)
+    launches["build_expert_tables"] += setup
+    return dict(episodes=n_eps, steps=steps, horizon=HORIZON, lane_chunk=EXPERT_CHUNK,
+                passes=EXPERT_PASSES, seconds=seconds,
+                episodes_per_s_median=rate["median"], episodes_per_s_min=rate["min"],
+                episodes_per_s_max=rate["max"], spread=rate["spread"],
+                ms_per_decision_median=1e3 * statistics.median(seconds) / steps,
+                plain_seconds=plain_s, mean_qoe=float(qoe.mean()),
+                plain_mean_qoe=float(ref_qoe.mean()), lanes_compared=n_eps, **counts,
+                launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
         return 1
     from mansy_immersivevideostreaming_torch.kernels.actor_critic import actor_critic_forward
+    from mansy_immersivevideostreaming_torch.kernels.choose_action import choose_action
     from mansy_immersivevideostreaming_torch.kernels.env_step import env_step
+    from mansy_immersivevideostreaming_torch.kernels.expert_tables import build_expert_tables
     from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
 
     dev = torch.device("cuda")
@@ -482,27 +894,43 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = device_line()
     log(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
-    counters = (env_step, observe_mansy_pack, actor_critic_forward)
+    counters = (env_step, observe_mansy_pack, actor_critic_forward, choose_action,
+                build_expert_tables)
 
     t0 = time.time()
     rows = kernel_phase(dev)
+    expert_rows, extra = expert_kernel_phase(dev)
+    rows.update(expert_rows)
+    for name, fields in extra.items():
+        rows[name]["action_values"] = fields
     log(f"kernels checked in {time.time() - t0:.1f}s")
-    serve = serve_phase(dev, counters)
-    log(f"serve: {json.dumps(serve)}")
-    collect = collect_phase(dev, counters)
-    log(f"collect: {json.dumps(collect)}")
+    paths = {}
+    for name, run in (("serve", lambda: serve_phase(dev, counters)),
+                      ("collect", lambda: collect_phase(dev, counters)),
+                      ("expert", lambda: expert_phase(dev, counters)),
+                      ("serve_v16", lambda: serve_phase(dev, counters, v16=True))):
+        t0 = time.time()
+        paths[name] = run()
+        log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
+    # the kernels each path runs; every one must have launched on it
+    path_kernels = {"serve": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
+                    "collect": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
+                    "expert": ("env_step", "choose_action", "build_expert_tables"),
+                    "serve_v16": ("env_step", "observe_mansy_pack", "actor_critic_forward",
+                                  "build_expert_tables")}
+    for path, names in path_kernels.items():
+        for name in names:
+            if paths[path]["launches"][name] == 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
     for fn in counters:  # the counts of one pass of each path
         name = fn.__name__
-        s, c = serve["launches"][name], collect["launches"][name]
-        if s == 0 or c == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-        rows[name].update(launches=s + c, launches_serve=s, launches_collect=c,
-                          launches_per_step_serve=s / serve["steps"],
-                          launches_per_step_collect=c / collect["steps"])
+        per_path = {path: paths[path]["launches"][name] for path in paths}
+        rows[name].update(launches=sum(per_path.values()), launches_per_path=per_path,
+                          launches_per_step={path: per_path[path] / paths[path]["steps"]
+                                             for path in paths})
     kernels = [dict(name=name, **KERNELS[name], **rows[name]) for name in KERNELS]
-    print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "launches"},
-                      "collect": {k: v for k, v in collect.items() if k != "launches"},
-                      "card": card}))
+    print(json.dumps({**{path: {k: v for k, v in r.items() if k != "launches"}
+                         for path, r in paths.items()}, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

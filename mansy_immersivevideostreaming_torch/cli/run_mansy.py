@@ -3,8 +3,12 @@
 
 Restores a policy from its ``.npz`` (see ``utils/checkpoint.py``) and
 evaluates it over the test grid of the dataset tree, writing the
-reference-format ``results.csv`` and printing its summary table.  Training
-(PPO, identifier, DAgger) is not ported yet.
+reference-format ``results.csv`` and printing its summary table.  The
+policy's sidecar decides the observation, as the JAX CLI's
+``apply_net_config`` does: a policy that reads the exact action values (such
+as ``assets/dagger_v16_params.npz``) gets the expert's deployable tables
+attached, accuracy-corrected when the sidecar says ``acc_correct_obs``.
+Training (PPO, identifier, DAgger) is not ported yet.
 
 Example::
 
@@ -21,8 +25,10 @@ import time
 
 import torch
 
+from mansy_immersivevideostreaming_torch.cli.run_expert import get_expert_tables
 from mansy_immersivevideostreaming_torch.config import load_config
 from mansy_immersivevideostreaming_torch.rl import runner
+from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
 from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V9_NPZ, load_npz_policy
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
@@ -49,6 +55,11 @@ def test(args, config, results_dir: str):
         test_grid=True, device=dev)
     policy = load_npz_policy(args.policy_path, device=dev)
     print("Successfully loaded agent from:", args.policy_path)
+    if policy.reads_action_values:
+        cache = os.path.join(config.bs_models_dir, "expert",
+                             f"{args.test_dataset}_test_avcache0.pkl")
+        tables = attach_action_values(tables, get_expert_tables(tables, cache, False),
+                                      acc_correct=policy.acc_correct_obs)
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed)
     t0 = time.time()

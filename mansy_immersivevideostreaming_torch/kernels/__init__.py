@@ -1,13 +1,18 @@
-"""Hand-written CUDA kernels of the rollout's main path (Hopper, sm_90a).
+"""Hand-written CUDA kernels of the port's paths (Hopper, sm_90a).
 
 * ``env_step``: the fused environment step (``env_step.py``, K1);
 * ``observe_mansy_pack``: the observation gather into one [N, F] buffer
   (``observe.py``, K2);
 * ``actor_critic_forward``: the policy forward with its action head
-  (``actor_critic.py``, K3).
+  (``actor_critic.py``, K3);
+* ``choose_action``: the MPC expert's sequence search (``choose_action.py``,
+  K4);
+* ``build_expert_tables``: the MPC expert's profiling tables
+  (``expert_tables.py``, K5).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch version beside it only for tensors that lie on the CPU.  Each
 counts its launches in a plain integer attribute, ``wrapper.launches``.  The
-sources under ``csrc/`` are compiled with nvcc at first use (``build.py``).
+sources under ``csrc/`` (with the shared ``common.cuh``) are compiled with nvcc at
+first use (``build.py``).
 """

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with nvcc into ``build/lib<name>_<hash>.so`` (the directory is git-ignored;
-the hash covers the source and the flags, so an edited source rebuilds), then
+the hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited source rebuilds), then
 loaded with ctypes.  :func:`build` starts one nvcc per missing library, all
 at once, and waits for them together.
 """
@@ -19,7 +20,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_SOURCES = ("env_step", "observe", "actor_critic")
+KERNEL_SOURCES = ("env_step", "observe", "actor_critic", "choose_action", "expert_tables")
 
 # sm_90a for Hopper.  -fmad=false and no --use_fast_math: the env step's
 # download math floors and compares, and a 1-ulp change moves the trace
@@ -42,7 +43,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's path, named by a hash of its source, the shared headers
+    and the flags, so an edit to any of them rebuilds it."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

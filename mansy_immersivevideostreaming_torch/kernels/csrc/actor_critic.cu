@@ -6,10 +6,13 @@
 // first-index argmax of logits + Gumbel noise).  The plain PyTorch version
 // is kernels/actor_critic.py:actor_critic_forward_plain.
 //
-// Per lane: 10 branch dense layers (748 -> 10 x 128, block-diagonal) with
-// LeakyReLU(0.01); actor_fc and critic_fc (1280 -> 2 x 128) with LeakyReLU;
-// the "+ cond" residual; actor_out (128 -> A) and critic_out (128 -> 1);
-// log_softmax and argmax.  About 0.85 MFLOP a lane.
+// Per lane: 10 branch dense layers (748 -> 10 x 128, block-diagonal), or 11
+// with the action-value branch (764 -> 11 x 128), with LeakyReLU(0.01);
+// actor_fc and critic_fc (10 or 11 x 128 -> 2 x 128) with LeakyReLU; the
+// "+ cond" residual (branch 9); actor_out (128 -> A) and critic_out
+// (128 -> 1); the optional action-value logit prior
+// beta * (av - mean) / (std + 1e-6) (population std, abr_nets.py:176-180);
+// log_softmax and argmax.  About 0.85 MFLOP a lane (0.94 with 11 branches).
 //
 // Bound: f32 operations.  At 8192 lanes the forward is ~7 GFLOP against
 // ~26 MB of inputs, so the card's non-tensor f32 rate bounds it.  No TF32:
@@ -30,7 +33,8 @@
 namespace {
 
 constexpr int kH = 128;        // hidden width
-constexpr int kNB = 10;        // feature-net branches
+constexpr int kMaxNB = 11;     // feature-net branches: 10, or 11 with action values
+constexpr int kCond = 9;       // the cond branch, whose features are the residual
 constexpr int kBM = 64;        // lanes per block
 constexpr int kBK = 32;        // k rows staged per tile
 constexpr int kThreads = 256;
@@ -51,10 +55,10 @@ static_assert(kBsFloats + kFsFloats >= kBM * kHS, "fc output tile must fit over 
 
 // Field order must match kernels/actor_critic.py:_ActorCriticArgs.
 struct ActorCriticArgs {
-  const float* x;         // [N, ldx] packed observations; columns [0, 748) read
-  const float* w_branch;  // [748, 128] the branch kernels stacked by input rows
-  const float* b_branch;  // [10, 128]
-  const float* w_fc;      // [1280, 256] actor_fc | critic_fc
+  const float* x;         // [N, ldx] packed observations; columns [0, branch_off[nb]) read
+  const float* w_branch;  // [branch_off[nb], 128] the branch kernels stacked by input rows
+  const float* b_branch;  // [nb, 128]
+  const float* w_fc;      // [nb * 128, 256] actor_fc | critic_fc
   const float* b_fc;      // [256]
   const float* w_aout;    // [128, A]
   const float* b_aout;    // [A]
@@ -66,7 +70,10 @@ struct ActorCriticArgs {
   int32_t* action;        // [N]
   float* log_prob;        // [N]
   int32_t n_lanes, ldx, A;
-  int32_t branch_off[kNB + 1];
+  int32_t num_branches;        // nb: 10 or 11
+  int32_t branch_off[kMaxNB + 1];
+  int32_t av_off;              // column of the action values (the prior's input)
+  float av_prior;              // beta; 0 for no prior
 };
 
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
@@ -90,7 +97,7 @@ actor_critic_kernel(const ActorCriticArgs a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc2[i][j] = 0.f;
 
-  for (int b = 0; b < kNB; ++b) {
+  for (int b = 0; b < a.num_branches; ++b) {
     const int off = a.branch_off[b], in_b = a.branch_off[b + 1] - off;
 
     // ---- branch layer: feats_b[64, 128] = x[:, off:off+in_b] @ W_b ----
@@ -139,7 +146,7 @@ actor_critic_kernel(const ActorCriticArgs a) {
         const int n = tx + 32 * j;
         const float f = leaky(acc1[i][j] + a.b_branch[b * kH + n]);
         Fs[n * kPad + m] = f;
-        if (b == kNB - 1) Cs[m * kH + n] = f;  // the last branch is cond
+        if (b == kCond) Cs[m * kH + n] = f;
       }
     }
     __syncthreads();
@@ -200,11 +207,21 @@ actor_critic_kernel(const ActorCriticArgs a) {
   }
   __syncthreads();
 
-  // ---- epilogue: log_softmax and the first-index argmax of logits + noise ----
+  // ---- epilogue: the prior, log_softmax and the first-index argmax of logits + noise ----
   if (tid < kBM) {
     const int row = row0 + tid;
     if (row < a.n_lanes) {
-      const float* l = Ls + tid * kOut;
+      float* l = Ls + tid * kOut;
+      if (a.av_prior != 0.f) {
+        const float* av = a.x + (size_t)row * a.ldx + a.av_off;
+        float mean = 0.f;
+        for (int o = 0; o < a.A; ++o) mean += av[o];
+        mean = mean / (float)a.A;
+        float var = 0.f;
+        for (int o = 0; o < a.A; ++o) var += (av[o] - mean) * (av[o] - mean);
+        const float sd = sqrtf(var / (float)a.A) + 1e-6f;
+        for (int o = 0; o < a.A; ++o) l[o] = l[o] + a.av_prior * ((av[o] - mean) / sd);
+      }
       float mx = l[0];
       for (int o = 1; o < a.A; ++o) mx = fmaxf(mx, l[o]);
       float se = 0.f;

@@ -29,12 +29,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
+using namespace mansy;
+
 namespace {
 
-constexpr int kTiles = 64;     // 8x8 tiling
-constexpr int kMaxScale = 4;   // max(8 // 2, 8 // 2) dilation rings
 constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 }  // namespace
 
@@ -103,32 +104,6 @@ struct EnvStepArgs {
   float chunk_length, init_buffer, max_rate, max_throughput;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Python/JAX integer modulo and floor division (the divisor is positive).
-__device__ __forceinline__ int floor_mod(int a, int b) {
-  int r = a % b;
-  return r < 0 ? r + b : r;
-}
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return (a - floor_mod(a, b)) / b;
-}
-
-// max(x, 0) that keeps NaN, as jnp.maximum and torch.clamp do.
-__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
-
-// One ring of 3x3 dilation on the 8x8 torus; bit (row * 8 + col).
-__device__ __forceinline__ uint64_t dilate(uint64_t c) {
-  const uint64_t col0 = 0x0101010101010101ull, col7 = 0x8080808080808080ull;
-  const uint64_t right = ((c << 1) & ~col0) | ((c >> 7) & col0);  // col x -> x+1
-  const uint64_t left = ((c >> 1) & ~col7) | ((c << 7) & col7);   // col x -> x-1
-  const uint64_t d = c | right | left;
-  return d | (d << 8) | (d >> 56) | (d >> 8) | (d << 56);         // rows +-1
-}
-
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 env_step_kernel(const EnvStepArgs a) {
   const int t = threadIdx.x & 31;
@@ -161,19 +136,8 @@ env_step_kernel(const EnvStepArgs a) {
 
   // ---- pyramid allocation on the predicted viewport ----------------------
   const size_t vuc = ((size_t)v * a.U + u) * a.C + c;
-  const float* pred = a.pred + vuc * kTiles;
-  const uint32_t lo = __ballot_sync(kFull, pred[t] > 0.f);
-  const uint32_t hi = __ballot_sync(kFull, pred[t + 32] > 0.f);
-  const uint64_t mask = ((uint64_t)hi << 32) | lo;
-  int s0 = 0, s1 = 0;  // BFS ring distance of tiles t and t + 32
-  if (mask != 0ull) {  // an empty viewport leaves every scale at 0
-    uint64_t cov = mask;
-    for (int r = 0; r < kMaxScale; ++r) {
-      s0 += ((cov >> t) & 1ull) ? 0 : 1;
-      s1 += ((cov >> (t + 32)) & 1ull) ? 0 : 1;
-      cov = dilate(cov);
-    }
-  }
+  int s0, s1;  // BFS ring distance of tiles t and t + 32
+  viewport_scales(viewport_mask(a.pred + vuc * kTiles, t), t, s0, s1);
   const int* srow = a.scale_table + rate_out * (kMaxScale + 1);
   const int ver0 = s0 == 0 ? rate_in : srow[s0];
   const int ver1 = s1 == 0 ? rate_in : srow[s1];

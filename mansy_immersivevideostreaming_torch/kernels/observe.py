@@ -1,11 +1,12 @@
 """K2: observation gather into one [N, F] buffer (wrapper, plain version,
 launch count).
 
-Replaces the JAX package's ``sim/env.py:observe_mansy`` (``:262-286``).  The
-buffer's first :func:`feature_width` columns are exactly what
-``MansyFeatureNet`` reads, in its concat order (``abr_nets.py:124-136``), so
+Replaces the JAX package's ``sim/env.py:observe_mansy`` (``:262-286``) with
+``exact_action_values`` (``:220-259``) when the tables carry action values.
+The buffer's first :func:`feature_width` columns are exactly what
+``MansyFeatureNet`` reads, in its concat order (``abr_nets.py:124-141``), so
 the actor-critic kernel reads it as is; the fields the net does not read
-follow.  :func:`unpack_obs` gives back the 13-field dict.
+follow.  :func:`unpack_obs` gives back the 13- or 14-field dict.
 
 On the H100 the pass is bound by device-memory bytes (a gather plus
 elementwise scaling); ``csrc/observe.cu`` writes each row with coalesced
@@ -20,11 +21,15 @@ from typing import Dict, List, Tuple
 import torch
 
 from mansy_immersivevideostreaming_torch.kernels import build
-from mansy_immersivevideostreaming_torch.sim.env import EnvState, observe_mansy
+from mansy_immersivevideostreaming_torch.sim.env import (
+    EnvState, check_action_value_tables, observe_mansy,
+)
 from mansy_immersivevideostreaming_torch.sim.tables import SimTables
 
 # (field, shape) in buffer order, with K (history), R (rates), T (tiles) and
-# A (actions) as symbols.  The first ten are the feature net's inputs.
+# A (actions) as symbols.  The first ten are the feature net's inputs; with
+# action-value tables attached, ``action_values`` follows them as the
+# eleventh (the net's action-value branch).
 _LAYOUT = (("throughput", ("K",)), ("next_chunk_size", ("R", "T")),
            ("next_chunk_quality", ("R", "T")), ("pred_viewport", ("T",)),
            ("viewport_acc", ("K",)), ("past_viewport_qualities", ("K",)),
@@ -32,40 +37,54 @@ _LAYOUT = (("throughput", ("K",)), ("next_chunk_size", ("R", "T")),
            ("buffer", (1,)), ("qoe_weight", (3,)),
            ("rates_inside", ("K",)), ("rates_outside", ("K",)),
            ("action_one_hot", ("A",)))
-NET_FIELDS = 10  # fields MansyFeatureNet reads: the buffer's leading columns
+NET_FIELDS = 10  # fields MansyFeatureNet reads without action values
+AV_FIELD = ("action_values", ("A+1",))
 
 
-def obs_layout(K: int, R: int, T: int, A: int) -> List[Tuple[str, int, Tuple[int, ...]]]:
-    """[(field, column offset, shape)] of the packed observation."""
-    dims = {"K": K, "R": R, "T": T, "A": A}
+def obs_layout(K: int, R: int, T: int, A: int,
+               av: bool = False) -> List[Tuple[str, int, Tuple[int, ...]]]:
+    """[(field, column offset, shape)] of the packed observation; ``av``:
+    the tables carry action values (the 14-field observation)."""
+    dims = {"K": K, "R": R, "T": T, "A": A, "A+1": A + 1}
+    fields = _LAYOUT[:NET_FIELDS] + ((AV_FIELD,) if av else ()) + _LAYOUT[NET_FIELDS:]
     out, off = [], 0
-    for name, sym in _LAYOUT:
+    for name, sym in fields:
         shape = tuple(dims.get(s, s) for s in sym)
         out.append((name, off, shape))
         off += int(torch.Size(shape).numel())
     return out
 
 
-def obs_dims(tables: SimTables) -> Tuple[int, int, int, int]:
-    """(K, R, T, A) of the packed observation of ``tables``."""
-    return tables.past_k, tables.sizes.shape[2], tables.sizes.shape[3], tables.action_space
+def obs_dims(tables: SimTables) -> Tuple[int, int, int, int, bool]:
+    """(K, R, T, A, av) of the packed observation of ``tables``."""
+    return (tables.past_k, tables.sizes.shape[2], tables.sizes.shape[3],
+            tables.action_space, tables.av_quality is not None)
 
 
-def obs_width(K: int, R: int, T: int, A: int) -> int:
-    name, off, shape = obs_layout(K, R, T, A)[-1]
+def obs_width(K: int, R: int, T: int, A: int, av: bool = False) -> int:
+    name, off, shape = obs_layout(K, R, T, A, av)[-1]
     return off + int(torch.Size(shape).numel())
 
 
-def feature_width(K: int, R: int, T: int, A: int) -> int:
-    """Columns the feature net reads (748 at K=8, R=5, T=64)."""
-    return obs_layout(K, R, T, A)[NET_FIELDS][1]
+def feature_width(K: int, R: int, T: int, A: int, av: bool = False) -> int:
+    """Columns the feature net reads (748 at K=8, R=5, T=64; 764 with the
+    action values)."""
+    return obs_layout(K, R, T, A, av)[NET_FIELDS + av][1]
 
 
-def unpack_obs(buf: torch.Tensor, K: int, R: int, T: int, A: int) -> Dict[str, torch.Tensor]:
-    """[..., F] packed buffer -> the 13-field observation dict (views)."""
+def unpack_obs(buf: torch.Tensor, K: int, R: int, T: int, A: int,
+               av: bool = False) -> Dict[str, torch.Tensor]:
+    """[..., F] packed buffer -> the 13- or 14-field observation dict (views)."""
     lead = buf.shape[:-1]
     return {name: buf[..., off:off + int(torch.Size(shape).numel())].reshape(lead + shape)
-            for name, off, shape in obs_layout(K, R, T, A)}
+            for name, off, shape in obs_layout(K, R, T, A, av)}
+
+
+_AV_FIELDS = ("av_quality", "av_intra", "av_size", "av_out_quality", "av_out_intra")
+_PTR_FIELDS = ("sizes", "qualities", "pred", "qoe_weights") + _AV_FIELDS + (
+    "video", "user", "next_chunk", "qoe_id", "buf", "prev_quality", "has_prev",
+    "past_throughput", "past_acc", "past_vq", "past_var", "past_rebuf", "past_rate_in",
+    "past_rate_out", "last_action_one_hot")
 
 
 def observe_mansy_pack_plain(tables: SimTables, state: EnvState,
@@ -73,7 +92,8 @@ def observe_mansy_pack_plain(tables: SimTables, state: EnvState,
     """Plain PyTorch version: :func:`observe_mansy`'s fields, concatenated."""
     obs = observe_mansy(tables, state)
     N = state.buf.shape[0]
-    cols = torch.cat([obs[name].reshape(N, -1) for name, _ in _LAYOUT], dim=1)
+    cols = torch.cat([obs[name].reshape(N, -1)
+                      for name, _, _ in obs_layout(*obs_dims(tables))], dim=1)
     if out is None:
         return cols
     out.copy_(cols)
@@ -82,14 +102,11 @@ def observe_mansy_pack_plain(tables: SimTables, state: EnvState,
 
 class _ObserveArgs(ctypes.Structure):
     """Mirror of ``ObserveArgs`` in ``csrc/observe.cu`` (same field order)."""
-    _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "sizes", "qualities", "pred", "qoe_weights", "video", "user", "next_chunk",
-        "qoe_id", "buf", "past_throughput", "past_acc", "past_vq", "past_var",
-        "past_rebuf", "past_rate_in", "past_rate_out", "last_action_one_hot", "out")]
-        + [(f, ctypes.c_int32) for f in ("n_lanes", "U", "C", "RT", "T", "K", "A", "F",
-                                         "startup_download")]
-        + [("out_stride", ctypes.c_int64), ("max_size", ctypes.c_float),
-           ("max_rate", ctypes.c_float)])
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS + ("out",)]
+                + [(f, ctypes.c_int32) for f in ("n_lanes", "U", "C", "RT", "T", "K", "A", "F",
+                                                 "startup_download")]
+                + [("out_stride", ctypes.c_int64)]
+                + [(f, ctypes.c_float) for f in ("max_size", "max_rate", "max_throughput")])
 
 
 def observe_mansy_pack(tables: SimTables, state: EnvState,
@@ -100,11 +117,10 @@ def observe_mansy_pack(tables: SimTables, state: EnvState,
     dev = state.buf.device
     if dev.type == "cpu":
         return observe_mansy_pack_plain(tables, state, out)
-    if tables.av_quality is not None:
-        raise NotImplementedError(
-            "observe_mansy_pack: the action_values observation field is not ported yet")
-    K, R, T, A = obs_dims(tables)
-    N, Fw = state.buf.shape[0], obs_width(K, R, T, A)
+    check_action_value_tables(tables)
+    dims = obs_dims(tables)
+    K, R, T, A, _ = dims
+    N, Fw = state.buf.shape[0], obs_width(*dims)
     if out is None:
         out = torch.empty((N, Fw), dtype=torch.float32, device=dev)
     if out.shape != (N, Fw) or out.dtype != torch.float32 or out.stride(1) != 1 \
@@ -112,28 +128,33 @@ def observe_mansy_pack(tables: SimTables, state: EnvState,
         raise ValueError(f"observe_mansy_pack: out must be f32 [{N}, {Fw}] with "
                          f"contiguous rows on {dev}")
     f32, i32 = torch.float32, torch.int32
-    # name -> (tensor, dtype, shape or None for a table)
+    # name -> (tensor or None, dtype, shape or None for a table)
     srcs = {"sizes": (tables.sizes, f32, None), "qualities": (tables.qualities, f32, None),
             "pred": (tables.pred, f32, None), "qoe_weights": (tables.qoe_weights, f32, None),
+            **{name: (getattr(tables, name), f32, None) for name in _AV_FIELDS},
             "video": (state.video, i32, (N,)), "user": (state.user, i32, (N,)),
             "next_chunk": (state.next_chunk, i32, (N,)), "qoe_id": (state.qoe_id, i32, (N,)),
             "buf": (state.buf, f32, (N,)),
+            "prev_quality": (state.qoe.prev_quality, f32, (N,)),
+            "has_prev": (state.qoe.has_prev, torch.bool, (N,)),
             **{name: (getattr(state, name), f32, (N, K)) for name in (
                 "past_throughput", "past_acc", "past_vq", "past_var", "past_rebuf",
                 "past_rate_in", "past_rate_out")},
             "last_action_one_hot": (state.last_action_one_hot, f32, (N, A))}
     for name, (x, dtype, shape) in srcs.items():
+        if x is None and name in _AV_FIELDS:
+            continue
         if x.device != dev or x.dtype != dtype or not x.is_contiguous() \
                 or shape not in (None, tuple(x.shape)):
             raise ValueError(f"observe_mansy_pack: {name} must be a contiguous {dtype} "
                              f"tensor of shape {shape or tuple(x.shape)} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     args = _ObserveArgs(
-        **{k: x.data_ptr() for k, (x, _, _) in srcs.items()}, out=out.data_ptr(),
-        n_lanes=N, U=tables.pred.shape[1], C=tables.sizes.shape[1], RT=R * T, T=T, K=K,
-        A=A, F=Fw, startup_download=int(tables.startup_download),
+        **{k: (0 if x is None else x.data_ptr()) for k, (x, _, _) in srcs.items()},
+        out=out.data_ptr(), n_lanes=N, U=tables.pred.shape[1], C=tables.sizes.shape[1],
+        RT=R * T, T=T, K=K, A=A, F=Fw, startup_download=int(tables.startup_download),
         out_stride=out.stride(0), max_size=float(tables.max_size),
-        max_rate=float(tables.max_rate))
+        max_rate=float(tables.max_rate), max_throughput=float(tables.max_throughput))
     lib = build.load("observe")
     lib.observe_launch.argtypes = [ctypes.POINTER(_ObserveArgs), ctypes.c_void_p]
     lib.observe_launch.restype = ctypes.c_int

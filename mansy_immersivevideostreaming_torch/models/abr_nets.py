@@ -2,13 +2,14 @@
 
 Port of ``mansy_immersivevideostreaming_tpu/models/abr_nets.py``
 ``MansyFeatureNet`` and ``MansyActorCritic`` (reference
-``bitrate_selection/models/mansy.py:5-80``), in the configuration the
-committed policies use: ``use_action_values=False`` and
-``av_logit_prior=0.0``.  The other settings need ``causal_action_values``,
-which a later port brings; the constructor refuses them until then.
+``bitrate_selection/models/mansy.py:5-80``).  ``use_action_values`` and
+``av_logit_prior`` read the exact ``action_values`` observation field
+(``sim/env.py:exact_action_values``), so a policy with either setting needs
+tables that carry action values; the derived ``causal_action_values`` that
+the JAX net falls back on without that field is not ported.
 
 The network's math lives once, in ``kernels/actor_critic.py``: ``forward``
-packs the 13-field observation dict and runs the kernel's plain version;
+packs the 13- or 14-field observation dict and runs the kernel's plain version;
 the rollout runs the hand-written kernel on
 :meth:`MansyActorCritic.packed_weights`.
 """
@@ -22,19 +23,21 @@ import torch
 from torch import nn
 
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
-    ActorCriticWeights, actor_critic_forward_plain,
+    TENSOR_FIELDS, ActorCriticWeights, actor_critic_forward_plain,
 )
 from mansy_immersivevideostreaming_torch.kernels.observe import obs_layout, NET_FIELDS
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
 # (observation field, Flax branch name), in the feature net's concat order;
-# the cond branch comes last (abr_nets.py:124-136).
+# the cond branch follows them, and the action-value branch comes last
+# (abr_nets.py:124-141).
 BRANCHES = (("throughput", "throughput"), ("next_chunk_size", "next_size"),
             ("next_chunk_quality", "next_quality"), ("pred_viewport", "pred_viewport"),
             ("viewport_acc", "viewport_acc"), ("past_viewport_qualities", "past_vq"),
             ("past_quality_variances", "past_var"), ("past_rebuffering", "past_rebuf"),
             ("buffer", "buffer"))
 COND_BRANCH = "cond"
+AV_BRANCH = "action_values"
 
 
 def _linear(n_in: int, n_out: int, device) -> nn.Linear:
@@ -48,47 +51,74 @@ def _linear(n_in: int, n_out: int, device) -> nn.Linear:
 
 class MansyFeatureNet(nn.Module):
     """The 10 branch layers of the feature extractor (reference
-    ``mansy.py:5-51``), the cond branch last.  Their forward is the first
-    stage of :func:`actor_critic_forward_plain`."""
+    ``mansy.py:5-51``), the cond branch after the nine others, and with
+    ``use_action_values`` an 11th over the action values.  Their forward is
+    the first stage of :func:`actor_critic_forward_plain`."""
 
     def __init__(self, in_dims: Dict[str, int], hidden_dim: int = 128,
-                 cond_key: str = "qoe_weight", device=None):
+                 cond_key: str = "qoe_weight", use_action_values: bool = False,
+                 device=None):
         super().__init__()
         self.branches = nn.ModuleDict(
             {name: _linear(in_dims[key], hidden_dim, device) for key, name in BRANCHES})
         self.branches[COND_BRANCH] = _linear(in_dims[cond_key], hidden_dim, device)
+        if use_action_values:
+            self.branches[AV_BRANCH] = _linear(in_dims["action_values"], hidden_dim, device)
 
 
 class MansyActorCritic(nn.Module):
     """Shared feature net + actor/critic heads with the conditional-feature
-    residual (reference ``mansy.py:54-80``, residual at ``:65``/``:79``)."""
+    residual (reference ``mansy.py:54-80``, residual at ``:65``/``:79``).
+
+    ``use_action_values``: an 11th branch over the exact ``action_values``
+    field.  ``av_logit_prior`` (beta): the actor logits get ``beta * (av -
+    mean) / (std + 1e-6)`` of the field's first A entries (population std,
+    JAX ``abr_nets.py:176-180``).  Either needs the 14-field observation."""
 
     def __init__(self, hidden_dim: int = 128, action_space: int = 15,
                  use_action_values: bool = False, av_logit_prior: float = 0.0,
                  past_k: int = 8, num_rates: int = 5, num_tiles: int = 64,
                  device: str | torch.device = "cuda"):
         super().__init__()
-        if use_action_values or av_logit_prior:
-            raise NotImplementedError(
-                "MansyActorCritic: use_action_values / av_logit_prior need "
-                "causal_action_values, which is not ported yet")
         dev = resolve_device(device)
-        self.dims = (past_k, num_rates, num_tiles, action_space)
+        self.use_action_values = bool(use_action_values)
+        self.av_logit_prior = float(av_logit_prior)
+        # which action-value tables the observation needs: the sidecar's
+        # acc_correct_obs, set by utils.checkpoint.load_npz_policy
+        self.acc_correct_obs = False
+        # the packed observation's layout: with action values when either reads them
+        self.dims = (past_k, num_rates, num_tiles, action_space,
+                     self.use_action_values or bool(self.av_logit_prior))
         layout = obs_layout(*self.dims)
         in_dims = {name: int(torch.Size(shape).numel()) for name, _, shape in layout}
-        self.feature_net = MansyFeatureNet(in_dims, hidden_dim, "qoe_weight", dev)
-        width = hidden_dim * (len(BRANCHES) + 1)
+        self.feature_net = MansyFeatureNet(in_dims, hidden_dim, "qoe_weight",
+                                           self.use_action_values, dev)
+        width = hidden_dim * (len(BRANCHES) + 1 + self.use_action_values)
         self.actor_fc = _linear(width, hidden_dim, dev)
         self.actor_out = _linear(hidden_dim, action_space, dev)
         self.critic_fc = _linear(width, hidden_dim, dev)
         self.critic_out = _linear(hidden_dim, 1, dev)
         self._packed = None  # (parameter key, ActorCriticWeights) of packed_weights
 
+    @property
+    def reads_action_values(self) -> bool:
+        """The policy needs the 14-field observation (tables that carry
+        action values)."""
+        return self.dims[-1]
+
+    def _net_layout(self):
+        """The packed observation's fields the net reads, with offsets."""
+        return obs_layout(*self.dims)[:NET_FIELDS + self.dims[-1]]
+
     def forward(self, obs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [N, A], value [N]) from the observation dict: the dict
         packed into the kernel's layout, through the kernel's plain version
         (differentiable in the parameters)."""
-        layout = obs_layout(*self.dims)[:NET_FIELDS]
+        layout = self._net_layout()
+        if self.reads_action_values and "action_values" not in obs:
+            raise NotImplementedError(
+                "MansyActorCritic: the observation has no action_values field; the "
+                "derived causal_action_values is not ported")
         n = obs[layout[0][0]].shape[0]
         x = torch.cat([obs[name].reshape(n, -1) for name, _, _ in layout], dim=1)
         logits, value, _, _ = actor_critic_forward_plain(self._pack(), x)
@@ -97,11 +127,16 @@ class MansyActorCritic(nn.Module):
     def _pack(self) -> ActorCriticWeights:
         """The parameters in the actor-critic kernel's layout (Flax's
         [in, out] kernels)."""
-        layout = obs_layout(*self.dims)[:NET_FIELDS]
+        layout = self._net_layout()
         names = [name for _, name in BRANCHES] + [COND_BRANCH]
+        if self.use_action_values:
+            names.append(AV_BRANCH)
         branches = [self.feature_net.branches[n] for n in names]
-        offsets = [off for _, off, _ in layout]
+        # the branches read the net's fields in order; without the action-value
+        # branch the prior still reads the field, which follows them
+        offsets = [off for _, off, _ in layout[:len(names)]]
         offsets.append(offsets[-1] + branches[-1].in_features)
+        av_off = layout[NET_FIELDS][1] if self.reads_action_values else -1
         kernel = lambda layer: layer.weight.t().contiguous()
         return ActorCriticWeights(
             w_branch=torch.cat([kernel(b) for b in branches], dim=0),
@@ -110,7 +145,7 @@ class MansyActorCritic(nn.Module):
             b_fc=torch.cat([self.actor_fc.bias, self.critic_fc.bias]),
             w_actor_out=kernel(self.actor_out), b_actor_out=self.actor_out.bias,
             w_critic_out=kernel(self.critic_out), b_critic_out=self.critic_out.bias,
-            branch_off=tuple(offsets))
+            branch_off=tuple(offsets), av_off=av_off, av_prior=self.av_logit_prior)
 
     def packed_weights(self) -> ActorCriticWeights:
         """A detached copy of :meth:`_pack`, for the kernels.  Cached, and
@@ -121,5 +156,5 @@ class MansyActorCritic(nn.Module):
             with torch.no_grad():
                 w = self._pack()
             self._packed = (key, w._replace(**{f: getattr(w, f).detach().clone()
-                                               for f in w._fields[:-1]}))
+                                               for f in TENSOR_FIELDS}))
         return self._packed[1]

@@ -35,6 +35,13 @@ def init_lanes(tables: SimTables, samples: torch.Tensor, n_lanes: int,
     return reset_env(tables, samples, starts.to(torch.int32), n_lanes)
 
 
+def check_observation(policy: MansyActorCritic, tables: SimTables) -> None:
+    """A policy that reads the action values needs tables that carry them."""
+    if policy.reads_action_values and tables.av_quality is None:
+        raise ValueError("the policy reads the action_values observation field: attach the "
+                         "expert's tables first (sim.expert.attach_action_values)")
+
+
 def stack_logs(logs) -> LogRecord:
     """A list of per-step LogRecords [N] -> one LogRecord [T, N]."""
     return LogRecord(*(torch.stack(field) for field in zip(*logs)))
@@ -49,11 +56,12 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
     with Gumbel noise drawn from ``generator`` (a ``torch.Generator`` on the
     lanes' device).  On the card ``states`` is updated in place and returned.
     """
-    K, R, T, A = obs_dims(tables)
-    width = obs_width(K, R, T, A)
+    dims = obs_dims(tables)
+    width, A = obs_width(*dims), tables.action_space
 
     def collect(policy: MansyActorCritic, states: EnvState,
                 generator: Optional[torch.Generator]):
+        check_observation(policy, tables)
         dev = states.buf.device
         w = policy.packed_weights()
         obs = torch.empty((n_steps, n_lanes, width), dtype=torch.float32, device=dev)
@@ -71,7 +79,7 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
             dones.append(done)
             logs.append(log)
         _, last_values, _, _ = actor_critic_forward(w, observe_mansy_pack(tables, states))
-        traj = Transition(obs=unpack_obs(obs, K, R, T, A), action=torch.stack(actions),
+        traj = Transition(obs=unpack_obs(obs, *dims), action=torch.stack(actions),
                           log_prob=torch.stack(log_probs), value=torch.stack(values),
                           reward=torch.stack(rewards), done=torch.stack(dones))
         return states, traj, stack_logs(logs), last_values

@@ -21,7 +21,7 @@ from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
 )
 from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
-from mansy_immersivevideostreaming_torch.rl.rollout import stack_logs
+from mansy_immersivevideostreaming_torch.rl.rollout import check_observation, stack_logs
 from mansy_immersivevideostreaming_torch.sim.env import (
     LogRecord, generate_environment_samples, generate_environment_test_samples,
     reset_env, step_env,
@@ -105,6 +105,7 @@ def evaluate(policy: MansyActorCritic, tables: SimTables, samples: torch.Tensor,
     argmax action instead of sampling (tianshou's ``deterministic_eval``; the
     reference test loop samples).
     """
+    check_observation(policy, tables)
     n_steps = episode_step_bound(tables)
     A = tables.action_space
     w = policy.packed_weights()

@@ -20,7 +20,7 @@ import torch
 
 from mansy_immersivevideostreaming_torch.ops.qoe import QoEState, init_qoe_state
 from mansy_immersivevideostreaming_torch.sim.simulator import (
-    NetState, init_buffer, init_net_state,
+    NetState, init_buffer, init_net_state, push_chunk,
 )
 from mansy_immersivevideostreaming_torch.sim.tables import SimTables
 
@@ -208,17 +208,53 @@ def viewport_acc_estimate(past_acc: torch.Tensor) -> torch.Tensor:
     return 2.0 * iou / (1.0 + iou)
 
 
+def check_action_value_tables(tables: SimTables) -> None:
+    """Action-value tables are attached whole: quality, intra and size
+    together, and the two out-of-prediction tables together."""
+    if (tables.av_intra is None or tables.av_size is None) != (tables.av_quality is None) \
+            or (tables.av_out_quality is None) != (tables.av_out_intra is None) \
+            or (tables.av_quality is None and tables.av_out_quality is not None):
+        raise ValueError("action-value tables come whole: attach them with "
+                         "sim.expert.attach_action_values")
+
+
+def exact_action_values(tables: SimTables, state: EnvState) -> torch.Tensor:
+    """[N, A+1] exact one-step causal action values plus bw_hat (JAX
+    ``sim/env.py:220-259``): per action the deployable tables' quality,
+    variance and size (``tables.av_*``), the download at the harmonic-mean
+    bandwidth estimate, ``push_chunk``'s rebuffering and the normalized
+    preference weights; with ``av_out_*`` attached, the accuracy-corrected
+    quality and variance (``sim.expert.corrected_scores``)."""
+    check_action_value_tables(tables)
+    v, u, c = state.video.long(), state.user.long(), state.next_chunk.long()
+    bw_hat = harmonic_bw_estimate(state.past_throughput)            # [N] normalized
+    quality, intra = tables.av_quality[v, u, c], tables.av_intra[v, u, c]  # [N, A]
+    if tables.av_out_quality is not None:
+        # Imported here: sim.expert builds on this module.
+        from mansy_immersivevideostreaming_torch.sim.expert import corrected_scores
+        acc_hat = viewport_acc_estimate(state.past_acc)[:, None]
+        quality, intra = corrected_scores(quality, intra, tables.av_out_quality[v, u, c],
+                                          tables.av_out_intra[v, u, c], acc_hat)
+    q_n = quality / tables.max_rate
+    intra_n = intra / tables.max_rate
+    dt = tables.av_size[v, u, c] / (bw_hat * tables.max_throughput)[:, None]
+    _, rebuf = push_chunk(state.buf[:, None], tables.chunk_length, dt)
+    w = tables.qoe_weights[state.qoe_id.long()]
+    w = w / w.sum(-1, keepdim=True)
+    inter = torch.where(state.qoe.has_prev[:, None],
+                        (q_n - state.qoe.prev_quality[:, None]).abs(), torch.zeros_like(q_n))
+    av = w[:, 0:1] * q_n - w[:, 1:2] * rebuf - w[:, 2:3] * (intra_n + inter)
+    return torch.cat([av, bw_hat[:, None]], dim=-1)
+
+
 def observe_mansy(tables: SimTables, state: EnvState) -> Dict[str, torch.Tensor]:
     """13-field MANSY observation of every lane (reference
-    ``mansy_env.py:136-150``).  The 14th field, ``action_values``, comes with
-    the expert's tables in a later port; tables that carry them are refused
-    rather than observed without the field."""
-    if tables.av_quality is not None:
-        raise NotImplementedError(
-            "observe_mansy: the action_values observation field is not ported yet")
+    ``mansy_env.py:136-150``); with deployable action-value tables attached
+    (``tables.av_quality``), a 14th field ``action_values`` [N, A+1] (see
+    :func:`exact_action_values`)."""
     v, u, c = state.video.long(), state.user.long(), state.next_chunk.long()
     w = tables.qoe_weights[state.qoe_id.long()]
-    return {
+    obs = {
         "throughput": state.past_throughput,
         "next_chunk_size": tables.sizes[v, c] / tables.max_size,
         "next_chunk_quality": tables.qualities[v, c] / tables.max_rate,
@@ -233,6 +269,9 @@ def observe_mansy(tables: SimTables, state: EnvState) -> Dict[str, torch.Tensor]
         "past_quality_variances": state.past_var,
         "past_rebuffering": state.past_rebuf,
     }
+    if tables.av_quality is not None:
+        obs["action_values"] = exact_action_values(tables, state)
+    return obs
 
 
 def observe_simple(tables: SimTables, state: EnvState) -> Dict[str, torch.Tensor]:

@@ -47,9 +47,16 @@ class SimTables(NamedTuple):
     video_rates: torch.Tensor  # i32 [R]
     past_k: int
     action_space: int
-    # deployable per-action profiling tables f32 [V, U, C, A]; attached by the
-    # MPC expert, which is not ported yet (observe_mansy refuses them)
+    # deployable per-action profiling tables f32 [V, U, C, A], attached by
+    # sim.expert.attach_action_values: allocation AND evaluation on the
+    # predicted viewport.  With them observe_mansy emits ``action_values``.
     av_quality: Optional[torch.Tensor] = None
+    av_intra: Optional[torch.Tensor] = None
+    av_size: Optional[torch.Tensor] = None       # bytes
+    # out-of-prediction tables: when present, the action values are the
+    # accuracy-corrected estimate (sim.expert.corrected_scores)
+    av_out_quality: Optional[torch.Tensor] = None
+    av_out_intra: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:

@@ -8,7 +8,9 @@ file imports no JAX, so it also runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances: ints
 exact, floats 1e-5 relative (the kernels sum in another order than
 PyTorch's CUDA ops, which also divide by a Python scalar as a product with
-its reciprocal).
+its reciprocal).  The search (K4) picks the plain version's action on every
+lane whose first-action margin exceeds 1e-5, and elsewhere an action whose
+first-action value is within 1e-5 of the best.
 """
 
 import numpy as np
@@ -16,14 +18,18 @@ import pytest
 import torch
 
 from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
 from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
 from mansy_immersivevideostreaming_torch.kernels import observe as K2
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
 from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+from mansy_immersivevideostreaming_torch.sim import expert as X
 from mansy_immersivevideostreaming_torch.sim.env import (
-    generate_demo_samples, generate_environment_samples, tree_map,
+    generate_demo_samples, generate_environment_samples, tree_map, viewport_acc_estimate,
 )
 from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V16_NPZ, load_npz_policy
 
 N = 96
 
@@ -85,3 +91,65 @@ def test_observe_and_actor_critic_kernels_match_plain_on_card(cuda_device):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(got[2], ref[2])
         torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-5)
+
+
+def _perturbed_tables(device):
+    """Tables whose predicted viewport misses ~15% of tiles."""
+    tables = synthetic_sim_tables(3, 4, 3, 20, 4, seed=2, device=device)
+    gt = tables.gt.cpu().numpy()
+    flip = np.random.default_rng(3).random(gt.shape) < 0.15
+    return tables._replace(pred=torch.as_tensor(np.where(flip, 1.0 - gt, gt), device=device))
+
+
+@pytest.mark.cuda
+def test_expert_tables_kernel_matches_plain_on_card(cuda_device):
+    tables = _perturbed_tables(cuda_device)
+    got = K5.build_expert_tables(tables)
+    ref = X.build_expert_tables_plain(tables)
+    for name, x, y in zip(X.ExpertTables._fields, got, ref):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", ["trace", "bw_hat", "acc_hat", "use_corr"])
+def test_choose_action_kernel_matches_plain_on_card(cuda_device, horizon, mode):
+    tables = _perturbed_tables(cuda_device)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=cuda_device)
+    etables = X.build_expert_tables_plain(tables)
+    state = _stepped_lanes(tables, samples, steps=9)
+    bw_hat = X.causal_bw_estimate(tables, state) if mode in ("bw_hat", "use_corr") else None
+    acc_hat = viewport_acc_estimate(state.past_acc) if mode in ("acc_hat", "use_corr") else None
+    use_corr = (torch.arange(N, device=cuda_device) % 2 == 0) if mode == "use_corr" else None
+    action, margin = K4.choose_action(tables, etables, state, horizon, bw_hat, acc_hat,
+                                      use_corr, return_margin=True)
+    ref_action, ref_margin = X.choose_action_plain(tables, etables, state, horizon, bw_hat,
+                                                   acc_hat, use_corr, return_margin=True)
+    torch.testing.assert_close(margin, ref_margin, rtol=1e-5, atol=1e-5)
+    totals = X.sequence_totals(tables, etables, state, horizon, bw_hat, acc_hat, use_corr)
+    first = X.first_action_values(totals, 15)
+    wsum = tables.qoe_weights[state.qoe_id.long()].sum(-1)
+    gap = (first.amax(-1) - first.gather(1, action.long()[:, None])[:, 0]) / wsum
+    decisive = ref_margin > 1e-5
+    assert torch.equal(action[decisive], ref_action[decisive])
+    assert bool((gap <= 1e-5).all())
+    assert torch.equal(K4.choose_action(tables, etables, state, horizon, bw_hat, acc_hat,
+                                        use_corr), action)
+
+
+@pytest.mark.cuda
+def test_v16_observation_and_forward_kernels_match_plain_on_card(cuda_device):
+    tables = _perturbed_tables(cuda_device)
+    tables = X.attach_action_values(tables, X.build_expert_tables_plain(tables),
+                                    acc_correct=True)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=cuda_device)
+    state = _stepped_lanes(tables, samples, steps=5)
+    packed = K2.observe_mansy_pack(tables, state)
+    torch.testing.assert_close(packed, K2.observe_mansy_pack_plain(tables, state),
+                               rtol=1e-5, atol=1e-6)
+    w = load_npz_policy(DAGGER_V16_NPZ, device=cuda_device).packed_weights()
+    got = K3.actor_critic_forward(w, packed)
+    ref = K3.actor_critic_forward_plain(w, packed)
+    for x, y in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-5)

@@ -123,8 +123,10 @@ def test_observe_simple_and_estimators_match_jax():
 
 
 def test_observe_mansy_refuses_action_value_tables():
+    """Action-value tables are observed only when attached whole (quality,
+    intra and size together, as sim.expert.attach_action_values does)."""
     _, tt, samples = make_tables()
     state = TR.init_lanes(tt, torch.as_tensor(samples), 2)
     tables = tt._replace(av_quality=torch.zeros(1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="attach_action_values"):
         TE.observe_mansy(tables, state)

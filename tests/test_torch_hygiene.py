@@ -7,10 +7,14 @@
   of running on the CPU unasked.
 * A kernel wrapper given CPU tensors runs its plain PyTorch version and
   counts no launch.
+* A policy that reads the derived action values, which the port does not
+  have, is refused at load time.
 """
 
 import ast
+import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -21,13 +25,20 @@ import torch
 
 import mansy_immersivevideostreaming_torch as port
 from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
 from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
 from mansy_immersivevideostreaming_torch.kernels import observe as K2
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
 from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
 from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+from mansy_immersivevideostreaming_torch.sim.expert import (
+    build_expert_tables_plain, causal_bw_estimate, choose_action_plain,
+)
 from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
-from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
+from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+    DAGGER_V9_NPZ, NET_CONFIG_SUFFIX, load_npz_policy,
+)
 
 PACKAGE = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mansy_immersivevideostreaming_tpu")
@@ -58,6 +69,8 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_runner_import_pulls_in_no_jax():
     code = ("import sys; import mansy_immersivevideostreaming_torch.rl.runner; "
             "import mansy_immersivevideostreaming_torch.cli.run_mansy; "
+            "import mansy_immersivevideostreaming_torch.cli.run_expert; "
+            "import mansy_immersivevideostreaming_torch.sim.expert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
@@ -69,14 +82,20 @@ def test_runner_import_pulls_in_no_jax():
 def test_entry_points_refuse_to_fall_back_to_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the entry points would run on it")
+    from mansy_immersivevideostreaming_torch.cli import run_expert, run_mansy
+    from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+    cli_device = lambda cli: resolve_device(cli.build_parser().parse_args([]).device)
     for entry in (lambda: synthetic_sim_tables(), lambda: load_npz_policy(),
-                  lambda: MansyActorCritic()):
+                  lambda: MansyActorCritic(), lambda: cli_device(run_expert),
+                  lambda: cli_device(run_mansy)):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
 
 def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
-    for fn in (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward):
+    wrappers = (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward,
+                K4.choose_action, K5.build_expert_tables)
+    for fn in wrappers:
         fn.launches = 0
     tables = synthetic_sim_tables(device="cpu")
     samples = torch.as_tensor(generate_environment_samples(2, 2, 2, 2))
@@ -90,11 +109,36 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     got = K3.actor_critic_forward(w, x, noise)
     for a, b in zip(got, K3.actor_critic_forward_plain(w, x, noise)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    etables = K5.build_expert_tables(tables)
+    for a, b in zip(etables, build_expert_tables_plain(tables)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    bw_hat = causal_bw_estimate(tables, state)
+    got = K4.choose_action(tables, etables, state, 2, bw_hat, return_margin=True)
+    for a, b in zip(got, choose_action_plain(tables, etables, state, 2, bw_hat,
+                                             return_margin=True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     actions = torch.as_tensor(np.arange(8, dtype=np.int32))
     new, reward, done, log = K1.env_step(tables, samples, state, actions, 8, True)
     ref = K1.env_step_plain(tables, samples, state, actions, 8, True)
     torch.testing.assert_close(reward, ref[1], rtol=0, atol=0)
     torch.testing.assert_close(new.buf, ref[0].buf, rtol=0, atol=0)
     assert new is not state  # the plain path returns a new state
-    assert (K1.env_step.launches, K2.observe_mansy_pack.launches,
-            K3.actor_critic_forward.launches) == (0, 0, 0)
+    assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
+
+
+@pytest.mark.parametrize("netcfg", [
+    {"obs_action_values": True},
+    {"obs_action_values": True, "acc_correct_obs": True},
+    {"av_logit_prior": 3.0},
+])
+def test_load_npz_policy_refuses_derived_action_values(tmp_path, netcfg):
+    """``obs_action_values`` (or a logit prior) without ``exact_action_values``
+    asks for the derived causal_action_values, which the port has not."""
+    path = tmp_path / "policy.npz"
+    shutil.copyfile(DAGGER_V9_NPZ, path)
+    with open(f"{DAGGER_V9_NPZ}{NET_CONFIG_SUFFIX}") as f:
+        cfg = json.load(f)
+    with open(f"{path}{NET_CONFIG_SUFFIX}", "w") as f:
+        json.dump({**cfg, **netcfg}, f)
+    with pytest.raises(NotImplementedError, match="derived"):
+        load_npz_policy(path, device="cpu")

@@ -19,7 +19,7 @@ import torch
 
 from mansy_immersivevideostreaming_tpu.models.abr_nets import MansyActorCritic as JaxAC
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
-    actor_critic_forward_plain,
+    TENSOR_FIELDS, actor_critic_forward_plain,
 )
 from mansy_immersivevideostreaming_torch.kernels.observe import obs_layout
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
@@ -121,7 +121,7 @@ def test_packed_weights_are_cached_until_a_parameter_changes():
     policy = MansyActorCritic(device="cpu")
     w = policy.packed_weights()
     assert policy.packed_weights() is w
-    assert not any(t.requires_grad for t in w[:-1])
+    assert not any(getattr(w, f).requires_grad for f in TENSOR_FIELDS)
     with torch.no_grad():
         policy.actor_out.bias.add_(1.0)
     w2 = policy.packed_weights()
@@ -135,7 +135,12 @@ def test_packed_weights_are_cached_until_a_parameter_changes():
 
 
 def test_action_value_settings_are_refused():
-    with pytest.raises(NotImplementedError):
-        MansyActorCritic(use_action_values=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        MansyActorCritic(av_logit_prior=3.0, device="cpu")
+    """The action-value settings build, but refuse an observation without the
+    exact field: the derived causal_action_values is not ported."""
+    obs, _ = random_obs(3)
+    obs = {k: torch.as_tensor(v) for k, v in obs.items()}
+    for kwargs in (dict(use_action_values=True), dict(av_logit_prior=3.0)):
+        policy = MansyActorCritic(device="cpu", **kwargs)
+        assert policy.reads_action_values
+        with pytest.raises(NotImplementedError, match="causal_action_values"):
+            policy(obs)
