@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain PyTorch version, serves the v9 policy
-over a test grid, collects a rollout, runs the MPC expert over a test grid
-and serves the action-value policy v16, all through the port's own entry
-points.  It imports no JAX.
+over a test grid, collects a rollout, runs the MPC expert over a test grid,
+serves the action-value policy v16, trains with PPO and the identifier and
+runs DAgger rounds, all through the port's own entry points.  It imports no
+JAX.
 
     python3 chip_smoke.py
 
 Phases:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. kernels: build K1-K5 with nvcc (in parallel) and compare each kernel with
+2. kernels: build every kernel with nvcc (in parallel) and compare K1-K5 with
    its plain version on the same card tensors at the main paths' shapes
    (8192 lanes on tables of the Jin2022/4G train split's shape; K4 on 512
    lanes at horizon 4 in every mode; K5 on the train split's tables; K2 and
@@ -30,10 +31,33 @@ Phases:
    the committed v16 weights are served deterministically over the
    1440-episode grid, held against the plain path as in phase 3.
 
+Phase 2c holds the training kernels against their plain versions: K6
+``compute_gae`` at [32, 128] and [128, 8192]; K9 ``policy_loss`` in every
+PPO variant at B = 512 and in CE mode at B = 4096; K3's training mode and
+K10 ``actor_critic_backward`` at B = 512 and 4096 with the v9 and v16
+weights (K10's yardstick: autograd through a ``torch.matmul`` composition).
+
+7. train: ``run_mansy --train --train-identifier --use-identifier --lamb
+   0.5`` at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat
+   2) through ``run_mansy.ppo_round``, from the v9 weights, on tables of the
+   train split's shape; then one PPO update (16 minibatch steps) timed
+   and profiled (``torch.profiler``: the device's busy share of a step,
+   the costliest device and host ops), and one update through the kernels
+   against the plain path on the card from the same parameters, trajectory
+   and permutations.
+8. dagger: ``run_dagger`` rounds with v16's flags through
+   ``run_dagger.dagger_round``, from the v16 weights and an initial
+   aggregate of the port's expert demos on the test grid's shape; then a
+   deterministic evaluation of the grid that every lane must finish,
+   PROFILE_CE_STEPS CE steps on the final aggregate timed and profiled as
+   in phase 7, and the rest of a round (the expert-labelled rollout and
+   the aggregate) timed alone.
+
 Each path is timed over several passes (median and spread of the host-clock
 rate); every pass must launch each kernel exactly as often as the path has
 steps (K2 and K3 once more per collect, for the bootstrap value; K4 and K1
-once a decision in the expert phase; K5 once a split, at setup).
+once a decision in the expert phase; K5 once a split, at setup; K6 once a
+collect, and K3's training mode, K9 and K10 once a minibatch step).
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -41,6 +65,8 @@ Every phase raises on failure; the last line of a successful run is the
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import statistics
@@ -69,6 +95,18 @@ SEARCH_LANES = 512      # lanes of K4's kernel check
 EXPERT_PASSES = 3       # timed passes of the expert path
 NEAR_TIE = 1e-5         # first-action margin (over the weight sum) of a near-tie
 MISPREDICT = 0.15       # share of tiles the synthetic predicted viewport gets wrong
+GAE_SHAPES = ((32, 128), (128, 8192))  # K6: the CLI's collect, and bench.py's rollout width
+PPO_BATCH = 512         # run_mansy --batch-size default
+CE_BATCH = 4096         # run_dagger --batch-size default
+TRAIN_BATCHES = (PPO_BATCH, CE_BATCH)
+GRAD_RTOL = 1e-4        # K10 against its plain version: batch sums in another order
+UPDATE_RTOL = 1e-4      # phase 7: update metrics, relative to max(|plain|, 0.01)
+UPDATE_ATOL = 2e-6      # phase 7: parameters the plain update moved by >= lr / 2 a step
+UPDATE_LOOSE = 0.005    # phase 7: share of the other parameters allowed beyond UPDATE_ATOL
+DAGGER_ROUNDS = 2       # phase 8: timed rounds after the initial fit
+UPDATE_PASSES = 3       # phases 7, 8: unprofiled timings of an update loop (median)
+PROFILE_CE_STEPS = 20   # phase 8: CE steps of the profiled loop (phase 7: one PPO update)
+PROFILE_TOP = 6         # device and host ops reported per profiled loop
 
 PKG = "mansy_immersivevideostreaming_torch"
 KERNELS = {
@@ -83,6 +121,16 @@ KERNELS = {
                           replaces="mansy_immersivevideostreaming_tpu/sim/expert.py:184"),
     "build_expert_tables": dict(route="cuda", source=f"{PKG}/kernels/csrc/expert_tables.cu",
                                 replaces="mansy_immersivevideostreaming_tpu/sim/expert.py:67"),
+    "compute_gae": dict(route="cuda", source=f"{PKG}/kernels/csrc/gae.cu",
+                        replaces="mansy_immersivevideostreaming_tpu/rl/gae.py:17"),
+    "policy_loss": dict(route="cuda", source=f"{PKG}/kernels/csrc/policy_loss.cu",
+                        replaces="mansy_immersivevideostreaming_tpu/rl/ppo.py:55"),
+    "actor_critic_train_forward": dict(route="cuda", source=f"{PKG}/kernels/csrc/actor_critic.cu",
+                                       replaces="mansy_immersivevideostreaming_tpu/models/"
+                                                "abr_nets.py:166"),
+    "actor_critic_backward": dict(route="cuda",
+                                  source=f"{PKG}/kernels/csrc/actor_critic_backward.cu",
+                                  replaces="mansy_immersivevideostreaming_tpu/rl/ppo.py:163"),
 }
 
 
@@ -248,16 +296,23 @@ def actor_critic_cost(w, N: int, A: int):
     return flops, N * (fin + A) * 4 + weight_bytes + N * (A + 3) * 4
 
 
-def library_actor_critic(w):
-    """The same function as one composition of torch matmuls over a dense
-    block-diagonal branch weight: the yardstick (library_ms) only."""
-    from mansy_immersivevideostreaming_torch.kernels.actor_critic import COND_BRANCH_INDEX
+def block_diagonal(w) -> torch.Tensor:
+    """The branch weights as one dense block-diagonal [748/764, nb H] matrix."""
     H = w.b_branch.shape[1]
     nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
     wbd = torch.zeros((fin, nb * H), device=w.w_branch.device)
     for b in range(nb):
         lo, hi = w.branch_off[b], w.branch_off[b + 1]
         wbd[lo:hi, b * H:(b + 1) * H] = w.w_branch[lo:hi]
+    return wbd
+
+
+def library_actor_critic(w):
+    """The same function as one composition of torch matmuls over a dense
+    block-diagonal branch weight: the yardstick (library_ms) only."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import COND_BRANCH_INDEX
+    H, fin = w.b_branch.shape[1], w.branch_off[-1]
+    wbd = block_diagonal(w)
     bias = w.b_branch.reshape(-1)
     cond_cols = slice(COND_BRANCH_INDEX * H, (COND_BRANCH_INDEX + 1) * H)
 
@@ -639,6 +694,53 @@ def timed_passes(run, counters, want, passes: int = PASSES):
     return out, seconds, launches
 
 
+def profile_update(run, steps: int) -> dict:
+    """Where the time of an update loop goes.  ``run()`` makes ``steps``
+    update steps; it is timed UPDATE_PASSES times on the host clock (each
+    ended by a synchronize), then once more under ``torch.profiler``.  The
+    device's busy time is the union of the device events' intervals; its
+    share is taken of the unprofiled wall time (the median pass) and, apart,
+    of the profiled one.  Per step: the wall time, the busy time, the
+    costliest device ops and the host ops with the most self time."""
+    from torch.profiler import ProfilerActivity, profile
+    seconds = []
+    for _ in range(UPDATE_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    wall_s = statistics.median(seconds)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    events = prof.events()
+    # a range that code marks (``record_function``, the optimizer's step) is
+    # mirrored on the device from its first kernel to its last, idle gaps
+    # included: only kernels, copies and sets count as busy
+    host_names = {e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA}
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
+    union, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if b > end:
+            union += b - max(a, end)
+            end = b
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+    top = lambda pairs: {k[:80]: v / 1e3 / steps
+                         for k, v in sorted(pairs, key=lambda kv: -kv[1])[:PROFILE_TOP]}
+    return dict(steps=steps, passes=UPDATE_PASSES, ms_per_step=1e3 * wall_s / steps,
+                ms_per_step_profiled=1e3 * prof_s / steps, device_captured=bool(device),
+                device_busy_ms_per_step=union / 1e3 / steps,
+                busy_share=union / 1e6 / wall_s, busy_share_profiled=union / 1e6 / prof_s,
+                device_ms_per_step=top(by_name.items()),
+                host_self_ms_per_step=top((a.key, a.self_cpu_time_total)
+                                          for a in prof.key_averages()))
+
+
 def rate_stats(work: int, seconds) -> dict:
     """Median rate of ``work`` units over the passes, and the passes' spread."""
     rates = sorted(work / s for s in seconds)
@@ -743,7 +845,7 @@ def collect_phase(dev, counters):
                   actor_critic_forward=COLLECT_STEPS + 1)
     (traj, logs, last_values), seconds, launches = timed_passes(run, counters, want)
     T, N = COLLECT_STEPS, LANES
-    if traj.reward.shape != (T, N) or traj.obs["next_chunk_size"].shape != (T, N, 5, 64):
+    if traj.reward.shape != (T, N) or traj.obs.shape != (T, N, 779):
         raise AssertionError("collect: trajectory of the wrong shape")
     for name, x in (("reward", traj.reward), ("value", traj.value),
                     ("log_prob", traj.log_prob), ("last_values", last_values)):
@@ -879,15 +981,514 @@ def expert_phase(dev, counters):
                 launches=launches)
 
 
+# ---------------------------------------------------------------- phase 2c
+
+def grads_close(got, ref) -> bool:
+    """Gradients summed over the batch in another order: rtol GRAD_RTOL plus
+    GRAD_RTOL / 10 of the tensor's largest entry."""
+    scale = float(ref.abs().max()) * GRAD_RTOL / 10
+    return bool(((got - ref).abs() <= GRAD_RTOL * ref.abs() + scale).all())
+
+
+def gae_cost(T: int, N: int) -> int:
+    """Bytes K6 must move: rewards, values (f32) and dones (bool) read, the
+    bootstrap values read, advantages and returns written."""
+    return T * N * (4 + 1 + 4 + 4 + 4) + N * 4
+
+
+def policy_loss_cost(spec, B: int, A: int):
+    """(operations, bytes) of K9: log-softmax, entropy and the logit gradient
+    about 17 operations a logit (an exp or log counted as one), the PPO
+    terms about 40 a row, the KL 10 more a logit; inputs read and outputs
+    written once."""
+    flops = B * 17 * A
+    nbytes = B * A * 4 * 2 + B * 4 + 16  # logits, dlogits, action; loss and terms
+    if spec.ppo:
+        flops += B * 40
+        nbytes += B * 4 * 6 + (B * 4 if spec.pref_id is not None else 0)
+        if spec.anchor_logits is not None:
+            flops += B * 10 * A
+            nbytes += B * A * 4 + spec.kl_coef.numel() * 4
+    return flops, nbytes
+
+
+def backward_cost(w, B: int, A: int):
+    """(operations, bytes) of K10: the head gradients (2 x 128 x (A + 1)
+    twice a row), dW_fc and dPre_b (2 x nb 128 x 256 each), the branch
+    weights (2 x 748/764 x 128), the leaky' and residual epilogues and the
+    bias sums; the activations, weights and gradients read and written
+    once."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import TENSOR_FIELDS
+    H = w.b_branch.shape[1]
+    nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
+    F = nb * H
+    flops = B * (4 * H * (A + 1) + 2 * 2 * F * 2 * H + 2 * fin * H + 4 * 2 * H + 3 * F + A + 1)
+    weight_bytes = sum(getattr(w, f).numel() * 4 for f in TENSOR_FIELDS)
+    nbytes = B * (fin + F + 2 * H + A + 1) * 4 + 2 * weight_bytes
+    return flops, nbytes
+
+
+def bound(flops: int, nbytes: int) -> dict:
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def library_actor_critic_grad(w, x, dlogits, dvalue):
+    """The yardstick of K10 (library_ms only): autograd's backward through
+    the ``torch.matmul`` composition of ``library_actor_critic``, with the
+    branch weights as one dense block-diagonal matrix, from the same
+    incoming gradients.  Returns a function that runs the backward once."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import COND_BRANCH_INDEX
+    H, fin = w.b_branch.shape[1], w.branch_off[-1]
+    leaf = [t.detach().clone().requires_grad_() for t in (
+        block_diagonal(w), w.b_branch.reshape(-1), w.w_fc, w.b_fc, w.w_actor_out, w.b_actor_out,
+        w.w_critic_out, w.b_critic_out)]
+    wb, bb, wfc, bfc, wa, ba, wc, bc = leaf
+    feats = torch.nn.functional.leaky_relu(x[:, :fin] @ wb + bb, 0.01)
+    cond = feats[:, COND_BRANCH_INDEX * H:(COND_BRANCH_INDEX + 1) * H]
+    h = torch.nn.functional.leaky_relu(feats @ wfc + bfc, 0.01)
+    logits = (h[:, :H] + cond) @ wa + ba
+    value = ((h[:, H:] + cond) @ wc + bc)[:, 0]
+    return lambda: torch.autograd.grad((logits, value), leaf, (dlogits, dvalue),
+                                       retain_graph=True)
+
+
+def training_inputs(dev):
+    """Packed observations of the largest training batch's lanes on tables
+    of the train split's shape, 7 steps into their episodes: 779 columns
+    (v9's observation), and 795 with K5's accuracy-corrected action values
+    attached (v16's)."""
+    from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+    from mansy_immersivevideostreaming_torch.kernels.env_step import env_step_plain
+    from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+    from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    V, U, NT, C, Q = TRAIN_SHAPE
+    tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev), seed=2)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
+    n = max(TRAIN_BATCHES)
+    state = init_lanes(tables, samples, n, seed=4)
+    rng = np.random.default_rng(4)
+    for _ in range(7):
+        acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=dev)
+        state, *_ = env_step_plain(tables, samples, state, acts, n, True)
+    tav = attach_action_values(tables, K5.build_expert_tables(tables), acc_correct=True)
+    return observe_mansy_pack(tables, state), observe_mansy_pack(tav, state)
+
+
+def training_kernel_phase(dev):
+    """K6 at [32, 128] and [128, 8192]; K9 in every PPO variant at B = 512
+    and in CE mode at B = 4096; K3's training mode and K10 at B = 512 and
+    4096 with the v9 and v16 weights.  Each against its plain version on the
+    same card tensors, timed with CUDA events.  Returns the kernels' rows."""
+    from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+    from mansy_immersivevideostreaming_torch.kernels import gae as K6
+    from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, DAGGER_V16_NPZ, load_npz_policy,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = {}
+
+    # K6
+    shapes = {}
+    for T, N in GAE_SHAPES:
+        rewards = torch.randn(T, N, device=dev, generator=gen)
+        values = torch.randn(T, N, device=dev, generator=gen)
+        dones = torch.rand(T, N, device=dev, generator=gen) < 0.05
+        last = torch.randn(N, device=dev, generator=gen)
+        args = (rewards, dones, values, last, 0.95, 0.95)
+        got, ref = K6.compute_gae(*args), K6.compute_gae_plain(*args)
+        if not all(bool(close(g, r).all()) for g, r in zip(got, ref)):
+            raise AssertionError(f"compute_gae [{T}, {N}] disagrees with its plain version")
+        shapes[f"{T}x{N}"] = dict(
+            max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+            ms=gpu_ms(lambda: K6.compute_gae(*args)),
+            plain_ms=gpu_ms(lambda: K6.compute_gae_plain(*args), 5),
+            **bound(6 * T * N, gae_cost(T, N)))
+    main = shapes["x".join(map(str, GAE_SHAPES[-1]))]
+    rows["compute_gae"] = dict(**main, library_ms=None, shapes=shapes)
+
+    # K9
+    A, B = 15, PPO_BATCH
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    logits, value = 2.0 * r(B, A), r(B)
+    action = torch.randint(0, A, (B,), device=dev, generator=gen, dtype=torch.int32)
+    logp = torch.log_softmax(logits, -1).gather(1, action.long()[:, None])[:, 0]
+    base = dict(action=action, ent_coef=0.02, old_log_prob=logp + 0.3 * r(B),
+                old_value=value + 0.3 * r(B), adv=0.5 + 2.0 * r(B), ret=1.5 * r(B),
+                pref_id=torch.randint(0, 4, (B,), device=dev, generator=gen, dtype=torch.int32))
+    anchor = 1.5 * r(B, A)
+    kl = {"kl_scalar": torch.tensor(0.7, device=dev),
+          "kl_per_pref": torch.tensor([2.0, 1.0, 0.1, 0.5], device=dev)}
+    variants = {
+        "clip_norm": dict(), "no_value_clip": dict(value_clip=False),
+        "no_norm": dict(norm_adv=False), "per_pref": dict(norm_adv_per_pref=True),
+        "kl_scalar": dict(anchor_logits=anchor, kl_coef=kl["kl_scalar"]),
+        "kl_per_pref": dict(anchor_logits=anchor, kl_coef=kl["kl_per_pref"],
+                            norm_adv_per_pref=True)}
+    ce_logits = 2.0 * r(CE_BATCH, A)
+    ce_action = torch.randint(0, A, (CE_BATCH,), device=dev, generator=gen, dtype=torch.int32)
+    cases = {name: (K9.LossSpec(**base, **kw), logits, value) for name, kw in variants.items()}
+    cases["ce"] = (K9.LossSpec(action=ce_action, ent_coef=0.1), ce_logits, None)
+    out, err = {}, 0.0
+    for name, (spec, lg, v) in cases.items():
+        got, ref = K9.policy_loss(spec, lg, v), K9.policy_loss_plain(spec, lg, v)
+        for g, rf in zip(got, ref):
+            if (g is None) != (rf is None) or (rf is not None and not bool(close(g, rf).all())):
+                raise AssertionError(f"policy_loss ({name}) disagrees with its plain version")
+        err = max(err, max(float((g - rf).abs().max()) for g, rf in zip(got, ref)
+                           if rf is not None))
+        out[name] = dict(batch=lg.shape[0],
+                         ms=gpu_ms(lambda: K9.policy_loss(spec, lg, v)),
+                         plain_ms=gpu_ms(lambda: K9.policy_loss_plain(spec, lg, v), 5),
+                         **bound(*policy_loss_cost(spec, lg.shape[0], A)))
+    rows["policy_loss"] = dict(max_abs_err=err, **{k: out["clip_norm"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}, library_ms=None, variants=out)
+
+    # K3's training mode and K10
+    x9, x16 = training_inputs(dev)
+    fwd, bwd = {}, {}
+    f_err = b_err = 0.0
+    for label, path, x_all in (("v9", DAGGER_V9_NPZ, x9), ("v16", DAGGER_V16_NPZ, x16)):
+        w = load_npz_policy(path, device=dev).packed_weights()
+        for Bn in TRAIN_BATCHES:
+            x = x_all[:Bn]
+            got = K3.actor_critic_train_forward(w, x)
+            ref = K3.actor_critic_train_forward_plain(w, x)
+            if not all(bool(close(g, rf).all()) for g, rf in zip(got, ref)):
+                raise AssertionError(f"actor_critic_train_forward ({label}, B = {Bn}) disagrees "
+                                     f"with its plain version")
+            f_err = max(f_err, max(float((g - rf).abs().max()) for g, rf in zip(got, ref)))
+            flops, nbytes = actor_critic_cost(w, Bn, A)
+            nb, H = w.b_branch.shape
+            nbytes += Bn * (nb + 2) * H * 4  # feats and hidden written
+            lib = library_actor_critic(w)
+            zeros = torch.zeros((Bn, A), device=dev)
+            key = f"{label}_B{Bn}"
+            fwd[key] = dict(ms=gpu_ms(lambda: K3.actor_critic_train_forward(w, x)),
+                            plain_ms=gpu_ms(lambda: K3.actor_critic_train_forward_plain(w, x)),
+                            library_ms=gpu_ms(lambda: lib(x, zeros)), **bound(flops, nbytes))
+            dlogits, dvalue = r(Bn, A) / Bn, r(Bn) / Bn
+            acts = ref[2], ref[3]
+            got = K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)
+            ref_g = K3.actor_critic_backward_plain(w, x, *acts, dlogits, dvalue)
+            for f, g, rf in zip(K3.TENSOR_FIELDS, got, ref_g):
+                if not grads_close(g, rf):
+                    raise AssertionError(f"actor_critic_backward ({key}): {f} disagrees with "
+                                         f"its plain version")
+                b_err = max(b_err, float((g - rf).abs().max()))
+            lib_grad = library_actor_critic_grad(w, x, dlogits, dvalue)
+            bwd[key] = dict(ms=gpu_ms(lambda: K3.actor_critic_backward(w, x, *acts, dlogits,
+                                                                      dvalue)),
+                            plain_ms=gpu_ms(lambda: K3.actor_critic_backward_plain(
+                                w, x, *acts, dlogits, dvalue)),
+                            library_ms=gpu_ms(lib_grad), **bound(*backward_cost(w, Bn, A)))
+    main = f"v9_B{PPO_BATCH}"
+    rows["actor_critic_train_forward"] = dict(max_abs_err=f_err, **fwd[main], cases=fwd)
+    rows["actor_critic_backward"] = dict(max_abs_err=b_err, **bwd[main], cases=bwd)
+    return rows
+
+
+# ----------------------------------------------------------------- phase 7
+
+def plain_ppo_update(policy, optimizer, cfg, traj, rewards, last_values, ret_rms, perms):
+    """``rl.ppo.ppo_update`` through the plain versions on the card (the
+    reference of phase 7's comparison): K6's plain recurrence, the plain
+    training forward differentiated by autograd from K9's written-out
+    gradient, the same clip and Adam.  Returns (ret_rms, mean metrics [4])."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
+        actor_critic_train_forward_plain,
+    )
+    from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae_plain
+    from mansy_immersivevideostreaming_torch.kernels.policy_loss import (
+        LossSpec, policy_loss_plain,
+    )
+    from mansy_immersivevideostreaming_torch.rl.ppo import clip_grad_norm
+
+    T, N = rewards.shape
+    adv, ret = compute_gae_plain(rewards, traj.done, traj.value, last_values, cfg.gamma,
+                                 cfg.gae_lambda)
+    ret_n = ret / torch.sqrt(ret_rms.var + 1e-8)
+    ret_rms = ret_rms.update(ret)
+    flat = dict(obs=traj.obs.reshape(T * N, -1), action=traj.action.reshape(-1),
+                log_prob=traj.log_prob.reshape(-1), value=traj.value.reshape(-1),
+                adv=adv.reshape(-1), ret=ret_n.reshape(-1))
+    params = list(policy.parameters())
+    metrics = []
+    for idx in perms.reshape(-1, perms.shape[-1]):
+        mb = {k: v[idx] for k, v in flat.items()}
+        logits, value, _, _ = actor_critic_train_forward_plain(policy._pack(), mb["obs"])
+        spec = LossSpec(action=mb["action"], ent_coef=cfg.ent_coef, old_log_prob=mb["log_prob"],
+                        old_value=mb["value"], adv=mb["adv"], ret=mb["ret"],
+                        eps_clip=cfg.eps_clip, vf_coef=cfg.vf_coef, value_clip=cfg.value_clip,
+                        norm_adv=cfg.norm_adv, n_prefs=cfg.n_prefs)
+        loss, terms, dlogits, dvalue = policy_loss_plain(spec, logits.detach(), value.detach())
+        optimizer.zero_grad(set_to_none=True)
+        torch.autograd.backward([logits, value], [dlogits, dvalue])
+        clip_grad_norm(params, cfg.max_grad_norm)
+        optimizer.step()
+        metrics.append(torch.cat([loss[None], terms]))
+    return ret_rms, torch.stack(metrics).mean(0)
+
+
+def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
+    """One PPO update from the same parameters, trajectory and permutations
+    through the kernels (``rl.ppo.ppo_update``) and through the plain path
+    on the card, each with a fresh Adam.  The loss metrics and the running
+    return statistic must agree to UPDATE_RTOL; a parameter whose plain
+    update moved it by at least half of lr a step must agree to
+    UPDATE_ATOL, and the others (Adam steps an entry whose gradient sits
+    near 0 by up to lr either way) are counted and must stay under
+    UPDATE_LOOSE of all."""
+    from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer, ppo_update
+    from mansy_immersivevideostreaming_torch.rl.types import RunningStat
+
+    T, N = rewards.shape
+    n_mb = T * N // cfg.minibatch
+    perms = torch.stack([torch.randperm(T * N, generator=gen, device=rewards.device)
+                         [:n_mb * cfg.minibatch].reshape(n_mb, cfg.minibatch)
+                         for _ in range(cfg.repeat)])
+    before = [p.detach().clone() for p in policy.parameters()]
+    kernel_p, plain_p = copy.deepcopy(policy), copy.deepcopy(policy)
+    opt_k = make_optimizer(kernel_p.parameters(), args.lr, args.weight_decay)
+    opt_p = make_optimizer(plain_p.parameters(), args.lr, args.weight_decay)
+    stat_k, m = ppo_update(kernel_p, opt_k, cfg, traj, rewards, last_values,
+                           RunningStat.init(rewards.device), perms=perms)
+    stat_p, m_plain = plain_ppo_update(plain_p, opt_p, cfg, traj, rewards, last_values,
+                                       RunningStat.init(rewards.device), perms)
+    m_kernel = torch.stack([m[k] for k in ("loss", "loss/clip", "loss/vf", "loss/ent")])
+    scalars = torch.cat([m_kernel, torch.stack(stat_k)])
+    ref = torch.cat([m_plain, torch.stack(stat_p)])
+    metric_err = float(((scalars - ref).abs() / ref.abs().clamp(min=1e-2)).max())
+    if metric_err > UPDATE_RTOL:
+        raise AssertionError(f"train: the kernels' update metrics differ from the plain path's "
+                             f"by {metric_err} (relative)")
+    tight, loose, total, err = 0, 0, 0, 0.0
+    steps = cfg.repeat * n_mb
+    for p0, pk, pp in zip(before, kernel_p.parameters(), plain_p.parameters()):
+        moved = (pp.detach() - p0).abs()
+        diff = (pk.detach() - pp.detach()).abs()
+        sure = moved >= 0.5 * args.lr * steps
+        if bool((diff[sure] > UPDATE_ATOL).any()):
+            raise AssertionError(f"train: a parameter the plain update moved by "
+                                 f"{float(moved[sure][diff[sure].argmax()])} differs by "
+                                 f"{float(diff[sure].max())}")
+        err = max(err, float(diff[sure].max()) if bool(sure.any()) else 0.0)
+        tight += int(sure.sum())
+        loose += int((~sure & (diff > UPDATE_ATOL)).sum())
+        total += diff.numel()
+    if loose > UPDATE_LOOSE * total:
+        raise AssertionError(f"train: {loose} of {total} parameters differ beyond {UPDATE_ATOL}")
+    return dict(minibatch_steps=steps, metric_rel_err=metric_err, param_max_abs_err=err,
+                params_compared=tight, params_near_zero_gradient_differing=loose,
+                params_total=total, loss=float(m_kernel[0]), plain_loss=float(m_plain[0]))
+
+
+def train_phase(dev, counters):
+    """``run_mansy --train --train-identifier --use-identifier --lamb 0.5``
+    at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat 2)
+    through ``run_mansy.ppo_round``, on tables of the train split's shape,
+    from the v9 weights at hidden 128: a warm-up round, then PASSES timed
+    rounds (one collect and its updates each).  Then one update through the
+    kernels against the plain path on the card."""
+    from mansy_immersivevideostreaming_torch.cli import run_mansy
+    from mansy_immersivevideostreaming_torch.models.abr_nets import QoEIdentifier
+    from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer, ppo_update
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes, make_collector
+    from mansy_immersivevideostreaming_torch.rl.types import RunningStat
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
+
+    args = run_mansy.build_parser().parse_args(
+        ["--train", "--train-identifier", "--use-identifier", "--lamb", "0.5"])
+    V, U, NT, C, Q = TRAIN_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
+    torch.manual_seed(args.seed)
+    policy = load_npz_policy(device=dev)
+    identifier = QoEIdentifier(hidden_dim=args.hidden_dim, device=dev)
+    optimizer = make_optimizer(policy.parameters(), args.lr, args.weight_decay)
+    id_optimizer = make_optimizer(identifier.parameters(), args.identifier_lr, args.weight_decay)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    cfg = run_mansy.ppo_config(args, Q)
+    n_lanes, n_steps = args.train_lanes, args.step_per_collect // args.train_lanes
+    collect = make_collector(tables, samples, n_lanes, n_steps, train=True)
+    prefs = tables.qoe_weights / tables.qoe_weights.sum(-1, keepdim=True)
+    start = [p.detach().clone() for p in policy.parameters()]
+    carry = [init_lanes(tables, samples, n_lanes, args.seed), RunningStat.init(dev)]
+    losses = []
+
+    def run():
+        with contextlib.redirect_stdout(sys.stderr):  # the identifier's loss lines
+            carry[0], carry[1], logs, metrics = run_mansy.ppo_round(
+                args, policy, identifier, optimizer, id_optimizer, cfg, collect, carry[0],
+                carry[1], gen, args.ent_coef, args.lamb, prefs)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        return logs
+
+    run()  # warm-up
+    n_mb = cfg.repeat * (n_lanes * n_steps // cfg.minibatch)
+    want = expect(counters, env_step=n_steps, observe_mansy_pack=n_steps + 1,
+                  actor_critic_forward=n_steps + 1, compute_gae=1,
+                  actor_critic_train_forward=n_mb, policy_loss=n_mb, actor_critic_backward=n_mb)
+    _, seconds, launches = timed_passes(run, counters, want)
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(policy.parameters(), start))
+    if not moved > 0:
+        raise AssertionError("train: the parameters did not move")
+
+    # where a minibatch update's time goes, and the kernels against the plain path
+    carry[0], traj, _, last_values = collect(policy, carry[0], gen)
+
+    def update():
+        carry[1], _ = ppo_update(policy, optimizer, cfg, traj, traj.reward, last_values,
+                                 carry[1], gen)
+
+    profiled = profile_update(update, n_mb)
+    check = compare_updates(policy, cfg, args, traj, traj.reward, last_values, gen)
+    rate = rate_stats(n_lanes * n_steps, seconds)
+    return dict(lanes=n_lanes, steps=n_steps, minibatch=cfg.minibatch, repeat=cfg.repeat,
+                minibatch_steps_per_round=n_mb, passes=PASSES, seconds=seconds,
+                env_steps_per_s_median=rate["median"], env_steps_per_s_min=rate["min"],
+                env_steps_per_s_max=rate["max"], spread=rate["spread"],
+                ms_per_minibatch_update=profiled["ms_per_step"], update_profile=profiled,
+                last_losses=losses[-1], max_param_move=moved, kernels_vs_plain=check,
+                launches=launches)
+
+
+# ----------------------------------------------------------------- phase 8
+
+def dagger_phase(dev, counters):
+    """``run_dagger`` with v16's flags (``--exact-action-values --acc-correct
+    --av-logit-prior 3.0``, horizon 4, 32 lanes, batch 4096) from the v16
+    weights, through ``run_dagger.dagger_round``: the initial aggregate is
+    the port's expert demos over the 1440-episode grid of the test shape
+    (K5's accuracy-corrected action values attached), round 0 fits it, and
+    DAGGER_ROUNDS timed rounds follow.  Then the valid-grid evaluation."""
+    from mansy_immersivevideostreaming_torch.cli import run_dagger
+    from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+    from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+    from mansy_immersivevideostreaming_torch.rl import dagger
+    from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
+    from mansy_immersivevideostreaming_torch.sim.env import (
+        generate_demo_samples, generate_environment_test_samples,
+    )
+    from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V16_NPZ, load_npz_policy,
+    )
+
+    args = run_dagger.build_parser().parse_args(
+        ["--exact-action-values", "--acc-correct", "--av-logit-prior", "3.0", "--horizon",
+         str(HORIZON), "--lanes", "32", "--batch-size", "4096",
+         "--rounds", str(DAGGER_ROUNDS)])
+    V, U, NT, C, Q = TEST_SHAPE
+    tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev), seed=1)
+    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
+    etables = K5.build_expert_tables(tables)
+    tables = attach_action_values(tables, etables, acc_correct=args.acc_correct)
+    t0 = time.time()
+    chunks = run_expert_episodes(tables, etables, samples, args.horizon, lane_chunk=EXPERT_CHUNK,
+                                 collect_obs=True, acc_correct=args.acc_correct)
+    demos = []
+    for _, first, actions, obs in chunks:
+        obs = {k: v.cpu().numpy() for k, v in obs.items()}
+        for lane in range(first.shape[1]):
+            t_end = int(np.argwhere(first[:, lane])[0][0])
+            demos.append({"obs": {k: v[:t_end + 1, lane] for k, v in obs.items()},
+                          "act": actions[:t_end + 1, lane]})
+    dataset = dagger.flatten_demos(demos, dev)
+    demo_s = time.time() - t0
+
+    policy = load_npz_policy(DAGGER_V16_NPZ, device=dev)
+    if policy.av_logit_prior != args.av_logit_prior or not policy.use_action_values:
+        raise AssertionError("dagger: the v16 npz is not a policy of v16's flags")
+    optimizer = make_optimizer(policy.parameters(), args.lr)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    n_steps = episode_step_bound(tables)
+    collect = dagger.make_dagger_collector(tables, etables, args.horizon, n_steps,
+                                           acc_correct=args.acc_correct)
+    t0 = time.time()
+    fit = dagger.bc_on_aggregate(policy, optimizer, run_dagger.balanced(args, dataset, tables),
+                                 args.bc_steps, args.batch_size, gen, args.ent_coef)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    state = dict(dataset=dataset, r=0, ce=[])
+
+    def run():
+        state["r"] += 1
+        lanes = torch.as_tensor(generate_demo_samples(V, U, NT, Q, args.lanes,
+                                                      args.seed + state["r"]), device=dev)
+        state["dataset"], losses, _ = run_dagger.dagger_round(
+            args, policy, optimizer, collect, tables, state["dataset"], lanes, gen)
+        state["ce"].append(losses[-1])
+
+    want = expect(counters, env_step=n_steps, observe_mansy_pack=n_steps,
+                  choose_action=n_steps, actor_critic_forward=n_steps,
+                  actor_critic_train_forward=args.bc_steps, policy_loss=args.bc_steps,
+                  actor_critic_backward=args.bc_steps)
+    _, seconds, launches = timed_passes(run, counters, want, DAGGER_ROUNDS)
+    if not all(math.isfinite(v) for v in fit + state["ce"]):
+        raise AssertionError(f"dagger: non-finite CE {fit} {state['ce']}")
+    logs, masks = evaluate(policy, tables, samples, deterministic=True)
+    n_eps = int(sum(m.sum() for m in masks))
+    if n_eps != samples.shape[0]:
+        raise AssertionError(f"dagger: {n_eps} of {samples.shape[0]} valid lanes finished")
+    qoe = np.concatenate([l.qoe.cpu().numpy()[m] for l, m in zip(logs, masks)])
+    if not np.isfinite(qoe).all():
+        raise AssertionError("dagger: non-finite valid QoE")
+    # where a CE step's time goes, on the aggregate the rounds left
+    agg = run_dagger.balanced(args, state["dataset"], tables)
+    profiled = profile_update(lambda: dagger.bc_on_aggregate(
+        policy, optimizer, agg, PROFILE_CE_STEPS, args.batch_size, gen, args.ent_coef),
+        PROFILE_CE_STEPS)
+    # the rest of a round: the expert-labelled rollout and the aggregate
+    outside = []
+    for i in range(UPDATE_PASSES):
+        lanes = torch.as_tensor(generate_demo_samples(V, U, NT, Q, args.lanes,
+                                                      args.seed + 100 + i), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs, expert_act, done = collect(policy, lanes, gen)
+        dagger.aggregate(state["dataset"], obs, expert_act, done, weight=args.relabel_weight)
+        torch.cuda.synchronize()
+        outside.append(time.perf_counter() - t0)
+    return dict(rounds=DAGGER_ROUNDS, lanes=args.lanes, steps=n_steps, bc_steps=args.bc_steps,
+                batch=args.batch_size, demos=len(demos), demo_seconds=demo_s,
+                aggregate_rows=int(state["dataset"][1].shape[0]), round0_fit_seconds=fit_s,
+                round0_ce=[fit[0], fit[-1]], round_ce=state["ce"], seconds=seconds,
+                round_seconds_median=statistics.median(seconds), valid_episodes=n_eps,
+                valid_mean_qoe=float(qoe.mean()), ce_step_profile=profiled,
+                collect_and_aggregate_seconds=outside, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
         return 1
-    from mansy_immersivevideostreaming_torch.kernels.actor_critic import actor_critic_forward
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
+        actor_critic_backward, actor_critic_forward, actor_critic_train_forward,
+    )
     from mansy_immersivevideostreaming_torch.kernels.choose_action import choose_action
     from mansy_immersivevideostreaming_torch.kernels.env_step import env_step
     from mansy_immersivevideostreaming_torch.kernels.expert_tables import build_expert_tables
+    from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
     from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
+    from mansy_immersivevideostreaming_torch.kernels.policy_loss import policy_loss
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -895,7 +1496,8 @@ def main() -> int:
     card = device_line()
     log(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     counters = (env_step, observe_mansy_pack, actor_critic_forward, choose_action,
-                build_expert_tables)
+                build_expert_tables, compute_gae, policy_loss, actor_critic_train_forward,
+                actor_critic_backward)
 
     t0 = time.time()
     rows = kernel_phase(dev)
@@ -903,21 +1505,29 @@ def main() -> int:
     rows.update(expert_rows)
     for name, fields in extra.items():
         rows[name]["action_values"] = fields
+    rows.update(training_kernel_phase(dev))
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths = {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
                       ("collect", lambda: collect_phase(dev, counters)),
                       ("expert", lambda: expert_phase(dev, counters)),
-                      ("serve_v16", lambda: serve_phase(dev, counters, v16=True))):
+                      ("serve_v16", lambda: serve_phase(dev, counters, v16=True)),
+                      ("train", lambda: train_phase(dev, counters)),
+                      ("dagger", lambda: dagger_phase(dev, counters))):
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
     # the kernels each path runs; every one must have launched on it
+    training = ("actor_critic_train_forward", "policy_loss", "actor_critic_backward")
     path_kernels = {"serve": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
                     "collect": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
                     "expert": ("env_step", "choose_action", "build_expert_tables"),
                     "serve_v16": ("env_step", "observe_mansy_pack", "actor_critic_forward",
-                                  "build_expert_tables")}
+                                  "build_expert_tables"),
+                    "train": ("env_step", "observe_mansy_pack", "actor_critic_forward",
+                              "compute_gae") + training,
+                    "dagger": ("env_step", "observe_mansy_pack", "actor_critic_forward",
+                               "choose_action") + training}
     for path, names in path_kernels.items():
         for name in names:
             if paths[path]["launches"][name] == 0:

@@ -8,7 +8,12 @@
 * ``choose_action``: the MPC expert's sequence search (``choose_action.py``,
   K4);
 * ``build_expert_tables``: the MPC expert's profiling tables
-  (``expert_tables.py``, K5).
+  (``expert_tables.py``, K5);
+* ``compute_gae``: generalized advantage estimation (``gae.py``, K6);
+* ``policy_loss``: the PPO and cross-entropy loss heads with their gradient
+  (``policy_loss.py``, K9);
+* ``actor_critic_train_forward`` and ``actor_critic_backward``: K3's
+  training mode and the actor-critic backward (``actor_critic.py``, K10).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch version beside it only for tensors that lie on the CPU.  Each

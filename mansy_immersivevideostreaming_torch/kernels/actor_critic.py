@@ -1,5 +1,5 @@
-"""K3: actor-critic forward with the action head (wrapper, plain version,
-launch count).
+"""K3: actor-critic forward with the action head, its training mode, and
+K10: its backward (wrappers, plain versions, launch counts).
 
 Replaces the JAX package's ``models/abr_nets.py:_branch``,
 ``MansyFeatureNet`` and ``MansyActorCritic.__call__`` (``:105-186``, with
@@ -13,6 +13,14 @@ It reads the packed observation buffer of ``kernels/observe.py``.  On the
 H100 it is bound by f32 operations (~0.85 MFLOP a lane); ``csrc/
 actor_critic.cu`` keeps the [N, 1280] features on chip and runs in full f32
 (no TF32, no cuBLAS).
+
+Training goes through :func:`actor_critic_train`, a ``torch.autograd.Function``
+over the eight packed weight tensors: its forward is K3's training mode
+(:func:`actor_critic_train_forward`: no action head, and it saves the branch
+and fc activations), its backward K10 (:func:`actor_critic_backward`,
+``csrc/actor_critic_backward.cu``), which replaces what ``jax.grad`` derives
+from the same network in the JAX package's PPO, BC and DAgger updates.  K10
+is bound by f32 operations too (~1.5 MFLOP a row).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ MAX_BRANCHES = 11  # 10, or 11 with the action-value branch
 COND_BRANCH_INDEX = 9  # the cond branch, whose features are the residual
 HIDDEN = 128  # the kernel's hidden width
 MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
+BACKWARD_SLICE_ROWS = 256  # K10: rows a depth slice of the batch-deep products
+BACKWARD_MAX_SLICES = 16   # K10: at most this many slices (csrc kMaxSplits)
 
 
 class ActorCriticWeights(NamedTuple):
@@ -75,23 +85,33 @@ def action_head(logits: torch.Tensor, noise: Optional[torch.Tensor]):
     return action.to(torch.int32), log_prob
 
 
-def actor_critic_forward_plain(w: ActorCriticWeights, x: torch.Tensor,
-                               noise: Optional[torch.Tensor] = None):
-    """Plain PyTorch version.  x: [N, >= 748] packed observations.  Returns
-    (logits [N, A], value [N], action i32 [N], log_prob [N])."""
+def actor_critic_train_forward_plain(w: ActorCriticWeights, x: torch.Tensor):
+    """Plain PyTorch version of the training mode, and the network of every
+    plain version: (logits, value, feats [N, nb H], hidden [N, 2H]); feats
+    and hidden are the branch and fc outputs after LeakyReLU (hidden before
+    the cond residual), what the backward reads."""
     feats = []
     for b in range(len(w.branch_off) - 1):
         lo, hi = w.branch_off[b], w.branch_off[b + 1]
         feats.append(F.leaky_relu(x[:, lo:hi] @ w.w_branch[lo:hi] + w.b_branch[b], 0.01))
     cond = feats[COND_BRANCH_INDEX]
-    h = F.leaky_relu(torch.cat(feats, dim=-1) @ w.w_fc + w.b_fc, 0.01)
+    feats = torch.cat(feats, dim=-1)
+    hidden = F.leaky_relu(feats @ w.w_fc + w.b_fc, 0.01)
     H = w.b_branch.shape[1]
-    logits = (h[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
+    logits = (hidden[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
     if w.av_prior:
         av = x[:, w.av_off:w.av_off + logits.shape[1]]
         av = (av - av.mean(-1, keepdim=True)) / (av.std(-1, correction=0, keepdim=True) + 1e-6)
         logits = logits + w.av_prior * av
-    value = ((h[:, H:] + cond) @ w.w_critic_out + w.b_critic_out)[:, 0]
+    value = ((hidden[:, H:] + cond) @ w.w_critic_out + w.b_critic_out)[:, 0]
+    return logits, value, feats, hidden
+
+
+def actor_critic_forward_plain(w: ActorCriticWeights, x: torch.Tensor,
+                               noise: Optional[torch.Tensor] = None):
+    """Plain PyTorch version.  x: [N, >= 748] packed observations.  Returns
+    (logits [N, A], value [N], action i32 [N], log_prob [N])."""
+    logits, value, _, _ = actor_critic_train_forward_plain(w, x)
     action, log_prob = action_head(logits, noise)
     return logits, value, action, log_prob
 
@@ -100,21 +120,15 @@ class _ActorCriticArgs(ctypes.Structure):
     """Mirror of ``ActorCriticArgs`` in ``csrc/actor_critic.cu``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "x", "w_branch", "b_branch", "w_fc", "b_fc", "w_aout", "b_aout", "w_cout",
-        "b_cout", "noise", "logits", "value", "action", "log_prob")]
+        "b_cout", "noise", "logits", "value", "action", "log_prob", "feats", "hidden")]
         + [(f, ctypes.c_int32) for f in ("n_lanes", "ldx", "A", "num_branches")]
         + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1)), ("av_off", ctypes.c_int32),
            ("av_prior", ctypes.c_float)])
 
 
-def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,
-                         noise: Optional[torch.Tensor] = None):
-    """Policy forward and action head over the packed observations ``x``.
-    CPU tensors take :func:`actor_critic_forward_plain`; CUDA tensors launch
-    the kernel.  Returns (logits, value, action i32, log_prob)."""
-    dev = x.device
-    if dev.type == "cpu":
-        return actor_critic_forward_plain(w, x, noise)
-    N = x.shape[0]
+def _weight_tensors(w: ActorCriticWeights, x: torch.Tensor):
+    """The kernel's weight pointers by argument name, checked: 10 or 11
+    branches of hidden 128, contiguous f32 tensors on x's device."""
     A = w.w_actor_out.shape[1]
     nb = len(w.branch_off) - 1
     if nb not in (MAX_BRANCHES - 1, MAX_BRANCHES) or w.b_branch.shape != (nb, HIDDEN) \
@@ -126,32 +140,190 @@ def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,
     tensors = {"x": x, "w_branch": w.w_branch, "b_branch": w.b_branch, "w_fc": w.w_fc,
                "b_fc": w.b_fc, "w_aout": w.w_actor_out, "b_aout": w.b_actor_out,
                "w_cout": w.w_critic_out, "b_cout": w.b_critic_out}
-    if noise is not None:
-        tensors["noise"] = noise
-        if noise.shape != (N, A):
-            raise ValueError(f"actor_critic: noise must be [{N}, {A}], got {tuple(noise.shape)}")
     for name, t in tensors.items():
         contiguous = t.stride(-1) == 1 if name == "x" else t.is_contiguous()
-        if t.device != dev or t.dtype != torch.float32 or not contiguous:
-            raise ValueError(f"actor_critic: {name} must be a contiguous f32 tensor on {dev}")
-    logits = torch.empty((N, A), dtype=torch.float32, device=dev)
-    value = torch.empty(N, dtype=torch.float32, device=dev)
-    action = torch.empty(N, dtype=torch.int32, device=dev)
-    log_prob = torch.empty(N, dtype=torch.float32, device=dev)
+        if t.device != x.device or t.dtype != torch.float32 or not contiguous:
+            raise ValueError(f"actor_critic: {name} must be a contiguous f32 tensor on "
+                             f"{x.device}")
+    return tensors
+
+
+def _launch_forward(w: ActorCriticWeights, x: torch.Tensor, tensors, **outputs) -> None:
+    """One launch of the forward kernel; ``outputs`` (and the noise) by
+    argument name, the rest null."""
     args = _ActorCriticArgs(
-        **{k: t.data_ptr() for k, t in tensors.items()},
-        logits=logits.data_ptr(), value=value.data_ptr(), action=action.data_ptr(),
-        log_prob=log_prob.data_ptr(), n_lanes=N, ldx=x.stride(0), A=A, num_branches=nb,
+        **{k: t.data_ptr() for k, t in {**tensors, **outputs}.items()},
+        n_lanes=x.shape[0], ldx=x.stride(0), A=w.w_actor_out.shape[1],
+        num_branches=len(w.branch_off) - 1,
         branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off),
         av_off=max(w.av_off, 0), av_prior=float(w.av_prior))
     lib = build.load("actor_critic")
     lib.actor_critic_launch.argtypes = [ctypes.POINTER(_ActorCriticArgs), ctypes.c_void_p]
     lib.actor_critic_launch.restype = ctypes.c_int
-    err = lib.actor_critic_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.actor_critic_launch(ctypes.byref(args),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"actor_critic kernel launch failed with CUDA error {err}")
+
+
+def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,
+                         noise: Optional[torch.Tensor] = None):
+    """Policy forward and action head over the packed observations ``x``.
+    CPU tensors take :func:`actor_critic_forward_plain`; CUDA tensors launch
+    the kernel.  Returns (logits, value, action i32, log_prob)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return actor_critic_forward_plain(w, x, noise)
+    tensors = _weight_tensors(w, x)
+    N, A = x.shape[0], w.w_actor_out.shape[1]
+    if noise is not None:
+        if noise.shape != (N, A) or noise.device != dev or noise.dtype != torch.float32 \
+                or not noise.is_contiguous():
+            raise ValueError(f"actor_critic: noise must be a contiguous f32 [{N}, {A}] "
+                             f"tensor on {dev}, got {tuple(noise.shape)}")
+        tensors["noise"] = noise
+    out = dict(logits=torch.empty((N, A), dtype=torch.float32, device=dev),
+               value=torch.empty(N, dtype=torch.float32, device=dev),
+               action=torch.empty(N, dtype=torch.int32, device=dev),
+               log_prob=torch.empty(N, dtype=torch.float32, device=dev))
+    _launch_forward(w, x, tensors, **out)
     actor_critic_forward.launches += 1
-    return logits, value, action, log_prob
+    return out["logits"], out["value"], out["action"], out["log_prob"]
 
 
 actor_critic_forward.launches = 0
+
+
+def actor_critic_train_forward(w: ActorCriticWeights, x: torch.Tensor):
+    """K3's training mode: (logits, value, feats, hidden), no action head.
+    CPU tensors take :func:`actor_critic_train_forward_plain`; CUDA tensors
+    launch the kernel, which also writes the activations K10 reads."""
+    dev = x.device
+    if dev.type == "cpu":
+        return actor_critic_train_forward_plain(w, x)
+    tensors = _weight_tensors(w, x)
+    N, A, nb = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1
+    out = dict(logits=torch.empty((N, A), dtype=torch.float32, device=dev),
+               value=torch.empty(N, dtype=torch.float32, device=dev),
+               feats=torch.empty((N, nb * HIDDEN), dtype=torch.float32, device=dev),
+               hidden=torch.empty((N, 2 * HIDDEN), dtype=torch.float32, device=dev))
+    _launch_forward(w, x, tensors, **out)
+    actor_critic_train_forward.launches += 1
+    return out["logits"], out["value"], out["feats"], out["hidden"]
+
+
+actor_critic_train_forward.launches = 0
+
+
+def actor_critic_backward_plain(w: ActorCriticWeights, x: torch.Tensor, feats: torch.Tensor,
+                                hidden: torch.Tensor, dlogits: torch.Tensor,
+                                dvalue: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K10: the gradients of the eight weight
+    tensors (``TENSOR_FIELDS`` order) from d/dlogits [N, A] and d/dvalue [N],
+    with the activations of the training forward.  LeakyReLU's derivative
+    comes from the sign of its output, as ``jax.nn.leaky_relu`` gives it."""
+    H = w.b_branch.shape[1]
+    nb = len(w.branch_off) - 1
+    leaky_grad = lambda out, g: torch.where(out >= 0, g, 0.01 * g)
+    cond = feats[:, COND_BRANCH_INDEX * H:(COND_BRANCH_INDEX + 1) * H]
+    y_a, y_c = hidden[:, :H] + cond, hidden[:, H:] + cond
+    dy_a = dlogits @ w.w_actor_out.t()
+    dy_c = dvalue[:, None] * w.w_critic_out[:, 0]
+    dpre_fc = leaky_grad(hidden, torch.cat([dy_a, dy_c], dim=1))
+    dfeats = dpre_fc @ w.w_fc.t()
+    cols = slice(COND_BRANCH_INDEX * H, (COND_BRANCH_INDEX + 1) * H)
+    dfeats[:, cols] = dfeats[:, cols] + (dy_a + dy_c)
+    dpre_b = leaky_grad(feats, dfeats)
+    dw_branch = torch.cat([
+        x[:, w.branch_off[b]:w.branch_off[b + 1]].t() @ dpre_b[:, b * H:(b + 1) * H]
+        for b in range(nb)])
+    return (dw_branch, dpre_b.reshape(-1, nb, H).sum(0), feats.t() @ dpre_fc, dpre_fc.sum(0),
+            y_a.t() @ dlogits, dlogits.sum(0), y_c.t() @ dvalue[:, None], dvalue.sum(0, keepdim=True))
+
+
+class _ActorCriticBackwardArgs(ctypes.Structure):
+    """Mirror of ``ActorCriticBackwardArgs`` in ``csrc/actor_critic_backward.cu``."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "x", "feats", "hidden", "w_fc", "w_aout", "w_cout", "dlogits", "dvalue", "y", "dpre_fc",
+        "dcond", "dpre_b", "partial", "dw_branch", "db_branch", "dw_fc", "db_fc", "dw_aout",
+        "db_aout", "dw_cout", "db_cout")]
+        + [(f, ctypes.c_int32) for f in ("B", "ldx", "A", "num_branches", "splits")]
+        + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1))])
+
+
+def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.Tensor,
+                          hidden: torch.Tensor, dlogits: torch.Tensor,
+                          dvalue: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K10: the eight weight gradients (see :func:`actor_critic_backward_plain`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev = x.device
+    if dev.type == "cpu":
+        return actor_critic_backward_plain(w, x, feats, hidden, dlogits, dvalue)
+    _weight_tensors(w, x)
+    B, A, nb = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1
+    for name, t, shape in (("feats", feats, (B, nb * HIDDEN)), ("hidden", hidden, (B, 2 * HIDDEN)),
+                           ("dlogits", dlogits, (B, A)), ("dvalue", dvalue, (B,))):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"actor_critic_backward: {name} must be a contiguous f32 tensor "
+                             f"of shape {shape} on {dev}, got {tuple(t.shape)}")
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    # the products whose depth is the batch run in slices of BACKWARD_SLICE_ROWS rows,
+    # each into its own partial tiles: the two heads, dW_fc and the branch weights
+    splits = min(-(-B // BACKWARD_SLICE_ROWS), BACKWARD_MAX_SLICES)
+    partial = HIDDEN * (A + 1) + nb * HIDDEN * 2 * HIDDEN + w.branch_off[-1] * HIDDEN
+    scratch = dict(y=empty(B, 2 * HIDDEN), dpre_fc=empty(B, 2 * HIDDEN), dcond=empty(B, HIDDEN),
+                   dpre_b=empty(B, nb * HIDDEN), partial=empty(splits, partial))
+    grads = dict(dw_branch=torch.empty_like(w.w_branch), db_branch=torch.empty_like(w.b_branch),
+                 dw_fc=torch.empty_like(w.w_fc), db_fc=torch.empty_like(w.b_fc),
+                 dw_aout=torch.empty_like(w.w_actor_out), db_aout=torch.empty_like(w.b_actor_out),
+                 dw_cout=torch.empty_like(w.w_critic_out),
+                 db_cout=torch.empty_like(w.b_critic_out))
+    inputs = dict(x=x, feats=feats, hidden=hidden, w_fc=w.w_fc, w_aout=w.w_actor_out,
+                  w_cout=w.w_critic_out, dlogits=dlogits, dvalue=dvalue)
+    args = _ActorCriticBackwardArgs(
+        **{k: t.data_ptr() for k, t in {**inputs, **scratch, **grads}.items()},
+        B=B, ldx=x.stride(0), A=A, num_branches=nb, splits=splits,
+        branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off))
+    lib = build.load("actor_critic_backward")
+    lib.actor_critic_backward_launch.argtypes = [ctypes.POINTER(_ActorCriticBackwardArgs),
+                                                 ctypes.c_void_p]
+    lib.actor_critic_backward_launch.restype = ctypes.c_int
+    err = lib.actor_critic_backward_launch(ctypes.byref(args),
+                                           torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"actor_critic_backward kernel launch failed with CUDA error {err}")
+    actor_critic_backward.launches += 1
+    return tuple(grads.values())
+
+
+actor_critic_backward.launches = 0
+
+
+class _ActorCriticTrain(torch.autograd.Function):
+    """(logits, value) of the packed weights: K3's training mode forward and
+    K10 backward (their plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, static, *weights):
+        w = ActorCriticWeights(*(t.detach() for t in weights), *static)
+        logits, value, feats, hidden = actor_critic_train_forward(w, x.detach())
+        ctx.save_for_backward(x, feats, hidden, *weights)
+        ctx.static = static
+        return logits, value
+
+    @staticmethod
+    def backward(ctx, dlogits, dvalue):
+        x, feats, hidden, *weights = ctx.saved_tensors
+        w = ActorCriticWeights(*weights, *ctx.static)
+        grads = actor_critic_backward(w, x, feats, hidden, dlogits.contiguous(),
+                                      dvalue.contiguous())
+        return (None, None) + grads
+
+
+def actor_critic_train(w: ActorCriticWeights, x: torch.Tensor):
+    """(logits [N, A], value [N]) of the packed observations ``x``,
+    differentiable in ``w``'s eight tensors (the parameters flow back
+    through ``MansyActorCritic._pack``)."""
+    static = tuple(getattr(w, f) for f in ActorCriticWeights._fields[len(TENSOR_FIELDS):])
+    return _ActorCriticTrain.apply(x, static, *(getattr(w, f) for f in TENSOR_FIELDS))

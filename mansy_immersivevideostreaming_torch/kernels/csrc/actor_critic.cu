@@ -14,6 +14,14 @@
 // beta * (av - mean) / (std + 1e-6) (population std, abr_nets.py:176-180);
 // log_softmax and argmax.  About 0.85 MFLOP a lane (0.94 with 11 branches).
 //
+// Training mode (feats and hidden given, kernels/actor_critic.py:
+// actor_critic_train_forward): no noise and no action head; it also writes
+// what the backward (csrc/actor_critic_backward.cu, K10) reads, the branch
+// features after LeakyReLU [N, nb x 128] and the fc outputs after LeakyReLU,
+// before the residual [N, 256] (2.6 MB at 512 lanes, under a microsecond at
+// the H100's 3.35 TB/s).  K10 takes each LeakyReLU's derivative from the
+// sign of its output, so nothing is recomputed.
+//
 // Bound: f32 operations.  At 8192 lanes the forward is ~7 GFLOP against
 // ~26 MB of inputs, so the card's non-tensor f32 rate bounds it.  No TF32:
 // the sums stay in full f32, as the JAX reference's "highest" precision.
@@ -67,8 +75,10 @@ struct ActorCriticArgs {
   const float* noise;     // [N, A] Gumbel noise, or null for the plain argmax
   float* logits;          // [N, A]
   float* value;           // [N]
-  int32_t* action;        // [N]
-  float* log_prob;        // [N]
+  int32_t* action;        // [N], or null in training mode
+  float* log_prob;        // [N], or null in training mode
+  float* feats;           // [N, nb * 128] branch features, or null (training mode)
+  float* hidden;          // [N, 256] fc outputs before the residual, or null
   int32_t n_lanes, ldx, A;
   int32_t num_branches;        // nb: 10 or 11
   int32_t branch_off[kMaxNB + 1];
@@ -147,6 +157,8 @@ actor_critic_kernel(const ActorCriticArgs a) {
         const float f = leaky(acc1[i][j] + a.b_branch[b * kH + n]);
         Fs[n * kPad + m] = f;
         if (b == kCond) Cs[m * kH + n] = f;
+        if (a.feats && row0 + m < a.n_lanes)
+          a.feats[(size_t)(row0 + m) * (a.num_branches * kH) + b * kH + n] = f;
       }
     }
     __syncthreads();
@@ -185,7 +197,9 @@ actor_critic_kernel(const ActorCriticArgs a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = tx + 32 * j;
-      Hs[m * kHS + n] = leaky(acc2[i][j] + a.b_fc[n]) + Cs[m * kH + (n & (kH - 1))];
+      const float h = leaky(acc2[i][j] + a.b_fc[n]);
+      Hs[m * kHS + n] = h + Cs[m * kH + (n & (kH - 1))];
+      if (a.hidden && row0 + m < a.n_lanes) a.hidden[(size_t)(row0 + m) * (2 * kH) + n] = h;
     }
   }
   __syncthreads();
@@ -235,8 +249,10 @@ actor_critic_kernel(const ActorCriticArgs a) {
       }
       for (int o = 0; o < a.A; ++o) a.logits[(size_t)row * a.A + o] = l[o];
       a.value[row] = l[a.A];
-      a.action[row] = best;
-      a.log_prob[row] = (l[best] - mx) - lse;
+      if (a.action) {
+        a.action[row] = best;
+        a.log_prob[row] = (l[best] - mx) - lse;
+      }
     }
   }
 }

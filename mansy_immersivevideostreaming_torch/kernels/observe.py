@@ -72,12 +72,32 @@ def feature_width(K: int, R: int, T: int, A: int, av: bool = False) -> int:
     return obs_layout(K, R, T, A, av)[NET_FIELDS + av][1]
 
 
+def obs_columns(K: int, R: int, T: int, A: int, av: bool = False) -> Dict[str, slice]:
+    """Each field's columns in the packed observation."""
+    return {name: slice(off, off + int(torch.Size(shape).numel()))
+            for name, off, shape in obs_layout(K, R, T, A, av)}
+
+
 def unpack_obs(buf: torch.Tensor, K: int, R: int, T: int, A: int,
                av: bool = False) -> Dict[str, torch.Tensor]:
     """[..., F] packed buffer -> the 13- or 14-field observation dict (views)."""
     lead = buf.shape[:-1]
     return {name: buf[..., off:off + int(torch.Size(shape).numel())].reshape(lead + shape)
             for name, off, shape in obs_layout(K, R, T, A, av)}
+
+
+def pack_obs(obs, device: str | torch.device = "cpu") -> torch.Tensor:
+    """The 13- or 14-field observation dict (arrays or tensors of [..., field
+    shape]) -> the packed [n, F] buffer on ``device``, :func:`unpack_obs`'s
+    inverse.  The dims come from the fields' shapes."""
+    K = obs["throughput"].shape[-1]
+    R, T = obs["next_chunk_size"].shape[-2:]
+    A = obs["action_one_hot"].shape[-1]
+    layout = obs_layout(K, R, T, A, "action_values" in obs)
+    n = int(torch.Size(obs["throughput"].shape[:-1]).numel())
+    cols = [torch.as_tensor(obs[name], dtype=torch.float32).reshape(n, -1)
+            for name, _, _ in layout]
+    return torch.cat(cols, dim=1).to(device)
 
 
 _AV_FIELDS = ("av_quality", "av_intra", "av_size", "av_out_quality", "av_out_intra")
@@ -89,11 +109,8 @@ _PTR_FIELDS = ("sizes", "qualities", "pred", "qoe_weights") + _AV_FIELDS + (
 
 def observe_mansy_pack_plain(tables: SimTables, state: EnvState,
                              out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: :func:`observe_mansy`'s fields, concatenated."""
-    obs = observe_mansy(tables, state)
-    N = state.buf.shape[0]
-    cols = torch.cat([obs[name].reshape(N, -1)
-                      for name, _, _ in obs_layout(*obs_dims(tables))], dim=1)
+    """Plain PyTorch version: :func:`observe_mansy`'s fields, packed."""
+    cols = pack_obs(observe_mansy(tables, state), state.buf.device)
     if out is None:
         return cols
     out.copy_(cols)

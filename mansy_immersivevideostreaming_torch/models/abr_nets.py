@@ -1,17 +1,22 @@
-"""MANSY actor-critic network (torch ``nn.Module``).
+"""MANSY actor-critic and QoE-preference identifier networks (torch
+``nn.Module``s).
 
 Port of ``mansy_immersivevideostreaming_tpu/models/abr_nets.py``
-``MansyFeatureNet`` and ``MansyActorCritic`` (reference
-``bitrate_selection/models/mansy.py:5-80``).  ``use_action_values`` and
+``MansyFeatureNet``, ``MansyActorCritic`` and ``QoEIdentifier`` (reference
+``bitrate_selection/models/mansy.py:5-155``).  ``use_action_values`` and
 ``av_logit_prior`` read the exact ``action_values`` observation field
 (``sim/env.py:exact_action_values``), so a policy with either setting needs
 tables that carry action values; the derived ``causal_action_values`` that
 the JAX net falls back on without that field is not ported.
 
-The network's math lives once, in ``kernels/actor_critic.py``: ``forward``
-packs the 13- or 14-field observation dict and runs the kernel's plain version;
-the rollout runs the hand-written kernel on
-:meth:`MansyActorCritic.packed_weights`.
+The actor-critic's math lives once, in ``kernels/actor_critic.py``:
+``forward`` packs the 13- or 14-field observation dict and
+:meth:`MansyActorCritic.forward_packed` runs ``actor_critic_train`` on the
+packed buffer, differentiable in the parameters (K3's training mode and the
+K10 backward on the card, their plain versions on the CPU); the rollout runs
+the inference kernel on :meth:`MansyActorCritic.packed_weights`.  The
+identifier has no kernel: its dense layers stay ``nn.Linear`` with autograd,
+as the JAX package leaves them to XLA's dots.
 """
 
 from __future__ import annotations
@@ -20,12 +25,15 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
-    TENSOR_FIELDS, ActorCriticWeights, actor_critic_forward_plain,
+    TENSOR_FIELDS, ActorCriticWeights, actor_critic_train,
 )
-from mansy_immersivevideostreaming_torch.kernels.observe import obs_layout, NET_FIELDS
+from mansy_immersivevideostreaming_torch.kernels.observe import (
+    NET_FIELDS, obs_columns, obs_layout, obs_width, pack_obs,
+)
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
 # (observation field, Flax branch name), in the feature net's concat order;
@@ -111,18 +119,19 @@ class MansyActorCritic(nn.Module):
         return obs_layout(*self.dims)[:NET_FIELDS + self.dims[-1]]
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits [N, A], value [N]) from the observation dict: the dict
-        packed into the kernel's layout, through the kernel's plain version
-        (differentiable in the parameters)."""
-        layout = self._net_layout()
+        """(logits [N, A], value [N]) from the observation dict, packed into
+        the kernel's layout by :func:`pack_obs` (see :meth:`forward_packed`)."""
         if self.reads_action_values and "action_values" not in obs:
             raise NotImplementedError(
                 "MansyActorCritic: the observation has no action_values field; the "
                 "derived causal_action_values is not ported")
-        n = obs[layout[0][0]].shape[0]
-        x = torch.cat([obs[name].reshape(n, -1) for name, _, _ in layout], dim=1)
-        logits, value, _, _ = actor_critic_forward_plain(self._pack(), x)
-        return logits, value
+        return self.forward_packed(pack_obs(obs, self.actor_out.weight.device))
+
+    def forward_packed(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits [N, A], value [N]) of packed observations [N, >= 748],
+        differentiable in the parameters: K3's training mode and K10 for CUDA
+        tensors (hidden 128 only), their plain versions for CPU tensors."""
+        return actor_critic_train(self._pack(), x)
 
     def _pack(self) -> ActorCriticWeights:
         """The parameters in the actor-critic kernel's layout (Flax's
@@ -158,3 +167,45 @@ class MansyActorCritic(nn.Module):
             self._packed = (key, w._replace(**{f: getattr(w, f).detach().clone()
                                                for f in TENSOR_FIELDS}))
         return self._packed[1]
+
+
+class QoEIdentifier(nn.Module):
+    """Predicts the normalized QoE preference from the observation and the
+    previous action stored in it (reference ``mansy.py:143-155``, JAX
+    ``abr_nets.py:189-203``): the ten-branch feature net with cond =
+    ``action_one_hot``, ``fc`` with LeakyReLU, the cond residual, ``out`` (3)
+    and a sigmoid.  It reads packed observations (``kernels/observe.py``),
+    with or without the action-value columns, which it does not use."""
+
+    def __init__(self, hidden_dim: int = 128, action_space: int = 15, past_k: int = 8,
+                 num_rates: int = 5, num_tiles: int = 64,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dims = (past_k, num_rates, num_tiles, action_space)
+        in_dims = {name: int(torch.Size(shape).numel())
+                   for name, _, shape in obs_layout(*self.dims)}
+        self.feature_net = MansyFeatureNet(in_dims, hidden_dim, "action_one_hot", False, dev)
+        self.fc = _linear(hidden_dim * (len(BRANCHES) + 1), hidden_dim, dev)
+        self.out = _linear(hidden_dim, 3, dev)
+
+    def columns(self, x: torch.Tensor) -> Dict[str, slice]:
+        """Each field's columns in the packed observations ``x``."""
+        for av in (False, True):
+            if x.shape[-1] == obs_width(*self.dims, av):
+                return obs_columns(*self.dims, av)
+        raise ValueError(f"QoEIdentifier: {x.shape[-1]} columns is no packed observation width")
+
+    def target(self, x: torch.Tensor) -> torch.Tensor:
+        """The normalized preference [N, 3] the identifier predicts."""
+        return x[:, self.columns(x)["qoe_weight"]]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Predicted preference [N, 3] of packed observations [N, F]."""
+        cols = self.columns(x)
+        branch = lambda name, field: F.leaky_relu(
+            self.feature_net.branches[name](x[:, cols[field]]), 0.01)
+        cond = branch(COND_BRANCH, "action_one_hot")
+        feats = torch.cat([branch(name, field) for field, name in BRANCHES] + [cond], dim=-1)
+        h = F.leaky_relu(self.fc(feats), 0.01)
+        return torch.sigmoid(self.out(h + cond))

@@ -17,7 +17,7 @@ from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
     actor_critic_forward, gumbel_noise,
 )
 from mansy_immersivevideostreaming_torch.kernels.observe import (
-    obs_dims, obs_width, observe_mansy_pack, unpack_obs,
+    obs_dims, obs_width, observe_mansy_pack,
 )
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
 from mansy_immersivevideostreaming_torch.rl.types import Transition
@@ -52,7 +52,8 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
     """Build a collector.
 
     Returns ``collect(policy, states, generator) -> (new_states, Transition
-    [T, N, ...], LogRecord [T, N], last_values [N])``.  Actions are sampled
+    [T, N, ...], LogRecord [T, N], last_values [N])``; the transition's
+    observations are the packed [T, N, F] buffer.  Actions are sampled
     with Gumbel noise drawn from ``generator`` (a ``torch.Generator`` on the
     lanes' device).  On the card ``states`` is updated in place and returned.
     """
@@ -79,7 +80,7 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
             dones.append(done)
             logs.append(log)
         _, last_values, _, _ = actor_critic_forward(w, observe_mansy_pack(tables, states))
-        traj = Transition(obs=unpack_obs(obs, *dims), action=torch.stack(actions),
+        traj = Transition(obs=obs, action=torch.stack(actions),
                           log_prob=torch.stack(log_probs), value=torch.stack(values),
                           reward=torch.stack(rewards), done=torch.stack(dones))
         return states, traj, stack_logs(logs), last_values
@@ -88,9 +89,7 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
 
 
 def flatten_time(tree):
-    """[T, N, ...] -> [T*N, ...] over a dict or NamedTuple of tensors."""
-    if isinstance(tree, dict):
-        return {k: flatten_time(v) for k, v in tree.items()}
+    """[T, N, ...] -> [T*N, ...] over a NamedTuple of tensors."""
     if isinstance(tree, tuple):
         return type(tree)(*(flatten_time(x) for x in tree))
     return tree.reshape((-1,) + tuple(tree.shape[2:]))

@@ -1,4 +1,5 @@
-"""Policy weights carried across from the JAX package.
+"""Policy and identifier weights, carried across from and back to the JAX
+package.
 
 The JAX package stores policies as Orbax checkpoints of Flax params with a
 ``.netcfg.json`` sidecar naming the net's construction flags
@@ -7,7 +8,10 @@ the same params from a numpy ``.npz`` (one array per leaf, keyed by its
 ``/``-joined Flax path) beside a copy of that sidecar, so it needs neither
 JAX nor Orbax.  ``assets/dagger_v9_params.npz`` is the round-4 flagship;
 ``assets/dagger_v16_params.npz`` is the round-4 policy that observes the
-exact, accuracy-corrected action values and adds their logit prior.
+exact, accuracy-corrected action values and adds their logit prior.  The
+port's trainers write their policies and identifiers in the same layout
+(:func:`save_npz`, :func:`save_net_config`), so the JAX package's Flax nets
+load them too.
 """
 
 from __future__ import annotations
@@ -43,21 +47,20 @@ def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def actor_critic_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """MansyActorCritic Flax params (nested or flat "/"-keyed dict of numpy
-    arrays), with or without the action-value branch, -> the port's
-    ``state_dict``.  Flax ``Dense`` kernels are [in, out]; ``nn.Linear``
+AC_HEADS = ("actor_fc", "actor_out", "critic_fc", "critic_out")
+ID_HEADS = ("fc", "out")
+
+
+def _state_from_flax(flat: Dict[str, np.ndarray], names, heads,
+                     what: str) -> Dict[str, torch.Tensor]:
+    """Flat Flax params of the branches ``names`` and dense layers ``heads``
+    -> a ``state_dict``.  Flax ``Dense`` kernels are [in, out]; ``nn.Linear``
     weights are [out, in]."""
-    flat = flatten_params(params)
-    names = [n for _, n in BRANCHES] + [COND_BRANCH]
-    if f"feature_net/{AV_BRANCH}/kernel" in flat:
-        names.append(AV_BRANCH)
     layers = {f"feature_net.branches.{name}": f"feature_net/{name}" for name in names}
-    layers.update({name: name for name in ("actor_fc", "actor_out", "critic_fc",
-                                           "critic_out")})
+    layers.update({name: name for name in heads})
     expected = {f"{p}/{leaf}" for p in layers.values() for leaf in ("kernel", "bias")}
     if set(flat) != expected:
-        raise ValueError(f"not MansyActorCritic params: missing {sorted(expected - set(flat))}, "
+        raise ValueError(f"not {what} params: missing {sorted(expected - set(flat))}, "
                          f"unexpected {sorted(set(flat) - expected)}")
     state = {}
     for module, path in layers.items():
@@ -65,6 +68,60 @@ def actor_critic_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor
             np.array(flat[f"{path}/kernel"].T, order="C"))
         state[f"{module}.bias"] = torch.from_numpy(np.array(flat[f"{path}/bias"]))
     return state
+
+
+def actor_critic_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """MansyActorCritic Flax params (nested or flat "/"-keyed dict of numpy
+    arrays), with or without the action-value branch, -> the port's
+    ``state_dict``."""
+    flat = flatten_params(params)
+    names = [n for _, n in BRANCHES] + [COND_BRANCH]
+    if f"feature_net/{AV_BRANCH}/kernel" in flat:
+        names.append(AV_BRANCH)
+    return _state_from_flax(flat, names, AC_HEADS, "MansyActorCritic")
+
+
+def identifier_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """QoEIdentifier Flax params -> the port's ``state_dict``."""
+    return _state_from_flax(flatten_params(params), [n for _, n in BRANCHES] + [COND_BRANCH],
+                            ID_HEADS, "QoEIdentifier")
+
+
+def flax_params(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A MansyActorCritic's or QoEIdentifier's parameters in the flat,
+    "/"-keyed Flax layout (kernels [in, out]): the inverse of the
+    converters above."""
+    flat = {}
+    for name, layer in module.named_modules():
+        if isinstance(layer, torch.nn.Linear):
+            path = name.replace("feature_net.branches.", "feature_net/")
+            flat[f"{path}/kernel"] = layer.weight.detach().t().cpu().numpy().astype(np.float32)
+            flat[f"{path}/bias"] = layer.bias.detach().cpu().numpy().astype(np.float32)
+    return flat
+
+
+def save_npz(path: str | os.PathLike, module: torch.nn.Module) -> None:
+    """Write ``module``'s parameters as a Flax-keyed ``.npz`` at exactly
+    ``path`` (``np.savez`` given a name would append ".npz")."""
+    with open(path, "wb") as f:
+        np.savez(f, **flax_params(module))
+
+
+def load_npz_into(module: torch.nn.Module, path: str | os.PathLike) -> None:
+    """Load a Flax-keyed ``.npz`` into a MansyActorCritic or QoEIdentifier."""
+    with np.load(path) as npz:
+        params = {k: npz[k] for k in npz.files}
+    convert = (actor_critic_state_dict_from_flax if isinstance(module, MansyActorCritic)
+               else identifier_state_dict_from_flax)
+    module.load_state_dict(convert(params))
+
+
+def save_net_config(path: str | os.PathLike, cfg: dict) -> None:
+    """Record the net-construction flags in the sidecar beside a policy file
+    (flags like ``av_logit_prior`` add no params, so the sidecar is what
+    rebuilds the same function)."""
+    with open(f"{os.path.abspath(path)}{NET_CONFIG_SUFFIX}", "w") as f:
+        json.dump(cfg, f, indent=1, sort_keys=True)
 
 
 def load_net_config(path: str | os.PathLike) -> dict | None:
@@ -98,10 +155,8 @@ def load_npz_policy(path: str | os.PathLike = DAGGER_V9_NPZ,
     if not exact and (netcfg.get("obs_action_values") or prior):
         raise NotImplementedError(f"{path}: the policy reads the derived causal action "
                                   f"values, which are not ported (netcfg {netcfg})")
-    with np.load(path) as npz:
-        params = {k: npz[k] for k in npz.files}
     policy = MansyActorCritic(hidden_dim=int(netcfg["hidden_dim"]),
                               use_action_values=exact, av_logit_prior=prior, device=dev)
-    policy.load_state_dict(actor_critic_state_dict_from_flax(params))
+    load_npz_into(policy, path)
     policy.acc_correct_obs = exact and bool(netcfg.get("acc_correct_obs"))
     return policy

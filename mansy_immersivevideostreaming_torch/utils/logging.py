@@ -1,8 +1,28 @@
-"""Plain-ASCII table rendering (copy of the JAX package's ``ascii_table``)."""
+"""Console tee and plain-ASCII table rendering (copies of the JAX package's
+``ConsoleLogger`` and ``ascii_table``, reference
+``viewport_prediction/utils/console_logger.py:1-12``)."""
 
 from __future__ import annotations
 
 from typing import Iterable, List, Sequence
+
+
+class ConsoleLogger:
+    """Tee writes to several streams (stdout + log files)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, data):
+        # flush eagerly: the CLIs never close the tee'd log file, so buffered
+        # writes would otherwise be lost to concurrent readers (and to a crash)
+        for s in self.streams:
+            s.write(data)
+            s.flush()
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
 
 
 def ascii_table(field_names: Sequence[str], rows: Iterable[Sequence]) -> str:

@@ -153,3 +153,87 @@ def test_v16_observation_and_forward_kernels_match_plain_on_card(cuda_device):
     for x, y in zip(got[:2], ref[:2]):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- training
+
+def _grad_close(got, ref, rtol=1e-4):
+    """Gradients summed over the batch in another order: rtol plus 1e-5 of
+    the tensor's largest entry."""
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5 * float(ref.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N", [(1, 7), (32, 128), (64, 1000)])
+def test_gae_kernel_matches_plain_on_card(cuda_device, T, N):
+    from mansy_immersivevideostreaming_torch.kernels import gae as K6
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    rewards = torch.randn(T, N, device=cuda_device, generator=g)
+    values = torch.randn(T, N, device=cuda_device, generator=g)
+    dones = torch.rand(T, N, device=cuda_device, generator=g) < 0.1
+    last = torch.randn(N, device=cuda_device, generator=g)
+    got = K6.compute_gae(rewards, dones, values, last, 0.95, 0.95)
+    ref = K6.compute_gae_plain(rewards, dones, values, last, 0.95, 0.95)
+    for x, y in zip(got, ref):  # the same operation order, -fmad=false
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6 * float(y.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["clip_norm", "no_value_clip", "no_norm", "per_pref",
+                                     "kl_scalar", "kl_per_pref", "ce"])
+def test_policy_loss_kernel_matches_plain_on_card(cuda_device, variant):
+    from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+    B = 777
+    g = torch.Generator(device=cuda_device).manual_seed(len(variant))
+    r = lambda *s: torch.randn(*s, device=cuda_device, generator=g)
+    logits, value = 2.0 * r(B, 15), r(B)
+    action = torch.randint(0, 15, (B,), device=cuda_device, generator=g, dtype=torch.int32)
+    if variant == "ce":
+        spec = K9.LossSpec(action=action, ent_coef=0.1)
+        value = None
+    else:
+        logp = torch.log_softmax(logits, -1).gather(1, action.long()[:, None])[:, 0]
+        kl = {"kl_scalar": torch.tensor(0.7), "kl_per_pref": torch.tensor([2.0, 1.0, 0.1, 0.5])}
+        spec = K9.LossSpec(
+            action=action, ent_coef=0.02, old_log_prob=logp + 0.3 * r(B),
+            old_value=value + 0.3 * r(B), adv=0.5 + 2.0 * r(B), ret=1.5 * r(B),
+            pref_id=torch.randint(0, 4, (B,), device=cuda_device, generator=g,
+                                  dtype=torch.int32),
+            anchor_logits=1.5 * r(B, 15) if variant in kl else None,
+            kl_coef=kl[variant].to(cuda_device) if variant in kl else None,
+            value_clip=variant != "no_value_clip", norm_adv=variant != "no_norm",
+            norm_adv_per_pref=variant in ("per_pref", "kl_per_pref"))
+    got = K9.policy_loss(spec, logits, value)
+    ref = K9.policy_loss_plain(spec, logits, value)
+    for x, y in zip(got, ref):
+        if y is None:
+            assert x is None
+        else:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()) + 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v16", [False, True])
+def test_actor_critic_train_and_backward_kernels_match_plain_on_card(cuda_device, v16):
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V9_NPZ
+    policy = load_npz_policy(DAGGER_V16_NPZ if v16 else DAGGER_V9_NPZ, device=cuda_device)
+    B = 300
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand(B, 795 if v16 else 779, device=cuda_device, generator=g)
+    w = policy._pack()
+    got = K3.actor_critic_train_forward(w, x)
+    ref = K3.actor_critic_train_forward_plain(w, x)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    dlogits = torch.randn(B, 15, device=cuda_device, generator=g)
+    dvalue = torch.randn(B, device=cuda_device, generator=g)
+    with torch.no_grad():
+        grads = K3.actor_critic_backward(w, x, *ref[2:], dlogits, dvalue)
+        want = K3.actor_critic_backward_plain(w, x, *ref[2:], dlogits, dvalue)
+    for a, b in zip(grads, want):
+        _grad_close(a, b)
+    # through the autograd Function and _pack, into every parameter
+    logits, value = policy.forward_packed(x)
+    ((logits * dlogits).sum() + (value * dvalue).sum()).backward()
+    assert all(p.grad is not None for p in policy.parameters())
+    _grad_close(policy.actor_fc.weight.grad, want[2][:, :128].t())

@@ -6,7 +6,7 @@
 * Entry points default to the card and raise where there is none, instead
   of running on the CPU unasked.
 * A kernel wrapper given CPU tensors runs its plain PyTorch version and
-  counts no launch.
+  counts no launch (K1-K6, K9, K10 and K3's training mode).
 * A policy that reads the derived action values, which the port does not
   have, is refused at load time.
 """
@@ -28,8 +28,10 @@ from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
 from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
 from mansy_immersivevideostreaming_torch.kernels import env_step as K1
 from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+from mansy_immersivevideostreaming_torch.kernels import gae as K6
 from mansy_immersivevideostreaming_torch.kernels import observe as K2
-from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
+from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic, QoEIdentifier
 from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
 from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
 from mansy_immersivevideostreaming_torch.sim.expert import (
@@ -71,6 +73,11 @@ def test_runner_import_pulls_in_no_jax():
             "import mansy_immersivevideostreaming_torch.cli.run_mansy; "
             "import mansy_immersivevideostreaming_torch.cli.run_expert; "
             "import mansy_immersivevideostreaming_torch.sim.expert; "
+            "import mansy_immersivevideostreaming_torch.cli.run_dagger; "
+            "import mansy_immersivevideostreaming_torch.rl.ppo; "
+            "import mansy_immersivevideostreaming_torch.rl.bc; "
+            "import mansy_immersivevideostreaming_torch.rl.identifier; "
+            "import mansy_immersivevideostreaming_torch.data.tianshou_compat; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
@@ -79,22 +86,29 @@ def test_runner_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def test_entry_points_refuse_to_fall_back_to_the_cpu():
+def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the entry points would run on it")
-    from mansy_immersivevideostreaming_torch.cli import run_expert, run_mansy
+    from mansy_immersivevideostreaming_torch.cli import run_dagger, run_expert, run_mansy
+    from mansy_immersivevideostreaming_torch.config import default_config
     from mansy_immersivevideostreaming_torch.utils.device import resolve_device
     cli_device = lambda cli: resolve_device(cli.build_parser().parse_args([]).device)
+    config = default_config(datasets_base_dir=str(tmp_path), results_base_dir=str(tmp_path),
+                            models_base_dir=str(tmp_path))
+    train = lambda cli, argv: cli.run(cli.build_parser().parse_args(argv), config)
     for entry in (lambda: synthetic_sim_tables(), lambda: load_npz_policy(),
-                  lambda: MansyActorCritic(), lambda: cli_device(run_expert),
-                  lambda: cli_device(run_mansy)):
+                  lambda: MansyActorCritic(), lambda: QoEIdentifier(),
+                  lambda: cli_device(run_expert), lambda: cli_device(run_mansy),
+                  lambda: cli_device(run_dagger), lambda: train(run_mansy, ["--train"]),
+                  lambda: train(run_dagger, [])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
 
 def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     wrappers = (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward,
-                K4.choose_action, K5.build_expert_tables)
+                K3.actor_critic_train_forward, K3.actor_critic_backward, K4.choose_action,
+                K5.build_expert_tables, K6.compute_gae, K9.policy_loss)
     for fn in wrappers:
         fn.launches = 0
     tables = synthetic_sim_tables(device="cpu")
@@ -123,6 +137,24 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     torch.testing.assert_close(reward, ref[1], rtol=0, atol=0)
     torch.testing.assert_close(new.buf, ref[0].buf, rtol=0, atol=0)
     assert new is not state  # the plain path returns a new state
+
+    # training: K6, K3's training mode, K9 and K10
+    rewards, values = torch.randn(4, 8), torch.randn(4, 8)
+    dones = torch.rand(4, 8) < 0.2
+    for a, b in zip(K6.compute_gae(rewards, dones, values, values[0], 0.9, 0.8),
+                    K6.compute_gae_plain(rewards, dones, values, values[0], 0.9, 0.8)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    fwd = K3.actor_critic_train_forward(w, x)
+    for a, b in zip(fwd, K3.actor_critic_train_forward_plain(w, x)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    dlogits, dvalue = torch.randn(8, 15), torch.randn(8)
+    for a, b in zip(K3.actor_critic_backward(w, x, *fwd[2:], dlogits, dvalue),
+                    K3.actor_critic_backward_plain(w, x, *fwd[2:], dlogits, dvalue)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    spec = K9.LossSpec(action=actions, ent_coef=0.1)
+    for a, b in zip(K9.policy_loss(spec, fwd[0], None)[:3],
+                    K9.policy_loss_plain(spec, fwd[0], None)[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
 
 

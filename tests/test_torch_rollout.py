@@ -23,6 +23,7 @@ from mansy_immersivevideostreaming_tpu.models.abr_nets import MansyActorCritic a
 from mansy_immersivevideostreaming_tpu.rl import rollout as JR
 from mansy_immersivevideostreaming_tpu.sim import env as JE
 from mansy_immersivevideostreaming_tpu.sim import tables as JT
+from mansy_immersivevideostreaming_torch.kernels.observe import obs_dims, unpack_obs
 from mansy_immersivevideostreaming_torch.rl import rollout as TR
 from mansy_immersivevideostreaming_torch.sim import env as TE
 from mansy_immersivevideostreaming_torch.sim import tables as TT
@@ -53,6 +54,7 @@ def test_collector_matches_jax_replay_of_its_actions(train):
     generator = torch.Generator().manual_seed(3)
     collect = TR.make_collector(tt, torch.as_tensor(samples), N, T, train=train)
     final, traj, logs, last_values = collect(load_npz_policy(device="cpu"), states, generator)
+    traj_obs = unpack_obs(traj.obs, *obs_dims(tt))
 
     params, net = restore_v9(), JaxAC(hidden_dim=128)
     apply = jax.jit(lambda o: net.apply({"params": params}, o))
@@ -63,7 +65,7 @@ def test_collector_matches_jax_replay_of_its_actions(train):
     for t in range(T):
         obs = observe(jstate)
         for k in obs:
-            _close(traj.obs[k][t], obs[k], f"step {t} obs {k}")
+            _close(traj_obs[k][t], obs[k], f"step {t} obs {k}")
         logits, value = apply(obs)
         _close(traj.value[t], value, f"step {t} value")
         action = traj.action[t].numpy()
@@ -82,4 +84,4 @@ def test_collector_matches_jax_replay_of_its_actions(train):
 
     flat = TR.flatten_time(traj)
     assert flat.reward.shape == (T * N,) and flat.action.dtype == torch.int32
-    assert flat.obs["next_chunk_size"].shape == (T * N, 5, 64)
+    assert flat.obs.shape == (T * N, 779)  # the packed observation buffer
