@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain PyTorch version, serves the v9 policy
 over a test grid, collects a rollout, runs the MPC expert over a test grid,
-serves the action-value policy v16, trains with PPO and the identifier and
-runs DAgger rounds, all through the port's own entry points.  It imports no
-JAX.
+serves the action-value policy v16, trains with PPO and the identifier,
+runs DAgger rounds, and serves the MTIO viewport model (``run_models
+--test``, the ``predict`` export), all through the port's own entry points.
+It imports no JAX.
 
     python3 chip_smoke.py
 
@@ -53,11 +54,33 @@ weights (K10's yardstick: autograd through a ``torch.matmul`` composition).
    in phase 7, and the rest of a round (the expert-labelled rollout and
    the aggregate) timed alone.
 
+Phase 2d holds the viewport kernels against their plain versions at
+``run_models``' batch of 512: K8 ``attention`` (8 heads of 64) in each of
+its shapes (the decode self-attention at every t of the 15-slot cache, the
+cross-attention over 3 keys, the encoder's 5 x 5, the causal 16 x 16), also
+against ``scaled_dot_product_attention`` (math backend; its default backend
+is K8's yardstick); K7 in metrics mode (F = 15) and chunk mode (frequency
+5), and on a grid of positions on and beside every pixel boundary that
+moves a map.
+
+9. vp_test: ``run_models --test``'s loop (``run_models.test_split``) over
+   the Jin2022 test splits' shape (test_seen and test_unseen, each 3 videos
+   x 15 users x 54 windows = 2,430 trajectories) at bs 512, with full-width
+   MTIO weights from a seed and synthetic traces in memory; then held
+   against the plain path on the card (K8 and K7 swapped for their plain
+   versions): predictions within VP_ATOL, tile metrics equal on every step
+   where both predictions truncate to the same pixel.
+10. vp_export: ``predict.run`` over the merged split's shape (24 videos x 60
+   users, 77,520 trajectories) from trace ``.npy`` files in the dataset
+   schema under a temporary directory, the weights from an ``.npz``; every
+   pickle written must load through ``data/prediction.py``.
+
 Each path is timed over several passes (median and spread of the host-clock
 rate); every pass must launch each kernel exactly as often as the path has
 steps (K2 and K3 once more per collect, for the bootstrap value; K4 and K1
 once a decision in the expert phase; K5 once a split, at setup; K6 once a
-collect, and K3's training mode, K9 and K10 once a minibatch step).
+collect, and K3's training mode, K9 and K10 once a minibatch step; K8 62
+times and K7 once a viewport batch).
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -69,10 +92,13 @@ import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -107,6 +133,11 @@ DAGGER_ROUNDS = 2       # phase 8: timed rounds after the initial fit
 UPDATE_PASSES = 3       # phases 7, 8: unprofiled timings of an update loop (median)
 PROFILE_CE_STEPS = 20   # phase 8: CE steps of the profiled loop (phase 7: one PPO update)
 PROFILE_TOP = 6         # device and host ops reported per profiled loop
+VP_BATCH = 512          # run_models / predict --bs default
+VP_PASSES = 3           # timed passes of vp_test and vp_export (median and spread)
+VP_ATOL = 2e-5          # phase 9: predictions through the kernels against the plain path
+VP_SEED = 5             # run_models / predict --seed default: the MTIO weights' seed
+FRAME = (2560, 1440)    # the Jin2022 frame K7 maps onto 8 x 8 tiles
 
 PKG = "mansy_immersivevideostreaming_torch"
 KERNELS = {
@@ -131,7 +162,13 @@ KERNELS = {
     "actor_critic_backward": dict(route="cuda",
                                   source=f"{PKG}/kernels/csrc/actor_critic_backward.cu",
                                   replaces="mansy_immersivevideostreaming_tpu/rl/ppo.py:163"),
+    "tile_occupancy": dict(route="cuda", source=f"{PKG}/kernels/csrc/tile_occupancy.cu",
+                           replaces="mansy_immersivevideostreaming_tpu/ops/geometry.py:108"),
+    "attention": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
+                      replaces="mansy_immersivevideostreaming_tpu/models/transformer.py:61"),
 }
+# the kernels' rows of wrappers that share a kernel
+ROW_OF = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
 def log(msg: str) -> None:
@@ -1476,6 +1513,333 @@ def dagger_phase(dev, counters):
                 collect_and_aggregate_seconds=outside, launches=launches)
 
 
+# ---------------------------------------------------------------- phase 2d
+
+def attention_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0):
+    """(operations, bytes) of K8: per query row over its n keys, the q . k
+    and p . v multiply-adds (4 Dh operations a key) and the softmax's
+    subtract, exp, sum and divide (4 a key); q read and o written once, and
+    the k and v rows that any row of the call needs read once."""
+    first = Lk if kv_len0 is None else kv_len0
+    seen = [min(Lk, first + r) for r in range(Lq)]
+    flops = B * H * sum(n * (4 * Dh + 4) for n in seen)
+    return flops, 4 * B * H * Dh * (2 * Lq + 2 * max(seen))
+
+
+def occupancy_cost(B: int, F: int, frequency=None):
+    """(operations, bytes) of K7.  A point's map takes about 120 integer
+    operations (two axes: 4 tile lookups, 8 range tests; 8 row ORs); a
+    metrics step adds the periodic MSE and the counts' quotients (about
+    20), a chunk the OR and its IoU.  Chunk mode reads the first
+    ``frequency`` steps of gt and pred and writes two u8 maps and the IoU;
+    metrics mode reads every step and writes five f32 values a step."""
+    if frequency is None:
+        return B * F * (2 * 120 + 20), B * F * (2 * 2 * 4 + 5 * 4)
+    return B * (frequency * 2 * 121 + 4), B * (frequency * 2 * 2 * 4 + 2 * 64 + 4)
+
+
+def edge_coordinates(size: int, tile: int, half_fov: int) -> np.ndarray:
+    """Normalized coordinates on and one pixel (and one f32 ulp) beside every
+    tile edge and every position where the FoV's edge meets a tile edge or
+    the frame's (the wrap cases)."""
+    px = np.arange(0, size + 1, tile)
+    px = np.concatenate([px, px - half_fov, px + half_fov])
+    px = np.concatenate([px - 1, px, px + 1])
+    v = (np.unique(px[(px >= 0) & (px <= size)]) / size).astype(np.float32)
+    return np.unique(np.concatenate([v, np.nextafter(v, np.float32(-1)),
+                                     np.nextafter(v, np.float32(2))]))
+
+
+def edge_positions(B: int, F: int, seed: int, dev) -> torch.Tensor:
+    """[B, F, 2] positions, half of them drawn from :func:`edge_coordinates`."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for size, tiles, fov in zip(FRAME, (8, 8), (600, 300)):
+        edge = rng.choice(edge_coordinates(size, size // tiles, fov // 2), (B, F))
+        cols.append(np.where(rng.random((B, F)) < 0.5, edge, rng.random((B, F))))
+    return torch.as_tensor(np.stack(cols, -1).astype(np.float32), device=dev)
+
+
+def viewport_kernel_phase(dev):
+    """K8 at B = VP_BATCH in each of its shapes, against its plain version
+    and SDPA's math backend; K7 in both modes at B = VP_BATCH, F = 15, and
+    on every pair of boundary coordinates.  Returns the kernels' rows."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    B, H, Dh, F = VP_BATCH, 8, 64, 15
+    rows = {}
+
+    # K8: the decode self-attention at every t, the cross-attention over the
+    # distilled memory, the encoder, the fixed-buffer decode's causal mask
+    shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
+    shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal=(F + 1, F + 1, 1))
+    cases, err, sdpa_err = {}, 0.0, 0.0
+    for name, (Lq, Lk, kv_len0) in shapes.items():
+        q = torch.randn(B, Lq, H, Dh, device=dev, generator=gen)
+        k = torch.randn(B, Lk, H, Dh, device=dev, generator=gen)
+        v = torch.randn(B, Lk, H, Dh, device=dev, generator=gen)
+        got, ref = K8.attention(q, k, v, kv_len0), K8.attention_plain(q, k, v, kv_len0)
+        seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
+        mask = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                        attn_mask=mask)
+        with sdpa_kernel(SDPBackend.MATH):
+            lib = sdpa().transpose(1, 2)
+        if not bool(close(got, ref).all()):
+            raise AssertionError(f"attention ({name}) disagrees with its plain version")
+        if not bool(close(got, lib).all()):
+            raise AssertionError(f"attention ({name}) disagrees with SDPA's math backend")
+        err = max(err, float((got - ref).abs().max()))
+        sdpa_err = max(sdpa_err, float((got - lib).abs().max()))
+        if name.startswith("decode_t") and name not in ("decode_t0", "decode_t7", "decode_t14"):
+            continue  # checked at every t, timed at three
+        cases[name] = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0,
+                           ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0)),
+                           plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0)),
+                           library_ms=gpu_ms(sdpa),
+                           **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0)))
+    rows["attention"] = dict(max_abs_err=err, sdpa_math_max_abs_err=sdpa_err,
+                             **{k: cases["decode_t14"][k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                             shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1), cases=cases)
+
+    # K7: metrics mode (run_models --test) and chunk mode (predict)
+    gt, pred = edge_positions(B, F, 1, dev), edge_positions(B, F, 2, dev)
+    got, ref = K7.trajectory_metrics(gt, pred), K7.trajectory_metrics_plain(gt, pred)
+    for name, g, r in zip(("mse", "accuracy", "recall", "precision", "f1"), got, ref):
+        if not bool(close(g, r).all()):
+            raise AssertionError(f"trajectory_metrics: {name} disagrees with its plain version")
+    m_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    freq = 5
+    g, p, iou = K7.chunk_maps(gt, pred, freq)
+    rg, rp, riou = K7.chunk_maps_plain(gt, pred, freq)
+    if not (torch.equal(g, rg) and torch.equal(p, rp) and bool(close(iou, riou).all())):
+        raise AssertionError("chunk_maps disagrees with its plain version")
+    # every pair of boundary coordinates, one step a trajectory: the maps
+    # (chunk mode, frequency 1) and the metrics against a shifted copy
+    vx, vy = (edge_coordinates(size, size // 8, fov // 2) for size, fov in zip(FRAME, (600, 300)))
+    grid = np.stack([a.reshape(-1) for a in np.meshgrid(vx, vy)], -1)
+    grid = torch.as_tensor(grid[:, None, :].astype(np.float32), device=dev)
+    shifted = grid.roll(1, 0)
+    g, p, iou = K7.chunk_maps(grid, shifted, 1)
+    rg, rp, riou = K7.chunk_maps_plain(grid, shifted, 1)
+    same = torch.equal(g, rg) and torch.equal(p, rp) and bool(close(iou, riou).all())
+    for a, b in zip(K7.trajectory_metrics(grid, shifted),
+                    K7.trajectory_metrics_plain(grid, shifted)):
+        same = same and bool(close(a, b).all())
+    if not same:
+        raise AssertionError("tile_occupancy disagrees with its plain version on the boundary grid")
+    chunk = dict(frequency=freq, ms=gpu_ms(lambda: K7.chunk_maps(gt, pred, freq)),
+                 plain_ms=gpu_ms(lambda: K7.chunk_maps_plain(gt, pred, freq)),
+                 **bound(*occupancy_cost(B, F, freq)))
+    rows["tile_occupancy"] = dict(
+        max_abs_err=max(m_err, float((iou - riou).abs().max())), maps_equal=True,
+        boundary_grid_points=int(grid.shape[0]), shape=dict(B=B, F=F, mode="metrics"),
+        ms=gpu_ms(lambda: K7.trajectory_metrics(gt, pred)),
+        plain_ms=gpu_ms(lambda: K7.trajectory_metrics_plain(gt, pred)),
+        **bound(*occupancy_cost(B, F)), library_ms=None, chunk_mode=chunk)
+    return rows
+
+
+# ----------------------------------------------------------- phases 9, 10
+
+def synthetic_traces(pairs: int, length: int, seed: int) -> np.ndarray:
+    """[pairs, length, 2] f32 head traces: a random start, drift and random
+    walk, the yaw wrapped into [0, 1) and the pitch clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length)[None, :, None]
+    xy = (rng.random((pairs, 1, 2)) + rng.normal(0, 0.01, (pairs, 1, 2)) * t
+          + rng.normal(0, 0.01, (pairs, length, 2)).cumsum(1))
+    xy[..., 0] %= 1.0
+    xy[..., 1] = np.clip(xy[..., 1], 0.0, 1.0)
+    return xy.astype(np.float32)
+
+
+def seeded_mtio(dev, seed: int):
+    """The full-width MTIO of ``run_models``' defaults with PyTorch's default
+    initialisation from ``seed``, and BatchNorm statistics off 0 and 1."""
+    from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
+    torch.manual_seed(seed)
+    model = ViewportTransformerMTIO(device=dev)
+    bn = model.transformer.distill.bn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bn.running_mean.copy_(0.3 * torch.randn(bn.running_mean.shape, device=dev, generator=gen))
+    bn.running_var.copy_(0.5 + torch.rand(bn.running_var.shape, device=dev, generator=gen))
+    return model
+
+
+def attention_launches(args) -> int:
+    """K8 launches a batch: each encoder layer once, then per decode step
+    each decoder layer's self- and cross-attention."""
+    return args.block_num + args.fut_window * args.block_num * 2
+
+
+def stack_rows(rows):
+    """A Results notebook's rows as (pred [N, F, 2], metrics [5, N, F])."""
+    return (np.stack([r[4] for r in rows]),
+            np.stack([np.stack([r[i] for r in rows]) for i in range(5, 10)]))
+
+
+def compare_vp(rows, ref_rows) -> dict:
+    """Phase 9's rows against the plain path's: predictions within VP_ATOL;
+    on every step where both truncate to the same pixel, accuracy, recall,
+    precision and f1 equal and the MSE within 1e-5."""
+    pred, metrics = stack_rows(rows)
+    ref_pred, ref_metrics = stack_rows(ref_rows)
+    err = float(np.abs(pred - ref_pred).max())
+    if err > VP_ATOL:
+        raise AssertionError(f"vp_test: predictions differ from the plain path's by {err}")
+    same = np.ones(pred.shape[:2], bool)
+    for axis, size in enumerate(FRAME):
+        same &= ((pred[..., axis] * np.float32(size)).astype(np.int32)
+                 == (ref_pred[..., axis] * np.float32(size)).astype(np.int32))
+    if not np.array_equal(metrics[1:, same], ref_metrics[1:, same]):
+        raise AssertionError("vp_test: tile metrics differ where the pixels agree")
+    mse_err = float(np.abs(metrics[0] - ref_metrics[0]).max())
+    if mse_err > 1e-5 or not (np.isfinite(metrics).all() and (0 <= pred).all()
+                              and (pred <= 1).all()):
+        raise AssertionError(f"vp_test: MSE off by {mse_err}, or values out of range")
+    return dict(pred_max_abs_err=err, mse_max_abs_err=mse_err,
+                steps_compared=int(same.sum()), steps_total=int(same.size),
+                trajectories_with_a_moved_pixel=int((~same).any(1).sum()))
+
+
+def vp_test_phase(dev, counters):
+    """``run_models --test``'s loop over the test splits' shape with seeded
+    full-width weights, then the same loop through the plain versions."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.config import default_config
+    from mansy_immersivevideostreaming_torch.data.viewport import build_windowed_dataset
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
+    from mansy_immersivevideostreaming_torch.models import transformer
+    from mansy_immersivevideostreaming_torch.utils import results
+    from mansy_immersivevideostreaming_torch.utils.results import Results
+
+    config = default_config()
+    args = run_models.build_parser().parse_args(["--test", "--seed", str(VP_SEED)])
+    vsplit, usplit = config.video_split["Jin2022"], config.user_split["Jin2022"]
+    m = min(len(usplit["valid"]), len(usplit["test"]))  # create_datasets' split rule
+    length = 60 * config.frequency   # the test videos' 60 s at 5 Hz
+    sets = {}
+    for i, (split, users) in enumerate((("test_seen", usplit["valid"][:m]),
+                                        ("test_unseen", usplit["test"][:m]))):
+        P = len(vsplit["test"]) * len(users)
+        sets[split] = build_windowed_dataset(
+            config, "Jin2022", vsplit["test"], users, args.his_window, args.fut_window,
+            config.trim_head, config.trim_tail, config.sample_step, config.frequency,
+            packed=(synthetic_traces(P, length, 20 + i), np.full(P, length, np.int32)))
+    sizes = {split: len(ds) for split, ds in sets.items()}
+    if sizes != {"test_seen": 2430, "test_unseen": 2430}:
+        raise AssertionError(f"vp_test: splits of {sizes} trajectories")
+    model = seeded_mtio(dev, VP_SEED)
+    sample_fn = run_models.make_sample_fn(args, model)
+    book = lambda: Results("mtio", fut_window=args.fut_window, output_dir="unused",
+                           dataset_frequency=config.frequency)
+    notebook = book()
+
+    def run():
+        notebook.reset()
+        return sum(run_models.test_split(sample_fn, ds, args.bs, notebook, dev)
+                   for ds in sets.values())
+
+    run()  # warm-up
+    batches = sum(-(-n // args.bs) for n in sizes.values())
+    n, seconds, launches = timed_passes(
+        run, counters, expect(counters, attention=attention_launches(args) * batches,
+                              trajectory_metrics=batches), VP_PASSES)
+    # where a batch's time goes: sampling and recording one batch of 512
+    h, c, f, video, user, ts = sets["test_seen"].gather(np.arange(args.bs))
+    h, c, f = (torch.as_tensor(x, device=dev) for x in (h, c, f))
+    probe = book()
+    profiled = profile_update(lambda: probe.record(sample_fn(h, c), f, video, user, ts), 1)
+    plain = book()
+    with mock.patch.object(transformer, "attention", K8.attention_plain), \
+            mock.patch.object(results, "trajectory_metrics", K7.trajectory_metrics_plain):
+        for ds in sets.values():
+            run_models.test_split(sample_fn, ds, args.bs, plain, dev)
+    check = compare_vp(notebook._rows, plain._rows)
+    rate = rate_stats(n, seconds)
+    return dict(trajectories=n, batches=batches, steps=batches, batch=args.bs, passes=VP_PASSES,
+                seconds=seconds, trajectories_per_s_median=rate["median"],
+                trajectories_per_s_min=rate["min"], trajectories_per_s_max=rate["max"],
+                spread=rate["spread"], batch_profile=profiled,
+                mean_accuracy=notebook.mean_accuracy(), kernels_vs_plain=check,
+                launches=launches)
+
+
+def vp_export_phase(dev, counters):
+    """``predict.run`` over the merged split's shape: trace files in the
+    dataset schema and the weights' npz under a temporary directory, the
+    pickles written there and read back through ``data/prediction.py``."""
+    from mansy_immersivevideostreaming_torch.cli import predict
+    from mansy_immersivevideostreaming_torch.config import default_config
+    from mansy_immersivevideostreaming_torch.data.prediction import load_prediction_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import save_mtio_npz
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = default_config(datasets_base_dir=tmp, results_base_dir=os.path.join(tmp, "r"),
+                                models_base_dir=os.path.join(tmp, "m"))
+        videos, users = set(), set()
+        for split in ("train", "valid", "test"):
+            videos |= set(config.video_split["Jin2022"][split])
+            users |= set(config.user_split["Jin2022"][split])
+        videos, users = sorted(videos), sorted(users)
+        t0 = time.time()
+        for v in videos:
+            length = config.video_info["Jin2022"][v][0] * config.frequency
+            vdir = os.path.join(config.viewport_dir("Jin2022"), f"video{v}",
+                                f"{config.frequency}Hz")
+            os.makedirs(vdir)
+            times = np.arange(length, dtype=np.float32)[:, None] / config.frequency
+            for u, xy in zip(users, synthetic_traces(len(users), length, 100 + v)):
+                np.save(os.path.join(vdir, f"simple_{config.frequency}Hz_user{u}.npy"),
+                        np.concatenate([times, xy], 1))
+        npz = os.path.join(tmp, "best_model.npz")
+        save_mtio_npz(npz, seeded_mtio(dev, VP_SEED))
+        setup_s = time.time() - t0
+        stats = []
+
+        def run():
+            args = predict.build_parser().parse_args(["--model-path", npz, "--seed",
+                                                      str(VP_SEED)])
+            with contextlib.redirect_stdout(sys.stderr):
+                stats.append(predict.run(args, config))
+
+        args = predict.build_parser().parse_args([])
+        n = sum(len(range(config.trim_head, config.video_info["Jin2022"][v][0] * config.frequency
+                          - config.trim_tail, config.sample_step)) for v in videos) * len(users)
+        batches = -(-n // args.bs)
+        _, seconds, launches = timed_passes(
+            run, counters, expect(counters, attention=attention_launches(args) * batches,
+                                  chunk_maps=batches), VP_PASSES)
+        if any(s["trajectories"] != n for s in stats) or n != 77520:
+            raise AssertionError(f"vp_export: {[s['trajectories'] for s in stats]} trajectories, "
+                                 f"expected {n} (77,520)")
+        tables = load_prediction_tables(config, "Jin2022", videos, users)
+        chunks = int((tables.accuracy > 0).sum())
+        acc = tables.accuracy[tables.gt.any(-1)]
+        if not ((tables.start_chunk == config.trim_head // config.frequency).all()
+                and np.isfinite(acc).all() and (acc >= 0).all() and (acc <= 1).all()
+                and acc.size == n):
+            raise AssertionError("vp_export: the pickles do not read back as written")
+        files = len(os.listdir(os.path.join(config.viewport_dir("Jin2022"), "prediction")))
+    rate = rate_stats(n, [s["loop_seconds"] for s in stats])
+    return dict(trajectories=n, batches=batches, steps=batches, batch=args.bs,
+                passes=VP_PASSES, setup_seconds=setup_s, pass_seconds=seconds,
+                loop_seconds=[s["loop_seconds"] for s in stats],
+                trajectories_per_s_median=rate["median"], trajectories_per_s_min=rate["min"],
+                trajectories_per_s_max=rate["max"], spread=rate["spread"],
+                pairs=len(videos) * len(users), video_dirs=files, chunks_read_back=int(acc.size),
+                chunks_with_overlap=chunks, mean_iou=float(acc.mean()), launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
@@ -1489,6 +1853,10 @@ def main() -> int:
     from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
     from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
     from mansy_immersivevideostreaming_torch.kernels.policy_loss import policy_loss
+    from mansy_immersivevideostreaming_torch.kernels.attention import attention
+    from mansy_immersivevideostreaming_torch.kernels.tile_occupancy import (
+        chunk_maps, trajectory_metrics,
+    )
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1497,7 +1865,7 @@ def main() -> int:
     log(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     counters = (env_step, observe_mansy_pack, actor_critic_forward, choose_action,
                 build_expert_tables, compute_gae, policy_loss, actor_critic_train_forward,
-                actor_critic_backward)
+                actor_critic_backward, chunk_maps, trajectory_metrics, attention)
 
     t0 = time.time()
     rows = kernel_phase(dev)
@@ -1506,6 +1874,7 @@ def main() -> int:
     for name, fields in extra.items():
         rows[name]["action_values"] = fields
     rows.update(training_kernel_phase(dev))
+    rows.update(viewport_kernel_phase(dev))
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths = {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
@@ -1513,7 +1882,9 @@ def main() -> int:
                       ("expert", lambda: expert_phase(dev, counters)),
                       ("serve_v16", lambda: serve_phase(dev, counters, v16=True)),
                       ("train", lambda: train_phase(dev, counters)),
-                      ("dagger", lambda: dagger_phase(dev, counters))):
+                      ("dagger", lambda: dagger_phase(dev, counters)),
+                      ("vp_test", lambda: vp_test_phase(dev, counters)),
+                      ("vp_export", lambda: vp_export_phase(dev, counters))):
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
@@ -1527,17 +1898,23 @@ def main() -> int:
                     "train": ("env_step", "observe_mansy_pack", "actor_critic_forward",
                               "compute_gae") + training,
                     "dagger": ("env_step", "observe_mansy_pack", "actor_critic_forward",
-                               "choose_action") + training}
+                               "choose_action") + training,
+                    "vp_test": ("attention", "trajectory_metrics"),
+                    "vp_export": ("attention", "chunk_maps")}
     for path, names in path_kernels.items():
         for name in names:
             if paths[path]["launches"][name] == 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
     for fn in counters:  # the counts of one pass of each path
-        name = fn.__name__
+        name, row = fn.__name__, rows[ROW_OF.get(fn.__name__, fn.__name__)]
         per_path = {path: paths[path]["launches"][name] for path in paths}
-        rows[name].update(launches=sum(per_path.values()), launches_per_path=per_path,
-                          launches_per_step={path: per_path[path] / paths[path]["steps"]
-                                             for path in paths})
+        if name in ROW_OF:  # one row, several wrappers: the counts add up
+            row.setdefault("launches_by_wrapper", {})[name] = per_path
+            per_path = {p: n + row.get("launches_per_path", {}).get(p, 0)
+                        for p, n in per_path.items()}
+        row.update(launches=sum(per_path.values()), launches_per_path=per_path,
+                   launches_per_step={path: per_path[path] / paths[path]["steps"]
+                                      for path in paths})
     kernels = [dict(name=name, **KERNELS[name], **rows[name]) for name in KERNELS]
     print(json.dumps({**{path: {k: v for k, v in r.items() if k != "launches"}
                          for path, r in paths.items()}, "card": card}))

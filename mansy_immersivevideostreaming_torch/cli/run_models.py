@@ -1,0 +1,182 @@
+"""Viewport-prediction testing CLI.
+
+Port of the JAX package's ``cli/run_models.py`` (reference
+``viewport_prediction/run_models.py``) for ``--test``: the same flags,
+directory layout, file prefix and outputs (``<prefix>_seen_results.csv``,
+``.log`` and ``accuracy_result.csv``, and the unseen ones).  ``--model
+mtio`` reads the best model from ``<file_prefix>_best_model.npz`` beside
+where the JAX CLI writes its ``.ckpt`` (Flax params and ``batch_stats``,
+``utils/checkpoint.py``); ``--model regression`` runs the closed-form
+baseline.  Per batch the model runs K8 62 times at the default widths (2
+encoder layers, then 15 decode steps x 2 layers x self- and cross-attention)
+and the results recorder K7 once.
+
+Refused, for later slices: ``--train`` (with ``--resume``),
+``--teacher-forcing`` and ``--bf16`` (the MTIO training slice, ROADMAP
+Queue 1 item 11) and ``--data-parallel`` (item 14).
+
+Example::
+
+    python -m mansy_immersivevideostreaming_torch.cli.run_models --test \\
+        --model mtio --test-dataset Jin2022 --his-window 5 --fut-window 15 \\
+        --bs 512 --seed 5 --hidden-dim 512 --block-num 2 --lr 1e-4 --epochs 200
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from mansy_immersivevideostreaming_torch.config import load_config
+from mansy_immersivevideostreaming_torch.data.viewport import create_datasets
+from mansy_immersivevideostreaming_torch.models import vp_train
+from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
+from mansy_immersivevideostreaming_torch.models.regression import linear_regression_sample
+from mansy_immersivevideostreaming_torch.utils.checkpoint import load_mtio_npz_into
+from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.results import Results
+
+
+def batches(dataset, batch_size: int):
+    """The dataset's samples in order, ``batch_size`` at a time (the test
+    loop does not shuffle)."""
+    n = len(dataset)
+    for s in range(0, n, batch_size):
+        yield dataset.gather(np.arange(s, min(s + batch_size, n)))
+
+
+def build_model(args, device) -> ViewportTransformerMTIO:
+    return ViewportTransformerMTIO(
+        in_channel=2, fut_window=args.fut_window, d_model=args.hidden_dim,
+        dim_feedforward=args.hidden_dim, num_encoder_layers=args.block_num,
+        num_decoder_layers=args.block_num, device=device)
+
+
+def make_sample_fn(args, model):
+    """(history, current) tensors -> [B, F, 2] predictions of ``args.model``."""
+    if args.model == "regression":
+        return lambda h, c: linear_regression_sample(h, c, args.fut_window)
+    return lambda h, c: vp_train.sample_step(model, h, c)
+
+
+def test_split(sample_fn, dataset, batch_size: int, notebook: Results, device) -> int:
+    """``run_models --test``'s loop over one split: sample each batch and
+    record its metrics.  Returns the number of trajectories."""
+    n = 0
+    for h, c, f, video, user, ts in batches(dataset, batch_size):
+        h, c, f = (torch.as_tensor(x, device=device) for x in (h, c, f))
+        notebook.record(sample_fn(h, c), f, video, user, ts)
+        n += h.shape[0]
+    return n
+
+
+def test(args, config, models_dir: str, results_dir: str, file_prefix: str):
+    dev = resolve_device(args.device)
+    model = None
+    if args.model != "regression":
+        best_model_path = os.path.join(models_dir, file_prefix + "_best_model.npz")
+        model = build_model(args, dev)
+        load_mtio_npz_into(model, best_model_path)
+        print("Load model from", best_model_path)
+    sample_fn = make_sample_fn(args, model)
+
+    sets = create_datasets(config, args.test_dataset, args.his_window,
+                           args.fut_window, include=("test_seen", "test_unseen"),
+                           trim_head=args.trim_head, trim_tail=args.trim_tail,
+                           step=args.sample_step, frequency=args.dataset_frequency)
+    notebook = Results(args.model, fut_window=args.fut_window,
+                       dataset_frequency=args.dataset_frequency,
+                       output_dir=results_dir)
+    print(f"Testing {args.model} on {args.test_dataset} - seed: {args.seed}")
+    for split, label in (("test_seen", "_seen_"), ("test_unseen", "_unseen_")):
+        print(f"On {'seen' if 'un' not in label else 'unseen'} viewing patterns.")
+        t0 = time.time()
+        n = test_split(sample_fn, sets[split], args.bs, notebook, dev)
+        print(f"({n / (time.time() - t0):,.0f} trajectories/s)")
+        notebook.write(log=True, label=file_prefix + label)
+        notebook.reset()
+
+
+def run(args, config):
+    assert args.model in ("regression", "mtio")
+    for flag, item in (("train", "11"), ("resume", "11"), ("teacher_forcing", "11"),
+                       ("bf16", "11"), ("data_parallel", "14")):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"run_models: --{flag.replace('_', '-')} is not ported yet (ROADMAP Queue 1 "
+                f"item {item})")
+    # None -> config backfill (reference run_models.py:198-203)
+    args.trim_head = config.trim_head if args.trim_head is None else args.trim_head
+    args.trim_tail = config.trim_tail if args.trim_tail is None else args.trim_tail
+    args.dataset_frequency = (config.frequency if args.dataset_frequency is None
+                              else args.dataset_frequency)
+    args.sample_step = config.sample_step if args.sample_step is None else args.sample_step
+    torch.manual_seed(args.seed)
+
+    models_dir = os.path.join(config.vp_models_dir, args.model,
+                              args.train_dataset, f"{args.dataset_frequency}Hz")
+    results_dir = os.path.join(config.vp_results_dir, args.model,
+                               args.test_dataset, f"{args.dataset_frequency}Hz")
+    os.makedirs(models_dir, exist_ok=True)
+    os.makedirs(results_dir, exist_ok=True)
+
+    file_prefix = (f"his_{args.his_window}_fut_{args.fut_window}_"
+                   f"hid_{args.hidden_dim}_ss_{args.sample_step}_"
+                   f"epochs_{args.epochs}_bs_{args.bs}_lr_{args.lr}_seed_{args.seed}")
+    if args.test:
+        test(args, config, models_dir, results_dir, file_prefix)
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        description="Test viewport prediction models (PyTorch + CUDA).")
+    parser.add_argument("--train", action="store_true",
+                        help="not ported yet: refused")
+    parser.add_argument("--test", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--model", type=str, default="mtio")
+    parser.add_argument("--hidden-dim", type=int, default=512)
+    parser.add_argument("--block-num", type=int, default=2)
+    parser.add_argument("--compile", action="store_true",
+                        help="accepted for reference-CLI compatibility")
+    parser.add_argument("--resume", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--resume-path", type=str)
+    parser.add_argument("--train-dataset", type=str, default="Jin2022")
+    parser.add_argument("--test-dataset", type=str, default="Jin2022")
+    parser.add_argument("--his-window", type=int, default=5)
+    parser.add_argument("--fut-window", type=int, default=15)
+    parser.add_argument("--trim-head", type=int)
+    parser.add_argument("--trim-tail", type=int)
+    parser.add_argument("--dataset-frequency", type=int)
+    parser.add_argument("--sample-step", type=int)
+    parser.add_argument("--epochs", type=int, default=200)
+    parser.add_argument("--epochs-per-valid", type=int, default=3)
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--weight-decay", type=float)
+    parser.add_argument("--bs", type=int, default=512)
+    parser.add_argument("--seed", type=int, default=5)
+    parser.add_argument("--bf16", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--teacher-forcing", action="store_true",
+                        help="not ported yet: refused")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="not ported yet: refused")
+    parser.add_argument("--config-yml", type=str, default=None)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    config = load_config(args.config_yml)
+    if args.model == "regression":
+        args.train = False
+        print("Detect model: regression. Automatically disable train mode.")
+    print(args)
+    run(args, config)
+
+
+if __name__ == "__main__":
+    main()

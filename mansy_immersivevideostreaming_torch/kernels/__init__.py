@@ -13,7 +13,12 @@
 * ``policy_loss``: the PPO and cross-entropy loss heads with their gradient
   (``policy_loss.py``, K9);
 * ``actor_critic_train_forward`` and ``actor_critic_backward``: K3's
-  training mode and the actor-critic backward (``actor_critic.py``, K10).
+  training mode and the actor-critic backward (``actor_critic.py``, K10);
+* ``chunk_maps`` and ``trajectory_metrics``: viewport tile occupancy with the
+  chunk OR and IoU, or with the per-step tile metrics
+  (``tile_occupancy.py``, K7);
+* ``attention``: the MTIO transformer's softmax-attention core
+  (``attention.py``, K8).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch version beside it only for tensors that lie on the CPU.  Each

@@ -1,0 +1,119 @@
+// K8: the softmax-attention core of the MTIO transformer, in f32:
+// per (b, query row, head), softmax(q . k^T / sqrt(Dh)) . v over a prefix of
+// the keys.
+//
+// Replaces the deleted Pallas kernel mha_pallas and the XLA path the JAX
+// package keeps: models/transformer.py:MHA.attend (:61-75), under
+// EncoderLayer (:106), DecoderLayer.__call__ (:134, :136) and
+// DecoderLayer.step (:159, :161).  The plain PyTorch version is
+// kernels/attention.py:attention_plain.
+//
+// Every mask on those paths is a prefix of the keys: the KV-cached decode
+// step t masks slots > t, the full decode is causal, and the encoder and
+// cross-attention mask nothing.  So the kernel takes no mask tensor: query
+// row r sees keys [0, min(Lk, kv_len0 + r)).  JAX fills the masked scores
+// with -1e30, whose exp after the max subtraction is exactly 0; skipping
+// those keys gives the same sums.
+//
+// Layouts are the JAX package's: q [B, Lq, H, Dh], k and v [B, Lk, H, Dh],
+// o [B, Lq, H, Dh], all contiguous.
+//
+// Bound: bytes.  At the serving shapes (B = 512, H = 8, Dh = 64, Lq = 1,
+// Lk <= 15) each row reads its q, the valid k and v rows once and writes
+// one o row, about 2 flops a byte.  Design: one warp a (b, row, head); lane
+// l holds dims l, l + 32, ... of q and of the output; a key's score is a
+// warp sum (every lane gets it), the scores of a row sit in shared memory,
+// and the softmax normalises them as jax.nn.softmax does (exp(s - max) /
+// sum) before the p . v sum, key by key.  Neighbouring warps are
+// neighbouring heads, so a block's k and v loads are contiguous.
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+using mansy::warp_sum;
+
+constexpr int kWarps = 4;        // warps (query rows) a block
+constexpr int kMaxPerLane = 8;   // Dh <= 256
+
+// Field order must match kernels/attention.py:_AttentionArgs.
+struct AttentionArgs {
+  const float* q;   // [B, Lq, H, Dh]
+  const float* k;   // [B, Lk, H, Dh]
+  const float* v;   // [B, Lk, H, Dh]
+  float* o;         // [B, Lq, H, Dh]
+  int32_t B, Lq, Lk, H, Dh;
+  int32_t kv_len0;  // keys seen by query row 0; row r sees min(Lk, kv_len0 + r)
+  float scale;      // sqrt(Dh): scores are (q . k) / scale, as MHA.attend divides
+};
+
+__global__ void attention_kernel(const AttentionArgs a) {
+  extern __shared__ float scores[];  // [kWarps, Lk]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kWarps + warp;
+  if (row >= (long long)a.B * a.Lq * a.H) return;
+  const int h = (int)(row % a.H);
+  const int r = (int)((row / a.H) % a.Lq);
+  const long long b = row / ((long long)a.H * a.Lq);
+  float* s = scores + warp * a.Lk;
+  const int n = min(a.Lk, a.kv_len0 + r);
+
+  float q[kMaxPerLane];
+  const float* qrow = a.q + row * a.Dh;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int d = lane + 32 * i;
+    q[i] = d < a.Dh ? qrow[d] : 0.f;
+  }
+
+  const size_t key_stride = (size_t)a.H * a.Dh;
+  const size_t kv0 = ((size_t)b * a.Lk * a.H + h) * a.Dh;
+  float mx = -INFINITY;
+  for (int j = 0; j < n; ++j) {
+    const float* krow = a.k + kv0 + j * key_stride;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxPerLane; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) part = fmaf(q[i], krow[d], part);
+    }
+    const float sc = warp_sum(part) / a.scale;
+    if (lane == 0) s[j] = sc;
+    mx = fmaxf(mx, sc);
+  }
+  __syncwarp();
+  for (int j = lane; j < n; j += 32) s[j] = expf(s[j] - mx);
+  __syncwarp();
+  float sum = 0.f;
+  for (int j = 0; j < n; ++j) sum += s[j];
+
+  float acc[kMaxPerLane];
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float p = s[j] / sum;
+    const float* vrow = a.v + kv0 + j * key_stride;
+#pragma unroll
+    for (int i = 0; i < kMaxPerLane; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) acc[i] = fmaf(p, vrow[d], acc[i]);
+    }
+  }
+  float* orow = a.o + row * a.Dh;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int d = lane + 32 * i;
+    if (d < a.Dh) orow[d] = acc[i];
+  }
+}
+
+extern "C" int attention_launch(const AttentionArgs* args, void* stream) {
+  const long long rows = (long long)args->B * args->Lq * args->H;
+  const int blocks = (int)((rows + kWarps - 1) / kWarps);
+  const size_t smem = (size_t)kWarps * args->Lk * sizeof(float);
+  if (blocks > 0)
+    attention_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
+}

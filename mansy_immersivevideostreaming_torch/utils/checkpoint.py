@@ -12,12 +12,19 @@ exact, accuracy-corrected action values and adds their logit prior.  The
 port's trainers write their policies and identifiers in the same layout
 (:func:`save_npz`, :func:`save_net_config`), so the JAX package's Flax nets
 load them too.
+
+MTIO viewport models (:func:`mtio_state_dict_from_flax` and its inverse)
+keep both Flax collections in one ``.npz``, keyed ``params/<path>`` and
+``batch_stats/<path>``: a Flax-keyed file that ``run_models --test`` and
+``predict`` read, and that the JAX package's Flax module applies as
+``{"params": ..., "batch_stats": ...}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from pathlib import Path
 from typing import Dict, Mapping
 
@@ -27,6 +34,7 @@ import torch
 from mansy_immersivevideostreaming_torch.models.abr_nets import (
     AV_BRANCH, BRANCHES, COND_BRANCH, MansyActorCritic,
 )
+from mansy_immersivevideostreaming_torch.models.vp_train import VPState
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
 NET_CONFIG_SUFFIX = ".netcfg.json"
@@ -160,3 +168,116 @@ def load_npz_policy(path: str | os.PathLike = DAGGER_V9_NPZ,
     load_npz_into(policy, path)
     policy.acc_correct_obs = exact and bool(netcfg.get("acc_correct_obs"))
     return policy
+
+
+# Flax names of the MTIO modules that ``nn.compact`` names, and the port's
+# (models/transformer.py): an encoder layer's children, and the layers
+# inside the feed-forward and distillation blocks.  The ``setup`` names (sa,
+# ca, ff, norm1-3 of a decoder layer, ...) are the same in both.
+_ENCODER_LAYER = {"MHA_0": "attn", "LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
+                  "FeedForward_0": "ff"}
+_SUBLAYERS = {"Dense_0": "linear1", "Dense_1": "linear2", "Conv_0": "conv",
+              "BatchNorm_0": "bn"}
+
+
+def _rename(segments, to_port: bool):
+    """Flax <-> port module names along a path of layer-list-joined
+    segments (``encoder_layers_0``)."""
+    tables = (_ENCODER_LAYER, _SUBLAYERS)
+    if not to_port:
+        tables = tuple({v: k for k, v in t.items()} for t in tables)
+    return [tables[0 if i and segments[i - 1].startswith("encoder_layers_") else 1].get(s, s)
+            for i, s in enumerate(segments)]
+
+
+def _mtio_module_path(flax_path: str) -> str:
+    """``transformer/encoder_layers_0/MHA_0/key`` -> ``transformer.encoder_layers.0.attn.key``."""
+    name = ".".join(_rename(flax_path.split("/"), to_port=True))
+    return re.sub(r"(encoder_layers|decoder_layers)_(\d+)", r"\1.\2", name)
+
+
+def _mtio_flax_path(module_name: str) -> str:
+    """The inverse of :func:`_mtio_module_path`."""
+    name = re.sub(r"(encoder_layers|decoder_layers)\.(\d+)", r"\1_\2", module_name)
+    return "/".join(_rename(name.split("."), to_port=False))
+
+
+def mtio_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """ViewportTransformerMTIO Flax ``params`` and ``batch_stats`` (nested or
+    flat "/"-keyed numpy arrays) -> the port's ``state_dict``.  Dense kernels
+    [in, out] become Linear weights [out, in]; the Conv kernel [k, in, out]
+    becomes Conv1d's [out, in, k]; LayerNorm and BatchNorm ``scale`` become
+    ``weight``, BatchNorm ``mean``/``var`` its running statistics."""
+    state = {}
+    for path, x in flatten_params(params).items():
+        module, leaf = path.rsplit("/", 1)
+        name = _mtio_module_path(module)
+        x = np.asarray(x, np.float32)
+        if leaf == "kernel":
+            x = x.T if x.ndim == 2 else np.transpose(x, (2, 1, 0))
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf != "bias":
+            raise ValueError(f"not an MTIO parameter: {path}")
+        state[f"{name}.{leaf}"] = torch.from_numpy(np.array(x, order="C"))
+    for path, x in flatten_params(batch_stats).items():
+        module, leaf = path.rsplit("/", 1)
+        if leaf not in ("mean", "var"):
+            raise ValueError(f"not an MTIO batch statistic: {path}")
+        name = _mtio_module_path(module)
+        state[f"{name}.running_{leaf}"] = torch.from_numpy(np.array(x, np.float32))
+        state[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def mtio_flax_from_module(model: torch.nn.Module) -> VPState:
+    """The inverse of :func:`mtio_state_dict_from_flax`: a
+    ViewportTransformerMTIO's weights as flat Flax ``params`` and
+    ``batch_stats``."""
+    params, stats = {}, {}
+    array = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    for name, mod in model.named_modules():
+        path = _mtio_flax_path(name)
+        if isinstance(mod, torch.nn.Linear):
+            params[f"{path}/kernel"] = array(mod.weight).T.copy()
+        elif isinstance(mod, torch.nn.Conv1d):
+            params[f"{path}/kernel"] = np.transpose(array(mod.weight), (2, 1, 0)).copy()
+        elif isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm1d)):
+            params[f"{path}/scale"] = array(mod.weight)
+        else:
+            continue
+        params[f"{path}/bias"] = array(mod.bias)
+        if isinstance(mod, torch.nn.BatchNorm1d):
+            stats[f"{path}/mean"] = array(mod.running_mean)
+            stats[f"{path}/var"] = array(mod.running_var)
+    return VPState(params, stats)
+
+
+def write_mtio_npz(path: str | os.PathLike, params: Mapping, batch_stats: Mapping) -> None:
+    """Write Flax ``params`` and ``batch_stats`` (nested or flat) into one
+    ``.npz`` at exactly ``path``, keyed ``params/...`` and ``batch_stats/...``."""
+    with open(path, "wb") as f:
+        np.savez(f, **flatten_params({"params": params, "batch_stats": batch_stats}))
+
+
+def save_mtio_npz(path: str | os.PathLike, model: torch.nn.Module) -> None:
+    """Write a ViewportTransformerMTIO's weights as its Flax-keyed ``.npz``."""
+    write_mtio_npz(path, *mtio_flax_from_module(model))
+
+
+def load_mtio_npz(path: str | os.PathLike) -> VPState:
+    """The Flax ``params`` and ``batch_stats`` of an MTIO ``.npz``."""
+    with np.load(path) as npz:
+        split = {"params": {}, "batch_stats": {}}
+        for key in npz.files:
+            collection, rest = key.split("/", 1)
+            if collection not in split:
+                raise ValueError(f"{path}: {key} is neither params/ nor batch_stats/")
+            split[collection][rest] = npz[key]
+    return VPState(split["params"], split["batch_stats"])
+
+
+def load_mtio_npz_into(model: torch.nn.Module, path: str | os.PathLike) -> None:
+    """Load an MTIO ``.npz`` into a ViewportTransformerMTIO of the same shape."""
+    model.load_state_dict(mtio_state_dict_from_flax(*load_mtio_npz(path)))

@@ -237,3 +237,62 @@ def test_actor_critic_train_and_backward_kernels_match_plain_on_card(cuda_device
     ((logits * dlogits).sum() + (value * dvalue).sum()).backward()
     assert all(p.grad is not None for p in policy.parameters())
     _grad_close(policy.actor_fc.weight.grad, want[2][:, :128].t())
+
+
+# --------------------------------------------------------- viewport serving
+
+def _edge_positions(n: int, seed: int) -> torch.Tensor:
+    """[n, 15, 2] normalized positions, half of them on or one pixel (one f32
+    ulp) beside a tile edge or a FoV edge (the wrap cases)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for size, tile, half in ((2560, 320, 300), (1440, 180, 150)):
+        px = np.arange(0, size + 1, tile)
+        px = np.concatenate([px, px - half, px + half])
+        px = np.concatenate([px - 1, px, px + 1])
+        v = (px[(px >= 0) & (px <= size)] / size).astype(np.float32)
+        v = np.concatenate([v, np.nextafter(v, np.float32(-1)), np.nextafter(v, np.float32(2))])
+        edge = rng.choice(v, (n, 15))
+        cols.append(np.where(rng.random((n, 15)) < 0.5, edge,
+                             rng.random((n, 15), dtype=np.float32)))
+    return torch.as_tensor(np.stack(cols, -1).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frequency", [1, 5, 15])
+def test_chunk_maps_kernel_matches_plain_on_card(cuda_device, frequency):
+    from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
+    gt, pred = (_edge_positions(700, s).to(cuda_device) for s in (frequency, frequency + 1))
+    g, p, iou = K7.chunk_maps(gt, pred, frequency)
+    rg, rp, riou = K7.chunk_maps_plain(gt, pred, frequency)
+    assert torch.equal(g, rg) and torch.equal(p, rp)
+    torch.testing.assert_close(iou, riou, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_trajectory_metrics_kernel_matches_plain_on_card(cuda_device):
+    from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
+    gt, pred = (_edge_positions(700, s).to(cuda_device) for s in (7, 8))
+    for x, y in zip(K7.trajectory_metrics(gt, pred), K7.trajectory_metrics_plain(gt, pred)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 15, 1), (1, 15, 8), (1, 15, 15), (1, 3, None),
+                                   (5, 5, None), (16, 16, 1)])
+@pytest.mark.parametrize("H,Dh", [(8, 64), (8, 4)])
+def test_attention_kernel_matches_plain_and_sdpa_on_card(cuda_device, shape, H, Dh):
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    Lq, Lk, kv_len0 = shape
+    g = torch.Generator(device=cuda_device).manual_seed(Lq * 100 + Lk)
+    q = torch.randn(77, Lq, H, Dh, device=cuda_device, generator=g)
+    k = torch.randn(77, Lk, H, Dh, device=cuda_device, generator=g)
+    v = torch.randn(77, Lk, H, Dh, device=cuda_device, generator=g)
+    got = K8.attention(q, k, v, kv_len0)
+    torch.testing.assert_close(got, K8.attention_plain(q, k, v, kv_len0), rtol=1e-5, atol=1e-6)
+    seen = torch.arange(Lq, device=cuda_device) + (Lk if kv_len0 is None else kv_len0)
+    mask = torch.arange(Lk, device=cuda_device)[None, :] < seen[:, None]
+    with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.MATH):
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+    torch.testing.assert_close(got, sdpa.transpose(1, 2), rtol=1e-5, atol=1e-5)

@@ -6,7 +6,7 @@
 * Entry points default to the card and raise where there is none, instead
   of running on the CPU unasked.
 * A kernel wrapper given CPU tensors runs its plain PyTorch version and
-  counts no launch (K1-K6, K9, K10 and K3's training mode).
+  counts no launch (K1-K10 and K3's training mode).
 * A policy that reads the derived action values, which the port does not
   have, is refused at load time.
 """
@@ -25,12 +25,14 @@ import torch
 
 import mansy_immersivevideostreaming_torch as port
 from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+from mansy_immersivevideostreaming_torch.kernels import attention as K8
 from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
 from mansy_immersivevideostreaming_torch.kernels import env_step as K1
 from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
 from mansy_immersivevideostreaming_torch.kernels import gae as K6
 from mansy_immersivevideostreaming_torch.kernels import observe as K2
 from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic, QoEIdentifier
 from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
 from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
@@ -78,6 +80,9 @@ def test_runner_import_pulls_in_no_jax():
             "import mansy_immersivevideostreaming_torch.rl.bc; "
             "import mansy_immersivevideostreaming_torch.rl.identifier; "
             "import mansy_immersivevideostreaming_torch.data.tianshou_compat; "
+            "import mansy_immersivevideostreaming_torch.cli.run_models; "
+            "import mansy_immersivevideostreaming_torch.cli.predict; "
+            "import mansy_immersivevideostreaming_torch.models.mtio; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
@@ -89,7 +94,10 @@ def test_runner_import_pulls_in_no_jax():
 def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the entry points would run on it")
-    from mansy_immersivevideostreaming_torch.cli import run_dagger, run_expert, run_mansy
+    from mansy_immersivevideostreaming_torch.cli import (
+        predict, run_dagger, run_expert, run_mansy, run_models,
+    )
+    from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
     from mansy_immersivevideostreaming_torch.config import default_config
     from mansy_immersivevideostreaming_torch.utils.device import resolve_device
     cli_device = lambda cli: resolve_device(cli.build_parser().parse_args([]).device)
@@ -100,7 +108,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
                   lambda: MansyActorCritic(), lambda: QoEIdentifier(),
                   lambda: cli_device(run_expert), lambda: cli_device(run_mansy),
                   lambda: cli_device(run_dagger), lambda: train(run_mansy, ["--train"]),
-                  lambda: train(run_dagger, [])):
+                  lambda: train(run_dagger, []), lambda: cli_device(run_models),
+                  lambda: cli_device(predict), lambda: ViewportTransformerMTIO(),
+                  lambda: train(predict, ["--model", "regression"]),
+                  lambda: train(run_models, ["--test", "--model", "regression"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
@@ -108,7 +119,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
 def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     wrappers = (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward,
                 K3.actor_critic_train_forward, K3.actor_critic_backward, K4.choose_action,
-                K5.build_expert_tables, K6.compute_gae, K9.policy_loss)
+                K5.build_expert_tables, K6.compute_gae, K9.policy_loss, K7.chunk_maps,
+                K7.trajectory_metrics, K8.attention)
     for fn in wrappers:
         fn.launches = 0
     tables = synthetic_sim_tables(device="cpu")
@@ -155,6 +167,16 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     for a, b in zip(K9.policy_loss(spec, fwd[0], None)[:3],
                     K9.policy_loss_plain(spec, fwd[0], None)[:3]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    # viewport serving: K7's two modes and K8
+    gt, pred = torch.rand(6, 15, 2), torch.rand(6, 15, 2)
+    for a, b in zip(K7.chunk_maps(gt, pred, 5), K7.chunk_maps_plain(gt, pred, 5)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(K7.trajectory_metrics(gt, pred), K7.trajectory_metrics_plain(gt, pred)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    q, k, v = torch.randn(4, 1, 8, 64), torch.randn(4, 15, 8, 64), torch.randn(4, 15, 8, 64)
+    torch.testing.assert_close(K8.attention(q, k, v, 3), K8.attention_plain(q, k, v, 3),
+                               rtol=0, atol=0)
     assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
 
 
