@@ -17,17 +17,24 @@ Phases:
    (8192 lanes on tables of the Jin2022/4G train split's shape; K4 on 512
    lanes at horizon 4 in every mode; K5 on the train split's tables; K2 and
    K3 again with the action values and the v16 weights); time both with
-   CUDA events and print the ``kernels`` JSON line.
+   CUDA events and print the ``kernels`` JSON line.  K3 is also timed at
+   serve's lane chunk (512), with two bounds (f32 outside the tensor cores,
+   and its products as three TF32 products on them); K4 also at the
+   expert's lane chunk (64) and DAgger's lanes (32, accuracy-corrected).
 3. serve: deterministic evaluation of the committed v9 weights over the
    1440-episode test grid's shape, in lane chunks of 512; every lane must
    finish an episode, and the first-done masks and every episode record
-   must match the plain path on the card.
+   must match the plain path on the card.  One lane chunk's episode is
+   profiled once every path has been timed (``step_profile``: the card's
+   busy share of a step, the costliest device and host ops).
 4. collect: the sampling rollout collector, 8192 lanes x 128 steps.
 5. expert: ``run_expert_episodes`` over the 1440-episode grid at the CLI's
    defaults (horizon 4, lane chunks of 64), privileged mode, on K5's
    tables; every lane finishes an episode, and the run is held against the
    plain path on the card (every lane: equal masks; equal episode records
-   unless the lane's first differing decision was a near-tie).
+   unless the lane's first differing decision was a near-tie).  One lane
+   chunk's episode is profiled once every path has been timed
+   (``decision_profile``).
 6. serve-v16: K5 attaches the accuracy-corrected action-value tables, then
    the committed v16 weights are served deterministically over the
    1440-episode grid, held against the plain path as in phase 3.
@@ -104,9 +111,11 @@ import numpy as np
 import torch
 
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet): HBM3 bandwidth and the f32 rate outside the tensor cores.
+# data sheet): HBM3 bandwidth, the f32 rate outside the tensor cores and the
+# dense TF32 rate of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 LANES = 8192            # main-path lanes (bench.py's rollout width)
 COLLECT_STEPS = 128
@@ -118,6 +127,7 @@ RTOL = 1e-5
 HORIZON = 4             # the expert's default lookahead (run_expert --horizon)
 EXPERT_CHUNK = 64       # run_expert --lane-chunk default
 SEARCH_LANES = 512      # lanes of K4's kernel check
+DAGGER_LANES = 32       # run_dagger --lanes: K4's width on the DAgger path
 EXPERT_PASSES = 3       # timed passes of the expert path
 NEAR_TIE = 1e-5         # first-action margin (over the weight sum) of a near-tie
 MISPREDICT = 0.15       # share of tiles the synthetic predicted viewport gets wrong
@@ -369,6 +379,35 @@ def library_actor_critic(w):
     return fn
 
 
+def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
+    """K3's forward (or its training mode) on ``x``: the kernel's, the plain
+    version's and the ``torch.matmul`` composition's times, and two bounds:
+    every operation in f32 outside the tensor cores (``bound_ms``), and the
+    branch and fc products as the kernel runs them, three TF32 products on
+    the tensor cores, the rest in f32 (``bound_3xtf32_ms``)."""
+    N, A = x.shape[0], w.w_actor_out.shape[1]
+    H = w.b_branch.shape[1]
+    nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
+    flops, nbytes = actor_critic_cost(w, N, A)
+    if train:
+        nbytes += N * (nb + 2) * H * 4  # feats and hidden written
+        run = lambda: K3.actor_critic_train_forward(w, x)
+        plain = lambda: K3.actor_critic_train_forward_plain(w, x)
+    else:
+        run = lambda: K3.actor_critic_forward(w, x, noise)
+        plain = lambda: K3.actor_critic_forward_plain(w, x, noise)
+    products = 2 * N * (fin * H + nb * H * 2 * H)
+    t_tc = 3 * products / TF32_FLOP_PER_S + (flops - products) / F32_FLOP_PER_S
+    lib = library_actor_critic(w)
+    zeros = torch.zeros((N, A), device=x.device)
+    ctas, split = K3.cluster_plan(w, N)
+    return dict(lanes=N, cluster_ctas=ctas, split_branches=split, ms=gpu_ms(run),
+                plain_ms=gpu_ms(plain),
+                library_ms=gpu_ms(lambda: lib(x, zeros if noise is None else noise)),
+                **bound(flops, nbytes),
+                bound_3xtf32_ms=1e3 * max(t_tc, nbytes / HBM_BYTES_PER_S))
+
+
 def kernel_phase(dev):
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import build
@@ -430,16 +469,10 @@ def kernel_phase(dev):
     decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
     if not bool((got[2] == ref[2])[decisive].all()):
         raise AssertionError("actor_critic_forward picks other actions than its plain version")
-    flops, nbytes = actor_critic_cost(w, N, tables.action_space)
-    lib = library_actor_critic(w)
     rows["actor_critic_forward"] = dict(
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
-        ms=gpu_ms(lambda: K3.actor_critic_forward(w, x, noise)),
-        plain_ms=gpu_ms(lambda: K3.actor_critic_forward_plain(w, x, noise)),
-        bound_ms=1e3 * max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S),
-        bound_by="operations" if flops / F32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
-        else "bytes",
-        library_ms=gpu_ms(lambda: lib(x, noise)))
+        **actor_critic_timing(K3, w, x, noise),
+        serve_chunk=actor_critic_timing(K3, w, x[:SERVE_CHUNK], noise[:SERVE_CHUNK]))
 
     # K1 (one step from identical states)
     nbytes = env_step_bytes(tables, samples, state, actions)
@@ -618,15 +651,28 @@ def expert_kernel_phase(dev):
     # the expert path's width: one lane chunk of lanes 7 steps into their episodes
     chunk = type(state)(*(x[:EXPERT_CHUNK] if isinstance(x, torch.Tensor) else
                           type(x)(*(y[:EXPERT_CHUNK] for y in x)) for x in state))
+    # and DAgger's: its first DAGGER_LANES lanes, scored at their accuracy estimate
+    dagger = type(state)(*(x[:DAGGER_LANES] if isinstance(x, torch.Tensor) else
+                           type(x)(*(y[:DAGGER_LANES] for y in x)) for x in state))
+    dagger_acc = acc_hat[:DAGGER_LANES]
     rows["choose_action"] = dict(
         max_abs_err=err, lanes=N, horizon=HORIZON, checks=checks,
         ms=gpu_ms(lambda: K4.choose_action(tables, etables, state, HORIZON)),
         plain_ms=gpu_ms(lambda: X.choose_action_plain(tables, etables, state, HORIZON), 3),
         bound_ms=1e3 * flops / F32_FLOP_PER_S, bound_by="operations", library_ms=None,
-        expert_chunk=dict(lanes=EXPERT_CHUNK,
-                          ms=gpu_ms(lambda: K4.choose_action(tables, etables, chunk, HORIZON)),
-                          bound_ms=1e3 * search_flops(tables, chunk, HORIZON) / F32_FLOP_PER_S))
-    del state, chunk
+        expert_chunk=dict(
+            lanes=EXPERT_CHUNK, mode="trace",
+            ms=gpu_ms(lambda: K4.choose_action(tables, etables, chunk, HORIZON)),
+            plain_ms=gpu_ms(lambda: X.choose_action_plain(tables, etables, chunk, HORIZON), 3),
+            bound_ms=1e3 * search_flops(tables, chunk, HORIZON) / F32_FLOP_PER_S),
+        dagger_chunk=dict(
+            lanes=DAGGER_LANES, mode="acc_hat",
+            ms=gpu_ms(lambda: K4.choose_action(tables, etables, dagger, HORIZON,
+                                               acc_hat=dagger_acc)),
+            plain_ms=gpu_ms(lambda: X.choose_action_plain(tables, etables, dagger, HORIZON,
+                                                          acc_hat=dagger_acc), 3),
+            bound_ms=1e3 * search_flops(tables, dagger, HORIZON) / F32_FLOP_PER_S))
+    del state, chunk, dagger
 
     # K2 with the accuracy-corrected action values, K3 with v16, at LANES
     tav = X.attach_action_values(tables, etables, acc_correct=True)
@@ -658,18 +704,10 @@ def expert_kernel_phase(dev):
     if not bool((got[2] == ref[2])[decisive].all()):
         raise AssertionError("actor_critic_forward (v16) picks other actions than its plain "
                              "version")
-    flops, nbytes = actor_critic_cost(w, LANES, A)
-    lib = library_actor_critic(w)
-    zeros = torch.zeros((LANES, A), device=dev)
     extra["actor_critic_forward"] = dict(
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
-        branches=len(w.branch_off) - 1, av_prior=w.av_prior,
-        ms=gpu_ms(lambda: K3.actor_critic_forward(w, x)),
-        plain_ms=gpu_ms(lambda: K3.actor_critic_forward_plain(w, x)),
-        bound_ms=1e3 * max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S),
-        bound_by="operations" if flops / F32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
-        else "bytes",
-        library_ms=gpu_ms(lambda: lib(x, zeros)))
+        branches=len(w.branch_off) - 1, av_prior=w.av_prior, **actor_critic_timing(K3, w, x),
+        serve_chunk=actor_critic_timing(K3, w, x[:SERVE_CHUNK]))
     return rows, extra
 
 
@@ -732,8 +770,9 @@ def timed_passes(run, counters, want, passes: int = PASSES):
 
 
 def profile_update(run, steps: int) -> dict:
-    """Where the time of an update loop goes.  ``run()`` makes ``steps``
-    update steps; it is timed UPDATE_PASSES times on the host clock (each
+    """Where the time of a loop goes (an update loop, a serve or expert
+    episode, a viewport batch).  ``run()`` makes ``steps`` steps; it is
+    timed UPDATE_PASSES times on the host clock (each
     ended by a synchronize), then once more under ``torch.profiler``.  The
     device's busy time is the union of the device events' intervals; its
     share is taken of the unprofiled wall time (the median pass) and, apart,
@@ -811,11 +850,11 @@ def compare_serve(logs, masks, ref_logs, ref_masks, label: str) -> dict:
                 episodes_differing=differing)
 
 
-def serve_phase(dev, counters, v16: bool = False):
-    """Serve the v9 weights, or with ``v16`` the v16 weights on tables whose
+def serve_setup(dev, v16: bool = False):
+    """(policy, tables, samples, K5's launches) of the serve phase: the v9
+    weights, or with ``v16`` the v16 weights on tables whose
     accuracy-corrected action values K5 attaches, over the test grid."""
     from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
-    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
     from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
     from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
     from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
@@ -823,7 +862,6 @@ def serve_phase(dev, counters, v16: bool = False):
         DAGGER_V9_NPZ, DAGGER_V16_NPZ, load_npz_policy,
     )
 
-    label = "serve-v16" if v16 else "serve"
     V, U, NT, C, Q = TEST_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
     samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
@@ -835,8 +873,17 @@ def serve_phase(dev, counters, v16: bool = False):
         tables = attach_action_values(tables, K5.build_expert_tables(tables),
                                       acc_correct=policy.acc_correct_obs)
         setup = K5.build_expert_tables.launches
-        if setup != 1:
-            raise AssertionError(f"{label}: K5 launched {setup} times at setup, expected 1")
+    return policy, tables, samples, setup
+
+
+def serve_phase(dev, counters, v16: bool = False):
+    """Serve the v9 or v16 weights over the test grid (``serve_setup``)."""
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
+
+    label = "serve-v16" if v16 else "serve"
+    policy, tables, samples, setup = serve_setup(dev, v16)
+    if setup != (1 if v16 else 0):
+        raise AssertionError(f"{label}: K5 launched {setup} times at setup")
     evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
     steps = -(-samples.shape[0] // SERVE_CHUNK) * episode_step_bound(tables)
     (logs, masks), seconds, launches = timed_passes(
@@ -973,12 +1020,10 @@ def compare_expert(chunks, ref_chunks) -> dict:
     return dict(lanes_equal=same, lanes_near_tie=near_tie)
 
 
-def expert_phase(dev, counters):
-    """The MPC expert over the 1440-episode grid, privileged, at the CLI's
-    defaults, against the plain path on the card (every lane compared)."""
-    from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+def expert_setup(dev):
+    """(tables, etables, samples, K5's launches) of the expert phase: the
+    test grid, its profiling tables built by K5."""
     from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
-    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound
     from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
     from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
 
@@ -987,7 +1032,16 @@ def expert_phase(dev, counters):
     samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
     K5.build_expert_tables.launches = 0
     etables = K5.build_expert_tables(tables)
-    setup = K5.build_expert_tables.launches
+    return tables, etables, samples, K5.build_expert_tables.launches
+
+
+def expert_phase(dev, counters):
+    """The MPC expert over the 1440-episode grid, privileged, at the CLI's
+    defaults, against the plain path on the card (every lane compared)."""
+    from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound
+
+    tables, etables, samples, setup = expert_setup(dev)
     if setup != 1:
         raise AssertionError(f"expert: K5 launched {setup} times at setup, expected 1")
     run_expert_episodes(tables, etables, samples[:EXPERT_CHUNK], HORIZON,
@@ -1016,6 +1070,26 @@ def expert_phase(dev, counters):
                 plain_seconds=plain_s, mean_qoe=float(qoe.mean()),
                 plain_mean_qoe=float(ref_qoe.mean()), lanes_compared=n_eps, **counts,
                 launches=launches)
+
+
+def profile_phase(dev):
+    """Where a serve step's (512 lanes) and an expert decision's (64 lanes)
+    time goes: one lane chunk's episode each, per step.  Run after every
+    path is timed: a profiler session leaves tracing on the host that would
+    slow the later phases."""
+    from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
+
+    policy, tables, samples, _ = serve_setup(dev)
+    serve = profile_update(
+        lambda: evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True),
+        episode_step_bound(tables))
+    tables, etables, samples, _ = expert_setup(dev)
+    expert = profile_update(
+        lambda: run_expert_episodes(tables, etables, samples[:EXPERT_CHUNK], HORIZON,
+                                    lane_chunk=EXPERT_CHUNK),
+        episode_step_bound(tables))
+    return serve, expert
 
 
 # ---------------------------------------------------------------- phase 2c
@@ -1203,15 +1277,8 @@ def training_kernel_phase(dev):
                 raise AssertionError(f"actor_critic_train_forward ({label}, B = {Bn}) disagrees "
                                      f"with its plain version")
             f_err = max(f_err, max(float((g - rf).abs().max()) for g, rf in zip(got, ref)))
-            flops, nbytes = actor_critic_cost(w, Bn, A)
-            nb, H = w.b_branch.shape
-            nbytes += Bn * (nb + 2) * H * 4  # feats and hidden written
-            lib = library_actor_critic(w)
-            zeros = torch.zeros((Bn, A), device=dev)
             key = f"{label}_B{Bn}"
-            fwd[key] = dict(ms=gpu_ms(lambda: K3.actor_critic_train_forward(w, x)),
-                            plain_ms=gpu_ms(lambda: K3.actor_critic_train_forward_plain(w, x)),
-                            library_ms=gpu_ms(lambda: lib(x, zeros)), **bound(flops, nbytes))
+            fwd[key] = actor_critic_timing(K3, w, x, train=True)
             dlogits, dvalue = r(Bn, A) / Bn, r(Bn) / Bn
             acts = ref[2], ref[3]
             got = K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)
@@ -1888,6 +1955,9 @@ def main() -> int:
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
+    paths["serve"]["step_profile"], paths["expert"]["decision_profile"] = profile_phase(dev)
+    log(f"serve step_profile: {json.dumps(paths['serve']['step_profile'])}")
+    log(f"expert decision_profile: {json.dumps(paths['expert']['decision_profile'])}")
     # the kernels each path runs; every one must have launched on it
     training = ("actor_critic_train_forward", "policy_loss", "actor_critic_backward")
     path_kernels = {"serve": ("env_step", "observe_mansy_pack", "actor_critic_forward"),

@@ -10,9 +10,14 @@ first-index argmax of ``logits + noise`` (Gumbel noise for sampling, none
 for the deterministic argmax).
 
 It reads the packed observation buffer of ``kernels/observe.py``.  On the
-H100 it is bound by f32 operations (~0.85 MFLOP a lane); ``csrc/
-actor_critic.cu`` keeps the [N, 1280] features on chip and runs in full f32
-(no TF32, no cuBLAS).
+H100 it is bound by operations (~0.85 MFLOP a lane); ``csrc/
+actor_critic.cu`` splits each 32-row tile across a thread-block cluster
+whose size follows from N (:func:`cluster_plan`): at 512 rows one CTA a
+branch (two for a branch of more than 128 inputs, one each half of them),
+at wider N fewer CTAs with whole branches each, down to one CTA a tile at
+8192 rows.  It keeps the [N, 1280] features on chip, sums the partial fc
+products in a fixed order, and runs its products on the tensor cores in
+3xTF32, which keeps f32 accuracy (no plain TF32, no cuBLAS).
 
 Training goes through :func:`actor_critic_train`, a ``torch.autograd.Function``
 over the eight packed weight tensors: its forward is K3's training mode
@@ -148,15 +153,19 @@ def _weight_tensors(w: ActorCriticWeights, x: torch.Tensor):
     return tensors
 
 
+def _args(w: ActorCriticWeights, n_lanes: int, ldx: int = 0, **pointers) -> _ActorCriticArgs:
+    """The kernel's argument struct; ``pointers`` by argument name, the rest null."""
+    return _ActorCriticArgs(
+        **{k: t.data_ptr() for k, t in pointers.items()},
+        n_lanes=n_lanes, ldx=ldx, A=w.w_actor_out.shape[1], num_branches=len(w.branch_off) - 1,
+        branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off),
+        av_off=max(w.av_off, 0), av_prior=float(w.av_prior))
+
+
 def _launch_forward(w: ActorCriticWeights, x: torch.Tensor, tensors, **outputs) -> None:
     """One launch of the forward kernel; ``outputs`` (and the noise) by
     argument name, the rest null."""
-    args = _ActorCriticArgs(
-        **{k: t.data_ptr() for k, t in {**tensors, **outputs}.items()},
-        n_lanes=x.shape[0], ldx=x.stride(0), A=w.w_actor_out.shape[1],
-        num_branches=len(w.branch_off) - 1,
-        branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off),
-        av_off=max(w.av_off, 0), av_prior=float(w.av_prior))
+    args = _args(w, x.shape[0], x.stride(0), **tensors, **outputs)
     lib = build.load("actor_critic")
     lib.actor_critic_launch.argtypes = [ctypes.POINTER(_ActorCriticArgs), ctypes.c_void_p]
     lib.actor_critic_launch.restype = ctypes.c_int
@@ -164,6 +173,23 @@ def _launch_forward(w: ActorCriticWeights, x: torch.Tensor, tensors, **outputs) 
                                   torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"actor_critic kernel launch failed with CUDA error {err}")
+
+
+def cluster_plan(w: ActorCriticWeights, n_lanes: int) -> Tuple[int, bool]:
+    """(CTAs a 32-row tile, whether the branches of more than 128 inputs run
+    in two halves) that the kernel takes for ``n_lanes`` rows on the current
+    card: the plan of least estimated time (``csrc/actor_critic.cu``:
+    ``make_plan``)."""
+    lib = build.load("actor_critic")
+    lib.actor_critic_plan.argtypes = [ctypes.POINTER(_ActorCriticArgs),
+                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.actor_critic_plan.restype = ctypes.c_int
+    ctas, split = ctypes.c_int(), ctypes.c_int()
+    err = lib.actor_critic_plan(ctypes.byref(_args(w, n_lanes)), ctypes.byref(ctas),
+                                ctypes.byref(split))
+    if err != 0:
+        raise RuntimeError(f"actor_critic_plan failed with CUDA error {err}")
+    return ctas.value, bool(split.value)
 
 
 def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,

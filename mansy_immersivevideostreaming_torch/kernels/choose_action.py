@@ -7,8 +7,9 @@ every mode: the privileged trace walk or a per-lane ``bw_hat``, the
 (switched per lane by ``use_corr``), and the optional decision margin.  The
 plain version is ``sim/expert.py:choose_action_plain``.  On the H100 the
 search is bound by f32 operations (15^h sequences a lane);
-``csrc/choose_action.cu`` runs one block per lane and walks the sequences as
-a tree of shared prefixes.  See the source for the design.
+``csrc/choose_action.cu`` runs a cluster of 15 CTAs a lane, one a first
+action, each walking its sequences as a tree of shared prefixes, and
+reduces the 15 results in a fixed order.  See the source for the design.
 """
 
 from __future__ import annotations

@@ -18,46 +18,101 @@
 // actor_critic_train_forward): no noise and no action head; it also writes
 // what the backward (csrc/actor_critic_backward.cu, K10) reads, the branch
 // features after LeakyReLU [N, nb x 128] and the fc outputs after LeakyReLU,
-// before the residual [N, 256] (2.6 MB at 512 lanes, under a microsecond at
-// the H100's 3.35 TB/s).  K10 takes each LeakyReLU's derivative from the
-// sign of its output, so nothing is recomputed.
+// before the residual [N, 256].  K10 takes each LeakyReLU's derivative from
+// the sign of its output, so nothing is recomputed.
 //
-// Bound: f32 operations.  At 8192 lanes the forward is ~7 GFLOP against
-// ~26 MB of inputs, so the card's non-tensor f32 rate bounds it.  No TF32:
-// the sums stay in full f32, as the JAX reference's "highest" precision.
+// Bound: operations.  At 8192 lanes the forward is ~7 GFLOP against ~26 MB
+// of inputs.  The products run on the tensor cores in 3xTF32: each operand
+// is split into a TF32 high part and a TF32 remainder, and hi*lo + lo*hi +
+// hi*hi is summed into f32 accumulators (mma.sync.m16n8k8), which keeps
+// f32 accuracy (the JAX reference's "highest" precision); plain TF32 would
+// keep ~3 digits.  So the work is three TF32 products (495 TFLOP/s) or, in
+// f32 outside the tensor cores, one product (67 TFLOP/s).
 //
-// Design: one block of 256 threads per 64 lanes.  Branch by branch, a
-// register-tiled product (8 lanes x 4 columns a thread) computes the
-// branch's 128 features into shared memory, and a second one (8 x 8 a
-// thread) folds them at once into the 64 x 256 fc accumulators, so the
-// [N, 1280] feature matrix never reaches device memory.  Weight tiles are
-// staged in shared memory, 32 rows at a time; every block rereads the 1.7 MB
-// of weights from L2.  The heads and the epilogue run from shared memory.
-// Simple and right first: no wgmma, no TMA, no pipelining yet.
+// Design: the work of a 32-row tile is split across a thread-block cluster
+// of G CTAs, and G follows from N (make_plan) so that the paths' widths fill
+// the card: each candidate's time is estimated as its waves (from the
+// clusters the card holds at once, by its own occupancy query) times the
+// longest walk of a CTA in pipeline stages, plus a share for each CTA's
+// barriers and reduction.  At the serve and PPO widths (512 rows) every CTA
+// is one "unit": a branch, or one half of the inputs of a branch with more
+// than 128 of them (next_chunk_size and next_chunk_quality, 320 each), so
+// no CTA walks more than 14 stages, in clusters of 12 (13 with the
+// action-value branch, which take two waves at 512 rows, so there 6 CTAs of
+// whole branches win).  At wider N the CTAs take whole branches, several
+// each, placed longest first onto the least-loaded CTA, down to 2 CTAs a
+// tile at 4096 rows and one CTA a tile that walks every branch at
+// collect's 8192 lanes, where the card is full anyway and a cluster's
+// barriers and exchange would only add work.
+//
+// A unit multiplies its x columns by its W_b rows into the branch's 128
+// pre-activations; a whole branch adds its bias and LeakyReLU at once
+// (feats_b), while the two halves of a split branch put theirs in shared
+// memory, meet at the first half of a cluster barrier, and each sums both
+// for half of the feature columns (part 0's first), then the bias and
+// LeakyReLU.  A unit then multiplies its feature columns [n0, n0 + nw) by
+// W_fc's rows 128b + n0 .. and adds them into its CTA's partial fc product
+// P_r [32, 256], unit after unit in a fixed order (the cond branch last, so
+// its features stay in shared memory).  The tensor cores' f32 accumulation
+// does not round to nearest, so a long chain of products drifts (4e-5 over
+// the 1280 rows of W_fc): each 16-row stage's products go into zeroed
+// accumulators, which are added to the running sums (the pre-activations in
+// shared memory, P_r in registers) with rounded f32 adds.  The x and weight
+// tiles stream in with cp.async through one ring of five 16-row stages that
+// every product of the CTA shares (four in flight while one is multiplied),
+// located by a schedule of the CTA's units in shared memory, and each warp
+// issues its products term by term over its independent accumulator tiles,
+// so the tensor cores' latency overlaps.  After a cluster barrier, each CTA
+// owns a slice of the 256 fc columns and sums P_0 .. P_{G-1} for it from
+// the cluster's shared memory in rank order (no atomics: every run gives
+// the same bits), adds the bias, the LeakyReLU and the cond residual
+// (branch 9's features, read from that CTA), and multiplies its slice by
+// the heads' rows into partial logits and value, which it stores into CTA
+// 0's shared memory.  After a second barrier CTA 0 sums those partials in
+// rank order and runs the epilogue: the prior, log_softmax and the
+// first-index argmax of logits + noise.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kH = 128;        // hidden width
+constexpr int kF = 2 * kH;     // fc width: actor_fc | critic_fc
 constexpr int kMaxNB = 11;     // feature-net branches: 10, or 11 with action values
 constexpr int kCond = 9;       // the cond branch, whose features are the residual
-constexpr int kBM = 64;        // lanes per block
-constexpr int kBK = 32;        // k rows staged per tile
-constexpr int kThreads = 256;
-constexpr int kPad = kBM + 4;  // transposed tiles [k][m]; keeps float4 alignment
-constexpr int kHS = 2 * kH + 1;  // row stride of the fc output tile
+constexpr int kSplitIn = kH;   // a branch with more inputs may be two units (input halves)
+constexpr int kMaxUnits = 16;  // CTAs a cluster may have (the non-portable maximum)
+constexpr int kMaxDevices = 16;
+constexpr int kBM = 32;        // rows a tile
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBK = 16;        // k rows a pipeline stage
+constexpr int kStages = 5;     // ring slots: four stages in flight while one is multiplied
 constexpr int kOut = 16;       // logits (A <= 15) and the value
+// row strides (floats), padded so the warps' fragment reads hit 32 banks
+constexpr int kXS = kBK + 4;   // x stage        [kBM][kXS]
+constexpr int kWBS = kH + 8;   // W_b stage      [kBK][kWBS]
+constexpr int kWFS = kF + 8;   // W_fc stage     [kBK][kWFS]
+constexpr int kFS = kH + 4;    // features       [kBM][kFS]
+constexpr int kPS = kF + 4;    // partial fc     [kBM][kPS]
 
-constexpr int kAsFloats = kBK * kPad;
-constexpr int kBsFloats = kBK * 2 * kH;
-constexpr int kFsFloats = kH * kPad;
-constexpr int kCsFloats = kBM * kH;
-constexpr int kLsFloats = kBM * kOut;
-constexpr int kSmemBytes =
-    (kAsFloats + kBsFloats + kFsFloats + kCsFloats + kLsFloats) * (int)sizeof(float);
-static_assert(kBsFloats + kFsFloats >= kBM * kHS, "fc output tile must fit over Bs + Fs");
+constexpr int kXsFloats = kBM * kXS;  // a branch stage: the x tile, then the W_b rows
+constexpr int kSlotFloats = kXsFloats + kBK * kWBS > kBK * kWFS ? kXsFloats + kBK * kWBS
+                                                                 : kBK * kWFS;
+constexpr int kRingFloats = kStages * kSlotFloats;
+constexpr int kFsFloats = kBM * kFS;
+constexpr int kSmemBytes = (kRingFloats + kFsFloats) * (int)sizeof(float);
+// over the ring once the products are done: P_r, CTA 0's partial heads
+// [G][kBM][kOut], and this CTA's fc outputs + residual [kBM][ceil(kF / G) + 1]
+constexpr int over_ring(int g) { return kBM * kPS + g * kBM * kOut + kBM * ((kF + g - 1) / g + 1); }
+static_assert(over_ring(1) <= kRingFloats && over_ring(kMaxUnits) <= kRingFloats,
+              "P_r, the partial heads and the fc slice fit over the ring");
+static_assert(kBM * ((kF + kMaxUnits - 1) / kMaxUnits + 1) >= kBM * kOut,
+              "the logits tile fits over the fc slice");
+static_assert(2 * kSmemBytes + 2048 <= 228 * 1024, "two CTAs an SM");
 
 }  // namespace
 
@@ -86,142 +141,358 @@ struct ActorCriticArgs {
   float av_prior;              // beta; 0 for no prior
 };
 
+// How a tile's work is split across its cluster (make_plan).
+struct Plan {
+  int32_t ctas;                  // G: CTAs a tile
+  int32_t split;                 // 1: one unit a CTA, the wide branches in input halves
+  int32_t cond_cta;              // the CTA whose last unit is the cond branch
+  int32_t first[kMaxUnits + 1];  // CTA r runs units unit[first[r]] .. unit[first[r + 1] - 1]
+  int32_t unit[kMaxUnits];       // 2 * branch + part
+};
+
+// Part `part` of the `parts` of branch b: the x columns off + [k_lo, k_lo +
+// k_n), the feature columns [n0, n0 + nw), n1 stages of the branch product
+// and `stages` of both products.
+struct Unit {
+  int b, parts, part, off, k_lo, k_n, n0, nw, n1, stages;
+};
+
+__host__ __device__ __forceinline__ int branch_parts(const ActorCriticArgs& a, int b,
+                                                     bool split) {
+  return split && a.branch_off[b + 1] - a.branch_off[b] > kSplitIn ? 2 : 1;
+}
+
+__host__ __device__ __forceinline__ Unit unit_of(const ActorCriticArgs& a, bool split,
+                                                 int code) {
+  Unit u;
+  u.b = code >> 1;
+  u.part = code & 1;
+  u.parts = branch_parts(a, u.b, split);
+  u.off = a.branch_off[u.b];
+  const int in_b = a.branch_off[u.b + 1] - u.off;
+  const int k_half = ((in_b + 1) / 2 + kBK - 1) / kBK * kBK;
+  u.k_lo = u.part * k_half;
+  u.k_n = u.parts == 1 ? in_b : u.part == 0 ? k_half : in_b - k_half;
+  u.nw = kH / u.parts;
+  u.n0 = u.part * u.nw;
+  u.n1 = (u.k_n + kBK - 1) / kBK;
+  u.stages = u.n1 + u.nw / kBK;
+  return u;
+}
+
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
 
-__global__ void __launch_bounds__(kThreads, 1)
-actor_critic_kernel(const ActorCriticArgs a) {
+// ---- cp.async: 4 or 16 bytes, zero-filled when !valid (src is then not read) ----
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// every group but the newest n has landed
+template <int n>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n)); }
+
+// ---- 3xTF32 on mma.sync.m16n8k8 ----
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo exactly up to lo's rounding: hi is x in TF32, lo the remainder in TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+// d += a * b on the tensor cores (not volatile: independent products may interleave)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// acc[i][j] += a[i] * b[j] in 3xTF32, term by term (the two small cross terms,
+// then hi * hi), so the MT x NT products of a term issue back to back
+template <int MT, int NT, int NA>
+__device__ __forceinline__ void products(float (&acc)[MT][NA][4], const uint32_t (&ahi)[MT][4],
+                                         const uint32_t (&alo)[MT][4],
+                                         const uint32_t (&bhi)[NT][2],
+                                         const uint32_t (&blo)[NT][2]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(acc[i][j], alo[i], bhi[j]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(acc[i][j], ahi[i], blo[j]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(acc[i][j], ahi[i], bhi[j]);
+}
+// The A fragment of rows r0 + g (+8), columns k + t (+4) of a row-major tile
+// (lane = 4g + t), split into hi and lo.
+__device__ __forceinline__ void load_a(const float* p, int stride, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * stride], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * stride + 4], hi[3], lo[3]);
+}
+// The B fragment of rows k + t (+4), column n + g of a row-major [k][n] tile.
+__device__ __forceinline__ void load_b(const float* p, int stride, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[4 * stride], hi[1], lo[1]);
+}
+// The two halves of a cluster barrier (cluster.sync() is both): the CTA's
+// shared-memory writes before arrive are seen by the cluster after wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_constant__ Plan p) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;              // [kBK][kPad]   observation tile, transposed
-  float* Bs = As + kAsFloats;    // [kBK][256]    weight tile
-  float* Fs = Bs + kBsFloats;    // [kH][kPad]    branch features, transposed
-  float* Cs = Fs + kFsFloats;    // [kBM][kH]     cond features (residual)
-  float* Ls = Cs + kCsFloats;    // [kBM][kOut]   logits and value
-  float* Hs = Bs;                // [kBM][kHS]    fc outputs, over Bs + Fs at the end
+  float* ring = smem;              // [kStages][kSlotFloats] the stages of every product
+  float* Ps = smem;                // [kBM][kPS] P_r, over the ring once it is done
+  float* Fs = smem + kRingFloats;  // [kBM][kFS] the current unit's features
 
-  const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-  const int row0 = blockIdx.x * kBM;
-
-  float acc2[8][8];  // fc pre-activations: lanes ty*8+i, columns tx+32j
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc2[i][j] = 0.f;
-
-  for (int b = 0; b < a.num_branches; ++b) {
-    const int off = a.branch_off[b], in_b = a.branch_off[b + 1] - off;
-
-    // ---- branch layer: feats_b[64, 128] = x[:, off:off+in_b] @ W_b ----
-    float acc1[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc1[i][j] = 0.f;
-    for (int k0 = 0; k0 < in_b; k0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {
-        const int e = tid + kThreads * i, m = e >> 5, k = e & 31;
-        const int row = row0 + m, kk = k0 + k;
-        As[k * kPad + m] = (row < a.n_lanes && kk < in_b)
-                               ? a.x[(size_t)row * a.ldx + off + kk] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < (kBK * kH) / (4 * kThreads); ++i) {
-        const int e = 4 * (tid + kThreads * i), k = e >> 7, n = e & (kH - 1);
-        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k0 + k < in_b)
-          w = *reinterpret_cast<const float4*>(a.w_branch + (size_t)(off + k0 + k) * kH + n);
-        *reinterpret_cast<float4*>(Bs + k * (2 * kH) + n) = w;
-      }
-      __syncthreads();
-      const int kmax = min(kBK, in_b - k0);
-      for (int k = 0; k < kmax; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(As + k * kPad + ty * 8);
-        const float4 a1 = *reinterpret_cast<const float4*>(As + k * kPad + ty * 8 + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float bv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[k * (2 * kH) + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc1[i][j] = fmaf(av[i], bv[j], acc1[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = ty * 8 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = tx + 32 * j;
-        const float f = leaky(acc1[i][j] + a.b_branch[b * kH + n]);
-        Fs[n * kPad + m] = f;
-        if (b == kCond) Cs[m * kH + n] = f;
-        if (a.feats && row0 + m < a.n_lanes)
-          a.feats[(size_t)(row0 + m) * (a.num_branches * kH) + b * kH + n] = f;
-      }
-    }
-    __syncthreads();
-
-    // ---- fold into the fc layers: acc2 += feats_b @ W_fc[128b : 128b+128] ----
-    for (int k0 = 0; k0 < kH; k0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < (kBK * 2 * kH) / (4 * kThreads); ++i) {
-        const int e = 4 * (tid + kThreads * i), k = e >> 8, n = e & (2 * kH - 1);
-        *reinterpret_cast<float4*>(Bs + k * (2 * kH) + n) = *reinterpret_cast<const float4*>(
-            a.w_fc + (size_t)(b * kH + k0 + k) * (2 * kH) + n);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kBK; ++k) {
-        const float* fk = Fs + (k0 + k) * kPad + ty * 8;
-        const float4 a0 = *reinterpret_cast<const float4*>(fk);
-        const float4 a1 = *reinterpret_cast<const float4*>(fk + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float bv[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = Bs[k * (2 * kH) + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc2[i][j] = fmaf(av[i], bv[j], acc2[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // ---- fc activations plus the cond residual ----
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = ty * 8 + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 32 * j;
-      const float h = leaky(acc2[i][j] + a.b_fc[n]);
-      Hs[m * kHS + n] = h + Cs[m * kH + (n & (kH - 1))];
-      if (a.hidden && row0 + m < a.n_lanes) a.hidden[(size_t)(row0 + m) * (2 * kH) + n] = h;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = p.ctas, rank = (int)cluster.block_rank();
+  const bool split_mode = p.split != 0;
+  const int u_lo = p.first[rank], u_hi = p.first[rank + 1];
+  const int nb = a.num_branches;
+  const int row0 = (int)(blockIdx.x / nc) * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  // this CTA's units in turn, and the stage after each one's last
+  __shared__ Unit sched[kMaxNB];
+  __shared__ int sched_end[kMaxNB];
+  const int n_u = u_hi - u_lo;
+  if (tid == 0) {
+    int end = 0;
+    for (int k = 0; k < n_u; ++k) {
+      sched[k] = unit_of(a, split_mode, p.unit[u_lo + k]);
+      sched_end[k] = end += sched[k].stages;
     }
   }
   __syncthreads();
+  const int total = sched_end[n_u - 1];  // stages of this CTA's units
 
-  // ---- heads: logits [64, A] from the actor half, value from the critic half ----
-  {
-    const int m = tid >> 2;
-    for (int o = tid & 3; o <= a.A; o += 4) {
-      float s = 0.f;
-      if (o < a.A) {
-        for (int k = 0; k < kH; ++k) s = fmaf(Hs[m * kHS + k], a.w_aout[k * a.A + o], s);
-        s += a.b_aout[o];
-      } else {
-        for (int k = 0; k < kH; ++k) s = fmaf(Hs[m * kHS + kH + k], a.w_cout[k], s);
-        s += a.b_cout[0];
+  // stage c of the CTA (c = 0, 1, 2, ... in turn), stage s of its unit u:
+  // s < n1: x columns and W_b rows k_lo + [16s, 16s + 16); else W_fc rows
+  // 128b + n0 + [16(s - n1), + 16)
+  int k_load = 0;
+  auto load = [&](int c) {
+    float* slot = ring + (c % kStages) * kSlotFloats;
+    while (c >= sched_end[k_load]) ++k_load;
+    const Unit& u = sched[k_load];
+    const int s = c - (k_load ? sched_end[k_load - 1] : 0);
+    if (s < u.n1) {
+      const int k0 = u.k_lo + s * kBK, k_end = u.k_lo + u.k_n;
+      for (int e = tid; e < kBM * kBK; e += kThreads) {
+        const int m = e / kBK, k = e % kBK;
+        const bool ok = row0 + m < a.n_lanes && k0 + k < k_end;
+        cp_async4(slot + m * kXS + k,
+                  ok ? a.x + (size_t)(row0 + m) * a.ldx + u.off + k0 + k : a.x, ok);
       }
-      Ls[m * kOut + o] = s;
+      float* ws = slot + kXsFloats;
+      for (int e = tid; e < kBK * kH / 4; e += kThreads) {
+        const int k = e / (kH / 4), n = 4 * (e % (kH / 4));
+        const bool ok = k0 + k < k_end;
+        cp_async16(ws + k * kWBS + n, ok ? a.w_branch + (size_t)(u.off + k0 + k) * kH + n
+                                         : a.w_branch, ok);
+      }
+    } else {
+      const float* src = a.w_fc + (size_t)(u.b * kH + u.n0 + (s - u.n1) * kBK) * kF;
+      for (int e = tid; e < kBK * kF / 4; e += kThreads) {
+        const int k = e / (kF / 4), n = 4 * (e % (kF / 4));
+        cp_async16(slot + k * kWFS + n, src + (size_t)k * kF + n, true);
+      }
     }
+  };
+
+  // the branch product over a unit's inputs: warp w owns feature columns
+  // 16w..16w+15 and all 32 rows; P_r += feats[:, n0 : n0 + nw] @ W_fc[128b + n0 : + nw]:
+  // warp w owns fc columns 32w..32w+31.  A stage's products go into zeroed
+  // accumulators, then into the running sums with rounded f32 adds
+  float acc2[2][4][4] = {};
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < total) load(c);
+    cp_async_commit();
+  }
+  int k_u = 0;  // the current unit
+  for (int c = 0; c < total; ++c) {
+    if (c == sched_end[k_u]) ++k_u;
+    const Unit& u = sched[k_u];
+    const int s = c - (k_u ? sched_end[k_u - 1] : 0);
+    cp_async_wait<kStages - 2>();  // stage c has landed
+    __syncthreads();               // for every thread, and every thread is done with c - 1
+    const float* slot = ring + (c % kStages) * kSlotFloats;
+    if (s < u.n1) {
+      const float* ws = slot + kXsFloats;
+      float acc1[2][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 8) {
+        uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          load_a(slot + (16 * i + g) * kXS + ks + t, kXS, ahi[i], alo[i]);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          load_b(ws + (ks + t) * kWBS + 16 * warp + 8 * jj + g, kWBS, bhi[jj], blo[jj]);
+        products<2, 2, 2>(acc1, ahi, alo, bhi, blo);
+      }
+      // the unit's pre-activations so far, in Fs (each thread its own
+      // entries).  At the last stage, one part: bias and LeakyReLU, feats_b.
+      // Two parts: each part's pre-activations stay in its Fs; after the
+      // arrive and wait, each part adds both for its feature columns, part
+      // 0's first, then the bias and LeakyReLU (the partner reads the other
+      // columns meanwhile)
+      const int b = u.b;
+      const bool last = s == u.n1 - 1;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int n = 16 * warp + 8 * jj + 2 * t;
+          const bool bias = last && u.parts == 1;
+          const float bias0 = bias ? a.b_branch[b * kH + n] : 0.f;
+          const float bias1 = bias ? a.b_branch[b * kH + n + 1] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int m = 16 * i + g + 8 * r;
+            float2* fs = reinterpret_cast<float2*>(Fs + m * kFS + n);
+            float2 f = make_float2(acc1[i][jj][2 * r], acc1[i][jj][2 * r + 1]);
+            if (s > 0) {
+              const float2 sum = *fs;
+              f = make_float2(sum.x + f.x, sum.y + f.y);
+            }
+            if (bias) {
+              f = make_float2(leaky(f.x + bias0), leaky(f.y + bias1));
+              if (a.feats && row0 + m < a.n_lanes)
+                *reinterpret_cast<float2*>(a.feats + (size_t)(row0 + m) * (nb * kH) + b * kH +
+                                           n) = f;
+            }
+            *fs = f;
+          }
+        }
+      if (last) {
+        if (split_mode) cluster_arrive();
+        if (u.parts == 2) {
+          cluster_wait();
+          const float* q0 = cluster.map_shared_rank(Fs, rank - u.part);
+          const float* q1 = cluster.map_shared_rank(Fs, rank - u.part + 1);
+          for (int e = tid; e < kBM * u.nw; e += kThreads) {
+            const int m = e / u.nw, n = u.n0 + e % u.nw;
+            const float f = leaky((q0[m * kFS + n] + q1[m * kFS + n]) + a.b_branch[b * kH + n]);
+            Fs[m * kFS + n] = f;
+            if (a.feats && row0 + m < a.n_lanes)
+              a.feats[(size_t)(row0 + m) * (nb * kH) + b * kH + n] = f;
+          }
+        }
+      }
+    } else {
+      const int k0 = u.n0 + (s - u.n1) * kBK;
+      float part[2][4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 8) {
+        uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          load_a(Fs + (16 * i + g) * kFS + k0 + ks + t, kFS, ahi[i], alo[i]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          load_b(slot + (ks + t) * kWFS + 32 * warp + 8 * jj + g, kWFS, bhi[jj], blo[jj]);
+        products<2, 4, 4>(part, ahi, alo, bhi, blo);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc2[i][jj][e] += part[i][jj][e];
+    }
+    if (c + kStages - 1 < total) load(c + kStages - 1);  // into the slot of stage c - 1
+    cp_async_commit();
+  }
+  if (split_mode && sched[0].parts == 1) cluster_wait();  // the split branches' exchange is done
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: P_r goes over it
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(Ps + (16 * i + g + 8 * r) * kPS + 32 * warp + 8 * jj + 2 * t) =
+            make_float2(acc2[i][jj][2 * r], acc2[i][jj][2 * r + 1]);
+  cluster.sync();  // every P_r and the cond features are in place
+
+  // ---- this CTA's fc columns: sum the partials in rank order, bias, LeakyReLU, residual ----
+  const int per = (kF + nc - 1) / nc, ys = per + 1;
+  const int c_lo = rank * per, ncols = min(per, kF - c_lo);
+  float* Lp = Ps + kBM * kPS;        // [nc][kBM][kOut] CTA 0: the partial heads
+  float* Ys = Lp + nc * kBM * kOut;  // [kBM][ys] this CTA's fc outputs + residual
+  const float* cond = cluster.map_shared_rank(Fs, p.cond_cta);
+  for (int e = tid; e < kBM * ncols; e += kThreads) {
+    const int m = e / ncols, jc = e % ncols, col = c_lo + jc;
+    float q[kMaxUnits];
+#pragma unroll
+    for (int r = 0; r < kMaxUnits; ++r)
+      q[r] = r < nc ? cluster.map_shared_rank(Ps, r)[m * kPS + col] : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxUnits; ++r)
+      if (r < nc) sum += q[r];
+    const float h = leaky(sum + a.b_fc[col]);
+    if (a.hidden && row0 + m < a.n_lanes) a.hidden[(size_t)(row0 + m) * kF + col] = h;
+    Ys[m * ys + jc] = h + cond[m * kFS + (col & (kH - 1))];
   }
   __syncthreads();
 
-  // ---- epilogue: the prior, log_softmax and the first-index argmax of logits + noise ----
+  // ---- partial heads over this slice: actor columns -> logits, critic columns -> value ----
+  float* lp = cluster.map_shared_rank(Lp, 0) + rank * kBM * kOut;
+  const int actor_end = max(0, min(ncols, kH - c_lo));  // slice columns [0, actor_end) are actor_fc's
+  for (int e = tid; e < kBM * kOut; e += kThreads) {
+    const int m = e / kOut, o = e % kOut;
+    // the head's rows of slice columns [j0, j1): w[(base + jc) * stride]
+    const bool actor = o < a.A;
+    const int j0 = actor ? 0 : o == a.A ? actor_end : 0;
+    const int j1 = actor ? actor_end : o == a.A ? ncols : 0;
+    const float* w = actor ? a.w_aout + o : a.w_cout;
+    const int stride = actor ? a.A : 1, base = actor ? c_lo : c_lo - kH;
+    const float* y = Ys + m * ys;
+    float s0 = 0.f, s1 = 0.f;  // two chains: even and odd columns
+    int jc = j0;
+    for (; jc + 1 < j1; jc += 2) {
+      s0 = fmaf(y[jc], __ldg(w + (base + jc) * stride), s0);
+      s1 = fmaf(y[jc + 1], __ldg(w + (base + jc + 1) * stride), s1);
+    }
+    if (jc < j1) s0 = fmaf(y[jc], __ldg(w + (base + jc) * stride), s0);
+    lp[e] = s0 + s1;
+  }
+  cluster.sync();  // the partial heads are in CTA 0, and no CTA reads another's memory after
+  if (rank != 0) return;
+
+  // ---- CTA 0: the heads in rank order, then the epilogue ----
+  float* Ls = Ys;  // [kBM][kOut]
+  for (int e = tid; e < kBM * kOut; e += kThreads) {
+    const int o = e % kOut;
+    float sum = 0.f;
+    for (int r = 0; r < nc; ++r) sum += Lp[r * kBM * kOut + e];
+    Ls[e] = sum + (o < a.A ? a.b_aout[o] : o == a.A ? a.b_cout[0] : 0.f);
+  }
+  __syncthreads();
   if (tid < kBM) {
     const int row = row0 + tid;
     if (row < a.n_lanes) {
@@ -244,8 +515,8 @@ actor_critic_kernel(const ActorCriticArgs a) {
       int best = 0;
       float best_s = a.noise ? l[0] + a.noise[(size_t)row * a.A] : l[0];
       for (int o = 1; o < a.A; ++o) {
-        const float s = a.noise ? l[o] + a.noise[(size_t)row * a.A + o] : l[o];
-        if (s > best_s) { best_s = s; best = o; }
+        const float sc = a.noise ? l[o] + a.noise[(size_t)row * a.A + o] : l[o];
+        if (sc > best_s) { best_s = sc; best = o; }
       }
       for (int o = 0; o < a.A; ++o) a.logits[(size_t)row * a.A + o] = l[o];
       a.value[row] = l[a.A];
@@ -257,14 +528,168 @@ actor_critic_kernel(const ActorCriticArgs a) {
   }
 }
 
+namespace {
+
+cudaLaunchConfig_t launch_config(int ctas, int clusters, void* stream,
+                                 cudaLaunchAttribute* cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = ctas;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Above 48 KB of dynamic shared memory needs the opt-in (for the current
+// device), and a cluster of more than 8 CTAs the non-portable size (max 16).
+cudaError_t set_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(actor_critic_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(actor_critic_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// Clusters of g CTAs that device dev holds at once (asked once a device).
+cudaError_t resident_clusters(int dev, int g, int* n) {
+  static int cache[kMaxDevices][kMaxUnits + 1];
+  int* slot = dev < kMaxDevices ? &cache[dev][g] : nullptr;
+  if (slot && *slot) {
+    *n = *slot - 1;
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = launch_config(g, 1, nullptr, &cluster);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, (const void*)actor_critic_kernel, &cfg);
+  if (e == cudaSuccess && slot) *slot = *n + 1;
+  return e;
+}
+
+// The stages of the longest-walking CTA when the nb whole branches, of
+// stages[b] stages each and taken in `order` (longest first), go each onto
+// the least-loaded of g CTAs (the first of equals); owner[b] is branch b's CTA.
+int place_branches(const int* stages, const int* order, int nb, int g, int* owner) {
+  int load[kMaxUnits] = {};
+  for (int k = 0; k < nb; ++k) {
+    const int b = order[k];
+    int r = 0;
+    for (int q = 1; q < g; ++q)
+      if (load[q] < load[r]) r = q;
+    owner[b] = r;
+    load[r] += stages[b];
+  }
+  int longest = 0;
+  for (int r = 0; r < g; ++r) longest = load[r] > longest ? load[r] : longest;
+  return longest;
+}
+
+// The split of `tiles` row tiles of least estimated time.  The candidates:
+// one CTA a unit with the wide branches in two input halves (the shortest
+// walk, 14 stages), or g = nb .. 1 CTAs of whole branches.  A plan takes
+// waves x (the longest walk + 1.5 stages a CTA of the cluster, for its
+// barriers and fixed-order reduction), the waves counted from the clusters
+// the card holds at once; on a tie the larger cluster.  On the H100 that
+// gives split units at 512 rows (v9; 6 CTAs for v16, whose 13-CTA clusters
+// take two waves), 2 CTAs a tile at 4096 and one at 8192.
+cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int nb = a.num_branches;
+  int stages[kMaxNB], order[kMaxNB];  // whole branches' stages; branches longest first
+  for (int b = 0; b < nb; ++b) {
+    stages[b] = unit_of(a, false, 2 * b).stages;
+    int k = b;  // insertion in order, after the equals (a stable sort)
+    for (; k > 0 && stages[order[k - 1]] < stages[b]; --k) order[k] = order[k - 1];
+    order[k] = b;
+  }
+  int units = 0, unit_walk = 0;
+  for (int b = 0; b < nb; ++b)
+    for (int part = 0; part < branch_parts(a, b, true); ++part) {
+      ++units;
+      const int st = unit_of(a, true, 2 * b + part).stages;
+      unit_walk = st > unit_walk ? st : unit_walk;
+    }
+  const bool can_split = units > nb && units <= kMaxUnits && branch_parts(a, kCond, true) == 1;
+  int owner[kMaxNB];
+  long best_cost = -1;
+  int best_g = 1;
+  bool best_split = false;
+  for (int cand = can_split ? 0 : 1; cand <= nb; ++cand) {
+    const bool split = cand == 0;
+    const int g = split ? units : nb + 1 - cand;
+    int fit = 0;
+    e = resident_clusters(dev, g, &fit);
+    if (e != cudaSuccess) return e;
+    if (fit <= 0) continue;
+    const long waves = (tiles + fit - 1) / fit;
+    const long walk = split ? unit_walk : place_branches(stages, order, nb, g, owner);
+    const long cost = waves * (2 * walk + 3 * g);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best_g = g;
+      best_split = split;
+    }
+  }
+  p.ctas = best_g;
+  p.split = best_split;
+  int n = 0;
+  if (best_split) {
+    for (int b = 0; b < nb; ++b)
+      for (int part = 0; part < branch_parts(a, b, true); ++part) {
+        if (b == kCond) p.cond_cta = n;
+        p.first[n] = n;
+        p.unit[n++] = 2 * b + part;
+      }
+    p.first[n] = n;
+    return cudaSuccess;
+  }
+  place_branches(stages, order, nb, best_g, owner);
+  for (int r = 0; r < best_g; ++r) {  // each CTA's branches in order, the cond branch last
+    p.first[r] = n;
+    for (int b = 0; b < nb; ++b)
+      if (owner[b] == r && b != kCond) p.unit[n++] = 2 * b;
+    if (owner[kCond] == r) {
+      p.cond_cta = r;
+      p.unit[n++] = 2 * kCond;
+    }
+  }
+  p.first[best_g] = n;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The cluster the launch of `args` takes: CTAs a tile, and 1 if the wide
+// branches are split.
+extern "C" int actor_critic_plan(const ActorCriticArgs* args, int* ctas, int* split) {
+  cudaError_t e = set_attributes();
+  Plan p = {};
+  if (e == cudaSuccess) e = make_plan(*args, (args->n_lanes + kBM - 1) / kBM, p);
+  *ctas = p.ctas;
+  *split = p.split;
+  return (int)e;
+}
+
 extern "C" int actor_critic_launch(const ActorCriticArgs* args, void* stream) {
-  // above 48 KB of dynamic shared memory needs the opt-in (for the current device)
-  const cudaError_t e = cudaFuncSetAttribute(
-      actor_critic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaError_t e = set_attributes();
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (args->n_lanes + kBM - 1) / kBM;
-  if (blocks > 0) {
-    actor_critic_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(*args);
+  const int tiles = (args->n_lanes + kBM - 1) / kBM;
+  if (tiles > 0) {
+    Plan p = {};
+    e = make_plan(*args, tiles, p);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg = launch_config(p.ctas, tiles, stream, &cluster);
+    e = cudaLaunchKernelEx(&cfg, actor_critic_kernel, *args, p);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// K4: the MPC expert's sequence search, one block per lane.
+// K4: the MPC expert's sequence search, one cluster of 15 CTAs a lane.
 //
 // Replaces the JAX package's XLA-fused sim/expert.py:choose_action
 // (:184-294): every one of the 15^h action sequences (sequence i takes
@@ -17,20 +17,34 @@
 // Bound: f32 operations.  Counted as a tree, the search is
 // sum_{k=1..h} 15^k = 54,240 virtual steps a lane at h = 4, each a few
 // dozen operations plus a binary search over the trace's prefix row; the
-// inputs (a few tables rows and the trace) are a few KB a lane.
+// inputs (a few tables rows and the trace) are a few KB a lane.  At the
+// expert's 64-lane chunks the work is small and every step is a chain of
+// dependent operations (a division, the binary search, a floor), so what
+// bounds a launch in practice is latency: the card needs many independent
+// walkers in flight.
 //
-// Design: one block of 256 threads per lane; threads 0..239 walk the
-// sequences.  The lane's h x 15 table entries (normalized, and the
-// bw_hat download times) and its trace row and prefix row sit in shared
-// memory (the trace only where it fits).  Each thread takes prefixes p of
-// the first h - 1 steps (p = tid, tid + 240, ...), rolls them once and then
-// the 15 last actions from the prefix's carry, so the flat enumeration's
-// shared prefixes are not recomputed (60,750 steps a lane at h = 4).  Since
-// 240 is a multiple of 15, all of a thread's sequences share one first
-// action, so the per-first-action maxima need one value a thread.  Totals
+// Design: a (lane, first action a0) grid, 15 CTAs of 256 threads a lane
+// (960 CTAs at 64 lanes), each lane's 15 CTAs one thread-block cluster.
+// Each CTA stages the lane's h x 15 table entries (normalized, and the
+// bw_hat download times) and its trace row and prefix row in shared memory
+// (the trace only where it fits), rolls step 0 with a0 once, and its threads
+// take the 15^(h-2) prefixes p of steps 1..h-2 (p = tid, tid + 256, ...):
+// each rolls its prefix once and then the 15 last actions from the
+// prefix's carry, so the shared prefixes are not recomputed.  Sequence i
+// takes action (i / 15^j) % 15 at step j, so the first action is the lowest
+// digit and a CTA's sequences are i = a0 + 15 p + 15^(h-1) last.  Totals
 // are summed step by step in the plain version's order, so sequences that
-// differ only in masked steps tie exactly; the (value, index) reduction
-// keeps the smaller index on ties.
+// differ only in masked steps tie exactly.  Each CTA reduces its
+// (total, full index) pairs, keeping the larger total and on an exact tie
+// the smaller FULL index (not the smaller a0: a tie between two CTAs can
+// have its smaller index in the CTA of the larger a0); its best total is
+// also its first-action maximum.  After a cluster barrier CTA 0 reads the
+// 15 results from the cluster's shared memory and reduces them in a0 order
+// by the same rule, then the margin (top1 - top2) / sum(w) over the 15
+// maxima.  No atomics: every run gives the same result.  A walker's step
+// is issue-bound, so the download takes its cursor's floor division and
+// modulo without an integer division, and 48 registers let five CTAs share
+// an SM.
 //
 // Built with -fmad=false, as K1: the download floors target / total and
 // compares prefix sums, so a product rounded differently moves the cursor a
@@ -38,18 +52,19 @@
 
 #include <climits>
 #include <cmath>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 using namespace mansy;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kA = 15;           // actions
+constexpr int kA = 15;           // actions: also the CTAs of a lane's cluster
 constexpr int kThreads = 256;
-constexpr int kWalkers = 240;    // 16 x 15 threads walk sequences
 constexpr int kWarps = kThreads / 32;
 
 }  // namespace
@@ -134,14 +149,18 @@ __device__ float download(const Lane& l, Carry& c, float size) {
   if (rem >= total) { q = q + 1.0f; rem = rem - total; }
   if (rem < 0.f) { q = q - 1.0f; rem = rem + total; }
   const int r = min(max(count_le(l.pre, l.L + 1, rem), 1), l.Ln);
-  const int nn = max((int)q * l.Ln + r, j0);  // rounding guard
-  int idxB = floor_mod(nn - 1, l.Ln);
-  const float g_nm1 = total * (float)floor_div(nn - 1, l.Ln) + l.pre[idxB];
+  // nn = max(q Ln + r, j0) (a rounding guard), and floor_div / floor_mod of
+  // nn - 1 by Ln without an integer division: 1 <= r <= Ln, and the cursor
+  // idx = j0 - 1 lies in [0, Ln)
+  const bool guard = (int)q * l.Ln + r < j0;
+  const int nn = guard ? j0 : (int)q * l.Ln + r;
+  int idxB = guard ? idx : r - 1;
+  const float g_nm1 = total * (float)(guard ? 0 : (int)q) + l.pre[idxB];
   const float remainder = max0(target - g_nm1);
   float fracB = remainder > 0.f ? remainder / l.bw[idxB] : 0.f;
   int m_adv = nn - 1 - idx;
   if (sp == 0.f) {  // ends exactly at the first second boundary
-    idxB = floor_mod(j0, l.Ln);
+    idxB = j0 == l.Ln ? 0 : j0;
     m_adv = 1;
     fracB = 0.f;
   }
@@ -174,13 +193,17 @@ __device__ __forceinline__ void consider(float tot, int i, float& best, int& bes
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-choose_action_kernel(const ChooseActionArgs a) {
+__global__ void __launch_bounds__(kThreads, 5)
+choose_action_kernel(const __grid_constant__ ChooseActionArgs a) {
   extern __shared__ float smem[];
-  __shared__ float s_fa[kWalkers];
   __shared__ float s_best[kWarps];
   __shared__ int s_idx[kWarps];
-  const int n = blockIdx.x, tid = threadIdx.x, h = a.horizon;
+  __shared__ float s_cta_best;  // this CTA's best total (its first-action maximum)
+  __shared__ int s_cta_idx;     // and the full index of its first sequence with it
+  __shared__ Carry s_c1;        // the carry after step 0 with a0
+  cg::cluster_group cluster = cg::this_cluster();
+  const int a0 = (int)cluster.block_rank();  // the first action of this CTA's sequences
+  const int n = (int)(blockIdx.x / kA), tid = threadIdx.x, h = a.horizon;
   const int v = a.video[n], u = a.user[n], tr = a.trace[n], nc = a.next_chunk[n];
   const int end = a.end_chunk[v * a.U + u];
   const int hv = max(0, min(h, end - nc + 1));  // steps before end_chunk
@@ -241,38 +264,44 @@ choose_action_kernel(const ChooseActionArgs a) {
   c0.prev_q = a.prev_quality[n];
   c0.has_prev = a.has_prev[n];
   c0.total = 0.f;
+  if (tid == 0) {  // step 0 with a0, once
+    if (hv > 0) step(l, c0, 0, a0);
+    s_c1 = c0;
+  }
+  __syncthreads();
+  const Carry c1 = s_c1;
 
-  // ---- walk the prefixes of the first hp steps, then the last action ----
-  const int hp = h >= 2 ? h - 1 : 1;
-  int P = 1;
-  for (int j = 0; j < hp; ++j) P *= kA;
-  float best = -INFINITY, fa = -INFINITY;
+  // ---- the prefixes of steps 1..h-2, then the last action ----
+  float best = -INFINITY;
   int best_i = INT_MAX;
-  if (tid < kWalkers) {
-    for (int p = tid; p < P; p += kWalkers) {
-      Carry c = c0;
+  if (h == 1) {
+    if (tid == 0) consider(c1.total, a0, best, best_i);
+  } else {
+    int P = 1;  // prefixes of steps 1..h-2
+    for (int j = 2; j < h; ++j) P *= kA;
+    const int last = P * kA;  // 15^(h-1): the weight of the last step's digit
+    for (int p = tid; p < P; p += kThreads) {
+      Carry c = c1;
       int rest = p;
-      for (int j = 0; j < hp; ++j) {
+      for (int j = 1; j < h - 1; ++j) {
         const int act = rest % kA;
         rest /= kA;
         if (j < hv) step(l, c, j, act);
       }
-      if (h >= 2 && h - 1 < hv) {
+      const int i0 = a0 + kA * p;
+      if (h - 1 < hv) {
         for (int act = 0; act < kA; ++act) {
           Carry d = c;
           step(l, d, h - 1, act);
-          consider(d.total, p + P * act, best, best_i);
-          fa = d.total > fa ? d.total : fa;
+          consider(d.total, i0 + last * act, best, best_i);
         }
-      } else {  // no last step, or a masked one: every leaf ties with leaf 0
-        consider(c.total, p, best, best_i);
-        fa = c.total > fa ? c.total : fa;
+      } else {  // a masked last step: every leaf ties with leaf 0
+        consider(c.total, i0, best, best_i);
       }
     }
-    s_fa[tid] = fa;
   }
 
-  // ---- (value, index) reduction over the block ----
+  // ---- (value, index) reduction over the CTA ----
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(kFull, best, o);
     const int oi = __shfl_xor_sync(kFull, best_i, o);
@@ -285,29 +314,52 @@ choose_action_kernel(const ChooseActionArgs a) {
   __syncthreads();
   if (tid == 0) {
     for (int k = 1; k < kWarps; ++k) consider(s_best[k], s_idx[k], best, best_i);
-    a.action[n] = best_i == INT_MAX ? 0 : best_i % kA;
-    if (a.margin) {
-      // the best total of each first action; thread t's sequences start with t % 15
-      float m1 = -INFINITY, m2 = -INFINITY;
-      for (int act = 0; act < kA; ++act) {
-        float x = -INFINITY;
-        for (int k = act; k < kWalkers; k += kA) x = s_fa[k] > x ? s_fa[k] : x;
-        if (x > m1) { m2 = m1; m1 = x; }
-        else if (x > m2) { m2 = x; }
-      }
-      a.margin[n] = (m1 - m2) / ((w[0] + w[1]) + w[2]);
-    }
+    s_cta_best = best;
+    s_cta_idx = best_i;
   }
+  cluster.sync();  // the 15 CTAs' results are in place
+
+  // ---- CTA 0: the lane's answer over a0 = 0..14 in order, and the margin ----
+  if (a0 == 0 && tid == 0) {
+    float m1 = -INFINITY, m2 = -INFINITY;
+    best = -INFINITY;
+    best_i = INT_MAX;
+    for (int r = 0; r < kA; ++r) {
+      const float x = *cluster.map_shared_rank(&s_cta_best, r);
+      consider(x, *cluster.map_shared_rank(&s_cta_idx, r), best, best_i);
+      if (x > m1) { m2 = m1; m1 = x; }
+      else if (x > m2) { m2 = x; }
+    }
+    a.action[n] = best_i == INT_MAX ? 0 : best_i % kA;
+    if (a.margin) a.margin[n] = (m1 - m2) / ((w[0] + w[1]) + w[2]);
+  }
+  cluster.sync();  // no CTA leaves while CTA 0 reads its shared memory
 }
 
 extern "C" int choose_action_launch(const ChooseActionArgs* args, int smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {  // above 48 KB of dynamic shared memory needs the opt-in
-    const cudaError_t e = cudaFuncSetAttribute(
-        choose_action_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // above 48 KB of dynamic shared memory needs the opt-in (for the current
+  // device), and a cluster of 15 CTAs the non-portable size (max 16)
+  cudaError_t e = cudaFuncSetAttribute(choose_action_kernel,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem_bytes > 48 * 1024)
+    e = cudaFuncSetAttribute(choose_action_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (e != cudaSuccess) return (int)e;
   if (args->n_lanes > 0) {
-    choose_action_kernel<<<args->n_lanes, kThreads, smem_bytes, (cudaStream_t)stream>>>(*args);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(args->n_lanes * kA);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = kA;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, choose_action_kernel, *args);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

@@ -137,6 +137,159 @@ def test_choose_action_kernel_matches_plain_on_card(cuda_device, horizon, mode):
                                         use_corr), action)
 
 
+TIED = slice(0, 8)     # lanes past their end_chunk: every sequence totals 0
+MASKED = slice(8, 16)  # lanes with 1 to 3 steps before end_chunk: later steps masked
+TRAP = slice(16, 28)   # lanes whose best total is in two first-action blocks
+
+
+def _tie_crafted(device):
+    """(tables, etables, state, bw_hat, acc_hat) on 96 lanes with three
+    crafted groups.
+
+    TRAP lanes (one for each (video, user), chunk 5, bw_hat 1, acc_hat 0.5,
+    buffer 1, no previous chunk, weights (1, 1, 0)) see dyadic table
+    entries, the same in the predicted, deployable and out-of-viewport
+    tables, so every total is exact in every scoring mode: step 0 action 5
+    downloads 0.5 s at quality 0.5, action 3 1.0 s at 0.75, the others
+    nothing; step 1 action 0 downloads 1.5 s at quality 1, action 1 nothing
+    at 0.75; later steps are all 0.  Sequence (5, 0) and (3, 1) both total
+    1.5, the best: the smaller full index (5) lies in the block of the larger
+    first action, so the answer is 5, and the two block maxima tie, so the
+    margin is exactly 0."""
+    tables = _perturbed_tables(device)
+    etables = X.build_expert_tables_plain(tables)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=device)
+    state = _stepped_lanes(tables, samples, steps=9)
+    end = tables.end_chunk[state.video.long(), state.user.long()]
+    lanes = torch.arange(N, device=device)
+    n = state.next_chunk.clone()
+    n[TIED] = end[TIED] + 1
+    n[MASKED] = end[MASKED] - lanes[MASKED] % 3
+    video, user = state.video.clone(), state.user.clone()
+    trap = lanes[TRAP]
+    video[TRAP], user[TRAP] = (trap - 16) // 4, (trap - 16) % 4
+    n[TRAP] = 5
+    buf, qoe_id = state.buf.clone(), state.qoe_id.clone()
+    buf[TRAP], qoe_id[TRAP] = 1.0, 0
+    prev_q, has_prev = state.qoe.prev_quality.clone(), state.qoe.has_prev.clone()
+    prev_q[TRAP], has_prev[TRAP] = 0.0, False
+    state = state._replace(video=video, user=user, next_chunk=n, buf=buf, qoe_id=qoe_id,
+                           qoe=state.qoe._replace(prev_quality=prev_q, has_prev=has_prev))
+    scores = ("pred_quality", "pred_intra", "dep_quality", "dep_intra", "out_quality",
+              "out_intra")
+    crafted = {f: getattr(etables, f).clone() for f in ("pred_size",) + scores}
+    for c in range(5, 9):
+        for t in crafted.values():
+            t[:, :, c] = 0.0
+    rate = tables.max_rate
+    for c, act, s, q in ((5, 5, 0.5, 0.5), (5, 3, 1.0, 0.75), (6, 0, 1.5, 1.0), (6, 1, 0.0, 0.75)):
+        crafted["pred_size"][:, :, c, act] = s
+        for f in ("pred_quality", "dep_quality", "out_quality"):
+            crafted[f][:, :, c, act] = q * rate
+    etables = etables._replace(**crafted)
+    weights = tables.qoe_weights.clone()
+    weights[0] = torch.tensor([1.0, 1.0, 0.0])
+    tables = tables._replace(qoe_weights=weights)
+    bw_hat = X.causal_bw_estimate(tables, state)
+    bw_hat[TRAP] = 1.0
+    acc_hat = viewport_acc_estimate(state.past_acc)
+    acc_hat[TRAP] = 0.5
+    return tables, etables, state, bw_hat, acc_hat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", ["trace", "bw_hat", "acc_hat", "use_corr"])
+def test_choose_action_kernel_breaks_ties_by_full_index_on_card(cuda_device, horizon, mode):
+    """Every mode but the trace walk downloads at bw_hat (acc_hat and
+    use_corr with it, as DAgger's labels), so the TRAP lanes' totals are
+    exact there."""
+    tables, etables, state, bw_hat, acc_hat = _tie_crafted(cuda_device)
+    bw_hat = None if mode == "trace" else bw_hat
+    acc_hat = acc_hat if mode in ("acc_hat", "use_corr") else None
+    use_corr = (torch.arange(N, device=cuda_device) % 2 == 0) if mode == "use_corr" else None
+    search = (tables, etables, state, horizon, bw_hat, acc_hat, use_corr)
+    action, margin = K4.choose_action(*search, return_margin=True)
+    ref_action, ref_margin = X.choose_action_plain(*search, return_margin=True)
+    assert bool((action[TIED] == 0).all()) and bool((margin[TIED] == 0).all())
+    assert bool((ref_action[TIED] == 0).all()) and bool((ref_margin[TIED] == 0).all())
+    if mode != "trace":
+        want = 3 if horizon == 1 else 5
+        assert bool((ref_action[TRAP] == want).all()) and bool((action[TRAP] == want).all())
+        if horizon > 1:
+            assert bool((margin[TRAP] == 0).all()) and bool((ref_margin[TRAP] == 0).all())
+    torch.testing.assert_close(margin, ref_margin, rtol=1e-5, atol=1e-5)
+    decisive = ref_margin > 1e-5
+    assert torch.equal(action[decisive], ref_action[decisive])
+    totals = X.sequence_totals(*search)
+    first = X.first_action_values(totals, 15)
+    gap = first.amax(-1) - first.gather(1, action.long()[:, None])[:, 0]
+    assert bool((gap <= 1e-5 * tables.qoe_weights[state.qoe_id.long()].sum(-1)).all())
+    again = K4.choose_action(*search, return_margin=True)
+    assert torch.equal(again[0], action) and torch.equal(again[1], margin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_av", [False, True])
+def test_actor_critic_cluster_follows_n_on_card(cuda_device, use_av):
+    """K3's cluster shrinks as N grows: one CTA a unit (the wide branches
+    halved) for one tile, fewer CTAs of whole branches once the split
+    clusters take more than one wave, one CTA a tile at 65536 rows."""
+    w = MansyActorCritic(use_action_values=use_av, device=cuda_device).packed_weights()
+    plans = [K3.cluster_plan(w, n) for n in (1, 512, 4096, 8192, 1 << 16)]
+    assert plans[0] == ((13 if use_av else 12), True)
+    assert all(a[0] >= b[0] for a, b in zip(plans, plans[1:])), plans
+    assert plans[-1] == (1, False), plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 17, 33, 511, 512, 513, 4096, 8192])
+@pytest.mark.parametrize("use_av,prior", [(False, 0.0), (False, 3.0), (True, 0.0),
+                                          (True, 3.0)])
+def test_actor_critic_kernel_at_every_tile_edge_on_card(cuda_device, n, use_av, prior):
+    """K3 (forward with and without noise, and training mode) with 10 or 11
+    branches, the prior on and off, at row counts around its 32-row tile and
+    in each cluster shape (split units at 512 rows, whole branches at 4096,
+    one CTA a tile at 8192); two launches give the same bits; the training
+    outputs feed K10."""
+    from mansy_immersivevideostreaming_torch.kernels.observe import obs_width
+    torch.manual_seed(n)
+    policy = MansyActorCritic(use_action_values=use_av, av_logit_prior=prior,
+                              device=cuda_device)
+    w = policy.packed_weights()
+    assert len(w.branch_off) - 1 == (11 if use_av else 10) and w.av_prior == prior
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.rand(n, obs_width(*policy.dims), device=cuda_device, generator=g)
+    for noise in (None, K3.gumbel_noise((n, 15), g, cuda_device)):
+        got = K3.actor_critic_forward(w, x, noise)
+        ref = K3.actor_critic_forward_plain(w, x, noise)
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        scores = ref[0] if noise is None else ref[0] + noise
+        top2 = scores.topk(2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
+        assert torch.equal(got[2][decisive], ref[2][decisive])
+        torch.testing.assert_close(got[3][decisive], ref[3][decisive], rtol=1e-5, atol=1e-5)
+        again = K3.actor_critic_forward(w, x, noise)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    got = K3.actor_critic_train_forward(w, x)
+    ref = K3.actor_critic_train_forward_plain(w, x)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_train_forward(w, x)))
+    dlogits = torch.randn(n, 15, device=cuda_device, generator=g)
+    dvalue = torch.randn(n, device=cuda_device, generator=g)
+    grads = K3.actor_critic_backward(w, x, got[2], got[3], dlogits, dvalue)
+    for a, b in zip(grads, K3.actor_critic_backward_plain(w, x, got[2], got[3], dlogits, dvalue)):
+        _grad_close(a, b)
+    # against the plain path end to end, where no LeakyReLU input sits so
+    # near 0 that the two forwards put it on different sides
+    if all(bool(((k >= 0) == (p >= 0)).all()) for k, p in zip(got[2:], ref[2:])):
+        for a, b in zip(grads, K3.actor_critic_backward_plain(w, x, ref[2], ref[3], dlogits,
+                                                              dvalue)):
+            _grad_close(a, b)
+
+
 @pytest.mark.cuda
 def test_v16_observation_and_forward_kernels_match_plain_on_card(cuda_device):
     tables = _perturbed_tables(cuda_device)
