@@ -7,7 +7,12 @@ runs DAgger rounds, and serves the MTIO viewport model (``run_models
 --test``, the ``predict`` export), all through the port's own entry points.
 It imports no JAX.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With ``--parent``, DIR is another checkout of the repo (the parent commit's,
+unpacked with ``git archive``): its K10 and K8 are built from its own
+sources into its own build directory and timed beside this tree's on the
+same inputs (``earlier_ms``).
 
 Phases:
 
@@ -43,7 +48,9 @@ Phase 2c holds the training kernels against their plain versions: K6
 ``compute_gae`` at [32, 128] and [128, 8192]; K9 ``policy_loss`` in every
 PPO variant at B = 512 and in CE mode at B = 4096; K3's training mode and
 K10 ``actor_critic_backward`` at B = 512 and 4096 with the v9 and v16
-weights (K10's yardstick: autograd through a ``torch.matmul`` composition).
+weights (K10's yardstick: autograd through a ``torch.matmul`` composition;
+two launches give the same bits; its launch plan and a second bound, its
+products as three TF32 products on the tensor cores).
 
 7. train: ``run_mansy --train --train-identifier --use-identifier --lamb
    0.5`` at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat
@@ -66,9 +73,11 @@ Phase 2d holds the viewport kernels against their plain versions at
 its shapes (the decode self-attention at every t of the 15-slot cache, the
 cross-attention over 3 keys, the encoder's 5 x 5, the causal 16 x 16), also
 against ``scaled_dot_product_attention`` (math backend; its default backend
-is K8's yardstick); K7 in metrics mode (F = 15) and chunk mode (frequency
-5), and on a grid of positions on and beside every pixel boundary that
-moves a map.
+is K8's yardstick; two launches give the same bits), with the sums of a
+viewport batch's 62 launches (times and bounds), and that K8 refuses to run
+where autograd would need its backward; K7 in metrics mode (F = 15) and
+chunk mode (frequency 5), and on a grid of positions on and beside every
+pixel boundary that moves a map.
 
 9. vp_test: ``run_models --test``'s loop (``run_models.test_split``) over
    the Jin2022 test splits' shape (test_seen and test_unseen, each 3 videos
@@ -95,6 +104,8 @@ Every phase raises on failure; the last line of a successful run is the
 
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -408,7 +419,38 @@ def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
                 bound_3xtf32_ms=1e3 * max(t_tc, nbytes / HBM_BYTES_PER_S))
 
 
-def kernel_phase(dev):
+def load_parent(root: str):
+    """The K10 and K8 wrappers of another checkout of the repo at ``root``
+    (the parent commit's, unpacked there), each bound to that checkout's
+    ``kernels/build.py``, so they build its own ``csrc/`` into its own
+    ``kernels/build/``.  Returns a namespace with ``build``,
+    ``actor_critic`` and ``attention``."""
+    import importlib.util
+    import types
+    from mansy_immersivevideostreaming_torch import kernels
+    from mansy_immersivevideostreaming_torch.kernels import build  # noqa: F401 (the attribute)
+
+    kdir = os.path.join(root, PKG, "kernels")
+    if not os.path.isdir(os.path.join(kdir, "csrc")):
+        raise FileNotFoundError(f"--parent {root}: no {PKG}/kernels/csrc there")
+
+    def module(name: str, own_build=None):
+        spec = importlib.util.spec_from_file_location(f"parent_{name}",
+                                                      os.path.join(kdir, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        with mock.patch.object(kernels, "build", own_build or kernels.build):
+            spec.loader.exec_module(mod)
+        return mod
+
+    own = module("build")
+    return types.SimpleNamespace(build=own, actor_critic=module("actor_critic", own),
+                                 attention=module("attention", own))
+
+
+PARENT_KERNELS = ("actor_critic_backward", "attention")  # timed beside this tree's
+
+
+def kernel_phase(dev, parent=None):
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import build
     from mansy_immersivevideostreaming_torch.kernels import env_step as K1
@@ -421,7 +463,11 @@ def kernel_phase(dev):
     from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
 
     t0 = time.time()
-    reports = build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # nvcc for both trees at once
+        earlier = pool.submit(parent.build.build, PARENT_KERNELS) if parent else None
+        reports = build.build()
+        if earlier is not None:
+            log(f"built the parent's {sorted(earlier.result()) or 'nothing (cached)'}")
     log(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t0:.1f}s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -1139,6 +1185,19 @@ def backward_cost(w, B: int, A: int):
     return flops, nbytes
 
 
+def backward_bounds(w, B: int, A: int) -> dict:
+    """K10's two bounds: every operation in f32 outside the tensor cores
+    (``bound_ms``), and as the kernel runs them (``bound_3xtf32_ms``): dPre_b,
+    dW_fc, the branch and the head weight products as three TF32 products on
+    the tensor cores, the rest (the head's d/dy, the epilogues) in f32."""
+    H = w.b_branch.shape[1]
+    nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
+    flops, nbytes = backward_cost(w, B, A)
+    products = 2 * B * (2 * nb * H * 2 * H + fin * H + H * (A + 1))
+    t_tc = 3 * products / TF32_FLOP_PER_S + (flops - products) / F32_FLOP_PER_S
+    return dict(**bound(flops, nbytes), bound_3xtf32_ms=1e3 * max(t_tc, nbytes / HBM_BYTES_PER_S))
+
+
 def bound(flops: int, nbytes: int) -> dict:
     t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
@@ -1191,11 +1250,13 @@ def training_inputs(dev):
     return observe_mansy_pack(tables, state), observe_mansy_pack(tav, state)
 
 
-def training_kernel_phase(dev):
+def training_kernel_phase(dev, parent=None):
     """K6 at [32, 128] and [128, 8192]; K9 in every PPO variant at B = 512
     and in CE mode at B = 4096; K3's training mode and K10 at B = 512 and
     4096 with the v9 and v16 weights.  Each against its plain version on the
-    same card tensors, timed with CUDA events.  Returns the kernels' rows."""
+    same card tensors, timed with CUDA events (K10 also: two launches give
+    the same bits; with ``parent``, the parent commit's K10 timed beside it).
+    Returns the kernels' rows."""
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import gae as K6
     from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
@@ -1288,12 +1349,20 @@ def training_kernel_phase(dev):
                     raise AssertionError(f"actor_critic_backward ({key}): {f} disagrees with "
                                          f"its plain version")
                 b_err = max(b_err, float((g - rf).abs().max()))
+            again = K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"actor_critic_backward ({key}): two launches differ")
             lib_grad = library_actor_critic_grad(w, x, dlogits, dvalue)
+            plan = K3.backward_plan(Bn, w.branch_off, K3._sm_count(torch.cuda.current_device()))
             bwd[key] = dict(ms=gpu_ms(lambda: K3.actor_critic_backward(w, x, *acts, dlogits,
                                                                       dvalue)),
                             plain_ms=gpu_ms(lambda: K3.actor_critic_backward_plain(
                                 w, x, *acts, dlogits, dvalue)),
-                            library_ms=gpu_ms(lib_grad), **bound(*backward_cost(w, Bn, A)))
+                            library_ms=gpu_ms(lib_grad), **backward_bounds(w, Bn, A),
+                            plan=plan._asdict())
+            if parent is not None:  # the parent commit's kernel on the same inputs
+                bwd[key]["earlier_ms"] = gpu_ms(lambda: parent.actor_critic.actor_critic_backward(
+                    w, x, *acts, dlogits, dvalue))
     main = f"v9_B{PPO_BATCH}"
     rows["actor_critic_train_forward"] = dict(max_abs_err=f_err, **fwd[main], cases=fwd)
     rows["actor_critic_backward"] = dict(max_abs_err=b_err, **bwd[main], cases=bwd)
@@ -1627,10 +1696,14 @@ def edge_positions(B: int, F: int, seed: int, dev) -> torch.Tensor:
     return torch.as_tensor(np.stack(cols, -1).astype(np.float32), device=dev)
 
 
-def viewport_kernel_phase(dev):
+def viewport_kernel_phase(dev, parent=None):
     """K8 at B = VP_BATCH in each of its shapes, against its plain version
-    and SDPA's math backend; K7 in both modes at B = VP_BATCH, F = 15, and
-    on every pair of boundary coordinates.  Returns the kernels' rows."""
+    and SDPA's math backend, with its per-batch sums over the 62 launches of
+    a viewport batch, and its refusal of gradients; K7 in both modes at B =
+    VP_BATCH, F = 15, and on every pair of boundary coordinates.  With
+    ``parent``, the parent commit's K8 is timed beside K8.  Returns the
+    kernels' rows."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1661,19 +1734,49 @@ def viewport_kernel_phase(dev):
             raise AssertionError(f"attention ({name}) disagrees with its plain version")
         if not bool(close(got, lib).all()):
             raise AssertionError(f"attention ({name}) disagrees with SDPA's math backend")
+        if not torch.equal(got, K8.attention(q, k, v, kv_len0)):
+            raise AssertionError(f"attention ({name}): two launches differ")
         err = max(err, float((got - ref).abs().max()))
         sdpa_err = max(sdpa_err, float((got - lib).abs().max()))
-        if name.startswith("decode_t") and name not in ("decode_t0", "decode_t7", "decode_t14"):
-            continue  # checked at every t, timed at three
         cases[name] = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0,
                            ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0)),
                            plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0)),
                            library_ms=gpu_ms(sdpa),
                            **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0)))
+        if parent is not None:  # the parent commit's kernel on the same inputs
+            cases[name]["earlier_ms"] = gpu_ms(lambda: parent.attention.attention(q, k, v,
+                                                                                 kv_len0))
+    # a viewport batch's launches: each encoder layer once, then per decode
+    # step each decoder layer's self-attention at t and cross-attention
+    args = run_models.build_parser().parse_args(["--test"])
+    mix = {"encoder": args.block_num, "cross": args.fut_window * args.block_num,
+           **{f"decode_t{t}": args.block_num for t in range(args.fut_window)}}
+    if sum(mix.values()) != attention_launches(args):
+        raise AssertionError(f"attention: the batch mix {mix} is not a batch's launches")
+    batch = {f"{key}_sum": sum(n * cases[name][key] for name, n in mix.items())
+             for key in ("ms", "bound_ms", "plain_ms", "library_ms")
+             + (("earlier_ms",) if parent is not None else ())}
+    # no gradient through the kernel: it raises where one would be needed
+    q, k, v = (torch.randn(2, 1, H, Dh, device=dev, generator=gen, requires_grad=True)
+               for _ in range(3))
+    try:
+        K8.attention(q, k, v, 1)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("attention ran on tensors that require grad with grad enabled")
+    with torch.no_grad():
+        K8.attention(q, k, v, 1)
+    # the least a call times by gpu_ms here: one torch.add of a decode step's q
+    x = torch.randn(B, 1, H, Dh, device=dev, generator=gen)
+    out = torch.empty_like(x)
+    batch["timing_floor_ms"] = gpu_ms(lambda: torch.add(x, x, out=out))
     rows["attention"] = dict(max_abs_err=err, sdpa_math_max_abs_err=sdpa_err,
                              **{k: cases["decode_t14"][k] for k in (
                                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                             shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1), cases=cases)
+                             shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1),
+                             batch=dict(launches=mix, **batch), grad_refused=True, cases=cases)
 
     # K7: metrics mode (run_models --test) and chunk mode (predict)
     gt, pred = edge_positions(B, F, 1, dev), edge_positions(B, F, 2, dev)
@@ -1908,6 +2011,12 @@ def vp_export_phase(dev, counters):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="another checkout of the repo (e.g. the parent commit's, from "
+                             "git archive): its K10 and K8 are built and timed beside this "
+                             "tree's (earlier_ms)")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
         return 1
@@ -1935,13 +2044,14 @@ def main() -> int:
                 actor_critic_backward, chunk_maps, trajectory_metrics, attention)
 
     t0 = time.time()
-    rows = kernel_phase(dev)
+    parent = load_parent(opts.parent) if opts.parent else None
+    rows = kernel_phase(dev, parent)
     expert_rows, extra = expert_kernel_phase(dev)
     rows.update(expert_rows)
     for name, fields in extra.items():
         rows[name]["action_values"] = fields
-    rows.update(training_kernel_phase(dev))
-    rows.update(viewport_kernel_phase(dev))
+    rows.update(training_kernel_phase(dev, parent))
+    rows.update(viewport_kernel_phase(dev, parent))
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths = {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),

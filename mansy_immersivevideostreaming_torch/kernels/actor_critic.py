@@ -25,13 +25,16 @@ over the eight packed weight tensors: its forward is K3's training mode
 and fc activations), its backward K10 (:func:`actor_critic_backward`,
 ``csrc/actor_critic_backward.cu``), which replaces what ``jax.grad`` derives
 from the same network in the JAX package's PPO, BC and DAgger updates.  K10
-is bound by f32 operations too (~1.5 MFLOP a row).
+is bound by operations too (~1.5 MFLOP a row) and runs every product on the
+tensor cores in 3xTF32, in two launches whose shapes :func:`backward_plan`
+picks from the batch and the card's SM count.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +45,14 @@ MAX_BRANCHES = 11  # 10, or 11 with the action-value branch
 COND_BRANCH_INDEX = 9  # the cond branch, whose features are the residual
 HIDDEN = 128  # the kernel's hidden width
 MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
-BACKWARD_SLICE_ROWS = 256  # K10: rows a depth slice of the batch-deep products
-BACKWARD_MAX_SLICES = 16   # K10: at most this many slices (csrc kMaxSplits)
+# K10's tiling (csrc/actor_critic_backward.cu): launch A takes 32-row tiles of
+# dPre_b, a 128-column block (a branch) at a time; launch B the batch-deep
+# products in 32-deep stages.
+BACKWARD_ROWS = 32
+BACKWARD_STAGE = 32
+BACKWARD_SLICES = (1, 2, 4, 8)  # depth slices of an output tile: its cluster's CTAs
+BACKWARD_CTAS_PER_SM = 2        # launch A fits two CTAs on an SM
+BACKWARD_HEAD_BLOCKS = 0.25     # launch A's head, in the time of one column block (an estimate)
 
 
 class ActorCriticWeights(NamedTuple):
@@ -271,10 +280,47 @@ class _ActorCriticBackwardArgs(ctypes.Structure):
     """Mirror of ``ActorCriticBackwardArgs`` in ``csrc/actor_critic_backward.cu``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "x", "feats", "hidden", "w_fc", "w_aout", "w_cout", "dlogits", "dvalue", "y", "dpre_fc",
-        "dcond", "dpre_b", "partial", "dw_branch", "db_branch", "dw_fc", "db_fc", "dw_aout",
-        "db_aout", "dw_cout", "db_cout")]
-        + [(f, ctypes.c_int32) for f in ("B", "ldx", "A", "num_branches", "splits")]
+        "dpre_b", "dw_branch", "db_branch", "dw_fc", "db_fc", "dw_aout", "db_aout", "dw_cout",
+        "db_cout")]
+        + [(f, ctypes.c_int32) for f in ("B", "ldx", "A", "num_branches", "groups", "slices")]
         + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1))])
+
+
+class BackwardPlan(NamedTuple):
+    """K10's launch shapes: launch A splits each 32-row tile's column blocks
+    over ``groups`` CTAs; launch B cuts the batch depth of each output tile
+    into ``slices`` CTAs of one cluster."""
+    groups: int
+    slices: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def backward_plan(B: int, branch_off: Sequence[int], sms: int) -> BackwardPlan:
+    """The launch shapes for a batch of ``B`` rows on a card of ``sms`` SMs.
+    Launch A: the groups of least estimated time, waves (of
+    ``BACKWARD_CTAS_PER_SM`` CTAs an SM) times the blocks a CTA walks plus its
+    head, each group at least one block, on a tie the fewer CTAs.  Launch B:
+    the most slices a cluster takes that the batch's 32-deep stages fill (on
+    the H100 more slices were faster at 512 and 4096 rows alike)."""
+    nb = len(branch_off) - 1
+    row_tiles = _cdiv(B, BACKWARD_ROWS)
+
+    def cost_a(g: int) -> float:
+        return _cdiv(row_tiles * g, BACKWARD_CTAS_PER_SM * sms) * (BACKWARD_HEAD_BLOCKS
+                                                                   + _cdiv(nb, g))
+
+    groups = min((g for g in range(1, nb + 1) if _cdiv(nb, g) * (g - 1) < nb),
+                 key=lambda g: (cost_a(g), g))
+    slices = max(s for s in BACKWARD_SLICES if s <= _cdiv(B, BACKWARD_STAGE))
+    return BackwardPlan(groups, slices)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.Tensor,
@@ -294,12 +340,10 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
             raise ValueError(f"actor_critic_backward: {name} must be a contiguous f32 tensor "
                              f"of shape {shape} on {dev}, got {tuple(t.shape)}")
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    # the products whose depth is the batch run in slices of BACKWARD_SLICE_ROWS rows,
-    # each into its own partial tiles: the two heads, dW_fc and the branch weights
-    splits = min(-(-B // BACKWARD_SLICE_ROWS), BACKWARD_MAX_SLICES)
-    partial = HIDDEN * (A + 1) + nb * HIDDEN * 2 * HIDDEN + w.branch_off[-1] * HIDDEN
-    scratch = dict(y=empty(B, 2 * HIDDEN), dpre_fc=empty(B, 2 * HIDDEN), dcond=empty(B, HIDDEN),
-                   dpre_b=empty(B, nb * HIDDEN), partial=empty(splits, partial))
+    plan = backward_plan(B, w.branch_off, _sm_count(dev.index if dev.index is not None
+                                                       else torch.cuda.current_device()))
+    scratch = dict(y=empty(B, 2 * HIDDEN), dpre_fc=empty(B, 2 * HIDDEN),
+                   dpre_b=empty(B, nb * HIDDEN))
     grads = dict(dw_branch=torch.empty_like(w.w_branch), db_branch=torch.empty_like(w.b_branch),
                  dw_fc=torch.empty_like(w.w_fc), db_fc=torch.empty_like(w.b_fc),
                  dw_aout=torch.empty_like(w.w_actor_out), db_aout=torch.empty_like(w.b_actor_out),
@@ -309,7 +353,7 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
                   w_cout=w.w_critic_out, dlogits=dlogits, dvalue=dvalue)
     args = _ActorCriticBackwardArgs(
         **{k: t.data_ptr() for k, t in {**inputs, **scratch, **grads}.items()},
-        B=B, ldx=x.stride(0), A=A, num_branches=nb, splits=splits,
+        B=B, ldx=x.stride(0), A=A, num_branches=nb, groups=plan.groups, slices=plan.slices,
         branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off))
     lib = build.load("actor_critic_backward")
     lib.actor_critic_backward_launch.argtypes = [ctypes.POINTER(_ActorCriticBackwardArgs),

@@ -12,6 +12,10 @@ as ``kv_len0``: query row r sees keys ``[0, min(Lk, kv_len0 + r))``.
 On the H100 the core is bound by the k and v bytes; ``csrc/attention.cu``
 runs one warp a (b, query row, head).  The projections and the cache write
 stay ``torch`` ops (``models/transformer.py``).
+
+The kernel has no backward yet (ROADMAP Queue 2 A1): on the card,
+:func:`attention` refuses tensors that would need one
+(:func:`refuse_grad`), where the CPU's plain version differentiates.
 """
 
 from __future__ import annotations
@@ -48,13 +52,26 @@ MAX_DH = 256    # head width the kernel holds in registers (8 values a lane)
 MAX_LK = 2048   # keys a row's scores hold in shared memory
 
 
+def refuse_grad(grad_enabled: bool, *tensors: torch.Tensor) -> None:
+    """Raises if autograd would need the kernel's backward: grad mode on and
+    any of ``tensors`` requiring grad.  K8's backward is ROADMAP Queue 2 A1;
+    until then the CUDA path runs under ``torch.no_grad()`` (as ``sample``
+    does) or on tensors that need no gradient."""
+    if grad_enabled and any(t.requires_grad for t in tensors):
+        raise RuntimeError("attention: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
+                           "A1); call it under torch.no_grad() or with q, k and v that do not "
+                           "require grad")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_len0: int | None = None) -> torch.Tensor:
     """softmax(q . k^T / sqrt(Dh)) . v, query row r over the first
     ``min(Lk, kv_len0 + r)`` keys (all keys if ``kv_len0`` is None).  CPU
-    tensors take :func:`attention_plain`; CUDA tensors launch the kernel."""
+    tensors take :func:`attention_plain` (differentiable); CUDA tensors launch
+    the kernel, which refuses to run where a gradient would be needed."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len0)
+    refuse_grad(torch.is_grad_enabled(), q, k, v)
     B, Lq, H, Dh = q.shape
     Lk = k.shape[1]
     for name, t, shape in (("q", q, (B, Lq, H, Dh)), ("k", k, (B, Lk, H, Dh)),

@@ -21,41 +21,77 @@
 // The logit prior has no parameters and the action values are data, so it
 // adds nothing here.
 //
-// Bound: f32 operations.  About 2 (1280 x 256 x 2 + 748 x 128) = 1.5 MFLOP a
-// row for 10 branches (0.77 GFLOP at B = 512, ~0.012 ms at 67 TFLOP/s outside
-// the tensor cores).  Design: five launches on the stream, no atomics, so
-// every sum has a fixed order and a run repeats bit for bit:
-//   1. head: one thread a (row, hidden unit): y, dPre_fc and the residual's
-//      gradient dcond [B, 128];
-//   2. dPre_b (depth 256, the residual and leaky' in the epilogue) with a
-//      register-tiled f32 product kernel (64 x 64 tiles, 16-deep k-steps
-//      staged in shared memory, 4 x 4 a thread, fmaf; no TF32);
-//   3. the products whose depth is the batch (the two head weights, dW_fc
-//      and the branch weights, one grid layer each) with the same kernel,
-//      the depth cut in `splits` slices (the wrapper takes one a 256 rows,
-//      at most 16) so that a few hundred tiles cover the card at any batch;
-//      each slice writes a partial tile;
-//   4. the partial tiles summed slice by slice into the gradients;
-//   5. the bias column sums: 32 row-walkers a column and a tree in shared
-//      memory, all four biases in one launch.
-// A first version (one thread a bias column, no slices) took 3.1 ms at
-// B = 4096 on an H100, most of it in the serial column sums and the 80-tile
-// dW_fc; this one 0.41 ms.
-// Simple and right first: no wgmma, no TMA.
+// Bound: operations.  Nearly all of the work is two dense products of
+// 2 B (nb 128) 256 operations each, dPre_b (depth 256) and dW_fc (depth B),
+// plus the branch weights (2 B 748 128); 6.8 GFLOP at B = 4096 with 11
+// branches.  Every product runs on the tensor cores in 3xTF32 (the hi/lo
+// split and mma.sync.m16n8k8 of common.cuh, as K3): three TF32 products
+// (495 TFLOP/s) keep f32 accuracy, where f32 outside the tensor cores has
+// 67 TFLOP/s.  The tensor cores' f32 accumulation does not round to
+// nearest, so each stage's products (16 or 32 deep) go into zeroed
+// accumulators, which are added to the running sums with rounded f32 adds.
+// Two launches:
+//   A. dpre_kernel, one CTA a 32-row tile and a run of its 128-column
+//      blocks (a branch each; the wrapper splits the blocks into `groups`
+//      so that the CTAs fill the card): the head while the first W_fc
+//      stages land (dPre_fc for its rows from W_aout^T and the dlogits rows
+//      staged in shared memory, split into TF32 hi and lo once for every
+//      stage and warp), then dPre_b block by block, W_fc read transposed
+//      from [n][k] stages; the residual's gradient (recomputed as the head
+//      computes it) and leaky' in the epilogue.  The CTAs of group 0 also
+//      write y and dPre_fc.
+//   B. grad_kernel, every product whose depth is the batch (dW_fc, the
+//      branch weights, the two head weights) as 64 x 128 output tiles; the
+//      left operand (F, x, y) is read transposed from [k][m] stages.  A ones
+//      row below each product's last row of A gives its bias gradient, the
+//      column sums, in the same products.  The depth is cut into `slices`
+//      CTAs of one thread-block cluster; after a cluster barrier each CTA
+//      sums a share of the tile's rows over the slices' partial tiles in
+//      rank order, from the cluster's shared memory.
+// No atomics: every sum has a fixed order and a run repeats bit for bit.
+// Operands stream in with cp.async through rings of stages (16-byte copies
+// where the rows allow, else 4-byte: x's rows are 779 or 795 floats).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+using namespace mansy::tc;
+
 namespace {
 
-constexpr int kH = 128;       // hidden width
-constexpr int kMaxNB = 11;    // branches: 10, or 11 with action values
-constexpr int kCond = 9;      // the cond branch
-constexpr int kTile = 64;     // product tile (rows and columns)
-constexpr int kStep = 16;     // product k-step
-constexpr int kThreads = 256;
-constexpr int kMaxProducts = kMaxNB + 3;  // the two heads, dW_fc, the branches
-constexpr int kMaxSplits = 16;
+constexpr int kH = 128;        // hidden width
+constexpr int kF = 2 * kH;     // fc width: actor_fc | critic_fc
+constexpr int kMaxNB = 11;     // branches: 10, or 11 with action values
+constexpr int kCond = 9;       // the cond branch
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBK = 32;        // k rows a pipeline stage
+// launch A: 32-row tiles, one 128-column block at a time
+constexpr int kRowsA = 32;
+constexpr int kBKA = 16;       // k rows a launch-A stage
+constexpr int kStagesA = 3;    // two stages in flight while one is multiplied
+constexpr int kKStages = kF / kBKA;  // stages of one block
+constexpr int kMaxA = 16;      // actions the head stages (A <= 15)
+constexpr int kPS = kF + 4;    // dPre_fc, TF32 hi and lo  [kRowsA][kPS] each
+constexpr int kWS = kBKA + 4;  // W_fc stage               [kH n][kWS]
+constexpr int kHeadFloats = kMaxA * kH + kRowsA * kMaxA;  // W_aout^T [16][128], dlogits [32][16]
+constexpr int kSmemA = (2 * kRowsA * kPS + kHeadFloats + kStagesA * kH * kWS) * (int)sizeof(float);
+// launch B: 64 x 128 output tiles
+constexpr int kBM = 64, kBN = 128;
+constexpr int kStagesB = 4;    // three stages in flight while one is multiplied
+constexpr int kAS = kBM + 8;   // A stage      [kBK k][kAS]
+constexpr int kBS = kBN + 8;   // B stage      [kBK k][kBS]
+constexpr int kSlotB = kBK * kAS + kBK * kBS;
+constexpr int kOS = kBN + 4;   // partial tile [kBM][kOS], over the ring
+constexpr int kSmemB = kStagesB * kSlotB * (int)sizeof(float);
+constexpr int kMaxSlices = 8;  // the portable cluster size
+constexpr int kMaxProducts = kMaxNB + 3;  // dW_fc, the branches, the two heads
+static_assert(kBM * kOS <= kStagesB * kSlotB, "the partial tile fits over the ring");
+static_assert(2 * kSmemA + 2048 <= 228 * 1024 && 2 * kSmemB + 2048 <= 228 * 1024,
+              "two CTAs an SM");
 
 }  // namespace
 
@@ -71,9 +107,7 @@ struct ActorCriticBackwardArgs {
   const float* dvalue;   // [B]
   float* y;              // scratch [B, 256]: the heads' inputs
   float* dpre_fc;        // scratch [B, 256]
-  float* dcond;          // scratch [B, 128]
   float* dpre_b;         // scratch [B, nb * 128]
-  float* partial;        // scratch [splits, 128 A + 128 + nb 128 x 256 + branch_off[nb] x 128]
   float* dw_branch;      // [branch_off[nb], 128]
   float* db_branch;      // [nb, 128]
   float* dw_fc;          // [nb * 128, 256]
@@ -82,187 +116,311 @@ struct ActorCriticBackwardArgs {
   float* db_aout;        // [A]
   float* dw_cout;        // [128]
   float* db_cout;        // [1]
-  int32_t B, ldx, A, num_branches, splits;
+  int32_t B, ldx, A, num_branches;
+  int32_t groups;        // launch A: CTAs a row tile, each a run of its column blocks
+  int32_t slices;        // launch B: depth slices of an output tile (its cluster's CTAs)
   int32_t branch_off[kMaxNB + 1];
 };
 
-// C[m, n] = sum_k A(m, k) B(k, n) with A(m, k) = a[m sam + k sak] and
-// B(k, n) = b[k sbk + n sbn]; C[m, n] at c[m ldc + n].  With depth slices,
-// slice s sums its k-range into c + s M N (ldc = N).
+// C[m, n] = sum over the batch k of A(m, k) B(k, n), with A(m, k) = a[k lda + m]
+// (columns of a row-major [B, *] tensor, read transposed) and B(k, n) =
+// b[k ldb + n]; C[m, n] at c[m ldc + n].  With `bias`, A's row M is ones, so
+// row M of the product, sum_k B(k, n), goes to bias[n].
 struct Product {
   const float* a;
   const float* b;
   float* c;
-  int32_t M, N, K;
-  int64_t sam, sak, sbk, sbn, ldc;
+  float* bias;
+  int32_t M, N, lda, ldb, ldc;
+  int32_t vec_a, vec_b;  // 16-byte copies: address, ld and width multiples of 4 floats
+  int32_t first_tile;    // output tiles of the products before this one
+  int32_t n_tiles;       // its tiles across N
 };
 
 struct Products {
   Product p[kMaxProducts];
-  int32_t splits;  // blockIdx.z = product * splits + slice
-  // epilogue of the dPre_b product (null: plain store): + dcond on the cond
-  // branch's columns, then times leaky'(feats)
-  const float* feats;
-  const float* dcond;
-};
-
-// The slices of one product summed in order into its gradient.
-struct Reduce {
-  const float* partial;  // [splits, M, N]
-  float* c;              // [M, N] at ldc
-  int32_t M, N;
-  int64_t ldc, first;    // first: the product's offset in the flat output index
-};
-
-struct Reduces {
-  Reduce r[kMaxProducts];
-  int32_t count, splits;
-  int64_t total;
-};
-
-// dst[n] = sum over the rows of src[row * ld + n].
-struct ColumnSum {
-  const float* src;
-  float* dst;
-  int32_t rows, cols, ld;
-};
-
-struct ColumnSums {
-  ColumnSum s[4];
+  int32_t count, B, slices;
 };
 
 __device__ __forceinline__ float leaky_grad(float out, float g) { return out >= 0.f ? g : 0.01f * g; }
 
-__global__ void head_kernel(const ActorCriticBackwardArgs a) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = idx / kH, n = idx % kH;
-  if (row >= a.B) return;
-  const int ldf = a.num_branches * kH;
-  const float cond = a.feats[(size_t)row * ldf + kCond * kH + n];
+// dy_a[m, n] = sum_o dlogits[m, o] W_aout[n, o], o in order, from the staged
+// dlogits rows ds [32][16] and W_aout^T ws [16][128]
+__device__ __forceinline__ float head_dya(const float* ds, const float* ws, int m, int n, int A) {
   float dya = 0.f;
-  for (int o = 0; o < a.A; ++o)
-    dya = fmaf(a.dlogits[(size_t)row * a.A + o], a.w_aout[n * a.A + o], dya);
-  const float dyc = a.dvalue[row] * a.w_cout[n];
-  const float ha = a.hidden[(size_t)row * 2 * kH + n];
-  const float hc = a.hidden[(size_t)row * 2 * kH + kH + n];
-  a.y[(size_t)row * 2 * kH + n] = ha + cond;
-  a.y[(size_t)row * 2 * kH + kH + n] = hc + cond;
-  a.dpre_fc[(size_t)row * 2 * kH + n] = leaky_grad(ha, dya);
-  a.dpre_fc[(size_t)row * 2 * kH + kH + n] = leaky_grad(hc, dyc);
-  a.dcond[(size_t)row * kH + n] = dya + dyc;
+#pragma unroll
+  for (int o = 0; o < kMaxA; ++o)
+    if (o < A) dya = fmaf(ds[m * kMaxA + o], ws[o * kH + n], dya);
+  return dya;
 }
 
-__global__ void __launch_bounds__(kThreads) product_kernel(const Products ps) {
-  const Product& g = ps.p[blockIdx.z / ps.splits];
-  const int slice = blockIdx.z % ps.splits;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  if (m0 >= g.M || n0 >= g.N) return;
-  // the slice's k-range, in whole k-steps; an empty range writes zeros
-  const int span = ((g.K + ps.splits - 1) / ps.splits + kStep - 1) / kStep * kStep;
-  const int kbeg = slice * span, kend = min(g.K, kbeg + span);
-  float* c = g.c + (size_t)slice * g.M * g.N;
-  __shared__ float As[kStep][kTile + 4];
-  __shared__ float Bs[kStep][kTile + 4];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += kStep) {
-    // stage the tiles, neighbouring threads on whichever index is contiguous
-#pragma unroll
-    for (int r = 0; r < (kTile * kStep) / kThreads; ++r) {
-      const int e = tid + kThreads * r;
-      int m, k;
-      if (g.sam == 1) { m = e % kTile; k = e / kTile; } else { k = e % kStep; m = e / kStep; }
-      As[k][m] = (m0 + m < g.M && k0 + k < kend) ? g.a[(m0 + m) * g.sam + (k0 + k) * g.sak] : 0.f;
-      int n;
-      if (g.sbn == 1) { n = e % kTile; k = e / kTile; } else { k = e % kStep; n = e / kStep; }
-      Bs[k][n] = (n0 + n < g.N && k0 + k < kend) ? g.b[(k0 + k) * g.sbk + (n0 + n) * g.sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kStep; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
+// The A fragment of rows g (+8), columns t (+4) at p of a row-major tile
+// already split into TF32 hi and lo (lane = 4g + t).
+__device__ __forceinline__ void load_a_split(const uint32_t* hp, const uint32_t* lp, int stride,
+                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int at[4] = {0, 8 * stride, 4, 8 * stride + 4};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= g.N) continue;
-      float v = acc[i][j];
-      if (ps.feats) {
-        if (n >= kCond * kH && n < (kCond + 1) * kH) v += ps.dcond[(size_t)m * kH + n - kCond * kH];
-        v = leaky_grad(ps.feats[(size_t)m * g.ldc + n], v);
-      }
-      c[(size_t)m * g.ldc + n] = v;
+    hi[i] = hp[at[i]];
+    lo[i] = lp[at[i]];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* Ph = reinterpret_cast<uint32_t*>(smem);  // [kRowsA][kPS] dPre_fc, TF32 hi
+  uint32_t* Pl = Ph + kRowsA * kPS;                  // [kRowsA][kPS] and lo
+  float* Ws = smem + 2 * kRowsA * kPS;               // [16][kH] W_aout^T, 0 past A
+  float* Dl = Ws + kMaxA * kH;                       // [kRowsA][16] dlogits, 0 past A and B
+  float* ring = Dl + kRowsA * kMaxA;                 // [kStagesA][kH][kWS] W_fc stages
+  const int nb = a.num_branches, F = nb * kH, A = a.A;
+  const int per = (nb + a.groups - 1) / a.groups;
+  const int group = blockIdx.x % a.groups, row0 = (int)(blockIdx.x / a.groups) * kRowsA;
+  const int blk0 = group * per, nblk = min(nb, blk0 + per) - blk0;
+  if (nblk <= 0) return;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int total = nblk * kKStages;
+
+  // stage c: W_fc rows 128 (blk0 + c / 16) + [0, 128), columns 16 (c % 16) + [0, 16)
+  auto load = [&](int c) {
+    float* slot = ring + (c % kStagesA) * (kH * kWS);
+    const float* src = a.w_fc + (size_t)((blk0 + c / kKStages) * kH) * kF + (c % kKStages) * kBKA;
+    for (int e = tid; e < kH * kBKA / 4; e += kThreads) {
+      const int n = e / (kBKA / 4), k = 4 * (e % (kBKA / 4));
+      cp_async16(slot + n * kWS + k, src + (size_t)n * kF + k, true);
     }
+  };
+  for (int c = 0; c < kStagesA - 1; ++c) {
+    if (c < total) load(c);
+    cp_async_commit();
   }
-}
 
-__global__ void reduce_kernel(const Reduces rs) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rs.total) return;
-  int j = 0;
-  while (j + 1 < rs.count && idx >= rs.r[j + 1].first) ++j;
-  const Reduce& r = rs.r[j];
-  const int64_t e = idx - r.first, size = (int64_t)r.M * r.N;
-  float s = 0.f;
-  for (int slice = 0; slice < rs.splits; ++slice) s += r.partial[slice * size + e];
-  r.c[(e / r.N) * r.ldc + e % r.N] = s;
-}
-
-// blockIdx.y picks the sum; 32 x 32 threads: a column each along x, the rows
-// split over y, then a fixed-order tree over y.
-__global__ void column_sum_kernel(const ColumnSums cs) {
-  const ColumnSum& c = cs.s[blockIdx.y];
-  if (blockIdx.x * 32 >= c.cols) return;
-  __shared__ float part[32][33];
-  const int tx = threadIdx.x, ty = threadIdx.y, n = blockIdx.x * 32 + tx;
-  float v = 0.f;
-  if (n < c.cols)
-    for (int r = ty; r < c.rows; r += 32) v += c.src[(size_t)r * c.ld + n];
-  part[ty][tx] = v;
+  // the head while the first stages land: dPre_fc = leaky'(Hf) [dlogits
+  // W_aout^T, dvalue W_cout^T], split into TF32 hi and lo once for every
+  // stage and warp; rows past B are 0
+  for (int e = tid; e < kMaxA * kH; e += kThreads) {
+    const int o = e / kH, n = e % kH;
+    Ws[e] = o < A ? a.w_aout[n * A + o] : 0.f;
+  }
+  for (int e = tid; e < kRowsA * kMaxA; e += kThreads) {
+    const int m = e / kMaxA, o = e % kMaxA;
+    Dl[e] = o < A && row0 + m < a.B ? a.dlogits[(size_t)(row0 + m) * A + o] : 0.f;
+  }
   __syncthreads();
-  for (int h = 16; h > 0; h >>= 1) {
-    if (ty < h) part[ty][tx] += part[ty + h][tx];
-    __syncthreads();
+  for (int e = tid; e < kRowsA * kH; e += kThreads) {
+    const int m = e / kH, n = e % kH, row = row0 + m;
+    float pa = 0.f, pc = 0.f;
+    if (row < a.B) {
+      const float dya = head_dya(Dl, Ws, m, n, A);
+      const float dyc = a.dvalue[row] * a.w_cout[n];
+      const float ha = a.hidden[(size_t)row * kF + n], hc = a.hidden[(size_t)row * kF + kH + n];
+      pa = leaky_grad(ha, dya);
+      pc = leaky_grad(hc, dyc);
+      if (group == 0) {  // what launch B reads, written once
+        const float cond = a.feats[(size_t)row * F + kCond * kH + n];
+        a.y[(size_t)row * kF + n] = ha + cond;
+        a.y[(size_t)row * kF + kH + n] = hc + cond;
+        a.dpre_fc[(size_t)row * kF + n] = pa;
+        a.dpre_fc[(size_t)row * kF + kH + n] = pc;
+      }
+    }
+    split(pa, Ph[m * kPS + n], Pl[m * kPS + n]);
+    split(pc, Ph[m * kPS + kH + n], Pl[m * kPS + kH + n]);
   }
-  if (ty == 0 && n < c.cols) c.dst[n] = part[0][tx];
+
+  // dPre_b[:, block] = (dPre_fc W_fc[block]^T + dcond on the cond block) *
+  // leaky'(F): warp w owns the block's columns 16w .. 16w + 15, all 32 rows
+  float acc[2][2][4] = {};
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<kStagesA - 2>();  // stage c has landed
+    __syncthreads();                // for every thread, and every thread is done with c - 1
+    const float* slot = ring + (c % kStagesA) * (kH * kWS);
+    const int s = c % kKStages;
+    float part[2][2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kBKA; ks += 8) {
+      uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int at = (16 * i + g) * kPS + s * kBKA + ks + t;
+        load_a_split(Ph + at, Pl + at, kPS, ahi[i], alo[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        load_b_t(slot + (16 * warp + 8 * j + g) * kWS + ks + t, bhi[j], blo[j]);
+      products<2, 2, 2>(part, ahi, alo, bhi, blo);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    if (c + kStagesA - 1 < total) load(c + kStagesA - 1);  // into the slot of stage c - 1
+    cp_async_commit();
+    if (s < kKStages - 1) continue;
+    const int b = blk0 + c / kKStages;  // the block is done: its epilogue
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = 16 * warp + 8 * j + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = 16 * i + g + 8 * r, row = row0 + m;
+          float v0 = acc[i][j][2 * r], v1 = acc[i][j][2 * r + 1];
+          acc[i][j][2 * r] = acc[i][j][2 * r + 1] = 0.f;
+          if (row >= a.B) continue;
+          if (b == kCond) {  // the residual's gradient dcond = dy_a + dy_c, as in the head
+            const float dv = a.dvalue[row];
+            v0 += head_dya(Dl, Ws, m, n, A) + dv * a.w_cout[n];
+            v1 += head_dya(Dl, Ws, m, n + 1, A) + dv * a.w_cout[n + 1];
+          }
+          const size_t at = (size_t)row * F + b * kH + n;
+          const float2 f = *reinterpret_cast<const float2*>(a.feats + at);
+          *reinterpret_cast<float2*>(a.dpre_b + at) = make_float2(leaky_grad(f.x, v0),
+                                                                   leaky_grad(f.y, v1));
+        }
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) grad_kernel(const __grid_constant__ Products ps) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = ps.slices, rank = (int)cluster.block_rank();
+  const int tile = (int)(blockIdx.x / S);
+  int j = 0;
+  while (j + 1 < ps.count && tile >= ps.p[j + 1].first_tile) ++j;
+  const Product& p = ps.p[j];
+  const int m0 = (tile - p.first_tile) / p.n_tiles * kBM;
+  const int n0 = (tile - p.first_tile) % p.n_tiles * kBN;
+  // this slice's depth, in whole stages; an empty one adds zeros
+  const int span = ((ps.B + S - 1) / S + kBK - 1) / kBK * kBK;
+  const int kbeg = rank * span, kend = min(ps.B, kbeg + span);
+  const int total = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  const int ones = p.bias ? p.M - m0 : -1;  // the ones row in this tile, if in [0, kBM)
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // the warp's 32 x 32 of the tile
+  const bool busy = m0 + 32 * wm < p.M + (p.bias ? 1 : 0) && n0 + 32 * wn < p.N;
+
+  // stage c: depth rows kbeg + 32c + [0, 32) of A's columns m0 + [0, 64) and
+  // B's columns n0 + [0, 128), zero past the batch and the product's edges
+  auto load = [&](int c) {
+    float* As = smem + (c % kStagesB) * kSlotB;
+    float* Bs = As + kBK * kAS;
+    const int k0 = kbeg + c * kBK;
+    if (p.vec_a) {
+      for (int e = tid; e < kBK * kBM / 4; e += kThreads) {
+        const int k = e / (kBM / 4), m = 4 * (e % (kBM / 4));
+        if (m == ones) {
+          *reinterpret_cast<float4*>(As + k * kAS + m) = make_float4(1.f, 0.f, 0.f, 0.f);
+          continue;
+        }
+        const bool ok = k0 + k < kend && m0 + m < p.M;
+        cp_async16(As + k * kAS + m, ok ? p.a + (size_t)(k0 + k) * p.lda + m0 + m : p.a, ok);
+      }
+    } else {
+      for (int e = tid; e < kBK * kBM; e += kThreads) {
+        const int k = e / kBM, m = e % kBM;
+        if (m == ones) {
+          As[k * kAS + m] = 1.f;
+          continue;
+        }
+        const bool ok = k0 + k < kend && m0 + m < p.M;
+        cp_async4(As + k * kAS + m, ok ? p.a + (size_t)(k0 + k) * p.lda + m0 + m : p.a, ok);
+      }
+    }
+    if (p.vec_b) {
+      for (int e = tid; e < kBK * kBN / 4; e += kThreads) {
+        const int k = e / (kBN / 4), n = 4 * (e % (kBN / 4));
+        const bool ok = k0 + k < kend && n0 + n < p.N;
+        cp_async16(Bs + k * kBS + n, ok ? p.b + (size_t)(k0 + k) * p.ldb + n0 + n : p.b, ok);
+      }
+    } else {
+      for (int e = tid; e < kBK * kBN; e += kThreads) {
+        const int k = e / kBN, n = e % kBN;
+        const bool ok = k0 + k < kend && n0 + n < p.N;
+        cp_async4(Bs + k * kBS + n, ok ? p.b + (size_t)(k0 + k) * p.ldb + n0 + n : p.b, ok);
+      }
+    }
+  };
+
+  float acc[2][4][4] = {};
+  for (int c = 0; c < kStagesB - 1; ++c) {
+    if (c < total) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<kStagesB - 2>();  // stage c has landed
+    __syncthreads();                // for every thread, and every thread is done with c - 1
+    if (busy) {
+      const float* As = smem + (c % kStagesB) * kSlotB;
+      const float* Bs = As + kBK * kAS;
+      float part[2][4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 8) {
+        uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          load_a_t(As + (ks + t) * kAS + 32 * wm + 16 * i + g, kAS, ahi[i], alo[i]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          load_b(Bs + (ks + t) * kBS + 32 * wn + 8 * jj + g, kBS, bhi[jj], blo[jj]);
+        products<2, 4, 4>(part, ahi, alo, bhi, blo);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][jj][e] += part[i][jj][e];
+    }
+    if (c + kStagesB - 1 < total) load(c + kStagesB - 1);  // into the slot of stage c - 1
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile goes over it
+  float* Os = smem;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(Os + (32 * wm + 16 * i + g + 8 * r) * kOS + 32 * wn + 8 * jj +
+                                   2 * t) = make_float2(acc[i][jj][2 * r], acc[i][jj][2 * r + 1]);
+  cluster.sync();  // every slice's partial tile is in place
+
+  // CTA `rank` sums its share of the rows over the slices, in rank order
+  const int rows = kBM / S, r0 = rank * rows;
+  for (int e = tid; e < rows * kBN; e += kThreads) {
+    const int m = r0 + e / kBN, n = e % kBN, gm = m0 + m, gn = n0 + n;
+    if (gn >= p.N || gm > p.M || (gm == p.M && !p.bias)) continue;
+    float sum = 0.f;
+    for (int q = 0; q < S; ++q) sum += cluster.map_shared_rank(Os, q)[m * kOS + n];
+    if (gm < p.M)
+      p.c[(size_t)gm * p.ldc + gn] = sum;
+    else
+      p.bias[gn] = sum;
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
 namespace {
 
-Product product(const float* a, const float* b, float* c, int M, int N, int K, int64_t sam,
-                int64_t sak, int64_t sbk, int64_t sbn, int64_t ldc) {
-  return Product{a, b, c, M, N, K, sam, sak, sbk, sbn, ldc};
+bool vectorizable(const float* p, int ld, int width) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0 && width % 4 == 0;
 }
 
-int run_products(const Products& ps, int count, cudaStream_t stream) {
-  int max_m = 0, max_n = 0;
-  for (int z = 0; z < count; ++z) {
-    max_m = ps.p[z].M > max_m ? ps.p[z].M : max_m;
-    max_n = ps.p[z].N > max_n ? ps.p[z].N : max_n;
-  }
-  const dim3 grid((max_n + kTile - 1) / kTile, (max_m + kTile - 1) / kTile, count * ps.splits);
-  product_kernel<<<grid, kThreads, 0, stream>>>(ps);
-  return (int)cudaGetLastError();
+// Appends a product (its tiles after the tiles so far); returns the new tile count.
+int add_product(Products& ps, int tiles, const float* a, int lda, int M, const float* b, int ldb,
+                int N, float* c, int ldc, float* bias) {
+  Product& p = ps.p[ps.count++];
+  p = Product{a, b, c, bias, M, N, lda, ldb, ldc, vectorizable(a, lda, M), vectorizable(b, ldb, N),
+              tiles, (N + kBN - 1) / kBN};
+  return tiles + (M + (bias ? 1 : 0) + kBM - 1) / kBM * p.n_tiles;
 }
 
 }  // namespace
@@ -270,64 +428,48 @@ int run_products(const Products& ps, int count, cudaStream_t stream) {
 extern "C" int actor_critic_backward_launch(const ActorCriticBackwardArgs* args, void* stream) {
   const ActorCriticBackwardArgs& a = *args;
   cudaStream_t s = (cudaStream_t)stream;
-  const int B = a.B, A = a.A, nb = a.num_branches, F = nb * kH, S = a.splits;
-  if (S < 1 || S > kMaxSplits || nb > kMaxNB) return (int)cudaErrorInvalidValue;
+  const int B = a.B, A = a.A, nb = a.num_branches, F = nb * kH, S = a.slices;
+  if (nb > kMaxNB || nb <= kCond || A > kMaxA || a.groups < 1 || a.groups > nb || S < 1 ||
+      S > kMaxSlices || (S & (S - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  int err;
+  cudaError_t e = cudaFuncSetAttribute(dpre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemA);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemB);
+  if (e != cudaSuccess) return (int)e;
 
-  head_kernel<<<(B * kH + kThreads - 1) / kThreads, kThreads, 0, s>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
+  dpre_kernel<<<(B + kRowsA - 1) / kRowsA * a.groups, kThreads, kSmemA, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  // dPre_b = (dPre_fc W_fc^T + dcond on the cond branch) * leaky'(F)
-  Products dfeat{};
-  dfeat.p[0] = product(a.dpre_fc, a.w_fc, a.dpre_b, B, F, 2 * kH, 2 * kH, 1, 1, 2 * kH, F);
-  dfeat.splits = 1;
-  dfeat.feats = a.feats;
-  dfeat.dcond = a.dcond;
-  if ((err = run_products(dfeat, 1, s))) return err;
-
-  // depth B, in S slices into the partial tiles: dW_aout = y_a^T dlogits,
-  // dW_cout = y_c^T dvalue, dW_fc = F^T dPre_fc and
-  // dW_branch[off_b : off_b+1] = x[:, off_b : off_b+1]^T dPre_b[:, 128b : 128b+128]
-  Products deep{};
-  Reduces red{};
-  float* out[kMaxProducts];
-  int64_t ldc[kMaxProducts];
-  deep.p[0] = product(a.y, a.dlogits, nullptr, kH, A, B, 1, 2 * kH, A, 1, A);
-  out[0] = a.dw_aout, ldc[0] = A;
-  deep.p[1] = product(a.y + kH, a.dvalue, nullptr, kH, 1, B, 1, 2 * kH, 1, 1, 1);
-  out[1] = a.dw_cout, ldc[1] = 1;
-  deep.p[2] = product(a.feats, a.dpre_fc, nullptr, F, 2 * kH, B, 1, F, 2 * kH, 1, 2 * kH);
-  out[2] = a.dw_fc, ldc[2] = 2 * kH;
+  // depth B: dW_fc = F^T dPre_fc, dW_branch[off_b : off_b+1] =
+  // x[:, off_b : off_b+1]^T dPre_b[:, 128b : 128b+128], dW_aout = y_a^T dlogits,
+  // dW_cout = y_c^T dvalue, each with its bias as the ones row
+  Products ps{};
+  int tiles = add_product(ps, 0, a.feats, F, F, a.dpre_fc, kF, kF, a.dw_fc, kF, a.db_fc);
   for (int b = 0; b < nb; ++b) {
-    const int off = a.branch_off[b], in_b = a.branch_off[b + 1] - off;
-    deep.p[3 + b] = product(a.x + off, a.dpre_b + b * kH, nullptr, in_b, kH, B, 1, a.ldx, F, 1,
-                            kH);
-    out[3 + b] = a.dw_branch + (size_t)off * kH, ldc[3 + b] = kH;
+    const int off = a.branch_off[b];
+    tiles = add_product(ps, tiles, a.x + off, a.ldx, a.branch_off[b + 1] - off, a.dpre_b + b * kH,
+                        F, kH, a.dw_branch + (size_t)off * kH, kH, a.db_branch + b * kH);
   }
-  const int count = 3 + nb;
-  float* partial = a.partial;
-  int64_t first = 0;
-  for (int j = 0; j < count; ++j) {
-    Product& g = deep.p[j];
-    const int64_t size = (int64_t)g.M * g.N;
-    g.c = partial;
-    g.ldc = g.N;
-    red.r[j] = Reduce{partial, out[j], g.M, g.N, ldc[j], first};
-    partial += S * size;
-    first += size;
-  }
-  deep.splits = S;
-  if ((err = run_products(deep, count, s))) return err;
-  red.count = count, red.splits = S, red.total = first;
-  reduce_kernel<<<(unsigned)((first + kThreads - 1) / kThreads), kThreads, 0, s>>>(red);
-  if ((err = (int)cudaGetLastError())) return err;
+  tiles = add_product(ps, tiles, a.y, kF, kH, a.dlogits, A, A, a.dw_aout, A, a.db_aout);
+  tiles = add_product(ps, tiles, a.y + kH, kF, kH, a.dvalue, 1, 1, a.dw_cout, 1, a.db_cout);
+  ps.B = B;
+  ps.slices = S;
 
-  ColumnSums sums{};
-  sums.s[0] = ColumnSum{a.dpre_fc, a.db_fc, B, 2 * kH, 2 * kH};
-  sums.s[1] = ColumnSum{a.dpre_b, a.db_branch, B, F, F};
-  sums.s[2] = ColumnSum{a.dlogits, a.db_aout, B, A, A};
-  sums.s[3] = ColumnSum{a.dvalue, a.db_cout, B, 1, 1};
-  column_sum_kernel<<<dim3((F + 31) / 32, 4), dim3(32, 32), 0, s>>>(sums);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemB;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = S;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, grad_kernel, ps);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

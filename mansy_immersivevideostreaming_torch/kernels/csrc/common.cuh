@@ -1,4 +1,5 @@
-// Scalar and warp helpers shared by the port's kernels (K1, K4, K5).
+// Scalar and warp helpers shared by the port's kernels (K1, K4, K5, K8), and
+// the cp.async and 3xTF32 tensor-core helpers of K3 and K10 (mansy::tc).
 //
 // Every kernel is built with -fmad=false (kernels/build.py), so these round
 // as their plain PyTorch counterparts do.
@@ -61,5 +62,96 @@ __device__ __forceinline__ void viewport_scales(uint64_t mask, int t, int& s0, i
     cov = dilate(cov);
   }
 }
+
+// ---- K3 and K10: cp.async copies and 3xTF32 products on mma.sync ----
+namespace tc {
+
+// ---- cp.async: 4 or 16 bytes, zero-filled when !valid (src is then not read) ----
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// every group but the newest n has landed
+template <int n>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n)); }
+
+// ---- 3xTF32 on mma.sync.m16n8k8 ----
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo exactly up to lo's rounding: hi is x in TF32, lo the remainder in TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+// d += a * b on the tensor cores (not volatile: independent products may interleave)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// acc[i][j] += a[i] * b[j] in 3xTF32, term by term (the two small cross terms,
+// then hi * hi), so the MT x NT products of a term issue back to back
+template <int MT, int NT, int NA>
+__device__ __forceinline__ void products(float (&acc)[MT][NA][4], const uint32_t (&ahi)[MT][4],
+                                         const uint32_t (&alo)[MT][4],
+                                         const uint32_t (&bhi)[NT][2],
+                                         const uint32_t (&blo)[NT][2]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(acc[i][j], alo[i], bhi[j]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(acc[i][j], ahi[i], blo[j]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(acc[i][j], ahi[i], bhi[j]);
+}
+// The A fragment of rows r0 + g (+8), columns k + t (+4) of a row-major tile
+// (lane = 4g + t), split into hi and lo.
+__device__ __forceinline__ void load_a(const float* p, int stride, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * stride], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * stride + 4], hi[3], lo[3]);
+}
+// The B fragment of rows k + t (+4), column n + g of a row-major [k][n] tile.
+__device__ __forceinline__ void load_b(const float* p, int stride, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[4 * stride], hi[1], lo[1]);
+}
+
+// The A fragment of rows m + g (+8), columns k + t (+4) of a tile stored
+// k-major ([k][m]: A read transposed), split into hi and lo.
+__device__ __forceinline__ void load_a_t(const float* p, int stride, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8], hi[1], lo[1]);
+  split(p[4 * stride], hi[2], lo[2]);
+  split(p[4 * stride + 8], hi[3], lo[3]);
+}
+// The B fragment of rows k + t (+4), column n + g of a tile stored [n][k]
+// (B read transposed).
+__device__ __forceinline__ void load_b_t(const float* p, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[4], hi[1], lo[1]);
+}
+
+}  // namespace tc
 
 }  // namespace mansy

@@ -392,6 +392,29 @@ def test_actor_critic_train_and_backward_kernels_match_plain_on_card(cuda_device
     _grad_close(policy.actor_fc.weight.grad, want[2][:, :128].t())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 17, 300, 512, 513, 4096, 4097])
+@pytest.mark.parametrize("v16", [False, True])
+def test_actor_critic_backward_kernel_at_every_batch_on_card(cuda_device, v16, B):
+    """K10 against its plain version at batches around its 32-row and 32-deep
+    tiles and at the paths' 512 and 4096 rows (each launch plan); two
+    launches give the same bits."""
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V9_NPZ
+    w = load_npz_policy(DAGGER_V16_NPZ if v16 else DAGGER_V9_NPZ,
+                        device=cuda_device).packed_weights()
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    x = torch.rand(B, 795 if v16 else 779, device=cuda_device, generator=g)
+    _, _, feats, hidden = K3.actor_critic_train_forward_plain(w, x)
+    dlogits = torch.randn(B, 15, device=cuda_device, generator=g) / B
+    dvalue = torch.randn(B, device=cuda_device, generator=g) / B
+    grads = K3.actor_critic_backward(w, x, feats, hidden, dlogits, dvalue)
+    want = K3.actor_critic_backward_plain(w, x, feats, hidden, dlogits, dvalue)
+    for a, b in zip(grads, want):
+        _grad_close(a, b)
+    again = K3.actor_critic_backward(w, x, feats, hidden, dlogits, dvalue)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
 # --------------------------------------------------------- viewport serving
 
 def _edge_positions(n: int, seed: int) -> torch.Tensor:
@@ -441,11 +464,52 @@ def test_attention_kernel_matches_plain_and_sdpa_on_card(cuda_device, shape, H, 
     q = torch.randn(77, Lq, H, Dh, device=cuda_device, generator=g)
     k = torch.randn(77, Lk, H, Dh, device=cuda_device, generator=g)
     v = torch.randn(77, Lk, H, Dh, device=cuda_device, generator=g)
+    _attention_matches_plain_and_sdpa(K8, q, k, v, kv_len0)
+
+
+def _attention_matches_plain_and_sdpa(K8, q, k, v, kv_len0):
+    """K8 within rtol 1e-5, atol 1e-6 of its plain version and 1e-5 of SDPA's
+    math backend; a second launch gives the same bits."""
+    Lq, Lk = q.shape[1], k.shape[1]
     got = K8.attention(q, k, v, kv_len0)
     torch.testing.assert_close(got, K8.attention_plain(q, k, v, kv_len0), rtol=1e-5, atol=1e-6)
-    seen = torch.arange(Lq, device=cuda_device) + (Lk if kv_len0 is None else kv_len0)
-    mask = torch.arange(Lk, device=cuda_device)[None, :] < seen[:, None]
+    seen = torch.arange(Lq, device=q.device) + (Lk if kv_len0 is None else kv_len0)
+    mask = torch.arange(Lk, device=q.device)[None, :] < seen[:, None]
     with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.MATH):
         sdpa = torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
     torch.testing.assert_close(got, sdpa.transpose(1, 2), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, K8.attention(q, k, v, kv_len0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0", [(1, 100, None), (3, 100, 50), (1, 2048, None),
+                                           (2, 2048, 1000)])
+@pytest.mark.parametrize("Dh", [4, 64, 256])
+def test_attention_kernel_over_long_keys_and_every_width_on_card(cuda_device, Lq, Lk, kv_len0,
+                                                                 Dh):
+    """Keys past one shared-memory tile (walked tile by tile at 2048 keys, and
+    at 100 keys of Dh 256), heads of 4 to 256 dims, a batch that is no
+    multiple of anything (77, or 5 at 2048 keys)."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    B, H = (77 if Lk <= 100 else 5), 8
+    g = torch.Generator(device=cuda_device).manual_seed(Lk + Dh)
+    q = torch.randn(B, Lq, H, Dh, device=cuda_device, generator=g)
+    k = torch.randn(B, Lk, H, Dh, device=cuda_device, generator=g)
+    v = torch.randn(B, Lk, H, Dh, device=cuda_device, generator=g)
+    _attention_matches_plain_and_sdpa(K8, q, k, v, kv_len0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", ["q", "k", "v"])
+def test_attention_kernel_refuses_gradients_on_card(cuda_device, needs):
+    """No backward on the card: with grad enabled, any of q, k, v requiring
+    grad raises; under no_grad the kernel runs."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    q, k, v = (torch.randn(3, 1, 8, 64, device=cuda_device, requires_grad=name == needs)
+               for name in "qkv")
+    with pytest.raises(RuntimeError, match="no backward"):
+        K8.attention(q, k, v, 1)
+    with torch.no_grad():
+        out = K8.attention(q, k, v, 1)
+    torch.testing.assert_close(out, K8.attention_plain(q, k, v, 1).detach(), rtol=1e-5, atol=1e-6)
