@@ -10,9 +10,10 @@ It imports no JAX.
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent``, DIR is another checkout of the repo (the parent commit's,
-unpacked with ``git archive``): its K10 and K8 are built from its own
-sources into its own build directory and timed beside this tree's on the
-same inputs (``earlier_ms``).
+unpacked with ``git archive``): its K10, K8, K1 and K9 are built from its
+own sources into its own build directory and timed beside this tree's on
+the same inputs (``earlier_ms``; K1 and K9 also with the spread of their 15
+timings, ``earlier_ms_range``).
 
 Phases:
 
@@ -26,6 +27,9 @@ Phases:
    serve's lane chunk (512), with two bounds (f32 outside the tensor cores,
    and its products as three TF32 products on them); K4 also at the
    expert's lane chunk (64) and DAgger's lanes (32, accuracy-corrected).
+   K1 is held and timed at each path's width (32, 64, 128, 512 and 8192
+   lanes: DAgger, expert, train, serve, collect), with the spread of its 15
+   timings; two launches from two clones of one state give the same bits.
 3. serve: deterministic evaluation of the committed v9 weights over the
    1440-episode test grid's shape, in lane chunks of 512; every lane must
    finish an episode, and the first-done masks and every episode record
@@ -46,11 +50,13 @@ Phases:
 
 Phase 2c holds the training kernels against their plain versions: K6
 ``compute_gae`` at [32, 128] and [128, 8192]; K9 ``policy_loss`` in every
-PPO variant at B = 512 and in CE mode at B = 4096; K3's training mode and
-K10 ``actor_critic_backward`` at B = 512 and 4096 with the v9 and v16
-weights (K10's yardstick: autograd through a ``torch.matmul`` composition;
-two launches give the same bits; its launch plan and a second bound, its
-products as three TF32 products on the tensor cores).
+PPO variant at B = 512 and in CE mode at B = 4096 (two launches give the
+same bits; CE's yardstick: ``F.cross_entropy`` forward and backward by
+autograd); K3's training mode and K10 ``actor_critic_backward`` at B = 512
+and 4096 with the v9 and v16 weights (K10's yardstick: autograd through a
+``torch.matmul`` composition; two launches give the same bits; its launch
+plan and a second bound, its products as three TF32 products on the tensor
+cores).
 
 7. train: ``run_mansy --train --train-identifier --use-identifier --lamb
    0.5`` at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat
@@ -203,8 +209,8 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def gpu_ms(fn, reps: int = 15) -> float:
-    """Median device time of one call, by CUDA events.  A sleep kernel keeps
+def gpu_times(fn, reps: int = 15) -> list:
+    """Device times of ``reps`` calls, by CUDA events.  A sleep kernel keeps
     the card busy while the calls are queued, so host-side launch overhead
     stays out of the time (a call that synchronises inside still pays it)."""
     fn()
@@ -217,7 +223,18 @@ def gpu_ms(fn, reps: int = 15) -> float:
         fn()
         end.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def gpu_ms(fn, reps: int = 15) -> float:
+    """Median device time of one call (``gpu_times``)."""
+    return statistics.median(gpu_times(fn, reps))
+
+
+def gpu_spread(fn, key: str = "ms") -> dict:
+    """{key: median, key + "_range": [min, max]} of 15 timed calls."""
+    times = gpu_times(fn)
+    return {key: statistics.median(times), f"{key}_range": [min(times), max(times)]}
 
 
 def leaves(tree):
@@ -248,17 +265,22 @@ def close(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- phase 2
 
-def check_env_step(tables, samples, state, actions, K1, tree_map):
+def check_env_step(tables, samples, state, actions, K1, tree_map, parent=None) -> dict:
     """K1 from identical states.  The download cursor (``net.idx``,
     ``net.sec``) may move at a second boundary on at most 0.1% of lanes;
     every other integer field is exact on every lane, and the floats agree
-    to RTOL on every lane whose cursor did not move.  Returns (max_abs_err,
-    kernel ms, plain ms)."""
+    to RTOL on every lane whose cursor did not move.  Two launches from two
+    clones of the state give the same bits.  Returns the max abs error, the
+    moved lanes, and the kernel's (with the spread of its 15 timings), the
+    plain version's and, with ``parent``, the parent commit's kernel's ms."""
     N = actions.shape[0]
     a = tree_map(torch.clone, state)
     ref = K1.env_step_plain(tables, samples, tree_map(torch.clone, state), actions, N, True)
     got = K1.env_step(tables, samples, a, actions, N, True)
+    twin = K1.env_step(tables, samples, tree_map(torch.clone, state), actions, N, True)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(leaves(got), leaves(twin))):
+        raise AssertionError(f"env_step ({N} lanes): two launches from one state differ")
     cursor = ("0.net.idx", "0.net.sec")
     same_cursor = torch.ones(N, dtype=torch.bool, device=actions.device)
     for (name, x), (_, y) in zip(named_leaves(got), named_leaves(ref)):
@@ -279,9 +301,15 @@ def check_env_step(tables, samples, state, actions, K1, tree_map):
                 raise AssertionError(f"env_step: float field {name} disagrees beyond rtol")
             err = max(err, float((xs - ys).abs().max()))
     st = tree_map(torch.clone, state)
-    ms = gpu_ms(lambda: K1.env_step(tables, samples, st, actions, N, True))
-    plain_ms = gpu_ms(lambda: K1.env_step_plain(tables, samples, state, actions, N, True), 5)
-    return err, ms, plain_ms
+    out = dict(lanes=N, max_abs_err=err, moved_lanes=moved,
+               **gpu_spread(lambda: K1.env_step(tables, samples, st, actions, N, True)),
+               plain_ms=gpu_ms(lambda: K1.env_step_plain(tables, samples, state, actions, N,
+                                                         True), 5))
+    if parent is not None:  # the parent commit's kernel from the same state
+        sp = tree_map(torch.clone, state)
+        out.update(gpu_spread(lambda: parent.env_step.env_step(tables, samples, sp, actions, N,
+                                                                True), "earlier_ms"))
+    return out
 
 
 def n_unique(*index: torch.Tensor, sizes) -> int:
@@ -420,11 +448,11 @@ def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
 
 
 def load_parent(root: str):
-    """The K10 and K8 wrappers of another checkout of the repo at ``root``
-    (the parent commit's, unpacked there), each bound to that checkout's
-    ``kernels/build.py``, so they build its own ``csrc/`` into its own
-    ``kernels/build/``.  Returns a namespace with ``build``,
-    ``actor_critic`` and ``attention``."""
+    """The K10, K8, K1 and K9 wrappers of another checkout of the repo at
+    ``root`` (the parent commit's, unpacked there), each bound to that
+    checkout's ``kernels/build.py``, so they build its own ``csrc/`` into its
+    own ``kernels/build/``.  Returns a namespace with ``build``,
+    ``actor_critic``, ``attention``, ``env_step`` and ``policy_loss``."""
     import importlib.util
     import types
     from mansy_immersivevideostreaming_torch import kernels
@@ -443,11 +471,13 @@ def load_parent(root: str):
         return mod
 
     own = module("build")
-    return types.SimpleNamespace(build=own, actor_critic=module("actor_critic", own),
-                                 attention=module("attention", own))
+    return types.SimpleNamespace(build=own, **{name: module(name, own) for name in (
+        "actor_critic", "attention", "env_step", "policy_loss")})
 
 
-PARENT_KERNELS = ("actor_critic_backward", "attention")  # timed beside this tree's
+# timed beside this tree's
+PARENT_KERNELS = ("actor_critic_backward", "attention", "env_step", "policy_loss")
+K1_WIDTHS = {"dagger": 32, "expert": 64, "train": 128, "serve": 512, "collect": LANES}
 
 
 def kernel_phase(dev, parent=None):
@@ -466,13 +496,15 @@ def kernel_phase(dev, parent=None):
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # nvcc for both trees at once
         earlier = pool.submit(parent.build.build, PARENT_KERNELS) if parent else None
         reports = build.build()
-        if earlier is not None:
-            log(f"built the parent's {sorted(earlier.result()) or 'nothing (cached)'}")
+        earlier = earlier.result() if earlier is not None else {}
     log(f"built {sorted(reports) or 'nothing (cached)'} in {time.time() - t0:.1f}s")
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    if parent:
+        log(f"built the parent's {sorted(earlier) or 'nothing (cached)'}")
+    for label, texts in (("", reports), ("parent ", earlier)):
+        for name, text in texts.items():  # ptxas: registers, stack frame, spills
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {label}{name}: {line.strip()}")
 
     V, U, NT, C, Q = TRAIN_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
@@ -520,13 +552,21 @@ def kernel_phase(dev, parent=None):
         **actor_critic_timing(K3, w, x, noise),
         serve_chunk=actor_critic_timing(K3, w, x[:SERVE_CHUNK], noise[:SERVE_CHUNK]))
 
-    # K1 (one step from identical states)
-    nbytes = env_step_bytes(tables, samples, state, actions)
-    err, ms, plain_ms = check_env_step(tables, samples, state, actions, K1, tree_map)
+    # K1 (one step from identical states) at each path's width: the first n
+    # of the 8192 lanes
+    cases = {}
+    for path, n in K1_WIDTHS.items():
+        sub = tree_map(lambda x: x[:n].contiguous(), state)
+        cases[path] = dict(**check_env_step(tables, samples, sub, actions[:n], K1, tree_map,
+                                            parent),
+                           plan=K1.env_step_plan(n, tables.past_k)._asdict(),
+                           bound_ms=1e3 * env_step_bytes(tables, samples, sub, actions[:n])
+                           / HBM_BYTES_PER_S)
+    main = cases["collect"]
     rows["env_step"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-        bound_by="bytes", library_ms=None)
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        **{k: main[k] for k in main if k.endswith("ms")}, bound_by="bytes", library_ms=None,
+        cases=cases)
     return rows
 
 
@@ -1224,6 +1264,15 @@ def library_actor_critic_grad(w, x, dlogits, dvalue):
                                        retain_graph=True)
 
 
+def library_cross_entropy(logits, action):
+    """K9 CE mode's yardstick (library_ms only): ``F.cross_entropy`` forward
+    and its backward by autograd on the same logits and labels; it computes
+    less than K9 (no entropy term).  Returns a function that runs both once."""
+    leaf = logits.detach().clone().requires_grad_()
+    target = action.long()
+    return lambda: torch.autograd.grad(torch.nn.functional.cross_entropy(leaf, target), leaf)
+
+
 def training_inputs(dev):
     """Packed observations of the largest training batch's lanes on tables
     of the train split's shape, 7 steps into their episodes: 779 columns
@@ -1252,11 +1301,12 @@ def training_inputs(dev):
 
 def training_kernel_phase(dev, parent=None):
     """K6 at [32, 128] and [128, 8192]; K9 in every PPO variant at B = 512
-    and in CE mode at B = 4096; K3's training mode and K10 at B = 512 and
-    4096 with the v9 and v16 weights.  Each against its plain version on the
-    same card tensors, timed with CUDA events (K10 also: two launches give
-    the same bits; with ``parent``, the parent commit's K10 timed beside it).
-    Returns the kernels' rows."""
+    and in CE mode at B = 4096 (CE also beside ``F.cross_entropy``); K3's
+    training mode and K10 at B = 512 and 4096 with the v9 and v16 weights.
+    Each against its plain version on the same card tensors, timed with CUDA
+    events (K9 and K10 also: two launches give the same bits; with
+    ``parent``, the parent commit's K9 and K10 timed beside them).  Returns
+    the kernels' rows."""
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import gae as K6
     from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
@@ -1317,12 +1367,21 @@ def training_kernel_phase(dev, parent=None):
                 raise AssertionError(f"policy_loss ({name}) disagrees with its plain version")
         err = max(err, max(float((g - rf).abs().max()) for g, rf in zip(got, ref)
                            if rf is not None))
-        out[name] = dict(batch=lg.shape[0],
-                         ms=gpu_ms(lambda: K9.policy_loss(spec, lg, v)),
+        again = K9.policy_loss(spec, lg, v)
+        if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"policy_loss ({name}): two launches differ")
+        out[name] = dict(batch=lg.shape[0], plan=K9.policy_loss_plan(lg.shape[0])._asdict(),
+                         **gpu_spread(lambda: K9.policy_loss(spec, lg, v)),
                          plain_ms=gpu_ms(lambda: K9.policy_loss_plain(spec, lg, v), 5),
                          **bound(*policy_loss_cost(spec, lg.shape[0], A)))
+        if parent is not None:  # the parent commit's kernel on the same inputs
+            out[name].update(gpu_spread(lambda: parent.policy_loss.policy_loss(spec, lg, v),
+                                        "earlier_ms"))
+    # CE's yardstick: cross_entropy forward and backward by autograd (no entropy term)
+    out["ce"]["library_ms"] = gpu_ms(library_cross_entropy(ce_logits, ce_action))
     rows["policy_loss"] = dict(max_abs_err=err, **{k: out["clip_norm"][k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by")}, library_ms=None, variants=out)
+        "ms", "plain_ms", "bound_ms", "bound_by") + (("earlier_ms",) if parent else ())},
+        library_ms=None, variants=out)
 
     # K3's training mode and K10
     x9, x16 = training_inputs(dev)
@@ -2014,8 +2073,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout of the repo (e.g. the parent commit's, from "
-                             "git archive): its K10 and K8 are built and timed beside this "
-                             "tree's (earlier_ms)")
+                             "git archive): its K10, K8, K1 and K9 are built and timed "
+                             "beside this tree's (earlier_ms)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")

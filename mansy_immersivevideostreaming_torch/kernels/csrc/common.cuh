@@ -1,5 +1,6 @@
 // Scalar and warp helpers shared by the port's kernels (K1, K4, K5, K8), and
-// the cp.async and 3xTF32 tensor-core helpers of K3 and K10 (mansy::tc).
+// the cp.async helpers of K3, K9 and K10 and the 3xTF32 tensor-core helpers
+// of K3 and K10 (mansy::tc).
 //
 // Every kernel is built with -fmad=false (kernels/build.py), so these round
 // as their plain PyTorch counterparts do.

@@ -7,15 +7,23 @@ with the callees XLA fused into it: ``ops/allocation.py:viewport_scales`` and
 (``:84``) and ``push_chunk`` (``:142``), ``ops/qoe.py:qoe_step`` (``:38``),
 ``_roll`` (``sim/env.py:185``) and the auto-reset ``reset_env`` (``:149``).
 
-On the H100 the step is bound by device-memory bytes (about 2 KB a lane);
-``csrc/env_step.cu`` runs one warp per lane and reads only the selected
-version of each tile.  See the source for the design.
+On the H100 the step's bytes (about 0.8 KB a lane at 8192 lanes: 0.0019 ms
+at 3.35 TB/s) bound it in principle; in practice the instructions it issues
+do, since a lane's scalar download and QoE math runs on every thread that
+takes the lane.  ``csrc/env_step.cu`` runs a group of 8 threads a lane, each
+thread 8 of its 64 tiles, so that a warp runs four lanes' scalar math in one
+instruction stream (32 threads a lane where a lane has more than 8 history
+entries: :func:`env_step_plan`).  Every load that depends only on a lane's
+state issues at once (its trace's prefix row held in registers when the
+trace has at most 63 seconds), and only the selected version of each tile
+is read.  See the source for the design.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +42,24 @@ from mansy_immersivevideostreaming_torch.sim.simulator import (
 from mansy_immersivevideostreaming_torch.sim.tables import SimTables
 
 NUM_TILES = 64  # the kernel's 8x8 tiling
+BLOCK_THREADS = 128
+
+
+class EnvStepPlan(NamedTuple):
+    """K1's launch: ``group`` threads a lane, ``lanes`` lanes a block of
+    BLOCK_THREADS threads, ``blocks`` blocks; block b takes lanes b * lanes
+    to b * lanes + lanes - 1 (those below N)."""
+    group: int
+    lanes: int
+    blocks: int
+
+
+def env_step_plan(n_lanes: int, past_k: int) -> EnvStepPlan:
+    """8 threads a lane, each holding one history entry, or 32 where the
+    lanes have more than 8 history entries."""
+    group = 8 if past_k <= 8 else 32
+    lanes = BLOCK_THREADS // group
+    return EnvStepPlan(group, lanes, -(-n_lanes // lanes))
 
 
 def env_step_plain(tables: SimTables, samples: torch.Tensor, state: EnvState,
@@ -120,7 +146,7 @@ class _EnvStepArgs(ctypes.Structure):
                 + [(f, _P) for f in _STATE_FIELDS]
                 + [(f, _P) for f in _OUT_FIELDS]
                 + [(f, _I) for f in ("n_lanes", "U", "C", "R", "L", "S", "A", "K",
-                                     "stride", "train", "startup_download")]
+                                     "stride", "train", "startup_download", "group")]
                 + [(f, _F) for f in ("chunk_length", "init_buffer", "max_rate",
                                      "max_throughput")])
 
@@ -175,9 +201,9 @@ def env_step(tables: SimTables, samples: torch.Tensor, state: EnvState,
     N = state.buf.shape[0]
     V, C, R, T = tables.sizes.shape
     K, A = tables.past_k, tables.action_space
-    if T != NUM_TILES or K > 32 or A > 32 or tables.video_rates.shape[0] != R:
-        raise ValueError(f"env_step kernel needs 64 tiles, K <= 32 and A <= 32; got "
-                         f"T={T}, K={K}, A={A}")
+    if T != NUM_TILES or K > 32 or A > 32 or R > 16 or tables.video_rates.shape[0] != R:
+        raise ValueError(f"env_step kernel needs 64 tiles, K <= 32, A <= 32 and R <= 16 "
+                         f"rates; got T={T}, K={K}, A={A}, R={R}")
     if action.dtype != torch.int32:
         action = action.to(torch.int32)
     scale_table, action_rates = _codec_tables(dev)
@@ -209,6 +235,7 @@ def env_step(tables: SimTables, samples: torch.Tensor, state: EnvState,
         **ptrs, n_lanes=N, U=tables.gt.shape[1], C=C, R=R, L=tables.bw.shape[1],
         S=samples.shape[0], A=A, K=K, stride=int(stride), train=int(bool(train)),
         startup_download=int(tables.startup_download),
+        group=env_step_plan(N, K).group,
         chunk_length=float(tables.chunk_length),
         init_buffer=float(INIT_BUFFER_CHUNKS * tables.chunk_length),
         max_rate=float(tables.max_rate), max_throughput=float(tables.max_throughput))

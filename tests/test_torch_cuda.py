@@ -28,6 +28,7 @@ from mansy_immersivevideostreaming_torch.sim import expert as X
 from mansy_immersivevideostreaming_torch.sim.env import (
     generate_demo_samples, generate_environment_samples, tree_map, viewport_acc_estimate,
 )
+from mansy_immersivevideostreaming_torch.sim.simulator import build_prefix
 from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
 from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V16_NPZ, load_npz_policy
 
@@ -71,6 +72,82 @@ def test_env_step_kernel_matches_plain_on_card(cuda_device):
         assert got[0] is state  # updated in place
         for x, y in zip(_leaves(got), _leaves(ref)):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+def _with_outages(tables, trace_len: int, seed: int):
+    """``tables`` with zero-bandwidth seconds in its traces; with trace_len
+    300, three traces of 300, 211 and 97 seconds drawn as the synthetic ones
+    are (the prefix row too long for registers)."""
+    dev = tables.bw.device
+    bw, lens = tables.bw.cpu().numpy().copy(), tables.bw_len.cpu().numpy()
+    if trace_len == 300:
+        bw = np.random.default_rng(seed).uniform(5e5, 4e6, (3, 300)).astype(np.float32)
+        lens = np.array([300, 211, 97], np.int32)
+        bw[0, 70:74] = 0.0
+        bw[1, 210] = 0.0
+        bw[2, 63:65] = 0.0
+        for k, n in enumerate(lens):
+            bw[k, n:] = 0.0
+    bw[0, 5:8] = 0.0
+    bw[1, 20] = 0.0
+    return tables._replace(bw=torch.as_tensor(bw, device=dev),
+                           bw_len=torch.as_tensor(lens, device=dev),
+                           bw_prefix=build_prefix(bw, lens).to(dev))
+
+
+def _step_until_every_lane_reset(tables, samples, n, rng):
+    """Steps n lanes, started at random seconds of their traces, until every
+    lane has reset at least once; each step from the kernel's state against
+    the plain version (ints exact, floats 1e-5), and two launches from two
+    clones of one state give the same bits."""
+    state = init_lanes(tables, samples, n, seed=n)
+    lens = tables.bw_len[state.trace.long()].cpu().numpy()
+    start = (rng.integers(0, 1 << 20, n) % lens).astype(np.int32)
+    state = state._replace(net=state.net._replace(idx=torch.as_tensor(start, device=samples.device)))
+    reset = torch.zeros(n, dtype=torch.bool, device=samples.device)
+    for step in range(40):
+        acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=samples.device)
+        ref = K1.env_step_plain(tables, samples, tree_map(torch.clone, state), acts, n, True)
+        twin = K1.env_step(tables, samples, tree_map(torch.clone, state), acts, n, True)
+        got = K1.env_step(tables, samples, state, acts, n, True)
+        assert got[0] is state  # updated in place
+        for x, y, z in zip(_leaves(got), _leaves(ref), _leaves(twin)):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+            assert torch.equal(x, z)
+        reset |= got[2]
+        if step >= 6 and bool(reset.all()):
+            break
+    assert bool(reset.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trace_len", [50, 300])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 129, 512, 4095, 4097, 8192])
+def test_env_step_kernel_at_every_block_edge_on_card(cuda_device, n, trace_len):
+    """K1 at lane counts around its blocks of 16 lanes, on the synthetic
+    50-second traces (the prefix row in registers) and on traces of up to 300
+    seconds (from device memory), both with outages, until every lane has
+    reset at least once (episodes of 1 to 6 steps)."""
+    tables = synthetic_sim_tables(3, 4, 3, 12, 4, seed=n, device=cuda_device)
+    rng = np.random.default_rng(n + trace_len)
+    end = torch.as_tensor(rng.integers(6, 12, (3, 4)).astype(np.int32), device=cuda_device)
+    tables = _with_outages(tables._replace(end_chunk=end), trace_len, seed=n)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 37, seed=n), device=cuda_device)
+    _step_until_every_lane_reset(tables, samples, n, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 33, 4097])
+def test_env_step_kernel_with_more_history_on_card(cuda_device, n):
+    """K1 with 12 history entries a lane, which take 32 threads a lane
+    (``env_step_plan``), as the block-edge test runs it."""
+    tables = synthetic_sim_tables(3, 4, 3, 12, 4, seed=n, device=cuda_device)._replace(past_k=12)
+    assert K1.env_step_plan(n, tables.past_k).group == 32
+    rng = np.random.default_rng(n)
+    end = torch.as_tensor(rng.integers(6, 12, (3, 4)).astype(np.int32), device=cuda_device)
+    tables = _with_outages(tables._replace(end_chunk=end), 50, seed=n)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 37, seed=n), device=cuda_device)
+    _step_until_every_lane_reset(tables, samples, n, rng)
 
 
 @pytest.mark.cuda
@@ -331,38 +408,61 @@ def test_gae_kernel_matches_plain_on_card(cuda_device, T, N):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6 * float(y.abs().max()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["clip_norm", "no_value_clip", "no_norm", "per_pref",
-                                     "kl_scalar", "kl_per_pref", "ce"])
-def test_policy_loss_kernel_matches_plain_on_card(cuda_device, variant):
-    from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
-    B = 777
-    g = torch.Generator(device=cuda_device).manual_seed(len(variant))
-    r = lambda *s: torch.randn(*s, device=cuda_device, generator=g)
+POLICY_LOSS_VARIANTS = ["clip_norm", "no_value_clip", "no_norm", "per_pref", "kl_scalar",
+                        "kl_per_pref", "ce"]
+
+
+def _policy_loss_inputs(K9, variant, B, device, seed):
+    """(spec, logits, value) of one K9 variant at B rows, from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device=device, generator=g)
     logits, value = 2.0 * r(B, 15), r(B)
-    action = torch.randint(0, 15, (B,), device=cuda_device, generator=g, dtype=torch.int32)
+    action = torch.randint(0, 15, (B,), device=device, generator=g, dtype=torch.int32)
     if variant == "ce":
-        spec = K9.LossSpec(action=action, ent_coef=0.1)
-        value = None
-    else:
-        logp = torch.log_softmax(logits, -1).gather(1, action.long()[:, None])[:, 0]
-        kl = {"kl_scalar": torch.tensor(0.7), "kl_per_pref": torch.tensor([2.0, 1.0, 0.1, 0.5])}
-        spec = K9.LossSpec(
-            action=action, ent_coef=0.02, old_log_prob=logp + 0.3 * r(B),
-            old_value=value + 0.3 * r(B), adv=0.5 + 2.0 * r(B), ret=1.5 * r(B),
-            pref_id=torch.randint(0, 4, (B,), device=cuda_device, generator=g,
-                                  dtype=torch.int32),
-            anchor_logits=1.5 * r(B, 15) if variant in kl else None,
-            kl_coef=kl[variant].to(cuda_device) if variant in kl else None,
-            value_clip=variant != "no_value_clip", norm_adv=variant != "no_norm",
-            norm_adv_per_pref=variant in ("per_pref", "kl_per_pref"))
-    got = K9.policy_loss(spec, logits, value)
-    ref = K9.policy_loss_plain(spec, logits, value)
+        return K9.LossSpec(action=action, ent_coef=0.1), logits, None
+    logp = torch.log_softmax(logits, -1).gather(1, action.long()[:, None])[:, 0]
+    kl = {"kl_scalar": torch.tensor(0.7), "kl_per_pref": torch.tensor([2.0, 1.0, 0.1, 0.5])}
+    spec = K9.LossSpec(
+        action=action, ent_coef=0.02, old_log_prob=logp + 0.3 * r(B),
+        old_value=value + 0.3 * r(B), adv=0.5 + 2.0 * r(B), ret=1.5 * r(B),
+        pref_id=torch.randint(0, 4, (B,), device=device, generator=g, dtype=torch.int32),
+        anchor_logits=1.5 * r(B, 15) if variant in kl else None,
+        kl_coef=kl[variant].to(device) if variant in kl else None,
+        value_clip=variant != "no_value_clip", norm_adv=variant != "no_norm",
+        norm_adv_per_pref=variant in ("per_pref", "kl_per_pref"))
+    return spec, logits, value
+
+
+def _assert_policy_loss_close(got, ref):
     for x, y in zip(got, ref):
         if y is None:
             assert x is None
         else:
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()) + 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", POLICY_LOSS_VARIANTS)
+def test_policy_loss_kernel_matches_plain_on_card(cuda_device, variant):
+    from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+    spec, logits, value = _policy_loss_inputs(K9, variant, 777, cuda_device, len(variant))
+    _assert_policy_loss_close(K9.policy_loss(spec, logits, value),
+                              K9.policy_loss_plain(spec, logits, value))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 17, 255, 256, 257, 512, 4095, 4096, 4097, 20000])
+@pytest.mark.parametrize("variant", POLICY_LOSS_VARIANTS)
+def test_policy_loss_kernel_at_every_batch_on_card(cuda_device, variant, B):
+    """K9 at batches around its 128-, 256- and 512-row tiles and 16-CTA
+    clusters (each CTA looping over tiles at 20000 rows), against its plain
+    version; two launches give the same bits."""
+    from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+    spec, logits, value = _policy_loss_inputs(K9, variant, B, cuda_device, B + len(variant))
+    got = K9.policy_loss(spec, logits, value)
+    _assert_policy_loss_close(got, K9.policy_loss_plain(spec, logits, value))
+    again = K9.policy_loss(spec, logits, value)
+    assert all(x is None and y is None or torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

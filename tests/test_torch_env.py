@@ -3,9 +3,12 @@
 16 lanes step 40 times through the JAX package's ``step_env`` (vmapped,
 jitted, CPU) and the PyTorch port's (plain path, CPU) with one injected numpy
 action stream, over several episode ends per lane and over traces with
-zero-bandwidth seconds that wrap.  Every ``EnvState`` field, the reward,
-the done flag and every ``LogRecord`` field are compared after each step,
-and the observations before it.
+zero-bandwidth seconds that wrap: the synthetic 50-second traces, and traces
+of 300 and 173 seconds on which the lanes start at random seconds, so that
+cursors run beyond second 64 and the shorter trace wraps (the prefix row is
+then longer than the 64 entries K1 holds in registers).  Every ``EnvState``
+field, the reward, the done flag and every ``LogRecord`` field are compared
+after each step, and the observations before it.
 
 Tolerance: ints and bools exact; floats 1e-5 (absolute and relative).  Both
 packages do the same f32 operations in the same order except the 64-tile
@@ -36,18 +39,27 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def make_tables():
-    """Matching tables: 12 chunks (6-step episodes), traces with outages."""
+def make_tables(long_traces: bool = False):
+    """Matching tables: 12 chunks (6-step episodes), traces with outages; with
+    ``long_traces``, two traces of 300 and 173 seconds drawn as the
+    synthetic ones are."""
     jt = JT.synthetic_sim_tables(num_videos=2, num_users=3, num_traces=2, num_chunks=12,
                                  num_qoe=3, seed=3)
     bw = np.asarray(jt.bw).copy()
+    lens = np.asarray(jt.bw_len)
+    if long_traces:
+        bw = np.random.default_rng(7).uniform(5e5, 4e6, (2, 300)).astype(np.float32)
+        lens = np.array([300, 173], np.int32)
+        bw[0, 70:74] = 0.0
+        bw[1, 173:] = 0.0
+        jt = jt._replace(bw_len=jnp.asarray(lens))
     bw[0, 5:8] = 0.0
     bw[1, 20] = 0.0
-    lens = np.asarray(jt.bw_len)
     jt = jt._replace(bw=jnp.asarray(bw), bw_prefix=JS.build_prefix(bw, lens))
     tt = TT.synthetic_sim_tables(num_videos=2, num_users=3, num_traces=2, num_chunks=12,
                                  num_qoe=3, seed=3, device="cpu")
-    tt = tt._replace(bw=torch.as_tensor(bw), bw_prefix=TT.build_prefix(bw, lens))
+    tt = tt._replace(bw=torch.as_tensor(bw), bw_len=torch.as_tensor(lens),
+                     bw_prefix=TT.build_prefix(bw, lens))
     samples = TE.generate_demo_samples(2, 3, 2, 3, 10, seed=0)
     return jt, tt, samples
 
@@ -70,17 +82,24 @@ def assert_trees_close(port, ref, what):
     assert len(leaves(port)) == len(leaves(ref))
 
 
-@pytest.mark.parametrize("train", [False, True])
-def test_step_env_lockstep_with_injected_actions(train):
-    jt, tt, samples = make_tables()
+@pytest.mark.parametrize("train,long_traces", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(True, True, id="long_traces")])
+def test_step_env_lockstep_with_injected_actions(train, long_traces):
+    jt, tt, samples = make_tables(long_traces)
     jstate = JR.init_lanes(jt, jnp.asarray(samples), N, seed=1)
     tstate = TR.init_lanes(tt, torch.as_tensor(samples), N, seed=1)
     assert_trees_close(tstate, jstate, "init")
+    if long_traces:  # lanes resume at random seconds of their traces
+        lens = np.asarray(jt.bw_len)[np.asarray(jstate.trace)]
+        idx = (np.random.default_rng(9).integers(0, 1 << 20, N) % lens).astype(np.int32)
+        jstate = jstate._replace(net=jstate.net._replace(idx=jnp.asarray(idx)))
+        tstate = tstate._replace(net=tstate.net._replace(idx=torch.as_tensor(idx)))
     jstep = jax.jit(jax.vmap(lambda s, a: JE.step_env(jt, jnp.asarray(samples), s, a, N,
                                                       train)))
     jobs = jax.jit(jax.vmap(lambda s: JE.observe_mansy(jt, s)))
     actions = np.random.default_rng(5).integers(0, 15, (T, N)).astype(np.int32)
-    dones = 0
+    dones = furthest = 0
     for t in range(T):
         jo, to = jobs(jstate), TE.observe_mansy(tt, tstate)
         assert sorted(jo) == sorted(to)
@@ -95,7 +114,9 @@ def test_step_env_lockstep_with_injected_actions(train):
         np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), rtol=TOL, atol=TOL)
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
         dones += int(tdone.sum())
+        furthest = max(furthest, int(tstate.net.idx.max()))
     assert dones >= 2 * N  # more than one episode end per lane on average
+    assert furthest > 64 or not long_traces  # cursors beyond a 64-entry row
 
 
 def test_observe_simple_and_estimators_match_jax():

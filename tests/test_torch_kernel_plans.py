@@ -1,11 +1,18 @@
-"""The launch plan the K10 wrapper computes in Python, K8's refusal of
-gradients, and the gradients of ``MHA.attend`` on the CPU.
+"""The launch plans the K10 and K9 wrappers compute in Python, K8's refusal
+of gradients, and the gradients of ``MHA.attend`` on the CPU.
 
 * ``backward_plan`` (K10): launch A's column groups cover every 128-column
   block with none empty; launch B's depth slices are the largest cluster
   size that splits its 64-row tile evenly and that the batch's 32-deep
   stages fill; the shapes taken at the paths' batches (512 and 4096 rows)
   on a 132-SM card.
+* ``policy_loss_plan`` (K9): one cluster of at most 16 CTAs whose row
+  tiles (CTA r takes tiles r, r + ctas, ...) cover every row exactly once,
+  for every B from 1 to 20000, with no CTA left without a tile; 4 CTAs of
+  128 rows at PPO's 512 rows and 16 of 256 at CE's 4096.
+* ``env_step_plan`` (K1): the blocks' lanes cover every lane exactly once
+  for N from 1 to 20000, with 8 threads a lane, or 32 where the lanes have
+  more than 8 history entries.
 * ``refuse_grad``: raises with grad enabled and any of q, k, v requiring
   grad, and passes under ``torch.no_grad()`` or with none requiring it.
 * ``MHA.attend`` on the CPU (K8's plain version) gives q_in, k and v
@@ -24,6 +31,8 @@ from mansy_immersivevideostreaming_tpu.models.transformer import MHA as JaxMHA
 from mansy_immersivevideostreaming_tpu.models.transformer import causal_mask
 from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
 from mansy_immersivevideostreaming_torch.kernels import attention as K8
+from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
 from mansy_immersivevideostreaming_torch.models.transformer import MHA
 from mansy_immersivevideostreaming_torch.utils.checkpoint import mtio_state_dict_from_flax
 
@@ -55,6 +64,67 @@ def test_backward_plan_at_the_paths_batches():
     CTAs a row tile; eight slices at both."""
     assert K3.backward_plan(512, V9_OFFSETS, H100_SMS) == K3.BackwardPlan(10, 8)
     assert K3.backward_plan(4096, V16_OFFSETS, H100_SMS) == K3.BackwardPlan(2, 8)
+
+
+# -------------------------------------------------------------------- K9
+
+def _rows_of_each_cta(B: int, plan) -> list:
+    """The rows each CTA of the cluster takes, as ``csrc/policy_loss.cu``
+    walks them: CTA r the row tiles r, r + ctas, ... of ``plan.rows`` rows."""
+    tiles = -(-B // plan.rows)
+    return [np.concatenate([np.arange(t * plan.rows, min(B, (t + 1) * plan.rows))
+                            for t in range(r, tiles, plan.ctas)] or [np.zeros(0, int)])
+            for r in range(plan.ctas)]
+
+
+@pytest.mark.parametrize("B", [1, 17, 128, 129, 255, 256, 257, 512, 2048, 2049, 4095, 4096,
+                               4097, 8192, 8193, 20000])
+def test_policy_loss_plan_covers_every_row_once(B):
+    plan = K9.policy_loss_plan(B)
+    assert plan.rows in K9.TILE_ROWS and 1 <= plan.ctas <= K9.MAX_CTAS
+    per_cta = _rows_of_each_cta(B, plan)
+    assert all(len(rows) > 0 for rows in per_cta)  # no CTA without a tile
+    rows = np.concatenate(per_cta)
+    assert len(rows) == B and np.array_equal(np.sort(rows), np.arange(B))
+
+
+def test_policy_loss_plan_for_every_batch_up_to_20000():
+    """Every B from 1 to 20000: the cluster's tiles cover the batch, the
+    last CTA's first tile starts inside it, and a plan with more rows a tile
+    is taken only where the fewer would need more than 16 CTAs."""
+    for B in range(1, 20001):
+        rows, ctas = K9.policy_loss_plan(B)
+        tiles = -(-B // rows)
+        assert 1 <= ctas <= K9.MAX_CTAS and ctas == min(K9.MAX_CTAS, tiles)
+        assert (ctas - 1) * rows < B                   # every CTA starts inside the batch
+        assert -(-tiles // ctas) * ctas * rows >= B    # the tiles the CTAs walk cover it
+        smaller = [r for r in K9.TILE_ROWS if r < rows]
+        assert all(-(-B // r) > K9.MAX_CTAS for r in smaller)
+
+
+def test_policy_loss_plan_at_the_paths_batches():
+    assert K9.policy_loss_plan(512) == K9.PolicyLossPlan(128, 4)
+    assert K9.policy_loss_plan(4096) == K9.PolicyLossPlan(256, 16)
+
+
+# -------------------------------------------------------------------- K1
+
+@pytest.mark.parametrize("past_k", [8, 9, 32])
+def test_env_step_plan_covers_every_lane_once(past_k):
+    """Block b takes lanes b * lanes .. b * lanes + lanes - 1, those below N
+    (``csrc/env_step.cu``); a group of ``group`` threads a lane, one history
+    entry a thread, fills the block's threads, and no block is empty."""
+    for n in range(1, 20001):
+        group, lanes, blocks = K1.env_step_plan(n, past_k)
+        assert group * lanes == K1.BLOCK_THREADS and past_k <= group
+        assert (blocks - 1) * lanes < n <= blocks * lanes
+        assert group == (8 if past_k <= 8 else 32)
+
+
+def test_env_step_plan_at_the_paths_widths():
+    """Every path's lanes (K = 8) take 8 threads a lane, 16 lanes a block."""
+    for n in (32, 64, 128, 512, 8192):
+        assert K1.env_step_plan(n, 8) == K1.EnvStepPlan(8, 16, n // 16)
 
 
 # -------------------------------------------------------------------- K8
