@@ -10,10 +10,11 @@ It imports no JAX.
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent``, DIR is another checkout of the repo (the parent commit's,
-unpacked with ``git archive``): its K10, K8, K1 and K9 are built from its
-own sources into its own build directory and timed beside this tree's on
-the same inputs (``earlier_ms``; K1 and K9 also with the spread of their 15
-timings, ``earlier_ms_range``).
+unpacked with ``git archive``): its K10, K8, K1, K9, K2 and K7 are built
+from its own sources into its own build directory and timed beside this
+tree's on the same inputs (``earlier_ms``; K1, K9, K2 and K7 also with the
+spread of their 15 timings, ``earlier_ms_range``; K2 and K7 with
+``earlier_bits_equal``).
 
 Phases:
 
@@ -30,6 +31,8 @@ Phases:
    K1 is held and timed at each path's width (32, 64, 128, 512 and 8192
    lanes: DAgger, expert, train, serve, collect), with the spread of its 15
    timings; two launches from two clones of one state give the same bits.
+   K2 likewise at 8192, 512, 128 and 32 lanes, with 779 and 795 columns
+   (two launches bit-equal).
 3. serve: deterministic evaluation of the committed v9 weights over the
    1440-episode test grid's shape, in lane chunks of 512; every lane must
    finish an episode, and the first-done masks and every episode record
@@ -37,6 +40,8 @@ Phases:
    profiled once every path has been timed (``step_profile``: the card's
    busy share of a step, the costliest device and host ops).
 4. collect: the sampling rollout collector, 8192 lanes x 128 steps.
+   PROFILE_COLLECT_STEPS steps are profiled once every path has been timed
+   (``step_profile``).
 5. expert: ``run_expert_episodes`` over the 1440-episode grid at the CLI's
    defaults (horizon 4, lane chunks of 64), privileged mode, on K5's
    tables; every lane finishes an episode, and the run is held against the
@@ -82,8 +87,8 @@ against ``scaled_dot_product_attention`` (math backend; its default backend
 is K8's yardstick; two launches give the same bits), with the sums of a
 viewport batch's 62 launches (times and bounds), and that K8 refuses to run
 where autograd would need its backward; K7 in metrics mode (F = 15) and
-chunk mode (frequency 5), and on a grid of positions on and beside every
-pixel boundary that moves a map.
+chunk mode (frequency 5; two launches of each give the same bits), and on a
+grid of positions on and beside every pixel boundary that moves a map.
 
 9. vp_test: ``run_models --test``'s loop (``run_models.test_split``) over
    the Jin2022 test splits' shape (test_seen and test_unseen, each 3 videos
@@ -160,6 +165,7 @@ DAGGER_ROUNDS = 2       # phase 8: timed rounds after the initial fit
 UPDATE_PASSES = 3       # phases 7, 8: unprofiled timings of an update loop (median)
 PROFILE_CE_STEPS = 20   # phase 8: CE steps of the profiled loop (phase 7: one PPO update)
 PROFILE_TOP = 6         # device and host ops reported per profiled loop
+PROFILE_COLLECT_STEPS = 16  # collect steps of the profiled loop (8192 lanes)
 VP_BATCH = 512          # run_models / predict --bs default
 VP_PASSES = 3           # timed passes of vp_test and vp_export (median and spread)
 VP_ATOL = 2e-5          # phase 9: predictions through the kernels against the plain path
@@ -369,6 +375,49 @@ def observe_bytes(tables, state, width: int) -> int:
             + n_unique(state.qoe_id, sizes=(tables.qoe_weights.shape[0],)) * 3 * 4)
 
 
+def observe_cases(K2, tables, state, parent=None) -> dict:
+    """K2 at each path's width (the first n of the lanes): against its plain
+    version (RTOL), two launches bit-equal, and the kernel's (with the spread
+    of its 15 timings), the plain version's and, with ``parent``, the parent
+    commit's kernel's ms, with its plan and bound; ``write_floor_ms`` is
+    torch's ``fill_`` of the same [n, F] output, the time a kernel takes to
+    write it alone."""
+    from mansy_immersivevideostreaming_torch.sim.env import tree_map
+
+    cases = {}
+    for n in K2_WIDTHS:
+        sub = tree_map(lambda x: x[:n].contiguous(), state)
+        x = K2.observe_mansy_pack(tables, sub)
+        x_ref = K2.observe_mansy_pack_plain(tables, sub)
+        if not bool(close(x, x_ref).all()):
+            raise AssertionError(f"observe_mansy_pack ({n} lanes, {x.shape[1]} columns) "
+                                 "disagrees with its plain version")
+        if not torch.equal(K2.observe_mansy_pack(tables, sub), x):
+            raise AssertionError(f"observe_mansy_pack ({n} lanes): two launches differ")
+        out = torch.empty_like(x)
+        case = dict(lanes=n, width=x.shape[1], plan=K2.observe_plan(n)._asdict(),
+                    max_abs_err=float((x - x_ref).abs().max()),
+                    **gpu_spread(lambda: K2.observe_mansy_pack(tables, sub, out=out)),
+                    plain_ms=gpu_ms(lambda: K2.observe_mansy_pack_plain(tables, sub), 5),
+                    bound_ms=1e3 * observe_bytes(tables, sub, x.shape[1]) / HBM_BYTES_PER_S,
+                    write_floor_ms=gpu_ms(lambda: out.fill_(0.0)))
+        if parent is not None:  # the parent commit's kernel on the same lanes
+            case["earlier_bits_equal"] = torch.equal(
+                parent.observe.observe_mansy_pack(tables, sub), x)
+            case.update(gpu_spread(lambda: parent.observe.observe_mansy_pack(
+                tables, sub, out=out), "earlier_ms"))
+        cases[str(n)] = case
+    return cases
+
+
+def observe_row(cases) -> dict:
+    """K2's row: the widest case's numbers, with every case beside them."""
+    main = cases[str(LANES)]
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()), width=main["width"],
+                **{k: main[k] for k in main if k.endswith("ms") or k.endswith("range")},
+                bound_by="bytes", library_ms=None, cases=cases)
+
+
 def actor_critic_cost(w, N: int, A: int):
     """(flops, bytes) of K3: the branch, fc and head products (2 flops per
     multiply-add), the logit prior's standardization (about 6 flops an
@@ -448,11 +497,12 @@ def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
 
 
 def load_parent(root: str):
-    """The K10, K8, K1 and K9 wrappers of another checkout of the repo at
-    ``root`` (the parent commit's, unpacked there), each bound to that
-    checkout's ``kernels/build.py``, so they build its own ``csrc/`` into its
-    own ``kernels/build/``.  Returns a namespace with ``build``,
-    ``actor_critic``, ``attention``, ``env_step`` and ``policy_loss``."""
+    """The K10, K8, K1, K9, K2 and K7 wrappers of another checkout of the
+    repo at ``root`` (the parent commit's, unpacked there), each bound to
+    that checkout's ``kernels/build.py``, so they build its own ``csrc/``
+    into its own ``kernels/build/``.  Returns a namespace with ``build``,
+    ``actor_critic``, ``attention``, ``env_step``, ``policy_loss``,
+    ``observe`` and ``tile_occupancy``."""
     import importlib.util
     import types
     from mansy_immersivevideostreaming_torch import kernels
@@ -472,12 +522,14 @@ def load_parent(root: str):
 
     own = module("build")
     return types.SimpleNamespace(build=own, **{name: module(name, own) for name in (
-        "actor_critic", "attention", "env_step", "policy_loss")})
+        "actor_critic", "attention", "env_step", "policy_loss", "observe", "tile_occupancy")})
 
 
 # timed beside this tree's
-PARENT_KERNELS = ("actor_critic_backward", "attention", "env_step", "policy_loss")
+PARENT_KERNELS = ("actor_critic_backward", "attention", "env_step", "policy_loss", "observe",
+                  "tile_occupancy")
 K1_WIDTHS = {"dagger": 32, "expert": 64, "train": 128, "serve": 512, "collect": LANES}
+K2_WIDTHS = (LANES, SERVE_CHUNK, 128, DAGGER_LANES)  # collect, serve, train, DAgger
 
 
 def kernel_phase(dev, parent=None):
@@ -518,18 +570,9 @@ def kernel_phase(dev, parent=None):
     actions = torch.as_tensor(rng.integers(0, 15, N).astype(np.int32), device=dev)
     rows = {}
 
-    # K2
+    # K2 at each path's width
+    rows["observe_mansy_pack"] = observe_row(observe_cases(K2, tables, state, parent))
     x = K2.observe_mansy_pack(tables, state)
-    x_ref = K2.observe_mansy_pack_plain(tables, state)
-    if not bool(close(x, x_ref).all()):
-        raise AssertionError("observe_mansy_pack disagrees with its plain version")
-    out = torch.empty_like(x)
-    rows["observe_mansy_pack"] = dict(
-        max_abs_err=float((x - x_ref).abs().max()),
-        ms=gpu_ms(lambda: K2.observe_mansy_pack(tables, state, out=out)),
-        plain_ms=gpu_ms(lambda: K2.observe_mansy_pack_plain(tables, state), 5),
-        bound_ms=1e3 * observe_bytes(tables, state, x.shape[1]) / HBM_BYTES_PER_S,
-        bound_by="bytes", library_ms=None)
 
     # K3 (v9 weights, sampling noise)
     policy = load_npz_policy(device=dev)
@@ -666,10 +709,12 @@ def check_search(name, got, ref_action, ref_margin, first, wsum):
     return int((~decisive).sum()), int((action != ref_action).sum()), err
 
 
-def expert_kernel_phase(dev):
+def expert_kernel_phase(dev, parent=None):
     """K5 on the train split's tables, K4 on SEARCH_LANES lanes in every mode
-    at horizon 4, then K2 and K3 at LANES with the action values attached and
-    the v16 weights.  Returns (rows of K4 and K5, K2 and K3's extra fields)."""
+    at horizon 4, then K2 at each path's width and K3 at LANES with the
+    action values attached and the v16 weights (with ``parent``, the parent
+    commit's K2 timed beside K2).  Returns (rows of K4 and K5, K2 and K3's
+    extra fields)."""
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
     from mansy_immersivevideostreaming_torch.kernels import env_step as K1
@@ -767,18 +812,8 @@ def expert_kernel_phase(dev):
     for _ in range(7):
         acts = torch.as_tensor(rng.integers(0, 15, LANES).astype(np.int32), device=dev)
         lanes, *_ = K1.env_step_plain(tav, samples, lanes, acts, LANES, True)
+    extra["observe_mansy_pack"] = observe_row(observe_cases(K2, tav, lanes, parent))
     x = K2.observe_mansy_pack(tav, lanes)
-    x_ref = K2.observe_mansy_pack_plain(tav, lanes)
-    if not bool(close(x, x_ref).all()):
-        raise AssertionError("observe_mansy_pack with action values disagrees with its plain "
-                             "version")
-    out = torch.empty_like(x)
-    extra["observe_mansy_pack"] = dict(
-        max_abs_err=float((x - x_ref).abs().max()), width=x.shape[1],
-        ms=gpu_ms(lambda: K2.observe_mansy_pack(tav, lanes, out=out)),
-        plain_ms=gpu_ms(lambda: K2.observe_mansy_pack_plain(tav, lanes), 5),
-        bound_ms=1e3 * observe_bytes(tav, lanes, x.shape[1]) / HBM_BYTES_PER_S,
-        bound_by="bytes")
     w = load_npz_policy(DAGGER_V16_NPZ, device=dev).packed_weights()
     got = K3.actor_critic_forward(w, x)
     ref = K3.actor_critic_forward_plain(w, x)
@@ -1159,23 +1194,42 @@ def expert_phase(dev, counters):
 
 
 def profile_phase(dev):
-    """Where a serve step's (512 lanes) and an expert decision's (64 lanes)
-    time goes: one lane chunk's episode each, per step.  Run after every
-    path is timed: a profiler session leaves tracing on the host that would
-    slow the later phases."""
+    """Where a serve step's (512 lanes), a collect step's (8192 lanes) and
+    an expert decision's (64 lanes) time goes: one lane chunk's episode of
+    serve and of the expert, PROFILE_COLLECT_STEPS steps of collect, per
+    step.  Run after every path is timed: a profiler session leaves tracing
+    on the host that would slow the later phases."""
     from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes, make_collector
     from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
 
     policy, tables, samples, _ = serve_setup(dev)
     serve = profile_update(
         lambda: evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True),
         episode_step_bound(tables))
+    V, U, NT, C, Q = TRAIN_SHAPE  # collect as phase 4 runs it
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
+    policy = load_npz_policy(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    lanes = [init_lanes(tables, samples, LANES)]
+    collect_fn = make_collector(tables, samples, LANES, PROFILE_COLLECT_STEPS, train=True)
+
+    def collect():  # each run goes on from the lanes the last one left
+        lanes[0], *_ = collect_fn(policy, lanes[0], gen)
+
+    collect()  # warm-up
+    collect = profile_update(collect, PROFILE_COLLECT_STEPS)
     tables, etables, samples, _ = expert_setup(dev)
     expert = profile_update(
         lambda: run_expert_episodes(tables, etables, samples[:EXPERT_CHUNK], HORIZON,
                                     lane_chunk=EXPERT_CHUNK),
         episode_step_bound(tables))
-    return serve, expert
+    return serve, collect, expert
 
 
 # ---------------------------------------------------------------- phase 2c
@@ -1863,15 +1917,31 @@ def viewport_kernel_phase(dev, parent=None):
         same = same and bool(close(a, b).all())
     if not same:
         raise AssertionError("tile_occupancy disagrees with its plain version on the boundary grid")
-    chunk = dict(frequency=freq, ms=gpu_ms(lambda: K7.chunk_maps(gt, pred, freq)),
+    # two launches of each mode give the same bits
+    if not all(torch.equal(a, b) for a, b in zip(K7.chunk_maps(gt, pred, freq),
+                                                  K7.chunk_maps(gt, pred, freq))):
+        raise AssertionError("chunk_maps: two launches differ")
+    if not all(torch.equal(a, b) for a, b in zip(K7.trajectory_metrics(gt, pred),
+                                                  K7.trajectory_metrics(gt, pred))):
+        raise AssertionError("trajectory_metrics: two launches differ")
+    chunk = dict(frequency=freq, plan=K7.chunk_plan(B)._asdict(),
+                 **gpu_spread(lambda: K7.chunk_maps(gt, pred, freq)),
                  plain_ms=gpu_ms(lambda: K7.chunk_maps_plain(gt, pred, freq)),
                  **bound(*occupancy_cost(B, F, freq)))
+    metrics = dict(**gpu_spread(lambda: K7.trajectory_metrics(gt, pred)),
+                   plain_ms=gpu_ms(lambda: K7.trajectory_metrics_plain(gt, pred)))
+    if parent is not None:  # the parent commit's kernel on the same inputs
+        P7 = parent.tile_occupancy
+        chunk["earlier_bits_equal"] = all(torch.equal(a, b) for a, b in zip(
+            P7.chunk_maps(gt, pred, freq), K7.chunk_maps(gt, pred, freq)))
+        chunk.update(gpu_spread(lambda: P7.chunk_maps(gt, pred, freq), "earlier_ms"))
+        metrics["earlier_bits_equal"] = all(torch.equal(a, b) for a, b in zip(
+            P7.trajectory_metrics(gt, pred), K7.trajectory_metrics(gt, pred)))
+        metrics.update(gpu_spread(lambda: P7.trajectory_metrics(gt, pred), "earlier_ms"))
     rows["tile_occupancy"] = dict(
         max_abs_err=max(m_err, float((iou - riou).abs().max())), maps_equal=True,
         boundary_grid_points=int(grid.shape[0]), shape=dict(B=B, F=F, mode="metrics"),
-        ms=gpu_ms(lambda: K7.trajectory_metrics(gt, pred)),
-        plain_ms=gpu_ms(lambda: K7.trajectory_metrics_plain(gt, pred)),
-        **bound(*occupancy_cost(B, F)), library_ms=None, chunk_mode=chunk)
+        **metrics, **bound(*occupancy_cost(B, F)), library_ms=None, chunk_mode=chunk)
     return rows
 
 
@@ -2073,7 +2143,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout of the repo (e.g. the parent commit's, from "
-                             "git archive): its K10, K8, K1 and K9 are built and timed "
+                             "git archive): its K10, K8, K1, K9, K2 and K7 are built and timed "
                              "beside this tree's (earlier_ms)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2105,7 +2175,7 @@ def main() -> int:
     t0 = time.time()
     parent = load_parent(opts.parent) if opts.parent else None
     rows = kernel_phase(dev, parent)
-    expert_rows, extra = expert_kernel_phase(dev)
+    expert_rows, extra = expert_kernel_phase(dev, parent)
     rows.update(expert_rows)
     for name, fields in extra.items():
         rows[name]["action_values"] = fields
@@ -2124,8 +2194,10 @@ def main() -> int:
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
-    paths["serve"]["step_profile"], paths["expert"]["decision_profile"] = profile_phase(dev)
+    (paths["serve"]["step_profile"], paths["collect"]["step_profile"],
+     paths["expert"]["decision_profile"]) = profile_phase(dev)
     log(f"serve step_profile: {json.dumps(paths['serve']['step_profile'])}")
+    log(f"collect step_profile: {json.dumps(paths['collect']['step_profile'])}")
     log(f"expert decision_profile: {json.dumps(paths['expert']['decision_profile'])}")
     # the kernels each path runs; every one must have launched on it
     training = ("actor_critic_train_forward", "policy_loss", "actor_critic_backward")

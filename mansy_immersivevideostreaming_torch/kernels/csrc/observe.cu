@@ -13,13 +13,42 @@
 //
 // Bound: device-memory bytes.  A gather plus elementwise scaling: each lane
 // reads ~3 KB of tables and state and writes its F floats; the action values
-// add a few hundred flops.  Design: one block per lane; consecutive threads
-// write consecutive columns, so the row store and the slab reads coalesce.
-// Built with -fmad=false, like the other kernels, so the action values
-// round as their plain version does.
+// add a few hundred flops.  At collect's 8192 lanes the output alone (25.5
+// MB) takes about as long to write as torch's fill_ of it.
+//
+// Design.  A group of G threads builds a lane's row in shared memory, a
+// block of `lanes` groups (kernels/observe.py:observe_plan: 4 lanes, whose
+// tile of 4 F floats is a multiple of 16 bytes for any F) its lanes' rows,
+// and the block stores them together.  G is 32 where the blocks fill the
+// card (one warp a lane) and 128 at up to 1024 lanes, where one warp a
+// lane leaves too few warps to hide its chain of loads; the group's first
+// warp then takes the lane's scalars while the other three take its slab
+// and viewport row.  A group takes its lane in two levels of loads, each
+// issued whole before the first use of any of its values:
+//   1. the lane's indices (one broadcast load a warp), and on the first
+//      warp its buffer, previous quality, history entry k on thread k < K
+//      (seven fields, one load each) and one-hot;
+//   2. what the indices select: the chunk's size and quality slab as float4
+//      (its offset (v C + c) R T is a multiple of 4 floats), the predicted
+//      viewport row, and on the first warp the preference weights and, with
+//      action values, thread o's entries of the five action-value tables.
+// Then each lane's shared values once, on the first warp: the weights over
+// their sum and, with action values, bw_hat and the accuracy estimate
+// (their sums over the history run over k in order, by shuffles, as the
+// plain version's loop).  One barrier, then the block's [lanes, F] tile
+// goes out with 16-byte stores.  Where the rows are not contiguous
+// (out_stride != F) or the tile's base is not 16-byte aligned, both checked
+// here at run time, the group writes its row straight to the output.
+// Every column is a copy, one IEEE division or the action-value arithmetic
+// in the plain version's order; built with -fmad=false, like the other
+// kernels, so the action values round as their plain version does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
+
+using mansy::kFull;
 
 // Field order must match kernels/observe.py:_ObserveArgs.
 struct ObserveArgs {
@@ -49,82 +78,240 @@ struct ObserveArgs {
   const float* last_action_one_hot;  // [N, A]
   float* out;                // [N, F] (rows may be strided by out_stride)
   int32_t n_lanes, U, C, RT, T, K, A, F, startup_download;
+  int32_t lanes, group;      // lanes a block, threads a lane (observe_plan)
   int64_t out_stride;
   float max_size, max_rate, max_throughput;
 };
 
-// Column o < A: the exact one-step value of action o; column A: bw_hat
-// (sim/env.py:exact_action_values, in its operation order).
-__device__ float action_value(const ObserveArgs& a, int n, int o, size_t vuc, const float* w,
-                              float wsum) {
-  const float* tp = a.past_throughput + (size_t)n * a.K;
-  float cnt = 0.f, inv = 0.f;  // harmonic_bw_estimate
-  for (int k = 0; k < a.K; ++k) {
-    const bool nz = tp[k] > 0.f;
-    cnt += nz ? 1.f : 0.f;
-    inv += nz ? 1.f / fmaxf(tp[k], 1e-12f) : 0.f;
-  }
-  const float bw_hat = cnt > 0.f ? cnt / fmaxf(inv, 1e-12f) : 0.5f;
-  if (o == a.A) return bw_hat;
-  const size_t i = vuc * a.A + o;
-  float quality = a.av_quality[i], intra = a.av_intra[i];
+namespace {
+
+// What a group's first pass covers: 96 float4 of the slab (the paths' R T
+// is 320 floats; more takes a second pass) and the viewport's T <= 64
+// entries; A <= 32 and K <= 32 take one thread of the first warp each
+// (kernels/observe.py checks the three).
+constexpr int kSlabCover = 96;
+constexpr int kPredCover = 64;
+constexpr int kMaxLanes = 4;  // lanes a block at most (the launch bounds)
+
+// The exact one-step value of an action from its table entries (sim/env.py:
+// exact_action_values, in its operation order).
+__device__ __forceinline__ float action_value(const ObserveArgs& a, float quality, float intra,
+                                              float size, float oq, float oi, float acc,
+                                              float bw_hat, float buf, bool has_prev,
+                                              float prev_quality, const float (&wn)[3]) {
   if (a.av_out_quality) {  // corrected_scores at viewport_acc_estimate
-    const float* pa = a.past_acc + (size_t)n * a.K;
-    float m = 0.f, s = 0.f;
-    for (int k = 0; k < a.K; ++k) {
-      const bool nz = pa[k] > 0.f;
-      m += nz ? 1.f : 0.f;
-      s += nz ? pa[k] : 0.f;
-    }
-    const float iou = m > 0.f ? s / fmaxf(m, 1.f) : 0.8f;
-    const float acc = 2.f * iou / (1.f + iou);
-    const float oq = a.av_out_quality[i], oi = a.av_out_intra[i];
     const float q = acc * quality + (1.f - acc) * oq;
     intra = (acc * intra + (1.f - acc) * oi) + 2.f * acc * (1.f - acc) * fabsf(quality - oq);
     quality = q;
   }
   const float q_n = quality / a.max_rate, intra_n = intra / a.max_rate;
-  const float dt = a.av_size[i] / (bw_hat * a.max_throughput);
-  const float d = dt - a.buf[n];
+  const float dt = size / (bw_hat * a.max_throughput);
+  const float d = dt - buf;
   const float rebuf = d < 0.f ? 0.f : d;  // push_chunk's rebuffer time
-  const float inter = a.has_prev[n] ? fabsf(q_n - a.prev_quality[n]) : 0.f;
-  return (w[0] / wsum) * q_n - (w[1] / wsum) * rebuf - (w[2] / wsum) * (intra_n + inter);
+  const float inter = has_prev ? fabsf(q_n - prev_quality) : 0.f;
+  return wn[0] * q_n - wn[1] * rebuf - wn[2] * (intra_n + inter);
 }
 
-__global__ void observe_kernel(const ObserveArgs a) {
-  const int n = blockIdx.x;
-  const int v = a.video[n], u = a.user[n], c = a.next_chunk[n];
-  const size_t slab = ((size_t)v * a.C + c) * a.RT;
-  const size_t vuc = ((size_t)v * a.U + u) * a.C + c;
-  const size_t hk = (size_t)n * a.K;
-  const float* w = a.qoe_weights + 3 * a.qoe_id[n];
-  const float wsum = (w[0] + w[1]) + w[2];
-  const int n_av = a.av_quality ? a.A + 1 : 0;
-  float* row = a.out + (size_t)n * a.out_stride;
-  for (int j = threadIdx.x; j < a.F; j += blockDim.x) {
-    int o = j;
-    float x;
-    if (o < a.K) { x = a.past_throughput[hk + o]; }
-    else if ((o -= a.K) < a.RT) { x = a.sizes[slab + o] / a.max_size; }
-    else if ((o -= a.RT) < a.RT) { x = a.qualities[slab + o] / a.max_rate; }
-    else if ((o -= a.RT) < a.T) { x = a.pred[vuc * a.T + o]; }
-    else if ((o -= a.T) < a.K) { x = a.past_acc[hk + o]; }
-    else if ((o -= a.K) < a.K) { x = a.past_vq[hk + o]; }
-    else if ((o -= a.K) < a.K) { x = a.past_var[hk + o]; }
-    else if ((o -= a.K) < a.K) { x = a.past_rebuf[hk + o]; }
-    else if ((o -= a.K) < 1) { x = a.buf[n] / (float)a.startup_download; }
-    else if ((o -= 1) < 3) { x = w[o] / wsum; }
-    else if ((o -= 3) < n_av) { x = action_value(a, n, o, vuc, w, wsum); }
-    else if ((o -= n_av) < a.K) { x = a.past_rate_in[hk + o]; }
-    else if ((o -= a.K) < a.K) { x = a.past_rate_out[hk + o]; }
-    else { o -= a.K; x = a.last_action_one_hot[(size_t)n * a.A + o]; }
-    row[j] = x;
+// Lane n's row into `row` (the block's tile in shared memory, or the
+// output row), by a group of G threads (a multiple of 32); g is the
+// thread's index in the group.  The group's first warp takes the history,
+// the one-hot, the scalars and the action values; the slab and the
+// viewport row go to the group's other warps (to the first too when G is
+// 32), so that its chain of scalar work and the slab's divisions overlap.
+template <int G>
+__device__ __forceinline__ void build_row(const ObserveArgs& a, int n, float* row, int g) {
+  constexpr int GS = G > 32 ? G - 32 : G;            // threads on the slab and viewport
+  constexpr int kSlab = (kSlabCover + GS - 1) / GS;  // float4 of the slab a thread, first pass
+  constexpr int kPred = (kPredCover + GS - 1) / GS;  // viewport entries a thread, first pass
+  const int K = a.K, A = a.A, T = a.T, RT = a.RT;
+  const int n_av = a.av_quality ? A + 1 : 0;
+  const int c_size = K, c_qual = c_size + RT, c_pred = c_qual + RT, c_acc = c_pred + T;
+  const int c_buf = c_acc + 4 * K, c_w = c_buf + 1, c_av = c_w + 3, c_rin = c_av + n_av;
+  const int c_hot = c_rin + 2 * K;
+  const bool lead = g < 32;  // warp-uniform
+  const int k = g;           // on the first warp: the thread's index in it
+  const int gs = G > 32 ? g - 32 : g;  // on the slab and viewport: the thread's index there
+
+  // 1. indices and state
+  const int v = __ldg(a.video + n), u = __ldg(a.user + n), c = __ldg(a.next_chunk + n);
+  int qoe_id = 0;
+  float buf = 0.f, hot = 0.f, prev_quality = 0.f;
+  bool has_prev = false;
+  float hist[7] = {};  // throughput, acc, vq, var, rebuf, rate_in, rate_out
+  if (lead) {
+    qoe_id = __ldg(a.qoe_id + n);
+    buf = __ldg(a.buf + n);
+    if (k < K) {
+      const size_t h = (size_t)n * K + k;
+      hist[0] = __ldg(a.past_throughput + h);
+      hist[1] = __ldg(a.past_acc + h);
+      hist[2] = __ldg(a.past_vq + h);
+      hist[3] = __ldg(a.past_var + h);
+      hist[4] = __ldg(a.past_rebuf + h);
+      hist[5] = __ldg(a.past_rate_in + h);
+      hist[6] = __ldg(a.past_rate_out + h);
+    }
+    if (k < A) hot = __ldg(a.last_action_one_hot + (size_t)n * A + k);
+    if (n_av) {
+      prev_quality = __ldg(a.prev_quality + n);
+      has_prev = a.has_prev[n];
+    }
   }
+
+  // 2. what the indices select
+  const size_t slab = ((size_t)v * a.C + c) * RT;
+  const size_t vuc = ((size_t)v * a.U + u) * a.C + c;
+  const bool vec = RT % 4 == 0 && (((uintptr_t)a.sizes | (uintptr_t)a.qualities) & 15) == 0;
+  const int rt4 = vec ? RT / 4 : 0;
+  float4 s4[kSlab], r4[kSlab];
+#pragma unroll
+  for (int j = 0; j < kSlab; ++j) {
+    const int i = gs + GS * j;
+    if (gs >= 0 && i < rt4) {
+      s4[j] = __ldg(reinterpret_cast<const float4*>(a.sizes + slab) + i);
+      r4[j] = __ldg(reinterpret_cast<const float4*>(a.qualities + slab) + i);
+    }
+  }
+  float pv[kPred];
+#pragma unroll
+  for (int j = 0; j < kPred; ++j) {
+    const int t = gs + GS * j;
+    if (gs >= 0 && t < T) pv[j] = __ldg(a.pred + vuc * T + t);
+  }
+  float w0 = 0.f, w1 = 0.f, w2 = 0.f;
+  float av_q = 0.f, av_i = 0.f, av_s = 0.f, av_oq = 0.f, av_oi = 0.f;
+  if (lead) {
+    const float* w = a.qoe_weights + 3 * qoe_id;
+    w0 = __ldg(w);
+    w1 = __ldg(w + 1);
+    w2 = __ldg(w + 2);
+    if (n_av && k < A) {
+      const size_t i = vuc * A + k;
+      av_q = __ldg(a.av_quality + i);
+      av_i = __ldg(a.av_intra + i);
+      av_s = __ldg(a.av_size + i);
+      if (a.av_out_quality) {
+        av_oq = __ldg(a.av_out_quality + i);
+        av_oi = __ldg(a.av_out_intra + i);
+      }
+    }
+  }
+
+  // the slab and the viewport row
+#pragma unroll
+  for (int j = 0; j < kSlab; ++j) {
+    const int i = gs + GS * j;
+    if (gs >= 0 && i < rt4) {
+      float* sz = row + c_size + 4 * i;
+      float* ql = row + c_qual + 4 * i;
+      sz[0] = s4[j].x / a.max_size;
+      sz[1] = s4[j].y / a.max_size;
+      sz[2] = s4[j].z / a.max_size;
+      sz[3] = s4[j].w / a.max_size;
+      ql[0] = r4[j].x / a.max_rate;
+      ql[1] = r4[j].y / a.max_rate;
+      ql[2] = r4[j].z / a.max_rate;
+      ql[3] = r4[j].w / a.max_rate;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPred; ++j) {
+    const int t = gs + GS * j;
+    if (gs >= 0 && t < T) row[c_pred + t] = pv[j];
+  }
+  // what the first pass leaves: slab float4 past GS kSlab (R > 6), or the
+  // slab's floats when it is not read as float4
+  if (gs >= 0) {
+    for (int i = 4 * min(rt4, GS * kSlab) + gs; i < RT; i += GS) {
+      row[c_size + i] = __ldg(a.sizes + slab + i) / a.max_size;
+      row[c_qual + i] = __ldg(a.qualities + slab + i) / a.max_rate;
+    }
+  }
+  if (!lead) return;
+
+  // the lane's shared values, once
+  const float wsum = (w0 + w1) + w2;
+  const float wn[3] = {w0 / wsum, w1 / wsum, w2 / wsum};
+  float bw_hat = 0.f, acc = 0.f;
+  if (n_av) {  // harmonic_bw_estimate and viewport_acc_estimate
+    const float tp = hist[0], pa = hist[1];
+    const float nz = tp > 0.f ? 1.f : 0.f, inv = tp > 0.f ? 1.f / fmaxf(tp, 1e-12f) : 0.f;
+    const float acc_nz = pa > 0.f ? 1.f : 0.f, acc_k = pa > 0.f ? pa : 0.f;
+    float cnt = 0.f, inv_sum = 0.f, m = 0.f, s = 0.f;
+    for (int j = 0; j < K; ++j) {
+      cnt += __shfl_sync(kFull, nz, j);
+      inv_sum += __shfl_sync(kFull, inv, j);
+      m += __shfl_sync(kFull, acc_nz, j);
+      s += __shfl_sync(kFull, acc_k, j);
+    }
+    bw_hat = cnt > 0.f ? cnt / fmaxf(inv_sum, 1e-12f) : 0.5f;
+    const float iou = m > 0.f ? s / fmaxf(m, 1.f) : 0.8f;
+    acc = 2.f * iou / (1.f + iou);
+  }
+  if (k < K) {
+    row[k] = hist[0];
+#pragma unroll
+    for (int f = 1; f < 5; ++f) row[c_acc + (f - 1) * K + k] = hist[f];
+    row[c_rin + k] = hist[5];
+    row[c_rin + K + k] = hist[6];
+  }
+  if (k < A) row[c_hot + k] = hot;
+  if (k == 0) {
+    row[c_buf] = buf / (float)a.startup_download;
+    row[c_w] = wn[0];
+    row[c_w + 1] = wn[1];
+    row[c_w + 2] = wn[2];
+    if (n_av) row[c_av + A] = bw_hat;
+  }
+  if (n_av && k < A) {
+    row[c_av + k] = action_value(a, av_q, av_i, av_s, av_oq, av_oi, acc, bw_hat, buf, has_prev,
+                                 prev_quality, wn);
+  }
+}
+
+}  // namespace
+
+template <int G>
+__global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArgs a) {
+  extern __shared__ __align__(16) float tile[];  // [lanes, F]
+  const int n0 = blockIdx.x * a.lanes;
+  const int nl = min(a.lanes, a.n_lanes - n0);
+  const int l = threadIdx.x / G, g = threadIdx.x % G;
+  const int F = a.F;
+  float* dst = a.out + (size_t)n0 * a.out_stride;
+  if (a.out_stride != F || ((uintptr_t)dst & 15) != 0) {  // row by row, straight out
+    if (l < nl) build_row<G>(a, n0 + l, dst + (size_t)l * a.out_stride, g);
+    return;
+  }
+  if (l < nl) build_row<G>(a, n0 + l, tile + l * F, g);
+  __syncthreads();
+  const int count = nl * F, n4 = count / 4;
+  const float4* t4 = reinterpret_cast<const float4*>(tile);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = t4[i];
+  for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x) dst[i] = tile[i];
+}
+
+template <int G>
+int launch(const ObserveArgs& args, cudaStream_t stream) {
+  const int lanes = args.lanes;
+  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)lanes * args.F * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        observe_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (args.n_lanes + lanes - 1) / lanes;
+  if (blocks > 0) observe_kernel<G><<<blocks, lanes * G, smem, stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int observe_launch(const ObserveArgs* args, void* stream) {
-  if (args->n_lanes > 0) {
-    observe_kernel<<<args->n_lanes, 256, 0, (cudaStream_t)stream>>>(*args);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (args->group) {  // observe_plan's two groups
+    case 32: return launch<32>(*args, s);
+    case 128: return launch<128>(*args, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -9,14 +9,16 @@ the actor-critic kernel reads it as is; the fields the net does not read
 follow.  :func:`unpack_obs` gives back the 13- or 14-field dict.
 
 On the H100 the pass is bound by device-memory bytes (a gather plus
-elementwise scaling); ``csrc/observe.cu`` writes each row with coalesced
-stores.
+elementwise scaling); ``csrc/observe.cu`` builds each lane's row in shared
+memory with a group of threads (one warp, or four at up to 1024 lanes), its
+loads in two levels and its shared values once, and stores a block's tile of
+rows with 16-byte stores where it can (:func:`observe_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -39,6 +41,33 @@ _LAYOUT = (("throughput", ("K",)), ("next_chunk_size", ("R", "T")),
            ("action_one_hot", ("A",)))
 NET_FIELDS = 10  # fields MansyFeatureNet reads without action values
 AV_FIELD = ("action_values", ("A+1",))
+LANES = 4            # lanes a block: a tile of 4 rows of f32 is a multiple of 16 bytes
+WIDE_GROUP = 32      # threads a lane where the blocks fill the card
+NARROW_GROUP = 128   # threads a lane at up to NARROW_LANES lanes
+NARROW_LANES = 1024  # 256 blocks: at most two a streaming multiprocessor of the H100
+MAX_HISTORY = 32     # K: one history entry a thread of the lane's first warp
+MAX_ACTIONS = 32     # A: one action a thread of the lane's first warp
+MAX_TILES = 64       # T: the viewport row in one pass of the group
+
+
+class ObservePlan(NamedTuple):
+    """K2's launch: ``lanes`` lanes a block of ``lanes * threads`` threads,
+    ``blocks`` blocks; block b takes lanes b * lanes to b * lanes + lanes - 1
+    (those below N), threads l * threads to l * threads + threads - 1 of it
+    lane b * lanes + l."""
+    lanes: int
+    threads: int
+    blocks: int
+
+
+def observe_plan(n_lanes: int) -> ObservePlan:
+    """Blocks of LANES lanes.  Where the blocks fill the card, one warp a
+    lane (2048 blocks of 128 threads at collect's 8192 lanes); at up to
+    NARROW_LANES lanes, too few blocks for that, four warps a lane, the
+    first on the lane's scalars and action values, the others on its slab
+    and viewport row (128 blocks of 512 threads at serve's 512 lanes)."""
+    group = NARROW_GROUP if n_lanes <= NARROW_LANES else WIDE_GROUP
+    return ObservePlan(LANES, group, -(-n_lanes // LANES))
 
 
 def obs_layout(K: int, R: int, T: int, A: int,
@@ -121,7 +150,7 @@ class _ObserveArgs(ctypes.Structure):
     """Mirror of ``ObserveArgs`` in ``csrc/observe.cu`` (same field order)."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS + ("out",)]
                 + [(f, ctypes.c_int32) for f in ("n_lanes", "U", "C", "RT", "T", "K", "A", "F",
-                                                 "startup_download")]
+                                                 "startup_download", "lanes", "group")]
                 + [("out_stride", ctypes.c_int64)]
                 + [(f, ctypes.c_float) for f in ("max_size", "max_rate", "max_throughput")])
 
@@ -129,14 +158,18 @@ class _ObserveArgs(ctypes.Structure):
 def observe_mansy_pack(tables: SimTables, state: EnvState,
                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Packed [N, F] observation of every lane, written into ``out`` when
-    given (its rows must be contiguous).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    given (its rows must be contiguous; they may be strided and the buffer
+    unaligned).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     dev = state.buf.device
     if dev.type == "cpu":
         return observe_mansy_pack_plain(tables, state, out)
     check_action_value_tables(tables)
     dims = obs_dims(tables)
     K, R, T, A, _ = dims
+    if K > MAX_HISTORY or A > MAX_ACTIONS or T > MAX_TILES:
+        raise ValueError(f"observe_mansy_pack kernel takes K <= {MAX_HISTORY}, "
+                         f"A <= {MAX_ACTIONS} and T <= {MAX_TILES}; got K={K}, A={A}, T={T}")
     N, Fw = state.buf.shape[0], obs_width(*dims)
     if out is None:
         out = torch.empty((N, Fw), dtype=torch.float32, device=dev)
@@ -166,12 +199,14 @@ def observe_mansy_pack(tables: SimTables, state: EnvState,
             raise ValueError(f"observe_mansy_pack: {name} must be a contiguous {dtype} "
                              f"tensor of shape {shape or tuple(x.shape)} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    plan = observe_plan(N)
     args = _ObserveArgs(
         **{k: (0 if x is None else x.data_ptr()) for k, (x, _, _) in srcs.items()},
         out=out.data_ptr(), n_lanes=N, U=tables.pred.shape[1], C=tables.sizes.shape[1],
         RT=R * T, T=T, K=K, A=A, F=Fw, startup_download=int(tables.startup_download),
-        out_stride=out.stride(0), max_size=float(tables.max_size),
-        max_rate=float(tables.max_rate), max_throughput=float(tables.max_throughput))
+        lanes=plan.lanes, group=plan.threads, out_stride=out.stride(0),
+        max_size=float(tables.max_size), max_rate=float(tables.max_rate),
+        max_throughput=float(tables.max_throughput))
     lib = build.load("observe")
     lib.observe_launch.argtypes = [ctypes.POINTER(_ObserveArgs), ctypes.c_void_p]
     lib.observe_launch.restype = ctypes.c_int

@@ -13,8 +13,11 @@ points share ``csrc/tile_occupancy.cu``:
 * :func:`trajectory_metrics` (``run_models --test``): per step the periodic
   MSE, accuracy (IoU), recall, precision and f1.
 
-On the H100 both are bound by bytes; one thread a trajectory (or a step)
-keeps the 8x8 map in a 64-bit register mask.  The maps are bit-equal to the
+On the H100 both are bound by bytes in principle, and at the paths' 512
+trajectories by the launch and one chain of dependent loads.  Chunk mode
+runs a group of 16 threads a trajectory, one step's map a thread, ORed by
+shuffles, the maps stored as whole words (:func:`chunk_plan`); metrics mode
+one thread a step.  Each map is a 64-bit mask; the maps are bit-equal to the
 plain versions: the pixel truncation is the same f32 product, and the counts
 are exact.
 """
@@ -22,7 +25,7 @@ are exact.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,7 +39,25 @@ from mansy_immersivevideostreaming_torch.ops.geometry import (
 # fov_height): the Jin2022 frame, its 8x8 tiling and the reference's FoV, the
 # defaults of ops/geometry.py, which both callers use
 GEOMETRY = (2560, 1440, 8, 8, FOV_WIDTH, FOV_HEIGHT)
-TILES = GEOMETRY[2] * GEOMETRY[3]
+TILES = GEOMETRY[2] * GEOMETRY[3]  # the kernel's 8x8 grid
+GROUP = 16           # chunk mode: threads a trajectory, half on gt and half on pred
+TRAJECTORIES = 4     # chunk mode: trajectories a block
+
+
+class ChunkPlan(NamedTuple):
+    """K7 chunk mode's launch: ``group`` threads a trajectory,
+    ``trajectories`` trajectories a block, ``blocks`` blocks; thread j of
+    trajectory b's group maps steps j % (group / 2), + group / 2, ... below
+    ``frequency`` of gt (j < group / 2) or pred."""
+    group: int
+    trajectories: int
+    blocks: int
+
+
+def chunk_plan(B: int) -> ChunkPlan:
+    """Blocks of TRAJECTORIES trajectories: 128 blocks of 64 threads at the
+    paths' 512 trajectories."""
+    return ChunkPlan(GROUP, TRAJECTORIES, -(-B // TRAJECTORIES))
 
 
 def chunk_maps_plain(gt: torch.Tensor, pred: torch.Tensor, frequency: int
@@ -60,14 +81,13 @@ def trajectory_metrics_plain(gt: torch.Tensor, pred: torch.Tensor):
 
 class _Geometry(ctypes.Structure):
     """Mirror of ``Geometry`` in ``csrc/tile_occupancy.cu``."""
-    _fields_ = [(f, ctypes.c_int32) for f in (
-        "width", "height", "tiles_w", "tiles_h", "fov_w", "fov_h")]
+    _fields_ = [(f, ctypes.c_int32) for f in ("width", "height", "fov_w", "fov_h")]
 
 
 class _ChunkArgs(ctypes.Structure):
     """Mirror of ``ChunkArgs`` in ``csrc/tile_occupancy.cu``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in ("gt", "pred", "g", "p", "iou")]
-                + [(f, ctypes.c_int32) for f in ("B", "F", "frequency")]
+                + [(f, ctypes.c_int32) for f in ("B", "F", "frequency", "trajectories")]
                 + [("geo", _Geometry)])
 
 
@@ -76,6 +96,11 @@ class _MetricsArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in ("gt", "pred", "mse", "acc", "rec", "prec",
                                                  "f1")]
                 + [(f, ctypes.c_int32) for f in ("B", "F")] + [("geo", _Geometry)])
+
+
+def _geometry() -> _Geometry:
+    width, height, _, _, fov_w, fov_h = GEOMETRY  # the kernel's grid is 8x8
+    return _Geometry(width, height, fov_w, fov_h)
 
 
 def _check(name: str, gt: torch.Tensor, pred: torch.Tensor) -> None:
@@ -112,8 +137,8 @@ def chunk_maps(gt: torch.Tensor, pred: torch.Tensor, frequency: int):
     iou = torch.empty(B, dtype=torch.float32, device=gt.device)
     _launch("chunk_maps_launch", _ChunkArgs(
         gt=gt.data_ptr(), pred=pred.data_ptr(), g=g.data_ptr(), p=p.data_ptr(),
-        iou=iou.data_ptr(), B=B, F=F, frequency=frequency, geo=_Geometry(*GEOMETRY)),
-        gt.device)
+        iou=iou.data_ptr(), B=B, F=F, frequency=frequency,
+        trajectories=chunk_plan(B).trajectories, geo=_geometry()), gt.device)
     chunk_maps.launches += 1
     return g, p, iou
 
@@ -129,7 +154,7 @@ def trajectory_metrics(gt: torch.Tensor, pred: torch.Tensor):
     out = torch.empty((5, B, F), dtype=torch.float32, device=gt.device)
     _launch("trajectory_metrics_launch", _MetricsArgs(
         gt.data_ptr(), pred.data_ptr(), *(o.data_ptr() for o in out), B=B, F=F,
-        geo=_Geometry(*GEOMETRY)), gt.device)
+        geo=_geometry()), gt.device)
     trajectory_metrics.launches += 1
     return tuple(out)
 

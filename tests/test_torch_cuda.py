@@ -178,6 +178,50 @@ def _perturbed_tables(device):
     return tables._replace(pred=torch.as_tensor(np.where(flip, 1.0 - gt, gt), device=device))
 
 
+def _on_cpu(tables):
+    return type(tables)(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 511, 512, 513, 8193])
+@pytest.mark.parametrize("mode", ["none", "action_values", "accuracy_corrected"])
+def test_observe_kernel_at_every_block_edge_on_card(cuda_device, n, mode):
+    """K2 at the edges of its blocks of 4 lanes and of its two thread groups
+    (a warp a lane above 1024 lanes, four below), with and without the
+    action values (and the accuracy-corrected ``av_out_*`` tables).  Without
+    action values every column is a copy or one IEEE division, bit-equal to
+    the plain version on the CPU; the action values within 1e-5 of it (its
+    sums over the history run in another order).  Into ``obs[1]`` of a
+    [3, N, F] buffer (unaligned for odd N: the row-wise path) and into a
+    strided view the kernel writes the same bits as into a fresh buffer,
+    and nothing beside its rows; two launches give the same bits."""
+    tables = _perturbed_tables(cuda_device)
+    if mode != "none":
+        tables = X.attach_action_values(tables, X.build_expert_tables_plain(tables),
+                                        acc_correct=mode == "accuracy_corrected")
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=cuda_device)
+    state = init_lanes(tables, samples, n, seed=n)
+    rng = np.random.default_rng(n)
+    for _ in range(5):
+        acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=cuda_device)
+        state, *_ = K1.env_step_plain(tables, samples, state, acts, n, True)
+    got = K2.observe_mansy_pack(tables, state)
+    torch.cuda.synchronize()
+    ref = K2.observe_mansy_pack_plain(_on_cpu(tables), tree_map(lambda x: x.cpu(), state))
+    if mode == "none":
+        assert torch.equal(got.cpu(), ref)
+    else:
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(K2.observe_mansy_pack(tables, state), got)
+    F = got.shape[1]
+    obs = torch.full((3, n, F), float("nan"), device=cuda_device)
+    K2.observe_mansy_pack(tables, state, out=obs[1])
+    assert torch.equal(obs[1], got) and bool(obs[0].isnan().all() and obs[2].isnan().all())
+    wide = torch.full((n, F + 3), float("nan"), device=cuda_device)
+    K2.observe_mansy_pack(tables, state, out=wide[:, :F])
+    assert torch.equal(wide[:, :F], got) and bool(wide[:, F:].isnan().all())
+
+
 @pytest.mark.cuda
 def test_expert_tables_kernel_matches_plain_on_card(cuda_device):
     tables = _perturbed_tables(cuda_device)
@@ -543,6 +587,25 @@ def test_chunk_maps_kernel_matches_plain_on_card(cuda_device, frequency):
     rg, rp, riou = K7.chunk_maps_plain(gt, pred, frequency)
     assert torch.equal(g, rg) and torch.equal(p, rp)
     torch.testing.assert_close(iou, riou, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 208, 511, 512, 513])
+@pytest.mark.parametrize("frequency", [1, 5, 8, 9, 15])
+def test_chunk_maps_kernel_at_every_block_edge_on_card(cuda_device, B, frequency):
+    """K7 chunk mode at the edges of its blocks of 4 trajectories (208 is
+    the export's last batch, 77,520 % 512) and of its groups' 8 step slots
+    (frequency 8 and 9): maps bit-equal to the plain version, the IoU to
+    1e-5 (in fact equal: quotients of the same integers), two launches
+    bit-equal."""
+    from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
+    gt, pred = (_edge_positions(B, s).to(cuda_device) for s in (B, B + 1))
+    g, p, iou = K7.chunk_maps(gt, pred, frequency)
+    rg, rp, riou = K7.chunk_maps_plain(gt, pred, frequency)
+    assert torch.equal(g, rg) and torch.equal(p, rp)
+    torch.testing.assert_close(iou, riou, rtol=1e-5, atol=0)
+    assert all(torch.equal(x, y) for x, y in zip(K7.chunk_maps(gt, pred, frequency),
+                                                  (g, p, iou)))
 
 
 @pytest.mark.cuda

@@ -13,6 +13,13 @@ of gradients, and the gradients of ``MHA.attend`` on the CPU.
 * ``env_step_plan`` (K1): the blocks' lanes cover every lane exactly once
   for N from 1 to 20000, with 8 threads a lane, or 32 where the lanes have
   more than 8 history entries.
+* ``observe_plan`` (K2): the blocks' lanes cover every lane exactly once
+  for N from 1 to 20000, a block's tile of rows is a multiple of 16 bytes
+  at the paths' widths (779 and 795 columns), and a group is one of the
+  kernel's two (a warp, or four at up to 1024 lanes).
+* ``chunk_plan`` (K7 chunk mode): the groups cover every trajectory and
+  every step below ``frequency`` of gt and of pred exactly once, for B from
+  1 to 20000 and frequency 1 to 15.
 * ``refuse_grad``: raises with grad enabled and any of q, k, v requiring
   grad, and passes under ``torch.no_grad()`` or with none requiring it.
 * ``MHA.attend`` on the CPU (K8's plain version) gives q_in, k and v
@@ -32,7 +39,9 @@ from mansy_immersivevideostreaming_tpu.models.transformer import causal_mask
 from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
 from mansy_immersivevideostreaming_torch.kernels import attention as K8
 from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+from mansy_immersivevideostreaming_torch.kernels import observe as K2
 from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
 from mansy_immersivevideostreaming_torch.models.transformer import MHA
 from mansy_immersivevideostreaming_torch.utils.checkpoint import mtio_state_dict_from_flax
 
@@ -125,6 +134,71 @@ def test_env_step_plan_at_the_paths_widths():
     """Every path's lanes (K = 8) take 8 threads a lane, 16 lanes a block."""
     for n in (32, 64, 128, 512, 8192):
         assert K1.env_step_plan(n, 8) == K1.EnvStepPlan(8, 16, n // 16)
+
+
+# -------------------------------------------------------------------- K2
+
+@pytest.mark.parametrize("width", [779, 795])
+def test_observe_plan_covers_every_lane_once(width):
+    """Block b takes lanes b * lanes .. b * lanes + lanes - 1, those below N,
+    with a group of ``threads`` threads a lane (``csrc/observe.cu``); the
+    block's tile of ``lanes`` rows of f32 is a multiple of 16 bytes, so
+    its 16-byte stores start aligned in every block of an aligned buffer;
+    the block fits the kernel's launch bounds."""
+    for n in range(1, 20001):
+        lanes, threads, blocks = K2.observe_plan(n)
+        assert (blocks - 1) * lanes < n <= blocks * lanes
+        assert lanes * width * 4 % 16 == 0
+        assert threads == (K2.NARROW_GROUP if n <= K2.NARROW_LANES else K2.WIDE_GROUP)
+        assert threads in (32, 128) and lanes <= 4
+
+
+def test_observe_plan_at_the_paths_widths():
+    """Collect's 8192 lanes: a warp a lane; serve's 512, train's 128 and
+    DAgger's 32: four warps a lane; 4 lanes a block throughout."""
+    assert K2.observe_plan(8192) == K2.ObservePlan(4, 32, 2048)
+    for n in (32, 128, 512):
+        assert K2.observe_plan(n) == K2.ObservePlan(4, 128, n // 4)
+
+
+# -------------------------------------------------------------------- K7
+
+def _chunk_walk(B: int, frequency: int, plan) -> np.ndarray:
+    """Every (trajectory, side, step) that a thread of the launch maps, as
+    ``csrc/tile_occupancy.cu``'s chunk kernel walks them: thread t of block
+    k takes trajectory k * trajectories + t // group (those below B), and
+    its index j in the group maps side j // (group / 2) (gt, pred), steps
+    j % (group / 2), + group / 2, ... below ``frequency``."""
+    half = plan.group // 2
+    t = np.arange(plan.blocks * plan.trajectories * plan.group)
+    b = t // plan.group
+    j = t % plan.group
+    keep = b < B
+    b, j = b[keep], j[keep]
+    rows = [np.stack([b, j // half, s], -1)[s < frequency]
+            for s in (j % half + half * r for r in range(-(-frequency // half)))]
+    return np.concatenate(rows)
+
+
+@pytest.mark.parametrize("frequency", range(1, 16))
+def test_chunk_plan_covers_every_trajectory_and_step_once(frequency):
+    """For every B from 1 to 20000 the blocks cover the trajectories, with
+    none empty; at every B of the paths' edges the threads' walk covers each
+    (trajectory, side, step below frequency) exactly once."""
+    for B in range(1, 20001):
+        group, per, blocks = K7.chunk_plan(B)
+        assert (blocks - 1) * per < B <= blocks * per and group == K7.GROUP
+    for B in (1, 15, 16, 17, 208, 511, 512, 513, 4097, 20000):
+        walk = _chunk_walk(B, frequency, K7.chunk_plan(B))
+        want = np.stack(np.meshgrid(np.arange(B), np.arange(2), np.arange(frequency),
+                                    indexing="ij"), -1).reshape(-1, 3)
+        assert len(walk) == len(want)
+        assert np.array_equal(np.unique(walk, axis=0), want)
+
+
+def test_chunk_plan_at_the_paths_batch():
+    """predict's batch of 512: 128 blocks of 4 trajectories (64 threads)."""
+    assert K7.chunk_plan(512) == K7.ChunkPlan(16, 4, 128)
 
 
 # -------------------------------------------------------------------- K8
