@@ -10,11 +10,12 @@ It imports no JAX.
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent``, DIR is another checkout of the repo (the parent commit's,
-unpacked with ``git archive``): its K10, K8, K1, K9, K2 and K7 are built
-from its own sources into its own build directory and timed beside this
-tree's on the same inputs (``earlier_ms``; K1, K9, K2 and K7 also with the
-spread of their 15 timings, ``earlier_ms_range``; K2 and K7 with
-``earlier_bits_equal``).
+unpacked with ``git archive``): its K10, K8, K1, K9, K2, K7, K5 and K6 are
+built from its own sources into its own build directory and timed beside
+this tree's on the same inputs (``earlier_ms``; K1, K9, K2, K7, K5 and K6
+also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5
+and K6 with ``earlier_bits_equal``, K5 also with ``earlier_max_abs_diff``;
+K6 must equal the parent's bits).
 
 Phases:
 
@@ -22,8 +23,10 @@ Phases:
 2. kernels: build every kernel with nvcc (in parallel) and compare K1-K5 with
    its plain version on the same card tensors at the main paths' shapes
    (8192 lanes on tables of the Jin2022/4G train split's shape; K4 on 512
-   lanes at horizon 4 in every mode; K5 on the train split's tables; K2 and
-   K3 again with the action values and the v16 weights); time both with
+   lanes at horizon 4 in every mode; K5 on the train split's tables and on
+   the test split's, which the expert and serve-v16 paths build, two
+   launches bit-equal; K2 and K3 again with the action values and the v16
+   weights); time both with
    CUDA events and print the ``kernels`` JSON line.  K3 is also timed at
    serve's lane chunk (512), with two bounds (f32 outside the tensor cores,
    and its products as three TF32 products on them); K4 also at the
@@ -54,7 +57,8 @@ Phases:
    1440-episode grid, held against the plain path as in phase 3.
 
 Phase 2c holds the training kernels against their plain versions: K6
-``compute_gae`` at [32, 128] and [128, 8192]; K9 ``policy_loss`` in every
+``compute_gae`` at [32, 128] and [128, 8192], bit-equal to its plain
+version and on two launches; K9 ``policy_loss`` in every
 PPO variant at B = 512 and in CE mode at B = 4096 (two launches give the
 same bits; CE's yardstick: ``F.cross_entropy`` forward and backward by
 autograd); K3's training mode and K10 ``actor_critic_backward`` at B = 512
@@ -497,12 +501,12 @@ def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
 
 
 def load_parent(root: str):
-    """The K10, K8, K1, K9, K2 and K7 wrappers of another checkout of the
-    repo at ``root`` (the parent commit's, unpacked there), each bound to
-    that checkout's ``kernels/build.py``, so they build its own ``csrc/``
+    """The K10, K8, K1, K9, K2, K7, K5 and K6 wrappers of another checkout of
+    the repo at ``root`` (the parent commit's, unpacked there), each bound
+    to that checkout's ``kernels/build.py``, so they build its own ``csrc/``
     into its own ``kernels/build/``.  Returns a namespace with ``build``,
     ``actor_critic``, ``attention``, ``env_step``, ``policy_loss``,
-    ``observe`` and ``tile_occupancy``."""
+    ``observe``, ``tile_occupancy``, ``expert_tables`` and ``gae``."""
     import importlib.util
     import types
     from mansy_immersivevideostreaming_torch import kernels
@@ -522,12 +526,13 @@ def load_parent(root: str):
 
     own = module("build")
     return types.SimpleNamespace(build=own, **{name: module(name, own) for name in (
-        "actor_critic", "attention", "env_step", "policy_loss", "observe", "tile_occupancy")})
+        "actor_critic", "attention", "env_step", "policy_loss", "observe", "tile_occupancy",
+        "expert_tables", "gae")})
 
 
 # timed beside this tree's
 PARENT_KERNELS = ("actor_critic_backward", "attention", "env_step", "policy_loss", "observe",
-                  "tile_occupancy")
+                  "tile_occupancy", "expert_tables", "gae")
 K1_WIDTHS = {"dagger": 32, "expert": 64, "train": 128, "serve": 512, "collect": LANES}
 K2_WIDTHS = (LANES, SERVE_CHUNK, 128, DAGGER_LANES)  # collect, serve, train, DAgger
 
@@ -675,17 +680,50 @@ def search_flops(tables, state, horizon: int) -> int:
 
 
 def expert_tables_cost(tables, A: int):
-    """(flops, bytes) of K5.  Per (v, u, c): the two viewport rows read and
-    the complement (2 x 64 operations); per action two size sums (63 adds
-    each) and four evaluations (vp sum, vp q and its sum, |q - quality|,
-    its product and sum: 3 x 63 + 3 x 64 operations and 2 divisions).
-    Bytes: viewports and slabs read once, the ten tables written once."""
+    """(flops, bytes) of K5: the least work the function needs.  Per (v, u,
+    c), once: the complement (2 x 64 operations) and the three viewport sums
+    (3 x 63 adds), which no action changes; per action two size sums (63
+    adds each) and four evaluations (vp q and its sum, |q - quality|, its
+    product and sum: 2 x 63 + 3 x 64 operations and 2 divisions).  Bytes:
+    viewports and slabs read once, the ten tables written once."""
     V, U, C, T = tables.gt.shape
     R = tables.sizes.shape[2]
     rows = V * U * C
-    flops = rows * (2 * T + A * (2 * (T - 1) + 4 * (3 * (T - 1) + 3 * T + 2)))
+    flops = rows * (2 * T + 3 * (T - 1)
+                    + A * (2 * (T - 1) + 4 * (2 * (T - 1) + 3 * T + 2)))
     nbytes = rows * 2 * T * 4 + V * C * R * T * 2 * 4 + rows * A * 10 * 4
     return flops, nbytes
+
+
+def expert_tables_case(K5, X, tables, parent=None) -> dict:
+    """K5 on ``tables`` against its plain version (RTOL), two launches
+    bit-equal, its plan, the kernel's (with the spread of its 15 timings) and
+    the plain version's ms and its bound; with ``parent``, the parent
+    commit's kernel timed beside it, with whether its bits are equal and
+    their largest difference."""
+    got = K5.build_expert_tables(tables)
+    ref = X.build_expert_tables_plain(tables)
+    for name, g, r in zip(X.ExpertTables._fields, got, ref):
+        if not bool(close(g, r).all()):
+            raise AssertionError(f"build_expert_tables: {name} disagrees with its plain version "
+                                 f"at {tuple(tables.gt.shape[:3])}")
+    if not all(torch.equal(g, a) for g, a in zip(got, K5.build_expert_tables(tables))):
+        raise AssertionError("build_expert_tables: two launches differ")
+    V, U, C, _ = tables.gt.shape
+    A = tables.action_space
+    case = dict(rows=V * U * C, plan=K5.expert_tables_plan(V, U, C, A)._asdict(),
+                max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+                **gpu_spread(lambda: K5.build_expert_tables(tables)),
+                plain_ms=gpu_ms(lambda: X.build_expert_tables_plain(tables), 3),
+                **bound(*expert_tables_cost(tables, A)))
+    if parent is not None:  # the parent commit's kernel on the same tables
+        earlier = parent.expert_tables.build_expert_tables(tables)
+        case["earlier_bits_equal"] = all(torch.equal(g, e) for g, e in zip(got, earlier))
+        case["earlier_max_abs_diff"] = max(float((g - e).abs().max())
+                                           for g, e in zip(got, earlier))
+        case.update(gpu_spread(lambda: parent.expert_tables.build_expert_tables(tables),
+                               "earlier_ms"))
+    return case
 
 
 def check_search(name, got, ref_action, ref_margin, first, wsum):
@@ -710,11 +748,11 @@ def check_search(name, got, ref_action, ref_margin, first, wsum):
 
 
 def expert_kernel_phase(dev, parent=None):
-    """K5 on the train split's tables, K4 on SEARCH_LANES lanes in every mode
-    at horizon 4, then K2 at each path's width and K3 at LANES with the
-    action values attached and the v16 weights (with ``parent``, the parent
-    commit's K2 timed beside K2).  Returns (rows of K4 and K5, K2 and K3's
-    extra fields)."""
+    """K5 on the train split's tables and the test split's, K4 on
+    SEARCH_LANES lanes in every mode at horizon 4, then K2 at each path's
+    width and K3 at LANES with the action values attached and the v16
+    weights (with ``parent``, the parent commit's K5 and K2 timed beside
+    them).  Returns (rows of K4 and K5, K2 and K3's extra fields)."""
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import choose_action as K4
     from mansy_immersivevideostreaming_torch.kernels import env_step as K1
@@ -736,22 +774,18 @@ def expert_kernel_phase(dev, parent=None):
     A = tables.action_space
     rows, extra = {}, {}
 
-    # K5
-    etables = K5.build_expert_tables(tables)
-    ref = X.build_expert_tables_plain(tables)
-    for name, g, r in zip(X.ExpertTables._fields, etables, ref):
-        if not bool(close(g, r).all()):
-            raise AssertionError(f"build_expert_tables: {name} disagrees with its plain version")
-    flops, nbytes = expert_tables_cost(tables, A)
+    # K5 on the train split's tables, and on the test split's (the expert's and serve-v16's)
+    V, U, NT, C, Q = TEST_SHAPE
+    test_tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev), seed=1)
+    shapes = {label: expert_tables_case(K5, X, t, parent)
+              for label, t in (("train", tables), ("test", test_tables))}
+    main = shapes["train"]
     rows["build_expert_tables"] = dict(
-        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(etables, ref)),
-        ms=gpu_ms(lambda: K5.build_expert_tables(tables)),
-        plain_ms=gpu_ms(lambda: X.build_expert_tables_plain(tables), 3),
-        bound_ms=1e3 * max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S),
-        bound_by="operations" if flops / F32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
-        else "bytes",
-        library_ms=None)
-    del ref
+        max_abs_err=max(c["max_abs_err"] for c in shapes.values()),
+        **{k: main[k] for k in main if k.endswith("ms") or k.endswith("range")},
+        bound_by=main["bound_by"], library_ms=None, shapes=shapes)
+    etables = K5.build_expert_tables(tables)
+    del test_tables
 
     # K4, every mode at horizon 4, with the margin
     state = search_lanes(tables, samples, dev)
@@ -1357,10 +1391,10 @@ def training_kernel_phase(dev, parent=None):
     """K6 at [32, 128] and [128, 8192]; K9 in every PPO variant at B = 512
     and in CE mode at B = 4096 (CE also beside ``F.cross_entropy``); K3's
     training mode and K10 at B = 512 and 4096 with the v9 and v16 weights.
-    Each against its plain version on the same card tensors, timed with CUDA
-    events (K9 and K10 also: two launches give the same bits; with
-    ``parent``, the parent commit's K9 and K10 timed beside them).  Returns
-    the kernels' rows."""
+    Each against its plain version on the same card tensors (K6 bit-equal),
+    timed with CUDA events (K6, K9 and K10 also: two launches give the same
+    bits; with ``parent``, the parent commit's K6, K9 and K10 timed beside
+    them, K6 with the parent's bits).  Returns the kernels' rows."""
     from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.kernels import gae as K6
     from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
@@ -1381,13 +1415,21 @@ def training_kernel_phase(dev, parent=None):
         last = torch.randn(N, device=dev, generator=gen)
         args = (rewards, dones, values, last, 0.95, 0.95)
         got, ref = K6.compute_gae(*args), K6.compute_gae_plain(*args)
-        if not all(bool(close(g, r).all()) for g, r in zip(got, ref)):
-            raise AssertionError(f"compute_gae [{T}, {N}] disagrees with its plain version")
-        shapes[f"{T}x{N}"] = dict(
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):  # the same operation order
+            raise AssertionError(f"compute_gae [{T}, {N}] is not bit-equal to its plain version")
+        if not all(torch.equal(g, a) for g, a in zip(got, K6.compute_gae(*args))):
+            raise AssertionError(f"compute_gae [{T}, {N}]: two launches differ")
+        shape = shapes[f"{T}x{N}"] = dict(
             max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
-            ms=gpu_ms(lambda: K6.compute_gae(*args)),
+            plan=K6.gae_plan(T, N)._asdict(), **gpu_spread(lambda: K6.compute_gae(*args)),
             plain_ms=gpu_ms(lambda: K6.compute_gae_plain(*args), 5),
             **bound(6 * T * N, gae_cost(T, N)))
+        if parent is not None:  # the parent commit's kernel on the same inputs: the same bits
+            shape["earlier_bits_equal"] = all(torch.equal(g, e) for g, e in zip(
+                got, parent.gae.compute_gae(*args)))
+            if not shape["earlier_bits_equal"]:
+                raise AssertionError(f"compute_gae [{T}, {N}]: bits differ from the parent's")
+            shape.update(gpu_spread(lambda: parent.gae.compute_gae(*args), "earlier_ms"))
     main = shapes["x".join(map(str, GAE_SHAPES[-1]))]
     rows["compute_gae"] = dict(**main, library_ms=None, shapes=shapes)
 
@@ -2143,8 +2185,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout of the repo (e.g. the parent commit's, from "
-                             "git archive): its K10, K8, K1, K9, K2 and K7 are built and timed "
-                             "beside this tree's (earlier_ms)")
+                             "git archive): its K10, K8, K1, K9, K2, K7, K5 and K6 are built and "
+                             "timed beside this tree's (earlier_ms)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")

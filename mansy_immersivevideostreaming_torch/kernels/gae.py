@@ -6,18 +6,40 @@ it: with auto-resetting lanes a ``done`` step neither bootstraps nor carries
 advantage across the episode boundary.
 
 On the H100 the recurrence is bound by device-memory bytes (17 bytes an
-element); ``csrc/gae.cu`` walks each lane backwards in one thread, with
-coalesced loads across lanes.
+element).  ``csrc/gae.cu`` walks each lane backwards in one thread, in the
+plain version's operation order (bit-equal to it), while three helper
+warps of its block bring the block's tile of lanes through shared memory
+and store the results (:func:`gae_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from mansy_immersivevideostreaming_torch.kernels import build
+
+LANES = 32   # lanes a block: one walker warp, a lane a thread
+CHUNK = 32   # steps a chunk of the shared-memory ring (four chunks: 128 steps in flight)
+
+
+class GaePlan(NamedTuple):
+    """K6's launch: block b walks lanes b * lanes .. b * lanes + lanes - 1
+    (those below N), in ``chunks`` chunks of ``chunk`` steps,
+    latest first: chunk k holds steps max(T - (k + 1) * chunk, 0) .. T - k *
+    chunk - 1."""
+    lanes: int
+    chunk: int
+    chunks: int
+    blocks: int
+
+
+def gae_plan(T: int, N: int) -> GaePlan:
+    """Tiles of LANES lanes: 256 blocks at the rollout's 8192 lanes, 4 at
+    train's 128."""
+    return GaePlan(LANES, CHUNK, -(-T // CHUNK), -(-N // LANES))
 
 
 def compute_gae_plain(rewards: torch.Tensor, dones: torch.Tensor, values: torch.Tensor,
@@ -42,7 +64,8 @@ class _GaeArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "rewards", "dones", "values", "last_values", "adv", "ret")]
         + [("T", ctypes.c_int32), ("N", ctypes.c_int32),
-           ("gamma", ctypes.c_float), ("gamma_lam", ctypes.c_float)])
+           ("gamma", ctypes.c_float), ("gamma_lam", ctypes.c_float)]
+        + [(f, ctypes.c_int32) for f in ("lanes", "chunk", "blocks", "vec")])
 
 
 def compute_gae(rewards: torch.Tensor, dones: torch.Tensor, values: torch.Tensor,
@@ -64,10 +87,15 @@ def compute_gae(rewards: torch.Tensor, dones: torch.Tensor, values: torch.Tensor
                              f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)}")
     adv = torch.empty_like(rewards)
     ret = torch.empty_like(rewards)
+    plan = gae_plan(T, N)
+    # 16-byte copies and stores need every row of every array 16-byte aligned
+    vec = N % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (rewards, dones, values, adv,
+                                                                ret))
     args = _GaeArgs(rewards=rewards.data_ptr(), dones=dones.data_ptr(),
                     values=values.data_ptr(), last_values=last_values.data_ptr(),
                     adv=adv.data_ptr(), ret=ret.data_ptr(), T=T, N=N, gamma=gamma,
-                    gamma_lam=gamma * lam)
+                    gamma_lam=gamma * lam, lanes=plan.lanes, chunk=plan.chunk,
+                    blocks=plan.blocks, vec=int(vec))
     lib = build.load("gae")
     lib.gae_launch.argtypes = [ctypes.POINTER(_GaeArgs), ctypes.c_void_p]
     lib.gae_launch.restype = ctypes.c_int

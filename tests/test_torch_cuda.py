@@ -8,7 +8,7 @@ file imports no JAX, so it also runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances: ints
 exact, floats 1e-5 relative (the kernels sum in another order than
 PyTorch's CUDA ops, which also divide by a Python scalar as a product with
-its reciprocal).  The search (K4) picks the plain version's action on every
+its reciprocal); K6 bit-equal (the plain version's operation order).  The search (K4) picks the plain version's action on every
 lane whose first-action margin exceeds 1e-5, and elsewhere an action whose
 first-action value is within 1e-5 of the best.
 """
@@ -222,13 +222,87 @@ def test_observe_kernel_at_every_block_edge_on_card(cuda_device, n, mode):
     assert torch.equal(wide[:, :F], got) and bool(wide[:, F:].isnan().all())
 
 
-@pytest.mark.cuda
-def test_expert_tables_kernel_matches_plain_on_card(cuda_device):
-    tables = _perturbed_tables(cuda_device)
+def _check_expert_tables(tables):
+    """K5 against its plain version (rtol 1e-5, atol 1e-6: the kernel sums
+    each quantity over the tiles in its own fixed order), and two launches
+    bit-equal."""
     got = K5.build_expert_tables(tables)
     ref = X.build_expert_tables_plain(tables)
     for name, x, y in zip(X.ExpertTables._fields, got, ref):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6, msg=name)
+    for name, x, y in zip(X.ExpertTables._fields, got, K5.build_expert_tables(tables)):
+        assert torch.equal(x, y), name
+
+
+def _split_tables(V, U, C, device, seed=0, random_slabs=False):
+    """Synthetic tables of V videos, U users and C chunks whose predicted
+    viewport misses ~15% of tiles; with ``random_slabs`` the tiles'
+    qualities are drawn apart from their rates, so no sum is exact."""
+    tables = synthetic_sim_tables(V, U, 3, C, 4, seed=seed, device=device)
+    rng = np.random.default_rng(seed + 1)
+    gt = tables.gt.cpu().numpy()
+    flip = rng.random(gt.shape) < 0.15
+    tables = tables._replace(pred=torch.as_tensor(np.where(flip, 1.0 - gt, gt), device=device))
+    if random_slabs:
+        q = rng.uniform(20.0, 95.0, tables.qualities.shape).astype(np.float32)
+        tables = tables._replace(qualities=torch.as_tensor(np.sort(q, axis=2), device=device))
+    return tables
+
+
+@pytest.mark.cuda
+def test_expert_tables_kernel_matches_plain_on_card(cuda_device):
+    _check_expert_tables(_perturbed_tables(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["test", "train"])
+def test_expert_tables_kernel_at_the_splits_shapes_on_card(cuda_device, split):
+    """The Jin2022/4G test split's (3 x 15 x 60: the expert's and serve-v16's
+    tables) and train split's (18 x 45 x 60) shapes."""
+    V, U, C = {"test": (3, 15, 60), "train": (18, 45, 60)}[split]
+    _check_expert_tables(_split_tables(V, U, C, cuda_device, random_slabs=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,U,C", [(1, 1, 1), (1, 13, 1), (1, 8, 1), (1, 9, 1), (2, 13, 5),
+                                   (1, 45, 1), (4, 17, 3)])
+def test_expert_tables_kernel_at_every_user_group_edge_on_card(cuda_device, V, U, C):
+    """V * C = 1 (the plan's fewest blocks) and U on and off a multiple of
+    the block's user group."""
+    plan = K5.expert_tables_plan(V, U, C, 15)
+    assert plan.blocks == V * C * -(-U // plan.users)
+    _check_expert_tables(_split_tables(V, U, C, cuda_device, seed=U, random_slabs=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [1.0, 0.3])
+def test_expert_tables_kernel_on_fractional_weights_on_card(cuda_device, share):
+    """Viewport weights in (0, 1) on every row, or on a share of the rows:
+    the kernel's path for rows that are not all 0 and 1, and its warps that
+    mix both kinds of row."""
+    tables = _split_tables(3, 15, 20, cuda_device, seed=7, random_slabs=True)
+    rng = np.random.default_rng(8)
+    rows = rng.random(tables.gt.shape[:3]) < share
+    fuzz = lambda x: torch.where(torch.as_tensor(rows[..., None], device=cuda_device),
+                                 x * torch.as_tensor(rng.uniform(0.2, 1.0, x.shape)
+                                                     .astype(np.float32), device=cuda_device),
+                                 x)
+    _check_expert_tables(tables._replace(gt=fuzz(tables.gt), pred=fuzz(tables.pred)))
+
+
+@pytest.mark.cuda
+def test_expert_tables_kernel_on_empty_viewports_on_card(cuda_device):
+    """Rows with an empty ground-truth viewport, an empty prediction, both,
+    a full prediction (an empty complement) and fractional predicted
+    weights."""
+    tables = _split_tables(2, 11, 7, cuda_device, seed=5, random_slabs=True)
+    gt, pred = tables.gt.clone(), tables.pred.clone()
+    gt[0, 0:3] = 0.0
+    pred[0, 2:5] = 0.0
+    pred[1, 0] = 1.0
+    pred[1, 1] = torch.rand(pred[1, 1].shape, generator=torch.Generator(device=cuda_device)
+                            .manual_seed(0), device=cuda_device)
+    _check_expert_tables(tables._replace(gt=gt, pred=pred))
 
 
 @pytest.mark.cuda
@@ -437,19 +511,62 @@ def _grad_close(got, ref, rtol=1e-4):
     torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5 * float(ref.abs().max()) + 1e-12)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T,N", [(1, 7), (32, 128), (64, 1000)])
-def test_gae_kernel_matches_plain_on_card(cuda_device, T, N):
+def _gae_inputs(T, N, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    rewards = torch.randn(T, N, device=device, generator=g)
+    values = torch.randn(T, N, device=device, generator=g)
+    dones = torch.rand(T, N, device=device, generator=g) < 0.1
+    last = torch.randn(N, device=device, generator=g)
+    return rewards, dones, values, last
+
+
+def _check_gae(rewards, dones, values, last):
+    """K6 bit-equal to its plain version (the same operation order,
+    -fmad=false) and on two launches."""
     from mansy_immersivevideostreaming_torch.kernels import gae as K6
-    g = torch.Generator(device=cuda_device).manual_seed(T)
-    rewards = torch.randn(T, N, device=cuda_device, generator=g)
-    values = torch.randn(T, N, device=cuda_device, generator=g)
-    dones = torch.rand(T, N, device=cuda_device, generator=g) < 0.1
-    last = torch.randn(N, device=cuda_device, generator=g)
     got = K6.compute_gae(rewards, dones, values, last, 0.95, 0.95)
     ref = K6.compute_gae_plain(rewards, dones, values, last, 0.95, 0.95)
-    for x, y in zip(got, ref):  # the same operation order, -fmad=false
-        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6 * float(y.abs().max()))
+    again = K6.compute_gae(rewards, dones, values, last, 0.95, 0.95)
+    for x, y, z in zip(got, ref, again):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N", [(1, 7), (1, 8192), (32, 128), (64, 1000), (45, 48), (33, 64),
+                                 (128, 8192), (200, 300), (300, 4112)])
+def test_gae_kernel_matches_plain_on_card(cuda_device, T, N):
+    """T = 1, T on and off the 32-step chunk and beyond the four chunks in
+    flight (200, 300), N on and off the 32-lane tile and 16-lane copies;
+    [32, 128] (train) and [128, 8192] (the rollout width)."""
+    _check_gae(*_gae_inputs(T, N, cuda_device, T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N", [(1, 64), (32, 128), (128, 8192), (70, 100)])
+def test_gae_kernel_with_dones_at_both_ends_on_card(cuda_device, T, N):
+    """dones at t = 0 on every third lane and at t = T - 1 on every
+    second."""
+    rewards, dones, values, last = _gae_inputs(T, N, cuda_device, T + 1)
+    dones[0, ::3] = True
+    dones[T - 1, ::2] = True
+    _check_gae(rewards, dones, values, last)
+
+
+@pytest.mark.cuda
+def test_gae_kernel_on_unaligned_inputs_on_card(cuda_device):
+    """Inputs that start 4 bytes past a 16-byte boundary take the ordinary
+    loads (N = 8192, a multiple of 16)."""
+    T, N = 40, 8192
+    rewards, dones, values, last = _gae_inputs(T, N, cuda_device, 9)
+    shifted = []
+    for x in (rewards, values):
+        buf = torch.empty(T * N + 1, device=cuda_device)
+        buf[1:] = x.reshape(-1)
+        shifted.append(buf[1:].view(T, N))
+    buf = torch.zeros(T * N + 1, dtype=torch.bool, device=cuda_device)
+    buf[1:] = dones.reshape(-1)
+    assert shifted[0].data_ptr() % 16 != 0
+    _check_gae(shifted[0], buf[1:].view(T, N), shifted[1], last)
 
 
 POLICY_LOSS_VARIANTS = ["clip_norm", "no_value_clip", "no_norm", "per_pref", "kl_scalar",

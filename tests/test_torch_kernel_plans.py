@@ -20,6 +20,13 @@ of gradients, and the gradients of ``MHA.attend`` on the CPU.
 * ``chunk_plan`` (K7 chunk mode): the groups cover every trajectory and
   every step below ``frequency`` of gt and of pred exactly once, for B from
   1 to 20000 and frequency 1 to 15.
+* ``expert_tables_plan`` (K5): the blocks' threads take every (video,
+  user, chunk) x action exactly once, for a sweep of (V, U, C) and action
+  spaces, within the kernel's launch bounds; 8 users a block at the test
+  and train splits' shapes, 360 and 6480 blocks.
+* ``gae_plan`` (K6): the blocks' lanes and the chunks' steps cover every
+  (t, lane) exactly once for a sweep of [T, N]; 4 blocks of one chunk at
+  train's [32, 128], 256 blocks of four chunks at [128, 8192].
 * ``refuse_grad``: raises with grad enabled and any of q, k, v requiring
   grad, and passes under ``torch.no_grad()`` or with none requiring it.
 * ``MHA.attend`` on the CPU (K8's plain version) gives q_in, k and v
@@ -39,6 +46,8 @@ from mansy_immersivevideostreaming_tpu.models.transformer import causal_mask
 from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
 from mansy_immersivevideostreaming_torch.kernels import attention as K8
 from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+from mansy_immersivevideostreaming_torch.kernels import gae as K6
 from mansy_immersivevideostreaming_torch.kernels import observe as K2
 from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
 from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
@@ -199,6 +208,99 @@ def test_chunk_plan_covers_every_trajectory_and_step_once(frequency):
 def test_chunk_plan_at_the_paths_batch():
     """predict's batch of 512: 128 blocks of 4 trajectories (64 threads)."""
     assert K7.chunk_plan(512) == K7.ChunkPlan(16, 4, 128)
+
+
+# -------------------------------------------------------------------- K5
+
+def _expert_tables_walk(V: int, U: int, C: int, A: int, plan) -> np.ndarray:
+    """Every (v, u, c, action) that a thread of the launch takes (both
+    allocations), as ``csrc/expert_tables.cu`` maps them: block b takes
+    (v, c) = divmod(b // groups, C) and the user group g = b % groups;
+    thread i of its 32 * warps threads user g * users + i // A and action
+    i % A; a thread whose user lies past the group or past U takes
+    nothing."""
+    b, i = np.meshgrid(np.arange(plan.blocks), np.arange(32 * plan.warps), indexing="ij")
+    group, vc = b % plan.groups, b // plan.groups
+    r, act = i // A, i % A
+    u = group * plan.users + r
+    keep = (r < plan.users) & (u < U)
+    v, c = np.divmod(vc, C)
+    return np.stack([x[keep] for x in (v, u, c, act)], -1)
+
+
+def _check_expert_tables_plan(V: int, U: int, C: int, A: int = 15):
+    plan = K5.expert_tables_plan(V, U, C, A)
+    assert 1 <= plan.users <= K5.MAX_USERS and 1 <= plan.warps <= K5.MAX_WARPS
+    assert plan.warps * 32 >= plan.users * A and plan.users <= U
+    assert (plan.groups - 1) * plan.users < U <= plan.groups * plan.users  # no empty group
+    assert plan.blocks == V * C * plan.groups
+    assert plan.users == min(K5.MAX_USERS, K5.MAX_WARPS * 32 // A, U)  # as many as fit
+    walk = _expert_tables_walk(V, U, C, A, plan)
+    key = ((walk[:, 0] * U + walk[:, 1]) * C + walk[:, 2]) * A + walk[:, 3]
+    assert len(key) == V * U * C * A
+    assert np.array_equal(np.sort(key), np.arange(V * U * C * A))
+
+
+@pytest.mark.parametrize("V,C", [(1, 1), (1, 3), (2, 5), (3, 60), (18, 60), (5, 100)])
+def test_expert_tables_plan_covers_every_row_and_action_once(V, C):
+    for U in (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 45, 64):
+        _check_expert_tables_plan(V, U, C)
+
+
+@pytest.mark.parametrize("A", [1, 8, 15, 16, 32])
+def test_expert_tables_plan_for_other_action_spaces(A):
+    for V, U, C in ((1, 1, 1), (1, 13, 1), (3, 15, 60), (2, 45, 7)):
+        _check_expert_tables_plan(V, U, C, A)
+
+
+def test_expert_tables_plan_at_the_splits_shapes():
+    """The test split (3 x 15 x 60, the expert's and serve-v16's tables): 8
+    users a block, 2 groups, 360 blocks; the train split (18 x 45 x 60): 8
+    users, 6 groups, 6480 blocks; 4 warps a block at 15 actions."""
+    assert K5.expert_tables_plan(3, 15, 60, 15) == K5.ExpertTablesPlan(8, 4, 2, 360)
+    assert K5.expert_tables_plan(18, 45, 60, 15) == K5.ExpertTablesPlan(8, 4, 6, 6480)
+    assert K5.expert_tables_plan(3, 15, 60, 15).blocks >= H100_SMS
+
+
+# -------------------------------------------------------------------- K6
+
+def _gae_walk(T: int, N: int, plan) -> np.ndarray:
+    """Every (t, lane) that a thread of the launch walks, as ``csrc/gae.cu``
+    does: block b's thread l takes lane b * lanes + l (those below N), and
+    walks chunk k = 0, 1, ... of steps max(T - (k + 1) * chunk, 0) .. T - k *
+    chunk - 1, latest first."""
+    lane = np.arange(plan.blocks * plan.lanes)
+    lane = lane[lane < N]
+    steps = []
+    for k in range(plan.chunks):
+        hi = T - k * plan.chunk
+        steps.extend(range(hi - 1, max(hi - plan.chunk, 0) - 1, -1))
+    t, n = np.meshgrid(np.asarray(steps, int), lane, indexing="ij")
+    return np.stack([t.ravel(), n.ravel()], -1), steps
+
+
+@pytest.mark.parametrize("T", [1, 2, 31, 32, 33, 64, 127, 128, 129, 200, 300])
+def test_gae_plan_covers_every_step_and_lane_once(T):
+    """Every lane of every block below N, and every step exactly once, from
+    T - 1 down to 0 (the recurrence's order) over the chunks."""
+    for N in (1, 7, 31, 32, 33, 48, 128, 1000, 4112, 8192):
+        plan = K6.gae_plan(T, N)
+        assert plan.lanes == K6.LANES and plan.chunk == K6.CHUNK
+        assert (plan.blocks - 1) * plan.lanes < N <= plan.blocks * plan.lanes
+        assert (plan.chunks - 1) * plan.chunk < T <= plan.chunks * plan.chunk
+        walk, steps = _gae_walk(T, N, plan)
+        assert steps == list(range(T - 1, -1, -1))
+        key = walk[:, 0] * N + walk[:, 1]
+        assert len(key) == T * N and np.array_equal(np.sort(key), np.arange(T * N))
+
+
+def test_gae_plan_at_the_paths_shapes():
+    """train's [32, 128]: 4 blocks of one chunk; the rollout's [128, 8192]:
+    256 blocks (more than the H100's 132 SMs) of four chunks, all in flight
+    before the walk."""
+    assert K6.gae_plan(32, 128) == K6.GaePlan(32, 32, 1, 4)
+    assert K6.gae_plan(128, 8192) == K6.GaePlan(32, 32, 4, 256)
+    assert K6.gae_plan(128, 8192).blocks >= H100_SMS
 
 
 # -------------------------------------------------------------------- K8
