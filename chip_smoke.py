@@ -3,9 +3,9 @@
 kernels, holds each against its plain PyTorch version, serves the v9 policy
 over a test grid, collects a rollout, runs the MPC expert over a test grid,
 serves the action-value policy v16, trains with PPO and the identifier,
-runs DAgger rounds, and serves the MTIO viewport model (``run_models
---test``, the ``predict`` export), all through the port's own entry points.
-It imports no JAX.
+runs DAgger rounds, serves the MTIO viewport model (``run_models
+--test``, the ``predict`` export) and trains it (``run_models --train``),
+all through the port's own entry points.  It imports no JAX.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -89,8 +89,14 @@ its shapes (the decode self-attention at every t of the 15-slot cache, the
 cross-attention over 3 keys, the encoder's 5 x 5, the causal 16 x 16), also
 against ``scaled_dot_product_attention`` (math backend; its default backend
 is K8's yardstick; two launches give the same bits), with the sums of a
-viewport batch's 62 launches (times and bounds), and that K8 refuses to run
-where autograd would need its backward; K7 in metrics mode (F = 15) and
+viewport batch's 62 launches (times and bounds); K8's training mode and its
+backward kernel in each training shape (the encoder, the decode step over
+the 15-slot cache at every prefix, the cross-attention 1 x 3 and 15 x 3,
+the teacher-forced causal 15 x 15), with a dropout keep mask at 0.1 and
+without, against the plain version's autograd (two launches of each give
+the same bits; keys no row sees get exactly 0), timed beside SDPA's
+forward and forward + backward, with the sums of a training step's 62
+launches of each (6 with teacher forcing); K7 in metrics mode (F = 15) and
 chunk mode (frequency 5; two launches of each give the same bits), and on a
 grid of positions on and beside every pixel boundary that moves a map.
 
@@ -105,13 +111,24 @@ grid of positions on and beside every pixel boundary that moves a map.
    users, 77,520 trajectories) from trace ``.npy`` files in the dataset
    schema under a temporary directory, the weights from an ``.npz``; every
    pickle written must load through ``data/prediction.py``.
+11. vp_train: ``run_models --train``'s epoch (``vp_train.train_epoch``) at
+   its defaults (d 512, 2 + 2 layers, 8 x 64 heads, bs 512, fut 15, his 5,
+   the KV-cached autoregressive decode, dropout on) from Flax's
+   initialisers over 32 batches of seeded synthetic trajectories: samples/s
+   over VP_PASSES epochs, then one ``--teacher-forcing`` epoch; one step
+   profiled (``train_step_profile``); one step through the kernels against
+   the same step with K8 swapped for its plain versions (same weights,
+   generator seed, slot draws and dropout masks): loss, gradients and the
+   parameters after AdamW within their tolerances; a validation pass on
+   the trained weights.
 
 Each path is timed over several passes (median and spread of the host-clock
 rate); every pass must launch each kernel exactly as often as the path has
 steps (K2 and K3 once more per collect, for the bootstrap value; K4 and K1
 once a decision in the expert phase; K5 once a split, at setup; K6 once a
 collect, and K3's training mode, K9 and K10 once a minibatch step; K8 62
-times and K7 once a viewport batch).
+times and K7 once a viewport batch; K8's training mode and backward 62
+times each a training step, 6 with teacher forcing).
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -175,6 +192,11 @@ VP_PASSES = 3           # timed passes of vp_test and vp_export (median and spre
 VP_ATOL = 2e-5          # phase 9: predictions through the kernels against the plain path
 VP_SEED = 5             # run_models / predict --seed default: the MTIO weights' seed
 FRAME = (2560, 1440)    # the Jin2022 frame K7 maps onto 8 x 8 tiles
+VP_TRAIN_BATCHES = 32   # phase 11: batches an epoch (bench.py's MTIO epoch)
+VP_LOSS_RTOL = 1e-5     # phase 11: a step's loss through the kernels against the plain path
+VP_GRAD_RTOL = 1e-4     # phase 11: gradients, plus VP_GRAD_RTOL of the largest entry
+VP_PARAM_ATOL = 2e-6    # phase 11: parameters after AdamW whose two gradients agree to 1%
+VP_PARAM_LOOSE = 0.005  # phase 11: share of the other parameters allowed beyond VP_PARAM_ATOL
 
 PKG = "mansy_immersivevideostreaming_torch"
 KERNELS = {
@@ -203,6 +225,13 @@ KERNELS = {
                            replaces="mansy_immersivevideostreaming_tpu/ops/geometry.py:108"),
     "attention": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
                       replaces="mansy_immersivevideostreaming_tpu/models/transformer.py:61"),
+    "attention_train_forward": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
+                                    replaces="mansy_immersivevideostreaming_tpu/models/"
+                                             "transformer.py:61"),
+    "attention_backward": dict(route="cuda",
+                               source=f"{PKG}/kernels/csrc/attention_backward.cu",
+                               replaces="mansy_immersivevideostreaming_tpu/models/"
+                                        "vp_train.py:65"),
 }
 # the kernels' rows of wrappers that share a kernel
 ROW_OF = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
@@ -1817,6 +1846,28 @@ def attention_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0):
     return flops, 4 * B * H * Dh * (2 * Lq + 2 * max(seen))
 
 
+def attention_train_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0,
+                         dropout: bool):
+    """(operations, bytes) of K8's training mode: the serving mode's, the
+    row max and sum written (f32 [B, H, Lq] each) and the keep mask read
+    (u8 [B, H, Lq, Lk]) when there is one."""
+    flops, nbytes = attention_cost(B, Lq, Lk, H, Dh, kv_len0)
+    return flops, nbytes + 8 * B * H * Lq + (B * H * Lq * Lk if dropout else 0)
+
+
+def attention_backward_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0,
+                            dropout: bool):
+    """(operations, bytes) of K8's backward: per (row, seen key) the score,
+    dO . v, and the dq, dk and dv multiply-adds (10 Dh) and about 10 scalar
+    operations, per row dO . o (2 Dh); q, o, dO and the seen k and v rows,
+    the statistics and the mask read once, dq, dk and dv written once."""
+    first = Lk if kv_len0 is None else kv_len0
+    seen = [min(Lk, first + r) for r in range(Lq)]
+    flops = B * H * (sum(n * (10 * Dh + 10) for n in seen) + Lq * 2 * Dh)
+    nbytes = 4 * B * H * Dh * (4 * Lq + 2 * max(seen) + 2 * Lk) + 8 * B * H * Lq
+    return flops, nbytes + (B * H * Lq * Lk if dropout else 0)
+
+
 def occupancy_cost(B: int, F: int, frequency=None):
     """(operations, bytes) of K7.  A point's map takes about 120 integer
     operations (two axes: 4 tile lookups, 8 range tests; 8 row ORs); a
@@ -1911,18 +1962,6 @@ def viewport_kernel_phase(dev, parent=None):
     batch = {f"{key}_sum": sum(n * cases[name][key] for name, n in mix.items())
              for key in ("ms", "bound_ms", "plain_ms", "library_ms")
              + (("earlier_ms",) if parent is not None else ())}
-    # no gradient through the kernel: it raises where one would be needed
-    q, k, v = (torch.randn(2, 1, H, Dh, device=dev, generator=gen, requires_grad=True)
-               for _ in range(3))
-    try:
-        K8.attention(q, k, v, 1)
-    except RuntimeError as e:
-        if "no backward" not in str(e):
-            raise
-    else:
-        raise AssertionError("attention ran on tensors that require grad with grad enabled")
-    with torch.no_grad():
-        K8.attention(q, k, v, 1)
     # the least a call times by gpu_ms here: one torch.add of a decode step's q
     x = torch.randn(B, 1, H, Dh, device=dev, generator=gen)
     out = torch.empty_like(x)
@@ -1931,7 +1970,8 @@ def viewport_kernel_phase(dev, parent=None):
                              **{k: cases["decode_t14"][k] for k in (
                                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                              shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1),
-                             batch=dict(launches=mix, **batch), grad_refused=True, cases=cases)
+                             batch=dict(launches=mix, **batch), cases=cases)
+    rows.update(attention_training_cases(K8, dev, gen, args, batch["timing_floor_ms"]))
 
     # K7: metrics mode (run_models --test) and chunk mode (predict)
     gt, pred = edge_positions(B, F, 1, dev), edge_positions(B, F, 2, dev)
@@ -1984,6 +2024,111 @@ def viewport_kernel_phase(dev, parent=None):
         max_abs_err=max(m_err, float((iou - riou).abs().max())), maps_equal=True,
         boundary_grid_points=int(grid.shape[0]), shape=dict(B=B, F=F, mode="metrics"),
         **metrics, **bound(*occupancy_cost(B, F)), library_ms=None, chunk_mode=chunk)
+    return rows
+
+
+def training_close(got, ref, scale: float) -> bool:
+    """K8's training mode and backward against the plain version's autograd:
+    rtol 1e-5 plus 1e-5 of ``scale``, the largest entry of the output or
+    of the three gradients (sums in another order; where a gradient is 0
+    in exact arithmetic, as dq and dk of a row that sees one key, autograd's
+    softmax backward leaves rounding noise)."""
+    return bool(((got - ref).abs() <= RTOL * ref.abs() + RTOL * scale).all())
+
+
+def attention_training_cases(K8, dev, gen, args, floor_ms: float) -> dict:
+    """K8's training forward and backward at B = VP_BATCH in each training
+    shape (the encoder's 5 x 5, the decode step over the 15-slot cache at
+    each prefix, the cross-attention 1 x 3, the teacher-forced causal 15 x
+    15 and its cross-attention 15 x 3), with a dropout keep mask at 0.1 and
+    without: held against the plain version's autograd, two launches each
+    bit-equal, keys no row sees exactly 0 in dk and dv.  Timed with the
+    mask (the training default): the kernels, the plain versions, SDPA's
+    forward and its forward + backward (autograd) as ``library_ms``; the
+    sums over a training step's 62 launches of each (6 with teacher
+    forcing).  Returns the two kernels' rows."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    B, H, Dh, F = VP_BATCH, 8, 64, args.fut_window
+    rate = 0.1
+    shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
+    shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal_tf=(F, F, 1),
+                  cross_tf=(F, 3, None))
+    fwd_cases, bwd_cases, fwd_err, bwd_err = {}, {}, 0.0, 0.0
+    for name, (Lq, Lk, kv_len0) in shapes.items():
+        q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=gen) for L in (Lq, Lk, Lk))
+        dout = torch.randn(B, Lq, H, Dh, device=dev, generator=gen)
+        keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(torch.uint8)
+        for mask in (None, keep):
+            label = f"training {name}{' with dropout' if mask is not None else ''}"
+            fwd = K8.attention_train_forward(q, k, v, kv_len0, mask, rate)
+            ref = K8.attention_train_forward_plain(q, k, v, kv_len0, mask, rate)
+            for got, want in zip(fwd, ref):
+                if not training_close(got, want, float(want.abs().max())):
+                    raise AssertionError(f"attention ({label}) disagrees with its plain version")
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            want = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, mask, rate), leaves,
+                                       dout)
+            got = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, mask, rate)
+            scale = max(float(w.abs().max()) for w in want)
+            if not all(training_close(g, w, scale) for g, w in zip(got, want)):
+                raise AssertionError(f"attention_backward ({label}) disagrees with the plain "
+                                     f"version's autograd")
+            if kv_len0 is not None:
+                unseen = slice(min(Lk, kv_len0 + Lq - 1), None)
+                if bool(got[1][:, unseen].any()) or bool(got[2][:, unseen].any()):
+                    raise AssertionError(f"attention_backward ({label}): keys no row sees have "
+                                         f"a gradient")
+            if not (all(torch.equal(a, b) for a, b in zip(
+                    fwd, K8.attention_train_forward(q, k, v, kv_len0, mask, rate)))
+                    and all(torch.equal(a, b) for a, b in zip(got, K8.attention_backward(
+                        dout, q, k, v, *fwd, kv_len0, mask, rate)))):
+                raise AssertionError(f"attention ({label}): two launches differ")
+            fwd_err = max(fwd_err, max(float((a - b).abs().max()) for a, b in zip(fwd, ref)))
+            bwd_err = max(bwd_err, max(float((a - b).abs().max()) for a, b in zip(got, want)))
+        # timings with the mask; SDPA on the same prefix mask, its own dropout off
+        seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
+        allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
+        qt, kt, vt = (x.transpose(1, 2).clone().requires_grad_() for x in (q, k, v))
+        dout_t = dout.transpose(1, 2)
+        fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        common = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0)
+        fwd_cases[name] = dict(
+            **common, ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate)),
+            plain_ms=gpu_ms(lambda: K8.attention_train_forward_plain(q, k, v, kv_len0, keep,
+                                                                     rate)),
+            library_ms=gpu_ms(lambda: sdpa(*(x.transpose(1, 2) for x in (q, k, v)),
+                                           attn_mask=allowed)),
+            **bound(*attention_train_cost(B, Lq, Lk, H, Dh, kv_len0, True)))
+        bwd_cases[name] = dict(
+            **common, ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep,
+                                                              rate)),
+            plain_ms=gpu_ms(lambda: K8.attention_backward_plain(dout, q, k, v, *fwd, kv_len0,
+                                                                keep, rate)),
+            autograd_plain_ms=gpu_ms(lambda: torch.autograd.grad(
+                K8.attention_plain(*leaves, kv_len0, keep, rate), leaves, dout)),
+            library_ms=gpu_ms(lambda: torch.autograd.grad(
+                sdpa(qt, kt, vt, attn_mask=allowed), (qt, kt, vt), dout_t)),
+            **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True)))
+    # a training step's launches: each encoder layer once, then per decode
+    # step each decoder layer's self-attention at t and cross-attention; with
+    # teacher forcing each decoder layer's causal pass and cross-attention
+    L = args.block_num
+    mixes = {"step": {"encoder": L, "cross": F * L, **{f"decode_t{t}": L for t in range(F)}},
+             "teacher_forced_step": {"encoder": L, "causal_tf": L, "cross_tf": L}}
+    if sum(mixes["step"].values()) != attention_launches(args):
+        raise AssertionError(f"attention: the step mix {mixes['step']} is not a step's launches")
+    rows = {}
+    for row, cases, err in (("attention_train_forward", fwd_cases, fwd_err),
+                            ("attention_backward", bwd_cases, bwd_err)):
+        keys = ("ms", "bound_ms", "plain_ms", "library_ms")
+        sums = {f"{mix}_{key}_sum": sum(n * cases[name][key] for name, n in shape_n.items())
+                for mix, shape_n in mixes.items() for key in keys}
+        rows[row] = dict(max_abs_err=err, **{k: cases[f"decode_t{F - 1}"][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                         shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1, dropout=rate),
+                         batch=dict(launches=mixes, timing_floor_ms=floor_ms, **sums),
+                         bits_equal_on_two_launches=True, cases=cases)
     return rows
 
 
@@ -2181,6 +2326,163 @@ def vp_export_phase(dev, counters):
                 chunks_with_overlap=chunks, mean_iou=float(acc.mean()), launches=launches)
 
 
+# ---------------------------------------------------------------- phase 11
+
+def vp_train_data(args, n: int, seed: int, dev) -> dict:
+    """[n] windows of seeded synthetic head traces on the card: history,
+    current and future of ``run_models``' widths."""
+    M, F = args.his_window, args.fut_window
+    xy = torch.as_tensor(synthetic_traces(n, M + 1 + F, seed), device=dev)
+    return {"history": xy[:, :M].contiguous(), "current": xy[:, M:M + 1].contiguous(),
+            "future": xy[:, M + 1:].contiguous()}
+
+
+def compare_vp_steps(model, opt, batch, seed: int) -> dict:
+    """One ``vp_train.train_step`` from the same weights, generator seed (so
+    the same dropout masks), slot permutations and repeat draw through the
+    kernels and through K8's plain version (``mock.patch``).  The loss must
+    agree to VP_LOSS_RTOL; every gradient entry to VP_GRAD_RTOL relative
+    plus VP_GRAD_RTOL of the largest gradient entry of the model (K8's sums
+    in another order differ by an ulp, and the difference grows through the
+    15 decode steps that feed their predictions back, to about 2e-5 of the
+    largest entry on an H100);
+    after AdamW, whose first step is about lr * sign(g): every parameter
+    whose two gradients agree to 1% (Adam's step then differs by at most
+    lr / 400) to VP_PARAM_ATOL; the others, whose gradient sits near 0 (the
+    key biases, which softmax ignores, the biases that BatchNorm's batch
+    mean removes, and small gradients of the batch mean), may follow the
+    sign of float noise: those beyond VP_PARAM_ATOL are counted and must
+    stay under VP_PARAM_LOOSE of all."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    from mansy_immersivevideostreaming_torch.models import transformer
+    from mansy_immersivevideostreaming_torch.models import vp_train as TV
+
+    dev = batch["history"].device
+    B = batch["history"].shape[0]
+    perms, repeat = model.draw_slots(B, torch.Generator(device=dev).manual_seed(seed), dev)
+    state = TV.create_train_state(model)
+    plain = mock.patch.object(transformer, "attention", K8.attention_plain)
+
+    def grads(m):
+        gen = TV.step_generator(seed, state.step, dev)
+        pred, gt = m(batch["history"], batch["current"], batch["future"], train=True,
+                     perms=perms, repeat=repeat, generator=gen)
+        loss = m.loss_function(pred, gt)
+        return loss.detach(), torch.autograd.grad(loss, list(m.parameters()))
+
+    loss_k, g_k = grads(copy.deepcopy(model))
+    with plain:
+        loss_p, g_p = grads(copy.deepcopy(model))
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not loss_err <= VP_LOSS_RTOL:
+        raise AssertionError(f"vp_train: the kernels' loss differs from the plain path's by "
+                             f"{loss_err} (relative)")
+    scale = max(float(g.abs().max()) for g in g_p) * VP_GRAD_RTOL
+    grad_err = max(float(((a - b).abs() - VP_GRAD_RTOL * b.abs()).max()) for a, b in zip(g_k, g_p))
+    if grad_err > scale:
+        raise AssertionError(f"vp_train: a gradient differs from the plain path's by {grad_err} "
+                             f"beyond rtol {VP_GRAD_RTOL} (atol {scale})")
+    kernel_m, plain_m = copy.deepcopy(model), copy.deepcopy(model)
+    TV.train_step(kernel_m, opt, state, batch, seed, perms, repeat)
+    with plain:
+        TV.train_step(plain_m, opt, state, batch, seed, perms, repeat)
+    sure_err, tight, loose, total = 0.0, 0, 0, 0
+    for gk, gp, pk, pp in zip(g_k, g_p, kernel_m.parameters(), plain_m.parameters()):
+        sure = (gk - gp).abs() <= 0.01 * gp.abs()
+        diff = (pk.detach() - pp.detach()).abs()
+        sure_err = max(sure_err, float(diff[sure].max()) if bool(sure.any()) else 0.0)
+        tight += int(sure.sum())
+        loose += int((~sure & (diff > VP_PARAM_ATOL)).sum())
+        total += diff.numel()
+    if sure_err > VP_PARAM_ATOL or loose > VP_PARAM_LOOSE * total:
+        raise AssertionError(f"vp_train: parameters whose gradients agree to 1% differ by "
+                             f"{sure_err} after AdamW; {loose} of {total} others beyond "
+                             f"{VP_PARAM_ATOL}")
+    stats_err = max(float((a - b).abs().max()) for a, b in zip(
+        kernel_m.transformer.distill.bn.buffers(), plain_m.transformer.distill.bn.buffers()))
+    return dict(loss=float(loss_k), plain_loss=float(loss_p), loss_rel_err=loss_err,
+                grad_excess_over_rtol=grad_err, grad_atol=scale,
+                grad_max_abs_err=max(float((a - b).abs().max()) for a, b in zip(g_k, g_p)),
+                param_max_abs_err=sure_err, params_compared=tight,
+                params_near_zero_gradient_differing=loose, params_total=total,
+                batch_stats_max_abs_err=stats_err,
+                repeat=bool(repeat))
+
+
+def vp_train_phase(dev, counters):
+    """``run_models --train``'s epoch (``vp_train.train_epoch``) at its
+    defaults (d 512, 2 + 2 layers, 8 x 64 heads, bs 512, fut 15, his 5, the
+    KV-cached autoregressive decode, dropout on, AdamW lr 1e-4) from Flax's
+    initialisers, over VP_TRAIN_BATCHES batches of seeded synthetic
+    trajectories: a warm-up epoch, VP_PASSES timed epochs, then one
+    ``--teacher-forcing`` epoch; one step profiled; one step through the
+    kernels against the plain path; a validation pass (``valid_step``, K8's
+    serving mode) on the trained weights."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.models import vp_train as TV
+
+    args = run_models.build_parser().parse_args(["--train", "--seed", str(VP_SEED)])
+    n = VP_TRAIN_BATCHES * args.bs
+    data = vp_train_data(args, n, 40, dev)
+    model = run_models.build_model(args, dev).init_like_flax(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    opt = TV.make_optimizer(args.lr, 0.01 if args.weight_decay is None else args.weight_decay)
+    rng = np.random.default_rng(args.seed)
+    carry = {"state": TV.create_train_state(model)}
+    losses = []
+
+    def epoch(m, key):
+        carry[key], epoch_losses = TV.train_epoch(m, opt, carry[key], data, args.bs,
+                                                  rng.permutation(n), args.seed)
+        losses.append(epoch_losses.cpu())  # the epoch's one sync
+
+    epoch(model, "state")  # warm-up
+    per_step = attention_launches(args)
+    _, seconds, launches = timed_passes(
+        lambda: epoch(model, "state"), counters,
+        expect(counters, attention_train_forward=per_step * VP_TRAIN_BATCHES,
+               attention_backward=per_step * VP_TRAIN_BATCHES), VP_PASSES)
+    rate = rate_stats(n, seconds)
+    # --teacher-forcing: the same weights, its own AdamW state
+    tf_model = copy.deepcopy(model)
+    tf_model.teacher_forcing = True
+    carry["tf"] = TV.create_train_state(tf_model)
+    epoch(tf_model, "tf")  # warm-up
+    tf_launches = 3 * args.block_num  # the encoder's layers, each decoder layer's two
+    _, tf_seconds, tf_counts = timed_passes(
+        lambda: epoch(tf_model, "tf"), counters,
+        expect(counters, attention_train_forward=tf_launches * VP_TRAIN_BATCHES,
+               attention_backward=tf_launches * VP_TRAIN_BATCHES), 1)
+    flat = torch.cat(losses)
+    if not bool(torch.isfinite(flat).all()):
+        raise AssertionError("vp_train: non-finite losses")
+    # where a step's time goes, then the kernels against the plain path
+    batch = {k: v[:args.bs] for k, v in data.items()}
+    step = {"state": carry["state"]}
+
+    def one_step():
+        step["state"], _ = TV.train_step(model, opt, step["state"], batch, args.seed)
+
+    profiled = profile_update(one_step, 1)
+    check = compare_vp_steps(model, opt, batch, args.seed)
+    # validation on the trained weights, K8's serving mode
+    valid = vp_train_data(args, 4 * args.bs, 41, dev)
+    mses = [float(TV.valid_step(model, {k: v[i:i + args.bs] for k, v in valid.items()}))
+            for i in range(0, 4 * args.bs, args.bs)]
+    if not all(math.isfinite(m) for m in mses):
+        raise AssertionError(f"vp_train: non-finite validation MSE {mses}")
+    return dict(samples=n, batches=VP_TRAIN_BATCHES, steps=VP_TRAIN_BATCHES, batch=args.bs,
+                passes=VP_PASSES, seconds=seconds, samples_per_s_median=rate["median"],
+                samples_per_s_min=rate["min"], samples_per_s_max=rate["max"],
+                spread=rate["spread"], teacher_forcing_seconds=tf_seconds[0],
+                teacher_forcing_samples_per_s=n / tf_seconds[0],
+                teacher_forcing_launches=tf_counts,
+                first_epoch_loss=float(losses[0].mean()), last_epoch_loss=float(losses[-2].mean()),
+                teacher_forcing_epoch_loss=float(losses[-1].mean()),
+                train_step_profile=profiled, kernels_vs_plain=check, valid_mse=mses,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2200,7 +2502,9 @@ def main() -> int:
     from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
     from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
     from mansy_immersivevideostreaming_torch.kernels.policy_loss import policy_loss
-    from mansy_immersivevideostreaming_torch.kernels.attention import attention
+    from mansy_immersivevideostreaming_torch.kernels.attention import (
+        attention, attention_backward, attention_train_forward,
+    )
     from mansy_immersivevideostreaming_torch.kernels.tile_occupancy import (
         chunk_maps, trajectory_metrics,
     )
@@ -2212,7 +2516,8 @@ def main() -> int:
     log(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     counters = (env_step, observe_mansy_pack, actor_critic_forward, choose_action,
                 build_expert_tables, compute_gae, policy_loss, actor_critic_train_forward,
-                actor_critic_backward, chunk_maps, trajectory_metrics, attention)
+                actor_critic_backward, chunk_maps, trajectory_metrics, attention,
+                attention_train_forward, attention_backward)
 
     t0 = time.time()
     parent = load_parent(opts.parent) if opts.parent else None
@@ -2232,7 +2537,8 @@ def main() -> int:
                       ("train", lambda: train_phase(dev, counters)),
                       ("dagger", lambda: dagger_phase(dev, counters)),
                       ("vp_test", lambda: vp_test_phase(dev, counters)),
-                      ("vp_export", lambda: vp_export_phase(dev, counters))):
+                      ("vp_export", lambda: vp_export_phase(dev, counters)),
+                      ("vp_train", lambda: vp_train_phase(dev, counters))):
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
@@ -2253,7 +2559,8 @@ def main() -> int:
                     "dagger": ("env_step", "observe_mansy_pack", "actor_critic_forward",
                                "choose_action") + training,
                     "vp_test": ("attention", "trajectory_metrics"),
-                    "vp_export": ("attention", "chunk_maps")}
+                    "vp_export": ("attention", "chunk_maps"),
+                    "vp_train": ("attention_train_forward", "attention_backward")}
     for path, names in path_kernels.items():
         for name in names:
             if paths[path]["launches"][name] == 0:

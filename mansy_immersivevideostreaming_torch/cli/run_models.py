@@ -1,31 +1,44 @@
-"""Viewport-prediction testing CLI.
+"""Viewport-prediction training and testing CLI.
 
 Port of the JAX package's ``cli/run_models.py`` (reference
-``viewport_prediction/run_models.py``) for ``--test``: the same flags,
-directory layout, file prefix and outputs (``<prefix>_seen_results.csv``,
-``.log`` and ``accuracy_result.csv``, and the unseen ones).  ``--model
-mtio`` reads the best model from ``<file_prefix>_best_model.npz`` beside
-where the JAX CLI writes its ``.ckpt`` (Flax params and ``batch_stats``,
-``utils/checkpoint.py``); ``--model regression`` runs the closed-form
-baseline.  Per batch the model runs K8 62 times at the default widths (2
-encoder layers, then 15 decode steps x 2 layers x self- and cross-attention)
-and the results recorder K7 once.
+``viewport_prediction/run_models.py``): the same flags, directory layout,
+file prefix and outputs.  ``--train`` trains the MTIO model from Flax's
+initialisers (``init_like_flax``) with AdamW, one epoch at a time over the
+train split staged on the device (``vp_train.train_epoch``, the epoch's
+permutation from ``np.random.default_rng(seed)`` as in the JAX CLI), and
+every ``--epochs-per-valid`` epochs validates, writes
+``<file_prefix>_checkpoint.npz`` (weights, AdamW state, step;
+``--resume --resume-path`` reads it) and, when the validation MSE is the
+best so far, ``<file_prefix>_best_model.npz`` (Flax params and
+``batch_stats``, ``utils/checkpoint.py``), where the JAX CLI writes its
+``.ckpt`` files; the console is tee'd into ``<file_prefix>console.log``.
+``--teacher-forcing`` trains with the single-pass decode.  ``--test``
+writes ``<prefix>_seen_results.csv``, ``.log`` and ``accuracy_result.csv``
+and the unseen ones; ``--model mtio`` reads the best model's npz,
+``--model regression`` runs the closed-form baseline.  Per batch the model
+runs K8 62 times at the default widths (2 encoder layers, then 15 decode
+steps x 2 layers x self- and cross-attention): in training, its training
+forward and its backward kernel 62 times each (6 with teacher forcing); in
+validation and testing its serving kernel, and the results recorder K7
+once.
 
-Refused, for later slices: ``--train`` (with ``--resume``),
-``--teacher-forcing`` and ``--bf16`` (the MTIO training slice, ROADMAP
-Queue 1 item 11) and ``--data-parallel`` (item 14).
+Refused, for later items: ``--bf16`` (ROADMAP Queue 1 item 11b) and
+``--data-parallel`` (item 14).
 
 Example::
 
-    python -m mansy_immersivevideostreaming_torch.cli.run_models --test \\
-        --model mtio --test-dataset Jin2022 --his-window 5 --fut-window 15 \\
-        --bs 512 --seed 5 --hidden-dim 512 --block-num 2 --lr 1e-4 --epochs 200
+    python -m mansy_immersivevideostreaming_torch.cli.run_models --train --test \\
+        --model mtio --train-dataset Jin2022 --test-dataset Jin2022 --his-window 5 \\
+        --fut-window 15 --bs 512 --seed 5 --hidden-dim 512 --block-num 2 --lr 1e-4 \\
+        --epochs 200
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -36,8 +49,11 @@ from mansy_immersivevideostreaming_torch.data.viewport import create_datasets
 from mansy_immersivevideostreaming_torch.models import vp_train
 from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
 from mansy_immersivevideostreaming_torch.models.regression import linear_regression_sample
-from mansy_immersivevideostreaming_torch.utils.checkpoint import load_mtio_npz_into
+from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+    load_mtio_npz_into, load_train_checkpoint, save_mtio_npz, save_train_checkpoint,
+)
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger
 from mansy_immersivevideostreaming_torch.utils.results import Results
 
 
@@ -53,7 +69,59 @@ def build_model(args, device) -> ViewportTransformerMTIO:
     return ViewportTransformerMTIO(
         in_channel=2, fut_window=args.fut_window, d_model=args.hidden_dim,
         dim_feedforward=args.hidden_dim, num_encoder_layers=args.block_num,
-        num_decoder_layers=args.block_num, device=device)
+        num_decoder_layers=args.block_num,
+        teacher_forcing=getattr(args, "teacher_forcing", False),
+        device=device)
+
+
+def train(args, config, model, opt, state, models_dir: str, file_prefix: str, device):
+    """``run_models --train``'s loop (JAX ``cli/run_models.py:60-134``)."""
+    checkpoint_path = os.path.join(models_dir, file_prefix + "_checkpoint.npz")
+    best_model_path = os.path.join(models_dir, file_prefix + "_best_model.npz")
+    if args.resume:
+        assert args.resume_path is not None
+        state = load_train_checkpoint(args.resume_path, model)
+        print("Resume model for training from:", args.resume_path)
+
+    sets = create_datasets(config, args.train_dataset, args.his_window,
+                           args.fut_window, include=("train", "valid"),
+                           trim_head=args.trim_head, trim_tail=args.trim_tail,
+                           step=args.sample_step, frequency=args.dataset_frequency)
+    ds_train, ds_valid = sets["train"], sets["valid"]
+    print(f"Training {args.model} on {args.train_dataset} - bs: {args.bs} "
+          f"- lr: {args.lr} - seed: {args.seed} - samples: {len(ds_train)}")
+    rng = np.random.default_rng(args.seed)
+    # the whole split on the device once; each epoch gathers its batches there
+    h, c, f, *_ = ds_train.gather(np.arange(len(ds_train)))
+    data = {k: torch.as_tensor(x, device=device)
+            for k, x in (("history", h), ("current", c), ("future", f))}
+    best_valid_mse, best_epoch = float("inf"), 0
+    for epoch in range(args.epochs):
+        print(f"Epoch {epoch + 1}/{args.epochs}\n-------------------------------")
+        t0 = time.time()
+        perm = rng.permutation(len(ds_train))
+        state, losses = vp_train.train_epoch(model, opt, state, data, args.bs, perm, args.seed)
+        losses = losses.cpu().numpy()
+        mean_loss = float(np.mean([float(l) for l in losses]))
+        print(f"Train: mean train loss: {mean_loss:>9f} "
+              f"({losses.shape[0] * args.bs / (time.time() - t0):,.0f} samples/s)")
+        if epoch % args.epochs_per_valid == 0:
+            mses = []
+            for h, c, f, *_ in batches(ds_valid, args.bs):
+                batch = {k: torch.as_tensor(x, device=device)
+                         for k, x in (("history", h), ("current", c), ("future", f))}
+                mses.append(float(vp_train.valid_step(model, batch)))
+            mse = float(np.mean(mses))
+            print(f"Valid: mean square error: {mse:>9f}")
+            save_train_checkpoint(checkpoint_path, model, state)
+            print("Checkpoint saved at", checkpoint_path)
+            if best_valid_mse > mse:
+                best_valid_mse = mse
+                best_epoch = epoch + 1
+                save_mtio_npz(best_model_path, model)
+            print(f"Best model (epoch {best_epoch}, loss {best_valid_mse}) "
+                  f"saved at", best_model_path)
+    return state
 
 
 def make_sample_fn(args, model):
@@ -103,8 +171,7 @@ def test(args, config, models_dir: str, results_dir: str, file_prefix: str):
 
 def run(args, config):
     assert args.model in ("regression", "mtio")
-    for flag, item in (("train", "11"), ("resume", "11"), ("teacher_forcing", "11"),
-                       ("bf16", "11"), ("data_parallel", "14")):
+    for flag, item in (("bf16", "11b"), ("data_parallel", "14")):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"run_models: --{flag.replace('_', '-')} is not ported yet (ROADMAP Queue 1 "
@@ -127,15 +194,27 @@ def run(args, config):
     file_prefix = (f"his_{args.his_window}_fut_{args.fut_window}_"
                    f"hid_{args.hidden_dim}_ss_{args.sample_step}_"
                    f"epochs_{args.epochs}_bs_{args.bs}_lr_{args.lr}_seed_{args.seed}")
-    if args.test:
-        test(args, config, models_dir, results_dir, file_prefix)
+    with contextlib.ExitStack() as stack:
+        if args.train:
+            dev = resolve_device(args.device)
+            model = build_model(args, dev)
+            model.init_like_flax(torch.Generator(device=dev).manual_seed(args.seed))
+            opt = vp_train.make_optimizer(
+                args.lr, 0.01 if args.weight_decay is None else args.weight_decay)
+            console_log = stack.enter_context(
+                open(os.path.join(results_dir, file_prefix + "console.log"), "w"))
+            stack.enter_context(contextlib.redirect_stdout(ConsoleLogger(sys.stdout,
+                                                                         console_log)))
+            train(args, config, model, opt, vp_train.create_train_state(model), models_dir,
+                  file_prefix, dev)
+        if args.test:
+            test(args, config, models_dir, results_dir, file_prefix)
 
 
 def build_parser():
     parser = argparse.ArgumentParser(
-        description="Test viewport prediction models (PyTorch + CUDA).")
-    parser.add_argument("--train", action="store_true",
-                        help="not ported yet: refused")
+        description="Train/test viewport prediction models (PyTorch + CUDA).")
+    parser.add_argument("--train", action="store_true")
     parser.add_argument("--test", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--model", type=str, default="mtio")
@@ -143,7 +222,7 @@ def build_parser():
     parser.add_argument("--block-num", type=int, default=2)
     parser.add_argument("--compile", action="store_true",
                         help="accepted for reference-CLI compatibility")
-    parser.add_argument("--resume", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--resume", action="store_true")
     parser.add_argument("--resume-path", type=str)
     parser.add_argument("--train-dataset", type=str, default="Jin2022")
     parser.add_argument("--test-dataset", type=str, default="Jin2022")
@@ -161,7 +240,8 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=5)
     parser.add_argument("--bf16", action="store_true", help="not ported yet: refused")
     parser.add_argument("--teacher-forcing", action="store_true",
-                        help="not ported yet: refused")
+                        help="single-pass ground-truth-fed training decode instead of the "
+                             "15-step autoregressive one; inference stays autoregressive")
     parser.add_argument("--data-parallel", action="store_true",
                         help="not ported yet: refused")
     parser.add_argument("--config-yml", type=str, default=None)

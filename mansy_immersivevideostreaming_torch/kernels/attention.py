@@ -1,100 +1,266 @@
-"""K8: the softmax-attention core of the MTIO transformer (wrapper, plain
-version, launch count).
+"""K8: the softmax-attention core of the MTIO transformer, its training mode
+and its backward (wrappers, plain versions, launch counts).
 
 Replaces what the deleted Pallas kernel ``mha_pallas`` computed and the JAX
 package leaves to XLA: the core of ``models/transformer.py:MHA.attend``
 (``:67-74``), ``softmax(q . k^T / sqrt(Dh), masked with -1e30) . v`` with
-scores and softmax in f32.  Every mask on the MTIO paths is a prefix of the
-keys (the KV-cached decode step t sees slots <= t, the full decode is
-causal, the encoder and cross-attention see all keys), so the mask is given
-as ``kv_len0``: query row r sees keys ``[0, min(Lk, kv_len0 + r))``.
+scores and softmax in f32, and in training the attention-probability
+dropout (``:72-73``) and the gradient ``jax.value_and_grad`` takes through
+it (``models/vp_train.py:_train_step``).  Every mask on the MTIO paths is a
+prefix of the keys (the KV-cached decode step t sees slots <= t, the full
+decode is causal, the encoder and cross-attention see all keys), so the
+mask is given as ``kv_len0``: query row r sees keys
+``[0, min(Lk, kv_len0 + r))``.
 
 On the H100 the core is bound by the k and v bytes; ``csrc/attention.cu``
-runs one warp a (b, query row, head).  The projections and the cache write
-stay ``torch`` ops (``models/transformer.py``).
-
-The kernel has no backward yet (ROADMAP Queue 2 A1): on the card,
-:func:`attention` refuses tensors that would need one
-(:func:`refuse_grad`), where the CPU's plain version differentiates.
+runs one warp a (b, query row, head), in a serving mode and a training mode
+that also writes each row's max and exp sum and applies a dropout keep
+mask; ``csrc/attention_backward.cu`` runs one CTA a (b, head) from those
+statistics.  :func:`attention` picks the path: the plain version for CPU
+tensors, the training forward and the backward kernel
+(:class:`_AttentionFunction`) when autograd needs a gradient, else the
+serving kernel.  The projections, the cache write and the mask draws stay
+``torch`` ops (``models/transformer.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from mansy_immersivevideostreaming_torch.kernels import build
 
+MAX_DH = 256    # head width the kernels hold in registers (8 values a lane)
+MAX_LK = 2048   # keys a row's scores hold in shared memory (forward)
+MAX_BACKWARD_ROWS = 64           # query rows and keys of the backward's shared-memory tiles
+MAX_BACKWARD_SMEM = 227 * 1024   # the H100's shared memory a block
+
+
+def _prefix_mask(Lq: int, Lk: int, kv_len0: Optional[int], device) -> Optional[torch.Tensor]:
+    """[Lq, Lk] bool, key j seen by row r iff j < min(Lk, kv_len0 + r)."""
+    if kv_len0 is None:
+        return None
+    seen = torch.clamp(torch.arange(Lq, device=device) + kv_len0, max=Lk)
+    return torch.arange(Lk, device=device)[None, :] < seen[:, None]
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, kv_len0: Optional[int]) -> torch.Tensor:
+    """The masked scores [B, H, Lq, Lk], as ``MHA.attend`` computes them."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / (q.shape[-1] ** 0.5)
+    mask = _prefix_mask(q.shape[1], k.shape[1], kv_len0, q.device)
+    return s if mask is None else s.masked_fill(~mask, -1e30)
+
+
+def _dropped(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """flax's Dropout with a given keep mask: x / keep_prob where kept, else 0."""
+    if keep is None:
+        return x
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
+
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_len0: int | None = None) -> torch.Tensor:
+                    kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
+                    rate: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version, as ``MHA.attend`` computes it: q [B, Lq, H, Dh],
-    k and v [B, Lk, H, Dh] -> [B, Lq, H, Dh]."""
-    Lq, Lk, dh = q.shape[1], k.shape[1], q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / (dh ** 0.5)
-    if kv_len0 is not None:
-        seen = torch.clamp(torch.arange(Lq, device=q.device) + kv_len0, max=Lk)
-        mask = torch.arange(Lk, device=q.device)[None, :] < seen[:, None]
-        s = s.masked_fill(~mask, -1e30)
-    p = torch.softmax(s, dim=-1)
+    k and v [B, Lk, H, Dh] -> [B, Lq, H, Dh]; with ``keep`` (u8 or bool
+    [B, H, Lq, Lk]) the probabilities go through dropout at ``rate``.
+    Differentiable."""
+    p = _dropped(torch.softmax(_scores(q, k, kv_len0), dim=-1), keep, rate)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def attention_train_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  kv_len0: int | None = None,
+                                  keep: Optional[torch.Tensor] = None, rate: float = 0.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training mode's plain version: (o, row max, row exp sum), the
+    statistics f32 [B, H, Lq]."""
+    s = _scores(q, k, kv_len0)
+    row_max = s.amax(-1)
+    e = torch.exp(s - row_max[..., None])
+    row_sum = e.sum(-1)
+    p = _dropped(e / row_sum[..., None], keep, rate)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v), row_max, row_sum
+
+
+def attention_backward_plain(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor, row_max: torch.Tensor,
+                             row_sum: torch.Tensor, kv_len0: int | None = None,
+                             keep: Optional[torch.Tensor] = None, rate: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's plain version, written out as the kernel computes it
+    (``csrc/attention_backward.cu``): P from the row statistics,
+    P' = P * M / kp, dV = P'^T dO, dP' = dO V^T, D = rowsum(dO * O),
+    dS = P * (dP' * M / kp - D), dQ = (dS / sqrt(Dh)) K, dK = (dS / sqrt(Dh))^T Q.
+    Returns (dq, dk, dv)."""
+    p = torch.exp(_scores(q, k, kv_len0) - row_max[..., None]) / row_sum[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", _dropped(p, keep, rate), dout)
+    dp = _dropped(torch.einsum("bqhd,bkhd->bhqk", dout, v), keep, rate)
+    D = (dout * o).sum(-1).transpose(1, 2)           # [B, H, Lq]
+    ds = p * (dp - D[..., None]) / (q.shape[-1] ** 0.5)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k), torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            dv)
 
 
 class _AttentionArgs(ctypes.Structure):
     """Mirror of ``AttentionArgs`` in ``csrc/attention.cu``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in ("q", "k", "v", "o")]
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
-                + [("scale", ctypes.c_float)])
+                + [("scale", ctypes.c_float), ("keep", ctypes.c_void_p),
+                   ("keep_prob", ctypes.c_float), ("row_max", ctypes.c_void_p),
+                   ("row_sum", ctypes.c_void_p)])
 
 
-MAX_DH = 256    # head width the kernel holds in registers (8 values a lane)
-MAX_LK = 2048   # keys a row's scores hold in shared memory
+class _AttentionBackwardArgs(ctypes.Structure):
+    """Mirror of ``AttentionBackwardArgs`` in ``csrc/attention_backward.cu``."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("dout", "q", "k", "v", "o", "row_max",
+                                                 "row_sum", "keep", "dq", "dk", "dv")]
+                + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
+                + [("scale", ctypes.c_float), ("keep_prob", ctypes.c_float)])
 
 
-def refuse_grad(grad_enabled: bool, *tensors: torch.Tensor) -> None:
-    """Raises if autograd would need the kernel's backward: grad mode on and
-    any of ``tensors`` requiring grad.  K8's backward is ROADMAP Queue 2 A1;
-    until then the CUDA path runs under ``torch.no_grad()`` (as ``sample``
-    does) or on tensors that need no gradient."""
-    if grad_enabled and any(t.requires_grad for t in tensors):
-        raise RuntimeError("attention: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
-                           "A1); call it under torch.no_grad() or with q, k and v that do not "
-                           "require grad")
+def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"attention: {name} must be a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              kv_len0: int | None = None) -> torch.Tensor:
-    """softmax(q . k^T / sqrt(Dh)) . v, query row r over the first
-    ``min(Lk, kv_len0 + r)`` keys (all keys if ``kv_len0`` is None).  CPU
-    tensors take :func:`attention_plain` (differentiable); CUDA tensors launch
-    the kernel, which refuses to run where a gradient would be needed."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, kv_len0)
-    refuse_grad(torch.is_grad_enabled(), q, k, v)
+def _check_qkv(q, k, v, kv_len0, keep):
+    """Checks the kernels' inputs; returns (B, Lq, Lk, H, Dh, kv_len0)."""
     B, Lq, H, Dh = q.shape
     Lk = k.shape[1]
     for name, t, shape in (("q", q, (B, Lq, H, Dh)), ("k", k, (B, Lk, H, Dh)),
                            ("v", v, (B, Lk, H, Dh))):
-        if t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"attention: {name} must be a contiguous float32 tensor of shape "
-                             f"{shape} on {q.device}, got {t.dtype} {tuple(t.shape)}")
+        _check(name, t, shape, torch.float32, q.device)
+    if keep is not None:
+        _check("keep", keep, (B, H, Lq, Lk), torch.uint8, q.device)
     kv_len0 = Lk if kv_len0 is None else int(kv_len0)
     if not (1 <= Dh <= MAX_DH and 1 <= Lk <= MAX_LK and kv_len0 >= 1):
         raise ValueError(f"attention: needs 1 <= Dh <= {MAX_DH}, 1 <= Lk <= {MAX_LK} and "
                          f"kv_len0 >= 1, got Dh {Dh}, Lk {Lk}, kv_len0 {kv_len0}")
-    o = torch.empty_like(q)
+    return B, Lq, Lk, H, Dh, kv_len0
+
+
+def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0.0,
+                    row_max=None, row_sum=None) -> None:
+    B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
+    ptr = lambda t: None if t is None else t.data_ptr()
     args = _AttentionArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
-                          B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5)
+                          B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
+                          keep=ptr(keep), keep_prob=1.0 - rate, row_max=ptr(row_max),
+                          row_sum=ptr(row_sum))
     lib = build.load("attention")
-    lib.attention_launch.argtypes = [ctypes.POINTER(_AttentionArgs), ctypes.c_void_p]
+    lib.attention_launch.argtypes = [ctypes.POINTER(_AttentionArgs), ctypes.c_int,
+                                     ctypes.c_void_p]
     lib.attention_launch.restype = ctypes.c_int
-    err = lib.attention_launch(ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.attention_launch(ctypes.byref(args), int(train),
+                               torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with CUDA error {err}")
+
+
+def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
+                            rate: float = 0.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training mode: (o, row max, row exp sum), the statistics f32
+    [B, H, Lq] that :func:`attention_backward` reads; ``keep`` (u8
+    [B, H, Lq, Lk]) drops probabilities at ``rate``.  CPU tensors take
+    :func:`attention_train_forward_plain`."""
+    if q.device.type == "cpu":
+        return attention_train_forward_plain(q, k, v, kv_len0, keep, rate)
+    B, Lq, H, _ = q.shape
+    o = torch.empty_like(q)
+    row_max = torch.empty(B, H, Lq, device=q.device)
+    row_sum = torch.empty(B, H, Lq, device=q.device)
+    _launch_forward(q, k, v, kv_len0, o, True, keep, rate, row_max, row_sum)
+    attention_train_forward.launches += 1
+    return o, row_max, row_sum
+
+
+def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, row_max: torch.Tensor, row_sum: torch.Tensor,
+                       kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
+                       rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the training mode's output from its gradient ``dout``,
+    its inputs, its output and its row statistics.  CPU tensors take
+    :func:`attention_backward_plain`; on the card the kernel takes at most
+    MAX_BACKWARD_ROWS query rows and keys and raises beyond."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, rate)
+    B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
+    for name, t, shape in (("dout", dout, q.shape), ("o", o, q.shape),
+                           ("row_max", row_max, (B, H, Lq)), ("row_sum", row_sum, (B, H, Lq))):
+        _check(name, t, shape, torch.float32, q.device)
+    smem = 4 * (2 * Lq * Dh + 2 * Lk * Dh + 2 * Lq * Lk)
+    if Lq > MAX_BACKWARD_ROWS or Lk > MAX_BACKWARD_ROWS or smem > MAX_BACKWARD_SMEM:
+        raise ValueError(f"attention_backward: needs Lq, Lk <= {MAX_BACKWARD_ROWS} and "
+                         f"{smem} <= {MAX_BACKWARD_SMEM} bytes of shared memory, got Lq {Lq}, "
+                         f"Lk {Lk}, Dh {Dh}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    args = _AttentionBackwardArgs(
+        dout=dout.data_ptr(), q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        row_max=row_max.data_ptr(), row_sum=row_sum.data_ptr(),
+        keep=None if keep is None else keep.data_ptr(), dq=dq.data_ptr(), dk=dk.data_ptr(),
+        dv=dv.data_ptr(), B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
+        keep_prob=1.0 - rate)
+    lib = build.load("attention_backward")
+    lib.attention_backward_launch.argtypes = [ctypes.POINTER(_AttentionBackwardArgs),
+                                              ctypes.c_void_p]
+    lib.attention_backward_launch.restype = ctypes.c_int
+    err = lib.attention_backward_launch(ctypes.byref(args),
+                                        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention_backward kernel launch failed with CUDA error {err}")
+    attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class _AttentionFunction(torch.autograd.Function):
+    """The kernels under autograd: the training forward saves its row
+    statistics, the backward kernel reads them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len0, keep, rate):
+        o, row_max, row_sum = attention_train_forward(q, k, v, kv_len0, keep, rate)
+        ctx.save_for_backward(q, k, v, o, row_max, row_sum, keep)
+        ctx.kv_len0, ctx.rate = kv_len0, rate
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, row_max, row_sum, keep = ctx.saved_tensors
+        dq, dk, dv = attention_backward(dout.contiguous(), q, k, v, o, row_max, row_sum,
+                                        ctx.kv_len0, keep, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
+              rate: float = 0.0) -> torch.Tensor:
+    """softmax(q . k^T / sqrt(Dh)) . v, query row r over the first
+    ``min(Lk, kv_len0 + r)`` keys (all keys if ``kv_len0`` is None), the
+    probabilities dropped at ``rate`` where ``keep`` (u8 [B, H, Lq, Lk]) is 0.
+    CPU tensors take :func:`attention_plain` (autograd differentiates it).
+    CUDA tensors: where autograd needs a gradient of q, k or v, the training
+    forward and the backward kernel; else with ``keep`` the training forward,
+    without it the serving kernel."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, kv_len0, keep, rate)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _AttentionFunction.apply(q, k, v, kv_len0, keep, rate)
+    if keep is not None:
+        return attention_train_forward(q, k, v, kv_len0, keep, rate)[0]
+    o = torch.empty_like(q)
+    _launch_forward(q, k, v, kv_len0, o, False)
     attention.launches += 1
     return o
 
 
 attention.launches = 0
+attention_train_forward.launches = 0
+attention_backward.launches = 0

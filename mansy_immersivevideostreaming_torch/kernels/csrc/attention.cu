@@ -18,6 +18,14 @@
 // Layouts are the JAX package's: q [B, Lq, H, Dh], k and v [B, Lk, H, Dh],
 // o [B, Lq, H, Dh], all contiguous.
 //
+// Training mode (kTrain): the same pass, and also a row's max and exp sum
+// written out as f32 [B, H, Lq] (the backward, csrc/attention_backward.cu,
+// recomputes each p bit for bit from them), and an optional keep mask u8
+// [B, H, Lq, Lk] of the attention-probability dropout: a kept p becomes
+// p / keep_prob, a dropped one 0, as flax's Dropout does
+// (MHA.attend, transformer.py:72-73).  The serving instantiation has
+// neither and compiles as before.
+//
 // Bound: bytes.  At the serving shapes (B = 512, H = 8, Dh = 64, Lq = 1,
 // Lk <= 15) each row reads its q, the valid k and v rows once and writes
 // one o row, about 2 flops a byte.  Design: one warp a (b, row, head); lane
@@ -47,8 +55,14 @@ struct AttentionArgs {
   int32_t B, Lq, Lk, H, Dh;
   int32_t kv_len0;  // keys seen by query row 0; row r sees min(Lk, kv_len0 + r)
   float scale;      // sqrt(Dh): scores are (q . k) / scale, as MHA.attend divides
+  // training mode only
+  const uint8_t* keep;  // [B, H, Lq, Lk] dropout keep mask, or null
+  float keep_prob;      // 1 - dropout rate: a kept p is divided by it
+  float* row_max;       // [B, H, Lq]
+  float* row_sum;       // [B, H, Lq]
 };
 
+template <bool kTrain>
 __global__ void attention_kernel(const AttentionArgs a) {
   extern __shared__ float scores[];  // [kWarps, Lk]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -89,11 +103,20 @@ __global__ void attention_kernel(const AttentionArgs a) {
   float sum = 0.f;
   for (int j = 0; j < n; ++j) sum += s[j];
 
+  // the (b, h, r) row of the training mode's statistics and mask
+  const long long stat = (b * a.H + h) * a.Lq + r;
+  const uint8_t* keep = kTrain && a.keep != nullptr ? a.keep + stat * a.Lk : nullptr;
+  if (kTrain && lane == 0) {
+    a.row_max[stat] = mx;
+    a.row_sum[stat] = sum;
+  }
+
   float acc[kMaxPerLane];
 #pragma unroll
   for (int i = 0; i < kMaxPerLane; ++i) acc[i] = 0.f;
   for (int j = 0; j < n; ++j) {
-    const float p = s[j] / sum;
+    float p = s[j] / sum;
+    if (kTrain && keep != nullptr) p = keep[j] ? p / a.keep_prob : 0.f;
     const float* vrow = a.v + kv0 + j * key_stride;
 #pragma unroll
     for (int i = 0; i < kMaxPerLane; ++i) {
@@ -109,11 +132,17 @@ __global__ void attention_kernel(const AttentionArgs a) {
   }
 }
 
-extern "C" int attention_launch(const AttentionArgs* args, void* stream) {
+// train = 0: the serving mode; 1: the training mode (row_max and row_sum
+// written, keep applied where given).
+extern "C" int attention_launch(const AttentionArgs* args, int train, void* stream) {
   const long long rows = (long long)args->B * args->Lq * args->H;
   const int blocks = (int)((rows + kWarps - 1) / kWarps);
   const size_t smem = (size_t)kWarps * args->Lk * sizeof(float);
-  if (blocks > 0)
-    attention_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
+  if (blocks > 0) {
+    if (train)
+      attention_kernel<true><<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
+    else
+      attention_kernel<false><<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
+  }
   return (int)cudaGetLastError();
 }

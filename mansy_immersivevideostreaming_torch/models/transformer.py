@@ -1,14 +1,25 @@
 """Transformer encoder/decoder with an Informer-style distillation layer.
 
 Port of the JAX package's ``models/transformer.py`` (reference
-``viewport_prediction/models/customized_transformer.py``) for inference:
-post-norm residual blocks (LayerNorm eps 1e-5), ReLU feed-forward, a final
-LayerNorm after both stacks, and a ``DistillLayer`` halving the encoder
-memory between encoder and decoder.  Attention keeps the JAX layout
+``viewport_prediction/models/customized_transformer.py``): post-norm
+residual blocks (LayerNorm eps 1e-5), ReLU feed-forward, a final LayerNorm
+after both stacks, and a ``DistillLayer`` halving the encoder memory
+between encoder and decoder.  Attention keeps the JAX layout
 ([B, L, H, Dh]) and its softmax core is K8 (``kernels/attention.py``);
 every mask is a prefix of the keys, given as ``kv_len0`` (query row r sees
-``min(Lk, kv_len0 + r)`` keys).  Dropout is not ported: the serving path
-runs the modules deterministically, as ``MHA.attend(deterministic=True)``.
+``min(Lk, kv_len0 + r)`` keys).
+
+Training mode: every forward takes ``gen``, a ``torch.Generator`` in
+training and None in the deterministic (serving) mode, as the JAX modules
+take ``deterministic``.  In training, dropout runs at the JAX sites and
+rates (:func:`dropout`: the attention probabilities, each residual branch
+and the feed-forward hidden layer, 0.1), its keep masks drawn from ``gen``
+by torch ops outside the kernels, so a run through the plain versions with
+the same generator seed sees the same masks; the distillation layer's
+BatchNorm normalises with the batch statistics and updates its running
+ones.  :meth:`DecoderLayer.step_train` is the decode step whose cache is
+out of place, for autograd; :meth:`DecoderLayer.step` writes it in place,
+for ``sample`` under ``no_grad``.
 
 Module names follow the Flax tree where it uses ``setup`` (``sa``, ``ca``,
 ``ff``, ``norm1-3``); ``utils/checkpoint.py`` maps the ``nn.compact`` names
@@ -27,16 +38,36 @@ from torch import nn
 from mansy_immersivevideostreaming_torch.kernels.attention import attention
 
 KV = Tuple[torch.Tensor, torch.Tensor]
+Gen = Optional[torch.Generator]
+
+DROPOUT = 0.1   # Transformer's dropout (transformer.py:206; mtio.py:63-66 passes none)
+BN_MOMENTUM = 0.9
+
+
+def keep_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor:
+    """flax's Dropout keep mask: a uniform draw from ``gen`` below
+    ``1 - rate`` (``random.bernoulli(rng, keep_prob)``), as bool."""
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Gen) -> torch.Tensor:
+    """flax's ``Dropout``: the identity when deterministic (``gen`` None) or
+    at rate 0; else x / keep_prob where kept and 0 elsewhere."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = keep_mask(x.shape, rate, gen, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class MHA(nn.Module):
     """Multi-head attention with a KV-cache path (``transformer.py:25-79``):
     :meth:`project_kv` gives the cacheable (k, v), :meth:`attend` runs the
-    query and out projections around the K8 core."""
+    query and out projections around the K8 core, with the probabilities'
+    dropout in training."""
 
-    def __init__(self, d_model: int, num_heads: int, device=None):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = DROPOUT, device=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.dropout = num_heads, dropout
         self.query = nn.Linear(d_model, d_model, device=device)
         self.key = nn.Linear(d_model, d_model, device=device)
         self.value = nn.Linear(d_model, d_model, device=device)
@@ -50,60 +81,74 @@ class MHA(nn.Module):
         return self._split(self.key(kv_in)), self._split(self.value(kv_in))
 
     def attend(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               kv_len0: Optional[int] = None) -> torch.Tensor:
+               kv_len0: Optional[int] = None, gen: Gen = None) -> torch.Tensor:
         """Attention of ``q_in`` [B, Lq, D] over projected ``k``/``v``."""
         B, Lq, D = q_in.shape
-        o = attention(self._split(self.query(q_in)), k, v, kv_len0)
+        keep = None
+        if gen is not None and self.dropout > 0.0:
+            keep = keep_mask((B, self.num_heads, Lq, k.shape[1]), self.dropout, gen,
+                             q_in.device).view(torch.uint8)
+        o = attention(self._split(self.query(q_in)), k, v, kv_len0, keep, self.dropout)
         return self.out(o.reshape(B, Lq, D))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
-                kv_len0: Optional[int] = None) -> torch.Tensor:
-        return self.attend(q_in, *self.project_kv(kv_in), kv_len0)
+                kv_len0: Optional[int] = None, gen: Gen = None) -> torch.Tensor:
+        return self.attend(q_in, *self.project_kv(kv_in), kv_len0, gen)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, dim_feedforward: int, device=None):
+    def __init__(self, d_model: int, dim_feedforward: int, dropout: float = DROPOUT,
+                 device=None):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(F.relu(self.linear1(x)))
+    def forward(self, x: torch.Tensor, gen: Gen = None) -> torch.Tensor:
+        return self.linear2(dropout(F.relu(self.linear1(x)), self.dropout, gen))
 
 
 class EncoderLayer(nn.Module):
     """Post-norm self-attention + feed-forward block (``transformer.py:97-113``)."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, device=None):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = DROPOUT, device=None):
         super().__init__()
-        self.attn = MHA(d_model, nhead, device)
+        self.dropout = dropout
+        self.attn = MHA(d_model, nhead, dropout, device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ff = FeedForward(d_model, dim_feedforward, device)
+        self.ff = FeedForward(d_model, dim_feedforward, dropout, device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.attn(x, x))
-        return self.norm2(x + self.ff(x))
+    def forward(self, x: torch.Tensor, gen: Gen = None) -> torch.Tensor:
+        x = self.norm1(x + dropout(self.attn(x, x, None, gen), self.dropout, gen))
+        return self.norm2(x + dropout(self.ff(x, gen), self.dropout, gen))
 
 
 class DecoderLayer(nn.Module):
     """Post-norm self-attention, cross-attention and feed-forward block
     (``transformer.py:116-165``)."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, device=None):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = DROPOUT, device=None):
         super().__init__()
-        self.sa = MHA(d_model, nhead, device)
-        self.ca = MHA(d_model, nhead, device)
-        self.ff = FeedForward(d_model, dim_feedforward, device)
+        self.dropout = dropout
+        self.sa = MHA(d_model, nhead, dropout, device)
+        self.ca = MHA(d_model, nhead, dropout, device)
+        self.ff = FeedForward(d_model, dim_feedforward, dropout, device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
+    def _blocks(self, x: torch.Tensor, sa: torch.Tensor, mem_kv: KV, gen: Gen) -> torch.Tensor:
+        """The residual blocks after the self-attention ``sa`` of ``x``."""
+        x = self.norm1(x + dropout(sa, self.dropout, gen))
+        x = self.norm2(x + dropout(self.ca.attend(x, *mem_kv, None, gen), self.dropout, gen))
+        return self.norm3(x + dropout(self.ff(x, gen), self.dropout, gen))
+
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
-                kv_len0: Optional[int] = None) -> torch.Tensor:
-        x = self.norm1(x + self.sa(x, x, kv_len0))
-        x = self.norm2(x + self.ca(x, memory))
-        return self.norm3(x + self.ff(x))
+                kv_len0: Optional[int] = None, gen: Gen = None) -> torch.Tensor:
+        return self._blocks(x, self.sa(x, x, kv_len0, gen), self.ca.project_kv(memory), gen)
 
     def step(self, x_t: torch.Tensor, sa_cache: KV, t: int, mem_kv: KV) -> torch.Tensor:
         """One decode step at position ``t`` (``transformer.py:141-165``):
@@ -115,62 +160,95 @@ class DecoderLayer(nn.Module):
         k_t, v_t = self.sa.project_kv(x_t)
         k_cache[:, t] = k_t[:, 0]
         v_cache[:, t] = v_t[:, 0]
-        x = self.norm1(x_t + self.sa.attend(x_t, k_cache, v_cache, t + 1))
-        x = self.norm2(x + self.ca.attend(x, *mem_kv))
-        return self.norm3(x + self.ff(x))
+        return self._blocks(x_t, self.sa.attend(x_t, k_cache, v_cache, t + 1), mem_kv, None)
+
+    def step_train(self, x_t: torch.Tensor, sa_cache: KV, t: int, mem_kv: KV, gen: Gen
+                   ) -> Tuple[torch.Tensor, KV]:
+        """:meth:`step` for training: the cache with slot t replaced is a new
+        tensor, as ``dynamic_update_slice`` gives (``:156-157``), so the
+        tensors autograd saved at earlier steps stay as they were.  The
+        masked slots > t get weight 0, in the forward and the backward.
+        Returns (out_t, the new cache)."""
+        k_t, v_t = self.sa.project_kv(x_t)
+        k_cache, v_cache = (torch.cat([c[:, :t], new, c[:, t + 1:]], dim=1)
+                            for c, new in zip(sa_cache, (k_t, v_t)))
+        sa = self.sa.attend(x_t, k_cache, v_cache, t + 1, gen)
+        return self._blocks(x_t, sa, mem_kv, gen), (k_cache, v_cache)
 
 
 class DistillLayer(nn.Module):
-    """Circular Conv1d(k3) + BatchNorm (running statistics) + ELU +
-    MaxPool1d(k3, s2, p1) over time (``transformer.py:168-190``)."""
+    """Circular Conv1d(k3) + BatchNorm + ELU + MaxPool1d(k3, s2, p1) over
+    time (``transformer.py:168-190``)."""
 
     def __init__(self, d_model: int, device=None):
         super().__init__()
         self.conv = nn.Conv1d(d_model, d_model, kernel_size=3, device=device)
         self.bn = nn.BatchNorm1d(d_model, eps=1e-5, momentum=0.1, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, L, D] -> [B, (L - 1) // 2 + 1, D], BatchNorm on its running
-        statistics whatever the module's mode (the serving path's
-        ``use_running_average=True``)."""
-        h = torch.cat([x[:, -1:], x, x[:, :1]], dim=1).transpose(1, 2)
+    def _batch_norm_train(self, h: torch.Tensor) -> torch.Tensor:
+        """flax's ``BatchNorm(use_running_average=False, momentum=0.9)`` on
+        h [B, D, L]: the batch mean and variance over (B, L), the variance
+        as E[h^2] - E[h]^2 clipped at 0 (``use_fast_variance``); the output
+        normalised by the biased variance; the running statistics updated
+        as 0.9 * running + 0.1 * batch with that (biased) variance, which
+        ``nn.BatchNorm1d`` would take unbiased."""
         bn = self.bn
-        h = F.elu(F.batch_norm(self.conv(h), bn.running_mean, bn.running_var, bn.weight,
-                               bn.bias, training=False, eps=bn.eps))
+        mean = h.mean((0, 2))
+        var = torch.clamp((h * h).mean((0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for running, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+                running.copy_(BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (h - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+
+    def forward(self, x: torch.Tensor, gen: Gen = None) -> torch.Tensor:
+        """x [B, L, D] -> [B, (L - 1) // 2 + 1, D].  BatchNorm on its running
+        statistics whatever the module's mode when deterministic (``gen``
+        None: the serving path's ``use_running_average=True``), on the
+        batch's in training."""
+        h = self.conv(torch.cat([x[:, -1:], x, x[:, :1]], dim=1).transpose(1, 2))
+        bn = self.bn
+        if gen is None:
+            h = F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             training=False, eps=bn.eps)
+        else:
+            h = self._batch_norm_train(h)
         # max_pool1d pads with -inf, as the JAX version does
-        return F.max_pool1d(h, kernel_size=3, stride=2, padding=1).transpose(1, 2)
+        return F.max_pool1d(F.elu(h), kernel_size=3, stride=2, padding=1).transpose(1, 2)
 
 
 class Transformer(nn.Module):
     """Encoder + DistillLayer + decoder (``transformer.py:198-262``), with
-    the incremental decode (:meth:`init_decode_cache`, :meth:`decode_step`)."""
+    the incremental decode (:meth:`init_decode_cache`, :meth:`decode_step`,
+    :meth:`decode_step_train`)."""
 
     def __init__(self, d_model: int = 512, nhead: int = 8, num_encoder_layers: int = 2,
-                 num_decoder_layers: int = 2, dim_feedforward: int = 512, device=None):
+                 num_decoder_layers: int = 2, dim_feedforward: int = 512,
+                 dropout: float = DROPOUT, device=None):
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, dim_feedforward, device)
+            EncoderLayer(d_model, nhead, dim_feedforward, dropout, device)
             for _ in range(num_encoder_layers))
         self.encoder_norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.distill = DistillLayer(d_model, device)
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, dim_feedforward, device)
+            DecoderLayer(d_model, nhead, dim_feedforward, dropout, device)
             for _ in range(num_decoder_layers))
         self.decoder_norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
-    def encode(self, src: torch.Tensor) -> torch.Tensor:
+    def encode(self, src: torch.Tensor, gen: Gen = None) -> torch.Tensor:
         h = src
         for layer in self.encoder_layers:
-            h = layer(h)
-        return self.distill(self.encoder_norm(h))
+            h = layer(h, gen)
+        return self.distill(self.encoder_norm(h), gen)
 
     def decode(self, tgt: torch.Tensor, memory: torch.Tensor,
-               kv_len0: Optional[int] = None) -> torch.Tensor:
+               kv_len0: Optional[int] = None, gen: Gen = None) -> torch.Tensor:
         """The full decode; ``kv_len0=1`` is the causal mask."""
         h = tgt
         for layer in self.decoder_layers:
-            h = layer(h, memory, kv_len0)
+            h = layer(h, memory, kv_len0, gen)
         return self.decoder_norm(h)
 
     def init_decode_cache(self, memory: torch.Tensor, max_len: int
@@ -193,3 +271,13 @@ class Transformer(nn.Module):
         for layer, cache, mem_kv in zip(self.decoder_layers, sa_caches, mem_kvs):
             h = layer.step(h, cache, t, mem_kv)
         return self.decoder_norm(h)
+
+    def decode_step_train(self, x_t: torch.Tensor, sa_caches: Sequence[KV], t: int,
+                          mem_kvs: Sequence[KV], gen: Gen) -> Tuple[torch.Tensor, List[KV]]:
+        """:meth:`decode_step` with new caches (``transformer.py:241-255``),
+        for training.  Returns (out_t, the new caches)."""
+        h, new_caches = x_t, []
+        for layer, cache, mem_kv in zip(self.decoder_layers, sa_caches, mem_kvs):
+            h, cache = layer.step_train(h, cache, t, mem_kv, gen)
+            new_caches.append(cache)
+        return self.decoder_norm(h), new_caches

@@ -17,7 +17,9 @@ MTIO viewport models (:func:`mtio_state_dict_from_flax` and its inverse)
 keep both Flax collections in one ``.npz``, keyed ``params/<path>`` and
 ``batch_stats/<path>``: a Flax-keyed file that ``run_models --test`` and
 ``predict`` read, and that the JAX package's Flax module applies as
-``{"params": ..., "batch_stats": ...}``.
+``{"params": ..., "batch_stats": ...}``.  ``run_models --train``'s
+checkpoint adds AdamW's state and the step (:func:`save_train_checkpoint`,
+:func:`load_train_checkpoint`, which ``--resume`` reads).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from mansy_immersivevideostreaming_torch.models.abr_nets import (
     AV_BRANCH, BRANCHES, COND_BRANCH, MansyActorCritic,
 )
-from mansy_immersivevideostreaming_torch.models.vp_train import VPState
+from mansy_immersivevideostreaming_torch.models.vp_train import VPState, VPTrainState
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
 NET_CONFIG_SUFFIX = ".netcfg.json"
@@ -231,27 +233,39 @@ def mtio_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str
     return state
 
 
+def mtio_flax_tensors(model: torch.nn.Module, tensors) -> Dict[str, np.ndarray]:
+    """Tensors shaped as ``model.parameters()`` (the parameters, their
+    gradients, AdamW's moments), in that order, as flat Flax-keyed arrays in
+    Flax's layouts: Linear weights become ``kernel`` [in, out], Conv1d's
+    ``kernel`` [k, in, out], LayerNorm and BatchNorm weights ``scale``."""
+    modules = dict(model.named_modules())
+    flat = {}
+    for (name, _), x in zip(model.named_parameters(), tensors):
+        module, leaf = name.rsplit(".", 1)
+        a = x.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            mod = modules[module]
+            if isinstance(mod, torch.nn.Linear):
+                a, leaf = a.T.copy(), "kernel"
+            elif isinstance(mod, torch.nn.Conv1d):
+                a, leaf = np.transpose(a, (2, 1, 0)).copy(), "kernel"
+            else:
+                leaf = "scale"
+        flat[f"{_mtio_flax_path(module)}/{leaf}"] = a
+    return flat
+
+
 def mtio_flax_from_module(model: torch.nn.Module) -> VPState:
     """The inverse of :func:`mtio_state_dict_from_flax`: a
     ViewportTransformerMTIO's weights as flat Flax ``params`` and
     ``batch_stats``."""
-    params, stats = {}, {}
-    array = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    stats = {}
     for name, mod in model.named_modules():
-        path = _mtio_flax_path(name)
-        if isinstance(mod, torch.nn.Linear):
-            params[f"{path}/kernel"] = array(mod.weight).T.copy()
-        elif isinstance(mod, torch.nn.Conv1d):
-            params[f"{path}/kernel"] = np.transpose(array(mod.weight), (2, 1, 0)).copy()
-        elif isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm1d)):
-            params[f"{path}/scale"] = array(mod.weight)
-        else:
-            continue
-        params[f"{path}/bias"] = array(mod.bias)
         if isinstance(mod, torch.nn.BatchNorm1d):
-            stats[f"{path}/mean"] = array(mod.running_mean)
-            stats[f"{path}/var"] = array(mod.running_var)
-    return VPState(params, stats)
+            path = _mtio_flax_path(name)
+            stats[f"{path}/mean"] = mod.running_mean.detach().cpu().numpy().astype(np.float32)
+            stats[f"{path}/var"] = mod.running_var.detach().cpu().numpy().astype(np.float32)
+    return VPState(mtio_flax_tensors(model, model.parameters()), stats)
 
 
 def write_mtio_npz(path: str | os.PathLike, params: Mapping, batch_stats: Mapping) -> None:
@@ -281,3 +295,41 @@ def load_mtio_npz(path: str | os.PathLike) -> VPState:
 def load_mtio_npz_into(model: torch.nn.Module, path: str | os.PathLike) -> None:
     """Load an MTIO ``.npz`` into a ViewportTransformerMTIO of the same shape."""
     model.load_state_dict(mtio_state_dict_from_flax(*load_mtio_npz(path)))
+
+
+def save_train_checkpoint(path: str | os.PathLike, model: torch.nn.Module,
+                          state: VPTrainState) -> None:
+    """``run_models --train``'s ``<prefix>_checkpoint.npz``: the MTIO npz's
+    ``params/...`` and ``batch_stats/...``, AdamW's moments Flax-keyed as the
+    params under ``opt_state/mu/...`` and ``opt_state/nu/...``, its count
+    ``opt_state/count`` and the step count ``step`` (the JAX CLI's Orbax
+    ``VPTrainState``)."""
+    params, stats = mtio_flax_from_module(model)
+    arrays = flatten_params({"params": params, "batch_stats": stats, "opt_state": {
+        "mu": mtio_flax_tensors(model, state.mu), "nu": mtio_flax_tensors(model, state.nu)}})
+    arrays["opt_state/count"] = np.int32(state.count)
+    arrays["step"] = np.int32(state.step)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_train_checkpoint(path: str | os.PathLike, model: torch.nn.Module) -> VPTrainState:
+    """Restore :func:`save_train_checkpoint`'s file: the weights and
+    statistics into ``model``, and the train state (``--resume``)."""
+    split = {"params": {}, "batch_stats": {}, "mu": {}, "nu": {}}
+    with np.load(path) as npz:
+        for key in npz.files:
+            collection, _, rest = key.partition("/")
+            if collection == "opt_state" and rest.split("/", 1)[0] in ("mu", "nu"):
+                moment, rest = rest.split("/", 1)
+                split[moment][rest] = npz[key]
+            elif collection in ("params", "batch_stats"):
+                split[collection][rest] = npz[key]
+        count, step = int(npz["opt_state/count"]), int(npz["step"])
+    model.load_state_dict(mtio_state_dict_from_flax(split["params"], split["batch_stats"]))
+    device = next(model.parameters()).device
+    moments = []
+    for moment in ("mu", "nu"):
+        by_name = mtio_state_dict_from_flax(split[moment], {})
+        moments.append([by_name[name].to(device) for name, _ in model.named_parameters()])
+    return VPTrainState(step=step, count=count, mu=moments[0], nu=moments[1])

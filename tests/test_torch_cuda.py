@@ -780,16 +780,93 @@ def test_attention_kernel_over_long_keys_and_every_width_on_card(cuda_device, Lq
     _attention_matches_plain_and_sdpa(K8, q, k, v, kv_len0)
 
 
+# K8's training shapes (Lq, Lk, kv_len0) at run_models' widths: the encoder,
+# decode steps over the 15-slot cache, cross-attention, the teacher-forced
+# causal pass and its cross-attention, and the fixed-buffer decode's 16 x 16
+TRAIN_SHAPES = [(5, 5, None), (1, 15, 1), (1, 15, 8), (1, 15, 15), (1, 3, None),
+                (15, 15, 1), (15, 3, None), (16, 16, 1)]
+
+
+def _attention_training_matches_plain(K8, B, shape, H, Dh, dropout, seed):
+    """K8's training forward and backward against the plain version's
+    autograd: rtol 1e-5 plus 1e-5 of the largest entry of the output, or of
+    the three gradients (the kernels sum in another order; a gradient that
+    is 0 in exact arithmetic, as dq and dk where a row sees one key, is
+    rounding noise in autograd's softmax backward); keys no row sees get
+    exactly 0; two launches of each give the same bits; ``attention`` under
+    autograd launches them."""
+    Lq, Lk, kv_len0 = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=g) for L in (Lq, Lk, Lk))
+    dout = torch.randn(B, Lq, H, Dh, device=dev, generator=g)
+    keep = ((torch.rand(B, H, Lq, Lk, device=dev, generator=g) < 0.9).to(torch.uint8)
+            if dropout else None)
+
+    def close(got, want, scale):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+    o, row_max, row_sum = K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)
+    want_o, want_max, want_sum = K8.attention_train_forward_plain(q, k, v, kv_len0, keep, 0.1)
+    for got, want in ((o, want_o), (row_max, want_max), (row_sum, want_sum)):
+        close(got, want, float(want.abs().max()))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, keep, 0.1), leaves, dout)
+    scale = max(float(w.abs().max()) for w in want)
+    got = K8.attention_backward(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, 0.1)
+    for a, b in zip(got, want):
+        close(a, b, scale)
+    written = K8.attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep,
+                                          0.1)
+    for a, b in zip(got, written):
+        close(a, b, scale)
+    if kv_len0 is not None:
+        unseen = slice(min(Lk, kv_len0 + Lq - 1), None)
+        assert not got[1][:, unseen].any() and not got[2][:, unseen].any()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (o, row_max, row_sum), K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)))
+    assert all(torch.equal(a, b) for a, b in zip(got, K8.attention_backward(
+        dout, q, k, v, o, row_max, row_sum, kv_len0, keep, 0.1)))
+    launches = (K8.attention_train_forward.launches, K8.attention_backward.launches)
+    out = K8.attention(*leaves, kv_len0, keep, 0.1)
+    assert torch.equal(out, o)
+    by_autograd = torch.autograd.grad(out, leaves, dout)
+    assert all(torch.equal(a, b) for a, b in zip(by_autograd, got))
+    assert (K8.attention_train_forward.launches, K8.attention_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("needs", ["q", "k", "v"])
-def test_attention_kernel_refuses_gradients_on_card(cuda_device, needs):
-    """No backward on the card: with grad enabled, any of q, k, v requiring
-    grad raises; under no_grad the kernel runs."""
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("dropout", [False, True])
+def test_attention_training_kernels_match_plain_on_card(cuda_device, shape, dropout):
+    """K8's training forward and backward at 8 heads of 64 over a batch of
+    77, with and without a dropout keep mask at 0.1."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
-    q, k, v = (torch.randn(3, 1, 8, 64, device=cuda_device, requires_grad=name == needs)
-               for name in "qkv")
-    with pytest.raises(RuntimeError, match="no backward"):
-        K8.attention(q, k, v, 1)
-    with torch.no_grad():
-        out = K8.attention(q, k, v, 1)
-    torch.testing.assert_close(out, K8.attention_plain(q, k, v, 1).detach(), rtol=1e-5, atol=1e-6)
+    _attention_training_matches_plain(K8, 77, shape, 8, 64, dropout, sum(shape[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", [(1, 1, None, 4), (3, 7, 2, 33), (64, 64, 1, 64),
+                                              (20, 40, None, 256), (2, 64, 10, 100)])
+def test_attention_backward_at_other_widths_on_card(cuda_device, Lq, Lk, kv_len0, Dh):
+    """Heads of 4 to 256 dims, rows and keys up to the backward's 64 (64 x 64
+    and 20 x 40 at Dh 256 take more than 48 KB of shared memory), a batch
+    of 5."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    _attention_training_matches_plain(K8, 5, (Lq, Lk, kv_len0), 3, Dh, True, Lq + Lk + Dh)
+
+
+@pytest.mark.cuda
+def test_attention_backward_refuses_shapes_beyond_its_tiles_on_card(cuda_device):
+    """Past 64 rows or keys the backward raises rather than falling back to
+    the plain version, and so does ``attention`` under autograd."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    q, k, v = (torch.randn(2, L, 2, 8, device=cuda_device) for L in (65, 65, 65))
+    o, row_max, row_sum = K8.attention_train_forward(q, k, v, 1)
+    with pytest.raises(ValueError, match="attention_backward"):
+        K8.attention_backward(torch.ones_like(q), q, k, v, o, row_max, row_sum, 1)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = K8.attention(*leaves, 1)
+    with pytest.raises(ValueError, match="attention_backward"):
+        out.sum().backward()

@@ -111,7 +111,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
                   lambda: train(run_dagger, []), lambda: cli_device(run_models),
                   lambda: cli_device(predict), lambda: ViewportTransformerMTIO(),
                   lambda: train(predict, ["--model", "regression"]),
-                  lambda: train(run_models, ["--test", "--model", "regression"])):
+                  lambda: train(run_models, ["--test", "--model", "regression"]),
+                  lambda: train(run_models, ["--train"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
@@ -120,7 +121,8 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     wrappers = (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward,
                 K3.actor_critic_train_forward, K3.actor_critic_backward, K4.choose_action,
                 K5.build_expert_tables, K6.compute_gae, K9.policy_loss, K7.chunk_maps,
-                K7.trajectory_metrics, K8.attention)
+                K7.trajectory_metrics, K8.attention, K8.attention_train_forward,
+                K8.attention_backward)
     for fn in wrappers:
         fn.launches = 0
     tables = synthetic_sim_tables(device="cpu")
@@ -177,6 +179,15 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     q, k, v = torch.randn(4, 1, 8, 64), torch.randn(4, 15, 8, 64), torch.randn(4, 15, 8, 64)
     torch.testing.assert_close(K8.attention(q, k, v, 3), K8.attention_plain(q, k, v, 3),
                                rtol=0, atol=0)
+    # K8's training mode and backward
+    keep = (torch.rand(4, 8, 1, 15) < 0.9).to(torch.uint8)
+    fwd = K8.attention_train_forward(q, k, v, 3, keep, 0.1)
+    for a, b in zip(fwd, K8.attention_train_forward_plain(q, k, v, 3, keep, 0.1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    dout = torch.randn_like(q)
+    for a, b in zip(K8.attention_backward(dout, q, k, v, *fwd, 3, keep, 0.1),
+                    K8.attention_backward_plain(dout, q, k, v, *fwd, 3, keep, 0.1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
 
 

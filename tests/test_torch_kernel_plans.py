@@ -1,5 +1,5 @@
-"""The launch plans the K10 and K9 wrappers compute in Python, K8's refusal
-of gradients, and the gradients of ``MHA.attend`` on the CPU.
+"""The launch plans the K10 and K9 wrappers compute in Python, and the
+gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
 
 * ``backward_plan`` (K10): launch A's column groups cover every 128-column
   block with none empty; launch B's depth slices are the largest cluster
@@ -27,12 +27,17 @@ of gradients, and the gradients of ``MHA.attend`` on the CPU.
 * ``gae_plan`` (K6): the blocks' lanes and the chunks' steps cover every
   (t, lane) exactly once for a sweep of [T, N]; 4 blocks of one chunk at
   train's [32, 128], 256 blocks of four chunks at [128, 8192].
-* ``refuse_grad``: raises with grad enabled and any of q, k, v requiring
-  grad, and passes under ``torch.no_grad()`` or with none requiring it.
-* ``MHA.attend`` on the CPU (K8's plain version) gives q_in, k and v
-  gradients equal to ``jax.grad`` of the JAX ``MHA.attend`` at d = 32 in the
-  four mask shapes.  Tolerance as ``test_torch_mtio.py``'s: atol 2e-5, rtol
-  2e-4 (sums in other orders).
+* ``MHA.attend`` on the CPU (K8's plain version) gives outputs and q_in, k
+  and v gradients equal to ``jax.grad`` of the JAX ``MHA.attend`` at d = 32
+  in the serving shapes and the five training shapes (the encoder's 5 x 5,
+  a decode step over the 15-slot cache, cross-attention 1 x 3 and 15 x 3,
+  the teacher-forced causal 15 x 15), the training ones also with the
+  probabilities' dropout at 0.1 (the JAX call's own keep mask, recorded
+  from ``jax.random.bernoulli``, handed to the port).  At the core, the
+  training mode's plain version gives ``attention_plain``'s output, and
+  the written-out backward (``attention_backward_plain``) autograd's
+  gradients of it, masked keys exactly 0.  Tolerance as
+  ``test_torch_mtio.py``'s: atol 2e-5, rtol 2e-4 (sums in other orders).
 """
 
 import jax
@@ -305,32 +310,35 @@ def test_gae_plan_at_the_paths_shapes():
 
 # -------------------------------------------------------------------- K8
 
-@pytest.mark.parametrize("needs", ["q", "k", "v"])
-def test_refuse_grad_refuses_tensors_that_need_the_backward(needs):
-    q, k, v = (torch.zeros(2, 1, 8, 4, requires_grad=name == needs) for name in "qkv")
-    with pytest.raises(RuntimeError, match="no backward"):
-        K8.refuse_grad(torch.is_grad_enabled(), q, k, v)
-    with torch.no_grad():
-        K8.refuse_grad(torch.is_grad_enabled(), q, k, v)
-    K8.refuse_grad(False, q, k, v)
+def _prefix(Lk: int, t: int):
+    return (jnp.arange(Lk) <= t)[None, None, None, :]
 
 
-def test_refuse_grad_passes_tensors_that_need_no_gradient():
-    q, k, v = (torch.zeros(2, 1, 8, 4) for _ in range(3))
-    K8.refuse_grad(True, q, k, v)
+# case -> (Lq, Lk, kv_len0, the JAX mask); "_dropout" cases add dropout 0.1
+MHA_CASES = {
+    "decode_t3": (1, 6, 4, _prefix(6, 3)),
+    "cross_3": (1, 3, None, None),
+    "encoder_5x5": (5, 5, None, None),
+    "causal_6": (6, 6, 1, causal_mask(6)),
+    "decode_t9_of_15": (1, 15, 10, _prefix(15, 9)),
+    "cross_15x3": (15, 3, None, None),
+    "causal_15": (15, 15, 1, causal_mask(15)),
+}
 
 
-@pytest.mark.parametrize("case", ["decode_t3", "cross_3", "encoder_5x5", "causal_6"])
-def test_mha_attend_gradients_match_jax_grad(case):
-    """The CPU path differentiates: q_in, k and v gradients of a random
-    linear functional of MHA.attend's output, at d = 32 (4 heads of 8)."""
+@pytest.mark.parametrize("case", ["decode_t3", "cross_3", "encoder_5x5", "causal_6",
+                                  "decode_t9_of_15", "cross_15x3", "causal_15",
+                                  "encoder_5x5_dropout", "decode_t9_of_15_dropout",
+                                  "cross_3_dropout", "cross_15x3_dropout",
+                                  "causal_15_dropout"])
+def test_mha_attend_gradients_match_jax_grad(case, monkeypatch):
+    """The CPU path differentiates: the output and the q_in, k and v
+    gradients of a random linear functional of MHA.attend's output, at
+    d = 32 (4 heads of 8); with dropout, JAX's keep mask is the port's."""
+    from mansy_immersivevideostreaming_torch.models import transformer
     d, H, B = 32, 4, 3
-    Lq, Lk, kv_len0, mask = {
-        "decode_t3": (1, 6, 4, (jnp.arange(6) <= 3)[None, None, None, :]),
-        "cross_3": (1, 3, None, None),
-        "encoder_5x5": (5, 5, None, None),
-        "causal_6": (6, 6, 1, causal_mask(6)),
-    }[case]
+    dropout = case.endswith("_dropout")
+    Lq, Lk, kv_len0, mask = MHA_CASES[case.removesuffix("_dropout")]
     rng = np.random.default_rng(len(case))
     q_in = rng.normal(0, 1, (B, Lq, d)).astype(np.float32)
     kv_in = rng.normal(0, 1, (B, Lk, d)).astype(np.float32)
@@ -339,15 +347,53 @@ def test_mha_attend_gradients_match_jax_grad(case):
     params = jmha.init(jax.random.PRNGKey(1), jnp.asarray(q_in), jnp.asarray(kv_in), None,
                        True)["params"]
     k, v = jmha.apply({"params": params}, jnp.asarray(kv_in), method=JaxMHA.project_kv)
+    keeps = []
+    bernoulli = jax.random.bernoulli
+
+    def recorded(*a, **kw):
+        out = bernoulli(*a, **kw)
+        keeps.append(np.array(out))
+        return out
+
+    monkeypatch.setattr(jax.random, "bernoulli", recorded)
 
     def functional(q_in, k, v):
-        out = jmha.apply({"params": params}, q_in, k, v, mask, True, method=JaxMHA.attend)
-        return jnp.sum(out * cot)
+        out = jmha.apply({"params": params}, q_in, k, v, mask, not dropout,
+                         method=JaxMHA.attend, rngs={"dropout": jax.random.PRNGKey(7)})
+        return jnp.sum(out * cot), out
 
-    want = jax.grad(functional, argnums=(0, 1, 2))(jnp.asarray(q_in), k, v)
+    (_, want_out), want = jax.value_and_grad(functional, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q_in), k, v)
+    assert len(keeps) == int(dropout)
+    keep = torch.as_tensor(keeps[0]) if dropout else None
+    if dropout:
+        assert keep.shape == (B, H, Lq, Lk) and 0 < float(keep.float().mean()) < 1
+        monkeypatch.setattr(transformer, "keep_mask", lambda *a: keep)
     mha = MHA(d, H, device="cpu")
     mha.load_state_dict(mtio_state_dict_from_flax(jax.device_get(params), {}))
     leaves = [torch.tensor(np.asarray(a), requires_grad=True) for a in (q_in, k, v)]
-    (mha.attend(*leaves, kv_len0) * torch.as_tensor(cot)).sum().backward()
+    out = mha.attend(*leaves, kv_len0, torch.Generator() if dropout else None)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=RTOL,
+                               atol=ATOL)
+    (out * torch.as_tensor(cot)).sum().backward()
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+    # the core: the training mode's plain version and the written-out backward
+    q = mha._split(mha.query(torch.as_tensor(q_in))).detach().requires_grad_()
+    kc, vc = (torch.tensor(np.asarray(a), requires_grad=True) for a in (k, v))
+    keep_u8 = None if keep is None else keep.view(torch.uint8)
+    o = K8.attention_plain(q, kc, vc, kv_len0, keep_u8, 0.1)
+    o_train, row_max, row_sum = K8.attention_train_forward_plain(q, kc, vc, kv_len0, keep_u8,
+                                                                 0.1)
+    torch.testing.assert_close(o_train, o, rtol=1e-6, atol=1e-6)
+    dout = torch.as_tensor(rng.normal(0, 1, o.shape).astype(np.float32))
+    want_core = torch.autograd.grad(o, (q, kc, vc), dout)
+    got_core = K8.attention_backward_plain(dout, q.detach(), kc.detach(), vc.detach(),
+                                           o.detach(), row_max.detach(), row_sum.detach(),
+                                           kv_len0, keep_u8, 0.1)
+    for g, w in zip(got_core, want_core):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    if kv_len0 is not None:  # keys no row sees get exactly 0
+        unseen = slice(min(Lk, kv_len0 + Lq - 1), None)
+        assert not got_core[1][:, unseen].any() and not got_core[2][:, unseen].any()

@@ -17,7 +17,11 @@ distillation layer's running statistics matter) and are carried across by
   in the port; ``loss_function`` and ``valid_step``;
 * ``linear_regression_sample`` against JAX;
 * the npz round trip: the port's npz applied by the JAX Flax module gives
-  the port's outputs.
+  the port's outputs;
+* the forward without training (every slot the input) against the JAX
+  ``__call__(train=False)``; in training (dropout 0), the incremental
+  decode with its out-of-place caches against the fixed-buffer decode:
+  predictions and gradients.
 
 Tolerance: atol 2e-5 and rtol 2e-4, the bound of the JAX package's own
 decode-equivalence test (``tests/test_mtio.py:81-82``).  The sums run in
@@ -254,3 +258,48 @@ def test_npz_round_trip_into_the_flax_module(small, tmp_path):
     load_mtio_npz_into(again, path)
     for (name, a), (_, b) in zip(model.state_dict().items(), again.state_dict().items()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+# ------------------------------------------------------- training forward
+
+@pytest.mark.parametrize("teacher_forcing", [False, True])
+def test_forward_without_training_matches_jax_call(teacher_forcing, small):
+    """``forward(train=False)``: every slot the input, deterministic, the
+    autoregressive decode whatever ``teacher_forcing`` says, as the JAX
+    ``__call__(train=False)``."""
+    _, state = small
+    jm = JaxMTIO(**SMALL, teacher_forcing=teacher_forcing)
+    model = port_model(state, SMALL, teacher_forcing=teacher_forcing)
+    rng = np.random.default_rng(13)
+    h, c = inputs(rng, 5)
+    f = rng.random((5, SMALL["fut_window"], 2), dtype=np.float32)
+    want_pred, want_gt = jm.apply(variables(state), jnp.asarray(h), jnp.asarray(c),
+                                  jnp.asarray(f), train=False)
+    with torch.no_grad():
+        pred, gt = model(*(torch.as_tensor(x) for x in (h, c, f)), train=False)
+    close(pred, want_pred)
+    close(gt, want_gt)
+
+
+def test_training_decodes_agree_in_predictions_and_gradients(small):
+    """In training at dropout 0 with grad enabled, the KV-cached decode
+    (``decode_step_train``, its caches out of place) equals the fixed-buffer
+    decode's predictions and parameter gradients: the gradient flows
+    through the fed-back predictions in both."""
+    _, state = small
+    rng = np.random.default_rng(14)
+    h, c = inputs(rng, 6)
+    f = rng.random((6, SMALL["fut_window"], 2), dtype=np.float32)
+    perms = np.stack([rng.permutation(6), rng.permutation(6)])
+    results = []
+    for incremental in (True, False):
+        model = port_model(state, SMALL, incremental=incremental, dropout=0.0,
+                           transformer_dropout=0.0)
+        pred, gt = model(*(torch.as_tensor(x) for x in (h, c, f)), perms=perms, repeat=False,
+                         generator=torch.Generator().manual_seed(0))
+        loss = model.loss_function(pred, gt)
+        results.append((pred.detach(), torch.autograd.grad(loss, list(model.parameters()))))
+    (p1, g1), (p2, g2) = results
+    torch.testing.assert_close(p1, p2, rtol=RTOL, atol=ATOL)
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)

@@ -16,7 +16,20 @@ d = 16), against the JAX CLIs' outputs.
    IoU within 1e-6 on every chunk whose steps truncate to the same pixels
    in both packages.
 
-The refused flags of later slices raise ``NotImplementedError``.
+5. The port's ``run_models --train --test --device cpu`` (3 epochs,
+   validating every 2) beside the JAX CLI's ``--train --test`` with the
+   same flags: the JAX CLI's file set with ``.npz`` in place of each
+   ``.ckpt``, the same console lines in the same order (epochs, train,
+   valid, checkpoint, best model) at the same valid cadence, a falling
+   train loss; the best model's npz applied by the JAX Flax module gives
+   the port's ``sample`` outputs (atol 2e-5, rtol 2e-4).
+6. ``--resume --resume-path`` continues from the saved step and AdamW state:
+   its checkpoint equals one ``train_epoch`` from the restored state on the
+   CLI's epoch permutation; ``--teacher-forcing`` trains and writes the
+   file set.
+
+The refused flags of later items (``--bf16``, ``--data-parallel``) raise
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -42,9 +55,13 @@ from mansy_immersivevideostreaming_tpu.models.vp_train import (
 from mansy_immersivevideostreaming_tpu.utils.checkpoint import restore_checkpoint
 from mansy_immersivevideostreaming_torch.cli import predict, run_models
 from mansy_immersivevideostreaming_torch.data.prediction import load_prediction_tables
+from mansy_immersivevideostreaming_torch.data.viewport import create_datasets
+from mansy_immersivevideostreaming_torch.models import vp_train as TV
 from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
-from mansy_immersivevideostreaming_torch.utils.checkpoint import load_mtio_npz_into
-from test_torch_mtio import orbax_mtio_to_npz
+from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+    load_mtio_npz_into, load_train_checkpoint,
+)
+from test_torch_mtio import flax_variables, orbax_mtio_to_npz
 from test_torch_tables import port_config
 
 COMMON = ["--hidden-dim", "16", "--block-num", "1", "--his-window", "3", "--fut-window", "5",
@@ -217,10 +234,150 @@ def test_predict_matches_jax(trained):
     assert (tables.start_chunk == 5 // freq).all()
 
 
-@pytest.mark.parametrize("flag", ["--train", "--resume", "--teacher-forcing", "--bf16",
-                                  "--data-parallel"])
+@pytest.mark.parametrize("flag", ["--bf16", "--data-parallel"])
 def test_run_models_refuses_the_flags_of_later_slices(tmp_path, flag):
     cfg = port_config(build_synthetic_tree(str(tmp_path)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_models.run(run_models.build_parser().parse_args(
             ["--test", flag, "--device", "cpu"] + COMMON), cfg)
+
+
+# ------------------------------------------------------------- training
+
+CADENCE = ["--epochs", "3", "--epochs-per-valid", "2", "--bs", "16", "--lr", "1e-3"]
+SMALL_MTIO = dict(d_model=16, dim_feedforward=16, fut_window=5, num_encoder_layers=1,
+                  num_decoder_layers=1)
+
+
+def port_tree(base: str, cfg, name: str):
+    """The port's Config with models and results under ``base/name``."""
+    return dataclasses.replace(
+        port_config(cfg), vp_models_dir=os.path.join(base, name, "models"),
+        vp_results_dir=os.path.join(base, name, "results"))
+
+
+def tree_files(root: str):
+    """The files under ``root``; an Orbax ``.ckpt`` directory counts as one
+    entry, named as the port's ``.npz`` in its place."""
+    names = set()
+    for p in glob.glob(os.path.join(root, "**", "*"), recursive=True):
+        if os.path.isfile(p):
+            parts = os.path.relpath(p, root).split(os.sep)
+            for i, part in enumerate(parts):
+                if part.endswith(".ckpt"):
+                    parts = parts[:i] + [part[:-len(".ckpt")] + ".npz"]
+                    break
+            names.add("/".join(parts))
+    return sorted(names)
+
+
+def line_kinds(log: str):
+    """The console log's lines by their first word, numbers dropped."""
+    kinds = []
+    for line in open(log).read().splitlines():
+        if line.startswith(("Epoch", "Train:", "Valid:", "Checkpoint saved", "Best model",
+                            "Training", "Testing", "Load model")):
+            kinds.append(line.split(" ")[0] + (" " + line.split(" ")[1] if line.startswith(
+                ("Epoch", "Best")) else ""))
+    return kinds
+
+
+def train_losses(log: str):
+    return [float(line.split("loss:")[1].split("(")[0])
+            for line in open(log).read().splitlines() if line.startswith("Train:")]
+
+
+@pytest.fixture(scope="module")
+def both_trained(tmp_path_factory):
+    """The JAX and the port's ``run_models --train --test`` (CADENCE) on one
+    synthetic tree.  Returns (base, JAX config, port config)."""
+    base = str(tmp_path_factory.mktemp("vp_train"))
+    cfg = build_synthetic_tree(base)
+    cfg = dataclasses.replace(cfg, vp_models_dir=os.path.join(base, "jax", "models"),
+                              vp_results_dir=os.path.join(base, "jax", "results"))
+    argv = ["--train", "--test", "--model", "mtio", "--device", "cpu"] + COMMON + CADENCE
+    stdout = sys.stdout
+    try:  # the JAX CLI tees stdout into its console log and leaves it so
+        jax_run_models.run(jax_run_models.build_parser().parse_args(argv), cfg)
+    finally:
+        sys.stdout = stdout
+    pcfg = port_tree(base, cfg, "port")
+    run_models.run(run_models.build_parser().parse_args(argv), pcfg)
+    return base, cfg, pcfg
+
+
+def test_run_models_train_writes_the_jax_file_set_and_console(both_trained):
+    base, cfg, pcfg = both_trained
+    jax_files = tree_files(os.path.join(base, "jax"))
+    assert sum(f.endswith(("_checkpoint.npz", "_best_model.npz")) for f in jax_files) == 2
+    assert tree_files(os.path.join(base, "port")) == jax_files
+    jlog, = glob.glob(os.path.join(base, "jax", "**", "*console.log"), recursive=True)
+    plog, = glob.glob(os.path.join(base, "port", "**", "*console.log"), recursive=True)
+    assert os.path.relpath(plog, os.path.join(base, "port")) == os.path.relpath(
+        jlog, os.path.join(base, "jax"))
+    kinds = line_kinds(plog)
+    assert kinds == line_kinds(jlog)
+    assert kinds.count("Valid:") == len(range(0, 3, 2)) == kinds.count("Checkpoint")
+    losses = train_losses(plog)
+    assert len(losses) == 3 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_trained_best_model_runs_in_the_flax_module(both_trained):
+    base, cfg, pcfg = both_trained
+    npz, = glob.glob(os.path.join(pcfg.vp_models_dir, "**", "*_best_model.npz"), recursive=True)
+    model = ViewportTransformerMTIO(**SMALL_MTIO, device="cpu")
+    load_mtio_npz_into(model, npz)
+    rng = np.random.default_rng(12)
+    h = rng.random((9, 3, 2), dtype=np.float32)
+    c = rng.random((9, 1, 2), dtype=np.float32)
+    want = JaxMTIO(**SMALL_MTIO).apply(flax_variables(npz), jnp.asarray(h), jnp.asarray(c),
+                                       method=JaxMTIO.sample)
+    got = model.sample(torch.as_tensor(h), torch.as_tensor(c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_run_models_resume_continues_from_the_checkpoint(both_trained):
+    """One more epoch from the saved checkpoint: the step and AdamW count go
+    on from it, and the weights equal one ``train_epoch`` from the restored
+    state on the CLI's first permutation."""
+    base, cfg, pcfg = both_trained
+    ck, = glob.glob(os.path.join(pcfg.vp_models_dir, "**", "*_checkpoint.npz"), recursive=True)
+    args = run_models.build_parser().parse_args(["--model", "mtio", "--device", "cpu"]
+                                                + COMMON + CADENCE)
+    model = run_models.build_model(args, torch.device("cpu"))
+    saved = load_train_checkpoint(ck, model)
+    assert saved.step == saved.count > 0
+    resumed = port_tree(base, cfg, "resumed")
+    run_models.run(run_models.build_parser().parse_args(
+        ["--train", "--resume", "--resume-path", ck, "--model", "mtio", "--device", "cpu",
+         "--epochs", "1", "--epochs-per-valid", "1", "--bs", "16", "--lr", "1e-3"] + COMMON),
+        resumed)
+    ck2, = glob.glob(os.path.join(resumed.vp_models_dir, "**", "*_checkpoint.npz"),
+                     recursive=True)
+    train = create_datasets(pcfg, "Jin2022", 3, 5, include=("train",), trim_head=5,
+                            trim_tail=5, step=2, frequency=pcfg.frequency)["train"]
+    h, c, f, *_ = train.gather(np.arange(len(train)))
+    data = {k: torch.as_tensor(x) for k, x in (("history", h), ("current", c), ("future", f))}
+    n_batches = len(train) // 16
+    want_state, _ = TV.train_epoch(model, TV.make_optimizer(1e-3), saved, data, 16,
+                                   np.random.default_rng(5).permutation(len(train)), 5)
+    got_model = run_models.build_model(args, torch.device("cpu"))
+    got = load_train_checkpoint(ck2, got_model)
+    assert got.step == got.count == saved.step + n_batches == want_state.step
+    for a, b in zip(got_model.parameters(), model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got.mu + got.nu, want_state.mu + want_state.nu):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_run_models_teacher_forcing_trains(tmp_path):
+    cfg = build_synthetic_tree(str(tmp_path))
+    pcfg = port_tree(str(tmp_path), cfg, "tf")
+    run_models.run(run_models.build_parser().parse_args(
+        ["--train", "--teacher-forcing", "--model", "mtio", "--device", "cpu"] + COMMON
+        + TRAIN), pcfg)
+    names = [os.path.basename(p) for p in tree_files(os.path.join(str(tmp_path), "tf"))]
+    assert sum(n.endswith(("_checkpoint.npz", "_best_model.npz", "console.log"))
+               for n in names) == 3
+    log, = glob.glob(os.path.join(str(tmp_path), "tf", "**", "*console.log"), recursive=True)
+    assert all(np.isfinite(train_losses(log)))
