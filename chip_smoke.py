@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain PyTorch version, serves the v9 policy
 over a test grid, collects a rollout, runs the MPC expert over a test grid,
-serves the action-value policy v16, trains with PPO and the identifier,
-runs DAgger rounds, serves the MTIO viewport model (``run_models
---test``, the ``predict`` export) and trains it (``run_models --train``),
-all through the port's own entry points.  It imports no JAX.
+serves the action-value policy v16 and the hidden-256 policy v18, trains
+with PPO and the identifier (at hidden 128 and 256), runs DAgger rounds,
+serves the MTIO viewport model (``run_models --test``, the ``predict``
+export) and trains it (``run_models --train``, also at ``--his-window
+96``), all through the port's own entry points.  It imports no JAX.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -26,8 +27,10 @@ Phases:
    lanes at horizon 4 in every mode; K5 on the train split's tables and on
    the test split's, which the expert and serve-v16 paths build, two
    launches bit-equal; K2 and K3 again with the action values and the v16
-   weights); time both with
-   CUDA events and print the ``kernels`` JSON line.  K3 is also timed at
+   weights; K3 with the v18 weights at hidden 256 at 512 and 8192 lanes,
+   two launches bit-equal); time both with CUDA events and print the
+   ``kernels`` JSON line (K3 and K10 at hidden 256 in rows of their own,
+   ``_h256``, with the launches of the paths that run v18).  K3 is also timed at
    serve's lane chunk (512), with two bounds (f32 outside the tensor cores,
    and its products as three TF32 products on them); K4 also at the
    expert's lane chunk (64) and DAgger's lanes (32, accuracy-corrected).
@@ -55,6 +58,8 @@ Phases:
 6. serve-v16: K5 attaches the accuracy-corrected action-value tables, then
    the committed v16 weights are served deterministically over the
    1440-episode grid, held against the plain path as in phase 3.
+6b. serve-v18: the committed v18 weights (hidden 256, K3's second
+   instantiation) served as in phase 3: 0 episode records may differ.
 
 Phase 2c holds the training kernels against their plain versions: K6
 ``compute_gae`` at [32, 128] and [128, 8192], bit-equal to its plain
@@ -62,10 +67,10 @@ version and on two launches; K9 ``policy_loss`` in every
 PPO variant at B = 512 and in CE mode at B = 4096 (two launches give the
 same bits; CE's yardstick: ``F.cross_entropy`` forward and backward by
 autograd); K3's training mode and K10 ``actor_critic_backward`` at B = 512
-and 4096 with the v9 and v16 weights (K10's yardstick: autograd through a
-``torch.matmul`` composition; two launches give the same bits; its launch
-plan and a second bound, its products as three TF32 products on the tensor
-cores).
+and 4096 with the v9, v16 and v18 (hidden 256) weights (K10's yardstick:
+autograd through a ``torch.matmul`` composition; two launches of each give
+the same bits; its launch plan and a second bound, its products as three
+TF32 products on the tensor cores).
 
 7. train: ``run_mansy --train --train-identifier --use-identifier --lamb
    0.5`` at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat
@@ -75,6 +80,9 @@ cores).
    the costliest device and host ops), and one update through the kernels
    against the plain path on the card from the same parameters, trajectory
    and permutations.
+7b. train_256: the same from the v18 weights at ``--hidden-dim 256`` (K3
+   and K10 at width 256): a warm-up round, one timed round, a profiled
+   update, and one update against the plain path at phase 7's limits.
 8. dagger: ``run_dagger`` rounds with v16's flags through
    ``run_dagger.dagger_round``, from the v16 weights and an initial
    aggregate of the port's expert demos on the test grid's shape; then a
@@ -96,7 +104,10 @@ the teacher-forced causal 15 x 15), with a dropout keep mask at 0.1 and
 without, against the plain version's autograd (two launches of each give
 the same bits; keys no row sees get exactly 0), timed beside SDPA's
 forward and forward + backward, with the sums of a training step's 62
-launches of each (6 with teacher forcing); K7 in metrics mode (F = 15) and
+launches of each (6 with teacher forcing), and beyond the earlier
+backward's 64 rows and keys (96 x 96, a decode step over 256 keys; each
+with the kernel's tile plan), with ``--parent`` the parent commit's
+backward beside it where it takes the shape; K7 in metrics mode (F = 15) and
 chunk mode (frequency 5; two launches of each give the same bits), and on a
 grid of positions on and beside every pixel boundary that moves a map.
 
@@ -118,9 +129,13 @@ grid of positions on and beside every pixel boundary that moves a map.
    over VP_PASSES epochs, then one ``--teacher-forcing`` epoch; one step
    profiled (``train_step_profile``); one step through the kernels against
    the same step with K8 swapped for its plain versions (same weights,
-   generator seed, slot draws and dropout masks): loss, gradients and the
-   parameters after AdamW within their tolerances; a validation pass on
-   the trained weights.
+   generator seed, slot draws and dropout masks; both under PyTorch's
+   deterministic algorithms): loss, gradients and the parameters after
+   AdamW within their tolerances; the first step at
+   ``--his-window 96`` (an encoder attention of 96 x 96, cross-attention
+   over the distilled 48) from Flax's initialisers, held against the plain
+   path in the same way, then timed; a validation pass on the trained
+   weights.
 
 Each path is timed over several passes (median and spread of the host-clock
 rate); every pass must launch each kernel exactly as often as the path has
@@ -221,6 +236,18 @@ KERNELS = {
     "actor_critic_backward": dict(route="cuda",
                                   source=f"{PKG}/kernels/csrc/actor_critic_backward.cu",
                                   replaces="mansy_immersivevideostreaming_tpu/rl/ppo.py:163"),
+    # the same kernels at hidden 256 (v18): their own instantiation, timed
+    # apart, with the launches of the paths that run v18
+    "actor_critic_forward_h256": dict(route="cuda", source=f"{PKG}/kernels/csrc/actor_critic.cu",
+                                      replaces="mansy_immersivevideostreaming_tpu/models/"
+                                               "abr_nets.py:166"),
+    "actor_critic_train_forward_h256": dict(route="cuda",
+                                            source=f"{PKG}/kernels/csrc/actor_critic.cu",
+                                            replaces="mansy_immersivevideostreaming_tpu/models/"
+                                                     "abr_nets.py:166"),
+    "actor_critic_backward_h256": dict(route="cuda",
+                                       source=f"{PKG}/kernels/csrc/actor_critic_backward.cu",
+                                       replaces="mansy_immersivevideostreaming_tpu/rl/ppo.py:163"),
     "tile_occupancy": dict(route="cuda", source=f"{PKG}/kernels/csrc/tile_occupancy.cu",
                            replaces="mansy_immersivevideostreaming_tpu/ops/geometry.py:108"),
     "attention": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
@@ -235,6 +262,9 @@ KERNELS = {
 }
 # the kernels' rows of wrappers that share a kernel
 ROW_OF = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
+# the paths that run hidden-256 weights: their K3 and K10 launches count in
+# the "_h256" rows
+WIDE_PATHS = ("serve_v18", "train_256")
 
 
 def log(msg: str) -> None:
@@ -576,7 +606,9 @@ def kernel_phase(dev, parent=None):
         generate_environment_samples, tree_map,
     )
     from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
-    from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V18_NPZ, load_npz_policy,
+    )
 
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # nvcc for both trees at once
@@ -628,6 +660,29 @@ def kernel_phase(dev, parent=None):
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
         **actor_critic_timing(K3, w, x, noise),
         serve_chunk=actor_critic_timing(K3, w, x[:SERVE_CHUNK], noise[:SERVE_CHUNK]))
+
+    # K3 with v18's weights (hidden 256, v9's observation) at serve's lane
+    # chunk and collect's width; two launches give the same bits
+    w18 = load_npz_policy(DAGGER_V18_NPZ, device=dev).packed_weights()
+    cases, err = {}, 0.0
+    for n in (SERVE_CHUNK, N):
+        got = K3.actor_critic_forward(w18, x[:n], noise[:n])
+        ref = K3.actor_critic_forward_plain(w18, x[:n], noise[:n])
+        for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+            if not bool(close(g, r).all()):
+                raise AssertionError(f"actor_critic_forward (v18, {n} lanes) disagrees with its "
+                                     f"plain version")
+        top2 = (ref[0] + noise[:n]).topk(2, dim=-1).values
+        if not bool((got[2] == ref[2])[(top2[:, 0] - top2[:, 1]) > 1e-4].all()):
+            raise AssertionError(f"actor_critic_forward (v18, {n} lanes) picks other actions "
+                                 f"than its plain version")
+        if not all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_forward(
+                w18, x[:n], noise[:n]))):
+            raise AssertionError(f"actor_critic_forward (v18, {n} lanes): two launches differ")
+        err = max(err, max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])))
+        cases[f"{n}_lanes"] = actor_critic_timing(K3, w18, x[:n], noise[:n])
+    rows["actor_critic_forward_h256"] = dict(max_abs_err=err, hidden=256,
+                                             **cases[f"{SERVE_CHUNK}_lanes"], cases=cases)
 
     # K1 (one step from identical states) at each path's width: the first n
     # of the 8192 lanes
@@ -1034,24 +1089,25 @@ def compare_serve(logs, masks, ref_logs, ref_masks, label: str) -> dict:
                 episodes_differing=differing)
 
 
-def serve_setup(dev, v16: bool = False):
-    """(policy, tables, samples, K5's launches) of the serve phase: the v9
-    weights, or with ``v16`` the v16 weights on tables whose
-    accuracy-corrected action values K5 attaches, over the test grid."""
+def serve_setup(dev, policy_name: str = "v9"):
+    """(policy, tables, samples, K5's launches) of a serve phase: the v9 or
+    v18 weights, or the v16 weights on tables whose accuracy-corrected
+    action values K5 attaches, over the test grid."""
     from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
     from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
     from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
     from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
     from mansy_immersivevideostreaming_torch.utils.checkpoint import (
-        DAGGER_V9_NPZ, DAGGER_V16_NPZ, load_npz_policy,
+        DAGGER_V9_NPZ, DAGGER_V16_NPZ, DAGGER_V18_NPZ, load_npz_policy,
     )
 
     V, U, NT, C, Q = TEST_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
     samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
-    policy = load_npz_policy(DAGGER_V16_NPZ if v16 else DAGGER_V9_NPZ, device=dev)
+    path = {"v9": DAGGER_V9_NPZ, "v16": DAGGER_V16_NPZ, "v18": DAGGER_V18_NPZ}[policy_name]
+    policy = load_npz_policy(path, device=dev)
     setup = 0
-    if v16:
+    if policy_name == "v16":
         tables = perturb_pred(tables, seed=1)
         K5.build_expert_tables.launches = 0
         tables = attach_action_values(tables, K5.build_expert_tables(tables),
@@ -1060,13 +1116,13 @@ def serve_setup(dev, v16: bool = False):
     return policy, tables, samples, setup
 
 
-def serve_phase(dev, counters, v16: bool = False):
-    """Serve the v9 or v16 weights over the test grid (``serve_setup``)."""
+def serve_phase(dev, counters, policy_name: str = "v9"):
+    """Serve the v9, v16 or v18 weights over the test grid (``serve_setup``)."""
     from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
 
-    label = "serve-v16" if v16 else "serve"
-    policy, tables, samples, setup = serve_setup(dev, v16)
-    if setup != (1 if v16 else 0):
+    label = "serve" if policy_name == "v9" else f"serve-{policy_name}"
+    policy, tables, samples, setup = serve_setup(dev, policy_name)
+    if setup != (1 if policy_name == "v16" else 0):
         raise AssertionError(f"{label}: K5 launched {setup} times at setup")
     evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
     steps = -(-samples.shape[0] // SERVE_CHUNK) * episode_step_bound(tables)
@@ -1082,6 +1138,7 @@ def serve_phase(dev, counters, v16: bool = False):
     rate = rate_stats(n_eps, seconds)
     launches["build_expert_tables"] += setup
     return dict(episodes=n_eps, steps=steps, passes=PASSES, seconds=seconds,
+                hidden=int(policy.packed_weights().b_branch.shape[1]),
                 episodes_per_s_median=rate["median"], episodes_per_s_min=rate["min"],
                 episodes_per_s_max=rate["max"], spread=rate["spread"], **qoe,
                 launches=launches)
@@ -1428,7 +1485,7 @@ def training_kernel_phase(dev, parent=None):
     from mansy_immersivevideostreaming_torch.kernels import gae as K6
     from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
     from mansy_immersivevideostreaming_torch.utils.checkpoint import (
-        DAGGER_V9_NPZ, DAGGER_V16_NPZ, load_npz_policy,
+        DAGGER_V9_NPZ, DAGGER_V16_NPZ, DAGGER_V18_NPZ, load_npz_policy,
     )
 
     gen = torch.Generator(device=dev)
@@ -1508,12 +1565,14 @@ def training_kernel_phase(dev, parent=None):
         "ms", "plain_ms", "bound_ms", "bound_by") + (("earlier_ms",) if parent else ())},
         library_ms=None, variants=out)
 
-    # K3's training mode and K10
+    # K3's training mode and K10 (v18: hidden 256, v9's observation)
     x9, x16 = training_inputs(dev)
     fwd, bwd = {}, {}
-    f_err = b_err = 0.0
-    for label, path, x_all in (("v9", DAGGER_V9_NPZ, x9), ("v16", DAGGER_V16_NPZ, x16)):
+    f_err, b_err = {128: 0.0, 256: 0.0}, {128: 0.0, 256: 0.0}
+    for label, path, x_all in (("v9", DAGGER_V9_NPZ, x9), ("v16", DAGGER_V16_NPZ, x16),
+                               ("v18", DAGGER_V18_NPZ, x9)):
         w = load_npz_policy(path, device=dev).packed_weights()
+        H = w.b_branch.shape[1]
         for Bn in TRAIN_BATCHES:
             x = x_all[:Bn]
             got = K3.actor_critic_train_forward(w, x)
@@ -1521,7 +1580,10 @@ def training_kernel_phase(dev, parent=None):
             if not all(bool(close(g, rf).all()) for g, rf in zip(got, ref)):
                 raise AssertionError(f"actor_critic_train_forward ({label}, B = {Bn}) disagrees "
                                      f"with its plain version")
-            f_err = max(f_err, max(float((g - rf).abs().max()) for g, rf in zip(got, ref)))
+            if not all(torch.equal(g, a) for g, a in zip(got, K3.actor_critic_train_forward(w, x))):
+                raise AssertionError(f"actor_critic_train_forward ({label}, B = {Bn}): two "
+                                     f"launches differ")
+            f_err[H] = max(f_err[H], max(float((g - rf).abs().max()) for g, rf in zip(got, ref)))
             key = f"{label}_B{Bn}"
             fwd[key] = actor_critic_timing(K3, w, x, train=True)
             dlogits, dvalue = r(Bn, A) / Bn, r(Bn) / Bn
@@ -1532,24 +1594,28 @@ def training_kernel_phase(dev, parent=None):
                 if not grads_close(g, rf):
                     raise AssertionError(f"actor_critic_backward ({key}): {f} disagrees with "
                                          f"its plain version")
-                b_err = max(b_err, float((g - rf).abs().max()))
+                b_err[H] = max(b_err[H], float((g - rf).abs().max()))
             again = K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)
             if not all(torch.equal(g, a) for g, a in zip(got, again)):
                 raise AssertionError(f"actor_critic_backward ({key}): two launches differ")
             lib_grad = library_actor_critic_grad(w, x, dlogits, dvalue)
-            plan = K3.backward_plan(Bn, w.branch_off, K3._sm_count(torch.cuda.current_device()))
+            plan = K3.backward_plan(Bn, w.branch_off, K3._sm_count(torch.cuda.current_device()),
+                                    H)
             bwd[key] = dict(ms=gpu_ms(lambda: K3.actor_critic_backward(w, x, *acts, dlogits,
                                                                       dvalue)),
                             plain_ms=gpu_ms(lambda: K3.actor_critic_backward_plain(
                                 w, x, *acts, dlogits, dvalue)),
                             library_ms=gpu_ms(lib_grad), **backward_bounds(w, Bn, A),
                             plan=plan._asdict())
-            if parent is not None:  # the parent commit's kernel on the same inputs
+            if parent is not None and H == 128:  # the parent commit's kernel on the same inputs
                 bwd[key]["earlier_ms"] = gpu_ms(lambda: parent.actor_critic.actor_critic_backward(
                     w, x, *acts, dlogits, dvalue))
-    main = f"v9_B{PPO_BATCH}"
-    rows["actor_critic_train_forward"] = dict(max_abs_err=f_err, **fwd[main], cases=fwd)
-    rows["actor_critic_backward"] = dict(max_abs_err=b_err, **bwd[main], cases=bwd)
+    for suffix, H, main in (("", 128, f"v9_B{PPO_BATCH}"), ("_h256", 256, f"v18_B{PPO_BATCH}")):
+        mine = lambda cases: {k: v for k, v in cases.items() if k.startswith("v18") == (H == 256)}
+        rows[f"actor_critic_train_forward{suffix}"] = dict(max_abs_err=f_err[H], hidden=H,
+                                                           **fwd[main], cases=mine(fwd))
+        rows[f"actor_critic_backward{suffix}"] = dict(max_abs_err=b_err[H], hidden=H,
+                                                      **bwd[main], cases=mine(bwd))
     return rows
 
 
@@ -1648,13 +1714,15 @@ def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
                 params_total=total, loss=float(m_kernel[0]), plain_loss=float(m_plain[0]))
 
 
-def train_phase(dev, counters):
+def train_phase(dev, counters, wide: bool = False):
     """``run_mansy --train --train-identifier --use-identifier --lamb 0.5``
     at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat 2)
     through ``run_mansy.ppo_round``, on tables of the train split's shape,
-    from the v9 weights at hidden 128: a warm-up round, then PASSES timed
-    rounds (one collect and its updates each).  Then one update through the
-    kernels against the plain path on the card."""
+    from the v9 weights at hidden 128 (with ``wide``: from the v18 weights,
+    ``--hidden-dim 256``, K3 and K10 at width 256): a warm-up round, then
+    PASSES timed rounds (one with ``wide``; one collect and its updates
+    each).  Then one update through the kernels against the plain path on
+    the card."""
     from mansy_immersivevideostreaming_torch.cli import run_mansy
     from mansy_immersivevideostreaming_torch.models.abr_nets import QoEIdentifier
     from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer, ppo_update
@@ -1662,15 +1730,20 @@ def train_phase(dev, counters):
     from mansy_immersivevideostreaming_torch.rl.types import RunningStat
     from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
     from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
-    from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_policy
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, DAGGER_V18_NPZ, load_npz_policy,
+    )
 
     args = run_mansy.build_parser().parse_args(
-        ["--train", "--train-identifier", "--use-identifier", "--lamb", "0.5"])
+        ["--train", "--train-identifier", "--use-identifier", "--lamb", "0.5"]
+        + (["--hidden-dim", "256"] if wide else []))
     V, U, NT, C, Q = TRAIN_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
     samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
     torch.manual_seed(args.seed)
-    policy = load_npz_policy(device=dev)
+    policy = load_npz_policy(DAGGER_V18_NPZ if wide else DAGGER_V9_NPZ, device=dev)
+    if policy.packed_weights().b_branch.shape[1] != args.hidden_dim:
+        raise AssertionError(f"train: the policy's width is not --hidden-dim {args.hidden_dim}")
     identifier = QoEIdentifier(hidden_dim=args.hidden_dim, device=dev)
     optimizer = make_optimizer(policy.parameters(), args.lr, args.weight_decay)
     id_optimizer = make_optimizer(identifier.parameters(), args.identifier_lr, args.weight_decay)
@@ -1697,7 +1770,8 @@ def train_phase(dev, counters):
     want = expect(counters, env_step=n_steps, observe_mansy_pack=n_steps + 1,
                   actor_critic_forward=n_steps + 1, compute_gae=1,
                   actor_critic_train_forward=n_mb, policy_loss=n_mb, actor_critic_backward=n_mb)
-    _, seconds, launches = timed_passes(run, counters, want)
+    passes = 1 if wide else PASSES
+    _, seconds, launches = timed_passes(run, counters, want, passes)
     if not all(math.isfinite(v) for m in losses for v in m.values()):
         raise AssertionError(f"train: non-finite losses {losses}")
     moved = max(float((p.detach() - p0).abs().max())
@@ -1716,7 +1790,8 @@ def train_phase(dev, counters):
     check = compare_updates(policy, cfg, args, traj, traj.reward, last_values, gen)
     rate = rate_stats(n_lanes * n_steps, seconds)
     return dict(lanes=n_lanes, steps=n_steps, minibatch=cfg.minibatch, repeat=cfg.repeat,
-                minibatch_steps_per_round=n_mb, passes=PASSES, seconds=seconds,
+                hidden=args.hidden_dim, minibatch_steps_per_round=n_mb, passes=passes,
+                seconds=seconds,
                 env_steps_per_s_median=rate["median"], env_steps_per_s_min=rate["min"],
                 env_steps_per_s_max=rate["max"], spread=rate["spread"],
                 ms_per_minibatch_update=profiled["ms_per_step"], update_profile=profiled,
@@ -1971,7 +2046,7 @@ def viewport_kernel_phase(dev, parent=None):
                                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                              shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1),
                              batch=dict(launches=mix, **batch), cases=cases)
-    rows.update(attention_training_cases(K8, dev, gen, args, batch["timing_floor_ms"]))
+    rows.update(attention_training_cases(K8, dev, gen, args, batch["timing_floor_ms"], parent))
 
     # K7: metrics mode (run_models --test) and chunk mode (predict)
     gt, pred = edge_positions(B, F, 1, dev), edge_positions(B, F, 2, dev)
@@ -2036,15 +2111,18 @@ def training_close(got, ref, scale: float) -> bool:
     return bool(((got - ref).abs() <= RTOL * ref.abs() + RTOL * scale).all())
 
 
-def attention_training_cases(K8, dev, gen, args, floor_ms: float) -> dict:
+def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -> dict:
     """K8's training forward and backward at B = VP_BATCH in each training
     shape (the encoder's 5 x 5, the decode step over the 15-slot cache at
     each prefix, the cross-attention 1 x 3, the teacher-forced causal 15 x
-    15 and its cross-attention 15 x 3), with a dropout keep mask at 0.1 and
-    without: held against the plain version's autograd, two launches each
-    bit-equal, keys no row sees exactly 0 in dk and dv.  Timed with the
-    mask (the training default): the kernels, the plain versions, SDPA's
-    forward and its forward + backward (autograd) as ``library_ms``; the
+    15 and its cross-attention 15 x 3) and beyond the earlier backward's 64
+    rows and keys (an encoder's 96 x 96, ``--his-window 96``; a decode step
+    over 256 keys), with a dropout keep mask at 0.1 and without: held
+    against the plain version's autograd, two launches each bit-equal, keys
+    no row sees exactly 0 in dk and dv.  Timed with the mask (the training
+    default): the kernels, the plain versions, SDPA's forward and its
+    forward + backward (autograd) as ``library_ms``, with ``parent`` the
+    parent commit's backward (``earlier_ms``, where it takes the shape); the
     sums over a training step's 62 launches of each (6 with teacher
     forcing).  Returns the two kernels' rows."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -2052,7 +2130,7 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float) -> dict:
     rate = 0.1
     shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
     shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal_tf=(F, F, 1),
-                  cross_tf=(F, 3, None))
+                  cross_tf=(F, 3, None), encoder_96=(96, 96, None), decode_256=(1, 256, None))
     fwd_cases, bwd_cases, fwd_err, bwd_err = {}, {}, 0.0, 0.0
     for name, (Lq, Lk, kv_len0) in shapes.items():
         q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=gen) for L in (Lq, Lk, Lk))
@@ -2109,7 +2187,15 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float) -> dict:
                 K8.attention_plain(*leaves, kv_len0, keep, rate), leaves, dout)),
             library_ms=gpu_ms(lambda: torch.autograd.grad(
                 sdpa(qt, kt, vt, attn_mask=allowed), (qt, kt, vt), dout_t)),
+            plan=K8.attention_backward_plan(B, Lq, Lk, H, Dh)._asdict(),
             **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True)))
+        if parent is not None and max(Lq, Lk) <= 64:  # the parent's kernel took 64 at most
+            earlier = parent.attention.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
+            got = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
+            bwd_cases[name]["earlier_bits_equal"] = all(torch.equal(a, b)
+                                                        for a, b in zip(got, earlier))
+            bwd_cases[name]["earlier_ms"] = gpu_ms(lambda: parent.attention.attention_backward(
+                dout, q, k, v, *fwd, kv_len0, keep, rate))
     # a training step's launches: each encoder layer once, then per decode
     # step each decoder layer's self-attention at t and cross-attention; with
     # teacher forcing each decoder layer's causal pass and cross-attention
@@ -2121,11 +2207,14 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float) -> dict:
     rows = {}
     for row, cases, err in (("attention_train_forward", fwd_cases, fwd_err),
                             ("attention_backward", bwd_cases, bwd_err)):
-        keys = ("ms", "bound_ms", "plain_ms", "library_ms")
+        keys = ("ms", "bound_ms", "plain_ms", "library_ms") + (
+            ("earlier_ms",) if parent is not None and row == "attention_backward" else ())
         sums = {f"{mix}_{key}_sum": sum(n * cases[name][key] for name, n in shape_n.items())
                 for mix, shape_n in mixes.items() for key in keys}
-        rows[row] = dict(max_abs_err=err, **{k: cases[f"decode_t{F - 1}"][k] for k in (
-                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        main = cases[f"decode_t{F - 1}"]
+        rows[row] = dict(max_abs_err=err, **{k: main[k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "earlier_ms") if k in main},
                          shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1, dropout=rate),
                          batch=dict(launches=mixes, timing_floor_ms=floor_ms, **sums),
                          bits_equal_on_two_launches=True, cases=cases)
@@ -2337,10 +2426,28 @@ def vp_train_data(args, n: int, seed: int, dev) -> dict:
             "future": xy[:, M + 1:].contiguous()}
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms inside the block (cuDNN's
+    convolutions, CUDA index accumulation; cuBLAS with the workspace that
+    ``main`` sets): without them two runs of one path's gradient differ by
+    atomics in the distillation layer's backward and the slot gathers', a
+    noise that is no part of what phase 11 compares."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+@deterministic_algorithms()
 def compare_vp_steps(model, opt, batch, seed: int) -> dict:
     """One ``vp_train.train_step`` from the same weights, generator seed (so
     the same dropout masks), slot permutations and repeat draw through the
-    kernels and through K8's plain version (``mock.patch``).  The loss must
+    kernels and through K8's plain version (``mock.patch``), each under
+    PyTorch's deterministic algorithms (``deterministic_algorithms``), so
+    that the two differ only by the attention's implementation.  The loss must
     agree to VP_LOSS_RTOL; every gradient entry to VP_GRAD_RTOL relative
     plus VP_GRAD_RTOL of the largest gradient entry of the model (K8's sums
     in another order differ by an ulp, and the difference grows through the
@@ -2465,6 +2572,25 @@ def vp_train_phase(dev, counters):
 
     profiled = profile_update(one_step, 1)
     check = compare_vp_steps(model, opt, batch, args.seed)
+    # --his-window 96: the encoder's attention is 96 x 96 and the decoder's
+    # cross-attention sees the distilled 48, past the earlier backward's 64
+    # rows and keys: the first step from Flax's initialisers through the
+    # kernels against the plain path, then a step timed after a warm-up
+    wide_args = run_models.build_parser().parse_args(
+        ["--train", "--seed", str(VP_SEED), "--his-window", "96"])
+    wide_model = run_models.build_model(wide_args, dev).init_like_flax(
+        torch.Generator(device=dev).manual_seed(wide_args.seed))
+    wide_batch = vp_train_data(wide_args, wide_args.bs, 42, dev)
+    wide_check = compare_vp_steps(wide_model, opt, wide_batch, wide_args.seed)
+    wide_state = TV.create_train_state(wide_model)
+    wide_step = lambda: TV.train_step(wide_model, opt, wide_state, wide_batch, wide_args.seed)
+    wide_step()  # warm-up
+    (_, wide_loss), wide_seconds, wide_launches = timed_passes(
+        wide_step, counters, expect(counters, attention_train_forward=per_step,
+                                    attention_backward=per_step), 1)
+    wide = dict(his_window=wide_args.his_window, encoder_attention=[wide_args.his_window] * 2,
+                cross_attention_keys=wide_args.his_window // 2, step_seconds=wide_seconds[0],
+                loss=float(wide_loss), launches=wide_launches, kernels_vs_plain=wide_check)
     # validation on the trained weights, K8's serving mode
     valid = vp_train_data(args, 4 * args.bs, 41, dev)
     mses = [float(TV.valid_step(model, {k: v[i:i + args.bs] for k, v in valid.items()}))
@@ -2479,7 +2605,8 @@ def vp_train_phase(dev, counters):
                 teacher_forcing_launches=tf_counts,
                 first_epoch_loss=float(losses[0].mean()), last_epoch_loss=float(losses[-2].mean()),
                 teacher_forcing_epoch_loss=float(losses[-1].mean()),
-                train_step_profile=profiled, kernels_vs_plain=check, valid_mse=mses,
+                train_step_profile=profiled, kernels_vs_plain=check, his_window_96=wide,
+                valid_mse=mses,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
 
 
@@ -2493,6 +2620,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
         return 1
+    # cuBLAS's deterministic workspace, read when the first handle is made:
+    # phase 11 compares its steps under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
         actor_critic_backward, actor_critic_forward, actor_critic_train_forward,
     )
@@ -2533,8 +2663,10 @@ def main() -> int:
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
                       ("collect", lambda: collect_phase(dev, counters)),
                       ("expert", lambda: expert_phase(dev, counters)),
-                      ("serve_v16", lambda: serve_phase(dev, counters, v16=True)),
+                      ("serve_v16", lambda: serve_phase(dev, counters, "v16")),
+                      ("serve_v18", lambda: serve_phase(dev, counters, "v18")),
                       ("train", lambda: train_phase(dev, counters)),
+                      ("train_256", lambda: train_phase(dev, counters, wide=True)),
                       ("dagger", lambda: dagger_phase(dev, counters)),
                       ("vp_test", lambda: vp_test_phase(dev, counters)),
                       ("vp_export", lambda: vp_export_phase(dev, counters)),
@@ -2554,8 +2686,11 @@ def main() -> int:
                     "expert": ("env_step", "choose_action", "build_expert_tables"),
                     "serve_v16": ("env_step", "observe_mansy_pack", "actor_critic_forward",
                                   "build_expert_tables"),
+                    "serve_v18": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
                     "train": ("env_step", "observe_mansy_pack", "actor_critic_forward",
                               "compute_gae") + training,
+                    "train_256": ("env_step", "observe_mansy_pack", "actor_critic_forward",
+                                  "compute_gae") + training,
                     "dagger": ("env_step", "observe_mansy_pack", "actor_critic_forward",
                                "choose_action") + training,
                     "vp_test": ("attention", "trajectory_metrics"),
@@ -2568,13 +2703,19 @@ def main() -> int:
     for fn in counters:  # the counts of one pass of each path
         name, row = fn.__name__, rows[ROW_OF.get(fn.__name__, fn.__name__)]
         per_path = {path: paths[path]["launches"][name] for path in paths}
+        wide = rows.get(f"{name}_h256")
+        if wide is not None:  # the hidden-256 paths' launches go to the width's own row
+            wide_paths = {p: n for p, n in per_path.items() if p in WIDE_PATHS}
+            wide.update(launches=sum(wide_paths.values()), launches_per_path=wide_paths,
+                        launches_per_step={p: n / paths[p]["steps"] for p, n in wide_paths.items()})
+            per_path = {p: n for p, n in per_path.items() if p not in WIDE_PATHS}
         if name in ROW_OF:  # one row, several wrappers: the counts add up
             row.setdefault("launches_by_wrapper", {})[name] = per_path
             per_path = {p: n + row.get("launches_per_path", {}).get(p, 0)
                         for p, n in per_path.items()}
         row.update(launches=sum(per_path.values()), launches_per_path=per_path,
                    launches_per_step={path: per_path[path] / paths[path]["steps"]
-                                      for path in paths})
+                                      for path in per_path})
     kernels = [dict(name=name, **KERNELS[name], **rows[name]) for name in KERNELS]
     print(json.dumps({**{path: {k: v for k, v in r.items() if k != "launches"}
                          for path, r in paths.items()}, "card": card}))

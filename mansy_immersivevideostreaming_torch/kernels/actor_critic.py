@@ -9,8 +9,11 @@ the exact ``action_values`` field when ``use_action_values`` or
 first-index argmax of ``logits + noise`` (Gumbel noise for sampling, none
 for the deterministic argmax).
 
-It reads the packed observation buffer of ``kernels/observe.py``.  On the
-H100 it is bound by operations (~0.85 MFLOP a lane); ``csrc/
+It reads the packed observation buffer of ``kernels/observe.py``.  The
+kernels take the hidden widths of every committed policy, 128 (v9, v16)
+and 256 (v18), each a compiled instantiation of the same design; another
+width raises on the card (the plain versions take any width).  On the
+H100 it is bound by operations (~0.85 MFLOP a lane at width 128); ``csrc/
 actor_critic.cu`` splits each 32-row tile across a thread-block cluster
 whose size follows from N (:func:`cluster_plan`): at 512 rows one CTA a
 branch (two for a branch of more than 128 inputs, one each half of them),
@@ -43,7 +46,7 @@ from mansy_immersivevideostreaming_torch.kernels import build
 
 MAX_BRANCHES = 11  # 10, or 11 with the action-value branch
 COND_BRANCH_INDEX = 9  # the cond branch, whose features are the residual
-HIDDEN = 128  # the kernel's hidden width
+WIDTHS = (128, 256)  # the hidden widths the kernels are instantiated at
 MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
 # K10's tiling (csrc/actor_critic_backward.cu): launch A takes 32-row tiles of
 # dPre_b, a 128-column block (a branch) at a time; launch B the batch-deep
@@ -51,14 +54,14 @@ MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
 BACKWARD_ROWS = 32
 BACKWARD_STAGE = 32
 BACKWARD_SLICES = (1, 2, 4, 8)  # depth slices of an output tile: its cluster's CTAs
-BACKWARD_CTAS_PER_SM = 2        # launch A fits two CTAs on an SM
+SMEM_PER_SM = 228 * 1024        # the H100's shared memory an SM (a block takes at most 227 KB)
 BACKWARD_HEAD_BLOCKS = 0.25     # launch A's head, in the time of one column block (an estimate)
 
 
 class ActorCriticWeights(NamedTuple):
     """MansyActorCritic's parameters in the layout the kernel reads (Flax's
     [in, out] kernels).  Branch b maps columns ``branch_off[b]:
-    branch_off[b+1]`` of the packed observation to features ``128b:128b+128``
+    branch_off[b+1]`` of the packed observation to features ``Hb:Hb+H``
     (block-diagonal, stored compactly by input rows); branch 9 is ``cond``
     and the optional branch 10 reads the action values.  With
     ``av_prior`` != 0 the actor logits get ``av_prior`` times the standardized
@@ -135,22 +138,26 @@ class _ActorCriticArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "x", "w_branch", "b_branch", "w_fc", "b_fc", "w_aout", "b_aout", "w_cout",
         "b_cout", "noise", "logits", "value", "action", "log_prob", "feats", "hidden")]
-        + [(f, ctypes.c_int32) for f in ("n_lanes", "ldx", "A", "num_branches")]
+        + [(f, ctypes.c_int32) for f in ("n_lanes", "ldx", "A", "num_branches", "hidden_dim")]
         + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1)), ("av_off", ctypes.c_int32),
            ("av_prior", ctypes.c_float)])
 
 
 def _weight_tensors(w: ActorCriticWeights, x: torch.Tensor):
     """The kernel's weight pointers by argument name, checked: 10 or 11
-    branches of hidden 128, contiguous f32 tensors on x's device."""
+    branches of a hidden width in WIDTHS, contiguous f32 tensors on x's
+    device."""
     A = w.w_actor_out.shape[1]
-    nb = len(w.branch_off) - 1
-    if nb not in (MAX_BRANCHES - 1, MAX_BRANCHES) or w.b_branch.shape != (nb, HIDDEN) \
+    nb, H = len(w.branch_off) - 1, w.b_branch.shape[-1]
+    if H not in WIDTHS:
+        raise ValueError(f"actor_critic kernels take hidden width 128 or 256 (the widths of "
+                         f"the committed policies), got {H}")
+    if nb not in (MAX_BRANCHES - 1, MAX_BRANCHES) or w.b_branch.shape != (nb, H) \
             or A > MAX_ACTIONS or x.shape[1] < w.branch_off[-1] \
             or (w.av_prior and not 0 <= w.av_off <= x.shape[1] - A):
-        raise ValueError(f"actor_critic kernel needs 10 or 11 branches of hidden {HIDDEN}, "
-                         f"<= {MAX_ACTIONS} actions, {w.branch_off[-1]} observation columns "
-                         f"and the prior's action values inside them")
+        raise ValueError(f"actor_critic kernel needs 10 or 11 branches, <= {MAX_ACTIONS} "
+                         f"actions, {w.branch_off[-1]} observation columns and the prior's "
+                         f"action values inside them")
     tensors = {"x": x, "w_branch": w.w_branch, "b_branch": w.b_branch, "w_fc": w.w_fc,
                "b_fc": w.b_fc, "w_aout": w.w_actor_out, "b_aout": w.b_actor_out,
                "w_cout": w.w_critic_out, "b_cout": w.b_critic_out}
@@ -167,19 +174,52 @@ def _args(w: ActorCriticWeights, n_lanes: int, ldx: int = 0, **pointers) -> _Act
     return _ActorCriticArgs(
         **{k: t.data_ptr() for k, t in pointers.items()},
         n_lanes=n_lanes, ldx=ldx, A=w.w_actor_out.shape[1], num_branches=len(w.branch_off) - 1,
+        hidden_dim=w.b_branch.shape[-1],
         branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off),
         av_off=max(w.av_off, 0), av_prior=float(w.av_prior))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """K3's library, built and loaded at first use, its signatures set once."""
+    lib = build.load("actor_critic")
+    lib.actor_critic_launch.argtypes = [ctypes.POINTER(_ActorCriticArgs), ctypes.c_void_p]
+    lib.actor_critic_plan.argtypes = [ctypes.POINTER(_ActorCriticArgs),
+                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.actor_critic_smem_bytes.argtypes = [ctypes.c_int]
+    for fn in (lib.actor_critic_launch, lib.actor_critic_plan, lib.actor_critic_smem_bytes):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_lib() -> ctypes.CDLL:
+    """K10's library, built and loaded at first use, its signatures set once."""
+    lib = build.load("actor_critic_backward")
+    lib.actor_critic_backward_launch.argtypes = [ctypes.POINTER(_ActorCriticBackwardArgs),
+                                                 ctypes.c_void_p]
+    lib.actor_critic_backward_smem_bytes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.actor_critic_backward_launch, lib.actor_critic_backward_smem_bytes):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def kernel_smem_bytes(hidden: int) -> Tuple[int, int, int]:
+    """The shared memory a CTA of K3, K10's launch A and launch B takes at
+    hidden width ``hidden``, as the compiled kernels report it (0 for a
+    width without an instantiation): what :func:`forward_smem_bytes` and
+    :func:`backward_smem_bytes` compute."""
+    launch_b = ctypes.c_int()
+    launch_a = _backward_lib().actor_critic_backward_smem_bytes(hidden, ctypes.byref(launch_b))
+    return _lib().actor_critic_smem_bytes(hidden), launch_a, launch_b.value
 
 
 def _launch_forward(w: ActorCriticWeights, x: torch.Tensor, tensors, **outputs) -> None:
     """One launch of the forward kernel; ``outputs`` (and the noise) by
     argument name, the rest null."""
     args = _args(w, x.shape[0], x.stride(0), **tensors, **outputs)
-    lib = build.load("actor_critic")
-    lib.actor_critic_launch.argtypes = [ctypes.POINTER(_ActorCriticArgs), ctypes.c_void_p]
-    lib.actor_critic_launch.restype = ctypes.c_int
-    err = lib.actor_critic_launch(ctypes.byref(args),
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+    err = _lib().actor_critic_launch(ctypes.byref(args),
+                                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"actor_critic kernel launch failed with CUDA error {err}")
 
@@ -189,13 +229,9 @@ def cluster_plan(w: ActorCriticWeights, n_lanes: int) -> Tuple[int, bool]:
     in two halves) that the kernel takes for ``n_lanes`` rows on the current
     card: the plan of least estimated time (``csrc/actor_critic.cu``:
     ``make_plan``)."""
-    lib = build.load("actor_critic")
-    lib.actor_critic_plan.argtypes = [ctypes.POINTER(_ActorCriticArgs),
-                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.actor_critic_plan.restype = ctypes.c_int
     ctas, split = ctypes.c_int(), ctypes.c_int()
-    err = lib.actor_critic_plan(ctypes.byref(_args(w, n_lanes)), ctypes.byref(ctas),
-                                ctypes.byref(split))
+    err = _lib().actor_critic_plan(ctypes.byref(_args(w, n_lanes)), ctypes.byref(ctas),
+                                   ctypes.byref(split))
     if err != 0:
         raise RuntimeError(f"actor_critic_plan failed with CUDA error {err}")
     return ctas.value, bool(split.value)
@@ -237,11 +273,11 @@ def actor_critic_train_forward(w: ActorCriticWeights, x: torch.Tensor):
     if dev.type == "cpu":
         return actor_critic_train_forward_plain(w, x)
     tensors = _weight_tensors(w, x)
-    N, A, nb = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1
+    N, A, nb, H = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1, w.b_branch.shape[1]
     out = dict(logits=torch.empty((N, A), dtype=torch.float32, device=dev),
                value=torch.empty(N, dtype=torch.float32, device=dev),
-               feats=torch.empty((N, nb * HIDDEN), dtype=torch.float32, device=dev),
-               hidden=torch.empty((N, 2 * HIDDEN), dtype=torch.float32, device=dev))
+               feats=torch.empty((N, nb * H), dtype=torch.float32, device=dev),
+               hidden=torch.empty((N, 2 * H), dtype=torch.float32, device=dev))
     _launch_forward(w, x, tensors, **out)
     actor_critic_train_forward.launches += 1
     return out["logits"], out["value"], out["feats"], out["hidden"]
@@ -282,7 +318,8 @@ class _ActorCriticBackwardArgs(ctypes.Structure):
         "x", "feats", "hidden", "w_fc", "w_aout", "w_cout", "dlogits", "dvalue", "y", "dpre_fc",
         "dpre_b", "dw_branch", "db_branch", "dw_fc", "db_fc", "dw_aout", "db_aout", "dw_cout",
         "db_cout")]
-        + [(f, ctypes.c_int32) for f in ("B", "ldx", "A", "num_branches", "groups", "slices")]
+        + [(f, ctypes.c_int32) for f in ("B", "ldx", "A", "num_branches", "hidden_dim", "groups",
+                                          "slices")]
         + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1))])
 
 
@@ -298,19 +335,39 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def backward_plan(B: int, branch_off: Sequence[int], sms: int) -> BackwardPlan:
-    """The launch shapes for a batch of ``B`` rows on a card of ``sms`` SMs.
-    Launch A: the groups of least estimated time, waves (of
-    ``BACKWARD_CTAS_PER_SM`` CTAs an SM) times the blocks a CTA walks plus its
-    head, each group at least one block, on a tie the fewer CTAs.  Launch B:
-    the most slices a cluster takes that the batch's 32-deep stages fill (on
-    the H100 more slices were faster at 512 and 4096 rows alike)."""
+def forward_smem_bytes(hidden: int) -> int:
+    """K3's shared memory a CTA at hidden width ``hidden``, as
+    ``csrc/actor_critic.cu``'s ``Dims`` lays it out: a ring of five stages,
+    each the larger of (an x tile [32][20] and 16 W_b rows [16][H + 8]) and
+    16 W_fc rows [16][2H + 8], and the feature tile [32][H + 4]."""
+    slot = max(32 * 20 + 16 * (hidden + 8), 16 * (2 * hidden + 8))
+    return 4 * (5 * slot + 32 * (hidden + 4))
+
+
+def backward_smem_bytes(hidden: int) -> Tuple[int, int]:
+    """K10's shared memory a CTA (launch A, launch B) at hidden width
+    ``hidden``, as ``csrc/actor_critic_backward.cu`` lays it out: launch A
+    dPre_fc's TF32 hi and lo [32][2H + 4] each, W_aout^T [16][H], the dlogits
+    rows [32][16] and three W_fc stages [H][20]; launch B four stages of a
+    [32][72] and a [32][136] tile, whatever the width."""
+    return (4 * (2 * 32 * (2 * hidden + 4) + 16 * hidden + 32 * 16 + 3 * hidden * 20),
+            4 * 4 * (32 * 72 + 32 * 136))
+
+
+def backward_plan(B: int, branch_off: Sequence[int], sms: int, hidden: int = 128) -> BackwardPlan:
+    """The launch shapes for a batch of ``B`` rows of hidden width ``hidden``
+    on a card of ``sms`` SMs.  Launch A: the groups of least estimated time,
+    waves (of the CTAs an SM holds: two at width 128, one at 256) times the
+    blocks a CTA walks plus its head, each group at least one block, on a
+    tie the fewer CTAs.  Launch B: the most slices a cluster takes that the
+    batch's 32-deep stages fill (on the H100 more slices were faster at 512
+    and 4096 rows alike)."""
     nb = len(branch_off) - 1
     row_tiles = _cdiv(B, BACKWARD_ROWS)
+    per_sm = SMEM_PER_SM // (backward_smem_bytes(hidden)[0] + 1024)
 
     def cost_a(g: int) -> float:
-        return _cdiv(row_tiles * g, BACKWARD_CTAS_PER_SM * sms) * (BACKWARD_HEAD_BLOCKS
-                                                                   + _cdiv(nb, g))
+        return _cdiv(row_tiles * g, per_sm * sms) * (BACKWARD_HEAD_BLOCKS + _cdiv(nb, g))
 
     groups = min((g for g in range(1, nb + 1) if _cdiv(nb, g) * (g - 1) < nb),
                  key=lambda g: (cost_a(g), g))
@@ -332,8 +389,8 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
     if dev.type == "cpu":
         return actor_critic_backward_plain(w, x, feats, hidden, dlogits, dvalue)
     _weight_tensors(w, x)
-    B, A, nb = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1
-    for name, t, shape in (("feats", feats, (B, nb * HIDDEN)), ("hidden", hidden, (B, 2 * HIDDEN)),
+    B, A, nb, H = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1, w.b_branch.shape[1]
+    for name, t, shape in (("feats", feats, (B, nb * H)), ("hidden", hidden, (B, 2 * H)),
                            ("dlogits", dlogits, (B, A)), ("dvalue", dvalue, (B,))):
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -341,9 +398,8 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
                              f"of shape {shape} on {dev}, got {tuple(t.shape)}")
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     plan = backward_plan(B, w.branch_off, _sm_count(dev.index if dev.index is not None
-                                                       else torch.cuda.current_device()))
-    scratch = dict(y=empty(B, 2 * HIDDEN), dpre_fc=empty(B, 2 * HIDDEN),
-                   dpre_b=empty(B, nb * HIDDEN))
+                                                       else torch.cuda.current_device()), H)
+    scratch = dict(y=empty(B, 2 * H), dpre_fc=empty(B, 2 * H), dpre_b=empty(B, nb * H))
     grads = dict(dw_branch=torch.empty_like(w.w_branch), db_branch=torch.empty_like(w.b_branch),
                  dw_fc=torch.empty_like(w.w_fc), db_fc=torch.empty_like(w.b_fc),
                  dw_aout=torch.empty_like(w.w_actor_out), db_aout=torch.empty_like(w.b_actor_out),
@@ -353,14 +409,10 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
                   w_cout=w.w_critic_out, dlogits=dlogits, dvalue=dvalue)
     args = _ActorCriticBackwardArgs(
         **{k: t.data_ptr() for k, t in {**inputs, **scratch, **grads}.items()},
-        B=B, ldx=x.stride(0), A=A, num_branches=nb, groups=plan.groups, slices=plan.slices,
-        branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off))
-    lib = build.load("actor_critic_backward")
-    lib.actor_critic_backward_launch.argtypes = [ctypes.POINTER(_ActorCriticBackwardArgs),
-                                                 ctypes.c_void_p]
-    lib.actor_critic_backward_launch.restype = ctypes.c_int
-    err = lib.actor_critic_backward_launch(ctypes.byref(args),
-                                           torch.cuda.current_stream(dev).cuda_stream)
+        B=B, ldx=x.stride(0), A=A, num_branches=nb, hidden_dim=H, groups=plan.groups,
+        slices=plan.slices, branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off))
+    err = _backward_lib().actor_critic_backward_launch(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"actor_critic_backward kernel launch failed with CUDA error {err}")
     actor_critic_backward.launches += 1

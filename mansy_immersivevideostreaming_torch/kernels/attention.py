@@ -15,9 +15,11 @@ mask is given as ``kv_len0``: query row r sees keys
 On the H100 the core is bound by the k and v bytes; ``csrc/attention.cu``
 runs one warp a (b, query row, head), in a serving mode and a training mode
 that also writes each row's max and exp sum and applies a dropout keep
-mask; ``csrc/attention_backward.cu`` runs one CTA a (b, head) from those
-statistics.  :func:`attention` picks the path: the plain version for CPU
-tensors, the training forward and the backward kernel
+mask; ``csrc/attention_backward.cu`` recomputes P from those statistics,
+bit for bit, at any number of query rows and keys: a warp a (b, head) for
+one query row, else a CTA a (b, head) over tiles of keys and rows
+(:func:`attention_backward_plan`).  :func:`attention` picks the path: the
+plain version for CPU tensors, the training forward and the backward kernel
 (:class:`_AttentionFunction`) when autograd needs a gradient, else the
 serving kernel.  The projections, the cache write and the mask draws stay
 ``torch`` ops (``models/transformer.py``).
@@ -26,7 +28,9 @@ serving kernel.  The projections, the cache write and the mask draws stay
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,8 +38,7 @@ from mansy_immersivevideostreaming_torch.kernels import build
 
 MAX_DH = 256    # head width the kernels hold in registers (8 values a lane)
 MAX_LK = 2048   # keys a row's scores hold in shared memory (forward)
-MAX_BACKWARD_ROWS = 64           # query rows and keys of the backward's shared-memory tiles
-MAX_BACKWARD_SMEM = 227 * 1024   # the H100's shared memory a block
+MAX_ROW_TILE = 32  # the backward's tile kernel: query rows a row tile
 
 
 def _prefix_mask(Lq: int, Lk: int, kv_len0: Optional[int], device) -> Optional[torch.Tensor]:
@@ -118,7 +121,67 @@ class _AttentionBackwardArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in ("dout", "q", "k", "v", "o", "row_max",
                                                  "row_sum", "keep", "dq", "dk", "dv")]
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
-                + [("scale", ctypes.c_float), ("keep_prob", ctypes.c_float)])
+                + [("scale", ctypes.c_float), ("keep_prob", ctypes.c_float)]
+                + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "warps")])
+
+
+class BackwardPlan(NamedTuple):
+    """The backward's launch (``csrc/attention_backward.cu``): ``kernel`` is
+    "row" (one query row: a warp a (b, head), ``threads // 32`` a CTA) or
+    "tile" (a CTA a (b, head) over key tiles of ``keys`` keys and row tiles
+    of ``rows`` rows); a lane holds ``per_lane`` dims of a row."""
+    kernel: str
+    per_lane: int
+    keys: int
+    rows: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> BackwardPlan:
+    """The plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  A lane holds
+    the next power of two of ceil(Dh / 32) dims (1 to 8); a key tile the
+    least power of two of keys, at least 4, that holds Lk, up to 32 / that
+    for the row kernel (a warp's k rows of a tile fill at most 32 registers
+    a lane) and up to 16 (8 at 8 dims a lane) for the tile kernel, whose
+    warps reduce a row's scores and dP' together.  The tile kernel's row
+    tiles take up to MAX_ROW_TILE rows, a CTA 8 warps (4 for up to 128
+    scores a row tile), and its shared memory holds the k and v tiles, the
+    q, dO and o rows (zero-padded to 32 dims a lane), and a row tile's P',
+    dS, row max, exp sum and keep bytes."""
+    per_lane = _pow2_at_least(math.ceil(Dh / 32))
+    keys = max(4, _pow2_at_least(min(Lk, 32)))
+    if Lq == 1:
+        return BackwardPlan("row", per_lane, min(keys, 32 // per_lane), 1, 256, -(-B * H // 8),
+                            0)
+    keys, rows = min(keys, 16, 64 // per_lane), min(Lq, MAX_ROW_TILE)
+    width = 32 * per_lane
+    smem = 4 * (2 * keys * width + 3 * rows * width + 2 * rows * keys + 2 * rows) + rows * keys
+    warps = 4 if rows * keys <= 128 else 8  # the faster of the two on the H100's shapes
+    return BackwardPlan("tile", per_lane, keys, rows, 32 * warps, B * H, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_launch():
+    """The serving and training kernels' launcher, its signature set once."""
+    fn = build.load("attention").attention_launch
+    fn.argtypes = [ctypes.POINTER(_AttentionArgs), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_launch():
+    """The backward kernels' launcher, its signature set once."""
+    fn = build.load("attention_backward").attention_backward_launch
+    fn.argtypes = [ctypes.POINTER(_AttentionBackwardArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -153,12 +216,8 @@ def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0
                           B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
                           keep=ptr(keep), keep_prob=1.0 - rate, row_max=ptr(row_max),
                           row_sum=ptr(row_sum))
-    lib = build.load("attention")
-    lib.attention_launch.argtypes = [ctypes.POINTER(_AttentionArgs), ctypes.c_int,
-                                     ctypes.c_void_p]
-    lib.attention_launch.restype = ctypes.c_int
-    err = lib.attention_launch(ctypes.byref(args), int(train),
-                               torch.cuda.current_stream(q.device).cuda_stream)
+    err = _forward_launch()(ctypes.byref(args), int(train),
+                            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with CUDA error {err}")
 
@@ -187,33 +246,26 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
                        kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
                        rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the training mode's output from its gradient ``dout``,
-    its inputs, its output and its row statistics.  CPU tensors take
-    :func:`attention_backward_plain`; on the card the kernel takes at most
-    MAX_BACKWARD_ROWS query rows and keys and raises beyond."""
+    its inputs, its output and its row statistics, at any number of query
+    rows and keys (keys up to MAX_LK, as the forward).  CPU tensors take
+    :func:`attention_backward_plain`; CUDA tensors launch the kernel of
+    :func:`attention_backward_plan`."""
     if q.device.type == "cpu":
         return attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, rate)
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
     for name, t, shape in (("dout", dout, q.shape), ("o", o, q.shape),
                            ("row_max", row_max, (B, H, Lq)), ("row_sum", row_sum, (B, H, Lq))):
         _check(name, t, shape, torch.float32, q.device)
-    smem = 4 * (2 * Lq * Dh + 2 * Lk * Dh + 2 * Lq * Lk)
-    if Lq > MAX_BACKWARD_ROWS or Lk > MAX_BACKWARD_ROWS or smem > MAX_BACKWARD_SMEM:
-        raise ValueError(f"attention_backward: needs Lq, Lk <= {MAX_BACKWARD_ROWS} and "
-                         f"{smem} <= {MAX_BACKWARD_SMEM} bytes of shared memory, got Lq {Lq}, "
-                         f"Lk {Lk}, Dh {Dh}")
+    plan = attention_backward_plan(B, Lq, Lk, H, Dh)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = _AttentionBackwardArgs(
         dout=dout.data_ptr(), q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
         row_max=row_max.data_ptr(), row_sum=row_sum.data_ptr(),
         keep=None if keep is None else keep.data_ptr(), dq=dq.data_ptr(), dk=dk.data_ptr(),
         dv=dv.data_ptr(), B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
-        keep_prob=1.0 - rate)
-    lib = build.load("attention_backward")
-    lib.attention_backward_launch.argtypes = [ctypes.POINTER(_AttentionBackwardArgs),
-                                              ctypes.c_void_p]
-    lib.attention_backward_launch.restype = ctypes.c_int
-    err = lib.attention_backward_launch(ctypes.byref(args),
-                                        torch.cuda.current_stream(q.device).cuda_stream)
+        keep_prob=1.0 - rate, per_lane=plan.per_lane, keys=plan.keys, rows=plan.rows,
+        warps=plan.threads // 32)
+    err = _backward_launch()(ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed with CUDA error {err}")
     attention_backward.launches += 1

@@ -6,19 +6,21 @@
 // first-index argmax of logits + Gumbel noise).  The plain PyTorch version
 // is kernels/actor_critic.py:actor_critic_forward_plain.
 //
-// Per lane: 10 branch dense layers (748 -> 10 x 128, block-diagonal), or 11
-// with the action-value branch (764 -> 11 x 128), with LeakyReLU(0.01);
-// actor_fc and critic_fc (10 or 11 x 128 -> 2 x 128) with LeakyReLU; the
-// "+ cond" residual (branch 9); actor_out (128 -> A) and critic_out
-// (128 -> 1); the optional action-value logit prior
+// Per lane, at hidden width H (128 or 256, the widths of every committed
+// policy; a template parameter): 10 branch dense layers (748 -> 10 x H,
+// block-diagonal), or 11 with the action-value branch (764 -> 11 x H), with
+// LeakyReLU(0.01); actor_fc and critic_fc (10 or 11 x H -> 2 x H) with
+// LeakyReLU; the "+ cond" residual (branch 9); actor_out (H -> A) and
+// critic_out (H -> 1); the optional action-value logit prior
 // beta * (av - mean) / (std + 1e-6) (population std, abr_nets.py:176-180);
-// log_softmax and argmax.  About 0.85 MFLOP a lane (0.94 with 11 branches).
+// log_softmax and argmax.  About 0.85 MFLOP a lane at H = 128 (0.94 with 11
+// branches), 3.0 at H = 256.
 //
 // Training mode (feats and hidden given, kernels/actor_critic.py:
 // actor_critic_train_forward): no noise and no action head; it also writes
 // what the backward (csrc/actor_critic_backward.cu, K10) reads, the branch
-// features after LeakyReLU [N, nb x 128] and the fc outputs after LeakyReLU,
-// before the residual [N, 256].  K10 takes each LeakyReLU's derivative from
+// features after LeakyReLU [N, nb x H] and the fc outputs after LeakyReLU,
+// before the residual [N, 2H].  K10 takes each LeakyReLU's derivative from
 // the sign of its output, so nothing is recomputed.
 //
 // Bound: operations.  At 8192 lanes the forward is ~7 GFLOP against ~26 MB
@@ -45,19 +47,22 @@
 // collect's 8192 lanes, where the card is full anyway and a cluster's
 // barriers and exchange would only add work.
 //
-// A unit multiplies its x columns by its W_b rows into the branch's 128
+// A unit multiplies its x columns by its W_b rows into the branch's H
 // pre-activations; a whole branch adds its bias and LeakyReLU at once
 // (feats_b), while the two halves of a split branch put theirs in shared
 // memory, meet at the first half of a cluster barrier, and each sums both
 // for half of the feature columns (part 0's first), then the bias and
 // LeakyReLU.  A unit then multiplies its feature columns [n0, n0 + nw) by
-// W_fc's rows 128b + n0 .. and adds them into its CTA's partial fc product
-// P_r [32, 256], unit after unit in a fixed order (the cond branch last, so
+// W_fc's rows Hb + n0 .. and adds them into its CTA's partial fc product
+// P_r [32, 2H], unit after unit in a fixed order (the cond branch last, so
 // its features stay in shared memory).  The tensor cores' f32 accumulation
 // does not round to nearest, so a long chain of products drifts (4e-5 over
 // the 1280 rows of W_fc): each 16-row stage's products go into zeroed
 // accumulators, which are added to the running sums (the pre-activations in
-// shared memory, P_r in registers) with rounded f32 adds.  The x and weight
+// shared memory, P_r in registers) with rounded f32 adds.  At H = 256 the
+// same ring (five stages of 16 W_fc rows of 512 columns, 166 KB) and the
+// feature tile (33 KB) leave one CTA an SM, and each warp owns twice the
+// columns of every product.  The x and weight
 // tiles stream in with cp.async through one ring of five 16-row stages that
 // every product of the CTA shares (four in flight while one is multiplied),
 // located by a schedule of the CTA's units in shared memory, and each warp
@@ -83,11 +88,8 @@ using namespace mansy::tc;
 
 namespace {
 
-constexpr int kH = 128;        // hidden width
-constexpr int kF = 2 * kH;     // fc width: actor_fc | critic_fc
 constexpr int kMaxNB = 11;     // feature-net branches: 10, or 11 with action values
 constexpr int kCond = 9;       // the cond branch, whose features are the residual
-constexpr int kSplitIn = kH;   // a branch with more inputs may be two units (input halves)
 constexpr int kMaxUnits = 16;  // CTAs a cluster may have (the non-portable maximum)
 constexpr int kMaxDevices = 16;
 constexpr int kBM = 32;        // rows a tile
@@ -95,50 +97,69 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kBK = 16;        // k rows a pipeline stage
 constexpr int kStages = 5;     // ring slots: four stages in flight while one is multiplied
 constexpr int kOut = 16;       // logits (A <= 15) and the value
-// row strides (floats), padded so the warps' fragment reads hit 32 banks
-constexpr int kXS = kBK + 4;   // x stage        [kBM][kXS]
-constexpr int kWBS = kH + 8;   // W_b stage      [kBK][kWBS]
-constexpr int kWFS = kF + 8;   // W_fc stage     [kBK][kWFS]
-constexpr int kFS = kH + 4;    // features       [kBM][kFS]
-constexpr int kPS = kF + 4;    // partial fc     [kBM][kPS]
-
+constexpr int kXS = kBK + 4;   // x stage [kBM][kXS] (floats; padded so fragment reads hit 32 banks)
 constexpr int kXsFloats = kBM * kXS;  // a branch stage: the x tile, then the W_b rows
-constexpr int kSlotFloats = kXsFloats + kBK * kWBS > kBK * kWFS ? kXsFloats + kBK * kWBS
-                                                                 : kBK * kWFS;
-constexpr int kRingFloats = kStages * kSlotFloats;
-constexpr int kFsFloats = kBM * kFS;
-constexpr int kSmemBytes = (kRingFloats + kFsFloats) * (int)sizeof(float);
-// over the ring once the products are done: P_r, CTA 0's partial heads
-// [G][kBM][kOut], and this CTA's fc outputs + residual [kBM][ceil(kF / G) + 1]
-constexpr int over_ring(int g) { return kBM * kPS + g * kBM * kOut + kBM * ((kF + g - 1) / g + 1); }
-static_assert(over_ring(1) <= kRingFloats && over_ring(kMaxUnits) <= kRingFloats,
-              "P_r, the partial heads and the fc slice fit over the ring");
-static_assert(kBM * ((kF + kMaxUnits - 1) / kMaxUnits + 1) >= kBM * kOut,
-              "the logits tile fits over the fc slice");
-static_assert(2 * kSmemBytes + 2048 <= 228 * 1024, "two CTAs an SM");
+
+// The layout at hidden width kH (128 or 256).
+template <int kH>
+struct Dims {
+  static constexpr int kF = 2 * kH;     // fc width: actor_fc | critic_fc
+  static constexpr int kSplitIn = kH;   // a branch with more inputs may be two units (input halves)
+  // row strides (floats), padded so the warps' fragment reads hit 32 banks
+  static constexpr int kWBS = kH + 8;   // W_b stage      [kBK][kWBS]
+  static constexpr int kWFS = kF + 8;   // W_fc stage     [kBK][kWFS]
+  static constexpr int kFS = kH + 4;    // features       [kBM][kFS]
+  static constexpr int kPS = kF + 4;    // partial fc     [kBM][kPS]
+  static constexpr int kJB = kH / 64;   // 8-column tiles a warp owns of a branch product
+  static constexpr int kJF = kF / 64;   // and of the fc product
+  static constexpr int kSlotFloats = kXsFloats + kBK * kWBS > kBK * kWFS ? kXsFloats + kBK * kWBS
+                                                                         : kBK * kWFS;
+  static constexpr int kRingFloats = kStages * kSlotFloats;
+  static constexpr int kFsFloats = kBM * kFS;
+  static constexpr int kSmemBytes = (kRingFloats + kFsFloats) * (int)sizeof(float);
+  static constexpr int kMinBlocks = 2 * kSmemBytes + 2048 <= 228 * 1024 ? 2 : 1;  // CTAs an SM
+  // over the ring once the products are done: P_r, CTA 0's partial heads
+  // [G][kBM][kOut], and this CTA's fc outputs + residual [kBM][ceil(kF / G) + 1]
+  static constexpr int over_ring(int g) {
+    return kBM * kPS + g * kBM * kOut + kBM * ((kF + g - 1) / g + 1);
+  }
+};
+
+template <int kH>
+constexpr bool fits() {
+  using D = Dims<kH>;
+  return D::over_ring(1) <= D::kRingFloats && D::over_ring(kMaxUnits) <= D::kRingFloats &&
+         kBM * ((D::kF + kMaxUnits - 1) / kMaxUnits + 1) >= kBM * kOut &&
+         D::kSmemBytes + 1024 <= 227 * 1024;
+}
+static_assert(fits<128>() && fits<256>(),
+              "P_r, the partial heads and the fc slice fit over the ring, the logits tile over "
+              "the fc slice, and a CTA in the H100's 227 KB");
+static_assert(Dims<128>::kMinBlocks == 2, "two CTAs an SM at hidden 128");
 
 }  // namespace
 
 // Field order must match kernels/actor_critic.py:_ActorCriticArgs.
 struct ActorCriticArgs {
   const float* x;         // [N, ldx] packed observations; columns [0, branch_off[nb]) read
-  const float* w_branch;  // [branch_off[nb], 128] the branch kernels stacked by input rows
-  const float* b_branch;  // [nb, 128]
-  const float* w_fc;      // [nb * 128, 256] actor_fc | critic_fc
-  const float* b_fc;      // [256]
-  const float* w_aout;    // [128, A]
+  const float* w_branch;  // [branch_off[nb], H] the branch kernels stacked by input rows
+  const float* b_branch;  // [nb, H]
+  const float* w_fc;      // [nb * H, 2H] actor_fc | critic_fc
+  const float* b_fc;      // [2H]
+  const float* w_aout;    // [H, A]
   const float* b_aout;    // [A]
-  const float* w_cout;    // [128]
+  const float* w_cout;    // [H]
   const float* b_cout;    // [1]
   const float* noise;     // [N, A] Gumbel noise, or null for the plain argmax
   float* logits;          // [N, A]
   float* value;           // [N]
   int32_t* action;        // [N], or null in training mode
   float* log_prob;        // [N], or null in training mode
-  float* feats;           // [N, nb * 128] branch features, or null (training mode)
-  float* hidden;          // [N, 256] fc outputs before the residual, or null
+  float* feats;           // [N, nb * H] branch features, or null (training mode)
+  float* hidden;          // [N, 2H] fc outputs before the residual, or null
   int32_t n_lanes, ldx, A;
   int32_t num_branches;        // nb: 10 or 11
+  int32_t hidden_dim;          // H: 128 or 256
   int32_t branch_off[kMaxNB + 1];
   int32_t av_off;              // column of the action values (the prior's input)
   float av_prior;              // beta; 0 for no prior
@@ -160,17 +181,19 @@ struct Unit {
   int b, parts, part, off, k_lo, k_n, n0, nw, n1, stages;
 };
 
+template <int kH>
 __host__ __device__ __forceinline__ int branch_parts(const ActorCriticArgs& a, int b,
                                                      bool split) {
-  return split && a.branch_off[b + 1] - a.branch_off[b] > kSplitIn ? 2 : 1;
+  return split && a.branch_off[b + 1] - a.branch_off[b] > Dims<kH>::kSplitIn ? 2 : 1;
 }
 
+template <int kH>
 __host__ __device__ __forceinline__ Unit unit_of(const ActorCriticArgs& a, bool split,
                                                  int code) {
   Unit u;
   u.b = code >> 1;
   u.part = code & 1;
-  u.parts = branch_parts(a, u.b, split);
+  u.parts = branch_parts<kH>(a, u.b, split);
   u.off = a.branch_off[u.b];
   const int in_b = a.branch_off[u.b + 1] - u.off;
   const int k_half = ((in_b + 1) / 2 + kBK - 1) / kBK * kBK;
@@ -194,8 +217,13 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int kH>
+__global__ void __launch_bounds__(kThreads, Dims<kH>::kMinBlocks)
 actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_constant__ Plan p) {
+  using D = Dims<kH>;
+  constexpr int kF = D::kF, kWBS = D::kWBS, kWFS = D::kWFS, kFS = D::kFS, kPS = D::kPS;
+  constexpr int kJB = D::kJB, kJF = D::kJF, kSlotFloats = D::kSlotFloats;
+  constexpr int kRingFloats = D::kRingFloats;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;              // [kStages][kSlotFloats] the stages of every product
   float* Ps = smem;                // [kBM][kPS] P_r, over the ring once it is done
@@ -215,7 +243,7 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
   if (tid == 0) {
     int end = 0;
     for (int k = 0; k < n_u; ++k) {
-      sched[k] = unit_of(a, split_mode, p.unit[u_lo + k]);
+      sched[k] = unit_of<kH>(a, split_mode, p.unit[u_lo + k]);
       sched_end[k] = end += sched[k].stages;
     }
   }
@@ -256,10 +284,11 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
   };
 
   // the branch product over a unit's inputs: warp w owns feature columns
-  // 16w..16w+15 and all 32 rows; P_r += feats[:, n0 : n0 + nw] @ W_fc[128b + n0 : + nw]:
-  // warp w owns fc columns 32w..32w+31.  A stage's products go into zeroed
-  // accumulators, then into the running sums with rounded f32 adds
-  float acc2[2][4][4] = {};
+  // (H/8)w .. (H/8)w + H/8 - 1 and all 32 rows; P_r += feats[:, n0 : n0 + nw] @
+  // W_fc[Hb + n0 : + nw]: warp w owns fc columns (2H/8)w .. + 2H/8 - 1.  A stage's
+  // products go into zeroed accumulators, then into the running sums with
+  // rounded f32 adds
+  float acc2[2][kJF][4] = {};
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < total) load(c);
     cp_async_commit();
@@ -274,17 +303,17 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
     const float* slot = ring + (c % kStages) * kSlotFloats;
     if (s < u.n1) {
       const float* ws = slot + kXsFloats;
-      float acc1[2][2][4] = {};
+      float acc1[2][kJB][4] = {};
 #pragma unroll
       for (int ks = 0; ks < kBK; ks += 8) {
-        uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+        uint32_t ahi[2][4], alo[2][4], bhi[kJB][2], blo[kJB][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           load_a(slot + (16 * i + g) * kXS + ks + t, kXS, ahi[i], alo[i]);
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          load_b(ws + (ks + t) * kWBS + 16 * warp + 8 * jj + g, kWBS, bhi[jj], blo[jj]);
-        products<2, 2, 2>(acc1, ahi, alo, bhi, blo);
+        for (int jj = 0; jj < kJB; ++jj)
+          load_b(ws + (ks + t) * kWBS + 8 * kJB * warp + 8 * jj + g, kWBS, bhi[jj], blo[jj]);
+        products<2, kJB, kJB>(acc1, ahi, alo, bhi, blo);
       }
       // the unit's pre-activations so far, in Fs (each thread its own
       // entries).  At the last stage, one part: bias and LeakyReLU, feats_b.
@@ -297,8 +326,8 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int n = 16 * warp + 8 * jj + 2 * t;
+        for (int jj = 0; jj < kJB; ++jj) {
+          const int n = 8 * kJB * warp + 8 * jj + 2 * t;
           const bool bias = last && u.parts == 1;
           const float bias0 = bias ? a.b_branch[b * kH + n] : 0.f;
           const float bias1 = bias ? a.b_branch[b * kH + n + 1] : 0.f;
@@ -337,22 +366,22 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
       }
     } else {
       const int k0 = u.n0 + (s - u.n1) * kBK;
-      float part[2][4][4] = {};
+      float part[2][kJF][4] = {};
 #pragma unroll
       for (int ks = 0; ks < kBK; ks += 8) {
-        uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+        uint32_t ahi[2][4], alo[2][4], bhi[kJF][2], blo[kJF][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           load_a(Fs + (16 * i + g) * kFS + k0 + ks + t, kFS, ahi[i], alo[i]);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          load_b(slot + (ks + t) * kWFS + 32 * warp + 8 * jj + g, kWFS, bhi[jj], blo[jj]);
-        products<2, 4, 4>(part, ahi, alo, bhi, blo);
+        for (int jj = 0; jj < kJF; ++jj)
+          load_b(slot + (ks + t) * kWFS + 8 * kJF * warp + 8 * jj + g, kWFS, bhi[jj], blo[jj]);
+        products<2, kJF, kJF>(part, ahi, alo, bhi, blo);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
+        for (int jj = 0; jj < kJF; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc2[i][jj][e] += part[i][jj][e];
     }
@@ -365,10 +394,11 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+    for (int jj = 0; jj < kJF; ++jj)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(Ps + (16 * i + g + 8 * r) * kPS + 32 * warp + 8 * jj + 2 * t) =
+        *reinterpret_cast<float2*>(Ps + (16 * i + g + 8 * r) * kPS + 8 * kJF * warp + 8 * jj +
+                                   2 * t) =
             make_float2(acc2[i][jj][2 * r], acc2[i][jj][2 * r + 1]);
   cluster.sync();  // every P_r and the cond features are in place
 
@@ -464,12 +494,13 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
 
 namespace {
 
+template <int kH>
 cudaLaunchConfig_t launch_config(int ctas, int clusters, void* stream,
                                  cudaLaunchAttribute* cluster) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * ctas);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.dynamicSmemBytes = Dims<kH>::kSmemBytes;
   cfg.stream = (cudaStream_t)stream;
   cluster->id = cudaLaunchAttributeClusterDimension;
   cluster->val.clusterDim.x = ctas;
@@ -482,16 +513,19 @@ cudaLaunchConfig_t launch_config(int ctas, int clusters, void* stream,
 
 // Above 48 KB of dynamic shared memory needs the opt-in (for the current
 // device), and a cluster of more than 8 CTAs the non-portable size (max 16).
+template <int kH>
 cudaError_t set_attributes() {
-  cudaError_t e = cudaFuncSetAttribute(actor_critic_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaError_t e = cudaFuncSetAttribute(actor_critic_kernel<kH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Dims<kH>::kSmemBytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(actor_critic_kernel,
+    e = cudaFuncSetAttribute(actor_critic_kernel<kH>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
 
-// Clusters of g CTAs that device dev holds at once (asked once a device).
+// Clusters of g CTAs that device dev holds at once (asked once a device and width).
+template <int kH>
 cudaError_t resident_clusters(int dev, int g, int* n) {
   static int cache[kMaxDevices][kMaxUnits + 1];
   int* slot = dev < kMaxDevices ? &cache[dev][g] : nullptr;
@@ -500,8 +534,9 @@ cudaError_t resident_clusters(int dev, int g, int* n) {
     return cudaSuccess;
   }
   cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = launch_config(g, 1, nullptr, &cluster);
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, (const void*)actor_critic_kernel, &cfg);
+  const cudaLaunchConfig_t cfg = launch_config<kH>(g, 1, nullptr, &cluster);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, (const void*)actor_critic_kernel<kH>,
+                                                       &cfg);
   if (e == cudaSuccess && slot) *slot = *n + 1;
   return e;
 }
@@ -526,12 +561,14 @@ int place_branches(const int* stages, const int* order, int nb, int g, int* owne
 
 // The split of `tiles` row tiles of least estimated time.  The candidates:
 // one CTA a unit with the wide branches in two input halves (the shortest
-// walk, 14 stages), or g = nb .. 1 CTAs of whole branches.  A plan takes
-// waves x (the longest walk + 1.5 stages a CTA of the cluster, for its
-// barriers and fixed-order reduction), the waves counted from the clusters
-// the card holds at once; on a tie the larger cluster.  On the H100 that
-// gives split units at 512 rows (v9; 6 CTAs for v16, whose 13-CTA clusters
-// take two waves), 2 CTAs a tile at 4096 and one at 8192.
+// walk, 14 stages at H = 128), or g = nb .. 1 CTAs of whole branches.  A
+// plan takes waves x (the longest walk + 1.5 stages a CTA of the cluster,
+// for its barriers and fixed-order reduction), the waves counted from the
+// clusters the card holds at once; on a tie the larger cluster.  On the
+// H100 at H = 128 that gives split units at 512 rows (v9; 6 CTAs for v16,
+// whose 13-CTA clusters take two waves), 2 CTAs a tile at 4096 and one at
+// 8192.
+template <int kH>
 cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -539,19 +576,20 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
   const int nb = a.num_branches;
   int stages[kMaxNB], order[kMaxNB];  // whole branches' stages; branches longest first
   for (int b = 0; b < nb; ++b) {
-    stages[b] = unit_of(a, false, 2 * b).stages;
+    stages[b] = unit_of<kH>(a, false, 2 * b).stages;
     int k = b;  // insertion in order, after the equals (a stable sort)
     for (; k > 0 && stages[order[k - 1]] < stages[b]; --k) order[k] = order[k - 1];
     order[k] = b;
   }
   int units = 0, unit_walk = 0;
   for (int b = 0; b < nb; ++b)
-    for (int part = 0; part < branch_parts(a, b, true); ++part) {
+    for (int part = 0; part < branch_parts<kH>(a, b, true); ++part) {
       ++units;
-      const int st = unit_of(a, true, 2 * b + part).stages;
+      const int st = unit_of<kH>(a, true, 2 * b + part).stages;
       unit_walk = st > unit_walk ? st : unit_walk;
     }
-  const bool can_split = units > nb && units <= kMaxUnits && branch_parts(a, kCond, true) == 1;
+  const bool can_split =
+      units > nb && units <= kMaxUnits && branch_parts<kH>(a, kCond, true) == 1;
   int owner[kMaxNB];
   long best_cost = -1;
   int best_g = 1;
@@ -560,7 +598,7 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
     const bool split = cand == 0;
     const int g = split ? units : nb + 1 - cand;
     int fit = 0;
-    e = resident_clusters(dev, g, &fit);
+    e = resident_clusters<kH>(dev, g, &fit);
     if (e != cudaSuccess) return e;
     if (fit <= 0) continue;
     const long waves = (tiles + fit - 1) / fit;
@@ -577,7 +615,7 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
   int n = 0;
   if (best_split) {
     for (int b = 0; b < nb; ++b)
-      for (int part = 0; part < branch_parts(a, b, true); ++part) {
+      for (int part = 0; part < branch_parts<kH>(a, b, true); ++part) {
         if (b == kCond) p.cond_cta = n;
         p.first[n] = n;
         p.unit[n++] = 2 * b + part;
@@ -599,31 +637,47 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
   return cudaSuccess;
 }
 
+template <int kH>
+cudaError_t plan_of(const ActorCriticArgs& a, Plan& p) {
+  const cudaError_t e = set_attributes<kH>();
+  return e == cudaSuccess ? make_plan<kH>(a, (a.n_lanes + kBM - 1) / kBM, p) : e;
+}
+
+template <int kH>
+cudaError_t launch(const ActorCriticArgs& a, void* stream) {
+  const int tiles = (a.n_lanes + kBM - 1) / kBM;
+  if (tiles <= 0) return set_attributes<kH>();
+  Plan p = {};
+  cudaError_t e = plan_of<kH>(a, p);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = launch_config<kH>(p.ctas, tiles, stream, &cluster);
+  e = cudaLaunchKernelEx(&cfg, actor_critic_kernel<kH>, a, p);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace
+
+// The shared memory a CTA takes at hidden width `hidden` (0 for a width
+// without an instantiation).
+extern "C" int actor_critic_smem_bytes(int hidden) {
+  return hidden == 128 ? Dims<128>::kSmemBytes : hidden == 256 ? Dims<256>::kSmemBytes : 0;
+}
 
 // The cluster the launch of `args` takes: CTAs a tile, and 1 if the wide
 // branches are split.
 extern "C" int actor_critic_plan(const ActorCriticArgs* args, int* ctas, int* split) {
-  cudaError_t e = set_attributes();
   Plan p = {};
-  if (e == cudaSuccess) e = make_plan(*args, (args->n_lanes + kBM - 1) / kBM, p);
+  const cudaError_t e = args->hidden_dim == 128   ? plan_of<128>(*args, p)
+                        : args->hidden_dim == 256 ? plan_of<256>(*args, p)
+                                                  : cudaErrorInvalidValue;
   *ctas = p.ctas;
   *split = p.split;
   return (int)e;
 }
 
 extern "C" int actor_critic_launch(const ActorCriticArgs* args, void* stream) {
-  cudaError_t e = set_attributes();
-  if (e != cudaSuccess) return (int)e;
-  const int tiles = (args->n_lanes + kBM - 1) / kBM;
-  if (tiles > 0) {
-    Plan p = {};
-    e = make_plan(*args, tiles, p);
-    if (e != cudaSuccess) return (int)e;
-    cudaLaunchAttribute cluster;
-    const cudaLaunchConfig_t cfg = launch_config(p.ctas, tiles, stream, &cluster);
-    e = cudaLaunchKernelEx(&cfg, actor_critic_kernel, *args, p);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+  if (args->hidden_dim == 128) return (int)launch<128>(*args, stream);
+  if (args->hidden_dim == 256) return (int)launch<256>(*args, stream);
+  return (int)cudaErrorInvalidValue;
 }

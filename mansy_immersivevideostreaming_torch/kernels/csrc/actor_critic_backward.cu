@@ -5,33 +5,34 @@
 // (:105-186) in the PPO, BC and DAgger updates (rl/ppo.py:163,
 // rl/bc.py:39, rl/dagger.py:133).  The plain PyTorch version is
 // kernels/actor_critic.py:actor_critic_backward_plain.  It reads the
-// activations K3's training mode saved (the branch features F [B, nb x 128]
-// and the fc outputs Hf [B, 256], both after LeakyReLU) and takes each
+// activations K3's training mode saved (the branch features F [B, nb x H]
+// and the fc outputs Hf [B, 2H], both after LeakyReLU; H is the hidden
+// width, 128 or 256, a template parameter of launch A) and takes each
 // LeakyReLU's derivative from the sign of its output (1 where it is >= 0,
 // as jax.nn.leaky_relu's where(x >= 0, ...) gives it, else 0.01).
 //
 // With y = Hf + [cond, cond] (the heads' inputs; cond is branch 9):
 //   dW_aout = y_a^T dlogits, dW_cout = y_c^T dvalue, their biases the sums;
 //   dPre_fc = [dlogits W_aout^T, dvalue W_cout^T] * leaky'(Hf);
-//   dW_fc = F^T dPre_fc [nb x 128, 256], db_fc its column sums;
+//   dW_fc = F^T dPre_fc [nb x H, 2H], db_fc its column sums;
 //   dPre_b = (dPre_fc W_fc^T + the residual's dy_a + dy_c on branch 9's
 //   columns) * leaky'(F);
-//   dW_branch[off_b : off_b+1] = x[:, off_b : off_b+1]^T dPre_b[:, 128b : 128b+128]
+//   dW_branch[off_b : off_b+1] = x[:, off_b : off_b+1]^T dPre_b[:, Hb : Hb+H]
 //   (K3's compact block-diagonal layout), db_branch the column sums.
 // The logit prior has no parameters and the action values are data, so it
 // adds nothing here.
 //
 // Bound: operations.  Nearly all of the work is two dense products of
-// 2 B (nb 128) 256 operations each, dPre_b (depth 256) and dW_fc (depth B),
-// plus the branch weights (2 B 748 128); 6.8 GFLOP at B = 4096 with 11
-// branches.  Every product runs on the tensor cores in 3xTF32 (the hi/lo
+// 2 B (nb H) 2H operations each, dPre_b (depth 2H) and dW_fc (depth B),
+// plus the branch weights (2 B 748 H); 6.8 GFLOP at B = 4096 with 11
+// branches and H = 128, four times that at H = 256.  Every product runs on the tensor cores in 3xTF32 (the hi/lo
 // split and mma.sync.m16n8k8 of common.cuh, as K3): three TF32 products
 // (495 TFLOP/s) keep f32 accuracy, where f32 outside the tensor cores has
 // 67 TFLOP/s.  The tensor cores' f32 accumulation does not round to
 // nearest, so each stage's products (16 or 32 deep) go into zeroed
 // accumulators, which are added to the running sums with rounded f32 adds.
 // Two launches:
-//   A. dpre_kernel, one CTA a 32-row tile and a run of its 128-column
+//   A. dpre_kernel, one CTA a 32-row tile and a run of its H-column
 //      blocks (a branch each; the wrapper splits the blocks into `groups`
 //      so that the CTAs fill the card): the head while the first W_fc
 //      stages land (dPre_fc for its rows from W_aout^T and the dlogits rows
@@ -39,12 +40,15 @@
 //      stage and warp), then dPre_b block by block, W_fc read transposed
 //      from [n][k] stages; the residual's gradient (recomputed as the head
 //      computes it) and leaky' in the epilogue.  The CTAs of group 0 also
-//      write y and dPre_fc.
+//      write y and dPre_fc.  At H = 256 its shared memory (dPre_fc's
+//      hi and lo [32][516] each, the head, three W_fc stages [256][20]) is
+//      212 KB, one CTA an SM.
 //   B. grad_kernel, every product whose depth is the batch (dW_fc, the
 //      branch weights, the two head weights) as 64 x 128 output tiles; the
 //      left operand (F, x, y) is read transposed from [k][m] stages.  A ones
 //      row below each product's last row of A gives its bias gradient, the
-//      column sums, in the same products.  The depth is cut into `slices`
+//      column sums, in the same products.  Its tiles do not depend on H;
+//      at H = 256 there are more of them.  The depth is cut into `slices`
 //      CTAs of one thread-block cluster; after a cluster barrier each CTA
 //      sums a share of the tile's rows over the slices' partial tiles in
 //      rank order, from the cluster's shared memory.
@@ -63,22 +67,32 @@ using namespace mansy::tc;
 
 namespace {
 
-constexpr int kH = 128;        // hidden width
-constexpr int kF = 2 * kH;     // fc width: actor_fc | critic_fc
 constexpr int kMaxNB = 11;     // branches: 10, or 11 with action values
 constexpr int kCond = 9;       // the cond branch
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBK = 32;        // k rows a pipeline stage
-// launch A: 32-row tiles, one 128-column block at a time
+// launch A: 32-row tiles, one H-column block at a time
 constexpr int kRowsA = 32;
 constexpr int kBKA = 16;       // k rows a launch-A stage
 constexpr int kStagesA = 3;    // two stages in flight while one is multiplied
-constexpr int kKStages = kF / kBKA;  // stages of one block
 constexpr int kMaxA = 16;      // actions the head stages (A <= 15)
-constexpr int kPS = kF + 4;    // dPre_fc, TF32 hi and lo  [kRowsA][kPS] each
 constexpr int kWS = kBKA + 4;  // W_fc stage               [kH n][kWS]
-constexpr int kHeadFloats = kMaxA * kH + kRowsA * kMaxA;  // W_aout^T [16][128], dlogits [32][16]
-constexpr int kSmemA = (2 * kRowsA * kPS + kHeadFloats + kStagesA * kH * kWS) * (int)sizeof(float);
+
+// Launch A's layout at hidden width kH (128 or 256).
+template <int kH>
+struct DimsA {
+  static constexpr int kF = 2 * kH;          // fc width: actor_fc | critic_fc
+  static constexpr int kKStages = kF / kBKA; // stages of one block
+  static constexpr int kPS = kF + 4;         // dPre_fc, TF32 hi and lo  [kRowsA][kPS] each
+  static constexpr int kJ = kH / 64;         // 8-column tiles a warp owns of a block
+  // W_aout^T [16][H] and the dlogits rows [32][16]
+  static constexpr int kHeadFloats = kMaxA * kH + kRowsA * kMaxA;
+  static constexpr int kSmem =
+      (2 * kRowsA * kPS + kHeadFloats + kStagesA * kH * kWS) * (int)sizeof(float);
+  static constexpr int kMinBlocks = 2 * kSmem + 2048 <= 228 * 1024 ? 2 : 1;  // CTAs an SM
+};
+static_assert(DimsA<128>::kMinBlocks == 2, "two CTAs an SM at hidden 128");
+static_assert(DimsA<256>::kSmem + 1024 <= 227 * 1024, "the H100's shared memory a block");
 // launch B: 64 x 128 output tiles
 constexpr int kBM = 64, kBN = 128;
 constexpr int kStagesB = 4;    // three stages in flight while one is multiplied
@@ -90,33 +104,33 @@ constexpr int kSmemB = kStagesB * kSlotB * (int)sizeof(float);
 constexpr int kMaxSlices = 8;  // the portable cluster size
 constexpr int kMaxProducts = kMaxNB + 3;  // dW_fc, the branches, the two heads
 static_assert(kBM * kOS <= kStagesB * kSlotB, "the partial tile fits over the ring");
-static_assert(2 * kSmemA + 2048 <= 228 * 1024 && 2 * kSmemB + 2048 <= 228 * 1024,
-              "two CTAs an SM");
+static_assert(2 * kSmemB + 2048 <= 228 * 1024, "two CTAs an SM");
 
 }  // namespace
 
 // Field order must match kernels/actor_critic.py:_ActorCriticBackwardArgs.
 struct ActorCriticBackwardArgs {
   const float* x;        // [B, ldx] packed observations
-  const float* feats;    // [B, nb * 128] branch features (K3 training mode)
-  const float* hidden;   // [B, 256] fc outputs before the residual
-  const float* w_fc;     // [nb * 128, 256]
-  const float* w_aout;   // [128, A]
-  const float* w_cout;   // [128]
+  const float* feats;    // [B, nb * H] branch features (K3 training mode)
+  const float* hidden;   // [B, 2H] fc outputs before the residual
+  const float* w_fc;     // [nb * H, 2H]
+  const float* w_aout;   // [H, A]
+  const float* w_cout;   // [H]
   const float* dlogits;  // [B, A]
   const float* dvalue;   // [B]
-  float* y;              // scratch [B, 256]: the heads' inputs
-  float* dpre_fc;        // scratch [B, 256]
-  float* dpre_b;         // scratch [B, nb * 128]
-  float* dw_branch;      // [branch_off[nb], 128]
-  float* db_branch;      // [nb, 128]
-  float* dw_fc;          // [nb * 128, 256]
-  float* db_fc;          // [256]
-  float* dw_aout;        // [128, A]
+  float* y;              // scratch [B, 2H]: the heads' inputs
+  float* dpre_fc;        // scratch [B, 2H]
+  float* dpre_b;         // scratch [B, nb * H]
+  float* dw_branch;      // [branch_off[nb], H]
+  float* db_branch;      // [nb, H]
+  float* dw_fc;          // [nb * H, 2H]
+  float* db_fc;          // [2H]
+  float* dw_aout;        // [H, A]
   float* db_aout;        // [A]
-  float* dw_cout;        // [128]
+  float* dw_cout;        // [H]
   float* db_cout;        // [1]
   int32_t B, ldx, A, num_branches;
+  int32_t hidden_dim;    // H: 128 or 256
   int32_t groups;        // launch A: CTAs a row tile, each a run of its column blocks
   int32_t slices;        // launch B: depth slices of an output tile (its cluster's CTAs)
   int32_t branch_off[kMaxNB + 1];
@@ -145,7 +159,8 @@ struct Products {
 __device__ __forceinline__ float leaky_grad(float out, float g) { return out >= 0.f ? g : 0.01f * g; }
 
 // dy_a[m, n] = sum_o dlogits[m, o] W_aout[n, o], o in order, from the staged
-// dlogits rows ds [32][16] and W_aout^T ws [16][128]
+// dlogits rows ds [32][16] and W_aout^T ws [16][H]
+template <int kH>
 __device__ __forceinline__ float head_dya(const float* ds, const float* ws, int m, int n, int A) {
   float dya = 0.f;
 #pragma unroll
@@ -166,8 +181,11 @@ __device__ __forceinline__ void load_a_split(const uint32_t* hp, const uint32_t*
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int kH>
+__global__ void __launch_bounds__(kThreads, DimsA<kH>::kMinBlocks)
 dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
+  constexpr int kF = DimsA<kH>::kF, kKStages = DimsA<kH>::kKStages, kPS = DimsA<kH>::kPS;
+  constexpr int kJ = DimsA<kH>::kJ;
   extern __shared__ __align__(16) float smem[];
   uint32_t* Ph = reinterpret_cast<uint32_t*>(smem);  // [kRowsA][kPS] dPre_fc, TF32 hi
   uint32_t* Pl = Ph + kRowsA * kPS;                  // [kRowsA][kPS] and lo
@@ -182,7 +200,7 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int total = nblk * kKStages;
 
-  // stage c: W_fc rows 128 (blk0 + c / 16) + [0, 128), columns 16 (c % 16) + [0, 16)
+  // stage c: W_fc rows H (blk0 + c / kKStages) + [0, H), columns 16 (c % kKStages) + [0, 16)
   auto load = [&](int c) {
     float* slot = ring + (c % kStagesA) * (kH * kWS);
     const float* src = a.w_fc + (size_t)((blk0 + c / kKStages) * kH) * kF + (c % kKStages) * kBKA;
@@ -212,7 +230,7 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
     const int m = e / kH, n = e % kH, row = row0 + m;
     float pa = 0.f, pc = 0.f;
     if (row < a.B) {
-      const float dya = head_dya(Dl, Ws, m, n, A);
+      const float dya = head_dya<kH>(Dl, Ws, m, n, A);
       const float dyc = a.dvalue[row] * a.w_cout[n];
       const float ha = a.hidden[(size_t)row * kF + n], hc = a.hidden[(size_t)row * kF + kH + n];
       pa = leaky_grad(ha, dya);
@@ -230,31 +248,31 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
   }
 
   // dPre_b[:, block] = (dPre_fc W_fc[block]^T + dcond on the cond block) *
-  // leaky'(F): warp w owns the block's columns 16w .. 16w + 15, all 32 rows
-  float acc[2][2][4] = {};
+  // leaky'(F): warp w owns the block's columns (H/8)w .. (H/8)w + H/8 - 1, all 32 rows
+  float acc[2][kJ][4] = {};
   for (int c = 0; c < total; ++c) {
     cp_async_wait<kStagesA - 2>();  // stage c has landed
     __syncthreads();                // for every thread, and every thread is done with c - 1
     const float* slot = ring + (c % kStagesA) * (kH * kWS);
     const int s = c % kKStages;
-    float part[2][2][4] = {};
+    float part[2][kJ][4] = {};
 #pragma unroll
     for (int ks = 0; ks < kBKA; ks += 8) {
-      uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+      uint32_t ahi[2][4], alo[2][4], bhi[kJ][2], blo[kJ][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int at = (16 * i + g) * kPS + s * kBKA + ks + t;
         load_a_split(Ph + at, Pl + at, kPS, ahi[i], alo[i]);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        load_b_t(slot + (16 * warp + 8 * j + g) * kWS + ks + t, bhi[j], blo[j]);
-      products<2, 2, 2>(part, ahi, alo, bhi, blo);
+      for (int j = 0; j < kJ; ++j)
+        load_b_t(slot + (8 * kJ * warp + 8 * j + g) * kWS + ks + t, bhi[j], blo[j]);
+      products<2, kJ, kJ>(part, ahi, alo, bhi, blo);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
     if (c + kStagesA - 1 < total) load(c + kStagesA - 1);  // into the slot of stage c - 1
@@ -264,8 +282,8 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = 16 * warp + 8 * j + 2 * t;
+      for (int j = 0; j < kJ; ++j) {
+        const int n = 8 * kJ * warp + 8 * j + 2 * t;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int m = 16 * i + g + 8 * r, row = row0 + m;
@@ -274,8 +292,8 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
           if (row >= a.B) continue;
           if (b == kCond) {  // the residual's gradient dcond = dy_a + dy_c, as in the head
             const float dv = a.dvalue[row];
-            v0 += head_dya(Dl, Ws, m, n, A) + dv * a.w_cout[n];
-            v1 += head_dya(Dl, Ws, m, n + 1, A) + dv * a.w_cout[n + 1];
+            v0 += head_dya<kH>(Dl, Ws, m, n, A) + dv * a.w_cout[n];
+            v1 += head_dya<kH>(Dl, Ws, m, n + 1, A) + dv * a.w_cout[n + 1];
           }
           const size_t at = (size_t)row * F + b * kH + n;
           const float2 f = *reinterpret_cast<const float2*>(a.feats + at);
@@ -425,35 +443,55 @@ int add_product(Products& ps, int tiles, const float* a, int lda, int M, const f
 
 }  // namespace
 
+namespace {
+
+// Launch A at hidden width kH.
+template <int kH>
+cudaError_t launch_dpre(const ActorCriticBackwardArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(dpre_kernel<kH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       DimsA<kH>::kSmem);
+  if (e != cudaSuccess) return e;
+  dpre_kernel<kH><<<(a.B + kRowsA - 1) / kRowsA * a.groups, kThreads, DimsA<kH>::kSmem, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch A's shared memory a CTA at hidden width `hidden` (0 for a width
+// without an instantiation), and launch B's.
+extern "C" int actor_critic_backward_smem_bytes(int hidden, int* launch_b) {
+  *launch_b = kSmemB;
+  return hidden == 128 ? DimsA<128>::kSmem : hidden == 256 ? DimsA<256>::kSmem : 0;
+}
+
 extern "C" int actor_critic_backward_launch(const ActorCriticBackwardArgs* args, void* stream) {
   const ActorCriticBackwardArgs& a = *args;
   cudaStream_t s = (cudaStream_t)stream;
-  const int B = a.B, A = a.A, nb = a.num_branches, F = nb * kH, S = a.slices;
+  const int B = a.B, A = a.A, nb = a.num_branches, S = a.slices;
+  const int H = a.hidden_dim, F = nb * H, F2 = 2 * H;
   if (nb > kMaxNB || nb <= kCond || A > kMaxA || a.groups < 1 || a.groups > nb || S < 1 ||
-      S > kMaxSlices || (S & (S - 1)) != 0)
+      S > kMaxSlices || (S & (S - 1)) != 0 || (H != 128 && H != 256))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(dpre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       kSmemA);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemB);
+  cudaError_t e = cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemB);
+  if (e != cudaSuccess) return (int)e;
+  e = H == 128 ? launch_dpre<128>(a, s) : launch_dpre<256>(a, s);
   if (e != cudaSuccess) return (int)e;
 
-  dpre_kernel<<<(B + kRowsA - 1) / kRowsA * a.groups, kThreads, kSmemA, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
   // depth B: dW_fc = F^T dPre_fc, dW_branch[off_b : off_b+1] =
-  // x[:, off_b : off_b+1]^T dPre_b[:, 128b : 128b+128], dW_aout = y_a^T dlogits,
+  // x[:, off_b : off_b+1]^T dPre_b[:, Hb : Hb+H], dW_aout = y_a^T dlogits,
   // dW_cout = y_c^T dvalue, each with its bias as the ones row
   Products ps{};
-  int tiles = add_product(ps, 0, a.feats, F, F, a.dpre_fc, kF, kF, a.dw_fc, kF, a.db_fc);
+  int tiles = add_product(ps, 0, a.feats, F, F, a.dpre_fc, F2, F2, a.dw_fc, F2, a.db_fc);
   for (int b = 0; b < nb; ++b) {
     const int off = a.branch_off[b];
-    tiles = add_product(ps, tiles, a.x + off, a.ldx, a.branch_off[b + 1] - off, a.dpre_b + b * kH,
-                        F, kH, a.dw_branch + (size_t)off * kH, kH, a.db_branch + b * kH);
+    tiles = add_product(ps, tiles, a.x + off, a.ldx, a.branch_off[b + 1] - off, a.dpre_b + b * H,
+                        F, H, a.dw_branch + (size_t)off * H, H, a.db_branch + b * H);
   }
-  tiles = add_product(ps, tiles, a.y, kF, kH, a.dlogits, A, A, a.dw_aout, A, a.db_aout);
-  tiles = add_product(ps, tiles, a.y + kH, kF, kH, a.dvalue, 1, 1, a.dw_cout, 1, a.db_cout);
+  tiles = add_product(ps, tiles, a.y, F2, H, a.dlogits, A, A, a.dw_aout, A, a.db_aout);
+  tiles = add_product(ps, tiles, a.y + H, F2, H, a.dvalue, 1, 1, a.dw_cout, 1, a.db_cout);
   ps.B = B;
   ps.slices = S;
 

@@ -1,5 +1,6 @@
 // K8's backward: the gradients of the softmax-attention core with respect to
-// q, k and v, in f32, from the training mode's row statistics.
+// q, k and v, in f32, from the training mode's row statistics, at any number
+// of query rows and keys.
 //
 // Replaces the XLA backward that jax.value_and_grad derives for
 // models/transformer.py:MHA.attend (:61-75) under models/vp_train.py
@@ -15,24 +16,54 @@
 //   D   = rowsum(dO * O)
 //   dS  = P * (dP' * M / kp - D)
 //   dQ  = (dS / sqrt(Dh)) K,   dK = (dS / sqrt(Dh))^T Q.
-// P is recomputed from q, k and the forward's row max and exp sum with the
-// forward's operations in the forward's order (the same lane layout, fmaf
-// chain and warp sum a score, expf(s - max), a division by the sum), so it
-// is the forward's P bit for bit.  Keys past a row's prefix
-// (min(Lk, kv_len0 + r)) have P = 0 and get exactly 0 in dK and dV.
+// Keys past a row's prefix (min(Lk, kv_len0 + r)) have P = 0; keys no row
+// sees get exactly 0 in dK and dV.
+//
+// P, bit for bit: P is recomputed from q, k and the forward's row max and
+// exp sum, not stored by the forward (which would cost Lq Lk 4 bytes a
+// (b, head) of writes and reads, and a change to the serving kernel's
+// source).  The forward (csrc/attention.cu) takes a score as a warp sum:
+// lane l's fmaf chain over dims l, l + 32, ..., then the xor butterfly
+// (offsets 16, 8, 4, 2, 1).  Here a warp takes the scores of M keys at once
+// (reduce_scatter): each lane forms the same per-lane chains for all M, and
+// a recursive halving over the same offsets leaves lane s with score s.
+// Each value it adds is the butterfly's sum over the same lanes, so the
+// score, expf(s - max) and the division by the sum are the forward's bits.
+// One shuffle a score instead of five.
 //
 // Layouts are the JAX package's: q, o, dO, dQ [B, Lq, H, Dh]; k, v, dK, dV
 // [B, Lk, H, Dh]; the statistics [B, H, Lq]; the mask [B, H, Lq, Lk].
 //
 // Bound: bytes.  At run_models' training shapes (B 512, 8 heads of 64, at
-// most 16 rows a side) a (b, head) reads a few KB and does about 8 Dh flops
-// a (row, key).  Design: one CTA of four warps a (b, head).  The head's q,
-// dO, k and v rows go to shared memory (<= 16 x 64 f32 each at those
-// shapes).  Pass 1: a warp a query row computes D, then key by key P, dP',
-// dS (kept in shared memory with P') and the dQ row in registers (lane l
-// holds dims l, l + 32, ...).  Pass 2: a warp a key sums its dK and dV rows
-// over the query rows in a fixed order.  No atomics: two launches give the
-// same bits.
+// most 15 rows a side) the k and v rows read and the dk and dv rows written
+// are nearly all of the traffic, at about 10 Dh flops a (row, key).  Two
+// designs, each picked by the wrapper's plan (kernels/attention.py:
+// attention_backward_plan); P (kPer) is the dims a lane holds, Dh <= 32 P:
+//   row kernel (Lq = 1, 60 of a default training step's 62 launches): a warp
+//     a (b, head), eight of them a CTA (a b's 8 heads: its key rows are 2 KB
+//     apart from the next b's, a head's 256 B in a row).  dK_j = dS_j q and
+//     dV_j = P'_j dO need no second pass.  The warp loads M keys' k and v
+//     rows from device memory straight into registers (no shared-memory
+//     copy: each is read once), all of them in flight at once, takes their
+//     scores and dP' by reduce_scatter, and stores dK_j and dV_j; k stays in
+//     registers for dQ, summed over the keys in order.
+//   tile kernel (Lq > 1): a CTA of W warps a (b, head) (8, or 4 when a row
+//     tile has at most 128 scores).  It walks the key tiles of M keys, and for
+//     each the row tiles of up to 32 rows that see it; cp.async stages a
+//     tile's k and v rows and a row tile's q, dO and o rows, row max, exp
+//     sum and keep bytes in shared memory, all in flight at once.  A warp
+//     takes a row's M scores and M dP' in one reduce_scatter of 2M items,
+//     writes P' and dS to shared memory and continues the row's dQ chain
+//     over the tile's keys (kept in dq itself between key tiles: one fmaf
+//     chain over the keys in order); then each thread sums its (key, 4
+//     dims) of dK and dV over the tile's rows in row order, in registers
+//     across the row tiles.  Shared memory is bounded by the tiles (at most
+//     115 KB, at Dh 256), not by Lq x Lk.  On the H100 it is bound by the
+//     issue of the score phase (about 450 warp instructions a row of a
+//     16-key tile, most of them the per-lane chains, the reduce-scatter and
+//     the dQ chain), not by the bytes.
+// No atomics: every sum has a fixed order, and two launches give the same
+// bits.
 
 #include <cmath>
 #include <cstdint>
@@ -40,10 +71,19 @@
 
 #include "common.cuh"
 
+using mansy::kFull;
 using mansy::warp_sum;
+using mansy::tc::cp_async16;
+using mansy::tc::cp_async4;
+using mansy::tc::cp_async_commit;
+using mansy::tc::cp_async_wait;
 
-constexpr int kWarps = 4;
-constexpr int kMaxPerLane = 8;   // Dh <= 256
+namespace {
+
+constexpr int kRowWarps = 8;    // row kernel: warps (b, heads) a CTA
+constexpr int kMaxRows = 32;    // tile kernel: rows a row tile
+
+}  // namespace
 
 // Field order must match kernels/attention.py:_AttentionBackwardArgs.
 struct AttentionBackwardArgs {
@@ -61,142 +101,405 @@ struct AttentionBackwardArgs {
   int32_t B, Lq, Lk, H, Dh, kv_len0;
   float scale;           // sqrt(Dh)
   float keep_prob;       // 1 - dropout rate
+  // the plan (kernels/attention.py:attention_backward_plan)
+  int32_t per_lane;      // P: dims a lane holds (1, 2, 4 or 8)
+  int32_t keys;          // M: keys a tile (4, 8, 16 or 32; M P <= 32)
+  int32_t rows;          // rows a row tile (tile kernel; 1 for the row kernel)
+  int32_t warps;         // warps a CTA (tile kernel: 4 or 8; the row kernel: 8)
 };
 
-__host__ __device__ inline size_t backward_smem_bytes(int Lq, int Lk, int Dh) {
-  return sizeof(float) * ((size_t)2 * Lq * Dh + (size_t)2 * Lk * Dh + (size_t)2 * Lq * Lk);
+namespace {
+
+// Lane l's share of a dot product as the forward chains it: fmaf over dims
+// l, l + 32, ... below Dh, from 0.
+template <int P>
+__device__ __forceinline__ float chain(const float (&a)[P], const float (&b)[P], int lane,
+                                       int Dh) {
+  float part = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+    if (lane + 32 * i < Dh) part = fmaf(a[i], b[i], part);
+  return part;
 }
 
-__global__ void attention_backward_kernel(const AttentionBackwardArgs a) {
-  extern __shared__ float smem[];
-  const int Lq = a.Lq, Lk = a.Lk, Dh = a.Dh, H = a.H;
-  const int h = blockIdx.x % H;
-  const long long b = blockIdx.x / H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sq = smem;              // [Lq, Dh]
-  float* sdo = sq + Lq * Dh;     // [Lq, Dh]
-  float* sk = sdo + Lq * Dh;     // [Lk, Dh]
-  float* sv = sk + Lk * Dh;      // [Lk, Dh]
-  float* sp = sv + Lk * Dh;      // [Lq, Lk]: P'
-  float* sds = sp + Lq * Lk;     // [Lq, Lk]: dS / scale
-
-  const size_t qrow0 = ((size_t)b * Lq * H + h) * Dh;   // row r at qrow0 + r * H * Dh
-  const size_t krow0 = ((size_t)b * Lk * H + h) * Dh;
-  const size_t stride = (size_t)H * Dh;
-  for (int i = threadIdx.x; i < Lq * Dh; i += blockDim.x) {
-    const size_t g = qrow0 + (i / Dh) * stride + i % Dh;
-    sq[i] = a.q[g];
-    sdo[i] = a.dout[g];
-  }
-  for (int i = threadIdx.x; i < Lk * Dh; i += blockDim.x) {
-    const size_t g = krow0 + (i / Dh) * stride + i % Dh;
-    sk[i] = a.k[g];
-    sv[i] = a.v[g];
-  }
-  __syncthreads();
-
-  // pass 1: a warp a query row
-  for (int r = warp; r < Lq; r += kWarps) {
-    const int n = min(Lk, a.kv_len0 + r);
-    const long long stat = (b * H + h) * Lq + r;
-    const float mx = a.row_max[stat], sum = a.row_sum[stat];
-    const uint8_t* keep = a.keep != nullptr ? a.keep + stat * Lk : nullptr;
-    const float* orow = a.o + qrow0 + r * stride;
-    float qv[kMaxPerLane], dov[kMaxPerLane], acc[kMaxPerLane];
-    float part = 0.f;
+// The warp sums of x[0 .. M-1] (each lane's partials of M dot products), in
+// the order of mansy::warp_sum's butterfly: at offsets 16 .. M every lane
+// adds its partner's values of all M; at offsets M/2 .. 1 each lane keeps
+// the half whose index bit matches its own and adds its partner's values of
+// that half.  Lane l returns the sum of product l & (M - 1).
+template <int M>
+__device__ __forceinline__ float reduce_scatter(float (&x)[M], int lane) {
+  constexpr int kLog = M == 32 ? 5 : M == 16 ? 4 : M == 8 ? 3 : 2;  // M = 2^kLog
+  static_assert(M == 1 << kLog, "M is 4, 8, 16 or 32");
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      qv[i] = d < Dh ? sq[r * Dh + d] : 0.f;
-      dov[i] = d < Dh ? sdo[r * Dh + d] : 0.f;
-      acc[i] = 0.f;
-      if (d < Dh) part = fmaf(dov[i], orow[d], part);
+  for (int k = 0; k < 5 - kLog; ++k) {  // offsets 16 .. M
+    const int o = 16 >> k;
+#pragma unroll
+    for (int s = 0; s < M; ++s) x[s] += __shfl_xor_sync(kFull, x[s], o);
+  }
+#pragma unroll
+  for (int k = 0; k < kLog; ++k) {  // offsets M/2 .. 1
+    const int o = (M / 2) >> k;
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int s = 0; s < M / 2; ++s) {
+      if (s >= o) break;
+      const float send = up ? x[s] : x[s + o];
+      const float keep = up ? x[s + o] : x[s];
+      x[s] = keep + __shfl_xor_sync(kFull, send, o);
     }
-    const float D = warp_sum(part);
-    for (int j = 0; j < n; ++j) {
-      const float* krow = sk + j * Dh;
-      const float* vrow = sv + j * Dh;
-      float qk = 0.f, dov_v = 0.f;
+  }
+  return x[0];
+}
+
+// One (row, key) of the backward from its score and dP': (P', dS / scale),
+// both 0 for a key the row does not see.
+struct Grad {
+  float pd, ds;
+};
+
+__device__ __forceinline__ Grad grad_of(const AttentionBackwardArgs& a, bool seen, float score,
+                                        float dpd, float mx, float sum, float D, bool masked,
+                                        bool kept) {
+  if (!seen) return {0.f, 0.f};
+  const float p = expf(score - mx) / sum;  // the forward's P
+  float pd = p, dp = dpd;                  // P' and dP' * M / kp
+  if (masked) {
+    pd = kept ? p / a.keep_prob : 0.f;
+    dp = kept ? dpd / a.keep_prob : 0.f;
+  }
+  return {pd, p * (dp - D) / a.scale};
+}
+
+// ---- Lq = 1: a warp a (b, head) ----
+template <int P, int M>
+__global__ void __launch_bounds__(kRowWarps * 32)
+backward_row_kernel(const AttentionBackwardArgs a) {
+  const int lane = threadIdx.x % 32;
+  const long long bh = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;  // b H + h
+  if (bh >= (long long)a.B * a.H) return;
+  const int Dh = a.Dh, Lk = a.Lk;
+  const long long b = bh / a.H;
+  const int h = (int)(bh % a.H);
+  const size_t stride = (size_t)a.H * Dh;                 // from a key row to the next
+  const size_t k0 = ((size_t)b * Lk * a.H + h) * Dh;     // key 0 of this (b, head)
+  const float* qrow = a.q + bh * Dh;                     // Lq = 1: row (b, 0, h)
+  const int n = min(Lk, a.kv_len0);
+  const float mx = a.row_max[bh], sum = a.row_sum[bh];
+  const uint8_t* keep = a.keep != nullptr ? a.keep + bh * Lk : nullptr;
+
+  float qv[P], dov[P], ov[P], acc[P];
 #pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
+  for (int i = 0; i < P; ++i) {
+    const int d = lane + 32 * i;
+    qv[i] = d < Dh ? qrow[d] : 0.f;
+    dov[i] = d < Dh ? a.dout[bh * Dh + d] : 0.f;
+    ov[i] = d < Dh ? a.o[bh * Dh + d] : 0.f;
+    acc[i] = 0.f;
+  }
+  const float D = warp_sum(chain<P>(dov, ov, lane, Dh));
+
+  for (int j0 = 0; j0 < n; j0 += M) {
+    float kr[M][P], x[M], y[M];
+#pragma unroll
+    for (int s = 0; s < M; ++s) {
+      const bool in = j0 + s < n;
+      float vr[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
         const int d = lane + 32 * i;
-        if (d < Dh) {
-          qk = fmaf(qv[i], krow[d], qk);   // the forward's chain for this score
-          dov_v = fmaf(dov[i], vrow[d], dov_v);
+        const size_t at = k0 + (size_t)(j0 + s) * stride + d;
+        kr[s][i] = in && d < Dh ? a.k[at] : 0.f;
+        vr[i] = in && d < Dh ? a.v[at] : 0.f;
+      }
+      x[s] = chain<P>(qv, kr[s], lane, Dh);
+      y[s] = chain<P>(dov, vr, lane, Dh);
+    }
+    const float score = reduce_scatter<M>(x, lane) / a.scale;
+    const float dpd = reduce_scatter<M>(y, lane);
+    const int j = j0 + (lane & (M - 1));
+    const Grad g = grad_of(a, j < n, score, dpd, mx, sum, D, keep != nullptr,
+                           keep != nullptr && j < n && keep[j] != 0);
+#pragma unroll
+    for (int s = 0; s < M; ++s) {
+      if (j0 + s < n) {  // the same for every lane
+        const float ds = __shfl_sync(kFull, g.ds, s), pd = __shfl_sync(kFull, g.pd, s);
+        const size_t at = k0 + (size_t)(j0 + s) * stride;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const int d = lane + 32 * i;
+          acc[i] = fmaf(ds, kr[s][i], acc[i]);
+          if (d < Dh) {
+            a.dk[at + d] = ds * qv[i];
+            a.dv[at + d] = pd * dov[i];
+          }
         }
       }
-      const float sc = warp_sum(qk) / a.scale;
-      const float dpd = warp_sum(dov_v);     // dP'
-      const float p = expf(sc - mx) / sum;
-      float pd = p, dp = dpd;                 // P' and dP' * M / kp
-      if (keep != nullptr) {
-        pd = keep[j] ? p / a.keep_prob : 0.f;
-        dp = keep[j] ? dpd / a.keep_prob : 0.f;
-      }
-      const float ds = p * (dp - D) / a.scale;
-      if (lane == 0) {
-        sp[r * Lk + j] = pd;
-        sds[r * Lk + j] = ds;
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < Dh) acc[i] = fmaf(ds, krow[d], acc[i]);
-      }
-    }
-    for (int j = n + lane; j < Lk; j += 32) {
-      sp[r * Lk + j] = 0.f;
-      sds[r * Lk + j] = 0.f;
-    }
-    float* dqrow = a.dq + qrow0 + r * stride;
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < Dh) dqrow[d] = acc[i];
     }
   }
-  __syncthreads();
-
-  // pass 2: a warp a key, its sums over the query rows in row order
-  for (int j = warp; j < Lk; j += kWarps) {
-    float ak[kMaxPerLane], av[kMaxPerLane];
+  for (int j = n; j < Lk; ++j) {  // keys the row does not see
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) ak[i] = av[i] = 0.f;
-    // rows before r0 do not see key j (their prefix ends at or before it)
-    const int r0 = max(0, j - a.kv_len0 + 1);
-    for (int r = r0; r < Lq; ++r) {
-      const float pd = sp[r * Lk + j], ds = sds[r * Lk + j];
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < Dh) {
-          av[i] = fmaf(pd, sdo[r * Dh + d], av[i]);
-          ak[i] = fmaf(ds, sq[r * Dh + d], ak[i]);
-        }
-      }
-    }
-    float* dkrow = a.dk + krow0 + j * stride;
-    float* dvrow = a.dv + krow0 + j * stride;
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
+    for (int i = 0; i < P; ++i) {
       const int d = lane + 32 * i;
       if (d < Dh) {
-        dkrow[d] = ak[i];
-        dvrow[d] = av[i];
+        a.dk[k0 + (size_t)j * stride + d] = 0.f;
+        a.dv[k0 + (size_t)j * stride + d] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int d = lane + 32 * i;
+    if (d < Dh) a.dq[bh * Dh + d] = acc[i];
+  }
+}
+
+// Rows [0, rows) of a [*, stride] tensor from src into dst [rows][kD] with
+// cp.async, zero past Dh and past `valid` rows: 16-byte copies when the rows
+// allow (vec), else 4-byte ones.
+template <int kD, int kThreads>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t stride, int rows,
+                                           int valid, int Dh, bool vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < rows * (kD / 4); e += kThreads) {
+      const int r = e / (kD / 4), d = 4 * (e % (kD / 4));
+      const bool in = r < valid && d < Dh;
+      cp_async16(dst + r * kD + d, in ? src + r * stride + d : src, in);
+    }
+  } else {
+    for (int e = tid; e < rows * kD; e += kThreads) {
+      const int r = e / kD, d = e % kD;
+      const bool in = r < valid && d < Dh;
+      cp_async4(dst + r * kD + d, in ? src + r * stride + d : src, in);
+    }
+  }
+}
+
+// ---- Lq > 1: a CTA a (b, head), key tiles of M keys, row tiles of a.rows rows ----
+template <int P, int M, int W>
+__global__ void __launch_bounds__(W * 32, (P <= 2 ? 4 : 2) * 8 / W)
+backward_tile_kernel(const AttentionBackwardArgs a) {
+  constexpr int kD = 32 * P;           // a staged row's floats (zeros past Dh)
+  constexpr int kThreads = W * 32;
+  constexpr int kChunks = M * kD / 4;  // (key, 4 dims) chunks of a key tile's dK and dV
+  constexpr int kPer = (kChunks + kThreads - 1) / kThreads;  // chunks a thread
+  extern __shared__ __align__(16) float smem[];
+  const int RT = a.rows;
+  float* sK = smem;              // [M][kD]
+  float* sV = sK + M * kD;       // [M][kD]
+  float* sQ = sV + M * kD;       // [RT][kD]
+  float* sdO = sQ + RT * kD;     // [RT][kD]
+  float* sO = sdO + RT * kD;     // [RT][kD]
+  float* sP = sO + RT * kD;      // [RT][M] P'
+  float* sS = sP + RT * M;       // [RT][M] dS / scale
+  float* sMax = sS + RT * M;     // [RT] the forward's row max
+  float* sSum = sMax + RT;       // [RT] and exp sum
+  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sSum + RT);  // [RT][M] the keep mask
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Dh = a.Dh, Lq = a.Lq, Lk = a.Lk, H = a.H;
+  const long long bh = blockIdx.x;  // b H + h
+  const long long b = bh / H;
+  const int h = (int)(bh % H);
+  const size_t stride = (size_t)H * Dh;
+  const size_t q0 = ((size_t)b * Lq * H + h) * Dh;  // row 0 of this (b, head)
+  const size_t k0 = ((size_t)b * Lk * H + h) * Dh;  // key 0
+  const int n_max = min(Lk, a.kv_len0 + Lq - 1);     // keys some row sees
+  // 16-byte copies: rows of a multiple of 4 floats from 16-byte aligned bases
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                          reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o) |
+                          reinterpret_cast<uintptr_t>(a.dout);
+  const bool vec = Dh % 4 == 0 && bases % 16 == 0;
+
+  for (int j0 = 0; j0 < Lk; j0 += M) {
+    const int kn = min(M, Lk - j0);
+    float dk[kPer][4] = {}, dv[kPer][4] = {};
+    if (j0 < n_max) {
+      __syncthreads();  // the previous tile is done with sK and sV
+      stage_rows<kD, kThreads>(sK, a.k + k0 + (size_t)j0 * stride, stride, M, kn, Dh, vec, tid);
+      stage_rows<kD, kThreads>(sV, a.v + k0 + (size_t)j0 * stride, stride, M, kn, Dh, vec, tid);
+      // rows before r_first see none of this tile's keys (nor any later one)
+      const int r_first = max(0, j0 - a.kv_len0 + 1);
+      for (int r0 = r_first; r0 < Lq; r0 += RT) {
+        const int rn = min(RT, Lq - r0);
+        if (r0 > r_first) __syncthreads();  // the previous row tile is done with sQ .. sKeep
+        const size_t rows = q0 + (size_t)r0 * stride;
+        stage_rows<kD, kThreads>(sQ, a.q + rows, stride, rn, rn, Dh, vec, tid);
+        stage_rows<kD, kThreads>(sdO, a.dout + rows, stride, rn, rn, Dh, vec, tid);
+        stage_rows<kD, kThreads>(sO, a.o + rows, stride, rn, rn, Dh, vec, tid);
+        for (int e = tid; e < rn; e += kThreads) {
+          cp_async4(sMax + e, a.row_max + bh * Lq + r0 + e, true);
+          cp_async4(sSum + e, a.row_sum + bh * Lq + r0 + e, true);
+        }
+        cp_async_commit();
+        if (a.keep != nullptr)  // bytes: plain loads, while the copies are in flight
+          for (int e = tid; e < rn * M; e += kThreads) {
+            const int rr = e / M, s = e % M;
+            sKeep[e] = s < kn ? a.keep[(bh * Lq + r0 + rr) * Lk + j0 + s] : 0;
+          }
+        cp_async_wait<0>();
+        __syncthreads();
+        // a warp a row: its M scores, then its M dP', P' and dS out, its dQ chain on
+        for (int rr = warp; rr < rn; rr += W) {
+          const int r = r0 + rr, n = min(Lk, a.kv_len0 + r);
+          const size_t row = q0 + (size_t)r * stride;
+          float qv[P], dov[P], ov[P], acc[P];
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            const int d = lane + 32 * i;
+            acc[i] = j0 > 0 && d < Dh ? a.dq[row + d] : 0.f;  // the chain so far
+            qv[i] = sQ[rr * kD + d];
+            dov[i] = sdO[rr * kD + d];
+            ov[i] = sO[rr * kD + d];
+          }
+          const float D = warp_sum(chain<P>(dov, ov, lane, Dh));
+          // the M scores' partials, then the M dP' partials, in one reduce_scatter
+          float x[2 * M];
+#pragma unroll
+          for (int s = 0; s < M; ++s) {
+            float kr[P], vr[P];
+#pragma unroll
+            for (int i = 0; i < P; ++i) {
+              kr[i] = sK[s * kD + lane + 32 * i];
+              vr[i] = sV[s * kD + lane + 32 * i];
+            }
+            x[s] = j0 + s < n ? chain<P>(qv, kr, lane, Dh) : 0.f;
+            x[M + s] = j0 + s < n ? chain<P>(dov, vr, lane, Dh) : 0.f;
+          }
+          const float sum2 = reduce_scatter<2 * M>(x, lane);  // lane l: item l & (2M - 1)
+          const float dpd = __shfl_sync(kFull, sum2, (lane & (M - 1)) + M);
+          const int s_own = lane & (M - 1);
+          const Grad g = grad_of(a, j0 + s_own < n, sum2 / a.scale, dpd, sMax[rr], sSum[rr], D,
+                                 a.keep != nullptr, sKeep[rr * M + s_own] != 0);
+          if (lane < M) {
+            sP[rr * M + s_own] = g.pd;
+            sS[rr * M + s_own] = g.ds;
+          }
+          __syncwarp();
+#pragma unroll
+          for (int s = 0; s < M; ++s) {
+            if (j0 + s < n) {  // the same for every lane
+              const float ds = sS[rr * M + s];
+#pragma unroll
+              for (int i = 0; i < P; ++i) acc[i] = fmaf(ds, sK[s * kD + lane + 32 * i], acc[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            const int d = lane + 32 * i;
+            if (d < Dh) a.dq[row + d] = acc[i];
+          }
+        }
+        __syncthreads();
+        // dK and dV of this thread's (key, 4 dims) chunks over the tile's rows, in order
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          const int e = tid + c * kThreads;
+          if (e < kChunks) {
+            const int s = e / (kD / 4), d4 = 4 * (e % (kD / 4));
+            for (int rr = 0; rr < rn; ++rr) {
+              const float pd = sP[rr * M + s], ds = sS[rr * M + s];
+              const float4 o4 = *reinterpret_cast<const float4*>(sdO + rr * kD + d4);
+              const float4 q4 = *reinterpret_cast<const float4*>(sQ + rr * kD + d4);
+              dv[c][0] = fmaf(pd, o4.x, dv[c][0]);
+              dv[c][1] = fmaf(pd, o4.y, dv[c][1]);
+              dv[c][2] = fmaf(pd, o4.z, dv[c][2]);
+              dv[c][3] = fmaf(pd, o4.w, dv[c][3]);
+              dk[c][0] = fmaf(ds, q4.x, dk[c][0]);
+              dk[c][1] = fmaf(ds, q4.y, dk[c][1]);
+              dk[c][2] = fmaf(ds, q4.z, dk[c][2]);
+              dk[c][3] = fmaf(ds, q4.w, dk[c][3]);
+            }
+          }
+        }
+      }
+    }
+    // this tile's dK and dV rows (0 for a tile no row sees)
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      const int e = tid + c * kThreads;
+      const int s = e / (kD / 4), d4 = 4 * (e % (kD / 4));
+      if (e < kChunks && s < kn) {
+        const size_t at = k0 + (size_t)(j0 + s) * stride;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (d4 + t < Dh) {
+            a.dk[at + d4 + t] = dk[c][t];
+            a.dv[at + d4 + t] = dv[c][t];
+          }
       }
     }
   }
 }
 
-extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, void* stream) {
-  const long long blocks = (long long)args->B * args->H;
-  const size_t smem = backward_smem_bytes(args->Lq, args->Lk, args->Dh);
-  if (blocks <= 0) return 0;
+// The tile kernel's shared memory: the k and v tiles, the q, dO and o rows of
+// a row tile, its P' and dS, its row max and sum, and its keep bytes.
+inline size_t tile_smem_bytes(int P, int M, int rows) {
+  return sizeof(float) * (2 * (size_t)M * 32 * P + 3 * (size_t)rows * 32 * P +
+                          2 * (size_t)rows * M + 2 * (size_t)rows) +
+         (size_t)rows * M;
+}
+
+template <int P, int M>
+cudaError_t launch_row(const AttentionBackwardArgs& a, cudaStream_t stream) {
+  const long long pairs = (long long)a.B * a.H;
+  backward_row_kernel<P, M><<<(unsigned)((pairs + kRowWarps - 1) / kRowWarps), kRowWarps * 32,
+                              0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int P, int M>
+cudaError_t launch_tile(const AttentionBackwardArgs& a, cudaStream_t stream) {
+  if (a.rows < 1 || a.rows > kMaxRows || (a.warps != 4 && a.warps != 8))
+    return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(P, M, a.rows);
+  auto kernel = a.warps == 4 ? backward_tile_kernel<P, M, 4> : backward_tile_kernel<P, M, 8>;
   if (smem > 48 * 1024) {  // above 48 KB needs the opt-in
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
   }
-  attention_backward_kernel<<<(unsigned)blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  kernel<<<(unsigned)((long long)a.B * a.H), a.warps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, void* stream) {
+  const AttentionBackwardArgs& a = *args;
+  if ((long long)a.B * a.H <= 0) return 0;
+  if (a.Lq < 1 || a.Lk < 1 || a.Dh < 1 || a.Dh > 32 * a.per_lane || a.kv_len0 < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int plan = a.per_lane * 100 + a.keys;  // the plan's (P, M)
+  if (a.Lq == 1) {  // M P <= 32: a warp's k rows of a tile in registers
+    switch (plan) {
+      case 104: return (int)launch_row<1, 4>(a, s);
+      case 108: return (int)launch_row<1, 8>(a, s);
+      case 116: return (int)launch_row<1, 16>(a, s);
+      case 132: return (int)launch_row<1, 32>(a, s);
+      case 204: return (int)launch_row<2, 4>(a, s);
+      case 208: return (int)launch_row<2, 8>(a, s);
+      case 216: return (int)launch_row<2, 16>(a, s);
+      case 404: return (int)launch_row<4, 4>(a, s);
+      case 408: return (int)launch_row<4, 8>(a, s);
+      case 804: return (int)launch_row<8, 4>(a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (plan) {  // M 4 to 16 keys a tile, staged in shared memory
+    case 104: return (int)launch_tile<1, 4>(a, s);
+    case 108: return (int)launch_tile<1, 8>(a, s);
+    case 116: return (int)launch_tile<1, 16>(a, s);
+    case 204: return (int)launch_tile<2, 4>(a, s);
+    case 208: return (int)launch_tile<2, 8>(a, s);
+    case 216: return (int)launch_tile<2, 16>(a, s);
+    case 404: return (int)launch_tile<4, 4>(a, s);
+    case 408: return (int)launch_tile<4, 8>(a, s);
+    case 416: return (int)launch_tile<4, 16>(a, s);
+    case 804: return (int)launch_tile<8, 4>(a, s);
+    case 808: return (int)launch_tile<8, 8>(a, s);
+    case 816: return (int)launch_tile<8, 16>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -43,6 +43,7 @@ NET_CONFIG_SUFFIX = ".netcfg.json"
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 DAGGER_V9_NPZ = ASSETS / "dagger_v9_params.npz"
 DAGGER_V16_NPZ = ASSETS / "dagger_v16_params.npz"
+DAGGER_V18_NPZ = ASSETS / "dagger_v18_params.npz"
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

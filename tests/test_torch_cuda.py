@@ -655,16 +655,18 @@ def test_actor_critic_train_and_backward_kernels_match_plain_on_card(cuda_device
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 17, 300, 512, 513, 4096, 4097])
-@pytest.mark.parametrize("v16", [False, True])
+@pytest.mark.parametrize("v16", [False, True, "v18"])
 def test_actor_critic_backward_kernel_at_every_batch_on_card(cuda_device, v16, B):
     """K10 against its plain version at batches around its 32-row and 32-deep
-    tiles and at the paths' 512 and 4096 rows (each launch plan); two
-    launches give the same bits."""
-    from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V9_NPZ
-    w = load_npz_policy(DAGGER_V16_NPZ if v16 else DAGGER_V9_NPZ,
-                        device=cuda_device).packed_weights()
+    tiles and at the paths' 512 and 4096 rows (each launch plan), with the
+    v9, v16 and v18 (hidden 256) weights; two launches give the same bits."""
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, DAGGER_V18_NPZ,
+    )
+    path = DAGGER_V18_NPZ if v16 == "v18" else DAGGER_V16_NPZ if v16 else DAGGER_V9_NPZ
+    w = load_npz_policy(path, device=cuda_device).packed_weights()
     g = torch.Generator(device=cuda_device).manual_seed(B)
-    x = torch.rand(B, 795 if v16 else 779, device=cuda_device, generator=g)
+    x = torch.rand(B, 795 if v16 is True else 779, device=cuda_device, generator=g)
     _, _, feats, hidden = K3.actor_critic_train_forward_plain(w, x)
     dlogits = torch.randn(B, 15, device=cuda_device, generator=g) / B
     dvalue = torch.randn(B, device=cuda_device, generator=g) / B
@@ -848,25 +850,127 @@ def test_attention_training_kernels_match_plain_on_card(cuda_device, shape, drop
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", [(1, 1, None, 4), (3, 7, 2, 33), (64, 64, 1, 64),
-                                              (20, 40, None, 256), (2, 64, 10, 100)])
+                                              (20, 40, None, 256), (2, 64, 10, 100),
+                                              (96, 96, 1, 64), (70, 130, 50, 256),
+                                              (40, 33, None, 33), (1, 256, None, 256)])
 def test_attention_backward_at_other_widths_on_card(cuda_device, Lq, Lk, kv_len0, Dh):
-    """Heads of 4 to 256 dims, rows and keys up to the backward's 64 (64 x 64
-    and 20 x 40 at Dh 256 take more than 48 KB of shared memory), a batch
+    """Heads of 4 to 256 dims (each dims-a-lane instantiation of the plan),
+    rows and keys on both sides of a tile (32 rows, 4 to 32 keys), a batch
     of 5."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     _attention_training_matches_plain(K8, 5, (Lq, Lk, kv_len0), 3, Dh, True, Lq + Lk + Dh)
 
 
 @pytest.mark.cuda
-def test_attention_backward_refuses_shapes_beyond_its_tiles_on_card(cuda_device):
-    """Past 64 rows or keys the backward raises rather than falling back to
-    the plain version, and so does ``attention`` under autograd."""
+@pytest.mark.parametrize("Lq,Lk,kv_len0", [(65, 65, 1), (96, 96, None), (96, 96, 1),
+                                           (1, 300, None), (1, 300, 200), (5, 300, None),
+                                           (33, 300, 250)])
+def test_attention_backward_beyond_64_keys_on_card(cuda_device, Lq, Lk, kv_len0):
+    """Past 64 rows or keys (the limit of the earlier kernel's whole-head
+    tiles) the backward walks key and row tiles: 65, 96 and 300 keys, causal
+    and prefix masks, one and many rows, 8 heads of 64, with and without
+    dropout, against the plain version; ``attention`` under autograd
+    launches it."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
-    q, k, v = (torch.randn(2, L, 2, 8, device=cuda_device) for L in (65, 65, 65))
-    o, row_max, row_sum = K8.attention_train_forward(q, k, v, 1)
-    with pytest.raises(ValueError, match="attention_backward"):
-        K8.attention_backward(torch.ones_like(q), q, k, v, o, row_max, row_sum, 1)
-    leaves = [x.requires_grad_() for x in (q, k, v)]
-    out = K8.attention(*leaves, 1)
-    with pytest.raises(ValueError, match="attention_backward"):
-        out.sum().backward()
+    for dropout in (False, True):
+        _attention_training_matches_plain(K8, 7, (Lq, Lk, kv_len0), 8, 64, dropout, Lq + Lk)
+
+
+# ------------------------------------------------------------ hidden 256
+
+@pytest.mark.cuda
+def test_actor_critic_shared_memory_as_planned_on_card(cuda_device):
+    """The compiled K3 and K10 take the shared memory that the wrapper's
+    layouts compute, within the H100's 227 KB a block; width 64 has no
+    instantiation."""
+    for h in K3.WIDTHS:
+        assert K3.kernel_smem_bytes(h) == (K3.forward_smem_bytes(h), *K3.backward_smem_bytes(h))
+        assert max(K3.kernel_smem_bytes(h)) <= 227 * 1024
+    assert K3.kernel_smem_bytes(64)[:2] == (0, 0)
+
+
+@pytest.mark.cuda
+def test_actor_critic_kernels_refuse_other_widths_on_card(cuda_device):
+    """A width without an instantiation raises on the card, naming the two
+    it has; it never falls back to the plain version."""
+    policy = MansyActorCritic(hidden_dim=64, device=cuda_device)
+    w = policy.packed_weights()
+    x = torch.rand(40, 779, device=cuda_device)
+    for call in (lambda: K3.actor_critic_forward(w, x),
+                 lambda: K3.actor_critic_train_forward(w, x),
+                 lambda: policy.forward_packed(x)):
+        with pytest.raises(ValueError, match="128 or 256"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_av", [False, True])
+def test_actor_critic_cluster_follows_n_at_hidden_256_on_card(cuda_device, use_av):
+    w = MansyActorCritic(hidden_dim=256, use_action_values=use_av,
+                         device=cuda_device).packed_weights()
+    plans = [K3.cluster_plan(w, n) for n in (1, 512, 4096, 8192, 1 << 16)]
+    assert all(a[0] >= b[0] for a, b in zip(plans, plans[1:])), plans
+    assert plans[-1] == (1, False), plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 511, 512, 4096, 8192])
+@pytest.mark.parametrize("use_av,prior", [(False, 0.0), (True, 3.0)])
+def test_actor_critic_kernels_at_hidden_256_on_card(cuda_device, n, use_av, prior):
+    """K3 (forward with and without noise, training mode) and K10 at hidden
+    256 with 10 or 11 branches, in each cluster shape; tolerances as at
+    128; two launches give the same bits."""
+    from mansy_immersivevideostreaming_torch.kernels.observe import obs_width
+    torch.manual_seed(n)
+    policy = MansyActorCritic(hidden_dim=256, use_action_values=use_av, av_logit_prior=prior,
+                              device=cuda_device)
+    w = policy.packed_weights()
+    assert w.b_branch.shape[1] == 256
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.rand(n, obs_width(*policy.dims), device=cuda_device, generator=g)
+    noise = K3.gumbel_noise((n, 15), g, cuda_device)
+    got = K3.actor_critic_forward(w, x, noise)
+    ref = K3.actor_critic_forward_plain(w, x, noise)
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    top2 = (ref[0] + noise).topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
+    assert torch.equal(got[2][decisive], ref[2][decisive])
+    assert all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_forward(w, x, noise)))
+    got = K3.actor_critic_train_forward(w, x)
+    ref = K3.actor_critic_train_forward_plain(w, x)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    dlogits = torch.randn(n, 15, device=cuda_device, generator=g) / n
+    dvalue = torch.randn(n, device=cuda_device, generator=g) / n
+    grads = K3.actor_critic_backward(w, x, *ref[2:], dlogits, dvalue)
+    for a, b in zip(grads, K3.actor_critic_backward_plain(w, x, *ref[2:], dlogits, dvalue)):
+        _grad_close(a, b)
+    again = K3.actor_critic_backward(w, x, *ref[2:], dlogits, dvalue)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_v18_forward_and_training_kernels_match_plain_on_card(cuda_device):
+    """The committed v18 npz through K3 (serving and training) and K10, and
+    through the autograd Function into every parameter."""
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V18_NPZ
+    policy = load_npz_policy(DAGGER_V18_NPZ, device=cuda_device)
+    B = 300
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    x = torch.rand(B, 779, device=cuda_device, generator=g)
+    w = policy.packed_weights()
+    got = K3.actor_critic_forward(w, x)
+    ref = K3.actor_critic_forward_plain(w, x)
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    dlogits = torch.randn(B, 15, device=cuda_device, generator=g)
+    dvalue = torch.randn(B, device=cuda_device, generator=g)
+    with torch.no_grad():
+        _, _, feats, hidden = K3.actor_critic_train_forward_plain(w, x)
+        want = K3.actor_critic_backward_plain(w, x, feats, hidden, dlogits, dvalue)
+    logits, value = policy.forward_packed(x)
+    ((logits * dlogits).sum() + (value * dvalue).sum()).backward()
+    assert all(p.grad is not None for p in policy.parameters())
+    _grad_close(policy.actor_fc.weight.grad, want[2][:, :256].t())
+    _grad_close(policy.critic_out.weight.grad, want[6].t())

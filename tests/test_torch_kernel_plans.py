@@ -5,7 +5,13 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
   block with none empty; launch B's depth slices are the largest cluster
   size that splits its 64-row tile evenly and that the batch's 32-deep
   stages fill; the shapes taken at the paths' batches (512 and 4096 rows)
-  on a 132-SM card.
+  on a 132-SM card; the same at hidden 256 (v18), where launch A holds
+  one CTA an SM.  K3's and K10's shared memory a CTA at widths 128 and
+  256 fits the H100.
+* ``attention_backward_plan`` (K8's backward): at 1 to 2048 rows and keys
+  and Dh 4 to 256, causal and full, every (row, key) that a row sees is
+  taken once, every key's dk and dv rows written once, with a compiled
+  instantiation and shared memory within 227 KB.
 * ``policy_loss_plan`` (K9): one cluster of at most 16 CTAs whose row
   tiles (CTA r takes tiles r, r + ctas, ...) cover every row exactly once,
   for every B from 1 to 20000, with no CTA left without a tile; 4 CTAs of
@@ -31,7 +37,8 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
   and v gradients equal to ``jax.grad`` of the JAX ``MHA.attend`` at d = 32
   in the serving shapes and the five training shapes (the encoder's 5 x 5,
   a decode step over the 15-slot cache, cross-attention 1 x 3 and 15 x 3,
-  the teacher-forced causal 15 x 15), the training ones also with the
+  the teacher-forced causal 15 x 15, and an 80 x 80 causal attention past
+  the earlier backward kernel's 64 rows), the training ones also with the
   probabilities' dropout at 0.1 (the JAX call's own keep mask, recorded
   from ``jax.random.bernoulli``, handed to the port).  At the core, the
   training mode's plain version gives ``attention_plain``'s output, and
@@ -87,6 +94,41 @@ def test_backward_plan_at_the_paths_batches():
     CTAs a row tile; eight slices at both."""
     assert K3.backward_plan(512, V9_OFFSETS, H100_SMS) == K3.BackwardPlan(10, 8)
     assert K3.backward_plan(4096, V16_OFFSETS, H100_SMS) == K3.BackwardPlan(2, 8)
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("offsets", [V9_OFFSETS, V16_OFFSETS], ids=["v9", "v16"])
+def test_backward_plan_at_hidden_256_covers_every_block_and_slice(B, offsets):
+    """At hidden 256 (v18) launch A holds one CTA an SM; its groups still
+    cover every 256-column block with none empty."""
+    plan = K3.backward_plan(B, offsets, H100_SMS, 256)
+    nb = len(offsets) - 1
+    per = -(-nb // plan.groups)
+    blocks = [b for g in range(plan.groups) for b in range(g * per, min(nb, (g + 1) * per))]
+    assert 1 <= plan.groups <= nb and all(g * per < nb for g in range(plan.groups))
+    assert blocks == list(range(nb))                      # every block once, in order
+    assert plan.slices in K3.BACKWARD_SLICES and plan.slices <= -(-B // K3.BACKWARD_STAGE)
+    assert plan.slices == 8 or 2 * plan.slices > -(-B // K3.BACKWARD_STAGE)
+
+
+def test_backward_plan_at_hidden_256_at_the_paths_batches():
+    """v18's PPO batch of 512: 5 groups of two 256-column blocks (launch A
+    holds one CTA an SM); a CE batch of 4096: one group; eight slices."""
+    assert K3.backward_plan(512, V9_OFFSETS, H100_SMS, 256) == K3.BackwardPlan(5, 8)
+    assert K3.backward_plan(4096, V9_OFFSETS, H100_SMS, 256) == K3.BackwardPlan(1, 8)
+
+
+@pytest.mark.parametrize("hidden", K3.WIDTHS)
+def test_actor_critic_shared_memory_fits_the_h100(hidden):
+    """K3's and K10's shared memory a CTA (the layouts of ``Dims`` and
+    ``DimsA``, which the card tests hold against the compiled kernels):
+    within the H100's 227 KB a block, and two CTAs an SM at width 128."""
+    fwd, launch_a, launch_b = K3.forward_smem_bytes(hidden), *K3.backward_smem_bytes(hidden)
+    assert (fwd, launch_a, launch_b) == {128: (101_376, 107_520, 106_496),
+                                         256: (199_680, 211_968, 106_496)}[hidden]
+    assert max(fwd, launch_a, launch_b) + 1024 <= 227 * 1024
+    if hidden == 128:
+        assert 2 * (max(fwd, launch_a) + 1024) <= K3.SMEM_PER_SM
 
 
 # -------------------------------------------------------------------- K9
@@ -310,6 +352,80 @@ def test_gae_plan_at_the_paths_shapes():
 
 # -------------------------------------------------------------------- K8
 
+# the (dims a lane, keys a tile) instantiations of csrc/attention_backward.cu
+ROW_KERNELS = {(1, 4), (1, 8), (1, 16), (1, 32), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8), (8, 4)}
+TILE_KERNELS = {(p, m) for p in (1, 2, 4, 8) for m in (4, 8, 16)}
+BACKWARD_SIZES = (1, 15, 64, 65, 96, 2048)
+
+
+def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
+    """(times each (row, key) is taken, times each key's dk and dv rows are
+    written) as ``csrc/attention_backward.cu`` walks them: the row kernel
+    the row's seen keys in tiles of ``keys``, then the unseen keys' zeros;
+    the tile kernel each key tile that some row sees, over the row tiles
+    from the first row that sees it, and a key tile's rows once."""
+    taken, written = np.zeros((Lq, Lk), int), np.zeros(Lk, int)
+    seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+    if plan.kernel == "row":
+        n = min(Lk, kv_len0)
+        for j0 in range(0, n, plan.keys):
+            taken[0, j0:min(n, j0 + plan.keys)] += 1
+            written[j0:min(n, j0 + plan.keys)] += 1
+        written[n:] += 1
+        return taken, written
+    n_max = min(Lk, kv_len0 + Lq - 1)
+    for j0 in range(0, Lk, plan.keys):
+        j1 = min(Lk, j0 + plan.keys)
+        if j0 < n_max:
+            for r0 in range(max(0, j0 - kv_len0 + 1), Lq, plan.rows):
+                r1 = min(Lq, r0 + plan.rows)
+                taken[r0:r1, j0:j1] += seen[r0:r1, j0:j1]
+        written[j0:j1] += 1
+    return taken, written
+
+
+@pytest.mark.parametrize("Lq", BACKWARD_SIZES)
+@pytest.mark.parametrize("Lk", BACKWARD_SIZES)
+@pytest.mark.parametrize("Dh", [4, 64, 256])
+def test_attention_backward_plan_covers_every_row_and_key_once(Lq, Lk, Dh):
+    """K8's backward plan at one and many rows and keys, past the earlier
+    kernel's 64 and up to the forward's 2048 keys, causal (kv_len0 1) and
+    full: every (row, key) a row sees is taken exactly once (and none it
+    does not see), every key's dk and dv rows are written once (keys no row
+    sees as zeros), a lane's dims hold Dh, the keys a tile and the dims a
+    lane name a compiled instantiation, and the shared memory fits the
+    H100."""
+    for kv_len0 in (1, Lk):
+        plan = K8.attention_backward_plan(512, Lq, Lk, 8, Dh)
+        taken, written = _backward_walk(Lq, Lk, kv_len0, plan)
+        seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+        assert np.array_equal(taken, seen.astype(int))
+        assert (written == 1).all()
+        assert 32 * plan.per_lane >= Dh > 16 * plan.per_lane or plan.per_lane == 1
+        assert plan.smem_bytes <= 227 * 1024
+        if Lq == 1:
+            assert plan.kernel == "row" and (plan.per_lane, plan.keys) in ROW_KERNELS
+            assert plan.blocks * plan.threads // 32 >= 512 * 8
+        else:
+            assert plan.kernel == "tile" and (plan.per_lane, plan.keys) in TILE_KERNELS
+            assert plan.rows == min(Lq, 32) and plan.blocks == 512 * 8
+            assert plan.threads in (128, 256)
+
+
+def test_attention_backward_plan_at_the_training_shapes():
+    """The decode step and cross-attention (one row) take the row kernel with
+    the 15-slot cache in one tile of 16 keys; the encoder, the teacher-forced
+    causal pass and its cross-attention take the tile kernel, one key tile
+    and one row tile each."""
+    plan = lambda Lq, Lk: K8.attention_backward_plan(512, Lq, Lk, 8, 64)
+    assert plan(1, 15) == K8.BackwardPlan("row", 2, 16, 1, 256, 512, 0)
+    assert plan(1, 3) == K8.BackwardPlan("row", 2, 4, 1, 256, 512, 0)
+    assert plan(5, 5)[:5] == ("tile", 2, 8, 5, 128)
+    assert plan(15, 15)[:5] == ("tile", 2, 16, 15, 256)
+    assert plan(15, 3)[:5] == ("tile", 2, 4, 15, 128)
+    assert plan(96, 96)[:5] == ("tile", 2, 16, 32, 256)
+
+
 def _prefix(Lk: int, t: int):
     return (jnp.arange(Lk) <= t)[None, None, None, :]
 
@@ -323,6 +439,7 @@ MHA_CASES = {
     "decode_t9_of_15": (1, 15, 10, _prefix(15, 9)),
     "cross_15x3": (15, 3, None, None),
     "causal_15": (15, 15, 1, causal_mask(15)),
+    "causal_80": (80, 80, 1, causal_mask(80)),
 }
 
 
@@ -330,7 +447,7 @@ MHA_CASES = {
                                   "decode_t9_of_15", "cross_15x3", "causal_15",
                                   "encoder_5x5_dropout", "decode_t9_of_15_dropout",
                                   "cross_3_dropout", "cross_15x3_dropout",
-                                  "causal_15_dropout"])
+                                  "causal_15_dropout", "causal_80", "causal_80_dropout"])
 def test_mha_attend_gradients_match_jax_grad(case, monkeypatch):
     """The CPU path differentiates: the output and the q_in, k and v
     gradients of a random linear functional of MHA.attend's output, at
