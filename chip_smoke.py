@@ -6,12 +6,14 @@ serves the action-value policy v16 and the hidden-256 policy v18, trains
 with PPO and the identifier (at hidden 128 and 256), runs DAgger rounds,
 serves the MTIO viewport model (``run_models --test``, the ``predict``
 export) and trains it (``run_models --train``, also at ``--his-window
-96``), all through the port's own entry points.  It imports no JAX.
+96``), trains and tests the simple_rl (A2C) baseline and runs the routed
+ensemble over four committed policies, all through the port's own entry
+points.  It imports no JAX.
 
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent``, DIR is another checkout of the repo (the parent commit's,
-unpacked with ``git archive``): its K10, K8, K1, K9, K2, K7, K5 and K6 are
+unpacked with ``git archive``): its K3, K10, K8, K1, K9, K2, K7, K5 and K6 are
 built from its own sources into its own build directory and timed beside
 this tree's on the same inputs (``earlier_ms``; K1, K9, K2, K7, K5 and K6
 also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5
@@ -62,7 +64,8 @@ Phases:
    instantiation) served as in phase 3: 0 episode records may differ.
 
 Phase 2c holds the training kernels against their plain versions: K6
-``compute_gae`` at [32, 128] and [128, 8192], bit-equal to its plain
+``compute_gae`` at [16, 128] (run_simple_rl's collect), [32, 128] and
+[128, 8192], bit-equal to its plain
 version and on two launches; K9 ``policy_loss`` in every
 PPO variant at B = 512 and in CE mode at B = 4096 (two launches give the
 same bits; CE's yardstick: ``F.cross_entropy`` forward and backward by
@@ -141,9 +144,37 @@ Each path is timed over several passes (median and spread of the host-clock
 rate); every pass must launch each kernel exactly as often as the path has
 steps (K2 and K3 once more per collect, for the bootstrap value; K4 and K1
 once a decision in the expert phase; K5 once a split, at setup; K6 once a
-collect, and K3's training mode, K9 and K10 once a minibatch step; K8 62
+collect, and K3's training mode, K9 and K10 once a minibatch step (A2C:
+K2's simple mode in K2's place); K8 62
 times and K7 once a viewport batch; K8's training mode and backward 62
-times each a training step, 6 with teacher forcing).
+times each a training step, 6 with teacher forcing).  The ``kernels`` line
+counts each launch in the row of the mode its wrapper counted it in
+(``launches_by_mode``: K3 and K10 by net and hidden width, K9 by loss).
+
+Phase 2e holds the simple_rl modes against their plain versions at the A2C
+path's shapes (two launches of each give the same bits): K2's simple mode
+(the [N, 395] observation) at 128 and 512 lanes, K3 on the five-branch net
+without the cond branch (forward with sampling noise, and training mode)
+at 128 and 512 rows, K10 on it and K9's A2C mode at the minibatch of 512;
+each timed with its bound and, for K3 and K10, the ``torch.matmul``
+composition.
+
+12. simple_rl: ``run_simple_rl --train --qoe-train-id 0`` at the CLI
+   defaults (128 lanes x 16 steps, minibatch 512, repeat 1, RMSprop)
+   through ``run_simple_rl.a2c_round`` from Flax's initialiser, on tables of
+   the train split's shape with one preference: env-steps/s including the
+   update (median of 5 rounds), one update profiled, and one update through
+   the kernels against the plain path at phase 7's limits.
+12b. simple_rl_test: ``--test --deterministic-eval``'s evaluation of the
+   trained policy over the 1440-episode grid's shape, held against the
+   plain path as in phase 3.
+13. ensemble: ``run_ensemble.run`` over the committed v7, v9, v18 and
+   v21.last npz at its defaults (full valid grid, significance gate), its
+   splits from ``synthetic_sim_tables`` at the valid split's shape (3 x 45
+   x 8, 4,320 episodes a component) and the test grid's: episodes/s over
+   the whole run (median of 3), then the same run through the plain
+   versions; the route, the gate evidence and every valid and test episode
+   record equal.
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -155,6 +186,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -189,7 +221,8 @@ DAGGER_LANES = 32       # run_dagger --lanes: K4's width on the DAgger path
 EXPERT_PASSES = 3       # timed passes of the expert path
 NEAR_TIE = 1e-5         # first-action margin (over the weight sum) of a near-tie
 MISPREDICT = 0.15       # share of tiles the synthetic predicted viewport gets wrong
-GAE_SHAPES = ((32, 128), (128, 8192))  # K6: the CLI's collect, and bench.py's rollout width
+GAE_SHAPES = ((16, 128), (32, 128), (128, 8192))  # K6: run_simple_rl's and the CLI's collects,
+#                                                  and bench.py's rollout width
 PPO_BATCH = 512         # run_mansy --batch-size default
 CE_BATCH = 4096         # run_dagger --batch-size default
 TRAIN_BATCHES = (PPO_BATCH, CE_BATCH)
@@ -212,6 +245,12 @@ VP_LOSS_RTOL = 1e-5     # phase 11: a step's loss through the kernels against th
 VP_GRAD_RTOL = 1e-4     # phase 11: gradients, plus VP_GRAD_RTOL of the largest entry
 VP_PARAM_ATOL = 2e-6    # phase 11: parameters after AdamW whose two gradients agree to 1%
 VP_PARAM_LOOSE = 0.005  # phase 11: share of the other parameters allowed beyond VP_PARAM_ATOL
+SIMPLE_LANES = 128      # run_simple_rl --train-lanes default
+A2C_BATCH = 512         # run_simple_rl --batch-size default
+SIMPLE_WIDTHS = (SIMPLE_LANES, SERVE_CHUNK)  # phase 2e: K2 and K3 at the train lanes, the test chunk
+SIMPLE_RL_ROUNDS = 5    # phase 12: timed rounds (a collect and its update each)
+ENSEMBLE_VALID_SHAPE = (3, 45, 8, 60, 4)  # the Jin2022/4G valid split at run_ensemble's full grid
+ENSEMBLE_PASSES = 3     # phase 13: timed runs of run_ensemble
 
 PKG = "mansy_immersivevideostreaming_torch"
 KERNELS = {
@@ -259,12 +298,32 @@ KERNELS = {
                                source=f"{PKG}/kernels/csrc/attention_backward.cu",
                                replaces="mansy_immersivevideostreaming_tpu/models/"
                                         "vp_train.py:65"),
+    # the simple_rl (A2C) modes: K2's simple mode, K3 and K10 on the
+    # five-branch net without the cond branch, K9's A2C mode; each with the
+    # launches of the simple_rl paths
+    "observe_simple_pack": dict(route="cuda", source=f"{PKG}/kernels/csrc/observe.cu",
+                                replaces="mansy_immersivevideostreaming_tpu/sim/env.py:289"),
+    "actor_critic_forward_simple": dict(route="cuda",
+                                        source=f"{PKG}/kernels/csrc/actor_critic.cu",
+                                        replaces="mansy_immersivevideostreaming_tpu/models/"
+                                                 "abr_nets.py:211"),
+    "actor_critic_train_forward_simple": dict(route="cuda",
+                                              source=f"{PKG}/kernels/csrc/actor_critic.cu",
+                                              replaces="mansy_immersivevideostreaming_tpu/"
+                                                       "models/abr_nets.py:211"),
+    "actor_critic_backward_simple": dict(route="cuda",
+                                         source=f"{PKG}/kernels/csrc/actor_critic_backward.cu",
+                                         replaces="mansy_immersivevideostreaming_tpu/rl/"
+                                                  "a2c.py:88"),
+    "policy_loss_a2c": dict(route="cuda", source=f"{PKG}/kernels/csrc/policy_loss.cu",
+                            replaces="mansy_immersivevideostreaming_tpu/rl/a2c.py:71"),
 }
-# the kernels' rows of wrappers that share a kernel
-ROW_OF = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
-# the paths that run hidden-256 weights: their K3 and K10 launches count in
-# the "_h256" rows
-WIDE_PATHS = ("serve_v18", "train_256")
+# the kernels-line row of a launch: the wrapper's name, and the suffix of
+# the mode it counted the launch in (K3 and K10 by net and hidden width, K9
+# by loss); K7's two wrappers share one row
+MODE_SUFFIX = {None: "", "cond128": "", "cond256": "_h256", "simple128": "_simple", "ce": "",
+               "ppo": "", "a2c": "_a2c"}
+SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
 def log(msg: str) -> None:
@@ -508,15 +567,14 @@ def block_diagonal(w) -> torch.Tensor:
 def library_actor_critic(w):
     """The same function as one composition of torch matmuls over a dense
     block-diagonal branch weight: the yardstick (library_ms) only."""
-    from mansy_immersivevideostreaming_torch.kernels.actor_critic import COND_BRANCH_INDEX
     H, fin = w.b_branch.shape[1], w.branch_off[-1]
     wbd = block_diagonal(w)
     bias = w.b_branch.reshape(-1)
-    cond_cols = slice(COND_BRANCH_INDEX * H, (COND_BRANCH_INDEX + 1) * H)
+    cond_cols = slice(w.cond * H, (w.cond + 1) * H)
 
     def fn(x, noise):
         feats = torch.nn.functional.leaky_relu(x[:, :fin] @ wbd + bias, 0.01)
-        cond = feats[:, cond_cols]
+        cond = feats[:, cond_cols] if w.cond >= 0 else 0.0
         h = torch.nn.functional.leaky_relu(feats @ w.w_fc + w.b_fc, 0.01)
         logits = (h[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
         if w.av_prior:
@@ -530,12 +588,13 @@ def library_actor_critic(w):
     return fn
 
 
-def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
+def actor_critic_timing(K3, w, x, noise=None, train: bool = False, parent=None) -> dict:
     """K3's forward (or its training mode) on ``x``: the kernel's, the plain
-    version's and the ``torch.matmul`` composition's times, and two bounds:
-    every operation in f32 outside the tensor cores (``bound_ms``), and the
-    branch and fc products as the kernel runs them, three TF32 products on
-    the tensor cores, the rest in f32 (``bound_3xtf32_ms``)."""
+    version's and the ``torch.matmul`` composition's times (with ``parent``,
+    the parent commit's kernel's, ``earlier_ms``), and two bounds: every
+    operation in f32 outside the tensor cores (``bound_ms``), and the branch
+    and fc products as the kernel runs them, three TF32 products on the
+    tensor cores, the rest in f32 (``bound_3xtf32_ms``)."""
     N, A = x.shape[0], w.w_actor_out.shape[1]
     H = w.b_branch.shape[1]
     nb, fin = len(w.branch_off) - 1, w.branch_off[-1]
@@ -552,15 +611,21 @@ def actor_critic_timing(K3, w, x, noise=None, train: bool = False) -> dict:
     lib = library_actor_critic(w)
     zeros = torch.zeros((N, A), device=x.device)
     ctas, split = K3.cluster_plan(w, N)
-    return dict(lanes=N, cluster_ctas=ctas, split_branches=split, ms=gpu_ms(run),
-                plain_ms=gpu_ms(plain),
-                library_ms=gpu_ms(lambda: lib(x, zeros if noise is None else noise)),
-                **bound(flops, nbytes),
-                bound_3xtf32_ms=1e3 * max(t_tc, nbytes / HBM_BYTES_PER_S))
+    out = dict(lanes=N, cluster_ctas=ctas, split_branches=split, ms=gpu_ms(run),
+               plain_ms=gpu_ms(plain),
+               library_ms=gpu_ms(lambda: lib(x, zeros if noise is None else noise)),
+               **bound(flops, nbytes),
+               bound_3xtf32_ms=1e3 * max(t_tc, nbytes / HBM_BYTES_PER_S))
+    if parent is not None:  # the parent commit's kernel on the same inputs
+        earlier = parent.actor_critic
+        out["earlier_ms"] = gpu_ms(
+            (lambda: earlier.actor_critic_train_forward(w, x)) if train
+            else (lambda: earlier.actor_critic_forward(w, x, noise)))
+    return out
 
 
 def load_parent(root: str):
-    """The K10, K8, K1, K9, K2, K7, K5 and K6 wrappers of another checkout of
+    """The K3, K10, K8, K1, K9, K2, K7, K5 and K6 wrappers of another checkout of
     the repo at ``root`` (the parent commit's, unpacked there), each bound
     to that checkout's ``kernels/build.py``, so they build its own ``csrc/``
     into its own ``kernels/build/``.  Returns a namespace with ``build``,
@@ -590,8 +655,8 @@ def load_parent(root: str):
 
 
 # timed beside this tree's
-PARENT_KERNELS = ("actor_critic_backward", "attention", "env_step", "policy_loss", "observe",
-                  "tile_occupancy", "expert_tables", "gae")
+PARENT_KERNELS = ("actor_critic", "actor_critic_backward", "attention", "env_step",
+                  "policy_loss", "observe", "tile_occupancy", "expert_tables", "gae")
 K1_WIDTHS = {"dagger": 32, "expert": 64, "train": 128, "serve": 512, "collect": LANES}
 K2_WIDTHS = (LANES, SERVE_CHUNK, 128, DAGGER_LANES)  # collect, serve, train, DAgger
 
@@ -658,8 +723,9 @@ def kernel_phase(dev, parent=None):
         raise AssertionError("actor_critic_forward picks other actions than its plain version")
     rows["actor_critic_forward"] = dict(
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
-        **actor_critic_timing(K3, w, x, noise),
-        serve_chunk=actor_critic_timing(K3, w, x[:SERVE_CHUNK], noise[:SERVE_CHUNK]))
+        **actor_critic_timing(K3, w, x, noise, parent=parent),
+        serve_chunk=actor_critic_timing(K3, w, x[:SERVE_CHUNK], noise[:SERVE_CHUNK],
+                                        parent=parent))
 
     # K3 with v18's weights (hidden 256, v9's observation) at serve's lane
     # chunk and collect's width; two launches give the same bits
@@ -680,7 +746,7 @@ def kernel_phase(dev, parent=None):
                 w18, x[:n], noise[:n]))):
             raise AssertionError(f"actor_critic_forward (v18, {n} lanes): two launches differ")
         err = max(err, max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])))
-        cases[f"{n}_lanes"] = actor_critic_timing(K3, w18, x[:n], noise[:n])
+        cases[f"{n}_lanes"] = actor_critic_timing(K3, w18, x[:n], noise[:n], parent=parent)
     rows["actor_critic_forward_h256"] = dict(max_abs_err=err, hidden=256,
                                              **cases[f"{SERVE_CHUNK}_lanes"], cases=cases)
 
@@ -953,12 +1019,15 @@ def expert_kernel_phase(dev, parent=None):
 # ----------------------------------------------------------------- phase 3
 
 def plain_serve(policy, tables, samples):
-    """The serve path through the plain versions only (the reference)."""
+    """The serve path through the plain versions only (the reference); the
+    policy's K2 mode decides the plain observation."""
     from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
         actor_critic_forward_plain,
     )
     from mansy_immersivevideostreaming_torch.kernels.env_step import env_step_plain
-    from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack_plain
+    from mansy_immersivevideostreaming_torch.kernels.observe import (
+        observe_mansy_pack_plain, observe_simple_pack, observe_simple_pack_plain,
+    )
     from mansy_immersivevideostreaming_torch.rl.rollout import stack_logs
     from mansy_immersivevideostreaming_torch.rl.runner import (
         episode_step_bound, first_done_mask,
@@ -973,7 +1042,8 @@ def plain_serve(policy, tables, samples):
         state = reset_env(tables, sub, torch.arange(n, dtype=torch.int32, device=sub.device), n)
         logs = []
         for _ in range(episode_step_bound(tables)):
-            x = observe_mansy_pack_plain(tables, state)
+            x = (observe_simple_pack_plain if policy.observe is observe_simple_pack
+                 else observe_mansy_pack_plain)(tables, state)
             _, _, action, _ = actor_critic_forward_plain(w, x, None)
             state, _, _, log_ = env_step_plain(tables, sub, state, action, n, False)
             logs.append(log_)
@@ -988,16 +1058,31 @@ def expect(counters, **launches):
     return {fn.__name__: launches.get(fn.__name__, 0) for fn in counters}
 
 
+def row_launches(counters) -> dict:
+    """The wrappers' counts by kernels-line row: a wrapper's launches in each
+    of its modes (``launches_by_mode``), else all of them, in the row of
+    ``MODE_SUFFIX`` and ``SHARED_ROW``."""
+    rows = {}
+    for fn in counters:
+        by_mode = getattr(fn, "launches_by_mode", None) or {None: fn.launches}
+        for mode, n in by_mode.items():
+            row = SHARED_ROW.get(fn.__name__, fn.__name__) + MODE_SUFFIX[mode]
+            rows[row] = rows.get(row, 0) + n
+    return rows
+
+
 def timed_passes(run, counters, want, passes: int = PASSES):
     """Run ``run()`` ``passes`` times on the host clock, each ended by a
     synchronize.  Every count is set to 0 just before each pass and read
     just after it; each pass must launch each kernel ``want[name]`` times.
-    Returns (last pass's result, seconds of each pass, launches of a pass)."""
+    Returns (last pass's result, seconds of each pass, launches of a pass
+    by kernels-line row)."""
     seconds = []
     for _ in range(passes):
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
+            getattr(fn, "launches_by_mode", {}).clear()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
@@ -1005,7 +1090,7 @@ def timed_passes(run, counters, want, passes: int = PASSES):
         launches = {fn.__name__: fn.launches for fn in counters}
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
-    return out, seconds, launches
+    return out, seconds, row_launches(counters)
 
 
 def profile_update(run, steps: int) -> dict:
@@ -1370,11 +1455,14 @@ def gae_cost(T: int, N: int) -> int:
 def policy_loss_cost(spec, B: int, A: int):
     """(operations, bytes) of K9: log-softmax, entropy and the logit gradient
     about 17 operations a logit (an exp or log counted as one), the PPO
-    terms about 40 a row, the KL 10 more a logit; inputs read and outputs
-    written once."""
+    terms about 40 a row, the A2C terms about 8, the KL 10 more a logit;
+    inputs read and outputs written once."""
     flops = B * 17 * A
     nbytes = B * A * 4 * 2 + B * 4 + 16  # logits, dlogits, action; loss and terms
-    if spec.ppo:
+    if spec.mode == "a2c":  # value, adv, ret read; dvalue written
+        flops += B * 8
+        nbytes += B * 4 * 4
+    if spec.mode == "ppo":
         flops += B * 40
         nbytes += B * 4 * 6 + (B * 4 if spec.pref_id is not None else 0)
         if spec.anchor_logits is not None:
@@ -1423,14 +1511,13 @@ def library_actor_critic_grad(w, x, dlogits, dvalue):
     the ``torch.matmul`` composition of ``library_actor_critic``, with the
     branch weights as one dense block-diagonal matrix, from the same
     incoming gradients.  Returns a function that runs the backward once."""
-    from mansy_immersivevideostreaming_torch.kernels.actor_critic import COND_BRANCH_INDEX
     H, fin = w.b_branch.shape[1], w.branch_off[-1]
     leaf = [t.detach().clone().requires_grad_() for t in (
         block_diagonal(w), w.b_branch.reshape(-1), w.w_fc, w.b_fc, w.w_actor_out, w.b_actor_out,
         w.w_critic_out, w.b_critic_out)]
     wb, bb, wfc, bfc, wa, ba, wc, bc = leaf
     feats = torch.nn.functional.leaky_relu(x[:, :fin] @ wb + bb, 0.01)
-    cond = feats[:, COND_BRANCH_INDEX * H:(COND_BRANCH_INDEX + 1) * H]
+    cond = feats[:, w.cond * H:(w.cond + 1) * H] if w.cond >= 0 else 0.0
     h = torch.nn.functional.leaky_relu(feats @ wfc + bfc, 0.01)
     logits = (h[:, :H] + cond) @ wa + ba
     value = ((h[:, H:] + cond) @ wc + bc)[:, 0]
@@ -1539,7 +1626,8 @@ def training_kernel_phase(dev, parent=None):
                             norm_adv_per_pref=True)}
     ce_logits = 2.0 * r(CE_BATCH, A)
     ce_action = torch.randint(0, A, (CE_BATCH,), device=dev, generator=gen, dtype=torch.int32)
-    cases = {name: (K9.LossSpec(**base, **kw), logits, value) for name, kw in variants.items()}
+    cases = {name: (K9.LossSpec(**base, **kw, mode="ppo"), logits, value)
+             for name, kw in variants.items()}
     cases["ce"] = (K9.LossSpec(action=ce_action, ent_coef=0.1), ce_logits, None)
     out, err = {}, 0.0
     for name, (spec, lg, v) in cases.items():
@@ -1557,7 +1645,10 @@ def training_kernel_phase(dev, parent=None):
                          plain_ms=gpu_ms(lambda: K9.policy_loss_plain(spec, lg, v), 5),
                          **bound(*policy_loss_cost(spec, lg.shape[0], A)))
         if parent is not None:  # the parent commit's kernel on the same inputs
-            out[name].update(gpu_spread(lambda: parent.policy_loss.policy_loss(spec, lg, v),
+            fields = parent.policy_loss.LossSpec._fields  # its own spec, as its modes read it
+            old = parent.policy_loss.LossSpec(**{k: x for k, x in spec._asdict().items()
+                                                 if k in fields})
+            out[name].update(gpu_spread(lambda: parent.policy_loss.policy_loss(old, lg, v),
                                         "earlier_ms"))
     # CE's yardstick: cross_entropy forward and backward by autograd (no entropy term)
     out["ce"]["library_ms"] = gpu_ms(library_cross_entropy(ce_logits, ce_action))
@@ -1585,7 +1676,7 @@ def training_kernel_phase(dev, parent=None):
                                      f"launches differ")
             f_err[H] = max(f_err[H], max(float((g - rf).abs().max()) for g, rf in zip(got, ref)))
             key = f"{label}_B{Bn}"
-            fwd[key] = actor_critic_timing(K3, w, x, train=True)
+            fwd[key] = actor_critic_timing(K3, w, x, train=True, parent=parent)
             dlogits, dvalue = r(Bn, A) / Bn, r(Bn) / Bn
             acts = ref[2], ref[3]
             got = K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)
@@ -1651,7 +1742,7 @@ def plain_ppo_update(policy, optimizer, cfg, traj, rewards, last_values, ret_rms
         spec = LossSpec(action=mb["action"], ent_coef=cfg.ent_coef, old_log_prob=mb["log_prob"],
                         old_value=mb["value"], adv=mb["adv"], ret=mb["ret"],
                         eps_clip=cfg.eps_clip, vf_coef=cfg.vf_coef, value_clip=cfg.value_clip,
-                        norm_adv=cfg.norm_adv, n_prefs=cfg.n_prefs)
+                        norm_adv=cfg.norm_adv, n_prefs=cfg.n_prefs, mode="ppo")
         loss, terms, dlogits, dvalue = policy_loss_plain(spec, logits.detach(), value.detach())
         optimizer.zero_grad(set_to_none=True)
         torch.autograd.backward([logits, value], [dlogits, dvalue])
@@ -1693,14 +1784,25 @@ def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
     if metric_err > UPDATE_RTOL:
         raise AssertionError(f"train: the kernels' update metrics differ from the plain path's "
                              f"by {metric_err} (relative)")
-    tight, loose, total, err = 0, 0, 0, 0.0
     steps = cfg.repeat * n_mb
+    return dict(minibatch_steps=steps, metric_rel_err=metric_err,
+                **compare_params(before, kernel_p, plain_p, args.lr * steps, "train"),
+                loss=float(m_kernel[0]), plain_loss=float(m_plain[0]))
+
+
+def compare_params(before, kernel_p, plain_p, lr_steps: float, label: str) -> dict:
+    """The parameters after an update through the kernels against those
+    after the plain path's: a parameter whose plain update moved it by at
+    least half of ``lr_steps`` (lr times the steps) must agree to
+    UPDATE_ATOL; the others (whose gradients sit near 0) are counted and
+    must stay under UPDATE_LOOSE of all."""
+    tight, loose, total, err = 0, 0, 0, 0.0
     for p0, pk, pp in zip(before, kernel_p.parameters(), plain_p.parameters()):
         moved = (pp.detach() - p0).abs()
         diff = (pk.detach() - pp.detach()).abs()
-        sure = moved >= 0.5 * args.lr * steps
+        sure = moved >= 0.5 * lr_steps
         if bool((diff[sure] > UPDATE_ATOL).any()):
-            raise AssertionError(f"train: a parameter the plain update moved by "
+            raise AssertionError(f"{label}: a parameter the plain update moved by "
                                  f"{float(moved[sure][diff[sure].argmax()])} differs by "
                                  f"{float(diff[sure].max())}")
         err = max(err, float(diff[sure].max()) if bool(sure.any()) else 0.0)
@@ -1708,10 +1810,10 @@ def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
         loose += int((~sure & (diff > UPDATE_ATOL)).sum())
         total += diff.numel()
     if loose > UPDATE_LOOSE * total:
-        raise AssertionError(f"train: {loose} of {total} parameters differ beyond {UPDATE_ATOL}")
-    return dict(minibatch_steps=steps, metric_rel_err=metric_err, param_max_abs_err=err,
-                params_compared=tight, params_near_zero_gradient_differing=loose,
-                params_total=total, loss=float(m_kernel[0]), plain_loss=float(m_plain[0]))
+        raise AssertionError(f"{label}: {loose} of {total} parameters differ beyond "
+                             f"{UPDATE_ATOL}")
+    return dict(param_max_abs_err=err, params_compared=tight,
+                params_near_zero_gradient_differing=loose, params_total=total)
 
 
 def train_phase(dev, counters, wide: bool = False):
@@ -2610,11 +2712,484 @@ def vp_train_phase(dev, counters):
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
 
 
+# ---------------------------------------------------------------- phase 2e
+
+def observe_simple_bytes(tables, state, width: int) -> int:
+    """Bytes K2's simple mode must move: the lane state it reads (indices,
+    the throughput history, the last rates and rebuffer time), the distinct
+    chunk size slabs and predicted viewport rows, and the [N, 395] output."""
+    V, C, R, T = tables.sizes.shape
+    K, U = tables.past_k, tables.pred.shape[1]
+    N = state.buf.shape[0]
+    v, u, c = state.video, state.user, state.next_chunk
+    return (N * (3 * 4 + K * 4 + 3 * 4 + width * 4)
+            + n_unique(v, c, sizes=(V, C)) * R * T * 4
+            + n_unique(v, u, c, sizes=(V, U, C)) * T * 4)
+
+
+def simple_inputs(dev):
+    """Tables of the train split's shape with one preference (run_simple_rl
+    trains on one) and SERVE_CHUNK lanes 7 steps into their episodes."""
+    from mansy_immersivevideostreaming_torch.kernels.env_step import env_step_plain
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    V, U, NT, C, _ = TRAIN_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, 1, seed=0, device=dev)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, 1), device=dev)
+    n = max(SIMPLE_WIDTHS)
+    state = init_lanes(tables, samples, n, seed=3)
+    rng = np.random.default_rng(3)
+    for _ in range(7):
+        acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=dev)
+        state, *_ = env_step_plain(tables, samples, state, acts, n, True)
+    return tables, state
+
+
+def simple_kernel_phase(dev):
+    """Phase 2e: the simple_rl modes at the A2C path's shapes, each against
+    its plain version on the same card tensors (RTOL; K10 by
+    ``grads_close``), two launches bit-equal, timed by CUDA events: K2's
+    simple mode at 128 and 512 lanes (the train lanes and the test's lane
+    chunk), K3 on the five-branch net (forward with sampling noise, and
+    training mode) at 128 and 512 rows, K10 and K9's A2C mode at the
+    minibatch of 512.  Returns the kernels' rows."""
+    from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+    from mansy_immersivevideostreaming_torch.kernels import observe as K2
+    from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
+    from mansy_immersivevideostreaming_torch.models.abr_nets import SimpleActorCritic
+    from mansy_immersivevideostreaming_torch.sim.env import tree_map
+
+    tables, state = simple_inputs(dev)
+    rows = {}
+
+    # K2's simple mode
+    cases = {}
+    for n in SIMPLE_WIDTHS:
+        sub = tree_map(lambda t: t[:n].contiguous(), state)
+        x = K2.observe_simple_pack(tables, sub)
+        ref = K2.observe_simple_pack_plain(tables, sub)
+        if not bool(close(x, ref).all()):
+            raise AssertionError(f"observe_simple_pack ({n} lanes) disagrees with its plain "
+                                 "version")
+        if not torch.equal(K2.observe_simple_pack(tables, sub), x):
+            raise AssertionError(f"observe_simple_pack ({n} lanes): two launches differ")
+        out = torch.empty_like(x)
+        cases[str(n)] = dict(
+            lanes=n, width=x.shape[1], plan=K2.observe_plan(n)._asdict(),
+            max_abs_err=float((x - ref).abs().max()),
+            **gpu_spread(lambda: K2.observe_simple_pack(tables, sub, out=out)),
+            plain_ms=gpu_ms(lambda: K2.observe_simple_pack_plain(tables, sub), 5),
+            bound_ms=1e3 * observe_simple_bytes(tables, sub, x.shape[1]) / HBM_BYTES_PER_S,
+            write_floor_ms=gpu_ms(lambda: out.fill_(0.0)))
+    main = cases[str(SIMPLE_LANES)]
+    rows["observe_simple_pack"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()), width=main["width"],
+        **{k: main[k] for k in main if k.endswith("ms") or k.endswith("range")},
+        bound_by="bytes", library_ms=None, cases=cases)
+
+    # K3 on the five-branch net, forward and training mode
+    torch.manual_seed(1)
+    w = SimpleActorCritic(device=dev).packed_weights()
+    x = K2.observe_simple_pack(tables, state)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    A = tables.action_space
+    noise = K3.gumbel_noise((x.shape[0], A), gen, dev)
+    fwd, trn, f_err, t_err = {}, {}, 0.0, 0.0
+    for n in SIMPLE_WIDTHS:
+        xs, ns = x[:n], noise[:n]
+        got = K3.actor_critic_forward(w, xs, ns)
+        ref = K3.actor_critic_forward_plain(w, xs, ns)
+        for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+            if not bool(close(g, r).all()):
+                raise AssertionError(f"actor_critic_forward (simple, {n} lanes) disagrees with "
+                                     "its plain version")
+        top2 = (ref[0] + ns).topk(2, dim=-1).values
+        if not bool((got[2] == ref[2])[(top2[:, 0] - top2[:, 1]) > 1e-4].all()):
+            raise AssertionError(f"actor_critic_forward (simple, {n} lanes) picks other actions "
+                                 "than its plain version")
+        if not all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_forward(w, xs, ns))):
+            raise AssertionError(f"actor_critic_forward (simple, {n} lanes): two launches differ")
+        f_err = max(f_err, max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])))
+        fwd[f"{n}_lanes"] = actor_critic_timing(K3, w, xs, ns)
+        got = K3.actor_critic_train_forward(w, xs)
+        ref = K3.actor_critic_train_forward_plain(w, xs)
+        if not all(bool(close(g, r).all()) for g, r in zip(got, ref)):
+            raise AssertionError(f"actor_critic_train_forward (simple, {n} rows) disagrees with "
+                                 "its plain version")
+        if not all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_train_forward(w, xs))):
+            raise AssertionError(f"actor_critic_train_forward (simple, {n} rows): two launches "
+                                 "differ")
+        t_err = max(t_err, max(float((g - r).abs().max()) for g, r in zip(got, ref)))
+        trn[f"{n}_rows"] = actor_critic_timing(K3, w, xs, train=True)
+    rows["actor_critic_forward_simple"] = dict(max_abs_err=f_err, hidden=128,
+                                               **fwd[f"{SIMPLE_LANES}_lanes"], cases=fwd)
+    rows["actor_critic_train_forward_simple"] = dict(max_abs_err=t_err, hidden=128,
+                                                     **trn[f"{A2C_BATCH}_rows"], cases=trn)
+
+    # K10 on the five-branch net at the minibatch
+    B = A2C_BATCH
+    xb = x[:B]
+    _, _, feats, hidden = K3.actor_critic_train_forward(w, xb)
+    dlogits = torch.randn(B, A, device=dev, generator=gen) / B
+    dvalue = torch.randn(B, device=dev, generator=gen) / B
+    got = K3.actor_critic_backward(w, xb, feats, hidden, dlogits, dvalue)
+    ref = K3.actor_critic_backward_plain(w, xb, feats, hidden, dlogits, dvalue)
+    for f, g, r in zip(K3.TENSOR_FIELDS, got, ref):
+        if not grads_close(g, r):
+            raise AssertionError(f"actor_critic_backward (simple): {f} disagrees with its plain "
+                                 "version")
+    if not all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_backward(
+            w, xb, feats, hidden, dlogits, dvalue))):
+        raise AssertionError("actor_critic_backward (simple): two launches differ")
+    plan = K3.backward_plan(B, w.branch_off, K3._sm_count(torch.cuda.current_device()), 128)
+    rows["actor_critic_backward_simple"] = dict(
+        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, ref)), hidden=128,
+        batch=B, ms=gpu_ms(lambda: K3.actor_critic_backward(w, xb, feats, hidden, dlogits,
+                                                            dvalue)),
+        plain_ms=gpu_ms(lambda: K3.actor_critic_backward_plain(w, xb, feats, hidden, dlogits,
+                                                               dvalue)),
+        library_ms=gpu_ms(library_actor_critic_grad(w, xb, dlogits, dvalue)),
+        **backward_bounds(w, B, A), plan=plan._asdict())
+
+    # K9's A2C mode at the minibatch (run_simple_rl's vf and entropy coefficients)
+    r = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    logits, value = 2.0 * r(B, A), r(B)
+    action = torch.randint(0, A, (B,), device=dev, generator=gen, dtype=torch.int32)
+    spec = K9.LossSpec(action=action, ent_coef=0.01, adv=0.5 + 2.0 * r(B), ret=1.5 * r(B),
+                       vf_coef=0.5, mode="a2c")
+    got, ref = K9.policy_loss(spec, logits, value), K9.policy_loss_plain(spec, logits, value)
+    if not all(bool(close(g, rf).all()) for g, rf in zip(got, ref)):
+        raise AssertionError("policy_loss (A2C) disagrees with its plain version")
+    if not all(torch.equal(g, a) for g, a in zip(got, K9.policy_loss(spec, logits, value))):
+        raise AssertionError("policy_loss (A2C): two launches differ")
+    rows["policy_loss_a2c"] = dict(
+        max_abs_err=max(float((g - rf).abs().max()) for g, rf in zip(got, ref)), batch=B,
+        plan=K9.policy_loss_plan(B)._asdict(),
+        **gpu_spread(lambda: K9.policy_loss(spec, logits, value)),
+        plain_ms=gpu_ms(lambda: K9.policy_loss_plain(spec, logits, value), 5),
+        **bound(*policy_loss_cost(spec, B, A)), library_ms=None)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 12
+
+def plain_a2c_update(policy, optimizer, cfg, traj, last_values, ret_rms, perms):
+    """``rl.a2c.a2c_update`` through the plain versions on the card (the
+    reference of phase 12's comparison).  Returns (ret_rms, mean metrics [4])."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
+        actor_critic_train_forward_plain,
+    )
+    from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae_plain
+    from mansy_immersivevideostreaming_torch.kernels.policy_loss import (
+        LossSpec, policy_loss_plain,
+    )
+    from mansy_immersivevideostreaming_torch.rl.ppo import clip_grad_norm
+
+    T, N = traj.reward.shape
+    adv, ret = compute_gae_plain(traj.reward, traj.done, traj.value, last_values, cfg.gamma,
+                                 cfg.gae_lambda)
+    ret_n = ret / torch.sqrt(ret_rms.var + 1e-8) if cfg.rew_norm else ret
+    ret_rms = ret_rms.update(ret) if cfg.rew_norm else ret_rms
+    flat = dict(obs=traj.obs.reshape(T * N, -1), action=traj.action.reshape(-1),
+                adv=adv.reshape(-1), ret=ret_n.reshape(-1))
+    params = list(policy.parameters())
+    metrics = []
+    for idx in perms.reshape(-1, perms.shape[-1]):
+        mb = {k: v[idx] for k, v in flat.items()}
+        logits, value, _, _ = actor_critic_train_forward_plain(policy._pack(), mb["obs"])
+        spec = LossSpec(action=mb["action"], ent_coef=cfg.ent_coef, adv=mb["adv"],
+                        ret=mb["ret"], vf_coef=cfg.vf_coef, mode="a2c")
+        loss, terms, dlogits, dvalue = policy_loss_plain(spec, logits.detach(), value.detach())
+        optimizer.zero_grad(set_to_none=True)
+        torch.autograd.backward([logits, value], [dlogits, dvalue])
+        clip_grad_norm(params, cfg.max_grad_norm)
+        optimizer.step()
+        metrics.append(torch.cat([loss[None], terms]))
+    return ret_rms, torch.stack(metrics).mean(0)
+
+
+def compare_a2c_updates(policy, cfg, lr: float, traj, last_values, gen) -> dict:
+    """One A2C update from the same parameters, trajectory and permutations
+    through the kernels (``rl.a2c.a2c_update``) and through the plain path
+    on the card, each with a fresh RMSprop: the metrics and the running
+    return statistic within UPDATE_RTOL, the parameters as
+    ``compare_params`` holds them (phase 7's limits)."""
+    from mansy_immersivevideostreaming_torch.rl.a2c import a2c_update, make_optimizer
+    from mansy_immersivevideostreaming_torch.rl.types import RunningStat
+
+    T, N = traj.reward.shape
+    n_mb = T * N // cfg.minibatch
+    dev = traj.reward.device
+    perms = torch.stack([torch.randperm(T * N, generator=gen, device=dev)
+                         [:n_mb * cfg.minibatch].reshape(n_mb, cfg.minibatch)
+                         for _ in range(cfg.repeat)])
+    before = [p.detach().clone() for p in policy.parameters()]
+    kernel_p, plain_p = copy.deepcopy(policy), copy.deepcopy(policy)
+    stat_k, m = a2c_update(kernel_p, make_optimizer(kernel_p.parameters(), lr), cfg, traj,
+                           last_values, RunningStat.init(dev), perms=perms)
+    stat_p, m_plain = plain_a2c_update(plain_p, make_optimizer(plain_p.parameters(), lr), cfg,
+                                       traj, last_values, RunningStat.init(dev), perms)
+    m_kernel = torch.stack([m[k] for k in ("loss", "loss/actor", "loss/vf", "loss/ent")])
+    scalars = torch.cat([m_kernel, torch.stack(stat_k)])
+    ref = torch.cat([m_plain, torch.stack(stat_p)])
+    metric_err = float(((scalars - ref).abs() / ref.abs().clamp(min=1e-2)).max())
+    if metric_err > UPDATE_RTOL:
+        raise AssertionError(f"simple_rl: the kernels' update metrics differ from the plain "
+                             f"path's by {metric_err} (relative)")
+    steps = cfg.repeat * n_mb
+    return dict(minibatch_steps=steps, metric_rel_err=metric_err,
+                **compare_params(before, kernel_p, plain_p, lr * steps, "simple_rl"),
+                loss=float(m_kernel[0]), plain_loss=float(m_plain[0]))
+
+
+def simple_rl_phase(dev, counters, trained: dict):
+    """``run_simple_rl --train --qoe-train-id 0`` at the CLI defaults (128
+    lanes x 16 steps, minibatch 512: 4 minibatch steps an update, repeat 1,
+    2 collects an epoch) through ``run_simple_rl.a2c_round``, from Flax's
+    initialiser (orthogonal sqrt 2, zero bias) on tables of the train split's
+    shape with one preference: a warm-up round, then SIMPLE_RL_ROUNDS timed
+    rounds (one collect and its update each), one update profiled, and one
+    update through the kernels against the plain path.  The trained policy
+    goes into ``trained`` for phase 12b."""
+    from mansy_immersivevideostreaming_torch.cli import run_simple_rl
+    from mansy_immersivevideostreaming_torch.models.abr_nets import SimpleActorCritic
+    from mansy_immersivevideostreaming_torch.rl.a2c import a2c_update, make_optimizer
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes, make_collector
+    from mansy_immersivevideostreaming_torch.rl.types import RunningStat
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    args = run_simple_rl.build_parser().parse_args(["--train", "--qoe-train-id", "0"])
+    V, U, NT, C, _ = TRAIN_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, 1, seed=0, device=dev)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, 1), device=dev)
+    torch.manual_seed(args.seed)
+    policy = SimpleActorCritic(device=dev)
+    optimizer = make_optimizer(policy.parameters(), args.lr)
+    cfg = run_simple_rl.a2c_config(args)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    n_lanes = args.train_lanes
+    n_steps = max(args.step_per_collect // n_lanes, 1)
+    collect = make_collector(tables, samples, n_lanes, n_steps, train=True)
+    start = [p.detach().clone() for p in policy.parameters()]
+    carry = [init_lanes(tables, samples, n_lanes, args.seed), RunningStat.init(dev)]
+    losses = []
+
+    def run():
+        carry[0], carry[1], logs, metrics = run_simple_rl.a2c_round(
+            policy, optimizer, cfg, collect, carry[0], carry[1], gen)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        return logs
+
+    run()  # warm-up
+    n_mb = cfg.repeat * (n_lanes * n_steps // cfg.minibatch)
+    want = expect(counters, env_step=n_steps, observe_simple_pack=n_steps + 1,
+                  actor_critic_forward=n_steps + 1, compute_gae=1,
+                  actor_critic_train_forward=n_mb, policy_loss=n_mb, actor_critic_backward=n_mb)
+    _, seconds, launches = timed_passes(run, counters, want, SIMPLE_RL_ROUNDS)
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"simple_rl: non-finite losses {losses}")
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(policy.parameters(), start))
+    if not moved > 0:
+        raise AssertionError("simple_rl: the parameters did not move")
+
+    carry[0], traj, _, last_values = collect(policy, carry[0], gen)
+    if traj.obs.shape != (n_steps, n_lanes, 395):
+        raise AssertionError(f"simple_rl: observations of shape {tuple(traj.obs.shape)}")
+
+    def update():
+        carry[1], _ = a2c_update(policy, optimizer, cfg, traj, last_values, carry[1], gen)
+
+    profiled = profile_update(update, n_mb)
+    check = compare_a2c_updates(policy, cfg, args.lr, traj, last_values, gen)
+    trained["policy"] = policy
+    rate = rate_stats(n_lanes * n_steps, seconds)
+    return dict(lanes=n_lanes, steps=n_steps, minibatch=cfg.minibatch, repeat=cfg.repeat,
+                hidden=128, minibatch_steps_per_round=n_mb,
+                collects_per_epoch=max(args.step_per_epoch // (n_lanes * n_steps), 1),
+                passes=SIMPLE_RL_ROUNDS, seconds=seconds,
+                env_steps_per_s_median=rate["median"], env_steps_per_s_min=rate["min"],
+                env_steps_per_s_max=rate["max"], spread=rate["spread"],
+                ms_per_minibatch_update=profiled["ms_per_step"], update_profile=profiled,
+                last_losses=losses[-1], max_param_move=moved, kernels_vs_plain=check,
+                launches=launches)
+
+
+def simple_rl_test_phase(dev, counters, trained: dict):
+    """Phase 12b, ``run_simple_rl --test --deterministic-eval``'s evaluation
+    (``runner.evaluate``, K2's simple mode -> K3 -> K1 a step) of the
+    policy phase 12 trained, over the 1440-episode grid's shape in lane
+    chunks of 512: every lane finishes, and every episode record equals the
+    plain path's on the card."""
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    policy = trained["policy"]
+    V, U, NT, C, Q = TEST_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
+    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
+    evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
+    steps = -(-samples.shape[0] // SERVE_CHUNK) * episode_step_bound(tables)
+    (logs, masks), seconds, launches = timed_passes(
+        lambda: evaluate(policy, tables, samples, lane_chunk=SERVE_CHUNK, deterministic=True),
+        counters, expect(counters, env_step=steps, observe_simple_pack=steps,
+                         actor_critic_forward=steps))
+    n_eps = int(sum(m.sum() for m in masks))
+    if n_eps != samples.shape[0]:
+        raise AssertionError(f"simple_rl test: {n_eps} of {samples.shape[0]} lanes finished an "
+                             "episode")
+    ref_logs, ref_masks = plain_serve(policy, tables, samples)
+    qoe = compare_serve(logs, masks, ref_logs, ref_masks, "simple_rl test")
+    rate = rate_stats(n_eps, seconds)
+    return dict(episodes=n_eps, steps=steps, passes=PASSES, seconds=seconds, hidden=128,
+                episodes_per_s_median=rate["median"], episodes_per_s_min=rate["min"],
+                episodes_per_s_max=rate["max"], spread=rate["spread"], **qoe,
+                launches=launches)
+
+
+# ---------------------------------------------------------------- phase 13
+
+def ensemble_phase(dev, counters):
+    """``run_ensemble.run`` over the committed v7, v9, v18 and v21.last npz
+    (in that order, v7 the default; ``artifacts/round5/ensemble_v24_run.sh``)
+    at the CLI's defaults (``--route-grid full --route-gate sig``, unseen
+    preferences), with ``runner.build_split`` serving synthetic tables of
+    the valid split's shape (3 x 45 x 8, 60 chunks, 4 preferences: 4,320
+    episodes a component) and of the test grid's (1440 episodes):
+    ENSEMBLE_PASSES timed runs (episodes/s over the whole run), then the
+    same run with K1, K2 and K3 swapped for their plain versions
+    (``mock.patch``).  Every lane finishes; the route, the gate evidence,
+    the valid scores and every valid and test episode record equal the plain
+    run's (records as ``compare_serve``; scores and evidence within 1e-5).
+    The launches follow the run's schedule (lane chunks x episode steps),
+    which the records of each ``runner.evaluate`` call give; K3 counts
+    v18's share in its hidden-256 mode."""
+    from mansy_immersivevideostreaming_torch.cli import run_ensemble
+    from mansy_immersivevideostreaming_torch.config import default_config
+    from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+    from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+    from mansy_immersivevideostreaming_torch.kernels import observe as K2
+    from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
+    from mansy_immersivevideostreaming_torch.rl import runner
+    from mansy_immersivevideostreaming_torch.sim.env import (
+        generate_environment_samples, generate_environment_test_samples,
+    )
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V7_NPZ, DAGGER_V9_NPZ, DAGGER_V18_NPZ, DAGGER_V21_LAST_NPZ,
+    )
+
+    shapes = {"valid": (ENSEMBLE_VALID_SHAPE, 2), "test": (TEST_SHAPE, 1)}
+
+    def synthetic_split(config, dataset, network_dataset, mode, qoe_weights, test_grid=False,
+                        device="cuda"):
+        (V, U, NT, C, _), seed = shapes[mode]
+        tables = synthetic_sim_tables(V, U, NT, C, len(qoe_weights), seed=seed, device=device)
+        tables = tables._replace(qoe_weights=torch.tensor(qoe_weights, dtype=torch.float32,
+                                                          device=device))
+        make = generate_environment_test_samples if test_grid else generate_environment_samples
+        samples = torch.as_tensor(make(V, U, NT, len(qoe_weights)), device=device)
+        return tables, samples, list(range(V)), list(range(U)), list(range(NT))
+
+    real_evaluate = runner.evaluate
+    calls = []  # each evaluation's (steps, logs, masks, episodes), to hold against the plain run
+
+    def recorded(policy, tables, samples, *a, **k):
+        logs, masks = real_evaluate(policy, tables, samples, *a, **k)
+        steps = -(-samples.shape[0] // SERVE_CHUNK) * runner.episode_step_bound(tables)
+        calls.append((steps, logs, masks, int(samples.shape[0])))
+        return logs, masks
+
+    names = ["v7", "v9", "v18", "v21last"]
+    ckpts = [str(p) for p in (DAGGER_V7_NPZ, DAGGER_V9_NPZ, DAGGER_V18_NPZ, DAGGER_V21_LAST_NPZ)]
+    tmp = tempfile.mkdtemp(prefix="ensemble_")
+    csv_path, json_path = os.path.join(tmp, "results.csv"), os.path.join(tmp, "route.json")
+    args = run_ensemble.build_parser().parse_args(
+        ["--ckpts", *ckpts, "--names", *names, "--output-csv", csv_path,
+         "--route-json", json_path])
+    config = default_config(datasets_base_dir=tmp, results_base_dir=tmp, models_base_dir=tmp)
+
+    def run():
+        calls.clear()
+        with mock.patch.object(runner, "build_split", synthetic_split), \
+                mock.patch.object(runner, "evaluate", recorded), \
+                contextlib.redirect_stdout(io.StringIO()):  # its summary table
+            run_ensemble.run(args, config)
+        with open(json_path) as f:
+            return json.load(f), list(calls)
+
+    try:
+        _, schedule = run()  # warm-up: the route, and with it the schedule of every pass
+        steps = sum(c[0] for c in schedule)
+        want = expect(counters, env_step=steps, observe_mansy_pack=steps,
+                      actor_critic_forward=steps)
+        (route, calls_k), seconds, launches = timed_passes(run, counters, want,
+                                                           ENSEMBLE_PASSES)
+        for _, logs, masks, n in calls_k:
+            if int(sum(m.sum() for m in masks)) != n:
+                raise AssertionError(f"ensemble: a lane of a {n}-episode evaluation finished "
+                                     "no episode")
+        with open(csv_path) as f:
+            rows_k = f.read().splitlines()
+
+        # the plain path: K1, K2 and K3 swapped for their plain versions
+        for fn in counters:
+            fn.launches = 0
+        with mock.patch.object(MansyActorCritic, "observe",
+                               staticmethod(K2.observe_mansy_pack_plain)), \
+                mock.patch.object(runner, "actor_critic_forward", K3.actor_critic_forward_plain), \
+                mock.patch.object(K1, "env_step", K1.env_step_plain):
+            route_p, calls_p = run()
+        if any(fn.launches for fn in counters):
+            raise AssertionError("ensemble: the plain run launched a kernel")
+    finally:
+        for path in (csv_path, json_path):
+            if os.path.exists(path):
+                os.remove(path)
+        os.rmdir(tmp)
+
+    if route["route"] != route_p["route"]:
+        raise AssertionError(f"ensemble: route {route['route']}, plain path {route_p['route']}")
+    for ev, ev_p in zip(route["gate_evidence"], route_p["gate_evidence"]):
+        if (ev["candidate"], ev["n"], ev["routed"]) != (ev_p["candidate"], ev_p["n"],
+                                                         ev_p["routed"]) \
+                or abs(ev["edge"] - ev_p["edge"]) > 1e-5 or abs(ev["se"] - ev_p["se"]) > 1e-5:
+            raise AssertionError(f"ensemble: gate evidence {ev}, plain path {ev_p}")
+    for name in names:
+        if not np.allclose(route["valid_scores"][name], route_p["valid_scores"][name],
+                           rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"ensemble: valid scores of {name} differ from the plain path")
+    differing = 0
+    for k, p in zip(calls_k, calls_p):
+        differing += compare_serve(k[1], k[2], p[1], p[2], "ensemble")["episodes_differing"]
+    episodes = sum(c[3] for c in calls_k)
+    rate = rate_stats(episodes, seconds)
+    margin = min((abs(ev["edge"] - args.route_z * ev["se"]) for ev in route["gate_evidence"]
+                  if ev["candidate"] != 0), default=None)  # how near a gated route came to flipping
+    return dict(components=names, episodes=episodes,
+                valid_episodes=sum(c[3] for c in calls_k[:len(names)]),
+                test_episodes=sum(c[3] for c in calls_k[len(names):]),
+                test_csv_rows=len(rows_k) - 1, steps=steps, passes=ENSEMBLE_PASSES,
+                seconds=seconds, episodes_per_s_median=rate["median"],
+                episodes_per_s_min=rate["min"], episodes_per_s_max=rate["max"],
+                spread=rate["spread"], route=route["route"],
+                gate_evidence=route["gate_evidence"], smallest_gate_margin=margin,
+                test_grid_mean=route["test_grid_mean"],
+                plain_test_grid_mean=route_p["test_grid_mean"], episodes_differing=differing,
+                launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout of the repo (e.g. the parent commit's, from "
-                             "git archive): its K10, K8, K1, K9, K2, K7, K5 and K6 are built and "
+                             "git archive): its K3, K10, K8, K1, K9, K2, K7, K5 and K6 are built and "
                              "timed beside this tree's (earlier_ms)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2630,7 +3205,9 @@ def main() -> int:
     from mansy_immersivevideostreaming_torch.kernels.env_step import env_step
     from mansy_immersivevideostreaming_torch.kernels.expert_tables import build_expert_tables
     from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
-    from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
+    from mansy_immersivevideostreaming_torch.kernels.observe import (
+        observe_mansy_pack, observe_simple_pack,
+    )
     from mansy_immersivevideostreaming_torch.kernels.policy_loss import policy_loss
     from mansy_immersivevideostreaming_torch.kernels.attention import (
         attention, attention_backward, attention_train_forward,
@@ -2647,7 +3224,7 @@ def main() -> int:
     counters = (env_step, observe_mansy_pack, actor_critic_forward, choose_action,
                 build_expert_tables, compute_gae, policy_loss, actor_critic_train_forward,
                 actor_critic_backward, chunk_maps, trajectory_metrics, attention,
-                attention_train_forward, attention_backward)
+                attention_train_forward, attention_backward, observe_simple_pack)
 
     t0 = time.time()
     parent = load_parent(opts.parent) if opts.parent else None
@@ -2658,8 +3235,9 @@ def main() -> int:
         rows[name]["action_values"] = fields
     rows.update(training_kernel_phase(dev, parent))
     rows.update(viewport_kernel_phase(dev, parent))
+    rows.update(simple_kernel_phase(dev))
     log(f"kernels checked in {time.time() - t0:.1f}s")
-    paths = {}
+    paths, trained = {}, {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
                       ("collect", lambda: collect_phase(dev, counters)),
                       ("expert", lambda: expert_phase(dev, counters)),
@@ -2670,7 +3248,10 @@ def main() -> int:
                       ("dagger", lambda: dagger_phase(dev, counters)),
                       ("vp_test", lambda: vp_test_phase(dev, counters)),
                       ("vp_export", lambda: vp_export_phase(dev, counters)),
-                      ("vp_train", lambda: vp_train_phase(dev, counters))):
+                      ("vp_train", lambda: vp_train_phase(dev, counters)),
+                      ("simple_rl", lambda: simple_rl_phase(dev, counters, trained)),
+                      ("simple_rl_test", lambda: simple_rl_test_phase(dev, counters, trained)),
+                      ("ensemble", lambda: ensemble_phase(dev, counters))):
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
@@ -2679,43 +3260,42 @@ def main() -> int:
     log(f"serve step_profile: {json.dumps(paths['serve']['step_profile'])}")
     log(f"collect step_profile: {json.dumps(paths['collect']['step_profile'])}")
     log(f"expert decision_profile: {json.dumps(paths['expert']['decision_profile'])}")
-    # the kernels each path runs; every one must have launched on it
+    # the kernels-line rows (kernels and modes) each path runs; every one must
+    # have launched on it
+    serve = ("env_step", "observe_mansy_pack", "actor_critic_forward")
     training = ("actor_critic_train_forward", "policy_loss", "actor_critic_backward")
-    path_kernels = {"serve": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
-                    "collect": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
+    wide = ("actor_critic_forward_h256", "actor_critic_train_forward_h256", "policy_loss",
+            "actor_critic_backward_h256")
+    simple = ("env_step", "observe_simple_pack", "actor_critic_forward_simple")
+    path_kernels = {"serve": serve, "collect": serve,
                     "expert": ("env_step", "choose_action", "build_expert_tables"),
-                    "serve_v16": ("env_step", "observe_mansy_pack", "actor_critic_forward",
-                                  "build_expert_tables"),
-                    "serve_v18": ("env_step", "observe_mansy_pack", "actor_critic_forward"),
-                    "train": ("env_step", "observe_mansy_pack", "actor_critic_forward",
-                              "compute_gae") + training,
-                    "train_256": ("env_step", "observe_mansy_pack", "actor_critic_forward",
-                                  "compute_gae") + training,
-                    "dagger": ("env_step", "observe_mansy_pack", "actor_critic_forward",
-                               "choose_action") + training,
-                    "vp_test": ("attention", "trajectory_metrics"),
-                    "vp_export": ("attention", "chunk_maps"),
-                    "vp_train": ("attention_train_forward", "attention_backward")}
+                    "serve_v16": serve + ("build_expert_tables",),
+                    "serve_v18": ("env_step", "observe_mansy_pack", "actor_critic_forward_h256"),
+                    "train": serve + ("compute_gae",) + training,
+                    "train_256": ("env_step", "observe_mansy_pack", "compute_gae") + wide,
+                    "dagger": serve + ("choose_action",) + training,
+                    "vp_test": ("attention", "tile_occupancy"),
+                    "vp_export": ("attention", "tile_occupancy"),
+                    "vp_train": ("attention_train_forward", "attention_backward"),
+                    "simple_rl": simple + ("compute_gae", "actor_critic_train_forward_simple",
+                                           "policy_loss_a2c", "actor_critic_backward_simple"),
+                    "simple_rl_test": simple,
+                    "ensemble": serve + ("actor_critic_forward_h256",)}
     for path, names in path_kernels.items():
         for name in names:
-            if paths[path]["launches"][name] == 0:
+            if paths[path]["launches"].get(name, 0) == 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
-    for fn in counters:  # the counts of one pass of each path
-        name, row = fn.__name__, rows[ROW_OF.get(fn.__name__, fn.__name__)]
-        per_path = {path: paths[path]["launches"][name] for path in paths}
-        wide = rows.get(f"{name}_h256")
-        if wide is not None:  # the hidden-256 paths' launches go to the width's own row
-            wide_paths = {p: n for p, n in per_path.items() if p in WIDE_PATHS}
-            wide.update(launches=sum(wide_paths.values()), launches_per_path=wide_paths,
-                        launches_per_step={p: n / paths[p]["steps"] for p, n in wide_paths.items()})
-            per_path = {p: n for p, n in per_path.items() if p not in WIDE_PATHS}
-        if name in ROW_OF:  # one row, several wrappers: the counts add up
-            row.setdefault("launches_by_wrapper", {})[name] = per_path
-            per_path = {p: n + row.get("launches_per_path", {}).get(p, 0)
-                        for p, n in per_path.items()}
-        row.update(launches=sum(per_path.values()), launches_per_path=per_path,
-                   launches_per_step={path: per_path[path] / paths[path]["steps"]
-                                      for path in per_path})
+    for path, result in paths.items():
+        if set(result["launches"]) - set(KERNELS):
+            raise AssertionError(f"{path}: launches in rows the kernels line has not: "
+                                 f"{set(result['launches']) - set(KERNELS)}")
+    # row -> path -> launches of one pass of the path
+    per_row = {row: {path: result["launches"].get(row, 0) for path, result in paths.items()}
+               for row in KERNELS}
+    for row, per_path in per_row.items():
+        rows[row].update(launches=sum(per_path.values()), launches_per_path=per_path,
+                         launches_per_step={path: n / paths[path]["steps"]
+                                            for path, n in per_path.items()})
     kernels = [dict(name=name, **KERNELS[name], **rows[name]) for name in KERNELS]
     print(json.dumps({**{path: {k: v for k, v in r.items() if k != "launches"}
                          for path, r in paths.items()}, "card": card}))

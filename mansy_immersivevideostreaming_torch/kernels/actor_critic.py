@@ -4,7 +4,9 @@ K10: its backward (wrappers, plain versions, launch counts).
 Replaces the JAX package's ``models/abr_nets.py:_branch``,
 ``MansyFeatureNet`` and ``MansyActorCritic.__call__`` (``:105-186``, with
 the exact ``action_values`` field when ``use_action_values`` or
-``av_logit_prior`` is set) plus the action head of
+``av_logit_prior`` is set) and ``SimpleActorCritic.__call__`` (``:206-231``:
+five branches, no cond branch and no residual, ``cond`` = -1) plus the
+action head of
 ``rl/rollout.py:52-54`` and ``rl/runner.py:123-126``: log_softmax and the
 first-index argmax of ``logits + noise`` (Gumbel noise for sampling, none
 for the deterministic argmax).
@@ -42,10 +44,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from mansy_immersivevideostreaming_torch.kernels import build
+from mansy_immersivevideostreaming_torch.kernels import build, count_launch
 
-MAX_BRANCHES = 11  # 10, or 11 with the action-value branch
-COND_BRANCH_INDEX = 9  # the cond branch, whose features are the residual
+MAX_BRANCHES = 11  # 10, or 11 with the action-value branch (5: the simple_rl net)
+COND_BRANCH_INDEX = 9  # the MANSY net's cond branch, whose features are the residual
 WIDTHS = (128, 256)  # the hidden widths the kernels are instantiated at
 MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
 # K10's tiling (csrc/actor_critic_backward.cu): launch A takes 32-row tiles of
@@ -59,14 +61,15 @@ BACKWARD_HEAD_BLOCKS = 0.25     # launch A's head, in the time of one column blo
 
 
 class ActorCriticWeights(NamedTuple):
-    """MansyActorCritic's parameters in the layout the kernel reads (Flax's
-    [in, out] kernels).  Branch b maps columns ``branch_off[b]:
-    branch_off[b+1]`` of the packed observation to features ``Hb:Hb+H``
-    (block-diagonal, stored compactly by input rows); branch 9 is ``cond``
-    and the optional branch 10 reads the action values.  With
+    """MansyActorCritic's or SimpleActorCritic's parameters in the layout the
+    kernel reads (Flax's [in, out] kernels).  Branch b maps columns
+    ``branch_off[b]:branch_off[b+1]`` of the packed observation to features
+    ``Hb:Hb+H`` (block-diagonal, stored compactly by input rows); branch
+    ``cond`` (9 in the MANSY net, -1 for none) is the residual added to both
+    heads' inputs, and the optional branch 10 reads the action values.  With
     ``av_prior`` != 0 the actor logits get ``av_prior`` times the standardized
     action values at columns ``av_off:av_off+A``."""
-    w_branch: torch.Tensor      # [748 or 764, H]
+    w_branch: torch.Tensor      # [748 or 764 (395: simple), H]
     b_branch: torch.Tensor      # [nb, H]
     w_fc: torch.Tensor          # [nb H, 2 H]: actor_fc | critic_fc
     b_fc: torch.Tensor          # [2 H]
@@ -77,9 +80,17 @@ class ActorCriticWeights(NamedTuple):
     branch_off: Tuple[int, ...]  # nb + 1 column offsets into the packed observation
     av_off: int = -1            # column of the action values (-1: none)
     av_prior: float = 0.0       # the logit prior's beta
+    cond: int = COND_BRANCH_INDEX  # the residual's branch, -1 for none
 
 
 TENSOR_FIELDS = ActorCriticWeights._fields[:8]  # the weights; the rest are static
+
+
+def launch_mode(w: ActorCriticWeights) -> str:
+    """The mode a launch on ``w`` counts in (``launches_by_mode``): the net,
+    ``cond`` (the MANSY net) or ``simple`` (no cond branch), and its hidden
+    width, e.g. ``cond256``."""
+    return f"{'cond' if w.cond >= 0 else 'simple'}{w.b_branch.shape[1]}"
 
 
 def gumbel_noise(shape, generator: Optional[torch.Generator],
@@ -111,7 +122,7 @@ def actor_critic_train_forward_plain(w: ActorCriticWeights, x: torch.Tensor):
     for b in range(len(w.branch_off) - 1):
         lo, hi = w.branch_off[b], w.branch_off[b + 1]
         feats.append(F.leaky_relu(x[:, lo:hi] @ w.w_branch[lo:hi] + w.b_branch[b], 0.01))
-    cond = feats[COND_BRANCH_INDEX]
+    cond = feats[w.cond] if w.cond >= 0 else 0.0
     feats = torch.cat(feats, dim=-1)
     hidden = F.leaky_relu(feats @ w.w_fc + w.b_fc, 0.01)
     H = w.b_branch.shape[1]
@@ -140,24 +151,25 @@ class _ActorCriticArgs(ctypes.Structure):
         "b_cout", "noise", "logits", "value", "action", "log_prob", "feats", "hidden")]
         + [(f, ctypes.c_int32) for f in ("n_lanes", "ldx", "A", "num_branches", "hidden_dim")]
         + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1)), ("av_off", ctypes.c_int32),
-           ("av_prior", ctypes.c_float)])
+           ("av_prior", ctypes.c_float), ("cond", ctypes.c_int32)])
 
 
 def _weight_tensors(w: ActorCriticWeights, x: torch.Tensor):
-    """The kernel's weight pointers by argument name, checked: 10 or 11
-    branches of a hidden width in WIDTHS, contiguous f32 tensors on x's
-    device."""
+    """The kernel's weight pointers by argument name, checked: up to 11
+    branches of a hidden width in WIDTHS, the cond branch one of them or
+    none, contiguous f32 tensors on x's device."""
     A = w.w_actor_out.shape[1]
     nb, H = len(w.branch_off) - 1, w.b_branch.shape[-1]
     if H not in WIDTHS:
         raise ValueError(f"actor_critic kernels take hidden width 128 or 256 (the widths of "
                          f"the committed policies), got {H}")
-    if nb not in (MAX_BRANCHES - 1, MAX_BRANCHES) or w.b_branch.shape != (nb, H) \
+    if not 1 <= nb <= MAX_BRANCHES or not -1 <= w.cond < nb or w.b_branch.shape != (nb, H) \
             or A > MAX_ACTIONS or x.shape[1] < w.branch_off[-1] \
             or (w.av_prior and not 0 <= w.av_off <= x.shape[1] - A):
-        raise ValueError(f"actor_critic kernel needs 10 or 11 branches, <= {MAX_ACTIONS} "
-                         f"actions, {w.branch_off[-1]} observation columns and the prior's "
-                         f"action values inside them")
+        raise ValueError(f"actor_critic kernel needs 1 to {MAX_BRANCHES} branches, a cond "
+                         f"branch among them or none, <= {MAX_ACTIONS} actions, "
+                         f"{w.branch_off[-1]} observation columns and the prior's action "
+                         f"values inside them")
     tensors = {"x": x, "w_branch": w.w_branch, "b_branch": w.b_branch, "w_fc": w.w_fc,
                "b_fc": w.b_fc, "w_aout": w.w_actor_out, "b_aout": w.b_actor_out,
                "w_cout": w.w_critic_out, "b_cout": w.b_critic_out}
@@ -176,7 +188,7 @@ def _args(w: ActorCriticWeights, n_lanes: int, ldx: int = 0, **pointers) -> _Act
         n_lanes=n_lanes, ldx=ldx, A=w.w_actor_out.shape[1], num_branches=len(w.branch_off) - 1,
         hidden_dim=w.b_branch.shape[-1],
         branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off),
-        av_off=max(w.av_off, 0), av_prior=float(w.av_prior))
+        av_off=max(w.av_off, 0), av_prior=float(w.av_prior), cond=int(w.cond))
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,11 +270,12 @@ def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,
                action=torch.empty(N, dtype=torch.int32, device=dev),
                log_prob=torch.empty(N, dtype=torch.float32, device=dev))
     _launch_forward(w, x, tensors, **out)
-    actor_critic_forward.launches += 1
+    count_launch(actor_critic_forward, launch_mode(w))
     return out["logits"], out["value"], out["action"], out["log_prob"]
 
 
 actor_critic_forward.launches = 0
+actor_critic_forward.launches_by_mode = {}
 
 
 def actor_critic_train_forward(w: ActorCriticWeights, x: torch.Tensor):
@@ -279,11 +292,12 @@ def actor_critic_train_forward(w: ActorCriticWeights, x: torch.Tensor):
                feats=torch.empty((N, nb * H), dtype=torch.float32, device=dev),
                hidden=torch.empty((N, 2 * H), dtype=torch.float32, device=dev))
     _launch_forward(w, x, tensors, **out)
-    actor_critic_train_forward.launches += 1
+    count_launch(actor_critic_train_forward, launch_mode(w))
     return out["logits"], out["value"], out["feats"], out["hidden"]
 
 
 actor_critic_train_forward.launches = 0
+actor_critic_train_forward.launches_by_mode = {}
 
 
 def actor_critic_backward_plain(w: ActorCriticWeights, x: torch.Tensor, feats: torch.Tensor,
@@ -296,14 +310,15 @@ def actor_critic_backward_plain(w: ActorCriticWeights, x: torch.Tensor, feats: t
     H = w.b_branch.shape[1]
     nb = len(w.branch_off) - 1
     leaky_grad = lambda out, g: torch.where(out >= 0, g, 0.01 * g)
-    cond = feats[:, COND_BRANCH_INDEX * H:(COND_BRANCH_INDEX + 1) * H]
+    cols = slice(w.cond * H, (w.cond + 1) * H)
+    cond = feats[:, cols] if w.cond >= 0 else 0.0
     y_a, y_c = hidden[:, :H] + cond, hidden[:, H:] + cond
     dy_a = dlogits @ w.w_actor_out.t()
     dy_c = dvalue[:, None] * w.w_critic_out[:, 0]
     dpre_fc = leaky_grad(hidden, torch.cat([dy_a, dy_c], dim=1))
     dfeats = dpre_fc @ w.w_fc.t()
-    cols = slice(COND_BRANCH_INDEX * H, (COND_BRANCH_INDEX + 1) * H)
-    dfeats[:, cols] = dfeats[:, cols] + (dy_a + dy_c)
+    if w.cond >= 0:
+        dfeats[:, cols] = dfeats[:, cols] + (dy_a + dy_c)
     dpre_b = leaky_grad(feats, dfeats)
     dw_branch = torch.cat([
         x[:, w.branch_off[b]:w.branch_off[b + 1]].t() @ dpre_b[:, b * H:(b + 1) * H]
@@ -320,7 +335,7 @@ class _ActorCriticBackwardArgs(ctypes.Structure):
         "db_cout")]
         + [(f, ctypes.c_int32) for f in ("B", "ldx", "A", "num_branches", "hidden_dim", "groups",
                                           "slices")]
-        + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1))])
+        + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1)), ("cond", ctypes.c_int32)])
 
 
 class BackwardPlan(NamedTuple):
@@ -410,16 +425,18 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
     args = _ActorCriticBackwardArgs(
         **{k: t.data_ptr() for k, t in {**inputs, **scratch, **grads}.items()},
         B=B, ldx=x.stride(0), A=A, num_branches=nb, hidden_dim=H, groups=plan.groups,
-        slices=plan.slices, branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off))
+        slices=plan.slices, branch_off=(ctypes.c_int32 * (MAX_BRANCHES + 1))(*w.branch_off),
+        cond=int(w.cond))
     err = _backward_lib().actor_critic_backward_launch(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"actor_critic_backward kernel launch failed with CUDA error {err}")
-    actor_critic_backward.launches += 1
+    count_launch(actor_critic_backward, launch_mode(w))
     return tuple(grads.values())
 
 
 actor_critic_backward.launches = 0
+actor_critic_backward.launches_by_mode = {}
 
 
 class _ActorCriticTrain(torch.autograd.Function):

@@ -1,8 +1,9 @@
 // K3: MANSY actor-critic forward with its action head, in f32.
 //
 // Replaces the JAX package's XLA-fused models/abr_nets.py:_branch,
-// MansyFeatureNet and MansyActorCritic.__call__ (:105-186) plus the action
-// head of rl/rollout.py:52-54 and rl/runner.py:123-126 (log_softmax and the
+// MansyFeatureNet and MansyActorCritic.__call__ (:105-186), and
+// SimpleActorCritic.__call__ (:206-231), plus the action head of
+// rl/rollout.py:52-54 and rl/runner.py:123-126 (log_softmax and the
 // first-index argmax of logits + Gumbel noise).  The plain PyTorch version
 // is kernels/actor_critic.py:actor_critic_forward_plain.
 //
@@ -10,11 +11,13 @@
 // policy; a template parameter): 10 branch dense layers (748 -> 10 x H,
 // block-diagonal), or 11 with the action-value branch (764 -> 11 x H), with
 // LeakyReLU(0.01); actor_fc and critic_fc (10 or 11 x H -> 2 x H) with
-// LeakyReLU; the "+ cond" residual (branch 9); actor_out (H -> A) and
+// LeakyReLU; the "+ cond" residual (branch `cond`, 9); actor_out (H -> A) and
 // critic_out (H -> 1); the optional action-value logit prior
 // beta * (av - mean) / (std + 1e-6) (population std, abr_nets.py:176-180);
 // log_softmax and argmax.  About 0.85 MFLOP a lane at H = 128 (0.94 with 11
-// branches), 3.0 at H = 256.
+// branches), 3.0 at H = 256.  The simple_rl net (cond = -1) is the same
+// network without the residual: 5 branches (395 -> 5 x 128), fc and heads,
+// about 0.42 MFLOP a lane.
 //
 // Training mode (feats and hidden given, kernels/actor_critic.py:
 // actor_critic_train_forward): no noise and no action head; it also writes
@@ -71,7 +74,8 @@
 // owns a slice of the 256 fc columns and sums P_0 .. P_{G-1} for it from
 // the cluster's shared memory in rank order (no atomics: every run gives
 // the same bits), adds the bias, the LeakyReLU and the cond residual
-// (branch 9's features, read from that CTA), and multiplies its slice by
+// (the cond branch's features, read from its CTA; none in the simple_rl
+// net), and multiplies its slice by
 // the heads' rows into partial logits and value, which it stores into CTA
 // 0's shared memory.  After a second barrier CTA 0 sums those partials in
 // rank order and runs the epilogue: the prior, log_softmax and the
@@ -88,8 +92,7 @@ using namespace mansy::tc;
 
 namespace {
 
-constexpr int kMaxNB = 11;     // feature-net branches: 10, or 11 with action values
-constexpr int kCond = 9;       // the cond branch, whose features are the residual
+constexpr int kMaxNB = 11;     // feature-net branches: 10, or 11 with action values (5: simple)
 constexpr int kMaxUnits = 16;  // CTAs a cluster may have (the non-portable maximum)
 constexpr int kMaxDevices = 16;
 constexpr int kBM = 32;        // rows a tile
@@ -158,18 +161,19 @@ struct ActorCriticArgs {
   float* feats;           // [N, nb * H] branch features, or null (training mode)
   float* hidden;          // [N, 2H] fc outputs before the residual, or null
   int32_t n_lanes, ldx, A;
-  int32_t num_branches;        // nb: 10 or 11
+  int32_t num_branches;        // nb: 10 or 11 (5: the simple_rl net)
   int32_t hidden_dim;          // H: 128 or 256
   int32_t branch_off[kMaxNB + 1];
   int32_t av_off;              // column of the action values (the prior's input)
   float av_prior;              // beta; 0 for no prior
+  int32_t cond;                // the cond branch, whose features are the residual; -1: none
 };
 
 // How a tile's work is split across its cluster (make_plan).
 struct Plan {
   int32_t ctas;                  // G: CTAs a tile
   int32_t split;                 // 1: one unit a CTA, the wide branches in input halves
-  int32_t cond_cta;              // the CTA whose last unit is the cond branch
+  int32_t cond_cta;              // the CTA whose last unit is the cond branch; -1: none
   int32_t first[kMaxUnits + 1];  // CTA r runs units unit[first[r]] .. unit[first[r + 1] - 1]
   int32_t unit[kMaxUnits];       // 2 * branch + part
 };
@@ -407,7 +411,7 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
   const int c_lo = rank * per, ncols = min(per, kF - c_lo);
   float* Lp = Ps + kBM * kPS;        // [nc][kBM][kOut] CTA 0: the partial heads
   float* Ys = Lp + nc * kBM * kOut;  // [kBM][ys] this CTA's fc outputs + residual
-  const float* cond = cluster.map_shared_rank(Fs, p.cond_cta);
+  const float* cond = p.cond_cta >= 0 ? cluster.map_shared_rank(Fs, p.cond_cta) : nullptr;
   for (int e = tid; e < kBM * ncols; e += kThreads) {
     const int m = e / ncols, jc = e % ncols, col = c_lo + jc;
     float q[kMaxUnits];
@@ -420,7 +424,7 @@ actor_critic_kernel(const __grid_constant__ ActorCriticArgs a, const __grid_cons
       if (r < nc) sum += q[r];
     const float h = leaky(sum + a.b_fc[col]);
     if (a.hidden && row0 + m < a.n_lanes) a.hidden[(size_t)(row0 + m) * kF + col] = h;
-    Ys[m * ys + jc] = h + cond[m * kFS + (col & (kH - 1))];
+    Ys[m * ys + jc] = cond ? h + cond[m * kFS + (col & (kH - 1))] : h;
   }
   __syncthreads();
 
@@ -588,8 +592,8 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
       const int st = unit_of<kH>(a, true, 2 * b + part).stages;
       unit_walk = st > unit_walk ? st : unit_walk;
     }
-  const bool can_split =
-      units > nb && units <= kMaxUnits && branch_parts<kH>(a, kCond, true) == 1;
+  const bool can_split = units > nb && units <= kMaxUnits &&
+                         (a.cond < 0 || branch_parts<kH>(a, a.cond, true) == 1);
   int owner[kMaxNB];
   long best_cost = -1;
   int best_g = 1;
@@ -612,11 +616,12 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
   }
   p.ctas = best_g;
   p.split = best_split;
+  p.cond_cta = -1;
   int n = 0;
   if (best_split) {
     for (int b = 0; b < nb; ++b)
       for (int part = 0; part < branch_parts<kH>(a, b, true); ++part) {
-        if (b == kCond) p.cond_cta = n;
+        if (b == a.cond) p.cond_cta = n;
         p.first[n] = n;
         p.unit[n++] = 2 * b + part;
       }
@@ -627,10 +632,10 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
   for (int r = 0; r < best_g; ++r) {  // each CTA's branches in order, the cond branch last
     p.first[r] = n;
     for (int b = 0; b < nb; ++b)
-      if (owner[b] == r && b != kCond) p.unit[n++] = 2 * b;
-    if (owner[kCond] == r) {
+      if (owner[b] == r && b != a.cond) p.unit[n++] = 2 * b;
+    if (a.cond >= 0 && owner[a.cond] == r) {
       p.cond_cta = r;
-      p.unit[n++] = 2 * kCond;
+      p.unit[n++] = 2 * a.cond;
     }
   }
   p.first[best_g] = n;
@@ -639,6 +644,8 @@ cudaError_t make_plan(const ActorCriticArgs& a, int tiles, Plan& p) {
 
 template <int kH>
 cudaError_t plan_of(const ActorCriticArgs& a, Plan& p) {
+  if (a.num_branches < 1 || a.num_branches > kMaxNB || a.cond < -1 || a.cond >= a.num_branches)
+    return cudaErrorInvalidValue;
   const cudaError_t e = set_attributes<kH>();
   return e == cudaSuccess ? make_plan<kH>(a, (a.n_lanes + kBM - 1) / kBM, p) : e;
 }

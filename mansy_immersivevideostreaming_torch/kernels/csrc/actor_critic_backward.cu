@@ -3,7 +3,8 @@
 // Replaces what jax.grad derives from the JAX package's
 // models/abr_nets.py:_branch, MansyFeatureNet and MansyActorCritic.__call__
 // (:105-186) in the PPO, BC and DAgger updates (rl/ppo.py:163,
-// rl/bc.py:39, rl/dagger.py:133).  The plain PyTorch version is
+// rl/bc.py:39, rl/dagger.py:133), and from SimpleActorCritic.__call__
+// (:206-231) in the A2C update (rl/a2c.py:88).  The plain PyTorch version is
 // kernels/actor_critic.py:actor_critic_backward_plain.  It reads the
 // activations K3's training mode saved (the branch features F [B, nb x H]
 // and the fc outputs Hf [B, 2H], both after LeakyReLU; H is the hidden
@@ -11,7 +12,9 @@
 // LeakyReLU's derivative from the sign of its output (1 where it is >= 0,
 // as jax.nn.leaky_relu's where(x >= 0, ...) gives it, else 0.01).
 //
-// With y = Hf + [cond, cond] (the heads' inputs; cond is branch 9):
+// With y = Hf + [cond, cond] (the heads' inputs; cond is branch `cond`, 9 in
+// the MANSY net; the simple_rl net has none, cond = -1, and then y = Hf and
+// no block gets the residual's gradient):
 //   dW_aout = y_a^T dlogits, dW_cout = y_c^T dvalue, their biases the sums;
 //   dPre_fc = [dlogits W_aout^T, dvalue W_cout^T] * leaky'(Hf);
 //   dW_fc = F^T dPre_fc [nb x H, 2H], db_fc its column sums;
@@ -67,8 +70,7 @@ using namespace mansy::tc;
 
 namespace {
 
-constexpr int kMaxNB = 11;     // branches: 10, or 11 with action values
-constexpr int kCond = 9;       // the cond branch
+constexpr int kMaxNB = 11;     // branches: 10, or 11 with action values (5: simple)
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBK = 32;        // k rows a pipeline stage
 // launch A: 32-row tiles, one H-column block at a time
@@ -134,6 +136,7 @@ struct ActorCriticBackwardArgs {
   int32_t groups;        // launch A: CTAs a row tile, each a run of its column blocks
   int32_t slices;        // launch B: depth slices of an output tile (its cluster's CTAs)
   int32_t branch_off[kMaxNB + 1];
+  int32_t cond;          // the cond branch (the residual); -1: none
 };
 
 // C[m, n] = sum over the batch k of A(m, k) B(k, n), with A(m, k) = a[k lda + m]
@@ -236,7 +239,7 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
       pa = leaky_grad(ha, dya);
       pc = leaky_grad(hc, dyc);
       if (group == 0) {  // what launch B reads, written once
-        const float cond = a.feats[(size_t)row * F + kCond * kH + n];
+        const float cond = a.cond >= 0 ? a.feats[(size_t)row * F + a.cond * kH + n] : 0.f;
         a.y[(size_t)row * kF + n] = ha + cond;
         a.y[(size_t)row * kF + kH + n] = hc + cond;
         a.dpre_fc[(size_t)row * kF + n] = pa;
@@ -290,7 +293,7 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
           float v0 = acc[i][j][2 * r], v1 = acc[i][j][2 * r + 1];
           acc[i][j][2 * r] = acc[i][j][2 * r + 1] = 0.f;
           if (row >= a.B) continue;
-          if (b == kCond) {  // the residual's gradient dcond = dy_a + dy_c, as in the head
+          if (b == a.cond) {  // the residual's gradient dcond = dy_a + dy_c, as in the head
             const float dv = a.dvalue[row];
             v0 += head_dya<kH>(Dl, Ws, m, n, A) + dv * a.w_cout[n];
             v1 += head_dya<kH>(Dl, Ws, m, n + 1, A) + dv * a.w_cout[n + 1];
@@ -470,8 +473,8 @@ extern "C" int actor_critic_backward_launch(const ActorCriticBackwardArgs* args,
   cudaStream_t s = (cudaStream_t)stream;
   const int B = a.B, A = a.A, nb = a.num_branches, S = a.slices;
   const int H = a.hidden_dim, F = nb * H, F2 = 2 * H;
-  if (nb > kMaxNB || nb <= kCond || A > kMaxA || a.groups < 1 || a.groups > nb || S < 1 ||
-      S > kMaxSlices || (S & (S - 1)) != 0 || (H != 128 && H != 256))
+  if (nb > kMaxNB || nb < 1 || a.cond < -1 || a.cond >= nb || A > kMaxA || a.groups < 1 ||
+      a.groups > nb || S < 1 || S > kMaxSlices || (S & (S - 1)) != 0 || (H != 128 && H != 256))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

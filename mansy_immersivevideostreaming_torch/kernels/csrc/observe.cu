@@ -1,15 +1,21 @@
-// K2: MANSY observation gather into one contiguous [N, F] f32 buffer.
+// K2: MANSY observation gather into one contiguous [N, F] f32 buffer, and
+// its simple mode, the simple_rl observation.
 //
 // Replaces the JAX package's XLA-fused sim/env.py:observe_mansy (:262-286)
-// and, when the tables carry action values, exact_action_values (:220-259).
-// The plain PyTorch version is kernels/observe.py:observe_mansy_pack_plain.
+// and, when the tables carry action values, exact_action_values (:220-259);
+// in simple mode (`simple` set) observe_simple (:289-300).  The plain
+// PyTorch versions are kernels/observe.py:observe_mansy_pack_plain and
+// observe_simple_pack_plain.
 //
 // Row layout (the feature net's inputs first, in its concat order, then the
 // fields it does not read): throughput K | next_chunk_size R*T |
 // next_chunk_quality R*T | pred_viewport T | viewport_acc K | past_vq K |
 // past_var K | past_rebuf K | buffer 1 | qoe_weight 3 | [action_values A+1] |
 // rates_inside K | rates_outside K | action_one_hot A.  The bracketed field
-// is there only with action-value tables (av_quality not null).
+// is there only with action-value tables (av_quality not null).  Simple
+// mode's row, in SimpleActorCritic's concat order: throughput K |
+// chunk_sizes R*T | rebuffer 1 | last_bitrates 2 (rates_inside[0],
+// rates_outside[0]) | pred_viewport T (395 floats at K 8, R 5, T 64).
 //
 // Bound: device-memory bytes.  A gather plus elementwise scaling: each lane
 // reads ~3 KB of tables and state and writes its F floats; the action values
@@ -42,6 +48,10 @@
 // Every column is a copy, one IEEE division or the action-value arithmetic
 // in the plain version's order; built with -fmad=false, like the other
 // kernels, so the action values round as their plain version does.
+// Simple mode is the same design on its own row builder (a template
+// instantiation of the kernel): the first warp takes the history, the
+// rebuffer time and the last rates, the others the size slab (float4) and
+// the viewport row, and the block stores its tile the same way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,6 +91,8 @@ struct ObserveArgs {
   int32_t lanes, group;      // lanes a block, threads a lane (observe_plan)
   int64_t out_stride;
   float max_size, max_rate, max_throughput;
+  const float* last_rebuffer;  // [N] (simple mode)
+  int32_t simple;              // 1: the simple_rl observation
 };
 
 namespace {
@@ -269,9 +281,82 @@ __device__ __forceinline__ void build_row(const ObserveArgs& a, int n, float* ro
   }
 }
 
+// Lane n's simple_rl row (simple mode) into `row`, by a group of G threads
+// as build_row: the first warp takes the throughput history (thread k < K),
+// the rebuffer time and the last rates (thread 0), the group's other warps
+// (the first too when G is 32) the size slab as float4 and the viewport row.
+template <int G>
+__device__ __forceinline__ void build_simple_row(const ObserveArgs& a, int n, float* row, int g) {
+  constexpr int GS = G > 32 ? G - 32 : G;
+  constexpr int kSlab = (kSlabCover + GS - 1) / GS;
+  constexpr int kPred = (kPredCover + GS - 1) / GS;
+  const int K = a.K, T = a.T, RT = a.RT;
+  const int c_size = K, c_reb = c_size + RT, c_rates = c_reb + 1, c_pred = c_rates + 2;
+  const bool lead = g < 32;
+  const int k = g;
+  const int gs = G > 32 ? g - 32 : g;
+
+  // 1. indices and state
+  const int v = __ldg(a.video + n), u = __ldg(a.user + n), c = __ldg(a.next_chunk + n);
+  float tp = 0.f, reb = 0.f, rin = 0.f, rout = 0.f;
+  if (lead) {
+    if (k < K) tp = __ldg(a.past_throughput + (size_t)n * K + k);
+    if (k == 0) {
+      reb = __ldg(a.last_rebuffer + n);
+      rin = __ldg(a.past_rate_in + (size_t)n * K);
+      rout = __ldg(a.past_rate_out + (size_t)n * K);
+    }
+  }
+
+  // 2. what the indices select
+  const size_t slab = ((size_t)v * a.C + c) * RT;
+  const size_t vuc = ((size_t)v * a.U + u) * a.C + c;
+  const bool vec = RT % 4 == 0 && ((uintptr_t)a.sizes & 15) == 0;
+  const int rt4 = vec ? RT / 4 : 0;
+  float4 s4[kSlab];
+#pragma unroll
+  for (int j = 0; j < kSlab; ++j) {
+    const int i = gs + GS * j;
+    if (gs >= 0 && i < rt4) s4[j] = __ldg(reinterpret_cast<const float4*>(a.sizes + slab) + i);
+  }
+  float pv[kPred];
+#pragma unroll
+  for (int j = 0; j < kPred; ++j) {
+    const int t = gs + GS * j;
+    if (gs >= 0 && t < T) pv[j] = __ldg(a.pred + vuc * T + t);
+  }
+#pragma unroll
+  for (int j = 0; j < kSlab; ++j) {
+    const int i = gs + GS * j;
+    if (gs >= 0 && i < rt4) {
+      float* sz = row + c_size + 4 * i;
+      sz[0] = s4[j].x / a.max_size;
+      sz[1] = s4[j].y / a.max_size;
+      sz[2] = s4[j].z / a.max_size;
+      sz[3] = s4[j].w / a.max_size;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPred; ++j) {
+    const int t = gs + GS * j;
+    if (gs >= 0 && t < T) row[c_pred + t] = pv[j];
+  }
+  if (gs >= 0) {  // what the first pass leaves
+    for (int i = 4 * min(rt4, GS * kSlab) + gs; i < RT; i += GS)
+      row[c_size + i] = __ldg(a.sizes + slab + i) / a.max_size;
+  }
+  if (!lead) return;
+  if (k < K) row[k] = tp;
+  if (k == 0) {
+    row[c_reb] = reb;
+    row[c_rates] = rin;
+    row[c_rates + 1] = rout;
+  }
+}
+
 }  // namespace
 
-template <int G>
+template <int G, bool kSimple>
 __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArgs a) {
   extern __shared__ __align__(16) float tile[];  // [lanes, F]
   const int n0 = blockIdx.x * a.lanes;
@@ -279,11 +364,17 @@ __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArg
   const int l = threadIdx.x / G, g = threadIdx.x % G;
   const int F = a.F;
   float* dst = a.out + (size_t)n0 * a.out_stride;
+  const auto build = [&](float* row) {
+    if constexpr (kSimple)
+      build_simple_row<G>(a, n0 + l, row, g);
+    else
+      build_row<G>(a, n0 + l, row, g);
+  };
   if (a.out_stride != F || ((uintptr_t)dst & 15) != 0) {  // row by row, straight out
-    if (l < nl) build_row<G>(a, n0 + l, dst + (size_t)l * a.out_stride, g);
+    if (l < nl) build(dst + (size_t)l * a.out_stride);
     return;
   }
-  if (l < nl) build_row<G>(a, n0 + l, tile + l * F, g);
+  if (l < nl) build(tile + l * F);
   __syncthreads();
   const int count = nl * F, n4 = count / 4;
   const float4* t4 = reinterpret_cast<const float4*>(tile);
@@ -292,26 +383,27 @@ __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArg
   for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x) dst[i] = tile[i];
 }
 
-template <int G>
+template <int G, bool kSimple>
 int launch(const ObserveArgs& args, cudaStream_t stream) {
   const int lanes = args.lanes;
   if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)lanes * args.F * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        observe_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        observe_kernel<G, kSimple>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (args.n_lanes + lanes - 1) / lanes;
-  if (blocks > 0) observe_kernel<G><<<blocks, lanes * G, smem, stream>>>(args);
+  if (blocks > 0) observe_kernel<G, kSimple><<<blocks, lanes * G, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int observe_launch(const ObserveArgs* args, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool simple = args->simple != 0;
   switch (args->group) {  // observe_plan's two groups
-    case 32: return launch<32>(*args, s);
-    case 128: return launch<128>(*args, s);
+    case 32: return simple ? launch<32, true>(*args, s) : launch<32, false>(*args, s);
+    case 128: return simple ? launch<128, true>(*args, s) : launch<128, false>(*args, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,7 +3,8 @@
 // Replaces the loss heads that jax.value_and_grad differentiates in the JAX
 // package: rl/ppo.py:_ppo_loss (:55-99, PPO mode) and the cross-entropy
 // heads of rl/bc.py:bc_step (:31-37) and rl/dagger.py:_bc_batch_step
-// (:123-131, CE mode).  The plain PyTorch version is
+// (:123-131, CE mode), and the A2C loss of rl/a2c.py:a2c_update (:71-80,
+// A2C mode).  The plain PyTorch version is
 // kernels/policy_loss.py:policy_loss_plain.
 //
 // PPO mode: log_softmax and the action's log-prob, ratio = exp(logp - old),
@@ -12,7 +13,10 @@
 // entropy and the optional KL(anchor || pi) with a scalar or per-preference
 // coefficient.  It writes the loss, its three terms (clip, vf, entropy) and
 // d loss / d logits [B, A] and d loss / d value [B].  CE mode: ce - ent_coef
-// * entropy, terms (ce, 0, entropy), and d loss / d logits.  Where JAX's
+// * entropy, terms (ce, 0, entropy), and d loss / d logits.  A2C mode:
+// -mean(logp[a] adv) + vf_coef mean((ret - v)^2) - ent_coef mean(entropy)
+// with the raw advantages (no ratio, clip or normalisation), terms (actor,
+// vf, entropy), d loss / d logits and d loss / d value.  Where JAX's
 // min/max/clip meet a tie, the gradient is split in halves as lax.min and
 // lax.max split it.
 //
@@ -61,6 +65,7 @@ constexpr int kMaxRows = 512;                 // threads (rows) a CTA
 constexpr int kMaxWarps = kMaxRows / 32;
 constexpr int kMaxPrefs = 16;
 constexpr int kMaxDevices = 16;
+constexpr int kCE = 0, kPPO = 1, kA2C = 2;    // the modes (kernels/policy_loss.py:MODES)
 constexpr size_t kMaxSmem = 2 * kMaxRows * (kMaxA | 1) * sizeof(float);  // logits + anchor slabs
 using mansy::kFull;
 
@@ -83,7 +88,7 @@ struct PolicyLossArgs {
   float* dlogits;              // [B, A]
   float* dvalue;               // [B] (PPO)
   int32_t B, A;
-  int32_t ppo;                 // 1: PPO mode, 0: CE mode
+  int32_t mode;                // kCE, kPPO or kA2C
   int32_t value_clip, norm_adv, norm_adv_per_pref, n_prefs, n_kl, kl_per_pref;
   int32_t rows, ctas;          // the plan: threads (rows of a tile) a CTA, CTAs of the cluster
   float clip_lo, clip_hi;      // 1 - eps_clip, 1 + eps_clip
@@ -226,7 +231,8 @@ __global__ void __launch_bounds__(kMaxRows) policy_loss_kernel(const PolicyLossA
   const int tiles = (B + R - 1) / R;
   const float inv_b = 1.f / (float)B;
   float* aslab = slab + R * S;
-  const bool has_kl = a.ppo && a.anchor_logits;
+  const bool ppo = a.mode == kPPO;
+  const bool has_kl = ppo && a.anchor_logits;
 
   // ---- the first tile's slabs start loading under the statistics ----
   {
@@ -240,7 +246,7 @@ __global__ void __launch_bounds__(kMaxRows) policy_loss_kernel(const PolicyLossA
   // Every CTA takes them over all B rows itself, in one order, so they need
   // no round trip to the other CTAs (a minibatch's advantages are a few KB).
   float adv_mean = 0.f, adv_std = 0.f;
-  if (a.ppo && a.norm_adv_per_pref) {
+  if (ppo && a.norm_adv_per_pref) {
     for (int k = warp; k < a.n_prefs; k += warps) {  // warp w: groups w, w + warps, ...
       float s = 0.f, q = 0.f, c = 0.f;
       for (int i0 = lane; i0 < B; i0 += 32 * kBatch) {
@@ -268,7 +274,7 @@ __global__ void __launch_bounds__(kMaxRows) policy_loss_kernel(const PolicyLossA
       }
     }
     __syncthreads();
-  } else if (a.ppo && a.norm_adv) {
+  } else if (ppo && a.norm_adv) {
     Moments m = {0.f, 0.f, 0.f};
     for (int i0 = tid; i0 < B; i0 += blockDim.x * kBatch) {
       float x[kBatch];
@@ -333,7 +339,7 @@ __global__ void __launch_bounds__(kMaxRows) policy_loss_kernel(const PolicyLossA
       float ap[kMaxA];
 #pragma unroll
       for (int j = 0; j < kMaxA; ++j) ap[j] = 0.f;
-      if (a.ppo) {
+      if (ppo) {
         const float ratio = expf(lpa - a.old_log_prob[i]);
         float an = a.adv[i];
         if (a.norm_adv_per_pref) {
@@ -402,6 +408,12 @@ __global__ void __launch_bounds__(kMaxRows) policy_loss_kernel(const PolicyLossA
           }
           kl_scale = coef * inv_b;
         }
+      } else if (a.mode == kA2C) {
+        const float an = a.adv[i], r1 = a.ret[i] - a.value[i];
+        acc0 += lpa * an;
+        g_logp = -inv_b * an;
+        acc1 += r1 * r1;
+        a.dvalue[i] = a.vf_coef * inv_b * (-2.f * r1);
       } else {
         acc0 += lpa;
         g_logp = -inv_b;
@@ -433,7 +445,7 @@ __global__ void __launch_bounds__(kMaxRows) policy_loss_kernel(const PolicyLossA
   cluster_reduce(red, 4, part, tot, cluster, rank, ranks);
   if (rank == 0 && tid == 0) {
     const float ent = tot[2] / (float)B;
-    if (a.ppo) {
+    if (a.mode != kCE) {  // PPO's clip term, or A2C's actor term (no anchor in A2C mode)
       const float clip_loss = -(tot[0] / (float)B);
       const float vf_loss = tot[1] / (float)B;
       float loss = clip_loss + a.vf_coef * vf_loss - a.ent_coef * ent;
@@ -470,7 +482,7 @@ cudaError_t launch(const PolicyLossArgs& a, cudaStream_t stream) {
     if (e == cudaSuccess && dev < kMaxDevices) prepared[dev] = true;
   }
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)(a.ppo && a.anchor_logits ? 2 : 1) * a.rows * (a.A | 1) *
+  const size_t smem = (size_t)(a.mode == kPPO && a.anchor_logits ? 2 : 1) * a.rows * (a.A | 1) *
                       sizeof(float);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.ctas);
@@ -493,8 +505,9 @@ cudaError_t launch(const PolicyLossArgs& a, cudaStream_t stream) {
 extern "C" int policy_loss_launch(const PolicyLossArgs* args, void* stream) {
   const PolicyLossArgs& a = *args;
   if (a.A < 1 || a.A > kMaxA || a.ctas < 1 || a.ctas > kMaxCtas || a.rows < 32 ||
-      a.rows > kMaxRows || a.rows % 32 != 0 ||
-      (a.ppo && a.norm_adv_per_pref && (a.n_prefs < 1 || a.n_prefs > kMaxPrefs)))
+      a.rows > kMaxRows || a.rows % 32 != 0 || a.mode < kCE || a.mode > kA2C ||
+      (a.mode == kA2C && a.anchor_logits) ||
+      (a.mode == kPPO && a.norm_adv_per_pref && (a.n_prefs < 1 || a.n_prefs > kMaxPrefs)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;

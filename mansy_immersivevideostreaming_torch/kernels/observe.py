@@ -1,8 +1,12 @@
-"""K2: observation gather into one [N, F] buffer (wrapper, plain version,
-launch count).
+"""K2: observation gather into one [N, F] buffer (wrappers, plain versions,
+launch counts), in two modes.
 
 Replaces the JAX package's ``sim/env.py:observe_mansy`` (``:262-286``) with
-``exact_action_values`` (``:220-259``) when the tables carry action values.
+``exact_action_values`` (``:220-259``) when the tables carry action values
+(:func:`observe_mansy_pack`), and in simple mode its ``observe_simple``
+(``:289-300``, :func:`observe_simple_pack`): the simple_rl observation,
+[N, 395] in ``SimpleActorCritic``'s concat order (``abr_nets.py:214-220``),
+which K3 reads as is through :func:`simple_layout`'s offsets.
 The buffer's first :func:`feature_width` columns are exactly what
 ``MansyFeatureNet`` reads, in its concat order (``abr_nets.py:124-141``), so
 the actor-critic kernel reads it as is; the fields the net does not read
@@ -24,7 +28,7 @@ import torch
 
 from mansy_immersivevideostreaming_torch.kernels import build
 from mansy_immersivevideostreaming_torch.sim.env import (
-    EnvState, check_action_value_tables, observe_mansy,
+    EnvState, check_action_value_tables, observe_mansy, observe_simple,
 )
 from mansy_immersivevideostreaming_torch.sim.tables import SimTables
 
@@ -40,6 +44,9 @@ _LAYOUT = (("throughput", ("K",)), ("next_chunk_size", ("R", "T")),
            ("rates_inside", ("K",)), ("rates_outside", ("K",)),
            ("action_one_hot", ("A",)))
 NET_FIELDS = 10  # fields MansyFeatureNet reads without action values
+# simple mode: SimpleActorCritic's five branches, in its concat order
+_SIMPLE_LAYOUT = (("throughput", ("K",)), ("chunk_sizes", ("R", "T")), ("rebuffer", (1,)),
+                  ("last_bitrates", (2,)), ("pred_viewport", ("T",)))
 AV_FIELD = ("action_values", ("A+1",))
 LANES = 4            # lanes a block: a tile of 4 rows of f32 is a multiple of 16 bytes
 WIDE_GROUP = 32      # threads a lane where the blocks fill the card
@@ -107,6 +114,33 @@ def obs_columns(K: int, R: int, T: int, A: int, av: bool = False) -> Dict[str, s
             for name, off, shape in obs_layout(K, R, T, A, av)}
 
 
+def simple_layout(K: int, R: int, T: int) -> List[Tuple[str, int, Tuple[int, ...]]]:
+    """[(field, column offset, shape)] of the packed simple_rl observation:
+    offsets 0, 8, 328, 329, 331 and width 395 at K=8, R=5, T=64."""
+    dims = {"K": K, "R": R, "T": T}
+    out, off = [], 0
+    for name, sym in _SIMPLE_LAYOUT:
+        shape = tuple(dims.get(s, s) for s in sym)
+        out.append((name, off, shape))
+        off += int(torch.Size(shape).numel())
+    return out
+
+
+def simple_width(K: int, R: int, T: int) -> int:
+    name, off, shape = simple_layout(K, R, T)[-1]
+    return off + int(torch.Size(shape).numel())
+
+
+def pack_simple_obs(obs, device: str | torch.device = "cpu") -> torch.Tensor:
+    """The 5-field simple_rl observation dict -> the packed [n, 395] buffer."""
+    K = obs["throughput"].shape[-1]
+    R, T = obs["chunk_sizes"].shape[-2:]
+    n = int(torch.Size(obs["throughput"].shape[:-1]).numel())
+    cols = [torch.as_tensor(obs[name], dtype=torch.float32).reshape(n, -1)
+            for name, _, _ in simple_layout(K, R, T)]
+    return torch.cat(cols, dim=1).to(device)
+
+
 def unpack_obs(buf: torch.Tensor, K: int, R: int, T: int, A: int,
                av: bool = False) -> Dict[str, torch.Tensor]:
     """[..., F] packed buffer -> the 13- or 14-field observation dict (views)."""
@@ -146,13 +180,88 @@ def observe_mansy_pack_plain(tables: SimTables, state: EnvState,
     return out
 
 
+def observe_simple_pack_plain(tables: SimTables, state: EnvState,
+                              out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of simple mode: :func:`observe_simple`'s
+    fields, packed."""
+    cols = pack_simple_obs(observe_simple(tables, state), state.buf.device)
+    if out is None:
+        return cols
+    out.copy_(cols)
+    return out
+
+
 class _ObserveArgs(ctypes.Structure):
     """Mirror of ``ObserveArgs`` in ``csrc/observe.cu`` (same field order)."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS + ("out",)]
                 + [(f, ctypes.c_int32) for f in ("n_lanes", "U", "C", "RT", "T", "K", "A", "F",
                                                  "startup_download", "lanes", "group")]
                 + [("out_stride", ctypes.c_int64)]
-                + [(f, ctypes.c_float) for f in ("max_size", "max_rate", "max_throughput")])
+                + [(f, ctypes.c_float) for f in ("max_size", "max_rate", "max_throughput")]
+                + [("last_rebuffer", ctypes.c_void_p), ("simple", ctypes.c_int32)])
+
+
+def _launch(name: str, tables: SimTables, state: EnvState, out: torch.Tensor | None,
+            simple: bool) -> torch.Tensor:
+    """One launch of K2 in MANSY or simple mode; ``name`` is the wrapper's,
+    for the errors.  Returns the [N, F] output."""
+    dev = state.buf.device
+    if not simple:
+        check_action_value_tables(tables)
+    dims = obs_dims(tables)
+    K, R, T, A, _ = dims
+    if K > MAX_HISTORY or A > MAX_ACTIONS or T > MAX_TILES:
+        raise ValueError(f"{name} kernel takes K <= {MAX_HISTORY}, A <= {MAX_ACTIONS} and "
+                         f"T <= {MAX_TILES}; got K={K}, A={A}, T={T}")
+    N, Fw = state.buf.shape[0], simple_width(K, R, T) if simple else obs_width(*dims)
+    if out is None:
+        out = torch.empty((N, Fw), dtype=torch.float32, device=dev)
+    if out.shape != (N, Fw) or out.dtype != torch.float32 or out.stride(1) != 1 \
+            or out.device != dev:
+        raise ValueError(f"{name}: out must be f32 [{N}, {Fw}] with contiguous rows on {dev}")
+    f32, i32 = torch.float32, torch.int32
+    # name -> (tensor or None, dtype, shape or None for a table)
+    srcs = {"sizes": (tables.sizes, f32, None), "pred": (tables.pred, f32, None),
+            "video": (state.video, i32, (N,)), "user": (state.user, i32, (N,)),
+            "next_chunk": (state.next_chunk, i32, (N,)),
+            **{name: (getattr(state, name), f32, (N, K)) for name in (
+                "past_throughput", "past_rate_in", "past_rate_out")}}
+    if simple:
+        srcs["last_rebuffer"] = (state.last_rebuffer, f32, (N,))
+    else:
+        srcs.update({
+            "qualities": (tables.qualities, f32, None),
+            "qoe_weights": (tables.qoe_weights, f32, None),
+            **{name: (getattr(tables, name), f32, None) for name in _AV_FIELDS},
+            "qoe_id": (state.qoe_id, i32, (N,)), "buf": (state.buf, f32, (N,)),
+            "prev_quality": (state.qoe.prev_quality, f32, (N,)),
+            "has_prev": (state.qoe.has_prev, torch.bool, (N,)),
+            **{name: (getattr(state, name), f32, (N, K)) for name in (
+                "past_acc", "past_vq", "past_var", "past_rebuf")},
+            "last_action_one_hot": (state.last_action_one_hot, f32, (N, A))})
+    for field, (x, dtype, shape) in srcs.items():
+        if x is None and field in _AV_FIELDS:
+            continue
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous() \
+                or shape not in (None, tuple(x.shape)):
+            raise ValueError(f"{name}: {field} must be a contiguous {dtype} tensor of shape "
+                             f"{shape or tuple(x.shape)} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    plan = observe_plan(N)
+    args = _ObserveArgs(
+        **{k: (0 if x is None else x.data_ptr()) for k, (x, _, _) in srcs.items()},
+        out=out.data_ptr(), n_lanes=N, U=tables.pred.shape[1], C=tables.sizes.shape[1],
+        RT=R * T, T=T, K=K, A=A, F=Fw, startup_download=int(tables.startup_download),
+        lanes=plan.lanes, group=plan.threads, out_stride=out.stride(0),
+        max_size=float(tables.max_size), max_rate=float(tables.max_rate),
+        max_throughput=float(tables.max_throughput), simple=int(simple))
+    lib = build.load("observe")
+    lib.observe_launch.argtypes = [ctypes.POINTER(_ObserveArgs), ctypes.c_void_p]
+    lib.observe_launch.restype = ctypes.c_int
+    err = lib.observe_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    return out
 
 
 def observe_mansy_pack(tables: SimTables, state: EnvState,
@@ -161,60 +270,26 @@ def observe_mansy_pack(tables: SimTables, state: EnvState,
     given (its rows must be contiguous; they may be strided and the buffer
     unaligned).  CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
-    dev = state.buf.device
-    if dev.type == "cpu":
+    if state.buf.device.type == "cpu":
         return observe_mansy_pack_plain(tables, state, out)
-    check_action_value_tables(tables)
-    dims = obs_dims(tables)
-    K, R, T, A, _ = dims
-    if K > MAX_HISTORY or A > MAX_ACTIONS or T > MAX_TILES:
-        raise ValueError(f"observe_mansy_pack kernel takes K <= {MAX_HISTORY}, "
-                         f"A <= {MAX_ACTIONS} and T <= {MAX_TILES}; got K={K}, A={A}, T={T}")
-    N, Fw = state.buf.shape[0], obs_width(*dims)
-    if out is None:
-        out = torch.empty((N, Fw), dtype=torch.float32, device=dev)
-    if out.shape != (N, Fw) or out.dtype != torch.float32 or out.stride(1) != 1 \
-            or out.device != dev:
-        raise ValueError(f"observe_mansy_pack: out must be f32 [{N}, {Fw}] with "
-                         f"contiguous rows on {dev}")
-    f32, i32 = torch.float32, torch.int32
-    # name -> (tensor or None, dtype, shape or None for a table)
-    srcs = {"sizes": (tables.sizes, f32, None), "qualities": (tables.qualities, f32, None),
-            "pred": (tables.pred, f32, None), "qoe_weights": (tables.qoe_weights, f32, None),
-            **{name: (getattr(tables, name), f32, None) for name in _AV_FIELDS},
-            "video": (state.video, i32, (N,)), "user": (state.user, i32, (N,)),
-            "next_chunk": (state.next_chunk, i32, (N,)), "qoe_id": (state.qoe_id, i32, (N,)),
-            "buf": (state.buf, f32, (N,)),
-            "prev_quality": (state.qoe.prev_quality, f32, (N,)),
-            "has_prev": (state.qoe.has_prev, torch.bool, (N,)),
-            **{name: (getattr(state, name), f32, (N, K)) for name in (
-                "past_throughput", "past_acc", "past_vq", "past_var", "past_rebuf",
-                "past_rate_in", "past_rate_out")},
-            "last_action_one_hot": (state.last_action_one_hot, f32, (N, A))}
-    for name, (x, dtype, shape) in srcs.items():
-        if x is None and name in _AV_FIELDS:
-            continue
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous() \
-                or shape not in (None, tuple(x.shape)):
-            raise ValueError(f"observe_mansy_pack: {name} must be a contiguous {dtype} "
-                             f"tensor of shape {shape or tuple(x.shape)} on {dev}, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    plan = observe_plan(N)
-    args = _ObserveArgs(
-        **{k: (0 if x is None else x.data_ptr()) for k, (x, _, _) in srcs.items()},
-        out=out.data_ptr(), n_lanes=N, U=tables.pred.shape[1], C=tables.sizes.shape[1],
-        RT=R * T, T=T, K=K, A=A, F=Fw, startup_download=int(tables.startup_download),
-        lanes=plan.lanes, group=plan.threads, out_stride=out.stride(0),
-        max_size=float(tables.max_size), max_rate=float(tables.max_rate),
-        max_throughput=float(tables.max_throughput))
-    lib = build.load("observe")
-    lib.observe_launch.argtypes = [ctypes.POINTER(_ObserveArgs), ctypes.c_void_p]
-    lib.observe_launch.restype = ctypes.c_int
-    err = lib.observe_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"observe_mansy_pack kernel launch failed with CUDA error {err}")
+    out = _launch("observe_mansy_pack", tables, state, out, simple=False)
     observe_mansy_pack.launches += 1
     return out
 
 
 observe_mansy_pack.launches = 0
+
+
+def observe_simple_pack(tables: SimTables, state: EnvState,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2's simple mode: the packed [N, 395] simple_rl observation of every
+    lane (see :func:`observe_mansy_pack` for ``out``).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if state.buf.device.type == "cpu":
+        return observe_simple_pack_plain(tables, state, out)
+    out = _launch("observe_simple_pack", tables, state, out, simple=True)
+    observe_simple_pack.launches += 1
+    return out
+
+
+observe_simple_pack.launches = 0

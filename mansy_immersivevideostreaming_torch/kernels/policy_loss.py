@@ -1,5 +1,5 @@
 """K9: the policy-loss head and its gradient (wrapper, plain version, launch
-count), in two modes.
+count), in three modes.
 
 * PPO mode replaces the JAX package's ``rl/ppo.py:_ppo_loss`` (``:55-99``)
   under ``jax.value_and_grad``: log-softmax and the action gather, the ratio
@@ -9,9 +9,13 @@ count), in two modes.
 * CE mode replaces the cross-entropy heads of ``rl/bc.py:bc_step``
   (``:31-37``) and ``rl/dagger.py:_bc_batch_step`` (``:123-131``): ``ce -
   ent_coef * entropy``.
+* A2C mode replaces the loss of ``rl/a2c.py:a2c_update`` (``:71-80``):
+  ``-mean(logp[a] adv) + vf_coef mean((ret - v)^2) - ent_coef mean(entropy)``
+  on the raw advantages (no ratio, no clip, no normalisation).
 
 One launch computes the loss, its terms and the gradient with respect to the
-logits (and the value); :func:`ppo_loss` and :func:`ce_loss` wrap it in a
+logits (and the value); :func:`ppo_loss`, :func:`ce_loss` and
+:func:`a2c_loss` wrap it in a
 ``torch.autograd.Function`` whose backward scales the saved gradient by the
 incoming one.  On the H100 the head is bound by its launch and its
 latency (it moves well under a megabyte: 0.00015 ms of bytes at 4096 rows).
@@ -31,12 +35,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from mansy_immersivevideostreaming_torch.kernels import build
+from mansy_immersivevideostreaming_torch.kernels import build, count_launch
 
 MAX_ACTIONS = 16
 MAX_PREFS = 16              # preference groups the per-preference normalisation takes
 MAX_CTAS = 16               # the largest (non-portable) thread-block cluster
 TILE_ROWS = (128, 256, 512)  # rows of a tile, one a thread
+MODES = {"ce": 0, "ppo": 1, "a2c": 2}  # the kernel's modes (csrc/policy_loss.cu: kCE, kPPO, kA2C)
 
 
 class PolicyLossPlan(NamedTuple):
@@ -56,8 +61,10 @@ def policy_loss_plan(B: int) -> PolicyLossPlan:
 
 
 class LossSpec(NamedTuple):
-    """Everything the loss head reads besides the logits and the value.  CE
-    mode when ``old_log_prob`` is None; PPO mode reads the other fields."""
+    """Everything the loss head reads besides the logits and the value.
+    ``mode`` is one of MODES: CE reads ``action`` and ``ent_coef``; A2C also
+    ``adv``, ``ret`` and ``vf_coef``; PPO the other fields too.
+    :func:`ce_loss`, :func:`ppo_loss` and :func:`a2c_loss` set it."""
     action: torch.Tensor                          # i32 [B]
     ent_coef: float
     old_log_prob: Optional[torch.Tensor] = None   # [B]
@@ -73,10 +80,7 @@ class LossSpec(NamedTuple):
     norm_adv: bool = True
     norm_adv_per_pref: bool = False
     n_prefs: int = 4
-
-    @property
-    def ppo(self) -> bool:
-        return self.old_log_prob is not None
+    mode: str = "ce"
 
     @property
     def kl_per_pref(self) -> bool:
@@ -85,8 +89,24 @@ class LossSpec(NamedTuple):
         return self.kl_coef is not None and self.kl_coef.dim() == 1
 
 
+# LossSpec's optional tensors, and those each mode needs and those it may read
+_TENSORS = ("old_log_prob", "old_value", "adv", "ret", "pref_id", "anchor_logits", "kl_coef")
+_READS = {"ce": ((), ()), "a2c": (("adv", "ret"), ()),
+          "ppo": (("old_log_prob", "old_value", "adv", "ret"),
+                  ("pref_id", "anchor_logits", "kl_coef"))}
+
+
 def _check_spec(spec: LossSpec) -> None:
-    if spec.ppo and spec.norm_adv_per_pref and spec.pref_id is None:
+    if spec.mode not in MODES:
+        raise ValueError(f"policy_loss: mode must be one of {tuple(MODES)}, got {spec.mode!r}")
+    needs, may = _READS[spec.mode]
+    missing = [f for f in needs if getattr(spec, f) is None]
+    unread = [f for f in _TENSORS if f not in needs + may and getattr(spec, f) is not None]
+    if missing:
+        raise ValueError(f"policy_loss: {spec.mode} mode needs {', '.join(missing)}")
+    if unread:
+        raise ValueError(f"policy_loss: {spec.mode} mode reads no {', '.join(unread)}")
+    if spec.mode == "ppo" and spec.norm_adv_per_pref and spec.pref_id is None:
         raise ValueError("policy_loss: norm_adv_per_pref needs pref_id")
     if spec.anchor_logits is not None:
         if spec.kl_coef is None or spec.kl_coef.dim() > 1:
@@ -111,8 +131,9 @@ def _clip_grad(x: torch.Tensor, lo, hi) -> torch.Tensor:
 
 def policy_loss_plain(spec: LossSpec, logits: torch.Tensor, value: Optional[torch.Tensor]):
     """Plain PyTorch version: the loss, its terms [3] ((clip, vf, entropy) in
-    PPO mode, (ce, 0, entropy) in CE mode), d loss / d logits and d loss /
-    d value (None in CE mode), with the gradients written out."""
+    PPO mode, (actor, vf, entropy) in A2C mode, (ce, 0, entropy) in CE
+    mode), d loss / d logits and d loss / d value (None in CE mode), with
+    the gradients written out."""
     B, A = logits.shape
     inv_b = 1.0 / B
     lp = F.log_softmax(logits, -1)
@@ -123,7 +144,15 @@ def policy_loss_plain(spec: LossSpec, logits: torch.Tensor, value: Optional[torc
     onehot = F.one_hot(act, A).to(logits.dtype)
     logp = lp.gather(1, act[:, None])[:, 0]
     dentropy = (spec.ent_coef * inv_b) * (p * (lp + H[:, None]))
-    if not spec.ppo:
+    if spec.mode == "a2c":
+        actor = -(logp * spec.adv).mean()
+        r1 = spec.ret - value
+        vf_loss = (r1 * r1).mean()
+        dlogits = (-inv_b * spec.adv)[:, None] * (onehot - p) + dentropy
+        return (actor + spec.vf_coef * vf_loss - spec.ent_coef * ent,
+                torch.stack([actor, vf_loss, ent]), dlogits,
+                (spec.vf_coef * inv_b) * (-2.0 * r1))
+    if spec.mode == "ce":
         ce = -logp.mean()
         dlogits = -inv_b * (onehot - p) + dentropy
         terms = torch.stack([ce, torch.zeros_like(ce), ent])
@@ -180,7 +209,7 @@ class _PolicyLossArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "logits", "value", "action", "old_log_prob", "old_value", "adv", "ret", "pref_id",
         "anchor_logits", "kl_coef", "loss", "terms", "dlogits", "dvalue")]
-        + [(f, ctypes.c_int32) for f in ("B", "A", "ppo", "value_clip", "norm_adv",
+        + [(f, ctypes.c_int32) for f in ("B", "A", "mode", "value_clip", "norm_adv",
                                          "norm_adv_per_pref", "n_prefs", "n_kl", "kl_per_pref",
                                          "rows", "ctas")]
         + [(f, ctypes.c_float) for f in ("clip_lo", "clip_hi", "eps_clip", "vf_coef",
@@ -198,11 +227,14 @@ def policy_loss(spec: LossSpec, logits: torch.Tensor, value: Optional[torch.Tens
     B, A = logits.shape
     if A > MAX_ACTIONS:
         raise ValueError(f"policy_loss kernel takes at most {MAX_ACTIONS} actions, got {A}")
-    if spec.ppo and spec.norm_adv_per_pref and not 1 <= spec.n_prefs <= MAX_PREFS:
+    if spec.mode == "ppo" and spec.norm_adv_per_pref and not 1 <= spec.n_prefs <= MAX_PREFS:
         raise ValueError(f"policy_loss kernel takes 1 to {MAX_PREFS} preference groups, got "
                          f"{spec.n_prefs}")
     tensors = {"logits": (logits, torch.float32, (B, A)), "action": (spec.action, torch.int32, (B,))}
-    if spec.ppo:
+    if spec.mode == "a2c":
+        tensors.update(value=(value, torch.float32, (B,)), adv=(spec.adv, torch.float32, (B,)),
+                       ret=(spec.ret, torch.float32, (B,)))
+    elif spec.mode == "ppo":
         tensors.update(value=(value, torch.float32, (B,)),
                        old_log_prob=(spec.old_log_prob, torch.float32, (B,)),
                        old_value=(spec.old_value, torch.float32, (B,)),
@@ -221,12 +253,12 @@ def policy_loss(spec: LossSpec, logits: torch.Tensor, value: Optional[torch.Tens
     loss = torch.empty((), dtype=torch.float32, device=dev)
     terms = torch.empty(3, dtype=torch.float32, device=dev)
     dlogits = torch.empty_like(logits)
-    dvalue = torch.empty_like(value) if spec.ppo else None
+    dvalue = torch.empty_like(value) if spec.mode != "ce" else None
     ptrs = {name: t.data_ptr() for name, (t, _, _) in tensors.items()}
     plan = policy_loss_plan(B)
     args = _PolicyLossArgs(
         **ptrs, loss=loss.data_ptr(), terms=terms.data_ptr(), dlogits=dlogits.data_ptr(),
-        dvalue=dvalue.data_ptr() if spec.ppo else 0, B=B, A=A, ppo=int(spec.ppo),
+        dvalue=0 if dvalue is None else dvalue.data_ptr(), B=B, A=A, mode=MODES[spec.mode],
         value_clip=int(spec.value_clip), norm_adv=int(spec.norm_adv),
         norm_adv_per_pref=int(spec.norm_adv_per_pref), n_prefs=int(spec.n_prefs),
         n_kl=int(spec.kl_coef.numel()) if spec.anchor_logits is not None else 0,
@@ -240,11 +272,12 @@ def policy_loss(spec: LossSpec, logits: torch.Tensor, value: Optional[torch.Tens
     err = lib.policy_loss_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"policy_loss kernel launch failed with CUDA error {err}")
-    policy_loss.launches += 1
+    count_launch(policy_loss, spec.mode)
     return loss, terms, dlogits, dvalue
 
 
 policy_loss.launches = 0
+policy_loss.launches_by_mode = {}
 
 
 class _PolicyLoss(torch.autograd.Function):
@@ -269,13 +302,18 @@ def ppo_loss(logits: torch.Tensor, value: torch.Tensor,
              spec: LossSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, terms (clip, vf, entropy)) of a PPO minibatch, differentiable in
     logits and value."""
-    if not spec.ppo:
-        raise ValueError("ppo_loss needs old_log_prob, old_value, adv and ret")
-    return _PolicyLoss.apply(logits, value, spec)
+    return _PolicyLoss.apply(logits, value, spec._replace(mode="ppo"))
 
 
 def ce_loss(logits: torch.Tensor, action: torch.Tensor,
             ent_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ce - ent_coef * entropy, terms (ce, 0, entropy)), differentiable in
     the logits."""
-    return _PolicyLoss.apply(logits, None, LossSpec(action=action, ent_coef=ent_coef))
+    return _PolicyLoss.apply(logits, None, LossSpec(action=action, ent_coef=ent_coef, mode="ce"))
+
+
+def a2c_loss(logits: torch.Tensor, value: torch.Tensor,
+             spec: LossSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, terms (actor, vf, entropy)) of an A2C minibatch, differentiable
+    in logits and value."""
+    return _PolicyLoss.apply(logits, value, spec._replace(mode="a2c"))

@@ -1,9 +1,10 @@
-"""MANSY actor-critic and QoE-preference identifier networks (torch
-``nn.Module``s).
+"""MANSY actor-critic, QoE-preference identifier and simple_rl actor-critic
+networks (torch ``nn.Module``s).
 
 Port of ``mansy_immersivevideostreaming_tpu/models/abr_nets.py``
 ``MansyFeatureNet``, ``MansyActorCritic`` and ``QoEIdentifier`` (reference
-``bitrate_selection/models/mansy.py:5-155``).  ``use_action_values`` and
+``bitrate_selection/models/mansy.py:5-155``) and ``SimpleActorCritic``
+(``:206-231``, reference ``bitrate_selection/models/simple_rl.py:9-63``).  ``use_action_values`` and
 ``av_logit_prior`` read the exact ``action_values`` observation field
 (``sim/env.py:exact_action_values``), so a policy with either setting needs
 tables that carry action values; the derived ``causal_action_values`` that
@@ -14,7 +15,10 @@ The actor-critic's math lives once, in ``kernels/actor_critic.py``:
 :meth:`MansyActorCritic.forward_packed` runs ``actor_critic_train`` on the
 packed buffer, differentiable in the parameters (K3's training mode and the
 K10 backward on the card, their plain versions on the CPU); the rollout runs
-the inference kernel on :meth:`MansyActorCritic.packed_weights`.  The
+the inference kernel on :meth:`MansyActorCritic.packed_weights`.  Each
+actor-critic names the K2 mode that builds its observation (``observe``):
+the MANSY row, or the simple_rl row for :class:`SimpleActorCritic`, which
+runs the same K3 and K10 with five branches and no residual.  The
 identifier has no kernel: its dense layers stay ``nn.Linear`` with autograd,
 as the JAX package leaves them to XLA's dots.
 """
@@ -32,7 +36,8 @@ from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
     TENSOR_FIELDS, ActorCriticWeights, actor_critic_train,
 )
 from mansy_immersivevideostreaming_torch.kernels.observe import (
-    NET_FIELDS, obs_columns, obs_layout, obs_width, pack_obs,
+    NET_FIELDS, obs_columns, obs_dims, obs_layout, obs_width, observe_mansy_pack,
+    observe_simple_pack, pack_obs, pack_simple_obs, simple_layout, simple_width,
 )
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
@@ -74,6 +79,19 @@ class MansyFeatureNet(nn.Module):
             self.branches[AV_BRANCH] = _linear(in_dims["action_values"], hidden_dim, device)
 
 
+def _packed_weights(net) -> ActorCriticWeights:
+    """A detached copy of ``net._pack()``, for the kernels.  Cached, and
+    packed anew only after a parameter was replaced or changed in place (its
+    storage or its version counter moved)."""
+    key = tuple((p.data_ptr(), p._version) for p in net.parameters())
+    if net._packed is None or net._packed[0] != key:
+        with torch.no_grad():
+            w = net._pack()
+        net._packed = (key, w._replace(**{f: getattr(w, f).detach().clone()
+                                          for f in TENSOR_FIELDS}))
+    return net._packed[1]
+
+
 class MansyActorCritic(nn.Module):
     """Shared feature net + actor/critic heads with the conditional-feature
     residual (reference ``mansy.py:54-80``, residual at ``:65``/``:79``).
@@ -107,6 +125,13 @@ class MansyActorCritic(nn.Module):
         self.critic_fc = _linear(width, hidden_dim, dev)
         self.critic_out = _linear(hidden_dim, 1, dev)
         self._packed = None  # (parameter key, ActorCriticWeights) of packed_weights
+
+    observe = staticmethod(observe_mansy_pack)  # K2's mode that builds the observation
+
+    @staticmethod
+    def obs_width(tables) -> int:
+        """Columns of the packed observation this policy reads from ``tables``."""
+        return obs_width(*obs_dims(tables))
 
     @property
     def reads_action_values(self) -> bool:
@@ -157,16 +182,8 @@ class MansyActorCritic(nn.Module):
             branch_off=tuple(offsets), av_off=av_off, av_prior=self.av_logit_prior)
 
     def packed_weights(self) -> ActorCriticWeights:
-        """A detached copy of :meth:`_pack`, for the kernels.  Cached, and
-        packed anew only after a parameter was replaced or changed in place
-        (its storage or its version counter moved)."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._packed is None or self._packed[0] != key:
-            with torch.no_grad():
-                w = self._pack()
-            self._packed = (key, w._replace(**{f: getattr(w, f).detach().clone()
-                                               for f in TENSOR_FIELDS}))
-        return self._packed[1]
+        """A detached, cached copy of :meth:`_pack` (:func:`_packed_weights`)."""
+        return _packed_weights(self)
 
 
 class QoEIdentifier(nn.Module):
@@ -209,3 +226,70 @@ class QoEIdentifier(nn.Module):
         feats = torch.cat([branch(name, field) for field, name in BRANCHES] + [cond], dim=-1)
         h = F.leaky_relu(self.fc(feats), 0.01)
         return torch.sigmoid(self.out(h + cond))
+
+
+# SimpleActorCritic's branches: (Flax name, observation field), in its concat
+# order (abr_nets.py:214-220), the packed simple observation's fields
+SIMPLE_BRANCHES = tuple(name for name, _, _ in simple_layout(1, 1, 1))
+
+
+class SimpleActorCritic(nn.Module):
+    """The simple_rl (A2C) baseline's actor-critic (reference
+    ``simple_rl.py:9-63``, JAX ``abr_nets.py:206-231``): five branches of
+    ``hidden_dim`` with LeakyReLU(0.01) (``throughput``, ``chunk_sizes``,
+    ``rebuffer``, ``last_bitrates``, ``pred_viewport``), then ``actor_fc`` and
+    ``critic_fc`` on their concatenation, ``actor_out`` and ``critic_out``;
+    no cond branch and no residual.  Its layers sit at the top level, as
+    Flax names them.  It reads the packed simple_rl observation
+    (``kernels/observe.py:simple_layout``)."""
+
+    def __init__(self, hidden_dim: int = 128, action_space: int = 15, past_k: int = 8,
+                 num_rates: int = 5, num_tiles: int = 64,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dims = (past_k, num_rates, num_tiles)
+        for name, _, shape in simple_layout(*self.dims):
+            setattr(self, name, _linear(int(torch.Size(shape).numel()), hidden_dim, dev))
+        width = hidden_dim * len(SIMPLE_BRANCHES)
+        self.actor_fc = _linear(width, hidden_dim, dev)
+        self.actor_out = _linear(hidden_dim, action_space, dev)
+        self.critic_fc = _linear(width, hidden_dim, dev)
+        self.critic_out = _linear(hidden_dim, 1, dev)
+        self._packed = None
+
+    observe = staticmethod(observe_simple_pack)
+    reads_action_values = False
+
+    @staticmethod
+    def obs_width(tables) -> int:
+        K, R, T, _, _ = obs_dims(tables)
+        return simple_width(K, R, T)
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits [N, A], value [N]) from the 5-field observation dict."""
+        return self.forward_packed(pack_simple_obs(obs, self.actor_out.weight.device))
+
+    def forward_packed(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits, value) of packed simple observations [N, 395],
+        differentiable in the parameters (K3's training mode and K10 on the
+        card, their plain versions on the CPU)."""
+        return actor_critic_train(self._pack(), x)
+
+    def _pack(self) -> ActorCriticWeights:
+        layout = simple_layout(*self.dims)
+        branches = [getattr(self, name) for name in SIMPLE_BRANCHES]
+        kernel = lambda layer: layer.weight.t().contiguous()
+        return ActorCriticWeights(
+            w_branch=torch.cat([kernel(b) for b in branches], dim=0),
+            b_branch=torch.stack([b.bias for b in branches]),
+            w_fc=torch.cat([kernel(self.actor_fc), kernel(self.critic_fc)], dim=1),
+            b_fc=torch.cat([self.actor_fc.bias, self.critic_fc.bias]),
+            w_actor_out=kernel(self.actor_out), b_actor_out=self.actor_out.bias,
+            w_critic_out=kernel(self.critic_out), b_critic_out=self.critic_out.bias,
+            branch_off=tuple(off for _, off, _ in layout) + (simple_width(*self.dims),),
+            cond=-1)
+
+    def packed_weights(self) -> ActorCriticWeights:
+        """A detached, cached copy of :meth:`_pack` (:func:`_packed_weights`)."""
+        return _packed_weights(self)

@@ -5,24 +5,29 @@ steps, a Python loop over T in place of ``lax.scan``.  Each step is three
 kernel launches on the card: the observation gather (K2) into the step's
 slice of the trajectory buffer, the actor-critic forward with the sampling
 head (K3), and the fused env step (K1), which updates the lanes in place.
+The policy decides the observation (``policy.observe``): K2's MANSY mode for
+``MansyActorCritic``, its simple mode for the simple_rl baseline's
+``SimpleActorCritic``, as the JAX collector takes ``observe_mansy`` or
+``observe_simple``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
     actor_critic_forward, gumbel_noise,
 )
-from mansy_immersivevideostreaming_torch.kernels.observe import (
-    obs_dims, obs_width, observe_mansy_pack,
+from mansy_immersivevideostreaming_torch.models.abr_nets import (
+    MansyActorCritic, SimpleActorCritic,
 )
-from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
 from mansy_immersivevideostreaming_torch.rl.types import Transition
 from mansy_immersivevideostreaming_torch.sim.env import EnvState, LogRecord, reset_env, step_env
 from mansy_immersivevideostreaming_torch.sim.tables import SimTables
+
+Policy = Union[MansyActorCritic, SimpleActorCritic]
 
 
 def init_lanes(tables: SimTables, samples: torch.Tensor, n_lanes: int,
@@ -35,7 +40,7 @@ def init_lanes(tables: SimTables, samples: torch.Tensor, n_lanes: int,
     return reset_env(tables, samples, starts.to(torch.int32), n_lanes)
 
 
-def check_observation(policy: MansyActorCritic, tables: SimTables) -> None:
+def check_observation(policy: Policy, tables: SimTables) -> None:
     """A policy that reads the action values needs tables that carry them."""
     if policy.reads_action_values and tables.av_quality is None:
         raise ValueError("the policy reads the action_values observation field: attach the "
@@ -53,22 +58,22 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
 
     Returns ``collect(policy, states, generator) -> (new_states, Transition
     [T, N, ...], LogRecord [T, N], last_values [N])``; the transition's
-    observations are the packed [T, N, F] buffer.  Actions are sampled
+    observations are the packed [T, N, F] buffer of the policy's
+    observation.  Actions are sampled
     with Gumbel noise drawn from ``generator`` (a ``torch.Generator`` on the
     lanes' device).  On the card ``states`` is updated in place and returned.
     """
-    dims = obs_dims(tables)
-    width, A = obs_width(*dims), tables.action_space
+    A = tables.action_space
 
-    def collect(policy: MansyActorCritic, states: EnvState,
-                generator: Optional[torch.Generator]):
+    def collect(policy: Policy, states: EnvState, generator: Optional[torch.Generator]):
         check_observation(policy, tables)
         dev = states.buf.device
         w = policy.packed_weights()
-        obs = torch.empty((n_steps, n_lanes, width), dtype=torch.float32, device=dev)
+        obs = torch.empty((n_steps, n_lanes, policy.obs_width(tables)), dtype=torch.float32,
+                          device=dev)
         actions, log_probs, values, rewards, dones, logs = [], [], [], [], [], []
         for t in range(n_steps):
-            x = observe_mansy_pack(tables, states, out=obs[t])
+            x = policy.observe(tables, states, out=obs[t])
             noise = gumbel_noise((n_lanes, A), generator, dev)
             _, value, action, log_prob = actor_critic_forward(w, x, noise)
             states, reward, done, log = step_env(tables, samples, states, action,
@@ -79,7 +84,7 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
             rewards.append(reward)
             dones.append(done)
             logs.append(log)
-        _, last_values, _, _ = actor_critic_forward(w, observe_mansy_pack(tables, states))
+        _, last_values, _, _ = actor_critic_forward(w, policy.observe(tables, states))
         traj = Transition(obs=obs, action=torch.stack(actions),
                           log_prob=torch.stack(log_probs), value=torch.stack(values),
                           reward=torch.stack(rewards), done=torch.stack(dones))

@@ -19,9 +19,7 @@ from mansy_immersivevideostreaming_torch.config import Config
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
     actor_critic_forward, gumbel_noise,
 )
-from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
-from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
-from mansy_immersivevideostreaming_torch.rl.rollout import check_observation, stack_logs
+from mansy_immersivevideostreaming_torch.rl.rollout import Policy, check_observation, stack_logs
 from mansy_immersivevideostreaming_torch.sim.env import (
     LogRecord, generate_environment_samples, generate_environment_test_samples,
     reset_env, step_env,
@@ -92,7 +90,7 @@ def append_episode_logs(path: str, rows: List[str]) -> None:
             f.write(r + "\n")
 
 
-def evaluate(policy: MansyActorCritic, tables: SimTables, samples: torch.Tensor,
+def evaluate(policy: Policy, tables: SimTables, samples: torch.Tensor,
              generator: Optional[torch.Generator] = None, lane_chunk: int = 512,
              deterministic: bool = False):
     """Run every sample episode exactly once; returns per-chunk LogRecords
@@ -103,7 +101,8 @@ def evaluate(policy: MansyActorCritic, tables: SimTables, samples: torch.Tensor,
     ``episode_step_bound(tables)`` steps with auto-reset, and only each
     lane's first episode-end record is kept.  ``deterministic`` takes the
     argmax action instead of sampling (tianshou's ``deterministic_eval``; the
-    reference test loop samples).
+    reference test loop samples).  The policy decides the observation (K2's
+    MANSY or simple mode, ``policy.observe``).
     """
     check_observation(policy, tables)
     n_steps = episode_step_bound(tables)
@@ -116,7 +115,7 @@ def evaluate(policy: MansyActorCritic, tables: SimTables, samples: torch.Tensor,
         states = reset_env(tables, sub, torch.arange(n, dtype=torch.int32, device=dev), n)
         logs = []
         for _ in range(n_steps):
-            x = observe_mansy_pack(tables, states)
+            x = policy.observe(tables, states)
             noise = None if deterministic else gumbel_noise((n, A), generator, dev)
             _, _, action, _ = actor_critic_forward(w, x, noise)
             states, _, _, log = step_env(tables, sub, states, action, n, False)

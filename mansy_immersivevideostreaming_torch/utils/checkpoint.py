@@ -8,7 +8,12 @@ the same params from a numpy ``.npz`` (one array per leaf, keyed by its
 ``/``-joined Flax path) beside a copy of that sidecar, so it needs neither
 JAX nor Orbax.  ``assets/dagger_v9_params.npz`` is the round-4 flagship;
 ``assets/dagger_v16_params.npz`` is the round-4 policy that observes the
-exact, accuracy-corrected action values and adds their logit prior.  The
+exact, accuracy-corrected action values and adds their logit prior;
+``dagger_v18`` is a hidden-256 policy, and ``dagger_v7`` and
+``dagger_v21_last`` are the plain hidden-128 policies that the routed
+ensemble (``cli/run_ensemble.py``) combines with v9 and v18.  The simple_rl
+baseline's ``SimpleActorCritic`` is stored the same way, its layers at the
+top level as Flax names them (no sidecar: its one width is 128).  The
 port's trainers write their policies and identifiers in the same layout
 (:func:`save_npz`, :func:`save_net_config`), so the JAX package's Flax nets
 load them too.
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from mansy_immersivevideostreaming_torch.models.abr_nets import (
-    AV_BRANCH, BRANCHES, COND_BRANCH, MansyActorCritic,
+    AV_BRANCH, BRANCHES, COND_BRANCH, SIMPLE_BRANCHES, MansyActorCritic, SimpleActorCritic,
 )
 from mansy_immersivevideostreaming_torch.models.vp_train import VPState, VPTrainState
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
@@ -44,6 +49,8 @@ ASSETS = Path(__file__).resolve().parent.parent / "assets"
 DAGGER_V9_NPZ = ASSETS / "dagger_v9_params.npz"
 DAGGER_V16_NPZ = ASSETS / "dagger_v16_params.npz"
 DAGGER_V18_NPZ = ASSETS / "dagger_v18_params.npz"
+DAGGER_V7_NPZ = ASSETS / "dagger_v7_params.npz"
+DAGGER_V21_LAST_NPZ = ASSETS / "dagger_v21_last_params.npz"
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -92,6 +99,12 @@ def actor_critic_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor
     return _state_from_flax(flat, names, AC_HEADS, "MansyActorCritic")
 
 
+def simple_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """SimpleActorCritic Flax params -> the port's ``state_dict``."""
+    return _state_from_flax(flatten_params(params), [], SIMPLE_BRANCHES + AC_HEADS,
+                            "SimpleActorCritic")
+
+
 def identifier_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """QoEIdentifier Flax params -> the port's ``state_dict``."""
     return _state_from_flax(flatten_params(params), [n for _, n in BRANCHES] + [COND_BRANCH],
@@ -99,9 +112,9 @@ def identifier_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def flax_params(module: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """A MansyActorCritic's or QoEIdentifier's parameters in the flat,
-    "/"-keyed Flax layout (kernels [in, out]): the inverse of the
-    converters above."""
+    """A MansyActorCritic's, SimpleActorCritic's or QoEIdentifier's
+    parameters in the flat, "/"-keyed Flax layout (kernels [in, out]): the
+    inverse of the converters above."""
     flat = {}
     for name, layer in module.named_modules():
         if isinstance(layer, torch.nn.Linear):
@@ -119,10 +132,12 @@ def save_npz(path: str | os.PathLike, module: torch.nn.Module) -> None:
 
 
 def load_npz_into(module: torch.nn.Module, path: str | os.PathLike) -> None:
-    """Load a Flax-keyed ``.npz`` into a MansyActorCritic or QoEIdentifier."""
+    """Load a Flax-keyed ``.npz`` into a MansyActorCritic, SimpleActorCritic
+    or QoEIdentifier."""
     with np.load(path) as npz:
         params = {k: npz[k] for k in npz.files}
     convert = (actor_critic_state_dict_from_flax if isinstance(module, MansyActorCritic)
+               else simple_state_dict_from_flax if isinstance(module, SimpleActorCritic)
                else identifier_state_dict_from_flax)
     module.load_state_dict(convert(params))
 

@@ -570,7 +570,7 @@ def test_gae_kernel_on_unaligned_inputs_on_card(cuda_device):
 
 
 POLICY_LOSS_VARIANTS = ["clip_norm", "no_value_clip", "no_norm", "per_pref", "kl_scalar",
-                        "kl_per_pref", "ce"]
+                        "kl_per_pref", "ce", "a2c"]
 
 
 def _policy_loss_inputs(K9, variant, B, device, seed):
@@ -581,6 +581,9 @@ def _policy_loss_inputs(K9, variant, B, device, seed):
     action = torch.randint(0, 15, (B,), device=device, generator=g, dtype=torch.int32)
     if variant == "ce":
         return K9.LossSpec(action=action, ent_coef=0.1), logits, None
+    if variant == "a2c":
+        return K9.LossSpec(action=action, ent_coef=0.01, adv=0.5 + 2.0 * r(B), ret=1.5 * r(B),
+                           vf_coef=0.5, mode="a2c"), logits, value
     logp = torch.log_softmax(logits, -1).gather(1, action.long()[:, None])[:, 0]
     kl = {"kl_scalar": torch.tensor(0.7), "kl_per_pref": torch.tensor([2.0, 1.0, 0.1, 0.5])}
     spec = K9.LossSpec(
@@ -590,7 +593,7 @@ def _policy_loss_inputs(K9, variant, B, device, seed):
         anchor_logits=1.5 * r(B, 15) if variant in kl else None,
         kl_coef=kl[variant].to(device) if variant in kl else None,
         value_clip=variant != "no_value_clip", norm_adv=variant != "no_norm",
-        norm_adv_per_pref=variant in ("per_pref", "kl_per_pref"))
+        norm_adv_per_pref=variant in ("per_pref", "kl_per_pref"), mode="ppo")
     return spec, logits, value
 
 
@@ -973,4 +976,107 @@ def test_v18_forward_and_training_kernels_match_plain_on_card(cuda_device):
     ((logits * dlogits).sum() + (value * dvalue).sum()).backward()
     assert all(p.grad is not None for p in policy.parameters())
     _grad_close(policy.actor_fc.weight.grad, want[2][:, :256].t())
+    _grad_close(policy.critic_out.weight.grad, want[6].t())
+
+
+# ---------------------------------------------------------------- simple_rl
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 128, 511, 512, 513, 1025, 8193])
+def test_observe_simple_kernel_at_every_block_edge_on_card(cuda_device, n):
+    """K2's simple mode at the edges of its 4-lane blocks and of its two
+    thread groups: every column a copy or one IEEE division, bit-equal to
+    the plain version on the CPU; into ``obs[1]`` of a [3, N, 395] buffer
+    (unaligned for odd N) and into a strided view the same bits, nothing
+    beside its rows; two launches give the same bits."""
+    tables = _perturbed_tables(cuda_device)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=cuda_device)
+    state = init_lanes(tables, samples, n, seed=n)
+    rng = np.random.default_rng(n)
+    for _ in range(5):
+        acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=cuda_device)
+        state, *_ = K1.env_step_plain(tables, samples, state, acts, n, True)
+    got = K2.observe_simple_pack(tables, state)
+    torch.cuda.synchronize()
+    ref = K2.observe_simple_pack_plain(_on_cpu(tables), tree_map(lambda x: x.cpu(), state))
+    assert got.shape == (n, 395) and torch.equal(got.cpu(), ref)
+    assert torch.equal(K2.observe_simple_pack(tables, state), got)
+    obs = torch.full((3, n, 395), float("nan"), device=cuda_device)
+    K2.observe_simple_pack(tables, state, out=obs[1])
+    assert torch.equal(obs[1], got) and bool(obs[0].isnan().all() and obs[2].isnan().all())
+    wide = torch.full((n, 398), float("nan"), device=cuda_device)
+    K2.observe_simple_pack(tables, state, out=wide[:, :395])
+    assert torch.equal(wide[:, :395], got) and bool(wide[:, 395:].isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 33, 128, 511, 512, 513, 4096, 8192])
+def test_simple_actor_critic_kernels_at_every_tile_edge_on_card(cuda_device, n):
+    """K3 (forward with and without noise, training mode) and K10 on the
+    simple_rl net (five branches, no cond branch): against their plain
+    versions (K10 at rtol 1e-4 plus 1e-5 of the largest entry), two
+    launches bit-equal, at row counts around the 32-row tile and at the A2C
+    shapes (128 lanes, minibatch 512)."""
+    from mansy_immersivevideostreaming_torch.models.abr_nets import SimpleActorCritic
+    torch.manual_seed(n)
+    w = SimpleActorCritic(device=cuda_device).packed_weights()
+    assert w.cond == -1 and len(w.branch_off) == 6
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.rand(n, 395, device=cuda_device, generator=g)
+    for noise in (None, K3.gumbel_noise((n, 15), g, cuda_device)):
+        got = K3.actor_critic_forward(w, x, noise)
+        ref = K3.actor_critic_forward_plain(w, x, noise)
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        scores = ref[0] if noise is None else ref[0] + noise
+        top2 = scores.topk(2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
+        assert torch.equal(got[2][decisive], ref[2][decisive])
+        assert all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_forward(w, x, noise)))
+    got = K3.actor_critic_train_forward(w, x)
+    ref = K3.actor_critic_train_forward_plain(w, x)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_train_forward(w, x)))
+    dlogits = torch.randn(n, 15, device=cuda_device, generator=g)
+    dvalue = torch.randn(n, device=cuda_device, generator=g)
+    grads = K3.actor_critic_backward(w, x, got[2], got[3], dlogits, dvalue)
+    for a, b in zip(grads, K3.actor_critic_backward_plain(w, x, got[2], got[3], dlogits, dvalue)):
+        _grad_close(a, b)
+    again = K3.actor_critic_backward(w, x, got[2], got[3], dlogits, dvalue)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_simple_actor_critic_cluster_plans_on_card(cuda_device):
+    """K3's plan for the five-branch net: a valid cluster at the A2C shapes
+    (128 and 512 rows) and one CTA a tile at 65536 rows."""
+    from mansy_immersivevideostreaming_torch.models.abr_nets import SimpleActorCritic
+    w = SimpleActorCritic(device=cuda_device).packed_weights()
+    plans = [K3.cluster_plan(w, n) for n in (1, 128, 512, 4096, 1 << 16)]
+    assert plans[0] == (6, True), plans  # one CTA a unit: chunk_sizes in two halves
+    assert all(1 <= c <= 6 for c, _ in plans) and plans[-1] == (1, False), plans
+
+
+@pytest.mark.cuda
+def test_simple_policy_trains_through_the_kernels_on_card(cuda_device):
+    """SimpleActorCritic's forward_packed (K3's training mode) and its
+    backward (K10) into every parameter, against the plain versions."""
+    from mansy_immersivevideostreaming_torch.models.abr_nets import SimpleActorCritic
+    torch.manual_seed(5)
+    policy = SimpleActorCritic(device=cuda_device)
+    B = 512
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand(B, 395, device=cuda_device, generator=g)
+    dlogits = torch.randn(B, 15, device=cuda_device, generator=g)
+    dvalue = torch.randn(B, device=cuda_device, generator=g)
+    w = policy.packed_weights()
+    with torch.no_grad():
+        _, _, feats, hidden = K3.actor_critic_train_forward_plain(w, x)
+        want = K3.actor_critic_backward_plain(w, x, feats, hidden, dlogits, dvalue)
+    logits, value = policy.forward_packed(x)
+    ((logits * dlogits).sum() + (value * dvalue).sum()).backward()
+    assert all(p.grad is not None for p in policy.parameters())
+    _grad_close(policy.actor_fc.weight.grad, want[2][:, :128].t())
+    _grad_close(policy.chunk_sizes.weight.grad, want[0][8:328].t())
     _grad_close(policy.critic_out.weight.grad, want[6].t())

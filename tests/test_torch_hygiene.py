@@ -2,7 +2,9 @@
 
 * No module of ``mansy_immersivevideostreaming_torch`` imports JAX, Flax,
   Optax, Orbax or the JAX package (an AST scan, and a fresh interpreter that
-  imports the port's runner without pulling in ``jax``).
+  imports the port's runner without pulling in ``jax``, and one that runs
+  ``run_simple_rl --train --test`` and ``run_ensemble`` on the CPU without
+  pulling in ``jax``, ``tensorflow`` or the JAX package).
 * Entry points default to the card and raise where there is none, instead
   of running on the CPU unasked.
 * A kernel wrapper given CPU tensors runs its plain PyTorch version and
@@ -12,8 +14,10 @@
 """
 
 import ast
+import glob
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -33,7 +37,9 @@ from mansy_immersivevideostreaming_torch.kernels import gae as K6
 from mansy_immersivevideostreaming_torch.kernels import observe as K2
 from mansy_immersivevideostreaming_torch.kernels import policy_loss as K9
 from mansy_immersivevideostreaming_torch.kernels import tile_occupancy as K7
-from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic, QoEIdentifier
+from mansy_immersivevideostreaming_torch.models.abr_nets import (
+    MansyActorCritic, QoEIdentifier, SimpleActorCritic,
+)
 from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
 from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
 from mansy_immersivevideostreaming_torch.sim.expert import (
@@ -83,6 +89,9 @@ def test_runner_import_pulls_in_no_jax():
             "import mansy_immersivevideostreaming_torch.cli.run_models; "
             "import mansy_immersivevideostreaming_torch.cli.predict; "
             "import mansy_immersivevideostreaming_torch.models.mtio; "
+            "import mansy_immersivevideostreaming_torch.rl.a2c; "
+            "import mansy_immersivevideostreaming_torch.cli.run_simple_rl; "
+            "import mansy_immersivevideostreaming_torch.cli.run_ensemble; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
@@ -91,11 +100,43 @@ def test_runner_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_new_entry_points_run_without_jax(tmp_path):
+    """``run_simple_rl --train --test`` and ``run_ensemble`` (v9 and v7) run
+    on the synthetic dataset tree in a fresh interpreter, and neither pulls
+    in JAX, TensorFlow or the JAX package while it runs."""
+    from synthetic_tree import build_synthetic_tree
+    from test_torch_tables import port_config
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import DAGGER_V7_NPZ
+
+    with open(tmp_path / "config.pkl", "wb") as f:
+        pickle.dump(port_config(build_synthetic_tree(str(tmp_path))), f)
+    code = f"""
+import pickle, sys
+from mansy_immersivevideostreaming_torch.cli import run_ensemble, run_simple_rl
+config = pickle.load(open({str(tmp_path / "config.pkl")!r}, "rb"))
+run = lambda cli, argv: cli.run(cli.build_parser().parse_args(argv + ["--device", "cpu"]), config)
+run(run_simple_rl, ["--train", "--test", "--qoe-train-id", "0", "--epochs", "1",
+                    "--step-per-epoch", "32", "--step-per-collect", "32", "--train-lanes", "8",
+                    "--batch-size", "32", "--test-on-seen", "--deterministic-eval"])
+run(run_ensemble, ["--ckpts", {str(DAGGER_V9_NPZ)!r}, {str(DAGGER_V7_NPZ)!r},
+                   "--test-on-seen", "--route-grid", "roundrobin",
+                   "--output-csv", {str(tmp_path / "ensemble.csv")!r}])
+bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ("tensorflow",)!r}]
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "ensemble.csv").exists()
+    assert glob.glob(str(tmp_path / "**" / "*_best_policy.npz"), recursive=True)
+
+
 def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the entry points would run on it")
     from mansy_immersivevideostreaming_torch.cli import (
-        predict, run_dagger, run_expert, run_mansy, run_models,
+        predict, run_dagger, run_ensemble, run_expert, run_mansy, run_models, run_simple_rl,
     )
     from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
     from mansy_immersivevideostreaming_torch.config import default_config
@@ -112,13 +153,19 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
                   lambda: cli_device(predict), lambda: ViewportTransformerMTIO(),
                   lambda: train(predict, ["--model", "regression"]),
                   lambda: train(run_models, ["--test", "--model", "regression"]),
-                  lambda: train(run_models, ["--train"])):
+                  lambda: train(run_models, ["--train"]), lambda: SimpleActorCritic(),
+                  lambda: cli_device(run_simple_rl),
+                  lambda: train(run_simple_rl, ["--train", "--qoe-train-id", "0"]),
+                  lambda: train(run_simple_rl, ["--test", "--qoe-train-id", "0"]),
+                  lambda: train(run_ensemble, ["--ckpts", str(DAGGER_V9_NPZ), "--output-csv",
+                                               str(tmp_path / "ensemble.csv")])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
 
 def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
-    wrappers = (K1.env_step, K2.observe_mansy_pack, K3.actor_critic_forward,
+    wrappers = (K1.env_step, K2.observe_mansy_pack, K2.observe_simple_pack,
+                K3.actor_critic_forward,
                 K3.actor_critic_train_forward, K3.actor_critic_backward, K4.choose_action,
                 K5.build_expert_tables, K6.compute_gae, K9.policy_loss, K7.chunk_maps,
                 K7.trajectory_metrics, K8.attention, K8.attention_train_forward,
@@ -170,6 +217,23 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
                     K9.policy_loss_plain(spec, fwd[0], None)[:3]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
+    # the simple_rl modes: K2's simple mode, K3 and K10 without the cond
+    # branch, K9's A2C mode
+    xs = K2.observe_simple_pack(tables, state)
+    torch.testing.assert_close(xs, K2.observe_simple_pack_plain(tables, state), rtol=0, atol=0)
+    ws = SimpleActorCritic(device="cpu").packed_weights()
+    for a, b in zip(K3.actor_critic_forward(ws, xs, noise),
+                    K3.actor_critic_forward_plain(ws, xs, noise)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    fwd = K3.actor_critic_train_forward(ws, xs)
+    for a, b in zip(K3.actor_critic_backward(ws, xs, *fwd[2:], dlogits, dvalue),
+                    K3.actor_critic_backward_plain(ws, xs, *fwd[2:], dlogits, dvalue)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    spec = K9.LossSpec(action=actions, ent_coef=0.01, adv=dvalue, ret=rewards[0], mode="a2c")
+    for a, b in zip(K9.policy_loss(spec, fwd[0], fwd[1]), K9.policy_loss_plain(spec, fwd[0],
+                                                                              fwd[1])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
     # viewport serving: K7's two modes and K8
     gt, pred = torch.rand(6, 15, 2), torch.rand(6, 15, 2)
     for a, b in zip(K7.chunk_maps(gt, pred, 5), K7.chunk_maps_plain(gt, pred, 5)):
@@ -189,6 +253,7 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
                     K8.attention_backward_plain(dout, q, k, v, *fwd, 3, keep, 0.1)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
+    assert not any(getattr(fn, "launches_by_mode", None) for fn in wrappers)
 
 
 @pytest.mark.parametrize("netcfg", [

@@ -67,7 +67,8 @@ def port_spec(b, cfg, v):
         anchor_logits=t("anchor") if kl is not None else None,
         kl_coef=None if kl is None else torch.as_tensor(kl, dtype=torch.float32),
         eps_clip=cfg.eps_clip, vf_coef=cfg.vf_coef, value_clip=cfg.value_clip,
-        norm_adv=cfg.norm_adv, norm_adv_per_pref=cfg.norm_adv_per_pref, n_prefs=PREFS)
+        norm_adv=cfg.norm_adv, norm_adv_per_pref=cfg.norm_adv_per_pref, n_prefs=PREFS,
+        mode="ppo")
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
@@ -147,3 +148,24 @@ def test_ce_mode_matches_bc_and_dagger_steps(step, ent_coef):
     floss, _ = K9.ce_loss(logits, torch.as_tensor(b["action"]), ent_coef)
     floss.backward()
     torch.testing.assert_close(logits.grad, dlogits, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode, fields, ok", [
+    ("ce", (), True), ("ce", ("adv", "ret"), False), ("a2c", ("adv", "ret"), True),
+    ("a2c", ("adv",), False), ("a2c", ("adv", "ret", "old_log_prob"), False),
+    ("ppo", ("old_log_prob", "old_value", "adv", "ret"), True),
+    ("ppo", ("adv", "ret"), False), ("bc", (), False),
+])
+def test_loss_spec_mode_needs_and_reads_only_its_tensors(mode, fields, ok):
+    """A spec's ``mode`` alone picks the loss: a tensor the mode needs and
+    lacks, or one it would not read, is refused instead of ignored."""
+    b = batch(6)
+    t = {"adv": "adv", "ret": "ret", "old_log_prob": "log_prob", "old_value": "old_value"}
+    spec = K9.LossSpec(action=torch.as_tensor(b["action"]), ent_coef=0.01, mode=mode,
+                       **{f: torch.as_tensor(b[t[f]]) for f in fields})
+    call = lambda: K9.policy_loss(spec, torch.as_tensor(b["logits"]), torch.as_tensor(b["value"]))
+    if ok:
+        assert len(call()) == 4
+    else:
+        with pytest.raises(ValueError, match="mode"):
+            call()
