@@ -114,6 +114,14 @@ backward beside it where it takes the shape; K7 in metrics mode (F = 15) and
 chunk mode (frequency 5; two launches of each give the same bits), and on a
 grid of positions on and beside every pixel boundary that moves a map.
 
+Phase 2f holds K8 on bf16 q, k and v (``run_models --bf16``; serving,
+training mode with a keep mask at 0.1, backward) in every shape of phase
+2d, the teacher-forced ones and the --his-window 96 ones, against its
+plain bf16 version: each element within one bf16 ulp of the larger of the
+two plus the slack of one-ulp flips of the inner bf16 roundings of P and dP'
+(``kernels/attention.py:bf16_slack``), two launches bit-equal; timed beside
+the bf16 bytes bound and SDPA on the same bf16 tensors (rows ``*_bf16``).
+
 9. vp_test: ``run_models --test``'s loop (``run_models.test_split``) over
    the Jin2022 test splits' shape (test_seen and test_unseen, each 3 videos
    x 15 users x 54 windows = 2,430 trajectories) at bs 512, with full-width
@@ -139,6 +147,11 @@ grid of positions on and beside every pixel boundary that moves a map.
    over the distilled 48) from Flax's initialisers, held against the plain
    path in the same way, then timed; a validation pass on the trained
    weights.
+9b, 11b. vp_test_bf16, vp_train_bf16: phases 9 and 11 with ``--bf16`` (K8
+   in its bf16 mode, the predictions and the step held to the plain bf16
+   path at VP_BF16_* limits, and against the plain path at f32 compute
+   from the same weights as a control, which must break them; no
+   --his-window 96 step).
 
 Each path is timed over several passes (median and spread of the host-clock
 rate); every pass must launch each kernel exactly as often as the path has
@@ -175,6 +188,11 @@ composition.
    the whole run (median of 3), then the same run through the plain
    versions; the route, the gate evidence and every valid and test episode
    record equal.
+14. preprocess: ``preprocess_hmdtrace --dataset Wu2017 --preprocess`` on
+   the card over the raw layout's 9 videos x 48 users of synthetic 30 Hz
+   quaternion logs, every output file equal to the same CLI's ``--device
+   cpu`` run to 1e-6; ``preprocess_network`` over 40 synthetic 4G traces;
+   wall seconds of each.
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -202,10 +220,11 @@ import torch
 
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
 # data sheet): HBM3 bandwidth, the f32 rate outside the tensor cores and the
-# dense TF32 rate of the tensor cores.
+# dense TF32 and bf16 rates of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores: the bf16 rows' operations bound
 
 LANES = 8192            # main-path lanes (bench.py's rollout width)
 COLLECT_STEPS = 128
@@ -245,6 +264,22 @@ VP_LOSS_RTOL = 1e-5     # phase 11: a step's loss through the kernels against th
 VP_GRAD_RTOL = 1e-4     # phase 11: gradients, plus VP_GRAD_RTOL of the largest entry
 VP_PARAM_ATOL = 2e-6    # phase 11: parameters after AdamW whose two gradients agree to 1%
 VP_PARAM_LOOSE = 0.005  # phase 11: share of the other parameters allowed beyond VP_PARAM_ATOL
+# phase 9 and 9b, predictions through the kernels against the plain path
+# (compare_vp): their largest and root-mean-square differences, the per-step
+# MSE's largest.  bf16: H100 readings 5.9e-4, 1.1e-5, 2.5e-4 (the f32 plain
+# path as the control: 1.0e-3, 2.4e-4, 5.7e-4)
+VP_TEST_LIMITS = (VP_ATOL, math.inf, 1e-5)
+VP_BF16_TEST_LIMITS = (8e-4, 5e-5, 4e-4)
+# phase 11 and 11b, a step through the kernels against the plain path
+# (compare_vp_steps): the loss's rtol; the gradients' rtol, and their share of
+# a leaf's scale beyond it, the scale at least the floor's share of the
+# model's largest entry; the share of parameters beyond VP_PARAM_ATOL after
+# AdamW.  bf16: H100 readings 5.0e-5, 0.024, 0.023 (the f32 plain path as the
+# control: 2.5e-4, 0.064, 0.039)
+VP_LIMITS = (VP_LOSS_RTOL, VP_GRAD_RTOL, VP_GRAD_RTOL, 1.0, VP_PARAM_LOOSE)
+VP_BF16_LIMITS = (1e-4, 2.0 ** -6, 0.04, 1e-3, 0.03)
+WU2017_SHAPE = (9, 48)  # phase 14: the raw Wu2017 layout's videos and users
+NETWORK_TRACES = (40, 600)  # phase 14: synthetic 4G .log traces and their seconds
 SIMPLE_LANES = 128      # run_simple_rl --train-lanes default
 A2C_BATCH = 512         # run_simple_rl --batch-size default
 SIMPLE_WIDTHS = (SIMPLE_LANES, SERVE_CHUNK)  # phase 2e: K2 and K3 at the train lanes, the test chunk
@@ -298,6 +333,18 @@ KERNELS = {
                                source=f"{PKG}/kernels/csrc/attention_backward.cu",
                                replaces="mansy_immersivevideostreaming_tpu/models/"
                                         "vp_train.py:65"),
+    # K8 at bf16 (run_models --bf16): the bf16 instantiations of the same
+    # kernels, with the launches of the bf16 viewport paths
+    "attention_bf16": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
+                           replaces="mansy_immersivevideostreaming_tpu/models/transformer.py:61"),
+    "attention_train_forward_bf16": dict(route="cuda",
+                                         source=f"{PKG}/kernels/csrc/attention.cu",
+                                         replaces="mansy_immersivevideostreaming_tpu/models/"
+                                                  "transformer.py:61"),
+    "attention_backward_bf16": dict(route="cuda",
+                                    source=f"{PKG}/kernels/csrc/attention_backward.cu",
+                                    replaces="mansy_immersivevideostreaming_tpu/models/"
+                                             "vp_train.py:65"),
     # the simple_rl (A2C) modes: K2's simple mode, K3 and K10 on the
     # five-branch net without the cond branch, K9's A2C mode; each with the
     # launches of the simple_rl paths
@@ -320,9 +367,9 @@ KERNELS = {
 }
 # the kernels-line row of a launch: the wrapper's name, and the suffix of
 # the mode it counted the launch in (K3 and K10 by net and hidden width, K9
-# by loss); K7's two wrappers share one row
+# by loss, K8 by element type); K7's two wrappers share one row
 MODE_SUFFIX = {None: "", "cond128": "", "cond256": "_h256", "simple128": "_simple", "ce": "",
-               "ppo": "", "a2c": "_a2c"}
+               "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16"}
 SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
@@ -1500,8 +1547,8 @@ def backward_bounds(w, B: int, A: int) -> dict:
     return dict(**bound(flops, nbytes), bound_3xtf32_ms=1e3 * max(t_tc, nbytes / HBM_BYTES_PER_S))
 
 
-def bound(flops: int, nbytes: int) -> dict:
-    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops: int, nbytes: int, flop_per_s: float = F32_FLOP_PER_S) -> dict:
+    t_ops, t_bytes = flops / flop_per_s, nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops > t_bytes else "bytes")
 
@@ -2012,36 +2059,43 @@ def dagger_phase(dev, counters):
 
 # ---------------------------------------------------------------- phase 2d
 
-def attention_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0):
+def attention_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0, elem: int = 4):
     """(operations, bytes) of K8: per query row over its n keys, the q . k
     and p . v multiply-adds (4 Dh operations a key) and the softmax's
     subtract, exp, sum and divide (4 a key); q read and o written once, and
-    the k and v rows that any row of the call needs read once."""
+    the k and v rows that any row of the call needs read once, ``elem``
+    bytes an element (4 in f32, 2 in bf16)."""
     first = Lk if kv_len0 is None else kv_len0
     seen = [min(Lk, first + r) for r in range(Lq)]
     flops = B * H * sum(n * (4 * Dh + 4) for n in seen)
-    return flops, 4 * B * H * Dh * (2 * Lq + 2 * max(seen))
+    return flops, elem * B * H * Dh * (2 * Lq + 2 * max(seen))
 
 
 def attention_train_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0,
-                         dropout: bool):
+                         dropout: bool, elem: int = 4):
     """(operations, bytes) of K8's training mode: the serving mode's, the
     row max and sum written (f32 [B, H, Lq] each) and the keep mask read
     (u8 [B, H, Lq, Lk]) when there is one."""
-    flops, nbytes = attention_cost(B, Lq, Lk, H, Dh, kv_len0)
+    flops, nbytes = attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem)
     return flops, nbytes + 8 * B * H * Lq + (B * H * Lq * Lk if dropout else 0)
 
 
 def attention_backward_cost(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0,
-                            dropout: bool):
+                            dropout: bool, elem: int = 4):
     """(operations, bytes) of K8's backward: per (row, seen key) the score,
     dO . v, and the dq, dk and dv multiply-adds (10 Dh) and about 10 scalar
-    operations, per row dO . o (2 Dh); q, o, dO and the seen k and v rows,
-    the statistics and the mask read once, dq, dk and dv written once."""
+    operations; per row D, in f32 dO . o (2 Dh operations), in bf16
+    sum_k g_k P_k over the row's n keys (2 n: that function reads no o);
+    q, dO (and in f32 o) and the seen k and v rows, the statistics and the
+    mask read once, dq, dk and dv written once, ``elem`` bytes an element
+    of all but the statistics and the mask."""
     first = Lk if kv_len0 is None else kv_len0
     seen = [min(Lk, first + r) for r in range(Lq)]
-    flops = B * H * (sum(n * (10 * Dh + 10) for n in seen) + Lq * 2 * Dh)
-    nbytes = 4 * B * H * Dh * (4 * Lq + 2 * max(seen) + 2 * Lk) + 8 * B * H * Lq
+    bf16 = elem == 2
+    delta = sum(2 * n for n in seen) if bf16 else Lq * 2 * Dh
+    flops = B * H * (sum(n * (10 * Dh + 10) for n in seen) + delta)
+    rows = 3 * Lq if bf16 else 4 * Lq
+    nbytes = elem * B * H * Dh * (rows + 2 * max(seen) + 2 * Lk) + 8 * B * H * Lq
     return flops, nbytes + (B * H * Lq * Lk if dropout else 0)
 
 
@@ -2323,6 +2377,134 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
     return rows
 
 
+# ---------------------------------------------------------------- phase 2f
+
+def attention_bf16_phase(dev, floor_ms: float) -> dict:
+    """K8 on bf16 q, k, v (``run_models --bf16``) at B = VP_BATCH in every
+    viewport shape of phase 2d: the decode step over the 15-slot cache at
+    each t, the cross-attention 1 x 3, the encoder's 5 x 5, the
+    teacher-forced causal 15 x 15 and cross 15 x 3, and the --his-window 96
+    shapes (the encoder's 96 x 96, the cross-attention over the distilled
+    48) and a decode step over 256 keys; serving, training mode (keep mask
+    at 0.1) and backward, each against its plain bf16 version: every
+    element within one bf16 ulp of the larger of the two plus
+    ``bf16_slack`` (P and dP' are rounded to bf16 inside from f32 values
+    the two compute in another order; ``excess`` <= 1), the row statistics
+    as phase 2d's, two launches bit-equal.  Timed by CUDA events beside the
+    bf16 bytes bound and SDPA on the same bf16 tensors (forward; forward +
+    backward by autograd); the sums over a viewport batch's 62 serving
+    launches and a training step's 62 (6 teacher-forced).  Returns the three
+    bf16 rows."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+
+    args = run_models.build_parser().parse_args(["--test", "--bf16"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    B, H, Dh, F, rate = VP_BATCH, 8, 64, args.fut_window, 0.1
+    shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
+    shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal_tf=(F, F, 1),
+                  cross_tf=(F, 3, None), encoder_96=(96, 96, None), cross_48=(1, 48, None),
+                  decode_256=(1, 256, None))
+    cases = {"serve": {}, "train": {}, "backward": {}}
+    worst = {"serve": 0.0, "train": 0.0, "backward": 0.0}
+    err = {"serve": 0.0, "train": 0.0, "backward": 0.0}
+    beyond_ulp = {"serve": 0, "train": 0, "backward": 0}
+    for name, (Lq, Lk, kv_len0) in shapes.items():
+        q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=gen).bfloat16()
+                   for L in (Lq, Lk, Lk))
+        dout = torch.randn(B, Lq, H, Dh, device=dev, generator=gen).bfloat16()
+        keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(torch.uint8)
+
+        def agree(kind, got, ref, slack, label):
+            excess = K8.bf16_excess(got, ref, slack)
+            if not excess <= 1:
+                raise AssertionError(f"attention bf16 ({label}, {name}) disagrees with its plain "
+                                     f"version beyond one ulp and the rounding slack "
+                                     f"({excess})")
+            diff = (got.float() - ref.float()).abs()
+            ulp = K8.bf16_ulp(torch.maximum(got.float().abs(), ref.float().abs()))
+            worst[kind] = max(worst[kind], excess)
+            err[kind] = max(err[kind], float(diff.max()))
+            beyond_ulp[kind] += int((diff > ulp).sum())
+
+        got = K8.attention(q, k, v, kv_len0)
+        agree("serve", got, K8.attention_plain(q, k, v, kv_len0),
+              K8.bf16_slack(q, k, v, dout, kv_len0)[0], "serving")
+        if not torch.equal(got, K8.attention(q, k, v, kv_len0)):
+            raise AssertionError(f"attention bf16 ({name}): two launches differ")
+        slack = K8.bf16_slack(q, k, v, dout, kv_len0, keep, rate)
+        fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
+        ref = K8.attention_train_forward_plain(q, k, v, kv_len0, keep, rate)
+        agree("train", fwd[0], ref[0], slack[0], "training")
+        for a, b in zip(fwd[1:], ref[1:]):
+            if not training_close(a, b, float(b.abs().max())):
+                raise AssertionError(f"attention bf16 (training {name}): row statistics differ")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, keep, rate), leaves,
+                                   dout)
+        grads = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
+        for g, w, sl in zip(grads, want, slack[1:]):
+            agree("backward", g, w, sl, "backward")
+        if not (all(torch.equal(a, b) for a, b in zip(
+                fwd, K8.attention_train_forward(q, k, v, kv_len0, keep, rate)))
+                and all(torch.equal(a, b) for a, b in zip(grads, K8.attention_backward(
+                    dout, q, k, v, *fwd, kv_len0, keep, rate)))):
+            raise AssertionError(f"attention bf16 (training {name}): two launches differ")
+        seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
+        allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+        dout_t = dout.transpose(1, 2)
+        common = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0)
+        cases["serve"][name] = dict(
+            **common, ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0)),
+            plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0)),
+            library_ms=gpu_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed)),
+            **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0, 2), BF16_FLOP_PER_S))
+        cases["train"][name] = dict(
+            **common, ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate)),
+            plain_ms=gpu_ms(lambda: K8.attention_train_forward_plain(q, k, v, kv_len0, keep,
+                                                                     rate)),
+            library_ms=gpu_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed)),
+            **bound(*attention_train_cost(B, Lq, Lk, H, Dh, kv_len0, True, 2),
+                    BF16_FLOP_PER_S))
+        cases["backward"][name] = dict(
+            **common, ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep,
+                                                              rate)),
+            plain_ms=gpu_ms(lambda: K8.attention_backward_plain(dout, q, k, v, *fwd, kv_len0,
+                                                                keep, rate)),
+            library_ms=gpu_ms(lambda: torch.autograd.grad(
+                sdpa(qg, kg, vg, attn_mask=allowed), (qg, kg, vg), dout_t)),
+            plan=K8.attention_backward_plan(B, Lq, Lk, H, Dh)._asdict(),
+            **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True, 2),
+                    BF16_FLOP_PER_S))
+    L = args.block_num
+    serve_mix = {"encoder": L, "cross": F * L, **{f"decode_t{t}": L for t in range(F)}}
+    mixes = {"step": serve_mix, "teacher_forced_step": {"encoder": L, "causal_tf": L,
+                                                        "cross_tf": L}}
+    if sum(serve_mix.values()) != attention_launches(args):
+        raise AssertionError(f"attention bf16: the mix {serve_mix} is not a batch's launches")
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms")
+    rows = {}
+    for row, kind, row_mixes in (("attention_bf16", "serve", {"batch": serve_mix}),
+                                 ("attention_train_forward_bf16", "train", mixes),
+                                 ("attention_backward_bf16", "backward", mixes)):
+        sums = {f"{mix}_{key}_sum": sum(n * cases[kind][name][key] for name, n in shape_n.items())
+                for mix, shape_n in row_mixes.items() for key in keys}
+        main = cases[kind][f"decode_t{F - 1}"]
+        rows[row] = dict(max_abs_err=err[kind], max_excess_over_slack=worst[kind],
+                         elements_beyond_one_ulp=beyond_ulp[kind],
+                         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+                         shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1, dtype="bfloat16",
+                                    **({"dropout": rate} if kind != "serve" else {})),
+                         batch=dict(launches=row_mixes, timing_floor_ms=floor_ms, **sums),
+                         bits_equal_on_two_launches=True, cases=cases[kind])
+    return rows
+
+
 # ----------------------------------------------------------- phases 9, 10
 
 def synthetic_traces(pairs: int, length: int, seed: int) -> np.ndarray:
@@ -2337,12 +2519,13 @@ def synthetic_traces(pairs: int, length: int, seed: int) -> np.ndarray:
     return xy.astype(np.float32)
 
 
-def seeded_mtio(dev, seed: int):
+def seeded_mtio(dev, seed: int, dtype=torch.float32):
     """The full-width MTIO of ``run_models``' defaults with PyTorch's default
-    initialisation from ``seed``, and BatchNorm statistics off 0 and 1."""
+    initialisation from ``seed``, and BatchNorm statistics off 0 and 1, at
+    the compute ``dtype``."""
     from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
     torch.manual_seed(seed)
-    model = ViewportTransformerMTIO(device=dev)
+    model = ViewportTransformerMTIO(dtype=dtype, device=dev)
     bn = model.transformer.distill.bn
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -2363,33 +2546,56 @@ def stack_rows(rows):
             np.stack([np.stack([r[i] for r in rows]) for i in range(5, 10)]))
 
 
-def compare_vp(rows, ref_rows) -> dict:
-    """Phase 9's rows against the plain path's: predictions within VP_ATOL;
-    on every step where both truncate to the same pixel, accuracy, recall,
-    precision and f1 equal and the MSE within 1e-5."""
+def vp_readings(rows, ref_rows) -> dict:
+    """How far phase 9's rows lie from another run's: the predictions'
+    largest and root-mean-square differences; on every step where both
+    truncate to the same pixel, whether accuracy, recall, precision and f1
+    are equal, and the MSE's largest difference."""
     pred, metrics = stack_rows(rows)
     ref_pred, ref_metrics = stack_rows(ref_rows)
-    err = float(np.abs(pred - ref_pred).max())
-    if err > VP_ATOL:
-        raise AssertionError(f"vp_test: predictions differ from the plain path's by {err}")
     same = np.ones(pred.shape[:2], bool)
     for axis, size in enumerate(FRAME):
         same &= ((pred[..., axis] * np.float32(size)).astype(np.int32)
                  == (ref_pred[..., axis] * np.float32(size)).astype(np.int32))
-    if not np.array_equal(metrics[1:, same], ref_metrics[1:, same]):
-        raise AssertionError("vp_test: tile metrics differ where the pixels agree")
-    mse_err = float(np.abs(metrics[0] - ref_metrics[0]).max())
-    if mse_err > 1e-5 or not (np.isfinite(metrics).all() and (0 <= pred).all()
-                              and (pred <= 1).all()):
-        raise AssertionError(f"vp_test: MSE off by {mse_err}, or values out of range")
-    return dict(pred_max_abs_err=err, mse_max_abs_err=mse_err,
+    return dict(pred_max_abs_err=float(np.abs(pred - ref_pred).max()),
+                pred_rms_err=float(np.sqrt(np.mean(np.square(pred.astype(np.float64)
+                                                              - ref_pred)))),
+                mse_max_abs_err=float(np.abs(metrics[0] - ref_metrics[0]).max()),
+                metrics_equal=bool(np.array_equal(metrics[1:, same], ref_metrics[1:, same])),
+                in_range=bool(np.isfinite(metrics).all() and (0 <= pred).all()
+                              and (pred <= 1).all()),
                 steps_compared=int(same.sum()), steps_total=int(same.size),
                 trajectories_with_a_moved_pixel=int((~same).any(1).sum()))
 
 
-def vp_test_phase(dev, counters):
+def vp_faults(r: dict, limits) -> list:
+    """The ``limits`` (the predictions' largest and root-mean-square
+    differences, the MSE's largest) that the readings ``r`` of
+    ``vp_readings`` break."""
+    return [f"{key} {r[key]} > {limit}" for key, limit in zip(
+        ("pred_max_abs_err", "pred_rms_err", "mse_max_abs_err"), limits) if r[key] > limit]
+
+
+def compare_vp(rows, ref_rows, limits=VP_TEST_LIMITS) -> dict:
+    """Phase 9's rows against the plain path's: within ``limits``
+    (``vp_faults``), tile metrics equal wherever the pixels agree, values
+    finite and in [0, 1]."""
+    r = vp_readings(rows, ref_rows)
+    faults = vp_faults(r, limits)
+    if faults or not (r["metrics_equal"] and r["in_range"]):
+        raise AssertionError(f"vp_test: the kernels' rows differ from the plain path's: "
+                             f"{'; '.join(faults)} (readings {r})")
+    return r
+
+
+def vp_test_phase(dev, counters, bf16: bool = False):
     """``run_models --test``'s loop over the test splits' shape with seeded
-    full-width weights, then the same loop through the plain versions."""
+    full-width weights, then the same loop through the plain versions.
+    With ``bf16``, ``run_models --test --bf16`` (phase 9b): K8's bf16 mode,
+    the rows held to the plain path at VP_BF16_TEST_LIMITS (bf16 roundings
+    of P flip where the two sum in another order, and the fed-back decode
+    steps grow the flips), and the plain path at f32 compute from the same
+    weights as the control, which must break one of them."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.config import default_config
     from mansy_immersivevideostreaming_torch.data.viewport import build_windowed_dataset
@@ -2400,7 +2606,8 @@ def vp_test_phase(dev, counters):
     from mansy_immersivevideostreaming_torch.utils.results import Results
 
     config = default_config()
-    args = run_models.build_parser().parse_args(["--test", "--seed", str(VP_SEED)])
+    args = run_models.build_parser().parse_args(["--test", "--seed", str(VP_SEED)]
+                                                + (["--bf16"] if bf16 else []))
     vsplit, usplit = config.video_split["Jin2022"], config.user_split["Jin2022"]
     m = min(len(usplit["valid"]), len(usplit["test"]))  # create_datasets' split rule
     length = 60 * config.frequency   # the test videos' 60 s at 5 Hz
@@ -2415,7 +2622,7 @@ def vp_test_phase(dev, counters):
     sizes = {split: len(ds) for split, ds in sets.items()}
     if sizes != {"test_seen": 2430, "test_unseen": 2430}:
         raise AssertionError(f"vp_test: splits of {sizes} trajectories")
-    model = seeded_mtio(dev, VP_SEED)
+    model = seeded_mtio(dev, VP_SEED, torch.bfloat16 if args.bf16 else torch.float32)
     sample_fn = run_models.make_sample_fn(args, model)
     book = lambda: Results("mtio", fut_window=args.fut_window, output_dir="unused",
                            dataset_frequency=config.frequency)
@@ -2441,7 +2648,26 @@ def vp_test_phase(dev, counters):
             mock.patch.object(results, "trajectory_metrics", K7.trajectory_metrics_plain):
         for ds in sets.values():
             run_models.test_split(sample_fn, ds, args.bs, plain, dev)
-    check = compare_vp(notebook._rows, plain._rows)
+    if bf16:
+        check = compare_vp(notebook._rows, plain._rows, VP_BF16_TEST_LIMITS)
+        # the control: the plain path at f32 compute, from the same weights,
+        # must break a limit of VP_BF16_TEST_LIMITS
+        f32_model = seeded_mtio(dev, VP_SEED)
+        f32_model.load_state_dict(model.state_dict())
+        f32_book = book()
+        with mock.patch.object(transformer, "attention", K8.attention_plain), \
+                mock.patch.object(results, "trajectory_metrics", K7.trajectory_metrics_plain):
+            for ds in sets.values():
+                run_models.test_split(run_models.make_sample_fn(args, f32_model), ds, args.bs,
+                                      f32_book, dev)
+        control = vp_readings(notebook._rows, f32_book._rows)
+        control["limits_broken"] = vp_faults(control, VP_BF16_TEST_LIMITS)
+        if not control["limits_broken"]:
+            raise AssertionError(f"vp_test: the bf16 limits do not tell the bf16 predictions "
+                                 f"from the f32 plain path's ({control})")
+        check["control_f32_plain"] = control
+    else:
+        check = compare_vp(notebook._rows, plain._rows)
     rate = rate_stats(n, seconds)
     return dict(trajectories=n, batches=batches, steps=batches, batch=args.bs, passes=VP_PASSES,
                 seconds=seconds, trajectories_per_s_median=rate["median"],
@@ -2543,82 +2769,132 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(before)
 
 
-@deterministic_algorithms()
-def compare_vp_steps(model, opt, batch, seed: int) -> dict:
-    """One ``vp_train.train_step`` from the same weights, generator seed (so
-    the same dropout masks), slot permutations and repeat draw through the
-    kernels and through K8's plain version (``mock.patch``), each under
-    PyTorch's deterministic algorithms (``deterministic_algorithms``), so
-    that the two differ only by the attention's implementation.  The loss must
-    agree to VP_LOSS_RTOL; every gradient entry to VP_GRAD_RTOL relative
-    plus VP_GRAD_RTOL of the largest gradient entry of the model (K8's sums
-    in another order differ by an ulp, and the difference grows through the
-    15 decode steps that feed their predictions back, to about 2e-5 of the
-    largest entry on an H100);
-    after AdamW, whose first step is about lr * sign(g): every parameter
-    whose two gradients agree to 1% (Adam's step then differs by at most
-    lr / 400) to VP_PARAM_ATOL; the others, whose gradient sits near 0 (the
-    key biases, which softmax ignores, the biases that BatchNorm's batch
-    mean removes, and small gradients of the batch mean), may follow the
-    sign of float noise: those beyond VP_PARAM_ATOL are counted and must
-    stay under VP_PARAM_LOOSE of all."""
+def vp_step(model, opt, batch, seed: int, perms, repeat, plain: bool) -> dict:
+    """One ``vp_train.train_step`` from ``model``'s weights and a fresh
+    train state, through the kernels or (``plain``) K8's plain version
+    (``mock.patch``): its loss and gradients (on one copy of the model) and
+    its parameters after AdamW and BatchNorm statistics (on another)."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     from mansy_immersivevideostreaming_torch.models import transformer
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
     dev = batch["history"].device
-    B = batch["history"].shape[0]
-    perms, repeat = model.draw_slots(B, torch.Generator(device=dev).manual_seed(seed), dev)
     state = TV.create_train_state(model)
-    plain = mock.patch.object(transformer, "attention", K8.attention_plain)
-
-    def grads(m):
-        gen = TV.step_generator(seed, state.step, dev)
+    with (mock.patch.object(transformer, "attention", K8.attention_plain) if plain
+          else contextlib.nullcontext()):
+        m = copy.deepcopy(model)
         pred, gt = m(batch["history"], batch["current"], batch["future"], train=True,
-                     perms=perms, repeat=repeat, generator=gen)
+                     perms=perms, repeat=repeat,
+                     generator=TV.step_generator(seed, state.step, dev))
         loss = m.loss_function(pred, gt)
-        return loss.detach(), torch.autograd.grad(loss, list(m.parameters()))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        stepped = copy.deepcopy(model)
+        TV.train_step(stepped, opt, state, batch, seed, perms, repeat)
+    return dict(loss=float(loss.detach()), grads=grads, params=[p.detach() for p in stepped.parameters()],
+                stats=list(stepped.transformer.distill.bn.buffers()))
 
-    loss_k, g_k = grads(copy.deepcopy(model))
-    with plain:
-        loss_p, g_p = grads(copy.deepcopy(model))
-    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    if not loss_err <= VP_LOSS_RTOL:
-        raise AssertionError(f"vp_train: the kernels' loss differs from the plain path's by "
-                             f"{loss_err} (relative)")
-    scale = max(float(g.abs().max()) for g in g_p) * VP_GRAD_RTOL
-    grad_err = max(float(((a - b).abs() - VP_GRAD_RTOL * b.abs()).max()) for a, b in zip(g_k, g_p))
-    if grad_err > scale:
-        raise AssertionError(f"vp_train: a gradient differs from the plain path's by {grad_err} "
-                             f"beyond rtol {VP_GRAD_RTOL} (atol {scale})")
-    kernel_m, plain_m = copy.deepcopy(model), copy.deepcopy(model)
-    TV.train_step(kernel_m, opt, state, batch, seed, perms, repeat)
-    with plain:
-        TV.train_step(plain_m, opt, state, batch, seed, perms, repeat)
-    sure_err, tight, loose, total = 0.0, 0, 0, 0
-    for gk, gp, pk, pp in zip(g_k, g_p, kernel_m.parameters(), plain_m.parameters()):
-        sure = (gk - gp).abs() <= 0.01 * gp.abs()
-        diff = (pk.detach() - pp.detach()).abs()
+
+def vp_step_readings(got: dict, ref: dict, names, limits) -> dict:
+    """How far one step (``vp_step``) lies from another, ``ref``, under the
+    ``limits`` (loss rtol, gradient rtol, gradient share, gradient floor,
+    loose share): the loss's relative error; each gradient leaf's largest
+    excess over the gradient rtol, as a share of its scale, the larger of
+    the leaf's largest entry and the floor's share of the model's (the key
+    biases and the convolution's bias before BatchNorm have a gradient of 0
+    but for float noise; a floor of 1 scales every leaf by the model's
+    largest entry); after AdamW, whose
+    first step is about lr * sign(g), the largest difference of a parameter
+    whose two gradients agree to 1% (Adam's step then differs by at most
+    lr / 400), and the share of the others beyond VP_PARAM_ATOL (gradients
+    near 0, or of two signs)."""
+    _, grad_rtol, _, floor, _ = limits
+    top = max(float(g.abs().max()) for g in ref["grads"])
+    shares = {}
+    for name, a, b in zip(names, got["grads"], ref["grads"]):
+        excess = float(((a - b).abs() - grad_rtol * b.abs()).max())
+        shares[name] = excess / max(float(b.abs().max()), floor * top)
+    sure_err, tight, loose, flipped, total = 0.0, 0, 0, 0, 0
+    for ga, gb, pa, pb in zip(got["grads"], ref["grads"], got["params"], ref["params"]):
+        sure = (ga - gb).abs() <= 0.01 * gb.abs()
+        diff = (pa - pb).abs()
         sure_err = max(sure_err, float(diff[sure].max()) if bool(sure.any()) else 0.0)
         tight += int(sure.sum())
         loose += int((~sure & (diff > VP_PARAM_ATOL)).sum())
+        flipped += int((ga.sign() != gb.sign()).sum())
         total += diff.numel()
-    if sure_err > VP_PARAM_ATOL or loose > VP_PARAM_LOOSE * total:
-        raise AssertionError(f"vp_train: parameters whose gradients agree to 1% differ by "
-                             f"{sure_err} after AdamW; {loose} of {total} others beyond "
-                             f"{VP_PARAM_ATOL}")
-    stats_err = max(float((a - b).abs().max()) for a, b in zip(
-        kernel_m.transformer.distill.bn.buffers(), plain_m.transformer.distill.bn.buffers()))
-    return dict(loss=float(loss_k), plain_loss=float(loss_p), loss_rel_err=loss_err,
-                grad_excess_over_rtol=grad_err, grad_atol=scale,
-                grad_max_abs_err=max(float((a - b).abs().max()) for a, b in zip(g_k, g_p)),
+    worst = sorted(shares, key=shares.get, reverse=True)[:3]
+    return dict(loss=got["loss"], ref_loss=ref["loss"],
+                loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad_share=shares[worst[0]], grad_share_leaves={n: shares[n] for n in worst},
+                grad_max_abs_err=max(float((a - b).abs().max())
+                                     for a, b in zip(got["grads"], ref["grads"])),
                 param_max_abs_err=sure_err, params_compared=tight,
-                params_near_zero_gradient_differing=loose, params_total=total,
-                batch_stats_max_abs_err=stats_err,
-                repeat=bool(repeat))
+                params_beyond_atol_share=loose / total, gradient_signs_differing=flipped,
+                params_total=total,
+                batch_stats_max_abs_err=max(float((a - b).abs().max())
+                                            for a, b in zip(got["stats"], ref["stats"])))
 
 
-def vp_train_phase(dev, counters):
+def vp_step_faults(r: dict, limits) -> list:
+    """The ``limits`` (those of ``vp_step_readings``) that its readings ``r``
+    break; parameters whose gradients agree to 1% are held to
+    VP_PARAM_ATOL."""
+    loss_rtol, _, grad_share, _, loose = limits
+    return [what for what, bad in (
+        (f"loss {r['loss_rel_err']} > {loss_rtol}", not r["loss_rel_err"] <= loss_rtol),
+        (f"gradient share {r['grad_share']} > {grad_share}", not r["grad_share"] <= grad_share),
+        (f"parameters {r['param_max_abs_err']} > {VP_PARAM_ATOL}",
+         r["param_max_abs_err"] > VP_PARAM_ATOL),
+        (f"{r['params_beyond_atol_share']} of the parameters beyond {VP_PARAM_ATOL} > {loose}",
+         r["params_beyond_atol_share"] > loose)) if bad]
+
+
+@deterministic_algorithms()
+def compare_vp_steps(model, opt, batch, seed: int, f32_model=None) -> dict:
+    """One ``vp_train.train_step`` from the same weights, generator seed (so
+    the same dropout masks), slot permutations and repeat draw through the
+    kernels and through K8's plain version, each under PyTorch's
+    deterministic algorithms (``deterministic_algorithms``), so that the two
+    differ only by the attention's implementation, held at the limits of
+    ``vp_step_faults``.  In f32, VP_LIMITS: the loss to VP_LOSS_RTOL, each
+    gradient entry to VP_GRAD_RTOL relative plus VP_GRAD_RTOL of the
+    model's largest entry (K8's sums in another order differ by an ulp, and
+    the difference grows through the 15 decode steps that feed their
+    predictions back: H100 readings from 5e-8 to 6e-5 of the largest entry
+    on the trained weights, which differ from run to run, and once 2.1e-4,
+    at the distillation conv's kernel; PERF.md section 7),
+    VP_PARAM_LOOSE of the parameters beyond VP_PARAM_ATOL.  A bf16
+    ``model`` (phase 11b) comes with ``f32_model``, its weights at f32
+    compute: the two bf16 paths part by bf16 roundings that flip where K8
+    and its plain version sum in another order, held at VP_BF16_LIMITS; and
+    the same check of the bf16 step through the kernels against the f32
+    plain path must fail (the control: the limits tell a path without
+    bf16's roundings apart)."""
+    dev = batch["history"].device
+    perms, repeat = model.draw_slots(batch["history"].shape[0],
+                                     torch.Generator(device=dev).manual_seed(seed), dev)
+    names = [n for n, _ in model.named_parameters()]
+    bf16 = f32_model is not None
+    limits = VP_BF16_LIMITS if bf16 else VP_LIMITS
+    got = vp_step(model, opt, batch, seed, perms, repeat, False)
+    readings = vp_step_readings(got, vp_step(model, opt, batch, seed, perms, repeat, True),
+                                names, limits)
+    faults = vp_step_faults(readings, limits)
+    if faults:
+        raise AssertionError(f"vp_train: the kernels' step differs from the plain path's: "
+                             f"{'; '.join(faults)}")
+    if not bf16:
+        return dict(readings, repeat=bool(repeat))
+    control = vp_step_readings(got, vp_step(f32_model, opt, batch, seed, perms, repeat, True),
+                               names, limits)
+    control["limits_broken"] = vp_step_faults(control, limits)
+    if not control["limits_broken"]:
+        raise AssertionError("vp_train: the bf16 limits do not tell the bf16 step from the f32 "
+                             f"plain path's ({control})")
+    return dict(readings, repeat=bool(repeat), control_f32_plain=control)
+
+
+def vp_train_phase(dev, counters, bf16: bool = False):
     """``run_models --train``'s epoch (``vp_train.train_epoch``) at its
     defaults (d 512, 2 + 2 layers, 8 x 64 heads, bs 512, fut 15, his 5, the
     KV-cached autoregressive decode, dropout on, AdamW lr 1e-4) from Flax's
@@ -2626,11 +2902,15 @@ def vp_train_phase(dev, counters):
     trajectories: a warm-up epoch, VP_PASSES timed epochs, then one
     ``--teacher-forcing`` epoch; one step profiled; one step through the
     kernels against the plain path; a validation pass (``valid_step``, K8's
-    serving mode) on the trained weights."""
+    serving mode) on the trained weights; the first step at ``--his-window
+    96`` against the plain path.  With ``bf16``, ``run_models --train
+    --bf16`` (phase 11b): K8's bf16 modes, the step held to the plain path at
+    ``compare_vp_steps``' bf16 limits, no --his-window 96 step."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
-    args = run_models.build_parser().parse_args(["--train", "--seed", str(VP_SEED)])
+    args = run_models.build_parser().parse_args(["--train", "--seed", str(VP_SEED)]
+                                                + (["--bf16"] if bf16 else []))
     n = VP_TRAIN_BATCHES * args.bs
     data = vp_train_data(args, n, 40, dev)
     model = run_models.build_model(args, dev).init_like_flax(
@@ -2673,7 +2953,31 @@ def vp_train_phase(dev, counters):
         step["state"], _ = TV.train_step(model, opt, step["state"], batch, args.seed)
 
     profiled = profile_update(one_step, 1)
-    check = compare_vp_steps(model, opt, batch, args.seed)
+    f32_model = None
+    if bf16:  # the control: the same weights at f32 compute
+        f32_model = run_models.build_model(
+            run_models.build_parser().parse_args(["--train", "--seed", str(VP_SEED)]), dev)
+        f32_model.load_state_dict(model.state_dict())
+    check = compare_vp_steps(model, opt, batch, args.seed, f32_model)
+    # validation on the trained weights, K8's serving mode
+    valid = vp_train_data(args, 4 * args.bs, 41, dev)
+    mses = [float(TV.valid_step(model, {k: v[i:i + args.bs] for k, v in valid.items()}))
+            for i in range(0, 4 * args.bs, args.bs)]
+    if not all(math.isfinite(m) for m in mses):
+        raise AssertionError(f"vp_train: non-finite validation MSE {mses}")
+    result = dict(samples=n, batches=VP_TRAIN_BATCHES, steps=VP_TRAIN_BATCHES, batch=args.bs,
+                  passes=VP_PASSES, seconds=seconds, samples_per_s_median=rate["median"],
+                  samples_per_s_min=rate["min"], samples_per_s_max=rate["max"],
+                  spread=rate["spread"], teacher_forcing_seconds=tf_seconds[0],
+                  teacher_forcing_samples_per_s=n / tf_seconds[0],
+                  teacher_forcing_launches=tf_counts,
+                  first_epoch_loss=float(losses[0].mean()),
+                  last_epoch_loss=float(losses[-2].mean()),
+                  teacher_forcing_epoch_loss=float(losses[-1].mean()),
+                  train_step_profile=profiled, kernels_vs_plain=check, valid_mse=mses,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    if bf16:
+        return result
     # --his-window 96: the encoder's attention is 96 x 96 and the decoder's
     # cross-attention sees the distilled 48, past the earlier backward's 64
     # rows and keys: the first step from Flax's initialisers through the
@@ -2690,26 +2994,106 @@ def vp_train_phase(dev, counters):
     (_, wide_loss), wide_seconds, wide_launches = timed_passes(
         wide_step, counters, expect(counters, attention_train_forward=per_step,
                                     attention_backward=per_step), 1)
-    wide = dict(his_window=wide_args.his_window, encoder_attention=[wide_args.his_window] * 2,
-                cross_attention_keys=wide_args.his_window // 2, step_seconds=wide_seconds[0],
-                loss=float(wide_loss), launches=wide_launches, kernels_vs_plain=wide_check)
-    # validation on the trained weights, K8's serving mode
-    valid = vp_train_data(args, 4 * args.bs, 41, dev)
-    mses = [float(TV.valid_step(model, {k: v[i:i + args.bs] for k, v in valid.items()}))
-            for i in range(0, 4 * args.bs, args.bs)]
-    if not all(math.isfinite(m) for m in mses):
-        raise AssertionError(f"vp_train: non-finite validation MSE {mses}")
-    return dict(samples=n, batches=VP_TRAIN_BATCHES, steps=VP_TRAIN_BATCHES, batch=args.bs,
-                passes=VP_PASSES, seconds=seconds, samples_per_s_median=rate["median"],
-                samples_per_s_min=rate["min"], samples_per_s_max=rate["max"],
-                spread=rate["spread"], teacher_forcing_seconds=tf_seconds[0],
-                teacher_forcing_samples_per_s=n / tf_seconds[0],
-                teacher_forcing_launches=tf_counts,
-                first_epoch_loss=float(losses[0].mean()), last_epoch_loss=float(losses[-2].mean()),
-                teacher_forcing_epoch_loss=float(losses[-1].mean()),
-                train_step_profile=profiled, kernels_vs_plain=check, his_window_96=wide,
-                valid_mse=mses,
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    result["his_window_96"] = dict(
+        his_window=wide_args.his_window, encoder_attention=[wide_args.his_window] * 2,
+        cross_attention_keys=wide_args.his_window // 2, step_seconds=wide_seconds[0],
+        loss=float(wide_loss), launches=wide_launches, kernels_vs_plain=wide_check)
+    result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return result
+
+
+# ---------------------------------------------------------------- phase 14
+
+def write_wu2017_raw(raw_dir: str, videos: int, users: int, seed: int) -> None:
+    """The raw Wu2017 layout (``viewports/<user>/video_<i-1>.csv``: a header
+    row, then idx, playback time and a unit quaternion q1..q4 a row) with
+    12 s of seeded 30 Hz logs a file, as ``tests/test_wu2017_smoke.py``
+    writes them."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(0.0, 12.0, 1.0 / 30)
+    for j in range(1, users + 1):
+        udir = os.path.join(raw_dir, "viewports", str(j))
+        os.makedirs(udir)
+        for i in range(1, videos + 1):
+            q = rng.normal(size=(t.size, 4))
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            np.savetxt(os.path.join(udir, f"video_{i - 1}.csv"),
+                       np.column_stack([np.arange(t.size), t, q]), fmt="%.6f", delimiter=",",
+                       header="idx,time,q1,q2,q3,q4", comments="")
+
+
+def preprocess_phase(dev) -> dict:
+    """``preprocess_hmdtrace --dataset Wu2017 --preprocess`` (the quaternion
+    math on the card, then the 5 Hz simplify) over the raw layout's full
+    WU2017_SHAPE videos x users of synthetic logs, against the same CLI
+    with ``--device cpu``: every output file read back equal to 1e-6; then
+    ``preprocess_network`` over NETWORK_TRACES synthetic 4G ``.log`` traces.
+    Wall seconds of each."""
+    import dataclasses
+    from mansy_immersivevideostreaming_torch.cli import preprocess_hmdtrace, preprocess_network
+    from mansy_immersivevideostreaming_torch.config import default_config
+
+    videos, users = WU2017_SHAPE
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_wu2017_raw(os.path.join(tmp, "raw"), videos, users, 14)
+        setup_s = time.perf_counter() - t0
+        outputs, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            base = default_config(datasets_base_dir=os.path.join(tmp, device))
+            config = dataclasses.replace(
+                base, raw_datasets_dir={"Wu2017": os.path.join(tmp, "raw")},
+                viewport_datasets_dir={"Wu2017": os.path.join(tmp, device, "viewports")},
+                video_num={**base.video_num, "Wu2017": videos},
+                user_num={**base.user_num, "Wu2017": users})
+            args = preprocess_hmdtrace.build_parser().parse_args(
+                ["--dataset", "Wu2017", "--preprocess", "--device", device])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                preprocess_hmdtrace.run(args, config)
+            torch.cuda.synchronize()
+            seconds[device] = time.perf_counter() - t0
+            root = config.viewport_dir("Wu2017")
+            outputs[device] = {}
+            for d, _, files in os.walk(root):
+                for f in files:
+                    path = os.path.join(d, f)
+                    outputs[device][os.path.relpath(path, root)] = (
+                        np.load(path) if f.endswith(".npy")
+                        else np.loadtxt(path, delimiter=",", ndmin=2))
+        if sorted(outputs["cuda"]) != sorted(outputs["cpu"]) or \
+                len(outputs["cuda"]) != videos * users * 3:
+            raise AssertionError(f"preprocess: {len(outputs['cuda'])} files on the card, "
+                                 f"{len(outputs['cpu'])} on the CPU")
+        err = max(float(np.abs(outputs["cuda"][k] - outputs["cpu"][k]).max())
+                  for k in outputs["cpu"])
+        if not err <= 1e-6:
+            raise AssertionError(f"preprocess: the card's files differ from the CPU's by {err}")
+        rows = int(sum(len(v) for k, v in outputs["cuda"].items() if k.endswith(".npy")))
+        # preprocess_network over synthetic 4G traces
+        traces, length = NETWORK_TRACES
+        rng = np.random.default_rng(15)
+        raw_net = os.path.join(tmp, "raw_network")
+        os.makedirs(raw_net)
+        for n in range(traces):
+            volume = rng.integers(10_000, 5_000_000, length)
+            with open(os.path.join(raw_net, f"trace_{n}.log"), "w") as f:
+                f.writelines(f"{1_500_000_000 + i} {1000 * i} 51.{i} 4.{i} {volume[i]} 1000\n"
+                             for i in range(length))
+        config = dataclasses.replace(default_config(datasets_base_dir=os.path.join(tmp, "net")),
+                                     raw_network_datasets_dir={"4G": raw_net})
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            preprocess_network.run(preprocess_network.build_parser().parse_args([]), config)
+        network_s = time.perf_counter() - t0
+        written = sorted(os.listdir(config.network_dir("4G")))
+        if len(written) != 2 * traces:
+            raise AssertionError(f"preprocess_network wrote {len(written)} files")
+    return dict(wu2017_videos=videos, wu2017_users=users, raw_rows=videos * users * 360,
+                simplified_rows=rows, setup_seconds=setup_s, hmdtrace_seconds_card=seconds["cuda"],
+                hmdtrace_seconds_cpu=seconds["cpu"], card_vs_cpu_max_abs_err=err,
+                network_traces=traces, network_seconds=network_s, steps=1, launches={})
 
 
 # ---------------------------------------------------------------- phase 2e
@@ -3235,6 +3619,7 @@ def main() -> int:
         rows[name]["action_values"] = fields
     rows.update(training_kernel_phase(dev, parent))
     rows.update(viewport_kernel_phase(dev, parent))
+    rows.update(attention_bf16_phase(dev, rows["attention"]["batch"]["timing_floor_ms"]))
     rows.update(simple_kernel_phase(dev))
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths, trained = {}, {}
@@ -3249,9 +3634,12 @@ def main() -> int:
                       ("vp_test", lambda: vp_test_phase(dev, counters)),
                       ("vp_export", lambda: vp_export_phase(dev, counters)),
                       ("vp_train", lambda: vp_train_phase(dev, counters)),
+                      ("vp_test_bf16", lambda: vp_test_phase(dev, counters, bf16=True)),
+                      ("vp_train_bf16", lambda: vp_train_phase(dev, counters, bf16=True)),
                       ("simple_rl", lambda: simple_rl_phase(dev, counters, trained)),
                       ("simple_rl_test", lambda: simple_rl_test_phase(dev, counters, trained)),
-                      ("ensemble", lambda: ensemble_phase(dev, counters))):
+                      ("ensemble", lambda: ensemble_phase(dev, counters)),
+                      ("preprocess", lambda: preprocess_phase(dev))):
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
@@ -3277,6 +3665,8 @@ def main() -> int:
                     "vp_test": ("attention", "tile_occupancy"),
                     "vp_export": ("attention", "tile_occupancy"),
                     "vp_train": ("attention_train_forward", "attention_backward"),
+                    "vp_test_bf16": ("attention_bf16", "tile_occupancy"),
+                    "vp_train_bf16": ("attention_train_forward_bf16", "attention_backward_bf16"),
                     "simple_rl": simple + ("compute_gae", "actor_critic_train_forward_simple",
                                            "policy_loss_a2c", "actor_critic_backward_simple"),
                     "simple_rl_test": simple,

@@ -18,6 +18,9 @@ from mansy_immersivevideostreaming_torch.config import Config, default_config, l
 # for matmuls and for cuDNN alike.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 products (run_models --bf16) sum in f32 as XLA's do: cuBLAS may not
+# reduce split sums in bf16.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

@@ -12,7 +12,10 @@ every ``--epochs-per-valid`` epochs validates, writes
 best so far, ``<file_prefix>_best_model.npz`` (Flax params and
 ``batch_stats``, ``utils/checkpoint.py``), where the JAX CLI writes its
 ``.ckpt`` files; the console is tee'd into ``<file_prefix>console.log``.
-``--teacher-forcing`` trains with the single-pass decode.  ``--test``
+``--teacher-forcing`` trains with the single-pass decode; ``--bf16``
+computes in bf16 (the parameters, the optimizer state, the checkpoints and
+the predictions stay f32; K8 runs its bf16 kernels) with ``--train``,
+``--test``, ``--resume`` and ``--teacher-forcing`` alike.  ``--test``
 writes ``<prefix>_seen_results.csv``, ``.log`` and ``accuracy_result.csv``
 and the unseen ones; ``--model mtio`` reads the best model's npz,
 ``--model regression`` runs the closed-form baseline.  Per batch the model
@@ -22,8 +25,7 @@ forward and its backward kernel 62 times each (6 with teacher forcing); in
 validation and testing its serving kernel, and the results recorder K7
 once.
 
-Refused, for later items: ``--bf16`` (ROADMAP Queue 1 item 11b) and
-``--data-parallel`` (item 14).
+Refused, for a later item: ``--data-parallel`` (ROADMAP Queue 1 item 14).
 
 Example::
 
@@ -66,11 +68,14 @@ def batches(dataset, batch_size: int):
 
 
 def build_model(args, device) -> ViewportTransformerMTIO:
+    """The MTIO model of the flags (JAX ``cli/run_models.py:171-177``):
+    ``--bf16`` picks the compute dtype."""
     return ViewportTransformerMTIO(
         in_channel=2, fut_window=args.fut_window, d_model=args.hidden_dim,
         dim_feedforward=args.hidden_dim, num_encoder_layers=args.block_num,
         num_decoder_layers=args.block_num,
         teacher_forcing=getattr(args, "teacher_forcing", False),
+        dtype=torch.bfloat16 if getattr(args, "bf16", False) else torch.float32,
         device=device)
 
 
@@ -171,11 +176,9 @@ def test(args, config, models_dir: str, results_dir: str, file_prefix: str):
 
 def run(args, config):
     assert args.model in ("regression", "mtio")
-    for flag, item in (("bf16", "11b"), ("data_parallel", "14")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"run_models: --{flag.replace('_', '-')} is not ported yet (ROADMAP Queue 1 "
-                f"item {item})")
+    if args.data_parallel:
+        raise NotImplementedError("run_models: --data-parallel is not ported yet (ROADMAP "
+                                  "Queue 1 item 14)")
     # None -> config backfill (reference run_models.py:198-203)
     args.trim_head = config.trim_head if args.trim_head is None else args.trim_head
     args.trim_tail = config.trim_tail if args.trim_tail is None else args.trim_tail
@@ -238,7 +241,8 @@ def build_parser():
     parser.add_argument("--weight-decay", type=float)
     parser.add_argument("--bs", type=int, default=512)
     parser.add_argument("--seed", type=int, default=5)
-    parser.add_argument("--bf16", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bf16 compute dtype (params stay f32; K8's bf16 kernels)")
     parser.add_argument("--teacher-forcing", action="store_true",
                         help="single-pass ground-truth-fed training decode instead of the "
                              "15-step autoregressive one; inference stays autoregressive")

@@ -17,16 +17,16 @@
 * ``chunk_maps`` and ``trajectory_metrics``: viewport tile occupancy with the
   chunk OR and IoU, or with the per-step tile metrics
   (``tile_occupancy.py``, K7);
-* ``attention``: the MTIO transformer's softmax-attention core
-  (``attention.py``, K8).
+* ``attention``: the MTIO transformer's softmax-attention core, in f32 or
+  bf16 (``attention.py``, K8).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch version beside it only for tensors that lie on the CPU.  Each
 counts its launches in a plain integer attribute, ``wrapper.launches``; K3,
-K10 and K9, whose kernels have several modes, also count them by mode in
-``wrapper.launches_by_mode`` (:func:`count_launch`).  The
-sources under ``csrc/`` (with the shared ``common.cuh``) are compiled with nvcc at
-first use (``build.py``).
+K10, K9 and K8, whose kernels have several modes (K8: f32 and bf16), also
+count them by mode in ``wrapper.launches_by_mode`` (:func:`count_launch`).
+The sources under ``csrc/`` (with the shared ``common.cuh`` and
+``elem.cuh``) are compiled with nvcc at first use (``build.py``).
 """
 
 

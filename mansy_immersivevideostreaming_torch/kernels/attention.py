@@ -23,6 +23,17 @@ plain version for CPU tensors, the training forward and the backward kernel
 (:class:`_AttentionFunction`) when autograd needs a gradient, else the
 serving kernel.  The projections, the cache write and the mask draws stay
 ``torch`` ops (``models/transformer.py``).
+
+Element types: q, k and v are all f32 or all bf16 (``run_models --bf16``:
+``MHA.attend`` at ``dtype=bfloat16``); the output and the gradients take
+their type, the row statistics stay f32 and the keep mask u8.  Any other
+dtype raises a ``ValueError``: nothing is cast quietly.  In bf16 the sums
+run in f32 and the rounding points are JAX's: the scores are f32 sums of
+the exact products of the bf16 q and k, softmax and dropout act on the f32
+P, P is rounded to bf16 and P . v summed in f32 and rounded once; the
+backward rounds where ``jax.grad`` of those lines does (dP' = dO . V^T and
+dV in bf16, the softmax's gradient in f32 from the rounded dP', dQ and dK
+rounded once; ``attention_backward_plain``).
 """
 
 from __future__ import annotations
@@ -34,11 +45,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from mansy_immersivevideostreaming_torch.kernels import build
+from mansy_immersivevideostreaming_torch.kernels import build, count_launch
 
 MAX_DH = 256    # head width the kernels hold in registers (8 values a lane)
 MAX_LK = 2048   # keys a row's scores hold in shared memory (forward)
 MAX_ROW_TILE = 32  # the backward's tile kernel: query rows a row tile
+DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types, by their code
+MODES = ("f32", "bf16")  # the launch-count mode of each element type (``launches_by_mode``)
 
 
 def _prefix_mask(Lq: int, Lk: int, kv_len0: Optional[int], device) -> Optional[torch.Tensor]:
@@ -49,9 +62,19 @@ def _prefix_mask(Lq: int, Lk: int, kv_len0: Optional[int], device) -> Optional[t
     return torch.arange(Lk, device=device)[None, :] < seen[:, None]
 
 
+def _elem(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The kernels' element code of q, k and v (0: f32, 1: bf16); raises
+    unless all three have one of those types."""
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"attention: q, k and v must all be float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    return DTYPES.index(q.dtype)
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, kv_len0: Optional[int]) -> torch.Tensor:
-    """The masked scores [B, H, Lq, Lk], as ``MHA.attend`` computes them."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / (q.shape[-1] ** 0.5)
+    """The masked f32 scores [B, H, Lq, Lk], as ``MHA.attend`` computes them
+    (bf16 q and k upcast: the products are exact and summed in f32)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (q.shape[-1] ** 0.5)
     mask = _prefix_mask(q.shape[1], k.shape[1], kv_len0, q.device)
     return s if mask is None else s.masked_fill(~mask, -1e30)
 
@@ -63,15 +86,26 @@ def _dropped(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torc
     return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
+def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P . v in v's type: in bf16, P rounded to bf16 (``p.astype(v.dtype)``),
+    the product of the upcast operands summed in f32 and rounded once (in
+    f32 every cast is the identity).  Under autograd the casts round where
+    ``jax.grad`` rounds: dP' = dO . V^T and dV to bf16 (the f32 product's
+    gradients cast back to the operands' type)."""
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
                     rate: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version, as ``MHA.attend`` computes it: q [B, Lq, H, Dh],
-    k and v [B, Lk, H, Dh] -> [B, Lq, H, Dh]; with ``keep`` (u8 or bool
-    [B, H, Lq, Lk]) the probabilities go through dropout at ``rate``.
-    Differentiable."""
+    k and v [B, Lk, H, Dh] -> [B, Lq, H, Dh], f32 or bf16; with ``keep`` (u8
+    or bool [B, H, Lq, Lk]) the probabilities go through dropout at
+    ``rate``.  Differentiable: in bf16 its autograd rounds where ``jax.grad``
+    of ``MHA.attend`` does."""
+    _elem(q, k, v)
     p = _dropped(torch.softmax(_scores(q, k, kv_len0), dim=-1), keep, rate)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return _pv(p, v)
 
 
 def attention_train_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,12 +114,13 @@ def attention_train_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The training mode's plain version: (o, row max, row exp sum), the
     statistics f32 [B, H, Lq]."""
+    _elem(q, k, v)
     s = _scores(q, k, kv_len0)
     row_max = s.amax(-1)
     e = torch.exp(s - row_max[..., None])
     row_sum = e.sum(-1)
     p = _dropped(e / row_sum[..., None], keep, rate)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v), row_max, row_sum
+    return _pv(p, v), row_max, row_sum
 
 
 def attention_backward_plain(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -97,14 +132,65 @@ def attention_backward_plain(dout: torch.Tensor, q: torch.Tensor, k: torch.Tenso
     (``csrc/attention_backward.cu``): P from the row statistics,
     P' = P * M / kp, dV = P'^T dO, dP' = dO V^T, D = rowsum(dO * O),
     dS = P * (dP' * M / kp - D), dQ = (dS / sqrt(Dh)) K, dK = (dS / sqrt(Dh))^T Q.
+    In bf16, JAX's rounding points (``jax.grad`` of ``MHA.attend``): P' and
+    dP' rounded to bf16, dV, dQ and dK f32 sums rounded once, and
+    D = sum_k g_k P_k with g = dP' * M / kp, the softmax's own gradient, in
+    place of rowsum(dO * O), whose bf16 O would round it differently.
     Returns (dq, dk, dv)."""
+    dt = q.dtype
+    rounded = lambda t: t.to(dt).float()  # the element type's rounding (none in f32)
     p = torch.exp(_scores(q, k, kv_len0) - row_max[..., None]) / row_sum[..., None]
-    dv = torch.einsum("bhqk,bqhd->bkhd", _dropped(p, keep, rate), dout)
-    dp = _dropped(torch.einsum("bqhd,bkhd->bhqk", dout, v), keep, rate)
-    D = (dout * o).sum(-1).transpose(1, 2)           # [B, H, Lq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", rounded(_dropped(p, keep, rate)), dout.float())
+    dp = _dropped(rounded(torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())), keep, rate)
+    if _elem(q, k, v):
+        D = (dp * p).sum(-1)                             # [B, H, Lq]
+    else:
+        D = (dout * o).sum(-1).transpose(1, 2)
     ds = p * (dp - D[..., None]) / (q.shape[-1] ** 0.5)
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k), torch.einsum("bhqk,bqhd->bkhd", ds, q),
-            dv)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(dt),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(dt), dv.to(dt))
+
+
+BF16_EPS = 2.0 ** -7  # a bf16 ulp is at most this share of its value
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element's magnitude (2^(floor(log2 |x|) - 7);
+    the smallest normal's at 0)."""
+    _, e = torch.frexp(x.float().abs().clamp(min=torch.finfo(torch.bfloat16).tiny))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
+def bf16_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+               kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
+               rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """How far two bf16 evaluations of the core may part beyond one ulp of
+    their outputs, (o, dq, dk, dv), f32: each computes P and dP' in f32
+    (sums in another order, expf against torch's exp) and rounds them to
+    bf16, so where an f32 value sits on a rounding boundary the two round it
+    one bf16 ulp apart (at most BF16_EPS of it).  Bounds, from magnitudes:
+    o and dV by BF16_EPS |P'| . |V| and |P'|^T . |dO|; dS by P (BF16_EPS |g|
+    + BF16_EPS sum_k P_k |g_k|) / sqrt(Dh), with g = dP' * M / kp, and dQ,
+    dK by |that| . |K| and its transpose . |Q|.  Where a sum cancels, one
+    ulp of a summand is many of the sum: the kernels and their plain
+    versions agree within one ulp of the larger plus this slack."""
+    s = _scores(q, k, kv_len0)
+    p = torch.softmax(s, dim=-1)
+    pd = _dropped(p, keep, rate)
+    qa, ka, va, da = (x.float().abs() for x in (q, k, v, dout))
+    g = _dropped(torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float()).abs(), keep, rate)
+    ds = BF16_EPS * p * (g + (p * g).sum(-1, keepdim=True)) / (q.shape[-1] ** 0.5)
+    return (BF16_EPS * torch.einsum("bhqk,bkhd->bqhd", pd, va),
+            torch.einsum("bhqk,bkhd->bqhd", ds, ka), torch.einsum("bhqk,bqhd->bkhd", ds, qa),
+            BF16_EPS * torch.einsum("bhqk,bqhd->bkhd", pd, da))
+
+
+def bf16_excess(got: torch.Tensor, ref: torch.Tensor, slack: torch.Tensor) -> float:
+    """The largest (|got - ref| - one bf16 ulp of max(|got|, |ref|)) / slack;
+    at most 1 where the two agree (:func:`bf16_slack`)."""
+    got, ref = got.float(), ref.float()
+    over = (got - ref).abs() - bf16_ulp(torch.maximum(got.abs(), ref.abs()))
+    return float((over / slack.clamp(min=torch.finfo(torch.float32).tiny)).clamp(min=0).max())
 
 
 class _AttentionArgs(ctypes.Structure):
@@ -122,7 +208,8 @@ class _AttentionBackwardArgs(ctypes.Structure):
                                                  "row_sum", "keep", "dq", "dk", "dv")]
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
                 + [("scale", ctypes.c_float), ("keep_prob", ctypes.c_float)]
-                + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "warps")])
+                + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "warps")]
+                + [(f, ctypes.c_void_p) for f in ("delta", "dq_acc")])
 
 
 class BackwardPlan(NamedTuple):
@@ -170,7 +257,7 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> Backwa
 def _forward_launch():
     """The serving and training kernels' launcher, its signature set once."""
     fn = build.load("attention").attention_launch
-    fn.argtypes = [ctypes.POINTER(_AttentionArgs), ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_AttentionArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -179,7 +266,7 @@ def _forward_launch():
 def _backward_launch():
     """The backward kernels' launcher, its signature set once."""
     fn = build.load("attention_backward").attention_backward_launch
-    fn.argtypes = [ctypes.POINTER(_AttentionBackwardArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_AttentionBackwardArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -194,11 +281,12 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 def _check_qkv(q, k, v, kv_len0, keep):
     """Checks the kernels' inputs; returns (B, Lq, Lk, H, Dh, kv_len0)."""
+    _elem(q, k, v)
     B, Lq, H, Dh = q.shape
     Lk = k.shape[1]
     for name, t, shape in (("q", q, (B, Lq, H, Dh)), ("k", k, (B, Lk, H, Dh)),
                            ("v", v, (B, Lk, H, Dh))):
-        _check(name, t, shape, torch.float32, q.device)
+        _check(name, t, shape, q.dtype, q.device)
     if keep is not None:
         _check("keep", keep, (B, H, Lq, Lk), torch.uint8, q.device)
     kv_len0 = Lk if kv_len0 is None else int(kv_len0)
@@ -216,7 +304,7 @@ def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0
                           B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
                           keep=ptr(keep), keep_prob=1.0 - rate, row_max=ptr(row_max),
                           row_sum=ptr(row_sum))
-    err = _forward_launch()(ctypes.byref(args), int(train),
+    err = _forward_launch()(ctypes.byref(args), int(train), _elem(q, k, v),
                             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with CUDA error {err}")
@@ -237,7 +325,7 @@ def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row_max = torch.empty(B, H, Lq, device=q.device)
     row_sum = torch.empty(B, H, Lq, device=q.device)
     _launch_forward(q, k, v, kv_len0, o, True, keep, rate, row_max, row_sum)
-    attention_train_forward.launches += 1
+    count_launch(attention_train_forward, MODES[_elem(q, k, v)])
     return o, row_max, row_sum
 
 
@@ -253,22 +341,30 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
     if q.device.type == "cpu":
         return attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, rate)
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
-    for name, t, shape in (("dout", dout, q.shape), ("o", o, q.shape),
-                           ("row_max", row_max, (B, H, Lq)), ("row_sum", row_sum, (B, H, Lq))):
-        _check(name, t, shape, torch.float32, q.device)
+    for name, t, shape, dtype in (("dout", dout, q.shape, q.dtype), ("o", o, q.shape, q.dtype),
+                                  ("row_max", row_max, (B, H, Lq), torch.float32),
+                                  ("row_sum", row_sum, (B, H, Lq), torch.float32)):
+        _check(name, t, shape, dtype, q.device)
     plan = attention_backward_plan(B, Lq, Lk, H, Dh)
+    elem = _elem(q, k, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # bf16: each row's D, and the tile kernel's dQ chains in f32 between key tiles
+    delta = torch.empty(B, H, Lq, device=q.device) if elem else None
+    dq_acc = torch.empty(q.shape, device=q.device) if elem and Lq > 1 else None
     args = _AttentionBackwardArgs(
-        dout=dout.data_ptr(), q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        dout=dout.data_ptr(), q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+        o=None if elem else o.data_ptr(),  # bf16 takes D from dP', not from o
         row_max=row_max.data_ptr(), row_sum=row_sum.data_ptr(),
         keep=None if keep is None else keep.data_ptr(), dq=dq.data_ptr(), dk=dk.data_ptr(),
         dv=dv.data_ptr(), B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
         keep_prob=1.0 - rate, per_lane=plan.per_lane, keys=plan.keys, rows=plan.rows,
-        warps=plan.threads // 32)
-    err = _backward_launch()(ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream)
+        warps=plan.threads // 32, delta=None if delta is None else delta.data_ptr(),
+        dq_acc=None if dq_acc is None else dq_acc.data_ptr())
+    err = _backward_launch()(ctypes.byref(args), elem,
+                             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed with CUDA error {err}")
-    attention_backward.launches += 1
+    count_launch(attention_backward, MODES[elem])
     return dq, dk, dv
 
 
@@ -309,10 +405,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_train_forward(q, k, v, kv_len0, keep, rate)[0]
     o = torch.empty_like(q)
     _launch_forward(q, k, v, kv_len0, o, False)
-    attention.launches += 1
+    count_launch(attention, MODES[_elem(q, k, v)])
     return o
 
 
-attention.launches = 0
-attention_train_forward.launches = 0
-attention_backward.launches = 0
+for _wrapper in (attention, attention_train_forward, attention_backward):
+    _wrapper.launches = 0
+    _wrapper.launches_by_mode = {}

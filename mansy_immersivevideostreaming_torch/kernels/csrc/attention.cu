@@ -16,7 +16,16 @@
 // those keys gives the same sums.
 //
 // Layouts are the JAX package's: q [B, Lq, H, Dh], k and v [B, Lk, H, Dh],
-// o [B, Lq, H, Dh], all contiguous.
+// o [B, Lq, H, Dh], all contiguous, all f32 or all bf16 (the element type T,
+// a template parameter; csrc/elem.cuh).
+//
+// bf16 (run_models --bf16, MHA.attend at dtype=bfloat16): q, k and v are
+// read as bf16 and every sum runs in f32, as JAX's rounding points are:
+// the scores are f32 sums of the exact products (preferred_element_type=
+// f32, transformer.py:68-69), the softmax and the dropout act on the f32 P
+// (:70-73), P is rounded to bf16 (p.astype(v.dtype), :74), P . v is summed
+// in f32 and o rounded to bf16 once.  The f32 instantiations compile as
+// before: every rounding is an identity there.
 //
 // Training mode (kTrain): the same pass, and also a row's max and exp sum
 // written out as f32 [B, H, Lq] (the backward, csrc/attention_backward.cu,
@@ -40,7 +49,11 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "elem.cuh"
 
+using mansy::from_f32;
+using mansy::round_as;
+using mansy::to_f32;
 using mansy::warp_sum;
 
 constexpr int kWarps = 4;        // warps (query rows) a block
@@ -48,10 +61,10 @@ constexpr int kMaxPerLane = 8;   // Dh <= 256
 
 // Field order must match kernels/attention.py:_AttentionArgs.
 struct AttentionArgs {
-  const float* q;   // [B, Lq, H, Dh]
-  const float* k;   // [B, Lk, H, Dh]
-  const float* v;   // [B, Lk, H, Dh]
-  float* o;         // [B, Lq, H, Dh]
+  const void* q;    // T [B, Lq, H, Dh]
+  const void* k;    // T [B, Lk, H, Dh]
+  const void* v;    // T [B, Lk, H, Dh]
+  void* o;          // T [B, Lq, H, Dh]
   int32_t B, Lq, Lk, H, Dh;
   int32_t kv_len0;  // keys seen by query row 0; row r sees min(Lk, kv_len0 + r)
   float scale;      // sqrt(Dh): scores are (q . k) / scale, as MHA.attend divides
@@ -62,7 +75,7 @@ struct AttentionArgs {
   float* row_sum;       // [B, H, Lq]
 };
 
-template <bool kTrain>
+template <typename T, bool kTrain>
 __global__ void attention_kernel(const AttentionArgs a) {
   extern __shared__ float scores[];  // [kWarps, Lk]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -75,23 +88,23 @@ __global__ void attention_kernel(const AttentionArgs a) {
   const int n = min(a.Lk, a.kv_len0 + r);
 
   float q[kMaxPerLane];
-  const float* qrow = a.q + row * a.Dh;
+  const T* qrow = static_cast<const T*>(a.q) + row * a.Dh;
 #pragma unroll
   for (int i = 0; i < kMaxPerLane; ++i) {
     const int d = lane + 32 * i;
-    q[i] = d < a.Dh ? qrow[d] : 0.f;
+    q[i] = d < a.Dh ? to_f32(qrow[d]) : 0.f;
   }
 
   const size_t key_stride = (size_t)a.H * a.Dh;
   const size_t kv0 = ((size_t)b * a.Lk * a.H + h) * a.Dh;
   float mx = -INFINITY;
   for (int j = 0; j < n; ++j) {
-    const float* krow = a.k + kv0 + j * key_stride;
+    const T* krow = static_cast<const T*>(a.k) + kv0 + j * key_stride;
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < kMaxPerLane; ++i) {
       const int d = lane + 32 * i;
-      if (d < a.Dh) part = fmaf(q[i], krow[d], part);
+      if (d < a.Dh) part = fmaf(q[i], to_f32(krow[d]), part);
     }
     const float sc = warp_sum(part) / a.scale;
     if (lane == 0) s[j] = sc;
@@ -117,32 +130,43 @@ __global__ void attention_kernel(const AttentionArgs a) {
   for (int j = 0; j < n; ++j) {
     float p = s[j] / sum;
     if (kTrain && keep != nullptr) p = keep[j] ? p / a.keep_prob : 0.f;
-    const float* vrow = a.v + kv0 + j * key_stride;
+    p = round_as<T>(p);  // bf16: p.astype(v.dtype)
+    const T* vrow = static_cast<const T*>(a.v) + kv0 + j * key_stride;
 #pragma unroll
     for (int i = 0; i < kMaxPerLane; ++i) {
       const int d = lane + 32 * i;
-      if (d < a.Dh) acc[i] = fmaf(p, vrow[d], acc[i]);
+      if (d < a.Dh) acc[i] = fmaf(p, to_f32(vrow[d]), acc[i]);
     }
   }
-  float* orow = a.o + row * a.Dh;
+  T* orow = static_cast<T*>(a.o) + row * a.Dh;
 #pragma unroll
   for (int i = 0; i < kMaxPerLane; ++i) {
     const int d = lane + 32 * i;
-    if (d < a.Dh) orow[d] = acc[i];
+    if (d < a.Dh) orow[d] = from_f32<T>(acc[i]);
+  }
+}
+
+template <typename T>
+void launch(const AttentionArgs& a, int train, cudaStream_t stream) {
+  const long long rows = (long long)a.B * a.Lq * a.H;
+  const int blocks = (int)((rows + kWarps - 1) / kWarps);
+  const size_t smem = (size_t)kWarps * a.Lk * sizeof(float);
+  if (blocks > 0) {
+    if (train)
+      attention_kernel<T, true><<<blocks, kWarps * 32, smem, stream>>>(a);
+    else
+      attention_kernel<T, false><<<blocks, kWarps * 32, smem, stream>>>(a);
   }
 }
 
 // train = 0: the serving mode; 1: the training mode (row_max and row_sum
-// written, keep applied where given).
-extern "C" int attention_launch(const AttentionArgs* args, int train, void* stream) {
-  const long long rows = (long long)args->B * args->Lq * args->H;
-  const int blocks = (int)((rows + kWarps - 1) / kWarps);
-  const size_t smem = (size_t)kWarps * args->Lk * sizeof(float);
-  if (blocks > 0) {
-    if (train)
-      attention_kernel<true><<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
-    else
-      attention_kernel<false><<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(*args);
-  }
+// written, keep applied where given).  elem = 0: f32 tensors; 1: bf16.
+extern "C" int attention_launch(const AttentionArgs* args, int train, int elem, void* stream) {
+  if (elem == 0)
+    launch<float>(*args, train, (cudaStream_t)stream);
+  else if (elem == 1)
+    launch<mansy::bf16>(*args, train, (cudaStream_t)stream);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -64,14 +64,36 @@
 //     the dQ chain), not by the bytes.
 // No atomics: every sum has a fixed order, and two launches give the same
 // bits.
+//
+// bf16 (run_models --bf16): every tensor but the statistics and the mask is
+// bf16 (the element type T; csrc/elem.cuh), staged as f32, and the kernels
+// follow the rounding points of jax.grad of MHA.attend at dtype=bfloat16
+// (its jaxpr's convert_element_type list, tests/test_torch_bf16.py):
+//   P'_b = bf16(P')                          (the forward's p.astype, :74)
+//   dV   = bf16(P'_b^T dO)                   (an f32 sum, rounded once)
+//   dP'  = bf16(dO V^T)                      (the transpose of the bf16 P.V)
+//   g    = dP' * M / kp,  D = sum_k g_k P_k  (the softmax's gradient in f32;
+//                                            o is not read)
+//   dS   = P * (g - D)
+//   dQ   = bf16((dS / sqrt(Dh)) K),  dK = bf16((dS / sqrt(Dh))^T Q).
+// D needs a row's every key before its first dS, so a first launch
+// (delta_kernel, a warp a (b, row, head), the forward's walk) writes it; the
+// tile kernel keeps its dQ chains in an f32 scratch between key tiles.  The
+// f32 instantiations compile as before (D = rowsum(dO * O), every rounding an
+// identity).
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "elem.cuh"
 
 using mansy::kFull;
+using mansy::from_f32;
+using mansy::kIsBf16;
+using mansy::round_as;
+using mansy::to_f32;
 using mansy::warp_sum;
 using mansy::tc::cp_async16;
 using mansy::tc::cp_async4;
@@ -82,22 +104,23 @@ namespace {
 
 constexpr int kRowWarps = 8;    // row kernel: warps (b, heads) a CTA
 constexpr int kMaxRows = 32;    // tile kernel: rows a row tile
+constexpr int kDeltaWarps = 4;  // delta_kernel: warps (rows) a CTA
 
 }  // namespace
 
 // Field order must match kernels/attention.py:_AttentionBackwardArgs.
 struct AttentionBackwardArgs {
-  const float* dout;     // [B, Lq, H, Dh]
-  const float* q;        // [B, Lq, H, Dh]
-  const float* k;        // [B, Lk, H, Dh]
-  const float* v;        // [B, Lk, H, Dh]
-  const float* o;        // [B, Lq, H, Dh]
+  const void* dout;      // T [B, Lq, H, Dh]
+  const void* q;         // T [B, Lq, H, Dh]
+  const void* k;         // T [B, Lk, H, Dh]
+  const void* v;         // T [B, Lk, H, Dh]
+  const void* o;         // T [B, Lq, H, Dh] (f32 only: null in bf16, which reads no o)
   const float* row_max;  // [B, H, Lq]
   const float* row_sum;  // [B, H, Lq]
   const uint8_t* keep;   // [B, H, Lq, Lk], or null without dropout
-  float* dq;             // [B, Lq, H, Dh]
-  float* dk;             // [B, Lk, H, Dh]
-  float* dv;             // [B, Lk, H, Dh]
+  void* dq;              // T [B, Lq, H, Dh]
+  void* dk;              // T [B, Lk, H, Dh]
+  void* dv;              // T [B, Lk, H, Dh]
   int32_t B, Lq, Lk, H, Dh, kv_len0;
   float scale;           // sqrt(Dh)
   float keep_prob;       // 1 - dropout rate
@@ -106,6 +129,9 @@ struct AttentionBackwardArgs {
   int32_t keys;          // M: keys a tile (4, 8, 16 or 32; M P <= 32)
   int32_t rows;          // rows a row tile (tile kernel; 1 for the row kernel)
   int32_t warps;         // warps a CTA (tile kernel: 4 or 8; the row kernel: 8)
+  // bf16 only
+  float* delta;          // [B, H, Lq]: D of each row (delta_kernel writes it)
+  float* dq_acc;         // [B, Lq, H, Dh]: the tile kernel's dQ chains (Lq > 1)
 };
 
 namespace {
@@ -158,21 +184,67 @@ struct Grad {
   float pd, ds;
 };
 
+template <typename T>
 __device__ __forceinline__ Grad grad_of(const AttentionBackwardArgs& a, bool seen, float score,
                                         float dpd, float mx, float sum, float D, bool masked,
                                         bool kept) {
   if (!seen) return {0.f, 0.f};
   const float p = expf(score - mx) / sum;  // the forward's P
-  float pd = p, dp = dpd;                  // P' and dP' * M / kp
+  const float dpr = round_as<T>(dpd);      // bf16: dP' is a bf16 product
+  float pd = p, dp = dpr;                  // P' and dP' * M / kp
   if (masked) {
     pd = kept ? p / a.keep_prob : 0.f;
-    dp = kept ? dpd / a.keep_prob : 0.f;
+    dp = kept ? dpr / a.keep_prob : 0.f;
   }
-  return {pd, p * (dp - D) / a.scale};
+  return {round_as<T>(pd), p * (dp - D) / a.scale};
+}
+
+// ---- bf16: D = sum_k g_k P_k of each row, a warp a (b, row, head) ----
+// The scores and dP' as the forward and the row and tile kernels take them
+// (each lane's fmaf chain, then the butterfly), so P and g are their bits.
+template <typename T>
+__global__ void __launch_bounds__(kDeltaWarps * 32) delta_kernel(const AttentionBackwardArgs a) {
+  constexpr int kP = 8;  // Dh <= 256; dims past Dh are skipped, as chain<P> skips them
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;  // (b Lq + r) H + h
+  if (row >= (long long)a.B * a.Lq * a.H) return;
+  const int Dh = a.Dh, Lk = a.Lk;
+  const int h = (int)(row % a.H), r = (int)((row / a.H) % a.Lq);
+  const long long b = row / ((long long)a.H * a.Lq);
+  const long long stat = (b * a.H + h) * a.Lq + r;
+  const size_t stride = (size_t)a.H * Dh;
+  const size_t k0 = ((size_t)b * Lk * a.H + h) * Dh;
+  const int n = min(Lk, a.kv_len0 + r);
+  const T* K = static_cast<const T*>(a.k);
+  const T* V = static_cast<const T*>(a.v);
+  float qv[kP], dov[kP];
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int d = lane + 32 * i;
+    qv[i] = d < Dh ? to_f32(static_cast<const T*>(a.q)[row * Dh + d]) : 0.f;
+    dov[i] = d < Dh ? to_f32(static_cast<const T*>(a.dout)[row * Dh + d]) : 0.f;
+  }
+  const float mx = a.row_max[stat], sum = a.row_sum[stat];
+  const uint8_t* keep = a.keep != nullptr ? a.keep + stat * Lk : nullptr;
+  float D = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float kr[kP], vr[kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int d = lane + 32 * i;
+      kr[i] = d < Dh ? to_f32(K[k0 + (size_t)j * stride + d]) : 0.f;
+      vr[i] = d < Dh ? to_f32(V[k0 + (size_t)j * stride + d]) : 0.f;
+    }
+    const float score = warp_sum(chain<kP>(qv, kr, lane, Dh)) / a.scale;
+    float g = round_as<T>(warp_sum(chain<kP>(dov, vr, lane, Dh)));
+    if (keep != nullptr) g = keep[j] ? g / a.keep_prob : 0.f;
+    D += g * (expf(score - mx) / sum);
+  }
+  if (lane == 0) a.delta[stat] = D;
 }
 
 // ---- Lq = 1: a warp a (b, head) ----
-template <int P, int M>
+template <typename T, int P, int M>
 __global__ void __launch_bounds__(kRowWarps * 32)
 backward_row_kernel(const AttentionBackwardArgs a) {
   const int lane = threadIdx.x % 32;
@@ -183,21 +255,35 @@ backward_row_kernel(const AttentionBackwardArgs a) {
   const int h = (int)(bh % a.H);
   const size_t stride = (size_t)a.H * Dh;                 // from a key row to the next
   const size_t k0 = ((size_t)b * Lk * a.H + h) * Dh;     // key 0 of this (b, head)
-  const float* qrow = a.q + bh * Dh;                     // Lq = 1: row (b, 0, h)
+  const T* qrow = static_cast<const T*>(a.q) + bh * Dh;  // Lq = 1: row (b, 0, h)
+  const T* K = static_cast<const T*>(a.k);
+  const T* V = static_cast<const T*>(a.v);
+  T* dK = static_cast<T*>(a.dk);
+  T* dV = static_cast<T*>(a.dv);
   const int n = min(Lk, a.kv_len0);
   const float mx = a.row_max[bh], sum = a.row_sum[bh];
   const uint8_t* keep = a.keep != nullptr ? a.keep + bh * Lk : nullptr;
 
-  float qv[P], dov[P], ov[P], acc[P];
+  float qv[P], dov[P], acc[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int d = lane + 32 * i;
-    qv[i] = d < Dh ? qrow[d] : 0.f;
-    dov[i] = d < Dh ? a.dout[bh * Dh + d] : 0.f;
-    ov[i] = d < Dh ? a.o[bh * Dh + d] : 0.f;
+    qv[i] = d < Dh ? to_f32(qrow[d]) : 0.f;
+    dov[i] = d < Dh ? to_f32(static_cast<const T*>(a.dout)[bh * Dh + d]) : 0.f;
     acc[i] = 0.f;
   }
-  const float D = warp_sum(chain<P>(dov, ov, lane, Dh));
+  float D;
+  if constexpr (kIsBf16<T>) {
+    D = a.delta[bh];  // bf16 reads no o
+  } else {
+    float ov[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int d = lane + 32 * i;
+      ov[i] = d < Dh ? static_cast<const float*>(a.o)[bh * Dh + d] : 0.f;
+    }
+    D = warp_sum(chain<P>(dov, ov, lane, Dh));
+  }
 
   for (int j0 = 0; j0 < n; j0 += M) {
     float kr[M][P], x[M], y[M];
@@ -209,8 +295,8 @@ backward_row_kernel(const AttentionBackwardArgs a) {
       for (int i = 0; i < P; ++i) {
         const int d = lane + 32 * i;
         const size_t at = k0 + (size_t)(j0 + s) * stride + d;
-        kr[s][i] = in && d < Dh ? a.k[at] : 0.f;
-        vr[i] = in && d < Dh ? a.v[at] : 0.f;
+        kr[s][i] = in && d < Dh ? to_f32(K[at]) : 0.f;
+        vr[i] = in && d < Dh ? to_f32(V[at]) : 0.f;
       }
       x[s] = chain<P>(qv, kr[s], lane, Dh);
       y[s] = chain<P>(dov, vr, lane, Dh);
@@ -218,8 +304,8 @@ backward_row_kernel(const AttentionBackwardArgs a) {
     const float score = reduce_scatter<M>(x, lane) / a.scale;
     const float dpd = reduce_scatter<M>(y, lane);
     const int j = j0 + (lane & (M - 1));
-    const Grad g = grad_of(a, j < n, score, dpd, mx, sum, D, keep != nullptr,
-                           keep != nullptr && j < n && keep[j] != 0);
+    const Grad g = grad_of<T>(a, j < n, score, dpd, mx, sum, D, keep != nullptr,
+                              keep != nullptr && j < n && keep[j] != 0);
 #pragma unroll
     for (int s = 0; s < M; ++s) {
       if (j0 + s < n) {  // the same for every lane
@@ -230,8 +316,8 @@ backward_row_kernel(const AttentionBackwardArgs a) {
           const int d = lane + 32 * i;
           acc[i] = fmaf(ds, kr[s][i], acc[i]);
           if (d < Dh) {
-            a.dk[at + d] = ds * qv[i];
-            a.dv[at + d] = pd * dov[i];
+            dK[at + d] = from_f32<T>(ds * qv[i]);
+            dV[at + d] = from_f32<T>(pd * dov[i]);
           }
         }
       }
@@ -242,15 +328,15 @@ backward_row_kernel(const AttentionBackwardArgs a) {
     for (int i = 0; i < P; ++i) {
       const int d = lane + 32 * i;
       if (d < Dh) {
-        a.dk[k0 + (size_t)j * stride + d] = 0.f;
-        a.dv[k0 + (size_t)j * stride + d] = 0.f;
+        dK[k0 + (size_t)j * stride + d] = from_f32<T>(0.f);
+        dV[k0 + (size_t)j * stride + d] = from_f32<T>(0.f);
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int d = lane + 32 * i;
-    if (d < Dh) a.dq[bh * Dh + d] = acc[i];
+    if (d < Dh) static_cast<T*>(a.dq)[bh * Dh + d] = from_f32<T>(acc[i]);
   }
 }
 
@@ -275,8 +361,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t 
   }
 }
 
+// stage_rows for bf16 rows: plain loads, converted to f32.
+template <int kD, int kThreads>
+__device__ __forceinline__ void stage_rows(float* dst, const mansy::bf16* src, size_t stride,
+                                           int rows, int valid, int Dh, bool, int tid) {
+  for (int e = tid; e < rows * kD; e += kThreads) {
+    const int r = e / kD, d = e % kD;
+    dst[e] = r < valid && d < Dh ? to_f32(src[r * stride + d]) : 0.f;
+  }
+}
+
 // ---- Lq > 1: a CTA a (b, head), key tiles of M keys, row tiles of a.rows rows ----
-template <int P, int M, int W>
+template <typename T, int P, int M, int W>
 __global__ void __launch_bounds__(W * 32, (P <= 2 ? 4 : 2) * 8 / W)
 backward_tile_kernel(const AttentionBackwardArgs a) {
   constexpr int kD = 32 * P;           // a staged row's floats (zeros past Dh)
@@ -310,23 +406,31 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
                           reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o) |
                           reinterpret_cast<uintptr_t>(a.dout);
   const bool vec = Dh % 4 == 0 && bases % 16 == 0;
+  const T* Q = static_cast<const T*>(a.q);
+  const T* dO = static_cast<const T*>(a.dout);
+  const T* O = static_cast<const T*>(a.o);
+  // the dQ chains between key tiles: dq itself in f32, an f32 scratch in bf16
+  float* chains = kIsBf16<T> ? a.dq_acc : static_cast<float*>(a.dq);
 
   for (int j0 = 0; j0 < Lk; j0 += M) {
     const int kn = min(M, Lk - j0);
     float dk[kPer][4] = {}, dv[kPer][4] = {};
     if (j0 < n_max) {
       __syncthreads();  // the previous tile is done with sK and sV
-      stage_rows<kD, kThreads>(sK, a.k + k0 + (size_t)j0 * stride, stride, M, kn, Dh, vec, tid);
-      stage_rows<kD, kThreads>(sV, a.v + k0 + (size_t)j0 * stride, stride, M, kn, Dh, vec, tid);
+      stage_rows<kD, kThreads>(sK, static_cast<const T*>(a.k) + k0 + (size_t)j0 * stride, stride,
+                               M, kn, Dh, vec, tid);
+      stage_rows<kD, kThreads>(sV, static_cast<const T*>(a.v) + k0 + (size_t)j0 * stride, stride,
+                               M, kn, Dh, vec, tid);
       // rows before r_first see none of this tile's keys (nor any later one)
       const int r_first = max(0, j0 - a.kv_len0 + 1);
       for (int r0 = r_first; r0 < Lq; r0 += RT) {
         const int rn = min(RT, Lq - r0);
         if (r0 > r_first) __syncthreads();  // the previous row tile is done with sQ .. sKeep
         const size_t rows = q0 + (size_t)r0 * stride;
-        stage_rows<kD, kThreads>(sQ, a.q + rows, stride, rn, rn, Dh, vec, tid);
-        stage_rows<kD, kThreads>(sdO, a.dout + rows, stride, rn, rn, Dh, vec, tid);
-        stage_rows<kD, kThreads>(sO, a.o + rows, stride, rn, rn, Dh, vec, tid);
+        stage_rows<kD, kThreads>(sQ, Q + rows, stride, rn, rn, Dh, vec, tid);
+        stage_rows<kD, kThreads>(sdO, dO + rows, stride, rn, rn, Dh, vec, tid);
+        if constexpr (!kIsBf16<T>)  // bf16 reads no o
+          stage_rows<kD, kThreads>(sO, O + rows, stride, rn, rn, Dh, vec, tid);
         for (int e = tid; e < rn; e += kThreads) {
           cp_async4(sMax + e, a.row_max + bh * Lq + r0 + e, true);
           cp_async4(sSum + e, a.row_sum + bh * Lq + r0 + e, true);
@@ -343,16 +447,23 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
         for (int rr = warp; rr < rn; rr += W) {
           const int r = r0 + rr, n = min(Lk, a.kv_len0 + r);
           const size_t row = q0 + (size_t)r * stride;
-          float qv[P], dov[P], ov[P], acc[P];
+          float qv[P], dov[P], acc[P];
 #pragma unroll
           for (int i = 0; i < P; ++i) {
             const int d = lane + 32 * i;
-            acc[i] = j0 > 0 && d < Dh ? a.dq[row + d] : 0.f;  // the chain so far
+            acc[i] = j0 > 0 && d < Dh ? chains[row + d] : 0.f;  // the chain so far
             qv[i] = sQ[rr * kD + d];
             dov[i] = sdO[rr * kD + d];
-            ov[i] = sO[rr * kD + d];
           }
-          const float D = warp_sum(chain<P>(dov, ov, lane, Dh));
+          float D;
+          if constexpr (kIsBf16<T>) {
+            D = a.delta[bh * Lq + r];
+          } else {
+            float ov[P];
+#pragma unroll
+            for (int i = 0; i < P; ++i) ov[i] = sO[rr * kD + lane + 32 * i];
+            D = warp_sum(chain<P>(dov, ov, lane, Dh));
+          }
           // the M scores' partials, then the M dP' partials, in one reduce_scatter
           float x[2 * M];
 #pragma unroll
@@ -369,8 +480,8 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
           const float sum2 = reduce_scatter<2 * M>(x, lane);  // lane l: item l & (2M - 1)
           const float dpd = __shfl_sync(kFull, sum2, (lane & (M - 1)) + M);
           const int s_own = lane & (M - 1);
-          const Grad g = grad_of(a, j0 + s_own < n, sum2 / a.scale, dpd, sMax[rr], sSum[rr], D,
-                                 a.keep != nullptr, sKeep[rr * M + s_own] != 0);
+          const Grad g = grad_of<T>(a, j0 + s_own < n, sum2 / a.scale, dpd, sMax[rr], sSum[rr],
+                                    D, a.keep != nullptr, sKeep[rr * M + s_own] != 0);
           if (lane < M) {
             sP[rr * M + s_own] = g.pd;
             sS[rr * M + s_own] = g.ds;
@@ -387,7 +498,10 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
 #pragma unroll
           for (int i = 0; i < P; ++i) {
             const int d = lane + 32 * i;
-            if (d < Dh) a.dq[row + d] = acc[i];
+            if (d < Dh) {
+              chains[row + d] = acc[i];
+              if (kIsBf16<T>) static_cast<T*>(a.dq)[row + d] = from_f32<T>(acc[i]);
+            }
           }
         }
         __syncthreads();
@@ -424,8 +538,8 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
 #pragma unroll
         for (int t = 0; t < 4; ++t)
           if (d4 + t < Dh) {
-            a.dk[at + d4 + t] = dk[c][t];
-            a.dv[at + d4 + t] = dv[c][t];
+            static_cast<T*>(a.dk)[at + d4 + t] = from_f32<T>(dk[c][t]);
+            static_cast<T*>(a.dv)[at + d4 + t] = from_f32<T>(dv[c][t]);
           }
       }
     }
@@ -440,20 +554,20 @@ inline size_t tile_smem_bytes(int P, int M, int rows) {
          (size_t)rows * M;
 }
 
-template <int P, int M>
+template <typename T, int P, int M>
 cudaError_t launch_row(const AttentionBackwardArgs& a, cudaStream_t stream) {
   const long long pairs = (long long)a.B * a.H;
-  backward_row_kernel<P, M><<<(unsigned)((pairs + kRowWarps - 1) / kRowWarps), kRowWarps * 32,
+  backward_row_kernel<T, P, M><<<(unsigned)((pairs + kRowWarps - 1) / kRowWarps), kRowWarps * 32,
                               0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int P, int M>
+template <typename T, int P, int M>
 cudaError_t launch_tile(const AttentionBackwardArgs& a, cudaStream_t stream) {
   if (a.rows < 1 || a.rows > kMaxRows || (a.warps != 4 && a.warps != 8))
     return cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(P, M, a.rows);
-  auto kernel = a.warps == 4 ? backward_tile_kernel<P, M, 4> : backward_tile_kernel<P, M, 8>;
+  auto kernel = a.warps == 4 ? backward_tile_kernel<T, P, M, 4> : backward_tile_kernel<T, P, M, 8>;
   if (smem > 48 * 1024) {  // above 48 KB needs the opt-in
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -463,43 +577,59 @@ cudaError_t launch_tile(const AttentionBackwardArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The plan's (P, M) instantiation of the row (Lq = 1) or the tile kernel.
+template <typename T>
+int launch_plan(const AttentionBackwardArgs& a, cudaStream_t s) {
+  const int plan = a.per_lane * 100 + a.keys;  // the plan's (P, M)
+  if (a.Lq == 1) {  // M P <= 32: a warp's k rows of a tile in registers
+    switch (plan) {
+      case 104: return (int)launch_row<T, 1, 4>(a, s);
+      case 108: return (int)launch_row<T, 1, 8>(a, s);
+      case 116: return (int)launch_row<T, 1, 16>(a, s);
+      case 132: return (int)launch_row<T, 1, 32>(a, s);
+      case 204: return (int)launch_row<T, 2, 4>(a, s);
+      case 208: return (int)launch_row<T, 2, 8>(a, s);
+      case 216: return (int)launch_row<T, 2, 16>(a, s);
+      case 404: return (int)launch_row<T, 4, 4>(a, s);
+      case 408: return (int)launch_row<T, 4, 8>(a, s);
+      case 804: return (int)launch_row<T, 8, 4>(a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (plan) {  // M 4 to 16 keys a tile, staged in shared memory
+    case 104: return (int)launch_tile<T, 1, 4>(a, s);
+    case 108: return (int)launch_tile<T, 1, 8>(a, s);
+    case 116: return (int)launch_tile<T, 1, 16>(a, s);
+    case 204: return (int)launch_tile<T, 2, 4>(a, s);
+    case 208: return (int)launch_tile<T, 2, 8>(a, s);
+    case 216: return (int)launch_tile<T, 2, 16>(a, s);
+    case 404: return (int)launch_tile<T, 4, 4>(a, s);
+    case 408: return (int)launch_tile<T, 4, 8>(a, s);
+    case 416: return (int)launch_tile<T, 4, 16>(a, s);
+    case 804: return (int)launch_tile<T, 8, 4>(a, s);
+    case 808: return (int)launch_tile<T, 8, 8>(a, s);
+    case 816: return (int)launch_tile<T, 8, 16>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, void* stream) {
+// elem = 0: f32 tensors; 1: bf16 (delta_kernel first, then the plan's kernel).
+extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, int elem,
+                                         void* stream) {
   const AttentionBackwardArgs& a = *args;
   if ((long long)a.B * a.H <= 0) return 0;
   if (a.Lq < 1 || a.Lk < 1 || a.Dh < 1 || a.Dh > 32 * a.per_lane || a.kv_len0 < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int plan = a.per_lane * 100 + a.keys;  // the plan's (P, M)
-  if (a.Lq == 1) {  // M P <= 32: a warp's k rows of a tile in registers
-    switch (plan) {
-      case 104: return (int)launch_row<1, 4>(a, s);
-      case 108: return (int)launch_row<1, 8>(a, s);
-      case 116: return (int)launch_row<1, 16>(a, s);
-      case 132: return (int)launch_row<1, 32>(a, s);
-      case 204: return (int)launch_row<2, 4>(a, s);
-      case 208: return (int)launch_row<2, 8>(a, s);
-      case 216: return (int)launch_row<2, 16>(a, s);
-      case 404: return (int)launch_row<4, 4>(a, s);
-      case 408: return (int)launch_row<4, 8>(a, s);
-      case 804: return (int)launch_row<8, 4>(a, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (plan) {  // M 4 to 16 keys a tile, staged in shared memory
-    case 104: return (int)launch_tile<1, 4>(a, s);
-    case 108: return (int)launch_tile<1, 8>(a, s);
-    case 116: return (int)launch_tile<1, 16>(a, s);
-    case 204: return (int)launch_tile<2, 4>(a, s);
-    case 208: return (int)launch_tile<2, 8>(a, s);
-    case 216: return (int)launch_tile<2, 16>(a, s);
-    case 404: return (int)launch_tile<4, 4>(a, s);
-    case 408: return (int)launch_tile<4, 8>(a, s);
-    case 416: return (int)launch_tile<4, 16>(a, s);
-    case 804: return (int)launch_tile<8, 4>(a, s);
-    case 808: return (int)launch_tile<8, 8>(a, s);
-    case 816: return (int)launch_tile<8, 16>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (elem == 0) return launch_plan<float>(a, s);
+  if (elem != 1 || a.Dh > 256 || a.delta == nullptr || (a.Lq > 1 && a.dq_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)a.B * a.Lq * a.H;
+  delta_kernel<mansy::bf16><<<(unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps),
+                              kDeltaWarps * 32, 0, s>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_plan<mansy::bf16>(a, s);
 }

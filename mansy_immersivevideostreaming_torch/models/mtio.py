@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from mansy_immersivevideostreaming_torch.models.transformer import (
-    DROPOUT, Gen, Transformer, dropout,
+    DROPOUT, F32, Dense, Gen, Transformer, dropout,
 )
 from mansy_immersivevideostreaming_torch.ops.geometry import periodic_mse, wrap_position
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
@@ -60,23 +60,29 @@ class ViewportTransformerMTIO(nn.Module):
     fixed-buffer decode (the parity oracle), as in the JAX module;
     ``teacher_forcing`` the single-pass training decode.
     ``transformer_dropout`` is the Transformer's rate, which the JAX module
-    fixes at 0.1 (the parity tests set both packages' to 0)."""
+    fixes at 0.1 (the parity tests set both packages' to 0).  ``dtype`` is
+    the compute dtype (``torch.bfloat16`` for ``run_models --bf16``): the
+    embedding and the transformer compute in it (``models/transformer.py``),
+    the parameters stay f32, and the predictor head stays f32
+    (``mtio.py:68``), so the positional encoding's sum, the predictions and
+    the loss are f32."""
 
     def __init__(self, in_channel: int = 2, fut_window: int = 15, d_model: int = 512,
                  dim_feedforward: int = 512, num_head: int = 3, num_encoder_layers: int = 2,
                  num_decoder_layers: int = 2, dropout: float = 0.2, repeat_prob: float = 0.5,
                  incremental: bool = True, teacher_forcing: bool = False,
-                 transformer_dropout: float = DROPOUT, device: str | torch.device = "cuda"):
+                 transformer_dropout: float = DROPOUT, dtype: torch.dtype = F32,
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.in_channel, self.fut_window, self.num_head = in_channel, fut_window, num_head
         self.dropout, self.repeat_prob = dropout, repeat_prob
         self.incremental, self.teacher_forcing = incremental, teacher_forcing
-        self.embedding = nn.Linear(in_channel * num_head, d_model, device=dev)
+        self.embedding = Dense(in_channel * num_head, d_model, dtype, dev, f32_sum=True)
         self.transformer = Transformer(d_model=d_model, num_encoder_layers=num_encoder_layers,
                                        num_decoder_layers=num_decoder_layers,
                                        dim_feedforward=dim_feedforward,
-                                       dropout=transformer_dropout, device=dev)
+                                       dropout=transformer_dropout, dtype=dtype, device=dev)
         self.predictor = nn.Linear(d_model, in_channel * num_head, device=dev)
         self.register_buffer("pe", sinusoidal_pe(5000, d_model, dev), persistent=False)
 
@@ -100,7 +106,8 @@ class ViewportTransformerMTIO(nn.Module):
         return self
 
     def _embed(self, x: torch.Tensor, gen: Gen = None) -> torch.Tensor:
-        """Linear embed + positional encoding + PE dropout (``mtio.py:71-75``)."""
+        """Linear embed + positional encoding + PE dropout (``mtio.py:71-75``);
+        the f32 encoding promotes a bf16 embedding to f32."""
         return dropout(self.embedding(x) + self.pe[None, :x.shape[1]], self.dropout, gen)
 
     def _predict_coords(self, h: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,16 @@ ones.  :meth:`DecoderLayer.step_train` is the decode step whose cache is
 out of place, for autograd; :meth:`DecoderLayer.step` writes it in place,
 for ``sample`` under ``no_grad``.
 
+Compute dtype (``dtype``, the JAX modules' ``dtype``; bf16 for
+``run_models --bf16``): parameters stay f32.  Each Dense (:class:`Dense`)
+and the distillation layer's conv cast their input, weight and bias to the
+compute dtype and return it, the product summed in f32 and rounded, then
+the bias added in that dtype (Flax's ``dot_general``, then ``y += bias``:
+two roundings).  The norms compute in f32 and return f32 (Flax promotes a
+bf16 input with its f32 scale and bias), so the residual stream, the
+distillation's batch statistics and the memory are f32, and the attention's
+q, k and v, the KV caches and the feed-forward's hidden layer bf16.
+
 Module names follow the Flax tree where it uses ``setup`` (``sa``, ``ca``,
 ``ff``, ``norm1-3``); ``utils/checkpoint.py`` maps the ``nn.compact`` names
 (``MHA_0``, ``LayerNorm_0/1``, ``FeedForward_0/Dense_0/1``, ``Conv_0``,
@@ -42,6 +52,7 @@ Gen = Optional[torch.Generator]
 
 DROPOUT = 0.1   # Transformer's dropout (transformer.py:206; mtio.py:63-66 passes none)
 BN_MOMENTUM = 0.9
+F32 = torch.float32
 
 
 def keep_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor:
@@ -59,19 +70,47 @@ def dropout(x: torch.Tensor, rate: float, gen: Gen) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+class Dense(nn.Linear):
+    """flax's ``nn.Dense(dtype=dtype)`` on f32 parameters: in f32 the plain
+    linear; otherwise input, weight and bias cast to ``dtype``, the product
+    summed in f32 and rounded to ``dtype``, then the bias added in
+    ``dtype`` (``F.linear`` with the bias would round once).
+
+    ``f32_sum``: the (bf16) bias added in f32 to the rounded product, and
+    the sum returned in f32, unrounded.  That is what the JAX module computes where
+    an f32 op takes the Dense's output (the residual adds after the out
+    projection and the feed-forward, the positional encoding after the
+    embedding): XLA drops the sum's round trip through bf16 (its
+    ``xla_allow_excess_precision``, on by default)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = F32,
+                 device=None, f32_sum: bool = False):
+        super().__init__(in_features, out_features, device=device)
+        self.compute_dtype, self.f32_sum = dtype, f32_sum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == F32:
+            return F.linear(x, self.weight, self.bias)
+        dt = self.compute_dtype
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        b = self.bias.to(dt)
+        return y.float() + b.float() if self.f32_sum else y + b
+
+
 class MHA(nn.Module):
     """Multi-head attention with a KV-cache path (``transformer.py:25-79``):
     :meth:`project_kv` gives the cacheable (k, v), :meth:`attend` runs the
     query and out projections around the K8 core, with the probabilities'
-    dropout in training."""
+    dropout in training; q, k, v and the output in the compute dtype."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float = DROPOUT, device=None):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = DROPOUT,
+                 dtype: torch.dtype = F32, device=None):
         super().__init__()
         self.num_heads, self.dropout = num_heads, dropout
-        self.query = nn.Linear(d_model, d_model, device=device)
-        self.key = nn.Linear(d_model, d_model, device=device)
-        self.value = nn.Linear(d_model, d_model, device=device)
-        self.out = nn.Linear(d_model, d_model, device=device)
+        self.query = Dense(d_model, d_model, dtype, device)
+        self.key = Dense(d_model, d_model, dtype, device)
+        self.value = Dense(d_model, d_model, dtype, device)
+        self.out = Dense(d_model, d_model, dtype, device, f32_sum=True)
 
     def _split(self, y: torch.Tensor) -> torch.Tensor:
         return y.reshape(y.shape[0], y.shape[1], self.num_heads, -1)
@@ -98,11 +137,11 @@ class MHA(nn.Module):
 
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int, dropout: float = DROPOUT,
-                 device=None):
+                 dtype: torch.dtype = F32, device=None):
         super().__init__()
         self.dropout = dropout
-        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
+        self.linear1 = Dense(d_model, dim_feedforward, dtype, device)
+        self.linear2 = Dense(dim_feedforward, d_model, dtype, device, f32_sum=True)
 
     def forward(self, x: torch.Tensor, gen: Gen = None) -> torch.Tensor:
         return self.linear2(dropout(F.relu(self.linear1(x)), self.dropout, gen))
@@ -112,12 +151,12 @@ class EncoderLayer(nn.Module):
     """Post-norm self-attention + feed-forward block (``transformer.py:97-113``)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 dropout: float = DROPOUT, device=None):
+                 dropout: float = DROPOUT, dtype: torch.dtype = F32, device=None):
         super().__init__()
         self.dropout = dropout
-        self.attn = MHA(d_model, nhead, dropout, device)
+        self.attn = MHA(d_model, nhead, dropout, dtype, device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ff = FeedForward(d_model, dim_feedforward, dropout, device)
+        self.ff = FeedForward(d_model, dim_feedforward, dropout, dtype, device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor, gen: Gen = None) -> torch.Tensor:
@@ -130,12 +169,12 @@ class DecoderLayer(nn.Module):
     (``transformer.py:116-165``)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 dropout: float = DROPOUT, device=None):
+                 dropout: float = DROPOUT, dtype: torch.dtype = F32, device=None):
         super().__init__()
         self.dropout = dropout
-        self.sa = MHA(d_model, nhead, dropout, device)
-        self.ca = MHA(d_model, nhead, dropout, device)
-        self.ff = FeedForward(d_model, dim_feedforward, dropout, device)
+        self.sa = MHA(d_model, nhead, dropout, dtype, device)
+        self.ca = MHA(d_model, nhead, dropout, dtype, device)
+        self.ff = FeedForward(d_model, dim_feedforward, dropout, dtype, device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5, device=device)
@@ -178,10 +217,13 @@ class DecoderLayer(nn.Module):
 
 class DistillLayer(nn.Module):
     """Circular Conv1d(k3) + BatchNorm + ELU + MaxPool1d(k3, s2, p1) over
-    time (``transformer.py:168-190``)."""
+    time (``transformer.py:168-190``); the conv in the compute dtype, its
+    (bf16) bias added in f32 to the rounded product, as :class:`Dense` with
+    ``f32_sum`` (BatchNorm, an f32 op, takes the sum), the rest in f32."""
 
-    def __init__(self, d_model: int, device=None):
+    def __init__(self, d_model: int, dtype: torch.dtype = F32, device=None):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv1d(d_model, d_model, kernel_size=3, device=device)
         self.bn = nn.BatchNorm1d(d_model, eps=1e-5, momentum=0.1, device=device)
 
@@ -206,7 +248,12 @@ class DistillLayer(nn.Module):
         statistics whatever the module's mode when deterministic (``gen``
         None: the serving path's ``use_running_average=True``), on the
         batch's in training."""
-        h = self.conv(torch.cat([x[:, -1:], x, x[:, :1]], dim=1).transpose(1, 2))
+        h = torch.cat([x[:, -1:], x, x[:, :1]], dim=1).transpose(1, 2)
+        if self.dtype == F32:
+            h = self.conv(h)
+        else:
+            dt, conv = self.dtype, self.conv
+            h = F.conv1d(h.to(dt), conv.weight.to(dt)).float() + conv.bias.to(dt).float()[:, None]
         bn = self.bn
         if gen is None:
             h = F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -224,16 +271,16 @@ class Transformer(nn.Module):
 
     def __init__(self, d_model: int = 512, nhead: int = 8, num_encoder_layers: int = 2,
                  num_decoder_layers: int = 2, dim_feedforward: int = 512,
-                 dropout: float = DROPOUT, device=None):
+                 dropout: float = DROPOUT, dtype: torch.dtype = F32, device=None):
         super().__init__()
-        self.d_model, self.nhead = d_model, nhead
+        self.d_model, self.nhead, self.dtype = d_model, nhead, dtype
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, dim_feedforward, dropout, device)
+            EncoderLayer(d_model, nhead, dim_feedforward, dropout, dtype, device)
             for _ in range(num_encoder_layers))
         self.encoder_norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.distill = DistillLayer(d_model, device)
+        self.distill = DistillLayer(d_model, dtype, device)
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, dim_feedforward, dropout, device)
+            DecoderLayer(d_model, nhead, dim_feedforward, dropout, dtype, device)
             for _ in range(num_decoder_layers))
         self.decoder_norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
@@ -254,11 +301,13 @@ class Transformer(nn.Module):
     def init_decode_cache(self, memory: torch.Tensor, max_len: int
                           ) -> Tuple[List[KV], List[KV]]:
         """Each decoder layer's cross-attention (k, v) of the memory, and
-        zeroed [B, max_len, H, Dh] self-attention caches."""
+        zeroed [B, max_len, H, Dh] self-attention caches in the compute
+        dtype (``transformer.py:242``)."""
         B = memory.shape[0]
         shape = (B, max_len, self.nhead, self.d_model // self.nhead)
         mem_kvs = [layer.ca.project_kv(memory) for layer in self.decoder_layers]
-        sa_caches = [(memory.new_zeros(shape), memory.new_zeros(shape))
+        sa_caches = [(memory.new_zeros(shape, dtype=self.dtype),
+                      memory.new_zeros(shape, dtype=self.dtype))
                      for _ in self.decoder_layers]
         return mem_kvs, sa_caches
 

@@ -1,1 +1,1 @@
-"""Allocation and QoE operators."""
+"""Allocation, QoE, viewport geometry and head-orientation operators."""

@@ -8,7 +8,10 @@ file imports no JAX, so it also runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances: ints
 exact, floats 1e-5 relative (the kernels sum in another order than
 PyTorch's CUDA ops, which also divide by a Python scalar as a product with
-its reciprocal); K6 bit-equal (the plain version's operation order).  The search (K4) picks the plain version's action on every
+its reciprocal); K6 bit-equal (the plain version's operation order); K8 in
+bf16 within one bf16 ulp plus ``kernels/attention.py:bf16_slack`` (the
+inner bf16 roundings of P and dP' flip where the kernel and its plain
+version sum in another order).  The search (K4) picks the plain version's action on every
 lane whose first-action margin exceeds 1e-5, and elsewhere an action whose
 first-action value is within 1e-5 of the best.
 """
@@ -877,6 +880,154 @@ def test_attention_backward_beyond_64_keys_on_card(cuda_device, Lq, Lk, kv_len0)
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     for dropout in (False, True):
         _attention_training_matches_plain(K8, 7, (Lq, Lk, kv_len0), 8, 64, dropout, Lq + Lk)
+
+
+# ------------------------------------------------------------- K8 in bf16
+
+# the training shapes, the --his-window 96 encoder and its cross-attention
+# over the distilled 48, and a decode step over 256 keys
+BF16_SHAPES = TRAIN_SHAPES + [(96, 96, None), (1, 48, None), (1, 256, None)]
+
+
+def _attention_bf16_matches_plain(K8, B, shape, H, Dh, dropout, seed):
+    """K8 on bf16 q, k, v (serving, training forward, backward) against its
+    plain bf16 version: outputs and gradients in bf16, each element within
+    one bf16 ulp of the larger of the two plus ``bf16_slack`` (P and dP' are
+    rounded to bf16 inside, from f32 values the two compute in another
+    order), the row statistics as the f32 kernels'; keys no row sees
+    exactly 0 in dk and dv; two launches bit-equal; ``attention`` under
+    autograd launches both kernels in their bf16 mode."""
+    Lq, Lk, kv_len0 = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=g).bfloat16()
+               for L in (Lq, Lk, Lk))
+    dout = torch.randn(B, Lq, H, Dh, device=dev, generator=g).bfloat16()
+    keep = ((torch.rand(B, H, Lq, Lk, device=dev, generator=g) < 0.9).to(torch.uint8)
+            if dropout else None)
+    serve = K8.attention(q, k, v, kv_len0)
+    assert serve.dtype == torch.bfloat16
+    slack_o = K8.bf16_slack(q, k, v, dout, kv_len0)[0]
+    assert K8.bf16_excess(serve, K8.attention_plain(q, k, v, kv_len0), slack_o) <= 1
+    assert torch.equal(serve, K8.attention(q, k, v, kv_len0))
+    slack = K8.bf16_slack(q, k, v, dout, kv_len0, keep, 0.1)
+    o, row_max, row_sum = K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)
+    want_o, want_max, want_sum = K8.attention_train_forward_plain(q, k, v, kv_len0, keep, 0.1)
+    assert K8.bf16_excess(o, want_o, slack[0]) <= 1
+    for got, want in ((row_max, want_max), (row_sum, want_sum)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, keep, 0.1), leaves, dout)
+    got = K8.attention_backward(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, 0.1)
+    written = K8.attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep,
+                                          0.1)
+    for a, b, c, sl in zip(got, want, written, slack[1:]):
+        assert a.dtype == torch.bfloat16
+        assert K8.bf16_excess(a, b, sl) <= 1
+        assert K8.bf16_excess(a, c, sl) <= 1
+    if kv_len0 is not None:
+        unseen = slice(min(Lk, kv_len0 + Lq - 1), None)
+        assert not got[1][:, unseen].any() and not got[2][:, unseen].any()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (o, row_max, row_sum), K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)))
+    assert all(torch.equal(a, b) for a, b in zip(got, K8.attention_backward(
+        dout, q, k, v, o, row_max, row_sum, kv_len0, keep, 0.1)))
+    before = [dict(w.launches_by_mode) for w in (K8.attention_train_forward,
+                                                 K8.attention_backward)]
+    out = K8.attention(*leaves, kv_len0, keep, 0.1)
+    assert torch.equal(out, o)
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(out, leaves, dout), got))
+    for w, counts in zip((K8.attention_train_forward, K8.attention_backward), before):
+        assert w.launches_by_mode["bf16"] == counts.get("bf16", 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("dropout", [False, True])
+def test_attention_bf16_kernels_match_plain_on_card(cuda_device, shape, dropout):
+    """K8 in bf16 at 8 heads of 64 over a batch of 77, every training shape
+    and the long ones, with and without a keep mask at 0.1."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    _attention_bf16_matches_plain(K8, 77, shape, 8, 64, dropout, 7 + sum(shape[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", [(1, 1, None, 4), (3, 7, 2, 33), (64, 64, 1, 64),
+                                              (20, 40, None, 256), (2, 64, 10, 100),
+                                              (70, 130, 50, 256), (40, 33, None, 33),
+                                              (1, 300, 200, 128), (33, 300, 250, 64)])
+def test_attention_bf16_at_other_widths_on_card(cuda_device, Lq, Lk, kv_len0, Dh):
+    """bf16 heads of 4 to 256 dims, rows and keys on both sides of the
+    backward's tiles, a batch of 5."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    _attention_bf16_matches_plain(K8, 5, (Lq, Lk, kv_len0), 3, Dh, True, Lq + Lk + Dh)
+
+
+@pytest.mark.cuda
+def test_attention_refuses_other_dtypes_on_card(cuda_device):
+    """f16, f64 or mixed q, k, v raise a ValueError, as a bf16 backward with
+    an f32 dO or o does; nothing is cast."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    x = torch.randn(4, 3, 8, 64, device=cuda_device)
+    for dtypes in ((torch.float16,) * 3, (torch.float64,) * 3,
+                   (torch.bfloat16, torch.float32, torch.bfloat16),
+                   (torch.float32, torch.float32, torch.bfloat16)):
+        args = [x.to(d) for d in dtypes]
+        for fn in (K8.attention, K8.attention_train_forward):
+            with pytest.raises(ValueError, match="float32 or all bfloat16"):
+                fn(*args)
+    q = x.bfloat16()
+    o, row_max, row_sum = K8.attention_train_forward(q, q, q)
+    for dout, out in ((x, o), (q, o.float())):
+        with pytest.raises(ValueError, match="bfloat16"):
+            K8.attention_backward(dout, q, q, q, out, row_max, row_sum)
+
+
+def attention_f32_digests(K8, dev) -> dict:
+    """sha256 (16 hex digits) of K8's f32 outputs (serving, training forward
+    with a keep mask at 0.1, backward) on numpy-seeded inputs at each
+    training shape and the two long ones, B 33, 8 heads of 64."""
+    import hashlib
+    out = {}
+    for shape in TRAIN_SHAPES + [(96, 96, None), (1, 256, None)]:
+        Lq, Lk, kv_len0 = shape
+        rng = np.random.default_rng(Lq * 1000 + Lk)
+        q, k, v, dout = (torch.as_tensor(rng.standard_normal((33, L, 8, 64), dtype=np.float32),
+                                         device=dev) for L in (Lq, Lk, Lk, Lq))
+        keep = torch.as_tensor(rng.random((33, 8, Lq, Lk)) < 0.9, device=dev).to(torch.uint8)
+        fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)
+        bwd = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, 0.1)
+        h = hashlib.sha256()
+        for t in (K8.attention(q, k, v, kv_len0), *fwd, *bwd):
+            h.update(t.cpu().numpy().tobytes())
+        out[str(shape)] = h.hexdigest()[:16]
+    return out
+
+
+# attention_f32_digests of the kernels before they became templates on the
+# element type (the commit before K8's bf16 mode), taken on an H100 80GB
+# HBM3 by the same function bound to that commit's kernels
+F32_DIGESTS = {
+    "(5, 5, None)": "228e7cbf25ab5e59",
+    "(1, 15, 1)": "6e36abd8733ee8c3",
+    "(1, 15, 8)": "88a1308491a94686",
+    "(1, 15, 15)": "4b706341a0665710",
+    "(1, 3, None)": "faccd4477f9950d1",
+    "(15, 15, 1)": "1be7474e338c1d04",
+    "(15, 3, None)": "65690a21187e1fb2",
+    "(16, 16, 1)": "dc43a6924a9e0cfc",
+    "(96, 96, None)": "08f55ac6328fc7d8",
+    "(1, 256, None)": "127818342a86ac50",
+}
+
+
+@pytest.mark.cuda
+def test_attention_f32_kernels_keep_their_bits_on_card(cuda_device):
+    """The f32 instantiations of the templated kernels give the bits the f32
+    kernels gave before (F32_DIGESTS)."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert attention_f32_digests(K8, cuda_device) == F32_DIGESTS
 
 
 # ------------------------------------------------------------ hidden 256

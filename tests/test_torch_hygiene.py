@@ -2,8 +2,9 @@
 
 * No module of ``mansy_immersivevideostreaming_torch`` imports JAX, Flax,
   Optax, Orbax or the JAX package (an AST scan, and a fresh interpreter that
-  imports the port's runner without pulling in ``jax``, and one that runs
-  ``run_simple_rl --train --test`` and ``run_ensemble`` on the CPU without
+  imports the port's runner without pulling in ``jax``, and ones that run
+  ``run_simple_rl --train --test`` and ``run_ensemble``, and
+  ``preprocess_hmdtrace`` and ``preprocess_network``, on the CPU without
   pulling in ``jax``, ``tensorflow`` or the JAX package).
 * Entry points default to the card and raise where there is none, instead
   of running on the CPU unasked.
@@ -130,6 +131,62 @@ assert not bad, bad
     assert out.returncode == 0, out.stderr[-3000:]
     assert (tmp_path / "ensemble.csv").exists()
     assert glob.glob(str(tmp_path / "**" / "*_best_policy.npz"), recursive=True)
+
+
+def test_preprocessing_clis_run_without_jax(tmp_path):
+    """``preprocess_hmdtrace --dataset Wu2017 --preprocess --device cpu`` and
+    ``preprocess_network`` (simplify, then ``--scale``) run on synthetic raw
+    trees in a fresh interpreter, and neither pulls in JAX, TensorFlow or
+    the JAX package while it runs."""
+    rng = np.random.default_rng(0)
+    t = np.arange(0.0, 4.0, 1.0 / 30)
+    for user in (1, 2):
+        udir = tmp_path / "raw" / "viewports" / str(user)
+        udir.mkdir(parents=True)
+        q = rng.normal(size=(t.size, 4))
+        rows = np.column_stack([np.arange(t.size), t, q / np.linalg.norm(q, axis=1,
+                                                                          keepdims=True)])
+        np.savetxt(udir / "video_0.csv", rows, fmt="%.6f", delimiter=",",
+                   header="idx,time,q1,q2,q3,q4", comments="")
+    (tmp_path / "raw4g").mkdir()
+    (tmp_path / "raw4g" / "t.log").write_text(
+        "".join(f"{i} {i} 0 0 {1000 + 7 * i} 1000\n" for i in range(20)))
+    code = f"""
+import dataclasses, os, sys
+from mansy_immersivevideostreaming_torch.cli import preprocess_hmdtrace, preprocess_network
+from mansy_immersivevideostreaming_torch.config import default_config
+base = default_config(datasets_base_dir={str(tmp_path)!r})
+config = dataclasses.replace(base, raw_datasets_dir={{"Wu2017": {str(tmp_path / "raw")!r}}},
+    viewport_datasets_dir={{"Wu2017": {str(tmp_path / "vp")!r}}},
+    raw_network_datasets_dir={{"4G": {str(tmp_path / "raw4g")!r}}},
+    video_num={{"Wu2017": 1}}, user_num={{"Wu2017": 2}})
+preprocess_hmdtrace.run(preprocess_hmdtrace.build_parser().parse_args(
+    ["--dataset", "Wu2017", "--preprocess", "--device", "cpu"]), config)
+preprocess_network.run(preprocess_network.build_parser().parse_args([]), config)
+preprocess_network.run(preprocess_network.build_parser().parse_args(
+    ["--scale", "t.pkl", "--up", "8", "--low", "2"]), config)
+bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ("tensorflow",)!r}]
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "vp" / "video1" / "5Hz" / "simple_5Hz_user2.npy").exists()
+    assert sorted(os.listdir(tmp_path / "network" / "4G")) == [
+        "scaled_up_8.0_low_2.0t.pkl", "t.log", "t.pkl"]
+
+
+def test_preprocess_hmdtrace_defaults_to_the_card(tmp_path):
+    """Wu2017's quaternion math runs on ``--device``, the card unless the
+    caller asks for the CPU: without a card the default raises."""
+    from mansy_immersivevideostreaming_torch.cli import preprocess_hmdtrace
+    from mansy_immersivevideostreaming_torch.config import default_config
+    assert preprocess_hmdtrace.build_parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preprocess_hmdtrace.preprocess_hmd_trace("Wu2017", default_config(str(tmp_path)))
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
