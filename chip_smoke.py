@@ -16,9 +16,9 @@ With ``--parent``, DIR is another checkout of the repo (the parent commit's,
 unpacked with ``git archive``): its K3, K10, K8, K1, K9, K2, K7, K5 and K6 are
 built from its own sources into its own build directory and timed beside
 this tree's on the same inputs (``earlier_ms``; K1, K9, K2, K7, K5 and K6
-also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5
-and K6 with ``earlier_bits_equal``, K5 also with ``earlier_max_abs_diff``;
-K6 must equal the parent's bits).
+also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5,
+K6 and K8 with ``earlier_bits_equal``, K5 also with
+``earlier_max_abs_diff``; K6 and K8 must equal the parent's bits).
 
 Phases:
 
@@ -97,10 +97,11 @@ TF32 products on the tensor cores).
 Phase 2d holds the viewport kernels against their plain versions at
 ``run_models``' batch of 512: K8 ``attention`` (8 heads of 64) in each of
 its shapes (the decode self-attention at every t of the 15-slot cache, the
-cross-attention over 3 keys, the encoder's 5 x 5, the causal 16 x 16), also
-against ``scaled_dot_product_attention`` (math backend; its default backend
-is K8's yardstick; two launches give the same bits), with the sums of a
-viewport batch's 62 launches (times and bounds); K8's training mode and its
+cross-attention over 3 keys, the encoder's 5 x 5, the causal 16 x 16, and
+the --his-window 96 encoder's 96 x 96 and a decode step over 256 keys),
+also against ``scaled_dot_product_attention`` (math backend; its default
+backend is K8's yardstick; two launches give the same bits), with the sums
+of a viewport batch's 62 launches (times and bounds); K8's training mode and its
 backward kernel in each training shape (the encoder, the decode step over
 the 15-slot cache at every prefix, the cross-attention 1 x 3 and 15 x 3,
 the teacher-forced causal 15 x 15), with a dropout keep mask at 0.1 and
@@ -109,8 +110,11 @@ the same bits; keys no row sees get exactly 0), timed beside SDPA's
 forward and forward + backward, with the sums of a training step's 62
 launches of each (6 with teacher forcing), and beyond the earlier
 backward's 64 rows and keys (96 x 96, a decode step over 256 keys; each
-with the kernel's tile plan), with ``--parent`` the parent commit's
-backward beside it where it takes the shape; K7 in metrics mode (F = 15) and
+with the kernel's tile plan); each forward case names its plan
+(``attention_forward_plan``: the row kernel for one query row, the tile
+kernel for more); with ``--parent`` the parent commit's forward (serving
+and training) and backward beside them, which must give the same bits
+(``earlier_bits_equal``); K7 in metrics mode (F = 15) and
 chunk mode (frequency 5; two launches of each give the same bits), and on a
 grid of positions on and beside every pixel boundary that moves a map.
 
@@ -120,7 +124,10 @@ training mode with a keep mask at 0.1, backward) in every shape of phase
 plain bf16 version: each element within one bf16 ulp of the larger of the
 two plus the slack of one-ulp flips of the inner bf16 roundings of P and dP'
 (``kernels/attention.py:bf16_slack``), two launches bit-equal; timed beside
-the bf16 bytes bound and SDPA on the same bf16 tensors (rows ``*_bf16``).
+the bf16 bytes bound and SDPA on the same bf16 tensors (rows ``*_bf16``);
+each forward case names its plan, and with ``--parent`` the parent
+commit's serving and training forward are timed beside them and must give
+the same bits.
 
 9. vp_test: ``run_models --test``'s loop (``run_models.test_split``) over
    the Jin2022 test splits' shape (test_seen and test_unseen, each 3 videos
@@ -145,7 +152,9 @@ the bf16 bytes bound and SDPA on the same bf16 tensors (rows ``*_bf16``).
    AdamW within their tolerances; the first step at
    ``--his-window 96`` (an encoder attention of 96 x 96, cross-attention
    over the distilled 48) from Flax's initialisers, held against the plain
-   path in the same way, then timed; a validation pass on the trained
+   path in the same way, then timed, and K8's device milliseconds in it
+   read from ``torch.profiler`` (``k8_device_ms``: the forward's row and
+   tile kernels, the backward's); a validation pass on the trained
    weights.
 9b, 11b. vp_test_bf16, vp_train_bf16: phases 9 and 11 with ``--bf16`` (K8
    in its bf16 mode, the predictions and the step held to the plain bf16
@@ -2133,6 +2142,16 @@ def edge_positions(B: int, F: int, seed: int, dev) -> torch.Tensor:
     return torch.as_tensor(np.stack(cols, -1).astype(np.float32), device=dev)
 
 
+def earlier_forward(earlier, current, args, label: str) -> dict:
+    """K8's forward of the parent commit beside this tree's on the same
+    inputs: ``earlier_ms``, and ``earlier_bits_equal``, which must hold
+    (every output, the training mode's row statistics too)."""
+    same = all(torch.equal(a, b) for a, b in zip(leaves(earlier(*args)), leaves(current(*args))))
+    if not same:
+        raise AssertionError(f"{label}: the parent commit's kernel gives other bits")
+    return dict(earlier_ms=gpu_ms(lambda: earlier(*args)), earlier_bits_equal=same)
+
+
 def viewport_kernel_phase(dev, parent=None):
     """K8 at B = VP_BATCH in each of its shapes, against its plain version
     and SDPA's math backend, with its per-batch sums over the 62 launches of
@@ -2153,7 +2172,8 @@ def viewport_kernel_phase(dev, parent=None):
     # K8: the decode self-attention at every t, the cross-attention over the
     # distilled memory, the encoder, the fixed-buffer decode's causal mask
     shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
-    shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal=(F + 1, F + 1, 1))
+    shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal=(F + 1, F + 1, 1),
+                  encoder_96=(96, 96, None), decode_256=(1, 256, None))
     cases, err, sdpa_err = {}, 0.0, 0.0
     for name, (Lq, Lk, kv_len0) in shapes.items():
         q = torch.randn(B, Lq, H, Dh, device=dev, generator=gen)
@@ -2176,13 +2196,14 @@ def viewport_kernel_phase(dev, parent=None):
         err = max(err, float((got - ref).abs().max()))
         sdpa_err = max(sdpa_err, float((got - lib).abs().max()))
         cases[name] = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0,
+                           plan=K8.attention_forward_plan(B, Lq, Lk, H, Dh)._asdict(),
                            ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0)),
                            plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0)),
                            library_ms=gpu_ms(sdpa),
                            **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0)))
         if parent is not None:  # the parent commit's kernel on the same inputs
-            cases[name]["earlier_ms"] = gpu_ms(lambda: parent.attention.attention(q, k, v,
-                                                                                 kv_len0))
+            cases[name].update(earlier_forward(parent.attention.attention, K8.attention,
+                                               (q, k, v, kv_len0), f"attention ({name})"))
     # a viewport batch's launches: each encoder layer once, then per decode
     # step each decoder layer's self-attention at t and cross-attention
     args = run_models.build_parser().parse_args(["--test"])
@@ -2328,7 +2349,8 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         common = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0)
         fwd_cases[name] = dict(
-            **common, ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate)),
+            **common, plan=K8.attention_forward_plan(B, Lq, Lk, H, Dh)._asdict(),
+            ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate)),
             plain_ms=gpu_ms(lambda: K8.attention_train_forward_plain(q, k, v, kv_len0, keep,
                                                                      rate)),
             library_ms=gpu_ms(lambda: sdpa(*(x.transpose(1, 2) for x in (q, k, v)),
@@ -2345,11 +2367,17 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
                 sdpa(qt, kt, vt, attn_mask=allowed), (qt, kt, vt), dout_t)),
             plan=K8.attention_backward_plan(B, Lq, Lk, H, Dh)._asdict(),
             **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True)))
-        if parent is not None and max(Lq, Lk) <= 64:  # the parent's kernel took 64 at most
+        if parent is not None:  # the parent commit's kernels on the same inputs
+            fwd_cases[name].update(earlier_forward(
+                parent.attention.attention_train_forward, K8.attention_train_forward,
+                (q, k, v, kv_len0, keep, rate), f"attention_train_forward ({name})"))
             earlier = parent.attention.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
             got = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
             bwd_cases[name]["earlier_bits_equal"] = all(torch.equal(a, b)
                                                         for a, b in zip(got, earlier))
+            if not bwd_cases[name]["earlier_bits_equal"]:
+                raise AssertionError(f"attention_backward ({name}): the parent commit's kernel "
+                                     f"gives other bits")
             bwd_cases[name]["earlier_ms"] = gpu_ms(lambda: parent.attention.attention_backward(
                 dout, q, k, v, *fwd, kv_len0, keep, rate))
     # a training step's launches: each encoder layer once, then per decode
@@ -2364,7 +2392,7 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
     for row, cases, err in (("attention_train_forward", fwd_cases, fwd_err),
                             ("attention_backward", bwd_cases, bwd_err)):
         keys = ("ms", "bound_ms", "plain_ms", "library_ms") + (
-            ("earlier_ms",) if parent is not None and row == "attention_backward" else ())
+            ("earlier_ms",) if parent is not None else ())
         sums = {f"{mix}_{key}_sum": sum(n * cases[name][key] for name, n in shape_n.items())
                 for mix, shape_n in mixes.items() for key in keys}
         main = cases[f"decode_t{F - 1}"]
@@ -2379,7 +2407,7 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
 
 # ---------------------------------------------------------------- phase 2f
 
-def attention_bf16_phase(dev, floor_ms: float) -> dict:
+def attention_bf16_phase(dev, floor_ms: float, parent=None) -> dict:
     """K8 on bf16 q, k, v (``run_models --bf16``) at B = VP_BATCH in every
     viewport shape of phase 2d: the decode step over the 15-slot cache at
     each t, the cross-attention 1 x 3, the encoder's 5 x 5, the
@@ -2393,8 +2421,10 @@ def attention_bf16_phase(dev, floor_ms: float) -> dict:
     as phase 2d's, two launches bit-equal.  Timed by CUDA events beside the
     bf16 bytes bound and SDPA on the same bf16 tensors (forward; forward +
     backward by autograd); the sums over a viewport batch's 62 serving
-    launches and a training step's 62 (6 teacher-forced).  Returns the three
-    bf16 rows."""
+    launches and a training step's 62 (6 teacher-forced).  Each forward case
+    names its plan; with ``parent``, the parent commit's serving and
+    training kernels are timed beside them (``earlier_ms``) and must give
+    the same bits (``earlier_bits_equal``).  Returns the three bf16 rows."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
@@ -2458,13 +2488,15 @@ def attention_bf16_phase(dev, floor_ms: float) -> dict:
         qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
         dout_t = dout.transpose(1, 2)
         common = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0)
+        plan = K8.attention_forward_plan(B, Lq, Lk, H, Dh)._asdict()
         cases["serve"][name] = dict(
-            **common, ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0)),
+            **common, plan=plan, ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0)),
             plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0)),
             library_ms=gpu_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed)),
             **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0, 2), BF16_FLOP_PER_S))
         cases["train"][name] = dict(
-            **common, ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate)),
+            **common, plan=plan,
+            ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate)),
             plain_ms=gpu_ms(lambda: K8.attention_train_forward_plain(q, k, v, kv_len0, keep,
                                                                      rate)),
             library_ms=gpu_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed)),
@@ -2480,17 +2512,25 @@ def attention_bf16_phase(dev, floor_ms: float) -> dict:
             plan=K8.attention_backward_plan(B, Lq, Lk, H, Dh)._asdict(),
             **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True, 2),
                     BF16_FLOP_PER_S))
+        if parent is not None:  # the parent commit's kernels on the same inputs
+            cases["serve"][name].update(earlier_forward(
+                parent.attention.attention, K8.attention, (q, k, v, kv_len0),
+                f"attention bf16 ({name})"))
+            cases["train"][name].update(earlier_forward(
+                parent.attention.attention_train_forward, K8.attention_train_forward,
+                (q, k, v, kv_len0, keep, rate), f"attention_train_forward bf16 ({name})"))
     L = args.block_num
     serve_mix = {"encoder": L, "cross": F * L, **{f"decode_t{t}": L for t in range(F)}}
     mixes = {"step": serve_mix, "teacher_forced_step": {"encoder": L, "causal_tf": L,
                                                         "cross_tf": L}}
     if sum(serve_mix.values()) != attention_launches(args):
         raise AssertionError(f"attention bf16: the mix {serve_mix} is not a batch's launches")
-    keys = ("ms", "bound_ms", "plain_ms", "library_ms")
     rows = {}
     for row, kind, row_mixes in (("attention_bf16", "serve", {"batch": serve_mix}),
                                  ("attention_train_forward_bf16", "train", mixes),
                                  ("attention_backward_bf16", "backward", mixes)):
+        keys = ("ms", "bound_ms", "plain_ms", "library_ms") + (
+            ("earlier_ms",) if parent is not None and kind != "backward" else ())
         sums = {f"{mix}_{key}_sum": sum(n * cases[kind][name][key] for name, n in shape_n.items())
                 for mix, shape_n in row_mixes.items() for key in keys}
         main = cases[kind][f"decode_t{F - 1}"]
@@ -2997,9 +3037,39 @@ def vp_train_phase(dev, counters, bf16: bool = False):
     result["his_window_96"] = dict(
         his_window=wide_args.his_window, encoder_attention=[wide_args.his_window] * 2,
         cross_attention_keys=wide_args.his_window // 2, step_seconds=wide_seconds[0],
-        loss=float(wide_loss), launches=wide_launches, kernels_vs_plain=wide_check)
+        loss=float(wide_loss), launches=wide_launches, kernels_vs_plain=wide_check,
+        k8_device_ms=attention_kernel_ms(wide_step))
     result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return result
+
+
+# K8's kernels by the names the profiler gives them: the forward's row and
+# tile kernels, the backward's delta, row and tile kernels
+K8_KERNEL_NAMES = {"forward_row": "attention_kernel<", "forward_tile": "attention_tile_kernel<",
+                   "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<")}
+
+
+def attention_kernel_ms(run) -> dict:
+    """Device milliseconds of K8's kernels over one ``run()`` under
+    ``torch.profiler``: the forward's row and tile kernels apart and
+    together, the backward's kernels together, and their launches (None
+    where the profiler saw no device event)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return dict(device_captured=False)
+    out = dict(device_captured=True)
+    for key, names in K8_KERNEL_NAMES.items():
+        names = names if isinstance(names, tuple) else (names,)
+        hits = [e for e in device if any(n in e.name for n in names)]
+        out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
+        out[f"{key}_launches"] = len(hits)
+    out["forward_ms"] = out["forward_row_ms"] + out["forward_tile_ms"]
+    return out
 
 
 # ---------------------------------------------------------------- phase 14
@@ -3619,7 +3689,8 @@ def main() -> int:
         rows[name]["action_values"] = fields
     rows.update(training_kernel_phase(dev, parent))
     rows.update(viewport_kernel_phase(dev, parent))
-    rows.update(attention_bf16_phase(dev, rows["attention"]["batch"]["timing_floor_ms"]))
+    rows.update(attention_bf16_phase(dev, rows["attention"]["batch"]["timing_floor_ms"],
+                                     parent))
     rows.update(simple_kernel_phase(dev))
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths, trained = {}, {}

@@ -13,16 +13,19 @@ mask is given as ``kv_len0``: query row r sees keys
 ``[0, min(Lk, kv_len0 + r))``.
 
 On the H100 the core is bound by the k and v bytes; ``csrc/attention.cu``
-runs one warp a (b, query row, head), in a serving mode and a training mode
-that also writes each row's max and exp sum and applies a dropout keep
-mask; ``csrc/attention_backward.cu`` recomputes P from those statistics,
-bit for bit, at any number of query rows and keys: a warp a (b, head) for
-one query row, else a CTA a (b, head) over tiles of keys and rows
-(:func:`attention_backward_plan`).  :func:`attention` picks the path: the
-plain version for CPU tensors, the training forward and the backward kernel
-(:class:`_AttentionFunction`) when autograd needs a gradient, else the
-serving kernel.  The projections, the cache write and the mask draws stay
-``torch`` ops (``models/transformer.py``).
+runs a serving mode and a training mode that also writes each row's max
+and exp sum and applies a dropout keep mask, each as one of two kernels
+(:func:`attention_forward_plan`): one warp a (b, query row, head) for one
+query row, else a CTA a (b, head, row tile) that stages the k and v rows in
+shared memory once and takes each warp's rows' scores by a reduce-scatter
+(the butterfly's sums), bit for bit the one-row kernel's arithmetic.  ``csrc/attention_backward.cu``
+recomputes P from those statistics, bit for bit, at any number of query
+rows and keys: a warp a (b, head) for one query row, else a CTA a (b, head)
+over tiles of keys and rows (:func:`attention_backward_plan`).
+:func:`attention` picks the path: the plain version for CPU tensors, the
+training forward and the backward kernel (:class:`_AttentionFunction`) when
+autograd needs a gradient, else the serving kernel.  The projections, the
+cache write and the mask draws stay ``torch`` ops (``models/transformer.py``).
 
 Element types: q, k and v are all f32 or all bf16 (``run_models --bf16``:
 ``MHA.attend`` at ``dtype=bfloat16``); the output and the gradients take
@@ -49,7 +52,9 @@ from mansy_immersivevideostreaming_torch.kernels import build, count_launch
 
 MAX_DH = 256    # head width the kernels hold in registers (8 values a lane)
 MAX_LK = 2048   # keys a row's scores hold in shared memory (forward)
-MAX_ROW_TILE = 32  # the backward's tile kernel: query rows a row tile
+MAX_ROW_TILE = 32  # the tile kernels (forward and backward): query rows a row tile
+FORWARD_GROUP = 4  # the forward's tile kernel: rows a warp takes at once
+SMEM_BYTES = 232448  # the H100's shared memory a block (227 KB)
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types, by their code
 MODES = ("f32", "bf16")  # the launch-count mode of each element type (``launches_by_mode``)
 
@@ -199,7 +204,8 @@ class _AttentionArgs(ctypes.Structure):
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
                 + [("scale", ctypes.c_float), ("keep", ctypes.c_void_p),
                    ("keep_prob", ctypes.c_float), ("row_max", ctypes.c_void_p),
-                   ("row_sum", ctypes.c_void_p)])
+                   ("row_sum", ctypes.c_void_p)]
+                + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "group")])
 
 
 class _AttentionBackwardArgs(ctypes.Structure):
@@ -253,6 +259,52 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> Backwa
     return BackwardPlan("tile", per_lane, keys, rows, 32 * warps, B * H, smem)
 
 
+class ForwardPlan(NamedTuple):
+    """The serving and training kernels' launch (``csrc/attention.cu``):
+    ``kernel`` is "row" (one query row: a warp a (b, row, head), four a CTA,
+    the row's ``keys`` scores in shared memory; a lane holds up to
+    ``per_lane`` = 8 dims) or "tile" (a CTA a (b, head, row tile of ``rows``
+    rows), k and v staged in key tiles of ``keys`` keys, a warp taking
+    ``group`` rows at once; a lane holds ``per_lane`` dims of a row)."""
+    kernel: str
+    per_lane: int
+    keys: int
+    rows: int
+    group: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def score_stride(Lk: int) -> int:
+    """Floats a row of the tile kernel's score buffer: Lk rounded up to 32,
+    plus 8 (a warp's four rows start 8 banks apart)."""
+    return -(-Lk // 32) * 32 + 8
+
+
+def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> ForwardPlan:
+    """The forward's plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  One
+    query row takes the row kernel (4 warps a CTA, Lk floats of scores a
+    warp).  More take the tile kernel: a lane holds the next power of two of
+    ceil(Dh / 32) dims (1 to 8); a key tile holds Lk rounded up to 8 keys,
+    at most 256 / dims a lane (its k rows, later its v rows, in one buffer
+    of at most 32 KB as f32); a row tile up to MAX_ROW_TILE rows, a multiple of
+    FORWARD_GROUP where the score buffer (rows x :func:`score_stride`
+    floats) and the rows' keep bytes must shrink to keep shared memory
+    within the H100's 227 KB (16 rows at 2048 keys); a warp a group of 4
+    rows."""
+    if Lq <= 1:
+        return ForwardPlan("row", 8, Lk, 1, 1, 128, -(-B * Lq * H // 4), 16 * Lk)
+    per_lane = _pow2_at_least(math.ceil(Dh / 32))
+    keys = min(-(-Lk // 8) * 8, 256 // per_lane)
+    staged = 4 * keys * 32 * per_lane
+    fit = (SMEM_BYTES - staged - 15) // (4 * score_stride(Lk) + Lk)
+    rows = min(Lq, MAX_ROW_TILE, fit - fit % FORWARD_GROUP)
+    return ForwardPlan("tile", per_lane, keys, rows, FORWARD_GROUP,
+                       32 * -(-rows // FORWARD_GROUP), B * H * -(-Lq // rows),
+                       staged + 4 * rows * score_stride(Lk) + -(-rows * Lk // 16) * 16)
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_launch():
     """The serving and training kernels' launcher, its signature set once."""
@@ -299,15 +351,18 @@ def _check_qkv(q, k, v, kv_len0, keep):
 def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0.0,
                     row_max=None, row_sum=None) -> None:
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
+    plan = attention_forward_plan(B, Lq, Lk, H, Dh)
     ptr = lambda t: None if t is None else t.data_ptr()
     args = _AttentionArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
                           B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
                           keep=ptr(keep), keep_prob=1.0 - rate, row_max=ptr(row_max),
-                          row_sum=ptr(row_sum))
+                          row_sum=ptr(row_sum), per_lane=plan.per_lane, keys=plan.keys,
+                          rows=plan.rows, group=plan.group)
     err = _forward_launch()(ctypes.byref(args), int(train), _elem(q, k, v),
                             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"attention kernel launch ({plan.kernel} plan {tuple(plan)}) failed "
+                           f"with CUDA error {err}")
 
 
 def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,15 +21,14 @@
 //
 // P, bit for bit: P is recomputed from q, k and the forward's row max and
 // exp sum, not stored by the forward (which would cost Lq Lk 4 bytes a
-// (b, head) of writes and reads, and a change to the serving kernel's
-// source).  The forward (csrc/attention.cu) takes a score as a warp sum:
-// lane l's fmaf chain over dims l, l + 32, ..., then the xor butterfly
-// (offsets 16, 8, 4, 2, 1).  Here a warp takes the scores of M keys at once
-// (reduce_scatter): each lane forms the same per-lane chains for all M, and
-// a recursive halving over the same offsets leaves lane s with score s.
-// Each value it adds is the butterfly's sum over the same lanes, so the
-// score, expf(s - max) and the division by the sum are the forward's bits.
-// One shuffle a score instead of five.
+// (b, head) of writes and reads).  The forward (csrc/attention.cu) takes
+// its scores as this kernel does: in its tile kernel (Lq > 1) by
+// reduce_scatter_placed (csrc/attention_common.cuh: reduce_scatter's sums,
+// its partials placed by lane), in its row kernel (Lq = 1) by warp_sum,
+// whose butterfly reduce_scatter follows sum by sum: lane l's fmaf
+// chain over dims l, l + 32, ..., then the xor offsets 16, 8, 4, 2, 1.  So
+// the score, expf(s - max) and the division by the sum are the forward's
+// bits on either of its paths.
 //
 // Layouts are the JAX package's: q, o, dO, dQ [B, Lq, H, Dh]; k, v, dK, dV
 // [B, Lk, H, Dh]; the statistics [B, H, Lq]; the mask [B, H, Lq, Lk].
@@ -86,16 +85,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "attention_common.cuh"
 #include "common.cuh"
 #include "elem.cuh"
 
 using mansy::kFull;
+using mansy::attn::chain;
+using mansy::attn::reduce_scatter;
+using mansy::attn::stage_rows;
 using mansy::from_f32;
 using mansy::kIsBf16;
 using mansy::round_as;
 using mansy::to_f32;
 using mansy::warp_sum;
-using mansy::tc::cp_async16;
 using mansy::tc::cp_async4;
 using mansy::tc::cp_async_commit;
 using mansy::tc::cp_async_wait;
@@ -135,48 +137,6 @@ struct AttentionBackwardArgs {
 };
 
 namespace {
-
-// Lane l's share of a dot product as the forward chains it: fmaf over dims
-// l, l + 32, ... below Dh, from 0.
-template <int P>
-__device__ __forceinline__ float chain(const float (&a)[P], const float (&b)[P], int lane,
-                                       int Dh) {
-  float part = 0.f;
-#pragma unroll
-  for (int i = 0; i < P; ++i)
-    if (lane + 32 * i < Dh) part = fmaf(a[i], b[i], part);
-  return part;
-}
-
-// The warp sums of x[0 .. M-1] (each lane's partials of M dot products), in
-// the order of mansy::warp_sum's butterfly: at offsets 16 .. M every lane
-// adds its partner's values of all M; at offsets M/2 .. 1 each lane keeps
-// the half whose index bit matches its own and adds its partner's values of
-// that half.  Lane l returns the sum of product l & (M - 1).
-template <int M>
-__device__ __forceinline__ float reduce_scatter(float (&x)[M], int lane) {
-  constexpr int kLog = M == 32 ? 5 : M == 16 ? 4 : M == 8 ? 3 : 2;  // M = 2^kLog
-  static_assert(M == 1 << kLog, "M is 4, 8, 16 or 32");
-#pragma unroll
-  for (int k = 0; k < 5 - kLog; ++k) {  // offsets 16 .. M
-    const int o = 16 >> k;
-#pragma unroll
-    for (int s = 0; s < M; ++s) x[s] += __shfl_xor_sync(kFull, x[s], o);
-  }
-#pragma unroll
-  for (int k = 0; k < kLog; ++k) {  // offsets M/2 .. 1
-    const int o = (M / 2) >> k;
-    const bool up = (lane & o) != 0;
-#pragma unroll
-    for (int s = 0; s < M / 2; ++s) {
-      if (s >= o) break;
-      const float send = up ? x[s] : x[s + o];
-      const float keep = up ? x[s + o] : x[s];
-      x[s] = keep + __shfl_xor_sync(kFull, send, o);
-    }
-  }
-  return x[0];
-}
 
 // One (row, key) of the backward from its score and dP': (P', dS / scale),
 // both 0 for a key the row does not see.
@@ -340,37 +300,6 @@ backward_row_kernel(const AttentionBackwardArgs a) {
   }
 }
 
-// Rows [0, rows) of a [*, stride] tensor from src into dst [rows][kD] with
-// cp.async, zero past Dh and past `valid` rows: 16-byte copies when the rows
-// allow (vec), else 4-byte ones.
-template <int kD, int kThreads>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t stride, int rows,
-                                           int valid, int Dh, bool vec, int tid) {
-  if (vec) {
-    for (int e = tid; e < rows * (kD / 4); e += kThreads) {
-      const int r = e / (kD / 4), d = 4 * (e % (kD / 4));
-      const bool in = r < valid && d < Dh;
-      cp_async16(dst + r * kD + d, in ? src + r * stride + d : src, in);
-    }
-  } else {
-    for (int e = tid; e < rows * kD; e += kThreads) {
-      const int r = e / kD, d = e % kD;
-      const bool in = r < valid && d < Dh;
-      cp_async4(dst + r * kD + d, in ? src + r * stride + d : src, in);
-    }
-  }
-}
-
-// stage_rows for bf16 rows: plain loads, converted to f32.
-template <int kD, int kThreads>
-__device__ __forceinline__ void stage_rows(float* dst, const mansy::bf16* src, size_t stride,
-                                           int rows, int valid, int Dh, bool, int tid) {
-  for (int e = tid; e < rows * kD; e += kThreads) {
-    const int r = e / kD, d = e % kD;
-    dst[e] = r < valid && d < Dh ? to_f32(src[r * stride + d]) : 0.f;
-  }
-}
-
 // ---- Lq > 1: a CTA a (b, head), key tiles of M keys, row tiles of a.rows rows ----
 template <typename T, int P, int M, int W>
 __global__ void __launch_bounds__(W * 32, (P <= 2 ? 4 : 2) * 8 / W)
@@ -417,20 +346,20 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
     float dk[kPer][4] = {}, dv[kPer][4] = {};
     if (j0 < n_max) {
       __syncthreads();  // the previous tile is done with sK and sV
-      stage_rows<kD, kThreads>(sK, static_cast<const T*>(a.k) + k0 + (size_t)j0 * stride, stride,
-                               M, kn, Dh, vec, tid);
-      stage_rows<kD, kThreads>(sV, static_cast<const T*>(a.v) + k0 + (size_t)j0 * stride, stride,
-                               M, kn, Dh, vec, tid);
+      stage_rows<kD>(sK, static_cast<const T*>(a.k) + k0 + (size_t)j0 * stride, stride,
+                     M, kn, Dh, vec, tid, kThreads);
+      stage_rows<kD>(sV, static_cast<const T*>(a.v) + k0 + (size_t)j0 * stride, stride,
+                     M, kn, Dh, vec, tid, kThreads);
       // rows before r_first see none of this tile's keys (nor any later one)
       const int r_first = max(0, j0 - a.kv_len0 + 1);
       for (int r0 = r_first; r0 < Lq; r0 += RT) {
         const int rn = min(RT, Lq - r0);
         if (r0 > r_first) __syncthreads();  // the previous row tile is done with sQ .. sKeep
         const size_t rows = q0 + (size_t)r0 * stride;
-        stage_rows<kD, kThreads>(sQ, Q + rows, stride, rn, rn, Dh, vec, tid);
-        stage_rows<kD, kThreads>(sdO, dO + rows, stride, rn, rn, Dh, vec, tid);
+        stage_rows<kD>(sQ, Q + rows, stride, rn, rn, Dh, vec, tid, kThreads);
+        stage_rows<kD>(sdO, dO + rows, stride, rn, rn, Dh, vec, tid, kThreads);
         if constexpr (!kIsBf16<T>)  // bf16 reads no o
-          stage_rows<kD, kThreads>(sO, O + rows, stride, rn, rn, Dh, vec, tid);
+          stage_rows<kD>(sO, O + rows, stride, rn, rn, Dh, vec, tid, kThreads);
         for (int e = tid; e < rn; e += kThreads) {
           cp_async4(sMax + e, a.row_max + bh * Lq + r0 + e, true);
           cp_async4(sSum + e, a.row_sum + bh * Lq + r0 + e, true);

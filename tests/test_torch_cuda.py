@@ -984,28 +984,30 @@ def test_attention_refuses_other_dtypes_on_card(cuda_device):
             K8.attention_backward(dout, q, q, q, out, row_max, row_sum)
 
 
-def attention_f32_digests(K8, dev) -> dict:
-    """sha256 (16 hex digits) of K8's f32 outputs (serving, training forward
-    with a keep mask at 0.1, backward) on numpy-seeded inputs at each
-    training shape and the two long ones, B 33, 8 heads of 64."""
+def attention_digests(K8, dev, dtype=torch.float32) -> dict:
+    """sha256 (16 hex digits) of K8's outputs (serving, training forward
+    with a keep mask at 0.1, backward) on numpy-seeded inputs in ``dtype``
+    (f32, or the same values rounded to bf16) at each training shape and
+    the two long ones, B 33, 8 heads of 64; each output hashed as f32 (a
+    bf16 value upcasts exactly)."""
     import hashlib
     out = {}
     for shape in TRAIN_SHAPES + [(96, 96, None), (1, 256, None)]:
         Lq, Lk, kv_len0 = shape
         rng = np.random.default_rng(Lq * 1000 + Lk)
         q, k, v, dout = (torch.as_tensor(rng.standard_normal((33, L, 8, 64), dtype=np.float32),
-                                         device=dev) for L in (Lq, Lk, Lk, Lq))
+                                         device=dev).to(dtype) for L in (Lq, Lk, Lk, Lq))
         keep = torch.as_tensor(rng.random((33, 8, Lq, Lk)) < 0.9, device=dev).to(torch.uint8)
         fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)
         bwd = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, 0.1)
         h = hashlib.sha256()
         for t in (K8.attention(q, k, v, kv_len0), *fwd, *bwd):
-            h.update(t.cpu().numpy().tobytes())
+            h.update(t.float().cpu().numpy().tobytes())
         out[str(shape)] = h.hexdigest()[:16]
     return out
 
 
-# attention_f32_digests of the kernels before they became templates on the
+# attention_digests of the kernels before they became templates on the
 # element type (the commit before K8's bf16 mode), taken on an H100 80GB
 # HBM3 by the same function bound to that commit's kernels
 F32_DIGESTS = {
@@ -1025,9 +1027,75 @@ F32_DIGESTS = {
 @pytest.mark.cuda
 def test_attention_f32_kernels_keep_their_bits_on_card(cuda_device):
     """The f32 instantiations of the templated kernels give the bits the f32
-    kernels gave before (F32_DIGESTS)."""
+    kernels gave before (F32_DIGESTS): the forward's tile kernel for more
+    than one query row gives the row kernel's bits."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
-    assert attention_f32_digests(K8, cuda_device) == F32_DIGESTS
+    assert attention_digests(K8, cuda_device) == F32_DIGESTS
+
+
+# attention_digests at bf16 of the kernels before the forward's tile kernel
+# (every query row on the row kernel), taken on an H100 80GB HBM3 by the same
+# function bound to that commit's kernels
+BF16_DIGESTS = {
+    "(5, 5, None)": "e74a9250684c3764",
+    "(1, 15, 1)": "fffe14c2ed42adfe",
+    "(1, 15, 8)": "280bba19cef08317",
+    "(1, 15, 15)": "06135cfb6d563414",
+    "(1, 3, None)": "d5d8ec3152e5c239",
+    "(15, 15, 1)": "177b9a24fc437849",
+    "(15, 3, None)": "98d638c552ff1779",
+    "(16, 16, 1)": "921a70daf7a3b003",
+    "(96, 96, None)": "57c0c3c73dc10a3c",
+    "(1, 256, None)": "eae295ba164935a6",
+}
+
+
+@pytest.mark.cuda
+def test_attention_bf16_kernels_keep_their_bits_on_card(cuda_device):
+    """The bf16 kernels give the bits they gave before the forward's tile
+    kernel (BF16_DIGESTS): serving, training forward and backward."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert attention_digests(K8, cuda_device, torch.bfloat16) == BF16_DIGESTS
+
+
+# the forward's tile kernel off its tiles (Lq, Lk, kv_len0, Dh): two rows,
+# one row past a row tile (33), 97 rows (three tiles of 32 and one of 1),
+# 2048 keys with the row tile at its smallest (16), heads of 48 dims (a
+# lane's second dim past Dh), prefixes of 1 and 7 keys
+TILE_SHAPES = [(2, 2, None, 64), (2, 9, 7, 48), (33, 33, 1, 64), (33, 40, 7, 48),
+               (97, 97, 1, 48), (97, 120, 7, 64), (30, 2048, 1, 256), (33, 2048, 7, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", TILE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_attention_tile_kernel_at_ragged_shapes_on_card(cuda_device, Lq, Lk, kv_len0, Dh,
+                                                        dtype, dropout):
+    """The forward's tile kernel (more than one query row) against its plain
+    version at the existing tolerances, serving and training mode, with
+    and without a keep mask, in f32 and bf16 (the backward on its outputs
+    too); two launches bit-equal; a batch of 3 and 3 heads.  In f32 the
+    serving output is the training mode's bit for bit, and both are held
+    at the training mode's tolerance (rtol 1e-5 plus 1e-5 of the largest
+    entry): a row over up to 2048 keys of 256 dims sums in another order
+    than the plain version's einsum, and where its output cancels to near 0
+    that order moves it by more than 1e-6."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    plan = K8.attention_forward_plan(3, Lq, Lk, 3, Dh)
+    assert plan.kernel == "tile" and (Lk < 2048 or plan.rows == 16)
+    seed = Lq + Lk + Dh
+    if dtype == torch.bfloat16:
+        _attention_bf16_matches_plain(K8, 3, (Lq, Lk, kv_len0), 3, Dh, dropout, seed)
+        return
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    q, k, v = (torch.randn(3, L, 3, Dh, device=cuda_device, generator=g) for L in (Lq, Lk, Lk))
+    serve = K8.attention(q, k, v, kv_len0)
+    assert torch.equal(serve, K8.attention_train_forward(q, k, v, kv_len0)[0])
+    assert torch.equal(serve, K8.attention(q, k, v, kv_len0))
+    want = K8.attention_plain(q, k, v, kv_len0)
+    torch.testing.assert_close(serve, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    _attention_training_matches_plain(K8, 3, (Lq, Lk, kv_len0), 3, Dh, dropout, seed)
 
 
 # ------------------------------------------------------------ hidden 256

@@ -12,6 +12,11 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
   and Dh 4 to 256, causal and full, every (row, key) that a row sees is
   taken once, every key's dk and dv rows written once, with a compiled
   instantiation and shared memory within 227 KB.
+* ``attention_forward_plan`` (K8's forward): at 1 to 2048 rows and keys and
+  Dh 4 to 256, causal and full, the score and P . v phases each take every
+  (row, key) a row sees once, every output row is written once and the
+  shared memory fits the H100; one row keeps the row kernel's launch; the
+  plans at the encoder, teacher-forced and 96 x 96 shapes.
 * ``policy_loss_plan`` (K9): one cluster of at most 16 CTAs whose row
   tiles (CTA r takes tiles r, r + ctas, ...) cover every row exactly once,
   for every B from 1 to 20000, with no CTA left without a tile; 4 CTAs of
@@ -424,6 +429,114 @@ def test_attention_backward_plan_at_the_training_shapes():
     assert plan(15, 15)[:5] == ("tile", 2, 16, 15, 256)
     assert plan(15, 3)[:5] == ("tile", 2, 4, 15, 128)
     assert plan(96, 96)[:5] == ("tile", 2, 16, 32, 256)
+
+
+FORWARD_SIZES = (1, 2, 15, 33, 96, 97, 2048)
+H100_SMEM = 227 * 1024  # shared memory a block on the H100
+
+
+def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan):
+    """(times the score phase takes each (row, key), times the P . v phase
+    takes it, times each output row is written) as ``csrc/attention.cu``
+    walks them.  The row kernel: a warp a row over its seen keys.  The tile
+    kernel: a CTA a row tile of ``rows`` rows; in it a warp a group of
+    ``group`` rows; each walks the key tiles of ``keys`` keys up to the last
+    key a row of the CTA sees: the scores in reduce_scatter batches of 32 /
+    ``group`` keys (a lane keeps a (row, key) its row sees), P . v key by
+    key, each row's fmaf taken where its row sees the key."""
+    scores, pv = np.zeros((Lq, Lk), int), np.zeros((Lq, Lk), int)
+    written = np.zeros(Lq, int)
+    seen_by = lambda r: min(Lk, kv_len0 + r)
+    if plan.kernel == "row":
+        for r in range(Lq):
+            scores[r, :seen_by(r)] += 1
+            pv[r, :seen_by(r)] += 1
+            written[r] += 1
+        return scores, pv, written
+    R, batch = plan.group, 32 // plan.group
+    for r0 in range(0, Lq, plan.rows):
+        rn = min(plan.rows, Lq - r0)
+        n_cta = min(Lk, kv_len0 + r0 + rn - 1)
+        for g0 in range(0, plan.threads // 32 * R, R):
+            gn = max(0, min(R, rn - g0))
+            n_warp = min(Lk, kv_len0 + r0 + g0 + gn - 1) if gn else 0
+            rows = range(r0 + g0, r0 + g0 + gn)
+            for j0 in range(0, n_cta, plan.keys):
+                kn = min(plan.keys, n_cta - j0)
+                jn = min(kn, n_warp - j0)
+                if jn <= 0:
+                    continue
+                batched = -(-jn // batch) * batch  # keys the reduce_scatter batches cover
+                assert batched <= plan.keys        # within the staged tile
+                for r in rows:
+                    scores[r, j0:min(j0 + batched, seen_by(r))] += 1
+                    pv[r, j0:min(j0 + jn, seen_by(r))] += 1
+            written[list(rows)] += 1
+    return scores, pv, written
+
+
+@pytest.mark.parametrize("Lq", FORWARD_SIZES)
+@pytest.mark.parametrize("Lk", FORWARD_SIZES)
+@pytest.mark.parametrize("Dh", [4, 48, 64, 256])
+def test_attention_forward_plan_covers_every_row_and_key_once(Lq, Lk, Dh):
+    """K8's forward plan at one and many rows and keys, up to MAX_LK keys,
+    causal (kv_len0 1) and full: the score phase and the P . v phase each
+    take every (row, key) a row sees exactly once and none it does not see,
+    every output row is written once, a lane's dims hold Dh, the blocks
+    cover every (b, head, row tile), and the shared memory fits the H100;
+    one row takes the row kernel, more the tile kernel."""
+    B, H = 512, 8
+    for kv_len0 in (1, Lk):
+        plan = K8.attention_forward_plan(B, Lq, Lk, H, Dh)
+        scores, pv, written = _forward_walk(Lq, Lk, kv_len0, plan)
+        seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+        assert np.array_equal(scores, seen.astype(int))
+        assert np.array_equal(pv, seen.astype(int))
+        assert (written == 1).all()
+        assert plan.smem_bytes <= H100_SMEM
+        if Lq == 1:
+            assert plan == K8.ForwardPlan("row", 8, Lk, 1, 1, 128, B * H // 4, 16 * Lk)
+            continue
+        assert plan.kernel == "tile" and plan.group == 4
+        assert 32 * plan.per_lane >= Dh > 16 * plan.per_lane or plan.per_lane == 1
+        assert plan.keys % 8 == 0 and plan.keys * 32 * plan.per_lane <= 8192
+        assert plan.keys >= min(Lk, 256 // plan.per_lane)
+        assert 1 <= plan.rows <= 32 and plan.threads == 32 * -(-plan.rows // 4)
+        assert plan.rows == min(Lq, 32) or plan.rows % 4 == 0
+        assert plan.blocks == B * H * -(-Lq // plan.rows)
+        assert plan.smem_bytes == (4 * (plan.keys * 32 * plan.per_lane
+                                        + plan.rows * K8.score_stride(Lk))
+                                   + -(-plan.rows * Lk // 16) * 16)
+
+
+def test_attention_forward_plan_keeps_the_row_launch_at_one_row():
+    """One query row (every decode step and the decode's cross-attention)
+    takes the row kernel's launch as it was: 4 warps a CTA, a warp a (b,
+    row, head), 4 Lk floats of scores a CTA."""
+    for Lk in (1, 3, 15, 256, 2048):
+        for B, H in ((512, 8), (77, 8), (5, 3)):
+            plan = K8.attention_forward_plan(B, 1, Lk, H, 64)
+            assert plan == K8.ForwardPlan("row", 8, Lk, 1, 1, 128, -(-B * H // 4), 16 * Lk)
+
+
+def test_attention_forward_plan_at_the_training_shapes():
+    """The encoder's 5 x 5, the teacher-forced causal 15 x 15 and its cross
+    15 x 3 take one row tile a (b, head), the --his-window 96 encoder three
+    of 32 rows; at 2048 keys the score buffer leaves a row tile of 16.
+    Shared memory: the key tile's k rows, later its v rows (keys x 64
+    floats), the score buffer (rows x :func:`score_stride`) and the keep
+    bytes (to 16)."""
+    plan = lambda Lq, Lk, Dh=64: K8.attention_forward_plan(512, Lq, Lk, 8, Dh)
+    assert plan(5, 5) == K8.ForwardPlan("tile", 2, 8, 5, 4, 64, 4096,
+                                        4 * (8 * 64 + 5 * 40) + 32)
+    assert plan(15, 15) == K8.ForwardPlan("tile", 2, 16, 15, 4, 128, 4096,
+                                          4 * (16 * 64 + 15 * 40) + 240)
+    assert plan(15, 3) == K8.ForwardPlan("tile", 2, 8, 15, 4, 128, 4096,
+                                         4 * (8 * 64 + 15 * 40) + 48)
+    assert plan(96, 96) == K8.ForwardPlan("tile", 2, 96, 32, 4, 256, 12288,
+                                          4 * (96 * 64 + 32 * 104) + 32 * 96)
+    assert plan(96, 2048).rows == plan(96, 2048, 256).rows == 16
+    assert plan(96, 2048, 256).smem_bytes <= H100_SMEM
 
 
 def _prefix(Lk: int, t: int):
