@@ -7,8 +7,9 @@ with PPO and the identifier (at hidden 128 and 256), runs DAgger rounds,
 serves the MTIO viewport model (``run_models --test``, the ``predict``
 export) and trains it (``run_models --train``, also at ``--his-window
 96``), trains and tests the simple_rl (A2C) baseline and runs the routed
-ensemble over four committed policies, all through the port's own entry
-points.  It imports no JAX.
+ensemble over four committed policies, and serves, trains and runs DAgger
+with policies that read the derived action values, all through the port's
+own entry points.  It imports no JAX.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -202,6 +203,31 @@ composition.
    quaternion logs, every output file equal to the same CLI's ``--device
    cpu`` run to 1e-6; ``preprocess_network`` over 40 synthetic 4G traces;
    wall seconds of each.
+15. serve_av: deterministic evaluation over the 1440-episode grid's shape
+   (tables without action values: K2's derived mode) of (i) v16's weights
+   with a sidecar of ``obs_action_values`` and no ``exact_action_values``
+   and (ii) v9's weights with a logit prior of 3.0, each held against the
+   plain path on the card: equal masks and records, or a first differing
+   decision at a near-tie of the plain logits (LOGIT_NEAR_TIE; the count of
+   such lanes reported); episodes/s over PASSES passes.
+15b. train_av: phase 7 with ``--obs-action-values --av-logit-prior 3.0``
+   from Flax's initialiser (K2's derived mode in the collect): env-steps/s,
+   one update against the plain path at phase 7's limits.
+15c. dagger_av: ``run_dagger --obs-action-values --av-logit-prior 3.0
+   --acc-correct`` one round at phase 8's shape from policy (i), its
+   initial aggregate the port's expert demos recorded without the exact
+   field (``flatten_demos`` fills their columns by K2's row mode, held
+   against the plain row mode); the launches of the packing, the fit and
+   the round.
+
+Phase 2g holds K2's derived mode at 32, 128, 512 and 8192 lanes and its
+row mode at 4096 rows against their plain versions (AV_RTOL, AV_ATOL), two
+launches bit-equal, on the edge cases too (an empty and a full predicted
+viewport, an empty throughput history, no previous action), each timed
+beside its bytes bound (rows ``observe_mansy_pack_derived`` and
+``derive_action_values``; the parent commit has neither mode).  Phase 11's
+failure message names the gradient leaf past its limit and its worst
+entry, with the two paths' values there.
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -217,6 +243,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -295,6 +322,10 @@ SIMPLE_WIDTHS = (SIMPLE_LANES, SERVE_CHUNK)  # phase 2e: K2 and K3 at the train 
 SIMPLE_RL_ROUNDS = 5    # phase 12: timed rounds (a collect and its update each)
 ENSEMBLE_VALID_SHAPE = (3, 45, 8, 60, 4)  # the Jin2022/4G valid split at run_ensemble's full grid
 ENSEMBLE_PASSES = 3     # phase 13: timed runs of run_ensemble
+AV_PRIOR = 3.0          # phases 15-15c: the logit prior of v16's flags (--av-logit-prior)
+AV_RTOL, AV_ATOL = 1e-5, 1e-6  # phase 2g: the derived values against their plain version
+LOGIT_NEAR_TIE = 1e-4   # phase 15: top-two plain logit margin of a near-tie (the prior
+#                         standardizes the 15 values, so their ulps move the logits by ~1e-5)
 
 PKG = "mansy_immersivevideostreaming_torch"
 KERNELS = {
@@ -373,12 +404,23 @@ KERNELS = {
                                                   "a2c.py:88"),
     "policy_loss_a2c": dict(route="cuda", source=f"{PKG}/kernels/csrc/policy_loss.cu",
                             replaces="mansy_immersivevideostreaming_tpu/rl/a2c.py:71"),
+    # K2's derived mode (the row with the derived action values, on tables
+    # without them) and its row mode (packed rows), each with the launches
+    # of the paths that read the derived values
+    "observe_mansy_pack_derived": dict(route="cuda", source=f"{PKG}/kernels/csrc/observe.cu",
+                                       replaces="mansy_immersivevideostreaming_tpu/models/"
+                                                "abr_nets.py:29"),
+    "derive_action_values": dict(route="cuda", source=f"{PKG}/kernels/csrc/observe.cu",
+                                 replaces="mansy_immersivevideostreaming_tpu/models/"
+                                          "abr_nets.py:29"),
 }
 # the kernels-line row of a launch: the wrapper's name, and the suffix of
 # the mode it counted the launch in (K3 and K10 by net and hidden width, K9
-# by loss, K8 by element type); K7's two wrappers share one row
+# by loss, K8 by element type, K2 by the action values: gathered or
+# derived); K7's two wrappers share one row
 MODE_SUFFIX = {None: "", "cond128": "", "cond256": "_h256", "simple128": "_simple", "ce": "",
-               "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16"}
+               "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16", "gather": "",
+               "derived": "_derived"}
 SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
@@ -1076,7 +1118,10 @@ def expert_kernel_phase(dev, parent=None):
 
 def plain_serve(policy, tables, samples):
     """The serve path through the plain versions only (the reference); the
-    policy's K2 mode decides the plain observation."""
+    policy's K2 mode decides the plain observation.  Returns the LogRecords,
+    the first-done masks and each chunk's decisions for ``compare_lanes``:
+    actions [T, n], top-two logit margins [T, n] and logits [T, n, A]
+    (numpy)."""
     from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
         actor_critic_forward_plain,
     )
@@ -1091,22 +1136,31 @@ def plain_serve(policy, tables, samples):
     from mansy_immersivevideostreaming_torch.sim.env import reset_env
 
     w = policy.packed_weights()
-    all_logs, all_masks = [], []
+    all_logs, all_masks, decisions = [], [], []
     for s0 in range(0, samples.shape[0], SERVE_CHUNK):
         sub = samples[s0:s0 + SERVE_CHUNK]
         n = sub.shape[0]
         state = reset_env(tables, sub, torch.arange(n, dtype=torch.int32, device=sub.device), n)
-        logs = []
+        logs, actions, all_logits = [], [], []
         for _ in range(episode_step_bound(tables)):
-            x = (observe_simple_pack_plain if policy.observe is observe_simple_pack
-                 else observe_mansy_pack_plain)(tables, state)
-            _, _, action, _ = actor_critic_forward_plain(w, x, None)
+            if policy.observe is observe_simple_pack:
+                x = observe_simple_pack_plain(tables, state)
+            else:
+                x = observe_mansy_pack_plain(tables, state,
+                                             action_values=policy.reads_action_values)
+            logits, _, action, _ = actor_critic_forward_plain(w, x, None)
             state, _, _, log_ = env_step_plain(tables, sub, state, action, n, False)
             logs.append(log_)
+            actions.append(action)
+            all_logits.append(logits)
         logs = stack_logs(logs)
         all_logs.append(logs)
         all_masks.append(first_done_mask(logs.done.cpu().numpy()))
-    return all_logs, all_masks
+        logits = torch.stack(all_logits)
+        top2 = logits.topk(2, dim=-1).values
+        decisions.append((torch.stack(actions).cpu().numpy(),
+                          (top2[..., 0] - top2[..., 1]).cpu().numpy(), logits.cpu().numpy()))
+    return all_logs, all_masks, decisions
 
 
 def expect(counters, **launches):
@@ -1274,7 +1328,7 @@ def serve_phase(dev, counters, policy_name: str = "v9"):
     n_eps = int(sum(m.sum() for m in masks))
     if n_eps != samples.shape[0]:
         raise AssertionError(f"{label}: {n_eps} of {samples.shape[0]} lanes finished an episode")
-    ref_logs, ref_masks = plain_serve(policy, tables, samples)
+    ref_logs, ref_masks, _ = plain_serve(policy, tables, samples)
     qoe = compare_serve(logs, masks, ref_logs, ref_masks, label)
     rate = rate_stats(n_eps, seconds)
     launches["build_expert_tables"] += setup
@@ -1367,18 +1421,21 @@ def plain_expert(tables, etables, samples):
     return out
 
 
-def compare_expert(chunks, ref_chunks) -> dict:
-    """Hold the expert path to the plain path's, lane by lane: equal
-    first-done masks; up to its first episode end, a lane takes the plain
-    path's actions and then has equal episode records (ints exact, floats
-    rtol = atol = 1e-5), or its first differing decision is a near-tie (the
-    plain margin at most NEAR_TIE and the kernel's action within NEAR_TIE of
-    the best first-action value).  Returns the counts."""
+def compare_lanes(chunks, ref_chunks, label: str = "expert", tie: float = NEAR_TIE) -> dict:
+    """Hold a path to the plain path's, lane by lane: equal first-done
+    masks; up to its first episode end, a lane takes the plain path's
+    decisions and then has equal episode records (ints exact, floats rtol =
+    atol = 1e-5), or its first differing decision is a near-tie (the plain
+    margin at most ``tie`` and the path's decision within ``tie`` of the
+    best plain score: phase 5's first-action values over the weight sum,
+    phase 15's logits).  ``chunks``: (LogRecord [T, n], mask, decisions [T,
+    n], ...); ``ref_chunks``: (LogRecord, mask, decisions, margin [T, n],
+    scores [T, n, A]).  Returns the counts."""
     near_tie, same = 0, 0
-    for (logs, mask, actions, _), (rlogs, rmask, ractions, rmargin, rfirst) in zip(
+    for (logs, mask, actions, *_), (rlogs, rmask, ractions, rmargin, rfirst) in zip(
             chunks, ref_chunks):
         if not np.array_equal(mask, rmask):
-            raise AssertionError("expert: first-done masks differ from the plain path's")
+            raise AssertionError(f"{label}: first-done masks differ from the plain path's")
         logs = {name: x.cpu().numpy() for name, x in logs._asdict().items()}
         rlogs = {name: x.cpu().numpy() for name, x in rlogs._asdict().items()}
         for lane in range(mask.shape[1]):
@@ -1387,9 +1444,9 @@ def compare_expert(chunks, ref_chunks) -> dict:
             if diff.size:
                 t = int(diff[0])
                 gap = rfirst[t, lane].max() - rfirst[t, lane, actions[t, lane]]
-                if rmargin[t, lane] > NEAR_TIE or gap > NEAR_TIE:
+                if rmargin[t, lane] > tie or gap > tie:
                     raise AssertionError(
-                        f"expert: lane {lane} decides otherwise at step {t} off a near-tie "
+                        f"{label}: lane {lane} decides otherwise at step {t} off a near-tie "
                         f"(plain margin {rmargin[t, lane]}, gap {gap})")
                 near_tie += 1
                 continue
@@ -1397,7 +1454,7 @@ def compare_expert(chunks, ref_chunks) -> dict:
                 got, ref = x[t_end, lane], rlogs[name][t_end, lane]
                 if (abs(got - ref) > 1e-5 + 1e-5 * abs(ref)) if np.issubdtype(x.dtype, np.floating) \
                         else got != ref:
-                    raise AssertionError(f"expert: lane {lane} record {name} {got} != {ref}")
+                    raise AssertionError(f"{label}: lane {lane} record {name} {got} != {ref}")
             same += 1
     return dict(lanes_equal=same, lanes_near_tie=near_tie)
 
@@ -1438,7 +1495,7 @@ def expert_phase(dev, counters):
     t0 = time.time()
     ref_chunks = plain_expert(tables, etables, samples)
     plain_s = time.time() - t0
-    counts = compare_expert(chunks, ref_chunks)
+    counts = compare_lanes(chunks, ref_chunks)
     log(f"expert: {json.dumps(counts)} of {n_eps} lanes (all compared)")
     qoe = np.concatenate([c[0].qoe.cpu().numpy()[c[1]] for c in chunks])
     ref_qoe = np.concatenate([c[0].qoe.cpu().numpy()[c[1]] for c in ref_chunks])
@@ -1872,17 +1929,21 @@ def compare_params(before, kernel_p, plain_p, lr_steps: float, label: str) -> di
                 params_near_zero_gradient_differing=loose, params_total=total)
 
 
-def train_phase(dev, counters, wide: bool = False):
+def train_phase(dev, counters, wide: bool = False, derived: bool = False):
     """``run_mansy --train --train-identifier --use-identifier --lamb 0.5``
     at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat 2)
     through ``run_mansy.ppo_round``, on tables of the train split's shape,
     from the v9 weights at hidden 128 (with ``wide``: from the v18 weights,
-    ``--hidden-dim 256``, K3 and K10 at width 256): a warm-up round, then
-    PASSES timed rounds (one with ``wide``; one collect and its updates
-    each).  Then one update through the kernels against the plain path on
-    the card."""
+    ``--hidden-dim 256``, K3 and K10 at width 256; with ``derived``, phase
+    15b: ``--obs-action-values --av-logit-prior 3.0`` from Flax's
+    initialiser, orthogonal sqrt 2 and zero bias, the observation from K2's
+    derived mode): a warm-up round, then PASSES timed rounds (one with
+    ``wide``; one collect and its updates each).  Then one update through
+    the kernels against the plain path on the card."""
     from mansy_immersivevideostreaming_torch.cli import run_mansy
-    from mansy_immersivevideostreaming_torch.models.abr_nets import QoEIdentifier
+    from mansy_immersivevideostreaming_torch.models.abr_nets import (
+        MansyActorCritic, QoEIdentifier,
+    )
     from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer, ppo_update
     from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes, make_collector
     from mansy_immersivevideostreaming_torch.rl.types import RunningStat
@@ -1894,12 +1955,18 @@ def train_phase(dev, counters, wide: bool = False):
 
     args = run_mansy.build_parser().parse_args(
         ["--train", "--train-identifier", "--use-identifier", "--lamb", "0.5"]
-        + (["--hidden-dim", "256"] if wide else []))
+        + (["--hidden-dim", "256"] if wide else [])
+        + (["--obs-action-values", "--av-logit-prior", str(AV_PRIOR)] if derived else []))
     V, U, NT, C, Q = TRAIN_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
     samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
     torch.manual_seed(args.seed)
-    policy = load_npz_policy(DAGGER_V18_NPZ if wide else DAGGER_V9_NPZ, device=dev)
+    if derived:  # as run_mansy.train builds it
+        policy = MansyActorCritic(hidden_dim=args.hidden_dim,
+                                  use_action_values=args.obs_action_values,
+                                  av_logit_prior=args.av_logit_prior, device=dev)
+    else:
+        policy = load_npz_policy(DAGGER_V18_NPZ if wide else DAGGER_V9_NPZ, device=dev)
     if policy.packed_weights().b_branch.shape[1] != args.hidden_dim:
         raise AssertionError(f"train: the policy's width is not --hidden-dim {args.hidden_dim}")
     identifier = QoEIdentifier(hidden_dim=args.hidden_dim, device=dev)
@@ -1939,6 +2006,8 @@ def train_phase(dev, counters, wide: bool = False):
 
     # where a minibatch update's time goes, and the kernels against the plain path
     carry[0], traj, _, last_values = collect(policy, carry[0], gen)
+    if traj.obs.shape[-1] != policy.obs_width(tables):
+        raise AssertionError(f"train: observations of {traj.obs.shape[-1]} columns")
 
     def update():
         carry[1], _ = ppo_update(policy, optimizer, cfg, traj, traj.reward, last_values,
@@ -1948,7 +2017,8 @@ def train_phase(dev, counters, wide: bool = False):
     check = compare_updates(policy, cfg, args, traj, traj.reward, last_values, gen)
     rate = rate_stats(n_lanes * n_steps, seconds)
     return dict(lanes=n_lanes, steps=n_steps, minibatch=cfg.minibatch, repeat=cfg.repeat,
-                hidden=args.hidden_dim, minibatch_steps_per_round=n_mb, passes=passes,
+                hidden=args.hidden_dim, columns=int(traj.obs.shape[-1]),
+                minibatch_steps_per_round=n_mb, passes=passes,
                 seconds=seconds,
                 env_steps_per_s_median=rate["median"], env_steps_per_s_min=rate["min"],
                 env_steps_per_s_max=rate["max"], spread=rate["spread"],
@@ -2849,10 +2919,13 @@ def vp_step_readings(got: dict, ref: dict, names, limits) -> dict:
     near 0, or of two signs)."""
     _, grad_rtol, _, floor, _ = limits
     top = max(float(g.abs().max()) for g in ref["grads"])
-    shares = {}
+    shares, at = {}, {}
     for name, a, b in zip(names, got["grads"], ref["grads"]):
-        excess = float(((a - b).abs() - grad_rtol * b.abs()).max())
-        shares[name] = excess / max(float(b.abs().max()), floor * top)
+        excess = (a - b).abs() - grad_rtol * b.abs()
+        i = int(excess.argmax())  # the leaf's worst entry, flat
+        shares[name] = float(excess.reshape(-1)[i]) / max(float(b.abs().max()), floor * top)
+        at[name] = dict(index=[int(v) for v in np.unravel_index(i, tuple(a.shape))],
+                        kernels=float(a.reshape(-1)[i]), plain=float(b.reshape(-1)[i]))
     sure_err, tight, loose, flipped, total = 0.0, 0, 0, 0, 0
     for ga, gb, pa, pb in zip(got["grads"], ref["grads"], got["params"], ref["params"]):
         sure = (ga - gb).abs() <= 0.01 * gb.abs()
@@ -2866,6 +2939,7 @@ def vp_step_readings(got: dict, ref: dict, names, limits) -> dict:
     return dict(loss=got["loss"], ref_loss=ref["loss"],
                 loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
                 grad_share=shares[worst[0]], grad_share_leaves={n: shares[n] for n in worst},
+                grad_worst=dict(leaf=worst[0], **at[worst[0]]),
                 grad_max_abs_err=max(float((a - b).abs().max())
                                      for a, b in zip(got["grads"], ref["grads"])),
                 param_max_abs_err=sure_err, params_compared=tight,
@@ -2878,11 +2952,15 @@ def vp_step_readings(got: dict, ref: dict, names, limits) -> dict:
 def vp_step_faults(r: dict, limits) -> list:
     """The ``limits`` (those of ``vp_step_readings``) that its readings ``r``
     break; parameters whose gradients agree to 1% are held to
-    VP_PARAM_ATOL."""
+    VP_PARAM_ATOL.  A gradient fault names the leaf and its worst entry with
+    the two paths' values there."""
     loss_rtol, _, grad_share, _, loose = limits
+    worst = r["grad_worst"]
     return [what for what, bad in (
         (f"loss {r['loss_rel_err']} > {loss_rtol}", not r["loss_rel_err"] <= loss_rtol),
-        (f"gradient share {r['grad_share']} > {grad_share}", not r["grad_share"] <= grad_share),
+        (f"gradient share {r['grad_share']} > {grad_share} at {worst['leaf']}{worst['index']}: "
+         f"kernels {worst['kernels']} against plain {worst['plain']}",
+         not r["grad_share"] <= grad_share),
         (f"parameters {r['param_max_abs_err']} > {VP_PARAM_ATOL}",
          r["param_max_abs_err"] > VP_PARAM_ATOL),
         (f"{r['params_beyond_atol_share']} of the parameters beyond {VP_PARAM_ATOL} > {loose}",
@@ -3498,7 +3576,7 @@ def simple_rl_test_phase(dev, counters, trained: dict):
     if n_eps != samples.shape[0]:
         raise AssertionError(f"simple_rl test: {n_eps} of {samples.shape[0]} lanes finished an "
                              "episode")
-    ref_logs, ref_masks = plain_serve(policy, tables, samples)
+    ref_logs, ref_masks, _ = plain_serve(policy, tables, samples)
     qoe = compare_serve(logs, masks, ref_logs, ref_masks, "simple_rl test")
     rate = rate_stats(n_eps, seconds)
     return dict(episodes=n_eps, steps=steps, passes=PASSES, seconds=seconds, hidden=128,
@@ -3639,6 +3717,307 @@ def ensemble_phase(dev, counters):
                 launches=launches)
 
 
+# ---------------------------------------------------------------- phase 2g
+
+def derived_close(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """|got - ref| <= AV_RTOL |ref| + AV_ATOL everywhere (NaN only where both)."""
+    both_nan = got.isnan() & ref.isnan()
+    return bool((both_nan | ((got - ref).abs() <= AV_RTOL * ref.abs() + AV_ATOL)).all())
+
+
+def derived_bytes(rows: int, K: int, R: int, T: int, A: int) -> int:
+    """Bytes K2's row mode must move: the columns causal_action_values reads
+    (the throughput history, both slabs, the viewport, the last viewport
+    quality, the buffer, the weights and the one-hot) and the A + 1 it
+    writes, for each row."""
+    return rows * ((K + 2 * R * T + T + 1 + 1 + 3 + A) + (A + 1)) * 4
+
+
+def derived_kernel_phase(dev, parent=None):
+    """Phase 2g: K2's derived mode at each path's width (the first 32, 128,
+    512 and 8192 lanes of tables of the train split's shape, without action
+    values) and its row mode at CE_BATCH rows (packed by the plain derived
+    mode, their action-value columns zeroed), each against its plain version
+    on the same card tensors (AV_RTOL, AV_ATOL), two launches bit-equal,
+    timed by CUDA events beside the bytes bound and the plain version; then
+    both modes on the edge cases at serve's lane chunk (an empty and a full
+    predicted viewport, an empty throughput history, no previous action).
+    The parent commit has neither mode."""
+    from mansy_immersivevideostreaming_torch.kernels import env_step as K1
+    from mansy_immersivevideostreaming_torch.kernels import observe as K2
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
+    from mansy_immersivevideostreaming_torch.sim.env import (
+        generate_environment_samples, tree_map,
+    )
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    V, U, NT, C, Q = TRAIN_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
+    state = init_lanes(tables, samples, LANES)
+    rng = np.random.default_rng(5)
+    for _ in range(7):  # give the lanes history (plain path)
+        acts = torch.as_tensor(rng.integers(0, 15, LANES).astype(np.int32), device=dev)
+        state, *_ = K1.env_step_plain(tables, samples, state, acts, LANES, True)
+    dims = K2.obs_dims(tables)[:4]
+    col = K2.obs_columns(*dims, True)["action_values"]
+    earlier = "the parent commit has no derived mode" if parent else None
+
+    def fused(t, sub, label):
+        x = K2.observe_mansy_pack(t, sub, action_values=True)
+        ref = K2.observe_mansy_pack_plain(t, sub, action_values=True)
+        if not derived_close(x, ref):
+            raise AssertionError(f"observe_mansy_pack, derived ({label}) disagrees with its "
+                                 f"plain version by {float((x - ref).abs().max())}")
+        if not torch.equal(K2.observe_mansy_pack(t, sub, action_values=True), x):
+            raise AssertionError(f"observe_mansy_pack, derived ({label}): two launches differ")
+        return x, ref
+
+    def row_mode(ref, label):
+        rows = ref.clone()
+        rows[:, col] = 0.0
+        got = K2.derive_action_values(rows.clone(), *dims)
+        want = K2.derive_action_values_plain(rows.clone(), *dims)
+        others = torch.ones(rows.shape[1], dtype=torch.bool, device=rows.device)
+        others[col] = False
+        if not derived_close(got, want) or not torch.equal(got[:, others], rows[:, others]):
+            raise AssertionError(f"derive_action_values ({label}) disagrees with its plain version")
+        if not torch.equal(K2.derive_action_values(rows.clone(), *dims), got):
+            raise AssertionError(f"derive_action_values ({label}): two launches differ")
+        return rows, got, want
+
+    cases = {}
+    for n in K2_WIDTHS:
+        sub = tree_map(lambda x: x[:n].contiguous(), state)
+        x, ref = fused(tables, sub, f"{n} lanes")
+        out = torch.empty_like(x)
+        cases[str(n)] = dict(
+            lanes=n, width=x.shape[1], plan=K2.observe_plan(n)._asdict(),
+            max_abs_err=float((x - ref).abs().max()),
+            **gpu_spread(lambda: K2.observe_mansy_pack(tables, sub, out=out, action_values=True)),
+            plain_ms=gpu_ms(lambda: K2.observe_mansy_pack_plain(tables, sub,
+                                                                action_values=True), 5),
+            bound_ms=1e3 * observe_bytes(tables, sub, x.shape[1]) / HBM_BYTES_PER_S,
+            write_floor_ms=gpu_ms(lambda: out.fill_(0.0)))
+
+    # the edge cases, both modes, at serve's lane chunk
+    sub = tree_map(lambda x: x[:SERVE_CHUNK].contiguous(), state)
+    edge = {"empty_viewport": (tables._replace(pred=torch.zeros_like(tables.pred)), sub),
+            "full_viewport": (tables._replace(pred=torch.ones_like(tables.pred)), sub),
+            "empty_history": (tables, sub._replace(
+                past_throughput=torch.zeros_like(sub.past_throughput))),
+            "no_previous_action": (tables, sub._replace(
+                last_action_one_hot=torch.zeros_like(sub.last_action_one_hot)))}
+    edges = {}
+    for label, (t, s) in edge.items():
+        x, ref = fused(t, s, label)
+        _, got, want = row_mode(ref, label)
+        if label == "empty_history" and not bool((x[:, col.stop - 1] == 0.5).all()):
+            raise AssertionError("observe_mansy_pack, derived: bw_hat is not the 0.5 prior")
+        edges[label] = dict(fused_max_abs_err=float((x - ref).abs().max()),
+                            row_max_abs_err=float((got - want).abs().max()))
+
+    # the row mode at CE_BATCH rows
+    _, ref = fused(tables, tree_map(lambda x: x[:CE_BATCH].contiguous(), state),
+                   f"{CE_BATCH} lanes")
+    rows, got, want = row_mode(ref, f"{CE_BATCH} rows")
+    buf = rows.clone()
+    row_case = dict(rows=CE_BATCH, plan=K2.observe_plan(CE_BATCH)._asdict(),
+                    max_abs_err=float((got - want).abs().max()),
+                    **gpu_spread(lambda: K2.derive_action_values(buf, *dims)),
+                    plain_ms=gpu_ms(lambda: K2.derive_action_values_plain(buf, *dims), 5),
+                    bound_ms=1e3 * derived_bytes(CE_BATCH, *dims) / HBM_BYTES_PER_S)
+    main = cases[str(LANES)]
+    fused_row = dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                     width=main["width"],
+                     **{k: main[k] for k in main if k.endswith("ms") or k.endswith("range")},
+                     bound_by="bytes", library_ms=None, cases=cases, edge_cases=edges)
+    row_row = dict(**row_case, bound_by="bytes", library_ms=None)
+    if parent:
+        fused_row["earlier"] = row_row["earlier"] = earlier
+    return {"observe_mansy_pack_derived": fused_row, "derive_action_values": row_row}
+
+
+# ------------------------------------------------------------- phases 15-15c
+
+def derived_policy(dev, which: str, tmp: str):
+    """A policy that reads the derived action values, from a committed npz
+    with a sidecar written under ``tmp``: (i) v16's weights with
+    ``obs_action_values`` and no ``exact_action_values`` (its 11th branch
+    and prior 3.0 on the derived field), (ii) v9's with a logit prior of
+    3.0."""
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, DAGGER_V16_NPZ, load_net_config, load_npz_policy, save_net_config,
+    )
+
+    src, override = {"i": (DAGGER_V16_NPZ, {"obs_action_values": True,
+                                            "exact_action_values": False}),
+                     "ii": (DAGGER_V9_NPZ, {"av_logit_prior": AV_PRIOR})}[which]
+    path = os.path.join(tmp, f"policy_{which}.npz")
+    shutil.copyfile(src, path)
+    save_net_config(path, {**load_net_config(src), **override})
+    policy = load_npz_policy(path, device=dev)
+    if not policy.reads_action_values or policy.exact_action_values \
+            or policy.av_logit_prior != AV_PRIOR:
+        raise AssertionError(f"policy ({which}) does not read the derived values")
+    return policy
+
+
+def serve_av_phase(dev, counters):
+    """Phase 15: deterministic evaluation of the two derived-value policies
+    (``derived_policy``: (i) and (ii)) over the 1440-episode test grid's
+    shape as phase 3 (tables without action values, so K2 runs its derived
+    mode), each timed over PASSES passes and held against the plain path on
+    the card by ``compare_lanes`` with LOGIT_NEAR_TIE: a lane whose first
+    differing decision is a near-tie of the plain logits is counted."""
+    from mansy_immersivevideostreaming_torch.rl import runner
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    V, U, NT, C, Q = TEST_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
+    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
+    steps = -(-samples.shape[0] // SERVE_CHUNK) * runner.episode_step_bound(tables)
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in ("i", "ii"):
+            policy = derived_policy(dev, which, tmp)
+            run = lambda: runner.evaluate(policy, tables, samples, lane_chunk=SERVE_CHUNK,
+                                          deterministic=True)
+            runner.evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
+            (logs, masks), seconds, counts = timed_passes(
+                run, counters, expect(counters, env_step=steps, observe_mansy_pack=steps,
+                                      actor_critic_forward=steps))
+            n_eps = int(sum(m.sum() for m in masks))
+            if n_eps != samples.shape[0]:
+                raise AssertionError(f"serve_av ({which}): {n_eps} of {samples.shape[0]} lanes "
+                                     "finished an episode")
+            # the kernels' decisions, recorded through the entry point's own calls
+            actions = []
+            forward = runner.actor_critic_forward
+
+            def recording(*a, **k):
+                result = forward(*a, **k)
+                actions.append(result[2])
+                return result
+
+            with mock.patch.object(runner, "actor_critic_forward", recording):
+                logs, masks = run()
+            per_chunk = len(actions) // len(logs)
+            chunks = [(l, m, torch.stack(actions[i * per_chunk:(i + 1) * per_chunk]).cpu().numpy())
+                      for i, (l, m) in enumerate(zip(logs, masks))]
+            ref_logs, ref_masks, decisions = plain_serve(policy, tables, samples)
+            counts_cmp = compare_lanes(chunks, [(l, m) + d for l, m, d in zip(
+                ref_logs, ref_masks, decisions)], f"serve_av ({which})", LOGIT_NEAR_TIE)
+            qoe = np.concatenate([l.qoe.cpu().numpy()[m] for l, m in zip(logs, masks)])
+            rate = rate_stats(n_eps, seconds)
+            out[which] = dict(episodes=n_eps, seconds=seconds,
+                              episodes_per_s_median=rate["median"],
+                              episodes_per_s_min=rate["min"], episodes_per_s_max=rate["max"],
+                              spread=rate["spread"], mean_qoe=float(qoe.mean()),
+                              near_tie_margin=LOGIT_NEAR_TIE, **counts_cmp)
+            for row, n in counts.items():
+                launches[row] = launches.get(row, 0) + n
+    return dict(steps=2 * steps, passes=PASSES, v16_derived=out["i"], v9_prior=out["ii"],
+                launches=launches)
+
+
+def dagger_av_phase(dev, counters):
+    """Phase 15c: ``run_dagger --obs-action-values --av-logit-prior 3.0
+    --acc-correct`` (phase 8's flags without ``--exact-action-values``), one
+    round at phase 8's shape from policy (i): the initial aggregate is the
+    port's expert demos over the 1440-episode grid recorded without the
+    exact field, so ``flatten_demos`` fills their action-value columns by
+    K2's row mode (held against its plain version); round 0 fits it, then
+    one round (the derived mode in the expert-labelled rollout).  Every
+    count is set to 0 before the aggregate is packed and read after the
+    round."""
+    from mansy_immersivevideostreaming_torch.cli import run_dagger
+    from mansy_immersivevideostreaming_torch.cli.run_expert import run_expert_episodes
+    from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
+    from mansy_immersivevideostreaming_torch.kernels.observe import (
+        derive_action_values_plain, obs_columns, obs_dims,
+    )
+    from mansy_immersivevideostreaming_torch.rl import dagger
+    from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer
+    from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound
+    from mansy_immersivevideostreaming_torch.sim.env import (
+        generate_demo_samples, generate_environment_test_samples,
+    )
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+
+    args = run_dagger.build_parser().parse_args(
+        ["--obs-action-values", "--av-logit-prior", str(AV_PRIOR), "--acc-correct",
+         "--horizon", str(HORIZON), "--lanes", "32", "--batch-size", "4096", "--rounds", "1"])
+    V, U, NT, C, Q = TEST_SHAPE
+    tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev), seed=1)
+    samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
+    etables = K5.build_expert_tables(tables)  # the expert's; no action values attached
+    chunks = run_expert_episodes(tables, etables, samples, args.horizon, lane_chunk=EXPERT_CHUNK,
+                                 collect_obs=True, acc_correct=args.acc_correct)
+    demos = []
+    for _, first, actions, obs in chunks:
+        if "action_values" in obs:
+            raise AssertionError("dagger_av: the demos carry the exact field")
+        obs = {k: v.cpu().numpy() for k, v in obs.items()}
+        for lane in range(first.shape[1]):
+            t_end = int(np.argwhere(first[:, lane])[0][0])
+            demos.append({"obs": {k: v[:t_end + 1, lane] for k, v in obs.items()},
+                          "act": actions[:t_end + 1, lane]})
+    with tempfile.TemporaryDirectory() as tmp:
+        policy = derived_policy(dev, "i", tmp)
+    optimizer = make_optimizer(policy.parameters(), args.lr)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    n_steps = episode_step_bound(tables)
+    collect = dagger.make_dagger_collector(tables, etables, args.horizon, n_steps,
+                                           acc_correct=args.acc_correct)
+    lanes = torch.as_tensor(generate_demo_samples(V, U, NT, Q, args.lanes, args.seed + 1),
+                            device=dev)
+
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+        getattr(fn, "launches_by_mode", {}).clear()
+    t0 = time.perf_counter()
+    dataset = dagger.flatten_demos(demos, dev, policy.reads_action_values)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    fit = dagger.bc_on_aggregate(policy, optimizer, run_dagger.balanced(args, dataset, tables),
+                                 args.bc_steps, args.batch_size, gen, args.ent_coef)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dataset, losses, _ = run_dagger.dagger_round(args, policy, optimizer, collect, tables,
+                                                 dataset, lanes, gen)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    got = {fn.__name__: fn.launches for fn in counters}
+    want = expect(counters, derive_action_values=1, env_step=n_steps, observe_mansy_pack=n_steps,
+                  choose_action=n_steps, actor_critic_forward=n_steps,
+                  actor_critic_train_forward=2 * args.bc_steps, policy_loss=2 * args.bc_steps,
+                  actor_critic_backward=2 * args.bc_steps)
+    if got != want:
+        raise AssertionError(f"dagger_av: launches {got}, expected {want}")
+    launches = row_launches(counters)
+    # the demos' derived columns against the plain row mode
+    n_demo = sum(len(d["act"]) for d in demos)
+    x = dataset[0][:n_demo]
+    dims = obs_dims(tables)[:4]
+    col = obs_columns(*dims, True)["action_values"]
+    if x.shape[1] != policy.obs_width(tables) or not derived_close(
+            x, derive_action_values_plain(x.clone(), *dims)):
+        raise AssertionError("dagger_av: the demos' derived columns disagree with the plain "
+                             "row mode")
+    if not all(math.isfinite(v) for v in fit + losses):
+        raise AssertionError(f"dagger_av: non-finite CE {fit} {losses}")
+    return dict(rounds=1, lanes=args.lanes, steps=n_steps, bc_steps=args.bc_steps,
+                batch=args.batch_size, demos=len(demos), demo_rows=n_demo,
+                demo_bw_hat_mean=float(x[:, col.stop - 1].mean()),
+                aggregate_rows=int(dataset[1].shape[0]), pack_seconds=pack_s,
+                round0_ce=[fit[0], fit[-1]], round_ce=[losses[0], losses[-1]],
+                round_seconds=round_s, launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -3660,7 +4039,7 @@ def main() -> int:
     from mansy_immersivevideostreaming_torch.kernels.expert_tables import build_expert_tables
     from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
     from mansy_immersivevideostreaming_torch.kernels.observe import (
-        observe_mansy_pack, observe_simple_pack,
+        derive_action_values, observe_mansy_pack, observe_simple_pack,
     )
     from mansy_immersivevideostreaming_torch.kernels.policy_loss import policy_loss
     from mansy_immersivevideostreaming_torch.kernels.attention import (
@@ -3678,7 +4057,8 @@ def main() -> int:
     counters = (env_step, observe_mansy_pack, actor_critic_forward, choose_action,
                 build_expert_tables, compute_gae, policy_loss, actor_critic_train_forward,
                 actor_critic_backward, chunk_maps, trajectory_metrics, attention,
-                attention_train_forward, attention_backward, observe_simple_pack)
+                attention_train_forward, attention_backward, observe_simple_pack,
+                derive_action_values)
 
     t0 = time.time()
     parent = load_parent(opts.parent) if opts.parent else None
@@ -3692,6 +4072,7 @@ def main() -> int:
     rows.update(attention_bf16_phase(dev, rows["attention"]["batch"]["timing_floor_ms"],
                                      parent))
     rows.update(simple_kernel_phase(dev))
+    rows.update(derived_kernel_phase(dev, parent))
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths, trained = {}, {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
@@ -3702,6 +4083,9 @@ def main() -> int:
                       ("train", lambda: train_phase(dev, counters)),
                       ("train_256", lambda: train_phase(dev, counters, wide=True)),
                       ("dagger", lambda: dagger_phase(dev, counters)),
+                      ("serve_av", lambda: serve_av_phase(dev, counters)),
+                      ("train_av", lambda: train_phase(dev, counters, derived=True)),
+                      ("dagger_av", lambda: dagger_av_phase(dev, counters)),
                       ("vp_test", lambda: vp_test_phase(dev, counters)),
                       ("vp_export", lambda: vp_export_phase(dev, counters)),
                       ("vp_train", lambda: vp_train_phase(dev, counters)),
@@ -3726,6 +4110,7 @@ def main() -> int:
     wide = ("actor_critic_forward_h256", "actor_critic_train_forward_h256", "policy_loss",
             "actor_critic_backward_h256")
     simple = ("env_step", "observe_simple_pack", "actor_critic_forward_simple")
+    derived = ("env_step", "observe_mansy_pack_derived", "actor_critic_forward")
     path_kernels = {"serve": serve, "collect": serve,
                     "expert": ("env_step", "choose_action", "build_expert_tables"),
                     "serve_v16": serve + ("build_expert_tables",),
@@ -3733,6 +4118,9 @@ def main() -> int:
                     "train": serve + ("compute_gae",) + training,
                     "train_256": ("env_step", "observe_mansy_pack", "compute_gae") + wide,
                     "dagger": serve + ("choose_action",) + training,
+                    "serve_av": derived,
+                    "train_av": derived + ("compute_gae",) + training,
+                    "dagger_av": derived + ("choose_action", "derive_action_values") + training,
                     "vp_test": ("attention", "tile_occupancy"),
                     "vp_export": ("attention", "tile_occupancy"),
                     "vp_train": ("attention_train_forward", "attention_backward"),

@@ -5,7 +5,10 @@ expert demos (either package's ``run_expert --train`` pickles, or the
 reference's tianshou ones), optionally from a warm-start policy, then
 alternates policy rollouts labelled by the MPC expert (K2 -> K4 -> K3
 sampling -> K1 a step) with CE retraining on the aggregate (K3's training
-mode -> K9 in CE mode -> K10 a minibatch).  The best policy by the valid
+mode -> K9 in CE mode -> K10 a minibatch).  A policy that reads action
+values without ``--exact-action-values`` reads the derived ones: K2's
+derived mode in the rollouts, its row mode on demos recorded without the
+field.  The best policy by the valid
 grid's mean QoE is saved as a Flax-keyed ``.npz`` with its ``.netcfg.json``
 sidecar, usable via ``run_mansy --test --policy-path``; the final round's
 params are always kept beside it (``<output>.last``).
@@ -86,10 +89,6 @@ def dagger_round(args, policy, optimizer, collect, tables, dataset, samples, gen
 
 
 def run(args, config):
-    if args.obs_action_values or (args.av_logit_prior and not args.exact_action_values):
-        raise SystemExit("run_dagger: the derived causal_action_values (--obs-action-values, "
-                         "or --av-logit-prior without --exact-action-values) are not ported "
-                         "yet (ROADMAP Queue 1 item 10)")
     dev = resolve_device(args.device)
     if args.qoe_train_ids is None:
         args.qoe_train_ids = list(range(len(config.qoe_split["train"])))
@@ -137,13 +136,14 @@ def run(args, config):
                                        False), acc_correct=acc_obs)
 
     demos_path = args.demos_path or os.path.join(models_dir, "train_demonstrations.pkl")
+    policy = MansyActorCritic(hidden_dim=args.hidden_dim, action_space=config.action_space,
+                              use_action_values=args.obs_action_values or args.exact_action_values,
+                              av_logit_prior=args.av_logit_prior, device=dev)
+    policy.exact_action_values = args.exact_action_values
     demos = list(load_demonstrations(demos_path).values())
-    dataset = dagger.flatten_demos(demos, dev)
+    dataset = dagger.flatten_demos(demos, dev, policy.reads_action_values)
     print(f"Aggregate init: {dataset[1].shape[0]} expert transitions from {len(demos)} demos")
 
-    policy = MansyActorCritic(hidden_dim=args.hidden_dim, action_space=config.action_space,
-                              use_action_values=args.exact_action_values,
-                              av_logit_prior=args.av_logit_prior, device=dev)
     if args.init_path:
         load_npz_into(policy, args.init_path)
         print("Initialized policy from", args.init_path)
@@ -296,10 +296,12 @@ def build_parser():
                              "non-pinned relabels with the smallest margins")
     parser.add_argument("--hidden-dim", type=int, default=128)
     parser.add_argument("--obs-action-values", action="store_true",
-                        help="derived causal-MPC action-value features (not ported: refused)")
+                        help="derived causal-MPC action-value features (demos recorded "
+                             "without the exact field get them too)")
     parser.add_argument("--av-logit-prior", type=float, default=0.0,
                         help="add beta * standardized one-step action values to the actor "
-                             "logits (needs --exact-action-values in the port)")
+                             "logits (the exact ones with --exact-action-values, else the "
+                             "derived ones)")
     parser.add_argument("--exact-action-values", action="store_true",
                         help="env-computed exact one-step action values as an observation "
                              "field; demos must be generated with the same flag")

@@ -18,7 +18,9 @@ is ``runner.evaluate``: K2 -> K3 -> K1 a step on the card, at each
 component's hidden width (128 or 256).
 
 Refused, as in the JAX CLI: components that read the exact action values
-(they need per-split action-value tables).
+(they need per-split action-value tables).  Components that read the
+derived action values (``obs_action_values``, or a logit prior without
+``exact_action_values``) are routed like the others, on K2's derived mode.
 
 Example::
 

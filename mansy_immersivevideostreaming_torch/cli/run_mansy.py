@@ -7,7 +7,10 @@ directory layout and CSV logs.  ``--train`` collects rollouts over N lanes
 shapes the rewards with it, and runs the PPO update (K6, then per minibatch
 K3's training mode -> K9 -> K10); ``--bc``, ``--pretrain-identifier``,
 ``--init-path`` with the KL anchor (``--bc-kl``, ``--bc-kl-per-pref``),
-``--norm-adv-per-pref`` and ``--exact-action-values`` are ported.  Policies
+``--norm-adv-per-pref``, ``--exact-action-values``, ``--obs-action-values``
+and ``--av-logit-prior`` are ported (without ``--exact-action-values`` the
+policy reads the derived action values: K2's derived mode a step, its row
+mode on the ``--bc`` demos).  Policies
 and identifiers are written as Flax-keyed ``.npz`` files with the policy's
 ``.netcfg.json`` sidecar (``utils/checkpoint.py``), which the JAX package's
 nets load too; the console log and the CSV logs are the JAX CLI's, and no
@@ -15,9 +18,7 @@ TensorBoard events are written.  ``--test`` evaluates a policy over the test
 grid (by default the ``best_policy.npz`` that ``--train`` wrote); the
 sidecar decides the observation, as the JAX CLI's ``apply_net_config`` does.
 
-Refused, for later slices: ``--data-parallel`` (the multi-card slice) and
-the derived action values of ``--obs-action-values`` (or a logit prior
-without ``--exact-action-values``).
+Refused, for a later slice: ``--data-parallel`` (the multi-card slice).
 
 Examples::
 
@@ -172,8 +173,9 @@ def train(args, config, models_dir: str):
 
     torch.manual_seed(args.seed)
     policy = MansyActorCritic(hidden_dim=args.hidden_dim, action_space=config.action_space,
-                              use_action_values=args.exact_action_values,
+                              use_action_values=args.obs_action_values or args.exact_action_values,
                               av_logit_prior=args.av_logit_prior, device=dev)
+    policy.exact_action_values = args.exact_action_values
     identifier = QoEIdentifier(hidden_dim=args.hidden_dim, action_space=config.action_space,
                                device=dev)
     optimizer = ppo_mod.make_optimizer(policy.parameters(), args.lr, args.weight_decay)
@@ -339,7 +341,7 @@ def test(args, config, models_dir: str, results_dir: str):
         test_grid=True, device=dev)
     policy = load_npz_policy(policy_path, device=dev)
     print("Successfully loaded agent from:", policy_path)
-    if policy.reads_action_values:
+    if policy.exact_action_values:
         tables, = attach_exact_action_values(config, args.test_dataset + "_test", tables,
                                              acc_correct=policy.acc_correct_obs)
     generator = torch.Generator(device=dev)
@@ -360,10 +362,6 @@ def run(args, config):
     if args.data_parallel:
         raise SystemExit("run_mansy: --data-parallel is not ported yet (the multi-card slice, "
                          "ROADMAP Queue 1 item 14)")
-    if args.obs_action_values or (args.av_logit_prior and not args.exact_action_values):
-        raise SystemExit("run_mansy: the derived causal_action_values (--obs-action-values, or "
-                         "--av-logit-prior without --exact-action-values) are not ported yet "
-                         "(ROADMAP Queue 1 item 10)")
     if args.qoe_train_ids is None:
         args.qoe_train_ids = list(range(len(config.qoe_split["train"])))
     split = "train" if args.test_on_seen else "test"
@@ -436,10 +434,11 @@ def build_parser():
     parser.add_argument("--model", type=str, default="mansy")
     parser.add_argument("--hidden-dim", type=int, default=128)
     parser.add_argument("--obs-action-values", action="store_true",
-                        help="derived causal-MPC action-value features (not ported: refused)")
+                        help="derived causal-MPC action-value features")
     parser.add_argument("--av-logit-prior", type=float, default=0.0,
                         help="add beta * standardized one-step action values to the actor "
-                             "logits (needs --exact-action-values in the port)")
+                             "logits (the exact ones with --exact-action-values, else the "
+                             "derived ones)")
     parser.add_argument("--acc-correct", action="store_true",
                         help="the accuracy-corrected estimate for the exact action-value "
                              "observation field")

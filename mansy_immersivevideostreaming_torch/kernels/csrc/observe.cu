@@ -1,11 +1,16 @@
-// K2: MANSY observation gather into one contiguous [N, F] f32 buffer, and
-// its simple mode, the simple_rl observation.
+// K2: MANSY observation gather into one contiguous [N, F] f32 buffer, its
+// simple mode, the simple_rl observation, and its derived mode, the MANSY
+// row with the derived action values.
 //
 // Replaces the JAX package's XLA-fused sim/env.py:observe_mansy (:262-286)
 // and, when the tables carry action values, exact_action_values (:220-259);
-// in simple mode (`simple` set) observe_simple (:289-300).  The plain
-// PyTorch versions are kernels/observe.py:observe_mansy_pack_plain and
-// observe_simple_pack_plain.
+// in simple mode (`mode` 1) observe_simple (:289-300); in derived mode
+// (`mode` 2, a policy that reads action values on tables without them)
+// observe_mansy followed by models/abr_nets.py:causal_action_values
+// (:29-92), which the policy's net computes from the observation.  The row
+// mode (derive_launch) computes the same values for rows already packed.
+// The plain PyTorch versions are kernels/observe.py:observe_mansy_pack_plain,
+// observe_simple_pack_plain and derive_action_values_plain.
 //
 // Row layout (the feature net's inputs first, in its concat order, then the
 // fields it does not read): throughput K | next_chunk_size R*T |
@@ -52,6 +57,26 @@
 // instantiation of the kernel): the first warp takes the history, the
 // rebuffer time and the last rates, the others the size slab (float4) and
 // the viewport row, and the block stores its tile the same way.
+//
+// Derived mode (a third instantiation) builds the 795-column row as the
+// exact mode lays it out, leaving the 16 action-value columns to
+// derive_values, which reads the finished row in shared memory after a
+// barrier: causal_action_values is a function of the observation alone
+// (the normalized slabs, the predicted viewport, the throughput history,
+// the buffer, the previous quality, the one-hot and the weights).  Each
+// warp of the lane's group derives the lane's shared values itself (the
+// viewport mask by ballot and its BFS scales as K1 computes them, bw_hat,
+// the viewport's sum, has_prev); the scales do not depend on the action.
+// Then the group's warps split the 15 actions (one warp: all of them; four
+// warps: every fourth), each action three warp reductions over the 64
+// tiles (thread t holds tiles t and t + 32): the size and sum vp q, then
+// sum vp |q - qual| after qual.  The tile's version is one lookup in a
+// [A, 5] table indexed by (action, scale), scale 0 being the inside rate
+// (ops/allocation.py:allocate_tile_rates with the JAX function's default
+// rates and tiling).  Added work: ~15 x 64 x 8 flops a lane, well under the
+// row's bytes at the card's rates, so the mode stays bound by bytes.  The
+// row mode copies each row's inputs into shared memory with its group, then
+// runs the same derive_values and writes the 16 columns.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,7 +117,16 @@ struct ObserveArgs {
   int64_t out_stride;
   float max_size, max_rate, max_throughput;
   const float* last_rebuffer;  // [N] (simple mode)
-  int32_t simple;              // 1: the simple_rl observation
+  int32_t mode;                // 0: MANSY, 1: simple_rl, 2: MANSY with derived values
+  const int32_t* av_versions;  // [A, kMaxScale + 1] (derived mode): version of (action, scale)
+};
+
+// Field order must match kernels/observe.py:_DeriveArgs (the row mode).
+struct DeriveArgs {
+  float* rows;                 // [N, F] packed rows (strided by stride)
+  const int32_t* av_versions;  // [A, kMaxScale + 1]
+  int64_t stride;
+  int32_t n_rows, K, RT, A, F, lanes, group;
 };
 
 namespace {
@@ -104,6 +138,10 @@ namespace {
 constexpr int kSlabCover = 96;
 constexpr int kPredCover = 64;
 constexpr int kMaxLanes = 4;  // lanes a block at most (the launch bounds)
+constexpr int kSimple = 1, kDerived = 2;  // ObserveArgs::mode
+constexpr int kScales = mansy::kMaxScale + 1;  // columns of the version table
+constexpr float kSizeOverThroughput = 0.1f;    // abr_nets.py:29-31's constants
+constexpr float kBufferScale = 5.0f;
 
 // The exact one-step value of an action from its table entries (sim/env.py:
 // exact_action_values, in its operation order).
@@ -130,15 +168,17 @@ __device__ __forceinline__ float action_value(const ObserveArgs& a, float qualit
 // the one-hot, the scalars and the action values; the slab and the
 // viewport row go to the group's other warps (to the first too when G is
 // 32), so that its chain of scalar work and the slab's divisions overlap.
-template <int G>
+template <int G, bool kDerivedRow>
 __device__ __forceinline__ void build_row(const ObserveArgs& a, int n, float* row, int g) {
   constexpr int GS = G > 32 ? G - 32 : G;            // threads on the slab and viewport
   constexpr int kSlab = (kSlabCover + GS - 1) / GS;  // float4 of the slab a thread, first pass
   constexpr int kPred = (kPredCover + GS - 1) / GS;  // viewport entries a thread, first pass
   const int K = a.K, A = a.A, T = a.T, RT = a.RT;
-  const int n_av = a.av_quality ? A + 1 : 0;
+  // derived mode lays the action-value columns out but leaves them to derive_values
+  const int n_av = kDerivedRow ? 0 : a.av_quality ? A + 1 : 0;
+  const int av_cols = kDerivedRow ? A + 1 : n_av;
   const int c_size = K, c_qual = c_size + RT, c_pred = c_qual + RT, c_acc = c_pred + T;
-  const int c_buf = c_acc + 4 * K, c_w = c_buf + 1, c_av = c_w + 3, c_rin = c_av + n_av;
+  const int c_buf = c_acc + 4 * K, c_w = c_buf + 1, c_av = c_w + 3, c_rin = c_av + av_cols;
   const int c_hot = c_rin + 2 * K;
   const bool lead = g < 32;  // warp-uniform
   const int k = g;           // on the first warp: the thread's index in it
@@ -354,9 +394,63 @@ __device__ __forceinline__ void build_simple_row(const ObserveArgs& a, int n, fl
   }
 }
 
+// The derived action values of one lane (models/abr_nets.py:
+// causal_action_values) from its finished row, by the G threads of its
+// group (g: the thread's index there): out[a] for each action a < A, then
+// out[A] = bw_hat.  `row` is the lane's row in the exact mode's layout
+// (kernels/observe.py:obs_layout(.., av=True)) with T = 64 tiles; only its
+// input columns are read.  Every warp takes the lane's shared values, then
+// every (G / 32)-th action from its own index; thread t holds tiles t and
+// t + 32.  The operations are the plain version's, in its order within a
+// value; only the sums over tiles associate otherwise (butterflies).
+template <int G>
+__device__ __forceinline__ void derive_values(const float* row, float* out,
+                                              const int32_t* __restrict__ versions, int K, int A,
+                                              int RT, int g) {
+  constexpr int W = G / 32;
+  using mansy::kTiles;
+  const int w = g / 32, j = g % 32;
+  const int c_qual = K + RT, c_pred = K + 2 * RT;
+  const int c_vq = c_pred + kTiles + K, c_buf = c_pred + kTiles + 4 * K, c_w = c_buf + 1;
+  const int c_hot = c_w + 3 + (A + 1) + 2 * K;
+
+  // bw_hat: the harmonic mean of the non-zero throughput history, 0.5 while empty
+  const float tp = j < K ? row[j] : 0.f;
+  const float nz = tp > 0.f ? 1.f : 0.f, inv = tp > 0.f ? 1.f / fmaxf(tp, 1e-12f) : 0.f;
+  float cnt = 0.f, inv_sum = 0.f;
+  for (int k = 0; k < K; ++k) {
+    cnt += __shfl_sync(mansy::kFull, nz, k);
+    inv_sum += __shfl_sync(mansy::kFull, inv, k);
+  }
+  const float bw_hat = cnt > 0.f ? cnt / fmaxf(inv_sum, 1e-12f) : 0.5f;
+  // the predicted viewport: its tiles' weights, mask, scales and sum
+  const float vp0 = row[c_pred + j], vp1 = row[c_pred + j + 32];
+  int s0, s1;
+  mansy::viewport_scales(mansy::viewport_mask(row + c_pred, j), j, s0, s1);
+  const float vp_sum = fmaxf(mansy::warp_sum(vp0 + vp1), 1e-6f);
+  const bool has_prev = mansy::warp_sum(j < A ? row[c_hot + j] : 0.f) > 0.f;
+  const float buf = row[c_buf] * kBufferScale;  // the row's buf / startup_download, then x 5
+  const float prev_q = row[c_vq];
+  const float w0 = row[c_w], w1 = row[c_w + 1], w2 = row[c_w + 2];
+  const float bw = fmaxf(bw_hat, 1e-6f);
+
+  for (int act = w; act < A; act += W) {  // warp-uniform
+    const int v0 = __ldg(versions + act * kScales + s0), v1 = __ldg(versions + act * kScales + s1);
+    const float q0 = row[c_qual + v0 * kTiles + j], q1 = row[c_qual + v1 * kTiles + j + 32];
+    const float size = mansy::warp_sum(row[K + v0 * kTiles + j] + row[K + v1 * kTiles + j + 32]);
+    const float qual = mansy::warp_sum(vp0 * q0 + vp1 * q1) / vp_sum;
+    const float intra = mansy::warp_sum(vp0 * fabsf(q0 - qual) + vp1 * fabsf(q1 - qual)) / vp_sum;
+    const float dt = kSizeOverThroughput * size / bw;
+    const float rebuf = mansy::max0(dt - buf);
+    const float inter = has_prev ? fabsf(qual - prev_q) : 0.f;
+    if (j == 0) out[act] = w0 * qual - w1 * rebuf - w2 * (intra + inter);
+  }
+  if (g == 0) out[A] = bw_hat;
+}
+
 }  // namespace
 
-template <int G, bool kSimple>
+template <int G, int kMode>
 __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArgs a) {
   extern __shared__ __align__(16) float tile[];  // [lanes, F]
   const int n0 = blockIdx.x * a.lanes;
@@ -365,16 +459,32 @@ __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArg
   const int F = a.F;
   float* dst = a.out + (size_t)n0 * a.out_stride;
   const auto build = [&](float* row) {
-    if constexpr (kSimple)
+    if constexpr (kMode == kSimple)
       build_simple_row<G>(a, n0 + l, row, g);
     else
-      build_row<G>(a, n0 + l, row, g);
+      build_row<G, kMode == kDerived>(a, n0 + l, row, g);
   };
-  if (a.out_stride != F || ((uintptr_t)dst & 15) != 0) {  // row by row, straight out
-    if (l < nl) build(dst + (size_t)l * a.out_stride);
-    return;
+  const bool direct = a.out_stride != F || ((uintptr_t)dst & 15) != 0;
+  if constexpr (kMode == kDerived) {  // the row in shared memory, then its values
+    if (l < nl) build(tile + l * F);
+    __syncthreads();
+    if (l < nl) {
+      const int c_av = a.K + 2 * a.RT + a.T + 4 * a.K + 4;
+      derive_values<G>(tile + l * F, tile + l * F + c_av, a.av_versions, a.K, a.A, a.RT, g);
+    }
+    if (direct) {  // rows strided or unaligned: each float to its place
+      __syncthreads();
+      for (int i = threadIdx.x; i < nl * F; i += blockDim.x)
+        dst[(size_t)(i / F) * a.out_stride + i % F] = tile[i];
+      return;
+    }
+  } else {
+    if (direct) {  // row by row, straight out
+      if (l < nl) build(dst + (size_t)l * a.out_stride);
+      return;
+    }
+    if (l < nl) build(tile + l * F);
   }
-  if (l < nl) build(tile + l * F);
   __syncthreads();
   const int count = nl * F, n4 = count / 4;
   const float4* t4 = reinterpret_cast<const float4*>(tile);
@@ -383,27 +493,76 @@ __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArg
   for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x) dst[i] = tile[i];
 }
 
-template <int G, bool kSimple>
+// The row mode: the derived action values of packed rows [N, F] (the
+// exact mode's layout), written into their 16 columns.  A group of G
+// threads a row, `lanes` rows a block; the group copies its row's input
+// columns (all before the action values, and the one-hot) into shared
+// memory, then derive_values reads them there and writes each value to
+// the row in device memory.
+template <int G>
+__global__ void __launch_bounds__(kMaxLanes * G) derive_kernel(const DeriveArgs a) {
+  extern __shared__ __align__(16) float rows[];  // [lanes, F]
+  const int n = blockIdx.x * a.lanes + threadIdx.x / G, g = threadIdx.x % G;
+  const int K = a.K, A = a.A;
+  const int c_av = K + 2 * a.RT + mansy::kTiles + 4 * K + 4, c_hot = c_av + A + 1 + 2 * K;
+  float* row = rows + (threadIdx.x / G) * a.F;
+  float* src = a.rows + (size_t)n * a.stride;
+  if (n < a.n_rows) {
+    for (int i = g; i < c_av; i += G) row[i] = __ldg(src + i);
+    if (g < A) row[c_hot + g] = __ldg(src + c_hot + g);
+  }
+  __syncthreads();
+  if (n < a.n_rows) derive_values<G>(row, src + c_av, a.av_versions, K, A, a.RT, g);
+}
+
+template <int G, int kMode>
 int launch(const ObserveArgs& args, cudaStream_t stream) {
   const int lanes = args.lanes;
   if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)lanes * args.F * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        observe_kernel<G, kSimple>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        observe_kernel<G, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (args.n_lanes + lanes - 1) / lanes;
-  if (blocks > 0) observe_kernel<G, kSimple><<<blocks, lanes * G, smem, stream>>>(args);
+  if (blocks > 0) observe_kernel<G, kMode><<<blocks, lanes * G, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+template <int G>
+int launch_derive(const DeriveArgs& args, cudaStream_t stream) {
+  const int lanes = args.lanes;
+  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)lanes * args.F * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        derive_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (args.n_rows + lanes - 1) / lanes;
+  if (blocks > 0) derive_kernel<G><<<blocks, lanes * G, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int observe_launch(const ObserveArgs* args, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool simple = args->simple != 0;
+  switch (args->group * 4 + args->mode) {  // observe_plan's two groups, the three modes
+    case 32 * 4: return launch<32, 0>(*args, s);
+    case 32 * 4 + kSimple: return launch<32, kSimple>(*args, s);
+    case 32 * 4 + kDerived: return launch<32, kDerived>(*args, s);
+    case 128 * 4: return launch<128, 0>(*args, s);
+    case 128 * 4 + kSimple: return launch<128, kSimple>(*args, s);
+    case 128 * 4 + kDerived: return launch<128, kDerived>(*args, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int derive_launch(const DeriveArgs* args, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
   switch (args->group) {  // observe_plan's two groups
-    case 32: return simple ? launch<32, true>(*args, s) : launch<32, false>(*args, s);
-    case 128: return simple ? launch<128, true>(*args, s) : launch<128, false>(*args, s);
+    case 32: return launch_derive<32>(*args, s);
+    case 128: return launch_derive<128>(*args, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
 """K2: observation gather into one [N, F] buffer (wrappers, plain versions,
-launch counts), in two modes.
+launch counts), in three modes, and the derived action values of packed
+rows.
 
 Replaces the JAX package's ``sim/env.py:observe_mansy`` (``:262-286``) with
 ``exact_action_values`` (``:220-259``) when the tables carry action values
@@ -12,6 +13,15 @@ The buffer's first :func:`feature_width` columns are exactly what
 the actor-critic kernel reads it as is; the fields the net does not read
 follow.  :func:`unpack_obs` gives back the 13- or 14-field dict.
 
+A policy that reads action values on tables without them reads the derived
+ones, ``models/abr_nets.py:causal_action_values`` (``:29-92``), which the
+JAX net computes from the observation (``_action_value_features``,
+``:95-102``): :func:`observe_mansy_pack`'s derived mode writes them into the
+row where the exact field goes, and :func:`derive_action_values` (the row
+mode) fills them in rows already packed, such as demonstrations recorded
+without the field.  :func:`causal_action_values` is the plain version of
+both.
+
 On the H100 the pass is bound by device-memory bytes (a gather plus
 elementwise scaling); ``csrc/observe.cu`` builds each lane's row in shared
 memory with a group of threads (one warp, or four at up to 1024 lanes), its
@@ -22,11 +32,16 @@ rows with 16-byte stores where it can (:func:`observe_plan`).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
-from mansy_immersivevideostreaming_torch.kernels import build
+from mansy_immersivevideostreaming_torch.kernels import build, count_launch
+from mansy_immersivevideostreaming_torch.ops.allocation import (
+    ACTION_TO_RATES, allocate_tile_rates, scale_rate_table,
+)
 from mansy_immersivevideostreaming_torch.sim.env import (
     EnvState, check_action_value_tables, observe_mansy, observe_simple,
 )
@@ -55,6 +70,12 @@ NARROW_LANES = 1024  # 256 blocks: at most two a streaming multiprocessor of the
 MAX_HISTORY = 32     # K: one history entry a thread of the lane's first warp
 MAX_ACTIONS = 32     # A: one action a thread of the lane's first warp
 MAX_TILES = 64       # T: the viewport row in one pass of the group
+# the derived action values: the JAX function's constants (abr_nets.py:29-31)
+# and its allocation's defaults (5 rates, 8 x 8 tiles), one value an action
+# of ACTION_TO_RATES
+SIZE_OVER_THROUGHPUT = 0.1
+BUFFER_SCALE = 5.0
+DERIVED_RATES, DERIVED_TILES = 5, 64
 
 
 class ObservePlan(NamedTuple):
@@ -149,18 +170,87 @@ def unpack_obs(buf: torch.Tensor, K: int, R: int, T: int, A: int,
             for name, off, shape in obs_layout(K, R, T, A, av)}
 
 
-def pack_obs(obs, device: str | torch.device = "cpu") -> torch.Tensor:
+def pack_obs(obs, device: str | torch.device = "cpu",
+             action_values: bool = False) -> torch.Tensor:
     """The 13- or 14-field observation dict (arrays or tensors of [..., field
     shape]) -> the packed [n, F] buffer on ``device``, :func:`unpack_obs`'s
-    inverse.  The dims come from the fields' shapes."""
+    inverse.  The dims come from the fields' shapes.  With ``action_values``
+    the rows carry the action-value columns even where ``obs`` has no such
+    field: they are then derived from the rows' own fields
+    (:func:`derive_action_values`), as the JAX net derives them."""
+    return _pack(obs, device, action_values, derive_action_values)
+
+
+def _pack(obs, device, action_values: bool, derive) -> torch.Tensor:
+    """:func:`pack_obs` with ``derive`` for the derived values."""
     K = obs["throughput"].shape[-1]
     R, T = obs["next_chunk_size"].shape[-2:]
     A = obs["action_one_hot"].shape[-1]
-    layout = obs_layout(K, R, T, A, "action_values" in obs)
+    exact = "action_values" in obs
+    layout = obs_layout(K, R, T, A, exact or action_values)
     n = int(torch.Size(obs["throughput"].shape[:-1]).numel())
     cols = [torch.as_tensor(obs[name], dtype=torch.float32).reshape(n, -1)
-            for name, _, _ in layout]
-    return torch.cat(cols, dim=1).to(device)
+            for name, _, _ in layout if name in obs]
+    if len(cols) < len(layout):  # the action-value columns, to be derived
+        cols.insert(NET_FIELDS, cols[0].new_zeros((n, A + 1)))
+    x = torch.cat(cols, dim=1).to(device)
+    if action_values and not exact:
+        derive(x, K, R, T, A)
+    return x
+
+
+def causal_action_values(obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """[..., 16] derived causal-MPC features of the 13 observation fields:
+    one-step QoE estimates of the 15 actions, then ``bw_hat``.  The port of
+    JAX ``models/abr_nets.py:causal_action_values`` (``:29-92``), in its
+    operations, clamps and constants: ``bw_hat`` the harmonic mean of the
+    non-zero throughput history (0.5 while empty); per action the pyramid
+    allocation of the predicted viewport at the default rates and tiling,
+    the download time ``SIZE_OVER_THROUGHPUT * size / bw_hat`` of the
+    normalized slab, the rebuffer beyond ``buffer * BUFFER_SCALE``, the
+    viewport-weighted quality and its mean absolute deviation, and |quality
+    - the last viewport quality| after a first action; weighted by the
+    normalized preference."""
+    thpt = obs["throughput"]
+    nz = thpt > 0
+    n = nz.to(torch.float32).sum(-1)
+    inv = torch.where(nz, 1.0 / torch.clamp(thpt, min=1e-12), torch.zeros_like(thpt)).sum(-1)
+    bw_hat = torch.where(n > 0, n / torch.clamp(inv, min=1e-12), torch.full_like(n, 0.5))
+    sizes = obs["next_chunk_size"]                 # [..., R, T], /max_size
+    quals = obs["next_chunk_quality"]              # [..., R, T], /max_rate
+    vp = obs["pred_viewport"].to(torch.float32)    # [..., T]
+    buf = obs["buffer"][..., 0] * BUFFER_SCALE     # seconds
+    prev_q = obs["past_viewport_qualities"][..., 0]
+    has_prev = obs["action_one_hot"].sum(-1) > 0
+    w = obs["qoe_weight"]                          # [..., 3] normalized
+    vp_sum = torch.clamp(vp.sum(-1), min=1e-6)
+    rates = torch.as_tensor(ACTION_TO_RATES, dtype=torch.int32, device=vp.device)
+    lead, A = vp.shape[:-1], rates.shape[0]
+    # every action's tile versions at once: [..., A, T]
+    versions, _ = allocate_tile_rates(rates[:, 0].expand(*lead, A), rates[:, 1].expand(*lead, A),
+                                      vp[..., None, :].expand(*lead, A, vp.shape[-1]))
+    onehot = torch.nn.functional.one_hot(versions.long(), sizes.shape[-2]).to(torch.float32)
+    onehot = onehot.transpose(-1, -2)              # [..., A, R, T]
+    size = (sizes[..., None, :, :] * onehot).sum((-2, -1))
+    q_tile = (quals[..., None, :, :] * onehot).sum(-2)                  # [..., A, T]
+    qual = (vp[..., None, :] * q_tile).sum(-1) / vp_sum[..., None]
+    intra = (vp[..., None, :] * (q_tile - qual[..., None]).abs()).sum(-1) / vp_sum[..., None]
+    dt = SIZE_OVER_THROUGHPUT * size / torch.clamp(bw_hat, min=1e-6)[..., None]
+    rebuf = torch.clamp(dt - buf[..., None], min=0.0)
+    inter = torch.where(has_prev[..., None], (qual - prev_q[..., None]).abs(),
+                        torch.zeros_like(qual))
+    av = w[..., 0:1] * qual - w[..., 1:2] * rebuf - w[..., 2:3] * (intra + inter)
+    return torch.cat([av, bw_hat[..., None]], dim=-1)
+
+
+def derive_action_values_plain(rows: torch.Tensor, K: int, R: int, T: int,
+                               A: int) -> torch.Tensor:
+    """Plain PyTorch version of the row mode: :func:`causal_action_values`
+    of packed rows [N, F] (``obs_layout(K, R, T, A, av=True)``) into their
+    action-value columns, in place.  Returns ``rows``."""
+    col = obs_columns(K, R, T, A, True)["action_values"]
+    rows[:, col] = causal_action_values(unpack_obs(rows, K, R, T, A, True))
+    return rows
 
 
 _AV_FIELDS = ("av_quality", "av_intra", "av_size", "av_out_quality", "av_out_intra")
@@ -171,9 +261,13 @@ _PTR_FIELDS = ("sizes", "qualities", "pred", "qoe_weights") + _AV_FIELDS + (
 
 
 def observe_mansy_pack_plain(tables: SimTables, state: EnvState,
-                             out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: :func:`observe_mansy`'s fields, packed."""
-    cols = pack_obs(observe_mansy(tables, state), state.buf.device)
+                             out: torch.Tensor | None = None,
+                             action_values: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: :func:`observe_mansy`'s fields, packed; with
+    ``action_values`` on tables without them, the derived values in their
+    columns (:func:`derive_action_values_plain`)."""
+    cols = _pack(observe_mansy(tables, state), state.buf.device, action_values,
+                 derive_action_values_plain)
     if out is None:
         return cols
     out.copy_(cols)
@@ -198,22 +292,54 @@ class _ObserveArgs(ctypes.Structure):
                                                  "startup_download", "lanes", "group")]
                 + [("out_stride", ctypes.c_int64)]
                 + [(f, ctypes.c_float) for f in ("max_size", "max_rate", "max_throughput")]
-                + [("last_rebuffer", ctypes.c_void_p), ("simple", ctypes.c_int32)])
+                + [("last_rebuffer", ctypes.c_void_p), ("mode", ctypes.c_int32),
+                   ("av_versions", ctypes.c_void_p)])
+
+
+class _DeriveArgs(ctypes.Structure):
+    """Mirror of ``DeriveArgs`` in ``csrc/observe.cu`` (same field order)."""
+    _fields_ = ([("rows", ctypes.c_void_p), ("av_versions", ctypes.c_void_p),
+                 ("stride", ctypes.c_int64)]
+                + [(f, ctypes.c_int32) for f in ("n_rows", "K", "RT", "A", "F", "lanes", "group")])
+
+
+MODES = {"gather": 0, "simple": 1, "derived": 2}  # ObserveArgs::mode
+
+
+@functools.lru_cache(maxsize=None)
+def _version_table(device: torch.device) -> torch.Tensor:
+    """i32 [A, 5] on ``device``: the rate version of a tile of scale s under
+    action a (scale 0, inside the viewport: the action's inside rate; else
+    ``scale_rate_table`` at its outside rate), the lookup of
+    ``allocate_tile_rates`` at the derived values' default rates and tiling."""
+    table = scale_rate_table()
+    versions = np.concatenate([ACTION_TO_RATES[:, :1], table[ACTION_TO_RATES[:, 1], 1:]], 1)
+    return torch.as_tensor(versions.astype(np.int32), device=device)
+
+
+def _check_derived_dims(name: str, K: int, R: int, T: int, A: int) -> None:
+    if (R, T, A) != (DERIVED_RATES, DERIVED_TILES, ACTION_TO_RATES.shape[0]) or K > MAX_HISTORY:
+        raise ValueError(f"{name}: the derived action values take R = {DERIVED_RATES}, "
+                         f"T = {DERIVED_TILES}, A = {ACTION_TO_RATES.shape[0]} and K <= "
+                         f"{MAX_HISTORY}; got K={K}, R={R}, T={T}, A={A}")
 
 
 def _launch(name: str, tables: SimTables, state: EnvState, out: torch.Tensor | None,
-            simple: bool) -> torch.Tensor:
-    """One launch of K2 in MANSY or simple mode; ``name`` is the wrapper's,
+            mode: str) -> torch.Tensor:
+    """One launch of K2 in ``mode`` (``MODES``); ``name`` is the wrapper's,
     for the errors.  Returns the [N, F] output."""
+    simple = mode == "simple"
     dev = state.buf.device
     if not simple:
         check_action_value_tables(tables)
-    dims = obs_dims(tables)
-    K, R, T, A, _ = dims
+    K, R, T, A, av = obs_dims(tables)
     if K > MAX_HISTORY or A > MAX_ACTIONS or T > MAX_TILES:
         raise ValueError(f"{name} kernel takes K <= {MAX_HISTORY}, A <= {MAX_ACTIONS} and "
                          f"T <= {MAX_TILES}; got K={K}, A={A}, T={T}")
-    N, Fw = state.buf.shape[0], simple_width(K, R, T) if simple else obs_width(*dims)
+    if mode == "derived":
+        _check_derived_dims(name, K, R, T, A)
+    N = state.buf.shape[0]
+    Fw = simple_width(K, R, T) if simple else obs_width(K, R, T, A, av or mode == "derived")
     if out is None:
         out = torch.empty((N, Fw), dtype=torch.float32, device=dev)
     if out.shape != (N, Fw) or out.dtype != torch.float32 or out.stride(1) != 1 \
@@ -254,7 +380,8 @@ def _launch(name: str, tables: SimTables, state: EnvState, out: torch.Tensor | N
         RT=R * T, T=T, K=K, A=A, F=Fw, startup_download=int(tables.startup_download),
         lanes=plan.lanes, group=plan.threads, out_stride=out.stride(0),
         max_size=float(tables.max_size), max_rate=float(tables.max_rate),
-        max_throughput=float(tables.max_throughput), simple=int(simple))
+        max_throughput=float(tables.max_throughput), mode=MODES[mode],
+        av_versions=_version_table(dev).data_ptr() if mode == "derived" else 0)
     lib = build.load("observe")
     lib.observe_launch.argtypes = [ctypes.POINTER(_ObserveArgs), ctypes.c_void_p]
     lib.observe_launch.restype = ctypes.c_int
@@ -264,20 +391,57 @@ def _launch(name: str, tables: SimTables, state: EnvState, out: torch.Tensor | N
     return out
 
 
-def observe_mansy_pack(tables: SimTables, state: EnvState,
-                       out: torch.Tensor | None = None) -> torch.Tensor:
+def observe_mansy_pack(tables: SimTables, state: EnvState, out: torch.Tensor | None = None,
+                       action_values: bool = False) -> torch.Tensor:
     """Packed [N, F] observation of every lane, written into ``out`` when
     given (its rows must be contiguous; they may be strided and the buffer
-    unaligned).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    unaligned).  With the tables' action values (the exact field) when they
+    carry them; else, with ``action_values``, the derived values in their
+    columns (the derived mode).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel.  Launches count by mode (``launches_by_mode``:
+    ``gather``, the exact or no action values; ``derived``)."""
     if state.buf.device.type == "cpu":
-        return observe_mansy_pack_plain(tables, state, out)
-    out = _launch("observe_mansy_pack", tables, state, out, simple=False)
-    observe_mansy_pack.launches += 1
+        return observe_mansy_pack_plain(tables, state, out, action_values)
+    mode = "derived" if action_values and tables.av_quality is None else "gather"
+    out = _launch("observe_mansy_pack", tables, state, out, mode)
+    count_launch(observe_mansy_pack, mode)
     return out
 
 
 observe_mansy_pack.launches = 0
+observe_mansy_pack.launches_by_mode = {}
+
+
+def derive_action_values(rows: torch.Tensor, K: int, R: int, T: int, A: int) -> torch.Tensor:
+    """K2's row mode: the derived action values of packed rows [N, F]
+    (``obs_layout(K, R, T, A, av=True)``; their rows must be contiguous, and
+    may be strided) into their action-value columns, in place.  Returns
+    ``rows``.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if rows.device.type == "cpu":
+        return derive_action_values_plain(rows, K, R, T, A)
+    _check_derived_dims("derive_action_values", K, R, T, A)
+    Fw = obs_width(K, R, T, A, True)
+    if rows.dim() != 2 or rows.shape[1] != Fw or rows.dtype != torch.float32 \
+            or rows.stride(1) != 1:
+        raise ValueError(f"derive_action_values: rows must be f32 [N, {Fw}] with contiguous "
+                         f"rows, got {rows.dtype} {tuple(rows.shape)}")
+    N = rows.shape[0]
+    plan = observe_plan(N)
+    args = _DeriveArgs(rows=rows.data_ptr(), av_versions=_version_table(rows.device).data_ptr(),
+                       stride=rows.stride(0), n_rows=N, K=K, RT=R * T, A=A, F=Fw,
+                       lanes=plan.lanes, group=plan.threads)
+    lib = build.load("observe")
+    lib.derive_launch.argtypes = [ctypes.POINTER(_DeriveArgs), ctypes.c_void_p]
+    lib.derive_launch.restype = ctypes.c_int
+    err = lib.derive_launch(ctypes.byref(args), torch.cuda.current_stream(rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"derive_action_values kernel launch failed with CUDA error {err}")
+    derive_action_values.launches += 1
+    return rows
+
+
+derive_action_values.launches = 0
 
 
 def observe_simple_pack(tables: SimTables, state: EnvState,
@@ -287,7 +451,7 @@ def observe_simple_pack(tables: SimTables, state: EnvState,
     plain version; CUDA tensors launch the kernel."""
     if state.buf.device.type == "cpu":
         return observe_simple_pack_plain(tables, state, out)
-    out = _launch("observe_simple_pack", tables, state, out, simple=True)
+    out = _launch("observe_simple_pack", tables, state, out, "simple")
     observe_simple_pack.launches += 1
     return out
 

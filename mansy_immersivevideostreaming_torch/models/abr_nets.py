@@ -5,10 +5,14 @@ Port of ``mansy_immersivevideostreaming_tpu/models/abr_nets.py``
 ``MansyFeatureNet``, ``MansyActorCritic`` and ``QoEIdentifier`` (reference
 ``bitrate_selection/models/mansy.py:5-155``) and ``SimpleActorCritic``
 (``:206-231``, reference ``bitrate_selection/models/simple_rl.py:9-63``).  ``use_action_values`` and
-``av_logit_prior`` read the exact ``action_values`` observation field
-(``sim/env.py:exact_action_values``), so a policy with either setting needs
-tables that carry action values; the derived ``causal_action_values`` that
-the JAX net falls back on without that field is not ported.
+``av_logit_prior`` read the action values: the exact ``action_values``
+observation field (``sim/env.py:exact_action_values``) where the tables
+carry it, else the derived :func:`causal_action_values` (JAX
+``abr_nets.py:29-92``) of the observation's own fields, by the JAX net's
+rule (``_action_value_features``, ``:95-102``).  Both have the same width,
+so a checkpoint reads either; the derived values are K2's derived mode and
+row mode (``kernels/observe.py``), whose plain version
+:func:`causal_action_values` is.
 
 The actor-critic's math lives once, in ``kernels/actor_critic.py``:
 ``forward`` packs the 13- or 14-field observation dict and
@@ -36,8 +40,9 @@ from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
     TENSOR_FIELDS, ActorCriticWeights, actor_critic_train,
 )
 from mansy_immersivevideostreaming_torch.kernels.observe import (
-    NET_FIELDS, obs_columns, obs_dims, obs_layout, obs_width, observe_mansy_pack,
-    observe_simple_pack, pack_obs, pack_simple_obs, simple_layout, simple_width,
+    NET_FIELDS, causal_action_values, obs_columns, obs_dims, obs_layout, obs_width,
+    observe_mansy_pack, observe_simple_pack, pack_obs, pack_simple_obs, simple_layout,
+    simple_width,
 )
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
 
@@ -51,6 +56,15 @@ BRANCHES = (("throughput", "throughput"), ("next_chunk_size", "next_size"),
             ("buffer", "buffer"))
 COND_BRANCH = "cond"
 AV_BRANCH = "action_values"
+
+
+def _action_value_features(obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """[..., A+1] action-value features (JAX ``abr_nets.py:95-102``): the
+    exact field when the observation has one, else the derived
+    :func:`causal_action_values`.  Both have the same width."""
+    if "action_values" in obs:
+        return obs["action_values"]
+    return causal_action_values(obs)
 
 
 def _linear(n_in: int, n_out: int, device) -> nn.Linear:
@@ -96,10 +110,15 @@ class MansyActorCritic(nn.Module):
     """Shared feature net + actor/critic heads with the conditional-feature
     residual (reference ``mansy.py:54-80``, residual at ``:65``/``:79``).
 
-    ``use_action_values``: an 11th branch over the exact ``action_values``
-    field.  ``av_logit_prior`` (beta): the actor logits get ``beta * (av -
-    mean) / (std + 1e-6)`` of the field's first A entries (population std,
-    JAX ``abr_nets.py:176-180``).  Either needs the 14-field observation."""
+    ``use_action_values``: an 11th branch over the action values.
+    ``av_logit_prior`` (beta): the actor logits get ``beta * (av - mean) /
+    (std + 1e-6)`` of their first A entries (population std, JAX
+    ``abr_nets.py:176-180``).  Either reads the packed observation with the
+    action-value columns: the exact field where the tables carry it, else
+    the derived values (:func:`_action_value_features`'s rule).
+    ``exact_action_values`` says that the policy was trained on the exact
+    field, so that its tables must carry it (``rl/rollout.py:
+    check_observation``)."""
 
     def __init__(self, hidden_dim: int = 128, action_space: int = 15,
                  use_action_values: bool = False, av_logit_prior: float = 0.0,
@@ -109,8 +128,11 @@ class MansyActorCritic(nn.Module):
         dev = resolve_device(device)
         self.use_action_values = bool(use_action_values)
         self.av_logit_prior = float(av_logit_prior)
-        # which action-value tables the observation needs: the sidecar's
-        # acc_correct_obs, set by utils.checkpoint.load_npz_policy
+        # which action-value tables the observation needs (the sidecar's
+        # exact_action_values and acc_correct_obs, set by
+        # utils.checkpoint.load_npz_policy and the training CLIs): none (the
+        # derived values, if any), the exact ones, or the accuracy-corrected ones
+        self.exact_action_values = False
         self.acc_correct_obs = False
         # the packed observation's layout: with action values when either reads them
         self.dims = (past_k, num_rates, num_tiles, action_space,
@@ -126,17 +148,21 @@ class MansyActorCritic(nn.Module):
         self.critic_out = _linear(hidden_dim, 1, dev)
         self._packed = None  # (parameter key, ActorCriticWeights) of packed_weights
 
-    observe = staticmethod(observe_mansy_pack)  # K2's mode that builds the observation
+    def observe(self, tables, state, out=None) -> torch.Tensor:
+        """The packed observation of every lane (K2): with the tables'
+        action values where they carry them, else, where the policy reads
+        action values, with the derived ones (K2's derived mode)."""
+        return observe_mansy_pack(tables, state, out, action_values=self.reads_action_values)
 
-    @staticmethod
-    def obs_width(tables) -> int:
+    def obs_width(self, tables) -> int:
         """Columns of the packed observation this policy reads from ``tables``."""
-        return obs_width(*obs_dims(tables))
+        K, R, T, A, av = obs_dims(tables)
+        return obs_width(K, R, T, A, av or self.reads_action_values)
 
     @property
     def reads_action_values(self) -> bool:
-        """The policy needs the 14-field observation (tables that carry
-        action values)."""
+        """The policy reads the action-value columns (the 14-field
+        observation: exact or derived)."""
         return self.dims[-1]
 
     def _net_layout(self):
@@ -145,12 +171,11 @@ class MansyActorCritic(nn.Module):
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [N, A], value [N]) from the observation dict, packed into
-        the kernel's layout by :func:`pack_obs` (see :meth:`forward_packed`)."""
-        if self.reads_action_values and "action_values" not in obs:
-            raise NotImplementedError(
-                "MansyActorCritic: the observation has no action_values field; the "
-                "derived causal_action_values is not ported")
-        return self.forward_packed(pack_obs(obs, self.actor_out.weight.device))
+        the kernel's layout by :func:`pack_obs` (see :meth:`forward_packed`);
+        a policy that reads action values on a dict without the exact field
+        gets the derived ones there (K2's row mode)."""
+        return self.forward_packed(pack_obs(obs, self.actor_out.weight.device,
+                                            action_values=self.reads_action_values))
 
     def forward_packed(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [N, A], value [N]) of packed observations [N, >= 748],
@@ -259,7 +284,7 @@ class SimpleActorCritic(nn.Module):
         self._packed = None
 
     observe = staticmethod(observe_simple_pack)
-    reads_action_values = False
+    reads_action_values = exact_action_values = False
 
     @staticmethod
     def obs_width(tables) -> int:

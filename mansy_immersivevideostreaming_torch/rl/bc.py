@@ -44,9 +44,11 @@ def bc_valid_loss(policy: MansyActorCritic, x: torch.Tensor,
         return ce_loss(logits, actions, 0.0)[1][0]
 
 
-def demo_tensors(demo: Dict[str, Any], device) -> tuple:
-    """(packed observations [T, F], actions i32 [T]) of one demo episode."""
-    return (pack_obs(demo["obs"], device),
+def demo_tensors(demo: Dict[str, Any], device, action_values: bool = False) -> tuple:
+    """(packed observations [T, F], actions i32 [T]) of one demo episode;
+    with ``action_values`` (a policy that reads them), a demo recorded
+    without the field gets the derived values (K2's row mode)."""
+    return (pack_obs(demo["obs"], device, action_values=action_values),
             torch.as_tensor(np.asarray(demo["act"]), dtype=torch.int32, device=device))
 
 
@@ -64,10 +66,11 @@ def behavior_cloning_pretraining(
     draws as the JAX package's, so both pick the same demos."""
     rng = random.Random(seed)
     dev = next(policy.parameters()).device
-    valid = [demo_tensors(d, dev) for d in valid_demos]
+    av = policy.reads_action_values
+    valid = [demo_tensors(d, dev, av) for d in valid_demos]
     best_loss, best_step = float("inf"), 0
     for i in range(max_steps):
-        x, actions = demo_tensors(rng.choice(train_demos), dev)
+        x, actions = demo_tensors(rng.choice(train_demos), dev, av)
         loss = bc_step(policy, optimizer, x, actions)
         print(f"BC (Training): loss={float(loss)} ({i + 1}/{max_steps})")
 

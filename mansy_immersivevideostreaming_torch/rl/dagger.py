@@ -19,9 +19,7 @@ import torch
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
     actor_critic_forward, gumbel_noise,
 )
-from mansy_immersivevideostreaming_torch.kernels.observe import (
-    obs_dims, obs_width, observe_mansy_pack, pack_obs,
-)
+from mansy_immersivevideostreaming_torch.kernels.observe import pack_obs
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
 from mansy_immersivevideostreaming_torch.rl.bc import bc_step
 from mansy_immersivevideostreaming_torch.rl.rollout import check_observation
@@ -56,8 +54,7 @@ def make_dagger_collector(tables: SimTables, etables: ExpertTables, horizon: int
     if not isinstance(acc_correct, bool):
         corr_table = torch.as_tensor(np.asarray(acc_correct, bool), device=dev)
         acc_correct = True
-    dims = obs_dims(tables)
-    width, A = obs_width(*dims), tables.action_space
+    A = tables.action_space
 
     def collect(policy: MansyActorCritic, samples: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -66,10 +63,11 @@ def make_dagger_collector(tables: SimTables, etables: ExpertTables, horizon: int
         n = samples.shape[0]
         states = reset_env(tables, samples, torch.arange(n, dtype=torch.int32, device=dev), n)
         w = policy.packed_weights()
-        obs = torch.empty((n_steps, n, width), dtype=torch.float32, device=dev)
+        obs = torch.empty((n_steps, n, policy.obs_width(tables)), dtype=torch.float32,
+                          device=dev)
         labels, dones, margins = [], [], []
         for t in range(n_steps):
-            x = observe_mansy_pack(tables, states, out=obs[t])
+            x = policy.observe(tables, states, out=obs[t])
             qoe_id = states.qoe_id.long()
             out = choose_action(
                 tables, etables, states, horizon,
@@ -96,15 +94,17 @@ def make_dagger_collector(tables: SimTables, etables: ExpertTables, horizon: int
     return collect
 
 
-def flatten_demos(demos, device: str | torch.device = "cpu") -> Tuple[torch.Tensor,
-                                                                      torch.Tensor]:
+def flatten_demos(demos, device: str | torch.device = "cpu",
+                  action_values: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """List of {'obs': {f: [T, ...]}, 'act': [T]} -> (packed observations
     [n, F] f32, actions i32 [n]) on ``device``: the aggregate's layout,
-    packed once."""
+    packed once.  With ``action_values`` (a policy that reads them), demos
+    recorded without the field get the derived values (K2's row mode)."""
     obs = {k: np.concatenate([np.asarray(d["obs"][k]) for d in demos])
            for k in demos[0]["obs"]}
     act = np.concatenate([np.asarray(d["act"]) for d in demos]).astype(np.int32)
-    return pack_obs(obs, device), torch.as_tensor(act, device=device)
+    return (pack_obs(obs, device, action_values=action_values),
+            torch.as_tensor(act, device=device))
 
 
 def aggregate(dataset, new_obs: torch.Tensor, new_act: torch.Tensor, done=None,

@@ -6,7 +6,8 @@ kernel launches on the card: the observation gather (K2) into the step's
 slice of the trajectory buffer, the actor-critic forward with the sampling
 head (K3), and the fused env step (K1), which updates the lanes in place.
 The policy decides the observation (``policy.observe``): K2's MANSY mode for
-``MansyActorCritic``, its simple mode for the simple_rl baseline's
+``MansyActorCritic`` (its derived mode for a policy that reads action values
+on tables without them), its simple mode for the simple_rl baseline's
 ``SimpleActorCritic``, as the JAX collector takes ``observe_mansy`` or
 ``observe_simple``.
 """
@@ -41,10 +42,12 @@ def init_lanes(tables: SimTables, samples: torch.Tensor, n_lanes: int,
 
 
 def check_observation(policy: Policy, tables: SimTables) -> None:
-    """A policy that reads the action values needs tables that carry them."""
-    if policy.reads_action_values and tables.av_quality is None:
-        raise ValueError("the policy reads the action_values observation field: attach the "
-                         "expert's tables first (sim.expert.attach_action_values)")
+    """A policy trained on the exact action values needs tables that carry
+    them; one that reads action values on tables without them reads the
+    derived ones (JAX ``abr_nets.py:_action_value_features``'s rule)."""
+    if policy.exact_action_values and tables.av_quality is None:
+        raise ValueError("the policy reads the exact action_values observation field: attach "
+                         "the expert's tables first (sim.expert.attach_action_values)")
 
 
 def stack_logs(logs) -> LogRecord:

@@ -164,26 +164,25 @@ def load_npz_policy(path: str | os.PathLike = DAGGER_V9_NPZ,
     """MansyActorCritic with the weights of a policy ``.npz`` and the flags of
     its sidecar, which must be present: flags like ``av_logit_prior`` add no
     params, so a policy without its sidecar could load into the wrong
-    function.  The policy's ``acc_correct_obs`` attribute tells the caller
-    which action-value tables to attach (``reads_action_values`` whether to):
-    the accuracy-corrected ones (``attach_action_values(acc_correct=True)``)
-    or the plain deployable ones.
-
-    Refused: a policy that reads the derived ``causal_action_values``
-    (``obs_action_values`` or a logit prior without ``exact_action_values``),
-    which the port does not have."""
+    function.  The policy reads action values with ``obs_action_values`` or
+    ``exact_action_values`` (its 11th branch) or a logit prior, as JAX
+    ``cli/run_ensemble.py:67-75`` builds it: the derived ones on tables
+    without them, else the tables' exact ones.  Its ``exact_action_values``
+    and ``acc_correct_obs`` attributes tell the caller which action-value
+    tables to attach: none (the derived values), the plain deployable ones
+    (``attach_action_values``) or the accuracy-corrected ones
+    (``acc_correct=True``)."""
     dev = resolve_device(device)
     netcfg = load_net_config(path)
     if netcfg is None:
         raise FileNotFoundError(f"{path}{NET_CONFIG_SUFFIX} not found")
     exact = bool(netcfg.get("exact_action_values"))
-    prior = float(netcfg.get("av_logit_prior", 0.0))
-    if not exact and (netcfg.get("obs_action_values") or prior):
-        raise NotImplementedError(f"{path}: the policy reads the derived causal action "
-                                  f"values, which are not ported (netcfg {netcfg})")
     policy = MansyActorCritic(hidden_dim=int(netcfg["hidden_dim"]),
-                              use_action_values=exact, av_logit_prior=prior, device=dev)
+                              use_action_values=exact or bool(netcfg.get("obs_action_values")),
+                              av_logit_prior=float(netcfg.get("av_logit_prior", 0.0)),
+                              device=dev)
     load_npz_into(policy, path)
+    policy.exact_action_values = exact
     policy.acc_correct_obs = exact and bool(netcfg.get("acc_correct_obs"))
     return policy
 

@@ -185,11 +185,23 @@ def test_the_prior_standardizes_with_the_population_std():
 
 
 def test_action_value_policy_needs_attached_tables():
+    """v16 was trained on the exact field, so serving it needs tables that
+    carry it; its forward on a dict without the field reads the derived
+    values, as the JAX net does (``abr_nets.py:_action_value_features``)."""
     policy = load_npz_policy(DAGGER_V16_NPZ, device="cpu")
     tables = synthetic_sim_tables(device="cpu")
     samples = torch.as_tensor(TE.generate_environment_test_samples(2, 2, 2, 2))
     with pytest.raises(ValueError, match="action_values"):
         evaluate(policy, tables, samples, deterministic=True)
-    with pytest.raises(NotImplementedError, match="causal_action_values"):
-        policy({k: v for k, v in TE.observe_mansy(
-            tables, TE.reset_env(tables, samples, torch.arange(4), 4)).items()})
+    state = TE.reset_env(tables, samples, torch.arange(4), 4)
+    for _ in range(3):  # a history, a previous action
+        state, *_ = TE.step_env(tables, samples, state, torch.arange(4, dtype=torch.int32) * 3,
+                                4, False)
+    obs = TE.observe_mansy(tables, state)
+    assert "action_values" not in obs
+    with torch.no_grad():
+        logits, value = policy(obs)
+    jl, jv = v16_net().apply({"params": restore_v16()},
+                             {k: jnp.asarray(v.numpy()) for k, v in obs.items()})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(value.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)

@@ -6,9 +6,10 @@ file imports no JAX, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances: ints
-exact, floats 1e-5 relative (the kernels sum in another order than
-PyTorch's CUDA ops, which also divide by a Python scalar as a product with
-its reciprocal); K6 bit-equal (the plain version's operation order); K8 in
+exact, floats 1e-5 relative (K2's action values, exact or derived, with
+atol 1e-6; the kernels sum in another order than PyTorch's CUDA ops, which
+also divide by a Python scalar as a product with its reciprocal); K6
+bit-equal (the plain version's operation order); K8 in
 bf16 within one bf16 ulp plus ``kernels/attention.py:bf16_slack`` (the
 inner bf16 roundings of P and dP' flip where the kernel and its plain
 version sum in another order).  The search (K4) picks the plain version's action on every
@@ -187,42 +188,97 @@ def _on_cpu(tables):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 511, 512, 513, 8193])
-@pytest.mark.parametrize("mode", ["none", "action_values", "accuracy_corrected"])
+@pytest.mark.parametrize("mode", ["none", "action_values", "accuracy_corrected", "derived"])
 def test_observe_kernel_at_every_block_edge_on_card(cuda_device, n, mode):
     """K2 at the edges of its blocks of 4 lanes and of its two thread groups
     (a warp a lane above 1024 lanes, four below), with and without the
-    action values (and the accuracy-corrected ``av_out_*`` tables).  Without
+    action values (and the accuracy-corrected ``av_out_*`` tables), and in
+    its derived mode (the derived values on tables without them).  Without
     action values every column is a copy or one IEEE division, bit-equal to
     the plain version on the CPU; the action values within 1e-5 of it (its
-    sums over the history run in another order).  Into ``obs[1]`` of a
+    sums over the history, and the derived values' over the tiles, run in
+    another order).  Into ``obs[1]`` of a
     [3, N, F] buffer (unaligned for odd N: the row-wise path) and into a
     strided view the kernel writes the same bits as into a fresh buffer,
     and nothing beside its rows; two launches give the same bits."""
     tables = _perturbed_tables(cuda_device)
-    if mode != "none":
+    if mode in ("action_values", "accuracy_corrected"):
         tables = X.attach_action_values(tables, X.build_expert_tables_plain(tables),
                                         acc_correct=mode == "accuracy_corrected")
+    av = mode == "derived"
     samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=cuda_device)
     state = init_lanes(tables, samples, n, seed=n)
     rng = np.random.default_rng(n)
     for _ in range(5):
         acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32), device=cuda_device)
         state, *_ = K1.env_step_plain(tables, samples, state, acts, n, True)
-    got = K2.observe_mansy_pack(tables, state)
+    got = K2.observe_mansy_pack(tables, state, action_values=av)
     torch.cuda.synchronize()
-    ref = K2.observe_mansy_pack_plain(_on_cpu(tables), tree_map(lambda x: x.cpu(), state))
+    ref = K2.observe_mansy_pack_plain(_on_cpu(tables), tree_map(lambda x: x.cpu(), state),
+                                      action_values=av)
     if mode == "none":
         assert torch.equal(got.cpu(), ref)
     else:
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
-    assert torch.equal(K2.observe_mansy_pack(tables, state), got)
+    assert torch.equal(K2.observe_mansy_pack(tables, state, action_values=av), got)
     F = got.shape[1]
     obs = torch.full((3, n, F), float("nan"), device=cuda_device)
-    K2.observe_mansy_pack(tables, state, out=obs[1])
+    K2.observe_mansy_pack(tables, state, out=obs[1], action_values=av)
     assert torch.equal(obs[1], got) and bool(obs[0].isnan().all() and obs[2].isnan().all())
     wide = torch.full((n, F + 3), float("nan"), device=cuda_device)
-    K2.observe_mansy_pack(tables, state, out=wide[:, :F])
+    K2.observe_mansy_pack(tables, state, out=wide[:, :F], action_values=av)
     assert torch.equal(wide[:, :F], got) and bool(wide[:, F:].isnan().all())
+
+
+def _derived_edge_rows(n: int, case: str, device) -> torch.Tensor:
+    """[n, 795] packed rows (the plain derived mode) of lanes a few steps
+    into their episodes, with ``case`` on every row (its action-value
+    columns zeroed): an empty or a full predicted viewport, an empty
+    throughput history, no previous action."""
+    tables = _perturbed_tables("cpu")
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17))
+    state = init_lanes(tables, samples, n, seed=n)
+    rng = np.random.default_rng(n)
+    for _ in range(3):
+        acts = torch.as_tensor(rng.integers(0, 15, n).astype(np.int32))
+        state, *_ = K1.env_step_plain(tables, samples, state, acts, n, True)
+    rows = K2.observe_mansy_pack_plain(tables, state, action_values=True)
+    cols = K2.obs_columns(8, 5, 64, 15, True)
+    rows[:, cols["action_values"]] = 0.0
+    edit = {"empty_viewport": ("pred_viewport", 0.0), "full_viewport": ("pred_viewport", 1.0),
+            "empty_history": ("throughput", 0.0), "no_previous_action": ("action_one_hot", 0.0)}
+    if case in edit:
+        field, value = edit[case]
+        rows[:, cols[field]] = value
+    return rows.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024, 1025, 4096])
+@pytest.mark.parametrize("case", ["lanes", "empty_viewport", "full_viewport", "empty_history",
+                                  "no_previous_action"])
+def test_derive_action_values_row_mode_on_card(cuda_device, n, case):
+    """K2's row mode (``derive_action_values``) at the edges of its blocks
+    and thread groups, on the derived values' edge cases: within 1e-5 of its
+    plain version on the CPU (atol 1e-6: its sums over the tiles run in
+    another order), every other column untouched, two launches bit-equal,
+    and in a strided view the same bits with nothing beside its rows."""
+    rows = _derived_edge_rows(n, case, cuda_device)
+    got = K2.derive_action_values(rows.clone(), 8, 5, 64, 15)
+    torch.cuda.synchronize()
+    ref = K2.derive_action_values_plain(rows.cpu(), 8, 5, 64, 15)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
+    col = K2.obs_columns(8, 5, 64, 15, True)["action_values"]
+    keep = torch.ones(rows.shape[1], dtype=torch.bool)
+    keep[col] = False
+    assert torch.equal(got[:, keep.to(cuda_device)], rows[:, keep.to(cuda_device)])
+    if case == "empty_history":
+        assert bool((got[:, col.stop - 1] == 0.5).all())
+    assert torch.equal(K2.derive_action_values(rows.clone(), 8, 5, 64, 15), got)
+    wide = torch.full((n, rows.shape[1] + 5), float("nan"), device=cuda_device)
+    wide[:, :rows.shape[1]] = rows
+    K2.derive_action_values(wide[:, :rows.shape[1]], 8, 5, 64, 15)
+    assert torch.equal(wide[:, :rows.shape[1]], got) and bool(wide[:, rows.shape[1]:].isnan().all())
 
 
 def _check_expert_tables(tables):

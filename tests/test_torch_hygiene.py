@@ -9,9 +9,10 @@
 * Entry points default to the card and raise where there is none, instead
   of running on the CPU unasked.
 * A kernel wrapper given CPU tensors runs its plain PyTorch version and
-  counts no launch (K1-K10 and K3's training mode).
-* A policy that reads the derived action values, which the port does not
-  have, is refused at load time.
+  counts no launch (K1-K10, K3's training mode, K2's derived and row modes).
+* A sidecar that asks for the derived action values builds the net that
+  reads them, with the Flax net's outputs on an observation without the
+  exact field.
 """
 
 import ast
@@ -48,7 +49,7 @@ from mansy_immersivevideostreaming_torch.sim.expert import (
 )
 from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
 from mansy_immersivevideostreaming_torch.utils.checkpoint import (
-    DAGGER_V9_NPZ, NET_CONFIG_SUFFIX, load_npz_policy,
+    DAGGER_V9_NPZ, DAGGER_V16_NPZ, NET_CONFIG_SUFFIX, load_npz_policy,
 )
 
 PACKAGE = Path(port.__file__).resolve().parent
@@ -222,7 +223,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
 
 def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     wrappers = (K1.env_step, K2.observe_mansy_pack, K2.observe_simple_pack,
-                K3.actor_critic_forward,
+                K2.derive_action_values, K3.actor_critic_forward,
                 K3.actor_critic_train_forward, K3.actor_critic_backward, K4.choose_action,
                 K5.build_expert_tables, K6.compute_gae, K9.policy_loss, K7.chunk_maps,
                 K7.trajectory_metrics, K8.attention, K8.attention_train_forward,
@@ -236,6 +237,13 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     state = init_lanes(tables, samples, 8)
     x = K2.observe_mansy_pack(tables, state)
     torch.testing.assert_close(x, K2.observe_mansy_pack_plain(tables, state), rtol=0, atol=0)
+    # K2's derived mode and its row mode
+    xd = K2.observe_mansy_pack(tables, state, action_values=True)
+    torch.testing.assert_close(xd, K2.observe_mansy_pack_plain(tables, state, action_values=True),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(K2.derive_action_values(xd.clone(), 8, 5, 64, 15),
+                               K2.derive_action_values_plain(xd.clone(), 8, 5, 64, 15),
+                               rtol=0, atol=0)
     w = policy.packed_weights()
     noise = K3.gumbel_noise((8, 15), torch.Generator().manual_seed(1), torch.device("cpu"))
     got = K3.actor_critic_forward(w, x, noise)
@@ -318,14 +326,34 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     {"obs_action_values": True, "acc_correct_obs": True},
     {"av_logit_prior": 3.0},
 ])
-def test_load_npz_policy_refuses_derived_action_values(tmp_path, netcfg):
+def test_load_npz_policy_builds_derived_action_value_nets(tmp_path, netcfg):
     """``obs_action_values`` (or a logit prior) without ``exact_action_values``
-    asks for the derived causal_action_values, which the port has not."""
+    builds a policy that reads the derived causal_action_values (the 11th
+    branch on v16's weights; a prior alone on v9's) and asks for no tables
+    (``acc_correct_obs`` only qualifies the exact field); on an observation
+    without the exact field it gives the Flax net's outputs (1e-5, and the
+    prior's slack of ``test_torch_derived_action_values.assert_matches_flax``)."""
+    from mansy_immersivevideostreaming_tpu.models.abr_nets import MansyActorCritic as JaxAC
+    from test_torch_action_values import restore_v16
+    from test_torch_checkpoint import restore_v9
+    from test_torch_derived_action_values import assert_matches_flax
+    from test_torch_ppo import random_obs
+
+    branch = bool(netcfg.get("obs_action_values"))
+    prior = netcfg.get("av_logit_prior", 0.0)
     path = tmp_path / "policy.npz"
-    shutil.copyfile(DAGGER_V9_NPZ, path)
+    shutil.copyfile(DAGGER_V16_NPZ if branch else DAGGER_V9_NPZ, path)
     with open(f"{DAGGER_V9_NPZ}{NET_CONFIG_SUFFIX}") as f:
         cfg = json.load(f)
     with open(f"{path}{NET_CONFIG_SUFFIX}", "w") as f:
         json.dump({**cfg, **netcfg}, f)
-    with pytest.raises(NotImplementedError, match="derived"):
-        load_npz_policy(path, device="cpu")
+    policy = load_npz_policy(path, device="cpu")
+    assert policy.use_action_values == branch and policy.av_logit_prior == prior
+    assert policy.reads_action_values
+    assert not policy.exact_action_values and not policy.acc_correct_obs
+    obs = random_obs(np.random.default_rng(4), (24,), False)
+    with torch.no_grad():
+        logits, value = policy({k: torch.as_tensor(v) for k, v in obs.items()})
+    assert_matches_flax(logits.numpy(), value.numpy(),
+                        JaxAC(hidden_dim=128, use_action_values=branch, av_logit_prior=prior),
+                        {"params": restore_v16() if branch else restore_v9()}, obs)

@@ -134,13 +134,21 @@ def test_packed_weights_are_cached_until_a_parameter_changes():
                                rtol=0, atol=0)
 
 
-def test_action_value_settings_are_refused():
-    """The action-value settings build, but refuse an observation without the
-    exact field: the derived causal_action_values is not ported."""
+@pytest.mark.parametrize("kwargs", [dict(use_action_values=True), dict(av_logit_prior=3.0)])
+def test_action_value_settings_read_the_derived_values(kwargs):
+    """Each action-value setting, on an observation without the exact
+    field, reads the derived causal_action_values as the JAX net does: the
+    Flax net from its initialiser, carried over by the converter, gives the
+    same logits and value (with the prior's slack of
+    ``test_torch_derived_action_values.assert_matches_flax``)."""
+    from test_torch_derived_action_values import assert_matches_flax
+
     obs, _ = random_obs(3)
-    obs = {k: torch.as_tensor(v) for k, v in obs.items()}
-    for kwargs in (dict(use_action_values=True), dict(av_logit_prior=3.0)):
-        policy = MansyActorCritic(device="cpu", **kwargs)
-        assert policy.reads_action_values
-        with pytest.raises(NotImplementedError, match="causal_action_values"):
-            policy(obs)
+    net = JaxAC(hidden_dim=128, **kwargs)
+    params = net.init(jax.random.PRNGKey(4), {k: jnp.asarray(v) for k, v in obs.items()})
+    policy = MansyActorCritic(device="cpu", **kwargs)
+    assert policy.reads_action_values and not policy.exact_action_values
+    policy.load_state_dict(actor_critic_state_dict_from_flax(jax.device_get(params["params"])))
+    with torch.no_grad():
+        logits, value = policy({k: torch.as_tensor(v) for k, v in obs.items()})
+    assert_matches_flax(logits.numpy(), value.numpy(), net, params, obs)

@@ -10,9 +10,14 @@ hidden 16), as ``tests/test_cli_integration.py`` runs the JAX CLIs.
 * ``run_expert --train`` demos, then ``run_dagger`` with the round-4 flag
   combination.
 
+* ``--obs-action-values`` and ``--av-logit-prior`` without
+  ``--exact-action-values`` (the derived action values): ``run_mansy
+  --train`` then ``--test``, and ``run_dagger`` from demos recorded without
+  the exact field.
+
 Every policy and identifier npz loads into the JAX package's Flax net and
 gives the port's outputs (1e-5), and each policy has its sidecar.  The
-flags of later slices are refused.
+flags of a later slice (``--data-parallel``) are refused.
 """
 
 import glob
@@ -70,8 +75,9 @@ def assert_policy_loads_into_flax(path):
     cfg = load_net_config(path)
     assert cfg is not None, f"{path} has no sidecar"
     exact = cfg["exact_action_values"]
-    obs = random_obs(np.random.default_rng(0), (12,), exact)
-    net = JaxAC(hidden_dim=cfg["hidden_dim"], use_action_values=exact,
+    obs = random_obs(np.random.default_rng(0), (12,), exact)  # without the field: derived
+    net = JaxAC(hidden_dim=cfg["hidden_dim"],
+                use_action_values=exact or cfg["obs_action_values"],
                 av_logit_prior=cfg["av_logit_prior"])
     jl, jv = net.apply({"params": flax_tree(path)}, {k: jnp.asarray(v) for k, v in obs.items()})
     with torch.no_grad():
@@ -184,11 +190,47 @@ def test_run_expert_demos_then_run_dagger(tree, capsys):
 
 @pytest.mark.parametrize("cli,flags", [
     (run_mansy, ["--train", "--data-parallel"]),
-    (run_mansy, ["--train", "--obs-action-values"]),
-    (run_mansy, ["--train", "--av-logit-prior", "3.0"]),
-    (run_dagger, ["--obs-action-values"]),
 ])
 def test_later_slices_flags_are_refused(tree, cli, flags):
     _, cfg = tree
     with pytest.raises(SystemExit, match="not ported"):
         cli.run(cli.build_parser().parse_args(flags + ["--device", "cpu"]), cfg)
+
+
+@pytest.mark.parametrize("cli,flags", [
+    (run_mansy, ["--obs-action-values"]),
+    (run_mansy, ["--av-logit-prior", "3.0"]),
+    (run_dagger, ["--obs-action-values"]),
+])
+def test_derived_action_value_flags_run(tree, cli, flags, capsys):
+    """The derived action values (``--obs-action-values``, or a logit prior
+    without ``--exact-action-values``): ``run_mansy --train`` then ``--test``
+    on the policy it wrote, whose sidecar asks for no tables; ``run_dagger``
+    from ``run_expert`` demos recorded without the exact field (K2's row
+    mode fills their action-value columns).  Each policy loads into the
+    Flax net with the port's outputs on the derived field."""
+    base, cfg = tree
+    if cli is run_mansy:
+        seed = ["--seed", str(40 + len(flags))]
+        run_mansy.run(run_mansy.build_parser().parse_args(["--train"] + flags + seed + COMMON),
+                      cfg)
+        (path,) = models(base, "best_policy.npz", f"_seed_{seed[1]}_")
+        results = run_mansy.run(run_mansy.build_parser().parse_args(
+            ["--test", "--test-on-seen", "--deterministic-eval"] + seed + COMMON), cfg)
+        rows = open(results).read().strip().splitlines()
+        assert len(rows) == 1 + 4 and np.isfinite([float(r.split(",")[6]) for r in rows[1:]]).all()
+    else:
+        run_expert.run(run_expert.build_parser().parse_args(
+            ["--train", "--horizon", "1", "--lane-chunk", "8", "--device", "cpu"]), cfg)
+        (demos,) = glob.glob(os.path.join(base, "models", "bitrate_selection", "expert", "**",
+                                          "train_demonstrations.pkl"), recursive=True)
+        path = run_dagger.run(run_dagger.build_parser().parse_args(
+            ["--demos-path", demos, "--rounds", "1", "--lanes", "4", "--bc-steps", "5",
+             "--batch-size", "64", "--horizon", "1", "--hidden-dim", "16",
+             "--output-path", os.path.join(base, "dagger_derived.npz"), "--device", "cpu"]
+            + flags), cfg)
+        assert "Round 1/1" in capsys.readouterr().out
+    netcfg = load_net_config(path)
+    assert not netcfg["exact_action_values"]
+    assert netcfg["obs_action_values"] or netcfg["av_logit_prior"] == 3.0
+    assert_policy_loads_into_flax(path)
