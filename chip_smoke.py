@@ -11,7 +11,7 @@ ensemble over four committed policies, and serves, trains and runs DAgger
 with policies that read the derived action values, all through the port's
 own entry points.  It imports no JAX.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--vp-train N]
 
 With ``--parent``, DIR is another checkout of the repo (the parent commit's,
 unpacked with ``git archive``): its K3, K10, K8, K1, K9, K2, K7, K5 and K6 are
@@ -19,7 +19,9 @@ built from its own sources into its own build directory and timed beside
 this tree's on the same inputs (``earlier_ms``; K1, K9, K2, K7, K5 and K6
 also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5,
 K6 and K8 with ``earlier_bits_equal``, K5 also with
-``earlier_max_abs_diff``; K6 and K8 must equal the parent's bits).
+``earlier_max_abs_diff``; K6, K8 and K2's derived and row modes must equal
+the parent's bits).  ``--vp-train N`` runs only phase 11, N times over
+(each training's weights differ), and prints each run's step checks.
 
 Phases:
 
@@ -148,9 +150,11 @@ the same bits.
    over VP_PASSES epochs, then one ``--teacher-forcing`` epoch; one step
    profiled (``train_step_profile``); one step through the kernels against
    the same step with K8 swapped for its plain versions (same weights,
-   generator seed, slot draws and dropout masks; both under PyTorch's
-   deterministic algorithms): loss, gradients and the parameters after
-   AdamW within their tolerances; the first step at
+   generator seed, slot draws and dropout masks, and the kernels' branches
+   at the ReLUs, the max pool and the periodic MSE's images, each flipped
+   branch a near-tie; both under PyTorch's deterministic algorithms): loss,
+   gradients and the parameters after AdamW within their tolerances; the
+   first step at
    ``--his-window 96`` (an encoder attention of 96 x 96, cross-attention
    over the distilled 48) from Flax's initialisers, held against the plain
    path in the same way, then timed, and K8's device milliseconds in it
@@ -221,11 +225,13 @@ composition.
    the round.
 
 Phase 2g holds K2's derived mode at 32, 128, 512 and 8192 lanes and its
-row mode at 4096 rows against their plain versions (AV_RTOL, AV_ATOL), two
-launches bit-equal, on the edge cases too (an empty and a full predicted
-viewport, an empty throughput history, no previous action), each timed
-beside its bytes bound (rows ``observe_mansy_pack_derived`` and
-``derive_action_values``; the parent commit has neither mode).  Phase 11's
+row mode at 4096 and 77,760 rows (DEMO_ROWS) against their plain versions
+(AV_RTOL, AV_ATOL), two launches bit-equal, on the edge cases too (an
+empty and a full predicted viewport, an empty throughput history, no
+previous action), each timed beside its bytes bound (rows
+``observe_mansy_pack_derived`` and ``derive_action_values``); with
+``--parent`` both modes of the parent's kernel are timed beside them and
+must give the same bits everywhere.  Phase 11's
 failure message names the gradient leaf past its limit and its worst
 entry, with the two paths' values there.
 
@@ -249,6 +255,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -300,6 +307,8 @@ VP_LOSS_RTOL = 1e-5     # phase 11: a step's loss through the kernels against th
 VP_GRAD_RTOL = 1e-4     # phase 11: gradients, plus VP_GRAD_RTOL of the largest entry
 VP_PARAM_ATOL = 2e-6    # phase 11: parameters after AdamW whose two gradients agree to 1%
 VP_PARAM_LOOSE = 0.005  # phase 11: share of the other parameters allowed beyond VP_PARAM_ATOL
+VP_KINK_MARGIN = 1e-4   # phase 11: a branch the plain path takes from the kernels' (Kinks) lies
+#                         this share of the call's largest input from its tie, at most
 # phase 9 and 9b, predictions through the kernels against the plain path
 # (compare_vp): their largest and root-mean-square differences, the per-step
 # MSE's largest.  bf16: H100 readings 5.9e-4, 1.1e-5, 2.5e-4 (the f32 plain
@@ -324,6 +333,7 @@ ENSEMBLE_VALID_SHAPE = (3, 45, 8, 60, 4)  # the Jin2022/4G valid split at run_en
 ENSEMBLE_PASSES = 3     # phase 13: timed runs of run_ensemble
 AV_PRIOR = 3.0          # phases 15-15c: the logit prior of v16's flags (--av-logit-prior)
 AV_RTOL, AV_ATOL = 1e-5, 1e-6  # phase 2g: the derived values against their plain version
+DEMO_ROWS = 77_760      # phase 2g: the row mode at the rows of dagger_av's demos (its demo_rows)
 LOGIT_NEAR_TIE = 1e-4   # phase 15: top-two plain logit margin of a near-tie (the prior
 #                         standardizes the 15 values, so their ulps move the logits by ~1e-5)
 
@@ -2879,27 +2889,128 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(before)
 
 
-def vp_step(model, opt, batch, seed: int, perms, repeat, plain: bool) -> dict:
+class Kinks:
+    """The branches an MTIO training step takes where its function has a
+    kink: the feed-forward's ReLU (``models/transformer.py``), the
+    distillation's max pool, and the periodic MSE's nearest image
+    (``ops/geometry.py:periodic_mse``, through ``models/mtio.py``).  Two
+    paths whose sums differ by an ulp can land on two sides of a near-tie
+    there, and a gradient that flows through another branch differs by that
+    entry's whole share, not by an ulp.  Built without ``recorded``, the
+    step's branches are kept (each later pass must take the same ones);
+    with a record, each call takes the recorded branch, and ``flips``
+    counts the entries where its own would differ, with the largest
+    ``margin``: how far the flipped entry lies from its tie, as a share of
+    the call's largest input magnitude."""
+
+    def __init__(self, recorded=None):
+        self.recorded = recorded
+        self.calls = [] if recorded is None else recorded
+        self.cursor, self.entries, self.flips, self.margin = 0, 0, {}, 0.0
+
+    @contextlib.contextmanager
+    def patched(self):
+        """One forward (and its loss) with the kinks routed through here."""
+        from mansy_immersivevideostreaming_torch.models import mtio, transformer
+        shim = types.SimpleNamespace(**{k: getattr(torch.nn.functional, k)
+                                        for k in dir(torch.nn.functional)
+                                        if not k.startswith("__")})
+        shim.relu, shim.max_pool1d = self.relu, self.max_pool1d
+        self.cursor, self.entries, self.flips, self.margin = 0, 0, {}, 0.0
+        with (mock.patch.object(transformer, "F", shim),
+              mock.patch.object(mtio, "periodic_mse", self.periodic_mse)):
+            yield self
+        if self.cursor != len(self.calls):
+            raise AssertionError(f"kinks: {self.cursor} calls of {len(self.calls)} recorded")
+
+    def _take(self, kind: str, own: torch.Tensor):
+        """The branch to take where ``own`` is this pass's, and the entries
+        where the two differ (None when recording)."""
+        self.entries += own.numel()
+        if self.cursor == len(self.calls):
+            if self.recorded is not None:
+                raise AssertionError(f"kinks: more calls than recorded ({kind})")
+            self.calls.append((kind, own))
+        recorded_kind, taken = self.calls[self.cursor]
+        self.cursor += 1
+        if recorded_kind != kind or taken.shape != own.shape:
+            raise AssertionError(f"kinks: call {self.cursor} is {kind} {tuple(own.shape)}, "
+                                 f"recorded {recorded_kind} {tuple(taken.shape)}")
+        if self.recorded is None:
+            if not torch.equal(taken, own):
+                raise AssertionError(f"kinks: a pass took other branches ({kind})")
+            return taken, None
+        return taken, taken != own
+
+    def _count(self, kind: str, flip, gap: torch.Tensor, scale: torch.Tensor) -> None:
+        n = int(flip.sum())
+        if n:
+            self.flips[kind] = self.flips.get(kind, 0) + n
+            self.margin = max(self.margin, float(gap[flip].max() / scale))
+
+    def relu(self, x, inplace: bool = False):
+        out = torch.nn.functional.relu(x)
+        taken, flip = self._take("relu", (x > 0).detach())
+        if flip is None:
+            return out
+        self._count("relu", flip, x.detach().abs(), x.detach().abs().amax())
+        return torch.where(flip, torch.where(taken, x, 0.0), out)
+
+    def max_pool1d(self, x, kernel_size, stride=None, padding=0, **kw):
+        out, own = torch.nn.functional.max_pool1d(x, kernel_size, stride=stride,
+                                                  padding=padding, return_indices=True, **kw)
+        taken, flip = self._take("max_pool", own)
+        if flip is None:
+            return out
+        forced = x.gather(-1, taken)
+        self._count("max_pool", flip, (out - forced).detach(), x.detach().abs().amax())
+        return torch.where(flip, forced, out)
+
+    def periodic_mse(self, a, b, dimension: int = 2):
+        """``ops/geometry.py:periodic_mse``'s expression, the nearest of the
+        three images as a branch."""
+        images = torch.stack([(a - b).abs(), (a + 1.0 - b).abs(), (a - 1.0 - b).abs()])
+        err = torch.minimum(torch.minimum(images[0], images[1]), images[2])
+        near = images.detach()
+        own = torch.where(near[2] < torch.minimum(near[0], near[1]), 2,
+                          torch.where(near[1] < near[0], 1, 0))
+        taken, flip = self._take("periodic", own)
+        if flip is not None:
+            forced = images.gather(0, taken[None])[0]
+            self._count("periodic", flip, (forced - err).detach(), near[0].amax())
+            err = torch.where(flip, forced, err)
+        return (err * err).sum(-1) / dimension
+
+    def summary(self) -> dict:
+        return dict(calls=len(self.calls), entries=self.entries, flips=self.flips,
+                    largest_margin=self.margin)
+
+
+def vp_step(model, opt, batch, seed: int, perms, repeat, plain: bool, kinks=None) -> dict:
     """One ``vp_train.train_step`` from ``model``'s weights and a fresh
     train state, through the kernels or (``plain``) K8's plain version
     (``mock.patch``): its loss and gradients (on one copy of the model) and
-    its parameters after AdamW and BatchNorm statistics (on another)."""
+    its parameters after AdamW and BatchNorm statistics (on another).  With
+    ``kinks`` (:class:`Kinks`), both passes record or take its branches."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     from mansy_immersivevideostreaming_torch.models import transformer
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
     dev = batch["history"].device
     state = TV.create_train_state(model)
+    branches = kinks.patched if kinks is not None else contextlib.nullcontext
     with (mock.patch.object(transformer, "attention", K8.attention_plain) if plain
           else contextlib.nullcontext()):
         m = copy.deepcopy(model)
-        pred, gt = m(batch["history"], batch["current"], batch["future"], train=True,
-                     perms=perms, repeat=repeat,
-                     generator=TV.step_generator(seed, state.step, dev))
-        loss = m.loss_function(pred, gt)
+        with branches():
+            pred, gt = m(batch["history"], batch["current"], batch["future"], train=True,
+                         perms=perms, repeat=repeat,
+                         generator=TV.step_generator(seed, state.step, dev))
+            loss = m.loss_function(pred, gt)
         grads = torch.autograd.grad(loss, list(m.parameters()))
         stepped = copy.deepcopy(model)
-        TV.train_step(stepped, opt, state, batch, seed, perms, repeat)
+        with branches():
+            TV.train_step(stepped, opt, state, batch, seed, perms, repeat)
     return dict(loss=float(loss.detach()), grads=grads, params=[p.detach() for p in stepped.parameters()],
                 stats=list(stepped.transformer.distill.bn.buffers()))
 
@@ -2964,7 +3075,10 @@ def vp_step_faults(r: dict, limits) -> list:
         (f"parameters {r['param_max_abs_err']} > {VP_PARAM_ATOL}",
          r["param_max_abs_err"] > VP_PARAM_ATOL),
         (f"{r['params_beyond_atol_share']} of the parameters beyond {VP_PARAM_ATOL} > {loose}",
-         r["params_beyond_atol_share"] > loose)) if bad]
+         r["params_beyond_atol_share"] > loose),
+        (f"a flipped branch {r['kinks']['largest_margin'] if 'kinks' in r else 0} from its tie "
+         f"> {VP_KINK_MARGIN}", "kinks" in r and not r["kinks"]["largest_margin"] <= VP_KINK_MARGIN)
+    ) if bad]
 
 
 @deterministic_algorithms()
@@ -2974,13 +3088,16 @@ def compare_vp_steps(model, opt, batch, seed: int, f32_model=None) -> dict:
     kernels and through K8's plain version, each under PyTorch's
     deterministic algorithms (``deterministic_algorithms``), so that the two
     differ only by the attention's implementation, held at the limits of
-    ``vp_step_faults``.  In f32, VP_LIMITS: the loss to VP_LOSS_RTOL, each
-    gradient entry to VP_GRAD_RTOL relative plus VP_GRAD_RTOL of the
-    model's largest entry (K8's sums in another order differ by an ulp, and
-    the difference grows through the 15 decode steps that feed their
-    predictions back: H100 readings from 5e-8 to 6e-5 of the largest entry
-    on the trained weights, which differ from run to run, and once 2.1e-4,
-    at the distillation conv's kernel; PERF.md section 7),
+    ``vp_step_faults``.  In f32 the plain path takes the kernels' branches
+    at the model's kinks (:class:`Kinks`; each flipped branch within
+    VP_KINK_MARGIN of its tie): where an ulp of K8 flips a near-tie ReLU or
+    max-pool window, the gradient through it differs by that entry's whole
+    share (H100 readings on the plain path's own branches, ``own_branches``,
+    shown and not held: 8e-8 to 2.1e-4 of the largest entry, and each one
+    past 1e-6 that was counted had a flip; forced, 4e-8 to 5.4e-7; PERF.md
+    section 6).
+    VP_LIMITS: the loss to VP_LOSS_RTOL, each gradient entry to VP_GRAD_RTOL
+    relative plus VP_GRAD_RTOL of the model's largest entry,
     VP_PARAM_LOOSE of the parameters beyond VP_PARAM_ATOL.  A bf16
     ``model`` (phase 11b) comes with ``f32_model``, its weights at f32
     compute: the two bf16 paths part by bf16 roundings that flip where K8
@@ -2994,9 +3111,16 @@ def compare_vp_steps(model, opt, batch, seed: int, f32_model=None) -> dict:
     names = [n for n, _ in model.named_parameters()]
     bf16 = f32_model is not None
     limits = VP_BF16_LIMITS if bf16 else VP_LIMITS
-    got = vp_step(model, opt, batch, seed, perms, repeat, False)
-    readings = vp_step_readings(got, vp_step(model, opt, batch, seed, perms, repeat, True),
+    kinks = None if bf16 else Kinks()
+    got = vp_step(model, opt, batch, seed, perms, repeat, False, kinks)
+    forced = None if bf16 else Kinks(kinks.calls)
+    readings = vp_step_readings(got, vp_step(model, opt, batch, seed, perms, repeat, True, forced),
                                 names, limits)
+    if not bf16:  # the plain path on its own branches: shown, not held
+        free = vp_step_readings(got, vp_step(model, opt, batch, seed, perms, repeat, True),
+                                names, limits)
+        readings.update(kinks=forced.summary(), own_branches={
+            k: free[k] for k in ("loss_rel_err", "grad_share", "grad_worst")})
     faults = vp_step_faults(readings, limits)
     if faults:
         raise AssertionError(f"vp_train: the kernels' step differs from the plain path's: "
@@ -3736,13 +3860,17 @@ def derived_bytes(rows: int, K: int, R: int, T: int, A: int) -> int:
 def derived_kernel_phase(dev, parent=None):
     """Phase 2g: K2's derived mode at each path's width (the first 32, 128,
     512 and 8192 lanes of tables of the train split's shape, without action
-    values) and its row mode at CE_BATCH rows (packed by the plain derived
-    mode, their action-value columns zeroed), each against its plain version
+    values) and its row mode at CE_BATCH rows and at DEMO_ROWS (rows packed
+    by the plain derived mode, their action-value columns zeroed; the
+    8192 lanes' rows repeated to DEMO_ROWS), each against its plain version
     on the same card tensors (AV_RTOL, AV_ATOL), two launches bit-equal,
     timed by CUDA events beside the bytes bound and the plain version; then
     both modes on the edge cases at serve's lane chunk (an empty and a full
     predicted viewport, an empty throughput history, no previous action).
-    The parent commit has neither mode."""
+    With ``parent``, the parent commit's two modes on the same inputs: timed
+    at every width and row count (``earlier_ms``, ``earlier_ms_range``), and
+    their bits must equal this tree's everywhere (``earlier_bits_equal``;
+    on the edge cases ``row_earlier_bits_equal`` too)."""
     from mansy_immersivevideostreaming_torch.kernels import env_step as K1
     from mansy_immersivevideostreaming_torch.kernels import observe as K2
     from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes
@@ -3761,7 +3889,14 @@ def derived_kernel_phase(dev, parent=None):
         state, *_ = K1.env_step_plain(tables, samples, state, acts, LANES, True)
     dims = K2.obs_dims(tables)[:4]
     col = K2.obs_columns(*dims, True)["action_values"]
-    earlier = "the parent commit has no derived mode" if parent else None
+    earlier = parent.observe if parent else None
+    differ = []  # where the parent's bits differ
+
+    def same_bits(label, got, theirs) -> bool:
+        if not torch.equal(got, theirs):
+            differ.append(label)
+            return False
+        return True
 
     def fused(t, sub, label):
         x = K2.observe_mansy_pack(t, sub, action_values=True)
@@ -3791,7 +3926,7 @@ def derived_kernel_phase(dev, parent=None):
         sub = tree_map(lambda x: x[:n].contiguous(), state)
         x, ref = fused(tables, sub, f"{n} lanes")
         out = torch.empty_like(x)
-        cases[str(n)] = dict(
+        case = cases[str(n)] = dict(
             lanes=n, width=x.shape[1], plan=K2.observe_plan(n)._asdict(),
             max_abs_err=float((x - ref).abs().max()),
             **gpu_spread(lambda: K2.observe_mansy_pack(tables, sub, out=out, action_values=True)),
@@ -3799,6 +3934,13 @@ def derived_kernel_phase(dev, parent=None):
                                                                 action_values=True), 5),
             bound_ms=1e3 * observe_bytes(tables, sub, x.shape[1]) / HBM_BYTES_PER_S,
             write_floor_ms=gpu_ms(lambda: out.fill_(0.0)))
+        if earlier:
+            case["earlier_bits_equal"] = same_bits(
+                f"{n} lanes", x, earlier.observe_mansy_pack(tables, sub, action_values=True))
+            case.update(gpu_spread(lambda: earlier.observe_mansy_pack(
+                tables, sub, out=out, action_values=True), "earlier_ms"))
+        if n == LANES:
+            ref_all = ref
 
     # the edge cases, both modes, at serve's lane chunk
     sub = tree_map(lambda x: x[:SERVE_CHUNK].contiguous(), state)
@@ -3811,30 +3953,47 @@ def derived_kernel_phase(dev, parent=None):
     edges = {}
     for label, (t, s) in edge.items():
         x, ref = fused(t, s, label)
-        _, got, want = row_mode(ref, label)
+        rows, got, want = row_mode(ref, label)
         if label == "empty_history" and not bool((x[:, col.stop - 1] == 0.5).all()):
             raise AssertionError("observe_mansy_pack, derived: bw_hat is not the 0.5 prior")
         edges[label] = dict(fused_max_abs_err=float((x - ref).abs().max()),
                             row_max_abs_err=float((got - want).abs().max()))
+        if earlier:
+            edges[label].update(
+                earlier_bits_equal=same_bits(
+                    label, x, earlier.observe_mansy_pack(t, s, action_values=True)),
+                row_earlier_bits_equal=same_bits(
+                    f"{label}, row mode", got, earlier.derive_action_values(rows.clone(), *dims)))
 
-    # the row mode at CE_BATCH rows
-    _, ref = fused(tables, tree_map(lambda x: x[:CE_BATCH].contiguous(), state),
-                   f"{CE_BATCH} lanes")
-    rows, got, want = row_mode(ref, f"{CE_BATCH} rows")
-    buf = rows.clone()
-    row_case = dict(rows=CE_BATCH, plan=K2.observe_plan(CE_BATCH)._asdict(),
-                    max_abs_err=float((got - want).abs().max()),
-                    **gpu_spread(lambda: K2.derive_action_values(buf, *dims)),
-                    plain_ms=gpu_ms(lambda: K2.derive_action_values_plain(buf, *dims), 5),
-                    bound_ms=1e3 * derived_bytes(CE_BATCH, *dims) / HBM_BYTES_PER_S)
+    # the row mode at CE_BATCH rows and at DEMO_ROWS
+    row_cases = {}
+    for n in (CE_BATCH, DEMO_ROWS):
+        ref = ref_all.repeat(-(-n // LANES), 1)[:n]
+        rows, got, want = row_mode(ref, f"{n} rows")
+        buf = rows.clone()
+        case = row_cases[str(n)] = dict(
+            rows=n, plan=K2.observe_plan(n)._asdict(), max_abs_err=float((got - want).abs().max()),
+            **gpu_spread(lambda: K2.derive_action_values(buf, *dims)),
+            plain_ms=gpu_ms(lambda: K2.derive_action_values_plain(buf, *dims), 5),
+            bound_ms=1e3 * derived_bytes(n, *dims) / HBM_BYTES_PER_S)
+        if earlier:
+            case["earlier_bits_equal"] = same_bits(
+                f"{n} rows", got, earlier.derive_action_values(rows.clone(), *dims))
+            case.update(gpu_spread(lambda: earlier.derive_action_values(buf, *dims),
+                                   "earlier_ms"))
+    if differ:
+        raise AssertionError(f"K2's derived values differ from the parent's kernels' bits: "
+                             f"{differ}")
     main = cases[str(LANES)]
     fused_row = dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()),
                      width=main["width"],
                      **{k: main[k] for k in main if k.endswith("ms") or k.endswith("range")},
                      bound_by="bytes", library_ms=None, cases=cases, edge_cases=edges)
-    row_row = dict(**row_case, bound_by="bytes", library_ms=None)
-    if parent:
-        fused_row["earlier"] = row_row["earlier"] = earlier
+    main = row_cases[str(CE_BATCH)]
+    row_row = dict(max_abs_err=max(c["max_abs_err"] for c in row_cases.values()),
+                   rows=main["rows"], plan=main["plan"],
+                   **{k: main[k] for k in main if k.endswith("ms") or k.endswith("range")},
+                   bound_by="bytes", library_ms=None, cases=row_cases)
     return {"observe_mansy_pack_derived": fused_row, "derive_action_values": row_row}
 
 
@@ -4024,6 +4183,9 @@ def main() -> int:
                         help="another checkout of the repo (e.g. the parent commit's, from "
                              "git archive): its K3, K10, K8, K1, K9, K2, K7, K5 and K6 are built and "
                              "timed beside this tree's (earlier_ms)")
+    parser.add_argument("--vp-train", metavar="N", type=int, default=0,
+                        help="run only phase 11 (vp_train), N times over, and print each "
+                             "run's step checks (kernels_vs_plain) as a JSON line")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
@@ -4059,6 +4221,12 @@ def main() -> int:
                 actor_critic_backward, chunk_maps, trajectory_metrics, attention,
                 attention_train_forward, attention_backward, observe_simple_pack,
                 derive_action_values)
+    if opts.vp_train:  # phase 11's step checks over trainings whose weights differ
+        for run in range(opts.vp_train):
+            result = vp_train_phase(dev, counters)
+            print(json.dumps({"run": run, "card": card, "step": result["kernels_vs_plain"],
+                              "his_window_96": result["his_window_96"]["kernels_vs_plain"]}))
+        return 0
 
     t0 = time.time()
     parent = load_parent(opts.parent) if opts.parent else None

@@ -18,7 +18,9 @@ TensorBoard events are written.  ``--test`` evaluates a policy over the test
 grid (by default the ``best_policy.npz`` that ``--train`` wrote); the
 sidecar decides the observation, as the JAX CLI's ``apply_net_config`` does.
 
-Refused, for a later slice: ``--data-parallel`` (the multi-card slice).
+``--data-parallel`` is read as the JAX CLI reads it: ``--test`` ignores it,
+and ``--train`` on one device runs as without it; over more devices it is
+refused until the multi-process path is ported (ROADMAP Queue 1 item 14c).
 
 Examples::
 
@@ -57,7 +59,7 @@ from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
 from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_npz_into, load_npz_policy, save_net_config, save_npz,
 )
-from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.device import check_data_parallel, resolve_device
 from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger
 
 
@@ -359,9 +361,7 @@ def test(args, config, models_dir: str, results_dir: str):
 
 
 def run(args, config):
-    if args.data_parallel:
-        raise SystemExit("run_mansy: --data-parallel is not ported yet (the multi-card slice, "
-                         "ROADMAP Queue 1 item 14)")
+    check_data_parallel("run_mansy", args)
     if args.qoe_train_ids is None:
         args.qoe_train_ids = list(range(len(config.qoe_split["train"])))
     split = "train" if args.test_on_seen else "test"
@@ -496,7 +496,8 @@ def build_parser():
                         help="per-preference KL anchor coefficients, one per train "
                              "preference; overrides --bc-kl")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="shard env lanes over all devices (not ported: refused)")
+                        help="shard env lanes over all devices (one device: as without the "
+                             "flag; more: refused, not ported yet)")
     parser.add_argument("--deterministic-eval", action="store_true",
                         help="argmax actions at test time (tianshou deterministic_eval; "
                              "reference default samples)")

@@ -25,7 +25,9 @@ forward and its backward kernel 62 times each (6 with teacher forcing); in
 validation and testing its serving kernel, and the results recorder K7
 once.
 
-Refused, for a later item: ``--data-parallel`` (ROADMAP Queue 1 item 14).
+``--data-parallel`` is read as the JAX CLI reads it: ``--test`` ignores it,
+and ``--train`` on one device runs as without it; over more devices it is
+refused until the multi-process path is ported (ROADMAP Queue 1 item 14c).
 
 Example::
 
@@ -54,7 +56,7 @@ from mansy_immersivevideostreaming_torch.models.regression import linear_regress
 from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_mtio_npz_into, load_train_checkpoint, save_mtio_npz, save_train_checkpoint,
 )
-from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.device import check_data_parallel, resolve_device
 from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger
 from mansy_immersivevideostreaming_torch.utils.results import Results
 
@@ -176,9 +178,7 @@ def test(args, config, models_dir: str, results_dir: str, file_prefix: str):
 
 def run(args, config):
     assert args.model in ("regression", "mtio")
-    if args.data_parallel:
-        raise NotImplementedError("run_models: --data-parallel is not ported yet (ROADMAP "
-                                  "Queue 1 item 14)")
+    check_data_parallel("run_models", args)
     # None -> config backfill (reference run_models.py:198-203)
     args.trim_head = config.trim_head if args.trim_head is None else args.trim_head
     args.trim_tail = config.trim_tail if args.trim_tail is None else args.trim_tail
@@ -247,7 +247,8 @@ def build_parser():
                         help="single-pass ground-truth-fed training decode instead of the "
                              "15-step autoregressive one; inference stays autoregressive")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported yet: refused")
+                        help="one device: as without the flag; more: refused, not "
+                             "ported yet")
     parser.add_argument("--config-yml", type=str, default=None)
     return parser
 

@@ -68,15 +68,22 @@
 // viewport mask by ballot and its BFS scales as K1 computes them, bw_hat,
 // the viewport's sum, has_prev); the scales do not depend on the action.
 // Then the group's warps split the 15 actions (one warp: all of them; four
-// warps: every fourth), each action three warp reductions over the 64
-// tiles (thread t holds tiles t and t + 32): the size and sum vp q, then
-// sum vp |q - qual| after qual.  The tile's version is one lookup in a
-// [A, 5] table indexed by (action, scale), scale 0 being the inside rate
-// (ops/allocation.py:allocate_tile_rates with the JAX function's default
-// rates and tiling).  Added work: ~15 x 64 x 8 flops a lane, well under the
-// row's bytes at the card's rates, so the mode stays bound by bytes.  The
-// row mode copies each row's inputs into shared memory with its group, then
-// runs the same derive_values and writes the 16 columns.
+// warps: every fourth).  A warp's actions share their reductions over the
+// 64 tiles (thread t holds tiles t and t + 32): one reduce-scatter of every
+// action's size and sum vp q (30 values on one warp: 31 shuffles, five
+// stages deep, where a warp sum a value took 150 in 30 chains), the quals
+// divided once on the lanes that hold their sums and passed round by
+// shuffles, then one reduce-scatter of every sum vp |q - qual|.  Each value
+// follows warp_sum's tree, so the derived values keep the bits they had
+// when each value took a warp_sum of its own.  The tile's version
+// is one lookup in a [A, 5] table in shared memory indexed by (action,
+// scale), scale 0 being the inside rate (ops/allocation.py:
+// allocate_tile_rates with the JAX function's default rates and tiling).
+// Added work: ~15 x 64 x 8 flops a lane, well under the row's bytes at the
+// card's rates, so the mode stays bound by bytes.  The row mode copies a
+// block's contiguous tile of rows into shared memory with 16-byte cp.async
+// copies (strided rows: each group its row's inputs), then runs the same
+// derive_values and writes the 16 columns.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -142,6 +149,9 @@ constexpr int kSimple = 1, kDerived = 2;  // ObserveArgs::mode
 constexpr int kScales = mansy::kMaxScale + 1;  // columns of the version table
 constexpr float kSizeOverThroughput = 0.1f;    // abr_nets.py:29-31's constants
 constexpr float kBufferScale = 5.0f;
+// the derived values' actions and rates (ACTION_TO_RATES, the allocation's
+// defaults; kernels/observe.py and the launchers check A and R T)
+constexpr int kActions = 15, kRates = 5;
 
 // The exact one-step value of an action from its table entries (sim/env.py:
 // exact_action_values, in its operation order).
@@ -394,33 +404,79 @@ __device__ __forceinline__ void build_simple_row(const ObserveArgs& a, int n, fl
   }
 }
 
+// The sums over a warp of N values a lane (N a power of two, at most 32),
+// each in mansy::warp_sum's tree: a recursive-halving reduce-scatter over its
+// xor offsets 16, 8, 4, 2, 1.  While a lane holds more than one value, offset
+// o halves them: the lane keeps the upper half if its bit o is set, else the
+// lower, and adds to each kept value its partner's (lane ^ o) matching one,
+// which is the pair warp_sum adds at o (IEEE addition commutes bit for bit);
+// once it holds one, the remaining offsets add as warp_sum does.  Value i
+// ends in the lanes t with t >> (5 - log2 N) == i, which return it with
+// warp_sum's bits.  v is overwritten.
+template <int N, int L = N, int O = 16>
+__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
+  static_assert(N <= 32 && (N & (N - 1)) == 0, "N: a power of two up to 32");
+  if constexpr (O == 0) {
+    return v[0];
+  } else if constexpr (L > 1) {
+    constexpr int H = L / 2;
+    const bool upper = lane & O;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const float keep = upper ? v[H + k] : v[k];
+      const float send = upper ? v[k] : v[H + k];
+      v[k] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    return reduce_scatter<N, H, O / 2>(v, lane);
+  } else {
+    v[0] += __shfl_xor_sync(kFull, v[0], O);
+    return reduce_scatter<N, 1, O / 2>(v, lane);
+  }
+}
+
+__host__ __device__ constexpr int log2_floor(int x) { return x > 1 ? 1 + log2_floor(x / 2) : 0; }
+__host__ __device__ constexpr int pow2_ceil(int x) { return x > 1 ? 2 * pow2_ceil((x + 1) / 2) : 1; }
+
 // The derived action values of one lane (models/abr_nets.py:
 // causal_action_values) from its finished row, by the G threads of its
-// group (g: the thread's index there): out[a] for each action a < A, then
-// out[A] = bw_hat.  `row` is the lane's row in the exact mode's layout
-// (kernels/observe.py:obs_layout(.., av=True)) with T = 64 tiles; only its
-// input columns are read.  Every warp takes the lane's shared values, then
-// every (G / 32)-th action from its own index; thread t holds tiles t and
-// t + 32.  The operations are the plain version's, in its order within a
-// value; only the sums over tiles associate otherwise (butterflies).
+// group (g: the thread's index there): out[a] for each action a < kActions,
+// then out[kActions] = bw_hat.  `row` is the lane's row in the exact mode's
+// layout (kernels/observe.py:obs_layout(.., av=True)) at R = 5, T = 64 and
+// A = 15; only its input columns are read.  `versions` is the [kActions,
+// kScales] version table in shared memory.  Every warp takes the lane's
+// shared values, then the warp's actions (every (G / 32)-th from its own
+// index; kPer of them, in kSlots slots); thread t holds tiles t and t + 32.
+// Each action's tile sums, the size and sum vp q, go through one
+// reduce_scatter of all the warp's actions (value 2k the k-th action's size,
+// 2k + 1 its sum vp q); the lanes of value 2k + 1 divide it into qual, every
+// thread takes each qual by a shuffle and forms its sum vp |q - qual|
+// partials, and a second reduce_scatter sums them (value k).  The lane
+// (2k + 1) << kShift then holds the k-th action's qual and its sum of
+// deviations, takes its size from its partner and writes the value.  The
+// operations are those of one warp_sum a value, and each sum is warp_sum's
+// tree, so the values keep the bits one warp_sum a value gave; the plain
+// version's sums over tiles associate otherwise.
 template <int G>
 __device__ __forceinline__ void derive_values(const float* row, float* out,
-                                              const int32_t* __restrict__ versions, int K, int A,
-                                              int RT, int g) {
-  constexpr int W = G / 32;
+                                              const int32_t* versions, int K, int g) {
+  constexpr int W = G / 32;                        // warps a lane
+  constexpr int kPer = (kActions + W - 1) / W;     // actions a warp: 15 or 4
+  constexpr int kSlots = pow2_ceil(kPer);          // 16 or 4
+  constexpr int kShift = 4 - log2_floor(kSlots);   // a first-pass value on 1 << kShift lanes
   using mansy::kTiles;
+  constexpr int RT = kRates * kTiles;
   const int w = g / 32, j = g % 32;
   const int c_qual = K + RT, c_pred = K + 2 * RT;
   const int c_vq = c_pred + kTiles + K, c_buf = c_pred + kTiles + 4 * K, c_w = c_buf + 1;
-  const int c_hot = c_w + 3 + (A + 1) + 2 * K;
+  const int c_hot = c_w + 3 + (kActions + 1) + 2 * K;
 
   // bw_hat: the harmonic mean of the non-zero throughput history, 0.5 while empty
   const float tp = j < K ? row[j] : 0.f;
   const float nz = tp > 0.f ? 1.f : 0.f, inv = tp > 0.f ? 1.f / fmaxf(tp, 1e-12f) : 0.f;
   float cnt = 0.f, inv_sum = 0.f;
   for (int k = 0; k < K; ++k) {
-    cnt += __shfl_sync(mansy::kFull, nz, k);
-    inv_sum += __shfl_sync(mansy::kFull, inv, k);
+    cnt += __shfl_sync(kFull, nz, k);
+    inv_sum += __shfl_sync(kFull, inv, k);
   }
   const float bw_hat = cnt > 0.f ? cnt / fmaxf(inv_sum, 1e-12f) : 0.5f;
   // the predicted viewport: its tiles' weights, mask, scales and sum
@@ -428,24 +484,55 @@ __device__ __forceinline__ void derive_values(const float* row, float* out,
   int s0, s1;
   mansy::viewport_scales(mansy::viewport_mask(row + c_pred, j), j, s0, s1);
   const float vp_sum = fmaxf(mansy::warp_sum(vp0 + vp1), 1e-6f);
-  const bool has_prev = mansy::warp_sum(j < A ? row[c_hot + j] : 0.f) > 0.f;
+  const bool has_prev = mansy::warp_sum(j < kActions ? row[c_hot + j] : 0.f) > 0.f;
   const float buf = row[c_buf] * kBufferScale;  // the row's buf / startup_download, then x 5
   const float prev_q = row[c_vq];
   const float w0 = row[c_w], w1 = row[c_w + 1], w2 = row[c_w + 2];
   const float bw = fmaxf(bw_hat, 1e-6f);
 
-  for (int act = w; act < A; act += W) {  // warp-uniform
-    const int v0 = __ldg(versions + act * kScales + s0), v1 = __ldg(versions + act * kScales + s1);
-    const float q0 = row[c_qual + v0 * kTiles + j], q1 = row[c_qual + v1 * kTiles + j + 32];
-    const float size = mansy::warp_sum(row[K + v0 * kTiles + j] + row[K + v1 * kTiles + j + 32]);
-    const float qual = mansy::warp_sum(vp0 * q0 + vp1 * q1) / vp_sum;
-    const float intra = mansy::warp_sum(vp0 * fabsf(q0 - qual) + vp1 * fabsf(q1 - qual)) / vp_sum;
+  // 1. each action's size and sum vp q
+  float q0[kSlots], q1[kSlots], part[2 * kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int act = w + k * W;
+    q0[k] = q1[k] = part[2 * k] = part[2 * k + 1] = 0.f;
+    if (act < kActions) {  // warp-uniform
+      const int v0 = versions[act * kScales + s0], v1 = versions[act * kScales + s1];
+      q0[k] = row[c_qual + v0 * kTiles + j];
+      q1[k] = row[c_qual + v1 * kTiles + j + 32];
+      part[2 * k] = row[K + v0 * kTiles + j] + row[K + v1 * kTiles + j + 32];
+      part[2 * k + 1] = vp0 * q0[k] + vp1 * q1[k];
+    }
+  }
+  const float sum1 = reduce_scatter(part, j);  // value j >> kShift
+  const float qual = sum1 / vp_sum;            // on value 2k + 1's lanes: action k's
+  // 2. each action's sum vp |q - qual|
+  float dev[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    dev[k] = 0.f;
+    if (w + k * W < kActions) {  // warp-uniform
+      const float qk = __shfl_sync(kFull, qual, (2 * k + 1) << kShift);
+      dev[k] = vp0 * fabsf(q0[k] - qk) + vp1 * fabsf(q1[k] - qk);
+    }
+  }
+  const float sum2 = reduce_scatter(dev, j);                      // value j >> (kShift + 1)
+  const float size = __shfl_xor_sync(kFull, sum1, 1 << kShift);  // value 2k's: action k's
+  const int act = w + (j >> (kShift + 1)) * W;
+  if ((j & ((2 << kShift) - 1)) == (1 << kShift) && act < kActions) {
+    const float intra = sum2 / vp_sum;
     const float dt = kSizeOverThroughput * size / bw;
     const float rebuf = mansy::max0(dt - buf);
     const float inter = has_prev ? fabsf(qual - prev_q) : 0.f;
-    if (j == 0) out[act] = w0 * qual - w1 * rebuf - w2 * (intra + inter);
+    out[act] = w0 * qual - w1 * rebuf - w2 * (intra + inter);
   }
-  if (g == 0) out[A] = bw_hat;
+  if (g == 0) out[kActions] = bw_hat;
+}
+
+// The version table into shared memory, by the block's threads (a barrier
+// follows before any read).
+__device__ __forceinline__ void stage_versions(int32_t* dst, const int32_t* src) {
+  for (int i = threadIdx.x; i < kActions * kScales; i += blockDim.x) dst[i] = __ldg(src + i);
 }
 
 }  // namespace
@@ -466,11 +553,13 @@ __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArg
   };
   const bool direct = a.out_stride != F || ((uintptr_t)dst & 15) != 0;
   if constexpr (kMode == kDerived) {  // the row in shared memory, then its values
+    __shared__ int32_t versions[kActions * kScales];
+    stage_versions(versions, a.av_versions);
     if (l < nl) build(tile + l * F);
     __syncthreads();
     if (l < nl) {
       const int c_av = a.K + 2 * a.RT + a.T + 4 * a.K + 4;
-      derive_values<G>(tile + l * F, tile + l * F + c_av, a.av_versions, a.K, a.A, a.RT, g);
+      derive_values<G>(tile + l * F, tile + l * F + c_av, versions, a.K, g);
     }
     if (direct) {  // rows strided or unaligned: each float to its place
       __syncthreads();
@@ -495,30 +584,49 @@ __global__ void __launch_bounds__(kMaxLanes * G) observe_kernel(const ObserveArg
 
 // The row mode: the derived action values of packed rows [N, F] (the
 // exact mode's layout), written into their 16 columns.  A group of G
-// threads a row, `lanes` rows a block; the group copies its row's input
-// columns (all before the action values, and the one-hot) into shared
-// memory, then derive_values reads them there and writes each value to
-// the row in device memory.
+// threads a row, `lanes` rows a block.  Where the rows are contiguous
+// (stride == F) and the block's tile of them 16-byte aligned (a tile of 4
+// rows is 4 F floats, a multiple of 16 bytes), the block copies its whole
+// tile into shared memory with 16-byte cp.async copies, every one issued
+// before the first wait; else each group copies its row's input columns
+// (all before the action values, and the one-hot) a float at a time.  Then
+// derive_values reads the rows there and writes each value to the row in
+// device memory.
 template <int G>
 __global__ void __launch_bounds__(kMaxLanes * G) derive_kernel(const DeriveArgs a) {
   extern __shared__ __align__(16) float rows[];  // [lanes, F]
-  const int n = blockIdx.x * a.lanes + threadIdx.x / G, g = threadIdx.x % G;
-  const int K = a.K, A = a.A;
-  const int c_av = K + 2 * a.RT + mansy::kTiles + 4 * K + 4, c_hot = c_av + A + 1 + 2 * K;
-  float* row = rows + (threadIdx.x / G) * a.F;
-  float* src = a.rows + (size_t)n * a.stride;
-  if (n < a.n_rows) {
-    for (int i = g; i < c_av; i += G) row[i] = __ldg(src + i);
-    if (g < A) row[c_hot + g] = __ldg(src + c_hot + g);
+  __shared__ int32_t versions[kActions * kScales];
+  const int n0 = blockIdx.x * a.lanes, nl = min(a.lanes, a.n_rows - n0);
+  const int l = threadIdx.x / G, g = threadIdx.x % G;
+  const int K = a.K, F = a.F;
+  const int c_av = K + 2 * a.RT + mansy::kTiles + 4 * K + 4, c_hot = c_av + kActions + 1 + 2 * K;
+  const float* src = a.rows + (size_t)n0 * a.stride;
+  stage_versions(versions, a.av_versions);
+  if (a.stride == F && ((uintptr_t)src & 15) == 0) {  // the block's tile, contiguous
+    const int count = nl * F, n4 = count / 4;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      mansy::tc::cp_async16(rows + 4 * i, src + 4 * i, true);
+    mansy::tc::cp_async_commit();
+    for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x) rows[i] = __ldg(src + i);
+    mansy::tc::cp_async_wait<0>();
+  } else if (l < nl) {  // strided or unaligned rows: each group its row's inputs
+    const float* r = src + (size_t)l * a.stride;
+    float* row = rows + l * F;
+    for (int i = g; i < c_av; i += G) row[i] = __ldg(r + i);
+    if (g < kActions) row[c_hot + g] = __ldg(r + c_hot + g);
   }
   __syncthreads();
-  if (n < a.n_rows) derive_values<G>(row, src + c_av, a.av_versions, K, A, a.RT, g);
+  if (l < nl) derive_values<G>(rows + l * F, a.rows + (size_t)(n0 + l) * a.stride + c_av, versions,
+                               K, g);
 }
 
 template <int G, int kMode>
 int launch(const ObserveArgs& args, cudaStream_t stream) {
   const int lanes = args.lanes;
   if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
+  if (kMode == kDerived && (args.A != kActions || args.RT != kRates * mansy::kTiles ||
+                            args.T != mansy::kTiles))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)lanes * args.F * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -533,7 +641,9 @@ int launch(const ObserveArgs& args, cudaStream_t stream) {
 template <int G>
 int launch_derive(const DeriveArgs& args, cudaStream_t stream) {
   const int lanes = args.lanes;
-  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > kMaxLanes || args.A != kActions ||
+      args.RT != kRates * mansy::kTiles)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)lanes * args.F * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -26,7 +26,10 @@ On the H100 the pass is bound by device-memory bytes (a gather plus
 elementwise scaling); ``csrc/observe.cu`` builds each lane's row in shared
 memory with a group of threads (one warp, or four at up to 1024 lanes), its
 loads in two levels and its shared values once, and stores a block's tile of
-rows with 16-byte stores where it can (:func:`observe_plan`).
+rows with 16-byte stores where it can (:func:`observe_plan`).  The derived
+values' sums over tiles are two warp reduce-scatters of every action's
+sums, each value in ``warp_sum``'s tree, so their bits are those of one
+warp sum a value.
 """
 
 from __future__ import annotations
@@ -311,7 +314,8 @@ def _version_table(device: torch.device) -> torch.Tensor:
     """i32 [A, 5] on ``device``: the rate version of a tile of scale s under
     action a (scale 0, inside the viewport: the action's inside rate; else
     ``scale_rate_table`` at its outside rate), the lookup of
-    ``allocate_tile_rates`` at the derived values' default rates and tiling."""
+    ``allocate_tile_rates`` at the derived values' default rates and tiling.
+    Each block of the derived and row modes stages it in shared memory."""
     table = scale_rate_table()
     versions = np.concatenate([ACTION_TO_RATES[:, :1], table[ACTION_TO_RATES[:, 1], 1:]], 1)
     return torch.as_tensor(versions.astype(np.int32), device=device)
@@ -417,7 +421,8 @@ def derive_action_values(rows: torch.Tensor, K: int, R: int, T: int, A: int) -> 
     (``obs_layout(K, R, T, A, av=True)``; their rows must be contiguous, and
     may be strided) into their action-value columns, in place.  Returns
     ``rows``.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel, whose blocks copy their tiles of rows in with 16-byte copies
+    where the rows are contiguous and the tile 16-byte aligned."""
     if rows.device.type == "cpu":
         return derive_action_values_plain(rows, K, R, T, A)
     _check_derived_dims("derive_action_values", K, R, T, A)

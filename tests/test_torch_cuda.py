@@ -281,6 +281,110 @@ def test_derive_action_values_row_mode_on_card(cuda_device, n, case):
     assert torch.equal(wide[:, :rows.shape[1]], got) and bool(wide[:, rows.shape[1]:].isnan().all())
 
 
+def _numpy_lanes(n: int, seed: int):
+    """(tables, state) on the CPU from numpy draws alone: tables of the
+    train split's shape whose predicted tiles are 15% fractional, and n
+    lanes whose fields K2 reads (the chunk, the buffer, the previous
+    quality, the seven histories, the one-hot) drawn anew, about one lane in
+    eight with no throughput yet and one in eight with no previous action."""
+    tables = synthetic_sim_tables(18, 45, 24, 60, 4, seed=0, device="cpu")
+    rng = np.random.default_rng(seed)
+    pred = tables.pred.numpy().copy()
+    flip = rng.random(pred.shape) < 0.15
+    pred[flip] = rng.random(int(flip.sum())).astype(np.float32)
+    tables = tables._replace(pred=torch.as_tensor(pred))
+    state = init_lanes(tables, torch.as_tensor(generate_environment_samples(18, 45, 24, 4)), n)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    hist = lambda lo, hi: f32(rng.uniform(lo, hi, (n, 8)))
+    throughput = hist(0.0, 1.0) * f32(rng.random((n, 1)) > 0.125)
+    hot = np.eye(15, dtype=np.float32)[rng.integers(0, 15, n)] * (rng.random((n, 1)) > 0.125)
+    state = state._replace(
+        next_chunk=torch.as_tensor(rng.integers(4, 59, n).astype(np.int32)),
+        buf=f32(rng.uniform(0.0, 30.0, n)),
+        qoe=state.qoe._replace(prev_quality=f32(rng.random(n)),
+                               has_prev=torch.as_tensor(hot.sum(1) > 0)),
+        past_throughput=throughput, past_acc=hist(0.0, 1.0), past_vq=hist(0.0, 1.0),
+        past_var=hist(0.0, 0.2), past_rebuf=hist(0.0, 0.5), past_rate_in=hist(0.0, 1.0),
+        past_rate_out=hist(0.0, 1.0), last_action_one_hot=f32(hot))
+    return tables, state
+
+
+DERIVED_EDGES = {"empty_viewport": ("pred_viewport", 0.0), "full_viewport": ("pred_viewport", 1.0),
+                 "empty_history": ("throughput", 0.0), "no_previous_action": ("action_one_hot", 0.0)}
+
+
+def derived_digests(K2, dev) -> dict:
+    """sha256 (16 hex digits) of K2's derived mode (``observe_mansy_pack(..,
+    action_values=True)``) at 32, 128, 512 and 8192 lanes of
+    :func:`_numpy_lanes`, and of its row mode (``derive_action_values``) on
+    4096 of those lanes' rows (packed by the plain derived mode on the CPU,
+    their action-value columns zeroed) and on the edge cases at 512 rows
+    (DERIVED_EDGES, both modes: the edited field in the tables or state for
+    the derived mode, in the rows for the row mode)."""
+    import hashlib
+
+    def digest(x):
+        return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    def on(t, x):
+        return type(x)(*(on(t, y) if isinstance(y, tuple) else y.to(t)
+                         if isinstance(y, torch.Tensor) else y for y in x))
+
+    tables, state = _numpy_lanes(8192, 1)
+    cols = K2.obs_columns(8, 5, 64, 15, True)
+    gpu_tables = on(dev, tables)
+    out = {}
+    for n in (32, 128, 512, 8192):
+        sub = on(dev, tree_map(lambda x: x[:n].contiguous(), state))
+        out[f"derived_{n}"] = digest(K2.observe_mansy_pack(gpu_tables, sub, action_values=True))
+    for n, edges in ((4096, {"lanes": (None, None)}), (512, DERIVED_EDGES)):
+        sub = tree_map(lambda x: x[:n].contiguous(), state)
+        base = K2.observe_mansy_pack_plain(tables, sub, action_values=True)
+        base[:, cols["action_values"]] = 0.0
+        for case, (field, value) in edges.items():
+            rows = base.clone()
+            if field is not None:
+                rows[:, cols[field]] = value
+                t, s = tables, sub
+                if field == "pred_viewport":
+                    t = tables._replace(pred=torch.full_like(tables.pred, value))
+                else:
+                    name = "past_throughput" if field == "throughput" else "last_action_one_hot"
+                    s = sub._replace(**{name: torch.zeros_like(getattr(sub, name))})
+                out[f"derived_{case}"] = digest(K2.observe_mansy_pack(
+                    on(dev, t), on(dev, s), action_values=True))
+            out[f"row_{case}_{n}"] = digest(K2.derive_action_values(rows.to(dev), 8, 5, 64, 15))
+    return out
+
+
+# derived_digests of the one-warp-sum-a-value kernels before the derived
+# values' reduce-scatter, taken on an H100 80GB HBM3 by the same function
+# bound to that commit's kernels
+DERIVED_DIGESTS = {
+    "derived_32": "5b0732ea12e22660",
+    "derived_128": "a8ac85a87eab39ad",
+    "derived_512": "3f84e5ddcddb729c",
+    "derived_8192": "47c0616d831fd67a",
+    "row_lanes_4096": "0415e87b68855b77",
+    "derived_empty_viewport": "11c522720a19cc62",
+    "row_empty_viewport_512": "11c522720a19cc62",
+    "derived_full_viewport": "74bec0f93e3ed037",
+    "row_full_viewport_512": "74bec0f93e3ed037",
+    "derived_empty_history": "f92494895133199e",
+    "row_empty_history_512": "f92494895133199e",
+    "derived_no_previous_action": "26c51578f3722abf",
+    "row_no_previous_action_512": "26c51578f3722abf",
+}
+
+
+@pytest.mark.cuda
+def test_derived_values_keep_their_bits_on_card(cuda_device):
+    """K2's derived and row modes give the bits they gave before their
+    reduce-scatter (DERIVED_DIGESTS): the four widths, 4096 rows and the
+    edge cases."""
+    assert derived_digests(K2, cuda_device) == DERIVED_DIGESTS
+
+
 def _check_expert_tables(tables):
     """K5 against its plain version (rtol 1e-5, atol 1e-6: the kernel sums
     each quantity over the tiles in its own fixed order), and two launches

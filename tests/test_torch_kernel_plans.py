@@ -28,6 +28,14 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
   for N from 1 to 20000, a block's tile of rows is a multiple of 16 bytes
   at the paths' widths (779 and 795 columns), and a group is one of the
   kernel's two (a warp, or four at up to 1024 lanes).
+* K2's derived values (``csrc/observe.cu:derive_values``): the
+  recursive-halving reduce-scatter over the xor offsets 16 to 1, emulated
+  in numpy float32 at the value counts the kernel uses (30, 16, 8 and 4),
+  gives every value the bits of ``mansy::warp_sum``'s butterfly on it, on
+  seeded values over 12 decades, both signs and signed zeros; and the
+  kernel's assignment (a warp or four a lane) puts each action's size,
+  sum vp q and sum vp |q - qual| where the lane that writes it reads them,
+  each action on one lane of one warp.
 * ``chunk_plan`` (K7 chunk mode): the groups cover every trajectory and
   every step below ``frequency`` of gt and of pred exactly once, for B from
   1 to 20000 and frequency 1 to 15.
@@ -627,3 +635,95 @@ def test_mha_attend_gradients_match_jax_grad(case, monkeypatch):
     if kv_len0 is not None:  # keys no row sees get exactly 0
         unseen = slice(min(Lk, kv_len0 + Lq - 1), None)
         assert not got_core[1][:, unseen].any() and not got_core[2][:, unseen].any()
+
+
+# ------------------------------------------------- K2's derived values
+
+OFFSETS = (16, 8, 4, 2, 1)  # mansy::warp_sum's xor offsets, in its order
+LANES = np.arange(32)
+
+
+def warp_sum(x: np.ndarray) -> np.ndarray:
+    """``common.cuh:warp_sum`` on [32] float32 lanes: each lane's result."""
+    for o in OFFSETS:
+        x = x + x[LANES ^ o]
+    return x
+
+
+def reduce_scatter(v: np.ndarray) -> np.ndarray:
+    """``csrc/observe.cu:reduce_scatter`` on [32 lanes, N values] float32:
+    lane t's result.  While a lane holds more than one value, offset o
+    halves them (the upper half kept where bit o of the lane is set) and
+    adds the partner's matching half; then the offsets left add as
+    warp_sum does."""
+    n = v.shape[1]
+    for o in OFFSETS:
+        if n > 1:
+            n //= 2
+            upper = ((LANES & o) != 0)[:, None]
+            keep = np.where(upper, v[:, n:2 * n], v[:, :n])
+            send = np.where(upper, v[:, :n], v[:, n:2 * n])
+            v = keep + send[LANES ^ o]
+        else:
+            v = v + v[LANES ^ o]
+    return v[:, 0]
+
+
+def adversarial_values(rng, shape) -> np.ndarray:
+    """float32 over 12 decades, both signs, with signed zeros and exact
+    cancellations."""
+    x = (rng.choice([-1.0, 1.0], shape) * 10.0 ** rng.uniform(-6, 6, shape)).astype(np.float32)
+    x[rng.random(shape) < 0.1] = 0.0
+    x[rng.random(shape) < 0.1] = -0.0
+    pairs = rng.random(shape) < 0.1
+    x[pairs] = -np.roll(x, 1, axis=0)[pairs]
+    return x
+
+
+@pytest.mark.parametrize("V", [30, 16, 8, 4])
+def test_derived_reduce_scatter_keeps_the_butterflys_bits(V):
+    """Every value the reduce-scatter leaves on lane t (value t >> (5 -
+    log2 N), N the count padded to a power of two) has the bits of
+    warp_sum's butterfly on that value, on 200 seeded trials."""
+    N = 1 << (V - 1).bit_length()
+    shift = 5 - (N.bit_length() - 1)
+    rng = np.random.default_rng(V)
+    for trial in range(200):
+        v = np.zeros((32, N), np.float32)
+        v[:, :V] = adversarial_values(rng, (32, V)) if trial % 2 else \
+            rng.standard_normal((32, V)).astype(np.float32)
+        got = reduce_scatter(v)
+        want = np.stack([warp_sum(v[:, i]) for i in range(N)])  # [N, 32]
+        assert (want.view(np.uint32) == want[:, :1].view(np.uint32)).all()  # every lane alike
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want[LANES >> shift, 0].view(np.uint32))
+
+
+@pytest.mark.parametrize("group", [32, 128])
+def test_derived_values_assignment_puts_each_sum_where_it_is_read(group):
+    """The kernel's assignment at one warp a lane and at four: warp w takes
+    actions w, w + W, ...; its k-th action's size is first-pass value 2k,
+    its sum vp q value 2k + 1, its sum vp |q - qual| second-pass value k.
+    The lane that writes the action ((j & (2 << shift) - 1) == 1 << shift)
+    holds value 2k + 1 and value k, its partner j ^ (1 << shift) value 2k,
+    the qual's broadcast lane (2k + 1) << shift value 2k + 1; every action
+    is written by exactly one lane of one warp."""
+    A, W = 15, group // 32
+    per = -(-A // W)
+    slots = 1 << (per - 1).bit_length()
+    shift = 4 - (slots.bit_length() - 1)
+    assert 32 >> shift == 2 * slots
+    writers = {}
+    for w in range(W):
+        for j in range(32):
+            k = j >> (shift + 1)
+            act = w + k * W
+            if (j & ((2 << shift) - 1)) != (1 << shift) or act >= A:
+                continue
+            writers.setdefault(act, []).append((w, j))
+            assert j >> shift == 2 * k + 1                 # its sum vp q, divided into qual
+            assert (j ^ (1 << shift)) >> shift == 2 * k    # the partner's: the size
+            assert ((2 * k + 1) << shift) >> shift == 2 * k + 1  # the broadcast lane's qual
+    assert sorted(writers) == list(range(A)) and all(len(v) == 1 for v in writers.values())
+    assert sorted({k for k in range(slots) for w in range(W) if w + k * W < A}) == \
+        list(range(per))

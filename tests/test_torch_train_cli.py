@@ -16,13 +16,18 @@ hidden 16), as ``tests/test_cli_integration.py`` runs the JAX CLIs.
   the exact field.
 
 Every policy and identifier npz loads into the JAX package's Flax net and
-gives the port's outputs (1e-5), and each policy has its sidecar.  The
-flags of a later slice (``--data-parallel``) are refused.
+gives the port's outputs (1e-5), and each policy has its sidecar.
+
+``--data-parallel`` on one device (``--device cpu``): ``run_mansy --train``
+and ``--test`` write the npz, logs and stdout of the same run without the
+flag; over two CUDA devices ``--train`` refuses, naming ROADMAP item 14c.
 """
 
+import dataclasses
 import glob
 import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -191,10 +196,68 @@ def test_run_expert_demos_then_run_dagger(tree, capsys):
 @pytest.mark.parametrize("cli,flags", [
     (run_mansy, ["--train", "--data-parallel"]),
 ])
-def test_later_slices_flags_are_refused(tree, cli, flags):
+def test_later_slices_flags_are_refused(tree, cli, flags, monkeypatch):
+    """Over two CUDA devices ``--train --data-parallel`` is the multi-process
+    path, not ported yet: refused before anything runs, naming item 14c."""
     _, cfg = tree
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.run(cli.build_parser().parse_args(flags + ["--device", "cpu"]), cfg)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="item 14c"):
+        cli.run(cli.build_parser().parse_args(flags + ["--device", "cuda"]), cfg)
+
+
+# a rate or a duration in a console line: the one thing two runs may differ in
+TIMED = re.compile(r"[0-9][0-9,.]* (?:env-steps|samples|trajectories)/s|in [0-9.]+s\b")
+
+
+def cli_outputs(run, roots, capsys) -> dict:
+    """``run()``'s stdout and every file it wrote under ``roots`` ({path:
+    content}: an npz as its arrays, text with TIMED masked); the roots are
+    removed after, so that the next run writes the same paths afresh."""
+    capsys.readouterr()
+    run()
+    out = {"stdout": TIMED.sub("<t>", capsys.readouterr().out)}
+    for root in roots:
+        for path in sorted(glob.glob(os.path.join(root, "**", "*"), recursive=True)):
+            if path.endswith(".npz"):
+                with np.load(path) as npz:
+                    out[path] = {k: npz[k] for k in npz.files}
+            elif os.path.isfile(path):
+                with open(path) as f:
+                    out[path] = TIMED.sub("<t>", f.read())
+        shutil.rmtree(root)
+    return out
+
+
+def assert_same_outputs(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys() and len(got) > 1
+    for path, x in want.items():
+        if isinstance(x, dict):
+            assert got[path].keys() == x.keys(), path
+            for k in x:
+                np.testing.assert_array_equal(got[path][k], x[k], err_msg=f"{path}: {k}")
+        else:
+            assert got[path] == x, path
+
+
+@pytest.mark.parametrize("mode", ["--train", "--test"])
+def test_data_parallel_on_one_device_runs_as_without_it(tree, trained, tmp_path, capsys, mode):
+    """``run_mansy --data-parallel`` on one device, as JAX runs it there
+    (``--train`` shards only over more than one device, ``--test`` never
+    reads the flag): the same npz, CSV logs, console log and stdout as the
+    run without the flag, same seed; no line is added."""
+    base, cfg = tree
+    cfg = dataclasses.replace(cfg, bs_models_dir=str(tmp_path / "models"),
+                              bs_results_dir=str(tmp_path / "results"))
+    if mode == "--train":
+        argv = ["--train", "--seed", "61"] + trained + COMMON
+    else:
+        argv = ["--test", "--test-on-seen", "--deterministic-eval", "--policy-path",
+                models(base, "best_policy.npz")[0]] + trained + COMMON
+    roots = [cfg.bs_models_dir, cfg.bs_results_dir]
+    outputs = [cli_outputs(lambda: run_mansy.run(run_mansy.build_parser().parse_args(
+        argv + flag), cfg), roots, capsys) for flag in ([], ["--data-parallel"])]
+    assert_same_outputs(outputs[1], outputs[0])
+    assert "sharded" not in outputs[1]["stdout"]
 
 
 @pytest.mark.parametrize("cli,flags", [

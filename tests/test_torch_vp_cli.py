@@ -28,8 +28,10 @@ d = 16), against the JAX CLIs' outputs.
    CLI's epoch permutation; ``--teacher-forcing`` trains and writes the
    file set.
 
-The refused flag of a later item (``--data-parallel``) raises
-``NotImplementedError``; ``--bf16`` runs (``tests/test_torch_bf16.py``).
+``--data-parallel`` on one device: ``run_models --test`` and ``--train``
+write the files and stdout of the same run without the flag; over two CUDA
+devices ``--train`` refuses, naming ROADMAP item 14c.  ``--bf16`` runs
+(``tests/test_torch_bf16.py``).
 """
 
 import dataclasses
@@ -63,6 +65,7 @@ from mansy_immersivevideostreaming_torch.utils.checkpoint import (
 )
 from test_torch_mtio import flax_variables, orbax_mtio_to_npz
 from test_torch_tables import port_config
+from test_torch_train_cli import assert_same_outputs, cli_outputs
 
 COMMON = ["--hidden-dim", "16", "--block-num", "1", "--his-window", "3", "--fut-window", "5",
           "--trim-head", "5", "--trim-tail", "5", "--sample-step", "2"]
@@ -236,11 +239,35 @@ def test_predict_matches_jax(trained):
 
 
 @pytest.mark.parametrize("flag", ["--data-parallel"])
-def test_run_models_refuses_the_flags_of_later_slices(tmp_path, flag):
+def test_run_models_refuses_the_flags_of_later_slices(tmp_path, flag, monkeypatch):
+    """Over two CUDA devices ``--train --data-parallel`` is the multi-process
+    path, not ported yet: refused before anything runs, naming item 14c."""
     cfg = port_config(build_synthetic_tree(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="item 14c"):
         run_models.run(run_models.build_parser().parse_args(
-            ["--test", flag, "--device", "cpu"] + COMMON), cfg)
+            ["--train", flag, "--device", "cuda"] + COMMON), cfg)
+
+
+@pytest.mark.parametrize("mode", ["--test", "--train"])
+def test_run_models_data_parallel_on_one_device_runs_as_without_it(trained, tmp_path, capsys,
+                                                                   mode):
+    """``run_models --data-parallel`` on one device, as JAX runs it there
+    (``maybe_mesh`` makes no mesh below two devices; ``--test`` never reads
+    the flag): the same npz, console log, results and stdout as the run
+    without the flag, same seed; no "Data-parallel over" line.  ``--test``
+    reads the converted JAX best model."""
+    base, cfg, _, _ = trained
+    pcfg = dataclasses.replace(port_config(cfg), vp_results_dir=str(tmp_path / "results"))
+    roots = [pcfg.vp_results_dir]
+    if mode == "--train":
+        pcfg = dataclasses.replace(pcfg, vp_models_dir=str(tmp_path / "models"))
+        roots.append(pcfg.vp_models_dir)
+    argv = [mode, "--model", "mtio", "--device", "cpu"] + COMMON + TRAIN
+    outputs = [cli_outputs(lambda: run_models.run(run_models.build_parser().parse_args(
+        argv + flag), pcfg), roots, capsys) for flag in ([], ["--data-parallel"])]
+    assert_same_outputs(outputs[1], outputs[0])
+    assert "Data-parallel" not in outputs[1]["stdout"]
 
 
 # ------------------------------------------------------------- training
