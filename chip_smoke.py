@@ -223,6 +223,25 @@ composition.
    field (``flatten_demos`` fills their columns by K2's row mode, held
    against the plain row mode); the launches of the packing, the fit and
    the round.
+16. data_parallel: ``--train --data-parallel`` over ranks, each rank a
+   process running this script as ``--dp-worker`` (the group's store a
+   file in a temporary directory), first one rank (world 1, NCCL), then
+   two ranks sharing the card (world 2, Gloo through host copies): (a, b)
+   ``parallel.dryrun.run_dryrun`` on data for two devices at hidden 128;
+   (c) ``run_mansy``'s loop (``ppo_round`` with the mesh) at phase 7's
+   shapes from the v9 weights, DP_ROUNDS rounds; (d) ``run_models``' loop
+   (``vp_train.train_step`` with the mesh) at d 512, bs 512 over
+   DP_VP_BATCHES batches.  World 2 is held against world 1: the two ranks'
+   parameters the same bits; the dry run's losses rtol 1e-4, its PPO
+   parameters and batch statistics 1e-5, its MTIO parameters 2e-6 but for
+   1% (every one within 2.5 lr); run_mansy's first round's metrics and
+   run_models' losses at DP_RTOL, DP_ATOL (the JAX CLIs' data-parallel
+   test's), the parameters after them within 1e-5 but for 1% and 3%
+   (every one within 2.5 lr a step).  Each rank counts its launches over
+   (a) to (d) and prints them; the phase sums them.  The step times of
+   both worlds are reported (``timing``: the last run_mansy round, each
+   run_models step); world 2 adds Gloo's host copies, no speed-up.
+   ``--data-parallel`` runs this phase alone (after building the kernels).
 
 Phase 2g holds K2's derived mode at 32, 128, 512 and 8192 lanes and its
 row mode at 4096 and 77,760 rows (DEMO_ROWS) against their plain versions
@@ -256,6 +275,7 @@ import sys
 import tempfile
 import time
 import types
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -334,6 +354,12 @@ ENSEMBLE_PASSES = 3     # phase 13: timed runs of run_ensemble
 AV_PRIOR = 3.0          # phases 15-15c: the logit prior of v16's flags (--av-logit-prior)
 AV_RTOL, AV_ATOL = 1e-5, 1e-6  # phase 2g: the derived values against their plain version
 DEMO_ROWS = 77_760      # phase 2g: the row mode at the rows of dagger_av's demos (its demo_rows)
+DP_DEVICES = 2          # phase 16: the dry run's data, sized for two devices
+DP_HIDDEN = 128         # phase 16: the dry run's policy width (K3 and K10: 128 or 256)
+DP_ROUNDS = 2           # phase 16c: run_mansy rounds a world (the first held, the last timed)
+DP_VP_BATCHES = 3       # phase 16d: run_models batches a world
+DP_TIMEOUT_S = 300      # phase 16: a rank's limit
+DP_RTOL, DP_ATOL = 2e-3, 1e-4  # phase 16: world 2 against world 1 (tests/test_data_parallel_cli.py)
 LOGIT_NEAR_TIE = 1e-4   # phase 15: top-two plain logit margin of a near-tie (the prior
 #                         standardizes the 15 values, so their ulps move the logits by ~1e-5)
 
@@ -4177,6 +4203,282 @@ def dagger_av_phase(dev, counters):
                 round_seconds=round_s, launches=launches)
 
 
+# ---------------------------------------------------------- phase 16
+
+def dp_counters():
+    """The kernel wrappers whose launches phase 16's workers count."""
+    from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
+        actor_critic_backward, actor_critic_forward, actor_critic_train_forward,
+    )
+    from mansy_immersivevideostreaming_torch.kernels.attention import (
+        attention, attention_backward, attention_train_forward,
+    )
+    from mansy_immersivevideostreaming_torch.kernels.env_step import env_step
+    from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
+    from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
+    from mansy_immersivevideostreaming_torch.kernels.policy_loss import policy_loss
+    return (env_step, observe_mansy_pack, actor_critic_forward, compute_gae, policy_loss,
+            actor_critic_train_forward, actor_critic_backward, attention,
+            attention_train_forward, attention_backward)
+
+
+def synced_seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dp_mansy_loop(mesh) -> dict:
+    """Phase 16c in a rank: ``run_mansy --train --data-parallel``'s loop
+    (``ppo_round`` with the mesh) at phase 7's shapes from the v9 weights,
+    DP_ROUNDS rounds: the first's metrics and the parameters after it are
+    held against world 1, the second is timed."""
+    from mansy_immersivevideostreaming_torch.cli import run_mansy
+    from mansy_immersivevideostreaming_torch.models.abr_nets import QoEIdentifier
+    from mansy_immersivevideostreaming_torch.parallel.mesh import replicate
+    from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer
+    from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes, make_collector
+    from mansy_immersivevideostreaming_torch.rl.types import RunningStat
+    from mansy_immersivevideostreaming_torch.sim.env import generate_environment_samples
+    from mansy_immersivevideostreaming_torch.sim.tables import synthetic_sim_tables
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, load_npz_policy,
+    )
+    from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
+
+    dev = mesh.device
+    args = run_mansy.build_parser().parse_args(
+        ["--train", "--data-parallel", "--train-identifier", "--use-identifier", "--lamb",
+         "0.5"])
+    V, U, NT, C, Q = TRAIN_SHAPE
+    tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
+    samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
+    gen = seed_everything(args.seed, dev)
+    policy = replicate(mesh, load_npz_policy(DAGGER_V9_NPZ, device=dev))
+    identifier = replicate(mesh, QoEIdentifier(hidden_dim=args.hidden_dim, device=dev))
+    optimizer = make_optimizer(policy.parameters(), args.lr, args.weight_decay)
+    id_optimizer = make_optimizer(identifier.parameters(), args.identifier_lr,
+                                  args.weight_decay)
+    cfg = run_mansy.ppo_config(args, Q)
+    n_lanes, n_steps = args.train_lanes, args.step_per_collect // args.train_lanes
+    collect = make_collector(tables, samples, n_lanes, n_steps, train=True, mesh=mesh)
+    prefs = tables.qoe_weights / tables.qoe_weights.sum(-1, keepdim=True)
+    carry = [init_lanes(tables, samples, n_lanes, args.seed, mesh), RunningStat.init(dev)]
+    rounds = []
+    for _ in range(DP_ROUNDS):
+        def round_():
+            with contextlib.redirect_stdout(sys.stderr):  # the identifier's loss lines
+                carry[0], carry[1], logs, metrics = run_mansy.ppo_round(
+                    args, policy, identifier, optimizer, id_optimizer, cfg, collect,
+                    carry[0], carry[1], gen, args.ent_coef, args.lamb, prefs, mesh=mesh)
+            return logs, metrics
+        (logs, metrics), seconds = synced_seconds(round_)
+        done = logs.done
+        rounds.append(dict(seconds=seconds, metrics={k: float(v) for k, v in metrics.items()},
+                           episodes=int(done.sum()),
+                           return_sum=float(logs.ret[done].double().sum())))
+        if len(rounds) == 1:
+            first = [p.detach().cpu().numpy().copy() for p in policy.parameters()]
+    return dict(lanes=n_lanes, lanes_per_rank=n_lanes // mesh.world, steps=n_steps,
+                minibatch=cfg.minibatch, hidden=args.hidden_dim, rounds=rounds,
+                params_after_first=first)
+
+
+def dp_models_loop(mesh) -> dict:
+    """Phase 16d in a rank: ``run_models --train --data-parallel``'s loop
+    (``vp_train.train_epoch`` with the mesh) at its defaults (d 512, bs
+    512) over DP_VP_BATCHES batches of phase 11's synthetic traces, from
+    Flax's initialisers: the per-batch losses and the parameters after."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.models import vp_train as TV
+    from mansy_immersivevideostreaming_torch.parallel.mesh import replicate
+
+    dev = mesh.device
+    args = run_models.build_parser().parse_args(["--train", "--data-parallel", "--seed",
+                                                 str(VP_SEED)])
+    n = DP_VP_BATCHES * args.bs
+    data = vp_train_data(args, n, 40, dev)
+    model = replicate(mesh, run_models.build_model(args, dev).init_like_flax(
+        torch.Generator(device=dev).manual_seed(args.seed)))
+    opt = TV.make_optimizer(args.lr, 0.01 if args.weight_decay is None else args.weight_decay)
+    state = TV.create_train_state(model)
+    perm = np.random.default_rng(args.seed).permutation(n)
+    steps = []
+    for b in range(DP_VP_BATCHES):
+        idx = torch.as_tensor(perm[b * args.bs:(b + 1) * args.bs], device=dev)
+        batch = {k: v[idx] for k, v in data.items()}
+        (state, loss), seconds = synced_seconds(
+            lambda: TV.train_step(model, opt, state, batch, args.seed, mesh=mesh))
+        steps.append(dict(seconds=seconds, loss=float(loss)))
+    return dict(d_model=args.hidden_dim, bs=args.bs, batches=DP_VP_BATCHES, steps=steps,
+                params=[p.detach().cpu().numpy() for p in model.parameters()])
+
+
+def dp_worker(world: int, out_dir: str) -> int:
+    """One rank of phase 16 (``--dp-worker``): joins the group that phase
+    16 set up in its environment, runs the dry run (16a/b), the run_mansy
+    loop (16c) and the run_models loop (16d) with the launch counts set to
+    0 just before and read just after, and writes its results to
+    ``out_dir/w<world>_r<rank>.npz`` (arrays) and a JSON line on stdout."""
+    from mansy_immersivevideostreaming_torch.parallel import launch
+    from mansy_immersivevideostreaming_torch.parallel.dryrun import run_dryrun
+    from mansy_immersivevideostreaming_torch.parallel.mesh import shutdown
+
+    mesh = launch.join("cuda")
+    if mesh.world != world:
+        raise AssertionError(f"joined a group of {mesh.world}, expected {world}")
+    counters = dp_counters()
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+        getattr(fn, "launches_by_mode", {}).clear()
+    dry, dry_s = synced_seconds(lambda: run_dryrun(DP_DEVICES, mesh, DP_HIDDEN))
+    mansy = dp_mansy_loop(mesh)
+    models = dp_models_loop(mesh)
+    torch.cuda.synchronize()
+    launches = row_launches(counters)
+    arrays = {f"dry/{k}": v for k, v in dry.items()}
+    arrays.update({f"mansy/{i}": p for i, p in enumerate(mansy.pop("params_after_first"))})
+    arrays.update({f"models/{i}": p for i, p in enumerate(models.pop("params"))})
+    np.savez(os.path.join(out_dir, f"w{world}_r{mesh.rank}.npz"), **arrays)
+    print("DP_RESULT " + json.dumps(dict(
+        rank=mesh.rank, world=mesh.world, backend=mesh.backend, dryrun_seconds=dry_s,
+        mansy=mansy, models=models, launches=launches)), flush=True)
+    shutdown(mesh)
+    return 0
+
+
+def start_dp_ranks(world: int, out_dir: str):
+    """Phase 16's ranks of one world: this script as ``--dp-worker``, the
+    group's store a file under ``out_dir``."""
+    from mansy_immersivevideostreaming_torch.parallel.launch import rank_env
+
+    init = Path(out_dir, f"store{world}").as_uri()
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                              str(world), "--dp-out", out_dir],
+                             env=rank_env(rank, world, init), stdout=subprocess.PIPE,
+                             text=True) for rank in range(world)]
+
+
+def finish_dp_ranks(procs) -> list:
+    """Every rank's DP_RESULT; a rank that exits non-zero or outlives
+    DP_TIMEOUT_S fails the phase (the others are stopped)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        log(f"data_parallel rank {rank}/{len(procs)}: {out.strip()[-2000:]}")
+        if p.returncode != 0:
+            raise AssertionError(f"data_parallel: rank {rank} of {len(procs)} exited with "
+                                 f"{p.returncode}")
+        lines = [l for l in out.splitlines() if l.startswith("DP_RESULT ")]
+        if len(lines) != 1:
+            raise AssertionError(f"data_parallel: rank {rank} printed no result")
+        results.append(json.loads(lines[0][len("DP_RESULT "):]))
+    return results
+
+
+def dp_params_close(got, want, atol: float, loose: float, most: float) -> dict:
+    """All but ``loose`` of the entries within ``atol``, every one within
+    ``most``: Adam's steps are lr times the sign of a gradient near 0, where
+    two runs' float noise may carry opposite signs."""
+    beyond = total = 0
+    worst = 0.0
+    for g, w in zip(got, want):
+        d = np.abs(g.astype(np.float64) - w)
+        beyond += int((d > atol).sum())
+        total += d.size
+        worst = max(worst, float(d.max()))
+    share = beyond / total
+    if share > loose or worst > most:
+        raise AssertionError(f"data_parallel: {share:.4f} of the parameters beyond {atol} "
+                             f"(limit {loose}), largest {worst} (limit {most})")
+    return dict(share_beyond_atol=share, atol=atol, max_abs_diff=worst)
+
+
+def dp_rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), DP_ATOL / DP_RTOL)
+
+
+def data_parallel_phase(dev) -> dict:
+    """Phase 16: the dry run, run_mansy's and run_models' loops at world 1
+    (one rank, NCCL) and world 2 (two ranks sharing the card, Gloo), each
+    rank a process; world 2 held against world 1 (module docstring)."""
+    from mansy_immersivevideostreaming_torch.parallel.dryrun import MTIO_LR
+
+    with tempfile.TemporaryDirectory(prefix="dp_", dir=os.environ.get("TMPDIR")) as out_dir:
+        results = {w: finish_dp_ranks(start_dp_ranks(w, out_dir)) for w in (1, 2)}
+        arrays = {(w, r): dict(np.load(os.path.join(out_dir, f"w{w}_r{r}.npz")))
+                  for w in (1, 2) for r in range(w)}
+    backends = {w: [r["backend"] for r in res] for w, res in results.items()}
+    if backends != {1: ["nccl"], 2: ["gloo", "gloo"]}:
+        raise AssertionError(f"data_parallel: backends {backends}")
+    for key, x in arrays[2, 0].items():  # the ranks' parameters: the same bits
+        if not np.array_equal(x, arrays[2, 1][key]):
+            raise AssertionError(f"data_parallel: the two ranks differ in {key}")
+    one, two = arrays[1, 0], arrays[2, 0]
+    r1, r2 = results[1][0], results[2][0]
+    checks = {}
+    # 16a/b: the dry run
+    for key in ("dry/mtio_loss", "dry/ppo_loss"):
+        if not (np.isfinite(one[key]) and dp_rel(float(two[key]), float(one[key])) <= 1e-4):
+            raise AssertionError(f"data_parallel: {key} {two[key]} against {one[key]}")
+    keys = sorted(k for k in one if k.startswith("dry/mtio/") and "bn." not in k)
+    checks["dryrun_mtio_params"] = dp_params_close([two[k] for k in keys], [one[k] for k in keys],
+                                                   2e-6, 0.01, 2.5 * MTIO_LR)
+    keys = sorted(k for k in one if k.startswith(("dry/ppo/")) or "bn." in k)
+    checks["dryrun_ppo_params_and_bn"] = dp_params_close(
+        [two[k] for k in keys], [one[k] for k in keys], 1e-5, 0.0, 1e-5)
+    # 16c: run_mansy's loop, the first round
+    m1, m2 = r1["mansy"]["rounds"][0], r2["mansy"]["rounds"][0]
+    for k, v in m1["metrics"].items():
+        if dp_rel(m2["metrics"][k], v) > DP_RTOL:
+            raise AssertionError(f"data_parallel: run_mansy round 1 {k} {m2['metrics'][k]} "
+                                 f"against {v}")
+    checks["mansy_round_1_episodes_equal"] = (
+        (m1["episodes"], m1["return_sum"]) == (m2["episodes"], m2["return_sum"]))
+    keys = sorted((k for k in one if k.startswith("mansy/")), key=lambda k: int(k[6:]))
+    n_mb = r1["mansy"]["steps"] * r1["mansy"]["lanes"] // r1["mansy"]["minibatch"] * 2
+    checks["mansy_params_after_round_1"] = dp_params_close(
+        [two[k] for k in keys], [one[k] for k in keys], 1e-5, 0.01, 2.5 * n_mb * 5e-4)
+    # 16d: run_models' loop
+    for s1, s2 in zip(r1["models"]["steps"], r2["models"]["steps"]):
+        if not math.isfinite(s1["loss"]) or dp_rel(s2["loss"], s1["loss"]) > DP_RTOL:
+            raise AssertionError(f"data_parallel: run_models loss {s2['loss']} against "
+                                 f"{s1['loss']}")
+    keys = sorted((k for k in one if k.startswith("models/")), key=lambda k: int(k[7:]))
+    checks["models_params"] = dp_params_close([two[k] for k in keys], [one[k] for k in keys],
+                                              1e-5, 0.03, 2.5 * DP_VP_BATCHES * 1e-4)
+    launches = {}
+    for res in results[1] + results[2]:
+        for row, n in res["launches"].items():
+            launches[row] = launches.get(row, 0) + n
+    timing = {f"world_{w}": dict(
+        backend=results[w][0]["backend"],
+        dryrun_s=[r["dryrun_seconds"] for r in results[w]],
+        ppo_round_s=[r["mansy"]["rounds"][-1]["seconds"] for r in results[w]],
+        ppo_round_metrics=results[w][0]["mansy"]["rounds"][-1]["metrics"],
+        mtio_step_s=[[s["seconds"] for s in r["models"]["steps"]] for r in results[w]],
+        mtio_losses=[s["loss"] for s in results[w][0]["models"]["steps"]])
+        for w in (1, 2)}
+    return dict(devices_of_data=DP_DEVICES, hidden=DP_HIDDEN,
+                ppo=dict(lanes=r1["mansy"]["lanes"], steps=r1["mansy"]["steps"],
+                         minibatch=r1["mansy"]["minibatch"], rounds=DP_ROUNDS),
+                mtio=dict(d_model=r1["models"]["d_model"], bs=r1["models"]["bs"],
+                          batches=DP_VP_BATCHES),
+                steps=DP_ROUNDS * r1["mansy"]["steps"], timing=timing, checks=checks,
+                launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -4186,10 +4488,16 @@ def main() -> int:
     parser.add_argument("--vp-train", metavar="N", type=int, default=0,
                         help="run only phase 11 (vp_train), N times over, and print each "
                              "run's step checks (kernels_vs_plain) as a JSON line")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="run only phase 16 (data_parallel) and print its JSON line")
+    parser.add_argument("--dp-worker", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-out", help=argparse.SUPPRESS)
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
         return 1
+    if opts.dp_worker:  # one rank of phase 16
+        return dp_worker(opts.dp_worker, opts.dp_out)
     # cuBLAS's deterministic workspace, read when the first handle is made:
     # phase 11 compares its steps under deterministic algorithms
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4221,6 +4529,14 @@ def main() -> int:
                 actor_critic_backward, chunk_maps, trajectory_metrics, attention,
                 attention_train_forward, attention_backward, observe_simple_pack,
                 derive_action_values)
+    if opts.data_parallel:  # phase 16 alone
+        from mansy_immersivevideostreaming_torch.kernels import build
+        build.build()
+        t0 = time.time()
+        result = data_parallel_phase(dev)
+        print(json.dumps({"data_parallel": result, "card": card,
+                          "seconds": time.time() - t0}))
+        return 0
     if opts.vp_train:  # phase 11's step checks over trainings whose weights differ
         for run in range(opts.vp_train):
             result = vp_train_phase(dev, counters)
@@ -4262,7 +4578,8 @@ def main() -> int:
                       ("simple_rl", lambda: simple_rl_phase(dev, counters, trained)),
                       ("simple_rl_test", lambda: simple_rl_test_phase(dev, counters, trained)),
                       ("ensemble", lambda: ensemble_phase(dev, counters)),
-                      ("preprocess", lambda: preprocess_phase(dev))):
+                      ("preprocess", lambda: preprocess_phase(dev)),
+                      ("data_parallel", lambda: data_parallel_phase(dev))):
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
@@ -4297,7 +4614,9 @@ def main() -> int:
                     "simple_rl": simple + ("compute_gae", "actor_critic_train_forward_simple",
                                            "policy_loss_a2c", "actor_critic_backward_simple"),
                     "simple_rl_test": simple,
-                    "ensemble": serve + ("actor_critic_forward_h256",)}
+                    "ensemble": serve + ("actor_critic_forward_h256",),
+                    "data_parallel": serve + ("compute_gae",) + training
+                    + ("attention_train_forward", "attention_backward")}
     for path, names in path_kernels.items():
         for name in names:
             if paths[path]["launches"].get(name, 0) == 0:

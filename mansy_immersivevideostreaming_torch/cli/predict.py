@@ -33,6 +33,7 @@ from mansy_immersivevideostreaming_torch.data.viewport import build_windowed_dat
 from mansy_immersivevideostreaming_torch.kernels.tile_occupancy import chunk_maps
 from mansy_immersivevideostreaming_torch.utils.checkpoint import load_mtio_npz_into
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 
 
 def run(args, config) -> dict:
@@ -45,7 +46,7 @@ def run(args, config) -> dict:
                               else args.dataset_frequency)
     args.sample_step = config.sample_step if args.sample_step is None else args.sample_step
     dev = resolve_device(args.device)
-    torch.manual_seed(args.seed)
+    seed_everything(args.seed)
     results_dir = args.output_dir or os.path.join(config.viewport_dir(args.dataset),
                                                   "prediction")
     os.makedirs(results_dir, exist_ok=True)

@@ -44,6 +44,7 @@ from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_npz_into, save_net_config, save_npz,
 )
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 
 
 def balanced(args, dataset, tables):
@@ -92,9 +93,7 @@ def run(args, config):
     dev = resolve_device(args.device)
     if args.qoe_train_ids is None:
         args.qoe_train_ids = list(range(len(config.qoe_split["train"])))
-    torch.manual_seed(args.seed)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
+    generator = seed_everything(args.seed, dev)
     # preference interpolation: the MPC expert labels interpolated
     # preferences exactly as well as base ones
     qoe_weights = interp_preferences([config.qoe_split["train"][i] for i in args.qoe_train_ids],

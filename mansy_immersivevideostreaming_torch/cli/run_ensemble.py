@@ -44,6 +44,7 @@ from mansy_immersivevideostreaming_torch.config import load_config
 from mansy_immersivevideostreaming_torch.rl import runner
 from mansy_immersivevideostreaming_torch.utils.checkpoint import load_net_config, load_npz_policy
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 
 
 def build_component(path, device):
@@ -141,8 +142,7 @@ def run(args, config):
                 "tables; route plain-observation policies only")
         components.append(policy)
         print(f"Loaded {path} ({netcfg})")
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
+    generator = seed_everything(args.seed, dev)
 
     # ---- Phase 1: routing evidence — deterministic valid grid per component
     vtables, vsamples, *_ = runner.build_split(

@@ -43,6 +43,7 @@ from mansy_immersivevideostreaming_torch.sim.expert import (
     choose_action, deployable_etables,
 )
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 
 
 def tables_fingerprint(tables) -> str:
@@ -197,6 +198,7 @@ def test(args, config, qoe_weights, results_dir, cache_path):
 
 
 def run(args, config):
+    seed_everything(args.seed)
     if args.qoe_train_ids is None:
         args.qoe_train_ids = list(range(len(config.qoe_split["train"])))
     split = "train" if args.test_on_seen else "test"

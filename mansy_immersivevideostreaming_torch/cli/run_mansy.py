@@ -13,14 +13,21 @@ policy reads the derived action values: K2's derived mode a step, its row
 mode on the ``--bc`` demos).  Policies
 and identifiers are written as Flax-keyed ``.npz`` files with the policy's
 ``.netcfg.json`` sidecar (``utils/checkpoint.py``), which the JAX package's
-nets load too; the console log and the CSV logs are the JAX CLI's, and no
-TensorBoard events are written.  ``--test`` evaluates a policy over the test
+nets load too; the console log, the CSV logs and the TensorBoard scalars
+(``train/reward`` and the update's metrics each epoch, under
+``mansy_tb_logger``, where ``tensorboardX`` imports) are the JAX CLI's.
+``--test`` evaluates a policy over the test
 grid (by default the ``best_policy.npz`` that ``--train`` wrote); the
 sidecar decides the observation, as the JAX CLI's ``apply_net_config`` does.
 
 ``--data-parallel`` is read as the JAX CLI reads it: ``--test`` ignores it,
-and ``--train`` on one device runs as without it; over more devices it is
-refused until the multi-process path is ported (ROADMAP Queue 1 item 14c).
+and ``--train`` on one device runs as without it.  Over more devices the
+run is one rank a device (``parallel/launch.py`` starts them, or torchrun
+does): the env lanes split over the ranks, each collects its lanes, the
+trajectory is gathered and the PPO update's minibatch steps split over the
+ranks (``rl/rollout.py``, ``rl/ppo.py``); the identifier trains on the
+whole buffer on every rank.  Rank 0 alone validates and writes the logs,
+checkpoints and console; the others wait for its validation's result.
 
 Examples::
 
@@ -36,6 +43,7 @@ Examples::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -47,6 +55,10 @@ from mansy_immersivevideostreaming_torch.cli.run_expert import get_expert_tables
 from mansy_immersivevideostreaming_torch.config import load_config
 from mansy_immersivevideostreaming_torch.kernels.actor_critic import actor_critic_forward
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic, QoEIdentifier
+from mansy_immersivevideostreaming_torch.parallel import launch
+from mansy_immersivevideostreaming_torch.parallel.mesh import (
+    Mesh, broadcast_object, replicate, shutdown,
+)
 from mansy_immersivevideostreaming_torch.rl import ppo as ppo_mod
 from mansy_immersivevideostreaming_torch.rl import runner
 from mansy_immersivevideostreaming_torch.rl.identifier import (
@@ -60,7 +72,8 @@ from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_npz_into, load_npz_policy, save_net_config, save_npz,
 )
 from mansy_immersivevideostreaming_torch.utils.device import check_data_parallel, resolve_device
-from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger
+from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger, tb_writer
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 
 
 def policy_net_config(args) -> dict:
@@ -112,14 +125,17 @@ def ppo_config(args, n_prefs: int) -> ppo_mod.PPOConfig:
 
 
 def ppo_round(args, policy, identifier, optimizer, id_optimizer, cfg, collect, states,
-              ret_rms, generator, ent_coef: float, lamb: float, prefs, anchor=None):
+              ret_rms, generator, ent_coef: float, lamb: float, prefs, anchor=None,
+              mesh: Mesh | None = None):
     """One collect and its updates, as ``--train`` runs them: the rollout
     (K2 -> K3 -> K1 a step), the identifier's training on the fresh buffer
     (``--train-identifier``), the identifier's reward shaping
     (``--use-identifier``, ``--id-reward-center`` against the normalized
     training preferences ``prefs`` [K, 3]) and the PPO update, with the KL
-    to the frozen ``anchor`` weights when given.  Returns (states, ret_rms,
-    episode logs, the update's metrics)."""
+    to the frozen ``anchor`` weights when given.  With a sharded ``mesh``
+    the collector is the mesh's (it returns every lane's trajectory) and
+    the update's minibatch steps split over the ranks.  Returns (states,
+    ret_rms, episode logs, the update's metrics)."""
     states, traj, logs, last_values = collect(policy, states, generator)
     x = traj.obs.reshape(-1, traj.obs.shape[-1])
     if args.train_identifier:
@@ -144,19 +160,22 @@ def ppo_round(args, policy, identifier, optimizer, id_optimizer, cfg, collect, s
     ret_rms, metrics = ppo_mod.ppo_update(
         policy, optimizer, cfg, traj, rewards, last_values, ret_rms, generator, ent_coef,
         anchor_logits=anchor_logits, kl_coef=kl_coef,
-        pref_ids=logs.qoe_id if per_pref_ids else None)
+        pref_ids=logs.qoe_id if per_pref_ids else None, mesh=mesh)
     return states, ret_rms, logs, metrics
 
 
-def train(args, config, models_dir: str):
+def train(args, config, models_dir: str, mesh: Mesh | None = None):
+    """``--train``; with a sharded ``mesh``, this rank's part of it (see the
+    module docstring)."""
     # Imported here: the demo loaders serve only these options.
     from mansy_immersivevideostreaming_torch.data.tianshou_compat import load_demonstrations
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    main = mesh is None or mesh.is_main
     train_log_path = os.path.join(models_dir, "train_log.csv")
     valid_log_path = os.path.join(models_dir, "valid_log.csv")
     for p in (train_log_path, valid_log_path):
-        if os.path.exists(p):
+        if main and os.path.exists(p):
             os.remove(p)
 
     base_qoe_weights = [config.qoe_split["train"][i] for i in args.qoe_train_ids]
@@ -173,7 +192,7 @@ def train(args, config, models_dir: str):
         tables, vtables = attach_exact_action_values(config, args.train_dataset, tables,
                                                      vtables, acc_correct=args.acc_correct)
 
-    torch.manual_seed(args.seed)
+    generator = seed_everything(args.seed, dev)
     policy = MansyActorCritic(hidden_dim=args.hidden_dim, action_space=config.action_space,
                               use_action_values=args.obs_action_values or args.exact_action_values,
                               av_logit_prior=args.av_logit_prior, device=dev)
@@ -183,14 +202,12 @@ def train(args, config, models_dir: str):
     optimizer = ppo_mod.make_optimizer(policy.parameters(), args.lr, args.weight_decay)
     id_optimizer = ppo_mod.make_optimizer(identifier.parameters(), args.identifier_lr,
                                           args.weight_decay)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
     cfg = ppo_config(args, len(qoe_weights))
 
     n_lanes = args.train_lanes
     n_steps = max(args.step_per_collect // n_lanes, 1)
-    collect = make_collector(tables, samples, n_lanes, n_steps, train=True)
-    states = init_lanes(tables, samples, n_lanes, args.seed)
+    collect = make_collector(tables, samples, n_lanes, n_steps, train=True, mesh=mesh)
+    states = init_lanes(tables, samples, n_lanes, args.seed, mesh)
     ret_rms = RunningStat.init(dev)
 
     checkpoint_path = os.path.join(models_dir, "checkpoint.npz")
@@ -201,8 +218,10 @@ def train(args, config, models_dir: str):
                       f"_ilr_{args.identifier_lr}_iur_{args.identifier_update_round}")
     policy_bc_path = os.path.join(models_dir, bc_file_prefix + "_policy.npz")
     identifier_bc_path = os.path.join(models_dir, bc_file_prefix + "_identifier.npz")
+    save = save_npz if main else lambda path, module: None
     for p in (checkpoint_path, best_policy_path) + ((policy_bc_path,) if args.bc else ()):
-        save_net_config(p, policy_net_config(args))
+        if main:  # rank 0 alone writes
+            save_net_config(p, policy_net_config(args))
 
     if args.bc:
         # behavior-cloning initialization from expert demos (reference
@@ -218,8 +237,8 @@ def train(args, config, models_dir: str):
             list(load_demonstrations(valid_path).values()), args.bc_max_steps,
             args.bc_valid_per_step, args.bc_identifier_max_steps,
             args.identifier_update_round, args.seed,
-            save_policy=lambda p: save_npz(policy_bc_path, p),
-            save_identifier=lambda p: save_npz(identifier_bc_path, p), generator=generator)
+            save_policy=lambda p: save(policy_bc_path, p),
+            save_identifier=lambda p: save(identifier_bc_path, p), generator=generator)
 
     if args.pretrain_identifier > 0:
         # the identifier pre-trained on the expert-demo grid before PPO
@@ -263,6 +282,10 @@ def train(args, config, models_dir: str):
             load_npz_into(identifier, identifier_bc_path)
             print("Successfully init identifier from behavior cloning:", identifier_bc_path)
 
+    if mesh is not None:
+        for module in (policy, identifier):
+            replicate(mesh, module)
+    writer = tb_writer(os.path.join(models_dir, "mansy_tb_logger")) if main else None
     prefs = torch.tensor(np.asarray([np.asarray(w) / np.sum(w) for w in qoe_weights]),
                          dtype=torch.float32, device=dev)
     collects_per_epoch = max(args.step_per_epoch // (n_lanes * n_steps), 1)
@@ -283,31 +306,38 @@ def train(args, config, models_dir: str):
         for _ in range(collects_per_epoch):
             states, ret_rms, logs, metrics = ppo_round(
                 args, policy, identifier, optimizer, id_optimizer, cfg, collect, states,
-                ret_rms, generator, ent_coef, lamb, prefs, anchor)
+                ret_rms, generator, ent_coef, lamb, prefs, anchor, mesh)
             env_step += n_lanes * n_steps
-            runner.append_episode_logs(
-                train_log_path, runner.episode_log_rows(logs, videos, users, traces,
-                                                        qoe_weights))
+            if main:
+                runner.append_episode_logs(
+                    train_log_path, runner.episode_log_rows(logs, videos, users, traces,
+                                                            qoe_weights))
 
-        # validation over the valid split (reference run_mansy.py:117-136)
-        vlogs, vmasks = runner.evaluate(policy, vtables, vsamples, generator,
-                                        deterministic=args.deterministic_eval)
-        runner.append_episode_logs(valid_log_path, runner.masked_log_rows(
-            vlogs, vmasks, vvideos, vusers, vtraces, base_qoe_weights))
-        rets = np.concatenate([l.ret.cpu().numpy()[m] for l, m in zip(vlogs, vmasks)])
-        vqids = np.concatenate([l.qoe_id.cpu().numpy()[m] for l, m in zip(vlogs, vmasks)])
-        mean_reward = float(rets.mean())
-        per_pref = " ".join(f"q{q}:{float(rets[vqids == q].mean()):.2f}"
-                            for q in sorted(set(vqids.tolist())))
+        # validation over the valid split (reference run_mansy.py:117-136); over
+        # ranks, rank 0's: its result and its generator's state go to every rank
+        valid = None
+        if main:
+            vlogs, vmasks = runner.evaluate(policy, vtables, vsamples, generator,
+                                            deterministic=args.deterministic_eval)
+            runner.append_episode_logs(valid_log_path, runner.masked_log_rows(
+                vlogs, vmasks, vvideos, vusers, vtraces, base_qoe_weights))
+            rets = np.concatenate([l.ret.cpu().numpy()[m] for l, m in zip(vlogs, vmasks)])
+            vqids = np.concatenate([l.qoe_id.cpu().numpy()[m] for l, m in zip(vlogs, vmasks)])
+            valid = (float(rets.mean()), " ".join(f"q{q}:{float(rets[vqids == q].mean()):.2f}"
+                                                  for q in sorted(set(vqids.tolist()))))
+        if mesh is not None:
+            valid, gen_state = broadcast_object(mesh, (valid, generator.get_state()))
+            generator.set_state(gen_state)
+        mean_reward, per_pref = valid
 
         if epoch % max(args.save_interval, 1) == 0:
             # periodic checkpoint (reference save_interval, run_mansy.py:313)
-            save_npz(checkpoint_path, policy)
-            save_npz(id_checkpoint_path, identifier)
+            save(checkpoint_path, policy)
+            save(id_checkpoint_path, identifier)
         if mean_reward > best_reward:
             best_reward = mean_reward
-            save_npz(best_policy_path, policy)
-            save_npz(best_identifier_path, identifier)
+            save(best_policy_path, policy)
+            save(best_identifier_path, identifier)
             print("=" * 68)
             print("Best policy save at " + best_policy_path)
             print("Best identifier save at " + best_identifier_path)
@@ -322,8 +352,14 @@ def train(args, config, models_dir: str):
                   "loss/clip:", float(metrics["loss/clip"]), " --- ",
                   "loss/vf:", float(metrics["loss/vf"]), " --- ",
                   "loss/ent:", float(metrics["loss/ent"]))
+        if writer is not None:
+            writer.add_scalar("train/reward", mean_reward, env_step)
+            for k, v in metrics.items():
+                writer.add_scalar(k, float(v), env_step)
         if mean_reward >= args.reward_threshold:
             break
+    if writer is not None:
+        writer.close()
     return policy, identifier
 
 
@@ -346,8 +382,7 @@ def test(args, config, models_dir: str, results_dir: str):
     if policy.exact_action_values:
         tables, = attach_exact_action_values(config, args.test_dataset + "_test", tables,
                                              acc_correct=policy.acc_correct_obs)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
+    generator = seed_everything(args.seed, dev)
     t0 = time.time()
     logs, masks = runner.evaluate(policy, tables, samples, generator,
                                   deterministic=args.deterministic_eval)
@@ -361,7 +396,9 @@ def test(args, config, models_dir: str, results_dir: str):
 
 
 def run(args, config):
-    check_data_parallel("run_mansy", args)
+    world = check_data_parallel(args)
+    if world > 1 and not launch.launched():
+        return launch.launch_ranks("run_mansy", args, config, world)
     if args.qoe_train_ids is None:
         args.qoe_train_ids = list(range(len(config.qoe_split["train"])))
     split = "train" if args.test_on_seen else "test"
@@ -383,16 +420,26 @@ def run(args, config):
     os.makedirs(models_dir, exist_ok=True)
     os.makedirs(results_dir, exist_ok=True)
 
-    result = None
+    result, main = None, True
     if args.train:
-        stdout = sys.stdout
-        with open(os.path.join(models_dir, "console.log"), "w") as console_log:
-            sys.stdout = ConsoleLogger(stdout, console_log)
-            try:
-                train(args, config, models_dir)
-            finally:
-                sys.stdout = stdout
-    if args.test:
+        mesh = launch.join(args.device) if world > 1 else None
+        main = mesh is None or mesh.is_main
+        with contextlib.ExitStack() as stack:
+            # rank 0 tees its console into console.log; the other ranks print nothing
+            if main:
+                console_log = stack.enter_context(
+                    open(os.path.join(models_dir, "console.log"), "w"))
+                stdout = ConsoleLogger(sys.stdout, console_log)
+            else:
+                stdout = stack.enter_context(open(os.devnull, "w"))
+            stack.enter_context(contextlib.redirect_stdout(stdout))
+            if mesh is not None:
+                print(f"Env lanes sharded over {mesh.world} devices, one rank each "
+                      f"({mesh.backend})")
+            train(args, config, models_dir, mesh)
+        if mesh is not None:
+            shutdown(mesh)
+    if args.test and main:
         result = test(args, config, models_dir, results_dir)
     return result
 
@@ -496,8 +543,8 @@ def build_parser():
                         help="per-preference KL anchor coefficients, one per train "
                              "preference; overrides --bc-kl")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="shard env lanes over all devices (one device: as without the "
-                             "flag; more: refused, not ported yet)")
+                        help="shard env lanes over all devices, one rank a device (one "
+                             "device: as without the flag)")
     parser.add_argument("--deterministic-eval", action="store_true",
                         help="argmax actions at test time (tianshou deterministic_eval; "
                              "reference default samples)")

@@ -26,8 +26,14 @@ validation and testing its serving kernel, and the results recorder K7
 once.
 
 ``--data-parallel`` is read as the JAX CLI reads it: ``--test`` ignores it,
-and ``--train`` on one device runs as without it; over more devices it is
-refused until the multi-process path is ported (ROADMAP Queue 1 item 14c).
+and ``--train`` on one device runs as without it.  Over more devices the
+run is one rank a device (``parallel/launch.py`` starts them, or torchrun
+does), each holding the whole split: each step's batch is the JAX CLI's
+per-batch path's (the epoch's permutation, the last partial batch
+dropped), and every rank computes its rows' share of it
+(``vp_train.train_step`` with the mesh: the slot permutations, keep masks
+and BatchNorm statistics are the whole batch's).  Rank 0 alone validates
+and writes the checkpoints and the console, then runs ``--test``.
 
 Example::
 
@@ -53,11 +59,14 @@ from mansy_immersivevideostreaming_torch.data.viewport import create_datasets
 from mansy_immersivevideostreaming_torch.models import vp_train
 from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
 from mansy_immersivevideostreaming_torch.models.regression import linear_regression_sample
+from mansy_immersivevideostreaming_torch.parallel import launch
+from mansy_immersivevideostreaming_torch.parallel.mesh import Mesh, replicate, shutdown
 from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_mtio_npz_into, load_train_checkpoint, save_mtio_npz, save_train_checkpoint,
 )
 from mansy_immersivevideostreaming_torch.utils.device import check_data_parallel, resolve_device
 from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 from mansy_immersivevideostreaming_torch.utils.results import Results
 
 
@@ -81,8 +90,11 @@ def build_model(args, device) -> ViewportTransformerMTIO:
         device=device)
 
 
-def train(args, config, model, opt, state, models_dir: str, file_prefix: str, device):
-    """``run_models --train``'s loop (JAX ``cli/run_models.py:60-134``)."""
+def train(args, config, model, opt, state, models_dir: str, file_prefix: str, device,
+          mesh: Mesh | None = None):
+    """``run_models --train``'s loop (JAX ``cli/run_models.py:60-134``); with
+    a sharded ``mesh``, this rank's part of it (see the module docstring)."""
+    main = mesh is None or mesh.is_main
     checkpoint_path = os.path.join(models_dir, file_prefix + "_checkpoint.npz")
     best_model_path = os.path.join(models_dir, file_prefix + "_best_model.npz")
     if args.resume:
@@ -98,6 +110,8 @@ def train(args, config, model, opt, state, models_dir: str, file_prefix: str, de
     print(f"Training {args.model} on {args.train_dataset} - bs: {args.bs} "
           f"- lr: {args.lr} - seed: {args.seed} - samples: {len(ds_train)}")
     rng = np.random.default_rng(args.seed)
+    if mesh is not None and mesh.sharded:
+        print(f"Data-parallel over {mesh.world} devices, one rank each ({mesh.backend})")
     # the whole split on the device once; each epoch gathers its batches there
     h, c, f, *_ = ds_train.gather(np.arange(len(ds_train)))
     data = {k: torch.as_tensor(x, device=device)
@@ -107,12 +121,13 @@ def train(args, config, model, opt, state, models_dir: str, file_prefix: str, de
         print(f"Epoch {epoch + 1}/{args.epochs}\n-------------------------------")
         t0 = time.time()
         perm = rng.permutation(len(ds_train))
-        state, losses = vp_train.train_epoch(model, opt, state, data, args.bs, perm, args.seed)
+        state, losses = vp_train.train_epoch(model, opt, state, data, args.bs, perm, args.seed,
+                                             mesh)
         losses = losses.cpu().numpy()
         mean_loss = float(np.mean([float(l) for l in losses]))
         print(f"Train: mean train loss: {mean_loss:>9f} "
               f"({losses.shape[0] * args.bs / (time.time() - t0):,.0f} samples/s)")
-        if epoch % args.epochs_per_valid == 0:
+        if main and epoch % args.epochs_per_valid == 0:
             mses = []
             for h, c, f, *_ in batches(ds_valid, args.bs):
                 batch = {k: torch.as_tensor(x, device=device)
@@ -178,14 +193,16 @@ def test(args, config, models_dir: str, results_dir: str, file_prefix: str):
 
 def run(args, config):
     assert args.model in ("regression", "mtio")
-    check_data_parallel("run_models", args)
+    world = check_data_parallel(args)
+    if world > 1 and not launch.launched():
+        return launch.launch_ranks("run_models", args, config, world)
     # None -> config backfill (reference run_models.py:198-203)
     args.trim_head = config.trim_head if args.trim_head is None else args.trim_head
     args.trim_tail = config.trim_tail if args.trim_tail is None else args.trim_tail
     args.dataset_frequency = (config.frequency if args.dataset_frequency is None
                               else args.dataset_frequency)
     args.sample_step = config.sample_step if args.sample_step is None else args.sample_step
-    torch.manual_seed(args.seed)
+    seed_everything(args.seed)
 
     models_dir = os.path.join(config.vp_models_dir, args.model,
                               args.train_dataset, f"{args.dataset_frequency}Hz")
@@ -197,20 +214,32 @@ def run(args, config):
     file_prefix = (f"his_{args.his_window}_fut_{args.fut_window}_"
                    f"hid_{args.hidden_dim}_ss_{args.sample_step}_"
                    f"epochs_{args.epochs}_bs_{args.bs}_lr_{args.lr}_seed_{args.seed}")
+    main = True
     with contextlib.ExitStack() as stack:
         if args.train:
-            dev = resolve_device(args.device)
+            mesh = None
+            if world > 1:
+                mesh = launch.join(args.device)
+                main = mesh.is_main
+            dev = resolve_device(args.device) if mesh is None else mesh.device
             model = build_model(args, dev)
             model.init_like_flax(torch.Generator(device=dev).manual_seed(args.seed))
+            if mesh is not None:
+                replicate(mesh, model)
             opt = vp_train.make_optimizer(
                 args.lr, 0.01 if args.weight_decay is None else args.weight_decay)
-            console_log = stack.enter_context(
-                open(os.path.join(results_dir, file_prefix + "console.log"), "w"))
-            stack.enter_context(contextlib.redirect_stdout(ConsoleLogger(sys.stdout,
-                                                                         console_log)))
+            if main:
+                console = stack.enter_context(
+                    open(os.path.join(results_dir, file_prefix + "console.log"), "w"))
+                stdout = ConsoleLogger(sys.stdout, console)
+            else:
+                stdout = stack.enter_context(open(os.devnull, "w"))
+            stack.enter_context(contextlib.redirect_stdout(stdout))
             train(args, config, model, opt, vp_train.create_train_state(model), models_dir,
-                  file_prefix, dev)
-        if args.test:
+                  file_prefix, dev, mesh)
+            if mesh is not None:
+                shutdown(mesh)
+        if args.test and main:
             test(args, config, models_dir, results_dir, file_prefix)
 
 
@@ -247,8 +276,8 @@ def build_parser():
                         help="single-pass ground-truth-fed training decode instead of the "
                              "15-step autoregressive one; inference stays autoregressive")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="one device: as without the flag; more: refused, not "
-                             "ported yet")
+                        help="split each batch over all devices, one rank a device (one "
+                             "device: as without the flag)")
     parser.add_argument("--config-yml", type=str, default=None)
     return parser
 

@@ -9,11 +9,11 @@ step, K3 on ``SimpleActorCritic``'s five branches) and runs the A2C update
 (K6, then per minibatch K3's training mode -> K9 in A2C mode -> K10 ->
 RMSprop); each epoch evaluates the valid split with sampled actions, as the
 JAX CLI does.  ``--test`` evaluates ``<prefix>_best_policy.npz`` over the
-test grid (``--deterministic-eval`` takes the argmax).  The JAX CLI also
-writes TensorBoard scalars where the package imports; the port writes none
-(the tensorboard package may pull in other frameworks), and each epoch's
-console line carries those scalars instead: JAX's line (the valid mean
-return and the loss) with the loss's three terms appended.
+test grid (``--deterministic-eval`` takes the argmax).  Each epoch writes
+the JAX CLI's TensorBoard scalars (``train/reward`` and the update's
+metrics) under ``<prefix>_tb`` where ``tensorboardX`` imports, and the
+console line carries them too: JAX's line (the valid mean return and the
+loss) with the loss's three terms appended.
 
 Example::
 
@@ -29,7 +29,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from mansy_immersivevideostreaming_torch.config import load_config
 from mansy_immersivevideostreaming_torch.models.abr_nets import SimpleActorCritic
@@ -39,7 +38,8 @@ from mansy_immersivevideostreaming_torch.rl.rollout import init_lanes, make_coll
 from mansy_immersivevideostreaming_torch.rl.types import RunningStat
 from mansy_immersivevideostreaming_torch.utils.checkpoint import load_npz_into, save_npz
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
-from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger
+from mansy_immersivevideostreaming_torch.utils.logging import ConsoleLogger, tb_writer
+from mansy_immersivevideostreaming_torch.utils.prng import seed_everything
 
 
 def a2c_config(args) -> a2c_mod.A2CConfig:
@@ -75,12 +75,10 @@ def train(args, config, models_dir: str, file_prefix: str):
     vtables, vsamples, vvideos, vusers, vtraces = runner.build_split(
         config, args.train_dataset, args.network_dataset, "valid", qoe_weights, device=dev)
 
-    torch.manual_seed(args.seed)
+    generator = seed_everything(args.seed, dev)
     policy = SimpleActorCritic(action_space=config.action_space, device=dev)
     optimizer = a2c_mod.make_optimizer(policy.parameters(), args.lr)
     cfg = a2c_config(args)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
 
     n_lanes = args.train_lanes
     n_steps = max(args.step_per_collect // n_lanes, 1)
@@ -90,6 +88,7 @@ def train(args, config, models_dir: str, file_prefix: str):
 
     checkpoint_path = os.path.join(models_dir, file_prefix + "_checkpoint.npz")
     best_policy_path = os.path.join(models_dir, file_prefix + "_best_policy.npz")
+    writer = tb_writer(os.path.join(models_dir, file_prefix + "_tb"))
 
     best_reward = float("-inf")
     env_step = 0
@@ -121,8 +120,14 @@ def train(args, config, models_dir: str, file_prefix: str):
               f"valid mean return {mean_reward:.4f} (best {best_reward:.4f}) | "
               f"loss {float(metrics['loss']):.4f} (actor {float(metrics['loss/actor']):.4f}, "
               f"vf {float(metrics['loss/vf']):.4f}, ent {float(metrics['loss/ent']):.4f})")
+        if writer is not None:
+            writer.add_scalar("train/reward", mean_reward, env_step)
+            for k, v in metrics.items():
+                writer.add_scalar(k, float(v), env_step)
         if mean_reward >= args.reward_threshold:
             break
+    if writer is not None:
+        writer.close()
     return policy
 
 
@@ -145,8 +150,7 @@ def test(args, config, models_dir: str, results_dir: str, file_prefix: str):
         raise FileExistsError(f"File not exist: {policy_path}")
     load_npz_into(policy, policy_path)
     print("Successfully loaded agent from:", policy_path)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
+    generator = seed_everything(args.seed, dev)
 
     logs, masks = runner.evaluate(policy, tables, samples, generator,
                                   deterministic=args.deterministic_eval)

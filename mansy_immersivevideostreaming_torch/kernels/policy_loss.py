@@ -129,6 +129,23 @@ def _clip_grad(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return ga * gb
 
 
+def normalized_advantages(spec: LossSpec) -> torch.Tensor:
+    """PPO's advantages as the loss reads them: normalised over the
+    minibatch (``norm_adv``) or within each preference group
+    (``norm_adv_per_pref``), else raw."""
+    adv = spec.adv
+    if spec.norm_adv_per_pref:
+        member = F.one_hot(spec.pref_id.long(), spec.n_prefs).to(adv.dtype)  # [B, K]
+        cnt = torch.clamp(member.sum(0), min=1.0)
+        mean_k = (member.t() @ adv) / cnt
+        var_k = (member.t() @ (adv * adv)) / cnt - mean_k * mean_k
+        std = member @ torch.sqrt(torch.clamp(var_k, min=0.0))
+        return (adv - member @ mean_k) / (std + 1e-8)
+    if spec.norm_adv:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    return adv
+
+
 def policy_loss_plain(spec: LossSpec, logits: torch.Tensor, value: Optional[torch.Tensor]):
     """Plain PyTorch version: the loss, its terms [3] ((clip, vf, entropy) in
     PPO mode, (actor, vf, entropy) in A2C mode, (ce, 0, entropy) in CE
@@ -158,16 +175,7 @@ def policy_loss_plain(spec: LossSpec, logits: torch.Tensor, value: Optional[torc
         terms = torch.stack([ce, torch.zeros_like(ce), ent])
         return ce - spec.ent_coef * ent, terms, dlogits, None
 
-    adv = spec.adv
-    if spec.norm_adv_per_pref:
-        member = F.one_hot(spec.pref_id.long(), spec.n_prefs).to(adv.dtype)  # [B, K]
-        cnt = torch.clamp(member.sum(0), min=1.0)
-        mean_k = (member.t() @ adv) / cnt
-        var_k = (member.t() @ (adv * adv)) / cnt - mean_k * mean_k
-        std = member @ torch.sqrt(torch.clamp(var_k, min=0.0))
-        adv = (adv - member @ mean_k) / (std + 1e-8)
-    elif spec.norm_adv:
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    adv = normalized_advantages(spec)
     ratio = torch.exp(logp - spec.old_log_prob)
     lo, hi = 1 - spec.eps_clip, 1 + spec.eps_clip
     t1, t2 = ratio * adv, torch.clamp(ratio, lo, hi) * adv

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from mansy_immersivevideostreaming_torch.models.transformer import (
-    DROPOUT, F32, Dense, Gen, Transformer, dropout,
+    DROPOUT, F32, Dense, Gen, Transformer, current_shard, dropout,
 )
 from mansy_immersivevideostreaming_torch.ops.geometry import periodic_mse, wrap_position
 from mansy_immersivevideostreaming_torch.utils.device import resolve_device
@@ -179,9 +179,15 @@ class ViewportTransformerMTIO(nn.Module):
         slot when ``repeat`` (``perms`` and ``repeat`` drawn from
         ``generator`` unless given), and dropout draws from ``generator``
         (the device's default generator if None).  ``train=False`` tiles
-        the input into every slot, deterministically."""
+        the input into every slot, deterministically.  Inside
+        ``transformer.batch_shard`` the inputs are the global batch and the
+        forward computes the rank's rows of it: row b's slots are b and
+        ``perms[:, b]``, drawn over the global batch."""
         B, dev = history.shape[0], history.device
         gen = None
+        shard = current_shard() if train else None
+        if shard is not None and shard.total != B:
+            raise ValueError(f"batch_shard of {shard.total} rows, batch of {B}")
         if train:
             gen = generator
             if gen is None:
@@ -195,7 +201,8 @@ class ViewportTransformerMTIO(nn.Module):
             perms = torch.as_tensor(perms, device=dev).long()
             repeat = torch.as_tensor(repeat, device=dev)
             perms = torch.where(repeat, torch.arange(B, device=dev)[None, :], perms)
-            slots = lambda x: torch.cat([x] + [x[p] for p in perms], dim=-1)
+            rows = slice(None) if shard is None else shard.rows
+            slots = lambda x: torch.cat([x[rows]] + [x[p] for p in perms[:, rows]], dim=-1)
         else:
             slots = lambda x: x.repeat(1, 1, self.num_head)
         multi_history, multi_current, multi_future = (slots(x)

@@ -21,6 +21,14 @@ ones.  :meth:`DecoderLayer.step_train` is the decode step whose cache is
 out of place, for autograd; :meth:`DecoderLayer.step` writes it in place,
 for ``sample`` under ``no_grad``.
 
+Data parallelism (``parallel/mesh.py``): inside :func:`batch_shard` a
+training forward computes one rank's rows of a global batch, as JAX's
+sharded step computes the global one.  Each keep mask is drawn at the
+global batch and the rank keeps its rows, so every rank's generator stays
+in step with a one-process run's; the distillation layer's BatchNorm takes
+its statistics over the global batch (the sums of h and h^2 and the count,
+summed over the ranks, differentiably).
+
 Compute dtype (``dtype``, the JAX modules' ``dtype``; bf16 for
 ``run_models --bf16``): parameters stay f32.  Each Dense (:class:`Dense`)
 and the distillation layer's conv cast their input, weight and bias to the
@@ -39,13 +47,16 @@ Module names follow the Flax tree where it uses ``setup`` (``sa``, ``ca``,
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mansy_immersivevideostreaming_torch.kernels.attention import attention
+from mansy_immersivevideostreaming_torch.parallel.mesh import Mesh, all_reduce_sum
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 Gen = Optional[torch.Generator]
@@ -55,10 +66,43 @@ BN_MOMENTUM = 0.9
 F32 = torch.float32
 
 
+class BatchShard(NamedTuple):
+    """A rank's share of a training forward: the mesh, the rank's rows and
+    the global batch size."""
+    mesh: Mesh
+    rows: slice
+    total: int
+
+
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("batch_shard", default=None)
+
+
+@contextlib.contextmanager
+def batch_shard(mesh: Mesh, total: int) -> Iterator[BatchShard]:
+    """Training forwards inside the context compute ``mesh``'s rows of a
+    global batch of ``total`` (see the module docstring)."""
+    shard = BatchShard(mesh, mesh.rows(total), total)
+    token = _SHARD.set(shard)
+    try:
+        yield shard
+    finally:
+        _SHARD.reset(token)
+
+
+def current_shard() -> Optional[BatchShard]:
+    """The :func:`batch_shard` the forward runs in, or None."""
+    return _SHARD.get()
+
+
 def keep_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor:
     """flax's Dropout keep mask: a uniform draw from ``gen`` below
-    ``1 - rate`` (``random.bernoulli(rng, keep_prob)``), as bool."""
-    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    ``1 - rate`` (``random.bernoulli(rng, keep_prob)``), as bool.  Inside
+    :func:`batch_shard`, drawn at the global batch, the rank's rows kept."""
+    shard = current_shard()
+    if shard is None:
+        return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    u = torch.rand((shard.total,) + tuple(shape[1:]), generator=gen, device=device)
+    return u[shard.rows] < 1.0 - rate
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Gen) -> torch.Tensor:
@@ -233,10 +277,20 @@ class DistillLayer(nn.Module):
         as E[h^2] - E[h]^2 clipped at 0 (``use_fast_variance``); the output
         normalised by the biased variance; the running statistics updated
         as 0.9 * running + 0.1 * batch with that (biased) variance, which
-        ``nn.BatchNorm1d`` would take unbiased."""
+        ``nn.BatchNorm1d`` would take unbiased.  Inside :func:`batch_shard`
+        the statistics are the global batch's."""
         bn = self.bn
-        mean = h.mean((0, 2))
-        var = torch.clamp((h * h).mean((0, 2)) - mean * mean, min=0.0)
+        shard = current_shard()
+        if shard is None:
+            mean = h.mean((0, 2))
+            var = torch.clamp((h * h).mean((0, 2)) - mean * mean, min=0.0)
+        else:
+            D = h.shape[1]
+            count = h.new_full((1,), float(h.shape[0] * h.shape[2]))
+            sums = all_reduce_sum(shard.mesh, torch.cat([h.sum((0, 2)), (h * h).sum((0, 2)),
+                                                         count]))
+            mean = sums[:D] / sums[-1]
+            var = torch.clamp(sums[D:2 * D] / sums[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             for running, batch in ((bn.running_mean, mean), (bn.running_var, var)):
                 running.copy_(BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch)

@@ -16,17 +16,27 @@ its gradient by autograd (K8's backward kernel on the card) and AdamW
 written out in optax's order (:func:`adamw_update`).  :func:`train_epoch`
 runs it over an epoch's permutation, the last partial batch dropped
 (``:75-97``), the losses kept on the device.
+
+Given a sharded ``mesh`` (``parallel/mesh.py``, more than one rank), a
+step is JAX's step over a ``data`` mesh: every rank holds the whole batch
+and draws the slots and keep masks of the whole batch from the same
+generator, and computes its rows' share of the loss
+(``transformer.batch_shard``: the BatchNorm statistics are the global
+batch's); the shares' gradients are summed over the ranks before AdamW,
+so the parameters stay the same bits on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, NamedTuple, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
+from mansy_immersivevideostreaming_torch.models.transformer import batch_shard
 from mansy_immersivevideostreaming_torch.ops.geometry import periodic_mse
+from mansy_immersivevideostreaming_torch.parallel.mesh import Mesh, sum_tensors
 
 
 class VPState(NamedTuple):
@@ -103,35 +113,49 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def train_step(model: ViewportTransformerMTIO, opt: AdamW, state: VPTrainState,
-               batch: Mapping[str, torch.Tensor], seed: int, perms=None, repeat=None
-               ) -> Tuple[VPTrainState, torch.Tensor]:
+               batch: Mapping[str, torch.Tensor], seed: int, perms=None, repeat=None,
+               mesh: Optional[Mesh] = None) -> Tuple[VPTrainState, torch.Tensor]:
     """One AdamW step on the MTIO loss (``vp_train.py:50-68``; reference
     ``run_models.py:37-45``); ``perms`` and ``repeat`` fix the slot draws
-    (tests pass JAX's).  Returns (the new state, the loss on the device)."""
+    (tests pass JAX's).  With a sharded ``mesh``, ``batch`` is the global
+    batch on every rank (see the module docstring).  Returns (the new
+    state, the loss on the device)."""
     gen = step_generator(seed, state.step, batch["history"].device)
-    pred, gt = model(batch["history"], batch["current"], batch["future"], train=True,
-                     perms=perms, repeat=repeat, generator=gen)
-    loss = model.loss_function(pred, gt)
     params = list(model.parameters())
-    grads = torch.autograd.grad(loss, params)
+    if mesh is None or not mesh.sharded:
+        pred, gt = model(batch["history"], batch["current"], batch["future"], train=True,
+                         perms=perms, repeat=repeat, generator=gen)
+        loss = model.loss_function(pred, gt)
+        grads = torch.autograd.grad(loss, params)
+    else:
+        B = batch["history"].shape[0]
+        with batch_shard(mesh, B) as shard:
+            pred, gt = model(batch["history"], batch["current"], batch["future"], train=True,
+                             perms=perms, repeat=repeat, generator=gen)
+            # the rank's rows' share of the global mean
+            share = model.loss_function(pred, gt) * ((shard.rows.stop - shard.rows.start) / B)
+            grads = torch.autograd.grad(share, params)
+        *grads, loss = sum_tensors(mesh, list(grads) + [share.detach()])
     state = adamw_update(opt, params, grads, state)
     return state._replace(step=state.step + 1), loss.detach()
 
 
 def train_epoch(model: ViewportTransformerMTIO, opt: AdamW, state: VPTrainState,
-                data: Mapping[str, torch.Tensor], batch_size: int, perm, seed: int
-                ) -> Tuple[VPTrainState, torch.Tensor]:
+                data: Mapping[str, torch.Tensor], batch_size: int, perm, seed: int,
+                mesh: Optional[Mesh] = None) -> Tuple[VPTrainState, torch.Tensor]:
     """A full epoch (``vp_train.py:75-97``): ``data`` holds the whole split
     on the model's device, ``perm`` the epoch's index order; the batches
     are its consecutive ``batch_size`` slices, the last partial one
-    dropped.  Returns (state, the per-batch losses [n_batches] on the
-    device: reading them is the epoch's one sync)."""
+    dropped (``run_models``' data-parallel loop, ``drop_remainder=True``,
+    with a sharded ``mesh``).  Returns (state, the per-batch losses
+    [n_batches] on the device: reading them is the epoch's one sync)."""
     dev = data["history"].device
     n_batches = len(perm) // batch_size
     idx = torch.as_tensor(np.asarray(perm[:n_batches * batch_size]), device=dev)
     losses = []
     for ib in idx.reshape(n_batches, batch_size):
-        state, loss = train_step(model, opt, state, {k: v[ib] for k, v in data.items()}, seed)
+        state, loss = train_step(model, opt, state, {k: v[ib] for k, v in data.items()}, seed,
+                                 mesh=mesh)
         losses.append(loss)
     return state, (torch.stack(losses) if losses else torch.zeros(0, device=dev))
 

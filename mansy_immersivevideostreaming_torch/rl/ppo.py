@@ -10,6 +10,14 @@ shuffled minibatches.
 One minibatch step on the card is K3's training-mode forward on a row gather
 of the collector's packed observation buffer, the K9 loss head, the K10
 backward, the global-norm clip and Adam.  GAE is K6, once an update.
+
+Given a sharded ``mesh`` (``parallel/mesh.py``), the update is JAX's
+update over a ``data`` mesh: every rank holds the whole (gathered)
+trajectory, so GAE, the return normalisation and the minibatch
+permutations are the same everywhere; each rank runs a minibatch step on
+its ``1/world`` of the minibatch's rows, with the advantages normalised
+over the whole minibatch first, and the gradients are averaged over the
+ranks before the clip and Adam.
 """
 
 from __future__ import annotations
@@ -20,8 +28,11 @@ from typing import Dict, Iterable, Optional
 import torch
 
 from mansy_immersivevideostreaming_torch.kernels.gae import compute_gae
-from mansy_immersivevideostreaming_torch.kernels.policy_loss import LossSpec, ppo_loss
+from mansy_immersivevideostreaming_torch.kernels.policy_loss import (
+    LossSpec, normalized_advantages, ppo_loss,
+)
 from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
+from mansy_immersivevideostreaming_torch.parallel.mesh import Mesh, mean_gradients, sum_tensors
 from mansy_immersivevideostreaming_torch.rl.types import RunningStat, Transition
 
 
@@ -72,7 +83,7 @@ def ppo_update(policy: MansyActorCritic, optimizer: torch.optim.Optimizer, cfg: 
                ent_coef: Optional[float] = None,
                anchor_logits: Optional[torch.Tensor] = None, kl_coef=0.0,
                pref_ids: Optional[torch.Tensor] = None,
-               perms: Optional[torch.Tensor] = None):
+               perms: Optional[torch.Tensor] = None, mesh: Optional[Mesh] = None):
     """Full PPO update on a [T, N] trajectory with (possibly reshaped)
     ``rewards``; ``policy`` and ``optimizer`` are updated in place.  Returns
     (ret_rms, metrics: mean loss, loss/clip, loss/vf, loss/ent over every
@@ -84,7 +95,8 @@ def ppo_update(policy: MansyActorCritic, optimizer: torch.optim.Optimizer, cfg: 
     i32 enables ``cfg.norm_adv_per_pref``.  ``perms`` [repeat, n_mb, mb]
     replaces the minibatch permutations drawn from ``generator`` (each
     epoch permutes the T*N rows flattened time-major and drops the tail past
-    ``n_mb * mb``, JAX ``ppo.py:158``)."""
+    ``n_mb * mb``, JAX ``ppo.py:158``).  With a sharded ``mesh`` the
+    minibatch must split over the ranks (see the module docstring)."""
     ent_coef = cfg.ent_coef if ent_coef is None else float(ent_coef)
     T, N = rewards.shape
     dev = rewards.device
@@ -117,11 +129,12 @@ def ppo_update(policy: MansyActorCritic, optimizer: torch.optim.Optimizer, cfg: 
     perms = torch.as_tensor(perms, device=dev).long()
     if perms.shape != (cfg.repeat, n_mb, mb_size):
         raise ValueError(f"ppo_update: perms must be [{cfg.repeat}, {n_mb}, {mb_size}]")
+    sharded = mesh is not None and mesh.sharded
+    rows = mesh.rows(mb_size) if sharded else slice(None)
     params = list(policy.parameters())
     metrics = []
     for idx in perms.reshape(-1, mb_size):
         mb = {k: v[idx] for k, v in flat.items()}
-        logits, value = policy.forward_packed(mb["obs"])
         spec = LossSpec(
             action=mb["action"], ent_coef=ent_coef, old_log_prob=mb["log_prob"],
             old_value=mb["value"], adv=mb["adv"], ret=mb["ret"], pref_id=mb.get("pref_id"),
@@ -129,12 +142,24 @@ def ppo_update(policy: MansyActorCritic, optimizer: torch.optim.Optimizer, cfg: 
             kl_coef=kl if anchor_logits is not None else None, eps_clip=cfg.eps_clip,
             vf_coef=cfg.vf_coef, value_clip=cfg.value_clip, norm_adv=cfg.norm_adv,
             norm_adv_per_pref=cfg.norm_adv_per_pref and pref_ids is not None,
-            n_prefs=cfg.n_prefs)
+            n_prefs=cfg.n_prefs, mode="ppo")
+        if sharded:
+            # the whole minibatch's advantage statistics, then the rank's rows
+            spec = spec._replace(adv=normalized_advantages(spec), norm_adv=False,
+                                 norm_adv_per_pref=False)
+            spec = spec._replace(**{f: getattr(spec, f)[rows].contiguous() for f in (
+                "action", "old_log_prob", "old_value", "adv", "ret", "pref_id",
+                "anchor_logits") if getattr(spec, f) is not None})
+        logits, value = policy.forward_packed(mb["obs"][rows])
         loss, terms = ppo_loss(logits, value, spec)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if sharded:
+            mean_gradients(mesh, params)
         clip_grad_norm(params, cfg.max_grad_norm)
         optimizer.step()
         metrics.append(torch.cat([loss.detach()[None], terms]))
     m = torch.stack(metrics).mean(0)
+    if sharded:
+        m = sum_tensors(mesh, [m])[0] / mesh.world
     return ret_rms, {"loss": m[0], "loss/clip": m[1], "loss/vf": m[2], "loss/ent": m[3]}

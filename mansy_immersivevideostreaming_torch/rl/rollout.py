@@ -10,6 +10,15 @@ The policy decides the observation (``policy.observe``): K2's MANSY mode for
 on tables without them), its simple mode for the simple_rl baseline's
 ``SimpleActorCritic``, as the JAX collector takes ``observe_mansy`` or
 ``observe_simple``.
+
+Given a sharded ``mesh`` (``parallel/mesh.py``), each rank steps its
+contiguous ``1/world`` of the lanes, as JAX's collector does with the lanes
+sharded over a ``data`` mesh: the lanes start where a one-process run's
+would (``init_lanes`` is a function of ``seed + lane``), the sampling noise
+is drawn for every lane and each rank keeps its lanes' rows, and the
+trajectory, the episode logs and the bootstrap values are gathered over
+the ranks at the end of the collect, so every rank updates on the whole
+of it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
 from mansy_immersivevideostreaming_torch.models.abr_nets import (
     MansyActorCritic, SimpleActorCritic,
 )
+from mansy_immersivevideostreaming_torch.parallel.mesh import Mesh, all_gather_cat, gather_tree
 from mansy_immersivevideostreaming_torch.rl.types import Transition
 from mansy_immersivevideostreaming_torch.sim.env import EnvState, LogRecord, reset_env, step_env
 from mansy_immersivevideostreaming_torch.sim.tables import SimTables
@@ -31,14 +41,21 @@ from mansy_immersivevideostreaming_torch.sim.tables import SimTables
 Policy = Union[MansyActorCritic, SimpleActorCritic]
 
 
+def lane_rows(mesh: Optional[Mesh], n_lanes: int) -> slice:
+    """The lanes a rank steps: all of them unless ``mesh`` is sharded."""
+    return mesh.rows(n_lanes) if mesh is not None and mesh.sharded else slice(None)
+
+
 def init_lanes(tables: SimTables, samples: torch.Tensor, n_lanes: int,
-               seed: int = 0) -> EnvState:
+               seed: int = 0, mesh: Optional[Mesh] = None) -> EnvState:
     """N independent lanes with worker-strided sample pointers (reference
     seeds workers at ``seed % worker_num`` and strides by worker count,
-    ``mansy_env.py:56,100-101``)."""
+    ``mansy_env.py:56,100-101``); with a sharded ``mesh``, the rank's
+    lanes of them."""
     starts = (seed + torch.arange(n_lanes, dtype=torch.int32, device=samples.device)) \
         % samples.shape[0]
-    return reset_env(tables, samples, starts.to(torch.int32), n_lanes)
+    return reset_env(tables, samples, starts[lane_rows(mesh, n_lanes)].to(torch.int32),
+                     n_lanes)
 
 
 def check_observation(policy: Policy, tables: SimTables) -> None:
@@ -56,7 +73,8 @@ def stack_logs(logs) -> LogRecord:
 
 
 def make_collector(tables: SimTables, samples: torch.Tensor,
-                   n_lanes: int, n_steps: int, train: bool = True):
+                   n_lanes: int, n_steps: int, train: bool = True,
+                   mesh: Optional[Mesh] = None):
     """Build a collector.
 
     Returns ``collect(policy, states, generator) -> (new_states, Transition
@@ -65,19 +83,24 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
     observation.  Actions are sampled
     with Gumbel noise drawn from ``generator`` (a ``torch.Generator`` on the
     lanes' device).  On the card ``states`` is updated in place and returned.
+    With a sharded ``mesh``, ``states`` holds the rank's lanes and the
+    trajectory, logs and last values returned are every lane's.
     """
     A = tables.action_space
+    rows = lane_rows(mesh, n_lanes)
+    sharded = mesh is not None and mesh.sharded
+    local = n_lanes // mesh.world if sharded else n_lanes
 
     def collect(policy: Policy, states: EnvState, generator: Optional[torch.Generator]):
         check_observation(policy, tables)
         dev = states.buf.device
         w = policy.packed_weights()
-        obs = torch.empty((n_steps, n_lanes, policy.obs_width(tables)), dtype=torch.float32,
+        obs = torch.empty((n_steps, local, policy.obs_width(tables)), dtype=torch.float32,
                           device=dev)
         actions, log_probs, values, rewards, dones, logs = [], [], [], [], [], []
         for t in range(n_steps):
             x = policy.observe(tables, states, out=obs[t])
-            noise = gumbel_noise((n_lanes, A), generator, dev)
+            noise = gumbel_noise((n_lanes, A), generator, dev)[rows]
             _, value, action, log_prob = actor_critic_forward(w, x, noise)
             states, reward, done, log = step_env(tables, samples, states, action,
                                                  n_lanes, train)
@@ -91,7 +114,11 @@ def make_collector(tables: SimTables, samples: torch.Tensor,
         traj = Transition(obs=obs, action=torch.stack(actions),
                           log_prob=torch.stack(log_probs), value=torch.stack(values),
                           reward=torch.stack(rewards), done=torch.stack(dones))
-        return states, traj, stack_logs(logs), last_values
+        logs = stack_logs(logs)
+        if sharded:
+            traj, logs = gather_tree(mesh, traj, 1), gather_tree(mesh, logs, 1)
+            last_values = all_gather_cat(mesh, last_values, 0)
+        return states, traj, logs, last_values
 
     return collect
 

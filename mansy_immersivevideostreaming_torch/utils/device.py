@@ -7,6 +7,8 @@ caller asks for it, as the tests do.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -26,15 +28,16 @@ def device_span(device: str | torch.device = "cuda") -> int:
     return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
 
 
-def check_data_parallel(cli: str, args) -> None:
+def check_data_parallel(args) -> int:
     """``--data-parallel`` as the JAX CLIs read it: only in ``--train`` and
-    only over more than one device.  On one device the run is the run
-    without the flag; over more, it raises ``SystemExit`` until the
-    multi-process path is ported (ROADMAP Queue 1 item 14c)."""
+    only over more than one device.  Returns the ranks the run spans, one
+    process a device: 1 without the flag, in ``--test`` and on one device
+    (the run is then the run without the flag); else the WORLD_SIZE a
+    launcher (torchrun, ``parallel/launch.py``) gave this process, or, when
+    none did, every device of ``--device``, whose ranks the CLI then starts
+    itself (``parallel.launch.launch_ranks``)."""
     if not (args.train and args.data_parallel):
-        return
-    span = device_span(args.device)
-    if span > 1:
-        raise SystemExit(f"{cli}: --train --data-parallel over {span} devices is not ported "
-                         "yet (the multi-process path, ROADMAP Queue 1 item 14c); one device "
-                         "runs it as without the flag")
+        return 1
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return device_span(args.device)

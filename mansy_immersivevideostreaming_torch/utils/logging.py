@@ -1,6 +1,7 @@
-"""Console tee and plain-ASCII table rendering (copies of the JAX package's
-``ConsoleLogger`` and ``ascii_table``, reference
-``viewport_prediction/utils/console_logger.py:1-12``)."""
+"""Console tee, plain-ASCII table rendering and the TensorBoard writer
+(copies of the JAX package's ``ConsoleLogger`` and ``ascii_table``,
+reference ``viewport_prediction/utils/console_logger.py:1-12``, and the
+optional scalar writer of its ``run_mansy`` and ``run_simple_rl``)."""
 
 from __future__ import annotations
 
@@ -41,3 +42,17 @@ def ascii_table(field_names: Sequence[str], rows: Iterable[Sequence]) -> str:
         out.append("|" + "|".join(f" {c:^{w}} " for c, w in zip(r, widths)) + "|")
     out.append(sep)
     return "\n".join(out)
+
+
+def tb_writer(log_dir: str):
+    """A TensorBoard scalar writer into ``log_dir`` (``tensorboardX``'s
+    ``SummaryWriter``: ``add_scalar(tag, value, step)``, ``close()``), or
+    None where the package is missing, as the JAX CLIs' writer is None
+    where ``torch.utils.tensorboard`` does not import.  Not
+    ``torch.utils.tensorboard``: importing it can pull JAX and TensorFlow
+    into the process."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)

@@ -16,9 +16,9 @@ the CPU.
 * ``run_simple_rl``: the JAX CLI's ``--train`` on the synthetic tree, its
   ``_best_policy.ckpt`` converted to npz, then the port's ``--test
   --deterministic-eval`` writes JAX's ``results.csv``; the port's ``--train
-  --test`` writes JAX's file set (``.npz`` for ``.ckpt``, and no
-  TensorBoard log), and its npz loads into the Flax net with the same
-  outputs.
+  --test`` writes JAX's file set (``.npz`` for ``.ckpt``, the ``_tb``
+  TensorBoard directory too), and its npz loads into the Flax net with the
+  same outputs.
 
 Tolerances: the observation and the forward 1e-5 (f32 sums in other
 orders); gradients rtol 1e-4, atol 1e-6 plus 1e-5 of the tensor's largest
@@ -368,10 +368,12 @@ def test_run_simple_rl_test_on_jax_weights_and_train_file_set(tmp_path):
     TCLI.run(TCLI.build_parser().parse_args(["--train", "--test", "--device", "cpu"] + COMMON),
              port_config(build_synthetic_tree(tbase)))
     tdir = _models_dir(tbase)
-    # the port writes no TensorBoard log (JAX's "_tb" directory, where tensorboard imports)
+    # both write the "_tb" TensorBoard directory (where tensorboard, and
+    # tensorboardX, import)
     jax_files = {f[:-len(".ckpt")] + ".npz" if f.endswith(".ckpt") else f
-                 for f in os.listdir(jdir) if not f.endswith((".npz", "_tb"))}
+                 for f in os.listdir(jdir) if not f.endswith(".npz")}
     assert set(os.listdir(tdir)) == jax_files
+    assert any(f.endswith("_tb") for f in jax_files)
     assert any(f.endswith("_checkpoint.npz") for f in jax_files)
     assert len(_results(tbase)) == len(jax_results)
     (best,) = glob.glob(os.path.join(tdir, "*_best_policy.npz"))

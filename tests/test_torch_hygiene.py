@@ -2,7 +2,9 @@
 
 * No module of ``mansy_immersivevideostreaming_torch`` imports JAX, Flax,
   Optax, Orbax or the JAX package (an AST scan, and a fresh interpreter that
-  imports the port's runner without pulling in ``jax``, and ones that run
+  imports the port's runner, CLIs, ``parallel``, ``utils``, ``entry`` and
+  the TensorBoard writer's ``tensorboardX`` without pulling in ``jax``, and
+  ones that run
   ``run_simple_rl --train --test`` and ``run_ensemble``, and
   ``preprocess_hmdtrace`` and ``preprocess_network``, on the CPU without
   pulling in ``jax``, ``tensorflow`` or the JAX package).
@@ -94,6 +96,13 @@ def test_runner_import_pulls_in_no_jax():
             "import mansy_immersivevideostreaming_torch.rl.a2c; "
             "import mansy_immersivevideostreaming_torch.cli.run_simple_rl; "
             "import mansy_immersivevideostreaming_torch.cli.run_ensemble; "
+            "import mansy_immersivevideostreaming_torch.parallel.dryrun; "
+            "import mansy_immersivevideostreaming_torch.parallel.launch; "
+            "import mansy_immersivevideostreaming_torch.utils.prng; "
+            "import mansy_immersivevideostreaming_torch.utils.profiling; "
+            "import mansy_immersivevideostreaming_torch.utils.logging; "
+            "import mansy_immersivevideostreaming_torch.entry; "
+            "import tensorboardX; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))

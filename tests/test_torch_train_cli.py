@@ -19,8 +19,9 @@ Every policy and identifier npz loads into the JAX package's Flax net and
 gives the port's outputs (1e-5), and each policy has its sidecar.
 
 ``--data-parallel`` on one device (``--device cpu``): ``run_mansy --train``
-and ``--test`` write the npz, logs and stdout of the same run without the
-flag; over two CUDA devices ``--train`` refuses, naming ROADMAP item 14c.
+and ``--test`` write the npz, logs, TensorBoard scalars and stdout of the
+same run without the flag; over two CUDA devices ``--train`` plans two
+ranks.
 """
 
 import dataclasses
@@ -41,11 +42,13 @@ from mansy_immersivevideostreaming_tpu.models.abr_nets import QoEIdentifier as J
 from mansy_immersivevideostreaming_torch.cli import run_dagger, run_expert, run_mansy
 from mansy_immersivevideostreaming_torch.kernels.observe import pack_obs
 from mansy_immersivevideostreaming_torch.models.abr_nets import QoEIdentifier
+from mansy_immersivevideostreaming_torch.parallel import launch
 from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_net_config, load_npz_into, load_npz_policy,
 )
 from test_torch_ppo import random_obs
 from test_torch_tables import port_config
+from test_torch_utils import EVENTS, tb_scalars
 
 COMMON = ["--epochs", "2", "--step-per-epoch", "64", "--step-per-collect", "64",
           "--train-lanes", "8", "--batch-size", "64", "--hidden-dim", "16",
@@ -198,11 +201,19 @@ def test_run_expert_demos_then_run_dagger(tree, capsys):
 ])
 def test_later_slices_flags_are_refused(tree, cli, flags, monkeypatch):
     """Over two CUDA devices ``--train --data-parallel`` is the multi-process
-    path, not ported yet: refused before anything runs, naming item 14c."""
+    path: the CLI, started by no launcher, plans two ranks, one a device,
+    and hands them the run (``parallel.launch.launch_ranks``, a recorder
+    here) before anything else runs.  The ranks' runs themselves are held
+    by ``tests/test_torch_data_parallel_cli.py``."""
     _, cfg = tree
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="item 14c"):
-        cli.run(cli.build_parser().parse_args(flags + ["--device", "cuda"]), cfg)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    planned = []
+    monkeypatch.setattr(launch, "launch_ranks",
+                        lambda name, args, config, world: planned.append((name, args, world)))
+    args = cli.build_parser().parse_args(flags + ["--device", "cuda"])
+    assert cli.run(args, cfg) is None
+    assert planned == [(cli.__name__.rsplit(".", 1)[1], args, 2)]
 
 
 # a rate or a duration in a console line: the one thing two runs may differ in
@@ -211,14 +222,19 @@ TIMED = re.compile(r"[0-9][0-9,.]* (?:env-steps|samples|trajectories)/s|in [0-9.
 
 def cli_outputs(run, roots, capsys) -> dict:
     """``run()``'s stdout and every file it wrote under ``roots`` ({path:
-    content}: an npz as its arrays, text with TIMED masked); the roots are
-    removed after, so that the next run writes the same paths afresh."""
+    content}: an npz as its arrays, a TensorBoard event file, whose name
+    holds the clock, as its directory's scalars, text with TIMED masked);
+    the roots are removed after, so that the next run writes the same paths
+    afresh."""
     capsys.readouterr()
     run()
     out = {"stdout": TIMED.sub("<t>", capsys.readouterr().out)}
     for root in roots:
         for path in sorted(glob.glob(os.path.join(root, "**", "*"), recursive=True)):
-            if path.endswith(".npz"):
+            if EVENTS in os.path.basename(path):  # named by the clock: its scalars
+                out[os.path.join(os.path.dirname(path), EVENTS)] = tb_scalars(
+                    os.path.dirname(path))
+            elif path.endswith(".npz"):
                 with np.load(path) as npz:
                     out[path] = {k: npz[k] for k in npz.files}
             elif os.path.isfile(path):

@@ -30,7 +30,7 @@ d = 16), against the JAX CLIs' outputs.
 
 ``--data-parallel`` on one device: ``run_models --test`` and ``--train``
 write the files and stdout of the same run without the flag; over two CUDA
-devices ``--train`` refuses, naming ROADMAP item 14c.  ``--bf16`` runs
+devices ``--train`` plans two ranks.  ``--bf16`` runs
 (``tests/test_torch_bf16.py``).
 """
 
@@ -60,6 +60,7 @@ from mansy_immersivevideostreaming_torch.data.prediction import load_prediction_
 from mansy_immersivevideostreaming_torch.data.viewport import create_datasets
 from mansy_immersivevideostreaming_torch.models import vp_train as TV
 from mansy_immersivevideostreaming_torch.models.mtio import ViewportTransformerMTIO
+from mansy_immersivevideostreaming_torch.parallel import launch
 from mansy_immersivevideostreaming_torch.utils.checkpoint import (
     load_mtio_npz_into, load_train_checkpoint,
 )
@@ -241,12 +242,20 @@ def test_predict_matches_jax(trained):
 @pytest.mark.parametrize("flag", ["--data-parallel"])
 def test_run_models_refuses_the_flags_of_later_slices(tmp_path, flag, monkeypatch):
     """Over two CUDA devices ``--train --data-parallel`` is the multi-process
-    path, not ported yet: refused before anything runs, naming item 14c."""
+    path: the CLI, started by no launcher, plans two ranks, one a device,
+    and hands them the run (``parallel.launch.launch_ranks``, a recorder
+    here) before anything else runs.  The ranks' runs themselves are held
+    by ``tests/test_torch_data_parallel_cli.py``."""
     cfg = port_config(build_synthetic_tree(str(tmp_path)))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="item 14c"):
-        run_models.run(run_models.build_parser().parse_args(
-            ["--train", flag, "--device", "cuda"] + COMMON), cfg)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    planned = []
+    monkeypatch.setattr(launch, "launch_ranks",
+                        lambda name, args, config, world: planned.append((name, args, world)))
+    args = run_models.build_parser().parse_args(["--train", flag, "--device", "cuda"] + COMMON)
+    assert run_models.run(args, cfg) is None
+    assert planned == [("run_models", args, 2)]
+    assert not os.path.exists(cfg.vp_models_dir)
 
 
 @pytest.mark.parametrize("mode", ["--test", "--train"])
