@@ -3,7 +3,9 @@
 kernels, holds each against its plain PyTorch version, serves the v9 policy
 over a test grid, collects a rollout, runs the MPC expert over a test grid,
 serves the action-value policy v16 and the hidden-256 policy v18, trains
-with PPO and the identifier (at hidden 128 and 256), runs DAgger rounds,
+with PPO and the identifier (at hidden 128 and 256, and at 512, 64 and 160
+from Flax's initialiser, serving the 512-wide policy it wrote), runs DAgger
+rounds,
 serves the MTIO viewport model (``run_models --test``, the ``predict``
 export) and trains it (``run_models --train``, also at ``--his-window
 96``), trains and tests the simple_rl (A2C) baseline and runs the routed
@@ -20,7 +22,8 @@ this tree's on the same inputs (``earlier_ms``; K1, K9, K2, K7, K5 and K6
 also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5,
 K6 and K8 with ``earlier_bits_equal``, K5 also with
 ``earlier_max_abs_diff``; K6, K8 and K2's derived and row modes must equal
-the parent's bits).  ``--vp-train N`` runs only phase 11, N times over
+the parent's bits; so must K3 and K10 at hidden 128 and 256, phase 2h).
+``--vp-train N`` runs only phase 11, N times over
 (each training's weights differ), and prints each run's step checks.
 
 Phases:
@@ -89,6 +92,16 @@ TF32 products on the tensor cores).
 7b. train_256: the same from the v18 weights at ``--hidden-dim 256`` (K3
    and K10 at width 256): a warm-up round, one timed round, a profiled
    update, and one update against the plain path at phase 7's limits.
+   Phase 7's update check holds the plain path to the kernels' LeakyReLU
+   branches where the two differ at a near-tie, each within
+   TRAIN_KINK_MARGIN of its tie (``kinks``; the unforced reading beside,
+   ``own_branches``).
+7c-7f. train_512, serve_512, train_64, train_160: phase 7b at
+   ``--hidden-dim 512`` (K3 and K10's wide variant), 64 and 160 (their
+   instances of capacity 64 and 192) from Flax's initialiser; train_512
+   writes its policy as ``run_mansy`` writes ``best_policy.npz`` (npz and
+   sidecar), and serve_512 serves that file over the 1440-episode grid as
+   phase 3 serves v9 (0 records may differ).
 8. dagger: ``run_dagger`` rounds with v16's flags through
    ``run_dagger.dagger_round``, from the v16 weights and an initial
    aggregate of the port's expert demos on the test grid's shape; then a
@@ -227,7 +240,8 @@ composition.
    process running this script as ``--dp-worker`` (the group's store a
    file in a temporary directory), first one rank (world 1, NCCL), then
    two ranks sharing the card (world 2, Gloo through host copies): (a, b)
-   ``parallel.dryrun.run_dryrun`` on data for two devices at hidden 128;
+   ``parallel.dryrun.run_dryrun`` on data for two devices at JAX's hidden
+   32 (K3 and K10's instance of capacity 64);
    (c) ``run_mansy``'s loop (``ppo_round`` with the mesh) at phase 7's
    shapes from the v9 weights, DP_ROUNDS rounds; (d) ``run_models``' loop
    (``vp_train.train_step`` with the mesh) at d 512, bs 512 over
@@ -242,6 +256,19 @@ composition.
    both worlds are reported (``timing``: the last run_mansy round, each
    run_models step); world 2 adds Gloo's host copies, no speed-up.
    ``--data-parallel`` runs this phase alone (after building the kernels).
+
+Phase 2h holds K3 (forward with its action head, training mode) and K10
+at the hidden widths of WIDTHS_2H (v9's layout; v16's 11 branches with
+its prior at AV_WIDTHS_2H), each from Flax's initialiser: the forward at
+512 and 8192 lanes, the training mode and K10 at 512 and 4096 rows,
+against their plain versions at phases 2's and 2c's tolerances, two
+launches bit-equal, each timed beside its bounds, plain version and
+``torch.matmul`` composition (rows ``*_h64``, ``*_h192``, ``*_wide``: the
+instances of capacity 64 and 192 and the wide variant past 256; the 128
+instance's widths as ``cases_other_widths``).  With ``--parent``, K3 and
+K10 at 128 and 256 give the parent's bits (``actor_critic_digests``) and
+are timed beside the parent's kernels in turns at 8192 lanes and 4096 rows
+(``earlier_check``).
 
 Phase 2g holds K2's derived mode at 32, 128, 512 and 8192 lanes and its
 row mode at 4096 and 77,760 rows (DEMO_ROWS) against their plain versions
@@ -312,6 +339,9 @@ GRAD_RTOL = 1e-4        # K10 against its plain version: batch sums in another o
 UPDATE_RTOL = 1e-4      # phase 7: update metrics, relative to max(|plain|, 0.01)
 UPDATE_ATOL = 2e-6      # phase 7: parameters the plain update moved by >= lr / 2 a step
 UPDATE_LOOSE = 0.005    # phase 7: share of the other parameters allowed beyond UPDATE_ATOL
+# phase 7: a LeakyReLU branch the plain update takes from the kernels' lies
+# this close to its tie (a share of the layer's largest |pre-activation|)
+TRAIN_KINK_MARGIN = 1e-4
 DAGGER_ROUNDS = 2       # phase 8: timed rounds after the initial fit
 UPDATE_PASSES = 3       # phases 7, 8: unprofiled timings of an update loop (median)
 PROFILE_CE_STEPS = 20   # phase 8: CE steps of the profiled loop (phase 7: one PPO update)
@@ -355,7 +385,11 @@ AV_PRIOR = 3.0          # phases 15-15c: the logit prior of v16's flags (--av-lo
 AV_RTOL, AV_ATOL = 1e-5, 1e-6  # phase 2g: the derived values against their plain version
 DEMO_ROWS = 77_760      # phase 2g: the row mode at the rows of dagger_av's demos (its demo_rows)
 DP_DEVICES = 2          # phase 16: the dry run's data, sized for two devices
-DP_HIDDEN = 128         # phase 16: the dry run's policy width (K3 and K10: 128 or 256)
+DP_HIDDEN = 32          # phase 16: the dry run's policy width (JAX's dry run builds it at 32)
+WIDTHS_2H = (32, 64, 100, 160, 384, 512, 1024)  # phase 2h: K3 and K10 at these widths (v9's layout)
+AV_WIDTHS_2H = (512, 1024)  # phase 2h: and with v16's 11 branches and a prior of 3.0
+PATH_WIDTHS = {"_h64": 64, "_h192": 160, "_wide": 512}  # the main case of each instance's rows
+PARENT_MARGIN = 0.05    # --parent: K3 and K10 at 128 and 256 within 5% of the parent's times
 DP_ROUNDS = 2           # phase 16c: run_mansy rounds a world (the first held, the last timed)
 DP_VP_BATCHES = 3       # phase 16d: run_models batches a world
 DP_TIMEOUT_S = 300      # phase 16: a rank's limit
@@ -398,6 +432,16 @@ KERNELS = {
     "actor_critic_backward_h256": dict(route="cuda",
                                        source=f"{PKG}/kernels/csrc/actor_critic_backward.cu",
                                        replaces="mansy_immersivevideostreaming_tpu/rl/ppo.py:163"),
+    # and in their other instances: capacity 64 (widths 1-64: train_64 and
+    # the dry run at 32) and 192 (129-192: train_160), and the wide variant
+    # past 256 (train_512, serve_512); held at every width of phase 2h
+    **{f"{name}{suffix}": dict(route="cuda", source=f"{PKG}/kernels/csrc/{src}.cu",
+                               replaces=f"mansy_immersivevideostreaming_tpu/{jax_line}")
+       for suffix in ("_h64", "_h192", "_wide")
+       for name, src, jax_line in (
+           ("actor_critic_forward", "actor_critic", "models/abr_nets.py:166"),
+           ("actor_critic_train_forward", "actor_critic", "models/abr_nets.py:166"),
+           ("actor_critic_backward", "actor_critic_backward", "rl/ppo.py:163"))},
     "tile_occupancy": dict(route="cuda", source=f"{PKG}/kernels/csrc/tile_occupancy.cu",
                            replaces="mansy_immersivevideostreaming_tpu/ops/geometry.py:108"),
     "attention": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
@@ -451,11 +495,13 @@ KERNELS = {
                                           "abr_nets.py:29"),
 }
 # the kernels-line row of a launch: the wrapper's name, and the suffix of
-# the mode it counted the launch in (K3 and K10 by net and hidden width, K9
-# by loss, K8 by element type, K2 by the action values: gathered or
-# derived); K7's two wrappers share one row
-MODE_SUFFIX = {None: "", "cond128": "", "cond256": "_h256", "simple128": "_simple", "ce": "",
-               "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16", "gather": "",
+# the mode it counted the launch in (K3 and K10 by net and the instance its
+# width runs in, the simple_rl net's in one row; K9 by loss, K8 by element
+# type, K2 by the action values: gathered or derived); K7's two wrappers
+# share one row
+MODE_SUFFIX = {None: "", "cond64": "_h64", "cond128": "", "cond192": "_h192", "cond256": "_h256",
+               "condwide": "_wide",
+               **{f"simple{k}": "_simple" for k in (64, 128, 192, 256, "wide")}, "ce": "", "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16", "gather": "",
                "derived": "_derived"}
 SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
@@ -755,6 +801,48 @@ def actor_critic_timing(K3, w, x, noise=None, train: bool = False, parent=None) 
         out["earlier_ms"] = gpu_ms(
             (lambda: earlier.actor_critic_train_forward(w, x)) if train
             else (lambda: earlier.actor_critic_forward(w, x, noise)))
+    return out
+
+
+def digest(*tensors) -> str:
+    """sha256 (16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                   for t in tensors)).hexdigest()[:16]
+
+
+def actor_critic_digests(K3, dev) -> dict:
+    """Digests of K3's forward (numpy Gumbel noise) at 512 and 8192 lanes,
+    its training mode at 4096 rows and K10 at 512 and 4096 rows (on the
+    training mode's activations), at hidden 128 and 256 with v9's net and
+    v16's with a logit prior of 3.0, every weight and input drawn with
+    numpy: the bits the instances of the committed widths keep.  ``K3`` is
+    this tree's ``kernels/actor_critic.py`` or another checkout's."""
+    from mansy_immersivevideostreaming_torch.kernels.observe import obs_width
+    from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
+
+    f32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+    out = {}
+    for H in (128, 256):
+        for label, kw in (("v9", {}), ("v16", dict(use_action_values=True, av_logit_prior=3.0))):
+            rng = np.random.default_rng(H + len(label))
+            policy = MansyActorCritic(hidden_dim=H, device=dev, **kw)
+            with torch.no_grad():
+                for p in policy.parameters():
+                    p.copy_(f32(rng.normal(0.0, p.shape[-1] ** -0.5, tuple(p.shape))))
+            w = policy.packed_weights()
+            x = f32(rng.uniform(0.0, 1.0, (LANES, obs_width(*policy.dims))))
+            noise = f32(rng.gumbel(size=(LANES, 15)))
+            for n in (SERVE_CHUNK, LANES):
+                out[f"forward_{label}_h{H}_{n}"] = digest(*K3.actor_critic_forward(
+                    w, x[:n], noise[:n]))
+            train = K3.actor_critic_train_forward(w, x[:CE_BATCH])
+            out[f"train_forward_{label}_h{H}_{CE_BATCH}"] = digest(*train)
+            dlogits = f32(rng.normal(size=(CE_BATCH, 15)) / CE_BATCH)
+            dvalue = f32(rng.normal(size=CE_BATCH) / CE_BATCH)
+            for n in TRAIN_BATCHES:
+                out[f"backward_{label}_h{H}_{n}"] = digest(*K3.actor_critic_backward(
+                    w, x[:n], train[2][:n], train[3][:n], dlogits[:n], dvalue[:n]))
     return out
 
 
@@ -1320,10 +1408,11 @@ def compare_serve(logs, masks, ref_logs, ref_masks, label: str) -> dict:
                 episodes_differing=differing)
 
 
-def serve_setup(dev, policy_name: str = "v9"):
+def serve_setup(dev, policy_name: str = "v9", path=None):
     """(policy, tables, samples, K5's launches) of a serve phase: the v9 or
-    v18 weights, or the v16 weights on tables whose accuracy-corrected
-    action values K5 attaches, over the test grid."""
+    v18 weights, the policy npz at ``path``, or the v16 weights on tables
+    whose accuracy-corrected action values K5 attaches, over the test
+    grid."""
     from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
     from mansy_immersivevideostreaming_torch.sim.env import generate_environment_test_samples
     from mansy_immersivevideostreaming_torch.sim.expert import attach_action_values
@@ -1335,7 +1424,7 @@ def serve_setup(dev, policy_name: str = "v9"):
     V, U, NT, C, Q = TEST_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=1, device=dev)
     samples = torch.as_tensor(generate_environment_test_samples(V, U, NT, Q), device=dev)
-    path = {"v9": DAGGER_V9_NPZ, "v16": DAGGER_V16_NPZ, "v18": DAGGER_V18_NPZ}[policy_name]
+    path = path or {"v9": DAGGER_V9_NPZ, "v16": DAGGER_V16_NPZ, "v18": DAGGER_V18_NPZ}[policy_name]
     policy = load_npz_policy(path, device=dev)
     setup = 0
     if policy_name == "v16":
@@ -1347,12 +1436,13 @@ def serve_setup(dev, policy_name: str = "v9"):
     return policy, tables, samples, setup
 
 
-def serve_phase(dev, counters, policy_name: str = "v9"):
-    """Serve the v9, v16 or v18 weights over the test grid (``serve_setup``)."""
+def serve_phase(dev, counters, policy_name: str = "v9", path=None):
+    """Serve the v9, v16 or v18 weights, or the policy npz at ``path``, over
+    the test grid (``serve_setup``)."""
     from mansy_immersivevideostreaming_torch.rl.runner import episode_step_bound, evaluate
 
     label = "serve" if policy_name == "v9" else f"serve-{policy_name}"
-    policy, tables, samples, setup = serve_setup(dev, policy_name)
+    policy, tables, samples, setup = serve_setup(dev, policy_name, path)
     if setup != (1 if policy_name == "v16" else 0):
         raise AssertionError(f"{label}: K5 launched {setup} times at setup")
     evaluate(policy, tables, samples[:SERVE_CHUNK], deterministic=True)  # warm-up
@@ -1683,11 +1773,11 @@ def library_cross_entropy(logits, action):
     return lambda: torch.autograd.grad(torch.nn.functional.cross_entropy(leaf, target), leaf)
 
 
-def training_inputs(dev):
-    """Packed observations of the largest training batch's lanes on tables
-    of the train split's shape, 7 steps into their episodes: 779 columns
-    (v9's observation), and 795 with K5's accuracy-corrected action values
-    attached (v16's)."""
+def training_inputs(dev, n: int = max(TRAIN_BATCHES)):
+    """Packed observations of ``n`` lanes (the largest training batch's) on
+    tables of the train split's shape, 7 steps into their episodes: 779
+    columns (v9's observation), and 795 with K5's accuracy-corrected action
+    values attached (v16's)."""
     from mansy_immersivevideostreaming_torch.kernels import expert_tables as K5
     from mansy_immersivevideostreaming_torch.kernels.env_step import env_step_plain
     from mansy_immersivevideostreaming_torch.kernels.observe import observe_mansy_pack
@@ -1699,7 +1789,6 @@ def training_inputs(dev):
     V, U, NT, C, Q = TRAIN_SHAPE
     tables = perturb_pred(synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev), seed=2)
     samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
-    n = max(TRAIN_BATCHES)
     state = init_lanes(tables, samples, n, seed=4)
     rng = np.random.default_rng(4)
     for _ in range(7):
@@ -1847,7 +1936,7 @@ def training_kernel_phase(dev, parent=None):
                                 w, x, *acts, dlogits, dvalue)),
                             library_ms=gpu_ms(lib_grad), **backward_bounds(w, Bn, A),
                             plan=plan._asdict())
-            if parent is not None and H == 128:  # the parent commit's kernel on the same inputs
+            if parent is not None:  # the parent commit's kernel on the same inputs
                 bwd[key]["earlier_ms"] = gpu_ms(lambda: parent.actor_critic.actor_critic_backward(
                     w, x, *acts, dlogits, dvalue))
     for suffix, H, main in (("", 128, f"v9_B{PPO_BATCH}"), ("_h256", 256, f"v18_B{PPO_BATCH}")):
@@ -1859,13 +1948,191 @@ def training_kernel_phase(dev, parent=None):
     return rows
 
 
+# ---------------------------------------------------------------- phase 2h
+
+def widths_kernel_phase(dev, parent=None):
+    """Phase 2h: K3 (the forward with its action head, and the training
+    mode) and K10 at every hidden width of WIDTHS_2H in v9's layout, and of
+    AV_WIDTHS_2H with v16's 11 branches and a logit prior of 3.0, each net
+    from Flax's initialiser at a seed, on the packed observations of the
+    train split's lanes (``training_inputs``): the forward at 512 and 8192
+    lanes, the training mode and K10 at 512 and 4096 rows.  Each against its
+    plain version at phases 2's and 2c's tolerances (K10 on the plain
+    training mode's activations), two launches bit-equal, timed beside its
+    bounds (operations at the real width, f32 and 3xTF32), its plain
+    version and the ``torch.matmul`` composition.  With ``parent``: the
+    instances of the committed widths, 128 and 256, against the parent's
+    kernels: ``actor_critic_digests`` equal, and the times of K3 at
+    collect's 8192 lanes and of K10 at DAgger's 4096 rows in turns (parent,
+    this tree, this tree, parent) within PARENT_MARGIN.  Returns the rows of
+    the instances 64 and 192 and of the wide variant (main case: PATH_WIDTHS
+    at 512 lanes or rows), the other widths of the 128 instance as
+    ``cases_other_widths`` of phase 2's and 2c's rows, and with ``parent``
+    the comparison as ``earlier_check`` of the 128 and 256 rows."""
+    from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
+    from mansy_immersivevideostreaming_torch.models.abr_nets import MansyActorCritic
+    from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+        DAGGER_V9_NPZ, DAGGER_V18_NPZ, load_npz_policy,
+    )
+
+    x9, x16 = training_inputs(dev, LANES)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    noise = K3.gumbel_noise((LANES, 15), gen, dev)
+    cases, errors = {}, {}
+
+    def add(row: str, key: str, err: float, case: dict) -> None:
+        cases.setdefault(row, {})[key] = case
+        errors[row] = max(errors.get(row, 0.0), err)
+
+    nets = [("v9", H, {}, x9) for H in WIDTHS_2H] + [
+        ("v16", H, dict(use_action_values=True, av_logit_prior=AV_PRIOR), x16)
+        for H in AV_WIDTHS_2H]
+    for label, H, kw, x_all in nets:
+        torch.manual_seed(H)
+        w = MansyActorCritic(hidden_dim=H, device=dev, **kw).packed_weights()
+        suffix = MODE_SUFFIX[K3.launch_mode(w)]
+        for n in (SERVE_CHUNK, LANES):
+            x, nz = x_all[:n], noise[:n]
+            got = K3.actor_critic_forward(w, x, nz)
+            ref = K3.actor_critic_forward_plain(w, x, nz)
+            top2 = (ref[0] + nz).topk(2, dim=-1).values
+            decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
+            if not all(bool(close(g, r).all())
+                       for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:])) \
+                    or not bool((got[2] == ref[2])[decisive].all()):
+                raise AssertionError(f"actor_critic_forward ({label}, hidden {H}, {n} lanes) "
+                                     f"disagrees with its plain version")
+            if not all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_forward(w, x, nz))):
+                raise AssertionError(f"actor_critic_forward ({label}, hidden {H}, {n} lanes): two "
+                                     f"launches differ")
+            add(f"actor_critic_forward{suffix}", f"{label}_h{H}_{n}",
+                max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
+                dict(hidden=H, **actor_critic_timing(K3, w, x, nz)))
+        for n in TRAIN_BATCHES:
+            x = x_all[:n]
+            got = K3.actor_critic_train_forward(w, x)
+            ref = K3.actor_critic_train_forward_plain(w, x)
+            if not all(bool(close(g, r).all()) for g, r in zip(got, ref)):
+                raise AssertionError(f"actor_critic_train_forward ({label}, hidden {H}, B = {n}) "
+                                     f"disagrees with its plain version")
+            if not all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_train_forward(w, x))):
+                raise AssertionError(f"actor_critic_train_forward ({label}, hidden {H}, B = {n}): "
+                                     f"two launches differ")
+            add(f"actor_critic_train_forward{suffix}", f"{label}_h{H}_B{n}",
+                max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+                dict(hidden=H, **actor_critic_timing(K3, w, x, train=True)))
+            dlogits = torch.randn(n, 15, device=dev, generator=gen) / n
+            dvalue = torch.randn(n, device=dev, generator=gen) / n
+            acts = ref[2], ref[3]
+            got = K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)
+            want = K3.actor_critic_backward_plain(w, x, *acts, dlogits, dvalue)
+            for f, g, r in zip(K3.TENSOR_FIELDS, got, want):
+                if not grads_close(g, r):
+                    raise AssertionError(f"actor_critic_backward ({label}, hidden {H}, B = {n}): "
+                                         f"{f} disagrees with its plain version")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, K3.actor_critic_backward(w, x, *acts, dlogits, dvalue))):
+                raise AssertionError(f"actor_critic_backward ({label}, hidden {H}, B = {n}): two "
+                                     f"launches differ")
+            plan = K3.backward_plan(n, w.branch_off, K3._sm_count(torch.cuda.current_device()), H)
+            add(f"actor_critic_backward{suffix}", f"{label}_h{H}_B{n}",
+                max(float((g - r).abs().max()) for g, r in zip(got, want)),
+                dict(hidden=H, plan=plan._asdict(),
+                     ms=gpu_ms(lambda: K3.actor_critic_backward(w, x, *acts, dlogits, dvalue)),
+                     plain_ms=gpu_ms(lambda: K3.actor_critic_backward_plain(
+                         w, x, *acts, dlogits, dvalue)),
+                     library_ms=gpu_ms(library_actor_critic_grad(w, x, dlogits, dvalue)),
+                     **backward_bounds(w, n, 15)))
+
+    rows = {}
+    for row, by_case in cases.items():
+        suffix = next((s for s in PATH_WIDTHS if row.endswith(s)), "")
+        if not suffix:  # widths of the 128 instance: cases of phase 2's and 2c's rows
+            rows[row] = dict(cases_other_widths=by_case)
+            continue
+        forward = row.startswith("actor_critic_forward")
+        n = SERVE_CHUNK if forward else PPO_BATCH
+        main = by_case[f"v9_h{PATH_WIDTHS[suffix]}_{'' if forward else 'B'}{n}"]
+        rows[row] = dict(max_abs_err=errors[row],
+                         **{k: main[k] for k in ("hidden", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "bound_3xtf32_ms")},
+                         main_case=f"v9, hidden {PATH_WIDTHS[suffix]}, {n} rows", cases=by_case)
+
+    if parent is not None:  # the exact instances against the parent's kernels
+        mine = actor_critic_digests(K3, dev)
+        theirs = actor_critic_digests(parent.actor_critic, dev)
+        if mine != theirs:
+            raise AssertionError(f"K3 / K10 at 128 and 256: digests differ from the parent's in "
+                                 f"{sorted(k for k in mine if mine[k] != theirs[k])}")
+        earlier = parent.actor_critic
+        x9b = x9[:CE_BATCH]
+        for H, path, suffix in ((128, DAGGER_V9_NPZ, ""), (256, DAGGER_V18_NPZ, "_h256")):
+            w = load_npz_policy(path, device=dev).packed_weights()
+            _, _, feats, hidden = K3.actor_critic_train_forward_plain(w, x9b)
+            dlogits = torch.randn(CE_BATCH, 15, device=dev, generator=gen) / CE_BATCH
+            dvalue = torch.randn(CE_BATCH, device=dev, generator=gen) / CE_BATCH
+            for row, shape, this, that in (
+                    (f"actor_critic_forward{suffix}", f"{LANES} lanes",
+                     lambda: K3.actor_critic_forward(w, x9, noise),
+                     lambda: earlier.actor_critic_forward(w, x9, noise)),
+                    (f"actor_critic_backward{suffix}", f"{CE_BATCH} rows",
+                     lambda: K3.actor_critic_backward(w, x9b, feats, hidden, dlogits, dvalue),
+                     lambda: earlier.actor_critic_backward(w, x9b, feats, hidden, dlogits,
+                                                           dvalue))):
+                turns = [gpu_ms(that), gpu_ms(this), gpu_ms(this), gpu_ms(that)]
+                ratio = (turns[1] + turns[2]) / (turns[0] + turns[3])
+                rows.setdefault(row, {})["earlier_check"] = dict(
+                    shape=shape, digests=mine, digests_equal=True,
+                    turns_ms_parent_this_this_parent=turns, ratio=ratio,
+                    within_margin=ratio <= 1 + PARENT_MARGIN)
+    return rows
+
+
 # ----------------------------------------------------------------- phase 7
 
-def plain_ppo_update(policy, optimizer, cfg, traj, rewards, last_values, ret_rms, perms):
+def forced_train_forward(w, x, taken, kinks: dict):
+    """``actor_critic_train_forward_plain``'s (logits, value) with its two
+    LeakyReLUs (the branch features and the fc outputs) taking the branches
+    ``taken`` (masks of the entries on the identity side, as the kernel path
+    took them: the sign of K3's training outputs) where its own differ.
+    Each such entry is counted in ``kinks["flips"]``, and ``kinks["margin"]``
+    keeps the largest distance of one from its tie, as a share of the
+    layer's largest pre-activation magnitude."""
+    import torch.nn.functional as F
+
+    def leaky(pre, mask, kind):
+        flip = (pre >= 0) != mask
+        if bool(flip.any()):
+            kinks["flips"][kind] = kinks["flips"].get(kind, 0) + int(flip.sum())
+            kinks["margin"] = max(kinks["margin"], float(pre[flip].abs().max() / pre.abs().max()))
+        return torch.where(mask, pre, 0.01 * pre)
+
+    pre = torch.cat([x[:, w.branch_off[b]:w.branch_off[b + 1]]
+                     @ w.w_branch[w.branch_off[b]:w.branch_off[b + 1]] + w.b_branch[b]
+                     for b in range(len(w.branch_off) - 1)], dim=-1)
+    feats = leaky(pre, taken[0], "feats")
+    H = w.b_branch.shape[1]
+    cond = feats[:, w.cond * H:(w.cond + 1) * H] if w.cond >= 0 else 0.0
+    hidden = leaky(feats @ w.w_fc + w.b_fc, taken[1], "hidden")
+    logits = (hidden[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
+    if w.av_prior:
+        av = x[:, w.av_off:w.av_off + logits.shape[1]]
+        av = (av - av.mean(-1, keepdim=True)) / (av.std(-1, correction=0, keepdim=True) + 1e-6)
+        logits = logits + w.av_prior * av
+    value = ((hidden[:, H:] + cond) @ w.w_critic_out + w.b_critic_out)[:, 0]
+    return logits, value
+
+
+def plain_ppo_update(policy, optimizer, cfg, traj, rewards, last_values, ret_rms, perms,
+                     branches=None, kinks=None):
     """``rl.ppo.ppo_update`` through the plain versions on the card (the
     reference of phase 7's comparison): K6's plain recurrence, the plain
     training forward differentiated by autograd from K9's written-out
-    gradient, the same clip and Adam.  Returns (ret_rms, mean metrics [4])."""
+    gradient, the same clip and Adam.  With ``branches`` (the kernel path's
+    LeakyReLU branches of each minibatch step), the forward takes them
+    where its own differ (``forced_train_forward``, the flips counted in
+    ``kinks``).  Returns (ret_rms, mean metrics [4])."""
     from mansy_immersivevideostreaming_torch.kernels.actor_critic import (
         actor_critic_train_forward_plain,
     )
@@ -1885,9 +2152,12 @@ def plain_ppo_update(policy, optimizer, cfg, traj, rewards, last_values, ret_rms
                 adv=adv.reshape(-1), ret=ret_n.reshape(-1))
     params = list(policy.parameters())
     metrics = []
-    for idx in perms.reshape(-1, perms.shape[-1]):
+    for step, idx in enumerate(perms.reshape(-1, perms.shape[-1])):
         mb = {k: v[idx] for k, v in flat.items()}
-        logits, value, _, _ = actor_critic_train_forward_plain(policy._pack(), mb["obs"])
+        if branches is None:
+            logits, value, _, _ = actor_critic_train_forward_plain(policy._pack(), mb["obs"])
+        else:
+            logits, value = forced_train_forward(policy._pack(), mb["obs"], branches[step], kinks)
         spec = LossSpec(action=mb["action"], ent_coef=cfg.ent_coef, old_log_prob=mb["log_prob"],
                         old_value=mb["value"], adv=mb["adv"], ret=mb["ret"],
                         eps_clip=cfg.eps_clip, vf_coef=cfg.vf_coef, value_clip=cfg.value_clip,
@@ -1909,7 +2179,15 @@ def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
     update moved it by at least half of lr a step must agree to
     UPDATE_ATOL, and the others (Adam steps an entry whose gradient sits
     near 0 by up to lr either way) are counted and must stay under
-    UPDATE_LOOSE of all."""
+    UPDATE_LOOSE of all.  The plain path takes the kernel path's branches
+    at the LeakyReLUs where its own differ, each such entry within
+    TRAIN_KINK_MARGIN of its tie (``kinks``): an ulp there moves the entry's
+    whole share of the gradient into the other slope, and the parameters
+    it reaches then differ by Adam's sign steps, not by an ulp (at hidden
+    512 the plain f32 update against a float64 one breaks UPDATE_ATOL so).
+    The same comparison with the plain path's own branches is reported
+    beside (``own_branches``), unchecked."""
+    from mansy_immersivevideostreaming_torch.kernels import actor_critic as K3
     from mansy_immersivevideostreaming_torch.rl.ppo import make_optimizer, ppo_update
     from mansy_immersivevideostreaming_torch.rl.types import RunningStat
 
@@ -1919,13 +2197,38 @@ def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
                          [:n_mb * cfg.minibatch].reshape(n_mb, cfg.minibatch)
                          for _ in range(cfg.repeat)])
     before = [p.detach().clone() for p in policy.parameters()]
-    kernel_p, plain_p = copy.deepcopy(policy), copy.deepcopy(policy)
-    opt_k = make_optimizer(kernel_p.parameters(), args.lr, args.weight_decay)
-    opt_p = make_optimizer(plain_p.parameters(), args.lr, args.weight_decay)
-    stat_k, m = ppo_update(kernel_p, opt_k, cfg, traj, rewards, last_values,
-                           RunningStat.init(rewards.device), perms=perms)
+    kernel_p, plain_p, own_p = (copy.deepcopy(policy) for _ in range(3))
+    opt_k, opt_p, opt_o = (make_optimizer(p.parameters(), args.lr, args.weight_decay)
+                           for p in (kernel_p, plain_p, own_p))
+    branches, train_forward = [], K3.actor_critic_train_forward
+
+    def recording(w, x):  # the kernel path's LeakyReLU branches, a minibatch step each
+        out = train_forward(w, x)
+        branches.append((out[2] >= 0, out[3] >= 0))
+        return out
+
+    # the wrapper counts its launches under its module name, here this one's
+    recording.launches, recording.launches_by_mode = 0, {}
+    with mock.patch.object(K3, "actor_critic_train_forward", recording):
+        stat_k, m = ppo_update(kernel_p, opt_k, cfg, traj, rewards, last_values,
+                               RunningStat.init(rewards.device), perms=perms)
+    kinks = dict(flips={}, margin=0.0)
     stat_p, m_plain = plain_ppo_update(plain_p, opt_p, cfg, traj, rewards, last_values,
-                                       RunningStat.init(rewards.device), perms)
+                                       RunningStat.init(rewards.device), perms, branches, kinks)
+    if kinks["margin"] > TRAIN_KINK_MARGIN:
+        raise AssertionError(f"train: the kernels took a LeakyReLU branch {kinks['margin']} of "
+                             f"the layer's largest pre-activation from its tie "
+                             f"(> {TRAIN_KINK_MARGIN}): {kinks['flips']}")
+    plain_ppo_update(own_p, opt_o, cfg, traj, rewards, last_values,
+                     RunningStat.init(rewards.device), perms)
+    own = {}
+    for p0, pk, po in zip(before, kernel_p.parameters(), own_p.parameters()):
+        sure = (po.detach() - p0).abs() >= 0.5 * args.lr * cfg.repeat * n_mb
+        diff = (pk.detach() - po.detach()).abs()
+        own["param_max_abs_err"] = max(own.get("param_max_abs_err", 0.0),
+                                       float(diff[sure].max()) if bool(sure.any()) else 0.0)
+        own["params_beyond_atol"] = own.get("params_beyond_atol", 0) + int(
+            (diff > UPDATE_ATOL).sum())
     m_kernel = torch.stack([m[k] for k in ("loss", "loss/clip", "loss/vf", "loss/ent")])
     scalars = torch.cat([m_kernel, torch.stack(stat_k)])
     ref = torch.cat([m_plain, torch.stack(stat_p)])
@@ -1936,7 +2239,9 @@ def compare_updates(policy, cfg, args, traj, rewards, last_values, gen) -> dict:
     steps = cfg.repeat * n_mb
     return dict(minibatch_steps=steps, metric_rel_err=metric_err,
                 **compare_params(before, kernel_p, plain_p, args.lr * steps, "train"),
-                loss=float(m_kernel[0]), plain_loss=float(m_plain[0]))
+                loss=float(m_kernel[0]), plain_loss=float(m_plain[0]),
+                kinks=dict(flips=kinks["flips"], largest_margin=kinks["margin"]),
+                own_branches=own)
 
 
 def compare_params(before, kernel_p, plain_p, lr_steps: float, label: str) -> dict:
@@ -1965,17 +2270,21 @@ def compare_params(before, kernel_p, plain_p, lr_steps: float, label: str) -> di
                 params_near_zero_gradient_differing=loose, params_total=total)
 
 
-def train_phase(dev, counters, wide: bool = False, derived: bool = False):
+def train_phase(dev, counters, hidden: int = 128, derived: bool = False, trained=None):
     """``run_mansy --train --train-identifier --use-identifier --lamb 0.5``
     at the CLI defaults (128 lanes x 32 steps, minibatch 512, repeat 2)
     through ``run_mansy.ppo_round``, on tables of the train split's shape,
-    from the v9 weights at hidden 128 (with ``wide``: from the v18 weights,
-    ``--hidden-dim 256``, K3 and K10 at width 256; with ``derived``, phase
+    from the v9 weights at hidden 128 (``hidden`` 256: from the v18 weights,
+    ``--hidden-dim 256``; any other ``hidden``: ``--hidden-dim hidden`` from
+    Flax's initialiser, orthogonal sqrt 2 and zero bias, K3 and K10 in the
+    instance or the wide variant that width runs in; with ``derived``, phase
     15b: ``--obs-action-values --av-logit-prior 3.0`` from Flax's
-    initialiser, orthogonal sqrt 2 and zero bias, the observation from K2's
-    derived mode): a warm-up round, then PASSES timed rounds (one with
-    ``wide``; one collect and its updates each).  Then one update through
-    the kernels against the plain path on the card."""
+    initialiser, the observation from K2's derived mode): a warm-up round,
+    then PASSES timed rounds (one at a width other than 128; one collect and
+    its updates each).  Then one update through the kernels against the
+    plain path on the card.  With ``trained``, the policy is written as
+    run_mansy writes it (npz and sidecar, in a temporary directory kept in
+    ``trained``) and its path kept under ``trained[hidden]``."""
     from mansy_immersivevideostreaming_torch.cli import run_mansy
     from mansy_immersivevideostreaming_torch.models.abr_nets import (
         MansyActorCritic, QoEIdentifier,
@@ -1991,18 +2300,18 @@ def train_phase(dev, counters, wide: bool = False, derived: bool = False):
 
     args = run_mansy.build_parser().parse_args(
         ["--train", "--train-identifier", "--use-identifier", "--lamb", "0.5"]
-        + (["--hidden-dim", "256"] if wide else [])
+        + (["--hidden-dim", str(hidden)] if hidden != 128 else [])
         + (["--obs-action-values", "--av-logit-prior", str(AV_PRIOR)] if derived else []))
     V, U, NT, C, Q = TRAIN_SHAPE
     tables = synthetic_sim_tables(V, U, NT, C, Q, seed=0, device=dev)
     samples = torch.as_tensor(generate_environment_samples(V, U, NT, Q), device=dev)
     torch.manual_seed(args.seed)
-    if derived:  # as run_mansy.train builds it
+    if derived or hidden not in (128, 256):  # as run_mansy.train builds it
         policy = MansyActorCritic(hidden_dim=args.hidden_dim,
                                   use_action_values=args.obs_action_values,
                                   av_logit_prior=args.av_logit_prior, device=dev)
     else:
-        policy = load_npz_policy(DAGGER_V18_NPZ if wide else DAGGER_V9_NPZ, device=dev)
+        policy = load_npz_policy(DAGGER_V18_NPZ if hidden == 256 else DAGGER_V9_NPZ, device=dev)
     if policy.packed_weights().b_branch.shape[1] != args.hidden_dim:
         raise AssertionError(f"train: the policy's width is not --hidden-dim {args.hidden_dim}")
     identifier = QoEIdentifier(hidden_dim=args.hidden_dim, device=dev)
@@ -2031,7 +2340,7 @@ def train_phase(dev, counters, wide: bool = False, derived: bool = False):
     want = expect(counters, env_step=n_steps, observe_mansy_pack=n_steps + 1,
                   actor_critic_forward=n_steps + 1, compute_gae=1,
                   actor_critic_train_forward=n_mb, policy_loss=n_mb, actor_critic_backward=n_mb)
-    passes = 1 if wide else PASSES
+    passes = PASSES if hidden == 128 else 1
     _, seconds, launches = timed_passes(run, counters, want, passes)
     if not all(math.isfinite(v) for m in losses for v in m.values()):
         raise AssertionError(f"train: non-finite losses {losses}")
@@ -2052,6 +2361,15 @@ def train_phase(dev, counters, wide: bool = False, derived: bool = False):
     profiled = profile_update(update, n_mb)
     check = compare_updates(policy, cfg, args, traj, traj.reward, last_values, gen)
     rate = rate_stats(n_lanes * n_steps, seconds)
+    if trained is not None:  # best_policy.npz as run_mansy.train writes it
+        from mansy_immersivevideostreaming_torch.utils.checkpoint import (
+            save_net_config, save_npz,
+        )
+        tmp = tempfile.TemporaryDirectory(prefix="train_", dir=os.environ.get("TMPDIR"))
+        trained.setdefault("dirs", []).append(tmp)
+        path = trained[hidden] = os.path.join(tmp.name, "best_policy.npz")
+        save_npz(path, policy)
+        save_net_config(path, run_mansy.policy_net_config(args))
     return dict(lanes=n_lanes, steps=n_steps, minibatch=cfg.minibatch, repeat=cfg.repeat,
                 hidden=args.hidden_dim, columns=int(traj.obs.shape[-1]),
                 minibatch_steps_per_round=n_mb, passes=passes,
@@ -4557,6 +4875,8 @@ def main() -> int:
                                      parent))
     rows.update(simple_kernel_phase(dev))
     rows.update(derived_kernel_phase(dev, parent))
+    for name, fields in widths_kernel_phase(dev, parent).items():
+        rows.setdefault(name, {}).update(fields)
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths, trained = {}, {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
@@ -4565,7 +4885,12 @@ def main() -> int:
                       ("serve_v16", lambda: serve_phase(dev, counters, "v16")),
                       ("serve_v18", lambda: serve_phase(dev, counters, "v18")),
                       ("train", lambda: train_phase(dev, counters)),
-                      ("train_256", lambda: train_phase(dev, counters, wide=True)),
+                      ("train_256", lambda: train_phase(dev, counters, 256)),
+                      ("train_512", lambda: train_phase(dev, counters, 512, trained=trained)),
+                      ("serve_512", lambda: serve_phase(dev, counters, "trained-512",
+                                                        trained[512])),
+                      ("train_64", lambda: train_phase(dev, counters, 64)),
+                      ("train_160", lambda: train_phase(dev, counters, 160)),
                       ("dagger", lambda: dagger_phase(dev, counters)),
                       ("serve_av", lambda: serve_av_phase(dev, counters)),
                       ("train_av", lambda: train_phase(dev, counters, derived=True)),
@@ -4583,6 +4908,8 @@ def main() -> int:
         t0 = time.time()
         paths[name] = run()
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
+    for tmp in trained.pop("dirs", []):
+        tmp.cleanup()
     (paths["serve"]["step_profile"], paths["collect"]["step_profile"],
      paths["expert"]["decision_profile"]) = profile_phase(dev)
     log(f"serve step_profile: {json.dumps(paths['serve']['step_profile'])}")
@@ -4595,6 +4922,10 @@ def main() -> int:
     wide = ("actor_critic_forward_h256", "actor_critic_train_forward_h256", "policy_loss",
             "actor_critic_backward_h256")
     simple = ("env_step", "observe_simple_pack", "actor_critic_forward_simple")
+    instance = lambda suffix: tuple(f"{name}{suffix}" for name in (
+        "actor_critic_forward", "actor_critic_train_forward", "actor_critic_backward"))
+    at_width = lambda suffix: ("env_step", "observe_mansy_pack", "compute_gae", "policy_loss") \
+        + instance(suffix)
     derived = ("env_step", "observe_mansy_pack_derived", "actor_critic_forward")
     path_kernels = {"serve": serve, "collect": serve,
                     "expert": ("env_step", "choose_action", "build_expert_tables"),
@@ -4602,6 +4933,10 @@ def main() -> int:
                     "serve_v18": ("env_step", "observe_mansy_pack", "actor_critic_forward_h256"),
                     "train": serve + ("compute_gae",) + training,
                     "train_256": ("env_step", "observe_mansy_pack", "compute_gae") + wide,
+                    "train_512": at_width("_wide"),
+                    "serve_512": ("env_step", "observe_mansy_pack", "actor_critic_forward_wide"),
+                    "train_64": at_width("_h64"),
+                    "train_160": at_width("_h192"),
                     "dagger": serve + ("choose_action",) + training,
                     "serve_av": derived,
                     "train_av": derived + ("compute_gae",) + training,
@@ -4615,7 +4950,7 @@ def main() -> int:
                                            "policy_loss_a2c", "actor_critic_backward_simple"),
                     "simple_rl_test": simple,
                     "ensemble": serve + ("actor_critic_forward_h256",),
-                    "data_parallel": serve + ("compute_gae",) + training
+                    "data_parallel": serve + ("compute_gae",) + training + instance("_h64")
                     + ("attention_train_forward", "attention_backward")}
     for path, names in path_kernels.items():
         for name in names:

@@ -15,7 +15,7 @@ first-listed component unless a candidate's paired per-episode edge exceeds
 ``--route-z`` standard errors (``sig``).  Then each preference's test lanes
 run on their component over the 1440-episode test grid.  Every evaluation
 is ``runner.evaluate``: K2 -> K3 -> K1 a step on the card, at each
-component's hidden width (128 or 256).
+component's hidden width (any width).
 
 Refused, as in the JAX CLI: components that read the exact action values
 (they need per-split action-value tables).  Components that read the

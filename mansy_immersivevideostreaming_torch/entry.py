@@ -42,7 +42,7 @@ def entry(device: str = "cuda"):
     return model.sample, example_args
 
 
-def dryrun_multichip(n_devices: int = 2, device: str = "cuda", hidden_dim: int = 128,
+def dryrun_multichip(n_devices: int = 2, device: str = "cuda", hidden_dim: int = 32,
                      timeout_s: float = DRYRUN_TIMEOUT_S) -> None:
     """The dry run on data for ``n_devices`` devices in this process, then
     split over two processes (Gloo where they share a card or run on the
@@ -62,8 +62,8 @@ def dryrun_multichip(n_devices: int = 2, device: str = "cuda", hidden_dim: int =
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--hidden-dim", type=int, default=128,
-                        help="the dry run's policy width (the card's K3 and K10: 128 or 256)")
+    parser.add_argument("--hidden-dim", type=int, default=32,
+                        help="the dry run's policy width (JAX's dry run: 32)")
     args = parser.parse_args(argv)
     dryrun_multichip(2, args.device, args.hidden_dim)
     fn, example_args = entry(args.device)

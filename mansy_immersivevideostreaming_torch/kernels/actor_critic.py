@@ -12,11 +12,14 @@ first-index argmax of ``logits + noise`` (Gumbel noise for sampling, none
 for the deterministic argmax).
 
 It reads the packed observation buffer of ``kernels/observe.py``.  The
-kernels take the hidden widths of every committed policy, 128 (v9, v16)
-and 256 (v18), each a compiled instantiation of the same design; another
-width raises on the card (the plain versions take any width).  On the
-H100 it is bound by operations (~0.85 MFLOP a lane at width 128); ``csrc/
-actor_critic.cu`` splits each 32-row tile across a thread-block cluster
+kernels take any hidden width H >= 1, as the JAX package's nets do: H runs
+in the smallest compiled instance that holds it, of capacity 64, 128, 192
+or 256 (:data:`WIDTHS`, :func:`kernel_instance`; the columns past H are
+zeros inside the kernel, so the real columns get an unpadded kernel's sums),
+or past 256 in a wide variant of 64 x 128 output tiles (``csrc/
+actor_critic_wide.cuh``; three launches forward, K10's launch A in two).
+On the H100 it is bound by operations (~0.85 MFLOP a lane at width 128);
+``csrc/actor_critic.cu`` splits each 32-row tile across a thread-block cluster
 whose size follows from N (:func:`cluster_plan`): at 512 rows one CTA a
 branch (two for a branch of more than 128 inputs, one each half of them),
 at wider N fewer CTAs with whole branches each, down to one CTA a tile at
@@ -48,7 +51,10 @@ from mansy_immersivevideostreaming_torch.kernels import build, count_launch
 
 MAX_BRANCHES = 11  # 10, or 11 with the action-value branch (5: the simple_rl net)
 COND_BRANCH_INDEX = 9  # the MANSY net's cond branch, whose features are the residual
-WIDTHS = (128, 256)  # the hidden widths the kernels are instantiated at
+WIDTHS = (64, 128, 192, 256)  # instances' capacities: a width runs in the smallest holding it
+WIDE = "wide"  # the variant past the largest instance
+WIDE_TILE = (64, 128)  # the wide variant's output tile (rows, columns)
+WIDE_STAGE, WIDE_STAGES = 16, 4  # its ring: four 16-deep stages
 MAX_ACTIONS = 15  # the kernel keeps A logits and the value in 16 slots
 # K10's tiling (csrc/actor_critic_backward.cu): launch A takes 32-row tiles of
 # dPre_b, a 128-column block (a branch) at a time; launch B the batch-deep
@@ -86,11 +92,21 @@ class ActorCriticWeights(NamedTuple):
 TENSOR_FIELDS = ActorCriticWeights._fields[:8]  # the weights; the rest are static
 
 
+def kernel_instance(hidden: int):
+    """The instance of K3 and K10 that runs hidden width ``hidden``: the
+    smallest capacity in :data:`WIDTHS` that holds it, or :data:`WIDE` past
+    256 (``csrc/actor_critic.cu:instance_of``)."""
+    if hidden < 1:
+        raise ValueError(f"actor_critic: hidden width must be >= 1, got {hidden}")
+    return next((c for c in WIDTHS if hidden <= c), WIDE)
+
+
 def launch_mode(w: ActorCriticWeights) -> str:
     """The mode a launch on ``w`` counts in (``launches_by_mode``): the net,
-    ``cond`` (the MANSY net) or ``simple`` (no cond branch), and its hidden
-    width, e.g. ``cond256``."""
-    return f"{'cond' if w.cond >= 0 else 'simple'}{w.b_branch.shape[1]}"
+    ``cond`` (the MANSY net) or ``simple`` (no cond branch), and the
+    instance its width runs in, e.g. ``cond256`` (widths 193 to 256) or
+    ``condwide``."""
+    return f"{'cond' if w.cond >= 0 else 'simple'}{kernel_instance(w.b_branch.shape[1])}"
 
 
 def gumbel_noise(shape, generator: Optional[torch.Generator],
@@ -113,6 +129,15 @@ def action_head(logits: torch.Tensor, noise: Optional[torch.Tensor]):
     return action.to(torch.int32), log_prob
 
 
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.01) as ``jax.nn.leaky_relu`` writes it, ``where(x >= 0, x,
+    0.01 x)``: the values of ``F.leaky_relu``, and under autograd the slope
+    1 at x = 0, as JAX's gradient and K10 (from the sign of the output) take
+    it (``F.leaky_relu``'s autograd takes 0.01 there, where a zero bias
+    meets a zero input)."""
+    return torch.where(x >= 0, x, 0.01 * x)
+
+
 def actor_critic_train_forward_plain(w: ActorCriticWeights, x: torch.Tensor):
     """Plain PyTorch version of the training mode, and the network of every
     plain version: (logits, value, feats [N, nb H], hidden [N, 2H]); feats
@@ -121,10 +146,10 @@ def actor_critic_train_forward_plain(w: ActorCriticWeights, x: torch.Tensor):
     feats = []
     for b in range(len(w.branch_off) - 1):
         lo, hi = w.branch_off[b], w.branch_off[b + 1]
-        feats.append(F.leaky_relu(x[:, lo:hi] @ w.w_branch[lo:hi] + w.b_branch[b], 0.01))
+        feats.append(leaky_relu(x[:, lo:hi] @ w.w_branch[lo:hi] + w.b_branch[b]))
     cond = feats[w.cond] if w.cond >= 0 else 0.0
     feats = torch.cat(feats, dim=-1)
-    hidden = F.leaky_relu(feats @ w.w_fc + w.b_fc, 0.01)
+    hidden = leaky_relu(feats @ w.w_fc + w.b_fc)
     H = w.b_branch.shape[1]
     logits = (hidden[:, :H] + cond) @ w.w_actor_out + w.b_actor_out
     if w.av_prior:
@@ -148,7 +173,8 @@ class _ActorCriticArgs(ctypes.Structure):
     """Mirror of ``ActorCriticArgs`` in ``csrc/actor_critic.cu``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "x", "w_branch", "b_branch", "w_fc", "b_fc", "w_aout", "b_aout", "w_cout",
-        "b_cout", "noise", "logits", "value", "action", "log_prob", "feats", "hidden")]
+        "b_cout", "noise", "logits", "value", "action", "log_prob", "feats", "hidden",
+        "heads")]
         + [(f, ctypes.c_int32) for f in ("n_lanes", "ldx", "A", "num_branches", "hidden_dim")]
         + [("branch_off", ctypes.c_int32 * (MAX_BRANCHES + 1)), ("av_off", ctypes.c_int32),
            ("av_prior", ctypes.c_float), ("cond", ctypes.c_int32)])
@@ -156,15 +182,12 @@ class _ActorCriticArgs(ctypes.Structure):
 
 def _weight_tensors(w: ActorCriticWeights, x: torch.Tensor):
     """The kernel's weight pointers by argument name, checked: up to 11
-    branches of a hidden width in WIDTHS, the cond branch one of them or
-    none, contiguous f32 tensors on x's device."""
+    branches of any hidden width, the cond branch one of them or none,
+    contiguous f32 tensors on x's device."""
     A = w.w_actor_out.shape[1]
     nb, H = len(w.branch_off) - 1, w.b_branch.shape[-1]
-    if H not in WIDTHS:
-        raise ValueError(f"actor_critic kernels take hidden width 128 or 256 (the widths of "
-                         f"the committed policies), got {H}")
-    if not 1 <= nb <= MAX_BRANCHES or not -1 <= w.cond < nb or w.b_branch.shape != (nb, H) \
-            or A > MAX_ACTIONS or x.shape[1] < w.branch_off[-1] \
+    if H < 1 or not 1 <= nb <= MAX_BRANCHES or not -1 <= w.cond < nb \
+            or w.b_branch.shape != (nb, H) or A > MAX_ACTIONS or x.shape[1] < w.branch_off[-1] \
             or (w.av_prior and not 0 <= w.av_off <= x.shape[1] - A):
         raise ValueError(f"actor_critic kernel needs 1 to {MAX_BRANCHES} branches, a cond "
                          f"branch among them or none, <= {MAX_ACTIONS} actions, "
@@ -199,7 +222,9 @@ def _lib() -> ctypes.CDLL:
     lib.actor_critic_plan.argtypes = [ctypes.POINTER(_ActorCriticArgs),
                                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.actor_critic_smem_bytes.argtypes = [ctypes.c_int]
-    for fn in (lib.actor_critic_launch, lib.actor_critic_plan, lib.actor_critic_smem_bytes):
+    lib.actor_critic_instance.argtypes = [ctypes.c_int]
+    for fn in (lib.actor_critic_launch, lib.actor_critic_plan, lib.actor_critic_smem_bytes,
+               lib.actor_critic_instance):
         fn.restype = ctypes.c_int
     return lib
 
@@ -211,19 +236,28 @@ def _backward_lib() -> ctypes.CDLL:
     lib.actor_critic_backward_launch.argtypes = [ctypes.POINTER(_ActorCriticBackwardArgs),
                                                  ctypes.c_void_p]
     lib.actor_critic_backward_smem_bytes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.actor_critic_backward_launch, lib.actor_critic_backward_smem_bytes):
+    lib.actor_critic_backward_instance.argtypes = [ctypes.c_int]
+    for fn in (lib.actor_critic_backward_launch, lib.actor_critic_backward_smem_bytes,
+               lib.actor_critic_backward_instance):
         fn.restype = ctypes.c_int
     return lib
 
 
 def kernel_smem_bytes(hidden: int) -> Tuple[int, int, int]:
     """The shared memory a CTA of K3, K10's launch A and launch B takes at
-    hidden width ``hidden``, as the compiled kernels report it (0 for a
-    width without an instantiation): what :func:`forward_smem_bytes` and
-    :func:`backward_smem_bytes` compute."""
+    hidden width ``hidden``, as the compiled kernels report it (their
+    instance's, or the wide variant's tile kernels'): what
+    :func:`forward_smem_bytes` and :func:`backward_smem_bytes` compute."""
     launch_b = ctypes.c_int()
     launch_a = _backward_lib().actor_critic_backward_smem_bytes(hidden, ctypes.byref(launch_b))
     return _lib().actor_critic_smem_bytes(hidden), launch_a, launch_b.value
+
+
+def kernel_instances(hidden: int) -> Tuple[int, int]:
+    """The instance K3's and K10's compiled libraries pick for ``hidden``
+    (0: the wide variant), which :func:`kernel_instance` mirrors."""
+    return (_lib().actor_critic_instance(hidden),
+            _backward_lib().actor_critic_backward_instance(hidden))
 
 
 def _launch_forward(w: ActorCriticWeights, x: torch.Tensor, tensors, **outputs) -> None:
@@ -236,11 +270,27 @@ def _launch_forward(w: ActorCriticWeights, x: torch.Tensor, tensors, **outputs) 
         raise RuntimeError(f"actor_critic kernel launch failed with CUDA error {err}")
 
 
+def _wide_scratch(w: ActorCriticWeights, x: torch.Tensor, feats: bool) -> dict:
+    """The wide variant's scratch (none for an instance): the partial
+    logits and values of each 128-column tile of the fc product [2H / 128,
+    N, 16], and with ``feats`` (the forward, which writes no features) the
+    branch features [N, nb H] between its launches."""
+    H, N, nb = w.b_branch.shape[1], x.shape[0], len(w.branch_off) - 1
+    if kernel_instance(H) != WIDE:
+        return {}
+    out = dict(heads=torch.empty((_cdiv(2 * H, WIDE_TILE[1]), N, 16), dtype=torch.float32,
+                                 device=x.device))
+    if feats:
+        out["feats"] = torch.empty((N, nb * H), dtype=torch.float32, device=x.device)
+    return out
+
+
 def cluster_plan(w: ActorCriticWeights, n_lanes: int) -> Tuple[int, bool]:
-    """(CTAs a 32-row tile, whether the branches of more than 128 inputs run
-    in two halves) that the kernel takes for ``n_lanes`` rows on the current
-    card: the plan of least estimated time (``csrc/actor_critic.cu``:
-    ``make_plan``)."""
+    """(CTAs a 32-row tile, whether the branches of more inputs than the
+    instance's capacity run in two halves) that the kernel takes for
+    ``n_lanes`` rows on the current card: the plan of least estimated time
+    (``csrc/actor_critic.cu``: ``make_plan``); (1, False) for the wide
+    variant, which runs no clusters."""
     ctas, split = ctypes.c_int(), ctypes.c_int()
     err = _lib().actor_critic_plan(ctypes.byref(_args(w, n_lanes)), ctypes.byref(ctas),
                                    ctypes.byref(split))
@@ -253,11 +303,12 @@ def actor_critic_forward(w: ActorCriticWeights, x: torch.Tensor,
                          noise: Optional[torch.Tensor] = None):
     """Policy forward and action head over the packed observations ``x``.
     CPU tensors take :func:`actor_critic_forward_plain`; CUDA tensors launch
-    the kernel.  Returns (logits, value, action i32, log_prob)."""
+    the kernel, at any hidden width.  Returns (logits, value, action i32,
+    log_prob)."""
     dev = x.device
     if dev.type == "cpu":
         return actor_critic_forward_plain(w, x, noise)
-    tensors = _weight_tensors(w, x)
+    tensors = {**_weight_tensors(w, x), **_wide_scratch(w, x, feats=True)}
     N, A = x.shape[0], w.w_actor_out.shape[1]
     if noise is not None:
         if noise.shape != (N, A) or noise.device != dev or noise.dtype != torch.float32 \
@@ -285,7 +336,7 @@ def actor_critic_train_forward(w: ActorCriticWeights, x: torch.Tensor):
     dev = x.device
     if dev.type == "cpu":
         return actor_critic_train_forward_plain(w, x)
-    tensors = _weight_tensors(w, x)
+    tensors = {**_weight_tensors(w, x), **_wide_scratch(w, x, feats=False)}
     N, A, nb, H = x.shape[0], w.w_actor_out.shape[1], len(w.branch_off) - 1, w.b_branch.shape[1]
     out = dict(logits=torch.empty((N, A), dtype=torch.float32, device=dev),
                value=torch.empty(N, dtype=torch.float32, device=dev),
@@ -350,33 +401,58 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _wide_smem_bytes(b_floats: int) -> int:
+    """The wide variant's tile kernel: a ring of four stages, each an A
+    stage [64][20] and a B stage of ``b_floats``, or the epilogue's output
+    tile [64][132] over it where that is more."""
+    rows, cols = WIDE_TILE
+    return 4 * max(WIDE_STAGES * (rows * (WIDE_STAGE + 4) + b_floats), rows * (cols + 4))
+
+
 def forward_smem_bytes(hidden: int) -> int:
     """K3's shared memory a CTA at hidden width ``hidden``, as
-    ``csrc/actor_critic.cu``'s ``Dims`` lays it out: a ring of five stages,
-    each the larger of (an x tile [32][20] and 16 W_b rows [16][H + 8]) and
-    16 W_fc rows [16][2H + 8], and the feature tile [32][H + 4]."""
-    slot = max(32 * 20 + 16 * (hidden + 8), 16 * (2 * hidden + 8))
-    return 4 * (5 * slot + 32 * (hidden + 4))
+    ``csrc/actor_critic.cu``'s ``Dims`` lays out the instance of capacity
+    kH that runs it: a ring of five stages, each the larger of (an x tile
+    [32][20] and 16 W_b rows [16][kH + 8]) and 16 W_fc rows [16][2kH + 8],
+    or what goes over the ring once the products are done where that is
+    more (the partial fc product [32][2kH + 4], up to 16 CTAs' partial heads
+    [32][16] and a CTA's slice of the fc columns, or the logits tile), and
+    the feature tile [32][kH + 4].  Past 256: the wide variant's tile
+    kernels (B stages [16][136])."""
+    kh = kernel_instance(hidden)
+    if kh == WIDE:
+        return _wide_smem_bytes(WIDE_STAGE * (WIDE_TILE[1] + 8))
+    slot = max(32 * 20 + 16 * (kh + 8), 16 * (2 * kh + 8))
+    over = max(32 * (2 * kh + 4) + g * 32 * 16 + 32 * max(_cdiv(2 * kh, g) + 1, 16)
+               for g in range(1, 17))
+    return 4 * (max(5 * slot, over) + 32 * (kh + 4))
 
 
 def backward_smem_bytes(hidden: int) -> Tuple[int, int]:
     """K10's shared memory a CTA (launch A, launch B) at hidden width
-    ``hidden``, as ``csrc/actor_critic_backward.cu`` lays it out: launch A
-    dPre_fc's TF32 hi and lo [32][2H + 4] each, W_aout^T [16][H], the dlogits
-    rows [32][16] and three W_fc stages [H][20]; launch B four stages of a
-    [32][72] and a [32][136] tile, whatever the width."""
-    return (4 * (2 * 32 * (2 * hidden + 4) + 16 * hidden + 32 * 16 + 3 * hidden * 20),
-            4 * 4 * (32 * 72 + 32 * 136))
+    ``hidden``, as ``csrc/actor_critic_backward.cu`` lays it out in the
+    instance of capacity kH that runs it: launch A dPre_fc's TF32 hi and lo
+    [32][2kH + 4] each, W_aout^T [16][kH], the dlogits rows [32][16] and
+    three W_fc stages [kH][20]; past 256 the wide variant's tile kernel (B
+    read transposed: stages [128][20]); launch B four stages of a [32][72]
+    and a [32][136] tile, whatever the width."""
+    kh = kernel_instance(hidden)
+    launch_b = 4 * 4 * (32 * 72 + 32 * 136)
+    if kh == WIDE:
+        return _wide_smem_bytes(WIDE_TILE[1] * (WIDE_STAGE + 4)), launch_b
+    return 4 * (2 * 32 * (2 * kh + 4) + 16 * kh + 32 * 16 + 3 * kh * 20), launch_b
 
 
 def backward_plan(B: int, branch_off: Sequence[int], sms: int, hidden: int = 128) -> BackwardPlan:
     """The launch shapes for a batch of ``B`` rows of hidden width ``hidden``
     on a card of ``sms`` SMs.  Launch A: the groups of least estimated time,
-    waves (of the CTAs an SM holds: two at width 128, one at 256) times the
-    blocks a CTA walks plus its head, each group at least one block, on a
-    tie the fewer CTAs.  Launch B: the most slices a cluster takes that the
-    batch's 32-deep stages fill (on the H100 more slices were faster at 512
-    and 4096 rows alike)."""
+    waves (of the CTAs an SM holds: two in the instances 64 and 128, one in
+    192 and 256) times the blocks a CTA walks plus its head, each group at
+    least one block, on a tie the fewer CTAs; one group in the wide variant,
+    whose launch A is a thread an entry of the head, then 64 x 128 tiles of
+    dPre_b.  Launch B: the most slices a cluster takes that the batch's
+    32-deep stages fill (on the H100 more slices were faster at 512 and 4096
+    rows alike)."""
     nb = len(branch_off) - 1
     row_tiles = _cdiv(B, BACKWARD_ROWS)
     per_sm = SMEM_PER_SM // (backward_smem_bytes(hidden)[0] + 1024)
@@ -384,8 +460,9 @@ def backward_plan(B: int, branch_off: Sequence[int], sms: int, hidden: int = 128
     def cost_a(g: int) -> float:
         return _cdiv(row_tiles * g, per_sm * sms) * (BACKWARD_HEAD_BLOCKS + _cdiv(nb, g))
 
-    groups = min((g for g in range(1, nb + 1) if _cdiv(nb, g) * (g - 1) < nb),
-                 key=lambda g: (cost_a(g), g))
+    groups = 1 if kernel_instance(hidden) == WIDE else min(
+        (g for g in range(1, nb + 1) if _cdiv(nb, g) * (g - 1) < nb),
+        key=lambda g: (cost_a(g), g))
     slices = max(s for s in BACKWARD_SLICES if s <= _cdiv(B, BACKWARD_STAGE))
     return BackwardPlan(groups, slices)
 
@@ -399,7 +476,8 @@ def actor_critic_backward(w: ActorCriticWeights, x: torch.Tensor, feats: torch.T
                           hidden: torch.Tensor, dlogits: torch.Tensor,
                           dvalue: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """K10: the eight weight gradients (see :func:`actor_critic_backward_plain`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel, at
+    any hidden width."""
     dev = x.device
     if dev.type == "cpu":
         return actor_critic_backward_plain(w, x, feats, hidden, dlogits, dvalue)

@@ -8,7 +8,7 @@
 // kernels/actor_critic.py:actor_critic_backward_plain.  It reads the
 // activations K3's training mode saved (the branch features F [B, nb x H]
 // and the fc outputs Hf [B, 2H], both after LeakyReLU; H is the hidden
-// width, 128 or 256, a template parameter of launch A) and takes each
+// width, any H >= 1) and takes each
 // LeakyReLU's derivative from the sign of its output (1 where it is >= 0,
 // as jax.nn.leaky_relu's where(x >= 0, ...) gives it, else 0.01).
 //
@@ -55,6 +55,19 @@
 //      CTAs of one thread-block cluster; after a cluster barrier each CTA
 //      sums a share of the tile's rows over the slices' partial tiles in
 //      rank order, from the cluster's shared memory.
+// Widths: launch A is a template on a capacity kH (64, 128, 192 or 256) and
+// H runs in the smallest instance that holds it, as K3's kernel does
+// (csrc/actor_critic.cu:instance_of): W_fc's rows past H and columns past 2H
+// load as zeros, dPre_fc's columns past 2H are 0, and no gradient column
+// past H is written; a width equal to its instance's capacity runs the exact
+// instance (kExact: H constant, no masks), the code before the widths were
+// made runtime (the same bits and times).  Launch B's products take their
+// sizes at run time.  Past 256 launch A's dPre_fc tile does not fit (hi and
+// lo [32][2H + 4] each, 263 KB at H = 512), so the wide variant splits it in
+// two: a thread an entry of the head (y and dPre_fc), then dPre_b = dPre_fc
+// W_fc^T in 64 x 128 tiles (csrc/actor_critic_wide.cuh, W_fc read
+// transposed) with the residual's gradient and leaky' in the epilogue;
+// launch B as at any width.
 // No atomics: every sum has a fixed order and a run repeats bit for bit.
 // Operands stream in with cp.async through rings of stages (16-byte copies
 // where the rows allow, else 4-byte: x's rows are 779 or 795 floats).
@@ -63,9 +76,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "actor_critic_wide.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
+namespace wide = mansy::wide;
 using namespace mansy::tc;
 
 namespace {
@@ -80,11 +95,10 @@ constexpr int kStagesA = 3;    // two stages in flight while one is multiplied
 constexpr int kMaxA = 16;      // actions the head stages (A <= 15)
 constexpr int kWS = kBKA + 4;  // W_fc stage               [kH n][kWS]
 
-// Launch A's layout at hidden width kH (128 or 256).
+// Launch A's layout in the instance of capacity kH (64, 128, 192 or 256).
 template <int kH>
 struct DimsA {
   static constexpr int kF = 2 * kH;          // fc width: actor_fc | critic_fc
-  static constexpr int kKStages = kF / kBKA; // stages of one block
   static constexpr int kPS = kF + 4;         // dPre_fc, TF32 hi and lo  [kRowsA][kPS] each
   static constexpr int kJ = kH / 64;         // 8-column tiles a warp owns of a block
   // W_aout^T [16][H] and the dlogits rows [32][16]
@@ -93,8 +107,9 @@ struct DimsA {
       (2 * kRowsA * kPS + kHeadFloats + kStagesA * kH * kWS) * (int)sizeof(float);
   static constexpr int kMinBlocks = 2 * kSmem + 2048 <= 228 * 1024 ? 2 : 1;  // CTAs an SM
 };
-static_assert(DimsA<128>::kMinBlocks == 2, "two CTAs an SM at hidden 128");
-static_assert(DimsA<256>::kSmem + 1024 <= 227 * 1024, "the H100's shared memory a block");
+static_assert(DimsA<64>::kMinBlocks == 2 && DimsA<128>::kMinBlocks == 2, "two CTAs an SM");
+static_assert(DimsA<192>::kSmem + 1024 <= 227 * 1024 && DimsA<256>::kSmem + 1024 <= 227 * 1024,
+              "the H100's shared memory a block");
 // launch B: 64 x 128 output tiles
 constexpr int kBM = 64, kBN = 128;
 constexpr int kStagesB = 4;    // three stages in flight while one is multiplied
@@ -132,7 +147,7 @@ struct ActorCriticBackwardArgs {
   float* dw_cout;        // [H]
   float* db_cout;        // [1]
   int32_t B, ldx, A, num_branches;
-  int32_t hidden_dim;    // H: 128 or 256
+  int32_t hidden_dim;    // H >= 1
   int32_t groups;        // launch A: CTAs a row tile, each a run of its column blocks
   int32_t slices;        // launch B: depth slices of an output tile (its cluster's CTAs)
   int32_t branch_off[kMaxNB + 1];
@@ -184,18 +199,19 @@ __device__ __forceinline__ void load_a_split(const uint32_t* hp, const uint32_t*
   }
 }
 
-template <int kH>
+template <int kH, bool kExact>
 __global__ void __launch_bounds__(kThreads, DimsA<kH>::kMinBlocks)
-dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
-  constexpr int kF = DimsA<kH>::kF, kKStages = DimsA<kH>::kKStages, kPS = DimsA<kH>::kPS;
-  constexpr int kJ = DimsA<kH>::kJ;
+dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a, int vec_wfc) {
+  constexpr int kPS = DimsA<kH>::kPS, kJ = DimsA<kH>::kJ;
   extern __shared__ __align__(16) float smem[];
   uint32_t* Ph = reinterpret_cast<uint32_t*>(smem);  // [kRowsA][kPS] dPre_fc, TF32 hi
   uint32_t* Pl = Ph + kRowsA * kPS;                  // [kRowsA][kPS] and lo
   float* Ws = smem + 2 * kRowsA * kPS;               // [16][kH] W_aout^T, 0 past A
   float* Dl = Ws + kMaxA * kH;                       // [kRowsA][16] dlogits, 0 past A and B
   float* ring = Dl + kRowsA * kMaxA;                 // [kStagesA][kH][kWS] W_fc stages
-  const int nb = a.num_branches, F = nb * kH, A = a.A;
+  const int nb = a.num_branches, H = kExact ? kH : a.hidden_dim;
+  const int F = nb * H, F2 = 2 * H, A = a.A;
+  const int kKStages = kExact ? 2 * kH / kBKA : (F2 + kBKA - 1) / kBKA;  // stages of one block
   const int per = (nb + a.groups - 1) / a.groups;
   const int group = blockIdx.x % a.groups, row0 = (int)(blockIdx.x / a.groups) * kRowsA;
   const int blk0 = group * per, nblk = min(nb, blk0 + per) - blk0;
@@ -203,13 +219,24 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int total = nblk * kKStages;
 
-  // stage c: W_fc rows H (blk0 + c / kKStages) + [0, H), columns 16 (c % kKStages) + [0, 16)
+  // stage c: W_fc rows H (blk0 + c / kKStages) + [0, kH), columns 16 (c %
+  // kKStages) + [0, 16); zeros past H rows and 2H columns
   auto load = [&](int c) {
     float* slot = ring + (c % kStagesA) * (kH * kWS);
-    const float* src = a.w_fc + (size_t)((blk0 + c / kKStages) * kH) * kF + (c % kKStages) * kBKA;
-    for (int e = tid; e < kH * kBKA / 4; e += kThreads) {
-      const int n = e / (kBKA / 4), k = 4 * (e % (kBKA / 4));
-      cp_async16(slot + n * kWS + k, src + (size_t)n * kF + k, true);
+    const int k0 = (c % kKStages) * kBKA;
+    const float* src = a.w_fc + (size_t)((blk0 + c / kKStages) * H) * F2 + k0;
+    if (kExact || vec_wfc) {
+      for (int e = tid; e < kH * kBKA / 4; e += kThreads) {
+        const int n = e / (kBKA / 4), k = 4 * (e % (kBKA / 4));
+        const bool ok = kExact || (n < H && k0 + k < F2);
+        cp_async16(slot + n * kWS + k, ok ? src + (size_t)n * F2 + k : a.w_fc, ok);
+      }
+    } else {
+      for (int e = tid; e < kH * kBKA; e += kThreads) {
+        const int n = e / kBKA, k = e % kBKA;
+        const bool ok = n < H && k0 + k < F2;
+        cp_async4(slot + n * kWS + k, ok ? src + (size_t)n * F2 + k : a.w_fc, ok);
+      }
     }
   };
   for (int c = 0; c < kStagesA - 1; ++c) {
@@ -219,35 +246,40 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
 
   // the head while the first stages land: dPre_fc = leaky'(Hf) [dlogits
   // W_aout^T, dvalue W_cout^T], split into TF32 hi and lo once for every
-  // stage and warp; rows past B are 0
+  // stage and warp; rows past B and columns past 2H are 0
   for (int e = tid; e < kMaxA * kH; e += kThreads) {
     const int o = e / kH, n = e % kH;
-    Ws[e] = o < A ? a.w_aout[n * A + o] : 0.f;
+    Ws[e] = o < A && (kExact || n < H) ? a.w_aout[n * A + o] : 0.f;
   }
   for (int e = tid; e < kRowsA * kMaxA; e += kThreads) {
     const int m = e / kMaxA, o = e % kMaxA;
     Dl[e] = o < A && row0 + m < a.B ? a.dlogits[(size_t)(row0 + m) * A + o] : 0.f;
   }
   __syncthreads();
-  for (int e = tid; e < kRowsA * kH; e += kThreads) {
-    const int m = e / kH, n = e % kH, row = row0 + m;
+  for (int e = tid; e < kRowsA * H; e += kThreads) {
+    const int m = e / H, n = e % H, row = row0 + m;
     float pa = 0.f, pc = 0.f;
     if (row < a.B) {
       const float dya = head_dya<kH>(Dl, Ws, m, n, A);
       const float dyc = a.dvalue[row] * a.w_cout[n];
-      const float ha = a.hidden[(size_t)row * kF + n], hc = a.hidden[(size_t)row * kF + kH + n];
+      const float ha = a.hidden[(size_t)row * F2 + n], hc = a.hidden[(size_t)row * F2 + H + n];
       pa = leaky_grad(ha, dya);
       pc = leaky_grad(hc, dyc);
       if (group == 0) {  // what launch B reads, written once
-        const float cond = a.cond >= 0 ? a.feats[(size_t)row * F + a.cond * kH + n] : 0.f;
-        a.y[(size_t)row * kF + n] = ha + cond;
-        a.y[(size_t)row * kF + kH + n] = hc + cond;
-        a.dpre_fc[(size_t)row * kF + n] = pa;
-        a.dpre_fc[(size_t)row * kF + kH + n] = pc;
+        const float cond = a.cond >= 0 ? a.feats[(size_t)row * F + a.cond * H + n] : 0.f;
+        a.y[(size_t)row * F2 + n] = ha + cond;
+        a.y[(size_t)row * F2 + H + n] = hc + cond;
+        a.dpre_fc[(size_t)row * F2 + n] = pa;
+        a.dpre_fc[(size_t)row * F2 + H + n] = pc;
       }
     }
     split(pa, Ph[m * kPS + n], Pl[m * kPS + n]);
-    split(pc, Ph[m * kPS + kH + n], Pl[m * kPS + kH + n]);
+    split(pc, Ph[m * kPS + H + n], Pl[m * kPS + H + n]);
+  }
+  const int pad = kExact ? 0 : kKStages * kBKA - F2;  // the last stage's columns past 2H
+  for (int e = tid; e < kRowsA * pad; e += kThreads) {
+    const int m = e / pad, k = F2 + e % pad;
+    Ph[m * kPS + k] = Pl[m * kPS + k] = 0u;
   }
 
   // dPre_b[:, block] = (dPre_fc W_fc[block]^T + dcond on the cond block) *
@@ -295,13 +327,19 @@ dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
           if (row >= a.B) continue;
           if (b == a.cond) {  // the residual's gradient dcond = dy_a + dy_c, as in the head
             const float dv = a.dvalue[row];
-            v0 += head_dya<kH>(Dl, Ws, m, n, A) + dv * a.w_cout[n];
-            v1 += head_dya<kH>(Dl, Ws, m, n + 1, A) + dv * a.w_cout[n + 1];
+            if (kExact || n < H) v0 += head_dya<kH>(Dl, Ws, m, n, A) + dv * a.w_cout[n];
+            if (kExact || n + 1 < H) v1 += head_dya<kH>(Dl, Ws, m, n + 1, A) + dv * a.w_cout[n + 1];
           }
-          const size_t at = (size_t)row * F + b * kH + n;
-          const float2 f = *reinterpret_cast<const float2*>(a.feats + at);
-          *reinterpret_cast<float2*>(a.dpre_b + at) = make_float2(leaky_grad(f.x, v0),
-                                                                   leaky_grad(f.y, v1));
+          const size_t at = (size_t)row * F + b * H + n;
+          if (kExact || (H & 1) == 0) {  // the pair in one 8-byte access
+            if (!kExact && n >= H) continue;
+            const float2 f = *reinterpret_cast<const float2*>(a.feats + at);
+            *reinterpret_cast<float2*>(a.dpre_b + at) = make_float2(leaky_grad(f.x, v0),
+                                                                     leaky_grad(f.y, v1));
+          } else {
+            if (n < H) a.dpre_b[at] = leaky_grad(a.feats[at], v0);
+            if (n + 1 < H) a.dpre_b[at + 1] = leaky_grad(a.feats[at + 1], v1);
+          }
         }
       }
   }
@@ -429,6 +467,53 @@ __global__ void __launch_bounds__(kThreads, 2) grad_kernel(const __grid_constant
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
+// ---- the wide variant's launch A (H > 256) ----
+
+// A thread an entry (row, n) of the head: y and dPre_fc, as launch A's head
+// computes them.
+__global__ void wide_head_kernel(const __grid_constant__ ActorCriticBackwardArgs a) {
+  const int H = a.hidden_dim, F2 = 2 * H, A = a.A;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (size_t)a.B * H) return;
+  const int row = (int)(e / H), n = (int)(e % H);
+  float dya = 0.f;
+  for (int o = 0; o < A; ++o) dya = fmaf(a.dlogits[(size_t)row * A + o], a.w_aout[n * A + o], dya);
+  const float dyc = a.dvalue[row] * a.w_cout[n];
+  const float ha = a.hidden[(size_t)row * F2 + n], hc = a.hidden[(size_t)row * F2 + H + n];
+  const float cond = a.cond >= 0 ? a.feats[(size_t)row * a.num_branches * H + a.cond * H + n] : 0.f;
+  a.y[(size_t)row * F2 + n] = ha + cond;
+  a.y[(size_t)row * F2 + H + n] = hc + cond;
+  a.dpre_fc[(size_t)row * F2 + n] = leaky_grad(ha, dya);
+  a.dpre_fc[(size_t)row * F2 + H + n] = leaky_grad(hc, dyc);
+}
+
+// dPre_b's tile (m0, n0) = dPre_fc W_fc^T, plus the residual's gradient on
+// the cond branch's columns (dy_a + dy_c, recomputed as the head computes
+// them), times leaky'(F).
+__global__ void __launch_bounds__(wide::kThreads)
+wide_dpre_kernel(const __grid_constant__ ActorCriticBackwardArgs a,
+                 const __grid_constant__ wide::Gemms gs) {
+  extern __shared__ __align__(16) float smem[];
+  int m0, n0;
+  const wide::Gemm& p = wide::locate(gs, (int)blockIdx.x, m0, n0);
+  float acc[2][4][4];
+  wide::gemm_tile<true>(p, m0, n0, smem, acc);
+  const int H = a.hidden_dim, F = a.num_branches * H, A = a.A;
+  wide::for_each(acc, [&](int m, int n, float v) {
+    const int row = m0 + m, col = n0 + n;
+    if (row >= a.B || col >= F) return;
+    if (col / H == a.cond) {
+      const int c = col - a.cond * H;
+      float dya = 0.f;
+      for (int o = 0; o < A; ++o)
+        dya = fmaf(a.dlogits[(size_t)row * A + o], a.w_aout[c * A + o], dya);
+      v += dya + a.dvalue[row] * a.w_cout[c];
+    }
+    const size_t at = (size_t)row * F + col;
+    a.dpre_b[at] = leaky_grad(a.feats[at], v);
+  });
+}
+
 namespace {
 
 bool vectorizable(const float* p, int ld, int width) {
@@ -448,24 +533,63 @@ int add_product(Products& ps, int tiles, const float* a, int lda, int M, const f
 
 namespace {
 
-// Launch A at hidden width kH.
-template <int kH>
-cudaError_t launch_dpre(const ActorCriticBackwardArgs& a, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(dpre_kernel<kH>,
+// Launch A in the instance kH (exact: H = kH).
+template <int kH, bool kExact>
+cudaError_t launch_dpre_as(const ActorCriticBackwardArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(dpre_kernel<kH, kExact>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        DimsA<kH>::kSmem);
   if (e != cudaSuccess) return e;
-  dpre_kernel<kH><<<(a.B + kRowsA - 1) / kRowsA * a.groups, kThreads, DimsA<kH>::kSmem, s>>>(a);
+  const int vec_wfc = wide::aligned16(a.w_fc) && a.hidden_dim % 2 == 0;
+  dpre_kernel<kH, kExact>
+      <<<(a.B + kRowsA - 1) / kRowsA * a.groups, kThreads, DimsA<kH>::kSmem, s>>>(a, vec_wfc);
   return cudaGetLastError();
+}
+
+template <int kH>
+cudaError_t launch_dpre(const ActorCriticBackwardArgs& a, cudaStream_t s) {
+  return a.hidden_dim == kH ? launch_dpre_as<kH, true>(a, s) : launch_dpre_as<kH, false>(a, s);
+}
+
+constexpr int kWideSmem = wide::Layout<true>::kSmemBytes;
+
+// The wide variant's launch A: the head, then dPre_b's tiles.
+cudaError_t launch_dpre_wide(const ActorCriticBackwardArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(wide_dpre_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+  if (e != cudaSuccess) return e;
+  const int H = a.hidden_dim, F = a.num_branches * H;
+  const size_t entries = (size_t)a.B * H;
+  wide_head_kernel<<<(unsigned)((entries + 255) / 256), 256, 0, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  wide::Gemms gs{};
+  const int tiles = wide::add(gs, 0, a.dpre_fc, 2 * H, a.w_fc, 2 * H, a.B, F, 2 * H, true, 0);
+  wide_dpre_kernel<<<tiles, wide::kThreads, kWideSmem, s>>>(a, gs);
+  return cudaGetLastError();
+}
+
+// The smallest launch-A instance that holds hidden width H: 64, 128, 192
+// or 256; 0 for the wide variant past 256 (csrc/actor_critic.cu's).
+int instance_of(int H) {
+  return H <= 64 ? 64 : H <= 128 ? 128 : H <= 192 ? 192 : H <= 256 ? 256 : 0;
 }
 
 }  // namespace
 
-// Launch A's shared memory a CTA at hidden width `hidden` (0 for a width
-// without an instantiation), and launch B's.
+// The instance that runs hidden width `hidden` (0: the wide variant).
+extern "C" int actor_critic_backward_instance(int hidden) { return instance_of(hidden); }
+
+// Launch A's dynamic shared memory a CTA at hidden width `hidden` (its
+// instance's, or the wide variant's tile kernel's), and launch B's.
 extern "C" int actor_critic_backward_smem_bytes(int hidden, int* launch_b) {
   *launch_b = kSmemB;
-  return hidden == 128 ? DimsA<128>::kSmem : hidden == 256 ? DimsA<256>::kSmem : 0;
+  switch (instance_of(hidden)) {
+    case 64: return DimsA<64>::kSmem;
+    case 128: return DimsA<128>::kSmem;
+    case 192: return DimsA<192>::kSmem;
+    case 256: return DimsA<256>::kSmem;
+    default: return kWideSmem;
+  }
 }
 
 extern "C" int actor_critic_backward_launch(const ActorCriticBackwardArgs* args, void* stream) {
@@ -474,13 +598,19 @@ extern "C" int actor_critic_backward_launch(const ActorCriticBackwardArgs* args,
   const int B = a.B, A = a.A, nb = a.num_branches, S = a.slices;
   const int H = a.hidden_dim, F = nb * H, F2 = 2 * H;
   if (nb > kMaxNB || nb < 1 || a.cond < -1 || a.cond >= nb || A > kMaxA || a.groups < 1 ||
-      a.groups > nb || S < 1 || S > kMaxSlices || (S & (S - 1)) != 0 || (H != 128 && H != 256))
+      a.groups > nb || S < 1 || S > kMaxSlices || (S & (S - 1)) != 0 || H < 1)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        kSmemB);
   if (e != cudaSuccess) return (int)e;
-  e = H == 128 ? launch_dpre<128>(a, s) : launch_dpre<256>(a, s);
+  switch (instance_of(H)) {
+    case 64: e = launch_dpre<64>(a, s); break;
+    case 128: e = launch_dpre<128>(a, s); break;
+    case 192: e = launch_dpre<192>(a, s); break;
+    case 256: e = launch_dpre<256>(a, s); break;
+    default: e = launch_dpre_wide(a, s);
+  }
   if (e != cudaSuccess) return (int)e;
 
   // depth B: dW_fc = F^T dPre_fc, dW_branch[off_b : off_b+1] =

@@ -180,7 +180,7 @@ class MansyActorCritic(nn.Module):
     def forward_packed(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [N, A], value [N]) of packed observations [N, >= 748],
         differentiable in the parameters: K3's training mode and K10 for CUDA
-        tensors (hidden 128 or 256), their plain versions for CPU tensors."""
+        tensors (any hidden width), their plain versions for CPU tensors."""
         return actor_critic_train(self._pack(), x)
 
     def _pack(self) -> ActorCriticWeights:

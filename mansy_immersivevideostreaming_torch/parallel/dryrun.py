@@ -14,13 +14,15 @@ Run as a worker::
 
     python -m mansy_immersivevideostreaming_torch.parallel.dryrun \\
         --n-devices 2 --coordinator localhost:9876 --num-processes 2 \\
-        --process-id 0 [--force-cpu] [--hidden-dim 128] [--out DIR]
+        --process-id 0 [--force-cpu] [--hidden-dim 32] [--out DIR]
 
 The models are small (under 10M parameters, sequences of at most 21
 tokens), so only the batch and lane axis is split, as in the JAX package.
 The MTIO batch is a seeded draw of positions (the JAX run's is zeros), so
-that the step's parity checks are not trivial.  On the card the policy's
-hidden width must be one K3 and K10 are built for (128 or 256).
+that the step's parity checks are not trivial.  The policy's width is
+JAX's 32 (``MansyActorCritic(hidden_dim=32)``, JAX ``parallel/dryrun.py:95``)
+unless ``--hidden-dim`` asks for another; K3 and K10 run any width on the
+card (32 in the instance of capacity 64).
 """
 
 from __future__ import annotations
@@ -154,7 +156,7 @@ def main(argv=None):
     parser.add_argument("--force-cpu", action="store_true",
                         help="run on the CPU (Gloo); default: the rank's card")
     parser.add_argument("--hidden-dim", type=int, default=32,
-                        help="the policy's width (the card's K3 and K10: 128 or 256)")
+                        help="the policy's width (JAX's dry run: 32)")
     parser.add_argument("--out", type=str, default=None,
                         help="directory for each rank's results, rank<r>.npz")
     args = parser.parse_args(argv)

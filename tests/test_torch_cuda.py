@@ -1258,31 +1258,106 @@ def test_attention_tile_kernel_at_ragged_shapes_on_card(cuda_device, Lq, Lk, kv_
     _attention_training_matches_plain(K8, 3, (Lq, Lk, kv_len0), 3, Dh, dropout, seed)
 
 
-# ------------------------------------------------------------ hidden 256
+# ------------------------------------------------------ hidden widths
 
 @pytest.mark.cuda
 def test_actor_critic_shared_memory_as_planned_on_card(cuda_device):
     """The compiled K3 and K10 take the shared memory that the wrapper's
-    layouts compute, within the H100's 227 KB a block; width 64 has no
-    instantiation."""
-    for h in K3.WIDTHS:
+    layouts compute in every instance and in the wide variant, within the
+    H100's 227 KB a block, and pick for every width from 1 to 1100 the
+    instance the wrapper names (0: the wide variant)."""
+    for h in K3.WIDTHS + (257, 384, 512, 1024):
         assert K3.kernel_smem_bytes(h) == (K3.forward_smem_bytes(h), *K3.backward_smem_bytes(h))
         assert max(K3.kernel_smem_bytes(h)) <= 227 * 1024
-    assert K3.kernel_smem_bytes(64)[:2] == (0, 0)
+    for h in range(1, 1101):
+        want = K3.kernel_instance(h)
+        assert K3.kernel_instances(h) == ((0, 0) if want == K3.WIDE else (want, want)), h
 
 
 @pytest.mark.cuda
-def test_actor_critic_kernels_refuse_other_widths_on_card(cuda_device):
-    """A width without an instantiation raises on the card, naming the two
-    it has; it never falls back to the plain version."""
-    policy = MansyActorCritic(hidden_dim=64, device=cuda_device)
-    w = policy.packed_weights()
-    x = torch.rand(40, 779, device=cuda_device)
-    for call in (lambda: K3.actor_critic_forward(w, x),
-                 lambda: K3.actor_critic_train_forward(w, x),
-                 lambda: policy.forward_packed(x)):
-        with pytest.raises(ValueError, match="128 or 256"):
-            call()
+@pytest.mark.parametrize("hidden", [64, 100, 512])
+def test_actor_critic_kernels_refuse_other_widths_on_card(cuda_device, hidden):
+    """A width other than the committed policies' runs through the kernels
+    (each call launches once, in the mode of its instance) and never falls
+    back to the plain version: K3 (forward, training mode) and K10, also
+    through the autograd Function, equal the plain versions at the
+    tolerances of 128 and 256; two launches give the same bits."""
+    from mansy_immersivevideostreaming_torch.kernels.observe import obs_width
+    for use_av, prior in ((False, 0.0), (True, 3.0)):
+        torch.manual_seed(hidden)
+        policy = MansyActorCritic(hidden_dim=hidden, use_action_values=use_av,
+                                  av_logit_prior=prior, device=cuda_device)
+        w = policy.packed_weights()
+        mode = K3.launch_mode(w)
+        g = torch.Generator(device=cuda_device).manual_seed(hidden)
+        n = 300
+        x = torch.rand(n, obs_width(*policy.dims), device=cuda_device, generator=g)
+        noise = K3.gumbel_noise((n, 15), g, cuda_device)
+        for fn in (K3.actor_critic_forward, K3.actor_critic_train_forward,
+                   K3.actor_critic_backward):
+            fn.launches_by_mode.clear()
+        got = K3.actor_critic_forward(w, x, noise)
+        ref = K3.actor_critic_forward_plain(w, x, noise)
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        top2 = (ref[0] + noise).topk(2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 1e-4
+        assert torch.equal(got[2][decisive], ref[2][decisive])
+        assert all(torch.equal(a, b) for a, b in zip(got, K3.actor_critic_forward(w, x, noise)))
+        got = K3.actor_critic_train_forward(w, x)
+        ref = K3.actor_critic_train_forward_plain(w, x)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        dlogits = torch.randn(n, 15, device=cuda_device, generator=g) / n
+        dvalue = torch.randn(n, device=cuda_device, generator=g) / n
+        grads = K3.actor_critic_backward(w, x, *ref[2:], dlogits, dvalue)
+        want = K3.actor_critic_backward_plain(w, x, *ref[2:], dlogits, dvalue)
+        for a, b in zip(grads, want):
+            _grad_close(a, b)
+        again = K3.actor_critic_backward(w, x, *ref[2:], dlogits, dvalue)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        logits, value = policy.forward_packed(x)
+        ((logits * dlogits).sum() + (value * dvalue).sum()).backward()
+        _grad_close(policy.critic_out.weight.grad, want[6].t())
+        assert K3.actor_critic_forward.launches_by_mode == {mode: 2}
+        assert K3.actor_critic_train_forward.launches_by_mode == {mode: 2}
+        assert K3.actor_critic_backward.launches_by_mode == {mode: 3}
+
+
+# chip_smoke.py:actor_critic_digests of K3 and K10 before they took other
+# hidden widths, taken on an H100 80GB HBM3 by the same function bound to
+# that commit's kernels
+AC_DIGESTS = {
+    "forward_v9_h128_512": "56f12b5136718455",
+    "forward_v9_h128_8192": "ab5d95581906c8d5",
+    "train_forward_v9_h128_4096": "75c8abcb77bd1211",
+    "backward_v9_h128_512": "d1c43a6fc06af77c",
+    "backward_v9_h128_4096": "7751e0523d0ac567",
+    "forward_v16_h128_512": "858fa7947e4ba1e1",
+    "forward_v16_h128_8192": "f80f4afa71b04c3d",
+    "train_forward_v16_h128_4096": "81dd70b5644dd25f",
+    "backward_v16_h128_512": "0b60927988d9d2d3",
+    "backward_v16_h128_4096": "d7300ed6b19dc831",
+    "forward_v9_h256_512": "911f29d856625e20",
+    "forward_v9_h256_8192": "b7ac37f0fa354f3d",
+    "train_forward_v9_h256_4096": "a5db5fafb360cf62",
+    "backward_v9_h256_512": "80b067298af31d84",
+    "backward_v9_h256_4096": "e89904997d6ff0e0",
+    "forward_v16_h256_512": "4d6836f7176df8b7",
+    "forward_v16_h256_8192": "17b40fdaf3606d5a",
+    "train_forward_v16_h256_4096": "a23fc3253b0a9689",
+    "backward_v16_h256_512": "76c84f6063ea5725",
+    "backward_v16_h256_4096": "93c7e06041dd437f",
+}
+
+
+@pytest.mark.cuda
+def test_actor_critic_kernels_keep_their_bits_on_card(cuda_device):
+    """K3 and K10 at the committed widths, 128 and 256, give the bits of the
+    kernels before other widths ran (their exact instances), on inputs and
+    weights drawn with numpy."""
+    import chip_smoke
+    assert chip_smoke.actor_critic_digests(K3, cuda_device) == AC_DIGESTS
 
 
 @pytest.mark.cuda

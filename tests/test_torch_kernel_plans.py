@@ -6,8 +6,10 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
   size that splits its 64-row tile evenly and that the batch's 32-deep
   stages fill; the shapes taken at the paths' batches (512 and 4096 rows)
   on a 132-SM card; the same at hidden 256 (v18), where launch A holds
-  one CTA an SM.  K3's and K10's shared memory a CTA at widths 128 and
-  256 fits the H100.
+  one CTA an SM, and at 32, 100, 384 and 512 (the instances 64 and 128,
+  and the wide variant, whose launch A takes one group).  K3's and K10's
+  shared memory a CTA in every instance (64, 128, 192, 256) and in the
+  wide variant fits the H100.
 * ``attention_backward_plan`` (K8's backward): at 1 to 2048 rows and keys
   and Dh 4 to 256, causal and full, every (row, key) that a row sees is
   taken once, every key's dk and dv rows written once, with a compiled
@@ -131,17 +133,50 @@ def test_backward_plan_at_hidden_256_at_the_paths_batches():
     assert K3.backward_plan(4096, V9_OFFSETS, H100_SMS, 256) == K3.BackwardPlan(1, 8)
 
 
-@pytest.mark.parametrize("hidden", K3.WIDTHS)
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("offsets", [V9_OFFSETS, V16_OFFSETS], ids=["v9", "v16"])
+@pytest.mark.parametrize("hidden", [32, 100, 384, 512])
+def test_backward_plan_covers_every_block_and_slice_at_width(B, offsets, hidden):
+    """At widths of the instances 64 and 128 and of the wide variant the
+    groups cover every column block once with none empty (one group in the
+    wide variant, whose launch A runs 64 x 128 tiles of dPre_b, not blocks);
+    the slices as at any width."""
+    plan = K3.backward_plan(B, offsets, H100_SMS, hidden)
+    nb = len(offsets) - 1
+    per = -(-nb // plan.groups)
+    blocks = [b for g in range(plan.groups) for b in range(g * per, min(nb, (g + 1) * per))]
+    assert blocks == list(range(nb)) and all(g * per < nb for g in range(plan.groups))
+    if K3.kernel_instance(hidden) == K3.WIDE:
+        assert plan.groups == 1
+    else:  # the plan of the instance's capacity
+        assert plan == K3.backward_plan(B, offsets, H100_SMS, K3.kernel_instance(hidden))
+    assert plan.slices in K3.BACKWARD_SLICES and plan.slices <= -(-B // K3.BACKWARD_STAGE)
+    assert plan.slices == 8 or 2 * plan.slices > -(-B // K3.BACKWARD_STAGE)
+
+
+@pytest.mark.parametrize("hidden", K3.WIDTHS + (K3.WIDE,))
 def test_actor_critic_shared_memory_fits_the_h100(hidden):
     """K3's and K10's shared memory a CTA (the layouts of ``Dims`` and
-    ``DimsA``, which the card tests hold against the compiled kernels):
-    within the H100's 227 KB a block, and two CTAs an SM at width 128."""
-    fwd, launch_a, launch_b = K3.forward_smem_bytes(hidden), *K3.backward_smem_bytes(hidden)
-    assert (fwd, launch_a, launch_b) == {128: (101_376, 107_520, 106_496),
-                                         256: (199_680, 211_968, 106_496)}[hidden]
-    assert max(fwd, launch_a, launch_b) + 1024 <= 227 * 1024
-    if hidden == 128:
-        assert 2 * (max(fwd, launch_a) + 1024) <= K3.SMEM_PER_SM
+    ``DimsA``, and of the wide variant's tile kernels, which the card tests
+    hold against the compiled kernels) in every instance and the wide
+    variant (at 257, 384, 512 and 1024: it does not grow with the width):
+    within the H100's 227 KB a block, and two CTAs an SM in the instances 64
+    and 128 and the wide variant; every width of an instance takes its
+    capacity's."""
+    widths = (257, 384, 512, 1024) if hidden == K3.WIDE else (hidden,)
+    want = {64: (60_416, 55_296, 106_496), 128: (101_376, 107_520, 106_496),
+            192: (150_528, 159_744, 106_496), 256: (199_680, 211_968, 106_496),
+            K3.WIDE: (55_296, 61_440, 106_496)}[hidden]
+    for h in widths:
+        fwd, launch_a, launch_b = K3.forward_smem_bytes(h), *K3.backward_smem_bytes(h)
+        assert (fwd, launch_a, launch_b) == want
+    assert max(want) + 1024 <= 227 * 1024
+    if hidden in (64, 128, K3.WIDE):
+        assert 2 * (max(want[:2]) + 1024) <= K3.SMEM_PER_SM
+    if hidden != K3.WIDE:
+        below = max([c for c in K3.WIDTHS if c < hidden], default=0)
+        assert all(K3.forward_smem_bytes(h) == want[0] and K3.backward_smem_bytes(h)[0] == want[1]
+                   for h in range(below + 1, hidden + 1))
 
 
 # -------------------------------------------------------------------- K9
