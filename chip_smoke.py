@@ -13,7 +13,7 @@ ensemble over four committed policies, and serves, trains and runs DAgger
 with policies that read the derived action values, all through the port's
 own entry points.  It imports no JAX.
 
-    python3 chip_smoke.py [--parent DIR] [--vp-train N]
+    python3 chip_smoke.py [--parent DIR] [--vp-train N] [--limits]
 
 With ``--parent``, DIR is another checkout of the repo (the parent commit's,
 unpacked with ``git archive``): its K3, K10, K8, K1, K9, K2, K7, K5 and K6 are
@@ -23,8 +23,13 @@ also with the spread of their 15 timings, ``earlier_ms_range``; K2, K7, K5,
 K6 and K8 with ``earlier_bits_equal``, K5 also with
 ``earlier_max_abs_diff``; K6, K8 and K2's derived and row modes must equal
 the parent's bits; so must K3 and K10 at hidden 128 and 256, phase 2h).
-``--vp-train N`` runs only phase 11, N times over
-(each training's weights differ), and prints each run's step checks.
+With ``--parent`` K8's viewport batch (62 serving launches) and a d 512
+training step's 62 forward and 62 backward launches are also timed against
+the parent's in turns (parent, this, this, parent; ``earlier_check``, ratio
+within PARENT_MARGIN of 1).  ``--vp-train N`` runs only phase 11, N times
+over (each training's weights differ), and prints each run's step checks;
+``--limits`` runs only phase 2i and the vp_test_long, vp_train_long and
+vp_train_wide paths.
 
 Phases:
 
@@ -281,6 +286,30 @@ must give the same bits everywhere.  Phase 11's
 failure message names the gradient leaf past its limit and its worst
 entry, with the two paths' values there.
 
+Phase 2i holds K8 past its earlier limits of 2048 keys and 256 dims: the
+row kernel over 3073 and 5000 keys (decode at --fut-window 5000, B
+LIMIT_LONG_BATCH), the streamed tile kernel (rows ``attention_stream``,
+``attention_train_forward_stream``) at the --his-window 5000 encoder's
+5000 x 5000 (full and causal, B 2) and its teacher-forced cross-attention
+15 x 2500 (B LIMIT_LONG_BATCH), and the wide kernels (rows ``attention_wide``,
+``attention_train_forward_wide``, ``attention_backward_wide``) at heads of
+257, 320, 512, 1024 and 2048 dims (8 heads; 1 x 15, the causal 15 x 15 and
+96 x 96; B 512 at 512 dims, LIMIT_WIDE_BATCH at the others): serving,
+training with a keep mask at 0.1 and backward, f32 and bf16, against the
+plain versions at phase 2d's and 2f's tolerances, two launches bit-equal,
+each timed beside its bound, plain version and SDPA; the streamed kernel
+forced at 96 and 2048 keys gives the resident kernel's bits
+(``forced_stream``).  Three paths run past those limits at the MTIO's
+full width, each listing its reductions: vp_test_long (``run_models
+--test --his-window 5000``, one batch of LONG_TEST_BATCH timed, its first
+LONG_HELD samples held against the plain path, the metrics finite),
+vp_train_long (``--train --his-window 5000`` at --bs LONG_TRAIN_BATCH: the
+first step from Flax's initialisers by ``compare_vp_steps``, one step
+timed) and vp_train_wide (``--train --hidden-dim 4096``, bs 512: the same,
+then a validation batch through the serving kernels).  K8 counts these
+variants' launches in modes of their own (``f32_stream``, ``bf16_stream``,
+``f32_wide``, ``bf16_wide``), each in its row for both element types.
+
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
 """
@@ -389,7 +418,18 @@ DP_HIDDEN = 32          # phase 16: the dry run's policy width (JAX's dry run bu
 WIDTHS_2H = (32, 64, 100, 160, 384, 512, 1024)  # phase 2h: K3 and K10 at these widths (v9's layout)
 AV_WIDTHS_2H = (512, 1024)  # phase 2h: and with v16's 11 branches and a prior of 3.0
 PATH_WIDTHS = {"_h64": 64, "_h192": 160, "_wide": 512}  # the main case of each instance's rows
-PARENT_MARGIN = 0.05    # --parent: K3 and K10 at 128 and 256 within 5% of the parent's times
+PARENT_MARGIN = 0.05    # --parent: K3, K10 and K8 at the earlier shapes within 5% of the parent's
+LIMIT_REPS = 5          # phase 2i: CUDA-event timings a call (the long shapes take up to ~0.1 s)
+LIMIT_WIDE_DIMS = (257, 320, 512, 1024, 2048)  # phase 2i: the wide heads (d_model 2056 to 16384)
+LIMIT_WIDE_BATCH = 64   # phase 2i: the batch of the wide cases but 512 dims' (reduced from 512)
+LIMIT_LONG_BATCH = 64   # phase 2i: the batch past 2048 keys but the 5000 x 5000 encoder's (from
+#                         512: at 512 a decode over 5000 keys has dk and dv of 5.2 GB in f32,
+#                         and its checks' temporaries run the card out of memory)
+LONG_HIS = 5000         # vp_test_long, vp_train_long: --his-window at JAX's positional table's end
+LONG_TEST_BATCH = 64    # vp_test_long: --bs (reduced from 512: the encoder's q, k, v of 655 MB)
+LONG_TRAIN_BATCH = 4    # vp_train_long: --bs (reduced from 512: a keep mask of 512 x 8 x 5000^2 B)
+LONG_HELD = 4           # vp_test_long: samples held against the plain path (its 5000^2 scores)
+WIDE_HIDDEN = 4096      # vp_train_wide: --hidden-dim (8 heads of 512)
 DP_ROUNDS = 2           # phase 16c: run_mansy rounds a world (the first held, the last timed)
 DP_VP_BATCHES = 3       # phase 16d: run_models batches a world
 DP_TIMEOUT_S = 300      # phase 16: a rank's limit
@@ -465,6 +505,19 @@ KERNELS = {
                                     source=f"{PKG}/kernels/csrc/attention_backward.cu",
                                     replaces="mansy_immersivevideostreaming_tpu/models/"
                                              "vp_train.py:65"),
+    # K8 past 2048 keys and 256 dims: the streamed tile kernel (more than
+    # one query row where the resident score rows no longer fit) and the
+    # wide kernels (heads past 256 dims, in chunks of 256), each in f32 and
+    # bf16, with the launches of the --his-window 5000 and --hidden-dim 4096
+    # paths
+    **{f"attention{mode}": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
+                                replaces="mansy_immersivevideostreaming_tpu/models/"
+                                         "transformer.py:61")
+       for mode in ("_stream", "_train_forward_stream", "_wide", "_train_forward_wide")},
+    "attention_backward_wide": dict(route="cuda",
+                                    source=f"{PKG}/kernels/csrc/attention_backward.cu",
+                                    replaces="mansy_immersivevideostreaming_tpu/models/"
+                                             "vp_train.py:65"),
     # the simple_rl (A2C) modes: K2's simple mode, K3 and K10 on the
     # five-branch net without the cond branch, K9's A2C mode; each with the
     # launches of the simple_rl paths
@@ -502,7 +555,8 @@ KERNELS = {
 MODE_SUFFIX = {None: "", "cond64": "_h64", "cond128": "", "cond192": "_h192", "cond256": "_h256",
                "condwide": "_wide",
                **{f"simple{k}": "_simple" for k in (64, 128, 192, 256, "wide")}, "ce": "", "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16", "gather": "",
-               "derived": "_derived"}
+               "derived": "_derived", "f32_stream": "_stream", "bf16_stream": "_stream",
+               "f32_wide": "_wide", "bf16_wide": "_wide"}
 SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
@@ -2576,6 +2630,16 @@ def earlier_forward(earlier, current, args, label: str) -> dict:
     return dict(earlier_ms=gpu_ms(lambda: earlier(*args)), earlier_bits_equal=same)
 
 
+def parent_turns(this, that) -> dict:
+    """``this`` tree's call against the parent's, ``that``, timed in turns
+    (parent, this, this, parent) on the same inputs: the ratio of the two
+    sums, within PARENT_MARGIN of 1 or not (``within_margin``)."""
+    turns = [gpu_ms(that), gpu_ms(this), gpu_ms(this), gpu_ms(that)]
+    ratio = (turns[1] + turns[2]) / (turns[0] + turns[3])
+    return dict(turns_ms_parent_this_this_parent=turns, ratio=ratio,
+                within_margin=abs(ratio - 1) <= PARENT_MARGIN)
+
+
 def viewport_kernel_phase(dev, parent=None):
     """K8 at B = VP_BATCH in each of its shapes, against its plain version
     and SDPA's math backend, with its per-batch sums over the 62 launches of
@@ -2598,11 +2662,12 @@ def viewport_kernel_phase(dev, parent=None):
     shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
     shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal=(F + 1, F + 1, 1),
                   encoder_96=(96, 96, None), decode_256=(1, 256, None))
-    cases, err, sdpa_err = {}, 0.0, 0.0
+    cases, err, sdpa_err, inputs = {}, 0.0, 0.0, {}
     for name, (Lq, Lk, kv_len0) in shapes.items():
         q = torch.randn(B, Lq, H, Dh, device=dev, generator=gen)
         k = torch.randn(B, Lk, H, Dh, device=dev, generator=gen)
         v = torch.randn(B, Lk, H, Dh, device=dev, generator=gen)
+        inputs[name] = (q, k, v, kv_len0)
         got, ref = K8.attention(q, k, v, kv_len0), K8.attention_plain(q, k, v, kv_len0)
         seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
         mask = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
@@ -2642,6 +2707,11 @@ def viewport_kernel_phase(dev, parent=None):
     x = torch.randn(B, 1, H, Dh, device=dev, generator=gen)
     out = torch.empty_like(x)
     batch["timing_floor_ms"] = gpu_ms(lambda: torch.add(x, x, out=out))
+    if parent is not None:  # the whole batch's 62 launches against the parent's, in turns
+        mix_of = lambda fn: lambda: [fn(*inputs[name]) for name, n in mix.items()
+                                     for _ in range(n)]
+        batch["earlier_check"] = parent_turns(mix_of(K8.attention),
+                                              mix_of(parent.attention.attention))
     rows["attention"] = dict(max_abs_err=err, sdpa_math_max_abs_err=sdpa_err,
                              **{k: cases["decode_t14"][k] for k in (
                                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -2732,7 +2802,7 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
     shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
     shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal_tf=(F, F, 1),
                   cross_tf=(F, 3, None), encoder_96=(96, 96, None), decode_256=(1, 256, None))
-    fwd_cases, bwd_cases, fwd_err, bwd_err = {}, {}, 0.0, 0.0
+    fwd_cases, bwd_cases, fwd_err, bwd_err, inputs = {}, {}, 0.0, 0.0, {}
     for name, (Lq, Lk, kv_len0) in shapes.items():
         q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=gen) for L in (Lq, Lk, Lk))
         dout = torch.randn(B, Lq, H, Dh, device=dev, generator=gen)
@@ -2770,6 +2840,7 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
         qt, kt, vt = (x.transpose(1, 2).clone().requires_grad_() for x in (q, k, v))
         dout_t = dout.transpose(1, 2)
         fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
+        inputs[name] = (dout, q, k, v, fwd, kv_len0, keep)
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         common = dict(Lq=Lq, Lk=Lk, kv_len0=kv_len0)
         fwd_cases[name] = dict(
@@ -2826,6 +2897,23 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
                          shape=dict(B=B, H=H, Dh=Dh, Lq=1, Lk=F, t=F - 1, dropout=rate),
                          batch=dict(launches=mixes, timing_floor_ms=floor_ms, **sums),
                          bits_equal_on_two_launches=True, cases=cases)
+    if parent is not None:  # a d 512 training step's 62 launches of each, in turns
+        P8 = parent.attention
+
+        def step_of(fn):
+            return lambda: [fn(*inputs[name]) for name, n in mixes["step"].items()
+                            for _ in range(n)]
+
+        forward = lambda train_forward: step_of(
+            lambda dout, q, k, v, fwd, kv_len0, keep: train_forward(q, k, v, kv_len0, keep,
+                                                                    rate))
+        backward = lambda backward_fn: step_of(
+            lambda dout, q, k, v, fwd, kv_len0, keep: backward_fn(dout, q, k, v, *fwd, kv_len0,
+                                                                  keep, rate))
+        rows["attention_train_forward"]["batch"]["earlier_check"] = parent_turns(
+            forward(K8.attention_train_forward), forward(P8.attention_train_forward))
+        rows["attention_backward"]["batch"]["earlier_check"] = parent_turns(
+            backward(K8.attention_backward), backward(P8.attention_backward))
     return rows
 
 
@@ -2966,6 +3054,212 @@ def attention_bf16_phase(dev, floor_ms: float, parent=None) -> dict:
                                     **({"dropout": rate} if kind != "serve" else {})),
                          batch=dict(launches=row_mixes, timing_floor_ms=floor_ms, **sums),
                          bits_equal_on_two_launches=True, cases=cases[kind])
+    return rows
+
+
+# ---------------------------------------------------------------- phase 2i
+
+def library_ms(fn, reps: int):
+    """``gpu_ms`` of a PyTorch yardstick call, or None where PyTorch takes
+    no backend for the shape (nothing of the port calls it)."""
+    try:
+        return gpu_ms(fn, reps)
+    except RuntimeError:
+        return None
+
+
+def limit_row(kind: str, plan, Dh: int, dtype) -> str:
+    """The kernels-line row of a phase 2i case: the wrapper's row in the mode
+    its launch is counted in (``forward_mode``; the backward's ``_wide``
+    past 256 dims); the streamed and wide variants take both element types
+    in one row (MODE_SUFFIX)."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    base = {"serve": "attention", "train": "attention_train_forward",
+            "backward": "attention_backward"}[kind]
+    suffix = (K8.forward_mode(plan, Dh) if kind != "backward"
+              else ("_wide" if Dh > K8.CHUNK_DIMS else ""))
+    return base + (suffix or ("_bf16" if dtype == torch.bfloat16 else ""))
+
+
+def attention_limits_phase(dev, floor_ms: float) -> dict:
+    """K8 past its earlier limits of 2048 keys and 256 dims (phase 2i): the
+    row kernel over 3073 and 5000 keys (decode at --fut-window 5000), the
+    streamed tile kernel at --his-window 5000 (the encoder's 5000 x 5000,
+    full and causal, B 2; the teacher-forced cross-attention 15 x 2500),
+    both at LIMIT_LONG_BATCH but the encoder's, and the wide kernels at heads of 257, 320, 512, 1024 and 2048
+    dims (8 heads; a decode step 1 x 15, the teacher-forced causal 15 x 15,
+    an encoder's 96 x 96; B 512 at 512 dims, the --hidden-dim 4096 path's,
+    LIMIT_WIDE_BATCH at the others): serving, training mode with a keep mask
+    at 0.1 and backward, in f32 and bf16, each against its plain version
+    at phase 2d's training tolerance (f32) or phase 2f's ulp and slack
+    (bf16), two launches bit-equal; each timed (LIMIT_REPS calls) beside
+    its bound, its plain version and SDPA (``library_ms``).  The streamed
+    kernel forced at 96 and 2048 keys gives the resident kernel's bits
+    (``forced_stream``).  Returns the five new rows and, for the rows of
+    the row kernel and the narrow backward, ``cases_past_limits``."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    H, rate, reps = 8, 0.1, LIMIT_REPS
+    shapes = {"decode_3073": (LIMIT_LONG_BATCH, 1, 3073, None, 64),
+              "decode_5000": (LIMIT_LONG_BATCH, 1, 5000, None, 64),
+              "encoder_5000": (2, 5000, 5000, None, 64), "causal_5000": (2, 5000, 5000, 1, 64),
+              "cross_tf_2500": (LIMIT_LONG_BATCH, 15, 2500, None, 64)}
+    for Dh in LIMIT_WIDE_DIMS:
+        B = VP_BATCH if Dh == 512 else LIMIT_WIDE_BATCH
+        shapes.update({f"decode_dh{Dh}": (B, 1, 15, None, Dh),
+                       f"causal_tf_dh{Dh}": (B, 15, 15, 1, Dh),
+                       f"encoder_96_dh{Dh}": (B, 96, 96, None, Dh)})
+    cases, errs = {}, {}
+
+    def record(row, label, err, fields):
+        cases.setdefault(row, {})[label] = dict(max_abs_err=err, **fields)
+        errs[row] = max(errs.get(row, 0.0), err)
+
+    for name, (B, Lq, Lk, kv_len0, Dh) in shapes.items():
+        plan = K8.attention_forward_plan(B, Lq, Lk, H, Dh)
+        bplan = K8.attention_backward_plan(B, Lq, Lk, H, Dh)
+        seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
+        allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            bf16 = dtype == torch.bfloat16
+            elem, rate_ops = (2, BF16_FLOP_PER_S) if bf16 else (4, F32_FLOP_PER_S)
+            q, k, v, dout = (torch.randn(B, L, H, Dh, device=dev, generator=gen).to(dtype)
+                             for L in (Lq, Lk, Lk, Lq))
+            keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(
+                torch.uint8)
+            label = f"{name}_{tag}"
+            slack = K8.bf16_slack(q, k, v, dout, kv_len0, keep, rate) if bf16 else None
+
+            def agree(got, want, sl, what):
+                if bf16:
+                    excess = K8.bf16_excess(got, want, sl)
+                    ok = excess <= 1
+                else:
+                    ok = training_close(got, want, float(want.abs().max()))
+                if not ok:
+                    raise AssertionError(f"attention {what} ({label}) disagrees with its plain "
+                                         f"version")
+                return float((got.float() - want.float()).abs().max())
+
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # serving
+            got = K8.attention(q, k, v, kv_len0)
+            err = agree(got, K8.attention_plain(q, k, v, kv_len0),
+                        K8.bf16_slack(q, k, v, dout, kv_len0)[0] if bf16 else None, "serving")
+            if not torch.equal(got, K8.attention(q, k, v, kv_len0)):
+                raise AssertionError(f"attention ({label}): two launches differ")
+            record(limit_row("serve", plan, Dh, dtype), label, err, dict(
+                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=Dh, dtype=tag, plan=plan._asdict(),
+                ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0), reps),
+                plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0), reps),
+                library_ms=library_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed), reps),
+                **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem), rate_ops)))
+            del got
+            # training mode
+            fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
+            ref = K8.attention_train_forward_plain(q, k, v, kv_len0, keep, rate)
+            err = agree(fwd[0], ref[0], slack[0] if bf16 else None, "training")
+            for a, b in zip(fwd[1:], ref[1:]):
+                if not training_close(a, b, float(b.abs().max())):
+                    raise AssertionError(f"attention training ({label}): row statistics differ")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    fwd, K8.attention_train_forward(q, k, v, kv_len0, keep, rate))):
+                raise AssertionError(f"attention training ({label}): two launches differ")
+            del ref
+            record(limit_row("train", plan, Dh, dtype), label, err, dict(
+                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=Dh, dtype=tag, dropout=rate,
+                plan=plan._asdict(),
+                ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate), reps),
+                plain_ms=gpu_ms(lambda: K8.attention_train_forward_plain(q, k, v, kv_len0, keep,
+                                                                         rate), reps),
+                library_ms=library_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed), reps),
+                **bound(*attention_train_cost(B, Lq, Lk, H, Dh, kv_len0, True, elem), rate_ops)))
+            # backward
+            leaves_ = [x.clone().requires_grad_() for x in (q, k, v)]
+            want = torch.autograd.grad(K8.attention_plain(*leaves_, kv_len0, keep, rate),
+                                       leaves_, dout)
+            grads = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
+            scale = max(float(w.abs().max()) for w in want)
+            err = 0.0
+            for g, w, sl in zip(grads, want, slack[1:] if bf16 else (None,) * 3):
+                if bf16:
+                    err = max(err, agree(g, w, sl, "backward"))
+                elif not training_close(g, w, scale):
+                    raise AssertionError(f"attention_backward ({label}) disagrees with the plain "
+                                         f"version's autograd")
+                else:
+                    err = max(err, float((g - w).abs().max()))
+            if not all(torch.equal(a, b) for a, b in zip(grads, K8.attention_backward(
+                    dout, q, k, v, *fwd, kv_len0, keep, rate))):
+                raise AssertionError(f"attention_backward ({label}): two launches differ")
+            del want, grads, slack
+            qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+            dout_t = dout.transpose(1, 2)
+            record(limit_row("backward", plan, Dh, dtype), label, err, dict(
+                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=Dh, dtype=tag, dropout=rate,
+                plan=bplan._asdict(),
+                ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate),
+                          reps),
+                plain_ms=gpu_ms(lambda: K8.attention_backward_plain(dout, q, k, v, *fwd, kv_len0,
+                                                                    keep, rate), reps),
+                library_ms=library_ms(lambda: torch.autograd.grad(
+                    sdpa(qg, kg, vg, attn_mask=allowed), (qg, kg, vg), dout_t), reps),
+                **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True, elem),
+                        rate_ops)))
+            del q, k, v, dout, keep, fwd, leaves_, qg, kg, vg
+        torch.cuda.empty_cache()
+        log(f"phase 2i: {name} checked and timed (the card's peak so far "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB)")
+
+    # the streamed kernel where the resident one runs: the same bits
+    forced = {}
+    for name, (B, Lq, Lk, kv_len0) in (("encoder_96", (VP_BATCH, 96, 96, None)),
+                                       ("rows_33_keys_2048", (8, 33, 2048, 7))):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = (torch.randn(B, L, H, 64, device=dev, generator=gen).to(dtype)
+                       for L in (Lq, Lk, Lk))
+            keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(
+                torch.uint8)
+            streamed_o = torch.empty_like(q)
+            serve_stream = lambda: K8._launch_forward(q, k, v, kv_len0, streamed_o, False,
+                                                      stream=True)
+            serve_stream()
+            same = torch.equal(streamed_o, K8.attention(q, k, v, kv_len0)) and all(
+                torch.equal(a, b) for a, b in zip(
+                    K8.attention_train_forward(q, k, v, kv_len0, keep, rate),
+                    K8.attention_train_forward(q, k, v, kv_len0, keep, rate, stream=True)))
+            if not same:
+                raise AssertionError(f"attention ({name}, {tag}): the streamed kernel's bits "
+                                     f"differ from the resident kernel's")
+            forced[f"{name}_{tag}"] = dict(
+                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=64, bits_equal=True,
+                resident_plan=K8.attention_forward_plan(B, Lq, Lk, H, 64)._asdict(),
+                resident_ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0), reps),
+                streamed_ms=gpu_ms(serve_stream, reps),
+                train_resident_ms=gpu_ms(lambda: K8.attention_train_forward(
+                    q, k, v, kv_len0, keep, rate), reps),
+                train_streamed_ms=gpu_ms(lambda: K8.attention_train_forward(
+                    q, k, v, kv_len0, keep, rate, stream=True), reps))
+
+    rows = {}
+    mains = {"attention_stream": "encoder_5000_f32",
+             "attention_train_forward_stream": "encoder_5000_f32",
+             **{row: "decode_dh512_f32" for row in ("attention_wide",
+                                                    "attention_train_forward_wide",
+                                                    "attention_backward_wide")}}
+    for row, main in mains.items():
+        m = cases[row][main]
+        rows[row] = dict(max_abs_err=errs[row],
+                         **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")},
+                         main_case=main, timing_floor_ms=floor_ms,
+                         bits_equal_on_two_launches=True, cases=cases[row])
+    rows["attention_stream"]["forced_stream"] = forced
+    for row in set(cases) - set(mains):  # the row kernel and the narrow backward, past 2048 keys
+        rows[row] = dict(cases_past_limits=cases[row], max_abs_err_past_limits=errs[row])
     return rows
 
 
@@ -3589,10 +3883,147 @@ def vp_train_phase(dev, counters, bf16: bool = False):
     return result
 
 
+def vp_test_long_phase(dev, counters):
+    """``run_models --test --his-window 5000 --trim-head 5000`` (every history
+    inside its trace) over one batch of LONG_TEST_BATCH windows (reduced from
+    512), one a seeded synthetic trace, with seeded full-width MTIO weights:
+    the encoder's attention is 5000 x 5000 (K8's streamed kernel), the
+    decode's cross-attention sees the distilled 2500 (the row kernel).  The
+    batch is timed once after a warm-up; its first LONG_HELD samples are held
+    against the plain path (K8 swapped for its plain version) at VP_ATOL; the
+    metrics must be finite."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.config import default_config
+    from mansy_immersivevideostreaming_torch.data.viewport import build_windowed_dataset
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    from mansy_immersivevideostreaming_torch.models import transformer
+    from mansy_immersivevideostreaming_torch.utils.results import Results
+
+    config = default_config()
+    args = run_models.build_parser().parse_args(
+        ["--test", "--seed", str(VP_SEED), "--his-window", str(LONG_HIS), "--trim-head",
+         str(LONG_HIS), "--bs", str(LONG_TEST_BATCH)])
+    length = args.his_window + 1 + args.fut_window  # one window a trace, at t = --trim-head
+    pairs = (4, LONG_TEST_BATCH // 4)
+    ds = build_windowed_dataset(
+        config, "Jin2022", list(range(pairs[0])), list(range(pairs[1])), args.his_window,
+        args.fut_window, args.trim_head, config.trim_tail, config.sample_step, config.frequency,
+        packed=(synthetic_traces(LONG_TEST_BATCH, length, 30),
+                np.full(LONG_TEST_BATCH, length, np.int32)))
+    if len(ds) != LONG_TEST_BATCH:
+        raise AssertionError(f"vp_test_long: {len(ds)} windows")
+    model = seeded_mtio(dev, VP_SEED)
+    sample_fn = run_models.make_sample_fn(args, model)
+    notebook = Results("mtio", fut_window=args.fut_window, output_dir="unused",
+                       dataset_frequency=config.frequency)
+
+    def run():
+        notebook.reset()
+        return run_models.test_split(sample_fn, ds, args.bs, notebook, dev)
+
+    run()  # warm-up
+    n, seconds, launches = timed_passes(
+        run, counters, expect(counters, attention=attention_launches(args),
+                              trajectory_metrics=1), 1)
+    pred, metrics = stack_rows(notebook._rows)
+    if not (np.isfinite(pred).all() and np.isfinite(metrics).all()):
+        raise AssertionError("vp_test_long: non-finite predictions or metrics")
+    h, c, *_ = ds.gather(np.arange(LONG_HELD))
+    with mock.patch.object(transformer, "attention", K8.attention_plain):
+        plain = sample_fn(*(torch.as_tensor(x, device=dev) for x in (h, c))).cpu().numpy()
+    err = float(np.abs(pred[:LONG_HELD] - plain).max())
+    if not err <= VP_ATOL:
+        raise AssertionError(f"vp_test_long: the first {LONG_HELD} predictions differ from the "
+                             f"plain path's by {err} > {VP_ATOL}")
+    return dict(trajectories=n, batches=1, steps=1, batch=args.bs, his_window=args.his_window,
+                encoder_attention=[args.his_window] * 2,
+                cross_attention_keys=-(-args.his_window // 2),
+                reduced=dict(bs=f"{LONG_TEST_BATCH} (from {VP_BATCH}): the encoder's q, k and v "
+                                f"at 512 would be 655 MB each, the plain check's scores 26 GB",
+                             held_against_plain=f"the first {LONG_HELD} samples"),
+                seconds=seconds[0], trajectories_per_s=n / seconds[0],
+                pred_max_abs_err_held=err, mean_accuracy=notebook.mean_accuracy(),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+
+
+def vp_train_long_phase(dev, counters):
+    """``run_models --train --his-window 5000`` at --bs LONG_TRAIN_BATCH
+    (reduced from 512: the encoder's keep mask alone would be 512 x 8 x
+    5000^2 bytes, 102 GB): the first step from Flax's initialisers through
+    the kernels against the plain path (``compare_vp_steps``; the encoder's
+    training forward on K8's streamed kernel, its backward on the tile
+    kernel over 5000 keys), then one step timed after a warm-up."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+
+    args = run_models.build_parser().parse_args(
+        ["--train", "--seed", str(VP_SEED), "--his-window", str(LONG_HIS), "--bs",
+         str(LONG_TRAIN_BATCH)])
+    result, _ = vp_train_step_path(dev, counters, args, 43, dict(
+        bs=f"{LONG_TRAIN_BATCH} (from {VP_BATCH}): the encoder's keep mask at 512 would be "
+           f"512 x 8 x 5000^2 bytes, 102 GB"))
+    return dict(result, encoder_attention=[args.his_window] * 2,
+                cross_attention_keys=-(-args.his_window // 2))
+
+
+def vp_train_wide_phase(dev, counters):
+    """``run_models --train --hidden-dim 4096`` (8 heads of 512: K8's wide
+    kernels) at bs 512: the first step from Flax's initialisers against the
+    plain path (``compare_vp_steps``), one step timed after a warm-up, then
+    a validation batch (``valid_step``: the serving kernels) whose MSE must
+    be finite."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.models import vp_train as TV
+
+    args = run_models.build_parser().parse_args(
+        ["--train", "--seed", str(VP_SEED), "--hidden-dim", str(WIDE_HIDDEN)])
+    result, model = vp_train_step_path(dev, counters, args, 44, {})
+    valid = vp_train_data(args, args.bs, 45, dev)
+    mse, _, valid_launches = timed_passes(
+        lambda: float(TV.valid_step(model, valid)), counters,
+        expect(counters, attention=attention_launches(args)), 1)
+    if not math.isfinite(mse):
+        raise AssertionError(f"vp_train_wide: non-finite validation MSE {mse}")
+    for row, n in valid_launches.items():
+        result["launches"][row] = result["launches"].get(row, 0) + n
+    return dict(result, valid_mse=mse, valid_launches=valid_launches)
+
+
+def vp_train_step_path(dev, counters, args, seed: int, reduced: dict):
+    """One ``run_models --train`` configuration's first step from Flax's
+    initialisers held against the plain path (``compare_vp_steps``), then a
+    step timed after a warm-up; the loss must be finite.  Returns (the
+    path's result, the trained model)."""
+    from mansy_immersivevideostreaming_torch.cli import run_models
+    from mansy_immersivevideostreaming_torch.models import vp_train as TV
+
+    model = run_models.build_model(args, dev).init_like_flax(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    opt = TV.make_optimizer(args.lr, 0.01 if args.weight_decay is None else args.weight_decay)
+    batch = vp_train_data(args, args.bs, seed, dev)
+    check = compare_vp_steps(model, opt, batch, args.seed)
+    state = TV.create_train_state(model)
+    step = lambda: TV.train_step(model, opt, state, batch, args.seed)
+    step()  # warm-up
+    per_step = attention_launches(args)
+    (_, loss), seconds, launches = timed_passes(
+        step, counters, expect(counters, attention_train_forward=per_step,
+                               attention_backward=per_step), 1)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{args.his_window} / {args.hidden_dim}: non-finite loss")
+    return dict(steps=1, batch=args.bs, his_window=args.his_window, hidden_dim=args.hidden_dim,
+                heads=[8, args.hidden_dim // 8], reduced=reduced, step_seconds=seconds[0],
+                samples_per_s=args.bs / seconds[0], loss=float(loss), kernels_vs_plain=check,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches), model
+
+
 # K8's kernels by the names the profiler gives them: the forward's row and
 # tile kernels, the backward's delta, row and tile kernels
-K8_KERNEL_NAMES = {"forward_row": "attention_kernel<", "forward_tile": "attention_tile_kernel<",
-                   "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<")}
+K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kernel<"),
+                   "forward_tile": ("attention_tile_kernel<", "attention_stream_kernel<"),
+                   "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<",
+                                "delta_wide_kernel<", "backward_row_wide_kernel<",
+                                "backward_tile_wide_kernel<")}
 
 
 def attention_kernel_ms(run) -> dict:
@@ -4808,6 +5239,10 @@ def main() -> int:
                              "run's step checks (kernels_vs_plain) as a JSON line")
     parser.add_argument("--data-parallel", action="store_true",
                         help="run only phase 16 (data_parallel) and print its JSON line")
+    parser.add_argument("--limits", action="store_true",
+                        help="run only phase 2i (K8 past 2048 keys and 256 dims) and the "
+                             "vp_test_long, vp_train_long and vp_train_wide paths, and print "
+                             "their JSON lines")
     parser.add_argument("--dp-worker", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--dp-out", help=argparse.SUPPRESS)
     opts = parser.parse_args()
@@ -4855,6 +5290,19 @@ def main() -> int:
         print(json.dumps({"data_parallel": result, "card": card,
                           "seconds": time.time() - t0}))
         return 0
+    if opts.limits:  # phase 2i and the paths past K8's earlier limits
+        from mansy_immersivevideostreaming_torch.kernels import build
+        build.build()
+        t0 = time.time()
+        rows = attention_limits_phase(dev, 0.0)
+        print(json.dumps({"phase_2i": rows, "card": card, "seconds": time.time() - t0}))
+        for name, run in (("vp_test_long", vp_test_long_phase),
+                          ("vp_train_long", vp_train_long_phase),
+                          ("vp_train_wide", vp_train_wide_phase)):
+            t0 = time.time()
+            result = run(dev, counters)
+            print(json.dumps({name: result, "card": card, "seconds": time.time() - t0}))
+        return 0
     if opts.vp_train:  # phase 11's step checks over trainings whose weights differ
         for run in range(opts.vp_train):
             result = vp_train_phase(dev, counters)
@@ -4877,6 +5325,11 @@ def main() -> int:
     rows.update(derived_kernel_phase(dev, parent))
     for name, fields in widths_kernel_phase(dev, parent).items():
         rows.setdefault(name, {}).update(fields)
+    t2i = time.time()
+    for name, fields in attention_limits_phase(
+            dev, rows["attention"]["batch"]["timing_floor_ms"]).items():
+        rows.setdefault(name, {}).update(fields)
+    log(f"phase 2i (K8 past its earlier limits) in {time.time() - t2i:.1f}s")
     log(f"kernels checked in {time.time() - t0:.1f}s")
     paths, trained = {}, {}
     for name, run in (("serve", lambda: serve_phase(dev, counters)),
@@ -4900,6 +5353,9 @@ def main() -> int:
                       ("vp_train", lambda: vp_train_phase(dev, counters)),
                       ("vp_test_bf16", lambda: vp_test_phase(dev, counters, bf16=True)),
                       ("vp_train_bf16", lambda: vp_train_phase(dev, counters, bf16=True)),
+                      ("vp_test_long", lambda: vp_test_long_phase(dev, counters)),
+                      ("vp_train_long", lambda: vp_train_long_phase(dev, counters)),
+                      ("vp_train_wide", lambda: vp_train_wide_phase(dev, counters)),
                       ("simple_rl", lambda: simple_rl_phase(dev, counters, trained)),
                       ("simple_rl_test", lambda: simple_rl_test_phase(dev, counters, trained)),
                       ("ensemble", lambda: ensemble_phase(dev, counters)),
@@ -4907,6 +5363,7 @@ def main() -> int:
                       ("data_parallel", lambda: data_parallel_phase(dev))):
         t0 = time.time()
         paths[name] = run()
+        paths[name]["phase_seconds"] = time.time() - t0
         log(f"{name} ({time.time() - t0:.1f}s): {json.dumps(paths[name])}")
     for tmp in trained.pop("dirs", []):
         tmp.cleanup()
@@ -4946,6 +5403,11 @@ def main() -> int:
                     "vp_train": ("attention_train_forward", "attention_backward"),
                     "vp_test_bf16": ("attention_bf16", "tile_occupancy"),
                     "vp_train_bf16": ("attention_train_forward_bf16", "attention_backward_bf16"),
+                    "vp_test_long": ("attention", "attention_stream", "tile_occupancy"),
+                    "vp_train_long": ("attention_train_forward", "attention_train_forward_stream",
+                                      "attention_backward"),
+                    "vp_train_wide": ("attention_train_forward_wide", "attention_backward_wide",
+                                      "attention_wide"),
                     "simple_rl": simple + ("compute_gae", "actor_critic_train_forward_simple",
                                            "policy_loss_a2c", "actor_critic_backward_simple"),
                     "simple_rl_test": simple,

@@ -14,14 +14,24 @@ mask is given as ``kv_len0``: query row r sees keys
 
 On the H100 the core is bound by the k and v bytes; ``csrc/attention.cu``
 runs a serving mode and a training mode that also writes each row's max
-and exp sum and applies a dropout keep mask, each as one of two kernels
-(:func:`attention_forward_plan`): one warp a (b, query row, head) for one
-query row, else a CTA a (b, head, row tile) that stages the k and v rows in
-shared memory once and takes each warp's rows' scores by a reduce-scatter
-(the butterfly's sums), bit for bit the one-row kernel's arithmetic.  ``csrc/attention_backward.cu``
-recomputes P from those statistics, bit for bit, at any number of query
-rows and keys: a warp a (b, head) for one query row, else a CTA a (b, head)
-over tiles of keys and rows (:func:`attention_backward_plan`).
+and exp sum and applies a dropout keep mask, each as one of the kernels of
+:func:`attention_forward_plan`: one warp a (b, query row, head) for one
+query row (its scores in shared memory: up to MAX_LK keys), else a CTA a
+(b, head, row tile) that stages the k and v rows in shared memory once and
+takes each warp's rows' scores by a reduce-scatter (the butterfly's sums),
+bit for bit the one-row kernel's arithmetic, keeping each row's scores in
+shared memory; where those rows no longer fit (past about 2490 keys) the
+streamed variant recomputes the scores a key tile at a time in three passes
+(max, exp sum, P . v), the same operations in the same order, so the same
+bits.  Heads past 256 dims (``--hidden-dim`` past 2048) take wide variants
+of the row and streamed kernels: the head in chunks of 256 dims, 8 a lane,
+a score's per-lane partial carried across the chunks before the butterfly.
+``csrc/attention_backward.cu`` recomputes P from those statistics, bit for
+bit, at any number of query rows and keys: a warp a (b, head) for one query
+row, else a CTA a (b, head) over tiles of keys and rows, and past 256 dims
+the same two layouts over the chunks (:func:`attention_backward_plan`).
+Every launch is counted by element type and variant (``launches_by_mode``:
+``f32``, ``bf16``, with ``_stream`` or ``_wide`` for those variants).
 :func:`attention` picks the path: the plain version for CPU tensors, the
 training forward and the backward kernel (:class:`_AttentionFunction`) when
 autograd needs a gradient, else the serving kernel.  The projections, the
@@ -50,11 +60,15 @@ import torch
 
 from mansy_immersivevideostreaming_torch.kernels import build, count_launch
 
-MAX_DH = 256    # head width the kernels hold in registers (8 values a lane)
-MAX_LK = 2048   # keys a row's scores hold in shared memory (forward)
+CHUNK_DIMS = 256  # dims a lane holds at most 8 of; wider heads run in chunks of these
+ROW_WARPS = 4      # the forward's row kernels: warps (query rows) a CTA
 MAX_ROW_TILE = 32  # the tile kernels (forward and backward): query rows a row tile
-FORWARD_GROUP = 4  # the forward's tile kernel: rows a warp takes at once
+FORWARD_GROUP = 4  # the forward's tile kernels: rows a warp takes at once
+STREAM_ROWS = 16   # the resident tile kernel's least row tile before the streamed one
+WIDE_KEYS = 8      # the wide backward kernels (and the wide streamed forward): keys a tile
+WIDE_ROWS = 8      # the wide backward tile kernel: rows a row tile (a warp a row)
 SMEM_BYTES = 232448  # the H100's shared memory a block (227 KB)
+MAX_LK = SMEM_BYTES // (4 * ROW_WARPS)  # 14528: keys of one query row's f32 scores, 4 a CTA
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types, by their code
 MODES = ("f32", "bf16")  # the launch-count mode of each element type (``launches_by_mode``)
 
@@ -205,7 +219,7 @@ class _AttentionArgs(ctypes.Structure):
                 + [("scale", ctypes.c_float), ("keep", ctypes.c_void_p),
                    ("keep_prob", ctypes.c_float), ("row_max", ctypes.c_void_p),
                    ("row_sum", ctypes.c_void_p)]
-                + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "group")])
+                + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "group", "stream")])
 
 
 class _AttentionBackwardArgs(ctypes.Structure):
@@ -215,14 +229,16 @@ class _AttentionBackwardArgs(ctypes.Structure):
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
                 + [("scale", ctypes.c_float), ("keep_prob", ctypes.c_float)]
                 + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "warps")]
-                + [(f, ctypes.c_void_p) for f in ("delta", "dq_acc")])
+                + [(f, ctypes.c_void_p) for f in ("delta", "dq_acc", "dkv_acc")])
 
 
 class BackwardPlan(NamedTuple):
     """The backward's launch (``csrc/attention_backward.cu``): ``kernel`` is
     "row" (one query row: a warp a (b, head), ``threads // 32`` a CTA) or
     "tile" (a CTA a (b, head) over key tiles of ``keys`` keys and row tiles
-    of ``rows`` rows); a lane holds ``per_lane`` dims of a row."""
+    of ``rows`` rows); a lane holds ``per_lane`` dims of a row.  Past 256
+    dims, "row_wide" and "tile_wide": the same layouts over chunks of 256
+    dims (8 a lane), ``keys`` = WIDE_KEYS."""
     kernel: str
     per_lane: int
     keys: int
@@ -243,17 +259,31 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> Backwa
     for the row kernel (a warp's k rows of a tile fill at most 32 registers
     a lane) and up to 16 (8 at 8 dims a lane) for the tile kernel, whose
     warps reduce a row's scores and dP' together.  The tile kernel's row
-    tiles take up to MAX_ROW_TILE rows, a CTA 8 warps (4 for up to 128
-    scores a row tile), and its shared memory holds the k and v tiles, the
-    q, dO and o rows (zero-padded to 32 dims a lane), and a row tile's P',
-    dS, row max, exp sum and keep bytes."""
+    tiles take as many rows, up to MAX_ROW_TILE, as its shared memory holds
+    within 227 KB (at most 115 KB at 32 rows, so always MAX_ROW_TILE), a
+    CTA 8 warps (4 for up to 128 scores a row tile), and its shared memory
+    holds the k and v tiles, the q, dO and o rows (zero-padded to 32 dims a
+    lane), and a row tile's P', dS, row max, exp sum and keep bytes.  Past
+    CHUNK_DIMS dims a lane holds 8 dims of each chunk of 256: one query row
+    takes the wide row kernel (a warp a (b, head)), more the wide tile
+    kernel (8 warps a (b, head), a warp a row, row tiles of WIDE_ROWS rows,
+    k, v, q, dO and o staged a chunk at a time), key tiles of WIDE_KEYS."""
+    if Dh > CHUNK_DIMS:
+        if Lq == 1:
+            return BackwardPlan("row_wide", 8, WIDE_KEYS, 1, 256, -(-B * H // 8), 0)
+        rows = min(Lq, WIDE_ROWS)
+        smem = 4 * (2 * WIDE_KEYS * CHUNK_DIMS + 3 * rows * CHUNK_DIMS + 2 * rows * WIDE_KEYS
+                    + 2 * rows) + rows * WIDE_KEYS
+        return BackwardPlan("tile_wide", 8, WIDE_KEYS, rows, 32 * WIDE_ROWS, B * H, smem)
     per_lane = _pow2_at_least(math.ceil(Dh / 32))
     keys = max(4, _pow2_at_least(min(Lk, 32)))
     if Lq == 1:
         return BackwardPlan("row", per_lane, min(keys, 32 // per_lane), 1, 256, -(-B * H // 8),
                             0)
-    keys, rows = min(keys, 16, 64 // per_lane), min(Lq, MAX_ROW_TILE)
+    keys = min(keys, 16, 64 // per_lane)
     width = 32 * per_lane
+    per_row = 4 * (3 * width + 2 * keys + 2) + keys
+    rows = min(Lq, MAX_ROW_TILE, (SMEM_BYTES - 4 * 2 * keys * width) // per_row)
     smem = 4 * (2 * keys * width + 3 * rows * width + 2 * rows * keys + 2 * rows) + rows * keys
     warps = 4 if rows * keys <= 128 else 8  # the faster of the two on the H100's shapes
     return BackwardPlan("tile", per_lane, keys, rows, 32 * warps, B * H, smem)
@@ -263,9 +293,13 @@ class ForwardPlan(NamedTuple):
     """The serving and training kernels' launch (``csrc/attention.cu``):
     ``kernel`` is "row" (one query row: a warp a (b, row, head), four a CTA,
     the row's ``keys`` scores in shared memory; a lane holds up to
-    ``per_lane`` = 8 dims) or "tile" (a CTA a (b, head, row tile of ``rows``
-    rows), k and v staged in key tiles of ``keys`` keys, a warp taking
-    ``group`` rows at once; a lane holds ``per_lane`` dims of a row)."""
+    ``per_lane`` = 8 dims), "row_wide" (the same past 256 dims, a head in
+    chunks of 256), "tile" (a CTA a (b, head, row tile of ``rows`` rows), k
+    and v staged in key tiles of ``keys`` keys, a warp taking ``group`` rows
+    at once, each row's scores resident in shared memory; a lane holds
+    ``per_lane`` dims of a row) or "stream" (the tile kernel's layout with
+    the scores recomputed a key tile at a time, in three passes, past 256
+    dims 2 + the chunks)."""
     kernel: str
     per_lane: int
     keys: int
@@ -282,27 +316,50 @@ def score_stride(Lk: int) -> int:
     return -(-Lk // 32) * 32 + 8
 
 
-def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> ForwardPlan:
+def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
+                           stream: bool = False) -> ForwardPlan:
     """The forward's plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  One
     query row takes the row kernel (4 warps a CTA, Lk floats of scores a
-    warp).  More take the tile kernel: a lane holds the next power of two of
-    ceil(Dh / 32) dims (1 to 8); a key tile holds Lk rounded up to 8 keys,
-    at most 256 / dims a lane (its k rows, later its v rows, in one buffer
-    of at most 32 KB as f32); a row tile up to MAX_ROW_TILE rows, a multiple of
-    FORWARD_GROUP where the score buffer (rows x :func:`score_stride`
-    floats) and the rows' keep bytes must shrink to keep shared memory
-    within the H100's 227 KB (16 rows at 2048 keys); a warp a group of 4
-    rows."""
+    warp; past 256 dims its wide variant).  More take the tile kernel: a
+    lane holds the next power of two of ceil(Dh / 32) dims (1 to 8); a key
+    tile holds Lk rounded up to 8 keys, at most 256 / dims a lane (its k
+    rows, later its v rows, in one buffer of at most 32 KB as f32); a row
+    tile up to MAX_ROW_TILE rows, a multiple of FORWARD_GROUP where the score
+    buffer (rows x :func:`score_stride` floats) and the rows' keep bytes
+    must shrink to keep shared memory within the H100's 227 KB (16 rows at
+    2048 keys); a warp a group of 4 rows.  Where that leaves fewer than
+    min(Lq, STREAM_ROWS) rows (past about 2490 keys), past 256 dims, or
+    with ``stream``, the streamed kernel: row tiles of up to MAX_ROW_TILE
+    rows, key tiles as the tile kernel's (WIDE_KEYS past 256 dims, 8 dims a
+    lane of each chunk), shared memory for a key tile's k and v rows and
+    the tile's scores of the row tile's rows, whatever Lk."""
     if Lq <= 1:
-        return ForwardPlan("row", 8, Lk, 1, 1, 128, -(-B * Lq * H // 4), 16 * Lk)
-    per_lane = _pow2_at_least(math.ceil(Dh / 32))
-    keys = min(-(-Lk // 8) * 8, 256 // per_lane)
+        return ForwardPlan("row" if Dh <= CHUNK_DIMS else "row_wide", 8, Lk, 1, 1,
+                           32 * ROW_WARPS, -(-B * Lq * H // ROW_WARPS), 4 * ROW_WARPS * Lk)
+    wide = Dh > CHUNK_DIMS
+    per_lane = 8 if wide else _pow2_at_least(math.ceil(Dh / 32))
+    keys = WIDE_KEYS if wide else min(-(-Lk // 8) * 8, 256 // per_lane)
     staged = 4 * keys * 32 * per_lane
-    fit = (SMEM_BYTES - staged - 15) // (4 * score_stride(Lk) + Lk)
-    rows = min(Lq, MAX_ROW_TILE, fit - fit % FORWARD_GROUP)
-    return ForwardPlan("tile", per_lane, keys, rows, FORWARD_GROUP,
+    if not (wide or stream):
+        fit = (SMEM_BYTES - staged - 15) // (4 * score_stride(Lk) + Lk)
+        rows = min(Lq, MAX_ROW_TILE, fit - fit % FORWARD_GROUP)
+        if rows >= min(Lq, STREAM_ROWS):
+            return ForwardPlan("tile", per_lane, keys, rows, FORWARD_GROUP,
+                               32 * -(-rows // FORWARD_GROUP), B * H * -(-Lq // rows),
+                               staged + 4 * rows * score_stride(Lk) + -(-rows * Lk // 16) * 16)
+    rows = min(Lq, MAX_ROW_TILE)
+    return ForwardPlan("stream", per_lane, keys, rows, FORWARD_GROUP,
                        32 * -(-rows // FORWARD_GROUP), B * H * -(-Lq // rows),
-                       staged + 4 * rows * score_stride(Lk) + -(-rows * Lk // 16) * 16)
+                       2 * staged + 4 * rows * keys)
+
+
+def forward_mode(plan: ForwardPlan, Dh: int) -> str:
+    """The launch-count mode suffix of a forward plan's kernel: "" for the
+    row and tile kernels, "_stream" for the streamed kernel at up to 256
+    dims, "_wide" past them (the wide row and streamed kernels)."""
+    if Dh > CHUNK_DIMS:
+        return "_wide"
+    return "_stream" if plan.kernel == "stream" else ""
 
 
 @functools.lru_cache(maxsize=None)
@@ -342,45 +399,53 @@ def _check_qkv(q, k, v, kv_len0, keep):
     if keep is not None:
         _check("keep", keep, (B, H, Lq, Lk), torch.uint8, q.device)
     kv_len0 = Lk if kv_len0 is None else int(kv_len0)
-    if not (1 <= Dh <= MAX_DH and 1 <= Lk <= MAX_LK and kv_len0 >= 1):
-        raise ValueError(f"attention: needs 1 <= Dh <= {MAX_DH}, 1 <= Lk <= {MAX_LK} and "
-                         f"kv_len0 >= 1, got Dh {Dh}, Lk {Lk}, kv_len0 {kv_len0}")
+    if not (Dh >= 1 and Lk >= 1 and kv_len0 >= 1):
+        raise ValueError(f"attention: needs Dh >= 1, Lk >= 1 and kv_len0 >= 1, got Dh {Dh}, "
+                         f"Lk {Lk}, kv_len0 {kv_len0}")
     return B, Lq, Lk, H, Dh, kv_len0
 
 
 def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0.0,
-                    row_max=None, row_sum=None) -> None:
+                    row_max=None, row_sum=None, stream: bool = False) -> str:
+    """Launches the plan's kernel; returns its launch-count mode suffix
+    (:func:`forward_mode`)."""
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
-    plan = attention_forward_plan(B, Lq, Lk, H, Dh)
+    plan = attention_forward_plan(B, Lq, Lk, H, Dh, stream)
+    if plan.smem_bytes > SMEM_BYTES:  # one query row's scores past MAX_LK keys
+        raise ValueError(f"attention: one query row takes at most {MAX_LK} keys on the card, "
+                         f"got Lk {Lk}")
     ptr = lambda t: None if t is None else t.data_ptr()
     args = _AttentionArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
                           B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
                           keep=ptr(keep), keep_prob=1.0 - rate, row_max=ptr(row_max),
                           row_sum=ptr(row_sum), per_lane=plan.per_lane, keys=plan.keys,
-                          rows=plan.rows, group=plan.group)
+                          rows=plan.rows, group=plan.group, stream=int(plan.kernel == "stream"))
     err = _forward_launch()(ctypes.byref(args), int(train), _elem(q, k, v),
                             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch ({plan.kernel} plan {tuple(plan)}) failed "
                            f"with CUDA error {err}")
+    return forward_mode(plan, Dh)
 
 
 def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
-                            rate: float = 0.0
+                            rate: float = 0.0, stream: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The training mode: (o, row max, row exp sum), the statistics f32
     [B, H, Lq] that :func:`attention_backward` reads; ``keep`` (u8
     [B, H, Lq, Lk]) drops probabilities at ``rate``.  CPU tensors take
-    :func:`attention_train_forward_plain`."""
+    :func:`attention_train_forward_plain`.  ``stream`` takes the streamed
+    tile kernel for more than one query row whatever its plan (its bits
+    are the resident kernel's)."""
     if q.device.type == "cpu":
         return attention_train_forward_plain(q, k, v, kv_len0, keep, rate)
     B, Lq, H, _ = q.shape
     o = torch.empty_like(q)
     row_max = torch.empty(B, H, Lq, device=q.device)
     row_sum = torch.empty(B, H, Lq, device=q.device)
-    _launch_forward(q, k, v, kv_len0, o, True, keep, rate, row_max, row_sum)
-    count_launch(attention_train_forward, MODES[_elem(q, k, v)])
+    mode = _launch_forward(q, k, v, kv_len0, o, True, keep, rate, row_max, row_sum, stream)
+    count_launch(attention_train_forward, MODES[_elem(q, k, v)] + mode)
     return o, row_max, row_sum
 
 
@@ -390,7 +455,7 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
                        rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the training mode's output from its gradient ``dout``,
     its inputs, its output and its row statistics, at any number of query
-    rows and keys (keys up to MAX_LK, as the forward).  CPU tensors take
+    rows and keys and any head width.  CPU tensors take
     :func:`attention_backward_plain`; CUDA tensors launch the kernel of
     :func:`attention_backward_plan`."""
     if q.device.type == "cpu":
@@ -403,9 +468,14 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
     plan = attention_backward_plan(B, Lq, Lk, H, Dh)
     elem = _elem(q, k, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # bf16: each row's D, and the tile kernel's dQ chains in f32 between key tiles
+    # bf16: each row's D, the dQ chains in f32 between key tiles (tile
+    # kernels; past 256 dims the row kernel's too), and past 256 dims the
+    # tile kernel's dK and dV sums in f32 between row tiles
+    wide = Dh > CHUNK_DIMS
     delta = torch.empty(B, H, Lq, device=q.device) if elem else None
-    dq_acc = torch.empty(q.shape, device=q.device) if elem and Lq > 1 else None
+    dq_acc = torch.empty(q.shape, device=q.device) if elem and (Lq > 1 or wide) else None
+    dkv_acc = (torch.empty((2,) + tuple(k.shape), device=q.device)
+               if elem and Lq > 1 and wide else None)
     args = _AttentionBackwardArgs(
         dout=dout.data_ptr(), q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
         o=None if elem else o.data_ptr(),  # bf16 takes D from dP', not from o
@@ -414,12 +484,13 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
         dv=dv.data_ptr(), B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
         keep_prob=1.0 - rate, per_lane=plan.per_lane, keys=plan.keys, rows=plan.rows,
         warps=plan.threads // 32, delta=None if delta is None else delta.data_ptr(),
-        dq_acc=None if dq_acc is None else dq_acc.data_ptr())
+        dq_acc=None if dq_acc is None else dq_acc.data_ptr(),
+        dkv_acc=None if dkv_acc is None else dkv_acc.data_ptr())
     err = _backward_launch()(ctypes.byref(args), elem,
                              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed with CUDA error {err}")
-    count_launch(attention_backward, MODES[elem])
+    count_launch(attention_backward, MODES[elem] + ("_wide" if wide else ""))
     return dq, dk, dv
 
 
@@ -451,7 +522,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`attention_plain` (autograd differentiates it).
     CUDA tensors: where autograd needs a gradient of q, k or v, the training
     forward and the backward kernel; else with ``keep`` the training forward,
-    without it the serving kernel."""
+    without it the serving kernel; at any head width, and at up to MAX_LK
+    keys for one query row, any number for more (JAX's positional table
+    stops the MTIO at 5000)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len0, keep, rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -459,8 +532,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if keep is not None:
         return attention_train_forward(q, k, v, kv_len0, keep, rate)[0]
     o = torch.empty_like(q)
-    _launch_forward(q, k, v, kv_len0, o, False)
-    count_launch(attention, MODES[_elem(q, k, v)])
+    mode = _launch_forward(q, k, v, kv_len0, o, False)
+    count_launch(attention, MODES[_elem(q, k, v)] + mode)
     return o
 
 

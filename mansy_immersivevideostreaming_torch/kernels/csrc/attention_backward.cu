@@ -61,6 +61,17 @@
 //     issue of the score phase (about 450 warp instructions a row of a
 //     16-key tile, most of them the per-lane chains, the reduce-scatter and
 //     the dQ chain), not by the bytes.
+//   past 256 dims (backward_row_wide_kernel, backward_tile_wide_kernel): the
+//     same two layouts over the head's chunks of 256 dims, 8 a lane, key
+//     tiles of 8 keys: the per-lane partials of a score and of a dP' carried over
+//     the chunks before the reduction (the wide forward's scores, bit for
+//     bit), then dQ, dK and dV chunk by chunk; the row kernel reads k and v
+//     from device memory a chunk at a time, the tile kernel (a warp a row,
+//     row tiles of 8) stages a chunk of k, v, q, dO and o at a time in
+//     40 KB of shared memory whatever Dh, and keeps its dK and dV sums over
+//     the row tiles in device memory (dk and dv in f32, an f32 scratch in
+//     bf16), each chain in the narrow kernels' order.
+// Keys: no kernel holds a row of scores, so any Lk runs.
 // No atomics: every sum has a fixed order, and two launches give the same
 // bits.
 //
@@ -76,7 +87,8 @@
 //   dS   = P * (g - D)
 //   dQ   = bf16((dS / sqrt(Dh)) K),  dK = bf16((dS / sqrt(Dh))^T Q).
 // D needs a row's every key before its first dS, so a first launch
-// (delta_kernel, a warp a (b, row, head), the forward's walk) writes it; the
+// (delta_kernel, a warp a (b, row, head), the forward's walk; past 256 dims
+// delta_wide_kernel, over the chunks) writes it; the
 // tile kernel keeps its dQ chains in an f32 scratch between key tiles.  The
 // f32 instantiations compile as before (D = rowsum(dO * O), every rounding an
 // identity).
@@ -91,6 +103,10 @@
 
 using mansy::kFull;
 using mansy::attn::chain;
+using mansy::attn::chain_on;
+using mansy::attn::kChunkDims;
+using mansy::attn::load_chunk;
+using mansy::attn::opt_in;
 using mansy::attn::reduce_scatter;
 using mansy::attn::stage_rows;
 using mansy::from_f32;
@@ -107,6 +123,8 @@ namespace {
 constexpr int kRowWarps = 8;    // row kernel: warps (b, heads) a CTA
 constexpr int kMaxRows = 32;    // tile kernel: rows a row tile
 constexpr int kDeltaWarps = 4;  // delta_kernel: warps (rows) a CTA
+constexpr int kWideKeys = 8;    // the wide kernels (Dh > 256): keys a tile
+constexpr int kWideRows = 8;    // the wide tile kernel: rows a row tile, a warp a row
 
 }  // namespace
 
@@ -133,7 +151,10 @@ struct AttentionBackwardArgs {
   int32_t warps;         // warps a CTA (tile kernel: 4 or 8; the row kernel: 8)
   // bf16 only
   float* delta;          // [B, H, Lq]: D of each row (delta_kernel writes it)
-  float* dq_acc;         // [B, Lq, H, Dh]: the tile kernel's dQ chains (Lq > 1)
+  float* dq_acc;         // [B, Lq, H, Dh]: the tile kernel's dQ chains (Lq > 1; any Lq
+                         // past 256 dims)
+  float* dkv_acc;        // [2, B, Lk, H, Dh]: the wide tile kernel's dK and dV sums (Lq > 1,
+                         // Dh > 256)
 };
 
 namespace {
@@ -164,7 +185,7 @@ __device__ __forceinline__ Grad grad_of(const AttentionBackwardArgs& a, bool see
 // (each lane's fmaf chain, then the butterfly), so P and g are their bits.
 template <typename T>
 __global__ void __launch_bounds__(kDeltaWarps * 32) delta_kernel(const AttentionBackwardArgs a) {
-  constexpr int kP = 8;  // Dh <= 256; dims past Dh are skipped, as chain<P> skips them
+  constexpr int kP = 8;  // Dh <= 256 (wider: delta_wide_kernel); dims past Dh skipped as chain skips
   const int lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;  // (b Lq + r) H + h
   if (row >= (long long)a.B * a.Lq * a.H) return;
@@ -475,6 +496,392 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
   }
 }
 
+// ---- Dh > 256: the head in chunks of 256 dims (attention_common.cuh) ----
+// Every score and dP' is lane l's chain over dims l, l + 32, ... of all the
+// chunks (chain_on), then the butterfly's sums: the wide forward's scores,
+// bit for bit, so P is the forward's.  dQ, dK and dV are summed chunk by
+// chunk, each chain in the order of the narrow kernels (dQ over the keys,
+// dK and dV over the rows), its partial kept in device memory between
+// tiles.
+
+// bf16's D of each row, a warp a (b, row, head), as delta_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kDeltaWarps * 32)
+delta_wide_kernel(const AttentionBackwardArgs a) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;
+  if (row >= (long long)a.B * a.Lq * a.H) return;
+  const int Dh = a.Dh, Lk = a.Lk, chunks = (Dh + kChunkDims - 1) / kChunkDims;
+  const int h = (int)(row % a.H), r = (int)((row / a.H) % a.Lq);
+  const long long b = row / ((long long)a.H * a.Lq);
+  const long long stat = (b * a.H + h) * a.Lq + r;
+  const size_t stride = (size_t)a.H * Dh;
+  const size_t k0 = ((size_t)b * Lk * a.H + h) * Dh;
+  const int n = min(Lk, a.kv_len0 + r);
+  const T* qrow = static_cast<const T*>(a.q) + row * Dh;
+  const T* dorow = static_cast<const T*>(a.dout) + row * Dh;
+  const float mx = a.row_max[stat], sum = a.row_sum[stat];
+  const uint8_t* keep = a.keep != nullptr ? a.keep + stat * Lk : nullptr;
+  float D = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const T* krow = static_cast<const T*>(a.k) + k0 + (size_t)j * stride;
+    const T* vrow = static_cast<const T*>(a.v) + k0 + (size_t)j * stride;
+    float x = 0.f, y = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      float qv[8], dov[8], kr[8], vr[8];
+      load_chunk(qv, qrow, c, lane, Dh);
+      load_chunk(dov, dorow, c, lane, Dh);
+      load_chunk(kr, krow, c, lane, Dh);
+      load_chunk(vr, vrow, c, lane, Dh);
+      x = chain_on<8>(x, qv, kr, lane, Dh - c * kChunkDims);
+      y = chain_on<8>(y, dov, vr, lane, Dh - c * kChunkDims);
+    }
+    const float score = warp_sum(x) / a.scale;
+    float g = round_as<T>(warp_sum(y));
+    if (keep != nullptr) g = keep[j] ? g / a.keep_prob : 0.f;
+    D += g * (expf(score - mx) / sum);
+  }
+  if (lane == 0) a.delta[stat] = D;
+}
+
+// D of a row in f32 (rowsum(dO * O): one chain over the chunks, then
+// warp_sum), or bf16's from delta_kernel.
+template <typename T>
+__device__ __forceinline__ float wide_delta(const AttentionBackwardArgs& a, size_t row,
+                                            long long stat, int lane) {
+  if constexpr (kIsBf16<T>) {
+    return a.delta[stat];
+  } else {
+    float part = 0.f;
+    const float* dorow = static_cast<const float*>(a.dout) + row;
+    const float* orow = static_cast<const float*>(a.o) + row;
+    for (int c = 0; c * kChunkDims < a.Dh; ++c) {
+      float dov[8], ov[8];
+      load_chunk(dov, dorow, c, lane, a.Dh);
+      load_chunk(ov, orow, c, lane, a.Dh);
+      part = chain_on<8>(part, dov, ov, lane, a.Dh - c * kChunkDims);
+    }
+    return warp_sum(part);
+  }
+}
+
+// Lq = 1: a warp a (b, head), 8 a CTA; key tiles of kWideKeys keys read
+// straight from device memory, once for the scores and dP' and once for
+// dQ, dK and dV; the dQ chain kept in dq (f32) or dq_acc (bf16) between tiles.
+template <typename T>
+__global__ void __launch_bounds__(kRowWarps * 32)
+backward_row_wide_kernel(const AttentionBackwardArgs a) {
+  constexpr int M = kWideKeys;
+  const int lane = threadIdx.x % 32;
+  const long long bh = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;  // b H + h
+  if (bh >= (long long)a.B * a.H) return;
+  const int Dh = a.Dh, Lk = a.Lk, chunks = (Dh + kChunkDims - 1) / kChunkDims;
+  const long long b = bh / a.H;
+  const int h = (int)(bh % a.H);
+  const size_t stride = (size_t)a.H * Dh;
+  const size_t k0 = ((size_t)b * Lk * a.H + h) * Dh;
+  const T* qrow = static_cast<const T*>(a.q) + bh * Dh;  // Lq = 1: row (b, 0, h)
+  const T* dorow = static_cast<const T*>(a.dout) + bh * Dh;
+  const T* K = static_cast<const T*>(a.k) + k0;
+  const T* V = static_cast<const T*>(a.v) + k0;
+  T* dK = static_cast<T*>(a.dk) + k0;
+  T* dV = static_cast<T*>(a.dv) + k0;
+  float* chains = kIsBf16<T> ? a.dq_acc + bh * Dh : static_cast<float*>(a.dq) + bh * Dh;
+  const int n = min(Lk, a.kv_len0);
+  const float mx = a.row_max[bh], sum = a.row_sum[bh];
+  const uint8_t* keep = a.keep != nullptr ? a.keep + bh * Lk : nullptr;
+  const float D = wide_delta<T>(a, bh * Dh, bh, lane);
+
+  for (int j0 = 0; j0 < n; j0 += M) {
+    float x[M], y[M];
+#pragma unroll
+    for (int s = 0; s < M; ++s) x[s] = y[s] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const int rest = Dh - c * kChunkDims;
+      float qv[8], dov[8];
+      load_chunk(qv, qrow, c, lane, Dh);
+      load_chunk(dov, dorow, c, lane, Dh);
+#pragma unroll
+      for (int s = 0; s < M; ++s) {
+        if (j0 + s < n) {  // the same for every lane
+          float kr[8], vr[8];
+          load_chunk(kr, K + (size_t)(j0 + s) * stride, c, lane, Dh);
+          load_chunk(vr, V + (size_t)(j0 + s) * stride, c, lane, Dh);
+          x[s] = chain_on<8>(x[s], qv, kr, lane, rest);
+          y[s] = chain_on<8>(y[s], dov, vr, lane, rest);
+        }
+      }
+    }
+    const float score = mansy::attn::reduce_scatter<M>(x, lane) / a.scale;
+    const float dpd = mansy::attn::reduce_scatter<M>(y, lane);
+    const int j = j0 + (lane & (M - 1));
+    const Grad g = grad_of<T>(a, j < n, score, dpd, mx, sum, D, keep != nullptr,
+                              keep != nullptr && j < n && keep[j] != 0);
+    for (int c = 0; c < chunks; ++c) {
+      float qv[8], dov[8], acc[8];
+      load_chunk(qv, qrow, c, lane, Dh);
+      load_chunk(dov, dorow, c, lane, Dh);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int d = c * kChunkDims + lane + 32 * i;
+        acc[i] = j0 > 0 && d < Dh ? chains[d] : 0.f;  // the chain so far
+      }
+#pragma unroll
+      for (int s = 0; s < M; ++s) {
+        if (j0 + s < n) {  // the same for every lane
+          const float ds = __shfl_sync(kFull, g.ds, s), pd = __shfl_sync(kFull, g.pd, s);
+          const size_t at = (size_t)(j0 + s) * stride;
+          float kr[8];
+          load_chunk(kr, K + at, c, lane, Dh);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int d = c * kChunkDims + lane + 32 * i;
+            acc[i] = fmaf(ds, kr[i], acc[i]);
+            if (d < Dh) {
+              dK[at + d] = from_f32<T>(ds * qv[i]);
+              dV[at + d] = from_f32<T>(pd * dov[i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int d = c * kChunkDims + lane + 32 * i;
+        if (d < Dh) {
+          chains[d] = acc[i];
+          if (kIsBf16<T>) static_cast<T*>(a.dq)[bh * Dh + d] = from_f32<T>(acc[i]);
+        }
+      }
+    }
+  }
+  for (int j = n; j < Lk; ++j)  // keys the row does not see
+    for (int d = lane; d < Dh; d += 32) {
+      dK[(size_t)j * stride + d] = from_f32<T>(0.f);
+      dV[(size_t)j * stride + d] = from_f32<T>(0.f);
+    }
+}
+
+// Lq > 1: a CTA a (b, head) of 8 warps, key tiles of kWideKeys keys, row
+// tiles of a.rows (<= 8) rows, a warp a row.  For each (key tile, row tile):
+// the chunks of k, v, q, dO (and in f32 o) staged one after another while
+// each warp carries its row's 2M partials (and D's); one reduce_scatter of
+// the 2M items; P' and dS to shared memory; then chunk by chunk (k, q and dO
+// staged again) the warps' dQ chains over the tile's keys and the threads'
+// (key, 4 dims) dK and dV chains over the tile's rows, each kept between
+// tiles in device memory (f32: dq, dk, dv; bf16: dq_acc and dkv_acc, the
+// outputs rounded from them).
+template <typename T>
+__global__ void __launch_bounds__(kWideRows * 32, 2)
+backward_tile_wide_kernel(const AttentionBackwardArgs a) {
+  constexpr int M = kWideKeys, kD = kChunkDims, W = kWideRows, kThreads = W * 32;
+  constexpr int kChunks = M * kD / 4;                        // (key, 4 dims) of a tile's chunk
+  constexpr int kPer = (kChunks + kThreads - 1) / kThreads;  // of them a thread
+  extern __shared__ __align__(16) float smem[];
+  const int RT = a.rows;
+  float* sK = smem;              // [M][kD]: a chunk of a key tile's k rows
+  float* sV = sK + M * kD;       // [M][kD]: and of its v rows
+  float* sQ = sV + M * kD;       // [RT][kD]: a chunk of the row tile's q rows
+  float* sdO = sQ + RT * kD;     // [RT][kD]: dO
+  float* sO = sdO + RT * kD;     // [RT][kD]: o (f32)
+  float* sP = sO + RT * kD;      // [RT][M] P'
+  float* sS = sP + RT * M;       // [RT][M] dS / scale
+  float* sMax = sS + RT * M;     // [RT]
+  float* sSum = sMax + RT;       // [RT]
+  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sSum + RT);  // [RT][M]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Dh = a.Dh, Lq = a.Lq, Lk = a.Lk, H = a.H;
+  const int chunks = (Dh + kD - 1) / kD;
+  const long long bh = blockIdx.x;  // b H + h
+  const long long b = bh / H;
+  const int h = (int)(bh % H);
+  const size_t stride = (size_t)H * Dh;
+  const size_t q0 = ((size_t)b * Lq * H + h) * Dh;
+  const size_t k0 = ((size_t)b * Lk * H + h) * Dh;
+  const int n_max = min(Lk, a.kv_len0 + Lq - 1);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                          reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o) |
+                          reinterpret_cast<uintptr_t>(a.dout);
+  const bool vec = Dh % 4 == 0 && bases % 16 == 0;
+  const T* Q = static_cast<const T*>(a.q);
+  const T* dO = static_cast<const T*>(a.dout);
+  const T* O = static_cast<const T*>(a.o);
+  const T* K = static_cast<const T*>(a.k) + k0;
+  const T* V = static_cast<const T*>(a.v) + k0;
+  T* dK = static_cast<T*>(a.dk) + k0;
+  T* dV = static_cast<T*>(a.dv) + k0;
+  float* chains = kIsBf16<T> ? a.dq_acc : static_cast<float*>(a.dq);
+  const size_t kv_elems = (size_t)a.B * Lk * H * Dh;
+  float* dk_sum = kIsBf16<T> ? a.dkv_acc + k0 : static_cast<float*>(a.dk) + k0;
+  float* dv_sum = kIsBf16<T> ? a.dkv_acc + kv_elems + k0 : static_cast<float*>(a.dv) + k0;
+
+  for (int j0 = 0; j0 < Lk; j0 += M) {
+    const int kn = min(M, Lk - j0);
+    if (j0 >= n_max) {  // a tile no row sees: zeros
+      for (int e = tid; e < kn * Dh; e += kThreads) {
+        const size_t at = (size_t)(e / Dh) * stride + j0 * stride + e % Dh;
+        dK[at] = from_f32<T>(0.f);
+        dV[at] = from_f32<T>(0.f);
+      }
+      continue;
+    }
+    const int r_first = max(0, j0 - a.kv_len0 + 1);  // rows before it see none of the tile
+    for (int r0 = r_first; r0 < Lq; r0 += RT) {
+      const int rn = min(RT, Lq - r0);
+      const size_t rows = q0 + (size_t)r0 * stride;
+      const int r = r0 + warp, n = min(Lk, a.kv_len0 + r);
+      const bool mine = warp < rn;
+      // the scores' and dP's partials (and f32 D's), chunk by chunk
+      float x[2 * M], dpart = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2 * M; ++s) x[s] = 0.f;
+      for (int c = 0; c < chunks; ++c) {
+        const int rest = Dh - c * kD;
+        __syncthreads();  // every warp is done with the last chunk (and the last row tile)
+        stage_rows<kD>(sK, K + (size_t)j0 * stride + c * kD, stride, M, kn, rest, vec, tid,
+                       kThreads);
+        stage_rows<kD>(sV, V + (size_t)j0 * stride + c * kD, stride, M, kn, rest, vec, tid,
+                       kThreads);
+        stage_rows<kD>(sQ, Q + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
+        stage_rows<kD>(sdO, dO + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
+        if constexpr (!kIsBf16<T>)
+          stage_rows<kD>(sO, O + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
+        if (c == 0) {
+          for (int e = tid; e < rn; e += kThreads) {
+            cp_async4(sMax + e, a.row_max + bh * Lq + r0 + e, true);
+            cp_async4(sSum + e, a.row_sum + bh * Lq + r0 + e, true);
+          }
+          if (a.keep != nullptr)
+            for (int e = tid; e < rn * M; e += kThreads) {
+              const int rr = e / M, s = e % M;
+              sKeep[e] = s < kn ? a.keep[(bh * Lq + r0 + rr) * Lk + j0 + s] : 0;
+            }
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (mine) {
+          float qv[8], dov[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            qv[i] = sQ[warp * kD + lane + 32 * i];
+            dov[i] = sdO[warp * kD + lane + 32 * i];
+          }
+#pragma unroll
+          for (int s = 0; s < M; ++s) {
+            if (j0 + s < n) {
+              float kr[8], vr[8];
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                kr[i] = sK[s * kD + lane + 32 * i];
+                vr[i] = sV[s * kD + lane + 32 * i];
+              }
+              x[s] = chain_on<8>(x[s], qv, kr, lane, rest);
+              x[M + s] = chain_on<8>(x[M + s], dov, vr, lane, rest);
+            }
+          }
+          if constexpr (!kIsBf16<T>) {
+            float ov[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) ov[i] = sO[warp * kD + lane + 32 * i];
+            dpart = chain_on<8>(dpart, dov, ov, lane, rest);
+          }
+        }
+      }
+      if (mine) {  // a warp's row: P' and dS of the tile's keys
+        const float D = kIsBf16<T> ? a.delta[bh * Lq + r] : warp_sum(dpart);
+        const float sum2 = mansy::attn::reduce_scatter<2 * M>(x, lane);
+        const float dpd = __shfl_sync(kFull, sum2, (lane & (M - 1)) + M);
+        const int s_own = lane & (M - 1);
+        const Grad g = grad_of<T>(a, j0 + s_own < n, sum2 / a.scale, dpd, sMax[warp],
+                                  sSum[warp], D, a.keep != nullptr,
+                                  sKeep[warp * M + s_own] != 0);
+        if (lane < M) {
+          sP[warp * M + s_own] = g.pd;
+          sS[warp * M + s_own] = g.ds;
+        }
+      }
+      // dQ, dK and dV, chunk by chunk
+      for (int c = 0; c < chunks; ++c) {
+        const int rest = Dh - c * kD;
+        __syncthreads();  // P' and dS written; every warp is done with the last chunk
+        stage_rows<kD>(sK, K + (size_t)j0 * stride + c * kD, stride, M, kn, rest, vec, tid,
+                       kThreads);
+        stage_rows<kD>(sQ, Q + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
+        stage_rows<kD>(sdO, dO + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (mine) {  // the row's dQ chain over the tile's keys
+          const size_t row = q0 + (size_t)r * stride + c * kD;
+          float acc[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            acc[i] = j0 > 0 && lane + 32 * i < rest ? chains[row + lane + 32 * i] : 0.f;
+#pragma unroll
+          for (int s = 0; s < M; ++s) {
+            if (j0 + s < n) {  // the same for every lane
+              const float ds = sS[warp * M + s];
+#pragma unroll
+              for (int i = 0; i < 8; ++i) acc[i] = fmaf(ds, sK[s * kD + lane + 32 * i], acc[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int d = lane + 32 * i;
+            if (d < rest) {
+              chains[row + d] = acc[i];
+              if (kIsBf16<T>) static_cast<T*>(a.dq)[row + d] = from_f32<T>(acc[i]);
+            }
+          }
+        }
+        // this thread's (key, 4 dims) of dK and dV over the row tile's rows, in order
+#pragma unroll
+        for (int cc = 0; cc < kPer; ++cc) {
+          const int e = tid + cc * kThreads;
+          const int s = e / (kD / 4), d4 = 4 * (e % (kD / 4));
+          if (e < kChunks && s < kn && d4 < rest) {
+            const size_t at = (size_t)(j0 + s) * stride + c * kD + d4;
+            float dk[4], dv[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const bool in = r0 > r_first && d4 + t < rest;
+              dk[t] = in ? dk_sum[at + t] : 0.f;
+              dv[t] = in ? dv_sum[at + t] : 0.f;
+            }
+            for (int rr = 0; rr < rn; ++rr) {
+              const float pd = sP[rr * M + s], ds = sS[rr * M + s];
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                dv[t] = fmaf(pd, sdO[rr * kD + d4 + t], dv[t]);
+                dk[t] = fmaf(ds, sQ[rr * kD + d4 + t], dk[t]);
+              }
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              if (d4 + t < rest) {
+                dk_sum[at + t] = dk[t];
+                dv_sum[at + t] = dv[t];
+                if (kIsBf16<T>) {
+                  dK[at + t] = from_f32<T>(dk[t]);
+                  dV[at + t] = from_f32<T>(dv[t]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The wide tile kernel's shared memory (its layout above).
+inline size_t tile_wide_smem_bytes(int rows) {
+  return sizeof(float) * (2 * (size_t)kWideKeys * kChunkDims + 3 * (size_t)rows * kChunkDims +
+                          2 * (size_t)rows * kWideKeys + 2 * (size_t)rows) +
+         (size_t)rows * kWideKeys;
+}
+
 // The tile kernel's shared memory: the k and v tiles, the q, dO and o rows of
 // a row tile, its P' and dS, its row max and sum, and its keep bytes.
 inline size_t tile_smem_bytes(int P, int M, int rows) {
@@ -497,11 +904,8 @@ cudaError_t launch_tile(const AttentionBackwardArgs& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(P, M, a.rows);
   auto kernel = a.warps == 4 ? backward_tile_kernel<T, P, M, 4> : backward_tile_kernel<T, P, M, 8>;
-  if (smem > 48 * 1024) {  // above 48 KB needs the opt-in
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = opt_in(kernel, smem);
+  if (e != cudaSuccess) return e;
   kernel<<<(unsigned)((long long)a.B * a.H), a.warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -542,23 +946,50 @@ int launch_plan(const AttentionBackwardArgs& a, cudaStream_t s) {
   }
 }
 
+// Dh > 256: the wide kernels (a.keys = kWideKeys; the tile kernel's rows at
+// most kWideRows).
+template <typename T>
+int launch_wide(const AttentionBackwardArgs& a, cudaStream_t s) {
+  if (a.keys != kWideKeys) return (int)cudaErrorInvalidValue;
+  if (a.Lq == 1) {
+    const long long pairs = (long long)a.B * a.H;
+    backward_row_wide_kernel<T><<<(unsigned)((pairs + kRowWarps - 1) / kRowWarps),
+                                  kRowWarps * 32, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (a.rows < 1 || a.rows > kWideRows || a.warps != kWideRows ||
+      (kIsBf16<T> && a.dkv_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_wide_smem_bytes(a.rows);
+  auto kernel = backward_tile_wide_kernel<T>;
+  const cudaError_t e = opt_in(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)((long long)a.B * a.H), kWideRows * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // elem = 0: f32 tensors; 1: bf16 (delta_kernel first, then the plan's kernel).
+// Dh > 256 takes the wide kernels (delta_wide_kernel for bf16's D).
 extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, int elem,
                                          void* stream) {
   const AttentionBackwardArgs& a = *args;
   if ((long long)a.B * a.H <= 0) return 0;
-  if (a.Lq < 1 || a.Lk < 1 || a.Dh < 1 || a.Dh > 32 * a.per_lane || a.kv_len0 < 1)
+  const bool wide = a.Dh > kChunkDims;
+  if (a.Lq < 1 || a.Lk < 1 || a.Dh < 1 || (!wide && a.Dh > 32 * a.per_lane) || a.kv_len0 < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (elem == 0) return launch_plan<float>(a, s);
-  if (elem != 1 || a.Dh > 256 || a.delta == nullptr || (a.Lq > 1 && a.dq_acc == nullptr))
+  if (elem == 0) return wide ? launch_wide<float>(a, s) : launch_plan<float>(a, s);
+  if (elem != 1 || a.delta == nullptr || ((a.Lq > 1 || wide) && a.dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)a.B * a.Lq * a.H;
-  delta_kernel<mansy::bf16><<<(unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps),
-                              kDeltaWarps * 32, 0, s>>>(a);
+  const unsigned blocks = (unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps);
+  if (wide)
+    delta_wide_kernel<mansy::bf16><<<blocks, kDeltaWarps * 32, 0, s>>>(a);
+  else
+    delta_kernel<mansy::bf16><<<blocks, kDeltaWarps * 32, 0, s>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_plan<mansy::bf16>(a, s);
+  return wide ? launch_wide<mansy::bf16>(a, s) : launch_plan<mansy::bf16>(a, s);
 }

@@ -1,7 +1,8 @@
-// K8's shared pieces: the score reduction that the forward's tile kernel
+// K8's shared pieces: the score reduction that the forward's tile kernels
 // (csrc/attention.cu, reduce_scatter_placed) and the backward
-// (csrc/attention_backward.cu, reduce_scatter) take their scores by, and
-// the staging of head rows into shared memory.
+// (csrc/attention_backward.cu, reduce_scatter) take their scores by, the
+// wide kernels' chunks of a head, the staging of head rows into shared
+// memory and the opt-in to more than 48 KB of it.
 //
 // A score is a dot product over Dh dims, split across a warp as the row
 // kernel of the forward takes it: lane l's fmaf chain over dims l, l + 32,
@@ -21,16 +22,41 @@
 namespace mansy {
 namespace attn {
 
+// Heads wider than 256 dims (K8's wide kernels) are taken in chunks of
+// kChunkDims, 8 dims a lane a chunk: lane l's dims of chunk c are
+// 256 c + l + 32 i (i < 8).  A score's partial is carried from chunk to
+// chunk (chain_on) and only then summed over the warp, so it is the fmaf
+// chain over dims l, l + 32, ... of the whole head, then the butterfly: the
+// one definition every wide kernel, forward and backward, computes.
+constexpr int kChunkDims = 256;
+
+// chain, carried on: lane l's share continued from `part` over a chunk's
+// dims (Dh counted from the chunk's first dim).
+template <int P>
+__device__ __forceinline__ float chain_on(float part, const float (&a)[P], const float (&b)[P],
+                                          int lane, int Dh) {
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+    if (lane + 32 * i < Dh) part = fmaf(a[i], b[i], part);
+  return part;
+}
+
 // Lane l's share of a dot product as the forward chains it: fmaf over dims
 // l, l + 32, ... below Dh, from 0.
 template <int P>
 __device__ __forceinline__ float chain(const float (&a)[P], const float (&b)[P], int lane,
                                        int Dh) {
-  float part = 0.f;
+  return chain_on<P>(0.f, a, b, lane, Dh);
+}
+
+// Lane l's 8 values of chunk c of a row (0 past Dh), as f32.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float (&x)[8], const T* row, int c, int lane, int Dh) {
 #pragma unroll
-  for (int i = 0; i < P; ++i)
-    if (lane + 32 * i < Dh) part = fmaf(a[i], b[i], part);
-  return part;
+  for (int i = 0; i < 8; ++i) {
+    const int d = c * kChunkDims + lane + 32 * i;
+    x[i] = d < Dh ? to_f32(row[d]) : 0.f;
+  }
 }
 
 // The warp sums of x[0 .. M-1] (each lane's partials of M dot products), in
@@ -150,6 +176,14 @@ __device__ __forceinline__ void stage_rows_as_is(bf16* dst, const bf16* src, siz
       dst[e] = r < valid && d < Dh ? src[r * stride + d] : from_f32<bf16>(0.f);
     }
   }
+}
+
+// A launch of more than 48 KB of dynamic shared memory needs the kernel's
+// opt-in first.
+template <typename Kernel>
+inline cudaError_t opt_in(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // len bytes from src to dst (16-byte aligned) with cp.async: 16-byte copies

@@ -1098,8 +1098,12 @@ def _attention_bf16_matches_plain(K8, B, shape, H, Dh, dropout, seed):
     out = K8.attention(*leaves, kv_len0, keep, 0.1)
     assert torch.equal(out, o)
     assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(out, leaves, dout), got))
-    for w, counts in zip((K8.attention_train_forward, K8.attention_backward), before):
-        assert w.launches_by_mode["bf16"] == counts.get("bf16", 0) + 1
+    # the bf16 modes: past 2048 keys the streamed kernel's, past 256 dims the wide kernels'
+    modes = ("bf16" + K8.forward_mode(K8.attention_forward_plan(B, Lq, Lk, H, Dh), Dh),
+             "bf16" + ("_wide" if Dh > K8.CHUNK_DIMS else ""))
+    for w, counts, mode in zip((K8.attention_train_forward, K8.attention_backward), before,
+                               modes):
+        assert w.launches_by_mode[mode] == counts.get(mode, 0) + 1
 
 
 @pytest.mark.cuda
@@ -1256,6 +1260,124 @@ def test_attention_tile_kernel_at_ragged_shapes_on_card(cuda_device, Lq, Lk, kv_
     want = K8.attention_plain(q, k, v, kv_len0)
     torch.testing.assert_close(serve, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     _attention_training_matches_plain(K8, 3, (Lq, Lk, kv_len0), 3, Dh, dropout, seed)
+
+
+# K8 past its earlier limits (Lq, Lk, kv_len0): one query row over 3073 and
+# 5000 keys (the row kernel's shared memory past 48 KB: decode at
+# --fut-window 5000), the encoder at --his-window 5000 (full and causal;
+# the streamed tile kernel), the teacher-forced cross-attention over the
+# distilled 2500, and a row tile off its 32 rows at 3000 keys
+LONG_SHAPES = [(1, 3073, None), (1, 5000, 4000), (33, 5000, None), (33, 5000, 1),
+               (15, 2500, None), (40, 3000, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0", LONG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_past_2048_keys_on_card(cuda_device, Lq, Lk, kv_len0, dtype):
+    """Serving, training (keep mask at 0.1) and backward over up to 5000
+    keys, 2 heads of 64, a batch of 2, against the plain versions at the
+    tolerances of the ragged-shape test; two launches bit-equal; more than
+    one query row takes the streamed kernel, counted in its own mode."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    plan = K8.attention_forward_plan(2, Lq, Lk, 2, 64)
+    assert plan.kernel == ("row" if Lq == 1 else "stream")
+    seed = Lq + Lk
+    mode = ("f32" if dtype == torch.float32 else "bf16") + ("_stream" if Lq > 1 else "")
+    before = K8.attention_train_forward.launches_by_mode.get(mode, 0)
+    if dtype == torch.bfloat16:
+        _attention_bf16_matches_plain(K8, 2, (Lq, Lk, kv_len0), 2, 64, True, seed)
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        q, k, v = (torch.randn(2, L, 2, 64, device=cuda_device, generator=g)
+                   for L in (Lq, Lk, Lk))
+        serve = K8.attention(q, k, v, kv_len0)
+        assert torch.equal(serve, K8.attention_train_forward(q, k, v, kv_len0)[0])
+        assert torch.equal(serve, K8.attention(q, k, v, kv_len0))
+        want = K8.attention_plain(q, k, v, kv_len0)
+        torch.testing.assert_close(serve, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+        _attention_training_matches_plain(K8, 2, (Lq, Lk, kv_len0), 2, 64, True, seed)
+    assert K8.attention_train_forward.launches_by_mode[mode] > before
+
+
+# heads past 256 dims (H 3, a batch of 2): one query row (the decode step),
+# the teacher-forced causal pass, a --his-window 96 encoder
+WIDE_SHAPES = [(1, 15, 1), (15, 15, 1), (96, 96, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0", WIDE_SHAPES)
+@pytest.mark.parametrize("Dh", [257, 320, 512, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_wide_heads_on_card(cuda_device, Lq, Lk, kv_len0, Dh, dtype):
+    """Heads of 257 to 2048 dims (the wide kernels, chunks of 256): serving,
+    training with and without a keep mask, and backward against the plain
+    versions at the existing tolerances, two launches bit-equal; every
+    launch counted in the ``_wide`` modes."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_forward_plan(2, Lq, Lk, 3, Dh).kernel == (
+        "row_wide" if Lq == 1 else "stream")
+    assert K8.attention_backward_plan(2, Lq, Lk, 3, Dh).kernel == (
+        "row_wide" if Lq == 1 else "tile_wide")
+    mode = ("f32" if dtype == torch.float32 else "bf16") + "_wide"
+    before = [w.launches_by_mode.get(mode, 0)
+              for w in (K8.attention, K8.attention_train_forward, K8.attention_backward)]
+    for dropout in (False, True):
+        seed = Lq + Lk + Dh + dropout
+        if dtype == torch.bfloat16:
+            _attention_bf16_matches_plain(K8, 2, (Lq, Lk, kv_len0), 3, Dh, dropout, seed)
+        else:
+            _attention_training_matches_plain(K8, 2, (Lq, Lk, kv_len0), 3, Dh, dropout, seed)
+    if dtype == torch.float32:
+        g = torch.Generator(device=cuda_device).manual_seed(Dh)
+        q, k, v = (torch.randn(2, L, 3, Dh, device=cuda_device, generator=g)
+                   for L in (Lq, Lk, Lk))
+        serve = K8.attention(q, k, v, kv_len0)
+        assert torch.equal(serve, K8.attention_train_forward(q, k, v, kv_len0)[0])
+        assert torch.equal(serve, K8.attention(q, k, v, kv_len0))
+        want = K8.attention_plain(q, k, v, kv_len0)
+        torch.testing.assert_close(serve, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    after = [w.launches_by_mode.get(mode, 0)
+             for w in (K8.attention, K8.attention_train_forward, K8.attention_backward)]
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", [(96, 96, None, 64), (15, 15, 1, 64),
+                                              (33, 2048, 7, 48), (30, 2048, 1, 256),
+                                              (97, 120, 7, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_streamed_kernel_gives_the_resident_bits_on_card(cuda_device, Lq, Lk, kv_len0,
+                                                                   Dh, dtype):
+    """The streamed tile kernel forced where the resident one runs: the
+    same output, row max and row sum, bit for bit, with and without a keep
+    mask, so the backward's recomputed P stays the forward's."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_forward_plan(3, Lq, Lk, 3, Dh).kernel == "tile"
+    assert K8.attention_forward_plan(3, Lq, Lk, 3, Dh, stream=True).kernel == "stream"
+    g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk + Dh)
+    q, k, v = (torch.randn(3, L, 3, Dh, device=cuda_device, generator=g).to(dtype)
+               for L in (Lq, Lk, Lk))
+    keep = (torch.rand(3, 3, Lq, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
+    for mask in (None, keep):
+        resident = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1)
+        streamed = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1, stream=True)
+        assert all(torch.equal(a, b) for a, b in zip(resident, streamed))
+
+
+@pytest.mark.cuda
+def test_attention_refuses_one_row_past_its_scores_on_card(cuda_device):
+    """One query row holds its scores in shared memory: past MAX_LK keys (far
+    past the 5000 of JAX's positional table) the wrapper raises, as it does
+    for any plan that does not fit; more rows stream at any length."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    q = torch.randn(1, 1, 1, 4, device=cuda_device)
+    k = torch.randn(1, K8.MAX_LK + 1, 1, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 14528 keys"):
+        K8.attention(q, k, k)
+    torch.testing.assert_close(K8.attention(q, k[:, :K8.MAX_LK], k[:, :K8.MAX_LK]),
+                               K8.attention_plain(q, k[:, :K8.MAX_LK], k[:, :K8.MAX_LK]),
+                               rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------ hidden widths

@@ -18,7 +18,13 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
   Dh 4 to 256, causal and full, the score and P . v phases each take every
   (row, key) a row sees once, every output row is written once and the
   shared memory fits the H100; one row keeps the row kernel's launch; the
-  plans at the encoder, teacher-forced and 96 x 96 shapes.
+  plans at the encoder, teacher-forced and 96 x 96 shapes.  Up to 2048
+  keys and 256 dims both plans are pinned to the earlier kernels' (a
+  digest over a grid of shapes); past them (2049, 3073 and 5000 keys,
+  heads of 257 to 2048 dims) the streamed forward's passes, the wide
+  kernels' chunks and the backward each take every (row, key) and every
+  dim once within the H100's shared memory, and the forward streams
+  exactly where the tile kernel's row tile would drop under 16 rows.
 * ``policy_loss_plan`` (K9): one cluster of at most 16 CTAs whose row
   tiles (CTA r takes tiles r, r + ctas, ...) cover every row exactly once,
   for every B from 1 to 20000, with no CTA left without a tile; 4 CTAs of
@@ -414,7 +420,7 @@ def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
     from the first row that sees it, and a key tile's rows once."""
     taken, written = np.zeros((Lq, Lk), int), np.zeros(Lk, int)
     seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
-    if plan.kernel == "row":
+    if plan.kernel in ("row", "row_wide"):
         n = min(Lk, kv_len0)
         for j0 in range(0, n, plan.keys):
             taken[0, j0:min(n, j0 + plan.keys)] += 1
@@ -478,25 +484,29 @@ FORWARD_SIZES = (1, 2, 15, 33, 96, 97, 2048)
 H100_SMEM = 227 * 1024  # shared memory a block on the H100
 
 
-def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan):
+def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan, chunks: int = 1):
     """(times the score phase takes each (row, key), times the P . v phase
     takes it, times each output row is written) as ``csrc/attention.cu``
-    walks them.  The row kernel: a warp a row over its seen keys.  The tile
-    kernel: a CTA a row tile of ``rows`` rows; in it a warp a group of
-    ``group`` rows; each walks the key tiles of ``keys`` keys up to the last
-    key a row of the CTA sees: the scores in reduce_scatter batches of 32 /
-    ``group`` keys (a lane keeps a (row, key) its row sees), P . v key by
-    key, each row's fmaf taken where its row sees the key."""
+    walks them.  The row kernel: a warp a row over its seen keys (the wide
+    one: P . v and the write once a chunk of ``chunks``).  The tile kernel:
+    a CTA a row tile of ``rows`` rows; in it a warp a group of ``group``
+    rows; each walks the key tiles of ``keys`` keys up to the last key a row
+    of the CTA sees: the scores in reduce_scatter batches of 32 / ``group``
+    keys (a lane keeps a (row, key) its row sees), P . v key by key, each
+    row's fmaf taken where its row sees the key.  The streamed kernel: the
+    tile kernel's walk once a pass, 2 + ``chunks`` passes, P . v and the
+    write in the last ``chunks``."""
     scores, pv = np.zeros((Lq, Lk), int), np.zeros((Lq, Lk), int)
     written = np.zeros(Lq, int)
     seen_by = lambda r: min(Lk, kv_len0 + r)
-    if plan.kernel == "row":
+    if plan.kernel in ("row", "row_wide"):
         for r in range(Lq):
             scores[r, :seen_by(r)] += 1
-            pv[r, :seen_by(r)] += 1
-            written[r] += 1
+            pv[r, :seen_by(r)] += chunks
+            written[r] += chunks
         return scores, pv, written
     R, batch = plan.group, 32 // plan.group
+    passes = 2 + chunks if plan.kernel == "stream" else 1
     for r0 in range(0, Lq, plan.rows):
         rn = min(plan.rows, Lq - r0)
         n_cta = min(Lk, kv_len0 + r0 + rn - 1)
@@ -504,18 +514,32 @@ def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan):
             gn = max(0, min(R, rn - g0))
             n_warp = min(Lk, kv_len0 + r0 + g0 + gn - 1) if gn else 0
             rows = range(r0 + g0, r0 + g0 + gn)
-            for j0 in range(0, n_cta, plan.keys):
-                kn = min(plan.keys, n_cta - j0)
-                jn = min(kn, n_warp - j0)
-                if jn <= 0:
-                    continue
-                batched = -(-jn // batch) * batch  # keys the reduce_scatter batches cover
-                assert batched <= plan.keys        # within the staged tile
-                for r in rows:
-                    scores[r, j0:min(j0 + batched, seen_by(r))] += 1
-                    pv[r, j0:min(j0 + jn, seen_by(r))] += 1
-            written[list(rows)] += 1
+            for p in range(passes):
+                for j0 in range(0, n_cta, plan.keys):
+                    kn = min(plan.keys, n_cta - j0)
+                    jn = min(kn, n_warp - j0)
+                    if jn <= 0:
+                        continue
+                    batched = -(-jn // batch) * batch  # keys the reduce_scatter batches cover
+                    assert batched <= plan.keys        # within the staged tile
+                    for r in rows:
+                        scores[r, j0:min(j0 + batched, seen_by(r))] += 1
+                        if p >= passes - chunks:
+                            pv[r, j0:min(j0 + jn, seen_by(r))] += 1
+            written[list(rows)] += chunks
     return scores, pv, written
+
+
+def _dims_walk(Dh: int, per_lane: int, chunks: int) -> np.ndarray:
+    """Times each of a head's dims is taken: lane l's i-th value of chunk c
+    is dim c 32 P + l + 32 i, taken where it is below Dh."""
+    taken = np.zeros(chunks * 32 * per_lane, int)
+    for c in range(chunks):
+        for lane in range(32):
+            for i in range(per_lane):
+                taken[c * 32 * per_lane + lane + 32 * i] += 1
+    assert (taken == 1).all()
+    return taken[:Dh]
 
 
 @pytest.mark.parametrize("Lq", FORWARD_SIZES)
@@ -580,6 +604,102 @@ def test_attention_forward_plan_at_the_training_shapes():
                                           4 * (96 * 64 + 32 * 104) + 32 * 96)
     assert plan(96, 2048).rows == plan(96, 2048, 256).rows == 16
     assert plan(96, 2048, 256).smem_bytes <= H100_SMEM
+
+
+def _plans_digest(plan_module) -> str:
+    """sha256 (16 hex digits) of K8's forward and backward plans at B 512,
+    8 heads, over rows, keys (up to 2048) and dims (up to 256) on both sides
+    of every tile."""
+    import hashlib
+    h = hashlib.sha256()
+    for Lq in (1, 2, 5, 15, 16, 17, 33, 96, 97, 2048):
+        for Lk in (1, 3, 8, 15, 64, 65, 96, 255, 256, 300, 1000, 1500, 2047, 2048):
+            for Dh in (1, 4, 33, 48, 64, 100, 128, 129, 255, 256):
+                h.update(repr((tuple(plan_module.attention_forward_plan(512, Lq, Lk, 8, Dh)),
+                               tuple(plan_module.attention_backward_plan(512, Lq, Lk, 8, Dh)))
+                              ).encode())
+    return h.hexdigest()[:16]
+
+
+def test_attention_plans_keep_their_launches_up_to_2048_keys_and_256_dims():
+    """At up to 2048 keys and 256 dims the forward and backward plans are
+    the ones of the kernels before the streamed and wide variants (the
+    digest of that commit's plans over the same grid), so those shapes keep
+    their launches and their bits."""
+    assert _plans_digest(K8) == "f9a4d244b97d891d"
+
+
+LIMIT_KEYS = (2049, 3073, 5000)
+WIDE_DIMS = (257, 320, 512, 1024, 2048)
+
+
+@pytest.mark.parametrize("Lq", [1, 15, 33])
+@pytest.mark.parametrize("Lk,Dh", [(Lk, 64) for Lk in LIMIT_KEYS]
+                         + [(Lk, 256) for Lk in LIMIT_KEYS]
+                         + [(Lk, Dh) for Lk in (15, 96) for Dh in WIDE_DIMS]
+                         + [(5000, Dh) for Dh in (320, 2048)])
+def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq, Lk, Dh):
+    """Past 2048 keys and 256 dims, causal (kv_len0 1) and full: the forward
+    plan's score passes and P . v chunks take every (row, key) a row sees
+    once each (none it does not see), every output row is written once a
+    chunk, the chunks' lanes take every dim once; the backward plan takes
+    every (row, key) once and writes every key's dk and dv rows once; both
+    within the H100's shared memory.  One query row: the row kernel (its
+    wide variant past 256 dims), its scores within MAX_LK keys; more: the
+    streamed kernel wherever the resident tile kernel's rows would drop
+    below 16 (or past 256 dims), the tile kernel elsewhere."""
+    B, H = 512, 8
+    fwd = K8.attention_forward_plan(B, Lq, Lk, H, Dh)
+    bwd = K8.attention_backward_plan(B, Lq, Lk, H, Dh)
+    wide = Dh > K8.CHUNK_DIMS
+    chunks = -(-Dh // (32 * fwd.per_lane)) if fwd.kernel != "row" else 1
+    assert chunks == (-(-Dh // 256) if wide else 1)
+    assert _dims_walk(Dh, fwd.per_lane, chunks).sum() == Dh
+    assert _dims_walk(Dh, bwd.per_lane, -(-Dh // (32 * bwd.per_lane))).sum() == Dh
+    for kv_len0 in (1, Lk):
+        seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+        scores, pv, written = _forward_walk(Lq, Lk, kv_len0, fwd, chunks)
+        passes = 2 + chunks if fwd.kernel == "stream" else 1
+        assert np.array_equal(scores, passes * seen.astype(int))
+        assert np.array_equal(pv, chunks * seen.astype(int))
+        assert (written == chunks).all()
+        taken, bwd_written = _backward_walk(Lq, Lk, kv_len0, bwd)
+        assert np.array_equal(taken, seen.astype(int))
+        assert (bwd_written == 1).all()
+    assert fwd.smem_bytes <= H100_SMEM and bwd.smem_bytes <= H100_SMEM
+    if Lq == 1:
+        assert fwd.kernel == ("row_wide" if wide else "row") and Lk <= K8.MAX_LK
+        assert bwd.kernel == ("row_wide" if wide else "row")
+        return
+    assert fwd.kernel == "stream" if wide or Lk > 2490 else fwd.kernel == "tile"
+    assert fwd.blocks == B * H * -(-Lq // fwd.rows) and fwd.threads == 32 * -(-fwd.rows // 4)
+    if fwd.kernel == "stream":
+        assert fwd.rows == min(Lq, 32)
+        assert fwd.keys == (K8.WIDE_KEYS if wide else min(-(-Lk // 8) * 8, 256 // fwd.per_lane))
+        assert fwd.smem_bytes == 4 * (2 * fwd.keys * 32 * fwd.per_lane + fwd.rows * fwd.keys)
+    if wide:
+        assert bwd.kernel == "tile_wide" and bwd.rows == min(Lq, K8.WIDE_ROWS)
+        assert (bwd.per_lane, bwd.keys, bwd.threads) == (8, K8.WIDE_KEYS, 256)
+    else:
+        assert bwd.kernel == "tile" and bwd.rows == min(Lq, 32)
+
+
+def test_attention_forward_plan_streams_where_the_score_rows_no_longer_fit():
+    """The resident tile kernel keeps a row tile of 16 up to about 2490 keys
+    (as at 2048); past it the streamed kernel takes row tiles of 32 with
+    shared memory that does not grow with Lk; a call with fewer rows than
+    16 streams where those rows no longer fit; ``stream`` forces it."""
+    plan = lambda Lq, Lk, Dh=64, **kw: K8.attention_forward_plan(512, Lq, Lk, 8, Dh, **kw)
+    assert plan(96, 2400)[:4] == ("tile", 2, 128, 16)
+    assert plan(96, 2500) == K8.ForwardPlan("stream", 2, 128, 32, 4, 256, 12288,
+                                            4 * (2 * 128 * 64 + 32 * 128))
+    assert plan(96, 5000) == plan(96, 2500)
+    assert plan(15, 2500).kernel == "stream" and plan(2, 5000)[:4] == ("tile", 2, 128, 2)
+    assert plan(96, 96, stream=True) == K8.ForwardPlan("stream", 2, 96, 32, 4, 256, 12288,
+                                                       4 * (2 * 96 * 64 + 32 * 96))
+    assert plan(15, 15, 512) == K8.ForwardPlan("stream", 8, 8, 15, 4, 128, 4096,
+                                               4 * (2 * 8 * 256 + 15 * 8))
+    assert plan(1, 5000, 512)[:3] == ("row_wide", 8, 5000)
 
 
 def _prefix(Lk: int, t: int):
