@@ -26,7 +26,8 @@ the parent's bits; so must K3 and K10 at hidden 128 and 256, phase 2h).
 With ``--parent`` K8's viewport batch (62 serving launches) and a d 512
 training step's 62 forward and 62 backward launches are also timed against
 the parent's in turns (parent, this, this, parent; ``earlier_check``, ratio
-within PARENT_MARGIN of 1).  ``--vp-train N`` runs only phase 11, N times
+within PARENT_MARGIN of 1), and so are the 62 backward launches of a
+``--his-window 96`` step (``his96_earlier_check``).  ``--vp-train N`` runs only phase 11, N times
 over (each training's weights differ), and prints each run's step checks;
 ``--limits`` runs only phase 2i and the vp_test_long, vp_train_long and
 vp_train_wide paths.
@@ -299,16 +300,26 @@ training with a keep mask at 0.1 and backward, f32 and bf16, against the
 plain versions at phase 2d's and 2f's tolerances, two launches bit-equal,
 each timed beside its bound, plain version and SDPA; the streamed kernel
 forced at 96 and 2048 keys gives the resident kernel's bits
-(``forced_stream``).  Three paths run past those limits at the MTIO's
+(``forced_stream``).  The backward of more than one query row past 2048
+keys runs K8's split kernels (row ``attention_backward_split``: a CTA a
+key tile for dK and dV, a CTA a row tile for dQ), forced at 15 x 2500
+where the rule keeps the one-CTA tile kernel; the one-CTA kernel beside
+it gives the same bits (``one_cta_ms``), and so does the split forced at
+SPLIT_FORCED's shapes (``forced_split``: both timed, the rule's choice in
+``planned``).  Three paths run past those limits at the MTIO's
 full width, each listing its reductions: vp_test_long (``run_models
 --test --his-window 5000``, one batch of LONG_TEST_BATCH timed, its first
 LONG_HELD samples held against the plain path, the metrics finite),
 vp_train_long (``--train --his-window 5000`` at --bs LONG_TRAIN_BATCH: the
 first step from Flax's initialisers by ``compare_vp_steps``, one step
 timed) and vp_train_wide (``--train --hidden-dim 4096``, bs 512: the same,
-then a validation batch through the serving kernels).  K8 counts these
-variants' launches in modes of their own (``f32_stream``, ``bf16_stream``,
-``f32_wide``, ``bf16_wide``), each in its row for both element types.
+then a validation batch through the serving kernels); vp_train_long
+also profiles a step (K8's backward share of the device's busy time, the
+host's share of the step).  K8 counts these variants' launches in modes
+of their own (``f32_stream``, ``bf16_stream``, ``f32_wide``, ``bf16_wide``,
+``f32_split``, ``bf16_split``), each in its row for both element types.
+Phase 2 also holds K4 at horizons 5, 6 and 7 in every mode on
+LONG_HORIZON_LANES lanes (``long_horizons`` in its row).
 
 Every phase raises on failure; the last line of a successful run is the
 ``{"ok": true, "device": ...}`` JSON object.  Without a card it exits 1.
@@ -425,6 +436,21 @@ LIMIT_WIDE_BATCH = 64   # phase 2i: the batch of the wide cases but 512 dims' (r
 LIMIT_LONG_BATCH = 64   # phase 2i: the batch past 2048 keys but the 5000 x 5000 encoder's (from
 #                         512: at 512 a decode over 5000 keys has dk and dv of 5.2 GB in f32,
 #                         and its checks' temporaries run the card out of memory)
+ONE_CTA_REPS = 2        # phase 2i: timings a call of the one-CTA backward past 2048 keys (~0.7 s)
+# phase 2i: the split backward and the one-CTA tile kernel, each forced (B, Lq, Lk, kv_len0,
+# Dh): the training shapes and the --his-window 96 encoder at --bs 512, two at 2048 keys, the
+# his-96 encoder and the causal pass at a batch of 4, where B H CTAs leave the card idle, and
+# the teacher-forced cross-attention over 2500 keys at B 16 and 32 (128 and 256 (b, head))
+SPLIT_FORCED = {"encoder": (512, 5, 5, None, 64), "causal_tf": (512, 15, 15, 1, 64),
+                "cross_tf": (512, 15, 3, None, 64), "encoder_96": (512, 96, 96, None, 64),
+                "rows_33_keys_2048": (8, 33, 2048, None, 48),
+                "rows_30_keys_2048_dh256": (8, 30, 2048, None, 256),
+                "encoder_96_b4": (4, 96, 96, None, 64), "causal_tf_b4": (4, 15, 15, 1, 64),
+                "cross_tf_2500_b16": (16, 15, 2500, None, 64),
+                "cross_tf_2500_b32": (32, 15, 2500, None, 64)}
+LONG_HORIZON_LANES = {5: 16, 6: 4, 7: 1}  # phase 2: K4's lanes a horizon past 4 (the plain
+#                         version a lane at a time: at 7 its trace walk holds ~40 f32
+#                         temporaries of 15^7 entries, ~30 GB, and takes ~1.2 s)
 LONG_HIS = 5000         # vp_test_long, vp_train_long: --his-window at JAX's positional table's end
 LONG_TEST_BATCH = 64    # vp_test_long: --bs (reduced from 512: the encoder's q, k, v of 655 MB)
 LONG_TRAIN_BATCH = 4    # vp_train_long: --bs (reduced from 512: a keep mask of 512 x 8 x 5000^2 B)
@@ -518,6 +544,13 @@ KERNELS = {
                                     source=f"{PKG}/kernels/csrc/attention_backward.cu",
                                     replaces="mansy_immersivevideostreaming_tpu/models/"
                                              "vp_train.py:65"),
+    # K8's split backward (more than one query row past 2048 keys: a CTA a
+    # key tile for dK and dV, a CTA a row tile for dQ), f32 and bf16, with
+    # the launches of the --his-window 5000 training path
+    "attention_backward_split": dict(route="cuda",
+                                     source=f"{PKG}/kernels/csrc/attention_backward_split.cu",
+                                     replaces="mansy_immersivevideostreaming_tpu/models/"
+                                              "vp_train.py:65"),
     # the simple_rl (A2C) modes: K2's simple mode, K3 and K10 on the
     # five-branch net without the cond branch, K9's A2C mode; each with the
     # launches of the simple_rl paths
@@ -556,7 +589,8 @@ MODE_SUFFIX = {None: "", "cond64": "_h64", "cond128": "", "cond192": "_h192", "c
                "condwide": "_wide",
                **{f"simple{k}": "_simple" for k in (64, 128, 192, 256, "wide")}, "ce": "", "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16", "gather": "",
                "derived": "_derived", "f32_stream": "_stream", "bf16_stream": "_stream",
-               "f32_wide": "_wide", "bf16_wide": "_wide"}
+               "f32_wide": "_wide", "bf16_wide": "_wide", "f32_split": "_split",
+               "bf16_split": "_split"}
 SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
@@ -1173,9 +1207,64 @@ def check_search(name, got, ref_action, ref_margin, first, wsum):
     return int((~decisive).sum()), int((action != ref_action).sum()), err
 
 
+def long_horizon_cases(K4, X, tables, etables, state, acc_hat) -> dict:
+    """K4 past the expert's default horizon: at 5, 6 and 7 (the JAX CLIs
+    take any --horizon, the kernel 1 to 7) in every mode on
+    LONG_HORIZON_LANES lanes, from both halves of ``search_lanes`` (7 and
+    52 steps into their episodes; the first half's lane alone at 7), against its plain version by the
+    near-tie rule (``check_search``), the plain version a lane at a time
+    (its 15^h totals); two launches give the same action.  Each horizon is
+    timed in the trace mode beside its bound and the plain version (its
+    calls a lane at a time, LIMIT_REPS and 1 timings)."""
+    from mansy_immersivevideostreaming_torch.sim.env import tree_map
+    A, half, dev = tables.action_space, state.buf.shape[0] // 2, state.buf.device
+    cases = {}
+    for horizon, n in LONG_HORIZON_LANES.items():
+        idx = torch.tensor([*range((n + 1) // 2), *range(half, half + n // 2)], device=dev)
+        sub = tree_map(lambda x: x[idx], state)
+        lanes = [tree_map(lambda x: x[i:i + 1], sub) for i in range(n)]
+        bw_hat = X.causal_bw_estimate(tables, sub)
+        modes = {"trace": (None, None, None), "bw_hat": (bw_hat, None, None),
+                 "acc_hat": (None, acc_hat[idx], None),
+                 "use_corr": (bw_hat, acc_hat[idx], torch.arange(n, device=dev) % 2 == 0)}
+        checks, err = {}, 0.0
+        for mode, lane_args in modes.items():
+            got = K4.choose_action(tables, etables, sub, horizon, *lane_args, return_margin=True)
+            refs, firsts = [], []
+            for i, lane in enumerate(lanes):
+                one = tuple(None if x is None else x[i:i + 1] for x in lane_args)
+                refs.append(X.choose_action_plain(tables, etables, lane, horizon, *one,
+                                                  return_margin=True))
+                firsts.append(X.first_action_values(
+                    X.sequence_totals(tables, etables, lane, horizon, *one), A))
+            ref_action, ref_margin = (torch.cat(x) for x in zip(*refs))
+            near, differ, m_err = check_search(
+                f"{mode}, horizon {horizon}", got, ref_action, ref_margin, torch.cat(firsts),
+                tables.qoe_weights[sub.qoe_id.long()].sum(-1))
+            if not torch.equal(K4.choose_action(tables, etables, sub, horizon, *lane_args),
+                               got[0]):
+                raise AssertionError(f"choose_action ({mode}, horizon {horizon}): two launches "
+                                     f"differ")
+            checks[mode] = dict(lanes_under_margin=near, lanes_differing=differ)
+            err = max(err, m_err)
+            del refs, firsts
+        cases[f"horizon_{horizon}"] = dict(
+            lanes=n, sequences_a_lane=A ** horizon, checks=checks, max_abs_err=err,
+            ms=gpu_ms(lambda: K4.choose_action(tables, etables, sub, horizon), LIMIT_REPS),
+            plain_ms=gpu_ms(lambda: [X.choose_action_plain(tables, etables, lane, horizon)
+                                     for lane in lanes], 1),
+            bound_ms=1e3 * search_flops(tables, sub, horizon) / F32_FLOP_PER_S,
+            bound_by="operations")
+        torch.cuda.empty_cache()
+        log(f"choose_action at horizon {horizon} on {n} lanes: "
+            f"{json.dumps(cases[f'horizon_{horizon}'])}")
+    return cases
+
+
 def expert_kernel_phase(dev, parent=None):
     """K5 on the train split's tables and the test split's, K4 on
-    SEARCH_LANES lanes in every mode at horizon 4, then K2 at each path's
+    SEARCH_LANES lanes in every mode at horizon 4 (and at 5, 6 and 7 on a
+    few lanes, ``long_horizon_cases``), then K2 at each path's
     width and K3 at LANES with the action values attached and the v16
     weights (with ``parent``, the parent commit's K5 and K2 timed beside
     them).  Returns (rows of K4 and K5, K2 and K3's extra fields)."""
@@ -1262,7 +1351,8 @@ def expert_kernel_phase(dev, parent=None):
                                                acc_hat=dagger_acc)),
             plain_ms=gpu_ms(lambda: X.choose_action_plain(tables, etables, dagger, HORIZON,
                                                           acc_hat=dagger_acc), 3),
-            bound_ms=1e3 * search_flops(tables, dagger, HORIZON) / F32_FLOP_PER_S))
+            bound_ms=1e3 * search_flops(tables, dagger, HORIZON) / F32_FLOP_PER_S),
+        long_horizons=long_horizon_cases(K4, X, tables, etables, state, acc_hat))
     del state, chunk, dagger
 
     # K2 with the accuracy-corrected action values, K3 with v16, at LANES
@@ -2801,7 +2891,8 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
     rate = 0.1
     shapes = {f"decode_t{t}": (1, F, t + 1) for t in range(F)}
     shapes.update(cross=(1, 3, None), encoder=(5, 5, None), causal_tf=(F, F, 1),
-                  cross_tf=(F, 3, None), encoder_96=(96, 96, None), decode_256=(1, 256, None))
+                  cross_tf=(F, 3, None), encoder_96=(96, 96, None), cross_48=(1, 48, None),
+                  decode_256=(1, 256, None))
     fwd_cases, bwd_cases, fwd_err, bwd_err, inputs = {}, {}, 0.0, 0.0, {}
     for name, (Lq, Lk, kv_len0) in shapes.items():
         q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=gen) for L in (Lq, Lk, Lk))
@@ -2877,10 +2968,14 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
                 dout, q, k, v, *fwd, kv_len0, keep, rate))
     # a training step's launches: each encoder layer once, then per decode
     # step each decoder layer's self-attention at t and cross-attention; with
-    # teacher forcing each decoder layer's causal pass and cross-attention
+    # teacher forcing each decoder layer's causal pass and cross-attention;
+    # at --his-window 96 the encoder's 96 x 96 and the cross-attention over
+    # the distilled 48
     L = args.block_num
-    mixes = {"step": {"encoder": L, "cross": F * L, **{f"decode_t{t}": L for t in range(F)}},
-             "teacher_forced_step": {"encoder": L, "causal_tf": L, "cross_tf": L}}
+    decode = {f"decode_t{t}": L for t in range(F)}
+    mixes = {"step": {"encoder": L, "cross": F * L, **decode},
+             "teacher_forced_step": {"encoder": L, "causal_tf": L, "cross_tf": L},
+             "his96_step": {"encoder_96": L, "cross_48": F * L, **decode}}
     if sum(mixes["step"].values()) != attention_launches(args):
         raise AssertionError(f"attention: the step mix {mixes['step']} is not a step's launches")
     rows = {}
@@ -2900,20 +2995,23 @@ def attention_training_cases(K8, dev, gen, args, floor_ms: float, parent=None) -
     if parent is not None:  # a d 512 training step's 62 launches of each, in turns
         P8 = parent.attention
 
-        def step_of(fn):
-            return lambda: [fn(*inputs[name]) for name, n in mixes["step"].items()
+        def step_of(fn, mix="step"):
+            return lambda: [fn(*inputs[name]) for name, n in mixes[mix].items()
                             for _ in range(n)]
 
         forward = lambda train_forward: step_of(
             lambda dout, q, k, v, fwd, kv_len0, keep: train_forward(q, k, v, kv_len0, keep,
                                                                     rate))
-        backward = lambda backward_fn: step_of(
+        backward = lambda backward_fn, mix="step": step_of(
             lambda dout, q, k, v, fwd, kv_len0, keep: backward_fn(dout, q, k, v, *fwd, kv_len0,
-                                                                  keep, rate))
+                                                                  keep, rate), mix)
         rows["attention_train_forward"]["batch"]["earlier_check"] = parent_turns(
             forward(K8.attention_train_forward), forward(P8.attention_train_forward))
         rows["attention_backward"]["batch"]["earlier_check"] = parent_turns(
             backward(K8.attention_backward), backward(P8.attention_backward))
+        rows["attention_backward"]["batch"]["his96_earlier_check"] = parent_turns(
+            backward(K8.attention_backward, "his96_step"),
+            backward(P8.attention_backward, "his96_step"))
     return rows
 
 
@@ -3070,14 +3168,14 @@ def library_ms(fn, reps: int):
 
 def limit_row(kind: str, plan, Dh: int, dtype) -> str:
     """The kernels-line row of a phase 2i case: the wrapper's row in the mode
-    its launch is counted in (``forward_mode``; the backward's ``_wide``
-    past 256 dims); the streamed and wide variants take both element types
-    in one row (MODE_SUFFIX)."""
+    its launch is counted in (``forward_mode``; for the backward, whose
+    ``plan`` is the backward's, ``backward_mode``: the split's ``_split``
+    past 2048 keys, ``_wide`` past 256 dims); the streamed, wide and split
+    variants take both element types in one row (MODE_SUFFIX)."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     base = {"serve": "attention", "train": "attention_train_forward",
             "backward": "attention_backward"}[kind]
-    suffix = (K8.forward_mode(plan, Dh) if kind != "backward"
-              else ("_wide" if Dh > K8.CHUNK_DIMS else ""))
+    suffix = K8.forward_mode(plan, Dh) if kind != "backward" else K8.backward_mode(plan)
     return base + (suffix or ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
@@ -3093,9 +3191,15 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
     at 0.1 and backward, in f32 and bf16, each against its plain version
     at phase 2d's training tolerance (f32) or phase 2f's ulp and slack
     (bf16), two launches bit-equal; each timed (LIMIT_REPS calls) beside
-    its bound, its plain version and SDPA (``library_ms``).  The streamed
-    kernel forced at 96 and 2048 keys gives the resident kernel's bits
-    (``forced_stream``).  Returns the five new rows and, for the rows of
+    its bound, its plain version and SDPA (``library_ms``).  The backward
+    of more than one row past 2048 keys runs the split (forced where the
+    rule takes the one-CTA kernel: 15 x 2500 at B LIMIT_LONG_BATCH, its
+    choice in ``planned``), with the one-CTA tile kernel's bits and time
+    beside it (``one_cta_ms``, ONE_CTA_REPS calls).  The streamed kernel
+    forced at 96 and 2048 keys gives the resident kernel's bits
+    (``forced_stream``), and the split and the one-CTA backward, each
+    forced, give the same bits at SPLIT_FORCED's shapes, each timed
+    (``forced_split``).  Returns the six new rows and, for the rows of
     the row kernel and the narrow backward, ``cases_past_limits``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
@@ -3120,7 +3224,10 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
 
     for name, (B, Lq, Lk, kv_len0, Dh) in shapes.items():
         plan = K8.attention_forward_plan(B, Lq, Lk, H, Dh)
-        bplan = K8.attention_backward_plan(B, Lq, Lk, H, Dh)
+        # the split backward past 2048 keys, forced where the rule keeps the one-CTA tile
+        # kernel (15 x 2500: one row tile), the one-CTA kernel beside it
+        split = True if Lq > 1 and Dh <= K8.CHUNK_DIMS and Lk > K8.SPLIT_KEYS else None
+        bplan = K8.attention_backward_plan(B, Lq, Lk, H, Dh, split)
         seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
         allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -3181,7 +3288,7 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
             leaves_ = [x.clone().requires_grad_() for x in (q, k, v)]
             want = torch.autograd.grad(K8.attention_plain(*leaves_, kv_len0, keep, rate),
                                        leaves_, dout)
-            grads = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate)
+            grads = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate, split)
             scale = max(float(w.abs().max()) for w in want)
             err = 0.0
             for g, w, sl in zip(grads, want, slack[1:] if bf16 else (None,) * 3):
@@ -3193,22 +3300,33 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
                 else:
                     err = max(err, float((g - w).abs().max()))
             if not all(torch.equal(a, b) for a, b in zip(grads, K8.attention_backward(
-                    dout, q, k, v, *fwd, kv_len0, keep, rate))):
+                    dout, q, k, v, *fwd, kv_len0, keep, rate, split))):
                 raise AssertionError(f"attention_backward ({label}): two launches differ")
+            one_cta = {}
+            if split:  # the one-CTA tile kernel's bits, and its time
+                if not all(torch.equal(a, b) for a, b in zip(grads, K8.attention_backward(
+                        dout, q, k, v, *fwd, kv_len0, keep, rate, split=False))):
+                    raise AssertionError(f"attention_backward ({label}): the split's bits differ "
+                                         f"from the one-CTA tile kernel's")
+                one_cta = dict(
+                    one_cta_bits_equal=True,
+                    planned=K8.attention_backward_plan(B, Lq, Lk, H, Dh).kernel,
+                    one_cta_ms=gpu_ms(lambda: K8.attention_backward(
+                        dout, q, k, v, *fwd, kv_len0, keep, rate, split=False), ONE_CTA_REPS))
             del want, grads, slack
             qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
             dout_t = dout.transpose(1, 2)
-            record(limit_row("backward", plan, Dh, dtype), label, err, dict(
+            record(limit_row("backward", bplan, Dh, dtype), label, err, dict(
                 B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=Dh, dtype=tag, dropout=rate,
                 plan=bplan._asdict(),
-                ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate),
-                          reps),
+                ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate,
+                                                        split), reps),
                 plain_ms=gpu_ms(lambda: K8.attention_backward_plain(dout, q, k, v, *fwd, kv_len0,
                                                                     keep, rate), reps),
                 library_ms=library_ms(lambda: torch.autograd.grad(
                     sdpa(qg, kg, vg, attn_mask=allowed), (qg, kg, vg), dout_t), reps),
                 **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True, elem),
-                        rate_ops)))
+                        rate_ops), **one_cta))
             del q, k, v, dout, keep, fwd, leaves_, qg, kg, vg
         torch.cuda.empty_cache()
         log(f"phase 2i: {name} checked and timed (the card's peak so far "
@@ -3234,19 +3352,57 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
             if not same:
                 raise AssertionError(f"attention ({name}, {tag}): the streamed kernel's bits "
                                      f"differ from the resident kernel's")
+            seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
+            allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
+            elem, rate_ops = (2, BF16_FLOP_PER_S) if dtype == torch.bfloat16 else (4,
+                                                                                 F32_FLOP_PER_S)
             forced[f"{name}_{tag}"] = dict(
                 B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=64, bits_equal=True,
                 resident_plan=K8.attention_forward_plan(B, Lq, Lk, H, 64)._asdict(),
                 resident_ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0), reps),
                 streamed_ms=gpu_ms(serve_stream, reps),
+                plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0), reps),
+                library_ms=library_ms(lambda: sdpa(*(x.transpose(1, 2) for x in (q, k, v)),
+                                                   attn_mask=allowed), reps),
+                **bound(*attention_cost(B, Lq, Lk, H, 64, kv_len0, elem), rate_ops),
                 train_resident_ms=gpu_ms(lambda: K8.attention_train_forward(
                     q, k, v, kv_len0, keep, rate), reps),
                 train_streamed_ms=gpu_ms(lambda: K8.attention_train_forward(
                     q, k, v, kv_len0, keep, rate, stream=True), reps))
 
+    # the split backward and the one-CTA tile kernel, each forced where the rule takes the
+    # one-CTA kernel: the same bits, and both times beside the rule's choice
+    forced_split = {}
+    for name, (B, Lq, Lk, kv_len0, Dh) in SPLIT_FORCED.items():
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v, dout = (torch.randn(B, L, H, Dh, device=dev, generator=gen).to(dtype)
+                             for L in (Lq, Lk, Lk, Lq))
+            keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(
+                torch.uint8)
+            for mask in (None, keep):
+                fwd = K8.attention_train_forward(q, k, v, kv_len0, mask, rate)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        K8.attention_backward(dout, q, k, v, *fwd, kv_len0, mask, rate,
+                                              split=False),
+                        K8.attention_backward(dout, q, k, v, *fwd, kv_len0, mask, rate,
+                                              split=True))):
+                    raise AssertionError(f"attention_backward ({name}, {tag}): the split's bits "
+                                         f"differ from the one-CTA tile kernel's")
+            forced_split[f"{name}_{tag}"] = dict(
+                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=Dh, bits_equal=True,
+                planned=K8.attention_backward_plan(B, Lq, Lk, H, Dh).kernel,
+                one_cta_plan=K8.attention_backward_plan(B, Lq, Lk, H, Dh, split=False)._asdict(),
+                split_plan=K8.attention_backward_plan(B, Lq, Lk, H, Dh, split=True)._asdict(),
+                one_cta_ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0,
+                                                                keep, rate, split=False), reps),
+                split_ms=gpu_ms(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep,
+                                                              rate, split=True), reps))
+            del q, k, v, dout, keep, fwd
+
     rows = {}
     mains = {"attention_stream": "encoder_5000_f32",
              "attention_train_forward_stream": "encoder_5000_f32",
+             "attention_backward_split": "encoder_5000_f32",
              **{row: "decode_dh512_f32" for row in ("attention_wide",
                                                     "attention_train_forward_wide",
                                                     "attention_backward_wide")}}
@@ -3254,10 +3410,11 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
         m = cases[row][main]
         rows[row] = dict(max_abs_err=errs[row],
                          **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms")},
+                                              "library_ms", "one_cta_ms") if k in m},
                          main_case=main, timing_floor_ms=floor_ms,
                          bits_equal_on_two_launches=True, cases=cases[row])
     rows["attention_stream"]["forced_stream"] = forced
+    rows["attention_backward_split"]["forced_split"] = forced_split
     for row in set(cases) - set(mains):  # the row kernel and the narrow backward, past 2048 keys
         rows[row] = dict(cases_past_limits=cases[row], max_abs_err_past_limits=errs[row])
     return rows
@@ -3951,8 +4108,9 @@ def vp_train_long_phase(dev, counters):
     (reduced from 512: the encoder's keep mask alone would be 512 x 8 x
     5000^2 bytes, 102 GB): the first step from Flax's initialisers through
     the kernels against the plain path (``compare_vp_steps``; the encoder's
-    training forward on K8's streamed kernel, its backward on the tile
-    kernel over 5000 keys), then one step timed after a warm-up."""
+    training forward on K8's streamed kernel, its backward on the split
+    kernels over 5000 keys), then one step timed after a warm-up and one
+    profiled (``vp_train_step_path``'s ``profile``)."""
     from mansy_immersivevideostreaming_torch.cli import run_models
 
     args = run_models.build_parser().parse_args(
@@ -3960,7 +4118,7 @@ def vp_train_long_phase(dev, counters):
          str(LONG_TRAIN_BATCH)])
     result, _ = vp_train_step_path(dev, counters, args, 43, dict(
         bs=f"{LONG_TRAIN_BATCH} (from {VP_BATCH}): the encoder's keep mask at 512 would be "
-           f"512 x 8 x 5000^2 bytes, 102 GB"))
+           f"512 x 8 x 5000^2 bytes, 102 GB"), profile=True)
     return dict(result, encoder_attention=[args.his_window] * 2,
                 cross_attention_keys=-(-args.his_window // 2))
 
@@ -3988,11 +4146,14 @@ def vp_train_wide_phase(dev, counters):
     return dict(result, valid_mse=mse, valid_launches=valid_launches)
 
 
-def vp_train_step_path(dev, counters, args, seed: int, reduced: dict):
+def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: bool = False):
     """One ``run_models --train`` configuration's first step from Flax's
     initialisers held against the plain path (``compare_vp_steps``), then a
-    step timed after a warm-up; the loss must be finite.  Returns (the
-    path's result, the trained model)."""
+    step timed after a warm-up; the loss must be finite.  With ``profile``,
+    a step under ``torch.profiler`` too (``step_profile``, K8's device ms in
+    ``k8_device_ms``): K8's backward share of the device's busy time and
+    the host's share of the step (the share the device is idle).  Returns
+    (the path's result, the trained model)."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
@@ -4010,18 +4171,26 @@ def vp_train_step_path(dev, counters, args, seed: int, reduced: dict):
                                attention_backward=per_step), 1)
     if not math.isfinite(float(loss)):
         raise AssertionError(f"{args.his_window} / {args.hidden_dim}: non-finite loss")
-    return dict(steps=1, batch=args.bs, his_window=args.his_window, hidden_dim=args.hidden_dim,
-                heads=[8, args.hidden_dim // 8], reduced=reduced, step_seconds=seconds[0],
-                samples_per_s=args.bs / seconds[0], loss=float(loss), kernels_vs_plain=check,
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                launches=launches), model
+    result = dict(steps=1, batch=args.bs, his_window=args.his_window, hidden_dim=args.hidden_dim,
+                  heads=[8, args.hidden_dim // 8], reduced=reduced, step_seconds=seconds[0],
+                  samples_per_s=args.bs / seconds[0], loss=float(loss), kernels_vs_plain=check,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    if profile:
+        prof, k8 = profile_update(step, 1), attention_kernel_ms(step)
+        captured = prof["device_captured"] and k8["device_captured"]
+        result.update(step_profile=prof, k8_device_ms=k8,
+                      backward_share_of_device=(k8["backward_ms"] / prof["device_busy_ms_per_step"]
+                                                if captured else None),
+                      host_share_of_step=1 - prof["busy_share"] if captured else None)
+    return result, model
 
 
 # K8's kernels by the names the profiler gives them: the forward's row and
-# tile kernels, the backward's delta, row and tile kernels
+# tile kernels, the backward's delta, row, tile and split kernels
 K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kernel<"),
                    "forward_tile": ("attention_tile_kernel<", "attention_stream_kernel<"),
                    "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<",
+                                "backward_dkv_kernel<", "backward_dq_kernel<",
                                 "delta_wide_kernel<", "backward_row_wide_kernel<",
                                 "backward_tile_wide_kernel<")}
 
@@ -5405,7 +5574,7 @@ def main() -> int:
                     "vp_train_bf16": ("attention_train_forward_bf16", "attention_backward_bf16"),
                     "vp_test_long": ("attention", "attention_stream", "tile_occupancy"),
                     "vp_train_long": ("attention_train_forward", "attention_train_forward_stream",
-                                      "attention_backward"),
+                                      "attention_backward", "attention_backward_split"),
                     "vp_train_wide": ("attention_train_forward_wide", "attention_backward_wide",
                                       "attention_wide"),
                     "simple_rl": simple + ("compute_gae", "actor_critic_train_forward_simple",

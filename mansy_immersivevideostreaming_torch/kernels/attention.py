@@ -29,9 +29,13 @@ a score's per-lane partial carried across the chunks before the butterfly.
 ``csrc/attention_backward.cu`` recomputes P from those statistics, bit for
 bit, at any number of query rows and keys: a warp a (b, head) for one query
 row, else a CTA a (b, head) over tiles of keys and rows, and past 256 dims
-the same two layouts over the chunks (:func:`attention_backward_plan`).
+the same two layouts over the chunks; past 2048 keys at few (b, head)
+pairs ``csrc/attention_backward_split.cu`` takes the same sums over two
+grids of tiles (a CTA a (b, head, row tile) for dQ, then a CTA a (b,
+head, key tile) for dK and dV) (:func:`attention_backward_plan`).
 Every launch is counted by element type and variant (``launches_by_mode``:
-``f32``, ``bf16``, with ``_stream`` or ``_wide`` for those variants).
+``f32``, ``bf16``, with ``_stream``, ``_wide`` or ``_split`` for those
+variants).
 :func:`attention` picks the path: the plain version for CPU tensors, the
 training forward and the backward kernel (:class:`_AttentionFunction`) when
 autograd needs a gradient, else the serving kernel.  The projections, the
@@ -69,6 +73,11 @@ WIDE_KEYS = 8      # the wide backward kernels (and the wide streamed forward): 
 WIDE_ROWS = 8      # the wide backward tile kernel: rows a row tile (a warp a row)
 SMEM_BYTES = 232448  # the H100's shared memory a block (227 KB)
 MAX_LK = SMEM_BYTES // (4 * ROW_WARPS)  # 14528: keys of one query row's f32 scores, 4 a CTA
+SPLIT_KEYS = 2048      # the backward of more than one row tile splits past these keys
+SPLIT_MAX_HEADS = 256  # and below these (b, head) pairs (half the tile kernel's 528 CTAs
+#                        resident on the H100, 4 an SM): from there the one-CTA grid fills the
+#                        card and the split's second score pass costs more than it gains
+SPLIT_TILE_KEYS = 16  # the split backward's keys a tile (two rows' scores fill a warp's lanes)
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types, by their code
 MODES = ("f32", "bf16")  # the launch-count mode of each element type (``launches_by_mode``)
 
@@ -223,7 +232,7 @@ class _AttentionArgs(ctypes.Structure):
 
 
 class _AttentionBackwardArgs(ctypes.Structure):
-    """Mirror of ``AttentionBackwardArgs`` in ``csrc/attention_backward.cu``."""
+    """Mirror of ``AttentionBackwardArgs`` in ``csrc/attention_backward.cuh``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in ("dout", "q", "k", "v", "o", "row_max",
                                                  "row_sum", "keep", "dq", "dk", "dv")]
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
@@ -236,9 +245,12 @@ class BackwardPlan(NamedTuple):
     """The backward's launch (``csrc/attention_backward.cu``): ``kernel`` is
     "row" (one query row: a warp a (b, head), ``threads // 32`` a CTA) or
     "tile" (a CTA a (b, head) over key tiles of ``keys`` keys and row tiles
-    of ``rows`` rows); a lane holds ``per_lane`` dims of a row.  Past 256
-    dims, "row_wide" and "tile_wide": the same layouts over chunks of 256
-    dims (8 a lane), ``keys`` = WIDE_KEYS."""
+    of ``rows`` rows); a lane holds ``per_lane`` dims of a row.
+    "tile_split": the tile kernel's sums in two launches, a CTA a (b, head,
+    row tile) for dQ, then a CTA a (b, head, key tile) for dK and dV;
+    ``blocks`` counts both grids' CTAs.  Past 256 dims, "row_wide" and
+    "tile_wide": the row and tile layouts over chunks of 256 dims (8 a
+    lane), ``keys`` = WIDE_KEYS."""
     kernel: str
     per_lane: int
     keys: int
@@ -252,7 +264,8 @@ def _pow2_at_least(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
-def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> BackwardPlan:
+def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
+                            split: Optional[bool] = None) -> BackwardPlan:
     """The plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  A lane holds
     the next power of two of ceil(Dh / 32) dims (1 to 8); a key tile the
     least power of two of keys, at least 4, that holds Lk, up to 32 / that
@@ -267,7 +280,25 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> Backwa
     CHUNK_DIMS dims a lane holds 8 dims of each chunk of 256: one query row
     takes the wide row kernel (a warp a (b, head)), more the wide tile
     kernel (8 warps a (b, head), a warp a row, row tiles of WIDE_ROWS rows,
-    k, v, q, dO and o staged a chunk at a time), key tiles of WIDE_KEYS."""
+    k, v, q, dO and o staged a chunk at a time), key tiles of WIDE_KEYS.
+    More than one row tile (MAX_ROW_TILE rows) past SPLIT_KEYS keys at up
+    to 256 dims, at fewer than SPLIT_MAX_HEADS (b, head) pairs, takes the
+    split ("tile_split", ``csrc/attention_backward_split.cu``): the tile
+    kernel's rows and shared memory at SPLIT_TILE_KEYS keys a tile (the
+    same bits at any tile), 8 warps a CTA, B H (key tiles + row tiles) CTAs
+    in place of B H, so a 5000 x 5000 backward at B 2 fills the card.  With
+    one row tile the split's dQ grid is the tile kernel's own B H CTAs,
+    each walking every key tile, and where B H CTAs fill the card the
+    split's second pass of score work costs more than the idle SMs it
+    fills: both make it slower (on the H100 in f32 at 15 x 2500, B 16, 32
+    and 64: 1.203, 1.729 and 3.046 ms against 1.108, 1.313 and 1.999), so
+    the tile kernel stays there.  The rule leaves every plan up to
+    SPLIT_KEYS keys as it was.  ``split`` True forces the split, False the
+    tile kernel, for more than one query row at up to 256 dims (else a
+    ``ValueError``); None, the default, is the rule."""
+    if split is not None and (Lq == 1 or Dh > CHUNK_DIMS):
+        raise ValueError(f"attention: the split backward's choice takes more than one query "
+                         f"row of at most {CHUNK_DIMS} dims, got Lq {Lq}, Dh {Dh}")
     if Dh > CHUNK_DIMS:
         if Lq == 1:
             return BackwardPlan("row_wide", 8, WIDE_KEYS, 1, 256, -(-B * H // 8), 0)
@@ -280,13 +311,25 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int) -> Backwa
     if Lq == 1:
         return BackwardPlan("row", per_lane, min(keys, 32 // per_lane), 1, 256, -(-B * H // 8),
                             0)
-    keys = min(keys, 16, 64 // per_lane)
+    if split is None:
+        split = Lk > SPLIT_KEYS and Lq > MAX_ROW_TILE and B * H < SPLIT_MAX_HEADS
+    keys = SPLIT_TILE_KEYS if split else min(keys, 16, 64 // per_lane)
     width = 32 * per_lane
     per_row = 4 * (3 * width + 2 * keys + 2) + keys
     rows = min(Lq, MAX_ROW_TILE, (SMEM_BYTES - 4 * 2 * keys * width) // per_row)
     smem = 4 * (2 * keys * width + 3 * rows * width + 2 * rows * keys + 2 * rows) + rows * keys
+    if split:  # 8 warps a CTA, a warp two rows at a time
+        return BackwardPlan("tile_split", per_lane, keys, rows, 256,
+                            B * H * (-(-Lk // keys) + -(-Lq // rows)), smem)
     warps = 4 if rows * keys <= 128 else 8  # the faster of the two on the H100's shapes
     return BackwardPlan("tile", per_lane, keys, rows, 32 * warps, B * H, smem)
+
+
+def backward_mode(plan: BackwardPlan) -> str:
+    """The launch-count mode suffix of a backward plan's kernels: "" for the
+    row and tile kernels, "_split" for the split, "_wide" past 256 dims."""
+    modes = {"row_wide": "_wide", "tile_wide": "_wide", "tile_split": "_split"}
+    return modes.get(plan.kernel, "")
 
 
 class ForwardPlan(NamedTuple):
@@ -372,9 +415,11 @@ def _forward_launch():
 
 
 @functools.lru_cache(maxsize=None)
-def _backward_launch():
-    """The backward kernels' launcher, its signature set once."""
-    fn = build.load("attention_backward").attention_backward_launch
+def _backward_launch(split: bool):
+    """The launcher of the backward's row, tile and wide kernels, or of the
+    split kernels, its signature set once."""
+    lib = "attention_backward_split" if split else "attention_backward"
+    fn = getattr(build.load(lib), f"{lib}_launch")
     fn.argtypes = [ctypes.POINTER(_AttentionBackwardArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -452,12 +497,15 @@ def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, row_max: torch.Tensor, row_sum: torch.Tensor,
                        kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
-                       rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       rate: float = 0.0, split: Optional[bool] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the training mode's output from its gradient ``dout``,
     its inputs, its output and its row statistics, at any number of query
     rows and keys and any head width.  CPU tensors take
-    :func:`attention_backward_plain`; CUDA tensors launch the kernel of
-    :func:`attention_backward_plan`."""
+    :func:`attention_backward_plain`; CUDA tensors launch the kernels of
+    :func:`attention_backward_plan`.  For more than one query row ``split``
+    True takes the split kernels and False the one-CTA tile kernel whatever
+    the rule (the two give the same bits)."""
     if q.device.type == "cpu":
         return attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, rate)
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
@@ -465,15 +513,16 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
                                   ("row_max", row_max, (B, H, Lq), torch.float32),
                                   ("row_sum", row_sum, (B, H, Lq), torch.float32)):
         _check(name, t, shape, dtype, q.device)
-    plan = attention_backward_plan(B, Lq, Lk, H, Dh)
+    plan = attention_backward_plan(B, Lq, Lk, H, Dh, split)
     elem = _elem(q, k, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # bf16: each row's D, the dQ chains in f32 between key tiles (tile
-    # kernels; past 256 dims the row kernel's too), and past 256 dims the
-    # tile kernel's dK and dV sums in f32 between row tiles
-    wide = Dh > CHUNK_DIMS
+    # bf16: each row's D, the dQ chains in f32 between key tiles (the tile
+    # kernels but the split; past 256 dims the row kernel's too), and past
+    # 256 dims the tile kernel's dK and dV sums in f32 between row tiles
+    wide, split = Dh > CHUNK_DIMS, plan.kernel == "tile_split"
     delta = torch.empty(B, H, Lq, device=q.device) if elem else None
-    dq_acc = torch.empty(q.shape, device=q.device) if elem and (Lq > 1 or wide) else None
+    dq_acc = (torch.empty(q.shape, device=q.device)
+              if elem and ((Lq > 1 and not split) or wide) else None)
     dkv_acc = (torch.empty((2,) + tuple(k.shape), device=q.device)
                if elem and Lq > 1 and wide else None)
     args = _AttentionBackwardArgs(
@@ -486,11 +535,11 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
         warps=plan.threads // 32, delta=None if delta is None else delta.data_ptr(),
         dq_acc=None if dq_acc is None else dq_acc.data_ptr(),
         dkv_acc=None if dkv_acc is None else dkv_acc.data_ptr())
-    err = _backward_launch()(ctypes.byref(args), elem,
-                             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _backward_launch(split)(ctypes.byref(args), elem,
+                                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed with CUDA error {err}")
-    count_launch(attention_backward, MODES[elem] + ("_wide" if wide else ""))
+    count_launch(attention_backward, MODES[elem] + backward_mode(plan))
     return dq, dk, dv
 
 

@@ -61,6 +61,10 @@
 //     issue of the score phase (about 450 warp instructions a row of a
 //     16-key tile, most of them the per-lane chains, the reduce-scatter and
 //     the dQ chain), not by the bytes.
+//   split (more than one query row past 2048 keys at few (b, head) pairs,
+//     where this kernel's B H CTAs leave the card idle):
+//     csrc/attention_backward_split.cu, this kernel's sums, bit for bit,
+//     over a grid of row tiles for dQ and one of key tiles for dK and dV.
 //   past 256 dims (backward_row_wide_kernel, backward_tile_wide_kernel): the
 //     same two layouts over the head's chunks of 256 dims, 8 a lane, key
 //     tiles of 8 keys: the per-lane partials of a score and of a dP' carried over
@@ -97,6 +101,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "attention_backward.cuh"
 #include "attention_common.cuh"
 #include "common.cuh"
 #include "elem.cuh"
@@ -121,64 +126,13 @@ using mansy::tc::cp_async_wait;
 namespace {
 
 constexpr int kRowWarps = 8;    // row kernel: warps (b, heads) a CTA
-constexpr int kMaxRows = 32;    // tile kernel: rows a row tile
 constexpr int kDeltaWarps = 4;  // delta_kernel: warps (rows) a CTA
 constexpr int kWideKeys = 8;    // the wide kernels (Dh > 256): keys a tile
 constexpr int kWideRows = 8;    // the wide tile kernel: rows a row tile, a warp a row
 
 }  // namespace
 
-// Field order must match kernels/attention.py:_AttentionBackwardArgs.
-struct AttentionBackwardArgs {
-  const void* dout;      // T [B, Lq, H, Dh]
-  const void* q;         // T [B, Lq, H, Dh]
-  const void* k;         // T [B, Lk, H, Dh]
-  const void* v;         // T [B, Lk, H, Dh]
-  const void* o;         // T [B, Lq, H, Dh] (f32 only: null in bf16, which reads no o)
-  const float* row_max;  // [B, H, Lq]
-  const float* row_sum;  // [B, H, Lq]
-  const uint8_t* keep;   // [B, H, Lq, Lk], or null without dropout
-  void* dq;              // T [B, Lq, H, Dh]
-  void* dk;              // T [B, Lk, H, Dh]
-  void* dv;              // T [B, Lk, H, Dh]
-  int32_t B, Lq, Lk, H, Dh, kv_len0;
-  float scale;           // sqrt(Dh)
-  float keep_prob;       // 1 - dropout rate
-  // the plan (kernels/attention.py:attention_backward_plan)
-  int32_t per_lane;      // P: dims a lane holds (1, 2, 4 or 8)
-  int32_t keys;          // M: keys a tile (4, 8, 16 or 32; M P <= 32)
-  int32_t rows;          // rows a row tile (tile kernel; 1 for the row kernel)
-  int32_t warps;         // warps a CTA (tile kernel: 4 or 8; the row kernel: 8)
-  // bf16 only
-  float* delta;          // [B, H, Lq]: D of each row (delta_kernel writes it)
-  float* dq_acc;         // [B, Lq, H, Dh]: the tile kernel's dQ chains (Lq > 1; any Lq
-                         // past 256 dims)
-  float* dkv_acc;        // [2, B, Lk, H, Dh]: the wide tile kernel's dK and dV sums (Lq > 1,
-                         // Dh > 256)
-};
-
 namespace {
-
-// One (row, key) of the backward from its score and dP': (P', dS / scale),
-// both 0 for a key the row does not see.
-struct Grad {
-  float pd, ds;
-};
-
-template <typename T>
-__device__ __forceinline__ Grad grad_of(const AttentionBackwardArgs& a, bool seen, float score,
-                                        float dpd, float mx, float sum, float D, bool masked,
-                                        bool kept) {
-  if (!seen) return {0.f, 0.f};
-  const float p = expf(score - mx) / sum;  // the forward's P
-  const float dpr = round_as<T>(dpd);      // bf16: dP' is a bf16 product
-  float pd = p, dp = dpr;                  // P' and dP' * M / kp
-  if (masked) {
-    pd = kept ? p / a.keep_prob : 0.f;
-    dp = kept ? dpr / a.keep_prob : 0.f;
-  }
-  return {round_as<T>(pd), p * (dp - D) / a.scale};
-}
 
 // ---- bf16: D = sum_k g_k P_k of each row, a warp a (b, row, head) ----
 // The scores and dP' as the forward and the row and tile kernels take them
@@ -880,14 +834,6 @@ inline size_t tile_wide_smem_bytes(int rows) {
   return sizeof(float) * (2 * (size_t)kWideKeys * kChunkDims + 3 * (size_t)rows * kChunkDims +
                           2 * (size_t)rows * kWideKeys + 2 * (size_t)rows) +
          (size_t)rows * kWideKeys;
-}
-
-// The tile kernel's shared memory: the k and v tiles, the q, dO and o rows of
-// a row tile, its P' and dS, its row max and sum, and its keep bytes.
-inline size_t tile_smem_bytes(int P, int M, int rows) {
-  return sizeof(float) * (2 * (size_t)M * 32 * P + 3 * (size_t)rows * 32 * P +
-                          2 * (size_t)rows * M + 2 * (size_t)rows) +
-         (size_t)rows * M;
 }
 
 template <typename T, int P, int M>

@@ -587,6 +587,54 @@ def test_choose_action_kernel_breaks_ties_by_full_index_on_card(cuda_device, hor
     assert torch.equal(again[0], action) and torch.equal(again[1], margin)
 
 
+# K4 past the expert's default horizon (the JAX CLIs take any --horizon, the
+# kernel 1 to 7): lanes held at each horizon, spread over the 96 stepped
+# lanes.  The plain version runs a lane at a time: at 7 a lane's 15^7 totals
+# are 683 MB of f32, and its trace walk holds ~40 such temporaries.
+LONG_HORIZON_LANES = {5: 16, 6: 4, 7: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [5, 6, 7])
+@pytest.mark.parametrize("mode", ["trace", "bw_hat", "acc_hat", "use_corr"])
+def test_choose_action_kernel_at_long_horizons_on_card(cuda_device, horizon, mode):
+    """K4 at horizons 5, 6 and 7 in every mode against its plain version, by
+    the near-tie rule of ``test_choose_action_kernel_matches_plain_on_card``
+    (margins within 1e-5, the plain action on every lane whose margin
+    exceeds 1e-5, elsewhere one within 1e-5 of the best first-action
+    value); two launches give the same bits."""
+    tables = _perturbed_tables(cuda_device)
+    samples = torch.as_tensor(generate_demo_samples(3, 4, 3, 4, 17), device=cuda_device)
+    etables = X.build_expert_tables_plain(tables)
+    n = LONG_HORIZON_LANES[horizon]
+    lanes = torch.linspace(0, N - 1, n, device=cuda_device).long()
+    state = tree_map(lambda x: x[lanes], _stepped_lanes(tables, samples, steps=9))
+    bw_hat = X.causal_bw_estimate(tables, state) if mode in ("bw_hat", "use_corr") else None
+    acc_hat = viewport_acc_estimate(state.past_acc) if mode in ("acc_hat", "use_corr") else None
+    use_corr = (torch.arange(n, device=cuda_device) % 2 == 0) if mode == "use_corr" else None
+    search = (bw_hat, acc_hat, use_corr)
+    action, margin = K4.choose_action(tables, etables, state, horizon, *search,
+                                      return_margin=True)
+    refs, firsts = [], []
+    for i in range(n):
+        lane = tree_map(lambda x: x[i:i + 1], state)
+        one = tuple(None if x is None else x[i:i + 1] for x in search)
+        refs.append(X.choose_action_plain(tables, etables, lane, horizon, *one,
+                                          return_margin=True))
+        firsts.append(X.first_action_values(
+            X.sequence_totals(tables, etables, lane, horizon, *one), 15))
+    ref_action, ref_margin = (torch.cat(x) for x in zip(*refs))
+    torch.testing.assert_close(margin, ref_margin, rtol=1e-5, atol=1e-5)
+    first = torch.cat(firsts)
+    wsum = tables.qoe_weights[state.qoe_id.long()].sum(-1)
+    gap = (first.amax(-1) - first.gather(1, action.long()[:, None])[:, 0]) / wsum
+    decisive = ref_margin > 1e-5
+    assert torch.equal(action[decisive], ref_action[decisive])
+    assert bool((gap <= 1e-5).all())
+    again = K4.choose_action(tables, etables, state, horizon, *search, return_margin=True)
+    assert torch.equal(again[0], action) and torch.equal(again[1], margin)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_av", [False, True])
 def test_actor_critic_cluster_follows_n_on_card(cuda_device, use_av):
@@ -1098,9 +1146,10 @@ def _attention_bf16_matches_plain(K8, B, shape, H, Dh, dropout, seed):
     out = K8.attention(*leaves, kv_len0, keep, 0.1)
     assert torch.equal(out, o)
     assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(out, leaves, dout), got))
-    # the bf16 modes: past 2048 keys the streamed kernel's, past 256 dims the wide kernels'
+    # the bf16 modes: past 2048 keys the streamed kernel's and the split's, past 256 dims
+    # the wide kernels'
     modes = ("bf16" + K8.forward_mode(K8.attention_forward_plan(B, Lq, Lk, H, Dh), Dh),
-             "bf16" + ("_wide" if Dh > K8.CHUNK_DIMS else ""))
+             "bf16" + K8.backward_mode(K8.attention_backward_plan(B, Lq, Lk, H, Dh)))
     for w, counts, mode in zip((K8.attention_train_forward, K8.attention_backward), before,
                                modes):
         assert w.launches_by_mode[mode] == counts.get(mode, 0) + 1
@@ -1278,13 +1327,19 @@ def test_attention_past_2048_keys_on_card(cuda_device, Lq, Lk, kv_len0, dtype):
     """Serving, training (keep mask at 0.1) and backward over up to 5000
     keys, 2 heads of 64, a batch of 2, against the plain versions at the
     tolerances of the ragged-shape test; two launches bit-equal; more than
-    one query row takes the streamed kernel, counted in its own mode."""
+    one query row takes the streamed kernel, and more than a row tile the
+    split backward, each counted in its own mode."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     plan = K8.attention_forward_plan(2, Lq, Lk, 2, 64)
     assert plan.kernel == ("row" if Lq == 1 else "stream")
+    assert K8.attention_backward_plan(2, Lq, Lk, 2, 64).kernel == (
+        "row" if Lq == 1 else "tile_split" if Lq > 32 else "tile")
     seed = Lq + Lk
-    mode = ("f32" if dtype == torch.float32 else "bf16") + ("_stream" if Lq > 1 else "")
+    elem = "f32" if dtype == torch.float32 else "bf16"
+    mode = elem + ("_stream" if Lq > 1 else "")
+    backward_mode = elem + ("_split" if Lq > 32 else "")
     before = K8.attention_train_forward.launches_by_mode.get(mode, 0)
+    before_backward = K8.attention_backward.launches_by_mode.get(backward_mode, 0)
     if dtype == torch.bfloat16:
         _attention_bf16_matches_plain(K8, 2, (Lq, Lk, kv_len0), 2, 64, True, seed)
     else:
@@ -1298,6 +1353,7 @@ def test_attention_past_2048_keys_on_card(cuda_device, Lq, Lk, kv_len0, dtype):
         torch.testing.assert_close(serve, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
         _attention_training_matches_plain(K8, 2, (Lq, Lk, kv_len0), 2, 64, True, seed)
     assert K8.attention_train_forward.launches_by_mode[mode] > before
+    assert K8.attention_backward.launches_by_mode[backward_mode] > before_backward
 
 
 # heads past 256 dims (H 3, a batch of 2): one query row (the decode step),
@@ -1363,6 +1419,41 @@ def test_attention_streamed_kernel_gives_the_resident_bits_on_card(cuda_device, 
         resident = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1)
         streamed = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1, stream=True)
         assert all(torch.equal(a, b) for a, b in zip(resident, streamed))
+
+
+# the split backward forced where the one-CTA tile kernel runs (Lq, Lk,
+# kv_len0, Dh): the encoder's 5 x 5, the teacher-forced causal 15 x 15 and
+# cross 15 x 3, the --his-window 96 encoder, 2048 keys at Dh 48 and 256, and
+# each other dims-a-lane instance off the 16-byte staging (Dh 16, 33, 100)
+SPLIT_SHAPES = [(5, 5, None, 64), (15, 15, 1, 64), (15, 3, None, 64), (96, 96, None, 64),
+                (33, 2048, None, 48), (30, 2048, None, 256), (35, 40, 1, 16),
+                (40, 33, None, 33), (33, 120, 7, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_backward_split_gives_the_one_cta_bits_on_card(cuda_device, Lq, Lk, kv_len0,
+                                                                 Dh, dtype):
+    """The split backward (a CTA a key tile for dK and dV, a CTA a row tile
+    for dQ) forced where the one-CTA tile kernel runs: dq, dk and dv bit for
+    bit the tile kernel's, with and without a keep mask at 0.1, a batch of
+    3 and 3 heads; each launch counted in its own mode."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_backward_plan(3, Lq, Lk, 3, Dh).kernel == "tile"
+    assert K8.attention_backward_plan(3, Lq, Lk, 3, Dh, split=True).kernel == "tile_split"
+    g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk + Dh)
+    q, k, v, dout = (torch.randn(3, L, 3, Dh, device=cuda_device, generator=g).to(dtype)
+                     for L in (Lq, Lk, Lk, Lq))
+    keep = (torch.rand(3, 3, Lq, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
+    mode = ("f32" if dtype == torch.float32 else "bf16") + "_split"
+    for mask in (None, keep):
+        fwd = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1)
+        tile = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, mask, 0.1)
+        before = K8.attention_backward.launches_by_mode.get(mode, 0)
+        split = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, mask, 0.1, split=True)
+        assert K8.attention_backward.launches_by_mode[mode] == before + 1
+        assert all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(split, tile))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,12 @@ gradients of ``MHA.attend`` and of K8's plain versions on the CPU.
 * ``attention_backward_plan`` (K8's backward): at 1 to 2048 rows and keys
   and Dh 4 to 256, causal and full, every (row, key) that a row sees is
   taken once, every key's dk and dv rows written once, with a compiled
-  instantiation and shared memory within 227 KB.
+  instantiation and shared memory within 227 KB.  Past 2048 keys more
+  than one row takes the split: its dK/dV grid (a CTA a key tile) and its
+  dQ grid (a CTA a row tile), walked by tile ranges up to 5000 x 5000,
+  each take every (row, key) once, dK and dV over the rows and dQ over the
+  keys in ascending order; ``split`` forces it or the tile kernel, and a
+  CPU call with it takes the plain version.
 * ``attention_forward_plan`` (K8's forward): at 1 to 2048 rows and keys and
   Dh 4 to 256, causal and full, the score and P . v phases each take every
   (row, key) a row sees once, every output row is written once and the
@@ -413,11 +418,15 @@ BACKWARD_SIZES = (1, 15, 64, 65, 96, 2048)
 
 
 def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
-    """(times each (row, key) is taken, times each key's dk and dv rows are
-    written) as ``csrc/attention_backward.cu`` walks them: the row kernel
-    the row's seen keys in tiles of ``keys``, then the unseen keys' zeros;
-    the tile kernel each key tile that some row sees, over the row tiles
-    from the first row that sees it, and a key tile's rows once."""
+    """(times each (row, key) is taken, one array a kernel's walk; times
+    each key's dk and dv rows are written) as ``csrc/attention_backward.cu``
+    walks them: the row kernel the row's seen keys in tiles of ``keys``,
+    then the unseen keys' zeros; the tile kernel (and the split's dK and dV
+    kernel) each key tile that some row sees, over the row tiles from the
+    first row that sees it, and a key tile's rows once; the split's dQ
+    kernel (``csrc/attention_backward_split.cu``) each row tile over the key
+    tiles up to the last key a row of it sees, a row taking the tiles that
+    start below its prefix."""
     taken, written = np.zeros((Lq, Lk), int), np.zeros(Lk, int)
     seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
     if plan.kernel in ("row", "row_wide"):
@@ -426,7 +435,7 @@ def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
             taken[0, j0:min(n, j0 + plan.keys)] += 1
             written[j0:min(n, j0 + plan.keys)] += 1
         written[n:] += 1
-        return taken, written
+        return [taken], written
     n_max = min(Lk, kv_len0 + Lq - 1)
     for j0 in range(0, Lk, plan.keys):
         j1 = min(Lk, j0 + plan.keys)
@@ -435,7 +444,16 @@ def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
                 r1 = min(Lq, r0 + plan.rows)
                 taken[r0:r1, j0:j1] += seen[r0:r1, j0:j1]
         written[j0:j1] += 1
-    return taken, written
+    if plan.kernel != "tile_split":
+        return [taken], written
+    dq_taken = np.zeros((Lq, Lk), int)
+    for r0 in range(0, Lq, plan.rows):
+        rn = min(plan.rows, Lq - r0)
+        for j0 in range(0, min(Lk, kv_len0 + r0 + rn - 1), plan.keys):
+            for r in range(r0, r0 + rn):
+                if j0 < min(Lk, kv_len0 + r):
+                    dq_taken[r, j0:j0 + plan.keys] += seen[r, j0:j0 + plan.keys]
+    return [taken, dq_taken], written
 
 
 @pytest.mark.parametrize("Lq", BACKWARD_SIZES)
@@ -451,7 +469,7 @@ def test_attention_backward_plan_covers_every_row_and_key_once(Lq, Lk, Dh):
     H100."""
     for kv_len0 in (1, Lk):
         plan = K8.attention_backward_plan(512, Lq, Lk, 8, Dh)
-        taken, written = _backward_walk(Lq, Lk, kv_len0, plan)
+        (taken,), written = _backward_walk(Lq, Lk, kv_len0, plan)
         seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
         assert np.array_equal(taken, seen.astype(int))
         assert (written == 1).all()
@@ -647,7 +665,10 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
     within the H100's shared memory.  One query row: the row kernel (its
     wide variant past 256 dims), its scores within MAX_LK keys; more: the
     streamed kernel wherever the resident tile kernel's rows would drop
-    below 16 (or past 256 dims), the tile kernel elsewhere."""
+    below 16 (or past 256 dims), the tile kernel elsewhere; the backward
+    past 2048 keys at up to 256 dims the tile kernel at B 512 and for one
+    row tile, and the split at B 2 for 33 rows, whose two walks each take
+    every (row, key) once."""
     B, H = 512, 8
     fwd = K8.attention_forward_plan(B, Lq, Lk, H, Dh)
     bwd = K8.attention_backward_plan(B, Lq, Lk, H, Dh)
@@ -663,8 +684,8 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
         assert np.array_equal(scores, passes * seen.astype(int))
         assert np.array_equal(pv, chunks * seen.astype(int))
         assert (written == chunks).all()
-        taken, bwd_written = _backward_walk(Lq, Lk, kv_len0, bwd)
-        assert np.array_equal(taken, seen.astype(int))
+        takens, bwd_written = _backward_walk(Lq, Lk, kv_len0, bwd)
+        assert all(np.array_equal(taken, seen.astype(int)) for taken in takens)
         assert (bwd_written == 1).all()
     assert fwd.smem_bytes <= H100_SMEM and bwd.smem_bytes <= H100_SMEM
     if Lq == 1:
@@ -681,7 +702,14 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
         assert bwd.kernel == "tile_wide" and bwd.rows == min(Lq, K8.WIDE_ROWS)
         assert (bwd.per_lane, bwd.keys, bwd.threads) == (8, K8.WIDE_KEYS, 256)
     else:
-        assert bwd.kernel == "tile" and bwd.rows == min(Lq, 32)
+        assert bwd.kernel == "tile" and bwd.rows == min(Lq, 32)  # 4096 (b, head) fill the card
+        split = K8.attention_backward_plan(2, Lq, Lk, H, Dh)  # at B 2 the split takes 33 rows
+        assert split.kernel == ("tile_split" if Lk > K8.SPLIT_KEYS and Lq > 32 else "tile")
+        for kv_len0 in (1, Lk):
+            takens, split_written = _backward_walk(Lq, Lk, kv_len0, split)
+            seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+            assert all(np.array_equal(taken, seen.astype(int)) for taken in takens)
+            assert (split_written == 1).all()
 
 
 def test_attention_forward_plan_streams_where_the_score_rows_no_longer_fit():
@@ -700,6 +728,128 @@ def test_attention_forward_plan_streams_where_the_score_rows_no_longer_fit():
     assert plan(15, 15, 512) == K8.ForwardPlan("stream", 8, 8, 15, 4, 128, 4096,
                                                4 * (2 * 8 * 256 + 15 * 8))
     assert plan(1, 5000, 512)[:3] == ("row_wide", 8, 5000)
+
+
+# the (dims a lane, keys a tile) instantiations of the split backward
+SPLIT_KERNELS = {(1, 16), (2, 16), (4, 16), (8, 16)}
+
+
+def _split_intervals(Lq: int, Lk: int, kv_len0: int, plan):
+    """The split backward's walks as ``csrc/attention_backward_split.cu`` takes
+    them, as tile ranges: (dkv, dq).  dkv: per key tile (j0, j1, the row
+    ranges its CTA walks, in order); dq: per row tile (r0, r1, the key
+    ranges its CTA walks, in order)."""
+    n_max = min(Lk, kv_len0 + Lq - 1)
+    dkv = []
+    for j0 in range(0, Lk, plan.keys):
+        r_first = max(0, j0 - kv_len0 + 1)
+        rows = ([(r0, min(Lq, r0 + plan.rows)) for r0 in range(r_first, Lq, plan.rows)]
+                if j0 < n_max else [])
+        dkv.append((j0, min(Lk, j0 + plan.keys), rows))
+    dq = []
+    for r0 in range(0, Lq, plan.rows):
+        r1 = min(Lq, r0 + plan.rows)
+        n_cta = min(Lk, kv_len0 + r1 - 1)  # the last key a row of the tile sees, + 1
+        dq.append((r0, r1, [(j0, min(Lk, j0 + plan.keys)) for j0 in range(0, n_cta, plan.keys)]))
+    return dkv, dq
+
+
+def _ascending_cover(ranges, lo: int, hi: int) -> bool:
+    """Whether ``ranges``, in order, cover [lo, hi) once, in ascending order
+    (each starting where the last ended)."""
+    return bool(ranges) and ranges[0][0] == lo and ranges[-1][1] == hi and all(
+        a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:] + [(hi, hi + 1)]))
+
+
+@pytest.mark.parametrize("Lq", [15, 33, 5000])
+@pytest.mark.parametrize("Lk", [2049, 3073, 5000])
+@pytest.mark.parametrize("Dh", [48, 64, 256])
+def test_attention_backward_split_takes_every_row_and_key_once_in_order(Lq, Lk, Dh):
+    """The split backward's plan (the rule's choice past 2048 keys for more
+    than one row tile at fewer than SPLIT_MAX_HEADS (b, head) pairs; forced
+    for one), causal (kv_len0 1) and full: its dK and dV kernel adds every
+    row that sees a key to that key's sums once, the rows in ascending
+    order, and
+    writes every key's dk and dv rows once (keys no row sees as zeros); its
+    dQ kernel takes every key a row sees into that row's chain once, the
+    keys in ascending order.  By tile ranges (a row adds nothing to the sums
+    of a key it does not see, so a walk may start before a key's first
+    row).  A lane's dims hold Dh, the (dims, keys) name a compiled
+    instantiation, the blocks are both grids' CTAs, and the shared memory
+    is the tile kernel's at the same tiles: 4 CTAs an SM at up to 64 dims,
+    one at 8 dims a lane."""
+    B, H = 2, 8  # the --his-window 5000 encoder's (b, head) pairs in phase 2i
+    plan = K8.attention_backward_plan(B, Lq, Lk, H, Dh, split=True)
+    rule = K8.attention_backward_plan(B, Lq, Lk, H, Dh)
+    assert rule == plan if Lq > 32 else rule.kernel == "tile"
+    assert plan.kernel == "tile_split" and (plan.per_lane, plan.keys) in SPLIT_KERNELS
+    assert 32 * plan.per_lane >= Dh > 16 * plan.per_lane
+    assert plan.rows == min(Lq, 32) and plan.threads == 256
+    key_tiles, row_tiles = -(-Lk // plan.keys), -(-Lq // plan.rows)
+    assert plan.blocks == B * H * (key_tiles + row_tiles)
+    width = 32 * plan.per_lane
+    assert plan.smem_bytes == 4 * (2 * plan.keys * width + 3 * plan.rows * width
+                                   + 2 * plan.rows * plan.keys + 2 * plan.rows) \
+        + plan.rows * plan.keys
+    assert plan.smem_bytes <= H100_SMEM and (Dh > 64 or 4 * plan.smem_bytes <= H100_SMEM)
+    for kv_len0 in (1, Lk):
+        dkv, dq = _split_intervals(Lq, Lk, kv_len0, plan)
+        assert len(dkv) == key_tiles and _ascending_cover([(j0, j1) for j0, j1, _ in dkv], 0, Lk)
+        for j0, j1, rows in dkv:
+            first = max(0, j0 - kv_len0 + 1)  # the first row that sees key j0
+            if first >= Lq:                   # no row sees the tile: zeros
+                assert rows == []
+            else:                             # and none before `first` sees a later key
+                assert _ascending_cover(rows, first, Lq)
+        assert len(dq) == row_tiles and _ascending_cover([(r0, r1) for r0, r1, _ in dq], 0, Lq)
+        for r0, r1, keys in dq:
+            starts, ends = np.array(keys).T
+            assert starts[0] == 0 and (starts[1:] == ends[:-1]).all() and (starts < ends).all()
+            # a row takes the tiles that start below its prefix n, so [0, n) once, in order
+            n = np.minimum(Lk, kv_len0 + np.arange(r0, r1))
+            assert (ends[np.searchsorted(starts, n) - 1] >= n).all()
+            assert starts[-1] < n.max()  # no tile past the last key a row of the tile sees
+
+
+def test_attention_backward_split_is_forced_and_refused_as_planned():
+    """``split`` True forces the split wherever the tile kernel runs (the
+    same rows as the rule gives, 16 keys a tile, 8 warps), False the tile
+    kernel where the rule splits; either refuses one query row and heads
+    past 256 dims.  The rule: the split past 2048 keys for more than 32
+    rows below SPLIT_MAX_HEADS (b, head) pairs; the tile kernel at 2048
+    keys (the digest below), for one row tile, and at B 32 and 64 of 8
+    heads."""
+    plan = lambda Lq, Lk, Dh=64, B=512, **kw: K8.attention_backward_plan(B, Lq, Lk, 8, Dh,
+                                                                        **kw)
+    assert plan(96, 96, split=True) == K8.BackwardPlan(
+        "tile_split", 2, 16, 32, 256, 512 * 8 * (6 + 3), plan(96, 96).smem_bytes)
+    assert plan(5, 5, split=True)[:5] == ("tile_split", 2, 16, 5, 256)
+    assert plan(30, 2048, 256, split=True)[:5] == ("tile_split", 8, 16, 30, 256)
+    assert plan(33, 2048, B=2).kernel == "tile" and plan(33, 2049, B=2).kernel == "tile_split"
+    assert plan(33, 2049, B=31).kernel == "tile_split"
+    assert plan(33, 5000, B=32).kernel == plan(33, 5000, B=64).kernel == "tile"
+    assert plan(32, 5000, B=2).kernel == plan(15, 2500, B=4).kernel == "tile"
+    assert plan(33, 2049, B=2) == plan(33, 2049, B=2, split=True)
+    assert plan(33, 5000, B=2, split=False) == K8.BackwardPlan("tile", 2, 16, 32, 256, 2 * 8,
+                                                               plan(33, 5000).smem_bytes)
+    for Lq, Dh in ((1, 64), (15, 257), (1, 512)):
+        for split in (True, False):
+            with pytest.raises(ValueError, match="split backward"):
+                plan(Lq, 96, Dh, split=split)
+
+
+def test_attention_backward_split_on_cpu_takes_the_plain_version():
+    """CPU tensors take the plain version with ``split`` too, and count no
+    launch."""
+    rng = np.random.default_rng(21)
+    q, k, v, dout = (torch.as_tensor(rng.standard_normal((2, L, 2, 8)), dtype=torch.float32)
+                     for L in (5, 7, 7, 5))
+    o, row_max, row_sum = K8.attention_train_forward_plain(q, k, v, 3)
+    before = (K8.attention_backward.launches, dict(K8.attention_backward.launches_by_mode))
+    got = K8.attention_backward(dout, q, k, v, o, row_max, row_sum, 3, split=True)
+    want = K8.attention_backward_plain(dout, q, k, v, o, row_max, row_sum, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (K8.attention_backward.launches, K8.attention_backward.launches_by_mode) == before
 
 
 def _prefix(Lk: int, t: int):
