@@ -30,7 +30,8 @@ within PARENT_MARGIN of 1), and so are the 62 backward launches of a
 ``--his-window 96`` step (``his96_earlier_check``).  ``--vp-train N`` runs only phase 11, N times
 over (each training's weights differ), and prints each run's step checks;
 ``--limits`` runs only phase 2i and the vp_test_long, vp_train_long and
-vp_train_wide paths.
+vp_train_wide paths (with ``--parent``, phase 2i's ``earlier_ms`` and the
+three paths in turns with the parent's K8 too).
 
 Phases:
 
@@ -289,7 +290,7 @@ entry, with the two paths' values there.
 
 Phase 2i holds K8 past its earlier limits of 2048 keys and 256 dims: the
 row kernel over 3073 and 5000 keys (decode at --fut-window 5000, B
-LIMIT_LONG_BATCH), the streamed tile kernel (rows ``attention_stream``,
+LIMIT_LONG_BATCH), the streamed kernel on the tensor cores (rows ``attention_stream``,
 ``attention_train_forward_stream``) at the --his-window 5000 encoder's
 5000 x 5000 (full and causal, B 2) and its teacher-forced cross-attention
 15 x 2500 (B LIMIT_LONG_BATCH), and the wide kernels (rows ``attention_wide``,
@@ -298,10 +299,13 @@ LIMIT_LONG_BATCH), the streamed tile kernel (rows ``attention_stream``,
 96 x 96; B 512 at 512 dims, LIMIT_WIDE_BATCH at the others): serving,
 training with a keep mask at 0.1 and backward, f32 and bf16, against the
 plain versions at phase 2d's and 2f's tolerances, two launches bit-equal,
-each timed beside its bound, plain version and SDPA; the streamed kernel
-forced at 96 and 2048 keys gives the resident kernel's bits
-(``forced_stream``).  The backward of more than one query row past 2048
-keys runs K8's split kernels (row ``attention_backward_split``: a CTA a
+each timed beside its bound, plain version and SDPA (the streamed kernel
+also beside its bound on the tensor cores, ``bound_3xtf32_ms`` or
+``bound_bf16_mma_ms``, and with ``--parent`` the streamed and wide rows
+beside the parent commit's kernel in turns, ``earlier_ms``); the streamed
+kernel forced at 96 and 2048 keys agrees with the resident kernel and the
+plain version at those tolerances (``forced_stream``).  The backward of
+more than one query row past 2048 keys runs K8's split kernels (row ``attention_backward_split``: a CTA a
 key tile for dK and dV, a CTA a row tile for dQ), forced at 15 x 2500
 where the rule keeps the one-CTA tile kernel; the one-CTA kernel beside
 it gives the same bits (``one_cta_ms``), and so does the split forced at
@@ -531,9 +535,10 @@ KERNELS = {
                                     source=f"{PKG}/kernels/csrc/attention_backward.cu",
                                     replaces="mansy_immersivevideostreaming_tpu/models/"
                                              "vp_train.py:65"),
-    # K8 past 2048 keys and 256 dims: the streamed tile kernel (more than
-    # one query row where the resident score rows no longer fit) and the
-    # wide kernels (heads past 256 dims, in chunks of 256), each in f32 and
+    # K8 past 2048 keys and 256 dims: the streamed kernel on the tensor cores
+    # (more than one query row where the resident score rows no longer fit,
+    # and past 256 dims) and the wide kernels (heads past 256 dims, in chunks
+    # of 256), each in f32 and
     # bf16, with the launches of the --his-window 5000 and --hidden-dim 4096
     # paths
     **{f"attention{mode}": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
@@ -2720,14 +2725,15 @@ def earlier_forward(earlier, current, args, label: str) -> dict:
     return dict(earlier_ms=gpu_ms(lambda: earlier(*args)), earlier_bits_equal=same)
 
 
-def parent_turns(this, that) -> dict:
+def parent_turns(this, that, reps: int = 15) -> dict:
     """``this`` tree's call against the parent's, ``that``, timed in turns
-    (parent, this, this, parent) on the same inputs: the ratio of the two
-    sums, within PARENT_MARGIN of 1 or not (``within_margin``)."""
-    turns = [gpu_ms(that), gpu_ms(this), gpu_ms(this), gpu_ms(that)]
+    (parent, this, this, parent; ``reps`` calls a timing) on the same
+    inputs: the parent's mean (``earlier_ms``), the ratio of the two sums,
+    within PARENT_MARGIN of 1 or not (``within_margin``)."""
+    turns = [gpu_ms(that, reps), gpu_ms(this, reps), gpu_ms(this, reps), gpu_ms(that, reps)]
     ratio = (turns[1] + turns[2]) / (turns[0] + turns[3])
-    return dict(turns_ms_parent_this_this_parent=turns, ratio=ratio,
-                within_margin=abs(ratio - 1) <= PARENT_MARGIN)
+    return dict(turns_ms_parent_this_this_parent=turns, earlier_ms=(turns[0] + turns[3]) / 2,
+                ratio=ratio, within_margin=abs(ratio - 1) <= PARENT_MARGIN)
 
 
 def viewport_kernel_phase(dev, parent=None):
@@ -3179,10 +3185,25 @@ def limit_row(kind: str, plan, Dh: int, dtype) -> str:
     return base + (suffix or ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
-def attention_limits_phase(dev, floor_ms: float) -> dict:
+def tensor_core_bound(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0, nbytes: int,
+                      bf16: bool) -> dict:
+    """The streamed kernel's bound as it runs its work: the q . k and p . v
+    products (4 Dh operations a seen (row, key)) on the tensor cores, bf16
+    at 989 TFLOP/s (``bound_bf16_mma_ms``) or f32 as three TF32 products
+    at 495 (``bound_3xtf32_ms``), the softmax's 4 operations a key in f32
+    at 67; or the bytes, if they take longer."""
+    flops, _ = attention_cost(B, Lq, Lk, H, Dh, kv_len0)
+    products = flops - 4 * (flops // (4 * Dh + 4))
+    t_tc = products / BF16_FLOP_PER_S if bf16 else 3 * products / TF32_FLOP_PER_S
+    t = t_tc + (flops - products) / F32_FLOP_PER_S
+    key = "bound_bf16_mma_ms" if bf16 else "bound_3xtf32_ms"
+    return {key: 1e3 * max(t, nbytes / HBM_BYTES_PER_S)}
+
+
+def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     """K8 past its earlier limits of 2048 keys and 256 dims (phase 2i): the
     row kernel over 3073 and 5000 keys (decode at --fut-window 5000), the
-    streamed tile kernel at --his-window 5000 (the encoder's 5000 x 5000,
+    streamed kernel (tensor cores) at --his-window 5000 (the encoder's 5000 x 5000,
     full and causal, B 2; the teacher-forced cross-attention 15 x 2500),
     both at LIMIT_LONG_BATCH but the encoder's, and the wide kernels at heads of 257, 320, 512, 1024 and 2048
     dims (8 heads; a decode step 1 x 15, the teacher-forced causal 15 x 15,
@@ -3191,19 +3212,26 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
     at 0.1 and backward, in f32 and bf16, each against its plain version
     at phase 2d's training tolerance (f32) or phase 2f's ulp and slack
     (bf16), two launches bit-equal; each timed (LIMIT_REPS calls) beside
-    its bound, its plain version and SDPA (``library_ms``).  The backward
+    its bound, its plain version and SDPA (``library_ms``), the streamed
+    kernel's cases also beside its bound on the tensor cores
+    (:func:`tensor_core_bound`), and with ``parent`` every serving and
+    training case of the streamed and wide rows beside the parent commit's
+    kernel, in turns (:func:`parent_turns`: ``ratio`` below 1 where this
+    tree's is faster).  The backward
     of more than one row past 2048 keys runs the split (forced where the
     rule takes the one-CTA kernel: 15 x 2500 at B LIMIT_LONG_BATCH, its
     choice in ``planned``), with the one-CTA tile kernel's bits and time
     beside it (``one_cta_ms``, ONE_CTA_REPS calls).  The streamed kernel
-    forced at 96 and 2048 keys gives the resident kernel's bits
-    (``forced_stream``), and the split and the one-CTA backward, each
+    forced at 96 and 2048 keys agrees with the resident kernel and the
+    plain version at the same limits (``forced_stream``: its sums run in
+    the tensor cores' order), and the split and the one-CTA backward, each
     forced, give the same bits at SPLIT_FORCED's shapes, each timed
     (``forced_split``).  Returns the six new rows and, for the rows of
     the row kernel and the narrow backward, ``cases_past_limits``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
 
+    P8 = parent.attention if parent is not None else None
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
     H, rate, reps = 8, 0.1, LIMIT_REPS
@@ -3252,6 +3280,11 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
                 return float((got.float() - want.float()).abs().max())
 
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            streamed = plan.kernel == "stream"
+            # the parent's kernel in turns, for the streamed and wide rows
+            earlier = lambda this, that: (parent_turns(this, that, reps)
+                                          if P8 is not None and (streamed or Dh > K8.CHUNK_DIMS)
+                                          else {})
             # serving
             got = K8.attention(q, k, v, kv_len0)
             err = agree(got, K8.attention_plain(q, k, v, kv_len0),
@@ -3263,7 +3296,12 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
                 ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0), reps),
                 plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0), reps),
                 library_ms=library_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed), reps),
-                **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem), rate_ops)))
+                **bound(*attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem), rate_ops),
+                **(tensor_core_bound(B, Lq, Lk, H, Dh, kv_len0,
+                                     attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem)[1], bf16)
+                   if streamed else {}),
+                **earlier(lambda: K8.attention(q, k, v, kv_len0),
+                          lambda: P8.attention(q, k, v, kv_len0))))
             del got
             # training mode
             fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
@@ -3283,7 +3321,11 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
                 plain_ms=gpu_ms(lambda: K8.attention_train_forward_plain(q, k, v, kv_len0, keep,
                                                                          rate), reps),
                 library_ms=library_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed), reps),
-                **bound(*attention_train_cost(B, Lq, Lk, H, Dh, kv_len0, True, elem), rate_ops)))
+                **bound(*attention_train_cost(B, Lq, Lk, H, Dh, kv_len0, True, elem), rate_ops),
+                **(tensor_core_bound(B, Lq, Lk, H, Dh, kv_len0, attention_train_cost(
+                    B, Lq, Lk, H, Dh, kv_len0, True, elem)[1], bf16) if streamed else {}),
+                **earlier(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate),
+                          lambda: P8.attention_train_forward(q, k, v, kv_len0, keep, rate))))
             # backward
             leaves_ = [x.clone().requires_grad_() for x in (q, k, v)]
             want = torch.autograd.grad(K8.attention_plain(*leaves_, kv_len0, keep, rate),
@@ -3332,11 +3374,13 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
         log(f"phase 2i: {name} checked and timed (the card's peak so far "
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB)")
 
-    # the streamed kernel where the resident one runs: the same bits
+    # the streamed kernel where the resident one runs: within K8's limits of the
+    # resident kernel's outputs and statistics and of the plain version's
     forced = {}
     for name, (B, Lq, Lk, kv_len0) in (("encoder_96", (VP_BATCH, 96, 96, None)),
                                        ("rows_33_keys_2048", (8, 33, 2048, 7))):
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            bf16 = dtype == torch.bfloat16
             q, k, v = (torch.randn(B, L, H, 64, device=dev, generator=gen).to(dtype)
                        for L in (Lq, Lk, Lk))
             keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(
@@ -3345,30 +3389,51 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
             serve_stream = lambda: K8._launch_forward(q, k, v, kv_len0, streamed_o, False,
                                                       stream=True)
             serve_stream()
-            same = torch.equal(streamed_o, K8.attention(q, k, v, kv_len0)) and all(
-                torch.equal(a, b) for a, b in zip(
-                    K8.attention_train_forward(q, k, v, kv_len0, keep, rate),
-                    K8.attention_train_forward(q, k, v, kv_len0, keep, rate, stream=True)))
-            if not same:
-                raise AssertionError(f"attention ({name}, {tag}): the streamed kernel's bits "
-                                     f"differ from the resident kernel's")
+            errs_ = []
+            for mask in (None, keep):
+                got = K8.attention_train_forward(q, k, v, kv_len0, mask, rate, stream=True)
+                if mask is None and not torch.equal(streamed_o, got[0]):
+                    raise AssertionError(f"attention ({name}, {tag}): the streamed kernel's "
+                                         f"serving and training outputs differ")
+                if not all(torch.equal(a, b) for a, b in zip(got, K8.attention_train_forward(
+                        q, k, v, kv_len0, mask, rate, stream=True))):
+                    raise AssertionError(f"attention ({name}, {tag}): two launches of the "
+                                         f"streamed kernel differ")
+                slack = (K8.bf16_slack(q, k, v, torch.zeros_like(q), kv_len0, mask, rate)[0]
+                         if bf16 else None)
+                for what, want in (("resident", K8.attention_train_forward(
+                        q, k, v, kv_len0, mask, rate)), ("plain", K8.attention_train_forward_plain(
+                            q, k, v, kv_len0, mask, rate))):
+                    ok = (K8.bf16_excess(got[0], want[0], slack) <= 1 if bf16
+                          else training_close(got[0], want[0], float(want[0].abs().max())))
+                    if not (ok and all(training_close(a, b, float(b.abs().max()))
+                                       for a, b in zip(got[1:], want[1:]))):
+                        raise AssertionError(f"attention ({name}, {tag}): the streamed kernel "
+                                             f"disagrees with the {what} version")
+                    if what == "resident":
+                        errs_.append(float((got[0].float() - want[0].float()).abs().max()))
+                del got
             seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
             allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
-            elem, rate_ops = (2, BF16_FLOP_PER_S) if dtype == torch.bfloat16 else (4,
-                                                                                 F32_FLOP_PER_S)
+            elem, rate_ops = (2, BF16_FLOP_PER_S) if bf16 else (4, F32_FLOP_PER_S)
+            nbytes = attention_cost(B, Lq, Lk, H, 64, kv_len0, elem)[1]
             forced[f"{name}_{tag}"] = dict(
-                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=64, bits_equal=True,
+                B=B, Lq=Lq, Lk=Lk, kv_len0=kv_len0, Dh=64, agrees_with_resident=True,
+                max_abs_err_vs_resident=max(errs_),
                 resident_plan=K8.attention_forward_plan(B, Lq, Lk, H, 64)._asdict(),
+                streamed_plan=K8.attention_forward_plan(B, Lq, Lk, H, 64, stream=True)._asdict(),
                 resident_ms=gpu_ms(lambda: K8.attention(q, k, v, kv_len0), reps),
                 streamed_ms=gpu_ms(serve_stream, reps),
                 plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v, kv_len0), reps),
                 library_ms=library_ms(lambda: sdpa(*(x.transpose(1, 2) for x in (q, k, v)),
                                                    attn_mask=allowed), reps),
                 **bound(*attention_cost(B, Lq, Lk, H, 64, kv_len0, elem), rate_ops),
+                **tensor_core_bound(B, Lq, Lk, H, 64, kv_len0, nbytes, bf16),
                 train_resident_ms=gpu_ms(lambda: K8.attention_train_forward(
                     q, k, v, kv_len0, keep, rate), reps),
                 train_streamed_ms=gpu_ms(lambda: K8.attention_train_forward(
                     q, k, v, kv_len0, keep, rate, stream=True), reps))
+            del q, k, v, keep, streamed_o
 
     # the split backward and the one-CTA tile kernel, each forced where the rule takes the
     # one-CTA kernel: the same bits, and both times beside the rule's choice
@@ -3410,7 +3475,8 @@ def attention_limits_phase(dev, floor_ms: float) -> dict:
         m = cases[row][main]
         rows[row] = dict(max_abs_err=errs[row],
                          **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms", "one_cta_ms") if k in m},
+                                              "bound_3xtf32_ms", "library_ms", "one_cta_ms",
+                                              "earlier_ms") if k in m},
                          main_case=main, timing_floor_ms=floor_ms,
                          bits_equal_on_two_launches=True, cases=cases[row])
     rows["attention_stream"]["forced_stream"] = forced
@@ -4040,7 +4106,26 @@ def vp_train_phase(dev, counters, bf16: bool = False):
     return result
 
 
-def vp_test_long_phase(dev, counters):
+def path_turns(run, parent) -> dict:
+    """One pass of a path, ``run()``, on the host clock (ended by a sync)
+    with the parent commit's K8 in ``models/transformer.py`` and with this
+    tree's, in turns (parent, this, this, parent; a parent pass first, so
+    its kernels are built and warm): ``earlier_seconds``, the parent's
+    mean, and the four readings."""
+    from mansy_immersivevideostreaming_torch.models import transformer
+
+    def timed(theirs: bool) -> float:
+        with (mock.patch.object(transformer, "attention", parent.attention.attention) if theirs
+              else contextlib.nullcontext()):
+            return synced_seconds(run)[1]
+
+    timed(True)
+    turns = [timed(True), timed(False), timed(False), timed(True)]
+    return dict(earlier_seconds=(turns[0] + turns[3]) / 2,
+                seconds_turns_parent_this_this_parent=turns)
+
+
+def vp_test_long_phase(dev, counters, parent=None):
     """``run_models --test --his-window 5000 --trim-head 5000`` (every history
     inside its trace) over one batch of LONG_TEST_BATCH windows (reduced from
     512), one a seeded synthetic trace, with seeded full-width MTIO weights:
@@ -4048,7 +4133,8 @@ def vp_test_long_phase(dev, counters):
     decode's cross-attention sees the distilled 2500 (the row kernel).  The
     batch is timed once after a warm-up; its first LONG_HELD samples are held
     against the plain path (K8 swapped for its plain version) at VP_ATOL; the
-    metrics must be finite."""
+    metrics must be finite.  With ``parent``, the batch also in turns with
+    the parent commit's K8 (:func:`path_turns`)."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.config import default_config
     from mansy_immersivevideostreaming_torch.data.viewport import build_windowed_dataset
@@ -4092,7 +4178,9 @@ def vp_test_long_phase(dev, counters):
     if not err <= VP_ATOL:
         raise AssertionError(f"vp_test_long: the first {LONG_HELD} predictions differ from the "
                              f"plain path's by {err} > {VP_ATOL}")
-    return dict(trajectories=n, batches=1, steps=1, batch=args.bs, his_window=args.his_window,
+    turns = path_turns(run, parent) if parent is not None else {}
+    return dict(**turns, trajectories=n, batches=1, steps=1, batch=args.bs,
+                his_window=args.his_window,
                 encoder_attention=[args.his_window] * 2,
                 cross_attention_keys=-(-args.his_window // 2),
                 reduced=dict(bs=f"{LONG_TEST_BATCH} (from {VP_BATCH}): the encoder's q, k and v "
@@ -4103,14 +4191,15 @@ def vp_test_long_phase(dev, counters):
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
 
 
-def vp_train_long_phase(dev, counters):
+def vp_train_long_phase(dev, counters, parent=None):
     """``run_models --train --his-window 5000`` at --bs LONG_TRAIN_BATCH
     (reduced from 512: the encoder's keep mask alone would be 512 x 8 x
     5000^2 bytes, 102 GB): the first step from Flax's initialisers through
     the kernels against the plain path (``compare_vp_steps``; the encoder's
     training forward on K8's streamed kernel, its backward on the split
     kernels over 5000 keys), then one step timed after a warm-up and one
-    profiled (``vp_train_step_path``'s ``profile``)."""
+    profiled (``vp_train_step_path``'s ``profile``); with ``parent`` the step
+    also in turns with the parent commit's K8."""
     from mansy_immersivevideostreaming_torch.cli import run_models
 
     args = run_models.build_parser().parse_args(
@@ -4118,23 +4207,24 @@ def vp_train_long_phase(dev, counters):
          str(LONG_TRAIN_BATCH)])
     result, _ = vp_train_step_path(dev, counters, args, 43, dict(
         bs=f"{LONG_TRAIN_BATCH} (from {VP_BATCH}): the encoder's keep mask at 512 would be "
-           f"512 x 8 x 5000^2 bytes, 102 GB"), profile=True)
+           f"512 x 8 x 5000^2 bytes, 102 GB"), profile=True, parent=parent)
     return dict(result, encoder_attention=[args.his_window] * 2,
                 cross_attention_keys=-(-args.his_window // 2))
 
 
-def vp_train_wide_phase(dev, counters):
+def vp_train_wide_phase(dev, counters, parent=None):
     """``run_models --train --hidden-dim 4096`` (8 heads of 512: K8's wide
     kernels) at bs 512: the first step from Flax's initialisers against the
     plain path (``compare_vp_steps``), one step timed after a warm-up, then
     a validation batch (``valid_step``: the serving kernels) whose MSE must
-    be finite."""
+    be finite; with ``parent`` the step also in turns with the parent
+    commit's K8."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
     args = run_models.build_parser().parse_args(
         ["--train", "--seed", str(VP_SEED), "--hidden-dim", str(WIDE_HIDDEN)])
-    result, model = vp_train_step_path(dev, counters, args, 44, {})
+    result, model = vp_train_step_path(dev, counters, args, 44, {}, parent=parent)
     valid = vp_train_data(args, args.bs, 45, dev)
     mse, _, valid_launches = timed_passes(
         lambda: float(TV.valid_step(model, valid)), counters,
@@ -4146,14 +4236,16 @@ def vp_train_wide_phase(dev, counters):
     return dict(result, valid_mse=mse, valid_launches=valid_launches)
 
 
-def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: bool = False):
+def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: bool = False,
+                       parent=None):
     """One ``run_models --train`` configuration's first step from Flax's
     initialisers held against the plain path (``compare_vp_steps``), then a
     step timed after a warm-up; the loss must be finite.  With ``profile``,
     a step under ``torch.profiler`` too (``step_profile``, K8's device ms in
     ``k8_device_ms``): K8's backward share of the device's busy time and
-    the host's share of the step (the share the device is idle).  Returns
-    (the path's result, the trained model)."""
+    the host's share of the step (the share the device is idle).  With
+    ``parent``, the step in turns with the parent commit's K8
+    (:func:`path_turns`).  Returns (the path's result, the trained model)."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
@@ -4174,7 +4266,8 @@ def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: b
     result = dict(steps=1, batch=args.bs, his_window=args.his_window, hidden_dim=args.hidden_dim,
                   heads=[8, args.hidden_dim // 8], reduced=reduced, step_seconds=seconds[0],
                   samples_per_s=args.bs / seconds[0], loss=float(loss), kernels_vs_plain=check,
-                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+                  **(path_turns(step, parent) if parent is not None else {}))
     if profile:
         prof, k8 = profile_update(step, 1), attention_kernel_ms(step)
         captured = prof["device_captured"] and k8["device_captured"]
@@ -4185,10 +4278,11 @@ def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: b
     return result, model
 
 
-# K8's kernels by the names the profiler gives them: the forward's row and
-# tile kernels, the backward's delta, row, tile and split kernels
+# K8's kernels by the names the profiler gives them: the forward's row,
+# tile and streamed kernels, the backward's delta, row, tile and split kernels
 K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kernel<"),
-                   "forward_tile": ("attention_tile_kernel<", "attention_stream_kernel<"),
+                   "forward_tile": "attention_tile_kernel<",
+                   "forward_stream": "attention_stream_kernel<",
                    "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<",
                                 "backward_dkv_kernel<", "backward_dq_kernel<",
                                 "delta_wide_kernel<", "backward_row_wide_kernel<",
@@ -4197,8 +4291,8 @@ K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kern
 
 def attention_kernel_ms(run) -> dict:
     """Device milliseconds of K8's kernels over one ``run()`` under
-    ``torch.profiler``: the forward's row and tile kernels apart and
-    together, the backward's kernels together, and their launches (None
+    ``torch.profiler``: the forward's row, tile and streamed kernels apart
+    and together, the backward's kernels together, and their launches (None
     where the profiler saw no device event)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4214,7 +4308,7 @@ def attention_kernel_ms(run) -> dict:
         hits = [e for e in device if any(n in e.name for n in names)]
         out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
         out[f"{key}_launches"] = len(hits)
-    out["forward_ms"] = out["forward_row_ms"] + out["forward_tile_ms"]
+    out["forward_ms"] = out["forward_row_ms"] + out["forward_tile_ms"] + out["forward_stream_ms"]
     return out
 
 
@@ -5463,13 +5557,14 @@ def main() -> int:
         from mansy_immersivevideostreaming_torch.kernels import build
         build.build()
         t0 = time.time()
-        rows = attention_limits_phase(dev, 0.0)
+        parent = load_parent(opts.parent) if opts.parent else None
+        rows = attention_limits_phase(dev, 0.0, parent)
         print(json.dumps({"phase_2i": rows, "card": card, "seconds": time.time() - t0}))
         for name, run in (("vp_test_long", vp_test_long_phase),
                           ("vp_train_long", vp_train_long_phase),
                           ("vp_train_wide", vp_train_wide_phase)):
             t0 = time.time()
-            result = run(dev, counters)
+            result = run(dev, counters, parent)
             print(json.dumps({name: result, "card": card, "seconds": time.time() - t0}))
         return 0
     if opts.vp_train:  # phase 11's step checks over trainings whose weights differ
@@ -5496,7 +5591,7 @@ def main() -> int:
         rows.setdefault(name, {}).update(fields)
     t2i = time.time()
     for name, fields in attention_limits_phase(
-            dev, rows["attention"]["batch"]["timing_floor_ms"]).items():
+            dev, rows["attention"]["batch"]["timing_floor_ms"], parent).items():
         rows.setdefault(name, {}).update(fields)
     log(f"phase 2i (K8 past its earlier limits) in {time.time() - t2i:.1f}s")
     log(f"kernels checked in {time.time() - t0:.1f}s")
@@ -5522,9 +5617,9 @@ def main() -> int:
                       ("vp_train", lambda: vp_train_phase(dev, counters)),
                       ("vp_test_bf16", lambda: vp_test_phase(dev, counters, bf16=True)),
                       ("vp_train_bf16", lambda: vp_train_phase(dev, counters, bf16=True)),
-                      ("vp_test_long", lambda: vp_test_long_phase(dev, counters)),
-                      ("vp_train_long", lambda: vp_train_long_phase(dev, counters)),
-                      ("vp_train_wide", lambda: vp_train_wide_phase(dev, counters)),
+                      ("vp_test_long", lambda: vp_test_long_phase(dev, counters, parent)),
+                      ("vp_train_long", lambda: vp_train_long_phase(dev, counters, parent)),
+                      ("vp_train_wide", lambda: vp_train_wide_phase(dev, counters, parent)),
                       ("simple_rl", lambda: simple_rl_phase(dev, counters, trained)),
                       ("simple_rl_test", lambda: simple_rl_test_phase(dev, counters, trained)),
                       ("ensemble", lambda: ensemble_phase(dev, counters)),

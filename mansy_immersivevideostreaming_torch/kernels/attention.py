@@ -20,14 +20,20 @@ query row (its scores in shared memory: up to MAX_LK keys), else a CTA a
 (b, head, row tile) that stages the k and v rows in shared memory once and
 takes each warp's rows' scores by a reduce-scatter (the butterfly's sums),
 bit for bit the one-row kernel's arithmetic, keeping each row's scores in
-shared memory; where those rows no longer fit (past about 2490 keys) the
-streamed variant recomputes the scores a key tile at a time in three passes
-(max, exp sum, P . v), the same operations in the same order, so the same
-bits.  Heads past 256 dims (``--hidden-dim`` past 2048) take wide variants
-of the row and streamed kernels: the head in chunks of 256 dims, 8 a lane,
-a score's per-lane partial carried across the chunks before the butterfly.
-``csrc/attention_backward.cu`` recomputes P from those statistics, bit for
-bit, at any number of query rows and keys: a warp a (b, head) for one query
+shared memory; where those rows no longer fit (past about 2490 keys) and
+past 256 dims the streamed kernel takes its products on the tensor cores
+(``mma.sync``: bf16 with f32 sums, f32 in 3xTF32), a warp 16 rows, and
+recomputes the scores a key tile at a time in two passes (each row's max
+and exp sum, then P . v), JAX's rounding points but the tensor cores' sum
+order, so its bits are within ulps of the others'.  Heads past 256 dims
+(``--hidden-dim`` past 2048) take wide variants of the row and streamed
+kernels: the row kernel's head in chunks of 256 dims, 8 a lane, a score's
+per-lane partial carried across the chunks before the butterfly; the
+streamed kernel's P . v in output chunks of 256 dims, the scores
+recomputed for each.
+``csrc/attention_backward.cu`` recomputes P from those statistics (bit for
+bit the row and tile kernels' P, within ulps of the streamed kernel's) at
+any number of query rows and keys: a warp a (b, head) for one query
 row, else a CTA a (b, head) over tiles of keys and rows, and past 256 dims
 the same two layouts over the chunks; past 2048 keys at few (b, head)
 pairs ``csrc/attention_backward_split.cu`` takes the same sums over two
@@ -69,7 +75,10 @@ ROW_WARPS = 4      # the forward's row kernels: warps (query rows) a CTA
 MAX_ROW_TILE = 32  # the tile kernels (forward and backward): query rows a row tile
 FORWARD_GROUP = 4  # the forward's tile kernels: rows a warp takes at once
 STREAM_ROWS = 16   # the resident tile kernel's least row tile before the streamed one
-WIDE_KEYS = 8      # the wide backward kernels (and the wide streamed forward): keys a tile
+STREAM_GROUP = 16  # the streamed kernel: rows a warp (one m16 fragment of mma.sync)
+STREAM_MAX_ROWS = 64  # and rows a row tile (4 warps; past 128 dims 16 rows on 4 warps)
+STREAM_SPLIT = 4   # past 128 dims: warps that split a chunk's dims (partial scores summed)
+WIDE_KEYS = 8      # the wide backward kernels: keys a tile
 WIDE_ROWS = 8      # the wide backward tile kernel: rows a row tile (a warp a row)
 SMEM_BYTES = 232448  # the H100's shared memory a block (227 KB)
 MAX_LK = SMEM_BYTES // (4 * ROW_WARPS)  # 14528: keys of one query row's f32 scores, 4 a CTA
@@ -340,9 +349,11 @@ class ForwardPlan(NamedTuple):
     chunks of 256), "tile" (a CTA a (b, head, row tile of ``rows`` rows), k
     and v staged in key tiles of ``keys`` keys, a warp taking ``group`` rows
     at once, each row's scores resident in shared memory; a lane holds
-    ``per_lane`` dims of a row) or "stream" (the tile kernel's layout with
-    the scores recomputed a key tile at a time, in three passes, past 256
-    dims 2 + the chunks)."""
+    ``per_lane`` dims of a row) or "stream" (a warp ``group`` = 16 rows on
+    the tensor cores, past 128 dims ``threads // 32`` warps splitting the
+    16 rows' dims, the scores recomputed a key tile at a time: a pass for
+    the row statistics, then one for P . v a chunk of 32 ``per_lane``
+    output dims)."""
     kernel: str
     per_lane: int
     keys: int
@@ -359,6 +370,29 @@ def score_stride(Lk: int) -> int:
     return -(-Lk // 32) * 32 + 8
 
 
+def stream_keys(per_lane: int) -> int:
+    """The streamed kernel's keys a tile: 64 up to 64 dims, else 32 (a
+    warp's output and its scores share a lane's registers with a key
+    tile's output from zero) (``csrc/attention.cu:stream_keys``)."""
+    return 32 if per_lane >= 4 else 64
+
+
+def stream_smem_bytes(per_lane: int, warps: int) -> int:
+    """The streamed kernel's shared memory in f32 (bf16 takes less) for
+    ``warps`` warps, each row 16 bytes longer than its values: up to 128
+    dims the row tile's q rows (16 a warp) and two slots of a key tile's k
+    or v rows; past them (8 dims a lane) the STREAM_SPLIT warps' partial
+    scores and two slots of the 16 rows' q chunk of 256 dims and the key
+    tile's k rows, or of its v rows; and the training mode's, counted here,
+    in each slot the rows' keep bytes of a key tile, 4 more a row
+    (``csrc/attention.cu:stream_smem_bytes``)."""
+    keys, row = stream_keys(per_lane), 32 * per_lane + 4
+    keep = lambda rows: -(-rows * (keys + 4) // 16) * 16  # a slot's keep bytes
+    if per_lane == 8:
+        return 4 * 2 * (16 + keys) * row + 2 * keep(16) + 4 * STREAM_SPLIT * 32 * keys // 2
+    return 4 * (16 * warps + 2 * keys) * row + 2 * keep(16 * warps)
+
+
 def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
                            stream: bool = False) -> ForwardPlan:
     """The forward's plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  One
@@ -372,28 +406,31 @@ def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
     must shrink to keep shared memory within the H100's 227 KB (16 rows at
     2048 keys); a warp a group of 4 rows.  Where that leaves fewer than
     min(Lq, STREAM_ROWS) rows (past about 2490 keys), past 256 dims, or
-    with ``stream``, the streamed kernel: row tiles of up to MAX_ROW_TILE
-    rows, key tiles as the tile kernel's (WIDE_KEYS past 256 dims, 8 dims a
-    lane of each chunk), shared memory for a key tile's k and v rows and
-    the tile's scores of the row tile's rows, whatever Lk."""
+    with ``stream``, the streamed kernel on the tensor cores: row tiles of
+    up to STREAM_MAX_ROWS rows, a warp STREAM_GROUP of them (past 128 dims,
+    ``per_lane`` 8, one group of 16 rows on STREAM_SPLIT warps, each a
+    quarter of the head's chunks of 256 dims), key tiles of
+    :func:`stream_keys`, shared memory (:func:`stream_smem_bytes`, f32)
+    whatever Lk."""
     if Lq <= 1:
         return ForwardPlan("row" if Dh <= CHUNK_DIMS else "row_wide", 8, Lk, 1, 1,
                            32 * ROW_WARPS, -(-B * Lq * H // ROW_WARPS), 4 * ROW_WARPS * Lk)
     wide = Dh > CHUNK_DIMS
     per_lane = 8 if wide else _pow2_at_least(math.ceil(Dh / 32))
-    keys = WIDE_KEYS if wide else min(-(-Lk // 8) * 8, 256 // per_lane)
-    staged = 4 * keys * 32 * per_lane
     if not (wide or stream):
+        keys = min(-(-Lk // 8) * 8, 256 // per_lane)
+        staged = 4 * keys * 32 * per_lane
         fit = (SMEM_BYTES - staged - 15) // (4 * score_stride(Lk) + Lk)
         rows = min(Lq, MAX_ROW_TILE, fit - fit % FORWARD_GROUP)
         if rows >= min(Lq, STREAM_ROWS):
             return ForwardPlan("tile", per_lane, keys, rows, FORWARD_GROUP,
                                32 * -(-rows // FORWARD_GROUP), B * H * -(-Lq // rows),
                                staged + 4 * rows * score_stride(Lk) + -(-rows * Lk // 16) * 16)
-    rows = min(Lq, MAX_ROW_TILE)
-    return ForwardPlan("stream", per_lane, keys, rows, FORWARD_GROUP,
-                       32 * -(-rows // FORWARD_GROUP), B * H * -(-Lq // rows),
-                       2 * staged + 4 * rows * keys)
+    split = per_lane == 8
+    rows = min(Lq, STREAM_GROUP if split else STREAM_MAX_ROWS)
+    warps = STREAM_SPLIT if split else -(-rows // STREAM_GROUP)
+    return ForwardPlan("stream", per_lane, stream_keys(per_lane), rows, STREAM_GROUP, 32 * warps,
+                       B * H * -(-Lq // rows), stream_smem_bytes(per_lane, warps))
 
 
 def forward_mode(plan: ForwardPlan, Dh: int) -> str:
@@ -481,8 +518,8 @@ def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, Lq] that :func:`attention_backward` reads; ``keep`` (u8
     [B, H, Lq, Lk]) drops probabilities at ``rate``.  CPU tensors take
     :func:`attention_train_forward_plain`.  ``stream`` takes the streamed
-    tile kernel for more than one query row whatever its plan (its bits
-    are the resident kernel's)."""
+    kernel for more than one query row whatever its plan (its bits are
+    within ulps of the resident kernel's)."""
     if q.device.type == "cpu":
         return attention_train_forward_plain(q, k, v, kv_len0, keep, rate)
     B, Lq, H, _ = q.shape

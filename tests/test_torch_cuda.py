@@ -1398,16 +1398,33 @@ def test_attention_wide_heads_on_card(cuda_device, Lq, Lk, kv_len0, Dh, dtype):
     assert all(a > b for a, b in zip(after, before))
 
 
+def _streamed_close(K8, got, want, q, k, v, kv_len0, keep):
+    """The streamed kernel's (o, row max, row sum) against another
+    evaluation's: o within rtol 1e-5 plus 1e-5 of its largest entry in f32,
+    within one bf16 ulp plus ``bf16_slack`` in bf16 (phases 2d and 2f); the
+    f32 statistics within rtol 1e-5 plus 1e-5 of their largest entry."""
+    if q.dtype == torch.bfloat16:
+        slack = K8.bf16_slack(q, k, v, torch.zeros_like(q), kv_len0, keep, 0.1)[0]
+        assert K8.bf16_excess(got[0], want[0], slack) <= 1
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                   atol=1e-5 * float(want[0].abs().max()))
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", [(96, 96, None, 64), (15, 15, 1, 64),
                                               (33, 2048, 7, 48), (30, 2048, 1, 256),
                                               (97, 120, 7, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_attention_streamed_kernel_gives_the_resident_bits_on_card(cuda_device, Lq, Lk, kv_len0,
-                                                                   Dh, dtype):
-    """The streamed tile kernel forced where the resident one runs: the
-    same output, row max and row sum, bit for bit, with and without a keep
-    mask, so the backward's recomputed P stays the forward's."""
+def test_attention_streamed_kernel_agrees_with_the_resident_kernel_on_card(
+        cuda_device, Lq, Lk, kv_len0, Dh, dtype):
+    """The streamed kernel (tensor cores) forced where the resident tile
+    kernel runs: its output, row max and row sum, with and without a keep
+    mask, against the resident kernel's and the plain version's at K8's
+    limits (its sums run in the tensor cores' order, so not the resident
+    kernel's bits); two launches bit-equal."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     assert K8.attention_forward_plan(3, Lq, Lk, 3, Dh).kernel == "tile"
     assert K8.attention_forward_plan(3, Lq, Lk, 3, Dh, stream=True).kernel == "stream"
@@ -1416,9 +1433,92 @@ def test_attention_streamed_kernel_gives_the_resident_bits_on_card(cuda_device, 
                for L in (Lq, Lk, Lk))
     keep = (torch.rand(3, 3, Lq, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
     for mask in (None, keep):
-        resident = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1)
         streamed = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1, stream=True)
-        assert all(torch.equal(a, b) for a, b in zip(resident, streamed))
+        for want in (K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1),
+                     K8.attention_train_forward_plain(q, k, v, kv_len0, mask, 0.1)):
+            _streamed_close(K8, streamed, want, q, k, v, kv_len0, mask)
+        assert all(torch.equal(a, b) for a, b in zip(streamed, K8.attention_train_forward(
+            q, k, v, kv_len0, mask, 0.1, stream=True)))
+
+
+# the streamed kernel off its tiles (Lq, Lk, kv_len0, Dh): rows not a
+# multiple of a warp's 16 (and one row tile of 64 and one row more), keys
+# not a multiple of the key tile, prefixes of 1 and Lk keys, heads of 48,
+# 100, 257 and 2048 dims (off the 16-byte staging at 100 and 257)
+STREAM_RAGGED = [(17, 77, 1, 48), (65, 130, 77, 48), (33, 97, 1, 100), (7, 70, 70, 100),
+                 (15, 40, 1, 257), (21, 33, 33, 257), (17, 65, 1, 2048), (9, 9, 9, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0,Dh", STREAM_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_streamed_kernel_at_ragged_shapes_on_card(cuda_device, Lq, Lk, kv_len0, Dh,
+                                                            dtype):
+    """The streamed kernel (forced up to 256 dims) at ragged rows, keys,
+    prefixes and widths: serving and training, with and without a keep
+    mask, against the plain version at K8's limits; the serving output is
+    the training mode's bit for bit; two launches bit-equal."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_forward_plan(2, Lq, Lk, 3, Dh, stream=True).kernel == "stream"
+    g = torch.Generator(device=cuda_device).manual_seed(Lq * Lk + Dh)
+    q, k, v = (torch.randn(2, L, 3, Dh, device=cuda_device, generator=g).to(dtype)
+               for L in (Lq, Lk, Lk))
+    keep = (torch.rand(2, 3, Lq, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
+    served = torch.empty_like(q)
+    K8._launch_forward(q, k, v, kv_len0, served, False, stream=True)
+    for mask in (None, keep):
+        streamed = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1, stream=True)
+        _streamed_close(K8, streamed, K8.attention_train_forward_plain(q, k, v, kv_len0, mask,
+                                                                       0.1),
+                        q, k, v, kv_len0, mask)
+        assert all(torch.equal(a, b) for a, b in zip(streamed, K8.attention_train_forward(
+            q, k, v, kv_len0, mask, 0.1, stream=True)))
+        if mask is None:
+            assert torch.equal(served, streamed[0])
+
+
+# each backward that reads the streamed forward's statistics (B, Lq, Lk,
+# kv_len0, H, Dh, the backward's plan): the split at the --his-window 5000
+# encoder (B 2) and at 33 x 2500, the one-CTA tile kernel at the
+# teacher-forced cross-attention 15 x 2500, the wide tile kernel at 15 x 15
+# and 96 x 96 at Dh 512
+STATS_INTO_BACKWARD = [(2, 5000, 5000, None, 2, 64, "tile_split"),
+                       (2, 33, 2500, 1, 2, 64, "tile_split"),
+                       (4, 15, 2500, None, 2, 64, "tile"),
+                       (2, 15, 15, 1, 3, 512, "tile_wide"),
+                       (2, 96, 96, None, 3, 512, "tile_wide")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,kv_len0,H,Dh,backward", STATS_INTO_BACKWARD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_streamed_statistics_feed_each_backward_on_card(cuda_device, B, Lq, Lk,
+                                                                  kv_len0, H, Dh, backward,
+                                                                  dtype):
+    """The streamed forward's row max and exp sum (from tensor-core scores)
+    fed to each backward kernel that reads them, which recomputes P by its
+    own scores: dq, dk and dv, with a keep mask at 0.1, against the plain
+    version's autograd at K8's backward limits (f32: rtol 1e-5 plus 1e-5 of
+    the largest entry of the three; bf16: one ulp plus ``bf16_slack``)."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_forward_plan(B, Lq, Lk, H, Dh).kernel == "stream"
+    assert K8.attention_backward_plan(B, Lq, Lk, H, Dh).kernel == backward
+    g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk + Dh)
+    q, k, v, dout = (torch.randn(B, L, H, Dh, device=cuda_device, generator=g).to(dtype)
+                     for L in (Lq, Lk, Lk, Lq))
+    keep = (torch.rand(B, H, Lq, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
+    fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1)
+    got = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, 0.1)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, keep, 0.1), leaves, dout)
+    if dtype == torch.bfloat16:
+        slack = K8.bf16_slack(q, k, v, dout, kv_len0, keep, 0.1)[1:]
+        for a, b, sl in zip(got, want, slack):
+            assert K8.bf16_excess(a, b, sl) <= 1
+    else:
+        scale = max(float(w.abs().max()) for w in want)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
 
 
 # the split backward forced where the one-CTA tile kernel runs (Lq, Lk,

@@ -511,9 +511,14 @@ def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan, chunks: int = 1):
     rows; each walks the key tiles of ``keys`` keys up to the last key a row
     of the CTA sees: the scores in reduce_scatter batches of 32 / ``group``
     keys (a lane keeps a (row, key) its row sees), P . v key by key, each
-    row's fmaf taken where its row sees the key.  The streamed kernel: the
-    tile kernel's walk once a pass, 2 + ``chunks`` passes, P . v and the
-    write in the last ``chunks``."""
+    row's fmaf taken where its row sees the key.  The streamed kernel: a
+    group of 16 rows on the tensor cores (one warp, or past 256 dims the
+    CTA's warps each summing a share of the dims), over the CTA's key tiles
+    once for the row statistics and once for each of ``chunks`` output
+    chunks; in a key tile the group takes the key groups of 8 below the
+    last key its rows see (the score tile's n-tiles: a (row, key) its row
+    sees is kept), P . v in steps of 8 (f32) or 16 (bf16) keys, p 0 where
+    the row does not see the key; the write once an output chunk."""
     scores, pv = np.zeros((Lq, Lk), int), np.zeros((Lq, Lk), int)
     written = np.zeros(Lq, int)
     seen_by = lambda r: min(Lk, kv_len0 + r)
@@ -523,12 +528,14 @@ def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan, chunks: int = 1):
             pv[r, :seen_by(r)] += chunks
             written[r] += chunks
         return scores, pv, written
-    R, batch = plan.group, 32 // plan.group
-    passes = 2 + chunks if plan.kernel == "stream" else 1
+    stream = plan.kernel == "stream"
+    R, batch = plan.group, 8 if stream else 32 // plan.group
+    passes = 1 + chunks if stream else 1
+    groups = -(-plan.rows // R) if stream else plan.threads // 32  # row groups a CTA
     for r0 in range(0, Lq, plan.rows):
         rn = min(plan.rows, Lq - r0)
         n_cta = min(Lk, kv_len0 + r0 + rn - 1)
-        for g0 in range(0, plan.threads // 32 * R, R):
+        for g0 in range(0, groups * R, R):
             gn = max(0, min(R, rn - g0))
             n_warp = min(Lk, kv_len0 + r0 + g0 + gn - 1) if gn else 0
             rows = range(r0 + g0, r0 + g0 + gn)
@@ -538,14 +545,33 @@ def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan, chunks: int = 1):
                     jn = min(kn, n_warp - j0)
                     if jn <= 0:
                         continue
-                    batched = -(-jn // batch) * batch  # keys the reduce_scatter batches cover
+                    batched = -(-jn // batch) * batch  # keys the batches (or n-tiles) cover
                     assert batched <= plan.keys        # within the staged tile
+                    assert not stream or -(-jn // 16) * 16 <= plan.keys  # bf16's key steps
                     for r in rows:
                         scores[r, j0:min(j0 + batched, seen_by(r))] += 1
                         if p >= passes - chunks:
                             pv[r, j0:min(j0 + jn, seen_by(r))] += 1
             written[list(rows)] += chunks
     return scores, pv, written
+
+
+def _mma_dims_walk(Dh: int, width: int, chunks: int, splits: int) -> np.ndarray:
+    """Times each of a head's dims is written by the streamed kernel: output
+    chunk c of ``width`` dims, split among ``splits`` warps, warp w's
+    n-tile n, lane 4 g + t's pair e is dim c width + w width / splits +
+    8 n + 2 t + e, written where it is below Dh (the q and k chunks' dims
+    split among the warps alike)."""
+    taken = np.zeros(chunks * width, int)
+    share = width // splits
+    for c in range(chunks):
+        for w in range(splits):
+            for n in range(share // 8):
+                for t in range(4):
+                    for e in range(2):
+                        taken[c * width + w * share + 8 * n + 2 * t + e] += 1
+    assert (taken == 1).all()
+    return taken[:Dh]
 
 
 def _dims_walk(Dh: int, per_lane: int, chunks: int) -> np.ndarray:
@@ -658,9 +684,11 @@ WIDE_DIMS = (257, 320, 512, 1024, 2048)
                          + [(5000, Dh) for Dh in (320, 2048)])
 def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq, Lk, Dh):
     """Past 2048 keys and 256 dims, causal (kv_len0 1) and full: the forward
-    plan's score passes and P . v chunks take every (row, key) a row sees
+    plan's score passes (the streamed kernel's: one for the row statistics,
+    one an output chunk) and P . v chunks take every (row, key) a row sees
     once each (none it does not see), every output row is written once a
-    chunk, the chunks' lanes take every dim once; the backward plan takes
+    chunk, the chunks' lanes (the streamed kernel's n-tiles) take every dim
+    once; the backward plan takes
     every (row, key) once and writes every key's dk and dv rows once; both
     within the H100's shared memory.  One query row: the row kernel (its
     wide variant past 256 dims), its scores within MAX_LK keys; more: the
@@ -675,12 +703,18 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
     wide = Dh > K8.CHUNK_DIMS
     chunks = -(-Dh // (32 * fwd.per_lane)) if fwd.kernel != "row" else 1
     assert chunks == (-(-Dh // 256) if wide else 1)
-    assert _dims_walk(Dh, fwd.per_lane, chunks).sum() == Dh
+    if fwd.kernel == "stream":
+        splits = fwd.threads // 32 // -(-fwd.rows // 16)
+        assert splits == (4 if fwd.per_lane == 8 else 1)
+        assert _mma_dims_walk(Dh, 32 * fwd.per_lane, chunks, splits).sum() == Dh
+        chunks = -(-chunks // 2) if wide else 1  # output chunks: two of the staged chunks each
+    else:
+        assert _dims_walk(Dh, fwd.per_lane, chunks).sum() == Dh
     assert _dims_walk(Dh, bwd.per_lane, -(-Dh // (32 * bwd.per_lane))).sum() == Dh
     for kv_len0 in (1, Lk):
         seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
         scores, pv, written = _forward_walk(Lq, Lk, kv_len0, fwd, chunks)
-        passes = 2 + chunks if fwd.kernel == "stream" else 1
+        passes = 1 + chunks if fwd.kernel == "stream" else 1
         assert np.array_equal(scores, passes * seen.astype(int))
         assert np.array_equal(pv, chunks * seen.astype(int))
         assert (written == chunks).all()
@@ -693,11 +727,15 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
         assert bwd.kernel == ("row_wide" if wide else "row")
         return
     assert fwd.kernel == "stream" if wide or Lk > 2490 else fwd.kernel == "tile"
-    assert fwd.blocks == B * H * -(-Lq // fwd.rows) and fwd.threads == 32 * -(-fwd.rows // 4)
+    assert fwd.blocks == B * H * -(-Lq // fwd.rows)
     if fwd.kernel == "stream":
-        assert fwd.rows == min(Lq, 32)
-        assert fwd.keys == (K8.WIDE_KEYS if wide else min(-(-Lk // 8) * 8, 256 // fwd.per_lane))
-        assert fwd.smem_bytes == 4 * (2 * fwd.keys * 32 * fwd.per_lane + fwd.rows * fwd.keys)
+        split = fwd.per_lane == 8  # past 128 dims
+        assert fwd.rows == min(Lq, 16 if split else 64) and fwd.group == 16
+        assert fwd.threads == (128 if split else 32 * -(-fwd.rows // 16))
+        assert fwd.keys == (32 if fwd.per_lane >= 4 else 64)
+        assert fwd.smem_bytes == K8.stream_smem_bytes(fwd.per_lane, fwd.threads // 32)
+    else:
+        assert fwd.threads == 32 * -(-fwd.rows // 4)
     if wide:
         assert bwd.kernel == "tile_wide" and bwd.rows == min(Lq, K8.WIDE_ROWS)
         assert (bwd.per_lane, bwd.keys, bwd.threads) == (8, K8.WIDE_KEYS, 256)
@@ -714,19 +752,29 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
 
 def test_attention_forward_plan_streams_where_the_score_rows_no_longer_fit():
     """The resident tile kernel keeps a row tile of 16 up to about 2490 keys
-    (as at 2048); past it the streamed kernel takes row tiles of 32 with
-    shared memory that does not grow with Lk; a call with fewer rows than
-    16 streams where those rows no longer fit; ``stream`` forces it."""
+    (as at 2048); past it the streamed kernel takes row tiles of 64 rows, a
+    warp 16 of them, key tiles of 64 (32 past 64 dims), with shared memory
+    that does not grow with Lk: the q rows and two slots of k or v rows,
+    each row 16 bytes longer than its values; past 128 dims 16 rows on 4
+    warps, two slots of the q chunk and the k rows (or the v rows) of 256
+    dims and the warps' partial scores; a call with fewer
+    rows than 16 streams where those rows no longer fit; ``stream`` forces
+    it."""
     plan = lambda Lq, Lk, Dh=64, **kw: K8.attention_forward_plan(512, Lq, Lk, 8, Dh, **kw)
     assert plan(96, 2400)[:4] == ("tile", 2, 128, 16)
-    assert plan(96, 2500) == K8.ForwardPlan("stream", 2, 128, 32, 4, 256, 12288,
-                                            4 * (2 * 128 * 64 + 32 * 128))
+    assert plan(96, 2500) == K8.ForwardPlan("stream", 2, 64, 64, 16, 128, 8192,
+                                            4 * 3 * 64 * (64 + 4) + 2 * 64 * 68)
     assert plan(96, 5000) == plan(96, 2500)
     assert plan(15, 2500).kernel == "stream" and plan(2, 5000)[:4] == ("tile", 2, 128, 2)
-    assert plan(96, 96, stream=True) == K8.ForwardPlan("stream", 2, 96, 32, 4, 256, 12288,
-                                                       4 * (2 * 96 * 64 + 32 * 96))
-    assert plan(15, 15, 512) == K8.ForwardPlan("stream", 8, 8, 15, 4, 128, 4096,
-                                               4 * (2 * 8 * 256 + 15 * 8))
+    assert plan(96, 96, stream=True) == plan(96, 2500)
+    assert plan(15, 15, 512) == K8.ForwardPlan("stream", 8, 32, 15, 16, 128, 4096,
+                                               4 * 2 * (16 + 32) * 260 + 2 * 16 * 36
+                                               + 4 * 4 * 32 * 16)
+    assert plan(96, 96, 2048)[2:7] == (32, 16, 16, 128, 512 * 8 * 6)
+    assert plan(33, 96, 256, stream=True) == plan(16, 96, 512)._replace(rows=16, blocks=12288)
+    assert plan(33, 96, 128, stream=True) == K8.ForwardPlan(
+        "stream", 4, 32, 33, 16, 96, 4096, 4 * (48 * 132 + 2 * 32 * 132) + 2 * 48 * 36)
+    assert max(plan(64, 5000, Dh).smem_bytes for Dh in (32, 64, 128, 256, 2048)) <= H100_SMEM
     assert plan(1, 5000, 512)[:3] == ("row_wide", 8, 5000)
 
 
