@@ -302,7 +302,12 @@ plain versions at phase 2d's and 2f's tolerances, two launches bit-equal,
 each timed beside its bound, plain version and SDPA (the streamed kernel
 also beside its bound on the tensor cores, ``bound_3xtf32_ms`` or
 ``bound_bf16_mma_ms``, and with ``--parent`` the streamed and wide rows
-beside the parent commit's kernel in turns, ``earlier_ms``); the streamed
+beside the parent commit's kernel in turns, ``earlier_ms``, the wide
+backward rows too); the wide backward of more than one row has its
+tensor-core bound of the five products and, in f32, both its kernels forced
+and timed (``tensor_core_ms``: csrc/attention_backward_wide.cu; ``simt_ms``:
+the SIMT tile kernel; bf16 runs on the tensor cores only), each within the
+tolerances and bit-equal twice; the streamed
 kernel forced at 96 and 2048 keys agrees with the resident kernel and the
 plain version at those tolerances (``forced_stream``).  The backward of
 more than one query row past 2048 keys runs K8's split kernels (row ``attention_backward_split``: a CTA a
@@ -317,7 +322,9 @@ LONG_HELD samples held against the plain path, the metrics finite),
 vp_train_long (``--train --his-window 5000`` at --bs LONG_TRAIN_BATCH: the
 first step from Flax's initialisers by ``compare_vp_steps``, one step
 timed) and vp_train_wide (``--train --hidden-dim 4096``, bs 512: the same,
-then a validation batch through the serving kernels); vp_train_long
+then a validation batch through the serving kernels, then the step at
+``--his-window 96``, bs WIDE_96_BATCH, ``his_window_96``, whose 96 x 96
+encoder backward runs on the tensor cores in f32 too); vp_train_long
 also profiles a step (K8's backward share of the device's busy time, the
 host's share of the step).  K8 counts these variants' launches in modes
 of their own (``f32_stream``, ``bf16_stream``, ``f32_wide``, ``bf16_wide``,
@@ -460,6 +467,9 @@ LONG_TEST_BATCH = 64    # vp_test_long: --bs (reduced from 512: the encoder's q,
 LONG_TRAIN_BATCH = 4    # vp_train_long: --bs (reduced from 512: a keep mask of 512 x 8 x 5000^2 B)
 LONG_HELD = 4           # vp_test_long: samples held against the plain path (its 5000^2 scores)
 WIDE_HIDDEN = 4096      # vp_train_wide: --hidden-dim (8 heads of 512)
+WIDE_96_BATCH = 128     # vp_train_wide's --his-window 96 step: --bs (reduced from 512)
+WIDE_96_REDUCED = (f"{WIDE_96_BATCH} (from 512): the step through the kernels and the plain "
+                   f"path's beside it at 96 keys and hidden 4096 ran the H100's 80 GB out at 512")
 DP_ROUNDS = 2           # phase 16c: run_mansy rounds a world (the first held, the last timed)
 DP_VP_BATCHES = 3       # phase 16d: run_models batches a world
 DP_TIMEOUT_S = 300      # phase 16: a rank's limit
@@ -545,8 +555,10 @@ KERNELS = {
                                 replaces="mansy_immersivevideostreaming_tpu/models/"
                                          "transformer.py:61")
        for mode in ("_stream", "_train_forward_stream", "_wide", "_train_forward_wide")},
+    # the wide backward: one query row in attention_backward.cu's wide row
+    # kernel, more rows on the tensor cores (its main case)
     "attention_backward_wide": dict(route="cuda",
-                                    source=f"{PKG}/kernels/csrc/attention_backward.cu",
+                                    source=f"{PKG}/kernels/csrc/attention_backward_wide.cu",
                                     replaces="mansy_immersivevideostreaming_tpu/models/"
                                              "vp_train.py:65"),
     # K8's split backward (more than one query row past 2048 keys: a CTA a
@@ -3186,16 +3198,21 @@ def limit_row(kind: str, plan, Dh: int, dtype) -> str:
 
 
 def tensor_core_bound(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0, nbytes: int,
-                      bf16: bool) -> dict:
-    """The streamed kernel's bound as it runs its work: the q . k and p . v
-    products (4 Dh operations a seen (row, key)) on the tensor cores, bf16
-    at 989 TFLOP/s (``bound_bf16_mma_ms``) or f32 as three TF32 products
-    at 495 (``bound_3xtf32_ms``), the softmax's 4 operations a key in f32
-    at 67; or the bytes, if they take longer."""
-    flops, _ = attention_cost(B, Lq, Lk, H, Dh, kv_len0)
-    products = flops - 4 * (flops // (4 * Dh + 4))
+                      bf16: bool, backward: bool = False) -> dict:
+    """A tensor-core kernel's bound as it runs its work: its products on the
+    tensor cores, bf16 at 989 TFLOP/s (``bound_bf16_mma_ms``) or f32 as
+    three TF32 products at 495 (``bound_3xtf32_ms``), and its scalar work
+    in f32 at 67; or the bytes, if they take longer.  The streamed forward:
+    q . k and p . v (4 Dh operations a seen (row, key)) and the softmax's 4
+    a key; the wide backward (``backward``): q . k, dO . v, dS . k, dS^T . q
+    and P'^T . dO (10 Dh) and about 10 scalar operations a key
+    (:func:`attention_backward_cost`)."""
+    first = Lk if kv_len0 is None else kv_len0
+    pairs = B * H * sum(min(Lk, first + r) for r in range(Lq))
+    per_pair = 10 if backward else 4
+    products = per_pair * Dh * pairs
     t_tc = products / BF16_FLOP_PER_S if bf16 else 3 * products / TF32_FLOP_PER_S
-    t = t_tc + (flops - products) / F32_FLOP_PER_S
+    t = t_tc + per_pair * pairs / F32_FLOP_PER_S
     key = "bound_bf16_mma_ms" if bf16 else "bound_3xtf32_ms"
     return {key: 1e3 * max(t, nbytes / HBM_BYTES_PER_S)}
 
@@ -3215,9 +3232,14 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     its bound, its plain version and SDPA (``library_ms``), the streamed
     kernel's cases also beside its bound on the tensor cores
     (:func:`tensor_core_bound`), and with ``parent`` every serving and
-    training case of the streamed and wide rows beside the parent commit's
-    kernel, in turns (:func:`parent_turns`: ``ratio`` below 1 where this
-    tree's is faster).  The backward
+    training case of the streamed and wide rows (the forward's bits equal
+    to the parent's, ``earlier_bits_equal``), and every wide backward case,
+    beside the parent commit's kernel, in turns (:func:`parent_turns`:
+    ``ratio`` below 1 where this tree's is faster); also vp_train_wide's
+    encoder 5 x 5 and cross-attention 15 x 3 at 512 dims.  The wide backward of
+    more than one row has the tensor-core bound of its five products and,
+    in f32, both kernels forced and timed (``tensor_core_ms``,
+    ``simt_ms``), each within the limits and bit-equal twice.  The backward
     of more than one row past 2048 keys runs the split (forced where the
     rule takes the one-CTA kernel: 15 x 2500 at B LIMIT_LONG_BATCH, its
     choice in ``planned``), with the one-CTA tile kernel's bits and time
@@ -3244,6 +3266,9 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
         shapes.update({f"decode_dh{Dh}": (B, 1, 15, None, Dh),
                        f"causal_tf_dh{Dh}": (B, 15, 15, 1, Dh),
                        f"encoder_96_dh{Dh}": (B, 96, 96, None, Dh)})
+    # the rest of vp_train_wide's shapes: its encoder and teacher-forced cross-attention
+    shapes.update(encoder_dh512=(VP_BATCH, 5, 5, None, 512),
+                  cross_tf_dh512=(VP_BATCH, 15, 3, None, 512))
     cases, errs = {}, {}
 
     def record(row, label, err, fields):
@@ -3255,12 +3280,12 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
         # the split backward past 2048 keys, forced where the rule keeps the one-CTA tile
         # kernel (15 x 2500: one row tile), the one-CTA kernel beside it
         split = True if Lq > 1 and Dh <= K8.CHUNK_DIMS and Lk > K8.SPLIT_KEYS else None
-        bplan = K8.attention_backward_plan(B, Lq, Lk, H, Dh, split)
         seen = torch.arange(Lq, device=dev) + (Lk if kv_len0 is None else kv_len0)
         allowed = torch.arange(Lk, device=dev)[None, :] < seen[:, None]
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             bf16 = dtype == torch.bfloat16
             elem, rate_ops = (2, BF16_FLOP_PER_S) if bf16 else (4, F32_FLOP_PER_S)
+            bplan = K8.attention_backward_plan(B, Lq, Lk, H, Dh, split, bf16=bf16)
             q, k, v, dout = (torch.randn(B, L, H, Dh, device=dev, generator=gen).to(dtype)
                              for L in (Lq, Lk, Lk, Lq))
             keep = (torch.rand(B, H, Lq, Lk, device=dev, generator=gen) < 1 - rate).to(
@@ -3281,10 +3306,20 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
 
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             streamed = plan.kernel == "stream"
-            # the parent's kernel in turns, for the streamed and wide rows
-            earlier = lambda this, that: (parent_turns(this, that, reps)
-                                          if P8 is not None and (streamed or Dh > K8.CHUNK_DIMS)
-                                          else {})
+            # the parent's kernel in turns, for the streamed and wide rows; the forward's bits
+            # must be the parent's (its wide score tile is the backward's since this tree)
+            def earlier(this, that, bits=False):
+                if P8 is None or not (streamed or Dh > K8.CHUNK_DIMS):
+                    return {}
+                same = not bits or all(torch.equal(a, b)
+                                       for a, b in zip(leaves(this()), leaves(that())))
+                if not same:
+                    raise AssertionError(f"attention ({label}): the parent commit's forward "
+                                         f"gives other bits")
+                return dict(parent_turns(this, that, reps), **({"earlier_bits_equal": True}
+                                                               if bits else {}))
+            wide_rows = Lq > 1 and Dh > K8.CHUNK_DIMS  # the backward on the tensor cores, or
+            #                                          (f32, where the plan keeps it) the SIMT one
             # serving
             got = K8.attention(q, k, v, kv_len0)
             err = agree(got, K8.attention_plain(q, k, v, kv_len0),
@@ -3301,7 +3336,7 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                                      attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem)[1], bf16)
                    if streamed else {}),
                 **earlier(lambda: K8.attention(q, k, v, kv_len0),
-                          lambda: P8.attention(q, k, v, kv_len0))))
+                          lambda: P8.attention(q, k, v, kv_len0), bits=True)))
             del got
             # training mode
             fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
@@ -3325,7 +3360,8 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                 **(tensor_core_bound(B, Lq, Lk, H, Dh, kv_len0, attention_train_cost(
                     B, Lq, Lk, H, Dh, kv_len0, True, elem)[1], bf16) if streamed else {}),
                 **earlier(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate),
-                          lambda: P8.attention_train_forward(q, k, v, kv_len0, keep, rate))))
+                          lambda: P8.attention_train_forward(q, k, v, kv_len0, keep, rate),
+                          bits=True)))
             # backward
             leaves_ = [x.clone().requires_grad_() for x in (q, k, v)]
             want = torch.autograd.grad(K8.attention_plain(*leaves_, kv_len0, keep, rate),
@@ -3345,6 +3381,24 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                     dout, q, k, v, *fwd, kv_len0, keep, rate, split))):
                 raise AssertionError(f"attention_backward ({label}): two launches differ")
             one_cta = {}
+            if wide_rows:  # each wide kernel forced: within K8's limits, bit-equal twice, timed
+                for forced, key in ((True, "tensor_core_ms"), (False, "simt_ms")):
+                    if bf16 and not forced:
+                        continue
+                    run = lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, rate,
+                                                        tensor_cores=forced)
+                    other = run()
+                    for g, w, sl in zip(other, want, slack[1:] if bf16 else (None,) * 3):
+                        if bf16:
+                            agree(g, w, sl, f"backward ({key[:-3]} forced)")
+                        elif not training_close(g, w, scale):
+                            raise AssertionError(f"attention_backward ({label}, {key[:-3]} "
+                                                 f"forced) disagrees with the plain version")
+                    if not all(torch.equal(a, b) for a, b in zip(other, run())):
+                        raise AssertionError(f"attention_backward ({label}, {key[:-3]} forced): "
+                                             f"two launches differ")
+                    one_cta[key] = gpu_ms(run, reps)
+                    del other
             if split:  # the one-CTA tile kernel's bits, and its time
                 if not all(torch.equal(a, b) for a, b in zip(grads, K8.attention_backward(
                         dout, q, k, v, *fwd, kv_len0, keep, rate, split=False))):
@@ -3368,7 +3422,15 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                 library_ms=library_ms(lambda: torch.autograd.grad(
                     sdpa(qg, kg, vg, attn_mask=allowed), (qg, kg, vg), dout_t), reps),
                 **bound(*attention_backward_cost(B, Lq, Lk, H, Dh, kv_len0, True, elem),
-                        rate_ops), **one_cta))
+                        rate_ops), **one_cta,
+                **(tensor_core_bound(B, Lq, Lk, H, Dh, kv_len0, attention_backward_cost(
+                    B, Lq, Lk, H, Dh, kv_len0, True, elem)[1], bf16, backward=True)
+                   if wide_rows else {}),
+                **(earlier(lambda: K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep,
+                                                         rate),
+                           lambda: P8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep,
+                                                         rate))
+                   if Dh > K8.CHUNK_DIMS else {})))
             del q, k, v, dout, keep, fwd, leaves_, qg, kg, vg
         torch.cuda.empty_cache()
         log(f"phase 2i: {name} checked and timed (the card's peak so far "
@@ -3469,14 +3531,17 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
              "attention_train_forward_stream": "encoder_5000_f32",
              "attention_backward_split": "encoder_5000_f32",
              **{row: "decode_dh512_f32" for row in ("attention_wide",
-                                                    "attention_train_forward_wide",
-                                                    "attention_backward_wide")}}
+                                                    "attention_train_forward_wide")},
+             # the backward on the tensor cores at the --hidden-dim 4096 path's encoder
+             "attention_backward_wide": "encoder_96_dh512_f32"}
     for row, main in mains.items():
         m = cases[row][main]
         rows[row] = dict(max_abs_err=errs[row],
                          **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "bound_3xtf32_ms", "library_ms", "one_cta_ms",
-                                              "earlier_ms") if k in m},
+                                              "bound_3xtf32_ms", "bound_bf16_mma_ms",
+                                              "library_ms", "one_cta_ms", "tensor_core_ms",
+                                              "simt_ms", "earlier_ms")
+                            if k in m},
                          main_case=main, timing_floor_ms=floor_ms,
                          bits_equal_on_two_launches=True, cases=cases[row])
     rows["attention_stream"]["forced_stream"] = forced
@@ -4217,8 +4282,12 @@ def vp_train_wide_phase(dev, counters, parent=None):
     kernels) at bs 512: the first step from Flax's initialisers against the
     plain path (``compare_vp_steps``), one step timed after a warm-up, then
     a validation batch (``valid_step``: the serving kernels) whose MSE must
-    be finite; with ``parent`` the step also in turns with the parent
-    commit's K8."""
+    be finite; then the same step at ``--his-window 96`` and bs WIDE_96_BATCH
+    (``his_window_96``: an encoder attention of 96 x 96 and a cross-attention
+    of 15 x 48, whose
+    f32 backward runs on the tensor cores, csrc/attention_backward_wide.cu;
+    the step profiled: ``step_profile``, K8's device ms in ``k8_device_ms``);
+    with ``parent`` each step also in turns with the parent commit's K8."""
     from mansy_immersivevideostreaming_torch.cli import run_models
     from mansy_immersivevideostreaming_torch.models import vp_train as TV
 
@@ -4231,9 +4300,15 @@ def vp_train_wide_phase(dev, counters, parent=None):
         expect(counters, attention=attention_launches(args)), 1)
     if not math.isfinite(mse):
         raise AssertionError(f"vp_train_wide: non-finite validation MSE {mse}")
-    for row, n in valid_launches.items():
-        result["launches"][row] = result["launches"].get(row, 0) + n
-    return dict(result, valid_mse=mse, valid_launches=valid_launches)
+    args96 = run_models.build_parser().parse_args(
+        ["--train", "--seed", str(VP_SEED), "--hidden-dim", str(WIDE_HIDDEN), "--his-window",
+         "96", "--bs", str(WIDE_96_BATCH)])
+    his96, _ = vp_train_step_path(dev, counters, args96, 46, {"bs": WIDE_96_REDUCED},
+                                  profile=True, parent=parent)
+    for extra in (valid_launches, his96["launches"]):
+        for row, n in extra.items():
+            result["launches"][row] = result["launches"].get(row, 0) + n
+    return dict(result, valid_mse=mse, valid_launches=valid_launches, his_window_96=his96)
 
 
 def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: bool = False,
@@ -4279,14 +4354,15 @@ def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: b
 
 
 # K8's kernels by the names the profiler gives them: the forward's row,
-# tile and streamed kernels, the backward's delta, row, tile and split kernels
+# tile and streamed kernels, the backward's delta, row, tile, split and wide
+# kernels (the f32 SIMT wide tile kernel is no template)
 K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kernel<"),
                    "forward_tile": "attention_tile_kernel<",
                    "forward_stream": "attention_stream_kernel<",
                    "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<",
                                 "backward_dkv_kernel<", "backward_dq_kernel<",
                                 "delta_wide_kernel<", "backward_row_wide_kernel<",
-                                "backward_tile_wide_kernel<")}
+                                "backward_tile_wide_kernel(", "backward_wide_kernel<")}
 
 
 def attention_kernel_ms(run) -> dict:

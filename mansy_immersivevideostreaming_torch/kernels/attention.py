@@ -32,13 +32,19 @@ per-lane partial carried across the chunks before the butterfly; the
 streamed kernel's P . v in output chunks of 256 dims, the scores
 recomputed for each.
 ``csrc/attention_backward.cu`` recomputes P from those statistics (bit for
-bit the row and tile kernels' P, within ulps of the streamed kernel's) at
-any number of query rows and keys: a warp a (b, head) for one query
-row, else a CTA a (b, head) over tiles of keys and rows, and past 256 dims
-the same two layouts over the chunks; past 2048 keys at few (b, head)
-pairs ``csrc/attention_backward_split.cu`` takes the same sums over two
-grids of tiles (a CTA a (b, head, row tile) for dQ, then a CTA a (b,
-head, key tile) for dK and dV) (:func:`attention_backward_plan`).
+bit the row and tile kernels' P, within ulps of the streamed kernel's up
+to 256 dims) at any number of query rows and keys: a warp a (b, head) for
+one query row, else a CTA a (b, head) over tiles of keys and rows, and past
+256 dims for one row the row layout over the chunks; past 2048 keys at few
+(b, head) pairs ``csrc/attention_backward_split.cu`` takes the same sums
+over two grids of tiles (a CTA a (b, head, row tile) for dQ, then a CTA a
+(b, head, key tile) for dK and dV).  Past 256 dims more than one row takes
+``csrc/attention_backward_wide.cu`` (in f32 where it measured faster than
+the wide SIMT tile kernel, which stays elsewhere): every product on the
+tensor cores, the scores by the streamed forward's own wide score tile and
+P by its exp2, so P is the streamed forward's bit for bit; a dQ grid of
+(b, head, 16-row tile) CTAs, then a dK/dV grid of (b, head, 16-key tile)
+CTAs, or one grid for up to 16 keys (:func:`attention_backward_plan`).
 Every launch is counted by element type and variant (``launches_by_mode``:
 ``f32``, ``bf16``, with ``_stream``, ``_wide`` or ``_split`` for those
 variants).
@@ -78,8 +84,10 @@ STREAM_ROWS = 16   # the resident tile kernel's least row tile before the stream
 STREAM_GROUP = 16  # the streamed kernel: rows a warp (one m16 fragment of mma.sync)
 STREAM_MAX_ROWS = 64  # and rows a row tile (4 warps; past 128 dims 16 rows on 4 warps)
 STREAM_SPLIT = 4   # past 128 dims: warps that split a chunk's dims (partial scores summed)
-WIDE_KEYS = 8      # the wide backward kernels: keys a tile
-WIDE_ROWS = 8      # the wide backward tile kernel: rows a row tile (a warp a row)
+WIDE_KEYS = 8      # the wide backward's SIMT kernels: keys a tile
+WIDE_ROWS = 8      # the wide SIMT tile kernel (f32): rows a row tile (a warp a row)
+WIDE_TILE = 16     # the wide backward of more rows: rows a row tile and keys a key tile
+WIDE_OUT = 512     # and dims an output chunk (64 a warp of its 8)
 SMEM_BYTES = 232448  # the H100's shared memory a block (227 KB)
 MAX_LK = SMEM_BYTES // (4 * ROW_WARPS)  # 14528: keys of one query row's f32 scores, 4 a CTA
 SPLIT_KEYS = 2048      # the backward of more than one row tile splits past these keys
@@ -247,7 +255,7 @@ class _AttentionBackwardArgs(ctypes.Structure):
                 + [(f, ctypes.c_int32) for f in ("B", "Lq", "Lk", "H", "Dh", "kv_len0")]
                 + [("scale", ctypes.c_float), ("keep_prob", ctypes.c_float)]
                 + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "warps")]
-                + [(f, ctypes.c_void_p) for f in ("delta", "dq_acc", "dkv_acc")])
+                + [(f, ctypes.c_void_p) for f in ("delta", "dq_acc", "row_max_acc")])
 
 
 class BackwardPlan(NamedTuple):
@@ -257,9 +265,12 @@ class BackwardPlan(NamedTuple):
     of ``rows`` rows); a lane holds ``per_lane`` dims of a row.
     "tile_split": the tile kernel's sums in two launches, a CTA a (b, head,
     row tile) for dQ, then a CTA a (b, head, key tile) for dK and dV;
-    ``blocks`` counts both grids' CTAs.  Past 256 dims, "row_wide" and
-    "tile_wide": the row and tile layouts over chunks of 256 dims (8 a
-    lane), ``keys`` = WIDE_KEYS."""
+    ``blocks`` counts both grids' CTAs.  Past 256 dims, "row_wide" and (in
+    f32) "tile_wide": the row and tile layouts over chunks of 256 dims (8 a
+    lane), ``keys`` = WIDE_KEYS; and "tile_wide_tc":
+    ``csrc/attention_backward_wide.cu`` on the tensor cores, tiles of
+    ``rows`` = ``keys`` = WIDE_TILE, 8 warps, a dQ grid and a dK/dV grid (one
+    grid of B H CTAs for up to WIDE_TILE keys)."""
     kernel: str
     per_lane: int
     keys: int
@@ -273,8 +284,26 @@ def _pow2_at_least(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
+def wide_backward_smem_bytes(Dh: int, elem: int = 4) -> int:
+    """The wide backward's shared memory (``csrc/attention_backward_wide.cu``)
+    for heads of ``Dh`` dims of ``elem``-byte elements: the 8 warps' partial
+    scores and dP' (WIDE_TILE / 2 floats a lane), a pair's P' and dS
+    (WIDE_TILE rows of WIDE_TILE + 4 floats) and a row tile's D; then up to
+    WIDE_OUT dims (resident) the own tile's 2 x WIDE_TILE rows of WIDE_OUT
+    dims and two slots of a pair's 2 x WIDE_TILE partner rows, past them
+    (streamed) two slots of 4 x WIDE_TILE rows of a chunk of 256 dims; each
+    row 16 bytes longer, each slot with a row tile's keep bytes (WIDE_TILE +
+    4 a row)."""
+    res = Dh <= WIDE_OUT
+    row = elem * ((WIDE_OUT if res else CHUNK_DIMS) + 16 // elem)
+    own, slot = (2 * WIDE_TILE, 2 * WIDE_TILE) if res else (0, 4 * WIDE_TILE)
+    red = 8 * 32 * (WIDE_TILE // 2) + 2 * WIDE_TILE * (WIDE_TILE + 4) + WIDE_TILE
+    return 4 * red + own * row + 2 * (slot * row + WIDE_TILE * (WIDE_TILE + 4))
+
+
 def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
-                            split: Optional[bool] = None) -> BackwardPlan:
+                            split: Optional[bool] = None, bf16: bool = False,
+                            tensor_cores: Optional[bool] = None) -> BackwardPlan:
     """The plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  A lane holds
     the next power of two of ceil(Dh / 32) dims (1 to 8); a key tile the
     least power of two of keys, at least 4, that holds Lk, up to 32 / that
@@ -286,10 +315,34 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
     CTA 8 warps (4 for up to 128 scores a row tile), and its shared memory
     holds the k and v tiles, the q, dO and o rows (zero-padded to 32 dims a
     lane), and a row tile's P', dS, row max, exp sum and keep bytes.  Past
-    CHUNK_DIMS dims a lane holds 8 dims of each chunk of 256: one query row
-    takes the wide row kernel (a warp a (b, head)), more the wide tile
-    kernel (8 warps a (b, head), a warp a row, row tiles of WIDE_ROWS rows,
-    k, v, q, dO and o staged a chunk at a time), key tiles of WIDE_KEYS.
+    CHUNK_DIMS dims one query row takes the wide row kernel (a warp a (b,
+    head), 8 dims a lane of each chunk of 256, key tiles of WIDE_KEYS); more
+    take the tensor-core kernels ("tile_wide_tc"): a CTA of 8 warps a (b,
+    head, tile of WIDE_TILE rows) for dQ, then one a (b, head, tile of
+    WIDE_TILE keys) for dK and dV, ``blocks`` both grids' CTAs; up to
+    WIDE_TILE keys one grid, a CTA a (b, head), takes all three.  In ``bf16`` they
+    run at every such shape.  In f32 they run past WIDE_TILE keys up to
+    WIDE_OUT dims, and past WIDE_OUT dims below SPLIT_MAX_HEADS (b, head)
+    pairs; elsewhere the SIMT "tile_wide" kernel stays (a CTA a (b, head) of
+    WIDE_ROWS warps, a warp a row, per-lane fmaf chains over key tiles of
+    WIDE_KEYS), which measured faster there on the H100 (80GB HBM3, 700.00
+    W; ``chip_smoke.py``, phase 2i's ``tensor_core_ms`` against
+    ``simt_ms``, ms, PERF.md §6): vp_train_wide's encoder 5 x 5 and cross
+    15 x 3 at Dh 512, B 512, 0.3972 / 0.5116 against 0.2142 / 0.3739;
+    causal 15 x 15 at Dh 257 / 1024 / 2048, B 64, 0.1398 / 0.3696 / 0.8657
+    against 0.1218 / 0.2315 / 0.4572; 96 x 96 at Dh 2048, B 64, 37.08
+    against 25.02.  The rule keeps one kernel at one key tile and one past
+    WIDE_OUT dims, so it also keeps the SIMT kernel at 15 x 15 Dh 320 and
+    512 (B 512 at 512), where the tensor cores came 7% and 5% faster
+    (0.0870 / 0.7081 against 0.0937 / 0.7491), and at 96 x 96 Dh 1024
+    (12.28 against 12.18).  Where it takes the tensor cores, 96 x 96 at Dh
+    257 / 320 / 512 took 5.398 / 2.969 / 23.86 against 6.219 / 4.552 /
+    40.99.  At one key tile the tensor-core kernels' launch
+    is one pair and its latency (3xTF32, one CTA an SM), and past WIDE_OUT
+    dims they take the scores again for each output chunk of WIDE_OUT dims.
+    ``tensor_cores`` True forces the tensor-core kernels,
+    False the SIMT one (f32 only), for more than one query row past 256
+    dims (else a ``ValueError``).
     More than one row tile (MAX_ROW_TILE rows) past SPLIT_KEYS keys at up
     to 256 dims, at fewer than SPLIT_MAX_HEADS (b, head) pairs, takes the
     split ("tile_split", ``csrc/attention_backward_split.cu``): the tile
@@ -308,13 +361,25 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
     if split is not None and (Lq == 1 or Dh > CHUNK_DIMS):
         raise ValueError(f"attention: the split backward's choice takes more than one query "
                          f"row of at most {CHUNK_DIMS} dims, got Lq {Lq}, Dh {Dh}")
+    if tensor_cores is not None and (Lq == 1 or Dh <= CHUNK_DIMS or
+                                     (bf16 and not tensor_cores)):
+        raise ValueError(f"attention: the wide backward's choice takes more than one query "
+                         f"row past {CHUNK_DIMS} dims (the SIMT kernel f32 only), got Lq {Lq}, "
+                         f"Dh {Dh}, bf16 {bf16}")
     if Dh > CHUNK_DIMS:
         if Lq == 1:
             return BackwardPlan("row_wide", 8, WIDE_KEYS, 1, 256, -(-B * H // 8), 0)
-        rows = min(Lq, WIDE_ROWS)
-        smem = 4 * (2 * WIDE_KEYS * CHUNK_DIMS + 3 * rows * CHUNK_DIMS + 2 * rows * WIDE_KEYS
-                    + 2 * rows) + rows * WIDE_KEYS
-        return BackwardPlan("tile_wide", 8, WIDE_KEYS, rows, 32 * WIDE_ROWS, B * H, smem)
+        if tensor_cores is None:
+            tensor_cores = bf16 or (Lk > WIDE_TILE and (Dh <= WIDE_OUT
+                                                        or B * H < SPLIT_MAX_HEADS))
+        if not tensor_cores:
+            rows = min(Lq, WIDE_ROWS)
+            smem = 4 * (2 * WIDE_KEYS * CHUNK_DIMS + 3 * rows * CHUNK_DIMS
+                        + 2 * rows * WIDE_KEYS + 2 * rows) + rows * WIDE_KEYS
+            return BackwardPlan("tile_wide", 8, WIDE_KEYS, rows, 32 * WIDE_ROWS, B * H, smem)
+        grids = 1 if Lk <= WIDE_TILE else -(-Lq // WIDE_TILE) + -(-Lk // WIDE_TILE)
+        return BackwardPlan("tile_wide_tc", 8, WIDE_TILE, WIDE_TILE, 256, B * H * grids,
+                            wide_backward_smem_bytes(Dh))
     per_lane = _pow2_at_least(math.ceil(Dh / 32))
     keys = max(4, _pow2_at_least(min(Lk, 32)))
     if Lq == 1:
@@ -337,7 +402,8 @@ def attention_backward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
 def backward_mode(plan: BackwardPlan) -> str:
     """The launch-count mode suffix of a backward plan's kernels: "" for the
     row and tile kernels, "_split" for the split, "_wide" past 256 dims."""
-    modes = {"row_wide": "_wide", "tile_wide": "_wide", "tile_split": "_split"}
+    modes = {"row_wide": "_wide", "tile_wide": "_wide", "tile_wide_tc": "_wide",
+             "tile_split": "_split"}
     return modes.get(plan.kernel, "")
 
 
@@ -451,11 +517,15 @@ def _forward_launch():
     return fn
 
 
+# the library of each backward plan's kernels (the row and tile kernels' by default)
+BACKWARD_LIBRARIES = {"tile_split": "attention_backward_split",
+                      "tile_wide_tc": "attention_backward_wide"}
+
+
 @functools.lru_cache(maxsize=None)
-def _backward_launch(split: bool):
-    """The launcher of the backward's row, tile and wide kernels, or of the
-    split kernels, its signature set once."""
-    lib = "attention_backward_split" if split else "attention_backward"
+def _backward_launch(lib: str):
+    """The launcher of a backward library (``BACKWARD_LIBRARIES``), its
+    signature set once."""
     fn = getattr(build.load(lib), f"{lib}_launch")
     fn.argtypes = [ctypes.POINTER(_AttentionBackwardArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -534,7 +604,8 @@ def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, row_max: torch.Tensor, row_sum: torch.Tensor,
                        kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
-                       rate: float = 0.0, split: Optional[bool] = None
+                       rate: float = 0.0, split: Optional[bool] = None,
+                       tensor_cores: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the training mode's output from its gradient ``dout``,
     its inputs, its output and its row statistics, at any number of query
@@ -542,7 +613,9 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
     :func:`attention_backward_plain`; CUDA tensors launch the kernels of
     :func:`attention_backward_plan`.  For more than one query row ``split``
     True takes the split kernels and False the one-CTA tile kernel whatever
-    the rule (the two give the same bits)."""
+    the rule (the two give the same bits); past 256 dims ``tensor_cores``
+    True takes the tensor-core kernels and False (f32) the SIMT tile kernel
+    whatever the rule."""
     if q.device.type == "cpu":
         return attention_backward_plain(dout, q, k, v, o, row_max, row_sum, kv_len0, keep, rate)
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
@@ -550,18 +623,21 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
                                   ("row_max", row_max, (B, H, Lq), torch.float32),
                                   ("row_sum", row_sum, (B, H, Lq), torch.float32)):
         _check(name, t, shape, dtype, q.device)
-    plan = attention_backward_plan(B, Lq, Lk, H, Dh, split)
     elem = _elem(q, k, v)
+    plan = attention_backward_plan(B, Lq, Lk, H, Dh, split, bf16=elem == 1,
+                                   tensor_cores=tensor_cores)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # bf16: each row's D, the dQ chains in f32 between key tiles (the tile
-    # kernels but the split; past 256 dims the row kernel's too), and past
-    # 256 dims the tile kernel's dK and dV sums in f32 between row tiles
-    wide, split = Dh > CHUNK_DIMS, plan.kernel == "tile_split"
-    delta = torch.empty(B, H, Lq, device=q.device) if elem else None
+    # bf16: each row's D, and the dQ chains in f32 between key tiles (the
+    # tile kernel; past 256 dims the row kernel).  Past 256 dims for more
+    # rows, in both types: each row's max_acc and D from the dQ grid for the
+    # dK/dV grid (not for one key tile, whose one grid takes them itself).
+    lib = BACKWARD_LIBRARIES.get(plan.kernel, "attention_backward")
+    wide_tc = plan.kernel == "tile_wide_tc"
+    stats = wide_tc and Lk > WIDE_TILE
+    delta = torch.empty(B, H, Lq, device=q.device) if (elem and not wide_tc) or stats else None
+    row_max_acc = torch.empty(B, H, Lq, device=q.device) if stats else None
     dq_acc = (torch.empty(q.shape, device=q.device)
-              if elem and ((Lq > 1 and not split) or wide) else None)
-    dkv_acc = (torch.empty((2,) + tuple(k.shape), device=q.device)
-               if elem and Lq > 1 and wide else None)
+              if elem and plan.kernel in ("tile", "row_wide") else None)
     args = _AttentionBackwardArgs(
         dout=dout.data_ptr(), q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
         o=None if elem else o.data_ptr(),  # bf16 takes D from dP', not from o
@@ -571,9 +647,9 @@ def attention_backward(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: 
         keep_prob=1.0 - rate, per_lane=plan.per_lane, keys=plan.keys, rows=plan.rows,
         warps=plan.threads // 32, delta=None if delta is None else delta.data_ptr(),
         dq_acc=None if dq_acc is None else dq_acc.data_ptr(),
-        dkv_acc=None if dkv_acc is None else dkv_acc.data_ptr())
-    err = _backward_launch(split)(ctypes.byref(args), elem,
-                                  torch.cuda.current_stream(q.device).cuda_stream)
+        row_max_acc=None if row_max_acc is None else row_max_acc.data_ptr())
+    err = _backward_launch(lib)(ctypes.byref(args), elem,
+                                torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed with CUDA error {err}")
     count_launch(attention_backward, MODES[elem] + backward_mode(plan))

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNEL_SOURCES = ("env_step", "observe", "actor_critic", "choose_action", "expert_tables",
                   "gae", "policy_loss", "actor_critic_backward", "tile_occupancy", "attention",
-                  "attention_backward", "attention_backward_split")
+                  "attention_backward", "attention_backward_split", "attention_backward_wide")
 
 # sm_90a for Hopper.  -fmad=false and no --use_fast_math: the env step's
 # download math floors and compares, and a 1-ulp change moves the trace

@@ -148,9 +148,13 @@
 // of its launches are bit-equal (no atomics, fixed orders).  The backward
 // (csrc/attention_backward.cu, _split.cu) recomputes each p from row_max
 // and row_sum by its SIMT scores: bit for bit the forward's p after the
-// row and tile kernels, within ulps of it after the streamed one; the wide
-// kernels and the wide backward share one definition of a score, so the
-// backward's P is the wide row kernel's.
+// row and tile kernels, within ulps of it after the streamed one up to 256
+// dims; the wide row kernels forward and backward share one definition of
+// a score, and past 256 dims the backward of more than one row
+// (csrc/attention_backward_wide.cu) takes its scores by the streamed
+// kernel's own wide score tile (attention_common.cuh: wide_score_chunk,
+// wide_score_put, wide_score_sum) and its p by the same exp2, so the
+// backward's P is the wide forward's on either path.
 
 #include <algorithm>
 #include <cmath>
@@ -168,6 +172,7 @@ using mansy::to_f32;
 using mansy::warp_sum;
 using mansy::attn::chain;
 using mansy::attn::chain_on;
+using mansy::attn::exp2_ftz;
 using mansy::attn::kChunkDims;
 using mansy::attn::load_chunk;
 using mansy::attn::opt_in;
@@ -178,6 +183,9 @@ using mansy::attn::stage_bytes;
 using mansy::attn::stage_rows_as_is;
 using mansy::attn::stage_keep;
 using mansy::attn::stage_tile;
+using mansy::attn::wide_score_chunk;
+using mansy::attn::wide_score_put;
+using mansy::attn::wide_score_sum;
 using mansy::tc::cp_async_commit;
 using mansy::tc::cp_async_wait;
 
@@ -193,14 +201,6 @@ constexpr int kStreamThreads = 128;   // and at most 4 warps a CTA: row tiles of
 // the streamed kernel's keys a tile: 64 up to 64 dims, else 32 (a warp's
 // output takes 2 x 4 P registers a lane, and the scores 2 keys / 8)
 __host__ __device__ constexpr int stream_keys(int P) { return P >= 4 ? 32 : 64; }
-
-// 2^x on the SFU, results below f32's normal range flushed to 0 (an exp of
-// the softmax that small adds nothing to a sum of terms up to 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Field order must match kernels/attention.py:_AttentionArgs.
 struct AttentionArgs {
@@ -709,38 +709,27 @@ __global__ void __launch_bounds__(kStreamThreads) attention_stream_kernel(const 
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
     for (int ch = 0; ch < chunks; ++ch) {
       const T* st = last = next();
-      // a chunk's products from a zero accumulator, then added to the scores in f32
-      // (the tensor cores round their f32 sums toward zero, so long chains drift)
-      float part[kN / 8][4];
+      if constexpr (kWide) {  // the wide score tile (attention_common.cuh), a warp a part
+        wide_score_chunk<kN, LS>(sc, st, st + RW * LS, jn, Dh - ch * kD, ds, lane);
+      } else {
+        // the products from a zero accumulator, then added to the scores in f32
+        // (the tensor cores round their f32 sums toward zero, so long chains drift)
+        float part[kN / 8][4];
 #pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
+        for (int n = 0; n < kN / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-      if (jn > 0)
-        score_tile<kN, kWD, LS>(part, (kWide ? st : sQ) + w0 * LS + ds * kWD,
-                                st + (kWide ? RW * LS : 0) + ds * kWD, jn,
-                                Dh - ch * kD - ds * kWD, lane);
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+        if (jn > 0) score_tile<kN, kWD, LS>(part, sQ + w0 * LS, st, jn, Dh, lane);
 #pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
+        for (int n = 0; n < kN / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] += part[n][e];
-    }
-    if (kWide) {  // the warps' partial scores, summed in warp order
-      float4* mine = reinterpret_cast<float4*>(sRed + (ds * 32 + lane) * (kN / 2));
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
-        mine[n] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
-      __syncthreads();
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n) {
-        float4 x = reinterpret_cast<const float4*>(sRed + lane * (kN / 2))[n];
-        sc[n][0] = x.x, sc[n][1] = x.y, sc[n][2] = x.z, sc[n][3] = x.w;
-#pragma unroll
-        for (int w = 1; w < kSplit; ++w) {
-          x = reinterpret_cast<const float4*>(sRed + (w * 32 + lane) * (kN / 2))[n];
-          sc[n][0] += x.x, sc[n][1] += x.y, sc[n][2] += x.z, sc[n][3] += x.w;
-        }
+          for (int e = 0; e < 4; ++e) sc[n][e] += part[n][e];
       }
+    }
+    if constexpr (kWide) {  // the warps' partial scores, summed in warp order
+      wide_score_put<kN>(sc, sRed, ds, lane);
+      __syncthreads();
+      wide_score_sum<kN>(sc, sRed, lane);
     }
   };
 

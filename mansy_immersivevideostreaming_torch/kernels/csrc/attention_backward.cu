@@ -65,16 +65,20 @@
 //     where this kernel's B H CTAs leave the card idle):
 //     csrc/attention_backward_split.cu, this kernel's sums, bit for bit,
 //     over a grid of row tiles for dQ and one of key tiles for dK and dV.
-//   past 256 dims (backward_row_wide_kernel, backward_tile_wide_kernel): the
-//     same two layouts over the head's chunks of 256 dims, 8 a lane, key
-//     tiles of 8 keys: the per-lane partials of a score and of a dP' carried over
-//     the chunks before the reduction (the wide forward's scores, bit for
-//     bit), then dQ, dK and dV chunk by chunk; the row kernel reads k and v
-//     from device memory a chunk at a time, the tile kernel (a warp a row,
-//     row tiles of 8) stages a chunk of k, v, q, dO and o at a time in
-//     40 KB of shared memory whatever Dh, and keeps its dK and dV sums over
-//     the row tiles in device memory (dk and dv in f32, an f32 scratch in
-//     bf16), each chain in the narrow kernels' order.
+//   past 256 dims (backward_row_wide_kernel; in f32 where the plan keeps
+//     it, backward_tile_wide_kernel): the row and tile layouts over the
+//     head's chunks of 256 dims, 8 a lane, key tiles of 8 keys: the per-lane
+//     partials of a score and of a dP' carried over the chunks before the
+//     reduction (the wide row forward's scores, bit for bit), then dQ, dK
+//     and dV chunk by chunk; the row kernel reads k and v from device memory
+//     a chunk at a time, the tile kernel (a warp a row, row tiles of 8)
+//     stages a chunk of k, v, q, dO and o at a time in 40 KB of shared
+//     memory whatever Dh, and keeps its dQ, dK and dV sums over the tiles in
+//     dq, dk and dv.  More than one row in bf16, and in f32 where it
+//     measured faster, takes csrc/attention_backward_wide.cu: every product
+//     on the tensor cores (mma.sync) over a dQ grid and a dK/dV grid, its P
+//     the streamed forward's bit for bit (the forward's own wide score
+//     tile, csrc/attention_common.cuh).
 // Keys: no kernel holds a row of scores, so any Lk runs.
 // No atomics: every sum has a fixed order, and two launches give the same
 // bits.
@@ -92,7 +96,7 @@
 //   dQ   = bf16((dS / sqrt(Dh)) K),  dK = bf16((dS / sqrt(Dh))^T Q).
 // D needs a row's every key before its first dS, so a first launch
 // (delta_kernel, a warp a (b, row, head), the forward's walk; past 256 dims
-// delta_wide_kernel, over the chunks) writes it; the
+// at one row delta_wide_kernel, over the chunks) writes it; the
 // tile kernel keeps its dQ chains in an f32 scratch between key tiles.  The
 // f32 instantiations compile as before (D = rowsum(dO * O), every rounding an
 // identity).
@@ -452,11 +456,10 @@ backward_tile_kernel(const AttentionBackwardArgs a) {
 
 // ---- Dh > 256: the head in chunks of 256 dims (attention_common.cuh) ----
 // Every score and dP' is lane l's chain over dims l, l + 32, ... of all the
-// chunks (chain_on), then the butterfly's sums: the wide forward's scores,
-// bit for bit, so P is the forward's.  dQ, dK and dV are summed chunk by
-// chunk, each chain in the order of the narrow kernels (dQ over the keys,
-// dK and dV over the rows), its partial kept in device memory between
-// tiles.
+// chunks (chain_on), then the butterfly's sums: the wide row forward's
+// scores, bit for bit.  dQ, dK and dV are summed chunk by chunk, each chain
+// in the order of the narrow kernels (dQ over the keys, dK and dV over the
+// rows), its partial kept in device memory between tiles.
 
 // bf16's D of each row, a warp a (b, row, head), as delta_kernel.
 template <typename T>
@@ -615,18 +618,19 @@ backward_row_wide_kernel(const AttentionBackwardArgs a) {
     }
 }
 
-// Lq > 1: a CTA a (b, head) of 8 warps, key tiles of kWideKeys keys, row
-// tiles of a.rows (<= 8) rows, a warp a row.  For each (key tile, row tile):
-// the chunks of k, v, q, dO (and in f32 o) staged one after another while
-// each warp carries its row's 2M partials (and D's); one reduce_scatter of
+// Lq > 1 in f32 where the plan keeps it (kernels/attention.py:
+// attention_backward_plan; csrc/attention_backward_wide.cu takes bf16 and
+// the other shapes): a CTA a (b, head) of 8 warps, key tiles of kWideKeys
+// keys, row tiles of a.rows (<= 8) rows, a warp a row.  For each (key tile,
+// row tile): the chunks of k, v, q, dO and o staged one after another while
+// each warp carries its row's 2M partials and D's; one reduce_scatter of
 // the 2M items; P' and dS to shared memory; then chunk by chunk (k, q and dO
 // staged again) the warps' dQ chains over the tile's keys and the threads'
 // (key, 4 dims) dK and dV chains over the tile's rows, each kept between
-// tiles in device memory (f32: dq, dk, dv; bf16: dq_acc and dkv_acc, the
-// outputs rounded from them).
-template <typename T>
+// tiles in dq, dk and dv.
 __global__ void __launch_bounds__(kWideRows * 32, 2)
 backward_tile_wide_kernel(const AttentionBackwardArgs a) {
+  using T = float;
   constexpr int M = kWideKeys, kD = kChunkDims, W = kWideRows, kThreads = W * 32;
   constexpr int kChunks = M * kD / 4;                        // (key, 4 dims) of a tile's chunk
   constexpr int kPer = (kChunks + kThreads - 1) / kThreads;  // of them a thread
@@ -664,10 +668,9 @@ backward_tile_wide_kernel(const AttentionBackwardArgs a) {
   const T* V = static_cast<const T*>(a.v) + k0;
   T* dK = static_cast<T*>(a.dk) + k0;
   T* dV = static_cast<T*>(a.dv) + k0;
-  float* chains = kIsBf16<T> ? a.dq_acc : static_cast<float*>(a.dq);
-  const size_t kv_elems = (size_t)a.B * Lk * H * Dh;
-  float* dk_sum = kIsBf16<T> ? a.dkv_acc + k0 : static_cast<float*>(a.dk) + k0;
-  float* dv_sum = kIsBf16<T> ? a.dkv_acc + kv_elems + k0 : static_cast<float*>(a.dv) + k0;
+  float* chains = static_cast<float*>(a.dq);
+  float* dk_sum = static_cast<float*>(a.dk) + k0;
+  float* dv_sum = static_cast<float*>(a.dv) + k0;
 
   for (int j0 = 0; j0 < Lk; j0 += M) {
     const int kn = min(M, Lk - j0);
@@ -698,8 +701,7 @@ backward_tile_wide_kernel(const AttentionBackwardArgs a) {
                        kThreads);
         stage_rows<kD>(sQ, Q + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
         stage_rows<kD>(sdO, dO + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
-        if constexpr (!kIsBf16<T>)
-          stage_rows<kD>(sO, O + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
+        stage_rows<kD>(sO, O + rows + c * kD, stride, rn, rn, rest, vec, tid, kThreads);
         if (c == 0) {
           for (int e = tid; e < rn; e += kThreads) {
             cp_async4(sMax + e, a.row_max + bh * Lq + r0 + e, true);
@@ -734,16 +736,14 @@ backward_tile_wide_kernel(const AttentionBackwardArgs a) {
               x[M + s] = chain_on<8>(x[M + s], dov, vr, lane, rest);
             }
           }
-          if constexpr (!kIsBf16<T>) {
-            float ov[8];
+          float ov[8];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) ov[i] = sO[warp * kD + lane + 32 * i];
-            dpart = chain_on<8>(dpart, dov, ov, lane, rest);
-          }
+          for (int i = 0; i < 8; ++i) ov[i] = sO[warp * kD + lane + 32 * i];
+          dpart = chain_on<8>(dpart, dov, ov, lane, rest);
         }
       }
       if (mine) {  // a warp's row: P' and dS of the tile's keys
-        const float D = kIsBf16<T> ? a.delta[bh * Lq + r] : warp_sum(dpart);
+        const float D = warp_sum(dpart);
         const float sum2 = mansy::attn::reduce_scatter<2 * M>(x, lane);
         const float dpd = __shfl_sync(kFull, sum2, (lane & (M - 1)) + M);
         const int s_own = lane & (M - 1);
@@ -783,10 +783,7 @@ backward_tile_wide_kernel(const AttentionBackwardArgs a) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const int d = lane + 32 * i;
-            if (d < rest) {
-              chains[row + d] = acc[i];
-              if (kIsBf16<T>) static_cast<T*>(a.dq)[row + d] = from_f32<T>(acc[i]);
-            }
+            if (d < rest) chains[row + d] = acc[i];
           }
         }
         // this thread's (key, 4 dims) of dK and dV over the row tile's rows, in order
@@ -816,10 +813,6 @@ backward_tile_wide_kernel(const AttentionBackwardArgs a) {
               if (d4 + t < rest) {
                 dk_sum[at + t] = dk[t];
                 dv_sum[at + t] = dv[t];
-                if (kIsBf16<T>) {
-                  dK[at + t] = from_f32<T>(dk[t]);
-                  dV[at + t] = from_f32<T>(dv[t]);
-                }
               }
             }
           }
@@ -892,8 +885,8 @@ int launch_plan(const AttentionBackwardArgs& a, cudaStream_t s) {
   }
 }
 
-// Dh > 256: the wide kernels (a.keys = kWideKeys; the tile kernel's rows at
-// most kWideRows).
+// Dh > 256: the wide row kernel (a.keys = kWideKeys), or in f32 the wide
+// tile kernel (its rows at most kWideRows).
 template <typename T>
 int launch_wide(const AttentionBackwardArgs& a, cudaStream_t s) {
   if (a.keys != kWideKeys) return (int)cudaErrorInvalidValue;
@@ -903,21 +896,22 @@ int launch_wide(const AttentionBackwardArgs& a, cudaStream_t s) {
                                   kRowWarps * 32, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
-  if (a.rows < 1 || a.rows > kWideRows || a.warps != kWideRows ||
-      (kIsBf16<T> && a.dkv_acc == nullptr))
+  if (kIsBf16<T> || a.rows < 1 || a.rows > kWideRows || a.warps != kWideRows)
     return (int)cudaErrorInvalidValue;
   const size_t smem = tile_wide_smem_bytes(a.rows);
-  auto kernel = backward_tile_wide_kernel<T>;
-  const cudaError_t e = opt_in(kernel, smem);
+  const cudaError_t e = opt_in(backward_tile_wide_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)((long long)a.B * a.H), kWideRows * 32, smem, s>>>(a);
+  backward_tile_wide_kernel<<<(unsigned)((long long)a.B * a.H), kWideRows * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // elem = 0: f32 tensors; 1: bf16 (delta_kernel first, then the plan's kernel).
-// Dh > 256 takes the wide kernels (delta_wide_kernel for bf16's D).
+// Dh > 256 takes the wide row kernel for one query row (delta_wide_kernel for
+// bf16's D) and, in f32 where the plan keeps it, the wide tile kernel for
+// more; csrc/attention_backward_wide.cu takes the other multi-row backwards
+// past 256 dims.
 extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, int elem,
                                          void* stream) {
   const AttentionBackwardArgs& a = *args;
@@ -927,7 +921,8 @@ extern "C" int attention_backward_launch(const AttentionBackwardArgs* args, int 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (elem == 0) return wide ? launch_wide<float>(a, s) : launch_plan<float>(a, s);
-  if (elem != 1 || a.delta == nullptr || ((a.Lq > 1 || wide) && a.dq_acc == nullptr))
+  if (elem != 1 || a.delta == nullptr || (wide && a.Lq > 1) ||
+      ((a.Lq > 1 || wide) && a.dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)a.B * a.Lq * a.H;
   const unsigned blocks = (unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps);

@@ -1,6 +1,7 @@
 // K8's backward: the launch arguments and the gradient of one (row, key)
 // that the one-CTA kernels (csrc/attention_backward.cu) and the split
-// kernels (csrc/attention_backward_split.cu) share.
+// kernels (csrc/attention_backward_split.cu) share; the wide kernels
+// (csrc/attention_backward_wide.cu) take the arguments.
 
 #pragma once
 
@@ -32,11 +33,13 @@ struct AttentionBackwardArgs {
   int32_t rows;          // rows a row tile (tile kernel; 1 for the row kernel)
   int32_t warps;         // warps a CTA (tile kernel: 4 or 8; the row kernel: 8)
   // bf16 only
-  float* delta;          // [B, H, Lq]: D of each row (delta_kernel writes it)
-  float* dq_acc;         // [B, Lq, H, Dh]: the tile kernel's dQ chains (Lq > 1; any Lq
-                         // past 256 dims)
-  float* dkv_acc;        // [2, B, Lk, H, Dh]: the wide tile kernel's dK and dV sums (Lq > 1,
-                         // Dh > 256)
+  float* delta;          // [B, H, Lq]: D of each row (bf16: delta_kernel writes it)
+  float* dq_acc;         // [B, Lq, H, Dh]: the tile kernel's dQ chains (Lq > 1 up to 256
+                         // dims; the wide row kernel's at Lq = 1)
+  // past 256 dims for more than one row and key tile (csrc/attention_backward_wide.cu), f32 and
+  // bf16: each row's max of q . k (before the division by sqrt(Dh)) and its D, written by the
+  // dQ grid for the dK/dV grid (delta above)
+  float* row_max_acc;    // [B, H, Lq]
 };
 
 namespace {

@@ -2,8 +2,11 @@
 // (csrc/attention.cu, reduce_scatter_placed) and the backward
 // (csrc/attention_backward.cu, reduce_scatter) take their scores by, the
 // wide kernels' chunks of a head, the score tile and P . v on the tensor
-// cores (the streamed forward: score_tile, pv_tile), the staging of head
-// rows into shared memory and the opt-in to more than 48 KB of it.
+// cores (the streamed forward: score_tile, pv_tile; past 128 dims the wide
+// score tile that the streamed forward and the wide backward share:
+// wide_score_chunk, wide_score_put, wide_score_sum), the softmax's exp2,
+// the staging of head rows into shared memory and the opt-in to more than
+// 48 KB of it.
 //
 // A score is a dot product over Dh dims, split across a warp as the row
 // kernel of the forward takes it: lane l's fmaf chain over dims l, l + 32,
@@ -179,6 +182,14 @@ __device__ __forceinline__ void stage_rows_as_is(bf16* dst, const bf16* src, siz
   }
 }
 
+// 2^x on the SFU, results below f32's normal range flushed to 0 (an exp of
+// the softmax that small adds nothing to a sum of terms up to 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- the score tile on the tensor cores (the streamed forward) ----
 //
 // A warp takes 16 query rows (one m16 fragment of mma.sync) against a key
@@ -324,6 +335,67 @@ __device__ __forceinline__ void pv_tile(float (&o)[kDims / 8][4], const float (&
           mma_bf16(o[2 * d + 1], a, b1);
         }
       }
+    }
+  }
+}
+
+// ---- the wide score tile (heads past 128 dims) ----
+//
+// 16 rows against a key tile of kN keys over a head taken in chunks of
+// kChunkDims dims, each chunk split into kWideSplit parts of kWideDims dims:
+// part p's products of a chunk (score_tile over dims [64 p, 64 p + 64))
+// start from a zero accumulator and are added to the part's partial in f32
+// (the tensor cores round their f32 sums toward zero, so a long chain
+// drifts); the parts' partials are then summed in part order through shared
+// memory (wide_score_put, a __syncthreads, wide_score_sum).  A score is the
+// same sum of the same terms whatever warp takes a part, so the streamed
+// forward's kWide instances (a warp a part) and the wide backward
+// (csrc/attention_backward_wide.cu: a warp a part of the scores, another of
+// dO . v^T) take one definition of it, bit for bit.
+constexpr int kWideSplit = 4;
+constexpr int kWideDims = kChunkDims / kWideSplit;
+
+// sc += part `part`'s share of q . k^T over a chunk: q [16][LS] and k [kN][LS]
+// the chunk's rows (zero past the valid rows and dims), `dims` the head's dims
+// from the chunk's first, only the key groups of 8 below `keys`.
+template <int kN, int LS, typename T>
+__device__ __forceinline__ void wide_score_chunk(float (&sc)[kN / 8][4], const T* q, const T* k,
+                                                 int keys, int dims, int part, int lane) {
+  float x[kN / 8][4];
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+  if (keys > 0)
+    score_tile<kN, kWideDims, LS>(x, q + part * kWideDims, k + part * kWideDims, keys,
+                                  dims - part * kWideDims, lane);
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] += x[n][e];
+}
+
+// A part's partial scores into red [kWideSplit][32][kN / 2] (its lane's row).
+template <int kN>
+__device__ __forceinline__ void wide_score_put(const float (&sc)[kN / 8][4], float* red, int part,
+                                               int lane) {
+  float4* mine = reinterpret_cast<float4*>(red + (part * 32 + lane) * (kN / 2));
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n) mine[n] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+}
+
+// The scores: the kWideSplit partials of red summed in part order.
+template <int kN>
+__device__ __forceinline__ void wide_score_sum(float (&sc)[kN / 8][4], const float* red,
+                                               int lane) {
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n) {
+    float4 x = reinterpret_cast<const float4*>(red + lane * (kN / 2))[n];
+    sc[n][0] = x.x, sc[n][1] = x.y, sc[n][2] = x.z, sc[n][3] = x.w;
+#pragma unroll
+    for (int w = 1; w < kWideSplit; ++w) {
+      x = reinterpret_cast<const float4*>(red + (w * 32 + lane) * (kN / 2))[n];
+      sc[n][0] += x.x, sc[n][1] += x.y, sc[n][2] += x.z, sc[n][3] += x.w;
     }
   }
 }

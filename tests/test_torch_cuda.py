@@ -1366,15 +1366,18 @@ WIDE_SHAPES = [(1, 15, 1), (15, 15, 1), (96, 96, None)]
 @pytest.mark.parametrize("Dh", [257, 320, 512, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_attention_wide_heads_on_card(cuda_device, Lq, Lk, kv_len0, Dh, dtype):
-    """Heads of 257 to 2048 dims (the wide kernels, chunks of 256): serving,
-    training with and without a keep mask, and backward against the plain
-    versions at the existing tolerances, two launches bit-equal; every
-    launch counted in the ``_wide`` modes."""
+    """Heads of 257 to 2048 dims (the wide kernels, chunks of 256; for more
+    than one row the backward on the tensor cores, one grid at 15 keys, the
+    dQ and dK/dV grids at 96; in f32 at 15 keys the SIMT tile kernel):
+    serving, training with and without a keep mask, and backward against
+    the plain versions at the existing tolerances, two launches bit-equal;
+    every launch counted in the ``_wide`` modes."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    bf16 = dtype == torch.bfloat16
     assert K8.attention_forward_plan(2, Lq, Lk, 3, Dh).kernel == (
         "row_wide" if Lq == 1 else "stream")
-    assert K8.attention_backward_plan(2, Lq, Lk, 3, Dh).kernel == (
-        "row_wide" if Lq == 1 else "tile_wide")
+    assert K8.attention_backward_plan(2, Lq, Lk, 3, Dh, bf16=bf16).kernel == (
+        "row_wide" if Lq == 1 else "tile_wide_tc" if bf16 or Lk > 16 else "tile_wide")
     mode = ("f32" if dtype == torch.float32 else "bf16") + "_wide"
     before = [w.launches_by_mode.get(mode, 0)
               for w in (K8.attention, K8.attention_train_forward, K8.attention_backward)]
@@ -1396,6 +1399,67 @@ def test_attention_wide_heads_on_card(cuda_device, Lq, Lk, kv_len0, Dh, dtype):
     after = [w.launches_by_mode.get(mode, 0)
              for w in (K8.attention, K8.attention_train_forward, K8.attention_backward)]
     assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [320, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_wide_backward_past_2048_keys_on_card(cuda_device, Dh, dtype):
+    """The wide backward on the tensor cores past 2048 keys (33 x 5000, B 1,
+    a prefix of one key: the dQ grid's chains over 313 key tiles, key tiles
+    no row sees), with and without a keep mask: dq, dk and dv against the
+    plain version's autograd at K8's limits (f32: rtol 1e-5 plus 1e-5 of the
+    largest entry; bf16: one ulp plus ``bf16_slack``), unseen keys exactly
+    0, two launches bit-equal."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_backward_plan(1, 33, 5000, 2, Dh,
+                                      bf16=dtype == torch.bfloat16).kernel == "tile_wide_tc"
+    for dropout in (False, True):
+        if dtype == torch.bfloat16:
+            _attention_bf16_matches_plain(K8, 1, (33, 5000, 1), 2, Dh, dropout, Dh + dropout)
+        else:
+            _attention_training_matches_plain(K8, 1, (33, 5000, 1), 2, Dh, dropout,
+                                              Dh + dropout)
+
+
+# each wide backward forced where the plan takes the other in f32 (Lq, Lk,
+# kv_len0): one key tile (the encoder's 5 x 5, the teacher-forced 15 x 15 and
+# 15 x 3), the --his-window 96 encoder, rows and keys off the tiles
+WIDE_FORCED = [(5, 5, None), (15, 15, 1), (15, 3, None), (96, 96, None), (33, 40, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,kv_len0", WIDE_FORCED)
+@pytest.mark.parametrize("Dh", [320, 2048])
+def test_attention_wide_backward_forced_kernels_on_card(cuda_device, Lq, Lk, kv_len0, Dh):
+    """f32 past 256 dims, each wide backward forced (``tensor_cores`` True:
+    the tensor cores' kernels; False: the SIMT tile kernel), with and
+    without a keep mask: dq, dk and dv against the plain version's autograd
+    at K8's f32 limits (rtol 1e-5 plus 1e-5 of the largest entry), unseen
+    keys exactly 0, two launches bit-equal; bf16 refuses the SIMT kernel."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk + Dh)
+    q, k, v, dout = (torch.randn(2, L, 3, Dh, device=cuda_device, generator=g)
+                     for L in (Lq, Lk, Lk, Lq))
+    keep = (torch.rand(2, 3, Lq, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    for mask in (None, keep):
+        fwd = K8.attention_train_forward(q, k, v, kv_len0, mask, 0.1)
+        want = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, mask, 0.1), leaves, dout)
+        scale = max(float(w.abs().max()) for w in want)
+        for forced in (True, False):
+            got = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, mask, 0.1,
+                                        tensor_cores=forced)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
+            if kv_len0 is not None:
+                unseen = slice(min(Lk, kv_len0 + Lq - 1), None)
+                assert not got[1][:, unseen].any() and not got[2][:, unseen].any()
+            assert all(torch.equal(a, b) for a, b in zip(got, K8.attention_backward(
+                dout, q, k, v, *fwd, kv_len0, mask, 0.1, tensor_cores=forced)))
+    with pytest.raises(ValueError, match="wide backward"):
+        K8.attention_backward(*(x.bfloat16() for x in (dout, q, k, v)), fwd[0].bfloat16(),
+                              *fwd[1:], kv_len0, None, 0.1, tensor_cores=False)
 
 
 def _streamed_close(K8, got, want, q, k, v, kv_len0, keep):
@@ -1480,13 +1544,14 @@ def test_attention_streamed_kernel_at_ragged_shapes_on_card(cuda_device, Lq, Lk,
 # each backward that reads the streamed forward's statistics (B, Lq, Lk,
 # kv_len0, H, Dh, the backward's plan): the split at the --his-window 5000
 # encoder (B 2) and at 33 x 2500, the one-CTA tile kernel at the
-# teacher-forced cross-attention 15 x 2500, the wide tile kernel at 15 x 15
-# and 96 x 96 at Dh 512
+# teacher-forced cross-attention 15 x 2500, the wide backward at Dh 512: at
+# 15 x 15 the SIMT tile kernel in f32 and the tensor cores' one grid in bf16,
+# at 96 x 96 the tensor cores' dQ and dK/dV grids
 STATS_INTO_BACKWARD = [(2, 5000, 5000, None, 2, 64, "tile_split"),
                        (2, 33, 2500, 1, 2, 64, "tile_split"),
                        (4, 15, 2500, None, 2, 64, "tile"),
                        (2, 15, 15, 1, 3, 512, "tile_wide"),
-                       (2, 96, 96, None, 3, 512, "tile_wide")]
+                       (2, 96, 96, None, 3, 512, "tile_wide_tc")]
 
 
 @pytest.mark.cuda
@@ -1502,7 +1567,9 @@ def test_attention_streamed_statistics_feed_each_backward_on_card(cuda_device, B
     the largest entry of the three; bf16: one ulp plus ``bf16_slack``)."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     assert K8.attention_forward_plan(B, Lq, Lk, H, Dh).kernel == "stream"
-    assert K8.attention_backward_plan(B, Lq, Lk, H, Dh).kernel == backward
+    bf16 = dtype == torch.bfloat16
+    assert K8.attention_backward_plan(B, Lq, Lk, H, Dh, bf16=bf16).kernel == (
+        "tile_wide_tc" if bf16 and backward == "tile_wide" else backward)
     g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk + Dh)
     q, k, v, dout = (torch.randn(B, L, H, Dh, device=cuda_device, generator=g).to(dtype)
                      for L in (Lq, Lk, Lk, Lq))

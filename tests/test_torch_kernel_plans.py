@@ -417,6 +417,47 @@ TILE_KERNELS = {(p, m) for p in (1, 2, 4, 8) for m in (4, 8, 16)}
 BACKWARD_SIZES = (1, 15, 64, 65, 96, 2048)
 
 
+def _wide_walk(Lq: int, Lk: int, kv_len0: int, plan):
+    """The wide backward's walks (``csrc/attention_backward_wide.cu``) for one
+    output chunk: (times each (row, key) is taken, one array a pass; times
+    each key's dk and dv rows are written; times each row's dq row is
+    written).  Up to ``keys`` keys one grid: a CTA a (b, head) over the row
+    tiles of ``rows`` rows, a pair taking its rows' seen keys, dq written a
+    row tile at a time.  Else the dQ grid: a CTA a row tile over the key
+    tiles up to the last key a row of it sees, twice (each row's max and D,
+    then dQ), dq written once; and the dK/dV grid: a CTA a key tile over the
+    row tiles of ``rows`` from the first row that sees it (none if no row
+    does), dk and dv written once."""
+    seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+    R, KT = plan.rows, plan.keys
+    dkv_written, dq_written = np.zeros(Lk, int), np.zeros(Lq, int)
+    n_max = min(Lk, kv_len0 + Lq - 1)
+
+    def dkv_grid():
+        taken = np.zeros((Lq, Lk), int)
+        for j0 in range(0, Lk, KT):
+            r_first = max(0, j0 - kv_len0 + 1)
+            for r0 in (range(r_first, Lq, R) if j0 < n_max else ()):
+                taken[r0:r0 + R, j0:j0 + KT] += seen[r0:r0 + R, j0:j0 + KT]
+                if Lk <= KT:  # one grid: the pair's dq rows
+                    dq_written[r0:r0 + R] += 1
+            dkv_written[j0:j0 + KT] += 1
+        return taken
+
+    if Lk <= KT:
+        return [dkv_grid()], dkv_written, dq_written
+    passes = []
+    for _ in range(2):  # the max and D, then dQ
+        taken = np.zeros((Lq, Lk), int)
+        for r0 in range(0, Lq, R):
+            n_cta = min(Lk, kv_len0 + min(Lq, r0 + R) - 1)
+            for j0 in range(0, n_cta, KT):
+                taken[r0:r0 + R, j0:j0 + KT] += seen[r0:r0 + R, j0:j0 + KT]
+        passes.append(taken)
+    dq_written += 1
+    return passes + [dkv_grid()], dkv_written, dq_written
+
+
 def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
     """(times each (row, key) is taken, one array a kernel's walk; times
     each key's dk and dv rows are written) as ``csrc/attention_backward.cu``
@@ -426,7 +467,12 @@ def _backward_walk(Lq: int, Lk: int, kv_len0: int, plan):
     first row that sees it, and a key tile's rows once; the split's dQ
     kernel (``csrc/attention_backward_split.cu``) each row tile over the key
     tiles up to the last key a row of it sees, a row taking the tiles that
-    start below its prefix."""
+    start below its prefix; past 256 dims for more rows, :func:`_wide_walk`
+    (each pass of an output chunk)."""
+    if plan.kernel == "tile_wide_tc":
+        takens, written, dq_written = _wide_walk(Lq, Lk, kv_len0, plan)
+        assert (dq_written == 1).all()
+        return takens, written
     taken, written = np.zeros((Lq, Lk), int), np.zeros(Lk, int)
     seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
     if plan.kernel in ("row", "row_wide"):
@@ -736,9 +782,19 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
         assert fwd.smem_bytes == K8.stream_smem_bytes(fwd.per_lane, fwd.threads // 32)
     else:
         assert fwd.threads == 32 * -(-fwd.rows // 4)
-    if wide:
-        assert bwd.kernel == "tile_wide" and bwd.rows == min(Lq, K8.WIDE_ROWS)
-        assert (bwd.per_lane, bwd.keys, bwd.threads) == (8, K8.WIDE_KEYS, 256)
+    if wide:  # f32: the tensor cores past 16 keys up to 512 dims, the SIMT tile kernel else
+        tc = Lk > 16 and Dh <= 512
+        assert bwd.kernel == ("tile_wide_tc" if tc else "tile_wide")
+        assert (bwd.per_lane, bwd.threads) == (8, 256)
+        assert (bwd.rows, bwd.keys) == ((16, 16) if tc else (min(Lq, K8.WIDE_ROWS), 8))
+        bf16 = K8.attention_backward_plan(B, Lq, Lk, H, Dh, bf16=True)
+        assert bf16 == K8.attention_backward_plan(B, Lq, Lk, H, Dh, tensor_cores=True)
+        assert bf16.kernel == "tile_wide_tc"
+        for kv_len0 in (1, Lk):
+            seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+            takens, bf16_written = _backward_walk(Lq, Lk, kv_len0, bf16)
+            assert all(np.array_equal(taken, seen.astype(int)) for taken in takens)
+            assert (bf16_written == 1).all()
     else:
         assert bwd.kernel == "tile" and bwd.rows == min(Lq, 32)  # 4096 (b, head) fill the card
         split = K8.attention_backward_plan(2, Lq, Lk, H, Dh)  # at B 2 the split takes 33 rows
@@ -748,6 +804,64 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
             seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
             assert all(np.array_equal(taken, seen.astype(int)) for taken in takens)
             assert (split_written == 1).all()
+
+
+@pytest.mark.parametrize("Lq", [2, 15, 33])
+@pytest.mark.parametrize("Lk", [15, 96, 5000])
+@pytest.mark.parametrize("Dh", list(WIDE_DIMS))
+def test_attention_wide_backward_plan_walks_every_pair_once(Lq, Lk, Dh):
+    """The tensor-core backward of more than one query row past 256 dims
+    (``tile_wide_tc``: bf16's plan, f32's with ``tensor_cores``): tiles of
+    16 rows and 16 keys, 8 warps; up to 16 keys one grid of a CTA a (b,
+    head), else a dQ grid of a CTA a (b, head, row tile) and a dK/dV grid of
+    a CTA a (b, head, key tile); shared memory 209,600 bytes in f32 (111,296
+    in bf16) up to 512 dims, where the CTA's own rows stay resident, and
+    144,576 (79,040) streamed past them, all within the H100's 227 KB.
+    Causal (kv_len0 1) and full, each pass of each grid
+    takes every (row, key) a row sees once and none it does not see, and
+    writes every dq row and every dk and dv row once an output chunk of 512
+    dims, whose 8 warps' 64 dims each take every dim of the head once."""
+    B, H = 512, 8
+    plan = K8.attention_backward_plan(B, Lq, Lk, H, Dh, bf16=True)
+    assert plan == K8.attention_backward_plan(B, Lq, Lk, H, Dh, tensor_cores=True)
+    one_grid, resident = Lk <= 16, Dh <= 512
+    blocks = B * H * (1 if one_grid else -(-Lq // 16) + -(-Lk // 16))
+    assert plan == K8.BackwardPlan("tile_wide_tc", 8, 16, 16, 256, blocks,
+                                   209600 if resident else 144576)
+    assert K8.wide_backward_smem_bytes(Dh, 2) == (111296 if resident else 79040)
+    assert plan.smem_bytes <= H100_SMEM and K8.backward_mode(plan) == "_wide"
+    outs = -(-Dh // K8.WIDE_OUT)
+    assert _mma_dims_walk(Dh, K8.WIDE_OUT, outs, 8).sum() == Dh
+    for kv_len0 in (1, Lk):
+        seen = np.arange(Lk)[None, :] < np.minimum(Lk, kv_len0 + np.arange(Lq))[:, None]
+        takens, dkv_written, dq_written = _wide_walk(Lq, Lk, kv_len0, plan)
+        assert len(takens) == (1 if Lk <= 16 else 3)
+        assert all(np.array_equal(taken, seen.astype(int)) for taken in takens)
+        assert (dkv_written == 1).all() and (dq_written == 1).all()
+
+
+def test_attention_wide_backward_rule_by_element_type():
+    """More than one query row past 256 dims: bf16 takes the tensor cores at
+    every shape; f32 past 16 keys up to 512 dims, and past 512 dims below
+    SPLIT_MAX_HEADS (b, head) pairs (the SIMT kernel's B H CTAs leave the
+    card idle), else the SIMT tile kernel (a CTA a (b, head), row tiles of
+    up to 8); ``tensor_cores`` forces either in f32, and refuses one row,
+    heads of up to 256 dims and the SIMT kernel in bf16."""
+    plan = lambda Lq, Lk, Dh, B=512, **kw: K8.attention_backward_plan(B, Lq, Lk, 8, Dh, **kw)
+    assert plan(96, 96, 512).kernel == plan(96, 96, 320).kernel == "tile_wide_tc"
+    assert plan(96, 96, 2048, B=64).kernel == plan(96, 96, 1024, B=64).kernel == "tile_wide"
+    assert plan(33, 5000, 2048, B=1).kernel == plan(96, 96, 2048, B=31).kernel == "tile_wide_tc"
+    assert plan(96, 96, 2048, B=32).kernel == "tile_wide"
+    for Lq, Lk in ((5, 5), (15, 15), (15, 3)):
+        assert plan(Lq, Lk, 512) == K8.BackwardPlan("tile_wide", 8, 8, min(Lq, 8), 256, 4096,
+                                                    plan(Lq, Lk, 512, tensor_cores=False)[6])
+        assert plan(Lq, Lk, 512, bf16=True) == plan(Lq, Lk, 512, tensor_cores=True)
+        assert plan(Lq, Lk, 512, bf16=True).kernel == "tile_wide_tc"
+    assert plan(96, 96, 512, tensor_cores=False).kernel == "tile_wide"
+    assert plan(96, 96, 2048, B=64, tensor_cores=True).kernel == "tile_wide_tc"
+    for Lq, Dh, kw in ((1, 512, {}), (15, 256, {}), (15, 512, {"bf16": True})):
+        with pytest.raises(ValueError, match="wide backward"):
+            plan(Lq, 96, Dh, tensor_cores=False, **kw)
 
 
 def test_attention_forward_plan_streams_where_the_score_rows_no_longer_fit():
