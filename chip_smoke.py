@@ -31,7 +31,8 @@ within PARENT_MARGIN of 1), and so are the 62 backward launches of a
 over (each training's weights differ), and prints each run's step checks;
 ``--limits`` runs only phase 2i and the vp_test_long, vp_train_long and
 vp_train_wide paths (with ``--parent``, phase 2i's ``earlier_ms`` and the
-three paths in turns with the parent's K8 too).
+three paths in turns with the parent's K8 too, each turn the median of
+PATH_TURN_PASSES passes).
 
 Phases:
 
@@ -289,8 +290,13 @@ failure message names the gradient leaf past its limit and its worst
 entry, with the two paths' values there.
 
 Phase 2i holds K8 past its earlier limits of 2048 keys and 256 dims: the
-row kernel over 3073 and 5000 keys (decode at --fut-window 5000, B
-LIMIT_LONG_BATCH), the streamed kernel on the tensor cores (rows ``attention_stream``,
+split row kernels (rows ``attention_rowsplit``,
+``attention_train_forward_rowsplit``) over 3073 and 5000 keys (decode at
+--fut-window 5000, B LIMIT_LONG_BATCH) and the decode's cross-attention
+over the distilled 2500 at B 4 and 64 (vp_train_long's and vp_test_long's),
+each beside the row kernel forced (``row_kernel_ms``), and forced at 1 x
+15, 1 x 256 and 1 x 2048 beside the row kernel (``forced_split_row``),
+the streamed kernel on the tensor cores (rows ``attention_stream``,
 ``attention_train_forward_stream``) at the --his-window 5000 encoder's
 5000 x 5000 (full and causal, B 2) and its teacher-forced cross-attention
 15 x 2500 (B LIMIT_LONG_BATCH), and the wide kernels (rows ``attention_wide``,
@@ -301,8 +307,8 @@ training with a keep mask at 0.1 and backward, f32 and bf16, against the
 plain versions at phase 2d's and 2f's tolerances, two launches bit-equal,
 each timed beside its bound, plain version and SDPA (the streamed kernel
 also beside its bound on the tensor cores, ``bound_3xtf32_ms`` or
-``bound_bf16_mma_ms``, and with ``--parent`` the streamed and wide rows
-beside the parent commit's kernel in turns, ``earlier_ms``, the wide
+``bound_bf16_mma_ms``, and with ``--parent`` the streamed, wide and split
+row rows beside the parent commit's kernel in turns, ``earlier_ms``, the wide
 backward rows too); the wide backward of more than one row has its
 tensor-core bound of the five products and, in f32, both its kernels forced
 and timed (``tensor_core_ms``: csrc/attention_backward_wide.cu; ``simt_ms``:
@@ -326,9 +332,11 @@ then a validation batch through the serving kernels, then the step at
 ``--his-window 96``, bs WIDE_96_BATCH, ``his_window_96``, whose 96 x 96
 encoder backward runs on the tensor cores in f32 too); vp_train_long
 also profiles a step (K8's backward share of the device's busy time, the
-host's share of the step).  K8 counts these variants' launches in modes
-of their own (``f32_stream``, ``bf16_stream``, ``f32_wide``, ``bf16_wide``,
-``f32_split``, ``bf16_split``), each in its row for both element types.
+host's share of the step, the row backward's device ms apart,
+``backward_row_ms``).  K8 counts these variants' launches in modes of
+their own (``f32_stream``, ``bf16_stream``, ``f32_wide``, ``bf16_wide``,
+``f32_split``, ``bf16_split``, ``f32_rowsplit``, ``bf16_rowsplit``), each
+in its row for both element types.
 Phase 2 also holds K4 at horizons 5, 6 and 7 in every mode on
 LONG_HORIZON_LANES lanes (``long_horizons`` in its row).
 
@@ -459,6 +467,12 @@ SPLIT_FORCED = {"encoder": (512, 5, 5, None, 64), "causal_tf": (512, 15, 15, 1, 
                 "encoder_96_b4": (4, 96, 96, None, 64), "causal_tf_b4": (4, 15, 15, 1, 64),
                 "cross_tf_2500_b16": (16, 15, 2500, None, 64),
                 "cross_tf_2500_b32": (32, 15, 2500, None, 64)}
+# phase 2i: the split row kernels forced where the row kernel runs (B, Lk) at 8 heads of 64:
+# the decode step at t = 14 (B 512), one row over 256 keys (B 512) and over 2048 (B
+# LIMIT_LONG_BATCH), each beside the row kernel
+SPLIT_ROW_FORCED = {"decode_15": (512, 15), "keys_256": (512, 256),
+                    "keys_2048": (LIMIT_LONG_BATCH, 2048)}
+PATH_TURN_PASSES = 3  # --parent: passes a turn of a whole path, their median its reading
 LONG_HORIZON_LANES = {5: 16, 6: 4, 7: 1}  # phase 2: K4's lanes a horizon past 4 (the plain
 #                         version a lane at a time: at 7 its trace walk holds ~40 f32
 #                         temporaries of 15^7 entries, ~30 GB, and takes ~1.2 s)
@@ -555,6 +569,13 @@ KERNELS = {
                                 replaces="mansy_immersivevideostreaming_tpu/models/"
                                          "transformer.py:61")
        for mode in ("_stream", "_train_forward_stream", "_wide", "_train_forward_wide")},
+    # the split row kernels (one query row past 2048 keys: the decode's
+    # cross-attention at --his-window 5000), f32 and bf16, with the launches
+    # of the --his-window 5000 paths
+    **{f"attention{mode}": dict(route="cuda", source=f"{PKG}/kernels/csrc/attention.cu",
+                                replaces="mansy_immersivevideostreaming_tpu/models/"
+                                         "transformer.py:61")
+       for mode in ("_rowsplit", "_train_forward_rowsplit")},
     # the wide backward: one query row in attention_backward.cu's wide row
     # kernel, more rows on the tensor cores (its main case)
     "attention_backward_wide": dict(route="cuda",
@@ -607,7 +628,7 @@ MODE_SUFFIX = {None: "", "cond64": "_h64", "cond128": "", "cond192": "_h192", "c
                **{f"simple{k}": "_simple" for k in (64, 128, 192, 256, "wide")}, "ce": "", "ppo": "", "a2c": "_a2c", "f32": "", "bf16": "_bf16", "gather": "",
                "derived": "_derived", "f32_stream": "_stream", "bf16_stream": "_stream",
                "f32_wide": "_wide", "bf16_wide": "_wide", "f32_split": "_split",
-               "bf16_split": "_split"}
+               "bf16_split": "_split", "f32_rowsplit": "_rowsplit", "bf16_rowsplit": "_rowsplit"}
 SHARED_ROW = {"chunk_maps": "tile_occupancy", "trajectory_metrics": "tile_occupancy"}
 
 
@@ -3219,7 +3240,10 @@ def tensor_core_bound(B: int, Lq: int, Lk: int, H: int, Dh: int, kv_len0, nbytes
 
 def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     """K8 past its earlier limits of 2048 keys and 256 dims (phase 2i): the
-    row kernel over 3073 and 5000 keys (decode at --fut-window 5000), the
+    split row kernels over 3073 and 5000 keys (decode at --fut-window 5000)
+    and the decode's cross-attention over 2500 (B LONG_TRAIN_BATCH and
+    LONG_TEST_BATCH), each beside the row kernel forced (``row_kernel_ms``),
+    the
     streamed kernel (tensor cores) at --his-window 5000 (the encoder's 5000 x 5000,
     full and causal, B 2; the teacher-forced cross-attention 15 x 2500),
     both at LIMIT_LONG_BATCH but the encoder's, and the wide kernels at heads of 257, 320, 512, 1024 and 2048
@@ -3232,8 +3256,9 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     its bound, its plain version and SDPA (``library_ms``), the streamed
     kernel's cases also beside its bound on the tensor cores
     (:func:`tensor_core_bound`), and with ``parent`` every serving and
-    training case of the streamed and wide rows (the forward's bits equal
-    to the parent's, ``earlier_bits_equal``), and every wide backward case,
+    training case of the streamed, wide and split row rows (the forward's
+    bits equal to the parent's, ``earlier_bits_equal``, but the split row
+    kernels', which sum P . v by splits), and every wide backward case,
     beside the parent commit's kernel, in turns (:func:`parent_turns`:
     ``ratio`` below 1 where this tree's is faster); also vp_train_wide's
     encoder 5 x 5 and cross-attention 15 x 3 at 512 dims.  The wide backward of
@@ -3248,8 +3273,12 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     plain version at the same limits (``forced_stream``: its sums run in
     the tensor cores' order), and the split and the one-CTA backward, each
     forced, give the same bits at SPLIT_FORCED's shapes, each timed
-    (``forced_split``).  Returns the six new rows and, for the rows of
-    the row kernel and the narrow backward, ``cases_past_limits``."""
+    (``forced_split``); the split row kernels forced at SPLIT_ROW_FORCED's
+    shapes agree with the row kernel and the plain version at the same
+    limits, two launches bit-equal, the row backward fed their statistics
+    within its limits, both timed (``forced_split_row``).  Returns the
+    eight new rows and, for the rows of the narrow backward,
+    ``cases_past_limits``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
 
@@ -3259,6 +3288,10 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     H, rate, reps = 8, 0.1, LIMIT_REPS
     shapes = {"decode_3073": (LIMIT_LONG_BATCH, 1, 3073, None, 64),
               "decode_5000": (LIMIT_LONG_BATCH, 1, 5000, None, 64),
+              # the decode's cross-attention over the distilled 2500 keys at vp_train_long's
+              # batch and vp_test_long's
+              "cross_2500_b4": (LONG_TRAIN_BATCH, 1, 2500, None, 64),
+              "cross_2500_b64": (LONG_TEST_BATCH, 1, 2500, None, 64),
               "encoder_5000": (2, 5000, 5000, None, 64), "causal_5000": (2, 5000, 5000, 1, 64),
               "cross_tf_2500": (LIMIT_LONG_BATCH, 15, 2500, None, 64)}
     for Dh in LIMIT_WIDE_DIMS:
@@ -3306,11 +3339,14 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
 
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             streamed = plan.kernel == "stream"
-            # the parent's kernel in turns, for the streamed and wide rows; the forward's bits
-            # must be the parent's (its wide score tile is the backward's since this tree)
+            row_split = plan.kernel == "row_split"
+            # the parent's kernel in turns, for the streamed, wide and split row rows; the
+            # forward's bits must be the parent's but the split row kernels' (the parent's row
+            # kernel sums P . v in another order)
             def earlier(this, that, bits=False):
-                if P8 is None or not (streamed or Dh > K8.CHUNK_DIMS):
+                if P8 is None or not (streamed or row_split or Dh > K8.CHUNK_DIMS):
                     return {}
+                bits = bits and not row_split
                 same = not bits or all(torch.equal(a, b)
                                        for a, b in zip(leaves(this()), leaves(that())))
                 if not same:
@@ -3336,7 +3372,10 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                                      attention_cost(B, Lq, Lk, H, Dh, kv_len0, elem)[1], bf16)
                    if streamed else {}),
                 **earlier(lambda: K8.attention(q, k, v, kv_len0),
-                          lambda: P8.attention(q, k, v, kv_len0), bits=True)))
+                          lambda: P8.attention(q, k, v, kv_len0), bits=True),
+                **(dict(row_kernel_ms=gpu_ms(lambda: K8._launch_forward(
+                    q, k, v, kv_len0, torch.empty_like(q), False, split_row=False), reps))
+                   if row_split else {})))
             del got
             # training mode
             fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, rate)
@@ -3361,7 +3400,9 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                     B, Lq, Lk, H, Dh, kv_len0, True, elem)[1], bf16) if streamed else {}),
                 **earlier(lambda: K8.attention_train_forward(q, k, v, kv_len0, keep, rate),
                           lambda: P8.attention_train_forward(q, k, v, kv_len0, keep, rate),
-                          bits=True)))
+                          bits=True),
+                **(dict(row_kernel_ms=gpu_ms(lambda: K8.attention_train_forward(
+                    q, k, v, kv_len0, keep, rate, split_row=False), reps)) if row_split else {})))
             # backward
             leaves_ = [x.clone().requires_grad_() for x in (q, k, v)]
             want = torch.autograd.grad(K8.attention_plain(*leaves_, kv_len0, keep, rate),
@@ -3497,6 +3538,69 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                     q, k, v, kv_len0, keep, rate, stream=True), reps))
             del q, k, v, keep, streamed_o
 
+    # the split row kernels where the row kernel runs: within K8's limits of the row kernel's
+    # outputs and statistics and of the plain version's, the row backward fed their
+    # statistics, both timed
+    forced_split_row = {}
+    for name, (B, Lk) in SPLIT_ROW_FORCED.items():
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            bf16 = dtype == torch.bfloat16
+            q, k, v, dout = (torch.randn(B, L, H, 64, device=dev, generator=gen).to(dtype)
+                             for L in (1, Lk, Lk, 1))
+            keep = (torch.rand(B, H, 1, Lk, device=dev, generator=gen) < 1 - rate).to(
+                torch.uint8)
+            split_o = torch.empty_like(q)
+            serve_split = lambda: K8._launch_forward(q, k, v, None, split_o, False,
+                                                     split_row=True)
+            serve_split()
+            if not torch.equal(split_o, K8.attention_train_forward(q, k, v, split_row=True)[0]):
+                raise AssertionError(f"attention ({name}, {tag}): the split row kernels' "
+                                     f"serving and training outputs differ")
+            got = K8.attention_train_forward(q, k, v, None, keep, rate, split_row=True)
+            if not all(torch.equal(a, b) for a, b in zip(got, K8.attention_train_forward(
+                    q, k, v, None, keep, rate, split_row=True))):
+                raise AssertionError(f"attention ({name}, {tag}): two launches of the split "
+                                     f"row kernels differ")
+            slack = K8.bf16_slack(q, k, v, dout, None, keep, rate) if bf16 else None
+            errs_ = []
+            for what, want in (("row kernel", K8.attention_train_forward(q, k, v, None, keep,
+                                                                         rate)),
+                               ("plain", K8.attention_train_forward_plain(q, k, v, None, keep,
+                                                                          rate))):
+                ok = (K8.bf16_excess(got[0], want[0], slack[0]) <= 1 if bf16
+                      else training_close(got[0], want[0], float(want[0].abs().max())))
+                if not (ok and all(training_close(a, b, float(b.abs().max()))
+                                   for a, b in zip(got[1:], want[1:]))):
+                    raise AssertionError(f"attention ({name}, {tag}): the split row kernels "
+                                         f"disagree with the {what} version")
+                errs_.append(float((got[0].float() - want[0].float()).abs().max()))
+            leaves_ = [x.clone().requires_grad_() for x in (q, k, v)]
+            want = torch.autograd.grad(K8.attention_plain(*leaves_, None, keep, rate), leaves_,
+                                       dout)
+            grads = K8.attention_backward(dout, q, k, v, *got, None, keep, rate)
+            scale = max(float(w.abs().max()) for w in want)
+            if not all((K8.bf16_excess(a, b, sl) <= 1) if bf16 else training_close(a, b, scale)
+                       for a, b, sl in zip(grads, want, slack[1:] if bf16 else (None,) * 3)):
+                raise AssertionError(f"attention_backward ({name}, {tag}): fed the split row "
+                                     f"kernels' statistics, it disagrees with the plain autograd")
+            elem, rate_ops = (2, BF16_FLOP_PER_S) if bf16 else (4, F32_FLOP_PER_S)
+            forced_split_row[f"{name}_{tag}"] = dict(
+                B=B, Lq=1, Lk=Lk, Dh=64, agrees_with_row_kernel=True,
+                max_abs_err_vs_row_kernel=errs_[0], max_abs_err=errs_[1],
+                row_plan=K8.attention_forward_plan(B, 1, Lk, H, 64)._asdict(),
+                split_plan=K8.attention_forward_plan(B, 1, Lk, H, 64, split_row=True)._asdict(),
+                row_ms=gpu_ms(lambda: K8.attention(q, k, v), reps),
+                split_ms=gpu_ms(serve_split, reps),
+                plain_ms=gpu_ms(lambda: K8.attention_plain(q, k, v), reps),
+                library_ms=library_ms(lambda: sdpa(*(x.transpose(1, 2) for x in (q, k, v))),
+                                      reps),
+                **bound(*attention_cost(B, 1, Lk, H, 64, None, elem), rate_ops),
+                train_row_ms=gpu_ms(lambda: K8.attention_train_forward(q, k, v, None, keep,
+                                                                       rate), reps),
+                train_split_ms=gpu_ms(lambda: K8.attention_train_forward(
+                    q, k, v, None, keep, rate, split_row=True), reps))
+            del q, k, v, dout, keep, split_o, got, leaves_, want, grads
+
     # the split backward and the one-CTA tile kernel, each forced where the rule takes the
     # one-CTA kernel: the same bits, and both times beside the rule's choice
     forced_split = {}
@@ -3529,6 +3633,9 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
     rows = {}
     mains = {"attention_stream": "encoder_5000_f32",
              "attention_train_forward_stream": "encoder_5000_f32",
+             # vp_test_long's cross-attention (B 64), vp_train_long's (B 4)
+             "attention_rowsplit": "cross_2500_b64_f32",
+             "attention_train_forward_rowsplit": "cross_2500_b4_f32",
              "attention_backward_split": "encoder_5000_f32",
              **{row: "decode_dh512_f32" for row in ("attention_wide",
                                                     "attention_train_forward_wide")},
@@ -3540,13 +3647,14 @@ def attention_limits_phase(dev, floor_ms: float, parent=None) -> dict:
                          **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "bound_3xtf32_ms", "bound_bf16_mma_ms",
                                               "library_ms", "one_cta_ms", "tensor_core_ms",
-                                              "simt_ms", "earlier_ms")
+                                              "simt_ms", "earlier_ms", "row_kernel_ms")
                             if k in m},
                          main_case=main, timing_floor_ms=floor_ms,
                          bits_equal_on_two_launches=True, cases=cases[row])
     rows["attention_stream"]["forced_stream"] = forced
+    rows["attention_rowsplit"]["forced_split_row"] = forced_split_row
     rows["attention_backward_split"]["forced_split"] = forced_split
-    for row in set(cases) - set(mains):  # the row kernel and the narrow backward, past 2048 keys
+    for row in set(cases) - set(mains):  # the narrow backward past 2048 keys
         rows[row] = dict(cases_past_limits=cases[row], max_abs_err_past_limits=errs[row])
     return rows
 
@@ -4172,22 +4280,24 @@ def vp_train_phase(dev, counters, bf16: bool = False):
 
 
 def path_turns(run, parent) -> dict:
-    """One pass of a path, ``run()``, on the host clock (ended by a sync)
-    with the parent commit's K8 in ``models/transformer.py`` and with this
-    tree's, in turns (parent, this, this, parent; a parent pass first, so
-    its kernels are built and warm): ``earlier_seconds``, the parent's
-    mean, and the four readings."""
+    """A path, ``run()``, on the host clock (ended by a sync) with the
+    parent commit's K8 in ``models/transformer.py`` and with this tree's,
+    in turns (parent, this, this, parent; a parent pass first, so its
+    kernels are built and warm), each turn the median of PATH_TURN_PASSES
+    passes (one pass of a host-bound path moved by up to 20% between
+    readings of one tree): ``earlier_seconds``, the parent's mean, and the
+    four readings."""
     from mansy_immersivevideostreaming_torch.models import transformer
 
     def timed(theirs: bool) -> float:
         with (mock.patch.object(transformer, "attention", parent.attention.attention) if theirs
               else contextlib.nullcontext()):
-            return synced_seconds(run)[1]
+            return statistics.median(synced_seconds(run)[1] for _ in range(PATH_TURN_PASSES))
 
     timed(True)
     turns = [timed(True), timed(False), timed(False), timed(True)]
     return dict(earlier_seconds=(turns[0] + turns[3]) / 2,
-                seconds_turns_parent_this_this_parent=turns)
+                seconds_turns_parent_this_this_parent=turns, passes_a_turn=PATH_TURN_PASSES)
 
 
 def vp_test_long_phase(dev, counters, parent=None):
@@ -4195,7 +4305,8 @@ def vp_test_long_phase(dev, counters, parent=None):
     inside its trace) over one batch of LONG_TEST_BATCH windows (reduced from
     512), one a seeded synthetic trace, with seeded full-width MTIO weights:
     the encoder's attention is 5000 x 5000 (K8's streamed kernel), the
-    decode's cross-attention sees the distilled 2500 (the row kernel).  The
+    decode's cross-attention sees the distilled 2500 (the split row
+    kernels).  The
     batch is timed once after a warm-up; its first LONG_HELD samples are held
     against the plain path (K8 swapped for its plain version) at VP_ATOL; the
     metrics must be finite.  With ``parent``, the batch also in turns with
@@ -4353,23 +4464,29 @@ def vp_train_step_path(dev, counters, args, seed: int, reduced: dict, profile: b
     return result, model
 
 
-# K8's kernels by the names the profiler gives them: the forward's row,
-# tile and streamed kernels, the backward's delta, row, tile, split and wide
-# kernels (the f32 SIMT wide tile kernel is no template)
-K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kernel<"),
+# K8's kernels by the names the profiler gives them: the forward's row
+# kernels (the row kernel, its wide variant, the split row kernels), tile
+# and streamed kernels; the backward's row kernel (one query row up to 256
+# dims), and its delta, tile, split and wide kernels (the f32 SIMT wide
+# tile kernel is no template)
+K8_KERNEL_NAMES = {"forward_row": ("attention_kernel<", "attention_row_wide_kernel<",
+                                   "row_split_score_kernel<", "row_split_pv_kernel<",
+                                   "row_split_sum_kernel<"),
                    "forward_tile": "attention_tile_kernel<",
                    "forward_stream": "attention_stream_kernel<",
-                   "backward": ("delta_kernel<", "backward_row_kernel<", "backward_tile_kernel<",
-                                "backward_dkv_kernel<", "backward_dq_kernel<",
-                                "delta_wide_kernel<", "backward_row_wide_kernel<",
-                                "backward_tile_wide_kernel(", "backward_wide_kernel<")}
+                   "backward_row": "backward_row_kernel<",
+                   "backward_other": ("delta_kernel<", "backward_tile_kernel<",
+                                      "backward_dkv_kernel<", "backward_dq_kernel<",
+                                      "delta_wide_kernel<", "backward_row_wide_kernel<",
+                                      "backward_tile_wide_kernel(", "backward_wide_kernel<")}
 
 
 def attention_kernel_ms(run) -> dict:
     """Device milliseconds of K8's kernels over one ``run()`` under
     ``torch.profiler``: the forward's row, tile and streamed kernels apart
-    and together, the backward's kernels together, and their launches (None
-    where the profiler saw no device event)."""
+    and together, the backward's row kernel apart and all its kernels
+    together, and their launches (None where the profiler saw no device
+    event)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4385,6 +4502,7 @@ def attention_kernel_ms(run) -> dict:
         out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
         out[f"{key}_launches"] = len(hits)
     out["forward_ms"] = out["forward_row_ms"] + out["forward_tile_ms"] + out["forward_stream_ms"]
+    out["backward_ms"] = out["backward_row_ms"] + out["backward_other_ms"]
     return out
 
 
@@ -5743,9 +5861,11 @@ def main() -> int:
                     "vp_train": ("attention_train_forward", "attention_backward"),
                     "vp_test_bf16": ("attention_bf16", "tile_occupancy"),
                     "vp_train_bf16": ("attention_train_forward_bf16", "attention_backward_bf16"),
-                    "vp_test_long": ("attention", "attention_stream", "tile_occupancy"),
-                    "vp_train_long": ("attention_train_forward", "attention_train_forward_stream",
-                                      "attention_backward", "attention_backward_split"),
+                    "vp_test_long": ("attention", "attention_rowsplit", "attention_stream",
+                                     "tile_occupancy"),
+                    "vp_train_long": ("attention_train_forward", "attention_train_forward_rowsplit",
+                                      "attention_train_forward_stream", "attention_backward",
+                                      "attention_backward_split"),
                     "vp_train_wide": ("attention_train_forward_wide", "attention_backward_wide",
                                       "attention_wide"),
                     "simple_rl": simple + ("compute_gae", "actor_critic_train_forward_simple",

@@ -16,7 +16,18 @@ On the H100 the core is bound by the k and v bytes; ``csrc/attention.cu``
 runs a serving mode and a training mode that also writes each row's max
 and exp sum and applies a dropout keep mask, each as one of the kernels of
 :func:`attention_forward_plan`: one warp a (b, query row, head) for one
-query row (its scores in shared memory: up to MAX_LK keys), else a CTA a
+query row up to SPLIT_KEYS keys (its scores in shared memory); past them
+(at up to 256 dims) the split row kernels, flash-decoding in three
+launches: a warp a (b, head, split) of the keys (:func:`row_split_plan`,
+enough splits that the warps fill the H100 at B 4 as at B 64) streams its
+k rows by cp.async and writes its scores (the row backward's arithmetic:
+the butterfly's sums, the IEEE division by sqrt(Dh)) and its max and expf
+sum to scratch; every warp of the row then combines the splits' statistics
+in split order into the row's max and sum, forms p = expf(s - max) / sum
+(so the row backward, reading them as row_max and row_sum, recomputes this
+P bit for bit), the keep mask, the rounding to bf16, and its split's P . v
+from its v rows; a last launch sums the splits' partials in split order;
+else a CTA a
 (b, head, row tile) that stages the k and v rows in shared memory once and
 takes each warp's rows' scores by a reduce-scatter (the butterfly's sums),
 bit for bit the one-row kernel's arithmetic, keeping each row's scores in
@@ -32,7 +43,7 @@ per-lane partial carried across the chunks before the butterfly; the
 streamed kernel's P . v in output chunks of 256 dims, the scores
 recomputed for each.
 ``csrc/attention_backward.cu`` recomputes P from those statistics (bit for
-bit the row and tile kernels' P, within ulps of the streamed kernel's up
+bit the row, split row and tile kernels' P, within ulps of the streamed kernel's up
 to 256 dims) at any number of query rows and keys: a warp a (b, head) for
 one query row, else a CTA a (b, head) over tiles of keys and rows, and past
 256 dims for one row the row layout over the chunks; past 2048 keys at few
@@ -46,8 +57,8 @@ P by its exp2, so P is the streamed forward's bit for bit; a dQ grid of
 (b, head, 16-row tile) CTAs, then a dK/dV grid of (b, head, 16-key tile)
 CTAs, or one grid for up to 16 keys (:func:`attention_backward_plan`).
 Every launch is counted by element type and variant (``launches_by_mode``:
-``f32``, ``bf16``, with ``_stream``, ``_wide`` or ``_split`` for those
-variants).
+``f32``, ``bf16``, with ``_stream``, ``_wide``, ``_split`` or ``_rowsplit``
+for those variants; a call of the split row kernels counts once).
 :func:`attention` picks the path: the plain version for CPU tensors, the
 training forward and the backward kernel (:class:`_AttentionFunction`) when
 autograd needs a gradient, else the serving kernel.  The projections, the
@@ -89,12 +100,19 @@ WIDE_ROWS = 8      # the wide SIMT tile kernel (f32): rows a row tile (a warp a 
 WIDE_TILE = 16     # the wide backward of more rows: rows a row tile and keys a key tile
 WIDE_OUT = 512     # and dims an output chunk (64 a warp of its 8)
 SMEM_BYTES = 232448  # the H100's shared memory a block (227 KB)
-MAX_LK = SMEM_BYTES // (4 * ROW_WARPS)  # 14528: keys of one query row's f32 scores, 4 a CTA
-SPLIT_KEYS = 2048      # the backward of more than one row tile splits past these keys
-SPLIT_MAX_HEADS = 256  # and below these (b, head) pairs (half the tile kernel's 528 CTAs
-#                        resident on the H100, 4 an SM): from there the one-CTA grid fills the
-#                        card and the split's second score pass costs more than it gains
+MAX_LK = SMEM_BYTES // (4 * ROW_WARPS)  # 14528: keys of the row kernels' f32 scores, 4 a CTA
+#                                        (binding past 256 dims: up to them the split row
+#                                        kernels take one query row past SPLIT_KEYS)
+SPLIT_KEYS = 2048      # one query row, and the backward of more than one row tile, split past
+#                        these keys
+SPLIT_MAX_HEADS = 256  # the backward splits below these (b, head) pairs (half the tile
+#                        kernel's 528 CTAs resident on the H100, 4 an SM): from there the
+#                        one-CTA grid fills the card and the split's second score pass costs
+#                        more than it gains
 SPLIT_TILE_KEYS = 16  # the split backward's keys a tile (two rows' scores fill a warp's lanes)
+ROW_SPLIT_TILE = 32    # the split row kernels: keys a staged tile (one reduce_scatter of 32)
+ROW_SPLIT_MIN_KEYS = 64  # and keys a split at least (a tile in flight while one is taken)
+ROW_SPLIT_WARPS = 132 * 8  # and the warps (a split each) they aim for: 8 an SM of the H100
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types, by their code
 MODES = ("f32", "bf16")  # the launch-count mode of each element type (``launches_by_mode``)
 
@@ -246,6 +264,14 @@ class _AttentionArgs(ctypes.Structure):
                    ("keep_prob", ctypes.c_float), ("row_max", ctypes.c_void_p),
                    ("row_sum", ctypes.c_void_p)]
                 + [(f, ctypes.c_int32) for f in ("per_lane", "keys", "rows", "group", "stream")])
+
+
+class _RowSplitArgs(ctypes.Structure):
+    """Mirror of ``RowSplitArgs`` in ``csrc/attention.cu``: the forward's
+    arguments (``stream`` 1: ``attention_launch`` reads the rest) and the
+    split row kernels' scratch (:func:`row_split_scratch`)."""
+    _fields_ = [("a", _AttentionArgs)] + [(f, ctypes.c_void_p) for f in ("split_stats", "scores",
+                                                                        "partial")]
 
 
 class _AttentionBackwardArgs(ctypes.Structure):
@@ -412,7 +438,9 @@ class ForwardPlan(NamedTuple):
     ``kernel`` is "row" (one query row: a warp a (b, row, head), four a CTA,
     the row's ``keys`` scores in shared memory; a lane holds up to
     ``per_lane`` = 8 dims), "row_wide" (the same past 256 dims, a head in
-    chunks of 256), "tile" (a CTA a (b, head, row tile of ``rows`` rows), k
+    chunks of 256), "row_split" (one query row past SPLIT_KEYS keys: a warp a
+    (b, head, split) of ``keys`` keys, ``threads // 32`` a CTA, ``blocks``
+    CTAs, :func:`row_split_plan`), "tile" (a CTA a (b, head, row tile of ``rows`` rows), k
     and v staged in key tiles of ``keys`` keys, a warp taking ``group`` rows
     at once, each row's scores resident in shared memory; a lane holds
     ``per_lane`` dims of a row) or "stream" (a warp ``group`` = 16 rows on
@@ -459,11 +487,49 @@ def stream_smem_bytes(per_lane: int, warps: int) -> int:
     return 4 * (16 * warps + 2 * keys) * row + 2 * keep(16 * warps)
 
 
+def row_split_plan(B: int, Lk: int, H: int, Dh: int) -> ForwardPlan:
+    """The split row kernels' plan (``csrc/attention.cu``) for one query row
+    of q [B, 1, H, Dh] over k, v [B, Lk, H, Dh], Dh at most 256: a lane
+    holds the next power of two of ceil(Dh / 32) dims; each (b, head)'s keys
+    are cut into S splits of ``keys`` keys (a multiple of ROW_SPLIT_TILE), S
+    the least of ceil(ROW_SPLIT_WARPS / (B H)) and ceil(Lk /
+    ROW_SPLIT_MIN_KEYS) (at least 1), so that B H S warps fill the H100 at
+    B 4 as at B 64; a warp a split, 4 a CTA (2 at 8 dims a lane);
+    ``blocks`` the CTAs of the score and P . v launches; shared memory each
+    warp's two slots of ROW_SPLIT_TILE rows of 32 ``per_lane`` f32 values
+    (bf16 takes half).  S = :func:`row_split_splits`."""
+    per_lane = _pow2_at_least(math.ceil(Dh / 32))
+    warps = 2 if per_lane == 8 else 4
+    splits = max(1, min(-(-Lk // ROW_SPLIT_MIN_KEYS), -(-ROW_SPLIT_WARPS // (B * H))))
+    per_split = -(-Lk // splits)
+    keys = -(-per_split // ROW_SPLIT_TILE) * ROW_SPLIT_TILE  # rounded up to a tile
+    items = B * H * -(-Lk // keys)
+    return ForwardPlan("row_split", per_lane, keys, 1, 1, 32 * warps, -(-items // warps),
+                       4 * warps * 2 * ROW_SPLIT_TILE * 32 * per_lane)
+
+
+def row_split_splits(Lk: int, plan: ForwardPlan) -> int:
+    """S, the splits of a (b, head)'s keys under a "row_split" plan."""
+    return -(-Lk // plan.keys)
+
+
+def row_split_scratch(B: int, H: int, Lk: int, Dh: int, plan: ForwardPlan) -> Tuple[int, ...]:
+    """The f32 scratch the split row kernels read and write, in floats:
+    (each split's max and exp sum [B, H, S, 2], each seen key's score [B, H,
+    Lk], each split's P . v [B, H, S, Dh], none for one split)."""
+    S = row_split_splits(Lk, plan)
+    return 2 * B * H * S, B * H * Lk, B * H * S * Dh if S > 1 else 0
+
+
 def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
-                           stream: bool = False) -> ForwardPlan:
+                           stream: bool = False, split_row: Optional[bool] = None
+                           ) -> ForwardPlan:
     """The forward's plan for q [B, Lq, H, Dh] and k, v [B, Lk, H, Dh].  One
     query row takes the row kernel (4 warps a CTA, Lk floats of scores a
-    warp; past 256 dims its wide variant).  More take the tile kernel: a
+    warp; past 256 dims its wide variant) up to SPLIT_KEYS keys, past them
+    (at up to 256 dims) the split row kernels (:func:`row_split_plan`);
+    ``split_row`` True takes those and False the row kernel for one query
+    row at up to 256 dims whatever Lk (else a ``ValueError``).  More take the tile kernel: a
     lane holds the next power of two of ceil(Dh / 32) dims (1 to 8); a key
     tile holds Lk rounded up to 8 keys, at most 256 / dims a lane (its k
     rows, later its v rows, in one buffer of at most 32 KB as f32); a row
@@ -478,6 +544,11 @@ def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
     quarter of the head's chunks of 256 dims), key tiles of
     :func:`stream_keys`, shared memory (:func:`stream_smem_bytes`, f32)
     whatever Lk."""
+    if split_row is not None and (Lq > 1 or Dh > CHUNK_DIMS):
+        raise ValueError(f"attention: the split row kernels' choice takes one query row of at "
+                         f"most {CHUNK_DIMS} dims, got Lq {Lq}, Dh {Dh}")
+    if Lq <= 1 and (Lk > SPLIT_KEYS and Dh <= CHUNK_DIMS if split_row is None else split_row):
+        return row_split_plan(B, Lk, H, Dh)
     if Lq <= 1:
         return ForwardPlan("row" if Dh <= CHUNK_DIMS else "row_wide", 8, Lk, 1, 1,
                            32 * ROW_WARPS, -(-B * Lq * H // ROW_WARPS), 4 * ROW_WARPS * Lk)
@@ -502,10 +573,11 @@ def attention_forward_plan(B: int, Lq: int, Lk: int, H: int, Dh: int,
 def forward_mode(plan: ForwardPlan, Dh: int) -> str:
     """The launch-count mode suffix of a forward plan's kernel: "" for the
     row and tile kernels, "_stream" for the streamed kernel at up to 256
-    dims, "_wide" past them (the wide row and streamed kernels)."""
+    dims, "_rowsplit" for the split row kernels, "_wide" past 256 dims (the
+    wide row and streamed kernels)."""
     if Dh > CHUNK_DIMS:
         return "_wide"
-    return "_stream" if plan.kernel == "stream" else ""
+    return {"stream": "_stream", "row_split": "_rowsplit"}.get(plan.kernel, "")
 
 
 @functools.lru_cache(maxsize=None)
@@ -558,21 +630,30 @@ def _check_qkv(q, k, v, kv_len0, keep):
 
 
 def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0.0,
-                    row_max=None, row_sum=None, stream: bool = False) -> str:
-    """Launches the plan's kernel; returns its launch-count mode suffix
+                    row_max=None, row_sum=None, stream: bool = False,
+                    split_row: Optional[bool] = None) -> str:
+    """Launches the plan's kernel (the split row kernels' scratch from
+    ``torch.empty``); returns its launch-count mode suffix
     (:func:`forward_mode`)."""
     B, Lq, Lk, H, Dh, kv_len0 = _check_qkv(q, k, v, kv_len0, keep)
-    plan = attention_forward_plan(B, Lq, Lk, H, Dh, stream)
-    if plan.smem_bytes > SMEM_BYTES:  # one query row's scores past MAX_LK keys
-        raise ValueError(f"attention: one query row takes at most {MAX_LK} keys on the card, "
-                         f"got Lk {Lk}")
+    plan = attention_forward_plan(B, Lq, Lk, H, Dh, stream, split_row)
+    if plan.smem_bytes > SMEM_BYTES:  # the row kernels' scores past MAX_LK keys
+        raise ValueError(f"attention: one query row on the row kernels (past {CHUNK_DIMS} dims, "
+                         f"or forced) takes at most {MAX_LK} keys on the card, got Lk {Lk}")
     ptr = lambda t: None if t is None else t.data_ptr()
     args = _AttentionArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
                           B=B, Lq=Lq, Lk=Lk, H=H, Dh=Dh, kv_len0=kv_len0, scale=Dh ** 0.5,
                           keep=ptr(keep), keep_prob=1.0 - rate, row_max=ptr(row_max),
                           row_sum=ptr(row_sum), per_lane=plan.per_lane, keys=plan.keys,
-                          rows=plan.rows, group=plan.group, stream=int(plan.kernel == "stream"))
-    err = _forward_launch()(ctypes.byref(args), int(train), _elem(q, k, v),
+                          rows=plan.rows, group=plan.group,
+                          stream=int(plan.kernel in ("stream", "row_split")))
+    ref = ctypes.byref(args)
+    if plan.kernel == "row_split":  # the args lead a _RowSplitArgs
+        sizes = row_split_scratch(B, H, Lk, Dh, plan)
+        scratch = torch.empty(sum(sizes), device=q.device).split(sizes)
+        split_args = _RowSplitArgs(args, *(ptr(t) if n else None for t, n in zip(scratch, sizes)))
+        ref = ctypes.cast(ctypes.pointer(split_args), ctypes.POINTER(_AttentionArgs))
+    err = _forward_launch()(ref, int(train), _elem(q, k, v),
                             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch ({plan.kernel} plan {tuple(plan)}) failed "
@@ -582,21 +663,26 @@ def _launch_forward(q, k, v, kv_len0, o, train: bool, keep=None, rate: float = 0
 
 def attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             kv_len0: int | None = None, keep: Optional[torch.Tensor] = None,
-                            rate: float = 0.0, stream: bool = False
+                            rate: float = 0.0, stream: bool = False,
+                            split_row: Optional[bool] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The training mode: (o, row max, row exp sum), the statistics f32
     [B, H, Lq] that :func:`attention_backward` reads; ``keep`` (u8
     [B, H, Lq, Lk]) drops probabilities at ``rate``.  CPU tensors take
     :func:`attention_train_forward_plain`.  ``stream`` takes the streamed
     kernel for more than one query row whatever its plan (its bits are
-    within ulps of the resident kernel's)."""
+    within ulps of the resident kernel's); ``split_row`` True takes the
+    split row kernels and False the row kernel for one query row whatever
+    the rule (o within ulps of each other; the statistics feed the row
+    backward either way)."""
     if q.device.type == "cpu":
         return attention_train_forward_plain(q, k, v, kv_len0, keep, rate)
     B, Lq, H, _ = q.shape
     o = torch.empty_like(q)
     row_max = torch.empty(B, H, Lq, device=q.device)
     row_sum = torch.empty(B, H, Lq, device=q.device)
-    mode = _launch_forward(q, k, v, kv_len0, o, True, keep, rate, row_max, row_sum, stream)
+    mode = _launch_forward(q, k, v, kv_len0, o, True, keep, rate, row_max, row_sum, stream,
+                           split_row)
     count_launch(attention_train_forward, MODES[_elem(q, k, v)] + mode)
     return o, row_max, row_sum
 
@@ -684,9 +770,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`attention_plain` (autograd differentiates it).
     CUDA tensors: where autograd needs a gradient of q, k or v, the training
     forward and the backward kernel; else with ``keep`` the training forward,
-    without it the serving kernel; at any head width, and at up to MAX_LK
-    keys for one query row, any number for more (JAX's positional table
-    stops the MTIO at 5000)."""
+    without it the serving kernel; at any head width and any number of
+    keys, but at up to MAX_LK keys for one query row of more than 256
+    dims (JAX's positional table stops the MTIO at 5000)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len0, keep, rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

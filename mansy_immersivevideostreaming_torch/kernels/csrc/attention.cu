@@ -51,7 +51,41 @@
 //     memory, and the softmax normalises them as jax.nn.softmax does
 //     (exp(s - max) / sum) before the p . v sum, key by key.  Neighbouring
 //     warps are neighbouring heads, so a block's k and v loads are
-//     contiguous.  Each row reads its keys once: nothing to share.
+//     contiguous.  Each row reads its keys once: nothing to share.  Up to
+//     2048 keys only: past them the split row kernels take one query row.
+//
+//   split row kernels (Lq = 1 past 2048 keys at up to 256 dims: the
+//     decode's cross-attention over the distilled 2500 keys at --his-window
+//     5000, a decode over --fut-window past 2048; flash-decoding with JAX's
+//     rounding points).  The row kernel's warp walked its n keys serially,
+//     twice, each key a dependent device load, so at 2500-5000 keys the
+//     walk, not the bytes, set its time (B 4 took as long as B 64).  Here a
+//     (b, head)'s keys are cut into S splits of `keys` keys (a multiple of
+//     32; kernels/attention.py:row_split_plan picks S so that B H S warps
+//     fill the H100 at B 4 as at B 64), a warp a split, 4 warps a CTA (2 at
+//     Dh past 128).  Each warp streams its split's key tiles of 32 rows,
+//     its k rows, later its v rows, through two shared-memory slots of its
+//     own by 16-byte cp.async, tile t + 1 in flight while it takes tile t
+//     (no loop-carried wait on memory, no CTA barrier).  Three launches:
+//     (1) each split's scores into an f32 scratch [B, H, Lk], by the row
+//     backward's arithmetic (lane l's fmaf chain over dims l, l + 32, ...,
+//     the butterfly's sums by reduce_scatter_placed over a tile's 32 keys,
+//     one shuffle a score, then the IEEE division by sqrt(Dh)), and the
+//     split's max m and sum of expf(s - m) (expf, not the streamed kernel's
+//     exp2); (2) every warp of the row combines the splits' (m_s, sum_s)
+//     in split order into the row's max M and its exp sum L, the sum over
+//     s of sum_s expf(m_s - M) (the same operations in each warp, so the
+//     same bits; a split no key reaches adds nothing), so M and L are final
+//     before any p is formed, then p =
+//     expf(s - M) / L (IEEE), the keep mask's / keep_prob, the rounding to T,
+//     and the split's P . v, an fmaf chain a dim over its keys in order, in
+//     f32; (3) a warp a (b, head) sums the splits' partials in split order
+//     and rounds o to T once (with one split launch 2 writes o itself).  In
+//     training M and L are row_max and row_sum, so the row backward, which
+//     recomputes P as expf(score - row_max) / row_sum by the same score
+//     arithmetic, gets this kernel's P bit for bit; o sums in split order,
+//     so it moves from the row kernel's by ulps.  No atomics: two launches
+//     give the same bits.
 //
 //   tile kernel (Lq > 1: the encoder, the teacher-forced causal pass and its
 //     cross-attention, any --his-window).  Run as the row kernel, every
@@ -148,7 +182,7 @@
 // of its launches are bit-equal (no atomics, fixed orders).  The backward
 // (csrc/attention_backward.cu, _split.cu) recomputes each p from row_max
 // and row_sum by its SIMT scores: bit for bit the forward's p after the
-// row and tile kernels, within ulps of it after the streamed one up to 256
+// row, split row and tile kernels, within ulps of it after the streamed one up to 256
 // dims; the wide row kernels forward and backward share one definition of
 // a score, and past 256 dims the backward of more than one row
 // (csrc/attention_backward_wide.cu) takes its scores by the streamed
@@ -221,7 +255,22 @@ struct AttentionArgs {
   int32_t keys;         // M: keys a staged tile (a multiple of 8)
   int32_t rows;         // rows a row tile (at most 32)
   int32_t group;        // R: rows a warp takes at once (4)
-  int32_t stream;       // Lq > 1: 1 takes the streamed tile kernel, 0 the resident one
+  int32_t stream;       // Lq > 1: 1 takes the streamed tile kernel, 0 the resident one;
+                        // Lq = 1: 1 takes the split row kernels (the args are then the
+                        // `a` of a RowSplitArgs), 0 the row kernel
+};
+
+// The split row kernels' arguments (kernels/attention.py:_RowSplitArgs): the
+// forward's (`stream` 1), its plan's `keys` the keys a split (S = ceil(Lk /
+// keys) splits a (b, head)), and the wrapper's f32 scratch.  AttentionArgs
+// itself stays as it was: grown by these fields, it changed the other
+// kernels' code (the row kernel's registers 44 -> 46) and slowed the row
+// kernel on the H100 at 15 to 2048 keys.
+struct RowSplitArgs {
+  AttentionArgs a;
+  float* split_stats;   // [B, H, S, 2]: each split's max and exp sum
+  float* scores;        // [B, H, Lk]: each seen key's score
+  float* partial;       // [B, H, S, Dh]: each split's P . v (S > 1 only)
 };
 
 template <typename T, bool kTrain>
@@ -362,6 +411,224 @@ __global__ void attention_row_wide_kernel(const AttentionArgs a) {
     for (int i = 0; i < 8; ++i) {
       const int d = c * kChunkDims + lane + 32 * i;
       if (d < Dh) orow[d] = from_f32<T>(acc[i]);
+    }
+  }
+}
+
+// ---- Lq = 1 past 2048 keys, Dh <= 256: the split row kernels ----
+// A warp a (b, head, split) of `keys` keys (a multiple of kSplitTile), its
+// key tiles staged through two shared-memory slots of its own by cp.async
+// (tile t + 1 in flight while the warp takes tile t); see the header.
+constexpr int kSplitTile = 32;  // keys a staged tile: one reduce_scatter_placed of 32 scores
+
+// warps a CTA (each a split): 2 at 8 dims a lane, whose two f32 slots take 64 KB a warp
+__host__ __device__ constexpr int split_warps(int P) { return P == 8 ? 2 : 4; }
+
+// the split (b H + h) S + s of this warp, or -1 past the last
+__device__ __forceinline__ long long split_item(const AttentionArgs& a, int S) {
+  const long long item = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  return item < (long long)a.B * a.H * S ? item : -1;
+}
+
+// Tile t of the split's keys [j_begin, j_end) of rows from X (key 0 of the (b,
+// head)) into the warp's slot t % 2, zero past the split's keys and Dh; one
+// commit group a call (empty past the last tile), so cp_async_wait<1> waits
+// for tile t while tile t + 1 stays in flight.
+template <int kD, typename T>
+__device__ __forceinline__ void split_issue(T* slots, const T* X, size_t stride, int j_begin,
+                                            int j_end, int t, int Dh, bool vec, int lane) {
+  const int j0 = j_begin + t * kSplitTile;
+  if (j0 < j_end)
+    stage_rows_as_is<kD>(slots + (t & 1) * kSplitTile * kD, X + (size_t)j0 * stride, stride,
+                         kSplitTile, min(kSplitTile, j_end - j0), Dh, vec, lane, 32);
+  cp_async_commit();
+}
+
+// Launch 1: the split's scores (into a.scores), its max and exp sum (into
+// a.split_stats).  A score is the row backward's: lane l's fmaf chain over
+// dims l, l + 32, ... (chain), summed in warp_sum's butterfly order (by
+// reduce_scatter_placed over the tile's 32 keys: lane l gets key l's), then
+// divided by sqrt(Dh) (IEEE).
+template <typename T, int P>
+__global__ void __launch_bounds__(128) row_split_score_kernel(const RowSplitArgs r) {
+  constexpr int kD = 32 * P;
+  const AttentionArgs& a = r.a;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, S = (a.Lk + a.keys - 1) / a.keys;
+  const long long item = split_item(a, S);
+  if (item < 0) return;
+  const long long bh = item / S;  // b H + h (Lq = 1: q's row too)
+  const int Dh = a.Dh, b = (int)(bh / a.H), h = (int)(bh % a.H);
+  const int j_begin = (int)(item - bh * S) * a.keys;
+  const int j_end = min(min(a.Lk, a.kv_len0), j_begin + a.keys);
+  const int tiles = j_end > j_begin ? (j_end - j_begin + kSplitTile - 1) / kSplitTile : 0;
+  T* slots = reinterpret_cast<T*>(smem) + (threadIdx.x / 32) * 2 * kSplitTile * kD;
+  const size_t stride = (size_t)a.H * Dh;
+  const T* K = static_cast<const T*>(a.k) + ((size_t)b * a.Lk * a.H + h) * Dh;
+  const bool vec = Dh % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a.k) % 16 == 0;
+  float* sc_out = r.scores + bh * a.Lk;
+
+  split_issue<kD>(slots, K, stride, j_begin, j_end, 0, Dh, vec, lane);
+  float q[P];
+  const T* qrow = static_cast<const T*>(a.q) + bh * Dh;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int d = lane + 32 * i;
+    q[i] = d < Dh ? to_f32(qrow[d]) : 0.f;
+  }
+  float mx = -INFINITY;  // the max of the lane's scores
+  for (int t = 0; t < tiles; ++t) {
+    split_issue<kD>(slots, K, stride, j_begin, j_end, t + 1, Dh, vec, lane);
+    cp_async_wait<1>();
+    __syncwarp();  // tile t landed for every lane
+    const T* tile = slots + (t & 1) * kSplitTile * kD;
+    float x[kSplitTile];  // x[p]: the lane's partial of key p ^ lane
+#pragma unroll
+    for (int p = 0; p < kSplitTile; ++p) {
+      const T* krow = tile + (p ^ lane) * kD;
+      float kr[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) kr[i] = to_f32(krow[lane + 32 * i]);
+      x[p] = chain<P>(q, kr, lane, Dh);
+    }
+    const float sc = reduce_scatter_placed<kSplitTile>(x) / a.scale;
+    const int j = j_begin + t * kSplitTile + lane;
+    if (j < j_end) {
+      sc_out[j] = sc;
+      mx = fmaxf(mx, sc);
+    }
+    __syncwarp();  // every lane is done with the slot before tile t + 2 lands in it
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+  // the exp sum from the lane's own scores (read back in batches of 8 tiles), then the butterfly
+  float part = 0.f;
+  for (int t0 = 0; t0 < tiles; t0 += 8) {
+    float s8[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int j = j_begin + (t0 + u) * kSplitTile + lane;
+      s8[u] = j < j_end ? sc_out[j] : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (s8[u] > -INFINITY) part += expf(s8[u] - mx);
+  }
+  const float sum = warp_sum(part);
+  if (lane == 0) {  // an empty split (past the seen keys): -inf and 0
+    r.split_stats[2 * item] = mx;
+    r.split_stats[2 * item + 1] = sum;
+  }
+}
+
+// Launch 2: the row's max M and exp sum L from its splits' statistics (the
+// same operations in every warp of the row, so the same bits), then the
+// split's P . v: p = expf(s - M) / L (the row backward's P), the keep mask,
+// the rounding to T, an fmaf chain a dim over the split's keys in order.
+// One split: o rounded to T; more: the f32 partial for launch 3.
+template <typename T, bool kTrain, int P>
+__global__ void __launch_bounds__(128) row_split_pv_kernel(const RowSplitArgs r) {
+  constexpr int kD = 32 * P;
+  const AttentionArgs& a = r.a;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, S = (a.Lk + a.keys - 1) / a.keys;
+  const long long item = split_item(a, S);
+  if (item < 0) return;
+  const long long bh = item / S;
+  const int Dh = a.Dh, b = (int)(bh / a.H), h = (int)(bh % a.H), s = (int)(item - bh * S);
+  const int j_begin = s * a.keys;
+  const int j_end = min(min(a.Lk, a.kv_len0), j_begin + a.keys);
+  const int tiles = j_end > j_begin ? (j_end - j_begin + kSplitTile - 1) / kSplitTile : 0;
+  T* slots = reinterpret_cast<T*>(smem) + (threadIdx.x / 32) * 2 * kSplitTile * kD;
+  const size_t stride = (size_t)a.H * Dh;
+  const T* V = static_cast<const T*>(a.v) + ((size_t)b * a.Lk * a.H + h) * Dh;
+  const bool vec = Dh % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  const float* sc_in = r.scores + bh * a.Lk;
+  const uint8_t* keep = kTrain && a.keep != nullptr ? a.keep + bh * a.Lk : nullptr;
+
+  split_issue<kD>(slots, V, stride, j_begin, j_end, 0, Dh, vec, lane);
+  // M and L in split order; a split with no seen key (sum 0, max -inf) adds nothing
+  const float2* st = reinterpret_cast<const float2*>(r.split_stats) + bh * S;
+  float M = -INFINITY;
+  for (int u = 0; u < S; ++u) M = fmaxf(M, st[u].x);
+  float L = 0.f;
+  for (int u = 0; u < S; ++u) {
+    const float2 x = st[u];
+    if (x.y > 0.f) L += x.y * expf(x.x - M);
+  }
+  if (kTrain && s == 0 && lane == 0) {
+    a.row_max[bh] = M;
+    a.row_sum[bh] = L;
+  }
+  // the lane's key of a tile: its score and keep byte, a tile ahead
+  auto key_of = [&](int t, float& sc, uint8_t& kp) {
+    const int j = j_begin + t * kSplitTile + lane;
+    sc = j < j_end ? sc_in[j] : 0.f;
+    kp = keep != nullptr && j < j_end ? keep[j] : 1;
+  };
+  float sc_next;
+  uint8_t kp_next;
+  key_of(0, sc_next, kp_next);
+  float acc[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) acc[i] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const float sc = sc_next;
+    const uint8_t kp = kp_next;
+    split_issue<kD>(slots, V, stride, j_begin, j_end, t + 1, Dh, vec, lane);
+    key_of(t + 1, sc_next, kp_next);
+    const int j0 = j_begin + t * kSplitTile, kn = min(kSplitTile, j_end - j0);
+    float p = 0.f;
+    if (lane < kn) {
+      p = expf(sc - M) / L;
+      if (kTrain && keep != nullptr) p = kp ? p / a.keep_prob : 0.f;
+      p = round_as<T>(p);  // bf16: p.astype(v.dtype)
+    }
+    cp_async_wait<1>();
+    __syncwarp();
+    const T* tile = slots + (t & 1) * kSplitTile * kD;
+#pragma unroll 8
+    for (int u = 0; u < kn; ++u) {  // the same for every lane
+      const float pu = __shfl_sync(kFull, p, u);
+#pragma unroll
+      for (int i = 0; i < P; ++i) acc[i] = fmaf(pu, to_f32(tile[u * kD + lane + 32 * i]), acc[i]);
+    }
+    __syncwarp();
+  }
+  if (S == 1) {
+    T* orow = static_cast<T*>(a.o) + bh * Dh;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int d = lane + 32 * i;
+      if (d < Dh) orow[d] = from_f32<T>(acc[i]);
+    }
+  } else {
+    float* part = r.partial + item * Dh;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int d = lane + 32 * i;
+      if (d < Dh) part[d] = acc[i];
+    }
+  }
+}
+
+// Launch 3 (more than one split): a warp a (b, head) sums its splits'
+// partials in split order and rounds o to T once.
+template <typename T, int P>
+__global__ void __launch_bounds__(128) row_split_sum_kernel(const RowSplitArgs r) {
+  const AttentionArgs& a = r.a;
+  const int lane = threadIdx.x % 32, S = (a.Lk + a.keys - 1) / a.keys;
+  const long long bh = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (bh >= (long long)a.B * a.H) return;
+  const float* part = r.partial + bh * S * a.Dh;
+  T* orow = static_cast<T*>(a.o) + bh * a.Dh;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int d = lane + 32 * i;
+    if (d < a.Dh) {
+      float o = part[d];
+      for (int u = 1; u < S; ++u) o += part[(size_t)u * a.Dh + d];
+      orow[d] = from_f32<T>(o);
     }
   }
 }
@@ -928,6 +1195,50 @@ cudaError_t launch_stream_plan(const AttentionArgs& a, cudaStream_t s) {
   }
 }
 
+// The split row kernels' shared memory: each warp's two slots of kSplitTile
+// rows of 32 P values of T (kernels/attention.py:row_split_plan: f32's).
+inline size_t split_smem_bytes(int P, size_t elem) {
+  return (size_t)split_warps(P) * 2 * kSplitTile * 32 * P * elem;
+}
+
+template <typename T, bool kTrain, int P>
+cudaError_t launch_row_split(const RowSplitArgs& r, cudaStream_t stream) {
+  const AttentionArgs& a = r.a;
+  const int S = (a.Lk + a.keys - 1) / a.keys, warps = split_warps(P);
+  const size_t smem = split_smem_bytes(P, sizeof(T));
+  const long long items = (long long)a.B * a.H * S;
+  const unsigned blocks = (unsigned)((items + warps - 1) / warps);
+  auto scores = row_split_score_kernel<T, P>;
+  auto pv = row_split_pv_kernel<T, kTrain, P>;
+  cudaError_t e = opt_in(scores, smem);
+  if (e == cudaSuccess) e = opt_in(pv, smem);
+  if (e != cudaSuccess) return e;
+  scores<<<blocks, 32 * warps, smem, stream>>>(r);
+  pv<<<blocks, 32 * warps, smem, stream>>>(r);
+  if (S > 1) {
+    const long long heads = (long long)a.B * a.H;
+    row_split_sum_kernel<T, P><<<(unsigned)((heads + 3) / 4), 128, 0, stream>>>(r);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, bool kTrain>
+cudaError_t launch_row_split_plan(const RowSplitArgs& r, cudaStream_t s) {
+  const AttentionArgs& a = r.a;
+  if ((long long)a.B * a.H <= 0) return cudaSuccess;
+  if (a.Lq != 1 || a.keys < kSplitTile || a.keys % kSplitTile != 0 || a.Dh < 1 ||
+      a.kv_len0 < 1 || a.Dh > 32 * a.per_lane || r.scores == nullptr ||
+      r.split_stats == nullptr || ((a.Lk + a.keys - 1) / a.keys > 1 && r.partial == nullptr))
+    return cudaErrorInvalidValue;
+  switch (a.per_lane) {
+    case 1: return launch_row_split<T, kTrain, 1>(r, s);
+    case 2: return launch_row_split<T, kTrain, 2>(r, s);
+    case 4: return launch_row_split<T, kTrain, 4>(r, s);
+    case 8: return launch_row_split<T, kTrain, 8>(r, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch(const AttentionArgs& a, int train, cudaStream_t stream) {
   if ((long long)a.B * a.H * a.Lq <= 0) return cudaSuccess;
@@ -955,11 +1266,24 @@ cudaError_t launch(const AttentionArgs& a, int train, cudaStream_t stream) {
 
 // train = 0: the serving mode; 1: the training mode (row_max and row_sum
 // written, keep applied where given).  elem = 0: f32 tensors; 1: bf16.
-// Lq = 1 takes the row kernel (its wide variant past 256 dims), Lq > 1 the
-// tile kernel of the args' plan: the resident one, or with `stream` the
-// streamed one.
+// Lq = 1 takes the row kernel (its wide variant past 256 dims) or, with
+// `stream`, the split row kernels, two or three launches in order on the
+// stream (args then points at a RowSplitArgs, whose first member it is);
+// Lq > 1 the tile kernel of the args' plan: the resident one, or with
+// `stream` the streamed one.
 extern "C" int attention_launch(const AttentionArgs* args, int train, int elem, void* stream) {
-  if (elem == 0) return (int)launch<float>(*args, train, (cudaStream_t)stream);
-  if (elem == 1) return (int)launch<mansy::bf16>(*args, train, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (args->Lq == 1 && args->stream) {
+    const RowSplitArgs& r = *reinterpret_cast<const RowSplitArgs*>(args);
+    if (elem == 0)
+      return (int)(train ? launch_row_split_plan<float, true>(r, s)
+                         : launch_row_split_plan<float, false>(r, s));
+    if (elem == 1)
+      return (int)(train ? launch_row_split_plan<mansy::bf16, true>(r, s)
+                         : launch_row_split_plan<mansy::bf16, false>(r, s));
+    return (int)cudaErrorInvalidValue;
+  }
+  if (elem == 0) return (int)launch<float>(*args, train, s);
+  if (elem == 1) return (int)launch<mansy::bf16>(*args, train, s);
   return (int)cudaErrorInvalidValue;
 }

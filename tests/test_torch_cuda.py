@@ -1312,8 +1312,8 @@ def test_attention_tile_kernel_at_ragged_shapes_on_card(cuda_device, Lq, Lk, kv_
 
 
 # K8 past its earlier limits (Lq, Lk, kv_len0): one query row over 3073 and
-# 5000 keys (the row kernel's shared memory past 48 KB: decode at
-# --fut-window 5000), the encoder at --his-window 5000 (full and causal;
+# 5000 keys (the split row kernels: decode at --fut-window 5000), the
+# encoder at --his-window 5000 (full and causal;
 # the streamed tile kernel), the teacher-forced cross-attention over the
 # distilled 2500, and a row tile off its 32 rows at 3000 keys
 LONG_SHAPES = [(1, 3073, None), (1, 5000, 4000), (33, 5000, None), (33, 5000, 1),
@@ -1327,16 +1327,17 @@ def test_attention_past_2048_keys_on_card(cuda_device, Lq, Lk, kv_len0, dtype):
     """Serving, training (keep mask at 0.1) and backward over up to 5000
     keys, 2 heads of 64, a batch of 2, against the plain versions at the
     tolerances of the ragged-shape test; two launches bit-equal; more than
-    one query row takes the streamed kernel, and more than a row tile the
-    split backward, each counted in its own mode."""
+    one query row takes the streamed kernel (one row the split row
+    kernels), and more than a row tile the split backward, each counted in
+    its own mode."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     plan = K8.attention_forward_plan(2, Lq, Lk, 2, 64)
-    assert plan.kernel == ("row" if Lq == 1 else "stream")
+    assert plan.kernel == ("row_split" if Lq == 1 else "stream")
     assert K8.attention_backward_plan(2, Lq, Lk, 2, 64).kernel == (
         "row" if Lq == 1 else "tile_split" if Lq > 32 else "tile")
     seed = Lq + Lk
     elem = "f32" if dtype == torch.float32 else "bf16"
-    mode = elem + ("_stream" if Lq > 1 else "")
+    mode = elem + ("_stream" if Lq > 1 else "_rowsplit")
     backward_mode = elem + ("_split" if Lq > 32 else "")
     before = K8.attention_train_forward.launches_by_mode.get(mode, 0)
     before_backward = K8.attention_backward.launches_by_mode.get(backward_mode, 0)
@@ -1625,17 +1626,114 @@ def test_attention_backward_split_gives_the_one_cta_bits_on_card(cuda_device, Lq
 
 @pytest.mark.cuda
 def test_attention_refuses_one_row_past_its_scores_on_card(cuda_device):
-    """One query row holds its scores in shared memory: past MAX_LK keys (far
-    past the 5000 of JAX's positional table) the wrapper raises, as it does
-    for any plan that does not fit; more rows stream at any length."""
+    """One query row of a head past 256 dims (the wide row kernel) holds its
+    scores in shared memory: past MAX_LK keys (far past the 5000 of JAX's
+    positional table) the wrapper raises, as it does for any plan that does
+    not fit; up to 256 dims the split row kernels take one row at any
+    length (Dh 4 past MAX_LK against the plain version), more rows stream."""
     from mansy_immersivevideostreaming_torch.kernels import attention as K8
     q = torch.randn(1, 1, 1, 4, device=cuda_device)
     k = torch.randn(1, K8.MAX_LK + 1, 1, 4, device=cuda_device)
+    want = K8.attention_plain(q, k, k)
+    torch.testing.assert_close(K8.attention(q, k, k), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    qw = torch.randn(1, 1, 1, 257, device=cuda_device)
+    kw = torch.randn(1, K8.MAX_LK + 1, 1, 257, device=cuda_device)
     with pytest.raises(ValueError, match="at most 14528 keys"):
-        K8.attention(q, k, k)
-    torch.testing.assert_close(K8.attention(q, k[:, :K8.MAX_LK], k[:, :K8.MAX_LK]),
-                               K8.attention_plain(q, k[:, :K8.MAX_LK], k[:, :K8.MAX_LK]),
+        K8.attention(qw, kw, kw)
+    torch.testing.assert_close(K8.attention(qw, kw[:, :K8.MAX_LK], kw[:, :K8.MAX_LK]),
+                               K8.attention_plain(qw, kw[:, :K8.MAX_LK], kw[:, :K8.MAX_LK]),
                                rtol=1e-5, atol=1e-6)
+
+
+# the split row kernels (one query row past 2048 keys) at 8 heads of 64 (B,
+# Lk, kv_len0): vp_train_long's B 4 and vp_test_long's B 64 over the
+# distilled 2500 keys, 2049 and 5000 keys, all keys seen and a prefix that
+# ends inside a split (none seen past it)
+ROW_SPLIT_SHAPES = [(B, Lk, kv_len0) for B in (4, 64) for Lk in (2049, 2500, 5000)
+                    for kv_len0 in (None, Lk // 3 + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lk,kv_len0", ROW_SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_split_row_kernels_on_card(cuda_device, B, Lk, kv_len0, dtype):
+    """The split row kernels against the plain versions at K8's limits:
+    serving, training with and without a keep mask at 0.1, and the row
+    backward fed their row max and sum (which recomputes their P) against
+    the plain autograd (f32: rtol 1e-5 plus 1e-5 of the largest entry; bf16
+    one ulp plus ``bf16_slack``); two launches bit-equal; each launch
+    counted in the ``_rowsplit`` mode."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_forward_plan(B, 1, Lk, 8, 64).kernel == "row_split"
+    mode = ("f32" if dtype == torch.float32 else "bf16") + "_rowsplit"
+    before = (K8.attention.launches_by_mode.get(mode, 0),
+              K8.attention_train_forward.launches_by_mode.get(mode, 0))
+    for dropout in (False, True):
+        if dtype == torch.bfloat16:
+            _attention_bf16_matches_plain(K8, B, (1, Lk, kv_len0), 8, 64, dropout, Lk + B)
+            continue
+        g = torch.Generator(device=cuda_device).manual_seed(Lk + B)
+        q, k, v = (torch.randn(B, L, 8, 64, device=cuda_device, generator=g) for L in (1, Lk, Lk))
+        serve = K8.attention(q, k, v, kv_len0)
+        assert torch.equal(serve, K8.attention(q, k, v, kv_len0))
+        assert torch.equal(serve, K8.attention_train_forward(q, k, v, kv_len0)[0])
+        want = K8.attention_plain(q, k, v, kv_len0)
+        torch.testing.assert_close(serve, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+        _attention_training_matches_plain(K8, B, (1, Lk, kv_len0), 8, 64, dropout, Lk + B)
+    assert K8.attention.launches_by_mode[mode] > before[0]
+    assert K8.attention_train_forward.launches_by_mode[mode] > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lk,kv_len0", [(512, 15, None), (512, 15, 8), (64, 256, None),
+                                          (3, 2048, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_split_row_kernels_forced_on_card(cuda_device, B, Lk, kv_len0, dtype):
+    """``split_row=True`` where the row kernel runs (phase 2i's forced
+    cases): serving and training (keep mask at 0.1) within K8's limits of
+    the plain version and of the row kernel, two launches bit-equal, and
+    the row backward fed the forced kernels' statistics against the plain
+    autograd."""
+    from mansy_immersivevideostreaming_torch.kernels import attention as K8
+    assert K8.attention_forward_plan(B, 1, Lk, 8, 64).kernel == "row"
+    g = torch.Generator(device=cuda_device).manual_seed(Lk + B)
+    q, k, v, dout = (torch.randn(B, L, 8, 64, device=cuda_device, generator=g).to(dtype)
+                     for L in (1, Lk, Lk, 1))
+    keep = (torch.rand(B, 8, 1, Lk, device=cuda_device, generator=g) < 0.9).to(torch.uint8)
+    bf16 = dtype == torch.bfloat16
+    slack = K8.bf16_slack(q, k, v, dout, kv_len0, keep, 0.1) if bf16 else None
+
+    def agree(got, want, sl):
+        if bf16:
+            assert K8.bf16_excess(got, want, sl) <= 1
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+
+    o, o2 = torch.empty_like(q), torch.empty_like(q)
+    for out in (o, o2):
+        assert K8._launch_forward(q, k, v, kv_len0, out, False, split_row=True) == "_rowsplit"
+    assert torch.equal(o, o2)
+    serve_slack = K8.bf16_slack(q, k, v, dout, kv_len0)[0] if bf16 else None
+    agree(o, K8.attention_plain(q, k, v, kv_len0), serve_slack)
+    agree(o, K8.attention(q, k, v, kv_len0), serve_slack)
+    fwd = K8.attention_train_forward(q, k, v, kv_len0, keep, 0.1, split_row=True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, K8.attention_train_forward(
+        q, k, v, kv_len0, keep, 0.1, split_row=True)))
+    want = K8.attention_train_forward_plain(q, k, v, kv_len0, keep, 0.1)
+    agree(fwd[0], want[0], slack[0] if bf16 else None)
+    for a, b in zip(fwd[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    wantg = torch.autograd.grad(K8.attention_plain(*leaves, kv_len0, keep, 0.1), leaves, dout)
+    got = K8.attention_backward(dout, q, k, v, *fwd, kv_len0, keep, 0.1)
+    scale = max(float(w.abs().max()) for w in wantg)
+    for a, b, i in zip(got, wantg, range(3)):
+        if bf16:
+            assert K8.bf16_excess(a, b, slack[1 + i]) <= 1
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
 
 
 # ------------------------------------------------------ hidden widths

@@ -564,9 +564,17 @@ def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan, chunks: int = 1):
     chunks; in a key tile the group takes the key groups of 8 below the
     last key its rows see (the score tile's n-tiles: a (row, key) its row
     sees is kept), P . v in steps of 8 (f32) or 16 (bf16) keys, p 0 where
-    the row does not see the key; the write once an output chunk."""
+    the row does not see the key; the write once an output chunk.  The split
+    row kernels: :func:`_row_split_walk`."""
     scores, pv = np.zeros((Lq, Lk), int), np.zeros((Lq, Lk), int)
     written = np.zeros(Lq, int)
+    if plan.kernel == "row_split":
+        splits = _row_split_walk(Lk, kv_len0, plan)
+        for taken, order in splits:
+            scores[0] += taken
+            pv[0, order] += 1
+        written[0] = 1
+        return scores, pv, written
     seen_by = lambda r: min(Lk, kv_len0 + r)
     if plan.kernel in ("row", "row_wide"):
         for r in range(Lq):
@@ -600,6 +608,27 @@ def _forward_walk(Lq: int, Lk: int, kv_len0: int, plan, chunks: int = 1):
                             pv[r, j0:min(j0 + jn, seen_by(r))] += 1
             written[list(rows)] += chunks
     return scores, pv, written
+
+
+def _row_split_walk(Lk: int, kv_len0: int, plan):
+    """The split row kernels' walk of one (b, head) as ``csrc/attention.cu``
+    takes it, a split at a time in split order (the order launch 2 combines
+    their statistics in and launch 3 their partials): for each split, (times
+    its score launch takes each key, the keys its P . v chain takes in
+    order).  Split s holds keys [s keys, (s + 1) keys) below the keys the
+    row sees; its warp walks them in tiles of ROW_SPLIT_TILE, a lane a key
+    of the tile's reduce_scatter, then the tile's keys one by one."""
+    n = min(Lk, kv_len0)
+    out = []
+    for s in range(K8.row_split_splits(Lk, plan)):
+        begin, end = s * plan.keys, min(n, (s + 1) * plan.keys)
+        taken, order = np.zeros(Lk, int), []
+        for j0 in range(begin, end, K8.ROW_SPLIT_TILE):
+            lanes = j0 + np.arange(K8.ROW_SPLIT_TILE)
+            taken[lanes[lanes < end]] += 1
+            order += list(range(j0, min(j0 + K8.ROW_SPLIT_TILE, end)))
+        out.append((taken, order))
+    return out
 
 
 def _mma_dims_walk(Dh: int, width: int, chunks: int, splits: int) -> np.ndarray:
@@ -768,8 +797,10 @@ def test_attention_plans_past_the_earlier_limits_cover_every_row_key_and_dim(Lq,
         assert all(np.array_equal(taken, seen.astype(int)) for taken in takens)
         assert (bwd_written == 1).all()
     assert fwd.smem_bytes <= H100_SMEM and bwd.smem_bytes <= H100_SMEM
-    if Lq == 1:
-        assert fwd.kernel == ("row_wide" if wide else "row") and Lk <= K8.MAX_LK
+    if Lq == 1:  # past 2048 keys at up to 256 dims the split row kernels
+        assert fwd == (K8.ForwardPlan("row_wide", 8, Lk, 1, 1, 128, B * H // 4, 16 * Lk)
+                       if wide else K8.row_split_plan(B, Lk, H, Dh))
+        assert not wide or Lk <= K8.MAX_LK
         assert bwd.kernel == ("row_wide" if wide else "row")
         return
     assert fwd.kernel == "stream" if wide or Lk > 2490 else fwd.kernel == "tile"
@@ -1012,6 +1043,100 @@ def test_attention_backward_split_on_cpu_takes_the_plain_version():
     want = K8.attention_backward_plain(dout, q, k, v, o, row_max, row_sum, 3)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (K8.attention_backward.launches, K8.attention_backward.launches_by_mode) == before
+
+
+ROW_SPLIT_KEYS = (2049, 2500, 3073, 5000, 14529)
+# the split row plan at 8 heads, (B, Lk) -> (keys a split, splits S); Dh does not move them
+ROW_SPLIT_PINNED = {(4, 2049): (64, 33), (4, 2500): (96, 27), (4, 3073): (96, 33),
+                    (4, 5000): (160, 32), (4, 14529): (448, 33),
+                    (64, 2049): (704, 3), (64, 2500): (864, 3), (64, 3073): (1056, 3),
+                    (64, 5000): (1696, 3), (64, 14529): (4864, 3),
+                    **{(512, Lk): (-(-Lk // 32) * 32, 1) for Lk in ROW_SPLIT_KEYS}}
+
+
+@pytest.mark.parametrize("B", [4, 64, 512])
+@pytest.mark.parametrize("Lk", ROW_SPLIT_KEYS)
+@pytest.mark.parametrize("Dh", [1, 64, 256])
+def test_attention_row_split_plan_is_pinned(B, Lk, Dh):
+    """One query row past 2048 keys at up to 256 dims takes the split row
+    kernels: the (b, head)'s keys in S splits of ``keys`` keys (a multiple
+    of 32, none empty at kv_len0 = Lk), a warp a split, 4 warps a CTA (2 at
+    8 dims a lane), the grid every (b, head, split) once; at B 4 and 64
+    B H S warps give each of the H100's 132 SMs 6 or more (at B 512 one
+    split: B H warps do); shared memory each warp's two slots of 32 rows of
+    32 P values (f32; bf16 half), within 227 KB; the scratch the wrapper
+    allocates (f32): each split's max and sum, each key's score, each
+    split's P . v where there are two or more."""
+    H = 8
+    plan = K8.attention_forward_plan(B, 1, Lk, H, Dh)
+    keys, S = ROW_SPLIT_PINNED[(B, Lk)]
+    per_lane, warps = {1: (1, 4), 64: (2, 4), 256: (8, 2)}[Dh]
+    assert plan == K8.ForwardPlan("row_split", per_lane, keys, 1, 1, 32 * warps,
+                                  -(-B * H * S // warps), 4 * warps * 2 * 32 * 32 * per_lane)
+    assert plan == K8.row_split_plan(B, Lk, H, Dh) and K8.row_split_splits(Lk, plan) == S
+    assert keys % K8.ROW_SPLIT_TILE == 0 and (S - 1) * keys < Lk <= S * keys
+    assert (plan.blocks - 1) * warps < B * H * S <= plan.blocks * warps
+    assert B * H * S >= 6 * 132
+    assert plan.smem_bytes <= H100_SMEM
+    assert K8.row_split_scratch(B, H, Lk, Dh, plan) == (
+        2 * B * H * S, B * H * Lk, B * H * S * Dh if S > 1 else 0)
+    assert K8.forward_mode(plan, Dh) == "_rowsplit"
+
+
+@pytest.mark.parametrize("B", [4, 64, 512])
+@pytest.mark.parametrize("Lk", ROW_SPLIT_KEYS)
+def test_attention_row_split_walk_takes_every_seen_key_once(B, Lk):
+    """The split row kernels' walk at kv_len0 1, a middle value and Lk:
+    every key the row sees is scored once and enters P . v once, in key
+    order within its split (split s holds keys [s keys, (s + 1) keys)), and
+    the splits, taken in split order, cover the seen keys in order; no key
+    past them is touched."""
+    plan = K8.attention_forward_plan(B, 1, Lk, 8, 64)
+    for kv_len0 in (1, (Lk + 1) // 2, Lk):
+        n = min(Lk, kv_len0)
+        splits = _row_split_walk(Lk, kv_len0, plan)
+        assert len(splits) == K8.row_split_splits(Lk, plan)
+        assert np.array_equal(sum(taken for taken, _ in splits), (np.arange(Lk) < n).astype(int))
+        assert [j for _, order in splits for j in order] == list(range(n))
+        for s, (_, order) in enumerate(splits):
+            assert all(s * plan.keys <= j < (s + 1) * plan.keys for j in order)
+
+
+def test_attention_row_split_is_forced_and_refused_as_planned():
+    """``split_row`` True takes the split row kernels for one query row at
+    any key count (phase 2i times them at 1 x 15, 1 x 256 and 1 x 2048),
+    False the row kernel past 2048 keys (its scores in shared memory, so
+    past MAX_LK it no longer fits); either refuses more rows and heads past
+    256 dims, which keep the wide row kernel."""
+    plan = lambda Lk, Dh=64, B=512, Lq=1, **kw: K8.attention_forward_plan(B, Lq, Lk, 8, Dh, **kw)
+    assert plan(15, split_row=True) == K8.ForwardPlan("row_split", 2, 32, 1, 1, 128, 1024, 65536)
+    assert plan(256, B=64, split_row=True) == K8.row_split_plan(64, 256, 8, 64)
+    assert plan(2048, split_row=True)[:3] == ("row_split", 2, 2048)
+    assert plan(2048) == plan(2048, split_row=False) == K8.ForwardPlan(
+        "row", 8, 2048, 1, 1, 128, 1024, 16 * 2048)
+    assert plan(5000, split_row=False) == K8.ForwardPlan("row", 8, 5000, 1, 1, 128, 1024, 80000)
+    assert plan(K8.MAX_LK + 1, split_row=False).smem_bytes > K8.SMEM_BYTES
+    assert plan(K8.MAX_LK + 1, Dh=257).smem_bytes > K8.SMEM_BYTES  # the wide row kernel's
+    assert plan(5000, Dh=257).kernel == "row_wide"
+    for kw in ({"Lq": 2}, {"Dh": 257}):
+        for split_row in (True, False):
+            with pytest.raises(ValueError, match="split row"):
+                plan(5000, split_row=split_row, **kw)
+
+
+def test_attention_row_split_on_cpu_takes_the_plain_version():
+    """CPU tensors take the plain version with ``split_row`` too, and count
+    no launch."""
+    rng = np.random.default_rng(24)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, L, 2, 8)), dtype=torch.float32)
+               for L in (1, 70, 70))
+    before = (K8.attention_train_forward.launches,
+              dict(K8.attention_train_forward.launches_by_mode))
+    got = K8.attention_train_forward(q, k, v, 40, split_row=True)
+    want = K8.attention_train_forward_plain(q, k, v, 40)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (K8.attention_train_forward.launches,
+            K8.attention_train_forward.launches_by_mode) == before
 
 
 def _prefix(Lk: int, t: int):
